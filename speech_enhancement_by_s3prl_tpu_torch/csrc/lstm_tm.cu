@@ -1,0 +1,282 @@
+// Time-major bidirectional LSTM recurrence (forward only), f32, for Hopper.
+//
+// Replaces: speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py,
+//   lstm_bidir_pallas_tm / _kernel_tm (the recurrence that every bidirectional
+//   layer of the enhance path runs).
+//
+// Computes, for each direction d in {0, 1} and each step t = 0 .. T-1, for the
+// whole batch:
+//   gates = xw[d, :, t] + h_{t-1} @ w_hh_t[d]        (gate order i, f, g, o)
+//   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
+// with h and c starting at zero and kept in f32. Direction 1 receives its own
+// already time-flipped xw, so both directions walk t upward.
+//
+// What bounds it on this card: the T steps are strictly sequential, and each
+// step is a tiny (B, H) x (H, 4H) product. At the flagship width (H = 256) one
+// direction's W_hh^T is 256 x 1024 x 4 B = 1 MiB, far above the 227 KB of
+// shared memory one block can hold, so the TPU design (weights and state
+// resident in one core's VMEM for the whole sequence) does not fit one SM.
+// Re-reading W_hh^T from L2 every step would make each step wait on 2 MiB of
+// L2 traffic; launching one kernel per step would pay a launch per step.
+//
+// Design: one persistent cooperative launch per layer. Block k owns one
+// direction and a slice of K hidden units; its 4K columns of W_hh^T stay in
+// shared memory for the whole sequence (K = 8 at H = 256: 32 KB a block, 64
+// blocks). Each step a block stages h_{t-1} of its direction (read from the
+// hs output of the previous step, through L2, bypassing L1), computes its
+// (B, 4K) gates with f32 FMAs, updates its slice of c (kept in shared
+// memory), and writes h_t into hs. One grid-wide barrier per step orders the
+// h_t writes before any block reads them at t + 1; since h_t is read from hs
+// itself, no separate h buffer is needed. Per step the only device-memory
+// traffic is the xw slice in and the h slice out; the cost left is the
+// barrier and the latency of the short dot products, which later work can cut
+// (tensor cores, clusters with distributed shared memory in place of the grid
+// barrier, bf16 xw streams).
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+// Rows of h_{t-1} staged in shared memory at once, as a count of floats.
+constexpr int kStageFloats = 16384;
+// Loads of h_{t-1} each thread keeps in flight while staging: the staging
+// is a run of L2 round trips, so batching them hides their latency.
+constexpr int kInFlight = 8;
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// Dynamic shared memory layout (rows padded to H + 1 entries, so that lanes
+// reading the same i of different rows hit different banks):
+//   w_s [K][H + 1] float4  the 4 gate weights of hidden unit j0 + u for input i
+//   h_s [BT][H + 1] float  a chunk of batch rows of h_{t-1}
+//   c_s [B][K]      float  this block's slice of the cell state
+// R: batch rows per thread (1 for small batches, 4 from B = 4 up).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+                     float* hs, int B, int T, int H, int K, int BT, int G) {
+  extern __shared__ float4 smem4[];
+  float4* w_s = smem4;
+  const int HP = H + 1;
+  float* h_s = reinterpret_cast<float*>(w_s + K * HP);
+  float* c_s = h_s + BT * HP;
+
+  cg::grid_group grid = cg::this_grid();
+  const int blocks_per_dir = H / K;
+  const int d = blockIdx.x / blocks_per_dir;
+  const int j0 = (blockIdx.x % blocks_per_dir) * K;
+  const int H4 = 4 * H;
+
+  const float* whh = w_hh_t + (size_t)d * H * H4;
+  for (int idx = threadIdx.x; idx < K * H; idx += blockDim.x) {
+    const int u = idx / H, i = idx % H;
+    const float* row = whh + (size_t)i * H4 + j0 + u;
+    w_s[u * HP + i] = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
+  }
+  for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x) c_s[idx] = 0.0f;
+
+  const float* xw_d = xw + (size_t)d * B * T * H4;
+  float* hs_d = hs + (size_t)d * B * T * H;
+  // G lanes share one tile of outputs and split its dot products over H; G is a power of two <= 32, so a group never straddles
+  // a warp and the shuffles below stay inside it.
+  const int per_pass = blockDim.x / G;
+  const int group = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+
+  for (int t = 0; t < T; ++t) {
+    for (int b0 = 0; b0 < B; b0 += BT) {
+      const int bt = min(BT, B - b0);
+      __syncthreads();  // earlier readers of h_s are done; w_s / c_s are set
+      if (t == 0) {
+        for (int idx = threadIdx.x; idx < bt * H; idx += blockDim.x)
+          h_s[(idx / H) * HP + idx % H] = 0.0f;
+      } else {
+        // h_{t-1} rows were written by other blocks at t - 1: __ldcg reads
+        // them from L2, never from a stale L1 line. 16-byte loads where the
+        // rows allow them, kInFlight of them in flight per thread.
+        const int vec = (H % 4 == 0) ? 4 : 1;
+        const int per_row = H / vec;
+        const int n = bt * per_row;
+        for (int base = threadIdx.x; base < n; base += blockDim.x * kInFlight) {
+          float4 v[kInFlight];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const int k = base + q * blockDim.x;
+            if (k < n) {
+              const float* row = hs_d + ((size_t)(b0 + k / per_row) * T + (t - 1)) * H;
+              if (vec == 4) {
+                v[q] = __ldcg(reinterpret_cast<const float4*>(row) + k % per_row);
+              } else {
+                v[q].x = __ldcg(row + k % per_row);
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const int k = base + q * blockDim.x;
+            if (k < n) {
+              float* dst = h_s + (k / per_row) * HP + (k % per_row) * vec;
+              dst[0] = v[q].x;
+              if (vec == 4) {
+                dst[1] = v[q].y;
+                dst[2] = v[q].z;
+                dst[3] = v[q].w;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // a tile is R batch rows x one hidden unit: the thread reuses each
+      // W_hh^T value it reads from shared memory for R rows
+      const int tiles = ((bt + R - 1) / R) * K;
+      for (int o0 = 0; o0 < tiles; o0 += per_pass) {
+        const int o = o0 + group;
+        const bool active = o < tiles;
+        const int rg = active ? o / K : 0;
+        const int u = active ? o % K : 0;
+        const bool owner = active && lane == 0;
+        const float* hrow[R];
+        float x[R][4];
+        // issue the xw loads of this tile now; they land during the FMAs.
+        // Rows past bt repeat row bt - 1, and their results are dropped.
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int r = min(rg * R + q, bt - 1);
+          hrow[q] = h_s + r * HP;
+          x[q][0] = x[q][1] = x[q][2] = x[q][3] = 0.0f;
+          if (owner) {
+            const float* xp = xw_d + ((size_t)(b0 + r) * T + t) * H4 + j0 + u;
+            x[q][0] = xp[0];
+            x[q][1] = xp[H];
+            x[q][2] = xp[2 * H];
+            x[q][3] = xp[3 * H];
+          }
+        }
+        float a[R][4];
+#pragma unroll
+        for (int q = 0; q < R; ++q) a[q][0] = a[q][1] = a[q][2] = a[q][3] = 0.0f;
+        if (active) {
+          const float4* wcol = w_s + u * HP;
+          for (int i = lane; i < H; i += G) {
+            const float4 w = wcol[i];
+#pragma unroll
+            for (int q = 0; q < R; ++q) {
+              const float hv = hrow[q][i];
+              a[q][0] = fmaf(hv, w.x, a[q][0]);
+              a[q][1] = fmaf(hv, w.y, a[q][1]);
+              a[q][2] = fmaf(hv, w.z, a[q][2]);
+              a[q][3] = fmaf(hv, w.w, a[q][3]);
+            }
+          }
+        }
+        // every lane of the warp reaches these shuffles (the loop bounds are
+        // uniform over the block)
+        for (int off = G >> 1; off > 0; off >>= 1) {
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              a[q][g] += __shfl_xor_sync(0xffffffffu, a[q][g], off);
+          }
+        }
+        if (owner) {
+          const int j = j0 + u;
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const int r = rg * R + q;
+            if (r < bt) {
+              const int b = b0 + r;
+              const float ig = sigmoid_f32(x[q][0] + a[q][0]);
+              const float fg = sigmoid_f32(x[q][1] + a[q][1]);
+              const float gg = tanhf(x[q][2] + a[q][2]);
+              const float og = sigmoid_f32(x[q][3] + a[q][3]);
+              const float c = fg * c_s[b * K + u] + ig * gg;
+              c_s[b * K + u] = c;
+              hs_d[((size_t)b * T + t) * H + j] = og * tanhf(c);
+            }
+          }
+        }
+      }
+    }
+    grid.sync();  // h_t of every block is in hs before anyone reads it
+  }
+}
+
+size_t smem_bytes(int B, int H, int K, int BT) {
+  return sizeof(float) * ((size_t)4 * K * (H + 1) + (size_t)BT * (H + 1) + (size_t)B * K);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the recurrence on `stream`. xw (2, B, T, 4H), w_hh_t (2, H, 4H) and
+// hs (2, B, T, H) are contiguous f32 device pointers on `device`. Returns the
+// first non-zero CUDA status among the set-up calls, the cooperative launch's
+// own status (which reports a grid too large to be co-resident) and
+// cudaGetLastError(); 0 on success. Does not synchronise.
+int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T,
+                      int H, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+
+  int sms = 0, coop = 0, smem_optin = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)))
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&smem_optin,
+                                    cudaDevAttrMaxSharedMemoryPerBlockOptin, device)))
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+
+  const int BT = B < kStageFloats / H ? B : (kStageFloats / H > 0 ? kStageFloats / H : 1);
+  // K: hidden units per block. Start at 8 (or the largest power of two that
+  // divides H) and widen while the grid would not be co-resident.
+  int K = 8;
+  while (K > 1 && H % K) K >>= 1;
+  const int R = B >= 4 ? 4 : 1;
+  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4>
+                          : (const void*)lstm_bidir_tm_kernel<1>;
+  for (;;) {
+    const size_t smem = smem_bytes(B, H, K, BT);
+    const int grid = 2 * (H / K);
+    if (smem <= (size_t)smem_optin) {
+      if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem)))
+        return (int)err;
+      int per_sm = 0;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                               smem)))
+        return (int)err;
+      if (grid <= per_sm * sms) {
+        const int tiles = ((B < BT ? B : BT) + R - 1) / R * K;
+        int G = 32;
+        while (G > 1 && (kThreads / G) < tiles) G >>= 1;
+        void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&B, (void*)&T,
+                        (void*)&H,  (void*)&K,      (void*)&BT, (void*)&G};
+        err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
+                                          (cudaStream_t)stream);
+        if (err != cudaSuccess) return (int)err;
+        return (int)cudaGetLastError();
+      }
+    }
+    if (H % (2 * K) || 2 * (H / (2 * K)) < 2) break;
+    K *= 2;
+  }
+  return (int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+const char* lstm_tm_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

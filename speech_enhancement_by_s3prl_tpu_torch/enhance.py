@@ -1,0 +1,95 @@
+"""Batch enhancement CLI (counterpart of the repository's ``enhance.py``).
+
+Loads a trained ``from_rawfeature`` downstream checkpoint and enhances WAV
+files: decode -> bucketed batches on the device (STFT, model, iSTFT with
+the noisy phase, level renorm) -> 16-bit WAV out.
+
+  python -m speech_enhancement_by_s3prl_tpu_torch.enhance --ckpt result/exp1 \\
+      --inputs 'noisy/*.wav' --outdir enhanced/ --device cuda
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+
+import numpy as np
+
+from .data.audio_io import load_audio, write_wav
+
+
+def find_wav_files(root: str):
+    out = []
+    for dirpath, _, names in os.walk(root):
+        out += [os.path.join(dirpath, n) for n in names if n.lower().endswith(".wav")]
+    return sorted(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ckpt", required=True, help="checkpoint file or dir")
+    ap.add_argument("--upstream_ckpt", default="",
+                    help="relocated S3PRL pretraining checkpoint that records "
+                         "the STFT geometry")
+    ap.add_argument("--dckpt", default="",
+                    help="relocated checkpoint that records the downstream "
+                         "feature and model config")
+    ap.add_argument("--inputs", required=True, help="glob/dir of noisy WAVs")
+    ap.add_argument("--outdir", default="enhanced")
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--sample_rate", type=int, default=16000)
+    ap.add_argument("--target_level", type=float, default=-25.0,
+                    help="output level in dB")
+    ap.add_argument("--device", required=True,
+                    help="torch device to run on, e.g. cuda or cpu")
+    ap.add_argument("--artifact", default="",
+                    help="export artifacts are not ported yet (ROADMAP A10)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="multi-device serving is not ported yet (ROADMAP A12)")
+    args = ap.parse_args(argv)
+    if args.artifact:
+        ap.error("--artifact is not ported yet (ROADMAP A10)")
+    if args.mesh:
+        ap.error("--mesh is not ported yet (ROADMAP A12)")
+
+    from .serve import build_enhancer
+
+    # offline CLI: fixed --batch_size chunks, no power-of-two row rounding,
+    # and a 30 s bucket ceiling
+    enhancer = build_enhancer(
+        args.ckpt, args.sample_rate, args.target_level, device=args.device,
+        max_bucket_ms=30000, round_pow2=False,
+        upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
+    )
+
+    if os.path.isdir(args.inputs):
+        files = find_wav_files(args.inputs)
+    else:
+        files = sorted(glob.glob(args.inputs))
+    if not files:
+        raise SystemExit(f"no inputs matched {args.inputs}")
+    os.makedirs(args.outdir, exist_ok=True)
+
+    t0 = time.time()
+    total_audio = 0.0
+    for i in range(0, len(files), args.batch_size):
+        chunk = files[i : i + args.batch_size]
+        wavs = [load_audio(f, sr=args.sample_rate)[0] for f in chunk]
+        lengths = np.array([len(w) for w in wavs])
+        out = enhancer.run_batch(wavs)
+        for j, f in enumerate(chunk):
+            name = os.path.splitext(os.path.basename(f))[0] + ".wav"
+            write_wav(os.path.join(args.outdir, name),
+                      out[j][: lengths[j]], args.sample_rate)
+        total_audio += lengths.sum() / args.sample_rate
+        print(f"[enhance] {min(i + args.batch_size, len(files))}/{len(files)}",
+              flush=True)
+
+    dt = time.time() - t0
+    print(f"[enhance] {len(files)} files, {total_audio:.1f}s audio in "
+          f"{dt:.1f}s wall ({total_audio / dt:.1f}x realtime incl. I/O)")
+
+
+if __name__ == "__main__":
+    main()

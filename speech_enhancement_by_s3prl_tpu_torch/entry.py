@@ -1,0 +1,74 @@
+"""The flagship model and its enhance closure (counterpart of
+``__graft_entry__.py::_build`` and ``make_enhance``).
+
+Flagship: 40 log-mel bands with 2 deltas (120 dims) into a ``Residual``
+head of 3 bidirectional LSTM layers of 256, a Dense 512 -> 201 and a
+sigmoid mask on the noisy power spectrum; iSTFT with the noisy phase;
+renorm to -25 dB.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import use_full_fp32
+from .models.heads import build_head
+from .ops.features import OnlinePreprocessor, get_feat_config
+from .runner.trainer import decode_wav, make_context
+
+TARGET_LEVEL = -25.0
+
+
+def flagship_settings(hidden_size=256, num_layers=3, bidirectional=True, delta=2):
+    """(config, paras) a checkpoint of the flagship records, in the keys
+    ``serve.build_raw_enhancer`` reads to rebuild it."""
+    config = {
+        "preprocessor": {
+            "baseline": get_feat_config("mel", 0, log=True, delta=delta, cmvn=False)
+        },
+        "model": {
+            "Residual": {
+                "hidden_size": hidden_size, "num_layers": num_layers,
+                "bidirectional": bidirectional, "activation": "Sigmoid",
+                "cmvn": False,
+            }
+        },
+    }
+    paras = {"downstream": "Residual", "from_rawfeature": True}
+    return config, paras
+
+
+def build(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40, delta=2,
+          *, device, generator=None):
+    """(preprocessor, model) of the flagship, the model on ``device`` with
+    weights drawn from ``generator``."""
+    use_full_fp32()
+    down_feat = get_feat_config("mel", 0, log=True, delta=delta, cmvn=False)
+    feat_list = [
+        get_feat_config("mel", 0, log=True, delta=1, cmvn=True),
+        down_feat,
+        get_feat_config("linear", 0),
+        get_feat_config("uphase", 0),
+        get_feat_config("linear", 1),
+        get_feat_config("uphase", 1),
+    ]
+    pre = OnlinePreprocessor(n_mels=n_mels, feat_list=feat_list)
+    model = build_head(
+        "Residual", input_size=pre.feat_dims()[1], output_size=201,
+        generator=generator, hidden_size=hidden_size, num_layers=num_layers,
+        bidirectional=bidirectional, activation="Sigmoid", cmvn=False,
+    )
+    return pre, model.eval().to(device)
+
+
+def make_enhance(preprocessor, model):
+    """``enhance(wavs (B, 3, T), lengths (B,)) -> (B, T)`` on the device of
+    the inputs: features, head, iSTFT with the noisy phase, renorm."""
+
+    @torch.inference_mode()
+    def enhance(wavs, lengths):
+        ctx = make_context(preprocessor, wavs, lengths, 0, 1)
+        predicted, _ = model(ctx["feats_for_downstream"], ctx["linear_inp"])
+        return decode_wav(preprocessor, predicted, ctx["phase_inp"], lengths,
+                          wavs.shape[-1], TARGET_LEVEL)
+
+    return enhance
