@@ -5,16 +5,27 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. the build of every kernel of the enhance path from csrc/, timed;
+  2. the build of every kernel from csrc/ (one nvcc per source, all started
+     together), timed, with ptxas's register report;
   3. each kernel against its plain PyTorch version on the card, at the
-     flagship shape and at ragged ones, against a stated limit;
-  4. the slice: a seeded flagship checkpoint served through
+     flagship shape and at ragged ones, against a stated limit: B1
+     (recurrence), B2 fwd (recurrence + cell states), B2 bwd (reverse-time
+     VJP), and the gradients of ``LstmBidirTm`` against autograd through the
+     plain recurrence;
+  4. the enhance slice: a seeded flagship checkpoint served through
      ``serve.build_enhancer(device="cuda")`` (4 concurrent requests through
-     ``MicroBatcher``) and the ``enhance`` CLI, with the kernel's launch
-     count, the output checks, and the error against the same checkpoint
-     enhanced by the port on the CPU (plain versions);
-  5. times of the kernel and the plain recurrence, and the B=1 10 s enhance
-     latency, each beside the card's name and power limit.
+     ``MicroBatcher``) and the ``enhance`` CLI, with B1's launch count, the
+     output checks, and the error against the same checkpoint enhanced by
+     the port on the CPU (plain versions);
+  5. the training slice at full width: the flagship trained through
+     ``run_downstream.build_runner`` / ``Runner`` on a seeded WAV corpus
+     the script writes (8 steps with evals and saves, then a 2-step resume),
+     with the launch counts of all three kernels; then one train step on the
+     card against the same step on the CPU, and a NaN-poisoned step that
+     must leave every parameter as it was;
+  6. times of each kernel and its plain version, the B=1 10 s enhance
+     latency, the B=6 train step and eval batch, and a profiler breakdown
+     of the train step, each beside the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -22,7 +33,9 @@ non-zero without that last line. It needs a CUDA card and the repository
 around it.
 """
 import json
+import math
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -45,6 +58,19 @@ KERNEL_TOL = 1e-4
 SLICE_TOL = 1e-3
 REQUEST_SECONDS = (1.3, 2.0, 3.7, 10.0)
 CLI_SECONDS = (1.5, 2.5, 4.0)
+# B2 vs its plain versions, each error relative to the plain version's
+# largest |value| (cs grows with T; dxw and dW_hh^T are sums over T steps and
+# B rows, dW_hh^T up to ~20 here). Both sides compute in f32 with other
+# summation orders (f32 rounding ~1e-7 relative a term); chip runs measured
+# 1.3e-7 to 8.8e-7, so 1e-4 leaves more than two decades.
+B2_TOL = 1e-4
+# The flagship train step on the card vs on the CPU (plain versions): the
+# same f32 arithmetic in other orders through STFT, 3 BLSTM layers forward and
+# backward over 401 steps, Dense and the SISDR loss.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+B2_SHAPES = ((6, 1001, 256), (3, 37, 256), (70, 37, 256))
+TRAIN_STEPS, RESUME_STEPS = 8, 2
 
 
 def card_line() -> str:
@@ -73,6 +99,77 @@ def kernel_inputs(torch, B, T, H, seed):
     return xw.cuda(), w_hh.transpose(1, 2).contiguous().cuda()
 
 
+def kernel_grad_inputs(torch, B, T, H, seed):
+    xw, w_hh_t = kernel_inputs(torch, B, T, H, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    return xw, w_hh_t, torch.randn(2, B, T, H, generator=g).cuda()
+
+
+def rel_err(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def write_corpus(root, seed):
+    """12 speech files of 3-10 s (tone sweeps with a syllable envelope) and
+    4 noise files of 4-8 s, 16 kHz WAV, from ``seed``."""
+    from speech_enhancement_by_s3prl_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    for sub, n, lo, hi in (("speech", 12, 3.0, 10.0), ("noise", 4, 4.0, 8.0)):
+        os.makedirs(os.path.join(root, sub))
+        for k in range(n):
+            L = int(rng.uniform(lo, hi) * SR)
+            t = np.arange(L) / SR
+            if sub == "speech":
+                f0 = 120 + 80 * rng.random()
+                env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t + rng.uniform(0, 6))
+                wav = env * sum(np.sin(2 * np.pi * f0 * h * t) / h for h in (1, 2, 3))
+                wav = 0.1 * wav + 0.002 * rng.standard_normal(L)
+            else:
+                wav = 0.05 * rng.standard_normal(L) * (1 + 0.5 * np.sin(2 * np.pi * 0.5 * t))
+            write_wav(os.path.join(root, sub, f"{sub}{k}.wav"), wav.astype(np.float32), SR)
+
+
+def train_config(root):
+    """A dict config of the flagship training run at full width: batch 6,
+    max_time 10000, BertAdam(4e-5, 0.07), SISDR, eval on a dev split."""
+    speech = os.path.join(root, "speech")
+    noise = os.path.join(root, "noise")
+    data = {"sample_rate": SR, "max_time": 10000, "target_level": -25}
+    return {
+        "dataloader": {"batch_size": 6, "eval_batch_size": 12},
+        "preprocessor": {"input_channel": 0, "target_channel": 1,
+                         "baseline": {"feat_type": "mel", "log": True, "delta": 2,
+                                      "cmvn": False}},
+        "runner": {"learning_rate": 4e-5, "warmup_proportion": 0.07,
+                   "gradient_clipping": 1.0, "total_step": TRAIN_STEPS, "log_step": 2,
+                   "eval_step": 4, "save_step": 4, "max_keep": 2,
+                   "eval_splits": ["dev"], "eval_metrics": ["sisdr"]},
+        "objective": {"SISDR": {}},
+        "model": {"Residual": {"hidden_size": 256, "num_layers": 3,
+                               "bidirectional": True, "activation": "Sigmoid",
+                               "cmvn": False}},
+        "OnlineDataset_train": {"speech": {"filestrs": speech, "sample_num": 3},
+                                "noise": {"filestrs": noise},
+                                "snrs": [-5, 0, 5], "infinite": True, **data},
+        "OnlineDataset_test": {"speech": {"filestrs": speech, "sample_num": 3,
+                                          "select_sampled": True},
+                               "noise": {"filestrs": noise}, "snrs": [0],
+                               "half_noise": "end", **data},
+    }
+
+
+def ckpt_files(directory):
+    """The states-*.ckpt files of a directory, by step."""
+    return sorted((f for f in os.listdir(directory) if f.endswith(".ckpt")),
+                  key=lambda f: int(f[len("states-"):-len(".ckpt")]))
+
+
+def reset_counts(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
 def cuda_ms(torch, fn, iters, warmup=1):
     for _ in range(warmup):
         fn()
@@ -98,25 +195,42 @@ def main():
         read_wav,
         write_wav,
     )
+    from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
     from speech_enhancement_by_s3prl_tpu_torch.enhance import main as enhance_cli
     from speech_enhancement_by_s3prl_tpu_torch.entry import (
         build,
+        build_train,
         flagship_settings,
         make_enhance,
     )
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import _build
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda.lstm_kernel import (
         lstm_bidir_tm,
+        lstm_bidir_tm_bwd,
+        lstm_bidir_tm_bwd_ref,
+        lstm_bidir_tm_fc,
+        lstm_bidir_tm_fc_ref,
         lstm_bidir_tm_ref,
     )
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+        get_parser,
+    )
     from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import (
+        find_resume_ckpt,
+        load_checkpoint,
+        optimizer_state_from_payload,
         save_checkpoint,
     )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
     from speech_enhancement_by_s3prl_tpu_torch.serve import (
         MicroBatcher,
         build_enhancer,
     )
 
+    kernels = (lstm_bidir_tm, lstm_bidir_tm_fc, lstm_bidir_tm_bwd)
     use_full_fp32()
 
     # 1. the card
@@ -125,14 +239,25 @@ def main():
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # 2. build every kernel of the path from the sources in the checkout
+    # 2. build every kernel from the sources in the checkout, in parallel
     t0 = time.perf_counter()
-    lib_path = _build.build("lstm_tm")
-    _build.load("lstm_tm")
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] lstm_tm.cu -> {os.path.relpath(lib_path, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s | ptxas: {' ; '.join(ptxas)}", flush=True)
+    libs = _build.build_all()
+    for name in libs:
+        _build.load(name)
+    build_s = time.perf_counter() - t0
+    for name, lib_path in libs.items():
+        lines = lib_path.with_suffix(".log").read_text().splitlines()
+        report = []
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+                report.append(fn[fn.index("lstm"):fn.index("EEEv") + 2]
+                              if "EEEv" in fn else fn)
+            elif "registers" in ln or "spill" in ln:
+                report.append(ln.replace("ptxas info    : ", "").strip())
+        print(f"[build] {name}.cu -> {os.path.relpath(lib_path, ROOT)} (all "
+              f"{len(libs)} sources in {build_s:.2f} s) | ptxas: {' ; '.join(report)}",
+              flush=True)
 
     # 3. kernel against its plain version on the card
     max_err = 0.0
@@ -148,6 +273,47 @@ def main():
         if not err <= KERNEL_TOL:
             raise AssertionError(f"lstm_bidir_tm disagrees with its plain version: {err}")
         max_err = max(max_err, err)
+
+    b2_err = {"fc": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for B, T, H in B2_SHAPES:
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + B)
+        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t)
+        ref_hs, ref_cs = lstm_bidir_tm_fc_ref(xw, w_hh_t)
+        dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs)
+        ref_dxw, ref_dw = lstm_bidir_tm_bwd_ref(xw, w_hh_t, ref_hs, ref_cs, dhs)
+        torch.cuda.synchronize()
+        h_err = float((hs - ref_hs).abs().max())
+        c_err = rel_err(cs, ref_cs)
+        dx_err = rel_err(dxw, ref_dxw)
+        dw_err = rel_err(dw, ref_dw)
+        print(f"[kernel] lstm_bidir_tm_fc B={B} T={T} H={H}: hs max_abs_err "
+              f"{h_err:.3e} (limit {KERNEL_TOL:.0e}), cs err / max|cs| {c_err:.3e} "
+              f"(limit {B2_TOL:.0e})", flush=True)
+        print(f"[kernel] lstm_bidir_tm_bwd B={B} T={T} H={H}: dxw err / max|dxw| "
+              f"{dx_err:.3e}, dW_hh^T err / max|dW_hh^T| {dw_err:.3e} (max "
+              f"{float(ref_dw.abs().max()):.3f}) (limit {B2_TOL:.0e})", flush=True)
+        if not (h_err <= KERNEL_TOL and c_err <= B2_TOL):
+            raise AssertionError(f"lstm_bidir_tm_fc disagrees: hs {h_err}, cs {c_err}")
+        if not (dx_err <= B2_TOL and dw_err <= B2_TOL):
+            raise AssertionError(f"lstm_bidir_tm_bwd disagrees: dxw {dx_err}, dW {dw_err}")
+        b2_err["fc"] = max(b2_err["fc"], h_err)
+        b2_err["bwd"] = max(b2_err["bwd"], dx_err, dw_err)
+        b2_err["bwd_abs"] = max(b2_err["bwd_abs"], float((dxw - ref_dxw).abs().max()),
+                                float((dw - ref_dw).abs().max()))
+
+    # LstmBidirTm (B2 fwd + B2 bwd under autograd) vs autograd through the
+    # plain recurrence
+    xw, w_hh_t, dhs = kernel_grad_inputs(torch, 3, 37, 256, SEED)
+    grads = []
+    for fn in (lstm_bidir_tm, lstm_bidir_tm_ref):
+        x, w = xw.clone().requires_grad_(), w_hh_t.clone().requires_grad_()
+        grads.append(torch.autograd.grad((fn(x, w) * dhs).sum(), (x, w)))
+    fn_err = max(rel_err(a, b) for a, b in zip(*grads))
+    print(f"[kernel] LstmBidirTm grads vs autograd through lstm_bidir_tm_ref "
+          f"B=3 T=37 H=256: err / max|grad| {fn_err:.3e} (limit {B2_TOL:.0e})",
+          flush=True)
+    if not fn_err <= B2_TOL:
+        raise AssertionError(f"LstmBidirTm gradients disagree: {fn_err}")
 
     # 4. the slice, on the card and (for comparison) on the CPU
     with tempfile.TemporaryDirectory() as tmp:
@@ -180,7 +346,7 @@ def main():
             answers[k] = batcher.submit(requests[k])
 
         # -- the main path, between the counter reset and its reading --
-        lstm_bidir_tm.launches = 0
+        reset_counts(kernels)
         threads = [threading.Thread(target=ask, args=(k,)) for k in range(len(requests))]
         for th in threads:
             th.start()
@@ -193,6 +359,8 @@ def main():
                      "--device", "cuda"])
         launches = lstm_bidir_tm.launches
         # -----------------------------------------------------------------
+        if lstm_bidir_tm_fc.launches or lstm_bidir_tm_bwd.launches:
+            raise AssertionError("the inference path launched a training kernel")
 
         if served_launches != 3 * len(batches):
             raise AssertionError(
@@ -232,7 +400,168 @@ def main():
         if not worst <= SLICE_TOL:
             raise AssertionError(f"GPU output differs from the CPU run: {worst}")
 
-    # 5. times on the card
+    # 5. the training slice at full width, through the Runner
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        write_corpus(corpus, SEED)
+        config = train_config(corpus)
+        expdir = os.path.join(tmp, "exp")
+        args = get_parser().parse_args([
+            "--name", "flagship", "--expdir", expdir, "--downstream", "Residual",
+            "--objective", "SISDR", "--optim", "BertAdam", "--from_rawfeature",
+            "--dev_num", "3", "--n_jobs", "4", "--seed", str(SEED), "--save_best",
+            "--device", "cuda",
+        ])
+        run_dir = os.path.join(expdir, "flagship")
+
+        def recorded(runner):
+            """Record every train step's stats and every eval batch."""
+            steps, evals = [], []
+            train_step, eval_step = runner.train_step, runner.builder.eval_step
+
+            def step(state, wavs, lengths):
+                state, stats = train_step(state, wavs, lengths)
+                steps.append((tuple(wavs.shape), stats))
+                return state, stats
+
+            def evaluate(wavs, lengths, **kw):
+                evals.append(tuple(wavs.shape))
+                return eval_step(wavs, lengths, **kw)
+
+            runner.train_step, runner.builder.eval_step = step, evaluate
+            return steps, evals
+
+        random.seed(SEED)
+        np.random.seed(SEED)
+        runner = build_runner(args, config)
+        runner.set_model()
+        steps, evals = recorded(runner)
+        t0 = time.perf_counter()
+        # -- the main path, between the counter reset and its reading --
+        reset_counts(kernels)
+        runner.train()
+        train_counts = [fn.launches for fn in kernels]
+        # -----------------------------------------------------------------
+        train_s = time.perf_counter() - t0
+        losses = [float(st["loss"]) for _, st in steps]
+        norms = [float(st["grad_norm"]) for _, st in steps]
+        if len(steps) != TRAIN_STEPS or not all(map(math.isfinite, losses + norms)):
+            raise AssertionError(f"{len(steps)} train steps, losses {losses}, norms {norms}")
+        if any(bool(st["skipped"]) for _, st in steps):
+            raise AssertionError("a finite train step was skipped")
+        want = [3 * len(evals), 3 * TRAIN_STEPS, 3 * TRAIN_STEPS]
+        if train_counts != want or len(evals) != 2:
+            raise AssertionError(
+                f"launches (B1, B2 fwd, B2 bwd) {train_counts} for {TRAIN_STEPS} train "
+                f"steps and {len(evals)} eval batches of a 3-layer model; want {want}"
+            )
+        ckpts = ckpt_files(run_dir)
+        if ckpts != ["states-8.ckpt", "states-9.ckpt"]:
+            raise AssertionError(f"checkpoints after max_keep 2 rotation: {ckpts}")
+        scalars = [json.loads(ln) for ln in open(os.path.join(run_dir, "scalars.jsonl"))]
+        tags = {sc["tag"] for sc in scalars}
+        if not {"loss", "gradient norm", "steps_per_sec", "dev_loss", "dev_sisdr"} <= tags:
+            raise AssertionError(f"scalars.jsonl tags {sorted(tags)}")
+        print(f"[train] flagship (3 BLSTM layers of 256, 120-d input, Dense 512->201) "
+              f"through Runner on cuda: {TRAIN_STEPS} steps of batches "
+              f"{sorted({sh for sh, _ in steps})} in {train_s:.2f} s (eval batches "
+              f"{evals}, loader and saves included); losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+              f"{', '.join(f'{x:.3f}' for x in norms)}; launches B1 {train_counts[0]}, "
+              f"B2 fwd {train_counts[1]}, B2 bwd {train_counts[2]} (3 B2 fwd + 3 B2 bwd "
+              f"a step, 3 B1 an eval batch); checkpoints {ckpts}", flush=True)
+
+        # resume from the last checkpoint for RESUME_STEPS more steps
+        resume_from = os.path.basename(find_resume_ckpt(run_dir))
+        args2, config2 = get_downstream_args(["--resume", run_dir, "--device", "cuda"])
+        config2["runner"]["total_step"] = TRAIN_STEPS + RESUME_STEPS
+        runner2 = build_runner(args2, config2)
+        runner2.set_model()
+        restored = (runner2.global_step, int(runner2.state.step),
+                    int(runner2.state.opt_state["count"]))
+        last = load_checkpoint(find_resume_ckpt(run_dir))
+        same = all(torch.equal(p.detach().cpu(), last_p) for (_, p), last_p in zip(
+            sorted(runner2.state.params.items()),
+            [v for _, v in sorted(flax_to_state_dict(last["Downstream"]).items())]))
+        if restored != (TRAIN_STEPS + 1, TRAIN_STEPS + 1, TRAIN_STEPS) or not same:
+            raise AssertionError(f"resume restored (global step, state step, optimizer "
+                                 f"count) {restored}, weights equal {same}")
+        steps2, evals2 = recorded(runner2)
+        reset_counts(kernels)
+        runner2.train()
+        resume_counts = [fn.launches for fn in kernels]
+        count2 = int(runner2.state.opt_state["count"])
+        if (len(steps2) != RESUME_STEPS or count2 != TRAIN_STEPS + RESUME_STEPS
+                or resume_counts != [0, 3 * RESUME_STEPS, 3 * RESUME_STEPS]
+                or not all(math.isfinite(float(st["loss"])) for _, st in steps2)):
+            raise AssertionError(f"resume: {len(steps2)} steps, optimizer count "
+                                 f"{count2}, launches {resume_counts}")
+        final = ckpt_files(run_dir)
+        losses2 = ", ".join(f"{float(st['loss']):.4f}" for _, st in steps2)
+        print(f"[train] resume from {resume_from}: "
+              f"restored global step {restored[0]} and optimizer count {restored[2]}, "
+              f"weights equal; {RESUME_STEPS} more steps, losses "
+              f"{', '.join(f'{float(st[1]['loss']):.4f}' for st in steps2)}, optimizer "
+              f"count {count2}, launches {resume_counts}; checkpoints {final}", flush=True)
+
+        # one train step on the card vs on the CPU, same checkpoint and batch
+        ckpt = os.path.join(run_dir, final[-1])
+        payload = load_checkpoint(ckpt)
+        bucket = 4 * SR
+        fixed_set = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
+                                  noise={"filestrs": os.path.join(corpus, "noise")},
+                                  max_time=4000, snrs=[0])
+        lengths_np, wavs_np = fixed_set.collate_fn([fixed_set[i] for i in range(6)],
+                                                   pad_to=bucket)
+        sides = {}
+        for device in ("cuda", "cpu"):
+            builder = build_train(device=device, generator=torch.Generator().manual_seed(0))
+            builder.model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
+            state = builder.init_state()
+            state.opt_state = optimizer_state_from_payload(payload["Optimizer"], device)
+            wavs = torch.from_numpy(wavs_np).to(device)
+            lengths = torch.from_numpy(lengths_np).to(device)
+            ctx_loss, _ = builder.loss_fn(
+                make_context(builder.preprocessor, wavs, lengths, 0, 1))
+            names = list(state.params)
+            g = torch.autograd.grad(ctx_loss, [state.params[k] for k in names])
+            flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+            state, stats = builder.train_step(state, wavs, lengths)
+            sides[device] = (float(stats["loss"]), float(stats["grad_norm"]), flat,
+                             builder, state, wavs, lengths)
+        (gl, gn, gg, builder, state, wavs, lengths), (cl, cn, cg, *_) = (
+            sides["cuda"], sides["cpu"])
+        loss_rel = abs(gl - cl) / abs(cl)
+        norm_rel = abs(gn - cn) / abs(cn)
+        grad_rel = float((gg - cg).norm() / cg.norm())
+        print(f"[train] GPU vs CPU one step (B=6, 4 s bucket, checkpoint "
+              f"{os.path.basename(ckpt)}): loss {gl:.6f} vs {cl:.6f} rel {loss_rel:.3e} "
+              f"(limit {TRAIN_LOSS_TOL:.0e}); grad_norm rel {norm_rel:.3e} (limit "
+              f"{TRAIN_LOSS_TOL:.0e}); |g_gpu - g_cpu| / |g_cpu| {grad_rel:.3e} (limit "
+              f"{TRAIN_GRAD_TOL:.0e})", flush=True)
+        if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+                and grad_rel <= TRAIN_GRAD_TOL):
+            raise AssertionError("the train step on the card disagrees with the CPU")
+
+        # a NaN-poisoned batch: skipped, parameters and optimizer state kept
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        count_before, step_before = int(state.opt_state["count"]), int(state.step)
+        poisoned = wavs.clone()
+        poisoned[0, 0, 1000] = float("nan")
+        state, stats = builder.train_step(state, poisoned, lengths)
+        kept = all(torch.equal(before[k], p) for k, p in state.params.items())
+        if not (bool(stats["skipped"]) and kept and int(state.step) == step_before + 1
+                and int(state.opt_state["count"]) == count_before):
+            raise AssertionError(
+                f"NaN step: skipped {bool(stats['skipped'])}, parameters kept {kept}, "
+                f"step {int(state.step)} (was {step_before}), optimizer count "
+                f"{int(state.opt_state['count'])} (was {count_before})")
+        print(f"[train] NaN-poisoned batch on the card: grad_norm "
+              f"{float(stats['grad_norm'])}, skipped; all {len(before)} parameters "
+              f"bit-identical, optimizer count kept at {count_before}, step "
+              f"{step_before} -> {int(state.step)}", flush=True)
+
+    # 6. times on the card
     times = {}
     for B in (1, 64):
         xw, w_hh_t = kernel_inputs(torch, B, 1001, 256, SEED)
@@ -263,18 +592,134 @@ def main():
           f"ms over 20 calls (min {min(lat):.3f}, max {max(lat):.3f}) | {card}",
           flush=True)
 
+    for B in (6, 64):
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, 1001, 256, SEED)
+        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t)
+        pairs = {
+            "fc": (lambda: lstm_bidir_tm_fc(xw, w_hh_t),
+                   lambda: lstm_bidir_tm_fc_ref(xw, w_hh_t)),
+            "bwd": (lambda: lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs),
+                    lambda: lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs)),
+        }
+        for name, (kern_fn, plain_fn) in pairs.items():
+            plain = cuda_ms(torch, plain_fn, iters=2)
+            kern = cuda_ms(torch, kern_fn, iters=10)
+            kern2 = cuda_ms(torch, kern_fn, iters=10)
+            plain2 = cuda_ms(torch, plain_fn, iters=2)
+            times[(name, B)] = (min(kern, kern2), min(plain, plain2))
+            print(f"[time] lstm_bidir_tm_{name} B={B} T=1001 H=256: kernel {kern:.3f} / "
+                  f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
+                  flush=True)
+
+    # the flagship train step and eval batch at B=6, a 10 s bucket
+    builder = build_train(device="cuda", generator=torch.Generator().manual_seed(SEED))
+    state = builder.init_state()
+    rng = np.random.default_rng(SEED)
+    clean = np.stack([request_audio(10.0, s) for s in range(6)])
+    noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+    wavs = torch.from_numpy(np.stack([clean + noise, clean, noise], axis=1)).cuda()
+    lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long).cuda()
+    for _ in range(3):
+        state, _ = builder.train_step(state, wavs, lengths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, stats = builder.train_step(state, wavs, lengths)
+    torch.cuda.synchronize()
+    step_mean = (time.perf_counter() - t0) * 1e3 / 10
+    step_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, stats = builder.train_step(state, wavs, lengths)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    eval_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        builder.eval_step(wavs, lengths, wav_out="first")
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[time] flagship train step B=6 10 s (T=1001 frames): {step_mean:.3f} ms a "
+          f"step over 10 steps with one synchronize at the end; median "
+          f"{statistics.median(step_ms):.3f} ms of 10 synchronized steps (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}) | {card}", flush=True)
+    print(f"[time] flagship eval batch B=6 10 s: median {statistics.median(eval_ms):.3f} "
+          f"ms of 10 (min {min(eval_ms):.3f}, max {max(eval_ms):.3f}) | {card}",
+          flush=True)
+
+    # where a train step's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, stats = builder.train_step(state, wavs, lengths)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    # device-side events only: a kernel launched through ctypes inside an
+    # autograd function also shows as "self" device time of its CPU-side op
+    from torch.autograd import DeviceType
+
+    shares = {"B2 fwd": 0.0, "B2 bwd": 0.0, "cuBLAS": 0.0, "other": 0.0}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name
+        if "lstm_bidir_tm_bwd_kernel" in name:
+            key = "B2 bwd"
+        elif "lstm_bidir_tm_kernel" in name:
+            key = "B2 fwd"
+        elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
+            key = "cuBLAS"
+        else:
+            key = "other"
+        shares[key] += evt.time_range.elapsed_us() / 1e3 / 5
+    busy = sum(shares.values())
+    print(f"[time] train step B=6 under torch.profiler (5 steps): wall {wall:.3f} ms a "
+          f"step, device busy {busy:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items())
+          + f"), idle share {max(0.0, 1 - busy / wall):.3f} | {card}", flush=True)
+
+    replaces = "speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py"
     print(json.dumps({"kernels": [{
         "name": "lstm_bidir_tm",
         "route": "cuda",
         "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm.cu",
-        "replaces": "speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py:208",
+        "replaces": f"{replaces}:208",
         "launches": launches,
+        "launches_train_eval": train_counts[0],
         "max_abs_err": max_err,
         "ms": times[1][0],
         "plain_ms": times[1][1],
         "shape": "B=1 T=1001 H=256",
         "ms_b64": times[64][0],
         "plain_ms_b64": times[64][1],
+    }, {
+        "name": "lstm_bidir_tm_fc",
+        "route": "cuda",
+        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm.cu",
+        "replaces": f"{replaces}:391",
+        "launches": train_counts[1],
+        "max_abs_err": b2_err["fc"],
+        "ms": times[("fc", 6)][0],
+        "plain_ms": times[("fc", 6)][1],
+        "shape": "B=6 T=1001 H=256",
+        "ms_b64": times[("fc", 64)][0],
+        "plain_ms_b64": times[("fc", 64)][1],
+    }, {
+        "name": "lstm_bidir_tm_bwd",
+        "route": "cuda",
+        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm_bwd.cu",
+        "replaces": f"{replaces}:422",
+        "launches": train_counts[2],
+        "max_abs_err": b2_err["bwd_abs"],
+        "max_rel_err": b2_err["bwd"],
+        "ms": times[("bwd", 6)][0],
+        "plain_ms": times[("bwd", 6)][1],
+        "shape": "B=6 T=1001 H=256",
+        "ms_b64": times[("bwd", 64)][0],
+        "plain_ms_b64": times[("bwd", 64)][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,13 @@
-// Time-major bidirectional LSTM recurrence (forward only), f32, for Hopper.
+// Time-major bidirectional LSTM recurrence (forward), f32, for Hopper.
 //
-// Replaces: speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py,
-//   lstm_bidir_pallas_tm / _kernel_tm (the recurrence that every bidirectional
-//   layer of the enhance path runs).
+// Replaces, in speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py:
+//   - lstm_bidir_pallas_tm / _kernel_tm (kernel B1: the recurrence that every
+//     bidirectional layer of the enhance and eval paths runs);
+//   - _tm_fwd_with_cell / _kernel_tm_fc (kernel B2 fwd: the same recurrence
+//     under autograd, which also writes the cell state of every step, the
+//     residual that the backward kernel in lstm_tm_bwd.cu reads).
+// Both are one kernel template: kCell adds one store of c_t per step and
+// nothing else, so B1's instances compile as they did before the flag.
 //
 // Computes, for each direction d in {0, 1} and each step t = 0 .. T-1, for the
 // whole batch:
@@ -57,10 +62,12 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //   h_s [BT][H + 1] float  a chunk of batch rows of h_{t-1}
 //   c_s [B][K]      float  this block's slice of the cell state
 // R: batch rows per thread (1 for small batches, 4 from B = 4 up).
-template <int R>
+// kCell: also write c_t into cs (2, B, T, H), laid out like hs.
+template <int R, bool kCell>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
-                     float* hs, int B, int T, int H, int K, int BT, int G) {
+                     float* hs, float* __restrict__ cs, int B, int T, int H, int K,
+                     int BT, int G) {
   extern __shared__ float4 smem4[];
   float4* w_s = smem4;
   const int HP = H + 1;
@@ -83,6 +90,7 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
 
   const float* xw_d = xw + (size_t)d * B * T * H4;
   float* hs_d = hs + (size_t)d * B * T * H;
+  float* cs_d = kCell ? cs + (size_t)d * B * T * H : nullptr;
   // G lanes share one tile of outputs and split its dot products over H; G is a power of two <= 32, so a group never straddles
   // a warp and the shuffles below stay inside it.
   const int per_pass = blockDim.x / G;
@@ -200,6 +208,7 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
               const float c = fg * c_s[b * K + u] + ig * gg;
               c_s[b * K + u] = c;
               hs_d[((size_t)b * T + t) * H + j] = og * tanhf(c);
+              if (kCell) cs_d[((size_t)b * T + t) * H + j] = c;
             }
           }
         }
@@ -213,17 +222,13 @@ size_t smem_bytes(int B, int H, int K, int BT) {
   return sizeof(float) * ((size_t)4 * K * (H + 1) + (size_t)BT * (H + 1) + (size_t)B * K);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the recurrence on `stream`. xw (2, B, T, 4H), w_hh_t (2, H, 4H) and
-// hs (2, B, T, H) are contiguous f32 device pointers on `device`. Returns the
+// Launches the recurrence on `stream`; cs is nullptr for B1. Returns the
 // first non-zero CUDA status among the set-up calls, the cooperative launch's
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
-int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T,
-                      int H, int device, void* stream) {
+template <bool kCell>
+int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int B, int T, int H,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
@@ -244,8 +249,8 @@ int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T
   int K = 8;
   while (K > 1 && H % K) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
-  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4>
-                          : (const void*)lstm_bidir_tm_kernel<1>;
+  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4, kCell>
+                          : (const void*)lstm_bidir_tm_kernel<1, kCell>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
     const int grid = 2 * (H / K);
@@ -261,8 +266,9 @@ int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T
         const int tiles = ((B < BT ? B : BT) + R - 1) / R * K;
         int G = 32;
         while (G > 1 && (kThreads / G) < tiles) G >>= 1;
-        void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&B, (void*)&T,
-                        (void*)&H,  (void*)&K,      (void*)&BT, (void*)&G};
+        void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&cs,
+                        (void*)&B,  (void*)&T,      (void*)&H,  (void*)&K,
+                        (void*)&BT, (void*)&G};
         err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
                                           (cudaStream_t)stream);
         if (err != cudaSuccess) return (int)err;
@@ -273,6 +279,24 @@ int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T
     K *= 2;
   }
   return (int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel B1. xw (2, B, T, 4H), w_hh_t (2, H, 4H) and hs (2, B, T, H) are
+// contiguous f32 device pointers on `device`.
+int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T,
+                      int H, int device, void* stream) {
+  return launch<false>(xw, w_hh_t, hs, nullptr, B, T, H, device, stream);
+}
+
+// Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (2, B, T, H) f32 receives the
+// cell state of every step.
+int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int B,
+                         int T, int H, int device, void* stream) {
+  return launch<true>(xw, w_hh_t, hs, cs, B, T, H, device, stream);
 }
 
 const char* lstm_tm_error_string(int code) {

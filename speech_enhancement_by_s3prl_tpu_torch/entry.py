@@ -1,10 +1,11 @@
-"""The flagship model and its enhance closure (counterpart of
+"""The flagship model, its enhance closure and its trainer (counterpart of
 ``__graft_entry__.py::_build`` and ``make_enhance``).
 
 Flagship: 40 log-mel bands with 2 deltas (120 dims) into a ``Residual``
 head of 3 bidirectional LSTM layers of 256, a Dense 512 -> 201 and a
 sigmoid mask on the noisy power spectrum; iSTFT with the noisy phase;
-renorm to -25 dB.
+renorm to -25 dB. It trains with the SISDR objective, BertAdam(4e-5, 0.07,
+20000), a global clip at 1.0 and SI-SDR as the eval metric.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import torch
 
 from . import use_full_fp32
 from .models.heads import build_head
+from .objectives import build_objective
 from .ops.features import OnlinePreprocessor, get_feat_config
-from .runner.trainer import decode_wav, make_context
+from .runner.optim import build_optimizer
+from .runner.trainer import StepBuilder, decode_wav, make_context
 
 TARGET_LEVEL = -25.0
 
@@ -58,6 +61,23 @@ def build(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40, delta=2,
         bidirectional=bidirectional, activation="Sigmoid", cmvn=False,
     )
     return pre, model.eval().to(device)
+
+
+def build_train(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40,
+                delta=2, *, device, generator=None) -> StepBuilder:
+    """The flagship's ``StepBuilder`` for training, the model on ``device``
+    with weights drawn from ``generator``."""
+    pre, model = build(hidden_size, num_layers, bidirectional, n_mels, delta,
+                       device=device, generator=generator)
+    return StepBuilder(
+        preprocessor=pre,
+        model=model,
+        objective=build_objective("SISDR"),
+        optimizer=build_optimizer("BertAdam", 4e-5, 0.07, 20000),
+        from_rawfeature=True,
+        grad_clip=1.0,
+        eval_metrics=("sisdr",),
+    )
 
 
 def make_enhance(preprocessor, model):

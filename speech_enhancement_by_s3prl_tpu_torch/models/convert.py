@@ -13,7 +13,7 @@ Both directions copy values exactly, so a round trip is bit-identical.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,14 @@ def flax_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The path of ``state_dict`` key ``name`` in the flax tree:
+    ``scaling_layer.weight`` -> ('params', 'scaling_layer', 'kernel')."""
+    if name.endswith(".weight"):
+        name = name[: -len("weight")] + "kernel"
+    return ("params", *name.split("."))
+
+
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """``state_dict`` -> flax tree ``{'params': {...}}`` of numpy arrays."""
     params: Dict[str, Any] = {}
@@ -54,8 +62,8 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         if name.endswith(".weight"):
             if arr.ndim != 2:
                 raise ValueError(f"{name}: Linear weight must be 2-D, got {arr.shape}")
-            name, arr = name[: -len("weight")] + "kernel", arr.T
-        *path, leaf = name.split(".")
+            arr = arr.T
+        _, *path, leaf = flax_path(name)
         node = params
         for part in path:
             node = node.setdefault(part, {})

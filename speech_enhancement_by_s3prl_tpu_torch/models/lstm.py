@@ -4,9 +4,12 @@
 - The input projection of a layer is computed once for all steps; only
   h @ W_hh runs inside the recurrence.
 - A bidirectional layer runs both directions in one recurrence: direction 1
-  gets the time-flipped input on a leading direction axis, and on a CUDA
-  tensor the recurrence is the hand-written kernel
-  (``ops/cuda/lstm_kernel.lstm_bidir_tm``).
+  gets the time-flipped input on a leading direction axis. The recurrence is
+  ``ops/cuda/lstm_kernel.lstm_bidir_tm``: under autograd the
+  ``LstmBidirTm`` function (kernels B2 fwd / B2 bwd on a CUDA tensor), whose
+  gradients reach ``w_hh`` through dW_hh^T and ``w_ih``, ``b_ih``, ``b_hh``
+  through the einsum; otherwise kernel B1. A CPU tensor takes the plain
+  versions on either route.
 - Parameters are in torch layout with gate order i, f, g, o, under
   ``l{k}_fwd`` / ``l{k}_bwd`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``.
 - Sequences run fully padded, as the JAX package runs them: the backward
@@ -75,6 +78,7 @@ class LSTMStack(nn.Module):
             bias = torch.stack([pf.b_ih + pf.b_hh, pb.b_ih + pb.b_hh], dim=0)
             xw = torch.einsum("dbtn,dhn->dbth", xs, w_ih) + bias[:, None, None, :]
             w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0)  # (2, H, 4H)
+            # LstmBidirTm when a gradient is needed, B1 when not
             hs = lstm_bidir_tm(xw.contiguous(), w_hh_t.contiguous())
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)
         return x

@@ -17,10 +17,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# every source under csrc/, by name
+SOURCES = ("lstm_tm", "lstm_tm_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,6 +69,14 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
+
+
+def build_all(names=SOURCES):
+    """Compile several sources at once, one ``nvcc`` each, all started
+    together; returns {name: library path}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
 
 
 @functools.cache

@@ -1,13 +1,29 @@
-"""Time-major bidirectional LSTM recurrence: the hand-written CUDA kernel
-(``csrc/lstm_tm.cu``, which replaces the Pallas kernel
-``speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py::
-lstm_bidir_pallas_tm``) and its plain PyTorch version.
+"""Time-major bidirectional LSTM recurrence: the hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Both keep the JAX layout: ``xw`` (2, B, T, 4H) holds the input projections
+Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
+``speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py``:
+
+- B1 ``lstm_bidir_tm`` (``lstm_tm.cu``): the recurrence, forward only
+  (``lstm_bidir_pallas_tm``). It runs whenever no gradient is needed.
+- B2 fwd ``lstm_bidir_tm_fc`` (``lstm_tm.cu``, the same kernel with its cell
+  flag): the recurrence that also returns the cell states
+  (``_tm_fwd_with_cell``).
+- B2 bwd ``lstm_bidir_tm_bwd`` (``lstm_tm_bwd.cu``): the reverse-time VJP
+  (``_tm_bwd``), which recomputes the gates and sums dW_hh^T itself.
+
+``LstmBidirTm`` ties B2 fwd and B2 bwd into a ``torch.autograd.Function``, the
+counterpart of the JAX custom VJP ``lstm_bidir_tm``; ``lstm_bidir_tm`` routes
+to it when a gradient is needed.
+
+All keep the JAX layout: ``xw`` (2, B, T, 4H) holds the input projections
 plus biases, direction 1 already time-flipped; ``w_hh_t`` (2, H, 4H) is
-W_hh^T per direction; the result ``hs`` is (2, B, T, H) f32. Gate order is
+W_hh^T per direction; ``hs`` and ``cs`` are (2, B, T, H) f32. Gate order is
 i, f, g, o; h and c start at zero and stay f32. There are no lengths: the
 recurrence runs over the whole (padded) T, as the JAX package does.
+
+A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
+raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -16,23 +32,67 @@ import ctypes
 import torch
 
 
-def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch recurrence: a Python loop over time.
-
-    Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
-    gives (..., B, T, H), so the unidirectional layer runs it with none."""
+def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool):
     H = w_hh_t.shape[-2]
     lead = xw.shape[:-2]  # (..., B)
     h = xw.new_zeros(lead + (H,), dtype=torch.float32)
     c = torch.zeros_like(h)
-    hs = []
+    hs, cs = [h[..., None, :][..., :0, :]], [c[..., None, :][..., :0, :]]  # T = 0
     for t in range(xw.shape[-2]):
         gates = xw[..., t, :].float() + torch.matmul(h, w_hh_t)
         i, f, g, o = gates.split(H, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        hs.append(h)
-    return torch.stack(hs, dim=-2)
+        hs.append(h[..., None, :])
+        cs.append(c[..., None, :])
+    hs = torch.cat(hs, dim=-2)
+    return (hs, torch.cat(cs, dim=-2)) if with_cell else hs
+
+
+def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
+
+    Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
+    gives (..., B, T, H), so the unidirectional layer runs it with none."""
+    return _recurrence(xw, w_hh_t, with_cell=False)
+
+
+def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor):
+    """B2 fwd's plain version: (hs, cs), each (2, B, T, H) f32."""
+    return _recurrence(xw, w_hh_t, with_cell=True)
+
+
+def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs):
+    """B2 bwd's plain version, step for step the Pallas ``_kernel_tm_bwd``:
+    reverse time, gates recomputed from (xw_t, h_{t-1}), h_{-1} = c_{-1} = 0,
+    dh and dc carried. Returns (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32."""
+    H = w_hh_t.shape[-2]
+    T = xw.shape[-2]
+    dh_c = hs.new_zeros(hs.shape[:-2] + (H,))
+    dc_c = torch.zeros_like(dh_c)
+    dw = torch.zeros(w_hh_t.shape, dtype=torch.float32, device=xw.device)
+    dxw = [xw.new_zeros(xw.shape[:-2] + (0, 4 * H), dtype=torch.float32)] + [None] * T
+    for tt in range(T - 1, -1, -1):
+        h_prev = hs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
+        c_prev = cs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
+        gates = xw[..., tt, :].float() + torch.matmul(h_prev, w_hh_t)
+        i, f, g, o = gates.split(H, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        tc = torch.tanh(cs[..., tt, :])
+        dh = dhs[..., tt, :] + dh_c
+        do = dh * tc
+        dct = dh * o * (1.0 - tc * tc) + dc_c
+        dc_c = dct * f
+        da = torch.cat([
+            dct * g * i * (1.0 - i),
+            dct * c_prev * f * (1.0 - f),
+            dct * i * (1.0 - g * g),
+            do * o * (1.0 - o),
+        ], dim=-1)
+        dxw[tt + 1] = da[..., None, :]
+        dh_c = torch.matmul(da, w_hh_t.transpose(-1, -2))
+        dw = dw + torch.matmul(h_prev.transpose(-1, -2), da)
+    return torch.cat(dxw, dim=-2), dw
 
 
 def _check(xw: torch.Tensor, w_hh_t: torch.Tensor):
@@ -50,39 +110,73 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor):
         )
     if xw.device != w_hh_t.device:
         raise ValueError(f"xw on {xw.device} but w_hh_t on {w_hh_t.device}")
+    if xw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_bidir_tm runs on cpu or cuda, not {xw.device}")
+
+
+def _check_residuals(xw, hs, cs, dhs):
+    _, B, T, h4 = xw.shape
+    want = (2, B, T, h4 // 4)
+    for name, t in (("hs", hs), ("cs", cs), ("dhs", dhs)):
+        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != xw.device:
+            raise ValueError(
+                f"{name} must be f32 {want} on {xw.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def _launch_args(xw):
+    device = xw.device.index if xw.device.index is not None else torch.cuda.current_device()
+    return device, torch.cuda.current_stream(xw.device).cuda_stream
 
 
 def _library():
     from ._build import load
 
     lib = load("lstm_tm")
-    lib.lstm_bidir_tm_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.lstm_bidir_tm_f32.restype = ctypes.c_int
-    lib.lstm_tm_error_string.argtypes = [ctypes.c_int]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, i, i, i, i, p]
+    lib.lstm_bidir_tm_f32.restype = i
+    lib.lstm_bidir_tm_fc_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.lstm_bidir_tm_fc_f32.restype = i
+    lib.lstm_tm_error_string.argtypes = [i]
     lib.lstm_tm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _bwd_library():
+    from ._build import load
+
+    lib = load("lstm_tm_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bidir_tm_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.lstm_bidir_tm_bwd_f32.restype = i
+    lib.lstm_tm_bwd_error_string.argtypes = [i]
+    lib.lstm_tm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err, name, errstr, B, T, H):
+    if err:
+        raise RuntimeError(
+            f"{name} kernel failed: CUDA error {err} ({errstr(err).decode()}) "
+            f"at B={B} T={T} H={H}"
+        )
 
 
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    or raises; nothing falls back. Forward only: the differentiable pair
-    (the Pallas ``_kernel_tm_fc`` / ``_kernel_tm_bwd``) is not ported yet."""
+    When a gradient is needed (grad mode on and an input that requires it)
+    this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass.
+    Otherwise it is B1 (the primal of the JAX custom VJP): on a CUDA tensor
+    the kernel, counted in ``lstm_bidir_tm.launches``; on a CPU tensor the
+    plain version."""
     _check(xw, w_hh_t)
+    if torch.is_grad_enabled() and (xw.requires_grad or w_hh_t.requires_grad):
+        return LstmBidirTm.apply(xw, w_hh_t)
     if xw.device.type == "cpu":
         return lstm_bidir_tm_ref(xw, w_hh_t)
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_bidir_tm runs on cpu or cuda, not {xw.device}")
-    if torch.is_grad_enabled() and (xw.requires_grad or w_hh_t.requires_grad):
-        raise NotImplementedError(
-            "the CUDA recurrence is forward-only; its backward kernel is "
-            "ROADMAP B2"
-        )
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
     _, B, T, h4 = xw.shape
@@ -91,21 +185,85 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     if B == 0 or T == 0:
         return hs
     lib = _library()
-    err = lib.lstm_bidir_tm_f32(
-        xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), B, T, H,
-        xw.device.index if xw.device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(xw.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(
-            f"lstm_bidir_tm kernel failed: CUDA error {err} "
-            f"({lib.lstm_tm_error_string(err).decode()}) at B={B} T={T} H={H}"
-        )
+    err = lib.lstm_bidir_tm_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
+                                B, T, H, *_launch_args(xw))
+    _raise_on(err, "lstm_bidir_tm", lib.lstm_tm_error_string, B, T, H)
     lstm_bidir_tm.launches += 1
     return hs
 
 
-# kernel launches since the last reset (chip_smoke.py reads it to show that
-# the main path went through the kernel)
+def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
+    """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) f32.
+    Kernel on a CUDA tensor (counted in ``lstm_bidir_tm_fc.launches``),
+    plain version on a CPU tensor."""
+    _check(xw, w_hh_t)
+    if xw.device.type == "cpu":
+        return lstm_bidir_tm_fc_ref(xw, w_hh_t)
+    if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
+        raise ValueError("lstm_bidir_tm_fc needs contiguous xw and w_hh_t")
+    _, B, T, h4 = xw.shape
+    H = h4 // 4
+    hs = torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
+    cs = torch.empty_like(hs)
+    if B == 0 or T == 0:
+        return hs, cs
+    lib = _library()
+    err = lib.lstm_bidir_tm_fc_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
+                                   cs.data_ptr(), B, T, H, *_launch_args(xw))
+    _raise_on(err, "lstm_bidir_tm_fc", lib.lstm_tm_error_string, B, T, H)
+    lstm_bidir_tm_fc.launches += 1
+    return hs, cs
+
+
+def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
+    """B2 bwd: the forward's inputs and residuals plus the cotangent ``dhs``
+    -> (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32. Kernel on a CUDA tensor
+    (counted in ``lstm_bidir_tm_bwd.launches``), plain version on a CPU
+    tensor. B = 0 or T = 0 gives zeros without a launch."""
+    _check(xw, w_hh_t)
+    _check_residuals(xw, hs, cs, dhs)
+    if xw.device.type == "cpu":
+        return lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs)
+    tensors = (xw, w_hh_t, hs, cs, dhs)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lstm_bidir_tm_bwd needs contiguous inputs")
+    _, B, T, h4 = xw.shape
+    H = h4 // 4
+    if B == 0 or T == 0:
+        return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
+    dxw = torch.empty_like(xw)
+    dw = torch.empty_like(w_hh_t)
+    lib = _bwd_library()
+    err = lib.lstm_bidir_tm_bwd_f32(*(t.data_ptr() for t in tensors), dxw.data_ptr(),
+                                    dw.data_ptr(), B, T, H, *_launch_args(xw))
+    _raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, B, T, H)
+    lstm_bidir_tm_bwd.launches += 1
+    return dxw, dw
+
+
+class LstmBidirTm(torch.autograd.Function):
+    """The differentiable recurrence (the JAX custom VJP ``lstm_bidir_tm``):
+    forward B2 fwd, saving (xw, w_hh_t, hs, cs); backward B2 bwd on the
+    contiguous cotangent. Kernels on CUDA tensors, plain versions on CPU
+    tensors. Reach it through ``lstm_bidir_tm``, which runs B1 instead when
+    no gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh_t):
+        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t)
+        ctx.save_for_backward(xw, w_hh_t, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xw, w_hh_t, hs, cs = ctx.saved_tensors
+        dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous())
+        return (dxw if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None)
+
+
+# kernel launches since the last reset (chip_smoke.py reads them to show that
+# the main path went through the kernels)
 lstm_bidir_tm.launches = 0
+lstm_bidir_tm_fc.launches = 0
+lstm_bidir_tm_bwd.launches = 0

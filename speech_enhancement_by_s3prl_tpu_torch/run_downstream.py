@@ -1,0 +1,227 @@
+"""CLI for downstream training and evaluation on the port (counterpart of the
+repository's ``run_downstream.py``), for ``from_rawfeature`` heads:
+
+  python -m speech_enhancement_by_s3prl_tpu_torch.run_downstream \\
+      --config cfg.yaml --name exp --downstream Residual --objective SISDR \\
+      --from_rawfeature --device cuda
+
+The flag names of the ported subset are the JAX CLI's. Settings take
+precedence as there: a ``--resume`` checkpoint's saved args and config win
+over the CLI, which wins over the YAML file (the ``--train_speech`` /
+``--train_noise`` / ``--test_speech`` / ``--test_noise`` file lists). One
+flag is the exception: ``--device`` (``cuda``, the default, or ``cpu``;
+``--cpu`` is its alias) names this machine's device, so the CLI's value
+holds on resume. Asking for ``cuda`` with no CUDA device raises.
+
+PyYAML is imported only to read ``--config``: a run that resumes, or a
+program that passes a dict config to :func:`build_runner`, needs none.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import sys
+
+import numpy as np
+import torch
+
+from . import use_full_fp32
+from .models.heads import build_head
+from .ops.features import OnlinePreprocessor, get_feat_config
+from .runner.checkpoint import find_resume_ckpt, load_checkpoint
+from .runner.runner import Runner
+from .utils.config import update_args
+
+# The ``online`` section of config/pretrain_sample.yaml, which defines the
+# STFT geometry and the upstream-input feature when no --ckpt is given.
+PRETRAIN_ONLINE = {
+    "sample_rate": 16000,
+    "max_time": 10000,
+    "target_level": -25,
+    "noise_proportion": 0.5,
+    "snrs": [3, 6],
+    "win_ms": 25,
+    "hop_ms": 10,
+    "n_freq": 201,
+    "n_mels": 40,
+    "n_mfcc": 13,
+    "input": {"feat_type": "mel", "channel": 0, "log": True, "delta": 1, "cmvn": True},
+    "target": {"feat_type": "linear", "channel": 1, "log": True, "delta": 0,
+               "cmvn": False},
+}
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Speech-enhancement downstream training on the PyTorch port"
+    )
+    parser.add_argument("--resume", help="checkpoint path/dir for continual training")
+    parser.add_argument("--name", help="experiment name")
+    parser.add_argument("--n_jobs", default=4, type=int)
+    parser.add_argument("--dev_num", default=500, type=int)
+
+    parser.add_argument("--upstream", choices=["transformer", "baseline"],
+                        default="transformer",
+                        help="only selects the (unused) upstream-input feature "
+                        "of a from_rawfeature run")
+    parser.add_argument("--ckpt", default="", help="upstream pretraining ckpt "
+                        "(read for its STFT settings)")
+    parser.add_argument("--downstream", default="LSTM")
+    parser.add_argument("--dckpt", default="", help="downstream warm-start ckpt")
+    parser.add_argument("--objective", default="L1")
+    parser.add_argument("--from_waveform", action="store_true")
+    parser.add_argument("--from_rawfeature", action="store_true")
+    parser.add_argument("--optim", default="BertAdam", choices=["BertAdam", "Adam"])
+
+    parser.add_argument("--config", default="config/vcb.yaml")
+    parser.add_argument("--expdir", default="result")
+    parser.add_argument("--seed", default=1337, type=int)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--cpu", dest="device", action="store_const", const="cpu",
+                        help="alias of --device cpu")
+    parser.add_argument("--eval_init", action="store_true")
+    parser.add_argument("--no_metric", action="store_true")
+    parser.add_argument("--save_best", action="store_true")
+
+    parser.add_argument("--train_speech")
+    parser.add_argument("--train_noise")
+    parser.add_argument("--test_speech")
+    parser.add_argument("--test_noise")
+    parser.add_argument("--test", action="store_true")
+
+    # flags of the JAX CLI whose features are not ported: the Runner refuses them
+    parser.add_argument("--active_sampling", action="store_true")
+    parser.add_argument("--sync_sampler", action="store_true")
+    parser.add_argument("--sampler_device", type=int)
+    parser.add_argument("--test_gradient", action="store_true")
+    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--mesh", default=None)
+    return parser
+
+
+def read_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def get_downstream_args(argv=None):
+    """(args, config) with the precedence resume > CLI > YAML."""
+    args = get_parser().parse_args(argv)
+    if args.resume is None:
+        config = read_yaml(args.config)
+        for overwrite in ["train_speech", "train_noise", "test_speech", "test_noise"]:
+            filestrs = getattr(args, overwrite)
+            if filestrs is None:
+                continue
+            dataset_type, data_type = overwrite.split("_")
+            section = f"OnlineDataset_{dataset_type}"
+            config.setdefault(section, {}).setdefault(data_type, {})[
+                "filestrs"
+            ] = filestrs
+    else:
+        device = args.device
+        resume_ckpt = find_resume_ckpt(args.resume)
+        payload = load_checkpoint(resume_ckpt)
+        args = update_args(args, payload["Settings"]["Paras"])
+        config = payload["Settings"]["Config"]
+        args.resume = resume_ckpt
+        args.device = device
+    return args, config
+
+
+def _pretrain_config(args) -> dict:
+    if args.ckpt:
+        return torch.load(args.ckpt, map_location="cpu", weights_only=False)[
+            "Settings"
+        ]["Config"]
+    return {"online": PRETRAIN_ONLINE}
+
+
+def _dckpt_settings(dckpt: str):
+    settings = load_checkpoint(dckpt)["Settings"]
+    return settings["Config"], dict(settings["Paras"])
+
+
+def get_preprocessor(args, config):
+    """(preprocessor, upstream dim, downstream dim, target linear dim)."""
+    pretrain_config = _pretrain_config(args)
+    if getattr(args, "upstream", "transformer") == "transformer":
+        upstream_feat = dict(pretrain_config["online"]["input"])
+    else:
+        upstream_feat = dict(config["preprocessor"]["baseline"])
+    if args.dckpt:
+        dconfig, _ = _dckpt_settings(args.dckpt)
+        downstream_feat = dict(
+            dconfig["online"]["input"] if "online" in dconfig
+            else dconfig["preprocessor"]["baseline"]
+        )
+    else:
+        downstream_feat = dict(config["preprocessor"]["baseline"])
+
+    channel_inp = config["preprocessor"]["input_channel"]
+    channel_tar = config["preprocessor"]["target_channel"]
+    upstream_feat["channel"] = channel_inp
+    downstream_feat["channel"] = channel_inp
+    feat_list = [
+        upstream_feat,
+        downstream_feat,
+        get_feat_config("linear", channel_inp),
+        get_feat_config("uphase", channel_inp),
+        get_feat_config("linear", channel_tar),
+        get_feat_config("uphase", channel_tar),
+    ]
+    preprocessor = OnlinePreprocessor(**pretrain_config["online"], feat_list=feat_list)
+    preprocessor.channel_inp = channel_inp
+    preprocessor.channel_tar = channel_tar
+    dims = preprocessor.feat_dims()
+    return preprocessor, dims[0], dims[1], dims[4]
+
+
+def get_downstream_model(args, input_dim, output_dim, config, generator=None):
+    if not args.dckpt:
+        model_config = config.get("model", {}).get(args.downstream, {}) or {}
+    else:
+        dconfig, dparas = _dckpt_settings(args.dckpt)
+        if "small_model" in dconfig:
+            model_config = dconfig["small_model"]["model"]
+        else:
+            model_config = dconfig["model"][dparas.get("downstream", args.downstream)]
+    configs = dict(vars(args))
+    configs.update(model_config)
+    return build_head(args.downstream, input_size=input_dim, output_size=output_dim,
+                      generator=generator, **configs)
+
+
+def build_runner(args, config) -> Runner:
+    """The Runner of a run on ``args.device``, its head's weights drawn from
+    ``--seed``."""
+    use_full_fp32()
+    expdir = os.path.join(args.expdir, args.name or "default")
+    os.makedirs(expdir, exist_ok=True)
+    preprocessor, _, downstream_dim, tar_linear_dim = get_preprocessor(args, config)
+    model = get_downstream_model(
+        args, downstream_dim, tar_linear_dim, config,
+        generator=torch.Generator().manual_seed(args.seed),
+    )
+    return Runner(args, config, preprocessor, model, expdir, args.device)
+
+
+def main(argv=None):
+    args, config = get_downstream_args(argv)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    runner = build_runner(args, config)
+    runner.set_model()
+    if args.test:
+        runner.evaluate()
+    elif args.test_gradient:
+        runner.test_gradient()
+    else:
+        runner.train()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

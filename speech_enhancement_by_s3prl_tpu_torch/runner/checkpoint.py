@@ -8,9 +8,16 @@ tree; the port writes it through ``models/convert.py`` so that either
 package reads the other's checkpoints.
 
 Reading needs neither jax nor flax: the JAX package's ``Optimizer`` entry
-holds optax state classes, which unpickle here as opaque
-:class:`ForeignObject` records (the port does not use them). Only numpy and
-builtin types are rebuilt as themselves.
+holds optax state classes, which unpickle here as :class:`ForeignObject`
+records that keep what was pickled; :func:`optimizer_state_from_payload`
+reads the moments and counts out of them. Only numpy and builtin types are
+rebuilt as themselves.
+
+The port's own ``Optimizer`` entry is ``{'count': int, 'mu': tree, 'nu':
+tree}``, the moments as flax-shaped trees keyed by the parameters' flax
+paths (Dense moments transposed like the kernels). The JAX package does not
+read this entry: a port checkpoint resumes in the port, and serves in
+either package.
 """
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ import pickle
 import re
 from typing import Any, Dict, Optional
 
+import numpy as np
+import torch
 from torch import nn
 
-from ..models.convert import state_dict_to_flax
+from ..models.convert import flax_to_state_dict, state_dict_to_flax
 
 _SAFE_BUILTINS = frozenset({
     "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
@@ -71,6 +80,55 @@ def _to_host(tree):
     return tree
 
 
+def optimizer_payload(opt_state: Optional[dict]) -> Optional[dict]:
+    """The port's ``Optimizer`` entry for an optimizer state
+    (runner/optim.py) or None."""
+    if opt_state is None:
+        return None
+    return {
+        "count": np.int32(int(opt_state["count"])),
+        "mu": state_dict_to_flax(opt_state["mu"]),
+        "nu": state_dict_to_flax(opt_state["nu"]),
+    }
+
+
+def _is_state(obj, name: str) -> bool:
+    return isinstance(obj, ForeignObject) and obj.qualname.endswith("." + name)
+
+
+def optimizer_state_from_payload(entry: Any, device) -> Optional[dict]:
+    """An ``Optimizer`` entry written by either package -> the port's
+    optimizer state on ``device`` (None stays None: a fresh state follows).
+
+    A JAX checkpoint holds the optax chain's state tuple. Position 0 is
+    ``ScaleByAdamState(count, mu, nu)`` in both chains the JAX package
+    builds (BertAdam and Adam): its moments and count are read. For BertAdam,
+    position 2 is ``ScaleByScheduleState(count)``, the count the schedule
+    reads; the JAX train step advances it with position 0's, and a
+    checkpoint where the two differ is refused. Positions 1 and 3 (the decay
+    mask's and the sign flip's empty states) hold nothing."""
+    if entry is None:
+        return None
+    if isinstance(entry, dict) and {"count", "mu", "nu"} <= set(entry):
+        count, mu, nu = entry["count"], entry["mu"], entry["nu"]
+    elif isinstance(entry, tuple) and entry and _is_state(entry[0], "ScaleByAdamState"):
+        count, mu, nu = entry[0].args
+        if len(entry) > 2 and _is_state(entry[2], "ScaleByScheduleState"):
+            (sched_count,) = entry[2].args
+            if int(sched_count) != int(count):
+                raise ValueError(
+                    f"optax state: Adam count {int(count)} but schedule count "
+                    f"{int(sched_count)}"
+                )
+    else:
+        raise ValueError(f"unrecognized Optimizer entry: {entry!r:.200}")
+    return {
+        "count": torch.tensor(int(count), dtype=torch.int32, device=device),
+        "mu": {k: v.to(device) for k, v in flax_to_state_dict(mu).items()},
+        "nu": {k: v.to(device) for k, v in flax_to_state_dict(nu).items()},
+    }
+
+
 def save_checkpoint(
     directory: str,
     step: int,
@@ -82,7 +140,8 @@ def save_checkpoint(
     extra: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Write ``model``'s weights as the flax-shaped tree, plus ``opt_state``
-    (any tree of tensors or arrays; None when there is none)."""
+    (a tree of tensors or arrays, such as :func:`optimizer_payload` gives;
+    None when there is none)."""
     os.makedirs(directory, exist_ok=True)
     rotate(directory, max_keep)
     payload = {
