@@ -11,7 +11,10 @@ Phases, one line each:
      flagship shape and at ragged ones, against a stated limit: B1
      (recurrence), B2 fwd (recurrence + cell states), B2 bwd (reverse-time
      VJP), and the gradients of ``LstmBidirTm`` against autograd through the
-     plain recurrence;
+     plain recurrence; B3 fwd (flash attention with hash dropout: out, lse)
+     and B3 bwd (dq, dk, dv) at the Mockingjay shape (B=6, T=1001, 12 heads
+     of 64) with dropout 0.1 and 0, at ragged T with a key bias, and
+     ``FlashAttention`` against autograd through the plain version;
   4. the enhance slice: a seeded flagship checkpoint served through
      ``serve.build_enhancer(device="cuda")`` (4 concurrent requests through
      ``MicroBatcher``) and the ``enhance`` CLI, with B1's launch count, the
@@ -23,9 +26,21 @@ Phases, one line each:
      with the launch counts of all three kernels; then one train step on the
      card against the same step on the CPU, and a NaN-poisoned step that
      must leave every parameter as it was;
-  6. times of each kernel and its plain version, the B=1 10 s enhance
+  6. the upstream slice at full width (the TERA/Mockingjay encoder, 6
+     layers x 768 x 12 heads, FFN 3072, dropout 0.1): ``Mockingjay`` trained
+     ``--from_waveform`` through ``build_runner`` / ``Runner`` (4 steps with
+     evals and saves, then a 2-step resume) with B3's launch counts (6 fwd
+     and 6 bwd a step, none in eval); one train step on the card against
+     the same step on the CPU with the same dropout salts; and the upstream
+     mode: a ``Residual`` head trained on the hidden states of a frozen,
+     seeded full-width S3PRL checkpoint with ``--dropout`` (B3 fwd in the
+     upstream), its checkpoint then served on the card and on the CPU;
+  7. times of each kernel and its plain version, the B=1 10 s enhance
      latency, the B=6 train step and eval batch, and a profiler breakdown
-     of the train step, each beside the card's name and power limit.
+     of the train step, each beside the card's name and power limit; then
+     B3 fwd and bwd against their plain versions at B=6 and B=64, B3 at rate
+     0 against ``scaled_dot_product_attention`` (a yardstick, not a route),
+     the B=6 10 s Mockingjay train step and its profiler breakdown.
 
 Then one JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -36,6 +51,7 @@ import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +87,22 @@ TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
 B2_SHAPES = ((6, 1001, 256), (3, 37, 256), (70, 37, 256))
 TRAIN_STEPS, RESUME_STEPS = 8, 2
+# B3 vs its plain version, each error relative to the plain version's largest
+# |value|. The kernel folds 64-key tiles into an online softmax with f32 FMAs,
+# the plain version takes whole rows through cuBLAS in full f32: rounding
+# near 1e-7 relative. One flipped mask bit moves an output by about 1e-3 of
+# its largest value, so a wrong hash fails.
+B3_TOL = 1e-4
+B3_CASES = (  # B, T, N, D, dropout rate, key bias
+    (6, 1001, 12, 64, 0.1, False),
+    (6, 1001, 12, 64, 0.0, False),
+    (2, 37, 12, 64, 0.1, True),
+    (3, 130, 12, 64, 0.1, True),
+    (2, 70, 4, 32, 0.2, True),
+    (2, 70, 2, 128, 0.2, False),
+)
+MJ_LAYERS = 6
+MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
 
 
 def card_line() -> str:
@@ -184,6 +216,429 @@ def cuda_ms(torch, fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments out of its mangled name."""
+    m = re.search(r"\d+((?:lstm|flash)[a-z_]*kernel(?:I.*?E)?)E", mangled)
+    return m.group(1) if m else mangled
+
+
+def kernel_op(name: str) -> str:
+    """The op of a device kernel, out of its demangled name: the host
+    function of an elementwise lambda, else the innermost functor and its
+    type, else the kernel's name."""
+    m = re.search(r"(\w+)\((?:at::)?TensorIteratorBase&\)", name)
+    if m:
+        return m.group(1)
+    functors = re.findall(r"(\w+(?:Functor|Op))<([\w:]+)", name)
+    if functors:
+        return "{}<{}>".format(*functors[-1])
+    return re.sub(r"^void |<.*$", "", name)[:60]
+
+
+def write_s3prl_checkpoint(torch, path, seed):
+    """A TERA pretraining checkpoint in the S3PRL layout (unfused q/k/v,
+    gamma/beta LayerNorms) at the reference's full width
+    (config/pretrain_sample.yaml), weights normal(0, 0.02) from ``seed``."""
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import PRETRAIN_ONLINE
+
+    g = torch.Generator().manual_seed(seed)
+    H, I, D_in, D_out = 768, 3072, 80, 201
+
+    def dense(prefix, n_out, n_in):
+        return {f"{prefix}.weight": 0.02 * torch.randn(n_out, n_in, generator=g),
+                f"{prefix}.bias": torch.zeros(n_out)}
+
+    def layernorm(prefix):
+        return {f"{prefix}.gamma": torch.ones(H), f"{prefix}.beta": torch.zeros(H)}
+
+    enc = {**dense("input_representations.spec_transform", H, D_in),
+           **layernorm("input_representations.LayerNorm")}
+    for i in range(MJ_LAYERS):
+        p = f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            enc.update(dense(f"{p}.attention.self.{name}", H, H))
+        enc.update({**dense(f"{p}.attention.output.dense", H, H),
+                    **layernorm(f"{p}.attention.output.LayerNorm"),
+                    **dense(f"{p}.intermediate.dense", I, H),
+                    **dense(f"{p}.output.dense", H, I),
+                    **layernorm(f"{p}.output.LayerNorm")})
+    head = {**dense("dense", H, H), **layernorm("LayerNorm"), **dense("output", D_out, H)}
+    config = {"transformer": {
+        "input_dim": 160, "downsample_rate": 1, "hidden_size": H,
+        "num_hidden_layers": MJ_LAYERS, "num_attention_heads": 12, "intermediate_size": I,
+        "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+        "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
+        "layer_norm_eps": "1e-12", "share_layer": False, "max_input_length": 0,
+    }, "online": PRETRAIN_ONLINE}
+    torch.save({"Transformer": enc, "SpecHead": head,
+                "Settings": {"Config": config, "Paras": {}}}, path)
+    return path
+
+
+def flash_checks(torch, A):
+    """B3 fwd and B3 bwd against their plain versions on the card, q, k and
+    v as the three thirds of one fused projection, as the encoder hands them
+    over. Returns the largest absolute errors (fwd, bwd)."""
+    worst_fwd = worst_bwd = 0.0
+    salt, batch0 = (0x9E3779B9, 0xDEADBEEF), 3
+    for B, T, N, D, rate, bias in B3_CASES:
+        g = torch.Generator().manual_seed(SEED + T)
+        qkv = torch.randn(B, T, 3 * N * D, generator=g).cuda()
+        q, k, v = qkv.split(N * D, dim=-1)
+        kbias = (2.0 * torch.randn(B, T, generator=g)).cuda() if bias else None
+        dout = torch.randn(B, T, N * D, generator=g).cuda()
+        args = (D ** -0.5, rate, salt, kbias, batch0)
+        out, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        ref_out, ref_lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+        # both backward passes from the same residuals
+        grads = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
+        ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, dout, *args,
+                                              n_heads=N)
+        torch.cuda.synchronize()
+        errs = {"out": rel_err(out, ref_out), "lse": rel_err(lse, ref_lse)}
+        errs.update({name: rel_err(a, b)
+                     for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)})
+        print(f"[kernel] flash_attention B={B} T={T} N={N} D={D} rate={rate} "
+              f"kbias={bias}: err / max|value| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (limit {B3_TOL:.0e})", flush=True)
+        if not all(e <= B3_TOL for e in errs.values()):
+            raise AssertionError(f"flash attention disagrees with its plain version: {errs}")
+        worst_fwd = max(worst_fwd, float((out - ref_out).abs().max()),
+                        float((lse - ref_lse).abs().max()))
+        worst_bwd = max([worst_bwd] + [float((a - b).abs().max())
+                                       for a, b in zip(grads, ref_grads)])
+
+    # FlashAttention (B3 fwd + B3 bwd under autograd) vs autograd through the
+    # plain version
+    g = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(2, 130, 3 * 768, generator=g).cuda()
+    dout = torch.randn(2, 130, 768, generator=g).cuda()
+    grads = []
+    for fn in (A.flash_attention, lambda *a, **kw: A.flash_attention_ref(*a, **kw)[0]):
+        x = qkv.clone().requires_grad_()
+        out = fn(*x.split(768, dim=-1), 0.125, 0.1, salt, n_heads=12)
+        grads.append(torch.autograd.grad((out * dout).sum(), x)[0])
+    fn_err = rel_err(*grads)
+    print(f"[kernel] FlashAttention grads vs autograd through flash_attention_ref "
+          f"B=2 T=130 N=12 D=64 rate=0.1: err / max|grad| {fn_err:.3e} "
+          f"(limit {B3_TOL:.0e})", flush=True)
+    if not fn_err <= B3_TOL:
+        raise AssertionError(f"FlashAttention gradients disagree: {fn_err}")
+    return worst_fwd, worst_bwd
+
+
+def upstream_slice(torch, corpus, tmp, lstm_kernels, flash_kernels):
+    """Phase 6: Mockingjay through the Runner (the main path of B3), the
+    card against the CPU for one step, and the upstream mode trained and
+    served. Returns B3's launch counts of the Mockingjay run."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import SaltStream
+    from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+        get_parser,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import (
+        find_resume_ckpt,
+        load_checkpoint,
+        optimizer_state_from_payload,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer
+
+    all_kernels = lstm_kernels + flash_kernels
+    fwd, bwd = flash_kernels
+    expdir = os.path.join(tmp, "exp")
+    config = train_config(corpus)
+    config["model"] = {"Mockingjay": {}}  # the full TransformerConfig()
+    config["runner"].update(total_step=MJ_STEPS, log_step=2, eval_step=2, save_step=2)
+    args = get_parser().parse_args([
+        "--name", "mockingjay", "--expdir", expdir, "--downstream", "Mockingjay",
+        "--objective", "SISDR", "--optim", "BertAdam", "--from_waveform",
+        "--dev_num", "3", "--n_jobs", "4", "--seed", str(SEED), "--device", "cuda",
+    ])
+    run_dir = os.path.join(expdir, "mockingjay")
+
+    def recorded(runner):
+        """Record every train step's stats and B3's launches in each eval."""
+        steps, evals = [], []
+        train_step, eval_step = runner.train_step, runner.builder.eval_step
+
+        def step(state, wavs, lengths):
+            state, stats = train_step(state, wavs, lengths)
+            steps.append((tuple(wavs.shape), stats))
+            return state, stats
+
+        def evaluate(wavs, lengths, **kw):
+            before = fwd.launches + bwd.launches
+            out = eval_step(wavs, lengths, **kw)
+            evals.append((tuple(wavs.shape), fwd.launches + bwd.launches - before))
+            return out
+
+        runner.train_step, runner.builder.eval_step = step, evaluate
+        return steps, evals
+
+    def check_run(steps, evals, counts, n_steps, what):
+        losses = [float(st["loss"]) for _, st in steps]
+        norms = [float(st["grad_norm"]) for _, st in steps]
+        if len(steps) != n_steps or not all(map(math.isfinite, losses + norms)):
+            raise AssertionError(f"{what}: {len(steps)} steps, losses {losses}, norms {norms}")
+        if any(bool(st["skipped"]) for _, st in steps):
+            raise AssertionError(f"{what}: a finite train step was skipped")
+        want = [0, 0, 0, MJ_LAYERS * n_steps, MJ_LAYERS * n_steps]
+        if counts != want or any(n for _, n in evals):
+            raise AssertionError(
+                f"{what}: launches (B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd) {counts}, want "
+                f"{want}; B3 launches in the eval batches {[n for _, n in evals]}")
+        return losses, norms
+
+    random.seed(SEED)
+    np.random.seed(SEED)
+    runner = build_runner(args, config)
+    runner.set_model()
+    n_params = sum(p.numel() for p in runner.downstream_model.parameters())
+    steps, evals = recorded(runner)
+    t0 = time.perf_counter()
+    # -- the main path of B3, between the counter reset and its reading --
+    reset_counts(all_kernels)
+    runner.train()
+    mj_counts = [fn.launches for fn in all_kernels]
+    # -----------------------------------------------------------------------
+    train_s = time.perf_counter() - t0
+    losses, norms = check_run(steps, evals, mj_counts, MJ_STEPS, "Mockingjay")
+    ckpts = ckpt_files(run_dir)
+    if len(evals) != 2 or ckpts != [f"states-{MJ_STEPS}.ckpt", f"states-{MJ_STEPS + 1}.ckpt"]:
+        raise AssertionError(f"Mockingjay: eval batches {evals}, checkpoints {ckpts}")
+    print(f"[upstream] Mockingjay (TERA 6 x 768 x 12 heads, FFN 3072, dropout 0.1, "
+          f"{n_params / 1e6:.1f} M parameters) from_waveform through Runner on cuda: "
+          f"{MJ_STEPS} steps of batches {sorted({sh for sh, _ in steps})} in {train_s:.2f} s "
+          f"(eval batches {[sh for sh, _ in evals]}, loader and saves included); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{', '.join(f'{x:.3f}' for x in norms)}; launches B3 fwd {mj_counts[3]}, "
+          f"B3 bwd {mj_counts[4]} ({MJ_LAYERS} + {MJ_LAYERS} a step, 0 in eval); "
+          f"checkpoints {ckpts}", flush=True)
+
+    args2, config2 = get_downstream_args(["--resume", run_dir, "--device", "cuda"])
+    config2["runner"]["total_step"] = MJ_STEPS + MJ_RESUME_STEPS
+    runner2 = build_runner(args2, config2)
+    runner2.set_model()
+    restored = (runner2.global_step, runner2.state.host_step,
+                int(runner2.state.opt_state["count"]))
+    if restored != (MJ_STEPS + 1, MJ_STEPS + 1, MJ_STEPS):
+        raise AssertionError(f"Mockingjay resume restored (global step, salt step, "
+                             f"optimizer count) {restored}")
+    steps2, evals2 = recorded(runner2)
+    reset_counts(all_kernels)
+    runner2.train()
+    resume_counts = [fn.launches for fn in all_kernels]
+    losses2, _ = check_run(steps2, evals2, resume_counts, MJ_RESUME_STEPS, "resume")
+    print(f"[upstream] Mockingjay resume: restored global step {restored[0]}, salt step "
+          f"{restored[1]}, optimizer count {restored[2]}; {MJ_RESUME_STEPS} more steps, "
+          f"losses {', '.join(f'{x:.4f}' for x in losses2)}, launches B3 fwd "
+          f"{resume_counts[3]}, B3 bwd {resume_counts[4]}", flush=True)
+
+    # one train step's loss and gradient on the card vs on the CPU: the last
+    # checkpoint, one batch of a 4 s bucket, the same dropout salts
+    payload = load_checkpoint(find_resume_ckpt(run_dir))
+    fixed_set = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
+                              noise={"filestrs": os.path.join(corpus, "noise")},
+                              max_time=4000, snrs=[0])
+    lengths_np, wavs_np = fixed_set.collate_fn([fixed_set[i] for i in range(6)],
+                                               pad_to=4 * SR)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        builder = build_mockingjay_train(device=device)
+        builder.model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
+        builder.model.train()
+        wavs = torch.from_numpy(wavs_np).to(device)
+        lengths = torch.from_numpy(lengths_np).to(device)
+        params = list(builder.model.parameters())
+        loss, _ = builder.loss_fn(make_context(builder.preprocessor, wavs, lengths, 0, 1),
+                                  SaltStream(SEED, 1000))
+        g = torch.autograd.grad(loss, params)
+        flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+        sides[device] = (float(loss.detach()), float(flat.norm()), flat)
+    (gl, gn, gg), (cl, cn, cg) = sides["cuda"], sides["cpu"]
+    loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+    grad_rel = float((gg - cg).norm() / cg.norm())
+    print(f"[upstream] Mockingjay GPU vs CPU one step (B=6, 4 s bucket, dropout live, "
+          f"same salts, checkpoint {os.path.basename(find_resume_ckpt(run_dir))}): loss "
+          f"{gl:.6f} vs {cl:.6f} rel {loss_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}); grad "
+          f"norm rel {norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}); |g_gpu - g_cpu| / "
+          f"|g_cpu| {grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e})", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+            and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError("the Mockingjay step on the card disagrees with the CPU")
+
+    # the upstream mode: a flagship-width Residual head on the hidden states
+    # of a frozen, seeded full-width upstream whose dropout --dropout puts live
+    up_ckpt = write_s3prl_checkpoint(torch, os.path.join(tmp, "tera-seeded.ckpt"), SEED)
+    config = train_config(corpus)
+    config["runner"].update(total_step=UPSTREAM_STEPS, eval_step=UPSTREAM_STEPS,
+                            save_step=UPSTREAM_STEPS)
+    args = get_parser().parse_args([
+        "--name", "upstream", "--expdir", expdir, "--downstream", "Residual",
+        "--objective", "SISDR", "--optim", "BertAdam", "--upstream", "transformer",
+        "--ckpt", up_ckpt, "--dropout", "0.1", "--dev_num", "3", "--n_jobs", "4",
+        "--seed", str(SEED), "--device", "cuda",
+    ])
+    runner = build_runner(args, config)
+    runner.set_model()
+    steps, evals = recorded(runner)
+    reset_counts(all_kernels)
+    runner.train()
+    up_counts = [fn.launches for fn in all_kernels]
+    up_losses = [float(st["loss"]) for _, st in steps]
+    want = [3 * len(evals), 3 * UPSTREAM_STEPS, 3 * UPSTREAM_STEPS,
+            MJ_LAYERS * UPSTREAM_STEPS, 0]
+    if (len(steps) != UPSTREAM_STEPS or not all(map(math.isfinite, up_losses))
+            or up_counts != want or any(n for _, n in evals)):
+        raise AssertionError(f"upstream mode: {len(steps)} steps, losses {up_losses}, "
+                             f"launches {up_counts}, want {want}")
+    print(f"[upstream] upstream mode (Residual 3 x 256 BLSTM on the frozen seeded TERA, "
+          f"--dropout 0.1) through Runner on cuda: {UPSTREAM_STEPS} steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in up_losses)}; launches (B1, B2 fwd, B2 bwd, "
+          f"B3 fwd, B3 bwd) {up_counts}", flush=True)
+
+    up_run = os.path.join(expdir, "upstream")
+    gpu = build_enhancer(up_run, device="cuda")
+    cpu = build_enhancer(up_run, device="cpu")
+    requests = [request_audio(s, 20 + i) for i, s in enumerate((2.0, 3.7))]
+    reset_counts(all_kernels)
+    outs = gpu.run_batch(requests)
+    serve_counts = [fn.launches for fn in all_kernels]
+    worst = 0.0
+    for wav, out, ref in zip(requests, outs, cpu.run_batch(requests)):
+        if out.shape != wav.shape or not np.isfinite(out).all():
+            raise AssertionError(f"upstream-mode serving: shape {out.shape}")
+        worst = max(worst, float(np.abs(out - ref).max() / np.sqrt(np.mean(ref ** 2))))
+    print(f"[upstream] upstream-mode checkpoint {os.path.basename(find_resume_ckpt(up_run))} "
+          f"served on cuda: 2 requests in one device batch, launches (B1, B2 fwd, B2 bwd, "
+          f"B3 fwd, B3 bwd) {serve_counts}; GPU vs CPU max |diff| / output RMS "
+          f"{worst:.3e} (limit {SLICE_TOL:.0e})", flush=True)
+    if serve_counts != [3, 0, 0, 0, 0] or not worst <= SLICE_TOL:
+        raise AssertionError(f"upstream-mode serving: launches {serve_counts}, "
+                             f"GPU vs CPU {worst}")
+    return mj_counts[3], mj_counts[4]
+
+
+def upstream_times(torch, A, card):
+    """Phase 7, second half: B3 against its plain version and SDPA, and the
+    Mockingjay train step with its profiler breakdown."""
+    import torch.nn.functional as F
+
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
+
+    times = {}
+    N, D, T, salt = 12, 64, 1001, (1, 2)
+    for B in (6, 64):
+        g = torch.Generator().manual_seed(SEED)
+        q, k, v = torch.randn(B, T, 3 * N * D, generator=g).cuda().split(N * D, dim=-1)
+        dout = torch.randn(B, T, N * D, generator=g).cuda()
+        out, lse = A.flash_attention_fwd(q, k, v, 0.125, 0.1, salt, n_heads=N)
+        pairs = {
+            "fwd": (lambda: A.flash_attention_fwd(q, k, v, 0.125, 0.1, salt, n_heads=N),
+                    lambda: A.flash_attention_ref(q, k, v, 0.125, 0.1, salt, n_heads=N)),
+            "bwd": (lambda: A.flash_attention_bwd(q, k, v, out, lse, dout, 0.125, 0.1, salt,
+                                                  n_heads=N),
+                    lambda: A.flash_attention_bwd_ref(q, k, v, out, lse, dout, 0.125, 0.1,
+                                                      salt, n_heads=N)),
+        }
+        for name, (kern_fn, plain_fn) in pairs.items():
+            plain = cuda_ms(torch, plain_fn, iters=2)
+            kern = cuda_ms(torch, kern_fn, iters=10)
+            kern2 = cuda_ms(torch, kern_fn, iters=10)
+            plain2 = cuda_ms(torch, plain_fn, iters=2)
+            times[("b3" + name, B)] = (min(kern, kern2), min(plain, plain2))
+            print(f"[time] flash_attention_{name} B={B} T={T} N={N} D={D} rate 0.1: kernel "
+                  f"{kern:.3f} / {kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
+                  flush=True)
+        heads = [x.reshape(B, T, N, D).transpose(1, 2) for x in (q, k, v)]
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*heads, scale=0.125), 10)
+        rate0 = cuda_ms(torch, lambda: A.flash_attention_fwd(q, k, v, 0.125, 0.0, salt,
+                                                            n_heads=N), 10)
+        times[("b3sdpa", B)] = (rate0, sdpa)
+        print(f"[time] flash_attention_fwd rate 0 vs scaled_dot_product_attention (a "
+              f"yardstick, not a route) B={B} T={T}: kernel {rate0:.3f} ms, SDPA {sdpa:.3f} "
+              f"ms | {card}", flush=True)
+        del q, k, v, dout, out, lse, heads
+
+    builder = build_mockingjay_train(device="cuda",
+                                     generator=torch.Generator().manual_seed(SEED))
+    state = builder.init_state()
+    rng = np.random.default_rng(SEED)
+    clean = np.stack([request_audio(10.0, s) for s in range(6)])
+    noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+    wavs = torch.from_numpy(np.stack([clean + noise, clean, noise], axis=1)).cuda()
+    lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        state, _ = builder.train_step(state, wavs, lengths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, stats = builder.train_step(state, wavs, lengths)
+    torch.cuda.synchronize()
+    step_mean = (time.perf_counter() - t0) * 1e3 / 10
+    step_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, stats = builder.train_step(state, wavs, lengths)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not math.isfinite(float(stats["loss"])):
+        raise AssertionError(f"Mockingjay timing steps: loss {float(stats['loss'])}")
+    print(f"[time] Mockingjay train step B=6 10 s (T=1001 frames, dropout 0.1): "
+          f"{step_mean:.3f} ms a step over 10 steps with one synchronize at the end; "
+          f"median {statistics.median(step_ms):.3f} ms of 10 synchronized steps (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}", flush=True)
+    times["mj_step"] = (step_mean, statistics.median(step_ms))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, stats = builder.train_step(state, wavs, lengths)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    shares = {"B3 fwd": 0.0, "B3 bwd": 0.0, "cuBLAS": 0.0, "other": 0.0}
+    other, launches = {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name
+        ms = evt.time_range.elapsed_us() / 1e3 / 5
+        launches += 1
+        if "flash_bwd" in name:
+            key = "B3 bwd"
+        elif "flash_fwd" in name:
+            key = "B3 fwd"
+        elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
+            key = "cuBLAS"
+        else:
+            key = "other"
+            label = kernel_op(name)
+            other[label] = other.get(label, 0.0) + ms
+        shares[key] += ms
+    busy = sum(shares.values())
+    print(f"[time] Mockingjay train step B=6 under torch.profiler (5 steps): wall "
+          f"{wall:.3f} ms a step, device busy {busy:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items())
+          + f"), idle share {max(0.0, 1 - busy / wall):.3f}, {launches / 5:.0f} device "
+          f"kernels a step | {card}", flush=True)
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    print("[time] Mockingjay step, largest 'other' kernels (ms a step): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top) + f" | {card}", flush=True)
+    return times
+
+
 def main():
     import torch
 
@@ -205,6 +660,7 @@ def main():
     )
     from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import _build
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda.lstm_kernel import (
         lstm_bidir_tm,
         lstm_bidir_tm_bwd,
@@ -231,6 +687,8 @@ def main():
     )
 
     kernels = (lstm_bidir_tm, lstm_bidir_tm_fc, lstm_bidir_tm_bwd)
+    flash_kernels = (A.flash_attention_fwd, A.flash_attention_bwd)
+    all_kernels = kernels + flash_kernels
     use_full_fp32()
 
     # 1. the card
@@ -250,9 +708,7 @@ def main():
         report = []
         for ln in lines:
             if "Compiling entry function" in ln:
-                fn = ln.split("'")[1]
-                report.append(fn[fn.index("lstm"):fn.index("EEEv") + 2]
-                              if "EEEv" in fn else fn)
+                report.append(kernel_label(ln.split("'")[1]))
             elif "registers" in ln or "spill" in ln:
                 report.append(ln.replace("ptxas info    : ", "").strip())
         print(f"[build] {name}.cu -> {os.path.relpath(lib_path, ROOT)} (all "
@@ -315,6 +771,8 @@ def main():
     if not fn_err <= B2_TOL:
         raise AssertionError(f"LstmBidirTm gradients disagree: {fn_err}")
 
+    b3_err = flash_checks(torch, A)
+
     # 4. the slice, on the card and (for comparison) on the CPU
     with tempfile.TemporaryDirectory() as tmp:
         _, model = build(device="cpu", generator=torch.Generator().manual_seed(SEED))
@@ -346,7 +804,7 @@ def main():
             answers[k] = batcher.submit(requests[k])
 
         # -- the main path, between the counter reset and its reading --
-        reset_counts(kernels)
+        reset_counts(all_kernels)
         threads = [threading.Thread(target=ask, args=(k,)) for k in range(len(requests))]
         for th in threads:
             th.start()
@@ -359,8 +817,9 @@ def main():
                      "--device", "cuda"])
         launches = lstm_bidir_tm.launches
         # -----------------------------------------------------------------
-        if lstm_bidir_tm_fc.launches or lstm_bidir_tm_bwd.launches:
-            raise AssertionError("the inference path launched a training kernel")
+        if (lstm_bidir_tm_fc.launches or lstm_bidir_tm_bwd.launches
+                or any(fn.launches for fn in flash_kernels)):
+            raise AssertionError("the inference path launched a training or attention kernel")
 
         if served_launches != 3 * len(batches):
             raise AssertionError(
@@ -438,10 +897,12 @@ def main():
         steps, evals = recorded(runner)
         t0 = time.perf_counter()
         # -- the main path, between the counter reset and its reading --
-        reset_counts(kernels)
+        reset_counts(all_kernels)
         runner.train()
         train_counts = [fn.launches for fn in kernels]
         # -----------------------------------------------------------------
+        if any(fn.launches for fn in flash_kernels):
+            raise AssertionError("the flagship's training launched an attention kernel")
         train_s = time.perf_counter() - t0
         losses = [float(st["loss"]) for _, st in steps]
         norms = [float(st["grad_norm"]) for _, st in steps]
@@ -487,7 +948,7 @@ def main():
             raise AssertionError(f"resume restored (global step, state step, optimizer "
                                  f"count) {restored}, weights equal {same}")
         steps2, evals2 = recorded(runner2)
-        reset_counts(kernels)
+        reset_counts(all_kernels)
         runner2.train()
         resume_counts = [fn.launches for fn in kernels]
         count2 = int(runner2.state.opt_state["count"])
@@ -561,7 +1022,11 @@ def main():
               f"bit-identical, optimizer count kept at {count_before}, step "
               f"{step_before} -> {int(state.step)}", flush=True)
 
-    # 6. times on the card
+        # 6. the upstream slice at full width, on the same corpus
+        del builder, state, sides, before
+        mj_launches = upstream_slice(torch, corpus, tmp, kernels, flash_kernels)
+
+    # 7. times on the card
     times = {}
     for B in (1, 64):
         xw, w_hh_t = kernel_inputs(torch, B, 1001, 256, SEED)
@@ -680,8 +1145,11 @@ def main():
           f"step, device busy {busy:.3f} ms ("
           + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items())
           + f"), idle share {max(0.0, 1 - busy / wall):.3f} | {card}", flush=True)
+    del builder, state
+    times.update(upstream_times(torch, A, card))
 
     replaces = "speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py"
+    attn = "speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py"
     print(json.dumps({"kernels": [{
         "name": "lstm_bidir_tm",
         "route": "cuda",
@@ -720,6 +1188,32 @@ def main():
         "shape": "B=6 T=1001 H=256",
         "ms_b64": times[("bwd", 64)][0],
         "plain_ms_b64": times[("bwd", 64)][1],
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/flash_attn.cu",
+        "replaces": f"{attn}:277",
+        "launches": mj_launches[0],
+        "max_abs_err": b3_err[0],
+        "ms": times[("b3fwd", 6)][0],
+        "plain_ms": times[("b3fwd", 6)][1],
+        "shape": "B=6 T=1001 N=12 D=64 rate 0.1",
+        "ms_b64": times[("b3fwd", 64)][0],
+        "plain_ms_b64": times[("b3fwd", 64)][1],
+        "rate0_ms": times[("b3sdpa", 6)][0],
+        "sdpa_ms": times[("b3sdpa", 6)][1],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": f"{attn}:314",
+        "launches": mj_launches[1],
+        "max_abs_err": b3_err[1],
+        "ms": times[("b3bwd", 6)][0],
+        "plain_ms": times[("b3bwd", 6)][1],
+        "shape": "B=6 T=1001 N=12 D=64 rate 0.1",
+        "ms_b64": times[("b3bwd", 64)][0],
+        "plain_ms_b64": times[("b3bwd", 64)][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

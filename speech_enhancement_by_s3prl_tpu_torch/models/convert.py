@@ -7,7 +7,8 @@ keys ``lstm.l0_fwd.w_ih`` / ``scaling_layer.weight`` / ``scaling_layer.bias``:
 
 - LSTM weights are stored in torch layout on both sides and are only renamed;
 - a flax ``Dense`` kernel is (in, out) and becomes ``nn.Linear.weight``
-  (out, in) by a transpose, and back.
+  (out, in) by a transpose, and back;
+- a flax ``LayerNorm`` scale (1-D) is ``nn.LayerNorm.weight``, and back.
 
 Both directions copy values exactly, so a round trip is bit-identical.
 """
@@ -42,15 +43,21 @@ def flax_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if arr.ndim != 2:
                 raise ValueError(f"{name}: Dense kernel must be 2-D, got {arr.shape}")
             name, arr = name[: -len("kernel")] + "weight", arr.T
+        elif name.endswith(".scale"):
+            if arr.ndim != 1:
+                raise ValueError(f"{name}: LayerNorm scale must be 1-D, got {arr.shape}")
+            name = name[: -len("scale")] + "weight"
         out[name] = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
     return out
 
 
-def flax_path(name: str) -> Tuple[str, ...]:
-    """The path of ``state_dict`` key ``name`` in the flax tree:
-    ``scaling_layer.weight`` -> ('params', 'scaling_layer', 'kernel')."""
+def flax_path(name: str, ndim: int = 2) -> Tuple[str, ...]:
+    """The path of ``state_dict`` key ``name`` of a tensor with ``ndim``
+    dimensions in the flax tree: ``scaling_layer.weight`` (2-D) ->
+    ('params', 'scaling_layer', 'kernel'), ``input_ln.weight`` (1-D) ->
+    ('params', 'input_ln', 'scale')."""
     if name.endswith(".weight"):
-        name = name[: -len("weight")] + "kernel"
+        name = name[: -len("weight")] + ("kernel" if ndim == 2 else "scale")
     return ("params", *name.split("."))
 
 
@@ -60,10 +67,12 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for name, tensor in state_dict.items():
         arr = tensor.detach().cpu().numpy()
         if name.endswith(".weight"):
-            if arr.ndim != 2:
-                raise ValueError(f"{name}: Linear weight must be 2-D, got {arr.shape}")
+            if arr.ndim not in (1, 2):
+                raise ValueError(
+                    f"{name}: a Linear weight is 2-D and a LayerNorm weight 1-D, "
+                    f"got {arr.shape}")
             arr = arr.T
-        _, *path, leaf = flax_path(name)
+        _, *path, leaf = flax_path(name, arr.ndim)
         node = params
         for part in path:
             node = node.setdefault(part, {})

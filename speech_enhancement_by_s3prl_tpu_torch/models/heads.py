@@ -157,13 +157,20 @@ def build_head(model_name: str, input_size: int, output_size: int,
                generator: Optional[torch.Generator] = None, **cfg) -> nn.Module:
     """Registry of the heads. Extra kwargs (the args namespace a CLI or a
     checkpoint's Settings carry) are filtered to the head's own arguments.
-    The module is built on the CPU; move it with ``.to(device)``."""
-    if model_name in ("SpecHead", "Mockingjay"):
-        raise NotImplementedError(
-            f"{model_name} is not ported yet: it belongs to the upstream "
-            "slice (ROADMAP A8)"
-        )
-    if model_name not in REGISTRY:
+    The module is built on the CPU; move it with ``.to(device)``.
+
+    ``SpecHead`` and ``Mockingjay`` take their structure (the transformer
+    config, ``log_domain`` and, for Mockingjay, the output width) from the
+    S3PRL pretraining checkpoint ``ckpt`` (SpecHead) or ``dckpt``
+    (Mockingjay) when one is given; their pretrained weights are overlaid by
+    the Runner. A ``config`` that is a string (the CLI's YAML path) is
+    dropped, and a dict (a YAML model section) becomes a
+    ``TransformerConfig``."""
+    from .spec_head import Mockingjay, SpecHead  # spec_head imports this module
+    from .transformer import TransformerConfig
+
+    registry = {**REGISTRY, "SpecHead": SpecHead, "Mockingjay": Mockingjay}
+    if model_name not in registry:
         raise ValueError(f"unknown downstream model {model_name}")
     if cfg.get("capture_layer") is not None:
         raise NotImplementedError(
@@ -174,9 +181,29 @@ def build_head(model_name: str, input_size: int, output_size: int,
     if isinstance(dtype, str) and dtype.lower() not in F32_NAMES:
         raise NotImplementedError(
             f"compute_dtype {dtype!r}: the port computes in f32 only; bf16 "
-            "streams are later performance work"
+            "compute is not ported yet (ROADMAP A14)"
         )
-    cls = REGISTRY[model_name]
+    cfg = dict(cfg)
+    ckpt_path = cfg.get("dckpt" if model_name == "Mockingjay" else "ckpt", "")
+    if model_name in ("SpecHead", "Mockingjay") and ckpt_path:
+        from .torch_import import load_s3prl_checkpoint
+
+        lc = load_s3prl_checkpoint(ckpt_path)
+        cfg["config"], cfg["log_domain"] = lc.config, lc.log_domain
+        if model_name == "Mockingjay":
+            # the reference takes the pretraining target's width, not the
+            # requested one
+            output_size = lc.output_size
+        elif "spechead" in lc.params:
+            width = lc.params["spechead"]["output.weight"].shape[0]
+            if width != output_size:
+                raise ValueError(f"checkpoint SpecHead width {width} != requested "
+                                 f"{output_size}")
+    if isinstance(cfg.get("config"), str):
+        cfg.pop("config")
+    elif isinstance(cfg.get("config"), dict):
+        cfg["config"] = TransformerConfig(**cfg["config"])
+    cls = registry[model_name]
     fields = set(inspect.signature(cls).parameters) - {
         "input_size", "output_size", "generator",
     }

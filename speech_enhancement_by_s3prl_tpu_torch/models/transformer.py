@@ -1,0 +1,316 @@
+"""TERA/Mockingjay transformer encoder (counterpart of
+``speech_enhancement_by_s3prl_tpu/models/transformer.py``).
+
+A BERT-style post-LN encoder over spectrogram frames (6 layers x 768 x 12
+heads x FFN 3072, exact-erf gelu at the reference size) with one fused QKV
+projection per layer, sinusoidal position encodings, ``downsample_rate``
+frame stacking and an optional shared layer, plus the spectrogram
+prediction head. Submodule names follow the flax modules (``layer_0.
+attention.qkv``, ``attention_ln``, ``intermediate``, ``output``,
+``output_ln``; ``dense`` / ``ln`` / ``output`` in the head), so the weight
+bridge of ``models/convert.py`` only renames. Initialization follows the
+JAX package: Dense weights normal(0, ``initializer_range``) and zero biases,
+LayerNorms at one and zero, drawn from a ``torch.Generator``.
+
+Attention routes. With attention dropout live (training at a rate above 0)
+the attention is ``ops/cuda/attention_kernel.flash_attention``: kernels B3
+fwd and B3 bwd on a CUDA tensor, their plain versions on a CPU tensor. At
+rate 0 (eval, frozen-upstream inference) it is
+``F.scaled_dot_product_attention``, the counterpart of the JAX default
+``jax.nn.dot_product_attention``.
+
+Dropout. Every dropout site draws its mask from a salted integer hash: the
+attention probabilities from the hash of ``_dropout_mask`` inside B3, the
+hidden states from the hash of ``_hash_mask_apply`` (``hash_dropout``
+below), whose backward re-derives the mask from the salt. Each forward draws
+one salt (two uint32) per live site from a :class:`SaltStream`, in the JAX
+package's order: the input hidden dropout, then per layer the attention
+probabilities, the attention output and the FFN output. So the port's
+dropout stream equals the JAX package's under ``SE_ATTN_IMPL=flash
+SE_HIDDEN_DROPOUT_IMPL=hash`` given the same salts. It differs from the JAX
+default (flax ``nn.Dropout`` masks), which is another, equally valid
+Bernoulli(1 - rate) sample.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.cuda.attention_kernel import flash_attention, keep_threshold, mul32
+
+_MASK32 = 0xFFFFFFFF
+MAX_POSITIONS = 5001  # rows of the position-encoding table
+
+
+@dataclasses.dataclass
+class TransformerConfig:
+    """Architecture hyperparameters, in the reference's YAML vocabulary."""
+
+    input_dim: int = 160
+    downsample_rate: int = 1
+    hidden_size: int = 768
+    num_hidden_layers: int = 6
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+    share_layer: bool = False
+    max_input_length: int = 0
+
+    @classmethod
+    def from_dict(cls, cfg: Dict[str, Any]) -> "TransformerConfig":
+        """A full pretrain config (with a 'transformer' section) or the
+        section itself; unknown keys are ignored and string numbers coerced
+        (the YAMLs quote layer_norm_eps)."""
+        if "transformer" in cfg:
+            cfg = cfg["transformer"]
+        fields = {f.name for f in dataclasses.fields(cls)}
+        clean = {}
+        for k, v in cfg.items():
+            if k not in fields:
+                continue
+            if isinstance(v, str):
+                try:
+                    v = float(v) if ("." in v or "e" in v.lower()) else int(v)
+                except ValueError:
+                    pass
+            clean[k] = v
+        return cls(**clean)
+
+
+ACT2FN = {
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "relu": torch.relu,
+    "swish": F.silu,
+}
+
+
+def sinusoidal_position_encoding(max_len: int, hidden: int) -> np.ndarray:
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, hidden, 2, dtype=np.float64) * -(math.log(10000.0) / hidden))
+    table = np.zeros((max_len, hidden), dtype=np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)[:, : hidden // 2]  # odd-dim safe
+    return table
+
+
+class SaltStream:
+    """The dropout salts of a forward pass, handed out in the order the
+    sites run. Drawn on the host from a ``torch.Generator`` seeded with
+    (``seed``, ``step``), so a resumed run draws the same masks and no value
+    is read back from the device; or replayed from an explicit list
+    ``salts`` (pairs of uint32), as a test replays the salts the JAX package
+    drew. ``generator`` also feeds the upstream's spec_aug positions.
+
+    The CPU generator keeps only the low 32 bits of its seed, so (seed,
+    step) are first mixed into 32 bits by numpy's ``SeedSequence``."""
+
+    def __init__(self, seed: int = 0, step: int = 0,
+                 salts: Optional[Iterable[Tuple[int, int]]] = None):
+        mixed = np.random.SeedSequence([int(seed) & _MASK32, int(step) & _MASK32])
+        self.generator = torch.Generator().manual_seed(int(mixed.generate_state(1)[0]))
+        self._replay = None if salts is None else iter(
+            [tuple(int(s) & _MASK32 for s in pair) for pair in salts])
+        self.drawn = 0
+
+    def __call__(self) -> Tuple[int, int]:
+        self.drawn += 1
+        if self._replay is None:
+            return tuple(torch.randint(0, 2 ** 32, (2,), generator=self.generator,
+                                       dtype=torch.int64).tolist())
+        try:
+            return next(self._replay)
+        except StopIteration:
+            raise ValueError(f"the replayed salts ran out at site {self.drawn}") from None
+
+
+def _hash_mask_apply(x: torch.Tensor, salt, rate: float) -> torch.Tensor:
+    """Hidden-state dropout by the salted hash of (flat index within x[0],
+    leading index): bit for bit the JAX package's ``_hash_mask_apply``."""
+    keep = 1.0 - rate
+    s0, s1 = (int(s) & _MASK32 for s in salt)
+    inner_n = math.prod(x.shape[1:])
+    inner = torch.arange(inner_n, dtype=torch.int64, device=x.device).reshape(
+        (1,) + tuple(x.shape[1:]))
+    lead = torch.arange(x.shape[0], dtype=torch.int64, device=x.device).reshape(
+        (-1,) + (1,) * (x.dim() - 1))
+    h = mul32(inner, 2654435761) ^ mul32(lead, 40503) ^ s0
+    h = h ^ (h >> 16)
+    h = mul32(h, 2246822519)
+    h = h ^ (h >> 13)
+    h = h ^ s1
+    h = mul32(h, 3266489917)
+    h = h ^ (h >> 16)
+    return torch.where(h < keep_threshold(rate), x / keep, torch.zeros_like(x))
+
+
+class HashDropout(torch.autograd.Function):
+    """``_hash_mask_apply`` with a backward that re-derives the mask from the
+    8-byte salt (the JAX custom VJP ``_hash_dropout_vjp``): no mask is kept."""
+
+    @staticmethod
+    def forward(ctx, x, salt, rate):
+        ctx.salt, ctx.rate = salt, rate
+        return _hash_mask_apply(x, salt, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _hash_mask_apply(g, ctx.salt, ctx.rate), None, None
+
+
+def hash_dropout(x: torch.Tensor, rate: float, salt) -> torch.Tensor:
+    if rate <= 0.0:
+        return x
+    return HashDropout.apply(x, tuple(salt), rate)
+
+
+def hidden_dropout(x: torch.Tensor, rate: float, live: bool,
+                   salts: Optional[SaltStream]) -> torch.Tensor:
+    """Hidden-state dropout of one site; draws a salt only when live."""
+    if not live or rate <= 0.0:
+        return x
+    if salts is None:
+        raise ValueError("dropout is live (training, rate > 0) but no SaltStream was given")
+    return hash_dropout(x, rate, salts())
+
+
+def dense(fan_in: int, out: int, stddev: float, generator=None) -> nn.Linear:
+    """nn.Linear with weight normal(0, stddev) and a zero bias (the JAX
+    encoder's ``normal_init`` Dense)."""
+    layer = nn.Linear(fan_in, out)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, stddev, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, config: TransformerConfig, generator=None):
+        super().__init__()
+        self.config = config
+        H, r = config.hidden_size, config.initializer_range
+        self.qkv = dense(H, 3 * H, r, generator)  # fused q, k, v, in that order
+        self.output = dense(H, H, r, generator)
+
+    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None):
+        c = self.config
+        H, N = c.hidden_size, c.num_attention_heads
+        D = H // N
+        scale = 1.0 / math.sqrt(D)
+        q, k, v = self.qkv(hidden).split(H, dim=-1)
+        rate = c.attention_probs_dropout_prob
+        if self.training and rate > 0.0:
+            if salts is None:
+                raise ValueError("attention dropout is live but no SaltStream was given")
+            ctx = flash_attention(q, k, v, scale, rate, salts(), n_heads=N)
+        else:
+            B, T, _ = q.shape
+
+            def heads(x):
+                return x.reshape(B, T, N, D).transpose(1, 2)
+
+            ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=scale)
+            ctx = ctx.transpose(1, 2).reshape(B, T, H)
+        out = self.output(ctx)
+        return hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
+
+
+class TransformerLayer(nn.Module):
+    """Post-LN layer: attention + residual + LayerNorm, FFN + residual +
+    LayerNorm, the residual sums in f32."""
+
+    def __init__(self, config: TransformerConfig, generator=None):
+        super().__init__()
+        self.config = config
+        H, r, eps = config.hidden_size, config.initializer_range, config.layer_norm_eps
+        self.attention = SelfAttention(config, generator)
+        self.attention_ln = nn.LayerNorm(H, eps=eps)
+        self.intermediate = dense(H, config.intermediate_size, r, generator)
+        self.output = dense(config.intermediate_size, H, r, generator)
+        self.output_ln = nn.LayerNorm(H, eps=eps)
+
+    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None):
+        c = self.config
+        hidden = self.attention_ln(hidden + self.attention(hidden, salts))
+        out = self.output(ACT2FN[c.hidden_act](self.intermediate(hidden)))
+        out = hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
+        return self.output_ln(hidden + out)
+
+
+class TransformerEncoder(nn.Module):
+    """Input projection + position encoding + LayerNorm + the layers.
+
+    ``forward(spec (B, T, input_dim))`` -> (B, T // dr, hidden), or every
+    layer's output stacked (L, B, T // dr, hidden) when
+    ``output_all_layers``. ``input_dim`` defaults to the config's; the flax
+    module takes it from the data."""
+
+    def __init__(self, config: TransformerConfig, input_dim: Optional[int] = None,
+                 generator=None):
+        super().__init__()
+        self.config = config
+        H, r = config.hidden_size, config.initializer_range
+        dr = max(1, config.downsample_rate)
+        self.spec_transform = dense((input_dim or config.input_dim) * dr, H, r, generator)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_position_encoding(MAX_POSITIONS, H)),
+            persistent=False)
+        self.input_ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
+        if config.share_layer:
+            self.layer_shared = TransformerLayer(config, generator)
+        else:
+            for i in range(config.num_hidden_layers):
+                self.add_module(f"layer_{i}", TransformerLayer(config, generator))
+
+    def layers(self):
+        c = self.config
+        if c.share_layer:
+            return [self.layer_shared] * c.num_hidden_layers
+        return [getattr(self, f"layer_{i}") for i in range(c.num_hidden_layers)]
+
+    def forward(self, spec: torch.Tensor, salts: Optional[SaltStream] = None,
+                output_all_layers: bool = False):
+        c = self.config
+        dr = max(1, c.downsample_rate)
+        b, t, d = spec.shape
+        if dr > 1:
+            t2 = t // dr
+            spec = spec[:, : t2 * dr].reshape(b, t2, d * dr)
+        hidden = self.spec_transform(spec)
+        hidden = self.input_ln(hidden + self.pe[: hidden.shape[1]])
+        hidden = hidden_dropout(hidden, c.hidden_dropout_prob, self.training, salts)
+        all_layers = []
+        for layer in self.layers():
+            hidden = layer(hidden, salts)
+            all_layers.append(hidden)
+        if output_all_layers:
+            return torch.stack(all_layers, dim=0)
+        return hidden
+
+
+class TransformerSpecPredictionHead(nn.Module):
+    """hidden -> spectrogram: dense + act + LayerNorm + output. Returns
+    (predicted, the normalized hidden). ``input_size`` defaults to the
+    hidden size."""
+
+    def __init__(self, config: TransformerConfig, output_size: int = 201,
+                 input_size: Optional[int] = None, generator=None):
+        super().__init__()
+        self.config = config
+        H, r = config.hidden_size, config.initializer_range
+        self.dense = dense(input_size or H, H, r, generator)
+        self.ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
+        self.output = dense(H, output_size, r, generator)
+
+    def forward(self, hidden: torch.Tensor):
+        x = self.ln(ACT2FN[self.config.hidden_act](self.dense(hidden)))
+        return self.output(x), x

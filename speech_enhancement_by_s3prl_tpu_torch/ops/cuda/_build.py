@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every source under csrc/, by name
-SOURCES = ("lstm_tm", "lstm_tm_bwd")
+SOURCES = ("lstm_tm", "lstm_tm_bwd", "flash_attn", "flash_attn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,8 +45,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives. The hash also
+    covers every header under ``csrc/``, which a source may include."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -83,3 +86,21 @@ def build_all(names=SOURCES):
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def launch_args(x):
+    """(device index, stream handle) of a launch on the device of tensor
+    ``x``, on torch's current stream there."""
+    import torch
+
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return device, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def raise_on(err: int, name: str, errstr, **shape):
+    """Raise if a launch returned a CUDA error; ``errstr`` is the library's
+    error-string function, ``shape`` the sizes to name."""
+    if err:
+        at = " ".join(f"{k}={v}" for k, v in shape.items())
+        raise RuntimeError(
+            f"{name} kernel failed: CUDA error {err} ({errstr(err).decode()}) at {at}")

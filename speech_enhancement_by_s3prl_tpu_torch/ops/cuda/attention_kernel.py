@@ -1,0 +1,318 @@
+"""Flash attention with in-kernel hash dropout: the hand-written CUDA kernels
+(B3) and their plain PyTorch versions.
+
+Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
+``speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py``:
+
+- B3 fwd ``flash_attention_fwd`` (``flash_attn.cu``): attention with an
+  additive key bias and attention-probability dropout, plus the logsumexp
+  (``_fwd_impl`` / ``_fwd_kernel``).
+- B3 bwd ``flash_attention_bwd`` (``flash_attn_bwd.cu``): dq, dk, dv from the
+  saved lse, the same dropout mask recomputed from the salt (``_bwd_impl`` /
+  ``_bwd_kernel``). One call is three launches (a row-dot pre-pass, a dk/dv
+  kernel over key tiles, a dq kernel over query tiles) and counts once.
+
+``FlashAttention`` ties them into a ``torch.autograd.Function``, the
+counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
+and the 8-byte salt, never a mask. ``flash_attention`` routes to it when a
+gradient is needed and to B3 fwd alone otherwise.
+
+Layout is the JAX kernel's: q, k, v are (B, T, N * D), straight from the fused
+QKV projection (views with a shared row stride are taken as they are), head n
+in columns n * D .. n * D + D - 1; ``kbias`` is (B, T) f32; ``salt`` is two
+uint32 as Python ints. The port's lse is (B, N, T) f32 (the JAX kernel's is
+(B, N / P, P, nj * bq), its head-grouped and block-padded form).
+
+Dropout keeps element (b, n, t_q, t_k) where the salted hash of (absolute head
+index (batch0 + b) * N + n, t_q, t_k) lies below ``keep_threshold(rate)``:
+bit for bit the JAX kernel's ``_dropout_mask``, so both packages draw the
+same mask from the same salt, whatever the tiling. ``batch0`` shifts the
+batch index so that a data-parallel shard keeps the unsharded mask stream.
+
+A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
+raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import launch_args, load, raise_on
+
+PHI1 = 2654435761
+PHI2 = 2246822519
+PHI3 = 3266489917
+PHI4 = 40503
+_MASK32 = 0xFFFFFFFF
+# head widths the CUDA kernels are instantiated for
+HEAD_DIMS = (32, 64, 128)
+
+Salt = Tuple[int, int]
+
+
+def keep_threshold(rate: float) -> int:
+    """The uint32 threshold below which a hash keeps its element, computed
+    in Python float64 as the JAX package does."""
+    return min(int((1.0 - rate) * 4294967296.0), 4294967295)
+
+
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for an int64 tensor of uint32 values and a 32-bit
+    constant. The plain product can pass 2^63 and wrap int64, so the
+    multiply goes in 16-bit halves: (lo * c) + ((hi * c) mod 2^16) * 2^16."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def dropout_keep_mask(bn, qi, ki, salt: Salt, rate: float) -> torch.Tensor:
+    """The keep mask of attention-probability dropout at absolute head index
+    ``bn``, query ``qi`` and key ``ki`` (int64 tensors that broadcast
+    against each other, values below 2^32): bit for bit ``_dropout_mask``
+    of the JAX kernel. Returns a bool tensor of the broadcast shape."""
+    s0, s1 = (int(s) & _MASK32 for s in salt)
+    h = mul32(qi & _MASK32, PHI1) ^ mul32(ki & _MASK32, PHI2) ^ mul32(bn & _MASK32, PHI4) ^ s0
+    h = h ^ (h >> 16)
+    h = mul32(h, PHI3)
+    h = h ^ (h >> 13)
+    h = h ^ s1
+    h = mul32(h, PHI1)
+    h = h ^ (h >> 16)
+    return h < keep_threshold(rate)
+
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, H = x.shape
+    return x.reshape(B, T, n_heads, H // n_heads).transpose(1, 2)  # (B, N, T, D)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    B, N, T, D = x.shape
+    return x.transpose(1, 2).reshape(B, T, N * D)
+
+
+def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    bn = ((batch0 + ar(B))[:, None] * N + ar(N)[None, :])[:, :, None, None]
+    return dropout_keep_mask(bn, ar(T)[:, None], ar(T)[None, :], salt, rate)
+
+
+def _logits(q, k, scale, kbias, n_heads):
+    # the scale is folded into q, as the JAX kernel folds it into its block
+    logits = torch.matmul(_heads(q * scale, n_heads), _heads(k, n_heads).transpose(-1, -2))
+    if kbias is not None:
+        logits = logits + kbias[:, None, None, :]
+    return logits
+
+
+def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
+                        batch0: int = 0, *, n_heads: int):
+    """B3 fwd's plain version, step for step ``_fwd_kernel`` without the
+    tiling: it materializes the (B, N, T, T) logits. Returns (out (B, T,
+    N * D), lse (B, N, T) f32)."""
+    logits = _logits(q, k, scale, kbias, n_heads)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    s = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(s))[..., 0]
+    if rate > 0.0:
+        B, N, T, _ = p.shape
+        p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
+    ctx = torch.matmul(p, _heads(v, n_heads)) * (1.0 / (s * (1.0 - rate)))
+    return _merge(ctx), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
+                            kbias=None, batch0: int = 0, *, n_heads: int):
+    """B3 bwd's plain version, step for step ``_bwd_kernel``: p from the
+    saved lse, the same mask, do / keep. Returns (dq, dk, dv), each
+    (B, T, N * D)."""
+    keep = 1.0 - rate
+    qs = _heads(q * scale, n_heads)
+    kh, vh = _heads(k, n_heads), _heads(v, n_heads)
+    do = _heads(dout / keep, n_heads)
+    p = torch.exp(_logits(q, k, scale, kbias, n_heads) - lse[..., None])
+    dp = torch.matmul(do, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        B, N, T, _ = p.shape
+        mask = _full_mask(B, N, T, salt, rate, batch0, q.device)
+        pd = torch.where(mask, p, 0.0)
+        dp = torch.where(mask, dp, 0.0)
+    drow = keep * (do * _heads(out, n_heads)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - drow)
+    dq = torch.matmul(ds, kh * scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dv = torch.matmul(pd.transpose(-1, -2), do)
+    return _merge(dq), _merge(dk), _merge(dv)
+
+
+def _check(q, k, v, kbias, n_heads):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(
+            f"q, k, v must be (B, T, N * D) of one shape, got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, T, H = q.shape
+    if n_heads <= 0 or H % n_heads:
+        raise ValueError(f"width {H} does not split into {n_heads} heads")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise ValueError(f"flash attention takes f32 tensors, got {q.dtype}")
+    if kbias is not None and (tuple(kbias.shape) != (B, T) or kbias.dtype != torch.float32):
+        raise ValueError(f"kbias must be f32 (B, T) = ({B}, {T}), got "
+                         f"{kbias.dtype} {tuple(kbias.shape)}")
+    devices = {t.device for t in (q, k, v) + (() if kbias is None else (kbias,))}
+    if len(devices) != 1:
+        raise ValueError(f"flash attention inputs on several devices: {devices}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+
+
+def _kernel_layout(q, k, v, kbias, n_heads):
+    """(B, T, N, D, batch stride, time stride, kbias) for a launch; raises on
+    what the kernels do not take."""
+    B, T, H = q.shape
+    D = H // n_heads
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels take head width {HEAD_DIMS}, got {D}")
+    strides = {t.stride() for t in (q, k, v)}
+    if len(strides) != 1 or q.stride(2) != 1:
+        raise ValueError(
+            f"q, k, v must share their strides with unit stride in a row, got "
+            f"{[t.stride() for t in (q, k, v)]}"
+        )
+    if kbias is None:
+        kbias = torch.zeros((B, T), device=q.device, dtype=torch.float32)
+    return B, T, n_heads, D, q.stride(0), q.stride(1), kbias.contiguous()
+
+
+def _fwd_library():
+    lib = load("flash_attn")
+    p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_uint)
+    lib.flash_attn_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, ll, f, f, u, u, u,
+                                       i, i, i, p]
+    lib.flash_attn_fwd_f32.restype = i
+    lib.flash_attn_error_string.argtypes = [i]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_library():
+    lib = load("flash_attn_bwd")
+    p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_uint)
+    lib.flash_attn_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
+                                                  i, p]
+    lib.flash_attn_bwd_f32.restype = i
+    lib.flash_attn_bwd_error_string.argtypes = [i]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _salt_args(rate, salt):
+    s0, s1 = (int(s) & _MASK32 for s in salt)
+    return keep_threshold(rate), s0, s1, int(rate > 0.0)
+
+
+def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
+                        batch0: int = 0, *, n_heads: int):
+    """B3 fwd: (out (B, T, N * D), lse (B, N, T)), f32. Kernel on a CUDA
+    tensor (counted in ``flash_attention_fwd.launches``), plain version on a
+    CPU tensor."""
+    _check(q, k, v, kbias, n_heads)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+    B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
+    out = torch.empty((B, T, N * D), device=q.device, dtype=torch.float32)
+    lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return out, lse
+    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    lib = _fwd_library()
+    err = lib.flash_attn_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 - rate, thresh, s0, s1,
+        int(batch0), dropout, *launch_args(q))
+    raise_on(err, "flash_attention_fwd", lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
+                        kbias=None, batch0: int = 0, *, n_heads: int):
+    """B3 bwd: the forward's inputs, out, lse and the cotangent ``dout`` ->
+    (dq, dk, dv), each (B, T, N * D) f32. Kernel on a CUDA tensor (one count
+    in ``flash_attention_bwd.launches`` for its three launches), plain
+    version on a CPU tensor."""
+    _check(q, k, v, kbias, n_heads)
+    B, T, H = q.shape
+    for name, t, want in (("out", out, (B, T, H)), ("dout", dout, (B, T, H)),
+                          ("lse", lse, (B, n_heads, T))):
+        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be f32 {want} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
+                                       batch0, n_heads=n_heads)
+    B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
+    if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd needs contiguous out, dout and lse")
+    dq, dk, dv = (torch.empty((B, T, H), device=q.device, dtype=torch.float32)
+                  for _ in range(3))
+    if B == 0 or T == 0:
+        return dq, dk, dv
+    di = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
+    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    lib = _bwd_library()
+    err = lib.flash_attn_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 / (1.0 - rate), thresh, s0, s1,
+        int(batch0), dropout, *launch_args(q))
+    raise_on(err, "flash_attention_bwd", lib.flash_attn_bwd_error_string, B=B, T=T, N=N, D=D)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the JAX custom VJP ``_flash_vjp``):
+    forward B3 fwd, saving q, k, v, out, lse (and kbias) with the salt kept
+    by value; backward B3 bwd on the contiguous cotangent. Kernels on CUDA
+    tensors, plain versions on CPU tensors. Reach it through
+    ``flash_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kbias, scale, rate, salt, batch0, n_heads):
+        out, lse = flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0,
+                                       n_heads=n_heads)
+        ctx.save_for_backward(q, k, v, out, lse, kbias)
+        ctx.args = (scale, rate, tuple(int(s) for s in salt), batch0, n_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kbias = ctx.saved_tensors
+        scale, rate, salt, batch0, n_heads = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), scale, rate,
+                                         salt, kbias, batch0, n_heads=n_heads)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, scale: float, rate: float = 0.0, salt: Salt = (0, 0),
+                    kbias: Optional[torch.Tensor] = None, batch0: int = 0, *, n_heads: int):
+    """Attention over (B, T, N * D) q, k, v -> (B, T, N * D), with dropout
+    of the attention probabilities at ``rate`` from ``salt``. When a
+    gradient is needed this is ``FlashAttention`` (B3 fwd now, B3 bwd in the
+    backward pass); otherwise B3 fwd alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kbias, scale, rate, salt, batch0, n_heads)
+    return flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)[0]
+
+
+# kernel launches since the last reset (chip_smoke.py reads them to show that
+# the main path went through the kernels)
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0

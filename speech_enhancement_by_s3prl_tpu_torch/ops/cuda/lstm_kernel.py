@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from ._build import launch_args, load, raise_on
+
 
 def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool):
     H = w_hh_t.shape[-2]
@@ -125,14 +127,7 @@ def _check_residuals(xw, hs, cs, dhs):
             )
 
 
-def _launch_args(xw):
-    device = xw.device.index if xw.device.index is not None else torch.cuda.current_device()
-    return device, torch.cuda.current_stream(xw.device).cuda_stream
-
-
 def _library():
-    from ._build import load
-
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_bidir_tm_f32.argtypes = [p, p, p, i, i, i, i, p]
@@ -145,8 +140,6 @@ def _library():
 
 
 def _bwd_library():
-    from ._build import load
-
     lib = load("lstm_tm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_bidir_tm_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
@@ -154,14 +147,6 @@ def _bwd_library():
     lib.lstm_tm_bwd_error_string.argtypes = [i]
     lib.lstm_tm_bwd_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _raise_on(err, name, errstr, B, T, H):
-    if err:
-        raise RuntimeError(
-            f"{name} kernel failed: CUDA error {err} ({errstr(err).decode()}) "
-            f"at B={B} T={T} H={H}"
-        )
 
 
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
@@ -186,8 +171,8 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
         return hs
     lib = _library()
     err = lib.lstm_bidir_tm_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                B, T, H, *_launch_args(xw))
-    _raise_on(err, "lstm_bidir_tm", lib.lstm_tm_error_string, B, T, H)
+                                B, T, H, *launch_args(xw))
+    raise_on(err, "lstm_bidir_tm", lib.lstm_tm_error_string, B=B, T=T, H=H)
     lstm_bidir_tm.launches += 1
     return hs
 
@@ -209,8 +194,8 @@ def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
         return hs, cs
     lib = _library()
     err = lib.lstm_bidir_tm_fc_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                   cs.data_ptr(), B, T, H, *_launch_args(xw))
-    _raise_on(err, "lstm_bidir_tm_fc", lib.lstm_tm_error_string, B, T, H)
+                                   cs.data_ptr(), B, T, H, *launch_args(xw))
+    raise_on(err, "lstm_bidir_tm_fc", lib.lstm_tm_error_string, B=B, T=T, H=H)
     lstm_bidir_tm_fc.launches += 1
     return hs, cs
 
@@ -235,8 +220,8 @@ def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
     dw = torch.empty_like(w_hh_t)
     lib = _bwd_library()
     err = lib.lstm_bidir_tm_bwd_f32(*(t.data_ptr() for t in tensors), dxw.data_ptr(),
-                                    dw.data_ptr(), B, T, H, *_launch_args(xw))
-    _raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, B, T, H)
+                                    dw.data_ptr(), B, T, H, *launch_args(xw))
+    raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, B=B, T=T, H=H)
     lstm_bidir_tm_bwd.launches += 1
     return dxw, dw
 

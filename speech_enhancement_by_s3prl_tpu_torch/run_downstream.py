@@ -1,9 +1,18 @@
 """CLI for downstream training and evaluation on the port (counterpart of the
-repository's ``run_downstream.py``), for ``from_rawfeature`` heads:
+repository's ``run_downstream.py``):
 
   python -m speech_enhancement_by_s3prl_tpu_torch.run_downstream \\
       --config cfg.yaml --name exp --downstream Residual --objective SISDR \\
       --from_rawfeature --device cuda
+
+``--from_rawfeature`` trains a head on the downstream features;
+``--from_waveform`` on the upstream-input features (``--downstream
+Mockingjay`` trains the whole TERA/Mockingjay encoder and its spec head, the
+encoder's structure and weights from ``--dckpt`` or drawn from ``--seed``);
+with neither, the head reads the hidden states of the ``--upstream``
+(``transformer``: the encoder of the S3PRL checkpoint ``--ckpt``, or one
+drawn from ``--seed``; ``--dropout`` overrides its rates and puts it in train
+mode while the head trains; ``baseline``: the identity).
 
 The flag names of the ported subset are the JAX CLI's. Settings take
 precedence as there: a ``--resume`` checkpoint's saved args and config win
@@ -29,7 +38,8 @@ import torch
 from . import use_full_fp32
 from .models.heads import build_head
 from .ops.features import OnlinePreprocessor, get_feat_config
-from .runner.checkpoint import find_resume_ckpt, load_checkpoint
+from .models.upstream import build_upstream
+from .runner.checkpoint import find_resume_ckpt, load_checkpoint, load_settings
 from .runner.runner import Runner
 from .utils.config import update_args
 
@@ -62,13 +72,20 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dev_num", default=500, type=int)
 
     parser.add_argument("--upstream", choices=["transformer", "baseline"],
-                        default="transformer",
-                        help="only selects the (unused) upstream-input feature "
-                        "of a from_rawfeature run")
-    parser.add_argument("--ckpt", default="", help="upstream pretraining ckpt "
-                        "(read for its STFT settings)")
+                        default="transformer")
+    parser.add_argument("--ckpt", default="", help="upstream pretraining ckpt")
+    parser.add_argument("--dropout", type=float)
+    # the second upstream only makes the active sampler's pseudo wavs: its
+    # checkpoint and dropout are refused by the Runner (ROADMAP A9)
+    parser.add_argument("--upstream2", choices=["transformer", "baseline"],
+                        default="transformer")
+    parser.add_argument("--ckpt2", default="")
+    parser.add_argument("--dropout2", type=float)
+    parser.add_argument("--pseudo_clean", action="store_true")
+    parser.add_argument("--pseudo_noise", action="store_true")
     parser.add_argument("--downstream", default="LSTM")
-    parser.add_argument("--dckpt", default="", help="downstream warm-start ckpt")
+    parser.add_argument("--dckpt", default="", help="downstream warm-start ckpt "
+                        "(Mockingjay: the pretraining ckpt)")
     parser.add_argument("--objective", default="L1")
     parser.add_argument("--from_waveform", action="store_true")
     parser.add_argument("--from_rawfeature", action="store_true")
@@ -77,6 +94,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", default="config/vcb.yaml")
     parser.add_argument("--expdir", default="result")
     parser.add_argument("--seed", default=1337, type=int)
+    parser.add_argument("--compute_dtype", default="f32", choices=["f32", "bf16"],
+                        help="bf16 is refused: the port computes in f32")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--cpu", dest="device", action="store_const", const="cpu",
                         help="alias of --device cpu")
@@ -140,11 +159,6 @@ def _pretrain_config(args) -> dict:
     return {"online": PRETRAIN_ONLINE}
 
 
-def _dckpt_settings(dckpt: str):
-    settings = load_checkpoint(dckpt)["Settings"]
-    return settings["Config"], dict(settings["Paras"])
-
-
 def get_preprocessor(args, config):
     """(preprocessor, upstream dim, downstream dim, target linear dim)."""
     pretrain_config = _pretrain_config(args)
@@ -153,7 +167,7 @@ def get_preprocessor(args, config):
     else:
         upstream_feat = dict(config["preprocessor"]["baseline"])
     if args.dckpt:
-        dconfig, _ = _dckpt_settings(args.dckpt)
+        dconfig, _ = load_settings(args.dckpt)
         downstream_feat = dict(
             dconfig["online"]["input"] if "online" in dconfig
             else dconfig["preprocessor"]["baseline"]
@@ -183,8 +197,10 @@ def get_preprocessor(args, config):
 def get_downstream_model(args, input_dim, output_dim, config, generator=None):
     if not args.dckpt:
         model_config = config.get("model", {}).get(args.downstream, {}) or {}
+    elif args.downstream == "Mockingjay":
+        model_config = {}  # its structure comes from the pretraining checkpoint
     else:
-        dconfig, dparas = _dckpt_settings(args.dckpt)
+        dconfig, dparas = load_settings(args.dckpt)
         if "small_model" in dconfig:
             model_config = dconfig["small_model"]["model"]
         else:
@@ -196,17 +212,30 @@ def get_downstream_model(args, input_dim, output_dim, config, generator=None):
 
 
 def build_runner(args, config) -> Runner:
-    """The Runner of a run on ``args.device``, its head's weights drawn from
-    ``--seed``."""
+    """The Runner of a run on ``args.device``, its head's (and a random
+    upstream's) weights drawn from ``--seed``. The upstream is built only in
+    the upstream mode, the one mode that reads it."""
     use_full_fp32()
     expdir = os.path.join(args.expdir, args.name or "default")
     os.makedirs(expdir, exist_ok=True)
-    preprocessor, _, downstream_dim, tar_linear_dim = get_preprocessor(args, config)
+    preprocessor, upstream_dim, downstream_dim, tar_linear_dim = get_preprocessor(
+        args, config)
+    upstream = None
+    if args.from_waveform:
+        input_dim = upstream_dim
+    elif args.from_rawfeature:
+        input_dim = downstream_dim
+    else:
+        upstream = build_upstream(
+            args.upstream, upstream_dim, args.ckpt, getattr(args, "dropout", None),
+            tar_linear_dim, seed=args.seed,
+            compute_dtype=getattr(args, "compute_dtype", "f32"))
+        input_dim = upstream.out_dim
     model = get_downstream_model(
-        args, downstream_dim, tar_linear_dim, config,
+        args, input_dim, tar_linear_dim, config,
         generator=torch.Generator().manual_seed(args.seed),
     )
-    return Runner(args, config, preprocessor, model, expdir, args.device)
+    return Runner(args, config, preprocessor, model, expdir, args.device, upstream)
 
 
 def main(argv=None):

@@ -25,7 +25,8 @@ import glob
 import os
 import pickle
 import re
-from typing import Any, Dict, Optional
+import zipfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,3 +192,20 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     imported."""
     with open(find_resume_ckpt(path), "rb") as f:
         return _Unpickler(f).load()
+
+
+def is_torch_checkpoint(path: str) -> bool:
+    """Whether ``path`` was written by ``torch.save`` (a zip archive, as an
+    S3PRL pretraining checkpoint is) rather than pickled by either package."""
+    return zipfile.is_zipfile(find_resume_ckpt(path))
+
+
+def load_settings(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(config, paras) recorded in a checkpoint of either package or in a
+    torch (S3PRL) one, whose ``Paras`` may be an argparse namespace."""
+    if is_torch_checkpoint(path):
+        payload = torch.load(find_resume_ckpt(path), map_location="cpu", weights_only=False)
+    else:
+        payload = load_checkpoint(path)
+    paras = payload["Settings"].get("Paras", {})
+    return payload["Settings"]["Config"], dict(paras if isinstance(paras, dict) else vars(paras))

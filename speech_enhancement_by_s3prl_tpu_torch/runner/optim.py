@@ -84,7 +84,7 @@ class BertAdam:
         updates = {}
         for k in grads:
             u = mu[k] / (torch.sqrt(nu[k]) + self.eps)
-            if not no_decay(flax_path(k)):
+            if not no_decay(flax_path(k, params[k].dim())):
                 u = u + self.weight_decay * params[k]
             updates[k] = -1.0 * (lr * u)
         return updates, {"count": state["count"] + 1, "mu": mu, "nu": nu}

@@ -1,19 +1,27 @@
 """Training and evaluation lifecycle (counterpart of
 ``speech_enhancement_by_s3prl_tpu/runner/runner.py``), for the subset that
-trains the flagship: ``from_rawfeature`` heads on ``OnlineDataset`` splits.
+trains on ``OnlineDataset`` splits in the three modes of
+``runner/trainer.py``: ``from_rawfeature`` heads, ``from_waveform`` heads
+(``Mockingjay`` finetuning the whole encoder) and heads over a frozen
+upstream.
 
 - Dataset modes ``train``, ``subtrain``, ``dev`` and ``test``.
 - ``train``: log, eval and save cadences, ``max_keep`` rotation, best-per-
   split saves under ``--save_best`` (the best starts at zero), a final save.
 - ``evaluate``: reseeds the random modules and returns the per-batch mean of
   means.
+- ``--dckpt``: the pretraining checkpoint for ``Mockingjay`` (its encoder
+  and SpecHead weights, like ``--ckpt``'s SpecHead for ``SpecHead``, are
+  overlaid onto the new head); a warm start of the whole head otherwise.
 - Scalars go to ``expdir/scalars.jsonl`` as one JSON object a line
   (``{"step", "tag", "value"}``), under the JAX package's TensorBoard tags.
 
 Not ported yet, each refused with its ROADMAP item: the modes ``record``,
 ``query`` and ``query_dev``, the active sampler and ``--sync_sampler`` /
-``--active_sampling`` (A9), ``--mesh`` (A12), ``--profile`` (A11), media
-logging (``media_step``, A7) and ``test_gradient`` (A9).
+``--active_sampling``, the second upstream and the pseudo wavs it makes
+(``--ckpt2``, ``--dropout2``, ``--pseudo_clean``, ``--pseudo_noise``) (A9),
+``--mesh`` (A12), ``--profile`` (A11), media logging (``media_step``, A7)
+and ``test_gradient`` (A9).
 """
 from __future__ import annotations
 
@@ -30,6 +38,11 @@ import torch
 from ..data.datasets import DATASET_REGISTRY
 from ..data.loader import DataLoader, default_buckets, device_prefetch
 from ..models.convert import flax_to_state_dict
+from ..models.torch_import import (
+    convert_downstream_state,
+    overlay_params,
+    pretrained_head_params,
+)
 from ..objectives import build_objective
 from . import checkpoint as ckpt_lib
 from .optim import build_optimizer
@@ -56,9 +69,11 @@ def _refuse(what: str, item: str):
 
 
 class Runner:
-    """The training and evaluation lifecycle on ``device``."""
+    """The training and evaluation lifecycle on ``device``. ``upstream``
+    (models/upstream.py) feeds the head in the upstream mode."""
 
-    def __init__(self, args, config, preprocessor, downstream, expdir, device):
+    def __init__(self, args, config, preprocessor, downstream, expdir, device,
+                 upstream=None):
         self.args = args
         self.config = config
         self.rconfig = config["runner"]
@@ -66,8 +81,9 @@ class Runner:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Runner on cuda, but there is no CUDA device")
         for flag, item in (("sync_sampler", "A9"), ("active_sampling", "A9"),
-                           ("mesh", "A12"), ("profile", "A11"),
-                           ("from_waveform", "A8")):
+                           ("mesh", "A12"), ("profile", "A11"), ("ckpt2", "A9"),
+                           ("dropout2", "A9"), ("pseudo_clean", "A9"),
+                           ("pseudo_noise", "A9")):
             if getattr(args, flag, None):
                 _refuse(f"--{flag}", item)
         if getattr(args, "sampler_device", None) is not None:
@@ -77,6 +93,7 @@ class Runner:
 
         self.preprocessor = preprocessor
         self.downstream_model = downstream.to(self.device)
+        self.upstream = None if upstream is None else upstream.to(self.device)
         self.expdir = expdir
         self.global_step = 1
         self.log = ScalarLog(expdir)
@@ -111,6 +128,8 @@ class Runner:
             model=self.downstream_model,
             objective=self.objective,
             optimizer=optimizer,
+            upstream=self.upstream,
+            from_waveform=bool(getattr(self.args, "from_waveform", False)),
             from_rawfeature=bool(getattr(self.args, "from_rawfeature", False)),
             channel_inp=self.preprocessor.channel_inp,
             channel_tar=self.preprocessor.channel_tar,
@@ -119,13 +138,47 @@ class Runner:
             eval_metrics=() if getattr(self.args, "no_metric", False)
             else tuple(self.metric_names),
             sample_rate=self.preprocessor.config.sample_rate,
+            seed=int(self.args.seed),
         )
         self.state = self.builder.init_state()
         self.train_step = self.builder.train_step
-        if getattr(self.args, "dckpt", ""):
-            self._load_downstream(ckpt_lib.load_checkpoint(self.args.dckpt))
+        self._load_pretrained_head_weights()
+        # --dckpt is Mockingjay's pretraining checkpoint, read above; for
+        # every other head it is a warm start
+        dckpt = getattr(self.args, "dckpt", "")
+        if dckpt and self.args.downstream != "Mockingjay":
+            self._warm_start_downstream(dckpt)
         if getattr(self.args, "resume", None):
             self.load_model(self.args.resume)
+
+    def _load_pretrained_head_weights(self):
+        """SpecHead / Mockingjay: overlay the converted S3PRL blobs onto the
+        new head (``random_init`` in the head's model config keeps SpecHead
+        random)."""
+        name = getattr(self.args, "downstream", "")
+        if name not in ("SpecHead", "Mockingjay"):
+            return
+        model_cfg = self.config.get("model", {}).get(name, {}) or {}
+        pre = pretrained_head_params(
+            name, ckpt=getattr(self.args, "ckpt", "") or "",
+            dckpt=getattr(self.args, "dckpt", "") or "",
+            random_init=bool(model_cfg.get("random_init", False)),
+        )
+        if pre is not None:
+            self.downstream_model.load_state_dict(
+                overlay_params(self.downstream_model.state_dict(), pre))
+
+    def _warm_start_downstream(self, dckpt: str):
+        """A checkpoint of either package, or a torch one with a
+        ``Downstream`` or ``SmallModel`` blob."""
+        if ckpt_lib.is_torch_checkpoint(dckpt):
+            t = torch.load(dckpt, map_location="cpu", weights_only=False)
+            sd = t["Downstream"] if "Downstream" in t else {
+                k.split(".", 1)[1]: v for k, v in t["SmallModel"].items()}
+            self.downstream_model.load_state_dict(
+                convert_downstream_state(sd, self.args.downstream))
+        else:
+            self._load_downstream(ckpt_lib.load_checkpoint(dckpt))
 
     def _load_downstream(self, payload):
         """Copy a checkpoint's weights into the model, in place (the train
@@ -143,7 +196,7 @@ class Runner:
         step = int(payload["Global_step"])
         self.state = TrainState(
             self.state.params, opt_state,
-            torch.tensor(step, dtype=torch.int32, device=self.device),
+            torch.tensor(step, dtype=torch.int32, device=self.device), step,
         )
         self.global_step = step
 

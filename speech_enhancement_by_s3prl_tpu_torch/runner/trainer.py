@@ -1,10 +1,22 @@
 """Train and eval steps (counterpart of
-``speech_enhancement_by_s3prl_tpu/runner/trainer.py``), for the
-``from_rawfeature`` mode (the upstream modes are ROADMAP A8).
+``speech_enhancement_by_s3prl_tpu/runner/trainer.py``).
 
-The train step runs the six-feature context, the head, the objective and
-its backward, the global-norm clip, the optimizer update and the non-finite
-guard, eagerly on the device of the batch. The guard keeps the JAX package's
+Three modes pick what the head reads: ``from_rawfeature`` (the downstream
+features), ``from_waveform`` (the upstream-input features, which a head such
+as ``Mockingjay`` encodes itself) and, with neither, the upstream mode (the
+hidden states of a frozen upstream over the upstream-input features). The
+upstream's parameters are never in the gradient; it runs in train mode, its
+dropout live, only when it is ``trainable`` (a ``--dropout`` override) and
+the head is training.
+
+Dropout masks come from salts (``models/transformer.SaltStream``) drawn on
+the host from (``seed``, the step) for each train step, so a resumed run
+draws the masks the uninterrupted run would have drawn, and no value is read
+back from the device.
+
+The train step runs the six-feature context, the upstream, the head, the
+objective and its backward, the global-norm clip, the optimizer update and
+the non-finite guard, eagerly on the device of the batch. The guard keeps the JAX package's
 semantics without reading a value back to the host: the new parameters and
 optimizer state are selected with ``torch.where`` on the finiteness of the
 gradient norm, so a skipped step leaves both (the optimizer's count
@@ -17,13 +29,14 @@ channel's level, and scores the objective and the metrics on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..metrics import batch_scores, check_metrics
+from ..models.transformer import SaltStream
 from ..ops.audio import length_masks, masked_normalize_decibel
 
 
@@ -31,11 +44,14 @@ from ..ops.audio import length_masks, masked_normalize_decibel
 class TrainState:
     """``params``: the model's parameters by ``state_dict`` name (the
     module's own tensors, updated in place); ``opt_state``: the optimizer's
-    state dict; ``step``: the global step, a 0-d int32 tensor."""
+    state dict; ``step``: the global step, a 0-d int32 tensor;
+    ``host_step``: the same count on the host, which seeds the dropout
+    salts."""
 
     params: Dict[str, torch.Tensor]
     opt_state: dict
     step: torch.Tensor
+    host_step: int = 0
 
 
 def make_context(
@@ -102,41 +118,60 @@ class StepBuilder:
     model: nn.Module
     objective: Any                  # callable(**ctx) -> (loss, aux)
     optimizer: Any                  # runner/optim.py: init / update
+    upstream: Any = None            # models/upstream.py, on the model's device
+    from_waveform: bool = False
     from_rawfeature: bool = True
     channel_inp: int = 0
     channel_tar: int = 1
     grad_clip: float = 1.0
     eval_metrics: Tuple[str, ...] = ("sisdr",)
     sample_rate: int = 16000
+    seed: int = 0                   # with the step, seeds the dropout salts
 
     def __post_init__(self):
-        if not self.from_rawfeature:
-            raise NotImplementedError(
-                "the port trains from_rawfeature heads only; the upstream and "
-                "waveform modes are ROADMAP A8"
-            )
+        if not (self.from_rawfeature or self.from_waveform) and self.upstream is None:
+            raise ValueError("the upstream mode (neither from_rawfeature nor "
+                             "from_waveform) needs an upstream")
         check_metrics(self.eval_metrics)
 
     # -- shared forward ------------------------------------------------
-    def _forward(self, ctx, train: bool):
-        self.model.train(train)
-        return self.model(ctx["feats_for_downstream"], ctx["linear_inp"])
+    def _down_inp(self, ctx, train: bool, salts):
+        if self.from_waveform:
+            # the reference hands waveforms to a model that extracts its own
+            # features; here the model receives the upstream-input features
+            return ctx["feats_for_upstream"]
+        if self.from_rawfeature:
+            return ctx["feats_for_downstream"]
+        up_train = bool(train and self.upstream.trainable)
+        self.upstream.train(up_train)
+        with torch.no_grad():
+            return self.upstream(ctx["feats_for_upstream"], salts if up_train else None)
 
-    def loss_fn(self, ctx):
-        predicted, aux = self._forward(ctx, train=True)
+    def _forward(self, ctx, train: bool, salts=None):
+        features = self._down_inp(ctx, train, salts)
+        self.model.train(train)
+        kwargs = {"salts": salts} if getattr(self.model, "takes_salts", False) else {}
+        return self.model(features, ctx["linear_inp"], **kwargs)
+
+    def loss_fn(self, ctx, salts=None):
+        predicted, aux = self._forward(ctx, train=True, salts=salts)
         loss, obj_aux = self.objective(**{**ctx, "predicted": predicted, **aux})
         return loss, (predicted, aux, obj_aux)
 
     # -- train ----------------------------------------------------------
-    def train_step(self, state: TrainState, wavs: torch.Tensor, lengths: torch.Tensor):
+    def train_step(self, state: TrainState, wavs: torch.Tensor, lengths: torch.Tensor,
+                   salts: Optional[SaltStream] = None):
         """One update. Returns (state, {'loss', 'grad_norm', 'skipped'}),
-        the stats as device tensors (the caller reads them)."""
+        the stats as device tensors (the caller reads them). ``salts``
+        replaces the step's own ``SaltStream(seed, state.host_step)``."""
         ctx = make_context(
             self.preprocessor, wavs, lengths, self.channel_inp, self.channel_tar
         )
+        if salts is None:
+            salts = SaltStream(self.seed, state.host_step)
         names = list(state.params)
         with torch.enable_grad():
-            loss, _ = self.loss_fn(ctx)
+            loss, _ = self.loss_fn(ctx, salts)
             grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         with torch.no_grad():
             grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
@@ -149,7 +184,8 @@ class StepBuilder:
             for k, p in state.params.items():
                 p.copy_(torch.where(ok, p + updates[k], p))
             new_state = TrainState(
-                state.params, _where_tree(ok, new_opt, state.opt_state), state.step + 1
+                state.params, _where_tree(ok, new_opt, state.opt_state), state.step + 1,
+                state.host_step + 1,
             )
         return new_state, {"loss": loss.detach(), "grad_norm": grad_norm, "skipped": ~ok}
 

@@ -1,13 +1,18 @@
 """Checkpoint -> enhancer on a device (counterpart of the repository's
-``serve.py``, for ``from_rawfeature`` checkpoints).
+``serve.py``).
 
 ``build_enhancer(ckpt, device=...)`` returns ``enhance(wav) -> wav`` with
 ``.run_batch(list_of_wavs)``: requests are padded to a duration bucket and
-run as one batch (STFT -> head -> iSTFT with the noisy phase -> level
-renorm). ``MicroBatcher`` coalesces concurrent requests of one bucket into
-one device batch. The HTTP front end, the upstream and waveform modes,
-mesh serving, export artifacts and the crossfaded streaming of requests
-longer than the largest bucket are not ported yet (ROADMAP A8, A10, A12).
+run as one batch (STFT -> [upstream ->] head -> iSTFT with the noisy phase ->
+level renorm). It serves the checkpoints of all three training modes:
+``from_rawfeature``, ``from_waveform`` (``Mockingjay``) and the upstream
+mode, whose frozen upstream is rebuilt from the recorded S3PRL checkpoint
+(``--ckpt``, relocated by ``upstream_ckpt``); an upstream-mode checkpoint
+that records none is refused, as the JAX package refuses it.
+``MicroBatcher`` coalesces concurrent requests of one bucket into one device
+batch. The HTTP front end, mesh serving, export artifacts and the crossfaded
+streaming of requests longer than the largest bucket are not ported yet
+(ROADMAP A10, A12).
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ from . import use_full_fp32
 from .data.loader import bucket_length, default_buckets
 from .models.convert import flax_to_state_dict
 from .models.heads import build_head
+from .models.upstream import build_upstream
 from .ops.features import OnlinePreprocessor, get_feat_config
-from .runner.checkpoint import load_checkpoint
+from .run_downstream import PRETRAIN_ONLINE
+from .runner.checkpoint import load_checkpoint, load_settings
 from .runner.trainer import decode_wav
 
 
@@ -94,12 +101,6 @@ class MicroBatcher:
                         ev.set()
 
 
-def _load_ckpt_settings(path: str):
-    """Settings of a checkpoint -> (config, paras_dict)."""
-    p = load_checkpoint(path)
-    return p["Settings"]["Config"], dict(p["Settings"]["Paras"])
-
-
 def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
                        device, max_bucket_ms: int = 60000,
                        upstream_ckpt: str = "", dckpt: str = ""):
@@ -109,21 +110,18 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
     payload = load_checkpoint(ckpt)
     paras = dict(payload["Settings"]["Paras"])
     config = payload["Settings"]["Config"]
-    if paras.get("from_waveform") or not paras.get("from_rawfeature"):
-        mode = "waveform" if paras.get("from_waveform") else "upstream"
-        raise NotImplementedError(
-            f"this checkpoint runs in '{mode}' mode; the port serves "
-            "from_rawfeature checkpoints only (the upstream slice is "
-            "ROADMAP A8)"
-        )
+    mode = ("waveform" if paras.get("from_waveform")
+            else "rawfeature" if paras.get("from_rawfeature") else "upstream")
     downstream = paras.get("downstream", "LSTM")
+    up_name = paras.get("upstream", "transformer")
     if upstream_ckpt:
         paras["ckpt"] = upstream_ckpt
     if dckpt:
         paras["dckpt"] = dckpt
     up_ckpt = paras.get("ckpt", "") or ""
     d_path = paras.get("dckpt", "") or ""
-    for path, what, flag in ((up_ckpt, "the preprocessor geometry", "--upstream_ckpt"),
+    up_what = "the upstream" if mode == "upstream" else "the preprocessor geometry"
+    for path, what, flag in ((up_ckpt, up_what, "--upstream_ckpt"),
                              (d_path, "the downstream feature/model config", "--dckpt")):
         if path and not os.path.exists(path):
             raise FileNotFoundError(
@@ -134,34 +132,59 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
     baseline_feat["channel"] = 0
 
     online: dict = {}
+    up_payload = None
     if up_ckpt:
         # an S3PRL pretraining checkpoint (a torch pickle) records the STFT
         # geometry the downstream was trained with
         up_payload = torch.load(up_ckpt, map_location="cpu", weights_only=False)
         online = dict(up_payload["Settings"]["Config"]["online"])
+    # the upstream-input feature, as training built it
+    # (run_downstream.get_preprocessor)
+    upstream_feat = dict(baseline_feat)
+    if up_name == "transformer":
+        if mode == "upstream" and not up_ckpt:
+            # a randomly drawn upstream cannot be drawn again bit for bit
+            # (the JAX package draws it from its own PRNG)
+            raise ValueError(
+                "the checkpoint was trained on the hidden states of an upstream "
+                "but records no S3PRL pretraining checkpoint: pass --upstream_ckpt")
+        upstream_feat = dict(online.get("input", PRETRAIN_ONLINE["input"]))
+        upstream_feat["channel"] = 0
 
     downstream_feat = dict(baseline_feat)
     model_cfg = config.get("model", {}).get(downstream, {}) or {}
     if d_path:
-        dconfig, dparas = _load_ckpt_settings(d_path)
+        dconfig, dparas = load_settings(d_path)
         downstream_feat = (
             dict(dconfig["online"]["input"]) if "online" in dconfig
             else dict(dconfig["preprocessor"]["baseline"])
         )
         downstream_feat["channel"] = 0
-        model_cfg = (
-            dconfig["small_model"]["model"] if "small_model" in dconfig
-            else dconfig["model"][dparas.get("downstream", downstream)]
-        )
+        if downstream == "Mockingjay":
+            model_cfg = {}  # its structure comes from the pretraining checkpoint
+        else:
+            model_cfg = (
+                dconfig["small_model"]["model"] if "small_model" in dconfig
+                else dconfig["model"][dparas.get("downstream", downstream)]
+            )
 
     feat_list = [
-        baseline_feat, downstream_feat,
+        upstream_feat, downstream_feat,
         get_feat_config("linear", 0), get_feat_config("uphase", 0),
         get_feat_config("linear", 0), get_feat_config("uphase", 0),
     ]
     pre = OnlinePreprocessor(**online, feat_list=feat_list)
     dims = pre.feat_dims()
-    model = build_head(downstream, input_size=dims[1], output_size=dims[2],
+    upstream = None
+    if mode == "upstream":
+        upstream = build_upstream(
+            up_name, dims[0], up_ckpt, payload=up_payload,
+            compute_dtype=paras.get("compute_dtype", "f32"),
+        ).eval().to(device)
+        in_size = upstream.out_dim
+    else:
+        in_size = dims[0] if mode == "waveform" else dims[1]
+    model = build_head(downstream, input_size=in_size, output_size=dims[2],
                        **{**paras, **model_cfg})
     model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
     model.eval().to(device)
@@ -169,8 +192,12 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
 
     @torch.inference_mode()
     def enhance_raw(wavs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        _, down_feat, linear_inp, phase_inp, *_ = pre(wavs[:, None, :])
-        predicted, _ = model(down_feat, linear_inp)
+        up_feat, down_feat, linear_inp, phase_inp, *_ = pre(wavs[:, None, :])
+        if upstream is not None:
+            features = upstream(up_feat)
+        else:
+            features = up_feat if mode == "waveform" else down_feat
+        predicted, _ = model(features, linear_inp)
         return decode_wav(pre, predicted, phase_inp, lengths, wavs.shape[-1],
                           target_level)
 

@@ -249,11 +249,17 @@ def test_serving_refuses_what_is_not_ported(ckpts, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         enhancer(np.zeros(40000, np.float32))
     payload = load_checkpoint(ckpts["port"])
-    payload["Settings"]["Paras"]["from_rawfeature"] = False
+    payload["Settings"]["Paras"]["compute_dtype"] = "bf16"
     _, model = entry.build(device="cpu", **SMALL)
     save_checkpoint(str(tmp_path), 1, model, None, payload["Settings"]["Config"],
                     payload["Settings"]["Paras"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        serve.build_enhancer(str(tmp_path), device="cpu")
+    # an upstream-mode checkpoint must record the upstream's S3PRL checkpoint
+    payload["Settings"]["Paras"].update(compute_dtype="f32", from_rawfeature=False)
+    save_checkpoint(str(tmp_path), 2, model, None, payload["Settings"]["Config"],
+                    payload["Settings"]["Paras"])
+    with pytest.raises(ValueError, match="upstream_ckpt"):
         serve.build_enhancer(str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

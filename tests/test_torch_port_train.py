@@ -290,7 +290,9 @@ def test_eval_step_matches_jax(jax_side):
 
 
 def test_step_builder_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # the upstream mode (neither from_rawfeature nor from_waveform) is ported
+    # and needs the upstream that feeds the head
+    with pytest.raises(ValueError, match="needs an upstream"):
         dataclasses.replace(entry.build_train(device="cpu", **SMALL), from_rawfeature=False)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         dataclasses.replace(entry.build_train(device="cpu", **SMALL),
