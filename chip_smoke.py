@@ -14,18 +14,28 @@ Phases, one line each:
      plain recurrence; B3 fwd (flash attention with hash dropout: out, lse)
      and B3 bwd (dq, dk, dv) at the Mockingjay shape (B=6, T=1001, 12 heads
      of 64) with dropout 0.1 and 0, at ragged T with a key bias, and
-     ``FlashAttention`` against autograd through the plain version;
+     ``FlashAttention`` against autograd through the plain version; B4
+     (fused STFT) at one and twelve rows of 10 s, ragged lengths, lead axes
+     and a second geometry, and B5 (fused decode) at T' = 1001, 78 and 251
+     with a carrier from an STFT, an all-zero carrier and powers 1, 2, 3; B6
+     (batch-blocked recurrence) and B7 (recurrence with the projection
+     inside) at B = 1, 6 and 70, D = 120 and 512, a narrow layer and small
+     batch blocks;
   4. the enhance slice: a seeded flagship checkpoint served through
      ``serve.build_enhancer(device="cuda")`` (4 concurrent requests through
-     ``MicroBatcher``) and the ``enhance`` CLI, with B1's launch count, the
-     output checks, and the error against the same checkpoint enhanced by
-     the port on the CPU (plain versions);
+     ``MicroBatcher``) and the ``enhance`` CLI, with the launch counts of B1,
+     B4 and B5, the output checks, and the error against the same checkpoint
+     enhanced by the port on the CPU (plain versions); the same checkpoint
+     served with ``recurrence="blocked"`` (B6) and ``"fused"`` (B7) against
+     the default route and the CPU; and the long-form entry: one 75 s
+     request through ``build_enhancer(max_bucket_ms=10000)``, 9 crossfaded
+     windows, against the same request on the CPU;
   5. the training slice at full width: the flagship trained through
      ``run_downstream.build_runner`` / ``Runner`` on a seeded WAV corpus
      the script writes (8 steps with evals and saves, then a 2-step resume),
-     with the launch counts of all three kernels; then one train step on the
-     card against the same step on the CPU, and a NaN-poisoned step that
-     must leave every parameter as it was;
+     with the launch counts of the three recurrence kernels and of B4 and
+     B5; then one train step on the card against the same step on the CPU,
+     and a NaN-poisoned step that must leave every parameter as it was;
   6. the upstream slice at full width (the TERA/Mockingjay encoder, 6
      layers x 768 x 12 heads, FFN 3072, dropout 0.1): ``Mockingjay`` trained
      ``--from_waveform`` through ``build_runner`` / ``Runner`` (4 steps with
@@ -36,13 +46,20 @@ Phases, one line each:
      seeded full-width S3PRL checkpoint with ``--dropout`` (B3 fwd in the
      upstream), its checkpoint then served on the card and on the CPU;
   7. times of each kernel and its plain version, the B=1 10 s enhance
-     latency, the B=6 train step and eval batch, and a profiler breakdown
-     of the train step, each beside the card's name and power limit; then
+     latency under each recurrence route with its profiler breakdown, B4
+     and B5 beside the torch-op routes they replace and ``torch.stft``, B6
+     and B7 beside B1, one cuDNN ``nn.LSTM`` layer as the library yardstick
+     of the recurrences, the B=6 train step and eval batch, and a profiler
+     breakdown of the train step, each beside the card's name and power
+     limit; then
      B3 fwd and bwd against their plain versions at B=6 and B=64, B3 at rate
-     0 against ``scaled_dot_product_attention`` (a yardstick, not a route),
+     0 against ``scaled_dot_product_attention`` and its backward (yardsticks,
+     not routes),
      the B=6 10 s Mockingjay train step and its profiler breakdown.
 
-Then one JSON line with every kernel's numbers, and last
+Then each kernel's time beside its bound (the least time the card could take
+for the same work), the card's line, one JSON line with every kernel's
+numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without that last line. It needs a CUDA card and the repository
 around it.
@@ -73,6 +90,8 @@ KERNEL_TOL = 1e-4
 # layers and up to 6001 steps that stays orders of magnitude below 1e-3.
 SLICE_TOL = 1e-3
 REQUEST_SECONDS = (1.3, 2.0, 3.7, 10.0)
+# the long-form request: 9 windows of 10 s, each starting 9 s after the last
+LONG_SECONDS, LONG_WINDOWS = 75.0, 9
 CLI_SECONDS = (1.5, 2.5, 4.0)
 # B2 vs its plain versions, each error relative to the plain version's
 # largest |value| (cs grows with T; dxw and dW_hh^T are sums over T steps and
@@ -93,6 +112,10 @@ TRAIN_STEPS, RESUME_STEPS = 8, 2
 # near 1e-7 relative. One flipped mask bit moves an output by about 1e-3 of
 # its largest value, so a wrong hash fails.
 B3_TOL = 1e-4
+# B4 and B5 vs their plain versions, relative to the plain version's largest
+# |value|: both sides sum the same 400 (B4) or up to 1206 (B5) f32 products a
+# value, the kernel with FMAs in index order, cuBLAS in its own.
+DSP_TOL = 1e-5
 B3_CASES = (  # B, T, N, D, dropout rate, key bias
     (6, 1001, 12, 64, 0.1, False),
     (6, 1001, 12, 64, 0.0, False),
@@ -102,6 +125,9 @@ B3_CASES = (  # B, T, N, D, dropout rate, key bias
     (2, 70, 2, 128, 0.2, False),
 )
 MJ_LAYERS = 6
+# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
+# tensor cores, the only arithmetic the f32 kernels here may use, and HBM3
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
 
 
@@ -218,7 +244,7 @@ def cuda_ms(torch, fn, iters, warmup=1):
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template arguments out of its mangled name."""
-    m = re.search(r"\d+((?:lstm|flash)[a-z_]*kernel(?:I.*?E)?)E", mangled)
+    m = re.search(r"\d+((?:lstm|flash|stft|decode)[a-z_]*kernel(?:I.*?E)?)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -326,6 +352,311 @@ def flash_checks(torch, A):
     if not fn_err <= B3_TOL:
         raise AssertionError(f"FlashAttention gradients disagree: {fn_err}")
     return worst_fwd, worst_bwd
+
+
+def stft_inputs(torch, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (0.3 * torch.randn(*shape, generator=g)).cuda()
+
+
+def decode_inputs(torch, S, B, T, seed, zero_carrier=False):
+    """pred (B, T, 201) >= 0 and uph (B, T, 402), the STFT of seeded noise
+    (or all zeros: the (1, 0) carrier corner)."""
+    g = torch.Generator().manual_seed(seed)
+    pred = torch.randn(B, T, S.StftParams().n_freq, generator=g).square().cuda()
+    if zero_carrier:
+        return pred, torch.zeros(B, T, 2 * pred.shape[-1], device="cuda")
+    wav = stft_inputs(torch, (B, (T - 1) * 160), seed + 1)
+    return pred, S.stft(wav, S.StftParams(), fused=False)
+
+
+def dsp_checks(torch, S, stft_mod, decode_mod):
+    """B4 and B5 against their plain versions on the card. Returns the
+    largest absolute errors (B4, B5)."""
+    geom = (400, 400, 160)
+    worst = [0.0, 0.0]
+    cases = [((1, 160000), geom), ((6, 2, 160000), geom), ((3, 12345), geom),
+             ((5, 33000), geom), ((2, 3, 8000), geom),
+             ((50, 12345), geom),  # 64-frame blocks with a ragged last tile
+             ((3, 5000), (256, 200, 80)),  # another geometry: K = 4, padded window
+             ((2, 4000), (254, 150, 75))]  # hop and n_fft no multiples of 4
+    for shape, (n_fft, win, hop) in cases:
+        wav = stft_inputs(torch, shape, SEED + shape[-1])
+        out = stft_mod.stft_fused(wav, n_fft, win, hop)
+        ref = stft_mod.stft_fused_ref(wav, n_fft, win, hop)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        print(f"[kernel] stft_fused {shape} n_fft={n_fft} win={win} hop={hop} -> "
+              f"{tuple(out.shape)}: err / max|value| {err:.3e} (limit {DSP_TOL:.0e})",
+              flush=True)
+        if out.shape != ref.shape or not err <= DSP_TOL:
+            raise AssertionError(f"stft_fused disagrees with its plain version: {err}")
+        worst[0] = max(worst[0], float((out - ref).abs().max()))
+    for B, T, zero, power in ((1, 1001, False, 2.0), (6, 1001, False, 2.0),
+                              (3, 78, False, 2.0), (2, 251, False, 2.0),
+                              (2, 251, True, 2.0), (2, 78, False, 1.0),
+                              (2, 78, False, 3.0)):
+        pred, uph = decode_inputs(torch, S, B, T, SEED + T, zero)
+        out = decode_mod.decode_ola(pred, uph, *geom, linear_power=power)
+        ref = decode_mod.decode_ola_ref(pred, uph, *geom, linear_power=power)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        print(f"[kernel] decode_ola B={B} T'={T} power={power} "
+              f"{'zero carrier' if zero else 'carrier from an STFT'} -> {tuple(out.shape)}: "
+              f"err / max|value| {err:.3e} (limit {DSP_TOL:.0e})", flush=True)
+        if out.shape != ref.shape or not err <= DSP_TOL:
+            raise AssertionError(f"decode_ola disagrees with its plain version: {err}")
+        worst[1] = max(worst[1], float((out - ref).abs().max()))
+    return worst
+
+
+def fused_inputs(torch, B, T, D, H, seed):
+    """xs (2, B, T, D), W_ih^T (2, D, 4H) xavier-uniform, bias (2, 4H),
+    W_hh^T (2, H, 4H) orthogonal, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(2, B, T, D, generator=g)
+    w_ih = torch.empty(2, 4 * H, D)
+    w_hh = torch.empty(2, 4 * H, H)
+    for d in range(2):
+        torch.nn.init.xavier_uniform_(w_ih[d], generator=g)
+        torch.nn.init.orthogonal_(w_hh[d], generator=g)
+    bias = 0.1 * torch.randn(2, 4 * H, generator=g)
+    return (xs.cuda(), w_ih.transpose(1, 2).contiguous().cuda(), bias.cuda(),
+            w_hh.transpose(1, 2).contiguous().cuda())
+
+
+def bb_checks(torch, L):
+    """B6 and B7 against their plain versions on the card: the flagship
+    shapes, a batch past two blocks with a ragged last one, a narrow layer
+    with small batch blocks and a D that takes the scalar loads. Returns the
+    largest absolute errors (B6, B7)."""
+    worst = [0.0, 0.0]
+    for B, T, H, bb in ((1, 1001, 256, 32), (6, 1001, 256, 32), (70, 37, 256, 32),
+                        (13, 29, 64, 5), (9, 21, 256, 2)):
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + B)
+        hs = L.lstm_bidir_bb(xw, w_hh_t, batch_block=bb)
+        ref = L.lstm_bidir_bb_ref(xw, w_hh_t)
+        torch.cuda.synchronize()
+        err = float((hs - ref).abs().max())
+        print(f"[kernel] lstm_bidir_bb B={B} T={T} H={H} batch_block={bb}: max_abs_err "
+              f"{err:.3e} (limit {KERNEL_TOL:.0e})", flush=True)
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"lstm_bidir_bb disagrees with its plain version: {err}")
+        worst[0] = max(worst[0], err)
+    for B, T, D, H, bb in ((1, 1001, 120, 256, 32), (1, 1001, 512, 256, 32),
+                           (6, 1001, 120, 256, 32), (6, 1001, 512, 256, 32),
+                           (70, 37, 120, 256, 32), (70, 37, 512, 256, 32),
+                           (13, 29, 30, 64, 5), (9, 21, 40, 256, 2)):
+        args = fused_inputs(torch, B, T, D, H, SEED + B + D)
+        hs = L.lstm_bidir_fused(*args, batch_block=bb)
+        ref = L.lstm_bidir_fused_ref(*args)
+        torch.cuda.synchronize()
+        err = float((hs - ref).abs().max())
+        print(f"[kernel] lstm_bidir_fused B={B} T={T} D={D} H={H} batch_block={bb}: "
+              f"max_abs_err {err:.3e} (limit {KERNEL_TOL:.0e})", flush=True)
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"lstm_bidir_fused disagrees with its plain version: {err}")
+        worst[1] = max(worst[1], err)
+    return worst
+
+
+def print_build_report(libs, build_s):
+    for name, lib_path in libs.items():
+        report = []
+        for ln in lib_path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in ln:
+                report.append(kernel_label(ln.split("'")[1]))
+            elif "registers" in ln or "spill" in ln:
+                report.append(ln.replace("ptxas info    : ", "").strip())
+        print(f"[build] {name}.cu -> {os.path.relpath(lib_path, ROOT)} (all "
+              f"{len(libs)} sources in {build_s:.2f} s) | ptxas: {' ; '.join(report)}",
+              flush=True)
+
+
+def bound(flops, nbytes):
+    """The least time the card could take, in ms: operations over the f32
+    rate outside the tensor cores against bytes over the memory rate (each
+    input read once, each output written once); and which of the two binds."""
+    by_ops, by_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def lstm_bound(B, T, H, products=1, extra_streams=0, D=0):
+    """B1 / B6: one h @ W_hh^T a step and direction, xw in, hs out.
+    ``products`` 3 for the backward; ``extra_streams`` counts further
+    (2, B, T, H)-sized tensors moved (cs, dhs) and, for the backward, the
+    (2, B, T, 4H) dxw; ``D`` > 0 (B7) swaps the xw stream for xs and W_ih^T
+    and adds the projection."""
+    flops = products * 2 * 2 * B * T * H * 4 * H + 2 * 2 * B * T * D * 4 * H
+    stream = 2 * B * T * (D if D else 4 * H)
+    weights = 2 * H * 4 * H + (2 * D * 4 * H + 2 * 4 * H if D else 0)
+    nbytes = 4 * (stream + weights + 2 * B * T * H * (1 + extra_streams))
+    if products == 3:
+        nbytes += 4 * (2 * B * T * 4 * H + 2 * H * 4 * H)  # dxw and dW_hh^T out
+    return bound(flops, nbytes)
+
+
+def attention_bound(B, T, N, D, products):
+    """B3: ``products`` tile products of 2 * T * T * D operations a head (2
+    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once."""
+    tensors = 4 if products == 2 else 9
+    return bound(products * 2 * B * N * T * T * D, 4 * (tensors * B * T * N * D + B * N * T))
+
+
+def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
+    """Phase 7: B4 and B5 beside the torch-op routes they replace, B6 and B7
+    beside B1 (B7 beside B1 plus its projection einsum), and the cuDNN
+    ``nn.LSTM`` layer as the library yardstick of the recurrences. The
+    torch-op routes and ``nn.LSTM`` are timed here and used nowhere."""
+    times = {}
+    geom = (400, 400, 160)
+    window = torch.hann_window(400, device="cuda")
+    for rows in (1, 12, 64):
+        wav = stft_inputs(torch, (rows, 10 * SR), SEED)
+        pred, uph = decode_inputs(torch, S, rows, 1001, SEED)
+        pairs = {
+            "stft_fused": (lambda: stft_kernel.stft_fused(wav, *geom),
+                           lambda: stft_kernel.stft_fused_ref(wav, *geom)),
+            "decode_ola": (lambda: decode_kernel.decode_ola(pred, uph, *geom),
+                           lambda: decode_kernel.decode_ola_ref(pred, uph, *geom)),
+        }
+        for name, (kern_fn, plain_fn) in pairs.items():
+            plain = cuda_ms(torch, plain_fn, iters=20, warmup=2)
+            kern = cuda_ms(torch, kern_fn, iters=20, warmup=2)
+            kern2 = cuda_ms(torch, kern_fn, iters=20)
+            plain2 = cuda_ms(torch, plain_fn, iters=20)
+            times[(name, rows)] = (min(kern, kern2), min(plain, plain2))
+            print(f"[time] {name} {rows} rows of 10 s (1001 frames): kernel {kern:.4f} / "
+                  f"{kern2:.4f} ms, the torch-op route it replaces (a yardstick, not a "
+                  f"route) {plain:.4f} / {plain2:.4f} ms | {card}", flush=True)
+        fft = cuda_ms(torch, lambda: torch.stft(wav, 400, 160, 400, window=window,
+                                                return_complex=True), iters=20, warmup=2)
+        times[("torch_stft", rows)] = fft
+        print(f"[time] torch.stft (cuFFT; a yardstick, not a route) {rows} rows of 10 s: "
+              f"{fft:.4f} ms | {card}", flush=True)
+
+    T, H = 1001, 256
+    for B in (1, 6, 64):
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED)
+        tm = cuda_ms(torch, lambda: L.lstm_bidir_tm(xw, w_hh_t), iters=10)
+        bb = cuda_ms(torch, lambda: L.lstm_bidir_bb(xw, w_hh_t), iters=10)
+        bb2 = cuda_ms(torch, lambda: L.lstm_bidir_bb(xw, w_hh_t), iters=10)
+        tm2 = cuda_ms(torch, lambda: L.lstm_bidir_tm(xw, w_hh_t), iters=10)
+        plain = cuda_ms(torch, lambda: L.lstm_bidir_bb_ref(xw, w_hh_t), iters=2)
+        times[("bb", B)] = (min(bb, bb2), plain, min(tm, tm2))
+        print(f"[time] lstm_bidir_bb B={B} T={T} H={H} batch_block=32: kernel {bb:.3f} / "
+              f"{bb2:.3f} ms, B1 at the same shape {tm:.3f} / {tm2:.3f} ms, plain "
+              f"{plain:.3f} ms | {card}", flush=True)
+        del xw
+        for D in (120, 512):
+            xs, w_ih_t, bias, w_hh_t = fused_inputs(torch, B, T, D, H, SEED)
+
+            def tm_route():
+                xw = torch.matmul(xs, w_ih_t[:, None]) + bias[:, None, None, :]
+                return L.lstm_bidir_tm(xw, w_hh_t)
+
+            fused = cuda_ms(torch, lambda: L.lstm_bidir_fused(xs, w_ih_t, bias, w_hh_t), 5)
+            route = cuda_ms(torch, tm_route, iters=5)
+            plain = cuda_ms(torch, lambda: L.lstm_bidir_fused_ref(xs, w_ih_t, bias, w_hh_t),
+                            iters=2)
+            times[("fused", B, D)] = (fused, plain, route)
+            print(f"[time] lstm_bidir_fused B={B} T={T} D={D} H={H}: kernel {fused:.3f} ms, "
+                  f"projection matmul + B1 {route:.3f} ms, plain {plain:.3f} ms | {card}",
+                  flush=True)
+            del xs
+
+    # the library yardstick of B1 / B2 / B6 / B7: one bidirectional nn.LSTM
+    # layer (cuDNN, f32, TF32 off), which computes projection and recurrence
+    lstm = torch.nn.LSTM(512, H, num_layers=1, bidirectional=True, batch_first=True).cuda()
+    for B in (1, 6, 64):
+        x = torch.randn(B, T, 512, device="cuda")
+        with torch.no_grad():
+            fwd = cuda_ms(torch, lambda: lstm(x), iters=10, warmup=2)
+            proj = cuda_ms(torch, lambda: torch.matmul(x, lstm.weight_ih_l0.T), iters=10,
+                           warmup=2)
+        times[("cudnn_fwd", B)] = (fwd, proj)
+        line = (f"[time] nn.LSTM (cuDNN; a yardstick, not a route) 1 bidirectional layer "
+                f"D=512 H={H} T={T} B={B}: forward {fwd:.3f} ms (one direction's input "
+                f"projection alone {proj:.3f} ms)")
+        if B > 1:
+            def step():
+                lstm.zero_grad(set_to_none=True)
+                out, _ = lstm(x)
+                out.sum().backward()
+
+            def fwd_train():
+                return lstm(x)
+
+            both = cuda_ms(torch, step, iters=10, warmup=2)
+            fwd_t = cuda_ms(torch, fwd_train, iters=10, warmup=2)
+            times[("cudnn_train", B)] = (fwd_t, both - fwd_t)
+            line += (f"; under autograd forward {fwd_t:.3f} ms, forward + backward "
+                     f"{both:.3f} ms")
+        print(line + f" | {card}", flush=True)
+    return times
+
+
+def enhance_times(torch, build, make_enhance, card):
+    """Phase 7: the B=1 10 s enhance latency under each recurrence route and
+    where the device time of the default route goes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wav = torch.from_numpy(np.stack([request_audio(10.0, s) for s in range(3)]))
+    wavs = wav[None].cuda()
+    lengths = torch.tensor([wav.shape[-1]]).cuda()
+    out = {}
+    for route in ("tm", "blocked", "fused"):
+        pre, model = build(device="cuda", generator=torch.Generator().manual_seed(SEED),
+                           recurrence=route)
+        enhance = make_enhance(pre, model)
+        for _ in range(3):
+            enhance(wavs, lengths)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            enhance(wavs, lengths)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out[route] = statistics.median(lat)
+        print(f"[time] enhance B=1 10 s (T=1001 frames), recurrence={route!r}, fused STFT "
+              f"and decode: median {out[route]:.3f} ms over 20 calls (min {min(lat):.3f}, "
+              f"max {max(lat):.3f}) | {card}", flush=True)
+        if route != "tm":
+            continue
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                enhance(wavs, lengths)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 10
+        shares = {"B1": 0.0, "B4": 0.0, "B5": 0.0, "cuBLAS": 0.0, "other": 0.0}
+        n_kernels = 0
+        for evt in prof.events():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            n_kernels += 1
+            name = evt.name
+            if "lstm_bidir_tm_kernel" in name:
+                key = "B1"
+            elif "stft_fused_kernel" in name:
+                key = "B4"
+            elif "decode_ola_kernel" in name:
+                key = "B5"
+            elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
+                key = "cuBLAS"
+            else:
+                key = "other"
+            shares[key] += evt.time_range.elapsed_us() / 1e3 / 10
+        busy = sum(shares.values())
+        print(f"[time] enhance B=1 10 s under torch.profiler (10 calls): wall {wall:.3f} ms "
+              f"a call, device busy {busy:.3f} ms ("
+              + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}"
+                          for k, v in shares.items())
+              + f"), idle share {max(0.0, 1 - busy / wall):.3f}, {n_kernels / 10:.0f} device "
+              f"kernels a call | {card}", flush=True)
+    return out
 
 
 def upstream_slice(torch, corpus, tmp, lstm_kernels, flash_kernels):
@@ -564,7 +895,28 @@ def upstream_times(torch, A, card):
         print(f"[time] flash_attention_fwd rate 0 vs scaled_dot_product_attention (a "
               f"yardstick, not a route) B={B} T={T}: kernel {rate0:.3f} ms, SDPA {sdpa:.3f} "
               f"ms | {card}", flush=True)
-        del q, k, v, dout, out, lse, heads
+        # the library call of B3 bwd: SDPA's backward at rate 0, as forward +
+        # backward minus forward under autograd (as the nn.LSTM backward is)
+        out0, lse0 = A.flash_attention_fwd(q, k, v, 0.125, 0.0, salt, n_heads=N)
+        bwd0 = cuda_ms(torch, lambda: A.flash_attention_bwd(q, k, v, out0, lse0, dout, 0.125,
+                                                            0.0, salt, n_heads=N), 10)
+        leaves = [x.detach().requires_grad_() for x in heads]
+        dout_h = dout.reshape(B, T, N, D).transpose(1, 2)
+
+        def sdpa_train():
+            return F.scaled_dot_product_attention(*leaves, scale=0.125)
+
+        def sdpa_both():
+            return torch.autograd.grad(sdpa_train(), leaves, dout_h)
+
+        both = cuda_ms(torch, sdpa_both, iters=10, warmup=2)
+        fwd_t = cuda_ms(torch, sdpa_train, iters=10, warmup=2)
+        times[("b3sdpa_bwd", B)] = (bwd0, both - fwd_t)
+        print(f"[time] flash_attention_bwd rate 0 vs the backward of "
+              f"scaled_dot_product_attention (a yardstick, not a route) B={B} T={T}: kernel "
+              f"{bwd0:.3f} ms, SDPA under autograd forward {fwd_t:.3f} ms, forward + backward "
+              f"{both:.3f} ms, so its backward {both - fwd_t:.3f} ms | {card}", flush=True)
+        del q, k, v, dout, out, lse, heads, out0, lse0, leaves, dout_h
 
     builder = build_mockingjay_train(device="cuda",
                                      generator=torch.Generator().manual_seed(SEED))
@@ -659,8 +1011,11 @@ def main():
         make_enhance,
     )
     from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.ops import stft as S
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import _build
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
     from speech_enhancement_by_s3prl_tpu_torch.ops.cuda.lstm_kernel import (
         lstm_bidir_tm,
         lstm_bidir_tm_bwd,
@@ -688,7 +1043,11 @@ def main():
 
     kernels = (lstm_bidir_tm, lstm_bidir_tm_fc, lstm_bidir_tm_bwd)
     flash_kernels = (A.flash_attention_fwd, A.flash_attention_bwd)
-    all_kernels = kernels + flash_kernels
+    stft_fused, decode_ola = stft_kernel.stft_fused, decode_kernel.decode_ola
+    serve_kernels = (stft_fused, lstm_bidir_tm, L.lstm_bidir_bb, L.lstm_bidir_fused,
+                     decode_ola)
+    all_kernels = kernels + flash_kernels + (stft_fused, decode_ola, L.lstm_bidir_bb,
+                                             L.lstm_bidir_fused)
     use_full_fp32()
 
     # 1. the card
@@ -703,17 +1062,7 @@ def main():
     for name in libs:
         _build.load(name)
     build_s = time.perf_counter() - t0
-    for name, lib_path in libs.items():
-        lines = lib_path.with_suffix(".log").read_text().splitlines()
-        report = []
-        for ln in lines:
-            if "Compiling entry function" in ln:
-                report.append(kernel_label(ln.split("'")[1]))
-            elif "registers" in ln or "spill" in ln:
-                report.append(ln.replace("ptxas info    : ", "").strip())
-        print(f"[build] {name}.cu -> {os.path.relpath(lib_path, ROOT)} (all "
-              f"{len(libs)} sources in {build_s:.2f} s) | ptxas: {' ; '.join(report)}",
-              flush=True)
+    print_build_report(libs, build_s)
 
     # 3. kernel against its plain version on the card
     max_err = 0.0
@@ -772,6 +1121,8 @@ def main():
         raise AssertionError(f"LstmBidirTm gradients disagree: {fn_err}")
 
     b3_err = flash_checks(torch, A)
+    dsp_err = dsp_checks(torch, S, stft_kernel, decode_kernel)
+    bb_err = bb_checks(torch, L)
 
     # 4. the slice, on the card and (for comparison) on the CPU
     with tempfile.TemporaryDirectory() as tmp:
@@ -813,13 +1164,22 @@ def main():
             if th.is_alive():
                 raise AssertionError("a request did not finish within 600 s")
         served_launches = lstm_bidir_tm.launches
+        served_dsp = (stft_fused.launches, decode_ola.launches)
         enhance_cli(["--ckpt", ckpt, "--inputs", cli_in, "--outdir", cli_out,
                      "--device", "cuda"])
         launches = lstm_bidir_tm.launches
+        dsp_launches = (stft_fused.launches, decode_ola.launches)
         # -----------------------------------------------------------------
         if (lstm_bidir_tm_fc.launches or lstm_bidir_tm_bwd.launches
-                or any(fn.launches for fn in flash_kernels)):
-            raise AssertionError("the inference path launched a training or attention kernel")
+                or any(fn.launches for fn in flash_kernels)
+                or L.lstm_bidir_bb.launches or L.lstm_bidir_fused.launches):
+            raise AssertionError("the inference path launched a training, attention or "
+                                 "other-route kernel")
+        if served_dsp != (len(batches), len(batches)) or dsp_launches != (
+                len(batches) + 1, len(batches) + 1):
+            raise AssertionError(
+                f"(B4, B5) launches {served_dsp} for {len(batches)} served device "
+                f"batches and {dsp_launches} with the CLI's one: want one each a batch")
 
         if served_launches != 3 * len(batches):
             raise AssertionError(
@@ -834,7 +1194,8 @@ def main():
         print(f"[slice] served {len(requests)} concurrent requests "
               f"({', '.join(f'{s} s' for s in REQUEST_SECONDS)}) in device batches "
               f"of {batches}; CLI enhanced {len(CLI_SECONDS)} files in 1 batch; "
-              f"kernel launches {launches} (3 per device batch)", flush=True)
+              f"launches B1 {launches} (3 per device batch), B4 {dsp_launches[0]}, B5 "
+              f"{dsp_launches[1]} (1 each per device batch)", flush=True)
 
         worst = 0.0
         for k, (wav, out) in enumerate(zip(requests, answers)):
@@ -858,6 +1219,60 @@ def main():
               "match the inputs", flush=True)
         if not worst <= SLICE_TOL:
             raise AssertionError(f"GPU output differs from the CPU run: {worst}")
+
+        # the same checkpoint under the other two recurrence routes: one
+        # device batch of the four requests each
+        tm_outs = gpu.run_batch(requests)
+        cpu_outs = cpu.run_batch(requests)
+        route_launches = {}
+        for route, fn in (("blocked", L.lstm_bidir_bb), ("fused", L.lstm_bidir_fused)):
+            routed = build_enhancer(ckpt, device="cuda", recurrence=route)
+            # -- the main path of B6 / B7, between the reset and the reading --
+            reset_counts(all_kernels)
+            outs = routed.run_batch(requests)
+            counts = [k.launches for k in serve_kernels]
+            # -------------------------------------------------------------
+            want = [1, 0, 3 * (route == "blocked"), 3 * (route == "fused"), 1]
+            vs_tm = max(float(np.abs(o - t).max() / np.sqrt(np.mean(t ** 2)))
+                        for o, t in zip(outs, tm_outs))
+            vs_cpu = max(float(np.abs(o - c).max() / np.sqrt(np.mean(c ** 2)))
+                         for o, c in zip(outs, cpu_outs))
+            print(f"[slice] recurrence={route!r}: one device batch of {len(requests)} "
+                  f"requests, launches (B4, B1, B6, B7, B5) {counts}; max |diff| / output "
+                  f"RMS vs the 'tm' route {vs_tm:.3e}, vs the CPU {vs_cpu:.3e} (limit "
+                  f"{SLICE_TOL:.0e})", flush=True)
+            if counts != want or not (vs_tm <= SLICE_TOL and vs_cpu <= SLICE_TOL) or not all(
+                    o.shape == w.shape and np.isfinite(o).all()
+                    for o, w in zip(outs, requests)):
+                raise AssertionError(f"route {route}: launches {counts}, want {want}; vs tm "
+                                     f"{vs_tm}, vs cpu {vs_cpu}")
+            route_launches[route] = fn.launches
+
+        # the long-form entry: a request longer than the largest bucket
+        long_gpu = build_enhancer(ckpt, device="cuda", max_bucket_ms=10000)
+        long_cpu = build_enhancer(ckpt, device="cpu", max_bucket_ms=10000)
+        long_wav = request_audio(LONG_SECONDS, 30)
+        long_gpu(long_wav[: 10 * SR])  # warm
+        torch.cuda.synchronize()
+        # -- the main path of the long-form entry --
+        reset_counts(all_kernels)
+        t0 = time.perf_counter()
+        long_out = long_gpu(long_wav)
+        long_s = time.perf_counter() - t0
+        long_counts = [k.launches for k in serve_kernels]
+        # -----------------------------------------------------------------
+        long_ref = long_cpu(long_wav)
+        long_rel = float(np.abs(long_out - long_ref).max() / np.sqrt(np.mean(long_ref ** 2)))
+        print(f"[slice] long-form entry: one {LONG_SECONDS:.0f} s request through "
+              f"build_enhancer(max_bucket_ms=10000) in {LONG_WINDOWS} windows of 10 s with "
+              f"1 s of crossfade: {long_s * 1e3:.1f} ms on {card}; launches (B4, B1, B6, "
+              f"B7, B5) {long_counts}; GPU vs CPU max |diff| / output RMS {long_rel:.3e} "
+              f"(limit {SLICE_TOL:.0e})", flush=True)
+        if (long_out.shape != long_wav.shape or not np.isfinite(long_out).all()
+                or long_counts != [LONG_WINDOWS, 3 * LONG_WINDOWS, 0, 0, LONG_WINDOWS]
+                or not long_rel <= SLICE_TOL):
+            raise AssertionError(f"long-form entry: shape {long_out.shape}, launches "
+                                 f"{long_counts}, GPU vs CPU {long_rel}")
 
     # 5. the training slice at full width, through the Runner
     with tempfile.TemporaryDirectory() as tmp:
@@ -900,9 +1315,11 @@ def main():
         reset_counts(all_kernels)
         runner.train()
         train_counts = [fn.launches for fn in kernels]
+        train_dsp = (stft_fused.launches, decode_ola.launches)
         # -----------------------------------------------------------------
-        if any(fn.launches for fn in flash_kernels):
-            raise AssertionError("the flagship's training launched an attention kernel")
+        if any(fn.launches for fn in flash_kernels + (L.lstm_bidir_bb, L.lstm_bidir_fused)):
+            raise AssertionError("the flagship's training launched an attention or "
+                                 "other-route kernel")
         train_s = time.perf_counter() - t0
         losses = [float(st["loss"]) for _, st in steps]
         norms = [float(st["grad_norm"]) for _, st in steps]
@@ -916,6 +1333,12 @@ def main():
                 f"launches (B1, B2 fwd, B2 bwd) {train_counts} for {TRAIN_STEPS} train "
                 f"steps and {len(evals)} eval batches of a 3-layer model; want {want}"
             )
+        # B4 frames both channels of every train and eval batch in one launch;
+        # B5 decodes only where no gradient is taken: the eval batches
+        if train_dsp != (TRAIN_STEPS + len(evals), len(evals)):
+            raise AssertionError(
+                f"launches (B4, B5) {train_dsp} for {TRAIN_STEPS} train steps and "
+                f"{len(evals)} eval batches; want {(TRAIN_STEPS + len(evals), len(evals))}")
         ckpts = ckpt_files(run_dir)
         if ckpts != ["states-8.ckpt", "states-9.ckpt"]:
             raise AssertionError(f"checkpoints after max_keep 2 rotation: {ckpts}")
@@ -930,7 +1353,9 @@ def main():
               f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
               f"{', '.join(f'{x:.3f}' for x in norms)}; launches B1 {train_counts[0]}, "
               f"B2 fwd {train_counts[1]}, B2 bwd {train_counts[2]} (3 B2 fwd + 3 B2 bwd "
-              f"a step, 3 B1 an eval batch); checkpoints {ckpts}", flush=True)
+              f"a step, 3 B1 an eval batch), B4 {train_dsp[0]} (1 a step and an eval "
+              f"batch), B5 {train_dsp[1]} (1 an eval batch, 0 a step); checkpoints {ckpts}",
+              flush=True)
 
         # resume from the last checkpoint for RESUME_STEPS more steps
         resume_from = os.path.basename(find_resume_ckpt(run_dir))
@@ -1039,23 +1464,8 @@ def main():
               f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
               flush=True)
 
-    pre, model = build(device="cuda", generator=torch.Generator().manual_seed(SEED))
-    enhance = make_enhance(pre, model)
-    wav = torch.from_numpy(np.stack([request_audio(10.0, s) for s in range(3)]))
-    wavs = wav[None].cuda()
-    lengths = torch.tensor([wav.shape[-1]]).cuda()
-    for _ in range(3):
-        enhance(wavs, lengths)
-    torch.cuda.synchronize()
-    lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        enhance(wavs, lengths)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"[time] enhance B=1 10 s (T=1001 frames): median {statistics.median(lat):.3f} "
-          f"ms over 20 calls (min {min(lat):.3f}, max {max(lat):.3f}) | {card}",
-          flush=True)
+    enhance_ms = enhance_times(torch, build, make_enhance, card)
+    times.update(serving_times(torch, S, stft_kernel, decode_kernel, L, card))
 
     for B in (6, 64):
         xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, 1001, 256, SEED)
@@ -1148,73 +1558,113 @@ def main():
     del builder, state
     times.update(upstream_times(torch, A, card))
 
-    replaces = "speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py"
-    attn = "speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py"
-    print(json.dumps({"kernels": [{
-        "name": "lstm_bidir_tm",
-        "route": "cuda",
-        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm.cu",
-        "replaces": f"{replaces}:208",
-        "launches": launches,
-        "launches_train_eval": train_counts[0],
-        "max_abs_err": max_err,
-        "ms": times[1][0],
-        "plain_ms": times[1][1],
-        "shape": "B=1 T=1001 H=256",
-        "ms_b64": times[64][0],
-        "plain_ms_b64": times[64][1],
-    }, {
-        "name": "lstm_bidir_tm_fc",
-        "route": "cuda",
-        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm.cu",
-        "replaces": f"{replaces}:391",
-        "launches": train_counts[1],
-        "max_abs_err": b2_err["fc"],
-        "ms": times[("fc", 6)][0],
-        "plain_ms": times[("fc", 6)][1],
-        "shape": "B=6 T=1001 H=256",
-        "ms_b64": times[("fc", 64)][0],
-        "plain_ms_b64": times[("fc", 64)][1],
-    }, {
-        "name": "lstm_bidir_tm_bwd",
-        "route": "cuda",
-        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/lstm_tm_bwd.cu",
-        "replaces": f"{replaces}:422",
-        "launches": train_counts[2],
-        "max_abs_err": b2_err["bwd_abs"],
-        "max_rel_err": b2_err["bwd"],
-        "ms": times[("bwd", 6)][0],
-        "plain_ms": times[("bwd", 6)][1],
-        "shape": "B=6 T=1001 H=256",
-        "ms_b64": times[("bwd", 64)][0],
-        "plain_ms_b64": times[("bwd", 64)][1],
-    }, {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/flash_attn.cu",
-        "replaces": f"{attn}:277",
-        "launches": mj_launches[0],
-        "max_abs_err": b3_err[0],
-        "ms": times[("b3fwd", 6)][0],
-        "plain_ms": times[("b3fwd", 6)][1],
-        "shape": "B=6 T=1001 N=12 D=64 rate 0.1",
-        "ms_b64": times[("b3fwd", 64)][0],
-        "plain_ms_b64": times[("b3fwd", 64)][1],
-        "rate0_ms": times[("b3sdpa", 6)][0],
-        "sdpa_ms": times[("b3sdpa", 6)][1],
-    }, {
-        "name": "flash_attention_bwd",
-        "route": "cuda",
-        "source": "speech_enhancement_by_s3prl_tpu_torch/csrc/flash_attn_bwd.cu",
-        "replaces": f"{attn}:314",
-        "launches": mj_launches[1],
-        "max_abs_err": b3_err[1],
-        "ms": times[("b3bwd", 6)][0],
-        "plain_ms": times[("b3bwd", 6)][1],
-        "shape": "B=6 T=1001 N=12 D=64 rate 0.1",
-        "ms_b64": times[("b3bwd", 64)][0],
-        "plain_ms_b64": times[("b3bwd", 64)][1],
-    }]}))
+    pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
+    csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
+    T, H = 1001, 256
+    cudnn = {B: times[("cudnn_fwd", B)][0] for B in (1, 6, 64)}
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, shape, bound_, library_ms,
+            **more):
+        return {"name": name, "route": "cuda", "source": csrc + source,
+                "replaces": pallas + replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
+                "library_ms": library_ms, "shape": shape, **more}
+
+    # every bound is worked out from the shape named beside it; library_ms is
+    # one bidirectional nn.LSTM layer (cuDNN, projection included) for the
+    # recurrences, scaled_dot_product_attention and its backward at rate 0 for
+    # B3, torch.stft (cuFFT) for B4, and for B5, whose function no single
+    # call computes, the torch-op route (rescale + matmul + shifted adds) that
+    # is also its plain version; none of them is a route of the port
+    rows = [
+        row("lstm_bidir_tm", "lstm_tm.cu", "lstm_kernel.py:208", launches, max_err,
+            times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
+            launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
+            ms_b64=times[64][0], plain_ms_b64=times[64][1],
+            bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64]),
+        row("lstm_bidir_tm_fc", "lstm_tm.cu", "lstm_kernel.py:391", train_counts[1],
+            b2_err["fc"], times[("fc", 6)][0], times[("fc", 6)][1], "B=6 T=1001 H=256",
+            lstm_bound(6, T, H, extra_streams=1), times[("cudnn_train", 6)][0],
+            ms_b64=times[("fc", 64)][0], plain_ms_b64=times[("fc", 64)][1],
+            bound_ms_b64=lstm_bound(64, T, H, extra_streams=1)[0],
+            library_ms_b64=times[("cudnn_train", 64)][0]),
+        row("lstm_bidir_tm_bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", train_counts[2],
+            b2_err["bwd_abs"], times[("bwd", 6)][0], times[("bwd", 6)][1],
+            "B=6 T=1001 H=256", lstm_bound(6, T, H, products=3, extra_streams=3),
+            times[("cudnn_train", 6)][1], max_rel_err=b2_err["bwd"],
+            ms_b64=times[("bwd", 64)][0], plain_ms_b64=times[("bwd", 64)][1],
+            bound_ms_b64=lstm_bound(64, T, H, products=3, extra_streams=3)[0],
+            library_ms_b64=times[("cudnn_train", 64)][1]),
+        row("flash_attention_fwd", "flash_attn.cu", "attention_kernel.py:277",
+            mj_launches[0], b3_err[0], times[("b3fwd", 6)][0], times[("b3fwd", 6)][1],
+            "B=6 T=1001 N=12 D=64 rate 0.1", attention_bound(6, T, 12, 64, 2),
+            times[("b3sdpa", 6)][1], ms_b64=times[("b3fwd", 64)][0],
+            plain_ms_b64=times[("b3fwd", 64)][1],
+            bound_ms_b64=attention_bound(64, T, 12, 64, 2)[0],
+            library_ms_b64=times[("b3sdpa", 64)][1],
+            rate0_ms=times[("b3sdpa", 6)][0], rate0_ms_b64=times[("b3sdpa", 64)][0]),
+        row("flash_attention_bwd", "flash_attn_bwd.cu", "attention_kernel.py:314",
+            mj_launches[1], b3_err[1], times[("b3bwd", 6)][0], times[("b3bwd", 6)][1],
+            "B=6 T=1001 N=12 D=64 rate 0.1", attention_bound(6, T, 12, 64, 5),
+            times[("b3sdpa_bwd", 6)][1], ms_b64=times[("b3bwd", 64)][0],
+            plain_ms_b64=times[("b3bwd", 64)][1],
+            bound_ms_b64=attention_bound(64, T, 12, 64, 5)[0],
+            library_ms_b64=times[("b3sdpa_bwd", 64)][1],
+            rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0]),
+    ]
+    for name, source, line, n_launches, err, flops_row, bytes_row in (
+            ("stft_fused", "stft_fused.cu", "stft_kernel.py:70", dsp_launches[0], dsp_err[0],
+             2 * 1001 * 400 * 402, 4 * (10 * SR + 1001 * 402)),
+            ("decode_ola", "decode_ola.cu", "decode_kernel.py:120", dsp_launches[1],
+             dsp_err[1], 2 * 1001 * 402 * 400, 4 * (1001 * 201 + 1001 * 402 + 1003 * 160))):
+        matrix = 4 * 400 * 402
+
+        def library(n):
+            return times[("torch_stft", n)] if name == "stft_fused" else times[(name, n)][1]
+
+        rows.append(row(
+            name, source, line, n_launches, err, times[(name, 1)][0], times[(name, 1)][1],
+            "1 row of 10 s (1001 frames), n_fft 400, hop 160",
+            bound(flops_row, bytes_row + matrix), library(1),
+            launches_train_eval=train_dsp[name == "decode_ola"],
+            launches_long_form=long_counts[0 if name == "stft_fused" else 4],
+            **{f"{key}_rows{n}": val for n in (12, 64) for key, val in (
+                ("ms", times[(name, n)][0]), ("plain_ms", times[(name, n)][1]),
+                ("library_ms", library(n)),
+                ("bound_ms", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
+    rows.append(row(
+        "lstm_bidir_bb", "lstm_bb.cu", "lstm_kernel.py:629", route_launches["blocked"],
+        bb_err[0], times[("bb", 1)][0], times[("bb", 1)][1],
+        "B=1 T=1001 H=256 batch_block=32", lstm_bound(1, T, H), cudnn[1],
+        b1_ms=times[("bb", 1)][2],
+        **{f"{key}_b{B}": val for B in (6, 64) for key, val in (
+            ("ms", times[("bb", B)][0]), ("plain_ms", times[("bb", B)][1]),
+            ("b1_ms", times[("bb", B)][2]), ("bound_ms", lstm_bound(B, T, H)[0]),
+            ("library_ms", cudnn[B]))}))
+    rows.append(row(
+        "lstm_bidir_fused", "lstm_bb.cu", "lstm_kernel.py:101", route_launches["fused"],
+        bb_err[1], times[("fused", 1, 512)][0], times[("fused", 1, 512)][1],
+        "B=1 T=1001 D=512 H=256 batch_block=32", lstm_bound(1, T, H, D=512), cudnn[1],
+        projection_plus_b1_ms=times[("fused", 1, 512)][2],
+        **{f"{key}_b{B}_d{D}": val for B in (1, 6, 64) for D in (120, 512)
+           for key, val in (("ms", times[("fused", B, D)][0]),
+                            ("plain_ms", times[("fused", B, D)][1]),
+                            ("projection_plus_b1_ms", times[("fused", B, D)][2]),
+                            ("bound_ms", lstm_bound(B, T, H, D=D)[0]))},
+        library_ms_b6=cudnn[6], library_ms_b64=cudnn[64]))
+    # once more, for a reader who is shown only the end of a long output
+    print_build_report(libs, build_s)
+    for r in rows:
+        print(f"[bound] {r['name']} at {r['shape']}: {r['ms']:.4f} ms on the card, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
+              f"library call "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none")
+              + f", {r['launches']} launches on its main path | {card}", flush=True)
+    print(f"[time] enhance B=1 10 s medians by route (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in enhance_ms.items()) + f" | {card}",
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

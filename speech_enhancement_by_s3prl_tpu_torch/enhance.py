@@ -2,7 +2,8 @@
 
 Loads a trained ``from_rawfeature`` downstream checkpoint and enhances WAV
 files: decode -> bucketed batches on the device (STFT, model, iSTFT with
-the noisy phase, level renorm) -> 16-bit WAV out.
+the noisy phase, level renorm) -> 16-bit WAV out. A file longer than the 30 s
+bucket ceiling is enhanced in crossfaded windows of that length.
 
   python -m speech_enhancement_by_s3prl_tpu_torch.enhance --ckpt result/exp1 \\
       --inputs 'noisy/*.wav' --outdir enhanced/ --device cuda
@@ -56,7 +57,7 @@ def main(argv=None):
     from .serve import build_enhancer
 
     # offline CLI: fixed --batch_size chunks, no power-of-two row rounding,
-    # and a 30 s bucket ceiling
+    # and a 30 s bucket ceiling (longer files stream in crossfaded windows)
     enhancer = build_enhancer(
         args.ckpt, args.sample_rate, args.target_level, device=args.device,
         max_bucket_ms=30000, round_pow2=False,
@@ -77,7 +78,13 @@ def main(argv=None):
         chunk = files[i : i + args.batch_size]
         wavs = [load_audio(f, sr=args.sample_rate)[0] for f in chunk]
         lengths = np.array([len(w) for w in wavs])
-        out = enhancer.run_batch(wavs)
+        # short files ride one padded device batch; a file longer than the
+        # largest bucket streams through fixed crossfaded windows
+        short = [j for j, w in enumerate(wavs) if len(w) <= enhancer.max_len]
+        out = [enhancer(w) if len(w) > enhancer.max_len else None for w in wavs]
+        if short:
+            for j, res in zip(short, enhancer.run_batch([wavs[j] for j in short])):
+                out[j] = res
         for j, f in enumerate(chunk):
             name = os.path.splitext(os.path.basename(f))[0] + ".wav"
             write_wav(os.path.join(args.outdir, name),

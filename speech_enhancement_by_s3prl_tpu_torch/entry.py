@@ -60,15 +60,17 @@ def _preprocessor(n_mels=40, delta=2) -> OnlinePreprocessor:
 
 
 def build(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40, delta=2,
-          *, device, generator=None):
+          *, device, generator=None, recurrence="tm"):
     """(preprocessor, model) of the flagship, the model on ``device`` with
-    weights drawn from ``generator``."""
+    weights drawn from ``generator``. ``recurrence`` ("tm", "blocked",
+    "fused") names the kernel its layers run when no gradient is needed."""
     use_full_fp32()
     pre = _preprocessor(n_mels, delta)
     model = build_head(
         "Residual", input_size=pre.feat_dims()[1], output_size=201,
         generator=generator, hidden_size=hidden_size, num_layers=num_layers,
         bidirectional=bidirectional, activation="Sigmoid", cmvn=False,
+        recurrence=recurrence,
     )
     return pre, model.eval().to(device)
 

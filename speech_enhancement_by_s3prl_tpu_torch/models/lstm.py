@@ -10,6 +10,16 @@
   gradients reach ``w_hh`` through dW_hh^T and ``w_ih``, ``b_ih``, ``b_hh``
   through the einsum; otherwise kernel B1. A CPU tensor takes the plain
   versions on either route.
+- ``recurrence`` picks the kernel a bidirectional layer runs when no gradient
+  is needed: ``"tm"`` (B1, the default), ``"blocked"`` (B6,
+  ``lstm_bidir_bb``: the JAX package's batch-blocked route) or ``"fused"``
+  (B7, ``lstm_bidir_fused``: the input projection inside the kernel). B6 and
+  B7 are forward-only, so under autograd every route is ``LstmBidirTm``. The
+  parameters are the same under all three: one checkpoint serves each.
+  ``"blocked"`` and ``"fused"`` are ablations, as they are in the JAX package:
+  ``"fused"`` is slower than the projection plus B1 at every measured shape
+  (``PERF.md``); the three routes become one default once B6's design also
+  carries the training kernels (``ROADMAP.md`` A13).
 - Parameters are in torch layout with gate order i, f, g, o, under
   ``l{k}_fwd`` / ``l{k}_bwd`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``.
 - Sequences run fully padded, as the JAX package runs them: the backward
@@ -24,7 +34,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.lstm_kernel import lstm_bidir_tm, lstm_bidir_tm_ref
+from ..ops.cuda.lstm_kernel import (
+    lstm_bidir_bb,
+    lstm_bidir_fused,
+    lstm_bidir_tm,
+    lstm_bidir_tm_ref,
+)
+
+RECURRENCES = ("tm", "blocked", "fused")
 
 
 class LstmDirParams(nn.Module):
@@ -45,12 +62,17 @@ class LstmDirParams(nn.Module):
 class LSTMStack(nn.Module):
     """torch ``nn.LSTM(num_layers, bidirectional, batch_first=True)``
     equivalent over (B, T, D). Output dim = hidden_size * (2 if
-    bidirectional else 1)."""
+    bidirectional else 1). ``recurrence`` ("tm", "blocked" or "fused")
+    names the forward-only kernel of the bidirectional layers."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bidirectional: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 recurrence: str = "tm"):
         super().__init__()
+        if recurrence not in RECURRENCES:
+            raise ValueError(f"recurrence must be one of {RECURRENCES}, got {recurrence!r}")
+        self.recurrence = recurrence
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.bidirectional = bidirectional
@@ -65,6 +87,9 @@ class LSTMStack(nn.Module):
             d_in = hidden_size * len(dirs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # B6 and B7 have no backward kernel: a gradient takes LstmBidirTm
+        forward_only = not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())))
         for k in range(self.num_layers):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
@@ -76,9 +101,16 @@ class LSTMStack(nn.Module):
             xs = torch.stack([x, torch.flip(x, dims=[1])], dim=0)  # (2, B, T, D)
             w_ih = torch.stack([pf.w_ih, pb.w_ih], dim=0)  # (2, 4H, D)
             bias = torch.stack([pf.b_ih + pf.b_hh, pb.b_ih + pb.b_hh], dim=0)
-            xw = torch.einsum("dbtn,dhn->dbth", xs, w_ih) + bias[:, None, None, :]
-            w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0)  # (2, H, 4H)
-            # LstmBidirTm when a gradient is needed, B1 when not
-            hs = lstm_bidir_tm(xw.contiguous(), w_hh_t.contiguous())
+            w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0).contiguous()  # (2, H, 4H)
+            if self.recurrence == "fused" and forward_only:
+                hs = lstm_bidir_fused(xs, w_ih.transpose(1, 2).contiguous(), bias, w_hh_t)
+            else:
+                xw = (torch.einsum("dbtn,dhn->dbth", xs, w_ih)
+                      + bias[:, None, None, :]).contiguous()
+                if self.recurrence == "blocked" and forward_only:
+                    hs = lstm_bidir_bb(xw, w_hh_t)
+                else:
+                    # LstmBidirTm when a gradient is needed, B1 when not
+                    hs = lstm_bidir_tm(xw, w_hh_t)
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)
         return x

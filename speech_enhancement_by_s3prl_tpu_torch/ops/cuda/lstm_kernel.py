@@ -12,9 +12,17 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
 - B2 bwd ``lstm_bidir_tm_bwd`` (``lstm_tm_bwd.cu``): the reverse-time VJP
   (``_tm_bwd``), which recomputes the gates and sums dW_hh^T itself.
 
+- B6 ``lstm_bidir_bb`` (``lstm_bb.cu``): the same function as B1, computed
+  independently per batch block (``lstm_bidir_pallas``): no grid-wide
+  barrier, one thread-block cluster per (direction, batch block).
+- B7 ``lstm_bidir_fused`` (``lstm_bb.cu``, the same kernel with its projection
+  flag): the recurrence with the input projection inside, so that no ``xw``
+  tensor exists (``lstm_bidir_pallas_fused``).
+
 ``LstmBidirTm`` ties B2 fwd and B2 bwd into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``lstm_bidir_tm``; ``lstm_bidir_tm`` routes
-to it when a gradient is needed.
+to it when a gradient is needed. B6 and B7 are forward-only, as they are in
+the JAX package, and raise when a gradient is needed.
 
 All keep the JAX layout: ``xw`` (2, B, T, 4H) holds the input projections
 plus biases, direction 1 already time-flipped; ``w_hh_t`` (2, H, 4H) is
@@ -247,8 +255,130 @@ class LstmBidirTm(torch.autograd.Function):
                 dw if ctx.needs_input_grad[1] else None)
 
 
+def lstm_bidir_bb_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+    """B6's plain version: the plain recurrence. Batch rows are independent,
+    so how the kernel partitions them into batch blocks does not enter."""
+    return _recurrence(xw, w_hh_t, with_cell=False)
+
+
+def lstm_bidir_fused_ref(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                         w_hh_t: torch.Tensor) -> torch.Tensor:
+    """B7's plain version: the input projection, then the plain recurrence."""
+    xw = torch.matmul(xs, w_ih_t[:, None]) + bias[:, None, None, :]
+    return _recurrence(xw, w_hh_t, with_cell=False)
+
+
+# widest layer the batch-blocked kernel takes: a lane is a hidden unit and a
+# block of the 8-block cluster keeps H / 8 units' columns of W_hh^T resident
+BB_MAX_HIDDEN = 256
+
+
+def _bb_library():
+    lib = load("lstm_bb")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bidir_bb_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.lstm_bidir_bb_f32.restype = i
+    lib.lstm_bidir_fused_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_bidir_fused_f32.restype = i
+    lib.lstm_bb_error_string.argtypes = [i]
+    lib.lstm_bb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_bb(name: str, tensors, batch_block: int, H: int):
+    if batch_block < 1:
+        raise ValueError(f"batch_block must be at least 1, got {batch_block}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: take lstm_bidir_tm (LstmBidirTm) where a "
+            "gradient is needed")
+    if tensors[0].device.type == "cpu":
+        return
+    if H % 8 or H > BB_MAX_HIDDEN:
+        raise ValueError(
+            f"{name} takes a hidden size that is a multiple of 8 and at most "
+            f"{BB_MAX_HIDDEN} on a CUDA tensor, got {H}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+
+
+def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32) -> torch.Tensor:
+    """B6: (2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32: the function
+    of ``lstm_bidir_tm``, each block of ``batch_block`` rows an independent
+    recurrence (blocks of more than 32 rows run as several of 32; rows are
+    independent, so the result does not depend on the split: a smaller
+    ``batch_block`` only spreads the rows over more clusters, and no caller in
+    the package sets it). The ragged last block is guarded, not padded.
+
+    Forward-only: raises when a gradient is needed. On a CUDA tensor the
+    kernel, counted in ``lstm_bidir_bb.launches``; on a CPU tensor the plain
+    version."""
+    _check(xw, w_hh_t)
+    _, B, T, h4 = xw.shape
+    H = h4 // 4
+    _check_bb("lstm_bidir_bb", (xw, w_hh_t), batch_block, H)
+    if xw.device.type == "cpu":
+        return lstm_bidir_bb_ref(xw, w_hh_t)
+    hs = torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return hs
+    lib = _bb_library()
+    err = lib.lstm_bidir_bb_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
+                                B, T, H, batch_block, *launch_args(xw))
+    raise_on(err, "lstm_bidir_bb", lib.lstm_bb_error_string, B=B, T=T, H=H,
+             batch_block=batch_block)
+    lstm_bidir_bb.launches += 1
+    return hs
+
+
+def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                     w_hh_t: torch.Tensor, batch_block: int = 32) -> torch.Tensor:
+    """B7: xs (2, B, T, D) direction-stacked inputs (direction 1 already
+    time-flipped), w_ih_t (2, D, 4H), bias (2, 4H) = b_ih + b_hh, w_hh_t
+    (2, H, 4H) -> hs (2, B, T, H), all f32. The input projection happens
+    inside the kernel; no (2, B, T, 4H) tensor is written.
+
+    Forward-only: raises when a gradient is needed. On a CUDA tensor the
+    kernel, counted in ``lstm_bidir_fused.launches``; on a CPU tensor the
+    plain version."""
+    if xs.dim() != 4 or xs.shape[0] != 2:
+        raise ValueError(f"xs must be (2, B, T, D), got {tuple(xs.shape)}")
+    _, B, T, D = xs.shape
+    if w_hh_t.dim() != 3 or w_hh_t.shape[-1] != 4 * w_hh_t.shape[-2]:
+        raise ValueError(f"w_hh_t must be (2, H, 4H), got {tuple(w_hh_t.shape)}")
+    H = w_hh_t.shape[-2]
+    want = {"w_ih_t": (2, D, 4 * H), "bias": (2, 4 * H), "w_hh_t": (2, H, 4 * H)}
+    tensors = (xs, w_ih_t, bias, w_hh_t)
+    for (name, shape), t in zip(want.items(), tensors[1:]):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for xs {tuple(xs.shape)}, "
+                             f"got {tuple(t.shape)}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("lstm_bidir_fused takes f32 tensors, got "
+                         + " / ".join(str(t.dtype) for t in tensors))
+    if any(t.device != xs.device for t in tensors):
+        raise ValueError("lstm_bidir_fused needs all inputs on one device")
+    if xs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_bidir_fused runs on cpu or cuda, not {xs.device}")
+    _check_bb("lstm_bidir_fused", tensors, batch_block, H)
+    if xs.device.type == "cpu":
+        return lstm_bidir_fused_ref(xs, w_ih_t, bias, w_hh_t)
+    hs = torch.empty((2, B, T, H), device=xs.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return hs
+    lib = _bb_library()
+    err = lib.lstm_bidir_fused_f32(*(t.data_ptr() for t in tensors), hs.data_ptr(),
+                                   B, T, H, D, batch_block, *launch_args(xs))
+    raise_on(err, "lstm_bidir_fused", lib.lstm_bb_error_string, B=B, T=T, H=H, D=D,
+             batch_block=batch_block)
+    lstm_bidir_fused.launches += 1
+    return hs
+
+
 # kernel launches since the last reset (chip_smoke.py reads them to show that
 # the main path went through the kernels)
 lstm_bidir_tm.launches = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_bwd.launches = 0
+lstm_bidir_bb.launches = 0
+lstm_bidir_fused.launches = 0

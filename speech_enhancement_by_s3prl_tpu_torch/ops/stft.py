@@ -8,16 +8,23 @@
 - ``istft(power, phase)`` reconstructs with ``power ** (1/2)`` as magnitude,
   trims the centre padding and returns ``(n_frames - 1) * hop`` samples.
 
-The forward transform is frames times the window-folded real-DFT matrix
-(one ``torch.matmul``), the same matrix the JAX package convolves with. A
-matmul keeps it out of cuDNN, whose f32 convolutions default to TF32.
-The fused STFT and decode kernels (ROADMAP B4, B5) are not ported yet.
+Both transforms have two bodies. The kernel branch is the fused STFT
+(``ops/cuda/stft_kernel.stft_fused``, kernel B4) and the fused decode
+(``ops/cuda/decode_kernel.decode_ola``, kernel B5): a CUDA tensor launches
+the kernel, a CPU tensor runs its plain version. The torch-op body is frames
+times the window-folded real-DFT matrix (one ``torch.matmul``, the same
+matrix the JAX package convolves with; a matmul keeps it out of cuDNN, whose
+f32 convolutions default to TF32) and its inverse with a scatter-free
+overlap-add; it is differentiable. ``fused=None`` takes the kernel branch
+whenever no gradient is needed. Both kernels are forward-only, as they are in
+the JAX package.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -101,21 +108,51 @@ class StftParams:
         return 1 + num_samples // self.hop_length
 
 
-def stft(wavs: torch.Tensor, params: StftParams) -> torch.Tensor:
-    """(..., time) f32 -> (..., n_frames, 2 * n_freq) with real parts in
-    [..., :n_freq] and imaginary parts in [..., n_freq:].
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
-    The reflect padding needs ``time > n_fft // 2`` samples."""
-    n_fft, hop = params.n_fft, params.hop_length
+
+@functools.lru_cache(maxsize=16)
+def _dft_tensors(n_fft: int, win_length: int, device: torch.device):
+    """``_dft_kernels`` as f32 tensors on ``device``: (fwd, inv, window).
+    Built outside inference mode, so that autograd may save them later."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in _dft_kernels(n_fft, win_length))
+
+
+def _stft_matmul(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) -> torch.Tensor:
+    """The torch-op STFT: reflect pad, ``unfold`` into frames (a view), one
+    matmul with the window-folded DFT matrix. Differentiable."""
     lead = wavs.shape[:-1]
     time = wavs.shape[-1]
-    n_frames = params.n_frames(time)
     x = wavs.reshape(-1, 1, time)
     x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     frames = x.unfold(-1, n_fft, hop)  # (N, n_frames, n_fft), a view
-    fwd, _, _ = _dft_kernels(n_fft, params.win_length)
-    out = torch.matmul(frames, torch.from_numpy(fwd).to(wavs.device))
-    return out.reshape(lead + (n_frames, 2 * params.n_freq))
+    fwd, _, _ = _dft_tensors(n_fft, win_length, wavs.device)
+    out = torch.matmul(frames, fwd)
+    return out.reshape(lead + (1 + time // hop, fwd.shape[1]))
+
+
+def stft(wavs: torch.Tensor, params: StftParams, fused: Optional[bool] = None) -> torch.Tensor:
+    """(..., time) f32 -> (..., n_frames, 2 * n_freq) with real parts in
+    [..., :n_freq] and imaginary parts in [..., n_freq:].
+
+    ``fused=True`` is kernel B4 (``stft_fused``: on a CUDA tensor the
+    kernel, on a CPU tensor its plain version), ``fused=False`` the
+    differentiable torch-op body. ``None`` takes the kernel whenever no
+    gradient is needed (grad mode off, or ``wavs`` does not require one).
+    The kernel is forward-only: ``fused=True`` raises where a gradient is
+    needed.
+
+    The reflect padding needs ``time > n_fft // 2`` samples."""
+    if fused is None:
+        fused = not _needs_grad(wavs)
+    if fused:
+        from .cuda.stft_kernel import stft_fused
+
+        return stft_fused(wavs, params.n_fft, params.win_length, params.hop_length)
+    return _stft_matmul(wavs, params.n_fft, params.win_length, params.hop_length)
 
 
 def magphase(complx: torch.Tensor, n_freq: int, power: float = 2.0):
@@ -131,11 +168,45 @@ def magphase(complx: torch.Tensor, n_freq: int, power: float = 2.0):
     return mag, torch.atan2(im, re)
 
 
+def _rescale_carrier(mag: torch.Tensor, packed: torch.Tensor, n_freq: int):
+    """(re, im) of the packed [re | im] carrier rescaled to magnitude ``mag``;
+    at |z| = 0 the carrier is the unit vector (1, 0), as arctan2 gives phase
+    0 there."""
+    zre, zim = packed[..., :n_freq], packed[..., n_freq:]
+    zmag = torch.sqrt(zre * zre + zim * zim)
+    nonzero = zmag > 0.0
+    inv_z = 1.0 / torch.where(nonzero, zmag, torch.ones_like(zmag))
+    re = mag * torch.where(nonzero, zre * inv_z, torch.ones_like(zre))
+    im = mag * torch.where(nonzero, zim * inv_z, torch.zeros_like(zim))
+    return re, im
+
+
+def _synthesize_ola(re: torch.Tensor, im: torch.Tensor, n_fft: int, win_length: int,
+                    hop: int) -> torch.Tensor:
+    """(B, T', F) real and imaginary parts -> the raw overlap-add (B,
+    (T' + K - 1) * hop): inverse DFT, synthesis window, ``_overlap_add``.
+    Untrimmed and not divided by the window envelope."""
+    packed = torch.cat([re, im], dim=-1)
+    _, inv, window = _dft_tensors(n_fft, win_length, re.device)
+    frames = torch.matmul(packed, inv) * window  # (B, T', n_fft)
+    return _overlap_add(frames, hop)
+
+
+def _decode_matmul(pred, uph, n_fft: int, win_length: int, hop: int,
+                   linear_power: float = 2.0) -> torch.Tensor:
+    """The torch-op decode of a packed carrier: pred (B, T', F), uph (B, T',
+    2F) -> raw overlap-add (B, (T' + K - 1) * hop). Differentiable."""
+    mag = pred ** (1.0 / linear_power) if linear_power != 1.0 else pred
+    re, im = _rescale_carrier(mag, uph, pred.shape[-1])
+    return _synthesize_ola(re, im, n_fft, win_length, hop)
+
+
 def istft(
     linear: torch.Tensor,
     phase: torch.Tensor,
     params: StftParams,
     linear_power: float = 2.0,
+    fused: Optional[bool] = None,
 ) -> torch.Tensor:
     """Inverse STFT from (power-)magnitude + phase, torch.istft semantics.
 
@@ -144,31 +215,37 @@ def istft(
     2 * n_freq), which is rescaled to the target magnitude; at |z| = 0 the
     carrier is the unit vector (1, 0), as arctan2 gives phase 0 there.
 
+    With a packed carrier, ``fused=True`` is kernel B5 (``decode_ola``: on a
+    CUDA tensor the kernel, on a CPU tensor its plain version) and
+    ``fused=False`` the differentiable torch-op body; ``None`` takes the
+    kernel whenever no gradient is needed (grad mode off, or neither input
+    requires one). B5 has no backward kernel, in the JAX package neither: a
+    decode that sits in a gradient keeps the torch-op body, and ``fused=True``
+    raises there. The radian form never takes the kernel. Trimming the centre
+    padding and dividing by the window-square envelope happen here on either
+    route.
+
     Returns (..., (n_frames - 1) * hop)."""
     n_fft, hop, n_freq = params.n_fft, params.hop_length, params.n_freq
     lead = linear.shape[:-2]
     n_frames = linear.shape[-2]
 
-    mag = linear ** (1.0 / linear_power) if linear_power != 1.0 else linear
     if phase.shape[-1] == 2 * n_freq:
-        zre, zim = phase[..., :n_freq], phase[..., n_freq:]
-        zmag = torch.sqrt(zre * zre + zim * zim)
-        nonzero = zmag > 0.0
-        inv_z = 1.0 / torch.where(nonzero, zmag, torch.ones_like(zmag))
-        re = mag * torch.where(nonzero, zre * inv_z, torch.ones_like(zre))
-        im = mag * torch.where(nonzero, zim * inv_z, torch.zeros_like(zim))
+        if fused is None:
+            fused = not _needs_grad(linear, phase)
+        pred = linear.reshape(-1, n_frames, n_freq)
+        uph = phase.reshape(-1, n_frames, 2 * n_freq)
+        if fused:
+            from .cuda.decode_kernel import decode_ola
+
+            wav = decode_ola(pred, uph, n_fft, params.win_length, hop, linear_power)
+        else:
+            wav = _decode_matmul(pred, uph, n_fft, params.win_length, hop, linear_power)
     else:
-        re = mag * torch.cos(phase)
-        im = mag * torch.sin(phase)
-    packed = torch.cat([re, im], dim=-1).reshape(-1, n_frames, 2 * n_freq)
-
-    _, inv, window = _dft_kernels(n_fft, params.win_length)
-    dev = linear.device
-    frames = torch.matmul(packed, torch.from_numpy(inv).to(dev)) * torch.from_numpy(
-        window
-    ).to(dev)  # (B, n_frames, n_fft)
-
-    wav = _overlap_add(frames, hop)  # (B, n_fft + (n_frames-1)*hop)
+        mag = linear ** (1.0 / linear_power) if linear_power != 1.0 else linear
+        re = (mag * torch.cos(phase)).reshape(-1, n_frames, n_freq)
+        im = (mag * torch.sin(phase)).reshape(-1, n_frames, n_freq)
+        wav = _synthesize_ola(re, im, n_fft, params.win_length, hop)
 
     start = n_fft // 2
     length = (n_frames - 1) * hop
@@ -177,14 +254,16 @@ def istft(
         _ola_envelope_np(n_fft, params.win_length, hop, n_frames)[
             start : start + length
         ]
-    ).to(dev)
+    ).to(linear.device)
     wav = wav / torch.where(env > 1e-11, env, torch.ones_like(env))
     return wav.reshape(lead + (length,))
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add as K = ceil(n_fft/hop) shifted dense adds: slot j of
-    frame t lands exactly at hop-slot (t + j) of the output."""
+    frame t lands exactly at hop-slot (t + j) of the output. Returns all
+    (n_frames + K - 1) hop-slots, (B, (n_frames + K - 1) * hop); samples
+    from ``n_fft + (n_frames - 1) * hop`` on are zero."""
     b, n_frames, n_fft = frames.shape
     k = -(-n_fft // hop)
     pad = k * hop - n_fft
@@ -196,7 +275,7 @@ def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     wav = frames.new_zeros((b, out_slots, hop))
     for j in range(k):
         wav[:, j : j + n_frames] += slots[:, :, j]
-    return wav.reshape(b, out_slots * hop)[:, : n_fft + (n_frames - 1) * hop]
+    return wav.reshape(b, out_slots * hop)
 
 
 @functools.lru_cache(maxsize=32)

@@ -10,9 +10,12 @@ mode, whose frozen upstream is rebuilt from the recorded S3PRL checkpoint
 (``--ckpt``, relocated by ``upstream_ckpt``); an upstream-mode checkpoint
 that records none is refused, as the JAX package refuses it.
 ``MicroBatcher`` coalesces concurrent requests of one bucket into one device
-batch. The HTTP front end, mesh serving, export artifacts and the crossfaded
-streaming of requests longer than the largest bucket are not ported yet
-(ROADMAP A10, A12).
+batch. A request longer than the largest bucket runs through
+``ops/streaming.enhance_streaming``: windows of the largest bucket with one
+second of cosine crossfade. ``recurrence`` ("tm", "blocked", "fused") names
+the kernel the BLSTM layers run (``models/lstm.LSTMStack``); one checkpoint
+serves under all three. The HTTP front end, the stateful streamer, mesh
+serving and export artifacts are not ported yet (ROADMAP A10, A12).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .models.convert import flax_to_state_dict
 from .models.heads import build_head
 from .models.upstream import build_upstream
 from .ops.features import OnlinePreprocessor, get_feat_config
+from .ops.streaming import enhance_streaming
 from .run_downstream import PRETRAIN_ONLINE
 from .runner.checkpoint import load_checkpoint, load_settings
 from .runner.trainer import decode_wav
@@ -103,10 +107,12 @@ class MicroBatcher:
 
 def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
                        device, max_bucket_ms: int = 60000,
-                       upstream_ckpt: str = "", dckpt: str = ""):
+                       upstream_ckpt: str = "", dckpt: str = "",
+                       recurrence: str = "tm"):
     """Checkpoint -> (model, enhance_raw(wavs (B, T), lengths (B,)),
     buckets), with the model on ``device``. ``upstream_ckpt`` / ``dckpt``
-    relocate the pretraining checkpoints recorded in the settings."""
+    relocate the pretraining checkpoints recorded in the settings;
+    ``recurrence`` names the kernel of the head's BLSTM layers."""
     payload = load_checkpoint(ckpt)
     paras = dict(payload["Settings"]["Paras"])
     config = payload["Settings"]["Config"]
@@ -185,7 +191,7 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
     else:
         in_size = dims[0] if mode == "waveform" else dims[1]
     model = build_head(downstream, input_size=in_size, output_size=dims[2],
-                       **{**paras, **model_cfg})
+                       **{**paras, **model_cfg, "recurrence": recurrence})
     model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
     model.eval().to(device)
     buckets = default_buckets(sample_rate, max_bucket_ms)
@@ -222,11 +228,23 @@ def _pad_group(wavs, buckets, round_pow2: bool = True):
     return batch, lens
 
 
-def _finish_enhancer(run_batch, buckets):
-    """Wrap a padded-group runner into the serving interface."""
+def _finish_enhancer(run_batch, buckets, sample_rate: int):
+    """Wrap a padded-group runner into the serving interface: the
+    single-utterance entry, with crossfaded streaming for a request longer
+    than the largest bucket."""
+
+    def _single(wav: np.ndarray) -> np.ndarray:
+        return run_batch([wav])[0]
 
     def enhance(wav: np.ndarray) -> np.ndarray:
-        return run_batch([wav])[0]
+        if len(wav) <= buckets[-1]:
+            return _single(wav)
+        # fixed windows and a cosine crossfade: one device shape and
+        # constant memory however long the request is
+        return enhance_streaming(
+            _single, wav, sample_rate=sample_rate,
+            window_sec=buckets[-1] / sample_rate, overlap_sec=1.0,
+        )
 
     enhance.run_batch = run_batch
     enhance.max_len = buckets[-1]
@@ -236,25 +254,30 @@ def _finish_enhancer(run_batch, buckets):
 
 def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -25.0,
                    *, device, max_bucket_ms: int = 60000, round_pow2: bool = True,
-                   upstream_ckpt: str = "", dckpt: str = ""):
+                   upstream_ckpt: str = "", dckpt: str = "", recurrence: str = "tm"):
     """``enhance(wav)`` on ``device``. ``device="cuda"`` with no card raises;
-    nothing falls back to the CPU."""
+    nothing falls back to the CPU. ``enhance`` takes a request of any length
+    (longer than the largest bucket: crossfaded windows); ``enhance.run_batch``
+    serves groups that fit one bucket. ``recurrence`` other than the default
+    ``"tm"`` is an ablation: ``"blocked"`` (kernel B6) and ``"fused"`` (kernel
+    B7, slower than the default at every measured shape) serve the same
+    checkpoint to the same waveform within f32 rounding."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_enhancer(device='cuda'): no CUDA device here")
     use_full_fp32()
     _, enhance_raw, buckets = build_raw_enhancer(
         ckpt, sample_rate, target_level, device, max_bucket_ms,
-        upstream_ckpt=upstream_ckpt, dckpt=dckpt,
+        upstream_ckpt=upstream_ckpt, dckpt=dckpt, recurrence=recurrence,
     )
 
     def run_batch(wavs) -> list:
         for w in wavs:
             if len(w) > buckets[-1]:
-                raise NotImplementedError(
-                    f"a request of {len(w)} samples is longer than the "
-                    f"largest bucket ({buckets[-1]}); crossfaded streaming "
-                    "is not ported yet (ROADMAP A10)"
+                raise ValueError(
+                    f"a row of {len(w)} samples is longer than the largest "
+                    f"bucket ({buckets[-1]}): run_batch serves bucket-sized "
+                    "groups; enhance(wav) streams a longer request"
                 )
         batch, lens = _pad_group(wavs, buckets, round_pow2)
         out = enhance_raw(
@@ -262,4 +285,4 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
         ).cpu().numpy()
         return [out[k, : len(w)] for k, w in enumerate(wavs)]
 
-    return _finish_enhancer(run_batch, buckets)
+    return _finish_enhancer(run_batch, buckets, sample_rate)

@@ -246,8 +246,12 @@ def test_enhance_cli_writes_enhanced_wavs(ckpts, tmp_path):
 
 def test_serving_refuses_what_is_not_ported(ckpts, tmp_path, monkeypatch):
     enhancer = serve.build_enhancer(ckpts["port"], device="cpu", max_bucket_ms=2000)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        enhancer(np.zeros(40000, np.float32))
+    # a request longer than the largest bucket streams through enhance();
+    # run_batch serves bucket-sized groups only
+    with pytest.raises(ValueError, match="longer than the largest bucket"):
+        enhancer.run_batch([np.zeros(40000, np.float32)])
+    with pytest.raises(ValueError, match="recurrence"):
+        serve.build_enhancer(ckpts["port"], device="cpu", recurrence="scan")
     payload = load_checkpoint(ckpts["port"])
     payload["Settings"]["Paras"]["compute_dtype"] = "bf16"
     _, model = entry.build(device="cpu", **SMALL)
@@ -302,6 +306,13 @@ import numpy as np
 enhance = build_enhancer(sys.argv[1], device="cpu")
 out = enhance(np.zeros(3000, np.float32) + 0.01)
 assert out.shape == (3000,) and np.isfinite(out).all()
+# the kernel modules' plain versions, the recurrence routes and the long-form entry
+for name in ("ops.cuda.stft_kernel", "ops.cuda.decode_kernel", "ops.streaming"):
+    assert pkg.__name__ + "." + name in mods, name
+for route in ("blocked", "fused"):
+    streamed = build_enhancer(sys.argv[1], device="cpu", max_bucket_ms=2000,
+                              recurrence=route)(np.zeros(40000, np.float32) + 0.01)
+    assert streamed.shape == (40000,) and np.isfinite(streamed).all()
 print(len(mods), "modules", sorted(load_checkpoint(sys.argv[1])["Downstream"]["params"]))
 """
 
