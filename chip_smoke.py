@@ -14,9 +14,13 @@ Phases, one line each:
      plain recurrence; B3 fwd (flash attention with hash dropout: out, lse)
      and B3 bwd (dq, dk, dv) at the Mockingjay shape (B=6, T=1001, 12 heads
      of 64) with dropout 0.1 and 0, at ragged T with a key bias, and
-     ``FlashAttention`` against autograd through the plain version; B4
-     (fused STFT) at one and twelve rows of 10 s, ragged lengths, lead axes
-     and a second geometry, and B5 (fused decode) at T' = 1001, 78 and 251
+     ``FlashAttention`` against autograd through the plain version, B3 bwd
+     twice on the same inputs for identical bits and once on views whose rows
+     start off a 16-byte boundary; B4 (fused STFT) at one
+     and twelve rows of 10 s, ragged lengths, lead axes and other geometries,
+     each on the route its n_fft names (the FFT kernel, or the matrix-product
+     kernel for an n_fft such as 254 = 2 * 127), the product kernel also at
+     the flagship geometry, and B5 (fused decode) at T' = 1001, 78 and 251
      with a carrier from an STFT, an all-zero carrier and powers 1, 2, 3; B6
      (batch-blocked recurrence) and B7 (recurrence with the projection
      inside) at B = 1, 6 and 70, D = 120 and 512, a narrow layer and small
@@ -47,7 +51,8 @@ Phases, one line each:
      upstream), its checkpoint then served on the card and on the CPU;
   7. times of each kernel and its plain version, the B=1 10 s enhance
      latency under each recurrence route with its profiler breakdown, B4
-     and B5 beside the torch-op routes they replace and ``torch.stft``, B6
+     (both kernels) and B5 beside the torch-op routes they replace and
+     ``torch.stft``, B6
      and B7 beside B1, one cuDNN ``nn.LSTM`` layer as the library yardstick
      of the recurrences, the B=6 train step and eval batch, and a profiler
      breakdown of the train step, each beside the card's name and power
@@ -113,8 +118,12 @@ TRAIN_STEPS, RESUME_STEPS = 8, 2
 # its largest value, so a wrong hash fails.
 B3_TOL = 1e-4
 # B4 and B5 vs their plain versions, relative to the plain version's largest
-# |value|: both sides sum the same 400 (B4) or up to 1206 (B5) f32 products a
-# value, the kernel with FMAs in index order, cuBLAS in its own.
+# |value|, all in f32. The plain versions sum 400 (B4) or up to 1206 (B5)
+# products a value in cuBLAS's order. B5 and B4's product kernel sum the same
+# products with FMAs in index order; B4's FFT kernel reaches a value through
+# four butterfly passes and a split pass on f32 twiddles built in float64
+# (error ~1e-6 of the largest value: a rounding near 1e-7 a pass). A
+# fast-math sine in place of the tables would lose the limit.
 DSP_TOL = 1e-5
 B3_CASES = (  # B, T, N, D, dropout rate, key bias
     (6, 1001, 12, 64, 0.1, False),
@@ -126,8 +135,10 @@ B3_CASES = (  # B, T, N, D, dropout rate, key bias
 )
 MJ_LAYERS = 6
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
-# tensor cores, the only arithmetic the f32 kernels here may use, and HBM3
-PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores, dense TF32 on them, and HBM3. A bound takes the cheapest
+# arithmetic the numerics allow: f32 results to f32 accuracy may come from
+# the tensor cores as three TF32 passes a product (B3 bwd), not from one
+PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
 
 
@@ -320,20 +331,45 @@ def flash_checks(torch, A):
         grads = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
         ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, dout, *args,
                                               n_heads=N)
+        again = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError("flash_attention_bwd gave other bits on the same inputs")
         errs = {"out": rel_err(out, ref_out), "lse": rel_err(lse, ref_lse)}
         errs.update({name: rel_err(a, b)
                      for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)})
         print(f"[kernel] flash_attention B={B} T={T} N={N} D={D} rate={rate} "
               f"kbias={bias}: err / max|value| "
               + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-              + f" (limit {B3_TOL:.0e})", flush=True)
+              + f" (limit {B3_TOL:.0e}); bwd twice: identical bits", flush=True)
         if not all(e <= B3_TOL for e in errs.values()):
             raise AssertionError(f"flash attention disagrees with its plain version: {errs}")
         worst_fwd = max(worst_fwd, float((out - ref_out).abs().max()),
                         float((lse - ref_lse).abs().max()))
         worst_bwd = max([worst_bwd] + [float((a - b).abs().max())
                                        for a, b in zip(grads, ref_grads)])
+
+    # q, k, v as views whose rows start off a 16-byte boundary (a fused
+    # projection one column wider, its first column dropped): B3 bwd then
+    # stages its tiles with scalar loads in place of 16-byte copies
+    B, T, N, D, rate = 2, 70, 4, 32, 0.2
+    g = torch.Generator().manual_seed(SEED + 7)
+    wide = torch.randn(B, T, 3 * N * D + 1, generator=g).cuda()
+    q, k, v = wide[..., 1:].split(N * D, dim=-1)
+    dout = torch.randn(B, T, N * D, generator=g).cuda()
+    args = (D ** -0.5, rate, salt, None, batch0)
+    ref_out, ref_lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+    grads = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
+    ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(grads, ref_grads)]
+    print(f"[kernel] flash_attention_bwd on unaligned q, k, v views B={B} T={T} N={N} D={D}: "
+          f"err / max|value| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (limit "
+          f"{B3_TOL:.0e})", flush=True)
+    if not all(e <= B3_TOL for e in errs):
+        raise AssertionError(f"flash_attention_bwd disagrees on unaligned views: {errs}")
+    worst_bwd = max([worst_bwd] + [float((a - b).abs().max())
+                                   for a, b in zip(grads, ref_grads)])
 
     # FlashAttention (B3 fwd + B3 bwd under autograd) vs autograd through the
     # plain version
@@ -371,27 +407,56 @@ def decode_inputs(torch, S, B, T, seed, zero_carrier=False):
 
 
 def dsp_checks(torch, S, stft_mod, decode_mod):
-    """B4 and B5 against their plain versions on the card. Returns the
-    largest absolute errors (B4, B5)."""
+    """B4 (each case on the route its n_fft names, and the product kernel at
+    the flagship geometry too) and B5 against their plain versions on the
+    card. Returns the largest absolute errors (B4's FFT kernel, B5, B4's
+    product kernel)."""
     geom = (400, 400, 160)
-    worst = [0.0, 0.0]
-    cases = [((1, 160000), geom), ((6, 2, 160000), geom), ((3, 12345), geom),
-             ((5, 33000), geom), ((2, 3, 8000), geom),
-             ((50, 12345), geom),  # 64-frame blocks with a ragged last tile
-             ((3, 5000), (256, 200, 80)),  # another geometry: K = 4, padded window
-             ((2, 4000), (254, 150, 75))]  # hop and n_fft no multiples of 4
-    for shape, (n_fft, win, hop) in cases:
+    worst = [0.0, 0.0, 0.0]
+    cases = [((1, 160000), geom, "fft"), ((6, 2, 160000), geom, "fft"),
+             ((3, 12345), geom, "fft"), ((5, 33000), geom, "fft"),
+             ((2, 3, 8000), geom, "fft"),  # rows shorter than one block's span
+             ((50, 12345), geom, "fft"),  # 32-frame blocks with a ragged last tile
+             ((3, 5000), (256, 200, 80), "fft"),  # radices 4 4 4 2, padded window
+             ((2, 9000), (512, 400, 160), "fft"),  # a power of two, padded window
+             ((2, 7000), (480, 480, 160), "fft"),  # a factor 3: radices 5 3 4 4
+             ((2, 3000), (240, 200, 75), "fft"),  # an odd hop
+             ((2, 4000), (254, 150, 75), "product"),  # 254 = 2 * 127: no FFT plan
+             ((50, 12345), (254, 150, 75), "product")]  # 64-frame blocks, ragged last tile
+    for shape, (n_fft, win, hop), route in cases:
         wav = stft_inputs(torch, shape, SEED + shape[-1])
+        before = dict(stft_mod.stft_fused.by_route)
         out = stft_mod.stft_fused(wav, n_fft, win, hop)
+        took = [r for r, n in stft_mod.stft_fused.by_route.items() if n != before[r]]
+        again = stft_mod.stft_fused(wav, n_fft, win, hop)
         ref = stft_mod.stft_fused_ref(wav, n_fft, win, hop)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
         print(f"[kernel] stft_fused {shape} n_fft={n_fft} win={win} hop={hop} -> "
-              f"{tuple(out.shape)}: err / max|value| {err:.3e} (limit {DSP_TOL:.0e})",
-              flush=True)
-        if out.shape != ref.shape or not err <= DSP_TOL:
+              f"{tuple(out.shape)}, route {took}: err / max|value| {err:.3e} (limit "
+              f"{DSP_TOL:.0e}); twice: identical bits", flush=True)
+        if took != [route] or stft_mod.stft_route(n_fft) != route:
+            raise AssertionError(f"stft_fused took route {took} at n_fft={n_fft}, "
+                                 f"want {route!r}")
+        if out.shape != ref.shape or not err <= DSP_TOL or not torch.equal(out, again):
             raise AssertionError(f"stft_fused disagrees with its plain version: {err}")
-        worst[0] = max(worst[0], float((out - ref).abs().max()))
+        slot = 0 if route == "fft" else 2
+        worst[slot] = max(worst[slot], float((out - ref).abs().max()))
+    # the product kernel at the flagship geometry, where the wrapper routes to
+    # the FFT kernel: launched directly, for the comparison of the two designs
+    for rows in (1, 12):
+        wav = stft_inputs(torch, (rows, 10 * SR), SEED + rows)
+        out = torch.empty(rows, 1001, 402, device="cuda")
+        stft_mod._launch("product", wav, out, *geom)
+        ref = stft_mod.stft_fused_ref(wav, *geom)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        print(f"[kernel] stft_fused's product kernel {(rows, 10 * SR)} at the flagship "
+              f"geometry (not its route there): err / max|value| {err:.3e} (limit "
+              f"{DSP_TOL:.0e})", flush=True)
+        if not err <= DSP_TOL:
+            raise AssertionError(f"the product STFT kernel disagrees: {err}")
+        worst[2] = max(worst[2], float((out - ref).abs().max()))
     for B, T, zero, power in ((1, 1001, False, 2.0), (6, 1001, False, 2.0),
                               (3, 78, False, 2.0), (2, 251, False, 2.0),
                               (2, 251, True, 2.0), (2, 78, False, 1.0),
@@ -473,11 +538,12 @@ def print_build_report(libs, build_s):
               flush=True)
 
 
-def bound(flops, nbytes):
-    """The least time the card could take, in ms: operations over the f32
-    rate outside the tensor cores against bytes over the memory rate (each
-    input read once, each output written once); and which of the two binds."""
-    by_ops, by_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak=PEAK_F32):
+    """The least time the card could take, in ms: operations over their peak
+    rate (f32 outside the tensor cores unless ``peak`` says otherwise) against
+    bytes over the memory rate (each input read once, each output written
+    once); and which of the two binds."""
+    by_ops, by_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -498,9 +564,25 @@ def lstm_bound(B, T, H, products=1, extra_streams=0, D=0):
 
 def attention_bound(B, T, N, D, products):
     """B3: ``products`` tile products of 2 * T * T * D operations a head (2
-    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once."""
-    tensors = 4 if products == 2 else 9
-    return bound(products * 2 * B * N * T * T * D, 4 * (tensors * B * T * N * D + B * N * T))
+    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once. The
+    forward's products are f32 FMAs; the backward's are three TF32 passes
+    each on the tensor cores, the cheapest arithmetic that keeps f32
+    accuracy: 5 * 3 * 2 * B * N * T * T * D over the TF32 peak."""
+    flops = products * 2 * B * N * T * T * D
+    if products == 2:
+        return bound(flops, 4 * (4 * B * T * N * D + B * N * T))
+    return bound(3 * flops, 4 * (9 * B * T * N * D + B * N * T), PEAK_TF32)
+
+
+def stft_bound(rows, n_frames, n_fft, hop):
+    """B4 by its cheapest algorithm, an FFT of each frame: window (n_fft),
+    the n_fft / 2-point complex transform (5 M log2 M) and the split pass
+    (~6 n_fft) a frame on the CUDA cores, against the samples and the tables
+    in and n_fft + 2 values a frame out. Bytes bind."""
+    m = n_fft // 2
+    flops = rows * n_frames * (n_fft + 5 * m * math.log2(m) + 6 * n_fft)
+    nbytes = 4 * (rows * ((n_frames - 1) * hop + n_frames * (n_fft + 2)) + 3 * n_fft + 2)
+    return bound(flops, nbytes)
 
 
 def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
@@ -534,6 +616,19 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
         times[("torch_stft", rows)] = fft
         print(f"[time] torch.stft (cuFFT; a yardstick, not a route) {rows} rows of 10 s: "
               f"{fft:.4f} ms | {card}", flush=True)
+        # both of B4's kernels at this geometry, launched directly into one
+        # output (no wrapper: at few rows its host work is what 20 back-to-back
+        # calls measure). The product kernel's own route is an n_fft with no
+        # FFT plan: here it is the design the FFT kernel replaced
+        spec = torch.empty(rows, 1001, 402, device="cuda")
+        direct = {route: min(cuda_ms(torch, lambda: stft_kernel._launch(route, wav, spec, *geom),
+                                     iters=20, warmup=2) for _ in range(2))
+                  for route in ("fft", "product")}
+        times[("stft_fft_direct", rows)] = direct["fft"]
+        times[("stft_product", rows)] = direct["product"]
+        print(f"[time] stft_fused's kernels launched without the wrapper, {rows} rows of "
+              f"10 s: the FFT kernel {direct['fft']:.4f} ms, the product kernel (not its "
+              f"route at n_fft 400) {direct['product']:.4f} ms | {card}", flush=True)
 
     T, H = 1001, 256
     for B in (1, 6, 64):
@@ -640,7 +735,7 @@ def enhance_times(torch, build, make_enhance, card):
             name = evt.name
             if "lstm_bidir_tm_kernel" in name:
                 key = "B1"
-            elif "stft_fused_kernel" in name:
+            elif "stft_fft_kernel" in name or "stft_fused_kernel" in name:
                 key = "B4"
             elif "decode_ola_kernel" in name:
                 key = "B5"
@@ -1261,11 +1356,20 @@ def main():
         long_s = time.perf_counter() - t0
         long_counts = [k.launches for k in serve_kernels]
         # -----------------------------------------------------------------
+        # two more calls, timed only: one call on the host's clock can be an outlier
+        long_all = [long_s]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            long_gpu(long_wav)
+            long_all.append(time.perf_counter() - t0)
+        long_s = sorted(long_all)[1]
         long_ref = long_cpu(long_wav)
         long_rel = float(np.abs(long_out - long_ref).max() / np.sqrt(np.mean(long_ref ** 2)))
         print(f"[slice] long-form entry: one {LONG_SECONDS:.0f} s request through "
               f"build_enhancer(max_bucket_ms=10000) in {LONG_WINDOWS} windows of 10 s with "
-              f"1 s of crossfade: {long_s * 1e3:.1f} ms on {card}; launches (B4, B1, B6, "
+              f"1 s of crossfade: median {long_s * 1e3:.1f} ms of 3 calls (first "
+              f"{long_all[0] * 1e3:.1f}, min {min(long_all) * 1e3:.1f}, max "
+              f"{max(long_all) * 1e3:.1f}) on {card}; launches (B4, B1, B6, "
               f"B7, B5) {long_counts}; GPU vs CPU max |diff| / output RMS {long_rel:.3e} "
               f"(limit {SLICE_TOL:.0e})", flush=True)
         if (long_out.shape != long_wav.shape or not np.isfinite(long_out).all()
@@ -1570,7 +1674,9 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
                 "library_ms": library_ms, "shape": shape, **more}
 
-    # every bound is worked out from the shape named beside it; library_ms is
+    # every bound is worked out from the shape named beside it, by the cheapest
+    # arithmetic the numerics allow (f32 FMAs; three TF32 passes a product for
+    # B3 bwd; an FFT for B4, so bytes bind it); library_ms is
     # one bidirectional nn.LSTM layer (cuDNN, projection included) for the
     # recurrences, scaled_dot_product_attention and its backward at rate 0 for
     # B3, torch.stft (cuFFT) for B4, and for B5, whose function no single
@@ -1612,26 +1718,38 @@ def main():
             library_ms_b64=times[("b3sdpa_bwd", 64)][1],
             rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0]),
     ]
-    for name, source, line, n_launches, err, flops_row, bytes_row in (
-            ("stft_fused", "stft_fused.cu", "stft_kernel.py:70", dsp_launches[0], dsp_err[0],
-             2 * 1001 * 400 * 402, 4 * (10 * SR + 1001 * 402)),
-            ("decode_ola", "decode_ola.cu", "decode_kernel.py:120", dsp_launches[1],
-             dsp_err[1], 2 * 1001 * 402 * 400, 4 * (1001 * 201 + 1001 * 402 + 1003 * 160))):
-        matrix = 4 * 400 * 402
-
-        def library(n):
-            return times[("torch_stft", n)] if name == "stft_fused" else times[(name, n)][1]
-
-        rows.append(row(
-            name, source, line, n_launches, err, times[(name, 1)][0], times[(name, 1)][1],
-            "1 row of 10 s (1001 frames), n_fft 400, hop 160",
-            bound(flops_row, bytes_row + matrix), library(1),
-            launches_train_eval=train_dsp[name == "decode_ola"],
-            launches_long_form=long_counts[0 if name == "stft_fused" else 4],
-            **{f"{key}_rows{n}": val for n in (12, 64) for key, val in (
-                ("ms", times[(name, n)][0]), ("plain_ms", times[(name, n)][1]),
-                ("library_ms", library(n)),
-                ("bound_ms", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
+    # B4 at 1 / 12 / 64 rows of 10 s: the FFT kernel (its route at n_fft 400),
+    # with the product kernel's times at the same shapes beside it
+    dsp_shape = "1 row of 10 s (1001 frames), n_fft 400, hop 160"
+    rows.append(row(
+        "stft_fused", "stft_fft.cu", "stft_kernel.py:70", dsp_launches[0], dsp_err[0],
+        times[("stft_fused", 1)][0], times[("stft_fused", 1)][1], dsp_shape,
+        stft_bound(1, 1001, 400, 160), times[("torch_stft", 1)],
+        launches_train_eval=train_dsp[0], launches_long_form=long_counts[0],
+        kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
+        product_source=csrc + "stft_fused.cu", product_max_abs_err=dsp_err[2],
+        product_route="an n_fft with no FFT plan; timed here at n_fft 400",
+        product_ms=times[("stft_product", 1)], direct_ms=times[("stft_fft_direct", 1)],
+        **{f"{key}_rows{n}": val for n in (12, 64) for key, val in (
+            ("ms", times[("stft_fused", n)][0]), ("plain_ms", times[("stft_fused", n)][1]),
+            ("library_ms", times[("torch_stft", n)]),
+            ("product_ms", times[("stft_product", n)]),
+            ("direct_ms", times[("stft_fft_direct", n)]),
+            ("bound_ms", stft_bound(n, 1001, 400, 160)[0]))}))
+    # B5: the product over the K * 2F rescaled spectra of an output hop-row;
+    # no single call computes it, so its library time is the torch-op route
+    # that is also its plain version
+    flops_row, bytes_row = 2 * 1001 * 402 * 400, 4 * (1001 * 201 + 1001 * 402 + 1003 * 160)
+    matrix = 4 * 400 * 402
+    rows.append(row(
+        "decode_ola", "decode_ola.cu", "decode_kernel.py:120", dsp_launches[1], dsp_err[1],
+        times[("decode_ola", 1)][0], times[("decode_ola", 1)][1], dsp_shape,
+        bound(flops_row, bytes_row + matrix), times[("decode_ola", 1)][1],
+        launches_train_eval=train_dsp[1], launches_long_form=long_counts[4],
+        **{f"{key}_rows{n}": val for n in (12, 64) for key, val in (
+            ("ms", times[("decode_ola", n)][0]), ("plain_ms", times[("decode_ola", n)][1]),
+            ("library_ms", times[("decode_ola", n)][1]),
+            ("bound_ms", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
     rows.append(row(
         "lstm_bidir_bb", "lstm_bb.cu", "lstm_kernel.py:629", route_launches["blocked"],
         bb_err[0], times[("bb", 1)][0], times[("bb", 1)][1],

@@ -1,5 +1,5 @@
 // Flash attention backward with the same in-kernel hash dropout (kernel B3
-// bwd), f32, for Hopper.
+// bwd), f32 in and out, on Hopper's tensor cores.
 //
 // Replaces, in speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py,
 // _bwd_impl / _bwd_kernel (the pallas_call at :314): the gradient of every
@@ -14,19 +14,48 @@
 // as the JAX kernel computes them (:220-245; its keep * rowsum(do' * out) is
 // rowsum(do * out)).
 //
-// What bounds it on this card: as in the forward, K, V and the (T, T)
-// intermediates of a head do not fit one SM, and blocks cannot carry sums
-// from one to the next as the TPU grid does. The JAX kernel sums dk and dv in
-// VMEM scratch over its sequential query blocks; here that sum is a loop
-// inside the block. Three launches, deterministic, without atomics:
+// What bounds it on this card: operations. The five 64 x 64 x D tile products
+// a tile pair needs are 46 GFLOP at B=6, T=1001, 12 x 64 against 0.2 GB
+// moved. As f32 FMAs on the CUDA cores (this kernel's first design, ~20
+// TFLOP/s reached of 67) that is the whole time; the tensor cores do the same
+// products to f32 accuracy in three TF32 passes (mma_tf32x3.cuh) at a third
+// of 495 TFLOP/s. Single-pass TF32 (~1e-3) would fail the kernel's 1e-4
+// limit and the train step's gradient check, so it is not used.
+//
+// Design. K, V and the (T, T) intermediates of a head do not fit one SM, and
+// blocks cannot carry sums from one to the next as the TPU grid does: the sum
+// over tiles is a loop inside the block. Three launches, deterministic,
+// without atomics:
 //   1. flash_bwd_dot_kernel: Di (B, N, T) = rowsum(do * out), one warp a row;
 //   2. flash_bwd_dkdv_kernel: one block per (64-key tile, head, batch) walks
-//      every query tile and sums dk and dv for its keys in registers;
+//      the queries and sums dk and dv for its keys in registers;
 //   3. flash_bwd_dq_kernel: one block per (64-query tile, head, batch) walks
-//      every key tile and sums dq for its queries in registers.
-// Both tile kernels recompute p, the keep bits and dp, which costs two more
-// 64 x 64 x D products a tile pair than one kernel with atomic dq would; the
-// products are f32 FMAs on the CUDA cores, as in the forward.
+//      the keys and sums dq for its queries in registers.
+// Both tile kernels recompute s, dp, p and the keep bits: 7 tile products a
+// tile pair where 5 define the backward. Dropping the two would need either
+// float atomics on dq (not repeatable) or per-key-tile dq partials in device
+// memory (B * N * T * T / 64 * D floats: 0.3 GB at B=6, 3 GB at B=64).
+//
+// A block is 4 warps; a warp owns 16 rows of the block's resident 64-row tile
+// (keys in the dk/dv kernel, queries in the dq kernel). The other operand is
+// walked 32 rows at a time through two stages of shared memory: cp.async
+// copies tile i + 1 while tile i is worked on, one barrier a tile. The dk/dv
+// kernel computes the *transposed* tiles s^T = k q^T and dp^T = v do^T, so
+// that its keys are the accumulator rows: the dropped p^T and ds^T are then
+// the A operands of dv += p^T do and dk += ds^T q as they sit in registers
+// (frag_a_from_acc), with no trip through shared memory; the dq kernel does
+// the same with ds for dq += ds k. Since cp.async copies the walked q and do
+// as they are, the softmax scale and 1 / keep ride on the dk/dv kernel's
+// resident k and v and on its p and ds. Tiles are row-major with a pad of 4
+// floats a row, which makes every fragment load conflict-free ([n][k]
+// operands by ldmatrix, [k][n] operands by scalar loads); each walked tile is
+// read both ways. The softmax recompute, the hash (absolute head, query and
+// key indices) and ds stay f32 on the CUDA cores, on the accumulator
+// fragments. Sums over the walk (dk, dv, dq) go through a fresh accumulator a
+// tile (12 chained passes on the tensor core) and one f32 addition, because
+// the tensor core's accumulator truncates: chained through all 32 tiles the
+// result was 1.3e-5 of its largest value off at T=1001 (on an H100) and
+// growing with T, this way ~4e-6 at any T.
 //
 // q, k and v share the batch stride sb and time stride st (unit stride in a
 // row); out, do, dq, dk and dv are contiguous (B, T, N * D) f32; lse and Di
@@ -35,10 +64,15 @@
 #include <math.h>
 
 #include "flash_attn_common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace tf32x3;
+
+constexpr int kTileThreads = 128;  // 4 warps of 16 resident rows each
+constexpr int kWalk = 32;          // rows of a walked (streamed) tile
 
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ out,
@@ -59,134 +93,133 @@ flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ o
   }
 }
 
-// Loads of a 64-row tile of an (B, T, .) operand at time rows t0 .. t0 + 63,
-// rows >= T as zeros. Row-major into dst[64][ld] (times mul), or transposed
-// into dst[D][ld].
+// The block's resident 64-row tile of a (., T, .) operand at time rows t0 ..
+// t0 + 63 into dst[64][D + 4], times mul, rows >= T as zeros. 16 bytes a load
+// where the pointers and strides allow it (vec).
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long st,
-                                          int t0, int T, float mul) {
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = t0 + r;
-    dst[r * ld + d] = t < T ? src[(long long)t * st + d] * mul : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_rows_t(float* dst, const float* src, long long st,
-                                            int t0, int T) {
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = t0 + r;
-    dst[d * kPad + r] = t < T ? src[(long long)t * st + d] : 0.f;
-  }
-}
-
-// The shared work of both tile kernels for one (query tile q0, key tile k0)
-// pair: s = q_s . kt_s and dp = do_s . vt_s for this thread's 4 x 4 entries
-// (query rows ty + 16 i, keys tx + 16 j), then p, the keep bits and ds.
-// pd (the dropped p) and ds are left in the caller's arrays.
-template <int D>
-__device__ __forceinline__ void tile_p_ds(const float* q_s, const float* do_s,
-                                          const float* kt_s, const float* vt_s,
-                                          const float* kb_s, const float* lse_s,
-                                          const float* di_s, int q0, int k0, int T,
-                                          uint32_t bn, uint32_t s0, uint32_t s1,
-                                          uint32_t thresh, int dropout, float pd[4][4],
-                                          float ds[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], g[4], kk[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = q_s[(ty + 16 * i) * (D + 1) + d];
-      g[i] = do_s[(ty + 16 * i) * (D + 1) + d];
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
+                                          int t0, int T, float mul, int vec) {
+  constexpr int LD = D + 4;
+  if (vec) {
+    constexpr int C4 = D / 4;
+    for (int i = threadIdx.x; i < 64 * C4; i += kTileThreads) {
+      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) x = *reinterpret_cast<const float4*>(src + (long long)t * row_stride + c);
+      x.x *= mul, x.y *= mul, x.z *= mul, x.w *= mul;
+      *reinterpret_cast<float4*>(dst + r * LD + c) = x;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kk[j] = kt_s[d * kPad + tx + 16 * j];
-      vv[j] = vt_s[d * kPad + tx + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-        dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const bool q_ok = q0 + row < T;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      // keys >= T have kb_s = -inf, so p = 0 there
-      const float p = q_ok ? expf(s[i][j] + kb_s[col] - lse_s[row]) : 0.f;
-      const bool kept = !dropout || keep_bit(bn, (uint32_t)(q0 + row), (uint32_t)(k0 + col),
-                                             s0, s1, thresh);
-      pd[i][j] = kept ? p : 0.f;
-      ds[i][j] = p * ((kept ? dp[i][j] : 0.f) - di_s[row]);
+  } else {
+    for (int i = threadIdx.x; i < 64 * D; i += kTileThreads) {
+      const int r = i / D, c = i % D, t = t0 + r;
+      dst[r * LD + c] = t < T ? src[(long long)t * row_stride + c] * mul : 0.f;
     }
   }
 }
 
-// Per-row operands of a query tile: lse and Di (0 past T), into shared memory.
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* di_s, const float* lse,
-                                               const float* di, long long bn_row, int q0,
-                                               int T) {
-  if (threadIdx.x < kBQ) {
-    const int t = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = t < T ? lse[bn_row + t] : 0.f;
-    di_s[threadIdx.x] = t < T ? di[bn_row + t] : 0.f;
-  }
+// Asynchronous copies global -> shared: `bytes` of the 16 (or 4) are read,
+// the rest of the destination is zero-filled (bytes = 0: all zeros).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ void load_key_bias(float* kb_s, const float* kbias, int b, int k0,
-                                              int T) {
-  if (threadIdx.x < kBK) {
-    const int t = k0 + threadIdx.x;
-    kb_s[threadIdx.x] = t < T ? kbias[(long long)b * T + t] : -INFINITY;
-  }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// Dynamic shared memory of the dk/dv kernel, in floats:
-//   kt_s, vt_s [D][kPad]        this block's keys and values, transposed
-//   q_s, do_s  [kBQ][D + 1]     a query tile: scale q and do / keep
-//   p_s, ds_s  [kBQ][kPad]      that tile's dropped p and ds
-//   kb_s, lse_s, di_s [64]
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start the copy of a walked tile: time rows t0 .. t0 + 31 of two (., T, .)
+// operands into a[32][D + 4] and b[32][D + 4] and of two per-row vectors into
+// ra[32] and rb[32] (rows >= T: zeros; where rb is null, ra is the key bias
+// and its rows >= T are -inf). The copies are asynchronous where 16-byte
+// loads are possible and land before the next cp_async_wait_all; otherwise
+// plain loads and stores.
 template <int D>
-constexpr int dkdv_smem_floats() {
-  return 2 * D * kPad + 2 * kBQ * (D + 1) + 2 * kBQ * kPad + 3 * 64;
+__device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, long long a_stride,
+                                                float* b, const float* b_src, long long b_stride,
+                                                float* ra, const float* ra_src, float* rb,
+                                                const float* rb_src, int t0, int T, int vec) {
+  constexpr int LD = D + 4;
+  if (vec) {
+    constexpr int C4 = D / 4;
+    for (int i = threadIdx.x; i < kWalk * C4; i += kTileThreads) {
+      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
+      const int bytes = t < T ? 16 : 0;
+      const long long row = t < T ? t : T - 1;  // a valid address either way
+      cp_async16(a + r * LD + c, a_src + row * a_stride + c, bytes);
+      cp_async16(b + r * LD + c, b_src + row * b_stride + c, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kWalk * D; i += kTileThreads) {
+      const int r = i / D, c = i % D, t = t0 + r;
+      a[r * LD + c] = t < T ? a_src[(long long)t * a_stride + c] : 0.f;
+      b[r * LD + c] = t < T ? b_src[(long long)t * b_stride + c] : 0.f;
+    }
+  }
+  if (threadIdx.x < kWalk) {
+    const int t = t0 + threadIdx.x;
+    if (rb != nullptr) {
+      cp_async4(ra + threadIdx.x, ra_src + (t < T ? t : T - 1), t < T ? 4 : 0);
+      cp_async4(rb + threadIdx.x, rb_src + (t < T ? t : T - 1), t < T ? 4 : 0);
+    } else {
+      ra[threadIdx.x] = t < T ? ra_src[t] : -INFINITY;  // keys >= T: bias -inf
+    }
+  }
+  cp_async_commit();
+}
+
+// p and ds of one accumulator entry, from s and dp: query qi, key ki. Keys
+// >= T come with kb = -inf and queries >= T with lse = +inf, so p = 0 there
+// without a branch.
+__device__ __forceinline__ void p_and_ds(float s, float dp, float kb, float lse, float di,
+                                         uint32_t bn, int qi, int ki, uint32_t s0,
+                                         uint32_t s1, uint32_t thresh, int dropout, float& pd,
+                                         float& ds) {
+  const float p = expf(s + kb - lse);
+  const bool kept = !dropout || keep_bit(bn, (uint32_t)qi, (uint32_t)ki, s0, s1, thresh);
+  pd = kept ? p : 0.f;
+  ds = p * ((kept ? dp : 0.f) - di);
+}
+
+// Dynamic shared memory of both tile kernels, in floats: the two resident
+// [64][D + 4] tiles, two stages of two walked [32][D + 4] tiles, and two
+// stages of two 32-entry rows (lse and Di, or the key bias).
+template <int D>
+constexpr int tile_smem_floats() {
+  return 2 * 64 * (D + 4) + 2 * 2 * kWalk * (D + 4) + 2 * 2 * kWalk;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 2 : 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ kbias,
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ di, float* __restrict__ dk,
                       float* __restrict__ dv, int T, int N, long long sb, long long st,
                       float scale, float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1,
-                      int batch0, int dropout) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* kt_s = smem;
-  float* vt_s = kt_s + D * kPad;
-  float* q_s = vt_s + D * kPad;
-  float* do_s = q_s + kBQ * (D + 1);
-  float* p_s = do_s + kBQ * (D + 1);
-  float* ds_s = p_s + kBQ * kPad;
-  float* kb_s = ds_s + kBQ * kPad;
-  float* lse_s = kb_s + 64;
-  float* di_s = lse_s + 64;
+                      int batch0, int dropout, int vec) {
+  constexpr int LD = D + 4;
+  constexpr int DN = D / 8;      // 8-column tiles of dk / dv
+  constexpr int CN = kWalk / 8;  // 8-query tiles of s^T / dp^T
+  constexpr int kStage = 2 * kWalk * LD + 2 * kWalk;  // floats of one walked stage
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);  // scale k
+  float* v_s = k_s + 64 * LD;                    // v / keep
+  float* walk_s = v_s + 64 * LD;                 // per stage: q, do, lse, Di
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int k0 = blockIdx.x * kBK, n = blockIdx.y, b = blockIdx.z;
   const int H = N * D;
   const long long head = (long long)b * sb + (long long)n * D;
@@ -194,102 +227,154 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long bn_row = ((long long)b * N + n) * T;
   const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  load_rows_t<D>(kt_s, k + head, st, k0, T);
-  load_rows_t<D>(vt_s, v + head, st, k0, T);
-  load_key_bias(kb_s, kbias, b, k0, T);
+  auto start = [&](int i) {
+    float* w = walk_s + (i & 1) * kStage;
+    start_walk_tile<D>(w, q + head, st, w + kWalk * LD, dout + ohead, H, w + 2 * kWalk * LD,
+                       lse + bn_row, w + 2 * kWalk * LD + kWalk, di + bn_row, i * kWalk, T,
+                       vec);
+  };
+  start(0);
+  // the scale and 1 / keep ride on the resident tiles: s^T = (scale k) q^T and
+  // dp^T = (v / keep) do^T; the walked q and do are copied as they are
+  load_tile<D>(k_s, k + head, st, k0, T, scale, vec);
+  load_tile<D>(v_s, v + head, st, k0, T, inv_keep, vec);
+  // this thread's accumulator rows: keys key_a and key_a + 8
+  const int key_a = k0 + warp * 16 + g;
+  const float kb_a = key_a < T ? kbias[(long long)b * T + key_a] : -INFINITY;
+  const float kb_b = key_a + 8 < T ? kbias[(long long)b * T + key_a + 8] : -INFINITY;
 
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[DN][4], dv_acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < DN; ++c)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
 
-  for (int q0 = 0; q0 < T; q0 += kBQ) {
-    __syncthreads();  // the last tile's readers are done
-    load_rows<D>(q_s, D + 1, q + head, st, q0, T, scale);
-    load_rows<D>(do_s, D + 1, dout + ohead, H, q0, T, inv_keep);
-    load_row_stats(lse_s, di_s, lse, di, bn_row, q0, T);
+  const float* ka_s = k_s + warp * 16 * LD;
+  const float* va_s = v_s + warp * 16 * LD;
+  const int n_walk = (T + kWalk - 1) / kWalk;
+
+  for (int i = 0; i < n_walk; ++i) {
+    // tile i has landed; every warp is done with tile i - 1, whose stage the
+    // copy of tile i + 1 may now overwrite while tile i is worked on
+    cp_async_wait_all();
     __syncthreads();
+    if (i + 1 < n_walk) start(i + 1);
+    const float* q_s = walk_s + (i & 1) * kStage;
+    const float* do_s = q_s + kWalk * LD;
+    const float* lse_s = do_s + kWalk * LD;
+    const float* di_s = lse_s + kWalk;
+    const int q0 = i * kWalk;
 
-    float pd[4][4], ds[4][4];
-    tile_p_ds<D>(q_s, do_s, kt_s, vt_s, kb_s, lse_s, di_s, q0, k0, T, bn, s0, s1, thresh,
+    // s^T = (scale k) q^T and dp^T = (v / keep) do^T: 16 keys x 32 queries
+    float st_acc[CN][4], dpt_acc[CN][4];
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st_acc[j][e] = dpt_acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      FragA ka, va;
+      FragB qb[CN], ob[CN];
+      load_a(ka, ka_s + d0, LD, lane);
+      load_a(va, va_s + d0, LD, lane);
+#pragma unroll
+      for (int j = 0; j < CN; j += 2) {
+        load_b_nk_x2(qb[j], qb[j + 1], q_s + 8 * j * LD + d0, LD, lane);
+        load_b_nk_x2(ob[j], ob[j + 1], do_s + 8 * j * LD + d0, LD, lane);
+      }
+      mma3<CN>(st_acc, ka, qb);
+      mma3<CN>(dpt_acc, va, ob);
+    }
+    // entry e of tile j: key key_a (+ 8 for e >= 2), query ql (+ 1 for odd e);
+    // pd / keep and scale ds replace s^T and dp^T, so that the products below
+    // take the walked do and q as they are
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const int ql = 8 * j + 2 * t4;
+      float2 ls = *reinterpret_cast<const float2*>(lse_s + ql);
+      const float2 dd = *reinterpret_cast<const float2*>(di_s + ql);
+      ls.x = q0 + ql < T ? ls.x : INFINITY;  // queries >= T: p = 0
+      ls.y = q0 + ql + 1 < T ? ls.y : INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + ql + (e & 1);
+        float pd, ds;
+        p_and_ds(st_acc[j][e], dpt_acc[j][e], (e & 2) ? kb_b : kb_a, (e & 1) ? ls.y : ls.x,
+                 (e & 1) ? dd.y : dd.x, bn, qi, key_a + ((e & 2) ? 8 : 0), s0, s1, thresh,
                  dropout, pd, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_s[(ty + 16 * i) * kPad + tx + 16 * j] = pd[i][j];
-        ds_s[(ty + 16 * i) * kPad + tx + 16 * j] = ds[i][j];
+        st_acc[j][e] = pd * inv_keep;
+        dpt_acc[j][e] = ds * scale;
       }
-    __syncthreads();
-
-    // this thread's keys are ty + 16 i, its columns tx + 16 c
-#pragma unroll 8
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pk[4], dsk[4], g[DC], a[DC];
+    }
+    // dv += (pd / keep)^T do and dk += (scale ds)^T q: contraction over the
+    // tile's queries, 8 at a time, the accumulators above as the A operands
+    // per group of 4 column tiles: the tile's sum in fresh accumulators on the
+    // tensor core (12 chained passes), then one f32 addition into dv / dk
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = p_s[qq * kPad + ty + 16 * i];
-        dsk[i] = ds_s[qq * kPad + ty + 16 * i];
+    for (int c = 0; c < DN; c += 4) {
+      float dv_t[4][4], dk_t[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv_t[u][e] = dk_t[u][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        FragA pa, dsa;
+        frag_a_from_acc(pa, st_acc[j]);
+        frag_a_from_acc(dsa, dpt_acc[j]);
+        FragB ob[4], qb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          load_b_kn(ob[u], do_s + 8 * j * LD + 8 * (c + u), LD, lane);
+          load_b_kn(qb[u], q_s + 8 * j * LD + 8 * (c + u), LD, lane);
+        }
+        mma3<4>(dv_t, pa, ob);
+        mma3<4>(dk_t, dsa, qb);
       }
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        g[c] = do_s[qq * (D + 1) + tx + 16 * c];
-        a[c] = q_s[qq * (D + 1) + tx + 16 * c];
-      }
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv_acc[i][c] = fmaf(pk[i], g[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dsk[i], a[c], dk_acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[c + u][e] += dv_t[u][e];
+          dk_acc[c + u][e] += dk_t[u][e];
         }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int t = key_a + 8 * half;
     if (t >= T) continue;
-    const long long o = ohead + (long long)t * H;
+    const long long o = ohead + (long long)t * H + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[o + tx + 16 * c] = dk_acc[i][c];
-      dv[o + tx + 16 * c] = dv_acc[i][c];
+    for (int c = 0; c < DN; ++c) {
+      *reinterpret_cast<float2*>(dk + o + 8 * c) =
+          make_float2(dk_acc[c][2 * half], dk_acc[c][2 * half + 1]);
+      *reinterpret_cast<float2*>(dv + o + 8 * c) =
+          make_float2(dv_acc[c][2 * half], dv_acc[c][2 * half + 1]);
     }
   }
 }
 
-// Dynamic shared memory of the dq kernel, in floats:
-//   q_s, do_s  [kBQ][D + 1]    this block's scale q and do / keep
-//   kt_s, vt_s [D][kPad]       a key tile's keys and values, transposed
-//   ds_s       [kBQ][kPad]     ds of that tile
-//   kb_s, lse_s, di_s [64]
 template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * kBQ * (D + 1) + 2 * D * kPad + kBQ * kPad + 3 * 64;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ kbias,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq, int T, int N,
                     long long sb, long long st, float scale, float inv_keep, uint32_t thresh,
-                    uint32_t s0, uint32_t s1, int batch0, int dropout) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kBQ * (D + 1);
-  float* kt_s = do_s + kBQ * (D + 1);
-  float* vt_s = kt_s + D * kPad;
-  float* ds_s = vt_s + D * kPad;
-  float* kb_s = ds_s + kBQ * kPad;
-  float* lse_s = kb_s + 64;
-  float* di_s = lse_s + 64;
+                    uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
+  constexpr int LD = D + 4;
+  constexpr int DN = D / 8;
+  constexpr int CN = kWalk / 8;  // 8-key tiles of s / dp
+  constexpr int kStage = 2 * kWalk * LD + 2 * kWalk;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // scale q
+  float* do_s = q_s + 64 * LD;                   // do / keep
+  float* walk_s = do_s + 64 * LD;                // per stage: k, v, key bias
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
   const int H = N * D;
   const long long head = (long long)b * sb + (long long)n * D;
@@ -297,57 +382,114 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long bn_row = ((long long)b * N + n) * T;
   const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  load_rows<D>(q_s, D + 1, q + head, st, q0, T, scale);
-  load_rows<D>(do_s, D + 1, dout + ohead, H, q0, T, inv_keep);
-  load_row_stats(lse_s, di_s, lse, di, bn_row, q0, T);
+  auto start = [&](int i) {
+    float* w = walk_s + (i & 1) * kStage;
+    start_walk_tile<D>(w, k + head, st, w + kWalk * LD, v + head, st, w + 2 * kWalk * LD,
+                       kbias + (long long)b * T, nullptr, nullptr, i * kWalk, T, vec);
+  };
+  start(0);
+  load_tile<D>(q_s, q + head, st, q0, T, scale, vec);
+  load_tile<D>(do_s, dout + ohead, H, q0, T, inv_keep, vec);
+  // this thread's accumulator rows: queries q_a and q_a + 8
+  const int q_a = q0 + warp * 16 + g;
+  const bool ok_a = q_a < T, ok_b = q_a + 8 < T;
+  const float lse_a = ok_a ? lse[bn_row + q_a] : INFINITY;  // queries >= T: p = 0
+  const float lse_b = ok_b ? lse[bn_row + q_a + 8] : INFINITY;
+  const float di_a = ok_a ? di[bn_row + q_a] : 0.f;
+  const float di_b = ok_b ? di[bn_row + q_a + 8] : 0.f;
 
-  float dq_acc[4][DC];
+  float dq_acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < DN; ++c)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dq_acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // the last tile's readers are done (and the query tile is stored)
-    load_rows_t<D>(kt_s, k + head, st, k0, T);
-    load_rows_t<D>(vt_s, v + head, st, k0, T);
-    load_key_bias(kb_s, kbias, b, k0, T);
+  const float* qa_s = q_s + warp * 16 * LD;
+  const float* oa_s = do_s + warp * 16 * LD;
+  const int n_walk = (T + kWalk - 1) / kWalk;
+
+  for (int i = 0; i < n_walk; ++i) {
+    cp_async_wait_all();  // as in the dk/dv kernel
     __syncthreads();
+    if (i + 1 < n_walk) start(i + 1);
+    const float* k_s = walk_s + (i & 1) * kStage;
+    const float* v_s = k_s + kWalk * LD;
+    const float* kb_s = v_s + kWalk * LD;
+    const int k0 = i * kWalk;
 
-    float pd[4][4], ds[4][4];
-    tile_p_ds<D>(q_s, do_s, kt_s, vt_s, kb_s, lse_s, di_s, q0, k0, T, bn, s0, s1, thresh,
-                 dropout, pd, ds);
+    // s = (scale q) k^T and dp = do' v^T: 16 queries x 32 keys
+    float s_acc[CN][4], dp_acc[CN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < CN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ds_s[(ty + 16 * i) * kPad + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-
-    // this thread's queries are ty + 16 i, its columns tx + 16 c; k[key][c]
-    // is kt_s[c][key]
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float dsq[4], kc[DC];
+      for (int e = 0; e < 4; ++e) s_acc[j][e] = dp_acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      FragA qa, oa;
+      FragB kf[CN], vf[CN];
+      load_a(qa, qa_s + d0, LD, lane);
+      load_a(oa, oa_s + d0, LD, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsq[i] = ds_s[(ty + 16 * i) * kPad + kk];
+      for (int j = 0; j < CN; j += 2) {
+        load_b_nk_x2(kf[j], kf[j + 1], k_s + 8 * j * LD + d0, LD, lane);
+        load_b_nk_x2(vf[j], vf[j + 1], v_s + 8 * j * LD + d0, LD, lane);
+      }
+      mma3<CN>(s_acc, qa, kf);
+      mma3<CN>(dp_acc, oa, vf);
+    }
+    // entry e of tile j: query q_a (+ 8 for e >= 2), key kl (+ 1 for odd e);
+    // ds replaces dp
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kc[c] = kt_s[(tx + 16 * c) * kPad + kk];
+    for (int j = 0; j < CN; ++j) {
+      const int kl = 8 * j + 2 * t4;
+      const float2 kb = *reinterpret_cast<const float2*>(kb_s + kl);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) {
+        float pd, ds;
+        p_and_ds(s_acc[j][e], dp_acc[j][e], (e & 1) ? kb.y : kb.x, (e & 2) ? lse_b : lse_a,
+                 (e & 2) ? di_b : di_a, bn, q_a + ((e & 2) ? 8 : 0), k0 + kl + (e & 1), s0,
+                 s1, thresh, dropout, pd, ds);
+        dp_acc[j][e] = ds;
+      }
+    }
+    // dq += ds k: contraction over the tile's keys, 8 at a time
 #pragma unroll
-        for (int c = 0; c < DC; ++c) dq_acc[i][c] = fmaf(dsq[i], kc[c], dq_acc[i][c]);
+    for (int c = 0; c < DN; c += 4) {
+      float dq_t[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_t[u][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        FragA dsa;
+        frag_a_from_acc(dsa, dp_acc[j]);
+        FragB kf[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          load_b_kn(kf[u], k_s + 8 * j * LD + 8 * (c + u), LD, lane);
+        mma3<4>(dq_t, dsa, kf);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[c + u][e] += dq_t[u][e];
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int t = q_a + 8 * half;
     if (t >= T) continue;
-    const long long o = ohead + (long long)t * H;
+    const long long o = ohead + (long long)t * H + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dq[o + tx + 16 * c] = dq_acc[i][c] * scale;
+    for (int c = 0; c < DN; ++c)
+      *reinterpret_cast<float2*>(dq + o + 8 * c) =
+          make_float2(dq_acc[c][2 * half] * scale, dq_acc[c][2 * half + 1] * scale);
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias,
@@ -362,25 +504,27 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
       dout, out, di, B, T, N, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_kv = sizeof(float) * dkdv_smem_floats<D>();
+  // 16-byte tile loads where every row start is 16-byte aligned
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+                  sb % 4 == 0 && st % 4 == 0;
+  const size_t smem = sizeof(float) * tile_smem_floats<D>();
   if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_kv)) != cudaSuccess)
+                                  (int)smem)) != cudaSuccess)
     return (int)err;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dk, dv, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      batch0, dropout);
+      batch0, dropout, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_q = sizeof(float) * dq_smem_floats<D>();
   if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_q)) != cudaSuccess)
+                                  (int)smem)) != cudaSuccess)
     return (int)err;
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem_q, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dq, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      batch0, dropout);
+      batch0, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -391,7 +535,8 @@ extern "C" {
 // Kernel B3 bwd: three launches on `stream` of `device`; returns the first
 // launch error (0 on success); does not synchronise. di is (B, N, T) f32
 // scratch the caller allocates. D, thresh and dropout as for
-// flash_attn_fwd_f32; inv_keep = 1 / (1 - rate).
+// flash_attn_fwd_f32; inv_keep = 1 / (1 - rate). dq, dk and dv must be
+// 8-byte aligned (they are whole allocations).
 int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* kbias,
                        const void* out, const void* dout, const void* lse, void* di, void* dq,
                        void* dk, void* dv, int B, int T, int N, int D, long long sb,

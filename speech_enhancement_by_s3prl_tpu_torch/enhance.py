@@ -6,7 +6,10 @@ the noisy phase, level renorm) -> 16-bit WAV out. A file longer than the 30 s
 bucket ceiling is enhanced in crossfaded windows of that length.
 
   python -m speech_enhancement_by_s3prl_tpu_torch.enhance --ckpt result/exp1 \\
-      --inputs 'noisy/*.wav' --outdir enhanced/ --device cuda
+      --inputs 'noisy/*.wav' --outdir enhanced/
+
+It runs on the card unless ``--device cpu`` asks for the CPU, as
+``run_downstream`` does; with no CUDA device the default raises.
 """
 from __future__ import annotations
 
@@ -42,8 +45,9 @@ def main(argv=None):
     ap.add_argument("--sample_rate", type=int, default=16000)
     ap.add_argument("--target_level", type=float, default=-25.0,
                     help="output level in dB")
-    ap.add_argument("--device", required=True,
-                    help="torch device to run on, e.g. cuda or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on: cuda (the default; raises "
+                         "when there is no CUDA device) or cpu")
     ap.add_argument("--artifact", default="",
                     help="export artifacts are not ported yet (ROADMAP A10)")
     ap.add_argument("--mesh", type=int, default=0,

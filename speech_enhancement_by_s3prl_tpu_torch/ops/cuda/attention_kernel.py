@@ -10,7 +10,11 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
 - B3 bwd ``flash_attention_bwd`` (``flash_attn_bwd.cu``): dq, dk, dv from the
   saved lse, the same dropout mask recomputed from the salt (``_bwd_impl`` /
   ``_bwd_kernel``). One call is three launches (a row-dot pre-pass, a dk/dv
-  kernel over key tiles, a dq kernel over query tiles) and counts once.
+  kernel over key tiles, a dq kernel over query tiles) and counts once. Its
+  tile products run on the tensor cores with each f32 operand split into two
+  TF32 parts and three passes a product (``mma_tf32x3.cuh``): f32-level
+  accuracy, which one TF32 pass does not give. ``split_tf32`` and
+  ``matmul_tf32x3`` model that arithmetic for the CPU tests.
 
 ``FlashAttention`` ties them into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
@@ -99,9 +103,9 @@ def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
     return dropout_keep_mask(bn, ar(T)[:, None], ar(T)[None, :], salt, rate)
 
 
-def _logits(q, k, scale, kbias, n_heads):
+def _logits(q, k, scale, kbias, n_heads, matmul=torch.matmul):
     # the scale is folded into q, as the JAX kernel folds it into its block
-    logits = torch.matmul(_heads(q * scale, n_heads), _heads(k, n_heads).transpose(-1, -2))
+    logits = matmul(_heads(q * scale, n_heads), _heads(k, n_heads).transpose(-1, -2))
     if kbias is not None:
         logits = logits + kbias[:, None, None, :]
     return logits
@@ -124,17 +128,45 @@ def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
     return _merge(ctx), lse
 
 
+def split_tf32(x: torch.Tensor):
+    """An f32 tensor as (hi, lo), both representable in TF32 (10 mantissa
+    bits), as the tensor cores see the kernels' split operands: hi = x
+    rounded to nearest at mantissa bit 13 (ties away from zero, as
+    ``cvt.rna.tf32.f32``: half a unit added to the bits, the low 13 bits
+    dropped), lo = x - hi (exact in f32) with its low 13 bits dropped. For
+    finite inputs."""
+    def cut(bits):
+        return (bits & ~0x1FFF).view(torch.float32)
+
+    hi = cut(x.contiguous().view(torch.int32) + 0x1000)
+    return hi, cut((x - hi).view(torch.int32))
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as the tensor-core kernels compute it: operands split by
+    ``split_tf32``, the products a_lo b_hi + a_hi b_lo + a_hi b_hi summed in
+    f32 (``passes=3``), or a_hi b_hi alone (``passes=1``, plain TF32, which
+    the kernels do not use: it loses three of f32's seven digits)."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    if passes == 1:
+        return torch.matmul(a_hi, b_hi)
+    return torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo) + torch.matmul(a_hi, b_hi)
+
+
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
-                            kbias=None, batch0: int = 0, *, n_heads: int):
+                            kbias=None, batch0: int = 0, *, n_heads: int,
+                            matmul=torch.matmul):
     """B3 bwd's plain version, step for step ``_bwd_kernel``: p from the
     saved lse, the same mask, do / keep. Returns (dq, dk, dv), each
-    (B, T, N * D)."""
+    (B, T, N * D). ``matmul`` computes its five products (the tests pass
+    ``matmul_tf32x3`` to model the kernel's arithmetic)."""
     keep = 1.0 - rate
     qs = _heads(q * scale, n_heads)
     kh, vh = _heads(k, n_heads), _heads(v, n_heads)
     do = _heads(dout / keep, n_heads)
-    p = torch.exp(_logits(q, k, scale, kbias, n_heads) - lse[..., None])
-    dp = torch.matmul(do, vh.transpose(-1, -2))
+    p = torch.exp(_logits(q, k, scale, kbias, n_heads, matmul) - lse[..., None])
+    dp = matmul(do, vh.transpose(-1, -2))
     pd = p
     if rate > 0.0:
         B, N, T, _ = p.shape
@@ -143,9 +175,9 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, 
         dp = torch.where(mask, dp, 0.0)
     drow = keep * (do * _heads(out, n_heads)).sum(dim=-1, keepdim=True)
     ds = p * (dp - drow)
-    dq = torch.matmul(ds, kh * scale)
-    dk = torch.matmul(ds.transpose(-1, -2), qs)
-    dv = torch.matmul(pd.transpose(-1, -2), do)
+    dq = matmul(ds, kh * scale)
+    dk = matmul(ds.transpose(-1, -2), qs)
+    dv = matmul(pd.transpose(-1, -2), do)
     return _merge(dq), _merge(dk), _merge(dv)
 
 
@@ -245,8 +277,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
                         kbias=None, batch0: int = 0, *, n_heads: int):
     """B3 bwd: the forward's inputs, out, lse and the cotangent ``dout`` ->
     (dq, dk, dv), each (B, T, N * D) f32. Kernel on a CUDA tensor (one count
-    in ``flash_attention_bwd.launches`` for its three launches), plain
-    version on a CPU tensor."""
+    in ``flash_attention_bwd.launches`` for its three launches; tensor-core
+    products in three TF32 passes, deterministic: the same inputs give the
+    same bits), plain version on a CPU tensor."""
     _check(q, k, v, kbias, n_heads)
     B, T, H = q.shape
     for name, t, want in (("out", out, (B, T, H)), ("dout", dout, (B, T, H)),

@@ -8,7 +8,9 @@ key bias and ``batch0``; ``FlashAttention`` against ``jax.vjp`` of the JAX
 dropout hashes (attention, hidden states) are held bit for bit against the JAX
 functions and the numpy ``_host_mask`` of the JAX package's tests, with salts
 and indices near 2^32. The CUDA kernels are held against the plain versions on
-the card by chip_smoke.py.
+the card by chip_smoke.py. The split-TF32 arithmetic of B3 bwd's tensor-core
+products is modelled by ``split_tf32`` / ``matmul_tf32x3`` and held against a
+float64 backward: three passes stay inside the kernel's limit, one does not.
 """
 import numpy as np
 import pytest
@@ -214,3 +216,55 @@ def test_keep_threshold_matches_jax():
     for rate in (0.0, 0.1, 0.25, 0.5, 1e-9):
         keep = 1.0 - rate
         assert A.keep_threshold(rate) == min(int(keep * 4294967296.0), 4294967295)
+
+
+# chip_smoke.py's limit for B3 against its plain version, relative to the
+# largest |value|
+B3_TOL = 1e-4
+
+
+def test_split_tf32_keeps_21_bits_in_two_tf32_values():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+                         * np.float32(37.0))
+    hi, lo = A.split_tf32(x)
+    for part in (hi, lo):  # representable in TF32: the low 13 mantissa bits are clear
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    # hi is x rounded to 11 significant bits, hi + lo to 22
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0 ** -11
+    assert float(((x - (hi + lo)).abs() / x.abs()).max()) <= 2.0 ** -21
+    # ties round away from zero, as cvt.rna does: 1 + 2^-11 -> 1 + 2^-10
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert torch.equal(A.split_tf32(tie)[0], torch.tensor([1.0 + 2.0 ** -10,
+                                                           -(1.0 + 2.0 ** -10)]))
+    assert torch.equal(A.split_tf32(torch.zeros(3))[0], torch.zeros(3))
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_backward_on_split_tf32_products(passes, within):
+    """``flash_attention_bwd_ref`` with its five products computed as the
+    kernel computes them, at B=2, T=130, 12 heads of 64, dropout 0.1 and a key
+    bias, against the same backward in float64: three passes stay within
+    B3_TOL of the largest |value| (and near the f32 products' own error), a
+    single TF32 pass does not: the reason the kernel takes three."""
+    B, T, N, D = 2, 130, 12, 64
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, T, N * D)).astype(np.float32))
+                   for _ in range(4))
+    kbias = torch.from_numpy((2.0 * rng.standard_normal((B, T))).astype(np.float32))
+    salt, rate, scale, b0 = (0x9E3779B9, 0xDEADBEEF), 0.1, D ** -0.5, 3
+    out, lse = A.flash_attention_ref(q, k, v, scale, rate, salt, kbias, b0, n_heads=N)
+    want = A.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, lse, do)), scale,
+                                     rate, salt, kbias.double(), b0, n_heads=N)
+
+    def errs(matmul):
+        got = A.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, rate, salt, kbias, b0,
+                                        n_heads=N, matmul=matmul)
+        return [float((g.double() - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want)]
+
+    model = errs(lambda a, b: A.matmul_tf32x3(a, b, passes))
+    if within:
+        assert max(model) < B3_TOL
+        assert max(model) < 4 * max(errs(torch.matmul))  # f32-level, not just in-limit
+    else:
+        assert min(model) > B3_TOL

@@ -244,6 +244,19 @@ def test_enhance_cli_writes_enhanced_wavs(ckpts, tmp_path):
         assert np.abs(out[0] - ref).max() <= 1.0 / 32767 + 1e-6
 
 
+def test_enhance_cli_runs_on_the_card_unless_asked_for_the_cpu(ckpts, tmp_path, monkeypatch):
+    """``--device`` defaults to cuda, as in run_downstream; with no CUDA
+    device the default raises instead of running on the CPU."""
+    inputs = tmp_path / "in"
+    inputs.mkdir()
+    audio_io.write_wav(str(inputs / "a.wav"), _audio(6000, 4), 16000)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enhance_cli(["--ckpt", ckpts["port"], "--inputs", str(inputs),
+                     "--outdir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 def test_serving_refuses_what_is_not_ported(ckpts, tmp_path, monkeypatch):
     enhancer = serve.build_enhancer(ckpts["port"], device="cpu", max_bucket_ms=2000)
     # a request longer than the largest bucket streams through enhance();
