@@ -10,13 +10,17 @@ Phases, one line each:
   3. each kernel against its plain PyTorch version on the card, at the
      flagship shape and at ragged ones, against a stated limit: B1
      (recurrence), B2 fwd (recurrence + cell states), B2 bwd (reverse-time
-     VJP), and the gradients of ``LstmBidirTm`` against autograd through the
+     VJP: its three-phase route at the flagship width, across a batch-block
+     boundary and with one direction, the earlier single-kernel route at a
+     hidden size only it takes and, launched directly, at the flagship width
+     too; each twice on the same inputs for identical bits), and the
+     gradients of ``LstmBidirTm`` against autograd through the
      plain recurrence; B3 fwd (flash attention with hash dropout: out, lse)
      and B3 bwd (dq, dk, dv) at the Mockingjay shape (B=6, T=1001, 12 heads
      of 64) with dropout 0.1 and 0, at ragged T with a key bias, and
      ``FlashAttention`` against autograd through the plain version, B3 bwd
-     twice on the same inputs for identical bits and once on views whose rows
-     start off a 16-byte boundary; B4 (fused STFT) at one
+     twice on the same inputs for identical bits, and both once on views whose
+     rows start off a 16-byte boundary; B4 (fused STFT) at one
      and twelve rows of 10 s, ragged lengths, lead axes and other geometries,
      each on the route its n_fft names (the FFT kernel, or the matrix-product
      kernel for an n_fft such as 254 = 2 * 127), the product kernel also at
@@ -33,7 +37,10 @@ Phases, one line each:
      served with ``recurrence="blocked"`` (B6) and ``"fused"`` (B7) against
      the default route and the CPU; and the long-form entry: one 75 s
      request through ``build_enhancer(max_bucket_ms=10000)``, 9 crossfaded
-     windows, against the same request on the CPU;
+     windows, against the same request on the CPU; and a one-direction
+     3 x 256 head (the shape of config/vcb.yaml) served the same way (3 B1
+     launches a device batch), its B=1 10 s latency, and one train step of
+     it through ``LstmBidirTm`` against the same step on the CPU;
   5. the training slice at full width: the flagship trained through
      ``run_downstream.build_runner`` / ``Runner`` on a seeded WAV corpus
      the script writes (8 steps with evals and saves, then a 2-step resume),
@@ -54,7 +61,8 @@ Phases, one line each:
      (both kernels) and B5 beside the torch-op routes they replace and
      ``torch.stft``, B6
      and B7 beside B1, one cuDNN ``nn.LSTM`` layer as the library yardstick
-     of the recurrences, the B=6 train step and eval batch, and a profiler
+     of the recurrences, B2 bwd under both routes with the share of each
+     phase, the B=6 train step and eval batch, and a profiler
      breakdown of the train step, each beside the card's name and power
      limit; then
      B3 fwd and bwd against their plain versions at B=6 and B=64, B3 at rate
@@ -101,8 +109,9 @@ CLI_SECONDS = (1.5, 2.5, 4.0)
 # B2 vs its plain versions, each error relative to the plain version's
 # largest |value| (cs grows with T; dxw and dW_hh^T are sums over T steps and
 # B rows, dW_hh^T up to ~20 here). Both sides compute in f32 with other
-# summation orders (f32 rounding ~1e-7 relative a term); chip runs measured
-# 1.3e-7 to 8.8e-7, so 1e-4 leaves more than two decades.
+# summation orders (f32 rounding ~1e-7 relative a term; B2 bwd's gate and
+# dW_hh^T products in three TF32 passes, which keep 21 of an operand's 24
+# bits); chip runs measured 1.3e-7 to 1.3e-6, so 1e-4 leaves almost two decades.
 B2_TOL = 1e-4
 # The flagship train step on the card vs on the CPU (plain versions): the
 # same f32 arithmetic in other orders through STFT, 3 BLSTM layers forward and
@@ -110,12 +119,19 @@ B2_TOL = 1e-4
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
 B2_SHAPES = ((6, 1001, 256), (3, 37, 256), (70, 37, 256))
+# B2 bwd alone, as (directions, B, T, H): across a batch-block boundary of the
+# dh chain (8 rows a cluster) with a ragged last block, one direction, a
+# narrow layer, T = 1 (no h_{-1}, dW_hh^T = 0) and hidden sizes that only the
+# earlier single-kernel route takes
+B2_BWD_SHAPES = ((2, 17, 40, 256), (1, 5, 33, 256), (1, 6, 401, 256), (2, 9, 21, 64),
+                 (2, 2, 1, 256), (2, 3, 19, 36), (1, 2, 19, 260))
 TRAIN_STEPS, RESUME_STEPS = 8, 2
 # B3 vs its plain version, each error relative to the plain version's largest
-# |value|. The kernel folds 64-key tiles into an online softmax with f32 FMAs,
-# the plain version takes whole rows through cuBLAS in full f32: rounding
-# near 1e-7 relative. One flipped mask bit moves an output by about 1e-3 of
-# its largest value, so a wrong hash fails.
+# |value|. The kernels fold key tiles into an online softmax and compute their
+# tile products on the tensor cores in three TF32 passes (measured ~3e-6 for
+# out, dq, dk, dv and ~2e-7 for lse, which sees one product), the plain
+# version takes whole rows through cuBLAS in full f32. One flipped mask bit
+# moves an output by about 1e-3 of its largest value, so a wrong hash fails.
 B3_TOL = 1e-4
 # B4 and B5 vs their plain versions, relative to the plain version's largest
 # |value|, all in f32. The plain versions sum 400 (B4) or up to 1206 (B5)
@@ -137,7 +153,7 @@ MJ_LAYERS = 6
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, dense TF32 on them, and HBM3. A bound takes the cheapest
 # arithmetic the numerics allow: f32 results to f32 accuracy may come from
-# the tensor cores as three TF32 passes a product (B3 bwd), not from one
+# the tensor cores as three TF32 passes a product (B3), not from one
 PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
 
@@ -159,23 +175,118 @@ def request_audio(seconds: float, seed: int) -> np.ndarray:
     return (tone + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
-def kernel_inputs(torch, B, T, H, seed):
+def kernel_inputs(torch, B, T, H, seed, ndir=2):
     g = torch.Generator().manual_seed(seed)
-    xw = torch.randn(2, B, T, 4 * H, generator=g)
-    w_hh = torch.empty(2, 4 * H, H)
-    for d in range(2):
+    xw = torch.randn(ndir, B, T, 4 * H, generator=g)
+    w_hh = torch.empty(ndir, 4 * H, H)
+    for d in range(ndir):
         torch.nn.init.orthogonal_(w_hh[d], generator=g)
     return xw.cuda(), w_hh.transpose(1, 2).contiguous().cuda()
 
 
-def kernel_grad_inputs(torch, B, T, H, seed):
-    xw, w_hh_t = kernel_inputs(torch, B, T, H, seed)
+def kernel_grad_inputs(torch, B, T, H, seed, ndir=2):
+    xw, w_hh_t = kernel_inputs(torch, B, T, H, seed, ndir)
     g = torch.Generator().manual_seed(seed + 1)
-    return xw, w_hh_t, torch.randn(2, B, T, H, generator=g).cuda()
+    return xw, w_hh_t, torch.randn(ndir, B, T, H, generator=g).cuda()
 
 
 def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
+
+
+def bwd_route_checks(torch, L):
+    """B2 bwd on each of its routes against its plain version on the card, at
+    ``B2_BWD_SHAPES`` on the route the hidden size names and, launched
+    directly, on the earlier single-kernel route at the flagship shapes (not
+    its route there: the design the three phases replaced). The forward
+    kernels run the same direction counts. Every call is made twice on the
+    same inputs and must give identical bits. Returns {route: (largest
+    relative error, largest absolute error)}."""
+    worst = {"phases": [0.0, 0.0], "grid": [0.0, 0.0]}
+    cases = [(shape, None) for shape in B2_BWD_SHAPES]
+    cases += [((2, B, T, H), "grid") for B, T, H in B2_SHAPES]
+    for (ndir, B, T, H), forced in cases:
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + B + T, ndir)
+        ref_hs, ref_cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t)
+        ref = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, ref_hs, ref_cs, dhs)
+        line = ""
+        if forced is None:
+            route = L.bwd_route(H)
+            before = dict(L.lstm_bidir_tm_bwd.by_route)
+            out = L.lstm_bidir_tm_bwd(xw, w_hh_t, ref_hs, ref_cs, dhs)
+            again = L.lstm_bidir_tm_bwd(xw, w_hh_t, ref_hs, ref_cs, dhs)
+            took = [r for r, n in L.lstm_bidir_tm_bwd.by_route.items() if n != before[r]]
+            if took != [route]:
+                raise AssertionError(f"lstm_bidir_tm_bwd took route {took} at H={H}, want "
+                                     f"{route!r}")
+            hs, cs = L.lstm_bidir_tm_fc(xw, w_hh_t)
+            h1 = L.lstm_bidir_tm(xw, w_hh_t)
+            fwd_errs = (float((h1 - ref_hs).abs().max()), float((hs - ref_hs).abs().max()),
+                        rel_err(cs, ref_cs))
+            line = (f"; B1 hs {fwd_errs[0]:.3e}, B2 fwd hs {fwd_errs[1]:.3e} (limit "
+                    f"{KERNEL_TOL:.0e}), cs / max|cs| {fwd_errs[2]:.3e}")
+            if not (max(fwd_errs[:2]) <= KERNEL_TOL and fwd_errs[2] <= B2_TOL):
+                raise AssertionError(f"the forward kernels disagree at {ndir} direction(s): "
+                                     f"{fwd_errs}")
+        else:
+            route = forced
+            out = L._launch_bwd(route, xw, w_hh_t, ref_hs, ref_cs, dhs)
+            again = L._launch_bwd(route, xw, w_hh_t, ref_hs, ref_cs, dhs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"lstm_bidir_tm_bwd ({route}) gave other bits on the same "
+                                 "inputs")
+        # at T = 1 dW_hh^T is all zeros on both sides: an absolute error then
+        scale = [float(r.abs().max()) or 1.0 for r in ref]
+        errs = [float((a - r).abs().max()) for a, r in zip(out, ref)]
+        rels = [e / m for e, m in zip(errs, scale)]
+        print(f"[kernel] lstm_bidir_tm_bwd route {route!r}"
+              f"{'' if forced is None else ' (launched directly, not its route here)'} "
+              f"directions={ndir} B={B} T={T} H={H}: dxw err / max|dxw| {rels[0]:.3e}, "
+              f"dW_hh^T err / max|dW_hh^T| {rels[1]:.3e} (limit {B2_TOL:.0e}); twice: "
+              f"identical bits{line}", flush=True)
+        if not max(rels) <= B2_TOL:
+            raise AssertionError(f"lstm_bidir_tm_bwd ({route}) disagrees: {rels}")
+        worst[route] = [max(worst[route][0], *rels), max(worst[route][1], *errs)]
+    return worst
+
+
+def bwd_phase_times(torch, L, tensors, B, card):
+    """B2 bwd's earlier single-kernel route at the same inputs (launched
+    directly, in turns with the route taken), and the device time of each
+    phase of the route taken, by kernel name under the profiler. Returns
+    {"grid": ms, "phases": ms, "gates": ms, "chain": ms, "dw": ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {"phases": [], "grid": []}
+    for route in ("grid", "phases", "phases", "grid"):
+        runs[route].append(cuda_ms(torch, lambda: L._launch_bwd(route, *tensors), iters=5))
+    out = {route: min(ms) for route, ms in runs.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            L.lstm_bidir_tm_bwd(*tensors)
+        torch.cuda.synchronize()
+    phases = {"gates": 0.0, "chain": 0.0, "dw": 0.0}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for key, tag in (("gates", "lstm_bwd_gates"), ("chain", "lstm_bwd_seq"),
+                         ("dw", "lstm_bwd_dw")):
+            if tag in evt.name:
+                phases[key] += evt.time_range.elapsed_us() / 1e3 / 5
+    out.update(phases)
+    total = sum(phases.values())
+    print(f"[time] lstm_bidir_tm_bwd B={B} T=1001 H=256 by route: 'phases' (the route taken) "
+          f"{' / '.join(f'{x:.3f}' for x in runs['phases'])} ms, 'grid' (the earlier design, "
+          f"launched directly) {' / '.join(f'{x:.3f}' for x in runs['grid'])} ms; phases "
+          f"under torch.profiler: "
+          + ", ".join(f"{k} {v:.3f} ms {v / max(total, 1e-9):.1%}" for k, v in phases.items())
+          + f" | {card}", flush=True)
+    if not total > 0.0:
+        raise AssertionError("the profiler saw no kernel of B2 bwd's phases")
+    return out
 
 
 def write_corpus(root, seed):
@@ -350,8 +461,8 @@ def flash_checks(torch, A):
                                        for a, b in zip(grads, ref_grads)])
 
     # q, k, v as views whose rows start off a 16-byte boundary (a fused
-    # projection one column wider, its first column dropped): B3 bwd then
-    # stages its tiles with scalar loads in place of 16-byte copies
+    # projection one column wider, its first column dropped): B3 then stages
+    # its tiles with scalar loads in place of 16-byte copies
     B, T, N, D, rate = 2, 70, 4, 32, 0.2
     g = torch.Generator().manual_seed(SEED + 7)
     wide = torch.randn(B, T, 3 * N * D + 1, generator=g).cuda()
@@ -359,15 +470,20 @@ def flash_checks(torch, A):
     dout = torch.randn(B, T, N * D, generator=g).cuda()
     args = (D ** -0.5, rate, salt, None, batch0)
     ref_out, ref_lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+    out, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
     grads = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
     ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
     torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(grads, ref_grads)]
-    print(f"[kernel] flash_attention_bwd on unaligned q, k, v views B={B} T={T} N={N} D={D}: "
-          f"err / max|value| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (limit "
-          f"{B3_TOL:.0e})", flush=True)
+    errs = [rel_err(out, ref_out), rel_err(lse, ref_lse)]
+    errs += [rel_err(a, b) for a, b in zip(grads, ref_grads)]
+    print(f"[kernel] flash_attention fwd and bwd on unaligned q, k, v views B={B} T={T} "
+          f"N={N} D={D}: err / max|value| out {errs[0]:.3e}, lse {errs[1]:.3e}, dq "
+          f"{errs[2]:.3e}, dk {errs[3]:.3e}, dv {errs[4]:.3e} (limit {B3_TOL:.0e})",
+          flush=True)
     if not all(e <= B3_TOL for e in errs):
-        raise AssertionError(f"flash_attention_bwd disagrees on unaligned views: {errs}")
+        raise AssertionError(f"flash attention disagrees on unaligned views: {errs}")
+    worst_fwd = max(worst_fwd, float((out - ref_out).abs().max()),
+                    float((lse - ref_lse).abs().max()))
     worst_bwd = max([worst_bwd] + [float((a - b).abs().max())
                                    for a, b in zip(grads, ref_grads)])
 
@@ -547,31 +663,36 @@ def bound(flops, nbytes, peak=PEAK_F32):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def lstm_bound(B, T, H, products=1, extra_streams=0, D=0):
+def lstm_bound(B, T, H, products=1, extra_streams=0, D=0, peak=PEAK_F32):
     """B1 / B6: one h @ W_hh^T a step and direction, xw in, hs out.
     ``products`` 3 for the backward; ``extra_streams`` counts further
     (2, B, T, H)-sized tensors moved (cs, dhs) and, for the backward, the
     (2, B, T, 4H) dxw; ``D`` > 0 (B7) swaps the xw stream for xs and W_ih^T
-    and adds the projection."""
+    and adds the projection. ``peak=PEAK_TF32`` counts each product as three
+    TF32 passes on the tensor cores (B2 bwd, whose gate and dW_hh^T products
+    run there) in place of f32 FMAs."""
     flops = products * 2 * 2 * B * T * H * 4 * H + 2 * 2 * B * T * D * 4 * H
     stream = 2 * B * T * (D if D else 4 * H)
     weights = 2 * H * 4 * H + (2 * D * 4 * H + 2 * 4 * H if D else 0)
     nbytes = 4 * (stream + weights + 2 * B * T * H * (1 + extra_streams))
     if products == 3:
         nbytes += 4 * (2 * B * T * 4 * H + 2 * H * 4 * H)  # dxw and dW_hh^T out
-    return bound(flops, nbytes)
+    return bound(3 * flops if peak == PEAK_TF32 else flops, nbytes, peak)
 
 
-def attention_bound(B, T, N, D, products):
+def attention_bound(B, T, N, D, products, peak=PEAK_TF32):
     """B3: ``products`` tile products of 2 * T * T * D operations a head (2
-    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once. The
-    forward's products are f32 FMAs; the backward's are three TF32 passes
-    each on the tensor cores, the cheapest arithmetic that keeps f32
-    accuracy: 5 * 3 * 2 * B * N * T * T * D over the TF32 peak."""
+    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once.
+    Each product is three TF32 passes on the tensor cores, the cheapest
+    arithmetic that keeps f32 accuracy: products * 3 * 2 * B * N * T * T * D
+    over the TF32 peak. ``peak=PEAK_F32`` gives the same products as f32 FMAs
+    on the CUDA cores instead (the figure the forward's first design was
+    held against)."""
     flops = products * 2 * B * N * T * T * D
-    if products == 2:
-        return bound(flops, 4 * (4 * B * T * N * D + B * N * T))
-    return bound(3 * flops, 4 * (9 * B * T * N * D + B * N * T), PEAK_TF32)
+    nbytes = 4 * ((4 if products == 2 else 9) * B * T * N * D + B * N * T)
+    if peak == PEAK_F32:
+        return bound(flops, nbytes)
+    return bound(3 * flops, nbytes, PEAK_TF32)
 
 
 def stft_bound(rows, n_frames, n_fft, hop):
@@ -752,6 +873,105 @@ def enhance_times(torch, build, make_enhance, card):
               + f"), idle share {max(0.0, 1 - busy / wall):.3f}, {n_kernels / 10:.0f} device "
               f"kernels a call | {card}", flush=True)
     return out
+
+
+def one_direction_slice(torch, kernels, all_kernels, dsp_kernels, card):
+    """A one-direction 3 x 256 ``Residual`` head (the shape config/vcb.yaml
+    ships) on the card: served through ``build_enhancer`` against the CPU, its
+    B=1 10 s latency, and one train step through ``LstmBidirTm`` against the
+    same step on the CPU. Returns (B1 launches of the served batch, latency
+    in ms)."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import (
+        build,
+        build_train,
+        flagship_settings,
+        make_enhance,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer
+
+    b1 = kernels[0]
+    requests = [request_audio(s, 40 + i) for i, s in enumerate(REQUEST_SECONDS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, model = build(bidirectional=False, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED + 1))
+        config, paras = flagship_settings(bidirectional=False)
+        ckpt = save_checkpoint(tmp, 0, model, None, config, paras)
+        gpu = build_enhancer(ckpt, device="cuda")
+        cpu = build_enhancer(ckpt, device="cpu")
+        # -- the main path of the one-direction head --
+        reset_counts(all_kernels)
+        outs = gpu.run_batch(requests)
+        counts = [fn.launches for fn in all_kernels]
+        # ---------------------------------------------
+        served = (b1.launches, *(fn.launches for fn in dsp_kernels))
+        refs = cpu.run_batch(requests)
+    worst = max(float(np.abs(o - r).max() / np.sqrt(np.mean(r ** 2)))
+                for o, r in zip(outs, refs))
+    print(f"[slice] one-direction head (Residual 3 x 256, bidirectional=False) served on "
+          f"cuda: one device batch of {len(requests)} requests, launches (B1, B4, B5) "
+          f"{list(served)}, no other kernel; GPU vs CPU max |diff| / output RMS {worst:.3e} "
+          f"(limit {SLICE_TOL:.0e})", flush=True)
+    if (served != (3, 1, 1) or sum(counts) != 5 or not worst <= SLICE_TOL or not all(
+            o.shape == w.shape and np.isfinite(o).all() for o, w in zip(outs, requests))):
+        raise AssertionError(f"one-direction head: launches {counts}, GPU vs CPU {worst}")
+
+    pre, model = build(bidirectional=False, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    enhance = make_enhance(pre, model)
+    wav = torch.from_numpy(np.stack([request_audio(10.0, s) for s in range(3)]))
+    wavs, lengths = wav[None].cuda(), torch.tensor([wav.shape[-1]]).cuda()
+    for _ in range(3):
+        enhance(wavs, lengths)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        enhance(wavs, lengths)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    latency = statistics.median(lat)
+    print(f"[time] enhance B=1 10 s (T=1001 frames), one-direction 3 x 256 head: median "
+          f"{latency:.3f} ms over 20 calls (min {min(lat):.3f}, max {max(lat):.3f}) | {card}",
+          flush=True)
+
+    # one train step on the card vs on the CPU: the same seeded weights, one
+    # batch of 6 rows of 4 s
+    rng = np.random.default_rng(SEED)
+    clean = np.stack([request_audio(4.0, s) for s in range(6)])
+    noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+    wavs_np = np.stack([clean + noise, clean, noise], axis=1)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        trainer = build_train(bidirectional=False, device=device,
+                              generator=torch.Generator().manual_seed(SEED))
+        state = trainer.init_state()
+        wavs = torch.from_numpy(wavs_np).to(device)
+        lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long, device=device)
+        reset_counts(all_kernels)
+        loss, _ = trainer.loss_fn(make_context(trainer.preprocessor, wavs, lengths, 0, 1))
+        names = list(state.params)
+        g = torch.autograd.grad(loss, [state.params[k] for k in names])
+        flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+        state, stats = trainer.train_step(state, wavs, lengths)
+        sides[device] = (float(stats["loss"]), float(stats["grad_norm"]), flat,
+                         [fn.launches for fn in kernels])
+    (gl, gn, gg, g_counts), (cl, cn, cg, c_counts) = sides["cuda"], sides["cpu"]
+    loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+    grad_rel = float((gg - cg).norm() / cg.norm())
+    print(f"[train] one-direction head GPU vs CPU one step (B=6, 4 s): loss {gl:.6f} vs "
+          f"{cl:.6f} rel {loss_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}); grad_norm rel "
+          f"{norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}); |g_gpu - g_cpu| / |g_cpu| "
+          f"{grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); launches (B1, B2 fwd, B2 bwd) of "
+          f"the gradient and the step on cuda {g_counts}, on the CPU {c_counts}", flush=True)
+    if g_counts != [0, 6, 6] or c_counts != [0, 0, 0]:
+        raise AssertionError(f"one-direction train step: launches {g_counts} / {c_counts}")
+    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+            and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError("the one-direction train step on the card disagrees with the "
+                             "CPU")
+    return served[0], latency
 
 
 def upstream_slice(torch, corpus, tmp, lstm_kernels, flash_kernels):
@@ -1180,8 +1400,11 @@ def main():
         hs, cs = lstm_bidir_tm_fc(xw, w_hh_t)
         ref_hs, ref_cs = lstm_bidir_tm_fc_ref(xw, w_hh_t)
         dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs)
+        again = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs)
         ref_dxw, ref_dw = lstm_bidir_tm_bwd_ref(xw, w_hh_t, ref_hs, ref_cs, dhs)
         torch.cuda.synchronize()
+        if not (torch.equal(dxw, again[0]) and torch.equal(dw, again[1])):
+            raise AssertionError("lstm_bidir_tm_bwd gave other bits on the same inputs")
         h_err = float((hs - ref_hs).abs().max())
         c_err = rel_err(cs, ref_cs)
         dx_err = rel_err(dxw, ref_dxw)
@@ -1189,9 +1412,10 @@ def main():
         print(f"[kernel] lstm_bidir_tm_fc B={B} T={T} H={H}: hs max_abs_err "
               f"{h_err:.3e} (limit {KERNEL_TOL:.0e}), cs err / max|cs| {c_err:.3e} "
               f"(limit {B2_TOL:.0e})", flush=True)
-        print(f"[kernel] lstm_bidir_tm_bwd B={B} T={T} H={H}: dxw err / max|dxw| "
-              f"{dx_err:.3e}, dW_hh^T err / max|dW_hh^T| {dw_err:.3e} (max "
-              f"{float(ref_dw.abs().max()):.3f}) (limit {B2_TOL:.0e})", flush=True)
+        print(f"[kernel] lstm_bidir_tm_bwd route {L.bwd_route(H)!r} B={B} T={T} H={H}: dxw "
+              f"err / max|dxw| {dx_err:.3e}, dW_hh^T err / max|dW_hh^T| {dw_err:.3e} (max "
+              f"{float(ref_dw.abs().max()):.3f}) (limit {B2_TOL:.0e}); twice: identical "
+              f"bits", flush=True)
         if not (h_err <= KERNEL_TOL and c_err <= B2_TOL):
             raise AssertionError(f"lstm_bidir_tm_fc disagrees: hs {h_err}, cs {c_err}")
         if not (dx_err <= B2_TOL and dw_err <= B2_TOL):
@@ -1214,6 +1438,10 @@ def main():
           flush=True)
     if not fn_err <= B2_TOL:
         raise AssertionError(f"LstmBidirTm gradients disagree: {fn_err}")
+
+    b2_routes = bwd_route_checks(torch, L)
+    b2_err["bwd"] = max(b2_err["bwd"], b2_routes["phases"][0])
+    b2_err["bwd_abs"] = max(b2_err["bwd_abs"], b2_routes["phases"][1])
 
     b3_err = flash_checks(torch, A)
     dsp_err = dsp_checks(torch, S, stft_kernel, decode_kernel)
@@ -1377,6 +1605,9 @@ def main():
                 or not long_rel <= SLICE_TOL):
             raise AssertionError(f"long-form entry: shape {long_out.shape}, launches "
                                  f"{long_counts}, GPU vs CPU {long_rel}")
+
+    one_dir_launches, one_dir_ms = one_direction_slice(
+        torch, kernels, all_kernels, (stft_fused, decode_ola), card)
 
     # 5. the training slice at full width, through the Runner
     with tempfile.TemporaryDirectory() as tmp:
@@ -1589,6 +1820,15 @@ def main():
             print(f"[time] lstm_bidir_tm_{name} B={B} T=1001 H=256: kernel {kern:.3f} / "
                   f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
                   flush=True)
+        times[("bwd_phases", B)] = bwd_phase_times(torch, L, (xw, w_hh_t, hs, cs, dhs), B,
+                                                   card)
+
+    # the dh chain where its clusters of 8 rows no longer all run at once: 14
+    # rows of clusters (B = 56, two directions) against 16 (B = 64, above)
+    tensors = kernel_grad_inputs(torch, 56, 1001, 256, SEED)
+    times[("bwd_phases", 56)] = bwd_phase_times(
+        torch, L, (*tensors[:2], *lstm_bidir_tm_fc(*tensors[:2]), tensors[2]), 56, card)
+    del tensors
 
     # the flagship train step and eval batch at B=6, a 10 s bucket
     builder = build_train(device="cuda", generator=torch.Generator().manual_seed(SEED))
@@ -1645,8 +1885,8 @@ def main():
         if evt.device_type != DeviceType.CUDA:
             continue
         name = evt.name
-        if "lstm_bidir_tm_bwd_kernel" in name:
-            key = "B2 bwd"
+        if "lstm_bwd_" in name or "lstm_bidir_tm_bwd_kernel" in name:
+            key = "B2 bwd"  # the three phases (or the earlier single kernel)
         elif "lstm_bidir_tm_kernel" in name:
             key = "B2 fwd"
         elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
@@ -1659,6 +1899,9 @@ def main():
           f"step, device busy {busy:.3f} ms ("
           + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items())
           + f"), idle share {max(0.0, 1 - busy / wall):.3f} | {card}", flush=True)
+    if not (shares["B2 fwd"] > 0.0 and shares["B2 bwd"] > 0.0):
+        raise AssertionError(f"the profiler attributed no time to a recurrence kernel: "
+                             f"{shares}")
     del builder, state
     times.update(upstream_times(torch, A, card))
 
@@ -1676,7 +1919,7 @@ def main():
 
     # every bound is worked out from the shape named beside it, by the cheapest
     # arithmetic the numerics allow (f32 FMAs; three TF32 passes a product for
-    # B3 bwd; an FFT for B4, so bytes bind it); library_ms is
+    # B3; an FFT for B4, so bytes bind it); library_ms is
     # one bidirectional nn.LSTM layer (cuDNN, projection included) for the
     # recurrences, scaled_dot_product_attention and its backward at rate 0 for
     # B3, torch.stft (cuFFT) for B4, and for B5, whose function no single
@@ -1686,6 +1929,7 @@ def main():
         row("lstm_bidir_tm", "lstm_tm.cu", "lstm_kernel.py:208", launches, max_err,
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
             launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
+            launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
             ms_b64=times[64][0], plain_ms_b64=times[64][1],
             bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64]),
         row("lstm_bidir_tm_fc", "lstm_tm.cu", "lstm_kernel.py:391", train_counts[1],
@@ -1696,17 +1940,29 @@ def main():
             library_ms_b64=times[("cudnn_train", 64)][0]),
         row("lstm_bidir_tm_bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", train_counts[2],
             b2_err["bwd_abs"], times[("bwd", 6)][0], times[("bwd", 6)][1],
-            "B=6 T=1001 H=256", lstm_bound(6, T, H, products=3, extra_streams=3),
+            "B=6 T=1001 H=256",
+            lstm_bound(6, T, H, products=3, extra_streams=3, peak=PEAK_TF32),
             times[("cudnn_train", 6)][1], max_rel_err=b2_err["bwd"],
             ms_b64=times[("bwd", 64)][0], plain_ms_b64=times[("bwd", 64)][1],
-            bound_ms_b64=lstm_bound(64, T, H, products=3, extra_streams=3)[0],
-            library_ms_b64=times[("cudnn_train", 64)][1]),
+            bound_ms_b64=lstm_bound(64, T, H, products=3, extra_streams=3,
+                                    peak=PEAK_TF32)[0],
+            bound_ms_f32_fma=lstm_bound(6, T, H, products=3, extra_streams=3)[0],
+            bound_ms_f32_fma_b64=lstm_bound(64, T, H, products=3, extra_streams=3)[0],
+            library_ms_b64=times[("cudnn_train", 64)][1],
+            kernel_route="phases (H a multiple of 8, at most 256)",
+            grid_route="any other H; timed here at H=256, launched directly",
+            grid_max_rel_err=b2_routes["grid"][0], grid_max_abs_err=b2_routes["grid"][1],
+            **{f"{key}_ms{sfx}": times[("bwd_phases", B)][key]
+               for B, sfx in ((6, ""), (56, "_b56"), (64, "_b64"))
+               for key in ("phases", "grid", "gates", "chain", "dw")}),
         row("flash_attention_fwd", "flash_attn.cu", "attention_kernel.py:277",
             mj_launches[0], b3_err[0], times[("b3fwd", 6)][0], times[("b3fwd", 6)][1],
             "B=6 T=1001 N=12 D=64 rate 0.1", attention_bound(6, T, 12, 64, 2),
             times[("b3sdpa", 6)][1], ms_b64=times[("b3fwd", 64)][0],
             plain_ms_b64=times[("b3fwd", 64)][1],
             bound_ms_b64=attention_bound(64, T, 12, 64, 2)[0],
+            bound_ms_f32_fma=attention_bound(6, T, 12, 64, 2, PEAK_F32)[0],
+            bound_ms_f32_fma_b64=attention_bound(64, T, 12, 64, 2, PEAK_F32)[0],
             library_ms_b64=times[("b3sdpa", 64)][1],
             rate0_ms=times[("b3sdpa", 6)][0], rate0_ms_b64=times[("b3sdpa", 64)][0]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "attention_kernel.py:314",

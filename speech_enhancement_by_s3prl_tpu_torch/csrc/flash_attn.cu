@@ -1,5 +1,5 @@
-// Flash attention forward with in-kernel hash dropout (kernel B3 fwd), f32,
-// for Hopper.
+// Flash attention forward with in-kernel hash dropout (kernel B3 fwd), f32 in
+// and out, on Hopper's tensor cores.
 //
 // Replaces, in speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py,
 // _fwd_impl / _fwd_kernel (the pallas_call at :277): the attention of every
@@ -16,166 +16,226 @@
 // absolute head index (batch0 + b) * N + n, so the mask is the JAX kernel's
 // bit for bit whatever the tiling.
 //
-// What bounds it on this card: the TPU kernel keeps whole K and V rows of a
-// head group in VMEM; at T = 1001 one head's K and V are 512 KB in f32, more
-// than one SM's shared memory. So this is the usual online softmax over key
-// tiles: one block per (64-query tile, head, batch), 1152 blocks at B = 6,
-// N = 12, T = 1001. Per key tile the block stages K (transposed) and V (16 KB
-// each) in shared memory, computes its 64 x 64 logits with f32 FMAs (4 x 4 a
-// thread), folds them into the running max m and sum l, draws the keep bits
-// in registers, and adds the dropped probabilities times V into its (64, D)
-// accumulator. Nothing of size T x T ever reaches device memory. The products
-// are f32 FMAs on the CUDA cores (about 2 FMAs per shared-memory load): the
-// port computes in f32 without TF32, and tensor cores (wgmma on bf16 copies)
-// are later work.
+// What bounds it on this card: operations. The two T x T x D products of a
+// head are 18.5 GFLOP at B=6, T=1001, 12 x 64 against 0.07 GB moved. As f32
+// FMAs on the CUDA cores (this kernel's first design, 21 TFLOP/s reached of
+// 67, about 2 FMAs a shared-memory load) that is the whole time; the tensor
+// cores do the same products to f32 accuracy in three TF32 passes
+// (mma_tf32x3.cuh) at a third of 495 TFLOP/s. Single-pass TF32 (~1e-3) would
+// fail the kernel's 1e-4 limit.
+//
+// Design. The TPU kernel keeps whole K and V rows of a head group in VMEM; at
+// T = 1001 one head's K and V are 512 KB in f32, more than one SM's shared
+// memory, so this is the usual online softmax over key tiles. One block of 4
+// warps per (64-query tile, head, batch); a warp owns 16 query rows. The
+// block's queries, times scale, stay in shared memory; K and V are walked 32
+// keys at a time through two stages of shared memory: cp.async copies tile
+// i + 1 while tile i is worked on, one barrier a tile. Per key tile a warp
+//   - computes s = (scale q) k^T into accumulator fragments (k read as the
+//     [n][k] operand by ldmatrix);
+//   - adds the key bias, folds the tile into the running row max m and row
+//     sum l (max and sum across the four lanes that hold a row, by shuffles;
+//     l is kept as each lane's share and summed once at the end), rescales
+//     its (16, D) output accumulator, and draws each element's keep bit in
+//     registers from its absolute (head, query, key);
+//   - multiplies the dropped probabilities by V: the s accumulator tile is
+//     the A fragment of that product as it stands (frag_a_from_acc, with V
+//     read as the [k][n] operand in the matching contraction order), so the
+//     probabilities never pass through shared memory. The tile's p v goes
+//     through a fresh accumulator (12 chained passes on the tensor core) and
+//     one f32 addition into the output accumulator, because the tensor
+//     core's accumulator truncates where f32 addition rounds.
+// The online softmax, the hash and the rescaling stay f32 on the CUDA cores.
+// Nothing of size T x T ever reaches device memory.
 //
 // q, k and v may be strided views (the three thirds of the fused QKV
 // projection): they share the batch stride sb and the time stride st, with
-// unit stride inside a row. kbias is (B, T) f32; out is a contiguous
-// (B, T, N * D) f32 tensor and lse a contiguous (B, N, T) f32 tensor.
+// unit stride inside a row; tiles are copied 16 bytes at a time where every
+// row start is 16-byte aligned, with scalar loads otherwise. kbias is (B, T)
+// f32; out is a contiguous (B, T, N * D) f32 tensor and lse a contiguous
+// (B, N, T) f32 tensor.
 
 #include <math.h>
 
 #include "flash_attn_common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace tf32x3;
 
-// Dynamic shared memory, in floats:
-//   q_s  [kBQ][D + 1]   this block's queries, times scale
-//   kt_s [D][kPad]      the key tile, transposed
-//   v_s  [kBK][D]       the value tile
-//   p_s  [kBQ][kPad]    the tile's dropped probabilities
-//   kb_s [kBK]          the tile's key bias, -inf for keys >= T
+// Dynamic shared memory, in floats: the resident [64][D + 4] query tile, two
+// stages of the walked [32][D + 4] key and value tiles, and two stages of the
+// 32-entry key bias.
 template <int D>
 constexpr int fwd_smem_floats() {
-  return kBQ * (D + 1) + D * kPad + kBK * D + kBQ * kPad + kBK;
+  return 64 * (D + 4) + 2 * (2 * kWalk * (D + 4) + kWalk);
+}
+
+// Max or sum over the four lanes (lane % 4 = 0 .. 3) that hold one row of an
+// accumulator tile.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ kbias,
                  float* __restrict__ out, float* __restrict__ lse, int T, int N,
                  long long sb, long long st, float scale, float keep, uint32_t thresh,
-                 uint32_t s0, uint32_t s1, int batch0, int dropout) {
-  constexpr int DC = D / 16;  // output columns a thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* kt_s = q_s + kBQ * (D + 1);
-  float* v_s = kt_s + D * kPad;
-  float* p_s = v_s + kBK * D;
-  float* kb_s = p_s + kBQ * kPad;
+                 uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
+  constexpr int LD = D + 4;
+  constexpr int DN = D / 8;      // 8-column tiles of out
+  constexpr int CN = kWalk / 8;  // 8-key tiles of s
+  constexpr int kStage = 2 * kWalk * LD + kWalk;  // floats of one walked stage
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // scale q
+  float* walk_s = q_s + 64 * LD;                 // per stage: k, v, key bias
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
   const long long head = (long long)b * sb + (long long)n * D;
-  const float* qb = q + head;
-  const float* kb = k + head;
-  const float* vb = v + head;
   const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    q_s[r * (D + 1) + d] = t < T ? qb[(long long)t * st + d] * scale : 0.f;
-  }
+  auto start = [&](int i) {
+    float* w = walk_s + (i & 1) * kStage;
+    start_walk_tile<D>(w, k + head, st, w + kWalk * LD, v + head, st, w + 2 * kWalk * LD,
+                       kbias + (long long)b * T, nullptr, nullptr, i * kWalk, T, vec);
+  };
+  start(0);
+  load_tile<D>(q_s, q + head, st, q0, T, scale, vec);
+  // this thread's accumulator rows: queries q_a and q_a + 8 (entries e < 2
+  // and e >= 2 of a fragment); its columns of tile j: 8 j + 2 t4 and the next
+  const int q_a = q0 + warp * 16 + g;
 
-  float m[4], l[4], acc[4][DC];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int c = 0; c < DN; ++c)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // the last tile's readers are done (and q_s is stored)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D, t = k0 + r;
-      const bool ok = t < T;
-      kt_s[d * kPad + r] = ok ? kb[(long long)t * st + d] : 0.f;
-      v_s[r * D + d] = ok ? vb[(long long)t * st + d] : 0.f;
-    }
-    if (tid < kBK) {
-      const int t = k0 + tid;
-      kb_s[tid] = t < T ? kbias[(long long)b * T + t] : -INFINITY;
-    }
+  const float* qa_s = q_s + warp * 16 * LD;
+  const int n_walk = (T + kWalk - 1) / kWalk;
+
+  for (int i = 0; i < n_walk; ++i) {
+    // tile i has landed; every warp is done with tile i - 1, whose stage the
+    // copy of tile i + 1 may now overwrite while tile i is worked on
+    cp_async_wait_all();
     __syncthreads();
+    if (i + 1 < n_walk) start(i + 1);
+    const float* k_s = walk_s + (i & 1) * kStage;
+    const float* v_s = k_s + kWalk * LD;
+    const float* kb_s = v_s + kWalk * LD;
+    const int k0 = i * kWalk;
 
-    float s[4][4];
+    // s = (scale q) k^T: 16 queries x 32 keys
+    float s_acc[CN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < CN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
+      for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      FragA qa;
+      FragB kf[CN];
+      load_a(qa, qa_s + d0, LD, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = kt_s[d * kPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      for (int j = 0; j < CN; j += 2)
+        load_b_nk_x2(kf[j], kf[j + 1], k_s + 8 * j * LD + d0, LD, lane);
+      mma3<CN>(s_acc, qa, kf);
     }
 
+    // the key bias (-inf for keys >= T) and the tile's row maxima
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      float mx = -INFINITY;
+    for (int j = 0; j < CN; ++j) {
+      const float2 kb = *reinterpret_cast<const float2*>(kb_s + 8 * j + 2 * t4);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += kb_s[tx + 16 * j];
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        s_acc[j][e] += (e & 1) ? kb.y : kb.x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[j][e]);
       }
-      const float m_new = fmaxf(m[i], row_max16(mx));
+    }
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
       // all keys so far at -inf (a -inf key bias): keep exp() finite
-      const float shift = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - shift);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] - shift);
-        rs += p;
-        if (dropout && !keep_bit(bn, (uint32_t)(q0 + row), (uint32_t)(k0 + tx + 16 * j),
-                                 s0, s1, thresh))
-          p = 0.f;
-        p_s[row * kPad + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      shift[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = expf(m[h] - shift[h]);
+      m[h] = m_new;
     }
-    __syncthreads();
+    // p replaces s; l sums the undropped p, the product takes the dropped
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s_acc[j][e] - shift[e >> 1]);
+        rs[e >> 1] += p;
+        const bool kept =
+            !dropout || keep_bit(bn, (uint32_t)(q_a + 8 * (e >> 1)),
+                                 (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s0, s1, thresh);
+        s_acc[j][e] = kept ? p : 0.f;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int c = 0; c < DN; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha[e >> 1];
 
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4], vv[DC];
+    // out += p v: contraction over the tile's keys, 8 at a time, the s tiles
+    // as the A operands; per group of 4 column tiles the tile's sum in fresh
+    // accumulators on the tensor core, then one f32 addition
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * kPad + kk];
+    for (int c = 0; c < DN; c += 4) {
+      float pv[4][4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = v_s[kk * D + tx + 16 * c];
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) pv[u][e] = 0.f;
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+      for (int j = 0; j < CN; ++j) {
+        FragA pa;
+        frag_a_from_acc(pa, s_acc[j]);
+        FragB vf[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          load_b_kn(vf[u], v_s + 8 * j * LD + 8 * (c + u), LD, lane);
+        mma3<4>(pv, pa, vf);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c + u][e] += pv[u][e];
     }
   }
 
   const int H = N * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int t = q_a + 8 * h;
+    const float sum = quad_sum(l[h]);  // every lane of the warp shuffles
     if (t >= T) continue;
-    const float r = 1.f / (l[i] * keep);
-    float* o = out + ((long long)b * T + t) * H + (long long)n * D;
+    const float r = 1.f / (sum * keep);
+    float* o = out + ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c] * r;
-    if (tx == 0) lse[((long long)b * N + n) * T + t] = m[i] + logf(l[i]);
+    for (int c = 0; c < DN; ++c)
+      *reinterpret_cast<float2*>(o + 8 * c) =
+          make_float2(acc[c][2 * h] * r, acc[c][2 * h + 1] * r);
+    if (t4 == 0) lse[((long long)b * N + n) * T + t] = m[h] + logf(sum);
   }
 }
 
@@ -188,9 +248,12 @@ int launch(const float* q, const float* k, const float* v, const float* kbias, f
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  // 16-byte tile loads where every row start is 16-byte aligned
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && sb % 4 == 0 && st % 4 == 0;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, batch0, dropout);
+  flash_fwd_kernel<D><<<grid, kTileThreads, smem, stream>>>(
+      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, batch0, dropout,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -201,7 +264,8 @@ extern "C" {
 // Kernel B3 fwd. Launches on `stream` of `device` and returns
 // cudaGetLastError() (0 on success); does not synchronise. D is 32, 64 or
 // 128; thresh is min(int((1 - rate) * 2^32), 2^32 - 1) and keep = 1 - rate,
-// both computed by the caller; dropout = 0 skips the hash (rate 0).
+// both computed by the caller; dropout = 0 skips the hash (rate 0). out must
+// be 8-byte aligned (it is a whole allocation).
 int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* kbias,
                        void* out, void* lse, int B, int T, int N, int D, long long sb,
                        long long st, float scale, float keep, unsigned thresh, unsigned s0,

@@ -71,9 +71,6 @@ namespace {
 using namespace flash;
 using namespace tf32x3;
 
-constexpr int kTileThreads = 128;  // 4 warps of 16 resident rows each
-constexpr int kWalk = 32;          // rows of a walked (streamed) tile
-
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ out,
                      float* __restrict__ di, int B, int T, int N, int D) {
@@ -91,92 +88,6 @@ flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ o
     const long long n = row % N, bt = row / N, t = bt % T, b = bt / T;
     di[(b * N + n) * T + t] = acc;
   }
-}
-
-// The block's resident 64-row tile of a (., T, .) operand at time rows t0 ..
-// t0 + 63 into dst[64][D + 4], times mul, rows >= T as zeros. 16 bytes a load
-// where the pointers and strides allow it (vec).
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
-                                          int t0, int T, float mul, int vec) {
-  constexpr int LD = D + 4;
-  if (vec) {
-    constexpr int C4 = D / 4;
-    for (int i = threadIdx.x; i < 64 * C4; i += kTileThreads) {
-      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t < T) x = *reinterpret_cast<const float4*>(src + (long long)t * row_stride + c);
-      x.x *= mul, x.y *= mul, x.z *= mul, x.w *= mul;
-      *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * D; i += kTileThreads) {
-      const int r = i / D, c = i % D, t = t0 + r;
-      dst[r * LD + c] = t < T ? src[(long long)t * row_stride + c] * mul : 0.f;
-    }
-  }
-}
-
-// Asynchronous copies global -> shared: `bytes` of the 16 (or 4) are read,
-// the rest of the destination is zero-filled (bytes = 0: all zeros).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// Start the copy of a walked tile: time rows t0 .. t0 + 31 of two (., T, .)
-// operands into a[32][D + 4] and b[32][D + 4] and of two per-row vectors into
-// ra[32] and rb[32] (rows >= T: zeros; where rb is null, ra is the key bias
-// and its rows >= T are -inf). The copies are asynchronous where 16-byte
-// loads are possible and land before the next cp_async_wait_all; otherwise
-// plain loads and stores.
-template <int D>
-__device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, long long a_stride,
-                                                float* b, const float* b_src, long long b_stride,
-                                                float* ra, const float* ra_src, float* rb,
-                                                const float* rb_src, int t0, int T, int vec) {
-  constexpr int LD = D + 4;
-  if (vec) {
-    constexpr int C4 = D / 4;
-    for (int i = threadIdx.x; i < kWalk * C4; i += kTileThreads) {
-      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
-      const int bytes = t < T ? 16 : 0;
-      const long long row = t < T ? t : T - 1;  // a valid address either way
-      cp_async16(a + r * LD + c, a_src + row * a_stride + c, bytes);
-      cp_async16(b + r * LD + c, b_src + row * b_stride + c, bytes);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kWalk * D; i += kTileThreads) {
-      const int r = i / D, c = i % D, t = t0 + r;
-      a[r * LD + c] = t < T ? a_src[(long long)t * a_stride + c] : 0.f;
-      b[r * LD + c] = t < T ? b_src[(long long)t * b_stride + c] : 0.f;
-    }
-  }
-  if (threadIdx.x < kWalk) {
-    const int t = t0 + threadIdx.x;
-    if (rb != nullptr) {
-      cp_async4(ra + threadIdx.x, ra_src + (t < T ? t : T - 1), t < T ? 4 : 0);
-      cp_async4(rb + threadIdx.x, rb_src + (t < T ? t : T - 1), t < T ? 4 : 0);
-    } else {
-      ra[threadIdx.x] = t < T ? ra_src[t] : -INFINITY;  // keys >= T: bias -inf
-    }
-  }
-  cp_async_commit();
 }
 
 // p and ds of one accumulator entry, from s and dp: query qi, key ki. Keys
@@ -488,8 +399,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float2(dq_acc[c][2 * half] * scale, dq_acc[c][2 * half + 1] * scale);
   }
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias,

@@ -1,20 +1,24 @@
 // Shared by flash_attn.cu (kernel B3 fwd) and flash_attn_bwd.cu (B3 bwd): the
-// tile geometry and the attention-dropout hash.
+// tile geometry, the attention-dropout hash and the staging of tiles from
+// device memory into shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace flash {
 
-// Query rows and keys of one tile; 256 threads as a 16 x 16 grid, thread
-// (ty, tx) owning rows ty + 16 i and columns tx + 16 j, i, j < 4.
+// A tile kernel's block is 4 warps; a warp owns 16 rows of the block's
+// resident 64-row tile (kBQ queries or kBK keys), and the other operand is
+// walked kWalk rows at a time. kThreads is the block of the row-dot pre-pass.
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-// Shared-memory rows of 64 entries are padded to 65, so that lanes walking
-// down a column hit different banks.
-constexpr int kPad = kBK + 1;
+constexpr int kTileThreads = 128;
+constexpr int kWalk = 32;
 
 constexpr uint32_t kPhi1 = 2654435761u;
 constexpr uint32_t kPhi2 = 2246822519u;
@@ -37,18 +41,70 @@ __device__ __forceinline__ bool keep_bit(uint32_t bn, uint32_t qi, uint32_t ki,
   return h < thresh;
 }
 
-// Sum or max over the 16 lanes (tx = 0..15) that share one ty: they are one
-// half of a warp, and xor offsets below 16 stay inside it.
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// The block's resident 64-row tile of a (., T, .) operand at time rows t0 ..
+// t0 + 63 into dst[64][D + 4], times mul, rows >= T as zeros. 16 bytes a load
+// where the pointers and strides allow it (vec).
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
+                                          int t0, int T, float mul, int vec) {
+  constexpr int LD = D + 4;
+  if (vec) {
+    constexpr int C4 = D / 4;
+    for (int i = threadIdx.x; i < 64 * C4; i += kTileThreads) {
+      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) x = *reinterpret_cast<const float4*>(src + (long long)t * row_stride + c);
+      x.x *= mul, x.y *= mul, x.z *= mul, x.w *= mul;
+      *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * D; i += kTileThreads) {
+      const int r = i / D, c = i % D, t = t0 + r;
+      dst[r * LD + c] = t < T ? src[(long long)t * row_stride + c] * mul : 0.f;
+    }
+  }
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// Start the copy of a walked tile: time rows t0 .. t0 + 31 of two (., T, .)
+// operands into a[32][D + 4] and b[32][D + 4] and of two per-row vectors into
+// ra[32] and rb[32] (rows >= T: zeros; where rb is null, ra is the key bias
+// and its rows >= T are -inf). The copies are asynchronous where 16-byte
+// loads are possible and land before the next cp_async_wait_all; otherwise
+// plain loads and stores.
+template <int D>
+__device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, long long a_stride,
+                                                float* b, const float* b_src, long long b_stride,
+                                                float* ra, const float* ra_src, float* rb,
+                                                const float* rb_src, int t0, int T, int vec) {
+  constexpr int LD = D + 4;
+  if (vec) {
+    constexpr int C4 = D / 4;
+    for (int i = threadIdx.x; i < kWalk * C4; i += kTileThreads) {
+      const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
+      const int bytes = t < T ? 16 : 0;
+      const long long row = t < T ? t : T - 1;  // a valid address either way
+      cp_async16(a + r * LD + c, a_src + row * a_stride + c, bytes);
+      cp_async16(b + r * LD + c, b_src + row * b_stride + c, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kWalk * D; i += kTileThreads) {
+      const int r = i / D, c = i % D, t = t0 + r;
+      a[r * LD + c] = t < T ? a_src[(long long)t * a_stride + c] : 0.f;
+      b[r * LD + c] = t < T ? b_src[(long long)t * b_stride + c] : 0.f;
+    }
+  }
+  if (threadIdx.x < kWalk) {
+    const int t = t0 + threadIdx.x;
+    if (rb != nullptr) {
+      cp_async4(ra + threadIdx.x, ra_src + (t < T ? t : T - 1), t < T ? 4 : 0);
+      cp_async4(rb + threadIdx.x, rb_src + (t < T ? t : T - 1), t < T ? 4 : 0);
+    } else {
+      ra[threadIdx.x] = t < T ? ra_src[t] : -INFINITY;  // keys >= T: bias -inf
+    }
+  }
+  cp_async_commit();
 }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace flash

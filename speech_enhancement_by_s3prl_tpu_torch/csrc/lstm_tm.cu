@@ -1,4 +1,4 @@
-// Time-major bidirectional LSTM recurrence (forward), f32, for Hopper.
+// Time-major LSTM recurrence (forward), one or two directions, f32, for Hopper.
 //
 // Replaces, in speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py:
 //   - lstm_bidir_pallas_tm / _kernel_tm (kernel B1: the recurrence that every
@@ -9,8 +9,8 @@
 // Both are one kernel template: kCell adds one store of c_t per step and
 // nothing else, so B1's instances compile as they did before the flag.
 //
-// Computes, for each direction d in {0, 1} and each step t = 0 .. T-1, for the
-// whole batch:
+// Computes, for each direction d < ndir (ndir is 2 for a bidirectional layer,
+// 1 for a one-direction layer) and each step t = 0 .. T-1, for the whole batch:
 //   gates = xw[d, :, t] + h_{t-1} @ w_hh_t[d]        (gate order i, f, g, o)
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
 // with h and c starting at zero and kept in f32. Direction 1 receives its own
@@ -227,11 +227,11 @@ size_t smem_bytes(int B, int H, int K, int BT) {
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
 template <bool kCell>
-int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int B, int T, int H,
-           int device, void* stream) {
+int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int B, int T,
+           int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
 
   int sms = 0, coop = 0, smem_optin = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
@@ -253,7 +253,7 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int B, int T,
                           : (const void*)lstm_bidir_tm_kernel<1, kCell>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
-    const int grid = 2 * (H / K);
+    const int grid = ndir * (H / K);
     if (smem <= (size_t)smem_optin) {
       if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)smem)))
@@ -275,7 +275,7 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int B, int T,
         return (int)cudaGetLastError();
       }
     }
-    if (H % (2 * K) || 2 * (H / (2 * K)) < 2) break;
+    if (H % (2 * K)) break;
     K *= 2;
   }
   return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -285,18 +285,18 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int B, int T,
 
 extern "C" {
 
-// Kernel B1. xw (2, B, T, 4H), w_hh_t (2, H, 4H) and hs (2, B, T, H) are
-// contiguous f32 device pointers on `device`.
-int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int B, int T,
+// Kernel B1. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H) and hs (ndir, B, T, H)
+// are contiguous f32 device pointers on `device`.
+int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int ndir, int B, int T,
                       int H, int device, void* stream) {
-  return launch<false>(xw, w_hh_t, hs, nullptr, B, T, H, device, stream);
+  return launch<false>(xw, w_hh_t, hs, nullptr, ndir, B, T, H, device, stream);
 }
 
-// Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (2, B, T, H) f32 receives the
-// cell state of every step.
-int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int B,
-                         int T, int H, int device, void* stream) {
-  return launch<true>(xw, w_hh_t, hs, cs, B, T, H, device, stream);
+// Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (ndir, B, T, H) f32 receives
+// the cell state of every step.
+int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
+                         int B, int T, int H, int device, void* stream) {
+  return launch<true>(xw, w_hh_t, hs, cs, ndir, B, T, H, device, stream);
 }
 
 const char* lstm_tm_error_string(int code) {

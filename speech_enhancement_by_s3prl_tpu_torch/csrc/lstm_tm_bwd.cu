@@ -1,14 +1,15 @@
-// Reverse-time backward of the time-major bidirectional LSTM recurrence, f32,
-// for Hopper (kernel B2 bwd).
+// Reverse-time backward of the time-major LSTM recurrence, f32, for Hopper
+// (kernel B2 bwd).
 //
 // Replaces: speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py,
-//   _tm_bwd / _kernel_tm_bwd (the VJP of lstm_bidir_tm that every
-//   bidirectional layer of the train step runs).
+//   _tm_bwd / _kernel_tm_bwd (the VJP of lstm_bidir_tm that every recurrent
+//   layer of the train step runs).
 //
-// Inputs, all (2, ...) over the direction axis as the forward kernels lay them
-// out: xw (2, B, T, 4H), w_hh_t (2, H, 4H), the forward's hs and cs
-// (2, B, T, H) and the cotangent dhs (2, B, T, H). Outputs dxw (2, B, T, 4H)
-// and dw_hh_t (2, H, 4H). For each direction and each step tt = T-1 .. 0:
+// Inputs, all (ndir, ...) over the direction axis (1 or 2) as the forward
+// kernels lay them out: xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H), the
+// forward's hs and cs (ndir, B, T, H) and the cotangent dhs (ndir, B, T, H).
+// Outputs dxw (ndir, B, T, 4H) and dw_hh_t (ndir, H, 4H). For each direction
+// and each step tt = T-1 .. 0:
 //   gates = xw_tt + h_{tt-1} @ W_hh^T        (recomputed, i, f, g, o)
 //   dh  = dhs_tt + dh_carry;  do = dh * tanh(c_tt)
 //   dct = dh * o * (1 - tanh(c_tt)^2) + dc_carry
@@ -16,36 +17,74 @@
 //   dxw_tt = da;  dh_carry = da @ W_hh;  dc_carry = dct * f
 //   dW_hh^T += h_{tt-1}^T da
 // with h_{-1} = c_{-1} = 0 and both carries zero at tt = T-1. Nothing is
-// clamped: a NaN anywhere reaches the outputs, so the train step's
-// non-finite guard sees it.
+// clamped: a NaN in xw, cs or dhs reaches dxw through the cell's backward, so
+// the train step's non-finite guard sees it.
 //
-// What bounds it on this card: like the forward, T strictly sequential steps
-// of small products, now three of them a step ((B, H) x (H, 4H) for the
-// gates, (B, 4H) x (4H, H) for dh_carry, (H, B) x (B, 4H) for dW_hh^T). One
-// direction's W_hh^T (1 MiB at H = 256) does not fit one SM's shared memory.
+// What bounds it on this card: of the three products of a step only
+// dh_carry = da_{tt+1} @ W_hh depends on the step before. The gates read the
+// forward's hs and dW_hh^T reads hs and the finished dxw: both are plain
+// products over all B * T rows at once, work for the tensor cores. What stays
+// sequential is T dependent steps of one small product each, bound by the
+// latency of a step: the exchange between the SMs that share one direction's
+// W_hh (1 MiB at H = 256, more than one SM's shared memory) and the reading
+// of the resident weights from shared memory.
 //
-// Design: one persistent cooperative launch, as in lstm_tm.cu. Block k owns
+// Design (the route for H a multiple of 8 up to 256): three phases behind one
+// entry, no atomics, the same bits on every run.
+//   1. lstm_bwd_gates_kernel (parallel over the B * T rows): gates = xw_t +
+//      h_{t-1} @ W_hh^T as a tiled product on the tensor cores in three
+//      split-TF32 passes (mma_tf32x3.cuh; a fresh accumulator a 32-deep slice
+//      of H, summed with f32 additions), the four activations applied, written
+//      into the dxw buffer, which phase 2 overwrites: no further memory.
+//   2. lstm_bwd_seq_kernel, the dh chain: a thread-block cluster of 8 per
+//      (direction, batch block of 8 rows), the design of lstm_bb.cu. Block k
+//      owns H / 8 hidden units and keeps their 4 * H / 8 columns of W_hh^T in
+//      shared memory for the whole sequence (128 KB at H = 256). A step reads
+//      the activations from dxw_tt, c_tt, c_{tt-1} and dhs_tt, forms dh, dct
+//      and da, and writes da over dxw_tt. For the next step each block
+//      multiplies its own da columns by its weight slice, a partial dh_carry
+//      over all H units, and sends each owner its units' partial through
+//      distributed shared memory (rows x H floats a block a step, a quarter
+//      of what sending da itself would take); the owner adds the 8 partials in
+//      rank order. One cluster barrier a step (the receive buffer is double-
+//      buffered), no grid barrier, no round trip through L2. Batch blocks of 8
+//      rows: up to B = 56 the chain takes as long as at B = 8, since an H100
+//      holds 14 such clusters at once (a cluster lies within one GPC, so fewer
+//      than 132 SMs / 8); beyond that the clusters take turns. Blocks of 16
+//      rows, which would halve the clusters, were measured at 2.5 times the
+//      time of two turns of 8 and are not used.
+//   3. lstm_bwd_dw_kernel + lstm_bwd_dw_sum_kernel (parallel): dW_hh^T =
+//      sum over rows with t >= 1 of hs_{t-1}^T da, an (H x B*T)(B*T x 4H)
+//      product on the tensor cores as in phase 1, the contraction split over
+//      `splits` blocks whose partial sums a second kernel adds in split order.
+// Any other hidden size takes the earlier design below (lstm_bidir_tm_bwd_
+// kernel: one cooperative launch, a grid barrier a step, all three products
+// inside the loop), which has no constraint on H.
+//
+// The earlier design: one persistent cooperative launch, as in lstm_tm.cu.
+// Block k owns
 // one direction and K hidden units j0 .. j0+K-1, which is to say the 4K gate
 // columns {g*H + j}. It keeps in shared memory for the whole sequence:
 //   - W_hh^T's 4K columns (H x 4K) for the gate recomputation;
 //   - W_hh^T's K rows (K x 4H) for dh_carry of its own units;
 //   - its columns of dW_hh^T (H x 4K), summed over all steps and rows with
-//     no atomics and written once at the end, so no second kernel and no
-//     library call computes dW_hh^T;
+//     no atomics and written once at the end;
 //   - dc_carry of its units.
 // dh_carry of unit j needs all 4H columns of the later step's da, which other
 // blocks computed: dxw is the exchange buffer. A block writes its da columns
 // into dxw at tt, meets the others at grid.sync(), and at tt-1 stages the
 // whole (B, 4H) rows of dxw at tt through L2 with __ldcg (never a stale L1
-// line). h_{tt-1}, c_tt and c_{tt-1} come from the forward's hs/cs, complete
-// before the launch, so plain read-only loads serve. A step is latency-bound
-// at small B, so each chunk of BT batch rows issues all its loads (da rows,
-// h rows, and the epilogue's xw, c and dhs values) in one round, and one pass
-// over the (row, unit) tiles computes both dot products (gates over H,
-// dh_carry over 4H) before the cell's backward.
+// line). A step is latency-bound at small B, so each chunk of BT batch rows
+// starts all its loads in one round, and one pass over the (row, unit) tiles
+// computes both dot products before the cell's backward.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cp_async.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -364,23 +403,356 @@ size_t smem_bytes(int B, int H, int K, int BT) {
   return sizeof(float) * (4 * K * HP + BT * C + H * C + BT * H4P + BT * HP + K * H4P +
                           (size_t)BT * K * 8 + (size_t)B * K);
 }
+// ---------------------------------------------------------------------------
+// The three-phase route (H a multiple of 8, at most 256).
+
+using namespace tf32x3;
+
+constexpr int kTileThreads = 128;  // 4 warps, each 16 rows of a 64-row tile
+constexpr int kTile = 64;          // edge of an output tile of the two products
+constexpr int kDepth = 32;         // contraction depth of one staged slice
+constexpr int kLdA = kDepth + 4;   // [row][depth] tiles, read by ldmatrix
+constexpr int kLdB = kTile + 8;    // [depth][column] tiles, read in plain order
+
+constexpr int kCluster = 8;
+constexpr int kSeqThreads = 256;
+constexpr int kSeqRows = 8;  // batch rows a cluster takes
+
+// Phase 1. One stage: a_s [kTile][kLdA], rows of h_{t-1}; w_s [kDepth][kLdB],
+// rows of W_hh^T. Row r = b * T + t of one direction's h_{t-1} is row r - 1
+// of hs, and zeros at t = 0. Writes act(xw + h_{t-1} @ W_hh^T) into `gates`.
+constexpr int kGateStage = kTile * kLdA + kDepth * kLdB;
+
+__global__ void __launch_bounds__(kTileThreads)
+lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+                      const float* __restrict__ hs, float* __restrict__ gates, int M, int T,
+                      int H) {
+  __shared__ __align__(16) float smem[2 * kGateStage];
+  const int H4 = 4 * H;
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile, d = blockIdx.z;
+  const float* hs_d = hs + (size_t)d * M * H;
+  const float* w_d = w_hh_t + (size_t)d * H * H4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  auto start = [&](int kc) {
+    float* a_s = smem + (kc & 1) * kGateStage;
+    float* w_s = a_s + kTile * kLdA;
+    const int i0 = kc * kDepth;
+    for (int idx = threadIdx.x; idx < kTile * (kDepth / 4); idx += kTileThreads) {
+      const int r = idx / (kDepth / 4), c = (idx % (kDepth / 4)) * 4;
+      const int row = m0 + r;
+      const bool ok = row < M && row % T != 0 && i0 + c < H;
+      cp_async16(a_s + r * kLdA + c, ok ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
+                 ok ? 16 : 0);
+    }
+    for (int idx = threadIdx.x; idx < kDepth * (kTile / 4); idx += kTileThreads) {
+      const int k = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
+      const bool ok = i0 + k < H && n0 + c < H4;
+      cp_async16(w_s + k * kLdB + c, ok ? w_d + (size_t)(i0 + k) * H4 + n0 + c : w_d,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kTile / 8][4];
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nk = (H + kDepth - 1) / kDepth;
+  start(0);
+  for (int kc = 0; kc < nk; ++kc) {
+    // slice kc has landed; every warp is done with slice kc - 1, whose stage
+    // the copy of slice kc + 1 may now overwrite
+    cp_async_wait_all();
+    __syncthreads();
+    if (kc + 1 < nk) start(kc + 1);
+    const float* a_s = smem + (kc & 1) * kGateStage + warp * 16 * kLdA;
+    const float* w_s = smem + (kc & 1) * kGateStage + kTile * kLdA;
+    // the slice's sum in a fresh accumulator (12 chained passes on the tensor
+    // core), then one f32 addition
+    float part[kTile / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < kDepth; k8 += 8) {
+      FragA a;
+      FragB b[kTile / 8];
+      load_a(a, a_s + k8, kLdA, lane);
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) load_b_kn_std(b[n], w_s + k8 * kLdB + 8 * n, kLdB, lane);
+      mma3<kTile / 8>(part, a, b);
+    }
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
+  const float* xw_d = xw + (size_t)d * M * H4;
+  float* out_d = gates + (size_t)d * M * H4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + warp * 16 + g + 8 * half;
+    if (row >= M) continue;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      const int col = n0 + 8 * n + 2 * t4;  // col and col + 1 lie in one gate
+      if (col >= H4) continue;
+      const float2 x = *reinterpret_cast<const float2*>(xw_d + (size_t)row * H4 + col);
+      const float v0 = acc[n][2 * half] + x.x, v1 = acc[n][2 * half + 1] + x.y;
+      const bool is_g = col / H == 2;
+      *reinterpret_cast<float2*>(out_d + (size_t)row * H4 + col) =
+          is_g ? make_float2(tanhf(v0), tanhf(v1))
+               : make_float2(sigmoid_f32(v0), sigmoid_f32(v1));
+    }
+  }
+}
+
+// Phase 2: the dh chain. Dynamic shared memory, U = H / 8 units a block:
+//   wt_s   [U][H]                      float4  (W_hh^T[j][g * H + j0 + u])_g for
+//                                              every unit j: this block's gate
+//                                              columns, transposed
+//   da_s   [kSeqRows][U]               float4  this block's da of the last step
+//   recv_s [2][kCluster][kSeqRows][U]  float   partial dh_carry of this block's
+//                                              units from each block, per step parity
+// Thread j computes the partial dh_carry of unit j for every row; thread
+// row * U + u runs the cell's backward of its (row, unit) and carries dc in a
+// register.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kSeqThreads, 1)
+lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ cs,
+                    const float* __restrict__ dhs, float* dxw, int B, int T, int H) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / kCluster;
+  const int nbb = (B + kSeqRows - 1) / kSeqRows;
+  const int d = cid / nbb;
+  const int b0 = (cid % nbb) * kSeqRows;
+  const int rows = min(kSeqRows, B - b0);
+  const int U = H / kCluster;
+  const int j0 = rank * U;
+  const int H4 = 4 * H;
+  const int tid = threadIdx.x;
+
+  float4* wt_s = smem4;
+  float4* da_s = wt_s + U * H;
+  float* recv_s = reinterpret_cast<float*>(da_s + kSeqRows * U);
+
+  const float* whh = w_hh_t + (size_t)d * H * H4;
+  for (int idx = tid; idx < H * U; idx += kSeqThreads) {
+    const int j = idx / U, u = idx % U;
+    const float* col = whh + (size_t)j * H4 + j0 + u;
+    wt_s[u * H + j] = make_float4(col[0], col[H], col[2 * H], col[3 * H]);
+  }
+
+  // the product's side of this thread: unit j, whose owner is block j / U
+  const int j = tid;
+  const bool has_j = j < H;
+  float* push = nullptr;
+  if (has_j)
+    push = cluster.map_shared_rank(recv_s, j / U) + rank * kSeqRows * U + j % U;
+  // the cell's side: (row, unit u) of this block
+  const bool has_p = tid < rows * U;
+  const int row = tid / U, u = tid % U;
+  const size_t at_h = ((size_t)d * B + b0 + (has_p ? row : 0)) * T * H + j0 + u;
+  float* dxw_p = dxw + ((size_t)d * B + b0 + (has_p ? row : 0)) * T * H4 + j0 + u;
+  const float* cs_p = cs + at_h;
+  const float* dhs_p = dhs + at_h;
+  float dc = 0.f;
+
+  cluster.sync();  // every block of the cluster runs before a remote store lands
+
+  for (int tt = T - 1; tt >= 0; --tt) {
+    const bool carry = tt < T - 1;  // dh_carry from step tt + 1 exists
+    const int buf = tt & 1;
+    // the cell's operands of this step, in flight during the product
+    float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c = 0.f, c_prev = 0.f, dh = 0.f;
+    if (has_p) {
+      const float* gp = dxw_p + (size_t)tt * H4;
+      ig = gp[0];
+      fg = gp[H];
+      gg = gp[2 * H];
+      og = gp[3 * H];
+      c = cs_p[(size_t)tt * H];
+      c_prev = tt > 0 ? cs_p[(size_t)(tt - 1) * H] : 0.f;
+      dh = dhs_p[(size_t)tt * H];
+    }
+    if (carry) {
+      if (has_j) {
+        float acc[kSeqRows];
+#pragma unroll
+        for (int r = 0; r < kSeqRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < U; ++k) {
+          const float4 w = wt_s[k * H + j];
+#pragma unroll
+          for (int r = 0; r < kSeqRows; ++r) {
+            if (r < rows) {
+              const float4 a = da_s[r * U + k];
+              acc[r] = fmaf(a.x, w.x, acc[r]);
+              acc[r] = fmaf(a.y, w.y, acc[r]);
+              acc[r] = fmaf(a.z, w.z, acc[r]);
+              acc[r] = fmaf(a.w, w.w, acc[r]);
+            }
+          }
+        }
+        float* dst = push + buf * kCluster * kSeqRows * U;
+#pragma unroll
+        for (int r = 0; r < kSeqRows; ++r)
+          if (r < rows) dst[r * U] = acc[r];
+      }
+      cluster.sync();  // the 8 partials of this step are in every owner's buffer
+    }
+    if (has_p) {
+      if (carry) {
+        const float* in = recv_s + (buf * kCluster * kSeqRows + row) * U + u;
+#pragma unroll
+        for (int s = 0; s < kCluster; ++s) dh += in[s * kSeqRows * U];
+      }
+      const float tc = tanhf(c);
+      const float dout = dh * tc;
+      const float dct = dh * og * (1.0f - tc * tc) + dc;
+      dc = dct * fg;
+      const float4 da = make_float4(dct * gg * ig * (1.0f - ig), dct * c_prev * fg * (1.0f - fg),
+                                    dct * ig * (1.0f - gg * gg), dout * og * (1.0f - og));
+      float* dp = dxw_p + (size_t)tt * H4;
+      dp[0] = da.x;
+      dp[H] = da.y;
+      dp[2 * H] = da.z;
+      dp[3 * H] = da.w;
+      da_s[row * U + u] = da;
+    }
+    __syncthreads();  // da_tt is in da_s before the next step's product
+  }
+}
+
+// Phase 3. One stage: hp_s [kDepth][kLdB], rows of h_{t-1} (zeros at t = 0);
+// da_s [kDepth][kLdB], the same rows of da. Block (i tile, n tile, direction
+// and split) sums hs_{t-1}^T da over its `chunk` rows into `out`, laid out
+// (splits, ndir, H, 4H).
+constexpr int kDwStage = 2 * kDepth * kLdB;
+
+__global__ void __launch_bounds__(kTileThreads)
+lstm_bwd_dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
+                   float* __restrict__ out, int M, int T, int H, int splits, int chunk) {
+  __shared__ __align__(16) float smem[2 * kDwStage];
+  const int H4 = 4 * H;
+  const int i0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int ndir = gridDim.z / splits;
+  const int d = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const int r_begin = sp * chunk, r_end = min(M, r_begin + chunk);
+  const float* hs_d = hs + (size_t)d * M * H;
+  const float* da_d = da + (size_t)d * M * H4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  auto start = [&](int kc) {
+    float* hp_s = smem + (kc & 1) * kDwStage;
+    float* da_s = hp_s + kDepth * kLdB;
+    const int r0 = r_begin + kc * kDepth;
+    for (int idx = threadIdx.x; idx < kDepth * (kTile / 4); idx += kTileThreads) {
+      const int k = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
+      const int row = r0 + k;
+      const bool ok_h = row < r_end && row % T != 0 && i0 + c < H;
+      const bool ok_a = row < r_end && n0 + c < H4;
+      cp_async16(hp_s + k * kLdB + c, ok_h ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
+                 ok_h ? 16 : 0);
+      cp_async16(da_s + k * kLdB + c, ok_a ? da_d + (size_t)row * H4 + n0 + c : da_d,
+                 ok_a ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kTile / 8][4];
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nk = r_end > r_begin ? (r_end - r_begin + kDepth - 1) / kDepth : 0;
+  if (nk > 0) start(0);
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait_all();  // as in the gates kernel
+    __syncthreads();
+    if (kc + 1 < nk) start(kc + 1);
+    const float* hp_s = smem + (kc & 1) * kDwStage + warp * 16;
+    const float* da_s = smem + (kc & 1) * kDwStage + kDepth * kLdB;
+    float part[kTile / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < kDepth; k8 += 8) {
+      FragA a;
+      FragB b[kTile / 8];
+      load_a_km(a, hp_s + k8 * kLdB, kLdB, lane);
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n)
+        load_b_kn_std(b[n], da_s + k8 * kLdB + 8 * n, kLdB, lane);
+      mma3<kTile / 8>(part, a, b);
+    }
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
+  float* out_d = out + ((size_t)sp * ndir + d) * H * H4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + warp * 16 + g + 8 * half;
+    if (i >= H) continue;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      const int col = n0 + 8 * n + 2 * t4;
+      if (col >= H4) continue;
+      *reinterpret_cast<float2*>(out_d + (size_t)i * H4 + col) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
+// dW_hh^T[idx] = the splits' partial sums, added in split order.
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dwhh, int n,
+                       int splits) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= n) return;
+  float sum = part[idx];
+  for (int s = 1; s < splits; ++s) sum += part[(size_t)s * n + idx];
+  dwhh[idx] = sum;
+}
+
+size_t seq_smem_bytes(int H) {
+  const size_t U = H / kCluster;
+  return sizeof(float4) * (U * H + kSeqRows * U) +
+         sizeof(float) * (2 * kCluster * kSeqRows * U);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the backward on `stream`. xw (2, B, T, 4H), w_hh_t (2, H, 4H),
-// hs, cs, dhs (2, B, T, H), dxw (2, B, T, 4H) and dwhh (2, H, 4H) are
-// contiguous f32 device pointers on `device`; dxw and dwhh are written in
+// The earlier design, for any H. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H),
+// hs, cs, dhs (ndir, B, T, H), dxw (ndir, B, T, 4H) and dwhh (ndir, H, 4H)
+// are contiguous f32 device pointers on `device`; dxw and dwhh are written in
 // full. Returns the first non-zero CUDA status among the set-up calls, the
 // cooperative launch's own status (which reports a grid too large to be
 // co-resident) and cudaGetLastError(); 0 on success. Does not synchronise.
-int lstm_bidir_tm_bwd_f32(const void* xw, const void* w_hh_t, const void* hs,
-                          const void* cs, const void* dhs, void* dxw, void* dwhh, int B,
-                          int T, int H, int device, void* stream) {
+int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* hs,
+                               const void* cs, const void* dhs, void* dxw, void* dwhh,
+                               int ndir, int B, int T, int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
 
   int sms = 0, coop = 0, smem_optin = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
@@ -400,13 +772,13 @@ int lstm_bidir_tm_bwd_f32(const void* xw, const void* w_hh_t, const void* hs,
   // finish it sooner), and widen while the grid would not be co-resident.
   int K = 8;
   while (K > 1 && H % K) K >>= 1;
-  while (K > 1 && 2 * (H / (K / 2)) <= sms) K >>= 1;
+  while (K > 1 && ndir * (H / (K / 2)) <= sms) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
   const void* fn = R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4>
                           : (const void*)lstm_bidir_tm_bwd_kernel<1>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
-    const int grid = 2 * (H / K);
+    const int grid = ndir * (H / K);
     if (smem <= (size_t)smem_optin) {
       if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)smem)))
@@ -428,10 +800,66 @@ int lstm_bidir_tm_bwd_f32(const void* xw, const void* w_hh_t, const void* hs,
         return (int)cudaGetLastError();
       }
     }
-    if (H % (2 * K) || 2 * (H / (2 * K)) < 2) break;
+    if (H % (2 * K)) break;
     K *= 2;
   }
   return (int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+// The three-phase route: the same tensors, H a multiple of 8 and at most 256,
+// every pointer 16-byte aligned. `splits` >= 1 ways to split dW_hh^T's
+// contraction over the B * T rows; `scratch` holds splits * ndir * H * 4H
+// floats when splits > 1 (unused otherwise). Four or five launches on
+// `stream`; returns the first non-zero status, 0 on success. Does not
+// synchronise.
+int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void* hs,
+                                 const void* cs, const void* dhs, void* dxw, void* dwhh,
+                                 void* scratch, int ndir, int B, int T, int H, int splits,
+                                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0 || splits <= 0 || H % kCluster ||
+      H / kCluster > 32 || (long long)B * T > 0x7fffffffLL / 4)
+    return (int)cudaErrorInvalidValue;
+  if (!(aligned16(xw) && aligned16(w_hh_t) && aligned16(hs) && aligned16(dxw) &&
+        aligned16(dwhh) && (splits == 1 || aligned16(scratch))))
+    return (int)cudaErrorMisalignedAddress;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  const int M = B * T, H4 = 4 * H;
+  const unsigned tiles_n = (H4 + kTile - 1) / kTile;
+
+  lstm_bwd_gates_kernel<<<dim3((M + kTile - 1) / kTile, tiles_n, ndir), kTileThreads, 0, s>>>(
+      c(xw), c(w_hh_t), c(hs), m(dxw), M, T, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const size_t smem = seq_smem_bytes(H);
+  int smem_optin = 0;
+  if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    device)))
+    return (int)err;
+  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(lstm_bwd_seq_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return (int)err;
+  const int nbb = (B + kSeqRows - 1) / kSeqRows;
+  lstm_bwd_seq_kernel<<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
+      c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int chunk = ((M + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
+  float* part = splits == 1 ? m(dwhh) : m(scratch);
+  lstm_bwd_dw_kernel<<<dim3((H + kTile - 1) / kTile, tiles_n, ndir * splits), kTileThreads, 0,
+                       s>>>(c(hs), c(dxw), part, M, T, H, splits, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const int n = ndir * H * H4;
+    lstm_bwd_dw_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        part, m(dwhh), n, splits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 const char* lstm_tm_bwd_error_string(int code) {

@@ -42,7 +42,10 @@
 // Shared-memory tiles are row-major with a leading dimension ld = 4 (mod 32)
 // in floats (a pad of 4 on a width of 32, 64 or 128) and 16-byte aligned
 // rows: the 8 rows of an ldmatrix block then lie in 8 different 16-byte bank
-// groups, and the 32 words of a `load_b_kn` in 32 different banks.
+// groups, and the 32 words of a `load_b_kn` in 32 different banks. The two
+// loaders that read a [k][.] tile in the plain contraction order (`load_a_km`,
+// `load_b_kn_std`: rows t and t + 4) want ld = 8 (mod 32) instead: word
+// t * 8 + g is then a different bank for each of the 32 lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,6 +115,26 @@ __device__ __forceinline__ void load_b_kn(FragB& f, const float* s, int ld, int 
   const int g = lane >> 2, t = lane & 3;
   split(s[(2 * t) * ld + g], f.hi[0], f.lo[0]);
   split(s[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
+}
+
+// A fragment of the 16 x 8 tile whose transpose lies at `s` of a row-major
+// [k][m] array, in the plain contraction order (ld = 8 mod 32): the operand
+// of c[m][n] += sum_k a[k][m] b[k][n] together with `load_b_kn_std`.
+__device__ __forceinline__ void load_a_km(FragA& f, const float* s, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split(s[t * ld + g], f.hi[0], f.lo[0]);
+  split(s[t * ld + g + 8], f.hi[1], f.lo[1]);
+  split(s[(t + 4) * ld + g], f.hi[2], f.lo[2]);
+  split(s[(t + 4) * ld + g + 8], f.hi[3], f.lo[3]);
+}
+
+// B fragment at `s` of a row-major [k][n] array in the plain contraction
+// order (rows t and t + 4; ld = 8 mod 32), for an A fragment that `load_a` or
+// `load_a_km` read from shared memory.
+__device__ __forceinline__ void load_b_kn_std(FragB& f, const float* s, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split(s[t * ld + g], f.hi[0], f.lo[0]);
+  split(s[(t + 4) * ld + g], f.hi[1], f.lo[1]);
 }
 
 // The 16 x 8 accumulator tile `c` as the A fragment of the next product.

@@ -185,21 +185,37 @@ class DataLoader:
 def device_prefetch(iterator, device, size: int = 2):
     """Batches of numpy arrays -> tuples of tensors on ``device``, ``size``
     batches ahead of the consumer. To a CUDA device the arrays go through
-    pinned host memory with ``non_blocking=True``, so the copies overlap
-    the device's work on the current batch."""
+    pinned host memory on a copy stream of their own, so the copies overlap
+    the device's work on the current batch; before a batch is yielded the
+    consumer's current stream is made to wait for that batch's copies, and
+    the tensors are recorded on it, so their memory is not reused while the
+    consumer's kernels still read them. To the CPU nothing is copied."""
     device = torch.device(device)
     pin = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if pin else None
 
     def put(batch):
-        out = []
-        for x in batch:
-            if isinstance(x, np.ndarray):
-                t = torch.from_numpy(x)
-                if pin:
-                    t = t.pin_memory()
-                x = t.to(device, non_blocking=pin)
-            out.append(x)
-        return tuple(out)
+        """(tensors, the event that marks their copies done or None)."""
+        if not pin:
+            return tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                         for x in batch), None
+        with torch.cuda.stream(copy_stream):
+            out = tuple(
+                torch.from_numpy(x).pin_memory().to(device, non_blocking=True)
+                if isinstance(x, np.ndarray) else x for x in batch)
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return out, done
+
+    def take(entry):
+        batch, done = entry
+        if done is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            for x in batch:
+                if isinstance(x, torch.Tensor) and x.is_cuda:
+                    x.record_stream(consumer)
+        return batch
 
     ahead = collections.deque()
     it = iter(iterator)
@@ -208,7 +224,7 @@ def device_prefetch(iterator, device, size: int = 2):
         if len(ahead) >= size:
             break
     while ahead:
-        batch = ahead.popleft()
+        batch = take(ahead.popleft())
         nxt = next(it, None)
         if nxt is not None:
             ahead.append(put(nxt))

@@ -4,11 +4,13 @@
 - The input projection of a layer is computed once for all steps; only
   h @ W_hh runs inside the recurrence.
 - A bidirectional layer runs both directions in one recurrence: direction 1
-  gets the time-flipped input on a leading direction axis. The recurrence is
-  ``ops/cuda/lstm_kernel.lstm_bidir_tm``: under autograd the
+  gets the time-flipped input on a leading direction axis. A one-direction
+  layer runs the same recurrence with a direction axis of 1 (the JAX package
+  runs a ``lax.scan`` cell there; zero initial state, no state carried out).
+  The recurrence is ``ops/cuda/lstm_kernel.lstm_bidir_tm``: under autograd the
   ``LstmBidirTm`` function (kernels B2 fwd / B2 bwd on a CUDA tensor), whose
   gradients reach ``w_hh`` through dW_hh^T and ``w_ih``, ``b_ih``, ``b_hh``
-  through the einsum; otherwise kernel B1. A CPU tensor takes the plain
+  through the projection; otherwise kernel B1. A CPU tensor takes the plain
   versions on either route.
 - ``recurrence`` picks the kernel a bidirectional layer runs when no gradient
   is needed: ``"tm"`` (B1, the default), ``"blocked"`` (B6,
@@ -38,7 +40,6 @@ from ..ops.cuda.lstm_kernel import (
     lstm_bidir_bb,
     lstm_bidir_fused,
     lstm_bidir_tm,
-    lstm_bidir_tm_ref,
 )
 
 RECURRENCES = ("tm", "blocked", "fused")
@@ -63,7 +64,8 @@ class LSTMStack(nn.Module):
     """torch ``nn.LSTM(num_layers, bidirectional, batch_first=True)``
     equivalent over (B, T, D). Output dim = hidden_size * (2 if
     bidirectional else 1). ``recurrence`` ("tm", "blocked" or "fused")
-    names the forward-only kernel of the bidirectional layers."""
+    names the forward-only kernel of the bidirectional layers; a
+    one-direction layer always runs ``lstm_bidir_tm``."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bidirectional: bool = False,
@@ -93,9 +95,10 @@ class LSTMStack(nn.Module):
         for k in range(self.num_layers):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
-                # no kernel in the JAX package either: a plain time loop
+                # one direction on the leading axis: LstmBidirTm when a
+                # gradient is needed, B1 when not
                 xw = torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh)
-                x = lstm_bidir_tm_ref(xw, pf.w_hh.T)
+                x = lstm_bidir_tm(xw[None].contiguous(), pf.w_hh.T[None].contiguous())[0]
                 continue
             pb = getattr(self, f"l{k}_bwd")
             xs = torch.stack([x, torch.flip(x, dims=[1])], dim=0)  # (2, B, T, D)

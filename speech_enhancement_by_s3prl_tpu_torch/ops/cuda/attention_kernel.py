@@ -6,15 +6,18 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
 
 - B3 fwd ``flash_attention_fwd`` (``flash_attn.cu``): attention with an
   additive key bias and attention-probability dropout, plus the logsumexp
-  (``_fwd_impl`` / ``_fwd_kernel``).
+  (``_fwd_impl`` / ``_fwd_kernel``): an online softmax over key tiles whose
+  probabilities go from the first product's accumulators straight into the
+  second product, never through shared memory.
 - B3 bwd ``flash_attention_bwd`` (``flash_attn_bwd.cu``): dq, dk, dv from the
   saved lse, the same dropout mask recomputed from the salt (``_bwd_impl`` /
   ``_bwd_kernel``). One call is three launches (a row-dot pre-pass, a dk/dv
-  kernel over key tiles, a dq kernel over query tiles) and counts once. Its
-  tile products run on the tensor cores with each f32 operand split into two
-  TF32 parts and three passes a product (``mma_tf32x3.cuh``): f32-level
-  accuracy, which one TF32 pass does not give. ``split_tf32`` and
-  ``matmul_tf32x3`` model that arithmetic for the CPU tests.
+  kernel over key tiles, a dq kernel over query tiles) and counts once.
+
+The tile products of both run on the tensor cores with each f32 operand split
+into two TF32 parts and three passes a product (``mma_tf32x3.cuh``): f32-level
+accuracy, which one TF32 pass does not give. ``split_tf32`` and
+``matmul_tf32x3`` model that arithmetic for the CPU tests.
 
 ``FlashAttention`` ties them into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
@@ -252,8 +255,8 @@ def _salt_args(rate, salt):
 def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                         batch0: int = 0, *, n_heads: int):
     """B3 fwd: (out (B, T, N * D), lse (B, N, T)), f32. Kernel on a CUDA
-    tensor (counted in ``flash_attention_fwd.launches``), plain version on a
-    CPU tensor."""
+    tensor (counted in ``flash_attention_fwd.launches``; tensor-core products
+    in three TF32 passes), plain version on a CPU tensor."""
     _check(q, k, v, kbias, n_heads)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)

@@ -1,5 +1,6 @@
-"""Time-major bidirectional LSTM recurrence: the hand-written CUDA kernels and
-their plain PyTorch versions.
+"""Time-major LSTM recurrence (both directions of a bidirectional layer at
+once, or the one direction of a unidirectional layer): the hand-written CUDA
+kernels and their plain PyTorch versions.
 
 Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
 ``speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py``:
@@ -10,7 +11,12 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
   flag): the recurrence that also returns the cell states
   (``_tm_fwd_with_cell``).
 - B2 bwd ``lstm_bidir_tm_bwd`` (``lstm_tm_bwd.cu``): the reverse-time VJP
-  (``_tm_bwd``), which recomputes the gates and sums dW_hh^T itself.
+  (``_tm_bwd``), which recomputes the gates and sums dW_hh^T itself. For a
+  hidden size that is a multiple of 8 up to 256 (``bwd_route``) one call is
+  three phases: the gates of every step as one product on the tensor cores,
+  the dh chain alone in a kernel of thread-block clusters, and dW_hh^T as one
+  more product. ``lstm_bidir_tm_bwd_model`` is that algorithm in PyTorch, for
+  the CPU tests. Any other hidden size takes the earlier single kernel.
 
 - B6 ``lstm_bidir_bb`` (``lstm_bb.cu``): the same function as B1, computed
   independently per batch block (``lstm_bidir_pallas``): no grid-wide
@@ -26,7 +32,9 @@ the JAX package, and raise when a gradient is needed.
 
 All keep the JAX layout: ``xw`` (2, B, T, 4H) holds the input projections
 plus biases, direction 1 already time-flipped; ``w_hh_t`` (2, H, 4H) is
-W_hh^T per direction; ``hs`` and ``cs`` are (2, B, T, H) f32. Gate order is
+W_hh^T per direction; ``hs`` and ``cs`` are (2, B, T, H) f32. B1 and B2 also
+take a leading axis of 1: the recurrence of a one-direction layer (the JAX
+package's ``lax.scan`` cell). Gate order is
 i, f, g, o; h and c start at zero and stay f32. There are no lengths: the
 recurrence runs over the whole (padded) T, as the JAX package does.
 
@@ -36,6 +44,7 @@ raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -63,7 +72,7 @@ def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
 
     Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
-    gives (..., B, T, H), so the unidirectional layer runs it with none."""
+    gives (..., B, T, H)."""
     return _recurrence(xw, w_hh_t, with_cell=False)
 
 
@@ -105,13 +114,15 @@ def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs):
     return torch.cat(dxw, dim=-2), dw
 
 
-def _check(xw: torch.Tensor, w_hh_t: torch.Tensor):
-    if xw.dim() != 4 or xw.shape[0] != 2 or xw.shape[-1] % 4:
-        raise ValueError(f"xw must be (2, B, T, 4H), got {tuple(xw.shape)}")
-    H = xw.shape[-1] // 4
-    if tuple(w_hh_t.shape) != (2, H, 4 * H):
+def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
+    """``dirs``: the direction counts (leading axis) the caller's kernel takes."""
+    if xw.dim() != 4 or xw.shape[0] not in dirs or xw.shape[-1] % 4:
+        raise ValueError(f"xw must be ({' or '.join(map(str, dirs))}, B, T, 4H), "
+                         f"got {tuple(xw.shape)}")
+    ndir, H = xw.shape[0], xw.shape[-1] // 4
+    if tuple(w_hh_t.shape) != (ndir, H, 4 * H):
         raise ValueError(
-            f"w_hh_t must be (2, {H}, {4 * H}) for xw {tuple(xw.shape)}, "
+            f"w_hh_t must be ({ndir}, {H}, {4 * H}) for xw {tuple(xw.shape)}, "
             f"got {tuple(w_hh_t.shape)}"
         )
     if xw.dtype != torch.float32 or w_hh_t.dtype != torch.float32:
@@ -125,8 +136,8 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor):
 
 
 def _check_residuals(xw, hs, cs, dhs):
-    _, B, T, h4 = xw.shape
-    want = (2, B, T, h4 // 4)
+    ndir, B, T, h4 = xw.shape
+    want = (ndir, B, T, h4 // 4)
     for name, t in (("hs", hs), ("cs", cs), ("dhs", dhs)):
         if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != xw.device:
             raise ValueError(
@@ -138,9 +149,9 @@ def _check_residuals(xw, hs, cs, dhs):
 def _library():
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, i, i, i, i, p]
+    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.lstm_bidir_tm_f32.restype = i
-    lib.lstm_bidir_tm_fc_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.lstm_bidir_tm_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.lstm_bidir_tm_fc_f32.restype = i
     lib.lstm_tm_error_string.argtypes = [i]
     lib.lstm_tm_error_string.restype = ctypes.c_char_p
@@ -150,15 +161,18 @@ def _library():
 def _bwd_library():
     lib = load("lstm_tm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.lstm_bidir_tm_bwd_f32.restype = i
+    lib.lstm_bidir_tm_bwd_grid_f32.argtypes = [p] * 7 + [i, i, i, i, i, p]
+    lib.lstm_bidir_tm_bwd_grid_f32.restype = i
+    lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+    lib.lstm_bidir_tm_bwd_phases_f32.restype = i
     lib.lstm_tm_bwd_error_string.argtypes = [i]
     lib.lstm_tm_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
-    """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32.
+    """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32; a leading 1
+    in place of the 2 is a one-direction layer.
 
     When a gradient is needed (grad mode on and an input that requires it)
     this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass.
@@ -172,14 +186,14 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
         return lstm_bidir_tm_ref(xw, w_hh_t)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
-    _, B, T, h4 = xw.shape
+    ndir, B, T, h4 = xw.shape
     H = h4 // 4
-    hs = torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
+    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return hs
     lib = _library()
     err = lib.lstm_bidir_tm_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                B, T, H, *launch_args(xw))
+                                ndir, B, T, H, *launch_args(xw))
     raise_on(err, "lstm_bidir_tm", lib.lstm_tm_error_string, B=B, T=T, H=H)
     lstm_bidir_tm.launches += 1
     return hs
@@ -194,25 +208,133 @@ def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
         return lstm_bidir_tm_fc_ref(xw, w_hh_t)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm_fc needs contiguous xw and w_hh_t")
-    _, B, T, h4 = xw.shape
+    ndir, B, T, h4 = xw.shape
     H = h4 // 4
-    hs = torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
+    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
     if B == 0 or T == 0:
         return hs, cs
     lib = _library()
     err = lib.lstm_bidir_tm_fc_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                   cs.data_ptr(), B, T, H, *launch_args(xw))
+                                   cs.data_ptr(), ndir, B, T, H, *launch_args(xw))
     raise_on(err, "lstm_bidir_tm_fc", lib.lstm_tm_error_string, B=B, T=T, H=H)
     lstm_bidir_tm_fc.launches += 1
     return hs, cs
 
 
+# widest layer whose 8-block cluster keeps its W_hh^T slices resident
+# (H / 8 units a block, a lane a unit in the kernels of lstm_bb.cu too)
+CLUSTER_MAX_HIDDEN = 256
+# batch rows one cluster of B2 bwd's dh chain takes (kSeqRows in lstm_tm_bwd.cu)
+BWD_BATCH_BLOCK = 8
+# rows of dW_hh^T's contraction per split, and the most splits
+BWD_SPLIT_ROWS, BWD_MAX_SPLITS = 512, 16
+
+
+def bwd_route(hidden: int) -> str:
+    """The design B2 bwd runs on a CUDA tensor, by the hidden size alone:
+    ``"phases"`` (tensor-core products for the gates and dW_hh^T, the dh
+    chain in thread-block clusters) for a multiple of 8 up to 256,
+    ``"grid"`` (the earlier single cooperative kernel) for any other."""
+    return "phases" if hidden % 8 == 0 and hidden <= CLUSTER_MAX_HIDDEN else "grid"
+
+
+def bwd_splits(rows: int) -> int:
+    """How many ways the ``phases`` route splits dW_hh^T's contraction over
+    ``rows`` = B * T; the partial sums are added in split order."""
+    return max(1, min(BWD_MAX_SPLITS, -(-rows // BWD_SPLIT_ROWS)))
+
+
+def _cell_activations(gates, H):
+    i, f, g, o = gates.split(H, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)],
+                     dim=-1)
+
+
+def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATCH_BLOCK,
+                            splits: Optional[int] = None):
+    """The ``phases`` route of B2 bwd in PyTorch, phase for phase as
+    ``lstm_tm_bwd.cu`` runs it (same function as ``lstm_bidir_tm_bwd_ref``):
+
+    1. the gate activations of every step from one product over all rows,
+       h_{t-1} being ``hs`` shifted by a step with zeros at t = 0, written
+       into the dxw buffer;
+    2. per batch block, the reverse loop that carries only dh and dc: a step
+       reads its activations from the buffer, overwrites them with da, and
+       dh_carry = da @ W_hh is its one product;
+    3. dW_hh^T = sum over rows with t >= 1 of hs_{t-1}^T da, the rows cut into
+       ``splits`` chunks whose partial sums are added in chunk order.
+    """
+    ndir, B, T, h4 = xw.shape
+    H = h4 // 4
+    if B == 0 or T == 0:
+        return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
+    h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
+    dxw = _cell_activations(xw + torch.matmul(h_prev, w_hh_t[:, None]), H)
+    c_prev = torch.cat([torch.zeros_like(cs[:, :, :1]), cs[:, :, :-1]], dim=2)
+    w_hh = w_hh_t.transpose(-1, -2)
+    for b0 in range(0, B, batch_block):
+        rows = slice(b0, min(B, b0 + batch_block))
+        dh_c = dc_c = hs.new_zeros((ndir, rows.stop - b0, H))
+        for tt in range(T - 1, -1, -1):
+            i, f, g, o = dxw[:, rows, tt].split(H, dim=-1)
+            tc = torch.tanh(cs[:, rows, tt])
+            dh = dhs[:, rows, tt] + dh_c
+            do = dh * tc
+            dct = dh * o * (1.0 - tc * tc) + dc_c
+            dc_c = dct * f
+            da = torch.cat([
+                dct * g * i * (1.0 - i),
+                dct * c_prev[:, rows, tt] * f * (1.0 - f),
+                dct * i * (1.0 - g * g),
+                do * o * (1.0 - o),
+            ], dim=-1)
+            dxw[:, rows, tt] = da
+            dh_c = torch.matmul(da, w_hh)
+    M = B * T
+    if splits is None:
+        splits = bwd_splits(M)
+    chunk = -(-M // splits)
+    hp, da = h_prev.reshape(ndir, M, H), dxw.reshape(ndir, M, 4 * H)
+    dw = torch.zeros_like(w_hh_t)
+    for r0 in range(0, M, chunk):
+        dw = dw + torch.matmul(hp[:, r0:r0 + chunk].transpose(-1, -2), da[:, r0:r0 + chunk])
+    return dxw, dw
+
+
+def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs):
+    """Launch B2 bwd's ``route`` ("phases" or "grid") on checked, contiguous
+    CUDA tensors; returns (dxw, dw_hh_t). ``lstm_bidir_tm_bwd`` picks the
+    route by ``bwd_route``; the card script also times the other one."""
+    ndir, B, T, h4 = xw.shape
+    H = h4 // 4
+    dxw = torch.empty_like(xw)
+    dw = torch.empty_like(w_hh_t)
+    lib = _bwd_library()
+    inputs = [t.data_ptr() for t in (xw, w_hh_t, hs, cs, dhs)]
+    if route == "phases":
+        splits = bwd_splits(B * T)
+        scratch = dw if splits == 1 else torch.empty(
+            (splits,) + tuple(dw.shape), device=xw.device, dtype=torch.float32)
+        err = lib.lstm_bidir_tm_bwd_phases_f32(
+            *inputs, dxw.data_ptr(), dw.data_ptr(), scratch.data_ptr(), ndir, B, T, H,
+            splits, *launch_args(xw))
+    else:
+        err = lib.lstm_bidir_tm_bwd_grid_f32(*inputs, dxw.data_ptr(), dw.data_ptr(), ndir,
+                                             B, T, H, *launch_args(xw))
+    raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, route=route,
+             ndir=ndir, B=B, T=T, H=H)
+    return dxw, dw
+
+
 def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
     """B2 bwd: the forward's inputs and residuals plus the cotangent ``dhs``
-    -> (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32. Kernel on a CUDA tensor
-    (counted in ``lstm_bidir_tm_bwd.launches``), plain version on a CPU
-    tensor. B = 0 or T = 0 gives zeros without a launch."""
+    -> (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32 (or a leading 1
+    throughout). Kernel on a CUDA tensor, on the route ``bwd_route(H)`` names
+    (one call is one count in ``lstm_bidir_tm_bwd.launches`` and in
+    ``lstm_bidir_tm_bwd.by_route``, whatever the number of launches inside;
+    deterministic: the same inputs give the same bits), plain version on a
+    CPU tensor. B = 0 or T = 0 gives zeros without a launch."""
     _check(xw, w_hh_t)
     _check_residuals(xw, hs, cs, dhs)
     if xw.device.type == "cpu":
@@ -221,17 +343,13 @@ def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_bidir_tm_bwd needs contiguous inputs")
     _, B, T, h4 = xw.shape
-    H = h4 // 4
     if B == 0 or T == 0:
         return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
-    dxw = torch.empty_like(xw)
-    dw = torch.empty_like(w_hh_t)
-    lib = _bwd_library()
-    err = lib.lstm_bidir_tm_bwd_f32(*(t.data_ptr() for t in tensors), dxw.data_ptr(),
-                                    dw.data_ptr(), B, T, H, *launch_args(xw))
-    raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, B=B, T=T, H=H)
+    route = bwd_route(h4 // 4)
+    out = _launch_bwd(route, *tensors)
     lstm_bidir_tm_bwd.launches += 1
-    return dxw, dw
+    lstm_bidir_tm_bwd.by_route[route] += 1
+    return out
 
 
 class LstmBidirTm(torch.autograd.Function):
@@ -270,7 +388,7 @@ def lstm_bidir_fused_ref(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Ten
 
 # widest layer the batch-blocked kernel takes: a lane is a hidden unit and a
 # block of the 8-block cluster keeps H / 8 units' columns of W_hh^T resident
-BB_MAX_HIDDEN = 256
+BB_MAX_HIDDEN = CLUSTER_MAX_HIDDEN
 
 
 def _bb_library():
@@ -313,7 +431,7 @@ def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32)
     Forward-only: raises when a gradient is needed. On a CUDA tensor the
     kernel, counted in ``lstm_bidir_bb.launches``; on a CPU tensor the plain
     version."""
-    _check(xw, w_hh_t)
+    _check(xw, w_hh_t, dirs=(2,))
     _, B, T, h4 = xw.shape
     H = h4 // 4
     _check_bb("lstm_bidir_bb", (xw, w_hh_t), batch_block, H)
@@ -380,5 +498,6 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 lstm_bidir_tm.launches = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_bwd.launches = 0
+lstm_bidir_tm_bwd.by_route = {"phases": 0, "grid": 0}
 lstm_bidir_bb.launches = 0
 lstm_bidir_fused.launches = 0

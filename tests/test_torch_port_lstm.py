@@ -99,6 +99,71 @@ def test_lstm_stack_matches_jax(bidirectional):
     np.testing.assert_allclose(out, ref, atol=5e-6, rtol=0)
 
 
+def test_one_direction_stack_runs_the_kernel_wrapper_with_one_direction(monkeypatch):
+    # every layer hands lstm_bidir_tm an xw with a leading axis of 1 (B1
+    # without a gradient, LstmBidirTm with one); the plain loop is reached
+    # only inside the wrapper, for a CPU tensor
+    from speech_enhancement_by_s3prl_tpu_torch.models import lstm as t_lstm
+
+    seen = []
+
+    def recording(xw, w_hh_t):
+        seen.append((tuple(xw.shape), tuple(w_hh_t.shape), xw.is_contiguous()
+                     and w_hh_t.is_contiguous()))
+        return lstm_bidir_tm(xw, w_hh_t)
+
+    monkeypatch.setattr(t_lstm, "lstm_bidir_tm", recording)
+    B, T, D, H = 2, 9, 6, 8
+    stack = LSTMStack(D, H, num_layers=3, bidirectional=False,
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_x(B, T, D, seed=11))
+    with torch.no_grad():
+        out = stack(x)
+    assert out.shape == (B, T, H) and out.grad_fn is None
+    assert seen == [((1, B, T, 4 * H), (1, H, 4 * H), True)] * 3
+    out = stack(x)
+    assert len(seen) == 6
+    # under autograd each layer is one LstmBidirTm node
+    nodes, todo, done = 0, [out.grad_fn], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in done:
+            continue
+        done.add(fn)
+        nodes += type(fn).__name__ == "LstmBidirTmBackward"
+        todo.extend(f for f, _ in fn.next_functions)
+    assert nodes == 3
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+def test_one_direction_stack_param_grads_match_jax(num_layers):
+    # the JAX package runs its lax.scan cell (LstmCellScan) for a
+    # one-direction layer; the port runs LstmBidirTm with one direction
+    B, T, D, H = 2, 13, 6, 8
+    x = _x(B, T, D, seed=12)
+    wts = np.cos(np.arange(B * T * H).reshape(B, T, H) * 0.01).astype(np.float32)
+    jstack = JLSTMStack(H, num_layers=num_layers, bidirectional=False)
+    params = jstack.init(jax.random.PRNGKey(3), jnp.asarray(x))
+    ref = np.asarray(jstack.apply(params, jnp.asarray(x)))
+    jgrads = jax.grad(
+        lambda p: jnp.sum(jnp.sin(jstack.apply(p, jnp.asarray(x))) * wts))(params)
+
+    stack = LSTMStack(D, H, num_layers=num_layers, bidirectional=False)
+    stack.load_state_dict(flax_to_state_dict(jax.device_get(params)))
+    out = stack(torch.from_numpy(x))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=5e-6, rtol=0)
+    names, tensors = zip(*stack.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(
+        (torch.sin(out) * torch.from_numpy(wts)).sum(), tensors)))
+    ref_grads = flax_to_state_dict(jax.device_get(jgrads))
+    assert set(ref_grads) == set(grads) and len(grads) == num_layers * 4
+    for k, g in grads.items():
+        r = ref_grads[k].numpy()
+        # sums over T * B terms carried back through the recurrence, relative
+        # to the largest |value| (as for the bidirectional stack: 5e-5)
+        assert float(np.abs(g.numpy() - r).max() / (np.abs(r).max() + 1e-12)) < 5e-5, k
+
+
 HEAD_CASES = {
     "Residual": dict(hidden_size=8, num_layers=2, bidirectional=True,
                      activation="Sigmoid", cmvn=False),

@@ -97,6 +97,89 @@ def test_entry_enhance_matches_jax(jax_small):
     assert _rel(out.numpy(), ref) < WAV_TOL
 
 
+ONE_DIRECTION = dict(hidden_size=16, num_layers=3, bidirectional=False)
+
+
+def test_one_direction_head_enhance_and_grads_match_jax(tmp_path):
+    """A one-direction 3-layer head (the shape config/vcb.yaml ships, narrow)
+    against the JAX package, which runs its lax.scan cell there: the enhanced
+    waveform through both entry points, the port's checkpoint served, and the
+    head's parameter gradients."""
+    jax_side = graft._build(use_pallas=True, **ONE_DIRECTION)
+    rng = np.random.default_rng(1)
+    wavs = (0.3 * rng.standard_normal((2, 3, 6400))).astype(np.float32)
+    lengths = np.array([6400, 5000], np.int32)
+    state = jax_side.init_state(jax.random.PRNGKey(4), jnp.asarray(wavs),
+                               jnp.asarray(lengths))
+    params = jax.device_get(state.params)
+    ref = jax.jit(graft.make_enhance(jax_side))(params, jnp.asarray(wavs),
+                                               jnp.asarray(lengths))
+    pre, model = entry.build(device="cpu", **ONE_DIRECTION)
+    model.load_state_dict(flax_to_state_dict(params))
+    assert not any("_bwd" in k for k in model.state_dict())
+    lstm_bidir_tm.launches = 0
+    out = entry.make_enhance(pre, model)(torch.from_numpy(wavs),
+                                         torch.from_numpy(lengths).long())
+    assert out.shape == (2, 6400) and lstm_bidir_tm.launches == 0
+    assert _rel(out.numpy(), ref) < WAV_TOL
+
+    config, paras = entry.flagship_settings(**ONE_DIRECTION)
+    save_checkpoint(str(tmp_path), 1, model, None, config, paras)
+    served = serve.build_enhancer(str(tmp_path), device="cpu")
+    j_served = j_serve.build_enhancer(str(tmp_path), 16000, -25.0)
+    request = _audio(5000, 3)
+    assert _rel(served(request), np.asarray(j_served(request))) < WAV_TOL
+
+    # the head's gradients: LstmBidirTm with one direction against jax.grad
+    # through LstmCellScan
+    feats = rng.standard_normal((2, 21, 12)).astype(np.float32)
+    linears = np.abs(rng.standard_normal((2, 21, 10))).astype(np.float32)
+    wts = np.cos(np.arange(2 * 21 * 10).reshape(2, 21, 10) * 0.01).astype(np.float32)
+    cfg = dict(activation="Sigmoid", cmvn=False, **ONE_DIRECTION)
+    from speech_enhancement_by_s3prl_tpu.models import heads as j_heads
+    from speech_enhancement_by_s3prl_tpu_torch.models import heads as t_heads
+
+    jhead = j_heads.build_head("Residual", input_size=12, output_size=10, **cfg)
+    hparams = jhead.init(jax.random.PRNGKey(5), features=jnp.asarray(feats),
+                         linears=jnp.asarray(linears))
+    jgrads = jax.grad(lambda p: jnp.sum(jhead.apply(
+        p, features=jnp.asarray(feats), linears=jnp.asarray(linears))[0] * wts))(hparams)
+    head = t_heads.build_head("Residual", input_size=12, output_size=10, **cfg)
+    head.load_state_dict(flax_to_state_dict(jax.device_get(hparams)))
+    pred, _ = head(torch.from_numpy(feats), torch.from_numpy(linears))
+    names, tensors = zip(*head.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad((pred * torch.from_numpy(wts)).sum(),
+                                                tensors)))
+    ref_grads = flax_to_state_dict(jax.device_get(jgrads))
+    assert set(ref_grads) == set(grads) and len(grads) == 3 * 4 + 2
+    for k, g in grads.items():
+        r = ref_grads[k].numpy()
+        # as for the bidirectional head (tests/test_torch_port_lstm_grad.py)
+        assert float(np.abs(g.numpy() - r).max() / (np.abs(r).max() + 1e-12)) < 5e-5, k
+
+
+def test_device_prefetch_on_the_cpu_keeps_batches_and_order():
+    """Batch for batch what the JAX package's prefetch yields: every batch,
+    in order, arrays as tensors of the same content, other entries as they
+    are; an iterator shorter than the look-ahead, and an empty one."""
+    rng = np.random.default_rng(2)
+    batches = [(rng.integers(0, 9, size=(3,)), rng.standard_normal((3, 2, 5 + i))
+                .astype(np.float32), f"tag{i}") for i in range(5)]
+    ref = list(j_loader.device_prefetch(iter(batches), size=2))
+    for size in (1, 2, 4, 9):
+        moved = list(loader.device_prefetch(iter(batches), "cpu", size=size))
+        assert len(moved) == len(ref) == len(batches)
+        for got, want, host in zip(moved, ref, batches):
+            assert isinstance(got, tuple) and got[2] == host[2]
+            assert all(isinstance(x, torch.Tensor) for x in got[:2])
+            assert got[0].dtype == torch.int64 and got[1].dtype == torch.float32
+            assert all(np.array_equal(x.numpy(), np.asarray(w))
+                       for x, w in zip(got[:2], want[:2]))
+            # on the CPU nothing is copied: the tensor shares the array's memory
+            assert got[1].data_ptr() == host[1].ctypes.data
+    assert list(loader.device_prefetch(iter([]), "cpu")) == []
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_checkpoint_served_by_port_matches_jax_serving(writer, ckpts):
     ckpt = ckpts[writer]
