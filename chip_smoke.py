@@ -9,7 +9,12 @@ Phases, one line each:
      together), timed, with ptxas's register report;
   3. each kernel against its plain PyTorch version on the card, at the
      flagship shape and at ragged ones, against a stated limit: B1
-     (recurrence), B2 fwd (recurrence + cell states), B2 bwd (reverse-time
+     (recurrence) and B2 fwd (recurrence + cell states), on the route the
+     hidden size names (thread-block clusters up to H = 256, also with one
+     direction, B = 6 and 16 and T = 1, each call twice, across batch blocks
+     and in each measurement variant for identical bits; the earlier
+     cooperative kernel at H = 36 and 260 and, launched directly, at the
+     flagship width), B2 bwd (reverse-time
      VJP: its three-phase route at the flagship width, across a batch-block
      boundary and with one direction, the earlier single-kernel route at a
      hidden size only it takes and, launched directly, at the flagship width
@@ -56,7 +61,9 @@ Phases, one line each:
      mode: a ``Residual`` head trained on the hidden states of a frozen,
      seeded full-width S3PRL checkpoint with ``--dropout`` (B3 fwd in the
      upstream), its checkpoint then served on the card and on the CPU;
-  7. times of each kernel and its plain version, the B=1 10 s enhance
+  7. times of each kernel and its plain version, B1 and B2 fwd under both
+     routes beside B6 at B = 1, 6 and 64 with the cluster design's
+     measurement variants, the B=1 10 s enhance
      latency under each recurrence route with its profiler breakdown, B4
      (both kernels) and B5 beside the torch-op routes they replace and
      ``torch.stft``, B6
@@ -125,6 +132,15 @@ B2_SHAPES = ((6, 1001, 256), (3, 37, 256), (70, 37, 256))
 # earlier single-kernel route takes
 B2_BWD_SHAPES = ((2, 17, 40, 256), (1, 5, 33, 256), (1, 6, 401, 256), (2, 9, 21, 64),
                  (2, 2, 1, 256), (2, 3, 19, 36), (1, 2, 19, 260))
+# B1 / B2 fwd beyond phase 3's flagship shapes, as (directions, B, T, H): one
+# direction, B = 6 (twelve clusters of one row) and 16 (clusters of 3 rows),
+# T = 1, a narrow layer, and hidden sizes that only the earlier cooperative
+# route takes
+FWD_SHAPES = ((1, 6, 401, 256), (2, 6, 1001, 256), (2, 16, 57, 256), (2, 3, 1, 256),
+              (2, 5, 20, 64), (2, 3, 19, 36), (1, 2, 19, 260))
+# batch blocks the cluster route is also launched with: rows are independent
+# and summed in an order their block does not enter, so the bits must not move
+FWD_BLOCKS = (1, 3, 16)
 TRAIN_STEPS, RESUME_STEPS = 8, 2
 # B3 vs its plain version, each error relative to the plain version's largest
 # |value|. The kernels fold key tiles into an online softmax and compute their
@@ -289,6 +305,119 @@ def bwd_phase_times(torch, L, tensors, B, card):
     return out
 
 
+def fwd_route_checks(torch, L):
+    """B1 and B2 fwd through their wrappers on the route ``fwd_route`` names,
+    at ``FWD_SHAPES``, and on the earlier ``grid`` route launched directly at
+    the flagship shapes (not its route there: the design the clusters
+    replaced), against the plain version. Every call is made twice for
+    identical bits; on the ``cluster`` route B1 and B2 fwd must also give the
+    same hs, and so must every batch block of ``FWD_BLOCKS`` and every
+    measurement variant (``L.FWD_VARIANTS``: the same sums in the same order).
+    Returns {route: [largest hs error, largest cs error / max|cs|]}."""
+    worst = {"cluster": [0.0, 0.0], "grid": [0.0, 0.0]}
+    cases = [(shape, None) for shape in FWD_SHAPES]
+    cases += [((2, 4, 1001, 256), "grid"), ((2, 6, 1001, 256), "grid")]
+    counters = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc)
+    for (ndir, B, T, H), forced in cases:
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + B + T, ndir)
+        route = forced or L.fwd_route(H)
+        if forced is None:
+            before = [dict(fn.by_route) for fn in counters]
+            runs = [L.lstm_bidir_tm(xw, w_hh_t) for _ in range(2)]
+            fcs = [L.lstm_bidir_tm_fc(xw, w_hh_t) for _ in range(2)]
+            for fn, was in zip(counters, before):
+                took = {r: n - was[r] for r, n in fn.by_route.items() if n != was[r]}
+                if took != {route: 2}:
+                    raise AssertionError(f"{fn.__name__} took {took} at H={H}, want "
+                                         f"{route!r}")
+        else:
+            runs = [L._launch_fwd(route, xw, w_hh_t) for _ in range(2)]
+            fcs = [L._launch_fwd(route, xw, w_hh_t, with_cell=True) for _ in range(2)]
+        (hs, cs), again = fcs
+        same = {"repeat": torch.equal(runs[0], runs[1])
+                and torch.equal(hs, again[0]) and torch.equal(cs, again[1])}
+        line = ""
+        if route == "cluster":
+            block = L.fwd_batch_block(B, ndir, L._fwd_clusters(L.launch_args(xw)[0]))
+            others = [bb for bb in FWD_BLOCKS if bb != block]
+            same["B1 = B2 fwd"] = torch.equal(runs[0], hs)
+            for bb in others:
+                h_bb, c_bb = L._launch_fwd(route, xw, w_hh_t, with_cell=True, batch_block=bb)
+                same[f"batch block {bb}"] = (
+                    torch.equal(L._launch_fwd(route, xw, w_hh_t, batch_block=bb), runs[0])
+                    and torch.equal(h_bb, hs) and torch.equal(c_bb, cs))
+            for name, variant in L.FWD_VARIANTS.items():
+                same[name] = torch.equal(L._launch_fwd(
+                    route, xw, w_hh_t, batch_block=min(block, 8), variant=variant), runs[0])
+            line = f" batch block {block} (also {others})"
+        ref_hs, ref_cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t)
+        torch.cuda.synchronize()
+        h_err = max(float((runs[0] - ref_hs).abs().max()), float((hs - ref_hs).abs().max()))
+        c_err = rel_err(cs, ref_cs)
+        print(f"[kernel] lstm_bidir_tm / lstm_bidir_tm_fc route {route!r}"
+              f"{'' if forced is None else ' (launched directly, not its route here)'}"
+              f"{line} directions={ndir} B={B} T={T} H={H}: hs max_abs_err {h_err:.3e} "
+              f"(limit {KERNEL_TOL:.0e}), cs err / max|cs| {c_err:.3e} (limit "
+              f"{B2_TOL:.0e}); identical bits: {', '.join(same)}", flush=True)
+        if not (h_err <= KERNEL_TOL and c_err <= B2_TOL):
+            raise AssertionError(f"the forward kernels ({route}) disagree: {h_err}, {c_err}")
+        if not all(same.values()):
+            raise AssertionError(f"the forward kernels ({route}) gave other bits: {same}")
+        worst[route] = [max(worst[route][0], h_err), max(worst[route][1], c_err)]
+    return worst
+
+
+def fwd_times(torch, L, card):
+    """B1 and B2 fwd at T=1001, H=256 under both routes (the ``grid`` route
+    launched directly) beside B6, at B = 1, 6 and 64, and B1 on the
+    ``cluster`` route with one element of its design changed
+    (``L.FWD_VARIANTS``, and the fewest clusters: a batch block of B rows, at
+    most ``L.FWD_MAX_BATCH_BLOCK``, in place of ``fwd_batch_block``'s), all
+    in turns forward and back; the smaller of the two timings is kept.
+    Returns {(name, B): ms}."""
+    T, H = 1001, 256
+    out = {}
+    for B in (1, 6, 64):
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED)
+        block = L.fwd_batch_block(B, 2, L._fwd_clusters(L.launch_args(xw)[0]))
+        fns = {
+            "cluster": lambda: L.lstm_bidir_tm(xw, w_hh_t),
+            "grid": lambda: L._launch_fwd("grid", xw, w_hh_t),
+            "fc_cluster": lambda: L.lstm_bidir_tm_fc(xw, w_hh_t),
+            "fc_grid": lambda: L._launch_fwd("grid", xw, w_hh_t, with_cell=True),
+            "b6": lambda: L.lstm_bidir_bb(xw, w_hh_t),
+        }
+        for name, variant in L.FWD_VARIANTS.items():
+            if variant == 1 and block > 8:  # its weights leave room for 8 rows
+                continue
+            fns[name] = (lambda v=variant: L._launch_fwd("cluster", xw, w_hh_t, variant=v))
+        fewest = min(B, L.FWD_MAX_BATCH_BLOCK)
+        if fewest != block:
+            fns["fewest clusters"] = lambda: L._launch_fwd("cluster", xw, w_hh_t,
+                                                           batch_block=fewest)
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                runs[k].append(cuda_ms(torch, fns[k], iters=10))
+        for k, ms in runs.items():
+            out[(k, B)] = min(ms)
+
+        def fmt(k):
+            return (f"{' / '.join(f'{x:.3f}' for x in runs[k])} ms "
+                    f"({min(runs[k]) * 1e3 / T:.2f} us a step)")
+
+        print(f"[time] forward recurrence B={B} T={T} H={H}, two directions: B1 'cluster' "
+              f"(the route taken, batch block {block}) {fmt('cluster')}, 'grid' (the "
+              f"earlier design, launched directly) {fmt('grid')}; B2 fwd 'cluster' "
+              f"{fmt('fc_cluster')}, 'grid' {fmt('fc_grid')}; B6 (batch block 32) "
+              f"{fmt('b6')}; B1 'cluster' with one element changed: "
+              + ", ".join(f"{k} {fmt(k)}" for k in L.FWD_VARIANTS if k in runs)
+              + (f", fewest clusters (batch block {fewest}) {fmt('fewest clusters')}"
+                 if "fewest clusters" in runs else "") + f" | {card}", flush=True)
+        del xw
+    return out
+
+
 def write_corpus(root, seed):
     """12 speech files of 3-10 s (tone sweeps with a syllable envelope) and
     4 noise files of 4-8 s, 16 kHz WAV, from ``seed``."""
@@ -348,6 +477,8 @@ def ckpt_files(directory):
 def reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
+        for route in getattr(fn, "by_route", {}):
+            fn.by_route[route] = 0
 
 
 def cuda_ms(torch, fn, iters, warmup=1):
@@ -854,7 +985,7 @@ def enhance_times(torch, build, make_enhance, card):
                 continue
             n_kernels += 1
             name = evt.name
-            if "lstm_bidir_tm_kernel" in name:
+            if "lstm_tm_cluster_kernel" in name or "lstm_bidir_tm_kernel" in name:
                 key = "B1"
             elif "stft_fft_kernel" in name or "stft_fused_kernel" in name:
                 key = "B4"
@@ -1388,8 +1519,8 @@ def main():
         ref = lstm_bidir_tm_ref(xw, w_hh_t)
         torch.cuda.synchronize()
         err = float((hs - ref).abs().max())
-        print(f"[kernel] lstm_bidir_tm B={B} T={T} H={H}: max_abs_err {err:.3e} "
-              f"(limit {KERNEL_TOL:.0e})", flush=True)
+        print(f"[kernel] lstm_bidir_tm route {L.fwd_route(H)!r} B={B} T={T} H={H}: "
+              f"max_abs_err {err:.3e} (limit {KERNEL_TOL:.0e})", flush=True)
         if not err <= KERNEL_TOL:
             raise AssertionError(f"lstm_bidir_tm disagrees with its plain version: {err}")
         max_err = max(max_err, err)
@@ -1409,7 +1540,7 @@ def main():
         c_err = rel_err(cs, ref_cs)
         dx_err = rel_err(dxw, ref_dxw)
         dw_err = rel_err(dw, ref_dw)
-        print(f"[kernel] lstm_bidir_tm_fc B={B} T={T} H={H}: hs max_abs_err "
+        print(f"[kernel] lstm_bidir_tm_fc route {L.fwd_route(H)!r} B={B} T={T} H={H}: hs max_abs_err "
               f"{h_err:.3e} (limit {KERNEL_TOL:.0e}), cs err / max|cs| {c_err:.3e} "
               f"(limit {B2_TOL:.0e})", flush=True)
         print(f"[kernel] lstm_bidir_tm_bwd route {L.bwd_route(H)!r} B={B} T={T} H={H}: dxw "
@@ -1439,6 +1570,9 @@ def main():
     if not fn_err <= B2_TOL:
         raise AssertionError(f"LstmBidirTm gradients disagree: {fn_err}")
 
+    fwd_routes = fwd_route_checks(torch, L)
+    max_err = max(max_err, fwd_routes["cluster"][0])
+    b2_err["fc"] = max(b2_err["fc"], fwd_routes["cluster"][0])
     b2_routes = bwd_route_checks(torch, L)
     b2_err["bwd"] = max(b2_err["bwd"], b2_routes["phases"][0])
     b2_err["bwd_abs"] = max(b2_err["bwd_abs"], b2_routes["phases"][1])
@@ -1487,6 +1621,7 @@ def main():
             if th.is_alive():
                 raise AssertionError("a request did not finish within 600 s")
         served_launches = lstm_bidir_tm.launches
+        served_routes = dict(lstm_bidir_tm.by_route)
         served_dsp = (stft_fused.launches, decode_ola.launches)
         enhance_cli(["--ckpt", ckpt, "--inputs", cli_in, "--outdir", cli_out,
                      "--device", "cuda"])
@@ -1504,6 +1639,8 @@ def main():
                 f"(B4, B5) launches {served_dsp} for {len(batches)} served device "
                 f"batches and {dsp_launches} with the CLI's one: want one each a batch")
 
+        if served_routes != {"cluster": served_launches, "grid": 0}:
+            raise AssertionError(f"B1's served launches by route: {served_routes}")
         if served_launches != 3 * len(batches):
             raise AssertionError(
                 f"{served_launches} kernel launches for {len(batches)} device "
@@ -1517,7 +1654,8 @@ def main():
         print(f"[slice] served {len(requests)} concurrent requests "
               f"({', '.join(f'{s} s' for s in REQUEST_SECONDS)}) in device batches "
               f"of {batches}; CLI enhanced {len(CLI_SECONDS)} files in 1 batch; "
-              f"launches B1 {launches} (3 per device batch), B4 {dsp_launches[0]}, B5 "
+              f"launches B1 {launches} (3 per device batch; served by route "
+              f"{served_routes}), B4 {dsp_launches[0]}, B5 "
               f"{dsp_launches[1]} (1 each per device batch)", flush=True)
 
         worst = 0.0
@@ -1651,7 +1789,10 @@ def main():
         runner.train()
         train_counts = [fn.launches for fn in kernels]
         train_dsp = (stft_fused.launches, decode_ola.launches)
+        train_routes = [dict(fn.by_route) for fn in kernels]
         # -----------------------------------------------------------------
+        if [r["grid"] for r in train_routes] != [0, 0, 0]:
+            raise AssertionError(f"the flagship's training took a grid route: {train_routes}")
         if any(fn.launches for fn in flash_kernels + (L.lstm_bidir_bb, L.lstm_bidir_fused)):
             raise AssertionError("the flagship's training launched an attention or "
                                  "other-route kernel")
@@ -1688,7 +1829,8 @@ def main():
               f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
               f"{', '.join(f'{x:.3f}' for x in norms)}; launches B1 {train_counts[0]}, "
               f"B2 fwd {train_counts[1]}, B2 bwd {train_counts[2]} (3 B2 fwd + 3 B2 bwd "
-              f"a step, 3 B1 an eval batch), B4 {train_dsp[0]} (1 a step and an eval "
+              f"a step, 3 B1 an eval batch; by route {train_routes}), B4 {train_dsp[0]} "
+              f"(1 a step and an eval "
               f"batch), B5 {train_dsp[1]} (1 an eval batch, 0 a step); checkpoints {ckpts}",
               flush=True)
 
@@ -1799,6 +1941,7 @@ def main():
               f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
               flush=True)
 
+    times.update(fwd_times(torch, L, card))
     enhance_ms = enhance_times(torch, build, make_enhance, card)
     times.update(serving_times(torch, S, stft_kernel, decode_kernel, L, card))
 
@@ -1887,7 +2030,7 @@ def main():
         name = evt.name
         if "lstm_bwd_" in name or "lstm_bidir_tm_bwd_kernel" in name:
             key = "B2 bwd"  # the three phases (or the earlier single kernel)
-        elif "lstm_bidir_tm_kernel" in name:
+        elif "lstm_tm_cluster_kernel" in name or "lstm_bidir_tm_kernel" in name:
             key = "B2 fwd"
         elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
             key = "cuBLAS"
@@ -1910,12 +2053,26 @@ def main():
     T, H = 1001, 256
     cudnn = {B: times[("cudnn_fwd", B)][0] for B in (1, 6, 64)}
 
+    def fwd_route_fields(prefix):
+        """B1 / B2 fwd (``prefix`` "fc_"): the route taken, the grid route's
+        source, errors and times, B6 beside them, and the time a step."""
+        fields = {"kernel_route": "cluster (H a multiple of 8, at most 256)",
+                  "grid_route": "any other H; timed here at H=256, launched directly",
+                  "grid_source": csrc + "lstm_tm.cu",
+                  "grid_max_abs_err": fwd_routes["grid"][0]}
+        for B, sfx in ((1, ""), (6, "_b6"), (64, "_b64")):
+            fields[f"grid_ms{sfx}"] = times[(prefix + "grid", B)]
+            fields[f"b6_ms{sfx}"] = times[("b6", B)]
+            fields[f"step_us{sfx}"] = times[(prefix + "cluster", B)] * 1e3 / T
+        return fields
+
     def row(name, source, replaces, launches, err, ms, plain_ms, shape, bound_, library_ms,
             **more):
         return {"name": name, "route": "cuda", "source": csrc + source,
                 "replaces": pallas + replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
-                "library_ms": library_ms, "shape": shape, **more}
+                "library_ms": library_ms, "shape": shape,
+                "kernel_route": more.pop("kernel_route", "one design"), **more}
 
     # every bound is worked out from the shape named beside it, by the cheapest
     # arithmetic the numerics allow (f32 FMAs; three TF32 passes a product for
@@ -1926,18 +2083,25 @@ def main():
     # call computes, the torch-op route (rescale + matmul + shifted adds) that
     # is also its plain version; none of them is a route of the port
     rows = [
-        row("lstm_bidir_tm", "lstm_tm.cu", "lstm_kernel.py:208", launches, max_err,
+        row("lstm_bidir_tm", "lstm_tm_cluster.cu", "lstm_kernel.py:208", launches, max_err,
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
             launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
             launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
             ms_b64=times[64][0], plain_ms_b64=times[64][1],
-            bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64]),
-        row("lstm_bidir_tm_fc", "lstm_tm.cu", "lstm_kernel.py:391", train_counts[1],
+            bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64],
+            ms_b6=times[("cluster", 6)], bound_ms_b6=lstm_bound(6, T, H)[0],
+            **fwd_route_fields(""), **{f"{name.replace(' ', '_')}_ms{sfx}": times[(name, B)]
+                                       for B, sfx in ((1, ""), (6, "_b6"), (64, "_b64"))
+                                       for name in (*L.FWD_VARIANTS, "fewest clusters")
+                                       if (name, B) in times}),
+        row("lstm_bidir_tm_fc", "lstm_tm_cluster.cu", "lstm_kernel.py:391", train_counts[1],
             b2_err["fc"], times[("fc", 6)][0], times[("fc", 6)][1], "B=6 T=1001 H=256",
             lstm_bound(6, T, H, extra_streams=1), times[("cudnn_train", 6)][0],
             ms_b64=times[("fc", 64)][0], plain_ms_b64=times[("fc", 64)][1],
             bound_ms_b64=lstm_bound(64, T, H, extra_streams=1)[0],
-            library_ms_b64=times[("cudnn_train", 64)][0]),
+            library_ms_b64=times[("cudnn_train", 64)][0], ms_b1=times[("fc_cluster", 1)],
+            bound_ms_b1=lstm_bound(1, T, H, extra_streams=1)[0],
+            max_rel_err_cs=fwd_routes["cluster"][1], **fwd_route_fields("fc_")),
         row("lstm_bidir_tm_bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", train_counts[2],
             b2_err["bwd_abs"], times[("bwd", 6)][0], times[("bwd", 6)][1],
             "B=6 T=1001 H=256",

@@ -8,6 +8,9 @@
 //     residual that the backward kernel in lstm_tm_bwd.cu reads).
 // Both are one kernel template: kCell adds one store of c_t per step and
 // nothing else, so B1's instances compile as they did before the flag.
+// This is the `grid` route of ops/cuda/lstm_kernel.fwd_route: the hidden
+// sizes that lstm_tm_cluster.cu does not take (not a multiple of 8, or above
+// 256) run here.
 //
 // Computes, for each direction d < ndir (ndir is 2 for a bidirectional layer,
 // 1 for a one-direction layer) and each step t = 0 .. T-1, for the whole batch:

@@ -5,11 +5,17 @@ kernels and their plain PyTorch versions.
 Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
 ``speech_enhancement_by_s3prl_tpu/ops/pallas/lstm_kernel.py``:
 
-- B1 ``lstm_bidir_tm`` (``lstm_tm.cu``): the recurrence, forward only
+- B1 ``lstm_bidir_tm``: the recurrence, forward only
   (``lstm_bidir_pallas_tm``). It runs whenever no gradient is needed.
-- B2 fwd ``lstm_bidir_tm_fc`` (``lstm_tm.cu``, the same kernel with its cell
-  flag): the recurrence that also returns the cell states
-  (``_tm_fwd_with_cell``).
+- B2 fwd ``lstm_bidir_tm_fc`` (the same kernel with its cell flag): the
+  recurrence that also returns the cell states (``_tm_fwd_with_cell``).
+  For a hidden size that is a multiple of 8 up to 256 (``fwd_route``) both
+  run ``lstm_tm_cluster.cu``: one thread-block cluster per (direction, batch
+  block of ``fwd_batch_block`` rows), W_hh^T held in registers, xw fetched
+  ahead, h exchanged through distributed shared memory, no grid barrier.
+  ``lstm_bidir_tm_fwd_model`` is that algorithm in PyTorch, for the CPU
+  tests. Any other hidden size takes the earlier cooperative kernel of
+  ``lstm_tm.cu``.
 - B2 bwd ``lstm_bidir_tm_bwd`` (``lstm_tm_bwd.cu``): the reverse-time VJP
   (``_tm_bwd``), which recomputes the gates and sums dW_hh^T itself. For a
   hidden size that is a multiple of 8 up to 256 (``bwd_route``) one call is
@@ -44,6 +50,7 @@ raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -158,6 +165,20 @@ def _library():
     return lib
 
 
+def _cluster_library():
+    lib = load("lstm_tm_cluster")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_tm_cluster_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.lstm_tm_cluster_f32.restype = i
+    lib.lstm_tm_cluster_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_tm_cluster_fc_f32.restype = i
+    lib.lstm_tm_cluster_max_clusters.argtypes = [i, ctypes.POINTER(i)]
+    lib.lstm_tm_cluster_max_clusters.restype = i
+    lib.lstm_tm_cluster_error_string.argtypes = [i]
+    lib.lstm_tm_cluster_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_library():
     lib = load("lstm_tm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -170,6 +191,131 @@ def _bwd_library():
     return lib
 
 
+# widest layer whose 8-block cluster keeps its W_hh^T slices resident
+# (H / 8 units a block, a lane a unit in the kernels of lstm_bb.cu too)
+CLUSTER_MAX_HIDDEN = 256
+# batch rows one cluster of the forward's ``cluster`` route takes at most
+# (kMaxRows in lstm_tm_cluster.cu: a warp a row in the cell phase)
+FWD_MAX_BATCH_BLOCK = 16
+# slices of the reduction over H in that kernel: a warp a slice of 16
+# consecutive inputs of h padded with zeros to CLUSTER_MAX_HIDDEN
+FWD_SLICES = 16
+# the ``cluster`` kernel of B1 with one element of its design changed, for
+# measurement on the card (``variant`` of lstm_tm_cluster_f32)
+FWD_VARIANTS = {"weights in shared memory": 1, "xw loaded in its step": 2,
+                "16-byte remote stores": 4, "whole cluster barrier": 8}
+
+
+def fwd_route(hidden: int) -> str:
+    """The design B1 and B2 fwd run on a CUDA tensor, by the hidden size
+    alone: ``"cluster"`` (``lstm_tm_cluster.cu``) for a multiple of 8 up to
+    256, ``"grid"`` (the earlier cooperative kernel of ``lstm_tm.cu``) for any
+    other."""
+    return "cluster" if hidden % 8 == 0 and hidden <= CLUSTER_MAX_HIDDEN else "grid"
+
+
+def fwd_batch_block(batch: int, ndir: int, clusters: int) -> int:
+    """Rows a cluster of the ``cluster`` route takes: the fewest such that all
+    ``ndir * ceil(batch / rows)`` clusters fit the ``clusters`` the card holds
+    at once, at most ``FWD_MAX_BATCH_BLOCK`` (past that the clusters take
+    turns). Rows are independent, so the choice never changes a bit of the
+    result, only how the rows spread over the card."""
+    per_dir = max(1, clusters // max(1, ndir))
+    return max(1, min(FWD_MAX_BATCH_BLOCK, -(-batch // per_dir)))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_clusters(device_index: int) -> int:
+    """Clusters of the forward's ``cluster`` kernel that the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _cluster_library()
+    out = ctypes.c_int(0)
+    err = lib.lstm_tm_cluster_max_clusters(device_index, ctypes.byref(out))
+    raise_on(err, "lstm_tm_cluster_max_clusters", lib.lstm_tm_cluster_error_string,
+             device=device_index)
+    if out.value < 1:
+        raise RuntimeError(f"no cluster of lstm_tm_cluster fits device {device_index}")
+    return out.value
+
+
+def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 1,
+                            slices: int = FWD_SLICES, with_cell: bool = False):
+    """The ``cluster`` route of B1 / B2 fwd in PyTorch, as
+    ``lstm_tm_cluster.cu`` runs it (the function of ``lstm_bidir_tm_ref``):
+    each block of ``batch_block`` rows is its own recurrence; h is padded with
+    zeros to ``max(H, CLUSTER_MAX_HIDDEN)`` inputs, cut into ``slices`` runs
+    of consecutive inputs (the kernel: 16 runs of 16, a warp a run); at every
+    step a slice's partial gates are summed one input at a time, the gates
+    are xw plus the partials in slice order (a slice wholly past H adds
+    nothing), and the cell runs row by row. Every operation acts on one row
+    at a time or elementwise, so a row's bits do not depend on the other rows
+    of its block. Returns hs, or (hs, cs) with ``with_cell``, each
+    (ndir, B, T, H) f32."""
+    ndir, B, T, h4 = xw.shape
+    H = h4 // 4
+    hs = xw.new_zeros((ndir, B, T, H), dtype=torch.float32)
+    cs = torch.zeros_like(hs)
+    span = -(-max(H, CLUSTER_MAX_HIDDEN) // slices)
+    for b0 in range(0, B, batch_block):
+        rows = range(b0, min(B, b0 + batch_block))
+        h = xw.new_zeros((ndir, len(rows), H), dtype=torch.float32)
+        c = torch.zeros_like(h)
+        for t in range(T):
+            gates = xw[:, b0:rows.stop, t].float()
+            for s in range(-(-H // span)):
+                part = torch.zeros_like(gates)
+                for i in range(s * span, min(H, (s + 1) * span)):
+                    part = part + h[:, :, i:i + 1] * w_hh_t[:, None, i, :]
+                gates = gates + part
+            h, c = h.clone(), c.clone()
+            for d in range(ndir):
+                for r in range(len(rows)):
+                    i, f, g, o = gates[d, r].split(H)
+                    c[d, r] = torch.sigmoid(f) * c[d, r] + torch.sigmoid(i) * torch.tanh(g)
+                    h[d, r] = torch.sigmoid(o) * torch.tanh(c[d, r])
+            hs[:, b0:rows.stop, t] = h
+            cs[:, b0:rows.stop, t] = c
+    return (hs, cs) if with_cell else hs
+
+
+def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
+                batch_block: Optional[int] = None, variant: int = 0):
+    """Launch B1 (or B2 fwd with ``with_cell``) on ``route`` ("cluster" or
+    "grid") on checked, contiguous CUDA tensors with B, T > 0; returns hs or
+    (hs, cs). ``lstm_bidir_tm`` / ``lstm_bidir_tm_fc`` pick the route by
+    ``fwd_route`` and the batch block by ``fwd_batch_block``; the card script
+    also runs the other route, other batch blocks and, through ``variant``
+    (B1 on the cluster route only), the design with one element changed
+    (``FWD_VARIANTS``)."""
+    ndir, B, T, h4 = xw.shape
+    H = h4 // 4
+    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
+    cs = torch.empty_like(hs) if with_cell else None
+    ptrs = (xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr())
+    if route == "cluster":
+        lib = _cluster_library()
+        if batch_block is None:
+            batch_block = fwd_batch_block(B, ndir, _fwd_clusters(launch_args(xw)[0]))
+        if with_cell:
+            err = lib.lstm_tm_cluster_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, batch_block,
+                                             *launch_args(xw))
+        else:
+            err = lib.lstm_tm_cluster_f32(*ptrs, ndir, B, T, H, batch_block, variant,
+                                          *launch_args(xw))
+        errstr = lib.lstm_tm_cluster_error_string
+    else:
+        lib = _library()
+        if with_cell:
+            err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H,
+                                           *launch_args(xw))
+        else:
+            err = lib.lstm_bidir_tm_f32(*ptrs, ndir, B, T, H, *launch_args(xw))
+        errstr = lib.lstm_tm_error_string
+    raise_on(err, "lstm_bidir_tm_fc" if with_cell else "lstm_bidir_tm", errstr, route=route,
+             ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant)
+    return (hs, cs) if with_cell else hs
+
+
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32; a leading 1
     in place of the 2 is a one-direction layer.
@@ -177,8 +323,8 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     When a gradient is needed (grad mode on and an input that requires it)
     this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass.
     Otherwise it is B1 (the primal of the JAX custom VJP): on a CUDA tensor
-    the kernel, counted in ``lstm_bidir_tm.launches``; on a CPU tensor the
-    plain version."""
+    the kernel of route ``fwd_route(H)``, counted in ``lstm_bidir_tm.launches``
+    and ``lstm_bidir_tm.by_route``; on a CPU tensor the plain version."""
     _check(xw, w_hh_t)
     if torch.is_grad_enabled() and (xw.requires_grad or w_hh_t.requires_grad):
         return LstmBidirTm.apply(xw, w_hh_t)
@@ -187,44 +333,36 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
-    H = h4 // 4
-    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0:
-        return hs
-    lib = _library()
-    err = lib.lstm_bidir_tm_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                ndir, B, T, H, *launch_args(xw))
-    raise_on(err, "lstm_bidir_tm", lib.lstm_tm_error_string, B=B, T=T, H=H)
+        return torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+    route = fwd_route(h4 // 4)
+    hs = _launch_fwd(route, xw, w_hh_t)
     lstm_bidir_tm.launches += 1
+    lstm_bidir_tm.by_route[route] += 1
     return hs
 
 
 def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
     """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) f32.
-    Kernel on a CUDA tensor (counted in ``lstm_bidir_tm_fc.launches``),
-    plain version on a CPU tensor."""
+    Kernel of route ``fwd_route(H)`` on a CUDA tensor (counted in
+    ``lstm_bidir_tm_fc.launches`` and ``.by_route``), plain version on a CPU
+    tensor."""
     _check(xw, w_hh_t)
     if xw.device.type == "cpu":
         return lstm_bidir_tm_fc_ref(xw, w_hh_t)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm_fc needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
-    H = h4 // 4
-    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
-    cs = torch.empty_like(hs)
     if B == 0 or T == 0:
-        return hs, cs
-    lib = _library()
-    err = lib.lstm_bidir_tm_fc_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                   cs.data_ptr(), ndir, B, T, H, *launch_args(xw))
-    raise_on(err, "lstm_bidir_tm_fc", lib.lstm_tm_error_string, B=B, T=T, H=H)
+        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+        return hs, torch.empty_like(hs)
+    route = fwd_route(h4 // 4)
+    out = _launch_fwd(route, xw, w_hh_t, with_cell=True)
     lstm_bidir_tm_fc.launches += 1
-    return hs, cs
+    lstm_bidir_tm_fc.by_route[route] += 1
+    return out
 
 
-# widest layer whose 8-block cluster keeps its W_hh^T slices resident
-# (H / 8 units a block, a lane a unit in the kernels of lstm_bb.cu too)
-CLUSTER_MAX_HIDDEN = 256
 # batch rows one cluster of B2 bwd's dh chain takes (kSeqRows in lstm_tm_bwd.cu)
 BWD_BATCH_BLOCK = 8
 # rows of dW_hh^T's contraction per split, and the most splits
@@ -496,7 +634,9 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 # kernel launches since the last reset (chip_smoke.py reads them to show that
 # the main path went through the kernels)
 lstm_bidir_tm.launches = 0
+lstm_bidir_tm.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm_fc.launches = 0
+lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm_bwd.launches = 0
 lstm_bidir_tm_bwd.by_route = {"phases": 0, "grid": 0}
 lstm_bidir_bb.launches = 0
