@@ -29,8 +29,11 @@ Phases, one line each:
      and twelve rows of 10 s, ragged lengths, lead axes and other geometries,
      each on the route its n_fft names (the FFT kernel, or the matrix-product
      kernel for an n_fft such as 254 = 2 * 127), the product kernel also at
-     the flagship geometry, and B5 (fused decode) at T' = 1001, 78 and 251
-     with a carrier from an STFT, an all-zero carrier and powers 1, 2, 3; B6
+     the flagship geometry, and B5 (fused decode) the same way (the inverse
+     FFT, or the product kernel at 254) at T' = 1001, 251, 78, 2 and 1 with a
+     carrier from an STFT, an all-zero carrier and powers 1, 2, 3, at B4's
+     geometries, each twice for identical bits, and twelve rows in one launch
+     against each row alone for identical bits; B6
      (batch-blocked recurrence) and B7 (recurrence with the projection
      inside) at B = 1, 6 and 70, D = 120 and 512, a narrow layer and small
      batch blocks;
@@ -65,8 +68,8 @@ Phases, one line each:
      routes beside B6 at B = 1, 6 and 64 with the cluster design's
      measurement variants, the B=1 10 s enhance
      latency under each recurrence route with its profiler breakdown, B4
-     (both kernels) and B5 beside the torch-op routes they replace and
-     ``torch.stft``, B6
+     and B5 (both kernels of each, also launched without the wrapper) beside
+     the torch-op routes they replace, ``torch.stft`` and ``torch.istft``, B6
      and B7 beside B1, one cuDNN ``nn.LSTM`` layer as the library yardstick
      of the recurrences, B2 bwd under both routes with the share of each
      phase, the B=6 train step and eval batch, and a profiler
@@ -150,12 +153,12 @@ TRAIN_STEPS, RESUME_STEPS = 8, 2
 # moves an output by about 1e-3 of its largest value, so a wrong hash fails.
 B3_TOL = 1e-4
 # B4 and B5 vs their plain versions, relative to the plain version's largest
-# |value|, all in f32. The plain versions sum 400 (B4) or up to 1206 (B5)
-# products a value in cuBLAS's order. B5 and B4's product kernel sum the same
-# products with FMAs in index order; B4's FFT kernel reaches a value through
-# four butterfly passes and a split pass on f32 twiddles built in float64
-# (error ~1e-6 of the largest value: a rounding near 1e-7 a pass). A
-# fast-math sine in place of the tables would lose the limit.
+# |value|, all in f32. The plain versions sum 400 (B4) or up to 402 (B5)
+# products a value in cuBLAS's order. The product kernels sum the same
+# products with FMAs in index order; the FFT kernels reach a value through
+# four butterfly passes and a split (B4) or pack (B5) pass on f32 twiddles
+# built in float64 (error ~1e-6 of the largest value: a rounding near 1e-7 a
+# pass). A fast-math sine in place of the tables would lose the limit.
 DSP_TOL = 1e-5
 B3_CASES = (  # B, T, N, D, dropout rate, key bias
     (6, 1001, 12, 64, 0.1, False),
@@ -481,6 +484,14 @@ def reset_counts(kernels):
             fn.by_route[route] = 0
 
 
+def check_b5_route(decode_ola, where):
+    """Every B5 launch since the last reset on the FFT kernel, the route
+    ``decode_route`` names at the flagship's n_fft 400."""
+    if decode_ola.by_route != {"fft": decode_ola.launches, "product": 0}:
+        raise AssertionError(f"{where}: B5 launches by route {decode_ola.by_route}, want all "
+                             f"{decode_ola.launches} on 'fft'")
+
+
 def cuda_ms(torch, fn, iters, warmup=1):
     for _ in range(warmup):
         fn()
@@ -642,24 +653,28 @@ def stft_inputs(torch, shape, seed):
     return (0.3 * torch.randn(*shape, generator=g)).cuda()
 
 
-def decode_inputs(torch, S, B, T, seed, zero_carrier=False):
-    """pred (B, T, 201) >= 0 and uph (B, T, 402), the STFT of seeded noise
-    (or all zeros: the (1, 0) carrier corner)."""
+def decode_inputs(torch, S, B, T, seed, zero_carrier=False, geom=(400, 400, 160)):
+    """pred (B, T, F) >= 0 and uph (B, T, 2F), F = n_fft / 2 + 1: the STFT of
+    seeded noise (or all zeros: the (1, 0) carrier corner)."""
+    n_fft, win, hop = geom
     g = torch.Generator().manual_seed(seed)
-    pred = torch.randn(B, T, S.StftParams().n_freq, generator=g).square().cuda()
+    pred = torch.randn(B, T, n_fft // 2 + 1, generator=g).square().cuda()
     if zero_carrier:
         return pred, torch.zeros(B, T, 2 * pred.shape[-1], device="cuda")
-    wav = stft_inputs(torch, (B, (T - 1) * 160), seed + 1)
-    return pred, S.stft(wav, S.StftParams(), fused=False)
+    # T frames need more than n_fft / 2 samples (the reflection): at T = 1 the
+    # STFT's second frame is dropped
+    wav = stft_inputs(torch, (B, max((T - 1) * hop, n_fft // 2 + 1)), seed + 1)
+    return pred, S._stft_matmul(wav, n_fft, win, hop)[:, :T].contiguous()
 
 
 def dsp_checks(torch, S, stft_mod, decode_mod):
-    """B4 (each case on the route its n_fft names, and the product kernel at
-    the flagship geometry too) and B5 against their plain versions on the
-    card. Returns the largest absolute errors (B4's FFT kernel, B5, B4's
-    product kernel)."""
+    """B4 and B5 (each case on the route its n_fft names, each twice for
+    identical bits, and B4's product kernel at the flagship geometry too)
+    against their plain versions on the card, and B5's rows independent of
+    their launch's batch. Returns the largest absolute errors (B4's FFT
+    kernel, B5's FFT kernel, B4's product kernel, B5's product kernel)."""
     geom = (400, 400, 160)
-    worst = [0.0, 0.0, 0.0]
+    worst = [0.0, 0.0, 0.0, 0.0]
     cases = [((1, 160000), geom, "fft"), ((6, 2, 160000), geom, "fft"),
              ((3, 12345), geom, "fft"), ((5, 33000), geom, "fft"),
              ((2, 3, 8000), geom, "fft"),  # rows shorter than one block's span
@@ -704,21 +719,47 @@ def dsp_checks(torch, S, stft_mod, decode_mod):
         if not err <= DSP_TOL:
             raise AssertionError(f"the product STFT kernel disagrees: {err}")
         worst[2] = max(worst[2], float((out - ref).abs().max()))
-    for B, T, zero, power in ((1, 1001, False, 2.0), (6, 1001, False, 2.0),
-                              (3, 78, False, 2.0), (2, 251, False, 2.0),
-                              (2, 251, True, 2.0), (2, 78, False, 1.0),
-                              (2, 78, False, 3.0)):
-        pred, uph = decode_inputs(torch, S, B, T, SEED + T, zero)
-        out = decode_mod.decode_ola(pred, uph, *geom, linear_power=power)
-        ref = decode_mod.decode_ola_ref(pred, uph, *geom, linear_power=power)
+    # B5 at the flagship geometry (T' = 1 and 2: one block, frames outside
+    # [0, T') on both sides), then at B4's other geometries and on 254
+    cases = [(1, 1001, False, 2.0, geom), (6, 1001, False, 2.0, geom),
+             (3, 78, False, 2.0, geom), (2, 251, False, 2.0, geom), (2, 251, True, 2.0, geom),
+             (2, 78, False, 1.0, geom), (2, 78, False, 3.0, geom), (3, 1, False, 2.0, geom),
+             (2, 2, False, 2.0, geom), (3, 77, False, 2.0, (256, 200, 80)),
+             (2, 57, False, 2.0, (512, 400, 160)), (2, 45, False, 3.0, (480, 480, 160)),
+             (2, 41, False, 2.0, (240, 200, 75)), (2, 54, False, 2.0, (254, 150, 75)),
+             (2, 54, True, 1.0, (254, 150, 75))]
+    for B, T, zero, power, (n_fft, win, hop) in cases:
+        pred, uph = decode_inputs(torch, S, B, T, SEED + T, zero, (n_fft, win, hop))
+        route = decode_mod.decode_route(n_fft)
+        before = dict(decode_mod.decode_ola.by_route)
+        out = decode_mod.decode_ola(pred, uph, n_fft, win, hop, linear_power=power)
+        took = [r for r, n in decode_mod.decode_ola.by_route.items() if n != before[r]]
+        again = decode_mod.decode_ola(pred, uph, n_fft, win, hop, linear_power=power)
+        ref = decode_mod.decode_ola_ref(pred, uph, n_fft, win, hop, linear_power=power)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        print(f"[kernel] decode_ola B={B} T'={T} power={power} "
-              f"{'zero carrier' if zero else 'carrier from an STFT'} -> {tuple(out.shape)}: "
-              f"err / max|value| {err:.3e} (limit {DSP_TOL:.0e})", flush=True)
-        if out.shape != ref.shape or not err <= DSP_TOL:
+        print(f"[kernel] decode_ola B={B} T'={T} n_fft={n_fft} win={win} hop={hop} "
+              f"power={power} {'zero carrier' if zero else 'carrier from an STFT'} -> "
+              f"{tuple(out.shape)}, route {took}: err / max|value| {err:.3e} (limit "
+              f"{DSP_TOL:.0e}); twice: identical bits", flush=True)
+        if took != [route] or (route == "fft") != (n_fft != 254):
+            raise AssertionError(f"decode_ola took route {took} at n_fft={n_fft}, want "
+                                 f"{route!r}")
+        if out.shape != ref.shape or not err <= DSP_TOL or not torch.equal(out, again):
             raise AssertionError(f"decode_ola disagrees with its plain version: {err}")
-        worst[1] = max(worst[1], float((out - ref).abs().max()))
+        slot = 1 if route == "fft" else 3
+        worst[slot] = max(worst[slot], float((out - ref).abs().max()))
+    # a row's bits do not depend on how many rows share its launch (serving's
+    # micro-batches): twelve rows of 10 s in one launch and each alone
+    pred, uph = decode_inputs(torch, S, 12, 1001, SEED + 12)
+    batch = decode_mod.decode_ola(pred, uph, *geom)
+    alone = [decode_mod.decode_ola(pred[i:i + 1], uph[i:i + 1], *geom)[0] for i in range(12)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, row) for a, row in zip(alone, batch)):
+        raise AssertionError("decode_ola: a row decoded alone differs from the same row in "
+                             "a launch of 12")
+    print("[kernel] decode_ola 12 rows of 10 s in one launch and each row alone: identical "
+          "bits", flush=True)
     return worst
 
 
@@ -826,6 +867,18 @@ def attention_bound(B, T, N, D, products, peak=PEAK_TF32):
     return bound(3 * flops, nbytes, PEAK_TF32)
 
 
+def decode_bound(rows, n_frames, n_fft, hop):
+    """B5 by its cheapest algorithm, an inverse FFT of each frame: the rescale
+    (~8 operations a bin), the packing (~12 a point), the M-point transform
+    (5 M log2 M), the window and the overlap-add a frame on the CUDA cores
+    (~13 k operations at n_fft 400), against pred and the carrier in, the raw
+    overlap-add and the tables out and in. Bytes bind."""
+    m, k = n_fft // 2, -(-n_fft // hop)
+    flops = rows * n_frames * (8 * (m + 1) + 12 * m + 5 * m * math.log2(m) + n_fft + k * hop)
+    nbytes = 4 * (rows * (3 * n_frames * (m + 1) + (n_frames + k - 1) * hop) + 3 * n_fft + 2)
+    return bound(flops, nbytes)
+
+
 def stft_bound(rows, n_frames, n_fft, hop):
     """B4 by its cheapest algorithm, an FFT of each frame: window (n_fft),
     the n_fft / 2-point complex transform (5 M log2 M) and the split pass
@@ -881,6 +934,43 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
         print(f"[time] stft_fused's kernels launched without the wrapper, {rows} rows of "
               f"10 s: the FFT kernel {direct['fft']:.4f} ms, the product kernel (not its "
               f"route at n_fft 400) {direct['product']:.4f} ms | {card}", flush=True)
+        # B5's kernels the same way, the FFT kernel also with each frames-a-warp
+        # it can be given (the wrapper's launch lets it pick by grid size)
+        raw = torch.empty(rows, 1003 * 160, device="cuda")
+
+        def decode(route, fpw=0):
+            return lambda: decode_kernel._launch(route, pred, uph, raw, *geom, 2.0, fpw)
+
+        for name, fn in (("decode_fft_direct", decode("fft")),
+                         ("decode_product", decode("product")),
+                         *((f"decode_fft_fpw{f}", decode("fft", f)) for f in (1, 2, 4))):
+            times[(name, rows)] = min(cuda_ms(torch, fn, iters=20, warmup=2) for _ in range(2))
+        # the library yardstick: torch.istft (cuFFT, center=True, the same
+        # window) on the already-rescaled complex spectrum. It computes B5's
+        # function without the rescale and with the trim and the envelope
+        # division, so it is checked against the port's istft
+        re, im = S._rescale_carrier(pred.sqrt(), uph, 201)
+        im[..., 0] = im[..., -1] = 0.0  # an inverse real DFT reads neither
+        spec = torch.complex(re, im).transpose(1, 2).contiguous()
+
+        def library():
+            return torch.istft(spec, 400, 160, 400, window=window, center=True,
+                               length=1000 * 160)
+
+        lib_err = rel_err(library(), S.istft(pred, uph, S.StftParams()))
+        if not lib_err <= DSP_TOL:
+            raise AssertionError(f"torch.istft differs from the port's istft: {lib_err}")
+        times[("torch_istft", rows)] = min(cuda_ms(torch, library, iters=20, warmup=2)
+                                           for _ in range(2))
+        print(f"[time] decode_ola's kernels launched without the wrapper, {rows} rows of 10 "
+              f"s: the FFT kernel {times[('decode_fft_direct', rows)]:.4f} ms (frames a warp "
+              f"1 / 2 / 4: " + " / ".join(f"{times[(f'decode_fft_fpw{f}', rows)]:.4f}"
+                                         for f in (1, 2, 4))
+              + f"), the product kernel (not its route at n_fft 400) "
+              f"{times[('decode_product', rows)]:.4f} ms; torch.istft (cuFFT; a yardstick, "
+              f"not a route; without the rescale, with the envelope division; {lib_err:.1e} "
+              f"of the port's istft) {times[('torch_istft', rows)]:.4f} ms | {card}",
+              flush=True)
 
     T, H = 1001, 256
     for B in (1, 6, 64):
@@ -989,7 +1079,7 @@ def enhance_times(torch, build, make_enhance, card):
                 key = "B1"
             elif "stft_fft_kernel" in name or "stft_fused_kernel" in name:
                 key = "B4"
-            elif "decode_ola_kernel" in name:
+            elif "decode_fft_kernel" in name or "decode_ola_kernel" in name:
                 key = "B5"
             elif any(tag in name.lower() for tag in ("gemm", "cublas", "xmma", "cutlass")):
                 key = "cuBLAS"
@@ -1037,6 +1127,7 @@ def one_direction_slice(torch, kernels, all_kernels, dsp_kernels, card):
         counts = [fn.launches for fn in all_kernels]
         # ---------------------------------------------
         served = (b1.launches, *(fn.launches for fn in dsp_kernels))
+        check_b5_route(dsp_kernels[1], "the one-direction head")
         refs = cpu.run_batch(requests)
     worst = max(float(np.abs(o - r).max() / np.sqrt(np.mean(r ** 2)))
                 for o, r in zip(outs, refs))
@@ -1633,6 +1724,7 @@ def main():
                 or L.lstm_bidir_bb.launches or L.lstm_bidir_fused.launches):
             raise AssertionError("the inference path launched a training, attention or "
                                  "other-route kernel")
+        check_b5_route(decode_ola, "the served requests and the CLI")
         if served_dsp != (len(batches), len(batches)) or dsp_launches != (
                 len(batches) + 1, len(batches) + 1):
             raise AssertionError(
@@ -1656,7 +1748,8 @@ def main():
               f"of {batches}; CLI enhanced {len(CLI_SECONDS)} files in 1 batch; "
               f"launches B1 {launches} (3 per device batch; served by route "
               f"{served_routes}), B4 {dsp_launches[0]}, B5 "
-              f"{dsp_launches[1]} (1 each per device batch)", flush=True)
+              f"{dsp_launches[1]} (1 each per device batch; B5 by route "
+              f"{decode_ola.by_route})", flush=True)
 
         worst = 0.0
         for k, (wav, out) in enumerate(zip(requests, answers)):
@@ -1693,6 +1786,7 @@ def main():
             outs = routed.run_batch(requests)
             counts = [k.launches for k in serve_kernels]
             # -------------------------------------------------------------
+            check_b5_route(decode_ola, f"recurrence={route!r}")
             want = [1, 0, 3 * (route == "blocked"), 3 * (route == "fused"), 1]
             vs_tm = max(float(np.abs(o - t).max() / np.sqrt(np.mean(t ** 2)))
                         for o, t in zip(outs, tm_outs))
@@ -1722,6 +1816,7 @@ def main():
         long_s = time.perf_counter() - t0
         long_counts = [k.launches for k in serve_kernels]
         # -----------------------------------------------------------------
+        check_b5_route(decode_ola, "the long-form entry")
         # two more calls, timed only: one call on the host's clock can be an outlier
         long_all = [long_s]
         for _ in range(2):
@@ -1791,6 +1886,7 @@ def main():
         train_dsp = (stft_fused.launches, decode_ola.launches)
         train_routes = [dict(fn.by_route) for fn in kernels]
         # -----------------------------------------------------------------
+        check_b5_route(decode_ola, "the flagship's training and eval")
         if [r["grid"] for r in train_routes] != [0, 0, 0]:
             raise AssertionError(f"the flagship's training took a grid route: {train_routes}")
         if any(fn.launches for fn in flash_kernels + (L.lstm_bidir_bb, L.lstm_bidir_fused)):
@@ -2076,12 +2172,11 @@ def main():
 
     # every bound is worked out from the shape named beside it, by the cheapest
     # arithmetic the numerics allow (f32 FMAs; three TF32 passes a product for
-    # B3; an FFT for B4, so bytes bind it); library_ms is
+    # B3; an FFT for B4 and B5, so bytes bind them); library_ms is
     # one bidirectional nn.LSTM layer (cuDNN, projection included) for the
     # recurrences, scaled_dot_product_attention and its backward at rate 0 for
-    # B3, torch.stft (cuFFT) for B4, and for B5, whose function no single
-    # call computes, the torch-op route (rescale + matmul + shifted adds) that
-    # is also its plain version; none of them is a route of the port
+    # B3, torch.stft (cuFFT) for B4, and torch.istft (cuFFT) on the rescaled
+    # spectrum for B5; none of them is a route of the port
     rows = [
         row("lstm_bidir_tm", "lstm_tm_cluster.cu", "lstm_kernel.py:208", launches, max_err,
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
@@ -2156,20 +2251,31 @@ def main():
             ("product_ms", times[("stft_product", n)]),
             ("direct_ms", times[("stft_fft_direct", n)]),
             ("bound_ms", stft_bound(n, 1001, 400, 160)[0]))}))
-    # B5: the product over the K * 2F rescaled spectra of an output hop-row;
-    # no single call computes it, so its library time is the torch-op route
-    # that is also its plain version
+    # B5 at 1 / 12 / 64 rows of 10 s: the inverse-FFT kernel (its route at
+    # n_fft 400), bound by bytes; beside it the product kernel's times and
+    # its bound as f32 FMAs (the product over the K * 2F rescaled spectra of
+    # an output hop-row, which bound that design)
     flops_row, bytes_row = 2 * 1001 * 402 * 400, 4 * (1001 * 201 + 1001 * 402 + 1003 * 160)
     matrix = 4 * 400 * 402
     rows.append(row(
-        "decode_ola", "decode_ola.cu", "decode_kernel.py:120", dsp_launches[1], dsp_err[1],
+        "decode_ola", "decode_fft.cu", "decode_kernel.py:120", dsp_launches[1], dsp_err[1],
         times[("decode_ola", 1)][0], times[("decode_ola", 1)][1], dsp_shape,
-        bound(flops_row, bytes_row + matrix), times[("decode_ola", 1)][1],
+        decode_bound(1, 1001, 400, 160), times[("torch_istft", 1)],
         launches_train_eval=train_dsp[1], launches_long_form=long_counts[4],
+        kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
+        product_source=csrc + "decode_ola.cu", product_max_abs_err=dsp_err[3],
+        product_route="an n_fft with no FFT plan; timed here at n_fft 400",
+        product_ms=times[("decode_product", 1)], direct_ms=times[("decode_fft_direct", 1)],
+        bound_ms_product=bound(flops_row, bytes_row + matrix)[0],
+        **{f"fpw{f}_ms": times[(f"decode_fft_fpw{f}", 1)] for f in (1, 2, 4)},
         **{f"{key}_rows{n}": val for n in (12, 64) for key, val in (
             ("ms", times[("decode_ola", n)][0]), ("plain_ms", times[("decode_ola", n)][1]),
-            ("library_ms", times[("decode_ola", n)][1]),
-            ("bound_ms", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
+            ("library_ms", times[("torch_istft", n)]),
+            ("product_ms", times[("decode_product", n)]),
+            ("direct_ms", times[("decode_fft_direct", n)]),
+            *((f"fpw{f}_ms", times[(f"decode_fft_fpw{f}", n)]) for f in (1, 2, 4)),
+            ("bound_ms", decode_bound(n, 1001, 400, 160)[0]),
+            ("bound_ms_product", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
     rows.append(row(
         "lstm_bidir_bb", "lstm_bb.cu", "lstm_kernel.py:629", route_launches["blocked"],
         bb_err[0], times[("bb", 1)][0], times[("bb", 1)][1],

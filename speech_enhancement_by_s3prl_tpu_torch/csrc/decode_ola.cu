@@ -3,7 +3,9 @@
 // for Hopper.
 //
 // Replaces decode_ola_pallas / _kernel in
-// speech_enhancement_by_s3prl_tpu/ops/pallas/decode_kernel.py (kernel B5).
+// speech_enhancement_by_s3prl_tpu/ops/pallas/decode_kernel.py (kernel B5) for
+// an n_fft whose half has a prime factor above 5 (e.g. 254 = 2 * 127);
+// decode_fft.cu, an inverse FFT, takes every other.
 //
 // Computes, for pred (B, T, F) and the packed carrier uph (B, T, 2F) = [re | im]:
 //   mag = pred ^ (1 / power)            (sqrt at power 2, pred itself at 1)
@@ -38,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_setup.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -46,6 +50,8 @@ constexpr int kRW = kR / (kThreads / 32);  // hop-rows a warp: 4
 constexpr int kCL = 5;     // columns a lane
 constexpr int kCT = 32 * kCL;  // columns a block: 160
 constexpr int kKT = 16;    // winv rows a slab
+
+KernelSetup g_setup[kMaxDevices];
 
 // mode: 1 -> mag = pred, 2 -> sqrt(pred), 0 -> pred ^ inv_power
 __global__ void __launch_bounds__(kThreads)
@@ -136,29 +142,23 @@ decode_ola_kernel(const float* __restrict__ pred, const float* __restrict__ uph,
 
 extern "C" {
 
-// Kernel B5. pred (B, T, F), uph (B, T, 2F), winv (2F, n_fft) and out
+// Kernel B5, product route. pred (B, T, F), uph (B, T, 2F), winv (2F, n_fft) and out
 // (B, (T + K - 1) * hop), K = ceil(n_fft / hop), are contiguous f32 device
 // pointers on `device`. Launches on `stream`, does not synchronise; returns
 // the first non-zero CUDA status, 0 on success.
 int decode_ola_f32(const void* pred, const void* uph, const void* winv, void* out, int B,
                    int T, int F, int n_fft, int hop, float linear_power, int device,
                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || F <= 0 || n_fft <= 0 || hop <= 0 || !(linear_power > 0.0f))
     return (int)cudaErrorInvalidValue;
+  const KernelSetup* setup;
+  cudaError_t err = setup_on(device, g_setup, decode_ola_kernel, &setup);
+  if (err != cudaSuccess) return (int)err;
   const int K = (n_fft + hop - 1) / hop;
   const int row_tiles = (T + K - 1 + kR - 1) / kR;
   const size_t smem = sizeof(float) * ((size_t)(kR + K - 1) * 2 * F + kKT * kCT);
-  int smem_optin = 0;
-  if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                    device)))
-    return (int)err;
-  if (smem > (size_t)smem_optin || (long)B * row_tiles > 2147483647L)
+  if (smem > (size_t)setup->smem_optin || (long)B * row_tiles > 2147483647L)
     return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(decode_ola_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return (int)err;
   const int mode = linear_power == 1.0f ? 1 : (linear_power == 2.0f ? 2 : 0);
   const dim3 grid(B * row_tiles, (hop + kCT - 1) / kCT);
   decode_ola_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(

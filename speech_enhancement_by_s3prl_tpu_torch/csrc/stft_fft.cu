@@ -26,15 +26,12 @@
 // halves the butterflies against a 400-point complex transform with half its
 // outputs dropped, and unlike a four-step 16 x 25 decomposition in registers
 // it needs no code per n_fft: the radix list is an argument, so one kernel
-// serves every geometry a configuration may name. The transform is a
-// Stockham autosort FFT, one pass per radix, ping-ponging between two
-// buffers in shared memory: butterfly b = p * s + q reads b + k * M / r
-// (unit stride across lanes) and writes q + s * (r * p + j), so the result
-// is in natural order with no digit reversal, and apart from the first pass
-// (stride r: the plan puts an odd radix there when it has one) stores are
-// unit-stride too. Real and imaginary parts live in separate arrays whose
-// offset is 16 (mod 32) floats, so that de-interleaving a frame's samples
-// into them is conflict-free.
+// serves every geometry a configuration may name. The transform is the
+// Stockham autosort FFT of fft_stockham.cuh (shared with the fused decode,
+// decode_fft.cu), one pass per radix, ping-ponging between two buffers in
+// shared memory, results in natural order. Real and imaginary parts live in
+// separate arrays whose offset is 16 (mod 32) floats, so that de-interleaving
+// a frame's samples into them is conflict-free.
 //
 // One warp transforms one frame; a block of 8 warps stages the contiguous
 // samples of its 8 or 32 frames in shared memory once (frames overlap: n_fft
@@ -48,93 +45,15 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_stockham.cuh"
+#include "launch_setup.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPasses = 12;
 
-struct Plan {
-  int n;
-  int r[kMaxPasses];
-};
-
-// The r-point forward DFT of (ar, ai) in place.
-template <int R>
-__device__ __forceinline__ void butterfly(float* ar, float* ai);
-
-template <>
-__device__ __forceinline__ void butterfly<2>(float* ar, float* ai) {
-  const float r0 = ar[0] + ar[1], i0 = ai[0] + ai[1];
-  ar[1] = ar[0] - ar[1], ai[1] = ai[0] - ai[1];
-  ar[0] = r0, ai[0] = i0;
-}
-
-template <>
-__device__ __forceinline__ void butterfly<3>(float* ar, float* ai) {
-  constexpr float kS3 = 0.8660254037844386f;  // sin(2 pi / 3)
-  const float tr = ar[1] + ar[2], ti = ai[1] + ai[2];
-  const float mr = ar[0] - 0.5f * tr, mi = ai[0] - 0.5f * ti;
-  const float nr = kS3 * (ar[1] - ar[2]), ni = kS3 * (ai[1] - ai[2]);
-  ar[0] += tr, ai[0] += ti;
-  ar[1] = mr + ni, ai[1] = mi - nr;  // m - i n
-  ar[2] = mr - ni, ai[2] = mi + nr;  // m + i n
-}
-
-template <>
-__device__ __forceinline__ void butterfly<4>(float* ar, float* ai) {
-  const float t0r = ar[0] + ar[2], t0i = ai[0] + ai[2], t1r = ar[0] - ar[2], t1i = ai[0] - ai[2];
-  const float t2r = ar[1] + ar[3], t2i = ai[1] + ai[3], t3r = ar[1] - ar[3], t3i = ai[1] - ai[3];
-  ar[0] = t0r + t2r, ai[0] = t0i + t2i;
-  ar[1] = t1r + t3i, ai[1] = t1i - t3r;  // t1 - i t3
-  ar[2] = t0r - t2r, ai[2] = t0i - t2i;
-  ar[3] = t1r - t3i, ai[3] = t1i + t3r;  // t1 + i t3
-}
-
-template <>
-__device__ __forceinline__ void butterfly<5>(float* ar, float* ai) {
-  // cos and sin of 2 pi / 5 and 4 pi / 5
-  constexpr float kC1 = 0.30901699437494745f, kC2 = -0.8090169943749475f;
-  constexpr float kS1 = 0.9510565162951535f, kS2 = 0.5877852522924731f;
-  const float t1r = ar[1] + ar[4], t1i = ai[1] + ai[4], t2r = ar[2] + ar[3], t2i = ai[2] + ai[3];
-  const float t3r = ar[1] - ar[4], t3i = ai[1] - ai[4], t4r = ar[2] - ar[3], t4i = ai[2] - ai[3];
-  const float m1r = ar[0] + kC1 * t1r + kC2 * t2r, m1i = ai[0] + kC1 * t1i + kC2 * t2i;
-  const float m2r = ar[0] + kC2 * t1r + kC1 * t2r, m2i = ai[0] + kC2 * t1i + kC1 * t2i;
-  const float n1r = kS1 * t3r + kS2 * t4r, n1i = kS1 * t3i + kS2 * t4i;
-  const float n2r = kS2 * t3r - kS1 * t4r, n2i = kS2 * t3i - kS1 * t4i;
-  ar[0] += t1r + t2r, ai[0] += t1i + t2i;
-  ar[1] = m1r + n1i, ai[1] = m1i - n1r;  // m1 - i n1
-  ar[2] = m2r + n2i, ai[2] = m2i - n2r;  // m2 - i n2
-  ar[3] = m2r - n2i, ai[3] = m2i + n2r;  // m2 + i n2
-  ar[4] = m1r - n1i, ai[4] = m1i + n1r;  // m1 + i n1
-}
-
-// One Stockham pass of radix R over a warp's M-point sequence: s sequences of
-// length M / s are interleaved in x; afterwards s * R of length M / (s * R)
-// in y. twr / twi hold exp(-2 pi i t / M).
-template <int R>
-__device__ __forceinline__ void fft_pass(const float* xr, const float* xi, float* yr, float* yi,
-                                         const float* twr, const float* twi, int M, int s,
-                                         int lane) {
-  const int nb = M / R;  // butterflies, and the stride between their inputs
-  for (int b = lane; b < nb; b += 32) {
-    const int q = b % s, ps = b - q;  // ps = p * s
-    float ar[R], ai[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      ar[k] = xr[b + k * nb];
-      ai[k] = xi[b + k * nb];
-    }
-    butterfly<R>(ar, ai);
-    const int o = q + ps * R;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float wr = twr[ps * j], wi = twi[ps * j];
-      yr[o + s * j] = ar[j] * wr - ai[j] * wi;
-      yi[o + s * j] = ar[j] * wi + ai[j] * wr;
-    }
-  }
-}
+KernelSetup g_setup[kMaxDevices];
 
 __global__ void __launch_bounds__(kThreads)
 stft_fft_kernel(const float* __restrict__ wav, const float* __restrict__ tables,
@@ -181,20 +100,7 @@ stft_fft_kernel(const float* __restrict__ wav, const float* __restrict__ tables,
       ((idx & 1) ? ai : ar)[idx >> 1] = xs[idx] * win[idx];
     __syncwarp();
 
-    int s = 1;
-    for (int pass = 0; pass < plan.n; ++pass) {
-      const int r = plan.r[pass];
-      switch (r) {
-        case 2: fft_pass<2>(ar, ai, br, bi, twr, twi, M, s, lane); break;
-        case 3: fft_pass<3>(ar, ai, br, bi, twr, twi, M, s, lane); break;
-        case 4: fft_pass<4>(ar, ai, br, bi, twr, twi, M, s, lane); break;
-        default: fft_pass<5>(ar, ai, br, bi, twr, twi, M, s, lane); break;
-      }
-      __syncwarp();
-      float* tr = ar; ar = br; br = tr;
-      float* ti = ai; ai = bi; bi = ti;
-      s *= r;
-    }
+    fft_passes(ar, ai, br, bi, twr, twi, M, plan, lane);
 
     // split pass: bins 0 and M both read Z[0] (Z[M] = Z[0])
     float* o = out + ((size_t)row * n_frames + f) * (2 * n_freq);
@@ -223,27 +129,14 @@ extern "C" {
 int stft_fft_f32(const void* wav, const void* tables, void* out, int n_rows, int time,
                  int n_fft, int hop, const int* radices, int n_passes, int device,
                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_rows <= 0 || hop <= 0 || n_fft < 4 || n_fft % 2 || time <= n_fft / 2 ||
-      n_passes <= 0 || n_passes > kMaxPasses)
-    return (int)cudaErrorInvalidValue;
   Plan plan;
-  plan.n = n_passes;
-  int product = 1;
-  for (int i = 0; i < n_passes; ++i) {
-    if (radices[i] < 2 || radices[i] > 5) return (int)cudaErrorInvalidValue;
-    plan.r[i] = radices[i];
-    product *= radices[i];
-    if (product > n_fft / 2) return (int)cudaErrorInvalidValue;
-  }
-  if (product != n_fft / 2) return (int)cudaErrorInvalidValue;
-  int smem_optin = 0, sms = 0;
-  if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                    device)))
-    return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
-    return (int)err;
+  if (n_rows <= 0 || hop <= 0 || n_fft < 4 || n_fft % 2 || time <= n_fft / 2 ||
+      !make_plan(radices, n_passes, n_fft / 2, &plan))
+    return (int)cudaErrorInvalidValue;
+  const KernelSetup* setup;
+  cudaError_t err = setup_on(device, g_setup, stft_fft_kernel, &setup);
+  if (err != cudaSuccess) return (int)err;
+  const int smem_optin = setup->smem_optin, sms = setup->sms;
 
   const int n_frames = 1 + time / hop;
   const int M = n_fft / 2;
@@ -263,9 +156,6 @@ int stft_fft_f32(const void* wav, const void* tables, void* out, int n_rows, int
   const int frame_tiles = (n_frames + tf - 1) / tf;
   if (smem > (size_t)smem_optin || (long)n_rows * frame_tiles > 2147483647L)
     return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(stft_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)))
-    return (int)err;
   stft_fft_kernel<<<n_rows * frame_tiles, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)wav, (const float*)tables, (float*)out, time, n_frames, n_fft, hop,
       frame_tiles, fpw, tab_pad, span_pad, mpad, plan);

@@ -93,13 +93,14 @@ def fft_tables(n_fft: int, win_length: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _fft_operands(n_fft: int, win_length: int, device: torch.device):
-    """(``fft_tables`` as a tensor on ``device``, the plan as a C int array,
-    its length): what a launch of the FFT kernel takes beside the waveform."""
+def _fft_operands(n_fft: int, win_length: int, device: torch.device, tables=fft_tables):
+    """(``tables(n_fft, win_length)`` as a tensor on ``device``, the plan as
+    a C int array, its length): what a launch of an FFT kernel takes beside
+    its data (B4's tables by default; B5 passes its own)."""
     plan = fft_plan(n_fft)
     with torch.inference_mode(False):
-        tables = torch.from_numpy(fft_tables(n_fft, win_length)).to(device)
-    return tables, (ctypes.c_int * len(plan))(*plan), len(plan)
+        on_device = torch.from_numpy(tables(n_fft, win_length)).to(device)
+    return on_device, (ctypes.c_int * len(plan))(*plan), len(plan)
 
 
 def _butterfly(r: int, ar, ai):
@@ -129,15 +130,39 @@ def _butterfly(r: int, ar, ai):
     raise ValueError(f"no radix-{r} butterfly")
 
 
+def _stockham(xr: torch.Tensor, xi: torch.Tensor, plan, twr: torch.Tensor,
+              twi: torch.Tensor):
+    """``csrc/fft_stockham.cuh``'s passes over the last axis (M points) of
+    (xr, xi), every frame at once: one Stockham pass per radix of ``plan``,
+    butterfly b = p * s + q reading b + k * M / r and writing
+    q + s * (r * p + j) times twiddle p * s * j of ``twr`` / ``twi``
+    (exp(-2 pi i t / M)), so the forward DFT comes out in natural order with
+    no digit reversal. Returns its real and imaginary parts."""
+    m = xr.shape[-1]
+    s = 1
+    for r in plan:
+        nb = m // r
+        b = torch.arange(nb, device=xr.device)
+        q = b % s
+        ps = b - q
+        br, bi = _butterfly(r, [xr[..., b + k * nb] for k in range(r)],
+                            [xi[..., b + k * nb] for k in range(r)])
+        yr = xr.new_empty(xr.shape)
+        yi = xi.new_empty(xi.shape)
+        for j in range(r):
+            wr, wi = twr[ps * j], twi[ps * j]
+            yr[..., q + ps * r + s * j] = br[j] * wr - bi[j] * wi
+            yi[..., q + ps * r + s * j] = br[j] * wi + bi[j] * wr
+        xr, xi, s = yr, yi, s * r
+    return xr, xi
+
+
 def stft_fft_model(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) -> torch.Tensor:
     """The FFT kernel's arithmetic, pass by pass, on the tables of
     ``fft_tables``, as torch ops over all frames at once (a model of the
     kernel for the CPU tests, not a route): window, even samples to the real
     and odd samples to the imaginary part of an M = n_fft / 2-point sequence,
-    one Stockham pass per radix of ``fft_plan`` (butterfly b = p * s + q
-    reads b + k * M / r and writes q + s * (r * p + j) times twiddle
-    p * s * j, so the result comes out in natural order with no digit
-    reversal), then the split pass
+    the Stockham passes of ``fft_plan`` (``_stockham``), then the split pass
     X[k] = E[k] + exp(-2 pi i k / n_fft) O[k], E and O the transforms of the
     even and odd samples recovered from Z[k] and conj(Z[M - k])."""
     plan = fft_plan(n_fft)
@@ -149,21 +174,7 @@ def stft_fft_model(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) ->
     lead, time = wavs.shape[:-1], wavs.shape[-1]
     x = F.pad(wavs.reshape(-1, 1, time), (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     z = x.unfold(-1, n_fft, hop) * window
-    xr, xi = z[..., 0::2].contiguous(), z[..., 1::2].contiguous()
-    s = 1
-    for r in plan:
-        nb = m // r
-        b = torch.arange(nb, device=wavs.device)
-        q = b % s
-        ps = b - q
-        br, bi = _butterfly(r, [xr[..., b + k * nb] for k in range(r)],
-                            [xi[..., b + k * nb] for k in range(r)])
-        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-        for j in range(r):
-            wr, wi = twr[ps * j], twi[ps * j]
-            yr[..., q + ps * r + s * j] = br[j] * wr - bi[j] * wi
-            yi[..., q + ps * r + s * j] = br[j] * wi + bi[j] * wr
-        xr, xi, s = yr, yi, s * r
+    xr, xi = _stockham(z[..., 0::2], z[..., 1::2], plan, twr, twi)
     k = torch.arange(m + 1, device=wavs.device)
     ka, kb = k % m, (m - k) % m
     er, ei = 0.5 * (xr[..., ka] + xr[..., kb]), 0.5 * (xi[..., ka] - xi[..., kb])

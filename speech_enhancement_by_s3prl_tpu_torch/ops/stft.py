@@ -250,12 +250,7 @@ def istft(
     start = n_fft // 2
     length = (n_frames - 1) * hop
     wav = wav[:, start : start + length]
-    env = torch.from_numpy(
-        _ola_envelope_np(n_fft, params.win_length, hop, n_frames)[
-            start : start + length
-        ]
-    ).to(linear.device)
-    wav = wav / torch.where(env > 1e-11, env, torch.ones_like(env))
+    wav = wav / _ola_divisor(n_fft, params.win_length, hop, n_frames, linear.device)
     return wav.reshape(lead + (length,))
 
 
@@ -286,3 +281,17 @@ def _ola_envelope_np(n_fft: int, win_length: int, hop: int, n_frames: int):
     for t in range(n_frames):
         out[t * hop : t * hop + n_fft] += w2
     return out.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _ola_divisor(n_fft: int, win_length: int, hop: int, n_frames: int,
+                 device: torch.device) -> torch.Tensor:
+    """What ``istft`` divides the trimmed overlap-add by: the window-square
+    envelope over samples ``n_fft // 2`` .. ``n_fft // 2 + (n_frames - 1) *
+    hop``, 1 where it is below 1e-11. Built once per geometry, length and
+    device (not copied to the card on every call), outside inference mode,
+    so that autograd may save it later."""
+    start = n_fft // 2
+    env = _ola_envelope_np(n_fft, win_length, hop, n_frames)[start : start + (n_frames - 1) * hop]
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.where(env > 1e-11, env, np.float32(1.0))).to(device)
