@@ -35,8 +35,11 @@ Phases, one line each:
      geometries, each twice for identical bits, and twelve rows in one launch
      against each row alone for identical bits; B6
      (batch-blocked recurrence) and B7 (recurrence with the projection
-     inside) at B = 1, 6 and 70, D = 120 and 512, a narrow layer and small
-     batch blocks;
+     inside) on their routes (B6 on B1's cluster kernel, B7 on
+     lstm_bb_cluster.cu) at B = 1, 6, 70 and 256, D = 120, 512 and ragged
+     ones, a narrow layer and small batch blocks, each twice and with batch
+     blocks 8 and 1 for identical bits, B6 against B1's bits, and the
+     earlier design (lstm_bb.cu) launched directly at the flagship shapes;
   4. the enhance slice: a seeded flagship checkpoint served through
      ``serve.build_enhancer(device="cuda")`` (4 concurrent requests through
      ``MicroBatcher``) and the ``enhance`` CLI, with the launch counts of B1,
@@ -70,8 +73,10 @@ Phases, one line each:
      latency under each recurrence route with its profiler breakdown, B4
      and B5 (both kernels of each, also launched without the wrapper) beside
      the torch-op routes they replace, ``torch.stft`` and ``torch.istft``, B6
-     and B7 beside B1, one cuDNN ``nn.LSTM`` layer as the library yardstick
-     of the recurrences, B2 bwd under both routes with the share of each
+     (also at B = 256) and B7 beside the earlier design, B1 and the
+     projection matmul + B1, one cuDNN ``nn.LSTM`` layer (D = 512 and 120)
+     as the library yardstick of the recurrences, B2 bwd under both routes
+     with the share of each
      phase, the B=6 train step and eval batch, and a profiler
      breakdown of the train step, each beside the card's name and power
      limit; then
@@ -144,6 +149,19 @@ FWD_SHAPES = ((1, 6, 401, 256), (2, 6, 1001, 256), (2, 16, 57, 256), (2, 3, 1, 2
 # batch blocks the cluster route is also launched with: rows are independent
 # and summed in an order their block does not enter, so the bits must not move
 FWD_BLOCKS = (1, 3, 16)
+# B6 / B7 through their wrappers, as (B, T, H, batch block) and (B, T, D, H,
+# batch block): the flagship shapes, B = 256 at the flagship width (16 rows a
+# cluster for B6, 10 for B7), a batch past two blocks with a ragged last one,
+# a narrow layer, small batch blocks and D that are not a multiple of 8 (30,
+# 40)
+BB_SHAPES = ((1, 1001, 256, 32), (6, 1001, 256, 32), (70, 37, 256, 32), (256, 1001, 256, 32),
+             (13, 29, 64, 5), (9, 21, 256, 2))
+FUSED_SHAPES = ((1, 1001, 120, 256, 32), (1, 1001, 512, 256, 32), (6, 1001, 120, 256, 32),
+                (6, 1001, 512, 256, 32), (70, 37, 120, 256, 32), (70, 37, 512, 256, 32),
+                (256, 401, 512, 256, 32), (13, 29, 30, 64, 5), (9, 21, 40, 256, 2))
+# batch blocks B6 / B7 are also called with: rows are independent and a row's
+# sums run in an order its block does not enter, so the bits must not move
+BB_BLOCKS = (8, 1)
 TRAIN_STEPS, RESUME_STEPS = 8, 2
 # B3 vs its plain version, each error relative to the plain version's largest
 # |value|. The kernels fold key tiles into an online softmax and compute their
@@ -779,36 +797,75 @@ def fused_inputs(torch, B, T, D, H, seed):
 
 
 def bb_checks(torch, L):
-    """B6 and B7 against their plain versions on the card: the flagship
-    shapes, a batch past two blocks with a ragged last one, a narrow layer
-    with small batch blocks and a D that takes the scalar loads. Returns the
-    largest absolute errors (B6, B7)."""
-    worst = [0.0, 0.0]
-    for B, T, H, bb in ((1, 1001, 256, 32), (6, 1001, 256, 32), (70, 37, 256, 32),
-                        (13, 29, 64, 5), (9, 21, 256, 2)):
+    """B6 and B7 against their plain versions on the card, through their
+    wrappers (route ``bb_route``, read from the counters: B6 on B1's cluster
+    kernel, B7 on ``lstm_bb_cluster.cu``) at ``BB_SHAPES`` /
+    ``FUSED_SHAPES``: the flagship shapes, B = 256 at the flagship width, a
+    batch past two blocks with a ragged last one, a narrow layer, small batch
+    blocks and D that are not a multiple of 8. Each call is made again for
+    identical bits, and again with ``batch_block`` 8 and 1 (``BB_BLOCKS``).
+    B6 must give B1's bits. The earlier ``lstm_bb.cu`` (no route) is
+    launched directly at the flagship shapes. Returns the largest absolute
+    errors (B6, B7, the earlier design)."""
+    worst = [0.0, 0.0, 0.0]
+    device = torch.cuda.current_device()
+    clusters = {False: L._fwd_clusters(device), True: L._fused_clusters(device)}
+
+    def run(fn, name, args, bb, shape):
+        before = dict(fn.by_route)
+        outs = [fn(*args, batch_block=bb), fn(*args, batch_block=bb)]
+        outs += [fn(*args, batch_block=other) for other in BB_BLOCKS]
+        took = {k: v - before[k] for k, v in fn.by_route.items()}
+        if took != {"cluster": 2 + len(BB_BLOCKS)}:
+            raise AssertionError(f"{name} at {shape} took {took}")
+        same = {"repeat": torch.equal(outs[0], outs[1])}
+        same.update({f"batch_block {b}": torch.equal(outs[0], o)
+                     for b, o in zip(BB_BLOCKS, outs[2:])})
+        return outs[0], same
+
+    def earlier(hs, ref):
+        err = float((hs - ref).abs().max())
+        worst[2] = max(worst[2], err)
+        return f", lstm_bb.cu (launched directly) {err:.3e}"
+
+    for B, T, H, bb in BB_SHAPES:
         xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + B)
-        hs = L.lstm_bidir_bb(xw, w_hh_t, batch_block=bb)
+        hs, same = run(L.lstm_bidir_bb, "lstm_bidir_bb", (xw, w_hh_t), bb,
+                       f"B={B} T={T} H={H}")
         ref = L.lstm_bidir_bb_ref(xw, w_hh_t)
+        same["= B1"] = torch.equal(hs, L.lstm_bidir_tm(xw, w_hh_t))
+        flagship = T == 1001 and B <= 6
+        line = earlier(L._launch_bb_blocks(xw, w_hh_t), ref) if flagship else ""
         torch.cuda.synchronize()
         err = float((hs - ref).abs().max())
-        print(f"[kernel] lstm_bidir_bb B={B} T={T} H={H} batch_block={bb}: max_abs_err "
-              f"{err:.3e} (limit {KERNEL_TOL:.0e})", flush=True)
-        if not err <= KERNEL_TOL:
+        print(f"[kernel] lstm_bidir_bb route 'cluster' (lstm_tm_cluster.cu) B={B} T={T} H={H} "
+              f"batch_block={bb} (rows a cluster {L.bb_batch_block(B, bb, clusters[False], False)}"
+              f"): max_abs_err {err:.3e}{line} (limit {KERNEL_TOL:.0e}); identical bits: "
+              f"{', '.join(same)}", flush=True)
+        if not (err <= KERNEL_TOL and worst[2] <= KERNEL_TOL):
             raise AssertionError(f"lstm_bidir_bb disagrees with its plain version: {err}")
+        if not all(same.values()):
+            raise AssertionError(f"lstm_bidir_bb gave other bits: {same}")
         worst[0] = max(worst[0], err)
-    for B, T, D, H, bb in ((1, 1001, 120, 256, 32), (1, 1001, 512, 256, 32),
-                           (6, 1001, 120, 256, 32), (6, 1001, 512, 256, 32),
-                           (70, 37, 120, 256, 32), (70, 37, 512, 256, 32),
-                           (13, 29, 30, 64, 5), (9, 21, 40, 256, 2)):
+    for B, T, D, H, bb in FUSED_SHAPES:
         args = fused_inputs(torch, B, T, D, H, SEED + B + D)
-        hs = L.lstm_bidir_fused(*args, batch_block=bb)
+        hs, same = run(L.lstm_bidir_fused, "lstm_bidir_fused", args, bb,
+                       f"B={B} T={T} D={D} H={H}")
         ref = L.lstm_bidir_fused_ref(*args)
+        flagship = T == 1001 and B <= 6
+        line = (earlier(L._launch_bb_blocks(args[0], args[3], args[1], args[2]), ref)
+                if flagship else "")
         torch.cuda.synchronize()
         err = float((hs - ref).abs().max())
-        print(f"[kernel] lstm_bidir_fused B={B} T={T} D={D} H={H} batch_block={bb}: "
-              f"max_abs_err {err:.3e} (limit {KERNEL_TOL:.0e})", flush=True)
-        if not err <= KERNEL_TOL:
+        rows = L.bb_batch_block(B, bb, clusters[True], True)
+        print(f"[kernel] lstm_bidir_fused route 'cluster' (lstm_bb_cluster.cu) B={B} T={T} "
+              f"D={D} H={H} batch_block={bb} (rows a cluster {rows}, run {L.bb_run(rows)} "
+              f"steps): max_abs_err {err:.3e}{line} (limit {KERNEL_TOL:.0e}); identical bits: "
+              f"{', '.join(same)}", flush=True)
+        if not (err <= KERNEL_TOL and worst[2] <= KERNEL_TOL):
             raise AssertionError(f"lstm_bidir_fused disagrees with its plain version: {err}")
+        if not all(same.values()):
+            raise AssertionError(f"lstm_bidir_fused gave other bits: {same}")
         worst[1] = max(worst[1], err)
     return worst
 
@@ -891,10 +948,10 @@ def stft_bound(rows, n_frames, n_fft, hop):
 
 
 def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
-    """Phase 7: B4 and B5 beside the torch-op routes they replace, B6 and B7
-    beside B1 (B7 beside B1 plus its projection einsum), and the cuDNN
-    ``nn.LSTM`` layer as the library yardstick of the recurrences. The
-    torch-op routes and ``nn.LSTM`` are timed here and used nowhere."""
+    """Phase 7: B4 and B5 beside the torch-op routes they replace, and the
+    cuDNN ``nn.LSTM`` layer (D = 512 and 120) as the library yardstick of the
+    recurrences. The torch-op routes and ``nn.LSTM`` are timed here and used
+    nowhere."""
     times = {}
     geom = (400, 400, 160)
     window = torch.hann_window(400, device="cuda")
@@ -973,35 +1030,6 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
               flush=True)
 
     T, H = 1001, 256
-    for B in (1, 6, 64):
-        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED)
-        tm = cuda_ms(torch, lambda: L.lstm_bidir_tm(xw, w_hh_t), iters=10)
-        bb = cuda_ms(torch, lambda: L.lstm_bidir_bb(xw, w_hh_t), iters=10)
-        bb2 = cuda_ms(torch, lambda: L.lstm_bidir_bb(xw, w_hh_t), iters=10)
-        tm2 = cuda_ms(torch, lambda: L.lstm_bidir_tm(xw, w_hh_t), iters=10)
-        plain = cuda_ms(torch, lambda: L.lstm_bidir_bb_ref(xw, w_hh_t), iters=2)
-        times[("bb", B)] = (min(bb, bb2), plain, min(tm, tm2))
-        print(f"[time] lstm_bidir_bb B={B} T={T} H={H} batch_block=32: kernel {bb:.3f} / "
-              f"{bb2:.3f} ms, B1 at the same shape {tm:.3f} / {tm2:.3f} ms, plain "
-              f"{plain:.3f} ms | {card}", flush=True)
-        del xw
-        for D in (120, 512):
-            xs, w_ih_t, bias, w_hh_t = fused_inputs(torch, B, T, D, H, SEED)
-
-            def tm_route():
-                xw = torch.matmul(xs, w_ih_t[:, None]) + bias[:, None, None, :]
-                return L.lstm_bidir_tm(xw, w_hh_t)
-
-            fused = cuda_ms(torch, lambda: L.lstm_bidir_fused(xs, w_ih_t, bias, w_hh_t), 5)
-            route = cuda_ms(torch, tm_route, iters=5)
-            plain = cuda_ms(torch, lambda: L.lstm_bidir_fused_ref(xs, w_ih_t, bias, w_hh_t),
-                            iters=2)
-            times[("fused", B, D)] = (fused, plain, route)
-            print(f"[time] lstm_bidir_fused B={B} T={T} D={D} H={H}: kernel {fused:.3f} ms, "
-                  f"projection matmul + B1 {route:.3f} ms, plain {plain:.3f} ms | {card}",
-                  flush=True)
-            del xs
-
     # the library yardstick of B1 / B2 / B6 / B7: one bidirectional nn.LSTM
     # layer (cuDNN, f32, TF32 off), which computes projection and recurrence
     lstm = torch.nn.LSTM(512, H, num_layers=1, bidirectional=True, batch_first=True).cuda()
@@ -1012,9 +1040,16 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
             proj = cuda_ms(torch, lambda: torch.matmul(x, lstm.weight_ih_l0.T), iters=10,
                            warmup=2)
         times[("cudnn_fwd", B)] = (fwd, proj)
+        lstm120 = torch.nn.LSTM(120, H, num_layers=1, bidirectional=True,
+                                batch_first=True).cuda()
+        x120 = torch.randn(B, T, 120, device="cuda")
+        with torch.no_grad():
+            times[("cudnn_fwd120", B)] = min(cuda_ms(torch, lambda: lstm120(x120), iters=10,
+                                                     warmup=2) for _ in range(2))
         line = (f"[time] nn.LSTM (cuDNN; a yardstick, not a route) 1 bidirectional layer "
                 f"D=512 H={H} T={T} B={B}: forward {fwd:.3f} ms (one direction's input "
-                f"projection alone {proj:.3f} ms)")
+                f"projection alone {proj:.3f} ms); at D=120 forward "
+                f"{times[('cudnn_fwd120', B)]:.3f} ms")
         if B > 1:
             def step():
                 lstm.zero_grad(set_to_none=True)
@@ -1033,9 +1068,65 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
     return times
 
 
+def bb_times(torch, L, card):
+    """Phase 7: B6 and B7 at T=1001, H=256 through their wrappers beside the
+    earlier ``lstm_bb.cu`` launched directly, B1 (B7: the projection matmul
+    plus B1) and the plain versions, in turns forward and back (the smaller
+    of the two timings is kept); B6 also at B = 256 beside B1. Returns
+    {key: ms}."""
+    T, H = 1001, 256
+    out = {}
+
+    def timed(fns, iters):
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                runs[k].append(cuda_ms(torch, fns[k], iters=iters[k] if isinstance(
+                    iters, dict) else iters))
+        return {k: min(v) for k, v in runs.items()}
+
+    device = torch.cuda.current_device()
+    for B in (1, 6, 64, 256):
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED)
+        got = timed({"b6": lambda: L.lstm_bidir_bb(xw, w_hh_t),
+                     "b1": lambda: L.lstm_bidir_tm(xw, w_hh_t),
+                     "old": lambda: L._launch_bb_blocks(xw, w_hh_t)}, 5)
+        got["plain"] = cuda_ms(torch, lambda: L.lstm_bidir_bb_ref(xw, w_hh_t), iters=1)
+        out.update({(f"bb_{k}", B): v for k, v in got.items()})
+        rows = L.bb_batch_block(B, 32, L._fwd_clusters(device), False)
+        print(f"[time] lstm_bidir_bb B={B} T={T} H={H} batch_block=32 (rows a cluster {rows}): "
+              f"kernel {got['b6']:.3f} ms; lstm_bb.cu (the earlier design, launched directly) "
+              f"{got['old']:.3f} ms; B1 {got['b1']:.3f} ms; plain {got['plain']:.3f} ms | {card}",
+              flush=True)
+        del xw
+    for B in (1, 6, 64):
+        for D in (120, 512):
+            xs, w_ih_t, bias, w_hh_t = fused_inputs(torch, B, T, D, H, SEED)
+
+            def tm_route():
+                xw = torch.matmul(xs, w_ih_t[:, None]) + bias[:, None, None, :]
+                return L.lstm_bidir_tm(xw, w_hh_t)
+
+            got = timed({"b7": lambda: L.lstm_bidir_fused(xs, w_ih_t, bias, w_hh_t),
+                         "route": tm_route,
+                         "old": lambda: L._launch_bb_blocks(xs, w_hh_t, w_ih_t, bias)},
+                        {"b7": 5, "route": 5, "old": 2})
+            got["plain"] = cuda_ms(torch, lambda: L.lstm_bidir_fused_ref(xs, w_ih_t, bias,
+                                                                         w_hh_t), iters=1)
+            out.update({(f"fused_{k}", B, D): v for k, v in got.items()})
+            rows = L.bb_batch_block(B, 32, L._fused_clusters(device), True)
+            print(f"[time] lstm_bidir_fused B={B} T={T} D={D} H={H} (rows a cluster {rows}, "
+                  f"run {L.bb_run(rows)} steps): kernel {got['b7']:.3f} ms; "
+                  f"lstm_bb.cu (the earlier design, launched directly) {got['old']:.3f} ms; "
+                  f"projection matmul + B1 {got['route']:.3f} ms; plain {got['plain']:.3f} ms "
+                  f"| {card}", flush=True)
+            del xs
+    return out
+
+
 def enhance_times(torch, build, make_enhance, card):
     """Phase 7: the B=1 10 s enhance latency under each recurrence route and
-    where the device time of the default route goes."""
+    where the device time of each goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1060,15 +1151,14 @@ def enhance_times(torch, build, make_enhance, card):
         print(f"[time] enhance B=1 10 s (T=1001 frames), recurrence={route!r}, fused STFT "
               f"and decode: median {out[route]:.3f} ms over 20 calls (min {min(lat):.3f}, "
               f"max {max(lat):.3f}) | {card}", flush=True)
-        if route != "tm":
-            continue
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(10):
                 enhance(wavs, lengths)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / 10
-        shares = {"B1": 0.0, "B4": 0.0, "B5": 0.0, "cuBLAS": 0.0, "other": 0.0}
+        # B6 runs B1's kernel, so it is counted as B1 / B6
+        shares = {"B1 / B6": 0.0, "B7": 0.0, "B4": 0.0, "B5": 0.0, "cuBLAS": 0.0, "other": 0.0}
         n_kernels = 0
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
@@ -1076,7 +1166,9 @@ def enhance_times(torch, build, make_enhance, card):
             n_kernels += 1
             name = evt.name
             if "lstm_tm_cluster_kernel" in name or "lstm_bidir_tm_kernel" in name:
-                key = "B1"
+                key = "B1 / B6"
+            elif "lstm_bb_cluster_kernel" in name:
+                key = "B7"
             elif "stft_fft_kernel" in name or "stft_fused_kernel" in name:
                 key = "B4"
             elif "decode_fft_kernel" in name or "decode_ola_kernel" in name:
@@ -1087,7 +1179,8 @@ def enhance_times(torch, build, make_enhance, card):
                 key = "other"
             shares[key] += evt.time_range.elapsed_us() / 1e3 / 10
         busy = sum(shares.values())
-        print(f"[time] enhance B=1 10 s under torch.profiler (10 calls): wall {wall:.3f} ms "
+        print(f"[time] enhance B=1 10 s, recurrence={route!r}, under torch.profiler (10 "
+              f"calls): wall {wall:.3f} ms "
               f"a call, device busy {busy:.3f} ms ("
               + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}"
                           for k, v in shares.items())
@@ -1802,6 +1895,8 @@ def main():
                 raise AssertionError(f"route {route}: launches {counts}, want {want}; vs tm "
                                      f"{vs_tm}, vs cpu {vs_cpu}")
             route_launches[route] = fn.launches
+            if fn.by_route != {"cluster": 3}:
+                raise AssertionError(f"route {route}: by_route {fn.by_route}")
 
         # the long-form entry: a request longer than the largest bucket
         long_gpu = build_enhancer(ckpt, device="cuda", max_bucket_ms=10000)
@@ -2040,6 +2135,7 @@ def main():
     times.update(fwd_times(torch, L, card))
     enhance_ms = enhance_times(torch, build, make_enhance, card)
     times.update(serving_times(torch, S, stft_kernel, decode_kernel, L, card))
+    times.update(bb_times(torch, L, card))
 
     for B in (6, 64):
         xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, 1001, 256, SEED)
@@ -2276,26 +2372,43 @@ def main():
             *((f"fpw{f}_ms", times[(f"decode_fft_fpw{f}", n)]) for f in (1, 2, 4)),
             ("bound_ms", decode_bound(n, 1001, 400, 160)[0]),
             ("bound_ms_product", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
+    # B6 (on B1's lstm_tm_cluster.cu) and B7 (lstm_bb_cluster.cu), bound by
+    # three TF32 passes a product on the tensor cores (the cheapest arithmetic
+    # that keeps f32 accuracy), the bound as f32 FMAs beside it; the earlier
+    # lstm_bb.cu's times (launched directly) beside
     rows.append(row(
-        "lstm_bidir_bb", "lstm_bb.cu", "lstm_kernel.py:629", route_launches["blocked"],
-        bb_err[0], times[("bb", 1)][0], times[("bb", 1)][1],
-        "B=1 T=1001 H=256 batch_block=32", lstm_bound(1, T, H), cudnn[1],
-        b1_ms=times[("bb", 1)][2],
-        **{f"{key}_b{B}": val for B in (6, 64) for key, val in (
-            ("ms", times[("bb", B)][0]), ("plain_ms", times[("bb", B)][1]),
-            ("b1_ms", times[("bb", B)][2]), ("bound_ms", lstm_bound(B, T, H)[0]),
-            ("library_ms", cudnn[B]))}))
+        "lstm_bidir_bb", "lstm_tm_cluster.cu", "lstm_kernel.py:629", route_launches["blocked"],
+        bb_err[0], times[("bb_b6", 1)], times[("bb_plain", 1)],
+        "B=1 T=1001 H=256 batch_block=32", lstm_bound(1, T, H, peak=PEAK_TF32), cudnn[1],
+        kernel_route="cluster (H a multiple of 8, at most 256): B1's cluster kernel",
+        earlier_source=csrc + "lstm_bb.cu", earlier_max_abs_err=bb_err[2],
+        bound_ms_f32_fma=lstm_bound(1, T, H)[0],
+        **{f"{key}{sfx}": val for B, sfx in ((1, ""), (6, "_b6"), (64, "_b64"), (256, "_b256"))
+           for key, val in (("ms", times[("bb_b6", B)]), ("plain_ms", times[("bb_plain", B)]),
+                            ("b1_ms", times[("bb_b1", B)]),
+                            ("earlier_ms", times[("bb_old", B)]),
+                            ("bound_ms", lstm_bound(B, T, H, peak=PEAK_TF32)[0]),
+                            ("bound_ms_f32_fma", lstm_bound(B, T, H)[0]),
+                            ("library_ms", cudnn.get(B)))
+           if not (sfx == "" and key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                         "bound_ms_f32_fma"))}))
     rows.append(row(
-        "lstm_bidir_fused", "lstm_bb.cu", "lstm_kernel.py:101", route_launches["fused"],
-        bb_err[1], times[("fused", 1, 512)][0], times[("fused", 1, 512)][1],
-        "B=1 T=1001 D=512 H=256 batch_block=32", lstm_bound(1, T, H, D=512), cudnn[1],
-        projection_plus_b1_ms=times[("fused", 1, 512)][2],
+        "lstm_bidir_fused", "lstm_bb_cluster.cu", "lstm_kernel.py:101", route_launches["fused"],
+        bb_err[1], times[("fused_b7", 1, 512)], times[("fused_plain", 1, 512)],
+        "B=1 T=1001 D=512 H=256 batch_block=32", lstm_bound(1, T, H, D=512, peak=PEAK_TF32),
+        cudnn[1],
+        kernel_route="cluster (H a multiple of 8, at most 256; any D); projection a run "
+                     "ahead on the tensor cores, step product on FMAs",
+        earlier_source=csrc + "lstm_bb.cu", earlier_max_abs_err=bb_err[2],
         **{f"{key}_b{B}_d{D}": val for B in (1, 6, 64) for D in (120, 512)
-           for key, val in (("ms", times[("fused", B, D)][0]),
-                            ("plain_ms", times[("fused", B, D)][1]),
-                            ("projection_plus_b1_ms", times[("fused", B, D)][2]),
-                            ("bound_ms", lstm_bound(B, T, H, D=D)[0]))},
-        library_ms_b6=cudnn[6], library_ms_b64=cudnn[64]))
+           for key, val in (("ms", times[("fused_b7", B, D)]),
+                            ("plain_ms", times[("fused_plain", B, D)]),
+                            ("projection_plus_b1_ms", times[("fused_route", B, D)]),
+                            ("earlier_ms", times[("fused_old", B, D)]),
+                            ("bound_ms", lstm_bound(B, T, H, D=D, peak=PEAK_TF32)[0]),
+                            ("bound_ms_f32_fma", lstm_bound(B, T, H, D=D)[0]),
+                            ("library_ms", times[("cudnn_fwd", B)][0] if D == 512
+                             else times[("cudnn_fwd120", B)]))}))
     # once more, for a reader who is shown only the end of a long output
     print_build_report(libs, build_s)
     for r in rows:

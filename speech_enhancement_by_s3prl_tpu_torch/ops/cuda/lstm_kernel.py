@@ -24,12 +24,18 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
   more product. ``lstm_bidir_tm_bwd_model`` is that algorithm in PyTorch, for
   the CPU tests. Any other hidden size takes the earlier single kernel.
 
-- B6 ``lstm_bidir_bb`` (``lstm_bb.cu``): the same function as B1, computed
-  independently per batch block (``lstm_bidir_pallas``): no grid-wide
-  barrier, one thread-block cluster per (direction, batch block).
-- B7 ``lstm_bidir_fused`` (``lstm_bb.cu``, the same kernel with its projection
-  flag): the recurrence with the input projection inside, so that no ``xw``
-  tensor exists (``lstm_bidir_pallas_fused``).
+- B6 ``lstm_bidir_bb``: the same function as B1, computed independently per
+  batch block (``lstm_bidir_pallas``). It runs B1's cluster kernel
+  (``lstm_tm_cluster.cu``) at ``bb_batch_block`` rows a cluster.
+- B7 ``lstm_bidir_fused`` (``lstm_bb_cluster.cu``): the recurrence with the
+  input projection inside, so that no ``xw`` tensor exists
+  (``lstm_bidir_pallas_fused``), on B1's skeleton: one thread-block cluster
+  per (direction, batch block of ``bb_batch_block`` rows), W_hh^T in
+  registers, h through distributed shared memory, the step product on FMAs,
+  and the projection of a run of steps ahead on the tensor cores.
+  ``lstm_bidir_bb_model`` / ``lstm_bidir_fused_model`` are those algorithms
+  in PyTorch, for the CPU tests. Both take the shapes of ``bb_route``. The
+  earlier ``lstm_bb.cu`` is no route; the card script times it.
 
 ``LstmBidirTm`` ties B2 fwd and B2 bwd into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``lstm_bidir_tm``; ``lstm_bidir_tm`` routes
@@ -524,12 +530,104 @@ def lstm_bidir_fused_ref(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Ten
     return _recurrence(xw, w_hh_t, with_cell=False)
 
 
-# widest layer the batch-blocked kernel takes: a lane is a hidden unit and a
+# widest layer the batch-blocked kernels take: a lane is a hidden unit and a
 # block of the 8-block cluster keeps H / 8 units' columns of W_hh^T resident
 BB_MAX_HIDDEN = CLUSTER_MAX_HIDDEN
+# rows a cluster of lstm_bb_cluster.cu (B7) takes at most: what its shared
+# memory leaves beside the projection's ring and staging (kMaxRows there)
+FUSED_MAX_ROWS = 10
+# B7's projection: a run covers rows * R <= 64 (row, step) pairs, and its sum
+# over D goes in chunks of 32 inputs, each a fresh chain of k-steps of 8
+RUN_PAIRS, PROJ_CHUNK, PROJ_KSTEP = 64, 32, 8
+
+
+def bb_route(hidden: int, inputs: int = 0) -> Optional[str]:
+    """The design B6 (``inputs`` 0) and B7 (``inputs`` = D) run on a CUDA
+    tensor, by the shape alone: ``"cluster"`` for a hidden size that is a
+    multiple of 8 up to 256 and any D (B6 on B1's ``lstm_tm_cluster.cu``, B7
+    on ``lstm_bb_cluster.cu``), else None (no kernel takes it; the wrappers
+    raise). The earlier ``lstm_bb.cu`` takes no shape that these refuse, so
+    it is no route."""
+    ok = hidden % 8 == 0 and 0 < hidden <= BB_MAX_HIDDEN and inputs >= 0
+    return "cluster" if ok else None
+
+
+def bb_batch_block(batch: int, batch_block: int, clusters: int, fused: bool) -> int:
+    """Rows a cluster takes under B6 (``lstm_tm_cluster.cu``, at most
+    ``FWD_MAX_BATCH_BLOCK``) or B7 (``fused``: ``lstm_bb_cluster.cu``, at
+    most ``FUSED_MAX_ROWS``): the caller's ``batch_block`` is an upper bound
+    too, and within those the rows spread so that all ``2 * ceil(batch /
+    rows)`` clusters fit the ``clusters`` the card holds at once, as
+    ``fwd_batch_block`` does for B1."""
+    cap = FUSED_MAX_ROWS if fused else FWD_MAX_BATCH_BLOCK
+    per_dir = max(1, clusters // 2)
+    return max(1, min(batch_block, cap, -(-batch // per_dir)))
+
+
+def bb_run(rows: int) -> int:
+    """B7's run length R: the steps whose projection one pass computes, so
+    that rows * R (row, step) pairs fill ``RUN_PAIRS``."""
+    return max(1, RUN_PAIRS // rows)
+
+
+def _ordered_sum(h, w, lo, hi):
+    """sum_{i = lo}^{hi - 1} h[..., i] * w[..., i, :] added one input at a time
+    from the first product, as one mma chain sums them. Elementwise, so a
+    row's bits do not depend on the other rows."""
+    part = h[..., lo:lo + 1] * w[..., lo, :]
+    for i in range(lo + 1, hi):
+        part = part + h[..., i:i + 1] * w[..., i, :]
+    return part
+
+
+def _projection_run(xs, w_ih_t, bias):
+    """B7's projection of one run, as the kernel sums it: for (row, step)
+    pairs xs (ndir, rows, R, D), bias plus the chunks of ``PROJ_CHUNK`` inputs
+    in order, each chunk a fresh chain of k-steps of ``PROJ_KSTEP`` inputs."""
+    D = xs.shape[-1]
+    w = w_ih_t[:, None, None]
+    out = bias[:, None, None, :].expand(*xs.shape[:-1], bias.shape[-1])
+    for c0 in range(0, D, PROJ_CHUNK):
+        part = None
+        for k0 in range(c0, min(D, c0 + PROJ_CHUNK), PROJ_KSTEP):
+            step = _ordered_sum(xs, w, k0, min(D, k0 + PROJ_KSTEP))
+            part = step if part is None else part + step
+        out = out + part
+    return out
+
+
+def lstm_bidir_bb_model(xw: torch.Tensor, w_hh_t: torch.Tensor,
+                        batch_block: int = FWD_MAX_BATCH_BLOCK) -> torch.Tensor:
+    """B6 as its route runs it (the function of ``lstm_bidir_bb_ref``): B1's
+    cluster kernel, so ``lstm_bidir_tm_fwd_model`` with each block of
+    ``batch_block`` rows its own recurrence. A row's sums never depend on the
+    other rows, so the bits do not depend on the batch block.
+    (2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H) f32."""
+    return lstm_bidir_tm_fwd_model(xw, w_hh_t, batch_block=batch_block)
+
+
+def lstm_bidir_fused_model(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                           w_hh_t: torch.Tensor, batch_block: int = FUSED_MAX_ROWS,
+                           run: Optional[int] = None) -> torch.Tensor:
+    """B7 as ``lstm_bb_cluster.cu`` runs it (the function of
+    ``lstm_bidir_fused_ref``): the projection of each run of ``run`` steps
+    (default ``bb_run(batch_block)``) as ``_projection_run`` sums it, then
+    the recurrence of each block of ``batch_block`` rows with B1's step
+    product and cell (``lstm_bidir_tm_fwd_model``), which the kernel shares.
+    The run length only moves the projection in time, never a sum, so the
+    bits depend on neither it nor the batch block."""
+    run = bb_run(batch_block) if run is None else run
+    T = xs.shape[2]
+    runs = [_projection_run(xs[:, :, t0:t0 + run].float(), w_ih_t.float(), bias.float())
+            for t0 in range(0, T, run)]
+    xw = (torch.cat(runs, dim=2) if runs
+          else xs.new_zeros((*xs.shape[:3], w_ih_t.shape[-1]), dtype=torch.float32))
+    return lstm_bidir_tm_fwd_model(xw, w_hh_t, batch_block=batch_block)
 
 
 def _bb_library():
+    """The earlier design of B6 / B7 (``lstm_bb.cu``): no route takes it; the
+    card script launches it directly to time it beside the cluster kernels."""
     lib = load("lstm_bb")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_bidir_bb_f32.argtypes = [p, p, p, i, i, i, i, i, p]
@@ -541,7 +639,66 @@ def _bb_library():
     return lib
 
 
-def _check_bb(name: str, tensors, batch_block: int, H: int):
+def _bb_cluster_library():
+    lib = load("lstm_bb_cluster")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bb_cluster_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_bb_cluster_f32.restype = i
+    lib.lstm_bb_cluster_max_clusters.argtypes = [i, ctypes.POINTER(i)]
+    lib.lstm_bb_cluster_max_clusters.restype = i
+    lib.lstm_bb_cluster_error_string.argtypes = [i]
+    lib.lstm_bb_cluster_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_clusters(device_index: int) -> int:
+    """Clusters of ``lstm_bb_cluster.cu`` that the card holds at once."""
+    lib = _bb_cluster_library()
+    out = ctypes.c_int(0)
+    err = lib.lstm_bb_cluster_max_clusters(device_index, ctypes.byref(out))
+    raise_on(err, "lstm_bb_cluster_max_clusters", lib.lstm_bb_cluster_error_string,
+             device=device_index)
+    if out.value < 1:
+        raise RuntimeError(f"no cluster of lstm_bb_cluster fits device {device_index}")
+    return out.value
+
+
+def _launch_fused(xs, w_ih_t, bias, w_hh_t, batch_block: int):
+    """Launch B7 (``lstm_bb_cluster.cu``) on checked, contiguous CUDA tensors
+    with B, T, D > 0, at ``bb_batch_block`` rows a cluster; returns hs."""
+    _, B, T, D = xs.shape
+    H = w_hh_t.shape[-2]
+    rows = bb_batch_block(B, batch_block, _fused_clusters(launch_args(xs)[0]), fused=True)
+    hs = torch.empty((2, B, T, H), device=xs.device, dtype=torch.float32)
+    lib = _bb_cluster_library()
+    err = lib.lstm_bb_cluster_f32(*(t.data_ptr() for t in (xs, w_ih_t, bias, w_hh_t, hs)),
+                                  B, T, H, D, rows, *launch_args(xs))
+    raise_on(err, "lstm_bidir_fused", lib.lstm_bb_cluster_error_string, B=B, T=T, H=H, D=D,
+             rows=rows)
+    return hs
+
+
+def _launch_bb_blocks(xin, w_hh_t, w_ih_t=None, bias=None, batch_block: int = 32):
+    """The earlier ``lstm_bb.cu`` (PR 4's design), launched directly on
+    checked, contiguous CUDA tensors; returns hs. No wrapper routes to it."""
+    _, B, T, _ = xin.shape
+    H = w_hh_t.shape[-2]
+    hs = torch.empty((2, B, T, H), device=xin.device, dtype=torch.float32)
+    lib = _bb_library()
+    if w_ih_t is None:
+        err = lib.lstm_bidir_bb_f32(xin.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), B, T,
+                                    H, batch_block, *launch_args(xin))
+    else:
+        err = lib.lstm_bidir_fused_f32(xin.data_ptr(), w_ih_t.data_ptr(), bias.data_ptr(),
+                                       w_hh_t.data_ptr(), hs.data_ptr(), B, T, H,
+                                       xin.shape[-1], batch_block, *launch_args(xin))
+    raise_on(err, "lstm_bb", lib.lstm_bb_error_string, B=B, T=T, H=H,
+             batch_block=batch_block)
+    return hs
+
+
+def _check_bb(name: str, tensors, batch_block: int, H: int, D: int = 0):
     if batch_block < 1:
         raise ValueError(f"batch_block must be at least 1, got {batch_block}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -550,7 +707,7 @@ def _check_bb(name: str, tensors, batch_block: int, H: int):
             "gradient is needed")
     if tensors[0].device.type == "cpu":
         return
-    if H % 8 or H > BB_MAX_HIDDEN:
+    if bb_route(H, D) is None:
         raise ValueError(
             f"{name} takes a hidden size that is a multiple of 8 and at most "
             f"{BB_MAX_HIDDEN} on a CUDA tensor, got {H}")
@@ -560,30 +717,29 @@ def _check_bb(name: str, tensors, batch_block: int, H: int):
 
 def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32) -> torch.Tensor:
     """B6: (2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32: the function
-    of ``lstm_bidir_tm``, each block of ``batch_block`` rows an independent
-    recurrence (blocks of more than 32 rows run as several of 32; rows are
-    independent, so the result does not depend on the split: a smaller
-    ``batch_block`` only spreads the rows over more clusters, and no caller in
-    the package sets it). The ragged last block is guarded, not padded.
+    of ``lstm_bidir_tm``, each block of rows an independent recurrence, run
+    on B1's cluster kernel (``lstm_tm_cluster.cu``). ``batch_block`` is an
+    upper bound on the rows a block takes (so is ``FWD_MAX_BATCH_BLOCK``);
+    within it the rows spread so that every cluster runs at once
+    (``bb_batch_block``). Rows are independent and a row's sums do not depend
+    on the others, so the result does not depend on ``batch_block`` (it is
+    B1's, bit for bit); no caller in the package sets it.
 
     Forward-only: raises when a gradient is needed. On a CUDA tensor the
-    kernel, counted in ``lstm_bidir_bb.launches``; on a CPU tensor the plain
-    version."""
+    kernel of route ``bb_route(H)``, counted in ``lstm_bidir_bb.launches``
+    and ``.by_route``; on a CPU tensor the plain version."""
     _check(xw, w_hh_t, dirs=(2,))
     _, B, T, h4 = xw.shape
     H = h4 // 4
     _check_bb("lstm_bidir_bb", (xw, w_hh_t), batch_block, H)
     if xw.device.type == "cpu":
         return lstm_bidir_bb_ref(xw, w_hh_t)
-    hs = torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0:
-        return hs
-    lib = _bb_library()
-    err = lib.lstm_bidir_bb_f32(xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-                                B, T, H, batch_block, *launch_args(xw))
-    raise_on(err, "lstm_bidir_bb", lib.lstm_bb_error_string, B=B, T=T, H=H,
-             batch_block=batch_block)
+        return torch.empty((2, B, T, H), device=xw.device, dtype=torch.float32)
+    rows = bb_batch_block(B, batch_block, _fwd_clusters(launch_args(xw)[0]), fused=False)
+    hs = _launch_fwd("cluster", xw, w_hh_t, batch_block=rows)
     lstm_bidir_bb.launches += 1
+    lstm_bidir_bb.by_route["cluster"] += 1
     return hs
 
 
@@ -592,10 +748,13 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
     """B7: xs (2, B, T, D) direction-stacked inputs (direction 1 already
     time-flipped), w_ih_t (2, D, 4H), bias (2, 4H) = b_ih + b_hh, w_hh_t
     (2, H, 4H) -> hs (2, B, T, H), all f32. The input projection happens
-    inside the kernel; no (2, B, T, 4H) tensor is written.
+    inside the kernel, a run of steps ahead; no (2, B, T, 4H) tensor is
+    written. ``batch_block`` as for ``lstm_bidir_bb`` (B7 takes at most
+    ``FUSED_MAX_ROWS`` rows a block beside its projection's buffers).
 
     Forward-only: raises when a gradient is needed. On a CUDA tensor the
-    kernel, counted in ``lstm_bidir_fused.launches``; on a CPU tensor the
+    kernel of route ``bb_route(H, D)``, counted in
+    ``lstm_bidir_fused.launches`` and ``.by_route``; on a CPU tensor the
     plain version."""
     if xs.dim() != 4 or xs.shape[0] != 2:
         raise ValueError(f"xs must be (2, B, T, D), got {tuple(xs.shape)}")
@@ -616,18 +775,16 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
         raise ValueError("lstm_bidir_fused needs all inputs on one device")
     if xs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_bidir_fused runs on cpu or cuda, not {xs.device}")
-    _check_bb("lstm_bidir_fused", tensors, batch_block, H)
+    _check_bb("lstm_bidir_fused", tensors, batch_block, H, D)
     if xs.device.type == "cpu":
         return lstm_bidir_fused_ref(xs, w_ih_t, bias, w_hh_t)
-    hs = torch.empty((2, B, T, H), device=xs.device, dtype=torch.float32)
     if B == 0 or T == 0:
-        return hs
-    lib = _bb_library()
-    err = lib.lstm_bidir_fused_f32(*(t.data_ptr() for t in tensors), hs.data_ptr(),
-                                   B, T, H, D, batch_block, *launch_args(xs))
-    raise_on(err, "lstm_bidir_fused", lib.lstm_bb_error_string, B=B, T=T, H=H, D=D,
-             batch_block=batch_block)
+        return torch.empty((2, B, T, H), device=xs.device, dtype=torch.float32)
+    if D == 0:
+        raise ValueError("lstm_bidir_fused takes D >= 1 on a CUDA tensor")
+    hs = _launch_fused(xs, w_ih_t, bias, w_hh_t, batch_block)
     lstm_bidir_fused.launches += 1
+    lstm_bidir_fused.by_route["cluster"] += 1
     return hs
 
 
@@ -640,4 +797,6 @@ lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm_bwd.launches = 0
 lstm_bidir_tm_bwd.by_route = {"phases": 0, "grid": 0}
 lstm_bidir_bb.launches = 0
+lstm_bidir_bb.by_route = {"cluster": 0}
 lstm_bidir_fused.launches = 0
+lstm_bidir_fused.by_route = {"cluster": 0}
