@@ -38,15 +38,16 @@ Phases, one line each:
      inside) on their routes (B6 on B1's cluster kernel, B7 on
      lstm_bb_cluster.cu) at B = 1, 6, 70 and 256, D = 120, 512 and ragged
      ones, a narrow layer and small batch blocks, each twice and with batch
-     blocks 8 and 1 for identical bits, B6 against B1's bits, and the
-     earlier design (lstm_bb.cu) launched directly at the flagship shapes;
+     blocks 8 and 1 for identical bits, and B6 against B1's bits;
   4. the enhance slice: a seeded flagship checkpoint served through
      ``serve.build_enhancer(device="cuda")`` (4 concurrent requests through
      ``MicroBatcher``) and the ``enhance`` CLI, with the launch counts of B1,
      B4 and B5, the output checks, and the error against the same checkpoint
      enhanced by the port on the CPU (plain versions); the same checkpoint
-     served with ``recurrence="blocked"`` (B6) and ``"fused"`` (B7) against
-     the default route and the CPU; and the long-form entry: one 75 s
+     served with its ``LSTMStack`` switched to ``recurrence="blocked"`` (B6)
+     and ``"fused"`` (B7) (an attribute of ``LSTMStack``: no builder takes
+     the route) against the default route and the CPU; and the long-form
+     entry: one 75 s
      request through ``build_enhancer(max_bucket_ms=10000)``, 9 crossfaded
      windows, against the same request on the CPU; and a one-direction
      3 x 256 head (the shape of config/vcb.yaml) served the same way (3 B1
@@ -73,7 +74,7 @@ Phases, one line each:
      latency under each recurrence route with its profiler breakdown, B4
      and B5 (both kernels of each, also launched without the wrapper) beside
      the torch-op routes they replace, ``torch.stft`` and ``torch.istft``, B6
-     (also at B = 256) and B7 beside the earlier design, B1 and the
+     (also at B = 256) and B7, B1 and the
      projection matmul + B1, one cuDNN ``nn.LSTM`` layer (D = 512 and 120)
      as the library yardstick of the recurrences, B2 bwd under both routes
      with the share of each
@@ -83,7 +84,16 @@ Phases, one line each:
      B3 fwd and bwd against their plain versions at B=6 and B=64, B3 at rate
      0 against ``scaled_dot_product_attention`` and its backward (yardsticks,
      not routes),
-     the B=6 10 s Mockingjay train step and its profiler breakdown.
+     the B=6 10 s Mockingjay train step and its profiler breakdown;
+  8. the metrics phase (``metrics/``: STOI, ESTOI, the P.862 model,
+     SI-SDR): the conformance battery on the card against its pins in
+     docs/CONFORMANCE.json and against the CPU, the delay search card
+     against CPU on both branches of its fine pass, and one flagship eval
+     batch at config/vcb.yaml's eval (12 rows of up to 10 s, eval_metrics
+     stoi, pesq_nb, sisdr) through the port's eval step: its B1 / B4 / B5
+     launches, card against CPU, its time beside SI-SDR alone, and the
+     metrics' share of its device busy time; TF32 checked off in every
+     metric call.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -804,10 +814,8 @@ def bb_checks(torch, L):
     batch past two blocks with a ragged last one, a narrow layer, small batch
     blocks and D that are not a multiple of 8. Each call is made again for
     identical bits, and again with ``batch_block`` 8 and 1 (``BB_BLOCKS``).
-    B6 must give B1's bits. The earlier ``lstm_bb.cu`` (no route) is
-    launched directly at the flagship shapes. Returns the largest absolute
-    errors (B6, B7, the earlier design)."""
-    worst = [0.0, 0.0, 0.0]
+    B6 must give B1's bits. Returns the largest absolute errors (B6, B7)."""
+    worst = [0.0, 0.0]
     device = torch.cuda.current_device()
     clusters = {False: L._fwd_clusters(device), True: L._fused_clusters(device)}
 
@@ -823,26 +831,19 @@ def bb_checks(torch, L):
                      for b, o in zip(BB_BLOCKS, outs[2:])})
         return outs[0], same
 
-    def earlier(hs, ref):
-        err = float((hs - ref).abs().max())
-        worst[2] = max(worst[2], err)
-        return f", lstm_bb.cu (launched directly) {err:.3e}"
-
     for B, T, H, bb in BB_SHAPES:
         xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + B)
         hs, same = run(L.lstm_bidir_bb, "lstm_bidir_bb", (xw, w_hh_t), bb,
                        f"B={B} T={T} H={H}")
         ref = L.lstm_bidir_bb_ref(xw, w_hh_t)
         same["= B1"] = torch.equal(hs, L.lstm_bidir_tm(xw, w_hh_t))
-        flagship = T == 1001 and B <= 6
-        line = earlier(L._launch_bb_blocks(xw, w_hh_t), ref) if flagship else ""
         torch.cuda.synchronize()
         err = float((hs - ref).abs().max())
         print(f"[kernel] lstm_bidir_bb route 'cluster' (lstm_tm_cluster.cu) B={B} T={T} H={H} "
               f"batch_block={bb} (rows a cluster {L.bb_batch_block(B, bb, clusters[False], False)}"
-              f"): max_abs_err {err:.3e}{line} (limit {KERNEL_TOL:.0e}); identical bits: "
+              f"): max_abs_err {err:.3e} (limit {KERNEL_TOL:.0e}); identical bits: "
               f"{', '.join(same)}", flush=True)
-        if not (err <= KERNEL_TOL and worst[2] <= KERNEL_TOL):
+        if not err <= KERNEL_TOL:
             raise AssertionError(f"lstm_bidir_bb disagrees with its plain version: {err}")
         if not all(same.values()):
             raise AssertionError(f"lstm_bidir_bb gave other bits: {same}")
@@ -852,17 +853,14 @@ def bb_checks(torch, L):
         hs, same = run(L.lstm_bidir_fused, "lstm_bidir_fused", args, bb,
                        f"B={B} T={T} D={D} H={H}")
         ref = L.lstm_bidir_fused_ref(*args)
-        flagship = T == 1001 and B <= 6
-        line = (earlier(L._launch_bb_blocks(args[0], args[3], args[1], args[2]), ref)
-                if flagship else "")
         torch.cuda.synchronize()
         err = float((hs - ref).abs().max())
         rows = L.bb_batch_block(B, bb, clusters[True], True)
         print(f"[kernel] lstm_bidir_fused route 'cluster' (lstm_bb_cluster.cu) B={B} T={T} "
               f"D={D} H={H} batch_block={bb} (rows a cluster {rows}, run {L.bb_run(rows)} "
-              f"steps): max_abs_err {err:.3e}{line} (limit {KERNEL_TOL:.0e}); identical bits: "
+              f"steps): max_abs_err {err:.3e} (limit {KERNEL_TOL:.0e}); identical bits: "
               f"{', '.join(same)}", flush=True)
-        if not (err <= KERNEL_TOL and worst[2] <= KERNEL_TOL):
+        if not err <= KERNEL_TOL:
             raise AssertionError(f"lstm_bidir_fused disagrees with its plain version: {err}")
         if not all(same.values()):
             raise AssertionError(f"lstm_bidir_fused gave other bits: {same}")
@@ -1069,9 +1067,8 @@ def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
 
 
 def bb_times(torch, L, card):
-    """Phase 7: B6 and B7 at T=1001, H=256 through their wrappers beside the
-    earlier ``lstm_bb.cu`` launched directly, B1 (B7: the projection matmul
-    plus B1) and the plain versions, in turns forward and back (the smaller
+    """Phase 7: B6 and B7 at T=1001, H=256 through their wrappers beside B1
+    (B7: the projection matmul plus B1) and the plain versions, in turns forward and back (the smaller
     of the two timings is kept); B6 also at B = 256 beside B1. Returns
     {key: ms}."""
     T, H = 1001, 256
@@ -1089,14 +1086,13 @@ def bb_times(torch, L, card):
     for B in (1, 6, 64, 256):
         xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED)
         got = timed({"b6": lambda: L.lstm_bidir_bb(xw, w_hh_t),
-                     "b1": lambda: L.lstm_bidir_tm(xw, w_hh_t),
-                     "old": lambda: L._launch_bb_blocks(xw, w_hh_t)}, 5)
+                     "b1": lambda: L.lstm_bidir_tm(xw, w_hh_t)}, 5)
         got["plain"] = cuda_ms(torch, lambda: L.lstm_bidir_bb_ref(xw, w_hh_t), iters=1)
         out.update({(f"bb_{k}", B): v for k, v in got.items()})
         rows = L.bb_batch_block(B, 32, L._fwd_clusters(device), False)
         print(f"[time] lstm_bidir_bb B={B} T={T} H={H} batch_block=32 (rows a cluster {rows}): "
-              f"kernel {got['b6']:.3f} ms; lstm_bb.cu (the earlier design, launched directly) "
-              f"{got['old']:.3f} ms; B1 {got['b1']:.3f} ms; plain {got['plain']:.3f} ms | {card}",
+              f"kernel {got['b6']:.3f} ms; B1 {got['b1']:.3f} ms; plain {got['plain']:.3f} ms "
+              f"| {card}",
               flush=True)
         del xw
     for B in (1, 6, 64):
@@ -1108,16 +1104,13 @@ def bb_times(torch, L, card):
                 return L.lstm_bidir_tm(xw, w_hh_t)
 
             got = timed({"b7": lambda: L.lstm_bidir_fused(xs, w_ih_t, bias, w_hh_t),
-                         "route": tm_route,
-                         "old": lambda: L._launch_bb_blocks(xs, w_hh_t, w_ih_t, bias)},
-                        {"b7": 5, "route": 5, "old": 2})
+                         "route": tm_route}, 5)
             got["plain"] = cuda_ms(torch, lambda: L.lstm_bidir_fused_ref(xs, w_ih_t, bias,
                                                                          w_hh_t), iters=1)
             out.update({(f"fused_{k}", B, D): v for k, v in got.items()})
             rows = L.bb_batch_block(B, 32, L._fused_clusters(device), True)
             print(f"[time] lstm_bidir_fused B={B} T={T} D={D} H={H} (rows a cluster {rows}, "
                   f"run {L.bb_run(rows)} steps): kernel {got['b7']:.3f} ms; "
-                  f"lstm_bb.cu (the earlier design, launched directly) {got['old']:.3f} ms; "
                   f"projection matmul + B1 {got['route']:.3f} ms; plain {got['plain']:.3f} ms "
                   f"| {card}", flush=True)
             del xs
@@ -1125,8 +1118,9 @@ def bb_times(torch, L, card):
 
 
 def enhance_times(torch, build, make_enhance, card):
-    """Phase 7: the B=1 10 s enhance latency under each recurrence route and
-    where the device time of each goes."""
+    """Phase 7: the B=1 10 s enhance latency under each recurrence route (the
+    flagship's ``LSTMStack`` switched) and where the
+    device time of each goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1135,8 +1129,8 @@ def enhance_times(torch, build, make_enhance, card):
     lengths = torch.tensor([wav.shape[-1]]).cuda()
     out = {}
     for route in ("tm", "blocked", "fused"):
-        pre, model = build(device="cuda", generator=torch.Generator().manual_seed(SEED),
-                           recurrence=route)
+        pre, model = build(device="cuda", generator=torch.Generator().manual_seed(SEED))
+        model.lstm.recurrence = route
         enhance = make_enhance(pre, model)
         for _ in range(3):
             enhance(wavs, lengths)
@@ -1621,6 +1615,271 @@ def upstream_times(torch, A, card):
     return times
 
 
+# the scoreboard metrics, card against the CPU (metrics/__init__.py): the
+# same f32 pipeline in other summation orders and other FFTs (cuFFT against
+# pocketfft), as the CPU tests hold the port to the JAX package
+METRIC_TOL = {"stoi": 1e-4, "estoi": 1e-4, "pesq_nb": 2e-3, "pesq_wb": 2e-3, "sisdr": 1e-4}
+# the whole eval step card against CPU: the enhanced waveforms themselves
+# differ by ~1e-5 of their RMS (the [slice] limit is 1e-3), which moves SI-SDR
+# by ~1e-4 dB; the other scores keep their limits
+EVAL_STEP_TOL = {**METRIC_TOL, "sisdr": 1e-3}
+# config/vcb.yaml's eval: eval_batch_size 12, its eval_metrics, 10 s rows
+VCB_EVAL_METRICS = ("stoi", "pesq_nb", "sisdr")
+VCB_EVAL_BATCH = 12
+# per-row delays (samples) for the delay search of the P.862 model, card
+# against CPU against the delay put in; at 4 s the fine pass takes its
+# 4096-sample window, at 1 s (< 20224 samples) the full-length FFT
+DELAYS = (0, 37, -150, 300, -1000, 2500, 7960, -64)
+
+
+def speech_like(n: int, seed: int) -> np.ndarray:
+    """Aperiodic speech-like audio: a harmonic stack whose pitch wanders,
+    plus shaped noise, under a syllabic envelope. Its cross-correlation has
+    one clear peak, so a delay search has one answer (the battery's strictly
+    periodic clean signal has near-ties a period apart)."""
+    rng = np.random.default_rng(seed)
+    f0 = 110 + 15 * seed + 20 * np.cumsum(rng.standard_normal(n)) / np.sqrt(n)
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    x = sum(a * np.sin(k * phase) for k, a in enumerate([0.5, 0.3, 0.2, 0.1], 1))
+    x = x + 0.3 * np.convolve(rng.standard_normal(n), np.hanning(9), "same")
+    env = (rng.random(n // 1600 + 1) > 0.4).astype(np.float64).repeat(1600)[:n]
+    x = x * np.convolve(env, np.hanning(801) / 400, "same")
+    return (0.1 * x / np.abs(x).max()).astype(np.float32)
+
+
+def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
+    """Phase 8, the scoreboard metrics on the card (``metrics/``: STOI,
+    ESTOI and the P.862 model; SI-SDR):
+
+    - the conformance battery (``metrics/battery.py``) against its pins in
+      ``docs/CONFORMANCE.json`` and against the port on the CPU, and the
+      delay search on speech-like rows delayed by ``DELAYS``, at 4 s and 1 s
+      (both branches of the fine pass): card, CPU and the delays put in,
+      equal;
+    - one flagship eval batch at config/vcb.yaml's eval_batch_size (12 rows
+      of up to 10 s) with its eval_metrics through the port's eval step:
+      its launches of B1, B4 and B5 (the same as with SI-SDR alone), its
+      scores against the same step on the CPU and against the CPU's metrics
+      on the card's waveforms, its time (median of 10) beside the same batch
+      scored with SI-SDR alone, and its device busy time with the metrics'
+      share under ``torch.profiler``.
+
+    TF32 is checked off whenever the metrics run. Returns a dict of the
+    numbers."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_train
+    from speech_enhancement_by_s3prl_tpu_torch.metrics import battery as bat
+    from speech_enhancement_by_s3prl_tpu_torch.metrics import pesq_model
+
+    lstm_bidir_tm = kernels[0]
+    stft_fused, decode_ola = dsp_kernels
+    out = {}
+
+    # every call of a metric family records the TF32 settings it ran under
+    seen = []
+    families = [(M, "si_sdr_batch"), (M, "stoi_coeff_batch"), (M, "stoi_estoi_batch"),
+                (pesq_model, "pesq_batch_modes")]
+    originals = [getattr(mod, name) for mod, name in families]
+
+    def watched(fn):
+        def run(*args, **kw):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                         torch.get_float32_matmul_precision()))
+            return fn(*args, **kw)
+        return run
+
+    for (mod, name), fn in zip(families, originals):
+        setattr(mod, name, watched(fn))
+    try:
+        # -- the battery ----------------------------------------------------
+        pairs = bat.battery()
+        pins = bat.pins(os.path.join(ROOT, "docs", "CONFORMANCE.json"))
+        names = ("pesq_nb", "pesq_wb", "stoi", "estoi")
+        clean = torch.from_numpy(np.stack([c for _, c, _ in pairs]))
+        deg = torch.from_numpy(np.stack([d for _, _, d in pairs]))
+        lengths = torch.full((len(pairs),), clean.shape[-1], dtype=torch.long)
+        # a caller with TF32 on: the metrics still run in full f32, and the
+        # caller's settings come back
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        card_scores = M.batch_scores(names, deg.cuda(), clean.cuda(), lengths.cuda(), SR)
+        restored = torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        if not restored:
+            raise AssertionError("batch_scores did not restore the caller's TF32 settings")
+        cpu_scores = M.batch_scores(names, deg, clean, lengths, SR)
+        pin_err = {m: 0.0 for m in names}
+        cpu_err = {m: 0.0 for m in names}
+        for i, (name, _, _) in enumerate(pairs):
+            for m in names:
+                got = float(card_scores[m][i])
+                pin_err[m] = max(pin_err[m], abs(got - pins[name][m]))
+                cpu_err[m] = max(cpu_err[m], abs(got - float(cpu_scores[m][i])))
+        pin_tol = {m: bat.PESQ_TOL if m.startswith("pesq") else bat.STOI_TOL for m in names}
+        print(f"[metrics] battery ({len(pairs)} pairs of 4 s) on the card: max |card - pin| "
+              + ", ".join(f"{m} {pin_err[m]:.2e} (limit {pin_tol[m]:.0e})" for m in names)
+              + "; max |card - CPU| "
+              + ", ".join(f"{m} {cpu_err[m]:.2e} (limit {METRIC_TOL[m]:.0e})" for m in names),
+              flush=True)
+        if not all(pin_err[m] < pin_tol[m] and cpu_err[m] <= METRIC_TOL[m] for m in names):
+            raise AssertionError(f"battery on the card: pins {pin_err}, CPU {cpu_err}")
+        out["battery_pin_err"], out["battery_cpu_err"] = pin_err, cpu_err
+
+        delays = {}
+        for seconds in (4, 1):
+            n = seconds * SR
+            ref = np.stack([speech_like(n, i) for i in range(len(DELAYS))])
+            shifted = np.zeros_like(ref)
+            for i, d in enumerate(DELAYS):
+                shifted[i, max(d, 0): n + min(d, 0)] = ref[i, max(-d, 0): n - max(d, 0)]
+            shifted += 0.002 * np.random.default_rng(seconds).standard_normal(ref.shape).astype(
+                np.float32)
+            r, s = torch.from_numpy(ref), torch.from_numpy(shifted)
+            got = pesq_model._align_delay(r.cuda(), s.cuda(), SR // 2).cpu()
+            want = pesq_model._align_delay(r, s, SR // 2)
+            delays[seconds] = got.tolist()
+            branch = "4096-sample window" if n >= 4096 + 2 * (SR // 2 + 64) else "full-length FFT"
+            print(f"[metrics] delay search, {len(DELAYS)} speech-like rows of {seconds} s "
+                  f"({branch} fine pass), delays put in {list(DELAYS)}: card {got.tolist()}, "
+                  f"CPU {want.tolist()}", flush=True)
+            if not (torch.equal(got, want) and got.tolist() == list(DELAYS)):
+                raise AssertionError(f"delays on the card {got.tolist()}, CPU {want.tolist()}, "
+                                     f"put in {list(DELAYS)}")
+        out["battery_delays"] = delays
+
+        # -- the flagship eval batch at config/vcb.yaml's eval ---------------
+        gen = lambda: torch.Generator().manual_seed(SEED)  # noqa: E731
+        builders = {dev: dataclasses.replace(build_train(device=dev, generator=gen()),
+                                             eval_metrics=VCB_EVAL_METRICS)
+                    for dev in ("cuda", "cpu")}
+        sisdr_only = dataclasses.replace(builders["cuda"], eval_metrics=("sisdr",))
+        rng = np.random.default_rng(SEED + 8)
+        n = 10 * SR
+        lens = np.array([n - 4000 * i for i in range(VCB_EVAL_BATCH)])
+        clean_b = np.zeros((VCB_EVAL_BATCH, n), np.float32)
+        for i, L_ in enumerate(lens):
+            clean_b[i, :L_] = request_audio(L_ / SR, 40 + i)
+        noise_b = (0.05 * rng.standard_normal(clean_b.shape)).astype(np.float32)
+        noise_b *= np.arange(n)[None, :] < lens[:, None]
+        wavs_np = np.stack([clean_b + noise_b, clean_b, noise_b], axis=1)
+        wavs, lengths = torch.from_numpy(wavs_np).cuda(), torch.from_numpy(lens).cuda()
+
+        sisdr_only.eval_step(wavs, lengths)  # warm
+        torch.cuda.synchronize()
+        # -- the main path of the metrics' eval batch --
+        reset_counts(all_kernels)
+        card_out = builders["cuda"].eval_step(wavs, lengths)
+        counts = [lstm_bidir_tm.launches, stft_fused.launches, decode_ola.launches]
+        others = [fn.launches for fn in all_kernels
+                  if fn not in (lstm_bidir_tm, stft_fused, decode_ola)]
+        # -----------------------------------------------------------------
+        check_b5_route(decode_ola, "the metrics' eval batch")
+        reset_counts(all_kernels)
+        sisdr_only.eval_step(wavs, lengths)
+        counts_sisdr = [lstm_bidir_tm.launches, stft_fused.launches, decode_ola.launches]
+        others_sisdr = [fn.launches for fn in all_kernels
+                        if fn not in (lstm_bidir_tm, stft_fused, decode_ola)]
+        if counts != [3, 1, 1] or counts_sisdr != counts or any(others) or any(others_sisdr):
+            raise AssertionError(f"eval batch launches (B1, B4, B5) {counts}, others {others}; "
+                                 f"with SI-SDR alone {counts_sisdr}, others {others_sisdr}")
+        out["launches"] = counts
+
+        cpu_out = builders["cpu"].eval_step(wavs.cpu(), lengths.cpu())
+        on_cpu = M.batch_scores(VCB_EVAL_METRICS, card_out["wav_predicted"].cpu(),
+                                card_out["wav_tar"].cpu(), lengths.cpu(), SR)
+        step_err, metric_err = {}, {}
+        for m in VCB_EVAL_METRICS:
+            got = card_out["scores"][m].cpu()
+            if got.shape != (VCB_EVAL_BATCH,) or not torch.isfinite(got).all():
+                raise AssertionError(f"eval batch {m}: {got}")
+            step_err[m] = float((got - cpu_out["scores"][m]).abs().max())
+            metric_err[m] = float((got - on_cpu[m]).abs().max())
+        wav_rel = float((card_out["wav_predicted"].cpu() - cpu_out["wav_predicted"]).abs().max()
+                        / cpu_out["wav_predicted"].pow(2).mean().sqrt())
+        print(f"[metrics] flagship eval batch ({VCB_EVAL_BATCH} rows of "
+              f"{lens.min() / SR:.2f}-{lens.max() / SR:.0f} s, config/vcb.yaml's eval_metrics "
+              f"{list(VCB_EVAL_METRICS)}): launches (B1, B4, B5) {counts}, the same as with "
+              f"SI-SDR alone; means "
+              + ", ".join(f"{m} {float(card_out['scores'][m].mean()):.4f}"
+                          for m in VCB_EVAL_METRICS)
+              + "; card vs CPU eval step max |diff| "
+              + ", ".join(f"{m} {step_err[m]:.2e} (limit {EVAL_STEP_TOL[m]:.0e})"
+                          for m in VCB_EVAL_METRICS)
+              + f" (waveforms {wav_rel:.2e} of the RMS); the CPU's metrics on the card's "
+              f"waveforms max |diff| "
+              + ", ".join(f"{m} {metric_err[m]:.2e} (limit {METRIC_TOL[m]:.0e})"
+                          for m in VCB_EVAL_METRICS), flush=True)
+        if not all(step_err[m] <= EVAL_STEP_TOL[m] and metric_err[m] <= METRIC_TOL[m]
+                   for m in VCB_EVAL_METRICS):
+            raise AssertionError(f"eval batch card vs CPU: step {step_err}, metrics "
+                                 f"{metric_err}")
+        out["step_err"], out["metric_err"] = step_err, metric_err
+        del cpu_out, builders["cpu"]
+
+        # -- times --------------------------------------------------------------
+        def median_ms(fn, runs=10):
+            fn()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ms), min(ms), max(ms)
+
+        step3 = median_ms(lambda: builders["cuda"].eval_step(wavs, lengths))
+        step1 = median_ms(lambda: sisdr_only.eval_step(wavs, lengths))
+        wp, wt = card_out["wav_predicted"], card_out["wav_tar"]
+        alone = median_ms(lambda: M.batch_scores(VCB_EVAL_METRICS, wp, wt, lengths, SR))
+
+        def busy(fn, calls=5):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / calls
+            device = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+            total = sum(evt.time_range.elapsed_us() for evt in device) / 1e3 / calls
+            return total, wall, len(device) / calls
+
+        busy3, wall3, k3 = busy(lambda: builders["cuda"].eval_step(wavs, lengths))
+        busy1, wall1, k1 = busy(lambda: sisdr_only.eval_step(wavs, lengths))
+        busy_m, wall_m, k_m = busy(lambda: M.batch_scores(VCB_EVAL_METRICS, wp, wt, lengths,
+                                                          SR))
+        print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s, {list(VCB_EVAL_METRICS)}: median "
+              f"{step3[0]:.3f} ms of 10 (min {step3[1]:.3f}, max {step3[2]:.3f}); SI-SDR "
+              f"alone: median {step1[0]:.3f} ms (min {step1[1]:.3f}, max {step1[2]:.3f}); the "
+              f"metrics alone on the step's outputs: median {alone[0]:.3f} ms | {card}",
+              flush=True)
+        print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s under torch.profiler (5 calls each): "
+              f"with {list(VCB_EVAL_METRICS)} wall {wall3:.3f} ms, device busy {busy3:.3f} ms, "
+              f"idle share {max(0.0, 1 - busy3 / wall3):.3f}, {k3:.0f} device kernels a call; "
+              f"SI-SDR alone wall {wall1:.3f}, busy {busy1:.3f}, {k1:.0f} kernels; the metrics "
+              f"alone wall {wall_m:.3f}, busy {busy_m:.3f} ms = {busy_m / max(busy3, 1e-9):.1%} "
+              f"of the step's device busy time, {k_m:.0f} kernels | {card}",
+              flush=True)
+        out.update(eval_ms=step3[0], eval_sisdr_ms=step1[0], metrics_ms=alone[0],
+                   busy_ms=busy3, busy_sisdr_ms=busy1, metrics_busy_ms=busy_m,
+                   metrics_share=busy_m / max(busy3, 1e-9), metrics_kernels=k_m)
+    finally:
+        for (mod, name), fn in zip(families, originals):
+            setattr(mod, name, fn)
+    bad = [s for s in seen if s != (False, False, "highest")]
+    if not seen or bad:
+        raise AssertionError(f"metrics ran {len(seen)} times, {len(bad)} of them with TF32 "
+                             f"allowed: {bad[:3]}")
+    print(f"[metrics] TF32 off (matmul and cuDNN, float32 matmul precision 'highest') in "
+          f"each of the {len(seen)} metric calls of this phase", flush=True)
+    out["metric_calls"] = len(seen)
+    return out
+
+
 def main():
     import torch
 
@@ -1873,7 +2132,8 @@ def main():
         cpu_outs = cpu.run_batch(requests)
         route_launches = {}
         for route, fn in (("blocked", L.lstm_bidir_bb), ("fused", L.lstm_bidir_fused)):
-            routed = build_enhancer(ckpt, device="cuda", recurrence=route)
+            routed = build_enhancer(ckpt, device="cuda")
+            routed.model.lstm.recurrence = route
             # -- the main path of B6 / B7, between the reset and the reading --
             reset_counts(all_kernels)
             outs = routed.run_batch(requests)
@@ -2240,6 +2500,11 @@ def main():
     del builder, state
     times.update(upstream_times(torch, A, card))
 
+    # 8. the scoreboard metrics on the card
+    from speech_enhancement_by_s3prl_tpu_torch import metrics as M
+
+    metric_nums = metrics_phase(torch, M, kernels, all_kernels, (stft_fused, decode_ola), card)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -2277,6 +2542,7 @@ def main():
         row("lstm_bidir_tm", "lstm_tm_cluster.cu", "lstm_kernel.py:208", launches, max_err,
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
             launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
+            launches_metrics_eval=metric_nums["launches"][0],
             launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
             ms_b64=times[64][0], plain_ms_b64=times[64][1],
             bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64],
@@ -2337,6 +2603,7 @@ def main():
         times[("stft_fused", 1)][0], times[("stft_fused", 1)][1], dsp_shape,
         stft_bound(1, 1001, 400, 160), times[("torch_stft", 1)],
         launches_train_eval=train_dsp[0], launches_long_form=long_counts[0],
+        launches_metrics_eval=metric_nums["launches"][1],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "stft_fused.cu", product_max_abs_err=dsp_err[2],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -2358,6 +2625,7 @@ def main():
         times[("decode_ola", 1)][0], times[("decode_ola", 1)][1], dsp_shape,
         decode_bound(1, 1001, 400, 160), times[("torch_istft", 1)],
         launches_train_eval=train_dsp[1], launches_long_form=long_counts[4],
+        launches_metrics_eval=metric_nums["launches"][2],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "decode_ola.cu", product_max_abs_err=dsp_err[3],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -2374,19 +2642,16 @@ def main():
             ("bound_ms_product", bound(n * flops_row, n * bytes_row + matrix)[0]))}))
     # B6 (on B1's lstm_tm_cluster.cu) and B7 (lstm_bb_cluster.cu), bound by
     # three TF32 passes a product on the tensor cores (the cheapest arithmetic
-    # that keeps f32 accuracy), the bound as f32 FMAs beside it; the earlier
-    # lstm_bb.cu's times (launched directly) beside
+    # that keeps f32 accuracy), the bound as f32 FMAs beside it
     rows.append(row(
         "lstm_bidir_bb", "lstm_tm_cluster.cu", "lstm_kernel.py:629", route_launches["blocked"],
         bb_err[0], times[("bb_b6", 1)], times[("bb_plain", 1)],
         "B=1 T=1001 H=256 batch_block=32", lstm_bound(1, T, H, peak=PEAK_TF32), cudnn[1],
         kernel_route="cluster (H a multiple of 8, at most 256): B1's cluster kernel",
-        earlier_source=csrc + "lstm_bb.cu", earlier_max_abs_err=bb_err[2],
         bound_ms_f32_fma=lstm_bound(1, T, H)[0],
         **{f"{key}{sfx}": val for B, sfx in ((1, ""), (6, "_b6"), (64, "_b64"), (256, "_b256"))
            for key, val in (("ms", times[("bb_b6", B)]), ("plain_ms", times[("bb_plain", B)]),
                             ("b1_ms", times[("bb_b1", B)]),
-                            ("earlier_ms", times[("bb_old", B)]),
                             ("bound_ms", lstm_bound(B, T, H, peak=PEAK_TF32)[0]),
                             ("bound_ms_f32_fma", lstm_bound(B, T, H)[0]),
                             ("library_ms", cudnn.get(B)))
@@ -2399,12 +2664,10 @@ def main():
         cudnn[1],
         kernel_route="cluster (H a multiple of 8, at most 256; any D); projection a run "
                      "ahead on the tensor cores, step product on FMAs",
-        earlier_source=csrc + "lstm_bb.cu", earlier_max_abs_err=bb_err[2],
         **{f"{key}_b{B}_d{D}": val for B in (1, 6, 64) for D in (120, 512)
            for key, val in (("ms", times[("fused_b7", B, D)]),
                             ("plain_ms", times[("fused_plain", B, D)]),
                             ("projection_plus_b1_ms", times[("fused_route", B, D)]),
-                            ("earlier_ms", times[("fused_old", B, D)]),
                             ("bound_ms", lstm_bound(B, T, H, D=D, peak=PEAK_TF32)[0]),
                             ("bound_ms_f32_fma", lstm_bound(B, T, H, D=D)[0]),
                             ("library_ms", times[("cudnn_fwd", B)][0] if D == 512
@@ -2420,6 +2683,12 @@ def main():
     print(f"[time] enhance B=1 10 s medians by route (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in enhance_ms.items()) + f" | {card}",
           flush=True)
+    print(f"[metrics] eval batch {VCB_EVAL_BATCH} x 10 s with {list(VCB_EVAL_METRICS)} "
+          f"{metric_nums['eval_ms']:.3f} ms (SI-SDR alone {metric_nums['eval_sisdr_ms']:.3f}), "
+          f"device busy {metric_nums['busy_ms']:.3f} ms, of it the metrics "
+          f"{metric_nums['metrics_busy_ms']:.3f} ({metric_nums['metrics_share']:.1%}); "
+          f"battery max |card - pin| {metric_nums['battery_pin_err']}; TF32 off in all "
+          f"{metric_nums['metric_calls']} metric calls | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

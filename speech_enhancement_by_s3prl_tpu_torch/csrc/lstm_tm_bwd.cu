@@ -37,7 +37,7 @@
 //      of H, summed with f32 additions), the four activations applied, written
 //      into the dxw buffer, which phase 2 overwrites: no further memory.
 //   2. lstm_bwd_seq_kernel, the dh chain: a thread-block cluster of 8 per
-//      (direction, batch block of 8 rows), the design of lstm_bb.cu. Block k
+//      (direction, batch block of 8 rows). Block k
 //      owns H / 8 hidden units and keeps their 4 * H / 8 columns of W_hh^T in
 //      shared memory for the whole sequence (128 KB at H = 256). A step reads
 //      the activations from dxw_tt, c_tt, c_{tt-1} and dhs_tt, forms dh, dct

@@ -108,11 +108,11 @@ class LSTM(nn.Module):
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
                  bidirectional: bool = False, activation: str = "Identity",
-                 generator=None, recurrence: str = "tm"):
+                 generator=None):
         super().__init__()
         self.activation = activation
         self.lstm = LSTMStack(input_size, hidden_size, num_layers, bidirectional,
-                              generator, recurrence)
+                              generator)
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
@@ -129,12 +129,11 @@ class Residual(nn.Module):
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
                  bidirectional: bool = False, activation: str = "Sigmoid",
-                 cmvn: bool = False, eps: float = 1e-6, generator=None,
-                 recurrence: str = "tm"):
+                 cmvn: bool = False, eps: float = 1e-6, generator=None):
         super().__init__()
         self.activation, self.cmvn, self.eps = activation, cmvn, eps
         self.lstm = LSTMStack(input_size, hidden_size, num_layers, bidirectional,
-                              generator, recurrence)
+                              generator)
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
@@ -158,9 +157,9 @@ def build_head(model_name: str, input_size: int, output_size: int,
                generator: Optional[torch.Generator] = None, **cfg) -> nn.Module:
     """Registry of the heads. Extra kwargs (the args namespace a CLI or a
     checkpoint's Settings carry) are filtered to the head's own arguments.
-    The module is built on the CPU; move it with ``.to(device)``.
-    ``recurrence`` ("tm", "blocked", "fused") reaches the LSTM heads and
-    names the forward-only kernel of their bidirectional layers.
+    The module is built on the CPU; move it with ``.to(device)``. The LSTM
+    heads run the default recurrence: ``recurrence`` is refused here, as it
+    is a switch of ``LSTMStack`` alone.
 
     ``SpecHead`` and ``Mockingjay`` take their structure (the transformer
     config, ``log_domain`` and, for Mockingjay, the output width) from the
@@ -175,6 +174,10 @@ def build_head(model_name: str, input_size: int, output_size: int,
     registry = {**REGISTRY, "SpecHead": SpecHead, "Mockingjay": Mockingjay}
     if model_name not in registry:
         raise ValueError(f"unknown downstream model {model_name}")
+    if "recurrence" in cfg:
+        raise TypeError("build_head takes no 'recurrence': every head runs the "
+                        "default recurrence (it is an attribute of a built "
+                        "model's LSTMStack)")
     if cfg.get("capture_layer") is not None:
         raise NotImplementedError(
             "capture_layer instrumentation for the active sampler is not "

@@ -17,11 +17,13 @@
   ``lstm_bidir_bb``: the JAX package's batch-blocked route) or ``"fused"``
   (B7, ``lstm_bidir_fused``: the input projection inside the kernel). B6 and
   B7 are forward-only, so under autograd every route is ``LstmBidirTm``. The
-  parameters are the same under all three: one checkpoint serves each.
-  ``"blocked"`` and ``"fused"`` are ablations, as they are in the JAX package:
-  ``"fused"`` is slower than the projection plus B1 at every measured shape
-  (``PERF.md``); the three routes become one default once B6's design also
-  carries the training kernels (``ROADMAP.md`` A13).
+  parameters are the same under all three. It is a switch of this class
+  alone, for the tests and the card script that hold B6 and B7 against the
+  JAX package's ``lstm_bidir_pallas`` and ``lstm_bidir_pallas_fused``: no
+  builder takes it, so every head, trainer and enhancer runs ``"tm"``, which
+  takes every hidden size. B6 runs B1's own kernel, and B7 is slower than the
+  projection plus B1 at every measured shape (``PERF.md``). The attribute
+  may be set on a built stack (``head.lstm.recurrence = "blocked"``).
 - Parameters are in torch layout with gate order i, f, g, o, under
   ``l{k}_fwd`` / ``l{k}_bwd`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``.
 - Sequences run fully padded, as the JAX package runs them: the backward
@@ -64,16 +66,15 @@ class LSTMStack(nn.Module):
     """torch ``nn.LSTM(num_layers, bidirectional, batch_first=True)``
     equivalent over (B, T, D). Output dim = hidden_size * (2 if
     bidirectional else 1). ``recurrence`` ("tm", "blocked" or "fused")
-    names the forward-only kernel of the bidirectional layers; a
-    one-direction layer always runs ``lstm_bidir_tm``."""
+    names the forward-only kernel of the bidirectional layers, a switch for
+    the tests and the card script; a one-direction layer always runs
+    ``lstm_bidir_tm``."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bidirectional: bool = False,
                  generator: Optional[torch.Generator] = None,
                  recurrence: str = "tm"):
         super().__init__()
-        if recurrence not in RECURRENCES:
-            raise ValueError(f"recurrence must be one of {RECURRENCES}, got {recurrence!r}")
         self.recurrence = recurrence
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -87,6 +88,16 @@ class LSTMStack(nn.Module):
                     f"l{k}_{name}", LstmDirParams(hidden_size, d_in, generator)
                 )
             d_in = hidden_size * len(dirs)
+
+    @property
+    def recurrence(self) -> str:
+        return self._recurrence
+
+    @recurrence.setter
+    def recurrence(self, value: str):
+        if value not in RECURRENCES:
+            raise ValueError(f"recurrence must be one of {RECURRENCES}, got {value!r}")
+        self._recurrence = value
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # B6 and B7 have no backward kernel: a gradient takes LstmBidirTm

@@ -108,7 +108,8 @@ class _NotPorted:
     def __init__(self, **kwargs):
         raise NotImplementedError(
             f"objective {type(self).__name__} is not ported yet: the "
-            "perceptual objectives are ROADMAP A6"
+            "perceptual objectives are ROADMAP A6, the port's next slice (the "
+            "metrics of A6 are ported)"
         )
 
 

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every source under csrc/, by name
 SOURCES = ("lstm_tm", "lstm_tm_cluster", "lstm_tm_bwd", "flash_attn", "flash_attn_bwd",
-           "stft_fused", "stft_fft", "decode_ola", "decode_fft", "lstm_bb", "lstm_bb_cluster")
+           "stft_fused", "stft_fft", "decode_ola", "decode_fft", "lstm_bb_cluster")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

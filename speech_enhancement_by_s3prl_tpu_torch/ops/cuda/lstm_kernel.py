@@ -34,8 +34,7 @@ Kernels (sources under ``csrc/``), each replacing a Pallas kernel of
   registers, h through distributed shared memory, the step product on FMAs,
   and the projection of a run of steps ahead on the tensor cores.
   ``lstm_bidir_bb_model`` / ``lstm_bidir_fused_model`` are those algorithms
-  in PyTorch, for the CPU tests. Both take the shapes of ``bb_route``. The
-  earlier ``lstm_bb.cu`` is no route; the card script times it.
+  in PyTorch, for the CPU tests. Both take the shapes of ``bb_route``.
 
 ``LstmBidirTm`` ties B2 fwd and B2 bwd into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``lstm_bidir_tm``; ``lstm_bidir_tm`` routes
@@ -198,7 +197,7 @@ def _bwd_library():
 
 
 # widest layer whose 8-block cluster keeps its W_hh^T slices resident
-# (H / 8 units a block, a lane a unit in the kernels of lstm_bb.cu too)
+# (H / 8 units a block)
 CLUSTER_MAX_HIDDEN = 256
 # batch rows one cluster of the forward's ``cluster`` route takes at most
 # (kMaxRows in lstm_tm_cluster.cu: a warp a row in the cell phase)
@@ -546,8 +545,7 @@ def bb_route(hidden: int, inputs: int = 0) -> Optional[str]:
     tensor, by the shape alone: ``"cluster"`` for a hidden size that is a
     multiple of 8 up to 256 and any D (B6 on B1's ``lstm_tm_cluster.cu``, B7
     on ``lstm_bb_cluster.cu``), else None (no kernel takes it; the wrappers
-    raise). The earlier ``lstm_bb.cu`` takes no shape that these refuse, so
-    it is no route."""
+    raise)."""
     ok = hidden % 8 == 0 and 0 < hidden <= BB_MAX_HIDDEN and inputs >= 0
     return "cluster" if ok else None
 
@@ -625,20 +623,6 @@ def lstm_bidir_fused_model(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.T
     return lstm_bidir_tm_fwd_model(xw, w_hh_t, batch_block=batch_block)
 
 
-def _bb_library():
-    """The earlier design of B6 / B7 (``lstm_bb.cu``): no route takes it; the
-    card script launches it directly to time it beside the cluster kernels."""
-    lib = load("lstm_bb")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_bb_f32.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.lstm_bidir_bb_f32.restype = i
-    lib.lstm_bidir_fused_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.lstm_bidir_fused_f32.restype = i
-    lib.lstm_bb_error_string.argtypes = [i]
-    lib.lstm_bb_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _bb_cluster_library():
     lib = load("lstm_bb_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -676,25 +660,6 @@ def _launch_fused(xs, w_ih_t, bias, w_hh_t, batch_block: int):
                                   B, T, H, D, rows, *launch_args(xs))
     raise_on(err, "lstm_bidir_fused", lib.lstm_bb_cluster_error_string, B=B, T=T, H=H, D=D,
              rows=rows)
-    return hs
-
-
-def _launch_bb_blocks(xin, w_hh_t, w_ih_t=None, bias=None, batch_block: int = 32):
-    """The earlier ``lstm_bb.cu`` (PR 4's design), launched directly on
-    checked, contiguous CUDA tensors; returns hs. No wrapper routes to it."""
-    _, B, T, _ = xin.shape
-    H = w_hh_t.shape[-2]
-    hs = torch.empty((2, B, T, H), device=xin.device, dtype=torch.float32)
-    lib = _bb_library()
-    if w_ih_t is None:
-        err = lib.lstm_bidir_bb_f32(xin.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), B, T,
-                                    H, batch_block, *launch_args(xin))
-    else:
-        err = lib.lstm_bidir_fused_f32(xin.data_ptr(), w_ih_t.data_ptr(), bias.data_ptr(),
-                                       w_hh_t.data_ptr(), hs.data_ptr(), B, T, H,
-                                       xin.shape[-1], batch_block, *launch_args(xin))
-    raise_on(err, "lstm_bb", lib.lstm_bb_error_string, B=B, T=T, H=H,
-             batch_block=batch_block)
     return hs
 
 

@@ -9,7 +9,9 @@ upstream.
 - ``train``: log, eval and save cadences, ``max_keep`` rotation, best-per-
   split saves under ``--save_best`` (the best starts at zero), a final save.
 - ``evaluate``: reseeds the random modules and returns the per-batch mean of
-  means.
+  means. The eval step scores the metrics that have a batched version on
+  the device (``metrics.device_batch_metrics``); PESQ moves to the host, one
+  utterance at a time, only where the ITU ``pesq`` wheel imports.
 - ``--dckpt``: the pretraining checkpoint for ``Mockingjay`` (its encoder
   and SpecHead weights, like ``--ckpt``'s SpecHead for ``SpecHead``, are
   overlaid onto the new head); a warm start of the whole head otherwise.
@@ -20,8 +22,8 @@ Not ported yet, each refused with its ROADMAP item: the modes ``record``,
 ``query`` and ``query_dev``, the active sampler and ``--sync_sampler`` /
 ``--active_sampling``, the second upstream and the pseudo wavs it makes
 (``--ckpt2``, ``--dropout2``, ``--pseudo_clean``, ``--pseudo_noise``) (A9),
-``--mesh`` (A12), ``--profile`` (A11), media logging (``media_step``, A7)
-and ``test_gradient`` (A9).
+``--mesh`` (A12), ``--profile`` (A11), media logging (``media_step``, A7,
+the port's next slice) and ``test_gradient`` (A9).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 
 from ..data.datasets import DATASET_REGISTRY
 from ..data.loader import DataLoader, default_buckets, device_prefetch
+from ..metrics import METRIC_REGISTRY, check_metrics, device_batch_metrics
 from ..models.convert import flax_to_state_dict
 from ..models.torch_import import (
     convert_downstream_state,
@@ -89,7 +92,8 @@ class Runner:
         if getattr(args, "sampler_device", None) is not None:
             _refuse("the async active sampler (--sampler_device)", "A9")
         if "media_step" in self.rconfig:
-            _refuse("media logging (runner.media_step)", "A7")
+            _refuse("media logging (runner.media_step; it comes with the perceptual "
+                    "objectives in the port's next slice)", "A7")
 
         self.preprocessor = preprocessor
         self.downstream_model = downstream.to(self.device)
@@ -99,6 +103,15 @@ class Runner:
         self.log = ScalarLog(expdir)
 
         self.metric_names = list(self.rconfig["eval_metrics"])
+        check_metrics(self.metric_names)
+        # the metrics scored on the device in the eval step, and those scored
+        # on the host from the eval step's waveforms
+        no_metric = getattr(args, "no_metric", False)
+        on_device = device_batch_metrics()
+        self.device_metric_names = () if no_metric else tuple(
+            m for m in self.metric_names if m in on_device)
+        self.host_metric_names = [] if no_metric else [
+            m for m in self.metric_names if m not in on_device]
         criterion_config = config.get("objective", {}).get(args.objective, {}) or {}
         self.objective = build_objective(args.objective, **criterion_config)
         self.grad_clip = float(self.rconfig["gradient_clipping"])
@@ -135,8 +148,7 @@ class Runner:
             channel_tar=self.preprocessor.channel_tar,
             grad_clip=self.grad_clip,
             # --no_metric skips metric computation entirely
-            eval_metrics=() if getattr(self.args, "no_metric", False)
-            else tuple(self.metric_names),
+            eval_metrics=self.device_metric_names,
             sample_rate=self.preprocessor.config.sample_rate,
             seed=int(self.args.seed),
         )
@@ -347,13 +359,24 @@ class Runner:
 
         loss_sum = 0.0
         scores_sum = np.zeros(len(self.metric_names))
+        # the host metrics read every row of the enhanced and clean waveforms;
+        # otherwise only utterance 0 comes back (the logged samples)
+        wav_out = "full" if self.host_metric_names else "first"
         for indice, batch in enumerate(device_prefetch(dataloader, self.device)):
             lengths, wavs = batch[0], batch[1]
-            out = self.builder.eval_step(wavs, lengths, wav_out="first")
+            out = self.builder.eval_step(wavs, lengths, wav_out=wav_out)
             loss_sum += float(out["loss"])
             batch_scores = {
                 name: float(vals.mean()) for name, vals in out["scores"].items()
             }
+            if self.host_metric_names:
+                wp = out["wav_predicted"].cpu().numpy()
+                wt = out["wav_tar"].cpu().numpy()
+                lens = lengths.cpu().numpy()
+                for name in self.host_metric_names:
+                    fn = METRIC_REGISTRY[name]
+                    batch_scores[name] = float(np.mean(
+                        [fn(wp[i][: lens[i]], wt[i][: lens[i]]) for i in range(len(lens))]))
             scores_sum += np.array(
                 [batch_scores.get(m, score_default) for m in self.metric_names]
             )

@@ -24,7 +24,9 @@ included) as they were, and the global step still advances. Parameters are
 updated in place in the model: the port's state is the model's own tensors.
 
 The eval step decodes with the noisy phase, renormalizes to the target
-channel's level, and scores the objective and the metrics on the device.
+channel's level, and scores the objective and the metrics that have a
+batched version (``eval_metrics``: sisdr, stoi, estoi, pesq_nb, pesq_wb) on
+the device, in full f32.
 """
 from __future__ import annotations
 
@@ -124,7 +126,7 @@ class StepBuilder:
     channel_inp: int = 0
     channel_tar: int = 1
     grad_clip: float = 1.0
-    eval_metrics: Tuple[str, ...] = ("sisdr",)
+    eval_metrics: Tuple[str, ...] = ("sisdr",)  # scored on the device
     sample_rate: int = 16000
     seed: int = 0                   # with the step, seeds the dropout salts
 

@@ -12,10 +12,10 @@ that records none is refused, as the JAX package refuses it.
 ``MicroBatcher`` coalesces concurrent requests of one bucket into one device
 batch. A request longer than the largest bucket runs through
 ``ops/streaming.enhance_streaming``: windows of the largest bucket with one
-second of cosine crossfade. ``recurrence`` ("tm", "blocked", "fused") names
-the kernel the BLSTM layers run (``models/lstm.LSTMStack``); one checkpoint
-serves under all three. The HTTP front end, the stateful streamer, mesh
-serving and export artifacts are not ported yet (ROADMAP A10, A12).
+second of cosine crossfade. The BLSTM layers run the default recurrence
+(kernel B1); ``enhance.model`` is the served head. The HTTP front end, the
+stateful streamer, mesh serving and export artifacts are not ported yet
+(ROADMAP A10, A12).
 """
 from __future__ import annotations
 
@@ -107,12 +107,10 @@ class MicroBatcher:
 
 def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
                        device, max_bucket_ms: int = 60000,
-                       upstream_ckpt: str = "", dckpt: str = "",
-                       recurrence: str = "tm"):
+                       upstream_ckpt: str = "", dckpt: str = ""):
     """Checkpoint -> (model, enhance_raw(wavs (B, T), lengths (B,)),
     buckets), with the model on ``device``. ``upstream_ckpt`` / ``dckpt``
-    relocate the pretraining checkpoints recorded in the settings;
-    ``recurrence`` names the kernel of the head's BLSTM layers."""
+    relocate the pretraining checkpoints recorded in the settings."""
     payload = load_checkpoint(ckpt)
     paras = dict(payload["Settings"]["Paras"])
     config = payload["Settings"]["Config"]
@@ -191,7 +189,7 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
     else:
         in_size = dims[0] if mode == "waveform" else dims[1]
     model = build_head(downstream, input_size=in_size, output_size=dims[2],
-                       **{**paras, **model_cfg, "recurrence": recurrence})
+                       **{**paras, **model_cfg})
     model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
     model.eval().to(device)
     buckets = default_buckets(sample_rate, max_bucket_ms)
@@ -254,21 +252,18 @@ def _finish_enhancer(run_batch, buckets, sample_rate: int):
 
 def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -25.0,
                    *, device, max_bucket_ms: int = 60000, round_pow2: bool = True,
-                   upstream_ckpt: str = "", dckpt: str = "", recurrence: str = "tm"):
+                   upstream_ckpt: str = "", dckpt: str = ""):
     """``enhance(wav)`` on ``device``. ``device="cuda"`` with no card raises;
     nothing falls back to the CPU. ``enhance`` takes a request of any length
     (longer than the largest bucket: crossfaded windows); ``enhance.run_batch``
-    serves groups that fit one bucket. ``recurrence`` other than the default
-    ``"tm"`` is an ablation: ``"blocked"`` (kernel B6) and ``"fused"`` (kernel
-    B7, slower than the default at every measured shape) serve the same
-    checkpoint to the same waveform within f32 rounding."""
+    serves groups that fit one bucket; ``enhance.model`` is the served head."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_enhancer(device='cuda'): no CUDA device here")
     use_full_fp32()
-    _, enhance_raw, buckets = build_raw_enhancer(
+    model, enhance_raw, buckets = build_raw_enhancer(
         ckpt, sample_rate, target_level, device, max_bucket_ms,
-        upstream_ckpt=upstream_ckpt, dckpt=dckpt, recurrence=recurrence,
+        upstream_ckpt=upstream_ckpt, dckpt=dckpt,
     )
 
     def run_batch(wavs) -> list:
@@ -285,4 +280,6 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
         ).cpu().numpy()
         return [out[k, : len(w)] for k, w in enumerate(wavs)]
 
-    return _finish_enhancer(run_batch, buckets, sample_rate)
+    enhance = _finish_enhancer(run_batch, buckets, sample_rate)
+    enhance.model = model
+    return enhance

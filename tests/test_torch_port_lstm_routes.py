@@ -23,6 +23,7 @@ from speech_enhancement_by_s3prl_tpu.ops.pallas.lstm_kernel import (
 )
 from speech_enhancement_by_s3prl_tpu_torch.models import heads as t_heads
 from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+from speech_enhancement_by_s3prl_tpu_torch import entry, serve
 from speech_enhancement_by_s3prl_tpu_torch.models.lstm import LSTMStack
 from speech_enhancement_by_s3prl_tpu_torch.ops.cuda.lstm_kernel import (
     lstm_bidir_bb,
@@ -147,8 +148,10 @@ def test_routes_share_one_state_dict_and_train_through_lstm_bidir_tm():
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     cfg = dict(hidden_size=8, num_layers=2, bidirectional=True)
     heads = {r: t_heads.build_head("Residual", input_size=12, output_size=10,
-                                   generator=gen(), recurrence=r, **cfg)
+                                   generator=gen(), **cfg)
              for r in ("tm", "blocked", "fused")}
+    for route, head in heads.items():
+        head.lstm.recurrence = route
     ref_sd = heads["tm"].state_dict()
     rng = np.random.default_rng(5)
     feats = torch.from_numpy(rng.standard_normal((2, 9, 12)).astype(np.float32))
@@ -172,3 +175,29 @@ def test_routes_share_one_state_dict_and_train_through_lstm_bidir_tm():
         torch.testing.assert_close(results[route][2], results["tm"][2], atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="recurrence"):
         LSTMStack(12, 8, bidirectional=True, recurrence="scan")
+    with pytest.raises(ValueError, match="recurrence"):
+        heads["tm"].lstm.recurrence = "scan"
+
+
+@pytest.mark.parametrize("builder", ["build_head", "entry.build", "serve.build_enhancer",
+                                     "serve.build_raw_enhancer"])
+def test_builders_take_no_recurrence(builder):
+    """The route is a switch of ``LSTMStack`` alone: no builder carries it, so
+    every head, enhancer and trainer runs ``"tm"``, which takes every hidden
+    size (B6 and B7 refuse one not a multiple of 8 or above 256 on the card)."""
+    call = {
+        "build_head": lambda: t_heads.build_head(
+            "Residual", input_size=12, output_size=10, hidden_size=8,
+            bidirectional=True, recurrence="blocked"),
+        "entry.build": lambda: entry.build(hidden_size=8, num_layers=1, device="cpu",
+                                           recurrence="blocked"),
+        "serve.build_enhancer": lambda: serve.build_enhancer(
+            "no-checkpoint", device="cpu", recurrence="fused"),
+        "serve.build_raw_enhancer": lambda: serve.build_raw_enhancer(
+            "no-checkpoint", 16000, -25.0, "cpu", recurrence="fused"),
+    }[builder]
+    with pytest.raises(TypeError, match="recurrence"):
+        call()
+    head = t_heads.build_head("Residual", input_size=12, output_size=10, hidden_size=8,
+                              bidirectional=True)
+    assert head.lstm.recurrence == "tm"

@@ -347,7 +347,7 @@ def test_serving_refuses_what_is_not_ported(ckpts, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="longer than the largest bucket"):
         enhancer.run_batch([np.zeros(40000, np.float32)])
     with pytest.raises(ValueError, match="recurrence"):
-        serve.build_enhancer(ckpts["port"], device="cpu", recurrence="scan")
+        enhancer.model.lstm.recurrence = "scan"
     payload = load_checkpoint(ckpts["port"])
     payload["Settings"]["Paras"]["compute_dtype"] = "bf16"
     _, model = entry.build(device="cpu", **SMALL)
@@ -406,8 +406,9 @@ assert out.shape == (3000,) and np.isfinite(out).all()
 for name in ("ops.cuda.stft_kernel", "ops.cuda.decode_kernel", "ops.streaming"):
     assert pkg.__name__ + "." + name in mods, name
 for route in ("blocked", "fused"):
-    streamed = build_enhancer(sys.argv[1], device="cpu", max_bucket_ms=2000,
-                              recurrence=route)(np.zeros(40000, np.float32) + 0.01)
+    routed = build_enhancer(sys.argv[1], device="cpu", max_bucket_ms=2000)
+    routed.model.lstm.recurrence = route
+    streamed = routed(np.zeros(40000, np.float32) + 0.01)
     assert streamed.shape == (40000,) and np.isfinite(streamed).all()
 print(len(mods), "modules", sorted(load_checkpoint(sys.argv[1])["Downstream"]["params"]))
 """

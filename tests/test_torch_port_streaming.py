@@ -62,7 +62,8 @@ def jax_enhancer(ckpt):
 
 @pytest.mark.parametrize("route", ["tm", "blocked", "fused"])
 def test_checkpoint_served_under_each_route_matches_jax(route, ckpt, jax_enhancer):
-    port = serve.build_enhancer(ckpt, device="cpu", max_bucket_ms=2000, recurrence=route)
+    port = serve.build_enhancer(ckpt, device="cpu", max_bucket_ms=2000)
+    port.model.lstm.recurrence = route
     kernels = (stft_fused, decode_ola, lstm_bidir_tm, lstm_bidir_bb, lstm_bidir_fused)
     for wav in (_audio(5000, 1), _audio(20000, 2)):
         assert _rel(port(wav), np.asarray(jax_enhancer(wav))) < WAV_TOL

@@ -294,9 +294,12 @@ def test_step_builder_refuses_what_is_not_ported():
     # and needs the upstream that feeds the head
     with pytest.raises(ValueError, match="needs an upstream"):
         dataclasses.replace(entry.build_train(device="cpu", **SMALL), from_rawfeature=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # the metrics are ported: only a name the registry does not know is refused
+    dataclasses.replace(entry.build_train(device="cpu", **SMALL),
+                        eval_metrics=("sisdr", "stoi", "pesq_nb"))
+    with pytest.raises(ValueError, match="unknown metric"):
         dataclasses.replace(entry.build_train(device="cpu", **SMALL),
-                            eval_metrics=("sisdr", "stoi"))
+                            eval_metrics=("sisdr", "mosnet"))
 
 
 # -- checkpoints with optimizer state -----------------------------------------------
