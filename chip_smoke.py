@@ -93,7 +93,18 @@ Phases, one line each:
      stoi, pesq_nb, sisdr) through the port's eval step: its B1 / B4 / B5
      launches, card against CPU, its time beside SI-SDR alone, and the
      metrics' share of its device busy time; TF32 checked off in every
-     metric call.
+     metric call;
+  9. the perceptual objectives and media logging: PMSQE at (6, 1001, 201)
+     power spectra and the stoi / estoi objectives at 6 rows of 4 s, ragged,
+     card against CPU (loss and input gradient; TF32 on for the caller, off
+     inside); a ``Runner`` built from config/vcb.yaml (corpus paths and step
+     counts changed) trained with ``--objective pmsqe`` and ``media_step``:
+     ``media.jsonl`` against the cadence, every WAV and PNG read back at its
+     size, the launches of B1, B2 fwd, B2 bwd, B4 (one a media spectrogram
+     too) and B5, TF32 off in every objective call; 2 steps with ``--objective
+     WSD`` writing its figure; and times: the vcb head's train step with
+     pmsqe and SISDR, its 12 x 10 s eval batch with stoi and SISDR, one media
+     step.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -108,11 +119,13 @@ import os
 import random
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import wave
 
 import numpy as np
 
@@ -532,6 +545,42 @@ def cuda_ms(torch, fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def synced_ms(torch, fn, runs=10):
+    """Host times in ms of ``runs`` calls of ``fn``, each followed by a
+    synchronize, after one call to warm it."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def device_busy(torch, fn, calls=5):
+    """A call of ``fn`` under ``torch.profiler``, after one call to warm it:
+    (device busy ms, wall ms, device kernels, host-to-card copies). Each
+    host-to-card copy made from pageable memory waits for the work queued
+    before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    device = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    htod = sum("HtoD" in evt.name for evt in device) / calls
+    return (sum(evt.time_range.elapsed_us() for evt in device) / 1e3 / calls, wall,
+            len(device) / calls - htod, htod)
 
 
 def kernel_label(mangled: str) -> str:
@@ -1668,9 +1717,6 @@ def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
     numbers."""
     import dataclasses
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from speech_enhancement_by_s3prl_tpu_torch.entry import build_train
     from speech_enhancement_by_s3prl_tpu_torch.metrics import battery as bat
     from speech_enhancement_by_s3prl_tpu_torch.metrics import pesq_model
@@ -1820,38 +1866,17 @@ def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
         del cpu_out, builders["cpu"]
 
         # -- times --------------------------------------------------------------
-        def median_ms(fn, runs=10):
-            fn()
-            torch.cuda.synchronize()
-            ms = []
-            for _ in range(runs):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(ms), min(ms), max(ms)
-
-        step3 = median_ms(lambda: builders["cuda"].eval_step(wavs, lengths))
-        step1 = median_ms(lambda: sisdr_only.eval_step(wavs, lengths))
+        step3 = synced_ms(torch, lambda: builders["cuda"].eval_step(wavs, lengths))
+        step1 = synced_ms(torch, lambda: sisdr_only.eval_step(wavs, lengths))
         wp, wt = card_out["wav_predicted"], card_out["wav_tar"]
-        alone = median_ms(lambda: M.batch_scores(VCB_EVAL_METRICS, wp, wt, lengths, SR))
-
-        def busy(fn, calls=5):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / calls
-            device = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
-            total = sum(evt.time_range.elapsed_us() for evt in device) / 1e3 / calls
-            return total, wall, len(device) / calls
-
-        busy3, wall3, k3 = busy(lambda: builders["cuda"].eval_step(wavs, lengths))
-        busy1, wall1, k1 = busy(lambda: sisdr_only.eval_step(wavs, lengths))
-        busy_m, wall_m, k_m = busy(lambda: M.batch_scores(VCB_EVAL_METRICS, wp, wt, lengths,
-                                                          SR))
+        alone = synced_ms(torch, lambda: M.batch_scores(VCB_EVAL_METRICS, wp, wt, lengths, SR))
+        step3, step1, alone = ((statistics.median(ms), min(ms), max(ms))
+                               for ms in (step3, step1, alone))
+        busy3, wall3, k3, h3 = device_busy(torch, lambda: builders["cuda"].eval_step(
+            wavs, lengths))
+        busy1, wall1, k1, h1 = device_busy(torch, lambda: sisdr_only.eval_step(wavs, lengths))
+        busy_m, wall_m, k_m, _ = device_busy(torch, lambda: M.batch_scores(
+            VCB_EVAL_METRICS, wp, wt, lengths, SR))
         print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s, {list(VCB_EVAL_METRICS)}: median "
               f"{step3[0]:.3f} ms of 10 (min {step3[1]:.3f}, max {step3[2]:.3f}); SI-SDR "
               f"alone: median {step1[0]:.3f} ms (min {step1[1]:.3f}, max {step1[2]:.3f}); the "
@@ -1859,10 +1884,11 @@ def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
               flush=True)
         print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s under torch.profiler (5 calls each): "
               f"with {list(VCB_EVAL_METRICS)} wall {wall3:.3f} ms, device busy {busy3:.3f} ms, "
-              f"idle share {max(0.0, 1 - busy3 / wall3):.3f}, {k3:.0f} device kernels a call; "
-              f"SI-SDR alone wall {wall1:.3f}, busy {busy1:.3f}, {k1:.0f} kernels; the metrics "
-              f"alone wall {wall_m:.3f}, busy {busy_m:.3f} ms = {busy_m / max(busy3, 1e-9):.1%} "
-              f"of the step's device busy time, {k_m:.0f} kernels | {card}",
+              f"idle share {max(0.0, 1 - busy3 / wall3):.3f}, {k3:.0f} device kernels and "
+              f"{h3:.0f} host-to-card copies a call; SI-SDR alone wall {wall1:.3f}, busy "
+              f"{busy1:.3f}, {k1:.0f} kernels and {h1:.0f} copies; the metrics alone wall "
+              f"{wall_m:.3f}, busy {busy_m:.3f} ms = {busy_m / max(busy3, 1e-9):.1%} of the "
+              f"step's device busy time, {k_m:.0f} kernels | {card}",
               flush=True)
         out.update(eval_ms=step3[0], eval_sisdr_ms=step1[0], metrics_ms=alone[0],
                    busy_ms=busy3, busy_sisdr_ms=busy1, metrics_busy_ms=busy_m,
@@ -1877,6 +1903,428 @@ def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
     print(f"[metrics] TF32 off (matmul and cuDNN, float32 matmul precision 'highest') in "
           f"each of the {len(seen)} metric calls of this phase", flush=True)
     out["metric_calls"] = len(seen)
+    return out
+
+
+# the perceptual objectives card against CPU (phase 9): the loss relative to
+# the CPU's, the input gradient relative to the CPU's largest |value|. Both
+# sides compute in full f32 with other summation orders (PMSQE's bark product
+# over 201 bins and its frame sums over 1001 frames; STOI's resampling, DFT
+# and band products), which moves a value by f32 rounding of its sums
+OBJECTIVE_LOSS_TOL = 1e-5
+OBJECTIVE_GRAD_TOL = 1e-4
+# config/vcb.yaml cut to a few steps for phase 9's run: only the step counts
+# and the corpus paths change
+VCB_STEPS = {"total_step": 4, "log_step": 2, "eval_step": 4, "media_step": 2}
+WSD_STEPS = 2
+MEDIA_TAGS = ("noisy", "clean", "noise")
+EVAL_MEDIA_TAGS = ("noisy", "clean", "enhanced")
+
+
+def png_size(path):
+    """(height, width) from a PNG's IHDR, after its signature."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def wav_frames(path):
+    """The sample count of a mono 16-bit WAV at SR."""
+    with wave.open(path, "rb") as w:
+        if (w.getnchannels(), w.getsampwidth(), w.getframerate()) != (1, 2, SR):
+            raise AssertionError(f"{path}: {w.getparams()}")
+        return w.getnframes()
+
+
+def vcb_config(corpus, objective_steps):
+    """config/vcb.yaml with its corpus paths pointing at ``corpus`` (written
+    by ``write_corpus``) and its step counts replaced by ``objective_steps``.
+    Its train split keeps the files after the first ``sample_num`` (1000) of
+    its list for training and draws the dev split from those 1000, so the
+    train split reads a list of the corpus's speech files repeated past
+    1000 lines; the test split reads the directory."""
+    import yaml
+
+    with open(os.path.join(ROOT, "config", "vcb.yaml")) as f:
+        config = yaml.safe_load(f)
+    speech, noise = os.path.join(corpus, "speech"), os.path.join(corpus, "noise")
+    train = config["OnlineDataset_train"]["speech"]
+    files = sorted(os.listdir(speech))
+    listed = os.path.join(corpus, "train_speech.txt")
+    with open(listed, "w") as f:
+        f.writelines(files[k % len(files)] + "\n" for k in range(train["sample_num"] + len(files)))
+    train.update(filestrs=listed, fileroot=speech)
+    config["OnlineDataset_test"]["speech"]["filestrs"] = speech
+    for split in ("OnlineDataset_train", "OnlineDataset_test"):
+        config[split]["noise"]["filestrs"] = noise
+    config["runner"].update(objective_steps)
+    return config
+
+
+def objectives_phase(torch, kernels, all_kernels, dsp_kernels, card, tmp):
+    """Phase 9, the perceptual objectives and media logging on the card:
+
+    (a) PMSQE at (6, 1001, 201) power spectra and the ``stoi`` / ``estoi``
+        objectives at 6 rows of 4 s, ragged masks (one row padded over 2.75
+        s, as much as config/vcb.yaml's eval batches pad): loss and input
+        gradient card against CPU, called with TF32 on by the caller and off
+        inside (``metrics.full_f32``, as the trainer calls them);
+    (b) a ``Runner`` built from config/vcb.yaml (its corpus paths and step
+        counts changed) trained 4 steps with ``--objective pmsqe`` and
+        ``media_step`` 2: ``media.jsonl`` against the cadence, every WAV and
+        PNG read back at its size, the launches of B1, B2 fwd, B2 bwd, B4
+        and B5 (one B4 a step, an eval batch and a media spectrogram); then
+        2 steps with ``--objective WSD``, whose logger writes
+        ``WSD_variables.png``; TF32 off in every objective call the two
+        Runners make, the logger's included;
+    (c) times: the vcb head's train step at B=6, 10 s with pmsqe and SISDR
+        (median of 10 synchronized steps, device busy under the profiler),
+        its 12 x 10 s eval batch with stoi and SISDR, and one media step.
+
+    Returns a dict of the numbers."""
+    import dataclasses
+
+    import yaml
+
+    from speech_enhancement_by_s3prl_tpu_torch import objectives as O
+    from speech_enhancement_by_s3prl_tpu_torch.metrics import full_f32
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+    )
+
+    b1, b2f, b2b = kernels
+    stft_fused, decode_ola = dsp_kernels
+    out = {}
+
+    # every objective call records the TF32 settings it ran under
+    seen = []
+    watched = (O.pmsqe, O._StoiLoss, O.WSD)
+    originals = [cls.__call__ for cls in watched]
+
+    def watch(fn):
+        def call(self, **ctx):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            return fn(self, **ctx)
+        return call
+
+    for cls, fn in zip(watched, originals):
+        cls.__call__ = watch(fn)
+    try:
+        # -- (a) card against CPU -------------------------------------------
+        rng = np.random.default_rng(SEED + 12)
+        B, T, F = 6, 1001, 201
+        frames = np.array([1001, 950, 800, 640, 501, 233])
+        tar = (rng.standard_normal((B, T, F)) ** 2 * 1e2).astype(np.float32)
+        src = (tar * (0.5 + 0.25 * rng.standard_normal((B, T, F))) ** 2).astype(np.float32)
+        spec_ctx = {"predicted": src, "linear_tar": tar,
+                    "stft_length_masks": (np.arange(T)[None, :] < frames[:, None]).astype(
+                        np.float32)}
+        n = 4 * SR
+        clean = np.stack([speech_like(n, 20 + i) for i in range(B)])
+        noisy = clean + 0.02 * rng.standard_normal(clean.shape).astype(np.float32)
+        # ragged; the last row padded over 2.75 s, many 30-frame segments of
+        # silence, which the objectives count (they mask the waveforms and
+        # pass no lengths, as in the JAX package). The stoi objective's input
+        # gradient is NaN on that row (the correlation's sqrt at 0) on either
+        # device; ESTOI scores each such segment 0 (ROADMAP C5)
+        samples = n - np.array([0, 700, 1900, 3100, 4800, 44000])
+        wav_ctx = {"wav_predicted": noisy, "wav_tar": clean,
+                   "length_masks": (np.arange(n)[None, :] < samples[:, None]).astype(np.float32)}
+        nan_rows_want = {"pmsqe": [False] * B, "stoi": [False] * (B - 1) + [True],
+                         "estoi": [False] * B}
+        errs = {}
+        for name, ctx, key in (("pmsqe", spec_ctx, "predicted"), ("stoi", wav_ctx, "wav_predicted"),
+                               ("estoi", wav_ctx, "wav_predicted")):
+            sides = {}
+            for dev in ("cuda", "cpu"):
+                t = {k: torch.from_numpy(v).to(dev) for k, v in ctx.items()}
+                t[key].requires_grad_()
+                # a caller with TF32 on, the objective inside full_f32 as the
+                # trainer calls it
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+                with full_f32():
+                    loss, _ = O.build_objective(name)(**t)
+                    (g,) = torch.autograd.grad(loss, t[key])
+                restored = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+                if not restored:
+                    raise AssertionError("full_f32 did not restore the caller's TF32 settings")
+                sides[dev] = (float(loss.detach()), g.detach().cpu())
+            (gl, gg), (cl, cg) = sides["cuda"], sides["cpu"]
+            loss_rel = abs(gl - cl) / abs(cl)
+            nan_rows = [torch.isnan(g).flatten(1).any(dim=1).tolist() for g in (gg, cg)]
+            finite = ~torch.tensor(nan_rows[1])
+            grad_rel = float((gg[finite] - cg[finite]).abs().max() / cg[finite].abs().max())
+            errs[name] = (loss_rel, grad_rel)
+            shape = "x".join(map(str, ctx[key].shape))
+            print(f"[objectives] {name} at {shape} (ragged masks) card vs CPU: loss {gl:.6f} vs "
+                  f"{cl:.6f}, rel {loss_rel:.2e} (limit {OBJECTIVE_LOSS_TOL:.0e}); input "
+                  f"gradient max |diff| / max |g| {grad_rel:.2e} (limit "
+                  f"{OBJECTIVE_GRAD_TOL:.0e}) over the rows without NaN; rows with a NaN "
+                  f"gradient {[i for i, v in enumerate(nan_rows[0]) if v]} on the card, "
+                  f"{[i for i, v in enumerate(nan_rows[1]) if v]} on the CPU", flush=True)
+            if not (math.isfinite(gl) and loss_rel <= OBJECTIVE_LOSS_TOL
+                    and grad_rel <= OBJECTIVE_GRAD_TOL
+                    and nan_rows == [nan_rows_want[name]] * 2):
+                raise AssertionError(f"{name} card vs CPU: loss {loss_rel}, grad {grad_rel}, "
+                                     f"NaN gradient rows {nan_rows}")
+        bad = [s for s in seen if s != (False, False)]
+        print(f"[objectives] TF32 off in {len(seen) - len(bad)} of the {len(seen)} objective "
+              f"calls above (each inside full_f32, as the trainer makes them)", flush=True)
+        if bad or len(seen) != 6:
+            raise AssertionError(f"objective calls with TF32 allowed: {len(bad)} of {len(seen)}")
+        out["errs"] = errs
+
+        # -- (b) config/vcb.yaml through the Runner, --objective pmsqe --------
+        corpus = os.path.join(tmp, "corpus")
+        write_corpus(corpus, SEED)
+
+        def runner_for(name, objective, steps):
+            cfg_path = os.path.join(tmp, f"{name}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(vcb_config(corpus, steps), f)
+            args, config = get_downstream_args([
+                "--config", cfg_path, "--name", name, "--expdir", os.path.join(tmp, "exp"),
+                "--downstream", "Residual", "--objective", objective, "--from_rawfeature",
+                "--dev_num", str(VCB_EVAL_BATCH), "--n_jobs", "4", "--seed", str(SEED),
+                "--device", "cuda"])
+            random.seed(SEED)
+            np.random.seed(SEED)
+            runner = build_runner(args, config)
+            runner.set_model()
+            return runner, os.path.join(tmp, "exp", name)
+
+        runner, run_dir = runner_for("vcb_pmsqe", "pmsqe", VCB_STEPS)
+        steps, evals, returned, media_b4 = [], [], [], []
+        train_step, eval_step = runner.train_step, runner.builder.eval_step
+        evaluate, media_logging = runner.evaluate, runner.media.media_logging
+
+        def step(state, wavs, lengths):
+            state, stats = train_step(state, wavs, lengths)
+            steps.append((tuple(wavs.shape), stats))
+            return state, stats
+
+        def eval_batch(wavs, lengths, **kw):
+            evals.append(tuple(wavs.shape))
+            return eval_step(wavs, lengths, **kw)
+
+        def evaluate_recorded(loader=None):
+            result = evaluate(loader)
+            returned.append([len(w) for w in result[4]])
+            return result
+
+        def media_recorded(step_, tag, data):
+            before = stft_fused.launches
+            media_logging(step_, tag, data)
+            media_b4.append(stft_fused.launches - before)
+
+        runner.train_step, runner.builder.eval_step = step, eval_batch
+        runner.evaluate, runner.media.media_logging = evaluate_recorded, media_recorded
+        t0 = time.perf_counter()
+        seen.clear()
+        # -- the main path of the vcb head with PMSQE and media logging --
+        reset_counts(all_kernels)
+        runner.train()
+        counts = [fn.launches for fn in all_kernels]
+        vcb_counts = [b1.launches, b2f.launches, b2b.launches, stft_fused.launches,
+                      decode_ola.launches]
+        # -----------------------------------------------------------------
+        run_s = time.perf_counter() - t0
+        check_b5_route(decode_ola, "the vcb run")
+        losses = [float(st["loss"]) for _, st in steps]
+        if len(steps) != VCB_STEPS["total_step"] or not all(map(math.isfinite, losses)) or any(
+                bool(st["skipped"]) for _, st in steps):
+            raise AssertionError(f"vcb run: {len(steps)} steps, losses {losses}")
+        n_steps, n_evals, n_media = len(steps), len(evals), len(media_b4)
+        want = [3 * n_evals, 3 * n_steps, 3 * n_steps, n_steps + n_evals + n_media, n_evals]
+        if vcb_counts != want or sum(counts) != sum(want) or media_b4 != [1] * n_media:
+            raise AssertionError(f"vcb run launches (B1, B2 fwd, B2 bwd, B4, B5) {vcb_counts}, "
+                                 f"want {want}; all kernels {counts}; B4 a media clip "
+                                 f"{media_b4}")
+        scalars = [json.loads(ln) for ln in open(os.path.join(run_dir, "scalars.jsonl"))]
+        eval_losses = [s["value"] for s in scalars if s["tag"].endswith("_loss")]
+        if len(eval_losses) != len(runner.rconfig["eval_splits"]) or not all(
+                map(math.isfinite, eval_losses + [s["value"] for s in scalars])):
+            raise AssertionError(f"vcb run scalars {scalars}")
+
+        # media.jsonl against the cadence: the train batch's channels at every
+        # media step (the whole batch as one clip), the samples evaluate
+        # returned at the step that eval_step and media_step both divide
+        train_len = {i + 1: sh[0] * sh[-1] for i, (sh, _) in enumerate(steps)}
+        expect = []
+        for s in range(1, n_steps + 1):
+            if s % VCB_STEPS["media_step"]:
+                continue
+            expect += [(s, f"{tag}.{ext}", train_len[s]) for tag in MEDIA_TAGS
+                       for ext in ("wav", "png")]
+            if s % VCB_STEPS["eval_step"] == 0:
+                lens = returned[:len(runner.rconfig["eval_splits"])]
+                for split, split_lens in zip(runner.rconfig["eval_splits"], lens):
+                    expect += [(s, f"{split}-{tag}-{i}.{ext}", n_) for i, n_ in
+                               enumerate(split_lens) for tag in EVAL_MEDIA_TAGS
+                               for ext in ("wav", "png")]
+        index = [json.loads(ln) for ln in open(os.path.join(run_dir, "media.jsonl"))]
+        if [(m["step"], m["tag"]) for m in index] != [(s, t) for s, t, _ in expect]:
+            raise AssertionError(f"media.jsonl {[(m['step'], m['tag']) for m in index]}, want "
+                                 f"{[(s, t) for s, t, _ in expect]}")
+        hop = runner.preprocessor._win_args["hop_length"]
+        n_freq = runner.preprocessor.config.n_freq
+        for m, (_, _, samples_) in zip(index, expect):
+            path = os.path.join(run_dir, m["path"])
+            got = wav_frames(path) if m["kind"] == "audio" else png_size(path)
+            want_ = samples_ if m["kind"] == "audio" else (n_freq, 1 + samples_ // hop)
+            if got != want_:
+                raise AssertionError(f"{m['path']}: {got}, want {want_}")
+        pmsqe_calls = list(seen)
+        print(f"[objectives] config/vcb.yaml (Residual 3 x 256, one direction, linear 201-d; "
+              f"corpus paths and step counts {VCB_STEPS} changed) through Runner on cuda with "
+              f"--objective pmsqe: {n_steps} steps of {sorted({sh for sh, _ in steps})} in "
+              f"{run_s:.2f} s, losses {', '.join(f'{x:.4f}' for x in losses)}, eval losses "
+              f"{', '.join(f'{x:.4f}' for x in eval_losses)} ({n_evals} eval batches); "
+              f"launches (B1, B2 fwd, B2 bwd, B4, B5) {vcb_counts} = 3 B2 fwd + 3 B2 bwd + 1 "
+              f"B4 a step, 3 B1 + 1 B4 + 1 B5 an eval batch, 1 B4 each of {n_media} media "
+              f"spectrograms; media.jsonl {len(index)} files as the cadence wants, every WAV "
+              f"and PNG read back at its size", flush=True)
+        out.update(vcb_counts=vcb_counts, n_media=n_media, media_files=len(index))
+
+        # two steps with --objective WSD: its logger's figure at log_step
+        wsd, wsd_dir = runner_for("vcb_wsd", "WSD", {**VCB_STEPS, "total_step": WSD_STEPS})
+        wsd_steps = []
+        wsd_train = wsd.train_step
+
+        def wsd_step(state, wavs, lengths):
+            wsd_steps.append(tuple(wavs.shape))
+            return wsd_train(state, wavs, lengths)
+
+        wsd.train_step = wsd_step
+        seen.clear()
+        wsd.train()
+        figures = [m for m in map(json.loads, open(os.path.join(wsd_dir, "media.jsonl")))
+                   if m["tag"] == "WSD_variables"]
+        sh = wsd_steps[-1]
+        want_fig = (5 * n_freq, 1 + sh[-1] // hop)
+        got_fig = [png_size(os.path.join(wsd_dir, m["path"])) for m in figures]
+        print(f"[objectives] --objective WSD, {WSD_STEPS} steps: WSD_variables.png at steps "
+              f"{[m['step'] for m in figures]}, {got_fig} pixels (five panels of "
+              f"{n_freq} bins)", flush=True)
+        if [m["step"] for m in figures] != [WSD_STEPS] or got_fig != [want_fig]:
+            raise AssertionError(f"WSD figures {figures}, sizes {got_fig}, want {want_fig}")
+        del wsd
+        # the Runners' own objective calls: a train step and an eval batch
+        # each one, and the WSD logger one at each figure
+        calls = {"pmsqe": (pmsqe_calls, n_steps + n_evals),
+                 "WSD": (list(seen), len(wsd_steps) + len(figures))}
+        bad = {k: sum(s != (False, False) for s in got) for k, (got, _) in calls.items()}
+        print(f"[objectives] TF32 off in every objective call of the Runners: "
+              + ", ".join(f"--objective {k} {len(got) - bad[k]} of {len(got)} (want {want})"
+                          for k, (got, want) in calls.items()), flush=True)
+        if any(bad.values()) or any(len(got) != want for got, want in calls.values()):
+            raise AssertionError(f"objective calls of the Runners: {bad} with TF32 allowed, "
+                                 f"counts {[(len(g), w) for g, w in calls.values()]}")
+
+        # -- (c) times ---------------------------------------------------------
+        builder = runner.builder
+        builder.eval_step = eval_step
+        wavs = torch.from_numpy(np.stack([np.stack([c + 0.05 * rng.standard_normal(c.shape),
+                                                    c, 0.05 * rng.standard_normal(c.shape)])
+                                          for c in (request_audio(10.0, 50 + i)
+                                                    for i in range(12))]).astype(np.float32))
+        wavs = wavs.cuda()
+        lengths = torch.full((12,), wavs.shape[-1], dtype=torch.long, device="cuda")
+        by_objective = {name: dataclasses.replace(builder, objective=O.build_objective(name))
+                        for name in ("pmsqe", "SISDR", "stoi")}
+        state = by_objective["pmsqe"].init_state()
+
+        # in turns within this call: pmsqe, SISDR, SISDR, pmsqe
+        runs = {"pmsqe": [], "SISDR": []}
+        for name in ("pmsqe", "SISDR", "SISDR", "pmsqe"):
+            runs[name] += synced_ms(torch, lambda b=by_objective[name]: b.train_step(
+                state, wavs[:6], lengths[:6]))
+        train_t = {k: statistics.median(v) for k, v in runs.items()}
+        train_busy = {k: device_busy(torch, lambda k=k: by_objective[k].train_step(
+            state, wavs[:6], lengths[:6])) for k in ("pmsqe", "SISDR")}
+        eruns = {"stoi": [], "SISDR": []}
+        for name in ("stoi", "SISDR", "SISDR", "stoi"):
+            eruns[name] += synced_ms(torch, lambda b=by_objective[name]: b.eval_step(
+                wavs, lengths))
+        eval_t = {k: statistics.median(v) for k, v in eruns.items()}
+        eval_busy = {k: device_busy(torch, lambda k=k: by_objective[k].eval_step(wavs, lengths))
+                     for k in ("stoi", "SISDR")}
+        print(f"[time] vcb head (Residual 3 x 256, one direction) train step B=6 10 s: median "
+              f"of 20 synchronized steps (in turns pmsqe, SISDR, SISDR, pmsqe) pmsqe "
+              f"{train_t['pmsqe']:.3f} ms (min {min(runs['pmsqe']):.3f}), SISDR "
+              f"{train_t['SISDR']:.3f} ms (min {min(runs['SISDR']):.3f}); under "
+              f"torch.profiler (5 steps): "
+              + "; ".join(f"{k} wall {w:.3f} ms, device busy {b_:.3f} ms, idle share "
+                          f"{max(0.0, 1 - b_ / w):.3f}, {kn:.0f} kernels and {hd:.0f} "
+                          f"host-to-card copies a step"
+                          for k, (b_, w, kn, hd) in train_busy.items()) + f" | {card}",
+              flush=True)
+        print(f"[time] vcb head eval batch 12 x 10 s with eval_metrics "
+              f"{list(builder.eval_metrics)}: median of 20 (in turns stoi, SISDR, SISDR, stoi) "
+              f"--objective stoi {eval_t['stoi']:.3f} ms, SISDR {eval_t['SISDR']:.3f} ms; under "
+              f"torch.profiler (5 calls): "
+              + "; ".join(f"{k} wall {w:.3f} ms, device busy {b_:.3f} ms, {kn:.0f} kernels, "
+                          f"{hd:.0f} host-to-card copies"
+                          for k, (b_, w, kn, hd) in eval_busy.items()) + f" | {card}",
+              flush=True)
+
+        # one media step: the train batch's three channels, each a clip of
+        # 6 x 10 s with its spectrogram on the card
+        from speech_enhancement_by_s3prl_tpu_torch.runner import media as media_mod
+
+        media = runner.media
+        media.media_logging = media_logging
+        batch = wavs[:6]
+        media_ms, media_counts = [], []
+        # host time of the WAV writes and the PNG encodes, the rest being the
+        # copies, the spectrogram and the PNG file writes
+        parts = {"wav": [0.0], "png": [0.0]}
+        encoders = (media_mod.write_wav, media_mod.spectrogram_png)
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t2 = time.perf_counter()
+                result = fn(*a, **kw)
+                parts[key][-1] += (time.perf_counter() - t2) * 1e3
+                return result
+            return run
+
+        media_mod.write_wav = timed("wav", encoders[0])
+        media_mod.spectrogram_png = timed("png", encoders[1])
+        try:
+            for k in range(4):
+                torch.cuda.synchronize()
+                before = stft_fused.launches
+                t1 = time.perf_counter()
+                for ch, tag in enumerate(MEDIA_TAGS):
+                    media.media_logging(100 + k, tag, batch[:, ch, :])
+                media_ms.append((time.perf_counter() - t1) * 1e3)
+                media_counts.append(stft_fused.launches - before)
+                parts["wav"].append(0.0)
+                parts["png"].append(0.0)
+        finally:
+            media_mod.write_wav, media_mod.spectrogram_png = encoders
+        wav_ms, png_ms = (statistics.median(parts[k][1:4]) for k in ("wav", "png"))
+        print(f"[time] one media step (the noisy, clean and noise channels of a 6 x 10 s "
+              f"batch: 3 WAVs and 3 spectrogram PNGs of 201 x 6001): median "
+              f"{statistics.median(media_ms[1:]):.3f} ms of 3 after a first "
+              f"{media_ms[0]:.3f} ms, of it the WAV writes {wav_ms:.3f} ms and the PNG "
+              f"encodes {png_ms:.3f} ms (medians); B4 launches a media step {media_counts} | "
+              f"{card}", flush=True)
+        if media_counts != [3] * 4:
+            raise AssertionError(f"a media step launched B4 {media_counts} times, want 3")
+        out.update(train_ms=train_t, train_busy=train_busy, eval_ms=eval_t,
+                   eval_busy=eval_busy, media_ms=statistics.median(media_ms[1:]),
+                   media_wav_ms=wav_ms, media_png_ms=png_ms, media_b4=media_counts[-1])
+    finally:
+        for cls, fn in zip(watched, originals):
+            cls.__call__ = fn
     return out
 
 
@@ -2505,6 +2953,12 @@ def main():
 
     metric_nums = metrics_phase(torch, M, kernels, all_kernels, (stft_fused, decode_ola), card)
 
+    # 9. the perceptual objectives and media logging on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        obj_nums = objectives_phase(torch, kernels, all_kernels, (stft_fused, decode_ola), card,
+                                    tmp)
+    vcb_counts = obj_nums["vcb_counts"]
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -2543,6 +2997,7 @@ def main():
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
             launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
             launches_metrics_eval=metric_nums["launches"][0],
+            launches_vcb_pmsqe_run=vcb_counts[0],
             launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
             ms_b64=times[64][0], plain_ms_b64=times[64][1],
             bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64],
@@ -2557,6 +3012,7 @@ def main():
             ms_b64=times[("fc", 64)][0], plain_ms_b64=times[("fc", 64)][1],
             bound_ms_b64=lstm_bound(64, T, H, extra_streams=1)[0],
             library_ms_b64=times[("cudnn_train", 64)][0], ms_b1=times[("fc_cluster", 1)],
+            launches_vcb_pmsqe_run=vcb_counts[1],
             bound_ms_b1=lstm_bound(1, T, H, extra_streams=1)[0],
             max_rel_err_cs=fwd_routes["cluster"][1], **fwd_route_fields("fc_")),
         row("lstm_bidir_tm_bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", train_counts[2],
@@ -2564,6 +3020,7 @@ def main():
             "B=6 T=1001 H=256",
             lstm_bound(6, T, H, products=3, extra_streams=3, peak=PEAK_TF32),
             times[("cudnn_train", 6)][1], max_rel_err=b2_err["bwd"],
+            launches_vcb_pmsqe_run=vcb_counts[2],
             ms_b64=times[("bwd", 64)][0], plain_ms_b64=times[("bwd", 64)][1],
             bound_ms_b64=lstm_bound(64, T, H, products=3, extra_streams=3,
                                     peak=PEAK_TF32)[0],
@@ -2604,6 +3061,7 @@ def main():
         stft_bound(1, 1001, 400, 160), times[("torch_stft", 1)],
         launches_train_eval=train_dsp[0], launches_long_form=long_counts[0],
         launches_metrics_eval=metric_nums["launches"][1],
+        launches_vcb_pmsqe_run=vcb_counts[3], launches_media_step=obj_nums["media_b4"],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "stft_fused.cu", product_max_abs_err=dsp_err[2],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -2626,6 +3084,7 @@ def main():
         decode_bound(1, 1001, 400, 160), times[("torch_istft", 1)],
         launches_train_eval=train_dsp[1], launches_long_form=long_counts[4],
         launches_metrics_eval=metric_nums["launches"][2],
+        launches_vcb_pmsqe_run=vcb_counts[4],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "decode_ola.cu", product_max_abs_err=dsp_err[3],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -2689,6 +3148,14 @@ def main():
           f"{metric_nums['metrics_busy_ms']:.3f} ({metric_nums['metrics_share']:.1%}); "
           f"battery max |card - pin| {metric_nums['battery_pin_err']}; TF32 off in all "
           f"{metric_nums['metric_calls']} metric calls | {card}", flush=True)
+    print(f"[objectives] card vs CPU (loss rel, gradient rel) "
+          + ", ".join(f"{k} ({a:.2e}, {b:.2e})" for k, (a, b) in obj_nums["errs"].items())
+          + f"; vcb run with pmsqe: launches (B1, B2 fwd, B2 bwd, B4, B5) {vcb_counts}, "
+          f"{obj_nums['media_files']} media files; train step B=6 10 s pmsqe "
+          f"{obj_nums['train_ms']['pmsqe']:.3f} ms, SISDR {obj_nums['train_ms']['SISDR']:.3f}; "
+          f"eval batch 12 x 10 s stoi {obj_nums['eval_ms']['stoi']:.3f} ms, SISDR "
+          f"{obj_nums['eval_ms']['SISDR']:.3f}; one media step {obj_nums['media_ms']:.3f} ms, "
+          f"{obj_nums['media_b4']} B4 | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

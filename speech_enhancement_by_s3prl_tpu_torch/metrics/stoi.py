@@ -40,6 +40,8 @@ MINFREQ = 150
 N_SEG = 30          # analysis segment length (384 ms)
 BETA = -15.0        # lower SDR bound
 DYN_RANGE = 40.0
+# ESTOI: a centered band column below this share of its norm is rounding
+COLUMN_FLAT = 1e-5
 
 
 @functools.lru_cache(maxsize=4)
@@ -227,9 +229,17 @@ def _segments(env):
     return env.unfold(1, N_SEG, 1)
 
 
+def _center(z, dim):
+    """``z`` less its mean along ``dim``, taken after the first element is
+    subtracted: the same value, but a constant row (a segment of silence)
+    comes out exactly zero whatever order the device sums it in."""
+    z = z - z.narrow(dim, 0, 1)
+    return z - z.mean(dim=dim, keepdim=True)
+
+
 def _correlation(a, b, dim=-1, eps=1e-12):
-    a = a - a.mean(dim=dim, keepdim=True)
-    b = b - b.mean(dim=dim, keepdim=True)
+    a = _center(a, dim)
+    b = _center(b, dim)
     num = (a * b).sum(dim=dim)
     den = torch.sqrt((a * a).sum(dim=dim) * (b * b).sum(dim=dim)) + eps
     return num / den
@@ -312,11 +322,16 @@ def _stoi_tail(xs, ys):
 
 def _estoi_tail(xs, ys):
     def row_col_norm(z):
-        z = z - z.mean(dim=-1, keepdim=True)
+        z = _center(z, -1)
         z = z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-12)
-        z = z - z.mean(dim=-2, keepdim=True)
-        z = z / (torch.linalg.vector_norm(z, dim=-2, keepdim=True) + 1e-12)
-        return z
+        zc = _center(z, -2)
+        norm = torch.linalg.vector_norm(zc, dim=-2, keepdim=True)
+        # a column that every band repeats (a segment with one frame of
+        # sound, the rest silence or padding, normalizes every row alike)
+        # centers to zero but for rounding, which the division would scale
+        # to unit length: it is zero
+        flat = norm <= COLUMN_FLAT * torch.linalg.vector_norm(z, dim=-2, keepdim=True)
+        return torch.where(flat, 0.0, zc) / (norm + 1e-12)
 
     xn = row_col_norm(xs)
     yn = row_col_norm(ys)

@@ -4,13 +4,21 @@
 Every loss is ``criterion(**step_context) -> (loss, aux_dict)``: the step
 context carries whichever tensors a loss reads, masked by the STFT frame
 lengths. Spectral losses read the POWER spectrogram ('linear' features).
-The perceptual losses (``stoi``, ``estoi``, ``pmsqe``) are not ported yet.
+The perceptual losses are ``stoi`` / ``estoi`` (the negative scores of
+``metrics/stoi.py`` on the masked waveforms of the eval step) and ``pmsqe``
+(``objectives/pmsqe.py``); the trainer calls every objective with TF32 off.
+``WSD``'s aux carries a figure logger that the Runner calls at ``log_step``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
+
+from ..metrics.stoi import stoi_coeff_batch
+from ..utils.plotting import spectrograms_png
+from .pmsqe import PMSQE
 
 Aux = Dict[str, Any]
 
@@ -75,12 +83,56 @@ class sisdr:
         return -_si_sdr_core(src, tar, zero_mean=False).mean(), {}
 
 
+class _StoiLoss:
+    """Negative (E)STOI on the masked waveforms, without silent-frame
+    removal. The waveforms exist only in the eval step's context, as in the
+    JAX package: a train step with this objective fails on the missing
+    ``wav_predicted``."""
+
+    extended = False
+
+    def __init__(self, sample_rate: int = 16000, **kwargs):
+        self.sample_rate = sample_rate
+
+    def __call__(self, wav_predicted, wav_tar, length_masks, **kwargs):
+        src = wav_predicted * length_masks
+        tar = wav_tar * length_masks
+        # stoi_coeff_batch takes (clean reference, processed)
+        return -stoi_coeff_batch(tar, src, self.sample_rate, extended=self.extended,
+                                 remove_silent=False).mean(), {}
+
+
+class stoi(_StoiLoss):
+    """Negative STOI on masked waveforms."""
+
+
+class estoi(_StoiLoss):
+    """Negative extended STOI on masked waveforms."""
+
+    extended = True
+
+
+class pmsqe:
+    """PMSQE perceptual loss on masked power spectra (``objectives/pmsqe.py``)."""
+
+    def __init__(self, **kwargs):
+        self._fn = PMSQE()
+
+    def __call__(self, predicted, linear_tar, stft_length_masks, **kwargs):
+        mask = stft_length_masks[..., None]
+        return self._fn(predicted * mask, linear_tar * mask, stft_length_masks), {}
+
+
 class WSD:
     """Weighted speech distortion on the mask ``offset``: a voice-activity
     mask from an energy-dB threshold gates the speech-distortion term; the
-    noise-leakage term penalizes mask response on the noise excess. The JAX
-    package's spectrogram-figure logger (matplotlib + TensorBoard) is not
-    ported: the aux dict is empty."""
+    noise-leakage term penalizes mask response on the noise excess. Its aux
+    holds a ``logger(log, global_step)`` closure that draws the five
+    spectrograms of utterance 0 (target, input, frame energy, voiced target,
+    noise excess) as one figure, ``WSD_variables``."""
+
+    # the Runner re-runs the forward at log_step to call the logger
+    has_logger = True
 
     def __init__(self, alpha: float = 0.5, db_interval: float = 30, eps: float = 1e-10,
                  **kwargs):
@@ -100,29 +152,16 @@ class WSD:
         speech_diff = (S - G * S) * voice_mask * mask
         speech_loss = (speech_diff ** 2).sum(dim=(-1, -2)).mean()
         noise_loss = ((G * N * mask) ** 2).sum(dim=(-1, -2)).mean()
+
+        def logger(log, global_step):
+            s, inp, e, sv, n = (t[0].detach().cpu().numpy()
+                                for t in (S, linear_inp, energy, S * voice_mask, N))
+            panels = (s, inp, np.broadcast_to(e, s.shape), sv, n)
+            log.add_png("WSD_variables",
+                        spectrograms_png([np.log(p + self.eps) for p in panels]), global_step)
+
         loss = self.alpha * speech_loss + (1.0 - self.alpha) * noise_loss
-        return loss, {}
-
-
-class _NotPorted:
-    def __init__(self, **kwargs):
-        raise NotImplementedError(
-            f"objective {type(self).__name__} is not ported yet: the "
-            "perceptual objectives are ROADMAP A6, the port's next slice (the "
-            "metrics of A6 are ported)"
-        )
-
-
-class stoi(_NotPorted):
-    """Negative STOI (ROADMAP A6)."""
-
-
-class estoi(_NotPorted):
-    """Negative extended STOI (ROADMAP A6)."""
-
-
-class pmsqe(_NotPorted):
-    """PMSQE perceptual loss (ROADMAP A6)."""
+        return loss, {"logger": logger}
 
 
 OBJECTIVE_REGISTRY = {

@@ -17,13 +17,19 @@ upstream.
   overlaid onto the new head); a warm start of the whole head otherwise.
 - Scalars go to ``expdir/scalars.jsonl`` as one JSON object a line
   (``{"step", "tag", "value"}``), under the JAX package's TensorBoard tags.
+- Media (``runner/media.py``) go to files under ``expdir/media/``, listed in
+  ``expdir/media.jsonl``, at the JAX package's cadence: at ``media_step``
+  the noisy, clean and noise channels of the train batch, each the whole
+  batch as one clip; at a step that ``eval_step`` and ``media_step`` both
+  divide, the noisy, clean and enhanced samples that ``evaluate`` returns;
+  at ``log_step``, the figure of an objective that has a logger (``WSD``).
 
 Not ported yet, each refused with its ROADMAP item: the modes ``record``,
 ``query`` and ``query_dev``, the active sampler and ``--sync_sampler`` /
 ``--active_sampling``, the second upstream and the pseudo wavs it makes
 (``--ckpt2``, ``--dropout2``, ``--pseudo_clean``, ``--pseudo_noise``) (A9),
-``--mesh`` (A12), ``--profile`` (A11), media logging (``media_step``, A7,
-the port's next slice) and ``test_gradient`` (A9).
+``--mesh`` (A12), ``--profile`` (A11) and ``test_gradient`` (A9); the
+media of the active sampler and of the pseudo wavs come with them (A9).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import torch
 
 from ..data.datasets import DATASET_REGISTRY
 from ..data.loader import DataLoader, default_buckets, device_prefetch
-from ..metrics import METRIC_REGISTRY, check_metrics, device_batch_metrics
+from ..metrics import METRIC_REGISTRY, check_metrics, device_batch_metrics, full_f32
 from ..models.convert import flax_to_state_dict
 from ..models.torch_import import (
     convert_downstream_state,
@@ -48,8 +54,9 @@ from ..models.torch_import import (
 )
 from ..objectives import build_objective
 from . import checkpoint as ckpt_lib
+from .media import MediaLog
 from .optim import build_optimizer
-from .trainer import StepBuilder, TrainState
+from .trainer import StepBuilder, TrainState, make_context
 
 LOG_WAV_NUM = 3
 
@@ -91,9 +98,6 @@ class Runner:
                 _refuse(f"--{flag}", item)
         if getattr(args, "sampler_device", None) is not None:
             _refuse("the async active sampler (--sampler_device)", "A9")
-        if "media_step" in self.rconfig:
-            _refuse("media logging (runner.media_step; it comes with the perceptual "
-                    "objectives in the port's next slice)", "A7")
 
         self.preprocessor = preprocessor
         self.downstream_model = downstream.to(self.device)
@@ -101,6 +105,7 @@ class Runner:
         self.expdir = expdir
         self.global_step = 1
         self.log = ScalarLog(expdir)
+        self.media = MediaLog(expdir, preprocessor, self.device)
 
         self.metric_names = list(self.rconfig["eval_metrics"])
         check_metrics(self.metric_names)
@@ -179,6 +184,18 @@ class Runner:
         if pre is not None:
             self.downstream_model.load_state_dict(
                 overlay_params(self.downstream_model.state_dict(), pre))
+
+    def _dispatch_objective_logger(self, wavs, lengths):
+        """Run the forward again with ``train=False`` on this batch and call
+        the logger that the objective's aux returns (the objective with TF32
+        off, as the steps call it)."""
+        ctx = make_context(self.preprocessor, wavs, lengths, self.preprocessor.channel_inp,
+                           self.preprocessor.channel_tar)
+        with torch.no_grad():
+            predicted, aux = self.builder._forward(ctx, train=False)
+            with full_f32():
+                _, obj_aux = self.objective(**{**ctx, "predicted": predicted, **aux})
+        obj_aux["logger"](self.media, self.global_step)
 
     def _warm_start_downstream(self, dckpt: str):
         """A checkpoint of either package, or a torch one with a
@@ -276,6 +293,7 @@ class Runner:
     def train(self):
         total_steps = int(self.rconfig["total_step"])
         log_step = int(self.rconfig["log_step"])
+        media_step = int(self.rconfig["media_step"]) if "media_step" in self.rconfig else None
 
         eval_settings = []
         for split_name in self.rconfig["eval_splits"]:
@@ -286,9 +304,9 @@ class Runner:
                 (split_name, split_loader, np.zeros(len(self.metric_names)))
             )
 
-        def eval_and_log():
+        def eval_and_log(log_media=False):
             for split_name, split_loader, metrics_best in eval_settings:
-                loss, scores, *_ = self.evaluate(split_loader)
+                loss, scores, *eval_wavs = self.evaluate(split_loader)
                 self.log.add_scalar(f"{split_name}_loss", loss, self.global_step)
                 for score, mname in zip(scores, self.metric_names):
                     self.log.add_scalar(f"{split_name}_{mname}", score, self.global_step)
@@ -296,6 +314,11 @@ class Runner:
                     np.maximum(metrics_best, scores, out=metrics_best)
                     if self.args.save_best:
                         self.save_model(split_name)
+                if log_media:
+                    for idx, ws in enumerate(zip(*eval_wavs)):
+                        for tag, wav in zip(("noisy", "clean", "enhanced"), ws):
+                            self.media.media_logging(self.global_step,
+                                                     f"{split_name}-{tag}-{idx}", wav)
 
         if self.args.eval_init:
             eval_and_log()
@@ -328,9 +351,17 @@ class Runner:
                     )
                     t_start = time.time()
                     loss_sum = 0.0
+                    if getattr(self.objective, "has_logger", False):
+                        self._dispatch_objective_logger(wavs, lengths)
+
+                media_now = media_step is not None and self.global_step % media_step == 0
+                if media_now:
+                    for ch, tag in ((0, "noisy"), (1, "clean"), (2, "noise")):
+                        if wavs.shape[1] > ch:
+                            self.media.media_logging(self.global_step, tag, wavs[:, ch, :])
 
                 if self.global_step % int(self.rconfig["eval_step"]) == 0:
-                    eval_and_log()
+                    eval_and_log(media_now)
 
                 if "save_step" in self.rconfig and self.global_step % int(
                     self.rconfig["save_step"]

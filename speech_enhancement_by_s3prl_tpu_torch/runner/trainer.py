@@ -27,6 +27,12 @@ The eval step decodes with the noisy phase, renormalizes to the target
 channel's level, and scores the objective and the metrics that have a
 batched version (``eval_metrics``: sisdr, stoi, estoi, pesq_nb, pesq_wb) on
 the device, in full f32.
+
+Every objective runs with TF32 off (``metrics.full_f32``), in both steps:
+PMSQE's bark product and the STOI objective's products are perceptual
+contractions, which stay f32 like the metrics. The ``stoi`` and ``estoi``
+objectives read the decoded waveforms, which only the eval step's context
+holds, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..metrics import batch_scores, check_metrics
+from ..metrics import batch_scores, check_metrics, full_f32
 from ..models.transformer import SaltStream
 from ..ops.audio import length_masks, masked_normalize_decibel
 
@@ -157,7 +163,8 @@ class StepBuilder:
 
     def loss_fn(self, ctx, salts=None):
         predicted, aux = self._forward(ctx, train=True, salts=salts)
-        loss, obj_aux = self.objective(**{**ctx, "predicted": predicted, **aux})
+        with full_f32():
+            loss, obj_aux = self.objective(**{**ctx, "predicted": predicted, **aux})
         return loss, (predicted, aux, obj_aux)
 
     # -- train ----------------------------------------------------------
@@ -216,7 +223,8 @@ class StepBuilder:
             "wav_predicted": wav_predicted,
             "length_masks": masks,
         }
-        loss, _ = self.objective(**full_ctx)
+        with full_f32():
+            loss, _ = self.objective(**full_ctx)
         scores = batch_scores(
             self.eval_metrics, wav_predicted, ctx["wav_tar"], lengths, self.sample_rate
         )

@@ -8,8 +8,8 @@ eval on the port, on the CPU.
   over the fused families equals its per-metric calls bit for bit, the
   prerequisite for holding the port's fused front ends to the reference's.
 - The port's ``Runner`` built from a copy of ``config/vcb.yaml`` at full
-  width, changed only in its corpus paths and without ``media_step`` (media
-  logging is not ported yet), scores ``['stoi', 'pesq_nb', 'sisdr']``.
+  width, changed only in its corpus paths (``media_step`` kept), scores
+  ``['stoi', 'pesq_nb', 'sisdr']``.
 """
 import os
 import random
@@ -160,8 +160,7 @@ def corpus(tmp_path_factory):
 def test_vcb_yaml_evaluates_its_metrics_on_the_port(corpus, tmp_path):
     with open(os.path.join(REPO, "config", "vcb.yaml")) as f:
         config = yaml.safe_load(f)
-    # media logging is not ported yet: the one key still refused
-    del config["runner"]["media_step"]
+    assert config["runner"]["media_step"] == 4000  # kept: the port logs media
     for split in ("OnlineDataset_train", "OnlineDataset_test"):
         config[split]["speech"]["filestrs"] = str(corpus / "speech")
         config[split]["noise"]["filestrs"] = str(corpus / "noise")

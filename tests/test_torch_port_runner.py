@@ -311,16 +311,14 @@ def test_config_helpers_match_jax():
 
 @pytest.mark.parametrize("case,item", [
     ("--mesh=2x1", "A12"), ("--sync_sampler", "A9"), ("--active_sampling", "A9"),
-    ("--sampler_device=0", "A9"), ("--profile", "A11"), ("media_step", "A7"),
+    ("--sampler_device=0", "A9"), ("--profile", "A11"),
     ("mode_query", "A9"), ("--test_gradient", "A9"), ("--ckpt2=up.ckpt", "A9"),
     ("--dropout2=0.1", "A9"), ("--compute_dtype=bf16", "A14"),
 ])
 def test_runner_refuses_what_is_not_ported(corpus, tmp_path, case, item):
     config = _config(corpus)
     flags = _flags(tmp_path)
-    if case == "media_step":
-        config["runner"]["media_step"] = 4
-    elif case.startswith("--"):
+    if case.startswith("--"):
         flags.append(case)
     if case == "mode_query":
         config["runner"]["eval_splits"] = ["query_dev"]

@@ -121,7 +121,12 @@ def test_objectives_match_jax(name, cfg):
         **{k: jnp.asarray(v) for k, v in ctx.items()})
     loss, aux = objectives.build_objective(name, **cfg)(
         **{k: torch.from_numpy(v) for k, v in ctx.items()})
-    assert aux == {}
+    # WSD's aux holds its figure logger (tests/test_torch_port_media.py draws
+    # it); the other objectives return none
+    if name == "WSD":
+        assert list(aux) == ["logger"] and callable(aux["logger"])
+    else:
+        assert aux == {}
     np.testing.assert_allclose(float(loss), float(ref), rtol=LOSS_RTOL, atol=0)
 
 
@@ -136,12 +141,6 @@ def test_objectives_mask_padded_frames():
         a, _ = fn(**{k: torch.from_numpy(v) for k, v in ctx.items()})
         b, _ = fn(**{k: torch.from_numpy(v) for k, v in padded.items()})
         assert torch.allclose(a, b, rtol=1e-6), name
-
-
-@pytest.mark.parametrize("name", ["stoi", "estoi", "pmsqe"])
-def test_perceptual_objectives_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        objectives.build_objective(name)
 
 
 # -- optimizers ---------------------------------------------------------------
