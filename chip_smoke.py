@@ -104,7 +104,24 @@ Phases, one line each:
      too) and B5, TF32 off in every objective call; 2 steps with ``--objective
      WSD`` writing its figure; and times: the vcb head's train step with
      pmsqe and SISDR, its 12 x 10 s eval batch with stoi and SISDR, one media
-     step.
+     step;
+ 10. the serving front end: B1 continuing from a carried (h, c) against its
+     plain version (one direction, B = 1 and 6, T = 1001, H = 256 on the
+     cluster route and 252 on the grid route), cut into 48-step carried
+     pieces against one launch, and with no state against the stateless
+     call; the one-direction flagship's ``StatefulStreamer`` (48-frame
+     chunks, 10 s pushed in ragged pieces) on the card against the same
+     streamer on the CPU and the card's offline enhance, with 3 B1 launches
+     and no B4 / B5 a chunk; the HTTP server (``serve.make_server``) in this
+     process on the bidirectional and the one-direction flagship:
+     ``/healthz``, eight concurrent ``/enhance`` requests of 2-10 s (one of
+     them FLAC) under ``--workers 4`` and ``--fixed_batch`` against their
+     solo replies (byte-identical under ``--fixed_batch``), ``/stream``
+     against the card's streamer bit for bit; and times: ``/enhance`` of 10 s
+     over HTTP beside the direct call, ``tools/serve_load.py`` at levels 1, 4
+     and 16 (256 requests a level), and at 16 under ``--fixed_batch`` with
+     its probes byte-identical, the stream's chunk, RTF and first audio, B1
+     at one chunk's shape with and without state.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -113,6 +130,7 @@ numbers, and last
 non-zero without that last line. It needs a CUDA card and the repository
 around it.
 """
+import http.client
 import json
 import math
 import os
@@ -521,6 +539,8 @@ def ckpt_files(directory):
 def reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "carried"):
+            fn.carried = 0
         for route in getattr(fn, "by_route", {}):
             fn.by_route[route] = 0
 
@@ -954,6 +974,13 @@ def lstm_bound(B, T, H, products=1, extra_streams=0, D=0, peak=PEAK_F32):
     if products == 3:
         nbytes += 4 * (2 * B * T * 4 * H + 2 * H * 4 * H)  # dxw and dW_hh^T out
     return bound(3 * flops if peak == PEAK_TF32 else flops, nbytes, peak)
+
+
+def carried_bound(B, T, H):
+    """B1 of one direction continuing from a carried state: one h @ W_hh^T a
+    step, xw and W_hh^T in, hs out, and h0, c0 in and cT out."""
+    nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T * H + 3 * B * H)
+    return bound(2 * B * T * H * 4 * H, nbytes)
 
 
 def attention_bound(B, T, N, D, products, peak=PEAK_TF32):
@@ -2328,6 +2355,369 @@ def objectives_phase(torch, kernels, all_kernels, dsp_kernels, card, tmp):
     return out
 
 
+# the serving front end (phase 10): the stateful streamer's chunk, the served
+# requests, the client load
+STREAM_FRAMES = 48
+STREAM_SECONDS = 10.0
+# eight concurrent /enhance requests, in 2, 4, 6, 8 and 60 s buckets; the
+# fourth is sent as FLAC (24 frames of 4096 samples, 6.1 s)
+FRONT_SECONDS = (2.0, 3.3, 4.7, 6.1, 7.5, 8.2, 9.0, 10.0)
+FLAC_FRAMES = 24
+# the load tool's levels, each with LOAD_TOTAL requests (LOAD_TOTAL / level a
+# client), so that a level's p99 is a percentile of a few hundred, not the
+# slowest of a handful
+LOAD_LEVELS, LOAD_TOTAL, LOAD_DURATIONS = (1, 4, 16), 256, (1.0, 4.0, 10.0)
+
+
+def flac_body(pcm: np.ndarray) -> bytes:
+    """A mono 16 kHz 16-bit FLAC stream of int16 ``pcm`` (a multiple of 4096
+    samples): STREAMINFO, then one frame a 4096-sample block with a verbatim
+    subframe (its header byte, then the samples big-endian); CRCs zero."""
+    pcm = np.asarray(pcm, np.int16)
+    n = len(pcm)
+    info = struct.pack(">HH", 4096, 4096) + bytes(6) + (
+        (SR << 44) | (0 << 41) | (15 << 36) | n).to_bytes(8, "big") + bytes(16)
+    out = b"fLaC" + bytes([0x80]) + len(info).to_bytes(3, "big") + info
+    for k in range(n // 4096):
+        out += (b"\xff\xf8\xc5\x08" + bytes([k, 0]) + b"\x02"
+                + pcm[k * 4096:(k + 1) * 4096].astype(">i2").tobytes() + b"\x00\x00")
+    return out
+
+
+def http_request(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def drive_stream(streamer, wav, sizes):
+    """Push ``wav`` in pieces of ``sizes`` (the rest in one), flush; the
+    concatenated output."""
+    out, pos = [], 0
+    for size in sizes:
+        if pos >= len(wav):
+            break
+        out.append(streamer.push(wav[pos:pos + int(size)]))
+        pos += int(size)
+    if pos < len(wav):
+        out.append(streamer.push(wav[pos:]))
+    out.append(streamer.flush())
+    return np.concatenate(out)
+
+
+def front_end_phase(torch, L, all_kernels, dsp_kernels, card, tmp):
+    """Phase 10, the serving front end on the card: (a) B1 continuing from a
+    carried (h, c) against its plain version on both routes, in 48-step
+    pieces against one launch, and with no state against the stateless call;
+    (b) the one-direction flagship's ``StatefulStreamer`` on the card against
+    the same streamer on the CPU and against the card's offline enhance
+    (renormalized), with its launches a chunk; (c) the HTTP server
+    (``serve.make_server``) in this process on the bidirectional and the
+    one-direction flagship: ``/healthz``, eight concurrent ``/enhance``
+    requests (one FLAC) under ``--workers 4`` and ``--fixed_batch`` against
+    their solo responses, ``/stream`` against the card's streamer; (d) times.
+    Returns the numbers for the ``kernels`` line and the closing lines."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, flagship_settings
+    from speech_enhancement_by_s3prl_tpu_torch.ops.audio import masked_normalize_decibel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.streaming import StatefulStreamer
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import decode_wav
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer, make_server
+    from speech_enhancement_by_s3prl_tpu_torch.tools import serve_load, stream_client
+    from speech_enhancement_by_s3prl_tpu_torch.tools.serve_load import pcm_of, wav_body
+
+    b1 = L.lstm_bidir_tm
+    stft_fused, decode_ola = dsp_kernels
+    nums = {}
+
+    # (a) B1 with a carried state, one direction (the vcb head's layers)
+    worst = 0.0
+    for H in (256, 252):
+        for B in (1, 6):
+            xw, w_hh_t = kernel_inputs(torch, B, 1001, H, SEED + H + B, ndir=1)
+            g = torch.Generator().manual_seed(SEED + B)
+            h0 = (2 * torch.rand(1, B, H, generator=g) - 1).cuda()
+            c0 = torch.randn(1, B, H, generator=g).cuda()
+            hs, (hT, cT) = b1(xw, w_hh_t, state=(h0, c0), return_state=True)
+            ref, (ref_h, ref_c) = L.lstm_bidir_tm_ref(xw, w_hh_t, state=(h0, c0),
+                                                      return_state=True)
+            stateless = b1(xw, w_hh_t)
+            none_hs, _ = b1(xw, w_hh_t, return_state=True)
+            zero = torch.zeros_like(h0)
+            zero_hs = b1(xw, w_hh_t, state=(zero, zero))
+            pieces, st = [], (h0, c0)
+            for t0 in range(0, xw.shape[2], STREAM_FRAMES):
+                piece, st = b1(xw[:, :, t0:t0 + STREAM_FRAMES].contiguous(), w_hh_t, state=st,
+                               return_state=True)
+                pieces.append(piece)
+            cut = torch.cat(pieces, dim=2)
+            torch.cuda.synchronize()
+            h_err = max(float((hs - ref).abs().max()), float((hT - ref_h).abs().max()))
+            c_err = float((cT - ref_c).abs().max())
+            cut_err = max(float((cut - hs).abs().max()), float((st[1] - cT).abs().max()))
+            cut_same = torch.equal(cut, hs) and torch.equal(st[1], cT)
+            stateless_same = torch.equal(none_hs, stateless) and torch.equal(zero_hs, stateless)
+            print(f"[front] lstm_bidir_tm with a carried state, route {L.fwd_route(H)!r} "
+                  f"ndir=1 B={B} T=1001 H={H}: h max_abs_err {h_err:.3e}, cT {c_err:.3e} "
+                  f"(limit {KERNEL_TOL:.0e}); {len(pieces)} carried pieces of "
+                  f"{STREAM_FRAMES} steps vs one launch {cut_err:.3e} (identical bits "
+                  f"{cut_same}); no state and a zero state vs the stateless call: identical "
+                  f"bits {stateless_same}", flush=True)
+            if not (h_err <= KERNEL_TOL and c_err <= KERNEL_TOL and cut_err <= KERNEL_TOL
+                    and stateless_same):
+                raise AssertionError(f"B1 with a carried state: h {h_err}, cT {c_err}, pieces "
+                                     f"{cut_err}, stateless bits {stateless_same}")
+            worst = max(worst, h_err, c_err)
+    nums["state_err"] = worst
+
+    # (b) the streamer: one-direction flagship (vcb's head), 48-frame chunks
+    _, model = build(bidirectional=False, device="cpu",
+                     generator=torch.Generator().manual_seed(SEED + 1))
+    config, paras = flagship_settings(bidirectional=False)
+    uni_ckpt = save_checkpoint(os.path.join(tmp, "uni"), 0, model, None, config, paras)
+    _, model = build(device="cpu", generator=torch.Generator().manual_seed(SEED))
+    config, paras = flagship_settings()
+    bi_ckpt = save_checkpoint(os.path.join(tmp, "bi"), 0, model, None, config, paras)
+    del model
+    protos = {}
+    for device in ("cuda", "cpu"):
+        ctx = build_enhancer(uni_ckpt, device=device).stream_ctx
+        protos[device] = StatefulStreamer(ctx["model"], ctx["preprocessor"],
+                                          frames_per_chunk=STREAM_FRAMES)
+    n = int(STREAM_SECONDS * SR)
+    wav = speech_like(n, 50)
+    sizes = np.random.default_rng(SEED).integers(700, 9000, size=400)  # ragged pushes
+    drive_stream(protos["cuda"].clone(), wav, sizes)  # warm
+    streamer = protos["cuda"].clone()
+    step_ms, analysis_ms = [], []
+
+    def timed(fn, into):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)  # ends in a copy to the host: synchronous
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    streamer._model_step = timed(streamer._model_step, step_ms)
+    streamer._analysis = timed(streamer._analysis, analysis_ms)
+    torch.cuda.synchronize()
+    # -- the main path of the streamer, between the reset and the reading --
+    reset_counts(all_kernels)
+    t0 = time.perf_counter()
+    out_gpu = drive_stream(streamer, wav, sizes)
+    stream_s = time.perf_counter() - t0
+    counts = [b1.launches, b1.carried, stft_fused.launches, decode_ola.launches]
+    # ---------------------------------------------------------------------
+    chunks = len(step_ms)
+    out_cpu = drive_stream(protos["cpu"].clone(), wav, sizes)
+    vs_cpu = float(np.abs(out_gpu - out_cpu).max() / np.sqrt(np.mean(out_cpu ** 2)))
+    # the card's offline enhance of the same audio at its own length (the
+    # server pads to a duration bucket, whose end the STFT then sees)
+    ctx = build_enhancer(uni_ckpt, device="cuda").stream_ctx
+    pre, head = ctx["preprocessor"], ctx["model"]
+    with torch.inference_mode():
+        x = torch.from_numpy(wav)[None].cuda()
+        _, down, lin, phase, *_ = pre(x[:, None, :])
+        predicted, _ = head(down, lin)
+        offline = decode_wav(pre, predicted, phase, torch.tensor([n]).cuda(), n,
+                             -25.0)[0].cpu().numpy()
+        renormed = masked_normalize_decibel(
+            torch.from_numpy(out_gpu)[None].cuda(), -25.0,
+            torch.ones((1, len(out_gpu)), dtype=torch.bool).cuda())[0].cpu().numpy()
+    vs_offline = float(np.abs(renormed - offline[:len(renormed)]).max()
+                       / np.sqrt(np.mean(offline ** 2)))
+    want = [3 * chunks, 3 * chunks, 0, 0]
+    nums.update(stream_vs_cpu=vs_cpu, stream_vs_offline=vs_offline,
+                stream_chunks=chunks, stream_step_ms=statistics.median(step_ms),
+                stream_analysis_ms=statistics.median(analysis_ms),
+                stream_rtf=stream_s / STREAM_SECONDS, stream_launches=counts[0])
+    print(f"[front] StatefulStreamer on cuda (one-direction 3 x 256 head, 120-d log-mel, "
+          f"{STREAM_FRAMES}-frame chunks): {STREAM_SECONDS:.0f} s of speech-like audio "
+          f"pushed in ragged pieces, {len(out_gpu)} samples out in {chunks} chunks; launches "
+          f"(B1, B1 with state, B4, B5) {counts} (want {want}); card vs CPU streamer max "
+          f"|diff| / RMS {vs_cpu:.3e}, vs the card's offline enhance (renormalized) "
+          f"{vs_offline:.3e} (limit {SLICE_TOL:.0e}); model step median "
+          f"{nums['stream_step_ms']:.3f} ms a chunk (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), analysis {nums['stream_analysis_ms']:.3f} ms; "
+          f"{stream_s * 1e3:.1f} ms for the stream, RTF {nums['stream_rtf']:.4f} | {card}",
+          flush=True)
+    if (counts != want or len(out_gpu) != (n // 160) * 160 or not np.isfinite(out_gpu).all()
+            or not (vs_cpu <= SLICE_TOL and vs_offline <= SLICE_TOL)):
+        raise AssertionError(f"streamer: launches {counts}, want {want}; length "
+                             f"{len(out_gpu)}; vs CPU {vs_cpu}, vs offline {vs_offline}")
+
+    # (c) the HTTP server, in this process, on the card
+    servers = {}
+
+    def start(name, argv):
+        server = make_server(argv)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers[name] = server
+        return server.server_address[1]
+
+    try:
+        port_bi = start("bi", ["--ckpt", bi_ckpt, "--port", "0"])
+        port_bi4 = start("bi4", ["--ckpt", bi_ckpt, "--port", "0", "--workers", "4"])
+        port_fixed = start("fixed", ["--ckpt", bi_ckpt, "--port", "0", "--workers", "4",
+                                     "--fixed_batch", "--max_batch", "8"])
+        port_uni = start("uni", ["--ckpt", uni_ckpt, "--port", "0"])
+        status, body = http_request(port_uni, "GET", "/healthz")
+        health = json.loads(body)
+        status_bi, why = http_request(port_bi, "POST", "/stream", b"\x00" * 64)
+        print(f"[front] /healthz {status}: {health}; /stream on the bidirectional "
+              f"checkpoint {status_bi}: {why.decode()[:90]}", flush=True)
+        if (status != 200 or health["devices"] != [torch.cuda.get_device_name(0)]
+                or health["device"] != "cuda" or status_bi != 400
+                or b"unidirectional" not in why):
+            raise AssertionError(f"/healthz {status} {health}; bidirectional /stream "
+                                 f"{status_bi} {why!r}")
+
+        bodies = [wav_body(speech_like(int(s * SR), 60 + k)) for k, s in enumerate(FRONT_SECONDS)]
+        flac_pcm = np.rint(np.clip(speech_like(FLAC_FRAMES * 4096, 63) * 32767, -32768, 32767))
+        bodies[3] = flac_body(flac_pcm)
+        for name, port in (("bi4", port_bi4), ("fixed", port_fixed)):
+            solo = []
+            for b in bodies:
+                st, reply = http_request(port, "POST", "/enhance", b)
+                if st != 200:
+                    raise AssertionError(f"/enhance answered {st}: {reply[:200]!r}")
+                solo.append(reply)
+            answers = [None] * len(bodies)
+
+            def ask(k):
+                answers[k] = http_request(port, "POST", "/enhance", bodies[k])
+
+            threads = [threading.Thread(target=ask, args=(k,)) for k in range(len(bodies))]
+            # -- the main path of /enhance under --workers 4 --
+            reset_counts(all_kernels)
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                if th.is_alive():
+                    raise AssertionError("an /enhance request did not finish within 600 s")
+            counts = [stft_fused.launches, b1.launches, decode_ola.launches]
+            # ----------------------------------------------------------------
+            check_b5_route(decode_ola, f"/enhance under {name}")
+            if any(a is None or a[0] != 200 for a in answers):
+                raise AssertionError(f"{name}: statuses {[a and a[0] for a in answers]}")
+            deltas = [int(np.abs(pcm_of(a[1]) - pcm_of(s)).max()) for a, s in zip(answers, solo)]
+            exact = sum(a[1] == s for a, s in zip(answers, solo))
+            lengths_ok = all(len(pcm_of(a[1])) == (len(flac_pcm) if k == 3 else
+                                                   int(FRONT_SECONDS[k] * SR))
+                             for k, a in enumerate(answers))
+            nums[f"{name}_exact"], nums[f"{name}_batches"] = exact, counts[0]
+            if name == "bi4":
+                nums["enhance_launches"] = counts[1]
+            print(f"[front] {len(bodies)} concurrent /enhance requests of "
+                  f"{FRONT_SECONDS[0]:.0f}-{FRONT_SECONDS[-1]:.0f} s (one FLAC) under "
+                  f"--workers 4{' --fixed_batch --max_batch 8' if name == 'fixed' else ''}: "
+                  f"{counts[0]} device batches, launches (B4, B1, B5) {counts}; max |PCM "
+                  f"step| vs solo {max(deltas)} (limit 1), byte-identical {exact} of "
+                  f"{len(bodies)}", flush=True)
+            # --fixed_batch exists for byte identity: every group has one shape
+            if (max(deltas) > 1 or not lengths_ok or counts[1] != 3 * counts[0]
+                    or counts[2] != counts[0] or not 1 <= counts[0] <= len(bodies)
+                    or (name == "fixed" and exact != len(bodies))):
+                raise AssertionError(f"{name}: PCM deltas {deltas}, byte-identical {exact} of "
+                                     f"{len(bodies)}, lengths {lengths_ok}, launches {counts}")
+
+        # /stream: 10 s through the one-direction server
+        url = f"http://127.0.0.1:{port_uni}/stream"
+        stream_client.stream(url, wav[:SR], SR)  # warm the connection path
+        # -- the main path of /stream --
+        reset_counts(all_kernels)
+        status, streamed, stats = stream_client.stream(url, wav, SR, chunk_ms=100.0)
+        counts = [b1.launches, b1.carried, stft_fused.launches, decode_ola.launches]
+        # -------------------------------
+        same = status == 200 and np.array_equal(streamed, out_gpu)
+        nums.update(http_stream_launches=counts[0], first_byte_s=stats.get("first_audio_s"),
+                    http_stream_rtf=stats.get("wall_s", 0.0) / STREAM_SECONDS)
+        print(f"[front] /stream {status}: {STREAM_SECONDS:.0f} s in 100 ms pieces, "
+              f"{len(streamed)} samples, identical bits to the card streamer {same}; launches "
+              f"(B1, B1 with state, B4, B5) {counts}; first audio after "
+              f"{nums['first_byte_s'] * 1e3:.1f} ms, {stats['wall_s'] * 1e3:.1f} ms for the "
+              f"stream (RTF {nums['http_stream_rtf']:.4f}), max push -> enhanced lag "
+              f"{stats['max_lag_s'] * 1e3:.1f} ms | {card}", flush=True)
+        if not same or counts != [3 * chunks, 3 * chunks, 0, 0]:
+            raise AssertionError(f"/stream: status {status}, same {same}, launches {counts}")
+
+        # (d) times: /enhance B=1 10 s over HTTP beside the direct call
+        ten = wav_body(speech_like(10 * SR, 80))
+        ten_wav = pcm_of(ten).astype(np.float32) / 32768.0
+        direct = servers["bi"].enhance
+        http_ms, direct_ms = [], []
+        for k in range(22):
+            t0 = time.perf_counter()
+            http_request(port_bi, "POST", "/enhance", ten)
+            t1 = time.perf_counter()
+            direct(ten_wav)
+            t2 = time.perf_counter()
+            if k >= 2:
+                http_ms.append((t1 - t0) * 1e3)
+                direct_ms.append((t2 - t1) * 1e3)
+        nums.update(http_ms=statistics.median(http_ms), direct_ms=statistics.median(direct_ms))
+        print(f"[time] /enhance B=1 10 s (the 60 s bucket) over HTTP: median "
+              f"{nums['http_ms']:.3f} ms of 20 (min {min(http_ms):.3f}, max "
+              f"{max(http_ms):.3f}); the same enhancer called directly: median "
+              f"{nums['direct_ms']:.3f} ms (min {min(direct_ms):.3f}) | {card}", flush=True)
+
+        # the load tool's levels against the --workers 4 server, LOAD_TOTAL
+        # requests a level; then level 16 against the --fixed_batch server,
+        # whose probes must come back byte-identical to their solo replies
+        load = {}
+        for level in LOAD_LEVELS:
+            load[level] = serve_load.run_load(port_bi4, [level], LOAD_TOTAL // level,
+                                              list(LOAD_DURATIONS), fixed_batch=False)
+        fixed = serve_load.run_load(port_fixed, [16], LOAD_TOTAL // 16, list(LOAD_DURATIONS),
+                                    fixed_batch=True)
+        nums["load"] = {lv: r["levels"][str(lv)] for lv, r in load.items()}
+        nums["load_fixed"] = fixed["levels"]["16"]
+        print(f"[time] tools/serve_load.py --workers 4 at levels {list(LOAD_LEVELS)}, "
+              f"{LOAD_TOTAL} requests of {list(LOAD_DURATIONS)} s a level: "
+              + "; ".join(f"level {lv}: {r['requests']} requests, p50 {r['p50_ms']:.1f} ms, "
+                          f"p99 {r['p99_ms']:.1f} ms, max {r['max_ms']:.1f} ms, "
+                          f"{r['aggregate_rtf']:.1f} s of audio a second"
+                          for lv, r in nums["load"].items())
+              + "; probes within one PCM step "
+              + str([r["identity_ok"] for r in load.values()])
+              + " (exact " + ", ".join(f"{r['probe_exact_frac']:.2f}" for r in load.values())
+              + f") | {card}", flush=True)
+        r = nums["load_fixed"]
+        print(f"[time] tools/serve_load.py --workers 4 --fixed_batch --max_batch 8 at level "
+              f"16, {r['requests']} requests: p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} "
+              f"ms, max {r['max_ms']:.1f} ms, {r['aggregate_rtf']:.1f} s of audio a second; "
+              f"probes byte-identical {fixed['identity_ok']} (exact "
+              f"{fixed['probe_exact_frac']:.2f}) | {card}", flush=True)
+        if not all(r["identity_ok"] for r in load.values()):
+            raise AssertionError(f"serve_load: bucket confinement broken {load}")
+        if not (fixed["identity_ok"] and fixed["probe_exact_frac"] == 1.0):
+            raise AssertionError(f"serve_load --fixed_batch: probes not byte-identical {fixed}")
+    finally:
+        for server in servers.values():
+            server.shutdown()
+            server.server_close()
+
+    # B1 at one chunk's shape, with and without the carried state
+    xw, w_hh_t = kernel_inputs(torch, 1, STREAM_FRAMES, 256, SEED, ndir=1)
+    state = (torch.zeros(1, 1, 256, device="cuda"), torch.zeros(1, 1, 256, device="cuda"))
+    plain = cuda_ms(torch, lambda: b1(xw, w_hh_t), iters=200)
+    carried = cuda_ms(torch, lambda: b1(xw, w_hh_t, state=state, return_state=True), iters=200)
+    plain2 = cuda_ms(torch, lambda: b1(xw, w_hh_t), iters=200)
+    ref_ms = cuda_ms(torch, lambda: L.lstm_bidir_tm_ref(xw, w_hh_t, state=state,
+                                                       return_state=True), iters=5)
+    nums.update(t48_ms=min(plain, plain2), t48_state_ms=carried, t48_plain_ms=ref_ms)
+    print(f"[time] lstm_bidir_tm ndir=1 B=1 T={STREAM_FRAMES} H=256: kernel {plain:.4f} / "
+          f"{plain2:.4f} ms, with the carried state in and out {carried:.4f} ms, plain "
+          f"version {ref_ms:.3f} ms | {card}", flush=True)
+    return nums
+
+
 def main():
     import torch
 
@@ -2959,6 +3349,10 @@ def main():
                                     tmp)
     vcb_counts = obj_nums["vcb_counts"]
 
+    # 10. the serving front end on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        front = front_end_phase(torch, L, all_kernels, (stft_fused, decode_ola), card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -2999,6 +3393,13 @@ def main():
             launches_metrics_eval=metric_nums["launches"][0],
             launches_vcb_pmsqe_run=vcb_counts[0],
             launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
+            launches_stream=front["stream_launches"],
+            launches_http_stream=front["http_stream_launches"],
+            launches_http_enhance_workers4=front["enhance_launches"],
+            carried_state_max_abs_err=front["state_err"], ms_t48=front["t48_ms"],
+            ms_t48_carried_state=front["t48_state_ms"], plain_ms_t48=front["t48_plain_ms"],
+            bound_ms_t48_carried_state=carried_bound(1, STREAM_FRAMES, H)[0],
+            stream_chunk_model_step_ms=front["stream_step_ms"],
             ms_b64=times[64][0], plain_ms_b64=times[64][1],
             bound_ms_b64=lstm_bound(64, T, H)[0], library_ms_b64=cudnn[64],
             ms_b6=times[("cluster", 6)], bound_ms_b6=lstm_bound(6, T, H)[0],
@@ -3156,6 +3557,23 @@ def main():
           f"eval batch 12 x 10 s stoi {obj_nums['eval_ms']['stoi']:.3f} ms, SISDR "
           f"{obj_nums['eval_ms']['SISDR']:.3f}; one media step {obj_nums['media_ms']:.3f} ms, "
           f"{obj_nums['media_b4']} B4 | {card}", flush=True)
+    load = front["load"]
+    print(f"[front] streamer: {front['stream_chunks']} chunks of {STREAM_FRAMES} frames, "
+          f"model step {front['stream_step_ms']:.3f} ms a chunk, analysis "
+          f"{front['stream_analysis_ms']:.3f} ms, card vs CPU {front['stream_vs_cpu']:.2e} and "
+          f"vs offline {front['stream_vs_offline']:.2e} of the RMS, B1 with a carried state vs "
+          f"plain {front['state_err']:.2e}, RTF {front['stream_rtf']:.4f} (over HTTP "
+          f"{front['http_stream_rtf']:.4f}, first audio {front['first_byte_s'] * 1e3:.1f} ms); "
+          f"/enhance 10 s over HTTP {front['http_ms']:.3f} ms vs {front['direct_ms']:.3f} "
+          f"direct; load p50 / p99 ms "
+          + ", ".join(f"{lv}: {r['p50_ms']:.1f} / {r['p99_ms']:.1f} ({r['aggregate_rtf']:.0f} s "
+                      f"of audio a second)" for lv, r in load.items())
+          + f" ({LOAD_TOTAL} requests a level); --fixed_batch byte-identical "
+          f"{front['fixed_exact']} of {len(FRONT_SECONDS)} (under load: p99 "
+          f"{front['load_fixed']['p99_ms']:.1f} ms at 16), "
+          f"--workers 4 {front['bi4_exact']} of {len(FRONT_SECONDS)}; B1 T=48 "
+          f"{front['t48_ms']:.4f} ms, with state {front['t48_state_ms']:.4f} | {card}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,11 @@
 // 1 for a one-direction layer) and each step t = 0 .. T-1, for the whole batch:
 //   gates = xw[d, :, t] + h_{t-1} @ w_hh_t[d]        (gate order i, f, g, o)
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
-// with h and c starting at zero and kept in f32. Direction 1 receives its own
-// already time-flipped xw, so both directions walk t upward.
+// with h and c starting at zero, or at a given (h0, c0), and kept in f32.
+// Direction 1 receives its own already time-flipped xw, so both directions
+// walk t upward. B1 may also take h0, c0 (ndir, B, H) and write the final
+// cell state cT (ndir, B, H), for a stream carried chunk by chunk; a null
+// pointer leaves the stateless arithmetic as it is (zeros in, no cT out).
 //
 // What bounds it on this card: the T steps are strictly sequential, and each
 // step is a tiny (B, H) x (H, 4H) product. At the flagship width (H = 256) one
@@ -66,11 +69,13 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //   c_s [B][K]      float  this block's slice of the cell state
 // R: batch rows per thread (1 for small batches, 4 from B = 4 up).
 // kCell: also write c_t into cs (2, B, T, H), laid out like hs.
+// h0, c0 and c_out are (ndir, B, H) or null.
 template <int R, bool kCell>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
-                     float* hs, float* __restrict__ cs, int B, int T, int H, int K,
-                     int BT, int G) {
+                     float* hs, float* __restrict__ cs, const float* __restrict__ h0,
+                     const float* __restrict__ c0, float* __restrict__ c_out, int B, int T,
+                     int H, int K, int BT, int G) {
   extern __shared__ float4 smem4[];
   float4* w_s = smem4;
   const int HP = H + 1;
@@ -89,7 +94,10 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
     const float* row = whh + (size_t)i * H4 + j0 + u;
     w_s[u * HP + i] = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
   }
-  for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x) c_s[idx] = 0.0f;
+  // this block's units of c_{-1} for every row, and where cT goes
+  const size_t state_d = (size_t)d * B * H + j0;
+  for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x)
+    c_s[idx] = c0 != nullptr ? c0[state_d + (size_t)(idx / K) * H + idx % K] : 0.0f;
 
   const float* xw_d = xw + (size_t)d * B * T * H4;
   float* hs_d = hs + (size_t)d * B * T * H;
@@ -105,8 +113,9 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
       const int bt = min(BT, B - b0);
       __syncthreads();  // earlier readers of h_s are done; w_s / c_s are set
       if (t == 0) {
+        const float* h0_d = h0 != nullptr ? h0 + ((size_t)d * B + b0) * H : nullptr;
         for (int idx = threadIdx.x; idx < bt * H; idx += blockDim.x)
-          h_s[(idx / H) * HP + idx % H] = 0.0f;
+          h_s[(idx / H) * HP + idx % H] = h0_d != nullptr ? h0_d[idx] : 0.0f;
       } else {
         // h_{t-1} rows were written by other blocks at t - 1: __ldcg reads
         // them from L2, never from a stale L1 line. 16-byte loads where the
@@ -219,19 +228,25 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
     }
     grid.sync();  // h_t of every block is in hs before anyone reads it
   }
+  if (c_out != nullptr) {  // the grid barrier above also orders c_s
+    for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x)
+      c_out[state_d + (size_t)(idx / K) * H + idx % K] = c_s[idx];
+  }
 }
 
 size_t smem_bytes(int B, int H, int K, int BT) {
   return sizeof(float) * ((size_t)4 * K * (H + 1) + (size_t)BT * (H + 1) + (size_t)B * K);
 }
 
-// Launches the recurrence on `stream`; cs is nullptr for B1. Returns the
+// Launches the recurrence on `stream`; cs is nullptr for B1, and h0, c0 and
+// c_out are nullptr but for B1 with a carried state. Returns the
 // first non-zero CUDA status among the set-up calls, the cooperative launch's
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
 template <bool kCell>
-int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int B, int T,
-           int H, int device, void* stream) {
+int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
+           const void* c0, void* c_out, int ndir, int B, int T, int H, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
@@ -270,6 +285,7 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int
         int G = 32;
         while (G > 1 && (kThreads / G) < tiles) G >>= 1;
         void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&cs,
+                        (void*)&h0, (void*)&c0,     (void*)&c_out,
                         (void*)&B,  (void*)&T,      (void*)&H,  (void*)&K,
                         (void*)&BT, (void*)&G};
         err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
@@ -289,17 +305,21 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int
 extern "C" {
 
 // Kernel B1. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H) and hs (ndir, B, T, H)
-// are contiguous f32 device pointers on `device`.
-int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, int ndir, int B, int T,
-                      int H, int device, void* stream) {
-  return launch<false>(xw, w_hh_t, hs, nullptr, ndir, B, T, H, device, stream);
+// are contiguous f32 device pointers on `device`. h0 and c0 (ndir, B, H) are
+// the initial state and c_out (ndir, B, H) receives the final cell state;
+// each may be null (zeros; not written).
+int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
+                      const void* c0, void* c_out, int ndir, int B, int T, int H, int device,
+                      void* stream) {
+  return launch<false>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device, stream);
 }
 
 // Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (ndir, B, T, H) f32 receives
 // the cell state of every step.
 int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
                          int B, int T, int H, int device, void* stream) {
-  return launch<true>(xw, w_hh_t, hs, cs, ndir, B, T, H, device, stream);
+  return launch<true>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H, device,
+                      stream);
 }
 
 const char* lstm_tm_error_string(int code) {

@@ -15,8 +15,12 @@
 // t = 0 .. T-1:
 //   gates = xw[d, b, t] + h_{t-1} @ w_hh_t[d]        (gate order i, f, g, o)
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
-// with h and c starting at zero and kept in f32. Direction 1 receives its own
-// already time-flipped xw, so both directions walk t upward.
+// with h and c starting at zero, or at a given (h0, c0), and kept in f32.
+// Direction 1 receives its own already time-flipped xw, so both directions
+// walk t upward. B1 may also take an initial state h0, c0 (ndir, B, H) and
+// write the final cell state cT (ndir, B, H): the carried state of a stream
+// that continues chunk by chunk. Each pointer may be null (zeros in, no cT
+// out); then nothing of the arithmetic differs from the stateless launch.
 //
 // What bounds it on this card: the T steps are strictly sequential, and a
 // step is a small (rows, H) x (H, 4H) product whose operands are tiny next to
@@ -109,11 +113,13 @@ __device__ __forceinline__ void cluster_wait_acquire() {
 //   h_s    [2][bb][kHPad]             float   h_{t-1} / h_t of the batch block
 //   xw_s   [kRing][4][bb][kUnits]     float   xw of the ring's steps
 //   w_s    [kHPad][kUnits]            float4  the weights (kSmemWeights only)
+// h0, c0 and c_out are (ndir, B, H) or null.
 template <bool kCell, int kFlags>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
-                       float* __restrict__ hs, float* __restrict__ cs, int B, int T, int H,
-                       int bb) {
+                       float* __restrict__ hs, float* __restrict__ cs,
+                       const float* __restrict__ h0, const float* __restrict__ c0,
+                       float* __restrict__ c_out, int B, int T, int H, int bb) {
   constexpr bool kWs = kFlags & kSmemWeights;
   constexpr bool kRingOn = !(kFlags & kLoadInStep);
   extern __shared__ float4 smem4[];
@@ -156,7 +162,13 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
       }
     }
   }
-  for (int idx = tid; idx < 2 * bb * kHPad; idx += kThreads) h_s[idx] = 0.0f;
+  // slot 0 holds h_{-1}: every block needs all H units of its rows, so every
+  // block loads its rows of h0 there (zeros past H, and without h0)
+  for (int idx = tid; idx < 2 * bb * kHPad; idx += kThreads) {
+    const int r = idx / kHPad, i = idx % kHPad;
+    h_s[idx] = (h0 != nullptr && r < rows && i < H)
+                   ? h0[((size_t)d * B + b0 + r) * H + i] : 0.0f;
+  }
 
   // the cell's side: warp `row` is batch row b0 + row, lane the unit
   const int row = warp;
@@ -166,7 +178,8 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   float* hs_p = hs + at * H + j0 + (cell ? lane : 0);
   float* cs_p = kCell ? cs + at * H + j0 + (cell ? lane : 0) : nullptr;
   float* ring_p = xw_s + row * kUnits + lane;
-  float c = 0.0f;
+  const size_t state_at = ((size_t)d * B + b0 + (cell ? row : 0)) * H + j0 + (cell ? lane : 0);
+  float c = (c0 != nullptr && cell) ? c0[state_at] : 0.0f;
 
   // (d) xw of step t into ring slot t % kRing: one group a step, empty past T
   auto prefetch = [&](int t) {
@@ -182,7 +195,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
     for (int t = 0; t < kRing; ++t) prefetch(t);
   }
 
-  cluster.sync();  // every block's h_s is zeroed before a remote store lands
+  cluster.sync();  // every block's h_s is set before a remote store lands
 
   for (int t = 0; t < T; ++t) {
     const float* h_cur = h_s + (t & 1) * bb * kHPad;
@@ -275,6 +288,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
       if (kRingOn) prefetch(t + kRing);
     }
   }
+  if (c_out != nullptr && cell) c_out[state_at] = c;
   // no block leaves while a store into its shared memory may be in flight
   if (!(kFlags & kFullSync)) cluster_wait_acquire();
 }
@@ -286,8 +300,9 @@ size_t smem_bytes(int bb, int flags) {
 }
 
 template <bool kCell, int kFlags>
-int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int B, int T,
-           int H, int bb, int device, void* stream) {
+int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
+           const void* c0, void* c_out, int ndir, int B, int T, int H, int bb, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir < 1 || ndir > 2 || B <= 0 || T <= 0 || H <= 0 || H % kCluster ||
@@ -305,7 +320,8 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir, int
   const int nbb = (B + bb - 1) / bb;
   lstm_tm_cluster_kernel<kCell, kFlags><<<ndir * nbb * kCluster, kThreads, smem,
                                           (cudaStream_t)stream>>>(
-      (const float*)xw, (const float*)w_hh_t, (float*)hs, (float*)cs, B, T, H, bb);
+      (const float*)xw, (const float*)w_hh_t, (float*)hs, (float*)cs, (const float*)h0,
+      (const float*)c0, (float*)c_out, B, T, H, bb);
   return (int)cudaGetLastError();
 }
 
@@ -329,19 +345,22 @@ extern "C" {
 
 // Kernel B1. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H) and hs (ndir, B, T, H)
 // are contiguous f32 device pointers on `device`; ndir 1 or 2, H a multiple of
-// 8 and at most 256, 1 <= batch_block <= 16. `variant` 0 is the design; for
+// 8 and at most 256, 1 <= batch_block <= 16. h0 and c0 (ndir, B, H) are the
+// initial state, c_out (ndir, B, H) receives the final cell state; each may
+// be null (zeros; not written). `variant` 0 is the design; for
 // measurement, 1 reads the weights from shared memory every step (batch_block
 // <= 8), 2 loads xw inside its step, 4 makes the remote stores 16 bytes a
 // lane, 8 puts a whole cluster barrier after them. Returns the first non-zero
 // CUDA status among the set-up calls and cudaGetLastError() after the launch
 // (which reports a cluster that cannot be placed); 0 on success. Does not
 // synchronise.
-int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, int ndir, int B, int T,
-                        int H, int batch_block, int variant, int device, void* stream) {
-#define LSTM_TM_CLUSTER_VARIANT(flags)                                                      \
-  case flags:                                                                             \
-    return launch<false, flags>(xw, w_hh_t, hs, nullptr, ndir, B, T, H, batch_block, device, \
-                                stream);
+int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
+                        const void* c0, void* c_out, int ndir, int B, int T, int H,
+                        int batch_block, int variant, int device, void* stream) {
+#define LSTM_TM_CLUSTER_VARIANT(flags)                                                 \
+  case flags:                                                                        \
+    return launch<false, flags>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, \
+                                batch_block, device, stream);
   switch (variant) {
     LSTM_TM_CLUSTER_VARIANT(0)
     LSTM_TM_CLUSTER_VARIANT(kSmemWeights)
@@ -358,7 +377,8 @@ int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, int ndir, 
 // H) f32 receives the cell state of every step.
 int lstm_tm_cluster_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
                            int B, int T, int H, int batch_block, int device, void* stream) {
-  return launch<true, 0>(xw, w_hh_t, hs, cs, ndir, B, T, H, batch_block, device, stream);
+  return launch<true, 0>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
+                         batch_block, device, stream);
 }
 
 // The number of 8-block clusters of this kernel that the card holds at once

@@ -1,13 +1,16 @@
-"""WAV file I/O (counterpart of
-``speech_enhancement_by_s3prl_tpu/data/audio_io.py``, WAV only).
+"""Audio file I/O (counterpart of
+``speech_enhancement_by_s3prl_tpu/data/audio_io.py``).
 
 - ``read_wav``: pure-numpy RIFF parser (PCM 8/16/24/32-bit, float32/64).
+- ``read_audio``: WAV, or FLAC through the native decoder (``data/flac.py``),
+  by the file's extension.
 - ``write_wav``: float32 [-1, 1] to 16-bit PCM.
 - ``load_audio(path, sr)``: mono float32, resampled with scipy's polyphase
   resampler when the file's rate differs.
 """
 from __future__ import annotations
 
+import io
 import os
 import struct
 import wave
@@ -88,8 +91,9 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return samples.reshape(-1, n_channels).T.copy(), sample_rate
 
 
-def write_wav(path: str, wav: np.ndarray, sample_rate: int):
-    """Write mono/multi-channel float32 [-1,1] as 16-bit PCM WAV."""
+def write_wav(path, wav: np.ndarray, sample_rate: int):
+    """Write mono/multi-channel float32 [-1,1] as 16-bit PCM WAV to a path or
+    a binary file object."""
     wav = np.asarray(wav)
     if wav.ndim == 1:
         wav = wav[None, :]
@@ -99,6 +103,23 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int):
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.T.tobytes())
+
+
+def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:
+    """float32 [-1, 1] -> the bytes of a 16-bit PCM WAV file (``write_wav``'s)."""
+    buf = io.BytesIO()
+    write_wav(buf, wav, sample_rate)
+    return buf.getvalue()
+
+
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """(samples (channels, time) float32, rate) of a WAV or FLAC file, by its
+    extension (``.flac``: the native decoder; anything else: WAV)."""
+    if os.path.splitext(path)[1].lower() == ".flac":
+        from .flac import read_flac
+
+        return read_flac(path)
+    return read_wav(path)
 
 
 def resample_poly(wav: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
@@ -116,13 +137,9 @@ def resample_poly(wav: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
 def load_audio(
     path: str, sr: Optional[int] = 16000, mono: bool = True
 ) -> Tuple[np.ndarray, int]:
-    """librosa.load-compatible entry for WAV files: mono float32 at the
-    requested rate. FLAC decoding is not ported yet (ROADMAP A7)."""
-    if os.path.splitext(path)[1].lower() != ".wav":
-        raise NotImplementedError(
-            f"{path}: only WAV input is ported; FLAC decoding is ROADMAP A7"
-        )
-    wav, orig_sr = read_wav(path)
+    """librosa.load-compatible entry for WAV and FLAC files: mono float32 at
+    the requested rate."""
+    wav, orig_sr = read_audio(path)
     if mono:
         wav = wav.mean(axis=0) if wav.shape[0] > 1 else wav[0]
     if sr is not None and orig_sr != sr:

@@ -1,7 +1,7 @@
 """Batch enhancement CLI (counterpart of the repository's ``enhance.py``).
 
 Loads a trained ``from_rawfeature`` downstream checkpoint and enhances WAV
-files: decode -> bucketed batches on the device (STFT, model, iSTFT with
+and FLAC files: decode -> bucketed batches on the device (STFT, model, iSTFT with
 the noisy phase, level renorm) -> 16-bit WAV out. A file longer than the 30 s
 bucket ceiling is enhanced in crossfaded windows of that length.
 
@@ -22,11 +22,15 @@ import numpy as np
 
 from .data.audio_io import load_audio, write_wav
 
+AUDIO_EXTS = (".wav", ".flac")
 
-def find_wav_files(root: str):
+
+def find_audio_files(root: str):
+    """The WAV and FLAC files under ``root``, sorted."""
     out = []
     for dirpath, _, names in os.walk(root):
-        out += [os.path.join(dirpath, n) for n in names if n.lower().endswith(".wav")]
+        out += [os.path.join(dirpath, n) for n in names
+                if os.path.splitext(n)[1].lower() in AUDIO_EXTS]
     return sorted(out)
 
 
@@ -39,7 +43,7 @@ def main(argv=None):
     ap.add_argument("--dckpt", default="",
                     help="relocated checkpoint that records the downstream "
                          "feature and model config")
-    ap.add_argument("--inputs", required=True, help="glob/dir of noisy WAVs")
+    ap.add_argument("--inputs", required=True, help="glob/dir of noisy WAV / FLAC files")
     ap.add_argument("--outdir", default="enhanced")
     ap.add_argument("--batch_size", type=int, default=16)
     ap.add_argument("--sample_rate", type=int, default=16000)
@@ -49,12 +53,12 @@ def main(argv=None):
                     help="torch device to run on: cuda (the default; raises "
                          "when there is no CUDA device) or cpu")
     ap.add_argument("--artifact", default="",
-                    help="export artifacts are not ported yet (ROADMAP A10)")
+                    help="export artifacts are not ported yet (ROADMAP A15)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="multi-device serving is not ported yet (ROADMAP A12)")
     args = ap.parse_args(argv)
     if args.artifact:
-        ap.error("--artifact is not ported yet (ROADMAP A10)")
+        ap.error("--artifact is not ported yet (ROADMAP A15)")
     if args.mesh:
         ap.error("--mesh is not ported yet (ROADMAP A12)")
 
@@ -69,7 +73,7 @@ def main(argv=None):
     )
 
     if os.path.isdir(args.inputs):
-        files = find_wav_files(args.inputs)
+        files = find_audio_files(args.inputs)
     else:
         files = sorted(glob.glob(args.inputs))
     if not files:

@@ -101,9 +101,20 @@ class LinearResidual(nn.Module):
         return linears * offset, {"offset": offset}
 
 
+def _run_stack(stack: LSTMStack, features, lstm_state):
+    """The stack's output and, when ``lstm_state`` (one (h, c) per layer) is
+    given, the aux entry of its final states: the streaming continuation of
+    ``ops/streaming.StatefulStreamer``."""
+    if lstm_state is None:
+        return stack(features), {}
+    out, state = stack(features, initial_state=lstm_state, return_state=True)
+    return out, {"lstm_state": state}
+
+
 class LSTM(nn.Module):
     """LSTM -> scaling layer -> exp: predicts the log-magnitude spectrum.
-    aux carries ``log_predicted``."""
+    aux carries ``log_predicted``, and ``lstm_state`` (the final per-layer
+    (h, c)) when the call passes ``lstm_state``."""
 
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
@@ -116,15 +127,15 @@ class LSTM(nn.Module):
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
-    def forward(self, features, linears=None) -> Tuple[torch.Tensor, Aux]:
-        log_predicted = activation(self.activation)(
-            self.scaling_layer(self.lstm(features))
-        )
-        return torch.exp(log_predicted), {"log_predicted": log_predicted}
+    def forward(self, features, linears=None, lstm_state=None) -> Tuple[torch.Tensor, Aux]:
+        hs, aux = _run_stack(self.lstm, features, lstm_state)
+        log_predicted = activation(self.activation)(self.scaling_layer(hs))
+        return torch.exp(log_predicted), {"log_predicted": log_predicted, **aux}
 
 
 class Residual(nn.Module):
-    """LSTM mask times noisy linear. aux carries ``offset``."""
+    """LSTM mask times noisy linear. aux carries ``offset``, and
+    ``lstm_state`` when the call passes ``lstm_state``."""
 
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
@@ -137,12 +148,12 @@ class Residual(nn.Module):
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
-    def forward(self, features, linears) -> Tuple[torch.Tensor, Aux]:
-        offset = self.lstm(features)
+    def forward(self, features, linears, lstm_state=None) -> Tuple[torch.Tensor, Aux]:
+        offset, aux = _run_stack(self.lstm, features, lstm_state)
         if self.cmvn:
             offset = cmvn_t(offset, self.eps)
         offset = activation(self.activation)(self.scaling_layer(offset))
-        return linears * offset, {"offset": offset}
+        return linears * offset, {"offset": offset, **aux}
 
 
 REGISTRY = {

@@ -6,7 +6,11 @@
 - A bidirectional layer runs both directions in one recurrence: direction 1
   gets the time-flipped input on a leading direction axis. A one-direction
   layer runs the same recurrence with a direction axis of 1 (the JAX package
-  runs a ``lax.scan`` cell there; zero initial state, no state carried out).
+  runs a ``lax.scan`` cell there). A one-direction stack also continues from
+  a carried state: ``forward(x, initial_state=, return_state=True)`` takes
+  one (h, c) per layer, each (B, H), and returns the final ones beside the
+  output, as the JAX stack does for streaming (kernel B1 with its state in
+  and out; inference only). A bidirectional stack refuses a state.
   The recurrence is ``ops/cuda/lstm_kernel.lstm_bidir_tm``: under autograd the
   ``LstmBidirTm`` function (kernels B2 fwd / B2 bwd on a CUDA tensor), whose
   gradients reach ``w_hh`` through dW_hh^T and ``w_ih``, ``b_ih``, ``b_hh``
@@ -99,17 +103,36 @@ class LSTMStack(nn.Module):
             raise ValueError(f"recurrence must be one of {RECURRENCES}, got {value!r}")
         self._recurrence = value
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, initial_state=None, return_state: bool = False):
+        """(B, T, D) -> (B, T, H * directions); with ``return_state`` (a
+        one-direction stack only) (output, final states), the final states one
+        (h, c) per layer, each (B, H). ``initial_state`` is such a sequence to
+        start from (None: zeros)."""
+        carry = initial_state is not None or return_state
+        if carry and self.bidirectional:
+            raise ValueError(
+                "recurrent-state carrying (streaming) needs a unidirectional stack: the "
+                "backward direction would need future audio")
         # B6 and B7 have no backward kernel: a gradient takes LstmBidirTm
         forward_only = not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
+        final_states = []
         for k in range(self.num_layers):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
                 # one direction on the leading axis: LstmBidirTm when a
                 # gradient is needed, B1 when not
                 xw = torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh)
-                x = lstm_bidir_tm(xw[None].contiguous(), pf.w_hh.T[None].contiguous())[0]
+                w_hh_t = pf.w_hh.T[None].contiguous()
+                if not carry:
+                    x = lstm_bidir_tm(xw[None].contiguous(), w_hh_t)[0]
+                    continue
+                state = None if initial_state is None else tuple(
+                    t[None] for t in initial_state[k])
+                hs, (h, c) = lstm_bidir_tm(xw[None].contiguous(), w_hh_t, state=state,
+                                           return_state=True)
+                x = hs[0]
+                final_states.append((h[0], c[0]))
                 continue
             pb = getattr(self, f"l{k}_bwd")
             xs = torch.stack([x, torch.flip(x, dims=[1])], dim=0)  # (2, B, T, D)
@@ -127,4 +150,4 @@ class LSTMStack(nn.Module):
                     # LstmBidirTm when a gradient is needed, B1 when not
                     hs = lstm_bidir_tm(xw, w_hh_t)
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)
-        return x
+        return (x, tuple(final_states)) if return_state else x

@@ -8,15 +8,19 @@ spills from ``-Xptxas -v``) is kept beside the library as ``.log``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
+
+``load`` holds one lock around the build and the load, so that the handler
+threads of the HTTP server (``serve.py``), which may all reach a kernel's
+first call at once, start one ``nvcc`` for it and load one library.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -61,7 +65,7 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -83,10 +87,18 @@ def build_all(names=SOURCES):
     return {name: f.result() for name, f in futures.items()}
 
 
-@functools.cache
+_loaded: dict = {}
+_load_lock = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))
+    """Build (if needed) and load the library of ``csrc/<name>.cu``, once per
+    process whatever the number of threads that ask at once."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        return lib
 
 
 def launch_args(x):

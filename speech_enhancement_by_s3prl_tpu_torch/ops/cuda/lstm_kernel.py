@@ -49,6 +49,14 @@ package's ``lax.scan`` cell). Gate order is
 i, f, g, o; h and c start at zero and stay f32. There are no lengths: the
 recurrence runs over the whole (padded) T, as the JAX package does.
 
+B1 also continues a recurrence (the JAX ``_lstm_scan(..., init_state=,
+return_final=True)``): ``lstm_bidir_tm(xw, w_hh_t, state=(h0, c0),
+return_state=True)`` starts from h0, c0 (ndir, B, H) and returns the final
+(hT, cT) beside hs; hT is hs's last step and the kernel writes cT. That is
+what a stream carried chunk by chunk runs (``ops/streaming.StatefulStreamer``).
+It is inference only: with a gradient needed it raises (gradient through a
+carried state, ``ROADMAP.md`` A3).
+
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
 raises; nothing falls back.
 """
@@ -63,11 +71,14 @@ import torch
 from ._build import launch_args, load, raise_on
 
 
-def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool):
+def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=None):
     H = w_hh_t.shape[-2]
     lead = xw.shape[:-2]  # (..., B)
-    h = xw.new_zeros(lead + (H,), dtype=torch.float32)
-    c = torch.zeros_like(h)
+    if state is None:
+        h = xw.new_zeros(lead + (H,), dtype=torch.float32)
+        c = torch.zeros_like(h)
+    else:
+        h, c = state
     hs, cs = [h[..., None, :][..., :0, :]], [c[..., None, :][..., :0, :]]  # T = 0
     for t in range(xw.shape[-2]):
         gates = xw[..., t, :].float() + torch.matmul(h, w_hh_t)
@@ -80,12 +91,29 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool):
     return (hs, torch.cat(cs, dim=-2)) if with_cell else hs
 
 
-def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
+                      return_state: bool = False):
     """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
 
     Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
-    gives (..., B, T, H)."""
-    return _recurrence(xw, w_hh_t, with_cell=False)
+    gives (..., B, T, H). ``state`` (h0, c0), each (..., B, H), is the
+    initial state (None: zeros); with ``return_state`` the result is (hs,
+    (hT, cT))."""
+    if not return_state:
+        return _recurrence(xw, w_hh_t, with_cell=False, state=state)
+    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state)
+    return hs, _final_state(hs, cs, state)
+
+
+def _final_state(hs, cs, state):
+    """(hT, cT) of a recurrence with outputs hs, cs (..., B, T, H) that
+    started from ``state`` (None: zeros), T = 0 included."""
+    if hs.shape[-2]:
+        return hs[..., -1, :], cs[..., -1, :]
+    if state is None:
+        zeros = hs.new_zeros(hs.shape[:-2] + hs.shape[-1:])
+        return zeros, zeros.clone()
+    return state
 
 
 def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor):
@@ -147,6 +175,18 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
         raise ValueError(f"lstm_bidir_tm runs on cpu or cuda, not {xw.device}")
 
 
+def _check_state(xw: torch.Tensor, state):
+    """``state`` = (h0, c0), each (ndir, B, H) f32 on xw's device."""
+    if len(state) != 2:
+        raise ValueError("state must be (h0, c0)")
+    ndir, B, _, h4 = xw.shape
+    want = (ndir, B, h4 // 4)
+    for name, t in zip(("h0", "c0"), state):
+        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != xw.device:
+            raise ValueError(f"{name} must be f32 {want} on {xw.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def _check_residuals(xw, hs, cs, dhs):
     ndir, B, T, h4 = xw.shape
     want = (ndir, B, T, h4 // 4)
@@ -161,7 +201,7 @@ def _check_residuals(xw, hs, cs, dhs):
 def _library():
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.lstm_bidir_tm_f32.restype = i
     lib.lstm_bidir_tm_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.lstm_bidir_tm_fc_f32.restype = i
@@ -173,7 +213,7 @@ def _library():
 def _cluster_library():
     lib = load("lstm_tm_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_tm_cluster_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.lstm_tm_cluster_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.lstm_tm_cluster_f32.restype = i
     lib.lstm_tm_cluster_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.lstm_tm_cluster_fc_f32.restype = i
@@ -244,7 +284,7 @@ def _fwd_clusters(device_index: int) -> int:
 
 
 def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 1,
-                            slices: int = FWD_SLICES, with_cell: bool = False):
+                            slices: int = FWD_SLICES, with_cell: bool = False, state=None):
     """The ``cluster`` route of B1 / B2 fwd in PyTorch, as
     ``lstm_tm_cluster.cu`` runs it (the function of ``lstm_bidir_tm_ref``):
     each block of ``batch_block`` rows is its own recurrence; h is padded with
@@ -254,8 +294,9 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
     are xw plus the partials in slice order (a slice wholly past H adds
     nothing), and the cell runs row by row. Every operation acts on one row
     at a time or elementwise, so a row's bits do not depend on the other rows
-    of its block. Returns hs, or (hs, cs) with ``with_cell``, each
-    (ndir, B, T, H) f32."""
+    of its block. ``state`` (h0, c0), each (ndir, B, H), starts the
+    recurrence where the kernel loads it (None: zeros). Returns hs, or (hs,
+    cs) with ``with_cell``, each (ndir, B, T, H) f32."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = xw.new_zeros((ndir, B, T, H), dtype=torch.float32)
@@ -263,8 +304,11 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
     span = -(-max(H, CLUSTER_MAX_HIDDEN) // slices)
     for b0 in range(0, B, batch_block):
         rows = range(b0, min(B, b0 + batch_block))
-        h = xw.new_zeros((ndir, len(rows), H), dtype=torch.float32)
-        c = torch.zeros_like(h)
+        if state is None:
+            h = xw.new_zeros((ndir, len(rows), H), dtype=torch.float32)
+            c = torch.zeros_like(h)
+        else:
+            h, c = (s[:, b0:rows.stop].float() for s in state)
         for t in range(T):
             gates = xw[:, b0:rows.stop, t].float()
             for s in range(-(-H // span)):
@@ -284,10 +328,13 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
 
 
 def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
-                batch_block: Optional[int] = None, variant: int = 0):
+                batch_block: Optional[int] = None, variant: int = 0, state=None,
+                return_state: bool = False):
     """Launch B1 (or B2 fwd with ``with_cell``) on ``route`` ("cluster" or
     "grid") on checked, contiguous CUDA tensors with B, T > 0; returns hs or
-    (hs, cs). ``lstm_bidir_tm`` / ``lstm_bidir_tm_fc`` pick the route by
+    (hs, cs). B1 also takes ``state`` (h0, c0), contiguous (ndir, B, H)
+    (None: zeros), and with ``return_state`` returns (hs, (hT, cT)), the
+    kernel writing cT. ``lstm_bidir_tm`` / ``lstm_bidir_tm_fc`` pick the route by
     ``fwd_route`` and the batch block by ``fwd_batch_block``; the card script
     also runs the other route, other batch blocks and, through ``variant``
     (B1 on the cluster route only), the design with one element changed
@@ -296,7 +343,14 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
     H = h4 // 4
     hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
     cs = torch.empty_like(hs) if with_cell else None
+    if with_cell and (state is not None or return_state):
+        raise ValueError("B2 fwd takes no carried state")
+    c_out = torch.empty((ndir, B, H), device=xw.device, dtype=torch.float32) \
+        if return_state else None
     ptrs = (xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr())
+    # null pointers: zeros in, no cT out
+    carried = tuple(0 if t is None else t.data_ptr()
+                    for t in (*(state or (None, None)), c_out))
     if route == "cluster":
         lib = _cluster_library()
         if batch_block is None:
@@ -305,8 +359,8 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             err = lib.lstm_tm_cluster_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, batch_block,
                                              *launch_args(xw))
         else:
-            err = lib.lstm_tm_cluster_f32(*ptrs, ndir, B, T, H, batch_block, variant,
-                                          *launch_args(xw))
+            err = lib.lstm_tm_cluster_f32(*ptrs, *carried, ndir, B, T, H, batch_block,
+                                          variant, *launch_args(xw))
         errstr = lib.lstm_tm_cluster_error_string
     else:
         lib = _library()
@@ -314,37 +368,57 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H,
                                            *launch_args(xw))
         else:
-            err = lib.lstm_bidir_tm_f32(*ptrs, ndir, B, T, H, *launch_args(xw))
+            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, ndir, B, T, H, *launch_args(xw))
         errstr = lib.lstm_tm_error_string
     raise_on(err, "lstm_bidir_tm_fc" if with_cell else "lstm_bidir_tm", errstr, route=route,
              ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant)
+    if return_state:
+        return hs, (hs[:, :, -1], c_out)
     return (hs, cs) if with_cell else hs
 
 
-def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
+                  return_state: bool = False):
     """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32; a leading 1
-    in place of the 2 is a one-direction layer.
+    in place of the 2 is a one-direction layer. ``state`` (h0, c0), each
+    (2, B, H) f32, starts the recurrence there (None: zeros); with
+    ``return_state`` the result is (hs, (hT, cT)).
 
     When a gradient is needed (grad mode on and an input that requires it)
-    this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass.
-    Otherwise it is B1 (the primal of the JAX custom VJP): on a CUDA tensor
-    the kernel of route ``fwd_route(H)``, counted in ``lstm_bidir_tm.launches``
-    and ``lstm_bidir_tm.by_route``; on a CPU tensor the plain version."""
+    this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass; a
+    carried state raises there. Otherwise it is B1 (the primal of the JAX
+    custom VJP): on a CUDA tensor the kernel of route ``fwd_route(H)``,
+    counted in ``lstm_bidir_tm.launches`` and ``lstm_bidir_tm.by_route``, and
+    a launch with a state in or out also in ``lstm_bidir_tm.carried``; on a
+    CPU tensor the plain version."""
     _check(xw, w_hh_t)
-    if torch.is_grad_enabled() and (xw.requires_grad or w_hh_t.requires_grad):
+    if state is not None:
+        _check_state(xw, state)
+    grad = torch.is_grad_enabled() and (
+        xw.requires_grad or w_hh_t.requires_grad
+        or (state is not None and any(t.requires_grad for t in state)))
+    if grad:
+        if state is not None or return_state:
+            raise RuntimeError(
+                "lstm_bidir_tm: a carried state (state= / return_state=) is inference "
+                "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
         return LstmBidirTm.apply(xw, w_hh_t)
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_ref(xw, w_hh_t)
+        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state)
+    if state is not None:
+        state = tuple(t.contiguous() for t in state)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
     if B == 0 or T == 0:
-        return torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+        return (hs, _final_state(hs, hs, state)) if return_state else hs
     route = fwd_route(h4 // 4)
-    hs = _launch_fwd(route, xw, w_hh_t)
+    out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state)
     lstm_bidir_tm.launches += 1
     lstm_bidir_tm.by_route[route] += 1
-    return hs
+    lstm_bidir_tm.carried += state is not None or return_state
+    return out
 
 
 def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
@@ -757,6 +831,7 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 # the main path went through the kernels)
 lstm_bidir_tm.launches = 0
 lstm_bidir_tm.by_route = {"cluster": 0, "grid": 0}
+lstm_bidir_tm.carried = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm_bwd.launches = 0

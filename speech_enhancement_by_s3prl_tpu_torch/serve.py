@@ -1,5 +1,23 @@
-"""Checkpoint -> enhancer on a device (counterpart of the repository's
-``serve.py``).
+"""Enhancement HTTP server on a device, and the enhancer it serves
+(counterpart of the repository's ``serve.py``).
+
+  python -m speech_enhancement_by_s3prl_tpu_torch.serve --ckpt result/exp1 --port 8080
+  python -m speech_enhancement_by_s3prl_tpu_torch.serve --ckpt result/exp1 --workers 16
+  curl --data-binary @noisy.wav http://localhost:8080/enhance > out.wav
+
+POST a WAV or FLAC body to ``/enhance`` and receive the enhanced 16-bit WAV.
+POST raw float32 PCM to ``/stream`` (chunked or with a Content-Length) and
+receive enhanced PCM back incrementally at constant latency, through
+``ops/streaming.StatefulStreamer``: available when the served head is
+one-direction, ``from_rawfeature`` and CMVN-free (other checkpoints answer
+``/stream`` with 400 and the reason). ``GET /healthz`` reports the device and
+the served totals. The server runs on the card unless ``--device cpu`` (or
+``--cpu``) asks for the CPU; with no card the default raises. ``--workers N``
+> 1 handles requests concurrently and coalesces concurrent ``/enhance``
+requests of one duration bucket into one device batch (``MicroBatcher``);
+``--fixed_batch`` pads every group to ``--max_batch`` rows, so a response
+does not depend on its co-riders by a bit. ``--mesh`` (ROADMAP A12) and
+``--artifact`` (A15) are not ported and are refused.
 
 ``build_enhancer(ckpt, device=...)`` returns ``enhance(wav) -> wav`` with
 ``.run_batch(list_of_wavs)``: requests are padded to a duration bucket and
@@ -8,21 +26,31 @@ level renorm). It serves the checkpoints of all three training modes:
 ``from_rawfeature``, ``from_waveform`` (``Mockingjay``) and the upstream
 mode, whose frozen upstream is rebuilt from the recorded S3PRL checkpoint
 (``--ckpt``, relocated by ``upstream_ckpt``); an upstream-mode checkpoint
-that records none is refused, as the JAX package refuses it.
-``MicroBatcher`` coalesces concurrent requests of one bucket into one device
-batch. A request longer than the largest bucket runs through
-``ops/streaming.enhance_streaming``: windows of the largest bucket with one
-second of cosine crossfade. The BLSTM layers run the default recurrence
-(kernel B1); ``enhance.model`` is the served head. The HTTP front end, the
-stateful streamer, mesh serving and export artifacts are not ported yet
-(ROADMAP A10, A12).
+that records none is refused, as the JAX package refuses it. A request
+longer than the largest bucket runs through ``ops/streaming.enhance_streaming``:
+windows of the largest bucket with one second of cosine crossfade. The LSTM
+layers run the default recurrence (kernel B1, and B1 continuing from the
+carried state on ``/stream``); ``enhance.model`` is the served head and
+``enhance.stream_ctx`` what the streamer is built from.
+
+Every handler thread, and the batcher's dispatcher, launches on torch's
+current stream of the device, which in a new thread is the default stream:
+``/enhance`` batches and ``/stream`` chunks share that one stream and run one
+after another on the card. That is correct, and no stream is managed here.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import queue
+import socketserver
+import sys
+import tempfile
 import threading
 import time
+import traceback
+from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import numpy as np
 import torch
@@ -31,9 +59,10 @@ from . import use_full_fp32
 from .data.loader import bucket_length, default_buckets
 from .models.convert import flax_to_state_dict
 from .models.heads import build_head
+from .data.audio_io import read_audio, resample_poly, wav_bytes
 from .models.upstream import build_upstream
 from .ops.features import OnlinePreprocessor, get_feat_config
-from .ops.streaming import enhance_streaming
+from .ops.streaming import StatefulStreamer, enhance_streaming
 from .run_downstream import PRETRAIN_ONLINE
 from .runner.checkpoint import load_checkpoint, load_settings
 from .runner.trainer import decode_wav
@@ -45,7 +74,8 @@ class MicroBatcher:
     Handler threads call ``submit(wav)`` and block; one dispatcher thread
     drains the queue (waiting at most ``window_ms`` after the first arrival),
     groups the requests by duration bucket, runs each group as one batch and
-    hands the results back. One device batch in flight at a time.
+    hands the results back. One device batch in flight at a time; the group's
+    device shape is ``run_batch``'s to choose.
     """
 
     def __init__(self, run_batch, max_batch=16, window_ms=3.0, bucket_of=None):
@@ -205,17 +235,22 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
         return decode_wav(pre, predicted, phase_inp, lengths, wavs.shape[-1],
                           target_level)
 
+    # what the live /stream endpoint builds its StatefulStreamer from
+    enhance_raw.stream_ctx = {"model": model, "preprocessor": pre, "mode": mode,
+                              "device": device}
     return model, enhance_raw, buckets
 
 
-def _pad_group(wavs, buckets, round_pow2: bool = True):
+def _pad_group(wavs, buckets, batch_round: int = 1, round_pow2: bool = True):
     """Pad a request group to one device shape: the common duration bucket,
     and a row count rounded up to a power of two (bounds the shapes under
-    online micro-batching; offline CLIs pass round_pow2=False). Extra rows
-    repeat row 0 and are discarded by the caller. Returns (batch (n, T) f32,
-    lens (n,) int64)."""
+    online micro-batching; offline CLIs and ``--fixed_batch`` pass
+    round_pow2=False), then to a multiple of ``batch_round`` (``--fixed_batch``:
+    ``--max_batch``, so every group has the same rows). Extra rows repeat row 0 and are discarded by the caller. Returns
+    (batch (n, T) f32, lens (n,) int64)."""
     T = bucket_length(max(len(w) for w in wavs), buckets)
     n = max(1, 1 << (len(wavs) - 1).bit_length()) if round_pow2 else len(wavs)
+    n = -(-n // batch_round) * batch_round
     batch = np.zeros((n, T), np.float32)
     lens = np.empty((n,), np.int64)
     for k, w in enumerate(wavs):
@@ -252,11 +287,21 @@ def _finish_enhancer(run_batch, buckets, sample_rate: int):
 
 def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -25.0,
                    *, device, max_bucket_ms: int = 60000, round_pow2: bool = True,
-                   upstream_ckpt: str = "", dckpt: str = ""):
+                   upstream_ckpt: str = "", dckpt: str = "", fixed_rows: int = 0):
     """``enhance(wav)`` on ``device``. ``device="cuda"`` with no card raises;
     nothing falls back to the CPU. ``enhance`` takes a request of any length
     (longer than the largest bucket: crossfaded windows); ``enhance.run_batch``
-    serves groups that fit one bucket; ``enhance.model`` is the served head."""
+    serves groups that fit one bucket; ``enhance.model`` is the served head,
+    ``enhance.stream_ctx`` what a ``StatefulStreamer`` is built from.
+
+    ``fixed_rows`` > 0 pads every group, a solo request included, to exactly
+    that many rows (a larger group to a multiple of it), with no power-of-two
+    step, whatever ``fixed_rows`` is: with groups capped at ``fixed_rows``
+    every device batch has one shape, so a response does not depend on its
+    co-riders by a bit. By default a group is padded to a power of two, and
+    the products of other row counts may sum in another order (at most one
+    16-bit step after quantization); the price of ``fixed_rows`` is the full
+    batch's compute for every group."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_enhancer(device='cuda'): no CUDA device here")
@@ -266,6 +311,11 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
         upstream_ckpt=upstream_ckpt, dckpt=dckpt,
     )
 
+    # --fixed_batch: exactly fixed_rows rows (rounding to a power of two first
+    # would give a max_batch of 6 two shapes, 6 and 8 -> 12 rows)
+    batch_round = fixed_rows or 1
+    round_pow2 = round_pow2 and not fixed_rows
+
     def run_batch(wavs) -> list:
         for w in wavs:
             if len(w) > buckets[-1]:
@@ -274,7 +324,7 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
                     f"bucket ({buckets[-1]}): run_batch serves bucket-sized "
                     "groups; enhance(wav) streams a longer request"
                 )
-        batch, lens = _pad_group(wavs, buckets, round_pow2)
+        batch, lens = _pad_group(wavs, buckets, batch_round, round_pow2)
         out = enhance_raw(
             torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device)
         ).cpu().numpy()
@@ -282,4 +332,274 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
 
     enhance = _finish_enhancer(run_batch, buckets, sample_rate)
     enhance.model = model
+    enhance.stream_ctx = enhance_raw.stream_ctx
     return enhance
+
+
+class Server(HTTPServer):
+    """The stdlib HTTP server with a listen backlog for a crowd: at the
+    stdlib's 5, simultaneous connects past the backlog lose their SYN, and
+    the client sends it again only after a second."""
+
+    request_queue_size = 128
+
+
+class ThreadingServer(socketserver.ThreadingMixIn, Server):
+    daemon_threads = True
+
+
+def get_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="enhancement HTTP server (the port)")
+    ap.add_argument("--ckpt", default="", help="training checkpoint to serve")
+    ap.add_argument("--upstream_ckpt", default="",
+                    help="relocated S3PRL pretraining checkpoint for upstream-backed "
+                         "checkpoints (default: the path the checkpoint records)")
+    ap.add_argument("--dckpt", default="",
+                    help="relocated checkpoint holding the downstream feature and model "
+                         "config (default: the path the checkpoint records)")
+    ap.add_argument("--artifact", default="",
+                    help="export artifacts are not ported yet (ROADMAP A15)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--sample_rate", type=int, default=16000)
+    ap.add_argument("--target_level", type=float, default=None,
+                    help="output level in dB (default -25)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (the default; raises when there is no CUDA device) or cpu")
+    ap.add_argument("--cpu", dest="device", action="store_const", const="cpu",
+                    help="alias of --device cpu")
+    ap.add_argument("--workers", type=int, default=1,
+                    help=">1 serves requests concurrently and coalesces concurrent "
+                         "/enhance requests into micro-batched device batches")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="multi-device serving is not ported yet (ROADMAP A12)")
+    ap.add_argument("--max_batch", type=int, default=16,
+                    help="micro-batch size cap (workers mode)")
+    ap.add_argument("--batch_window_ms", type=float, default=3.0,
+                    help="how long the batcher waits for co-riders after the first "
+                         "request arrives")
+    ap.add_argument("--stream_frames", type=int, default=48,
+                    help="frames per model step on /stream (latency = 2 * delta frames "
+                         "+ one chunk; 48 frames = 0.48 s at the 10 ms hop)")
+    ap.add_argument("--fixed_batch", action="store_true",
+                    help="pad every request group to exactly --max_batch rows (any "
+                         "--max_batch, not only a power of two): one device shape per bucket, so a response is the same bits under "
+                         "any load; costs the full --max_batch compute per group")
+    return ap
+
+
+def _decode_body(raw: bytes, sample_rate: int) -> np.ndarray:
+    """A WAV or FLAC request body (FLAC by its ``fLaC`` magic) -> mono
+    float32 at ``sample_rate``. Raises on a body it cannot decode."""
+    with tempfile.NamedTemporaryFile(suffix=".flac" if raw[:4] == b"fLaC" else ".wav") as f:
+        f.write(raw)
+        f.flush()
+        wav, sr = read_audio(f.name)
+    wav = wav.mean(0) if wav.shape[0] > 1 else wav[0]
+    if sr != sample_rate:
+        wav = resample_poly(wav, sr, sample_rate)
+    return np.asarray(wav, np.float32)
+
+
+def make_server(argv=None) -> HTTPServer:
+    """Parse the flags, build the enhancer (and the streamer when the
+    checkpoint can stream), warm both, and return the bound HTTP server, not
+    yet serving: ``main`` calls its ``serve_forever``. The server carries
+    ``enhance`` and ``stream_proto`` (None when /stream is unavailable)."""
+    ap = get_parser()
+    args = ap.parse_args(argv)
+    if args.mesh:
+        ap.error("--mesh is not ported yet (ROADMAP A12)")
+    if args.artifact:
+        ap.error("--artifact is not ported yet (ROADMAP A15)")
+    if not args.ckpt:
+        ap.error("--ckpt is required")
+    workers = args.workers
+    enhance = build_enhancer(
+        args.ckpt, args.sample_rate, -25.0 if args.target_level is None else args.target_level,
+        device=args.device, upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
+        fixed_rows=args.max_batch if args.fixed_batch else 0,
+    )
+    # warm up, so that the first request does not pay the kernels' builds
+    enhance(np.zeros(args.sample_rate, np.float32))
+
+    # live streaming: the constant-latency StatefulStreamer for one-direction
+    # raw-feature heads; other checkpoints keep serving /enhance and say why
+    # on /stream
+    stream_proto, stream_err = None, ""
+    ctx = enhance.stream_ctx
+    try:
+        if ctx["mode"] != "rawfeature":
+            raise ValueError(
+                "stateful streaming serves from_rawfeature heads; this checkpoint runs in "
+                f"'{ctx['mode']}' mode (upstream / waveform features need the whole "
+                "utterance)")
+        stream_proto = StatefulStreamer(ctx["model"], ctx["preprocessor"],
+                                        frames_per_chunk=args.stream_frames)
+        warm = stream_proto.clone()
+        warm.push(np.zeros(args.sample_rate, np.float32))
+        warm.flush()
+    except ValueError as e:
+        stream_proto, stream_err = None, str(e)
+    batcher = MicroBatcher(
+        enhance.run_batch, max_batch=args.max_batch, window_ms=args.batch_window_ms,
+        bucket_of=enhance.bucket_of,
+    ) if workers > 1 else None
+    if args.device == "cuda":
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = ["cpu"]
+    stats = {"requests": 0, "audio_seconds": 0.0, "wall_seconds": 0.0}
+    stats_lock = threading.Lock()
+    sample_rate = args.sample_rate
+
+    class Handler(BaseHTTPRequestHandler):
+        # chunked transfer (/stream, both directions) is HTTP/1.1; every
+        # response sends Connection: close, so that the single-threaded
+        # server never waits on a kept-alive socket
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *a):
+            pass
+
+        def _reply(self, code, body, ctype="application/octet-stream"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Connection", "close")
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                with stats_lock:
+                    body = json.dumps({"status": "ok", "device": args.device,
+                                       "devices": devices, **stats}).encode()
+                self._reply(200, body, "application/json")
+            else:
+                self._reply(404, b"not found", "text/plain")
+
+        def _body_pieces(self, chunked, length):
+            """The request body's pieces as they arrive: Transfer-Encoding
+            chunked decoded (the stdlib handler does not), or blocks of a
+            Content-Length body."""
+            if chunked:
+                while True:
+                    line = self.rfile.readline(66)
+                    size = int(line.split(b";")[0].strip() or b"0", 16)
+                    if size == 0:
+                        while True:  # trailer section, up to the blank line
+                            t = self.rfile.readline(1026)
+                            if t in (b"\r\n", b"\n", b""):
+                                return
+                    data = self.rfile.read(size)
+                    self.rfile.read(2)  # the chunk's CRLF
+                    yield data
+            else:
+                left = length
+                while left > 0:
+                    piece = self.rfile.read(min(65536, left))
+                    if not piece:
+                        return
+                    left -= len(piece)
+                    yield piece
+
+        def _do_stream(self):
+            """POST /stream: float32-LE mono PCM at --sample_rate in, the
+            enhanced PCM out, both chunked, the output emitted with the
+            streamer's fixed latency as the input arrives. Not renormalized
+            (the offline per-utterance renorm needs the whole utterance)."""
+            if stream_proto is None:
+                self._reply(400, f"streaming unavailable: {stream_err}".encode(),
+                            "text/plain")
+                return
+            chunked = "chunked" in (self.headers.get("Transfer-Encoding") or "").lower()
+            n = int(self.headers.get("Content-Length") or 0)
+            if not chunked and n == 0:
+                self._reply(400, b"empty stream body (send chunked or Content-Length "
+                            b"float32 PCM)", "text/plain")
+                return
+            streamer = stream_proto.clone()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            t0 = time.perf_counter()
+            emitted = 0
+
+            def emit(samples):
+                nonlocal emitted
+                b = np.asarray(samples, "<f4").tobytes()
+                if b:
+                    self.wfile.write(f"{len(b):x}\r\n".encode() + b + b"\r\n")
+                    self.wfile.flush()
+                    emitted += len(b) // 4
+
+            rem = b""
+            for piece in self._body_pieces(chunked, n):
+                data = rem + piece
+                cut = len(data) & ~3  # the float32-aligned prefix
+                rem = data[cut:]
+                if cut:
+                    emit(streamer.push(np.frombuffer(data[:cut], "<f4")))
+            emit(streamer.flush())
+            self.wfile.write(b"0\r\n\r\n")
+            with stats_lock:
+                stats["requests"] += 1
+                stats["audio_seconds"] += emitted / sample_rate
+                stats["wall_seconds"] += time.perf_counter() - t0
+
+        def do_POST(self):
+            if self.path == "/stream":
+                self._do_stream()
+                return
+            if self.path != "/enhance":
+                self._reply(404, b"not found", "text/plain")
+                return
+            n = int(self.headers.get("Content-Length", 0))
+            if n == 0 or n > 200 * 1024 * 1024:
+                self._reply(400, b"bad content length", "text/plain")
+                return
+            raw = self.rfile.read(n)
+            try:
+                wav = _decode_body(raw, sample_rate)
+            except Exception as e:  # a body the decoders refuse is the client's fault
+                self._reply(400, f"decode error: {e}".encode(), "text/plain")
+                return
+            t0 = time.perf_counter()
+            try:
+                if batcher is not None and len(wav) <= enhance.max_len:
+                    out = batcher.submit(wav)
+                else:
+                    out = enhance(wav)
+            except Exception as e:  # the server keeps serving; the client is told
+                traceback.print_exc(file=sys.stderr)
+                self._reply(500, f"enhance failed: {e}".encode(), "text/plain")
+                return
+            dt = time.perf_counter() - t0
+            with stats_lock:
+                stats["requests"] += 1
+                stats["audio_seconds"] += len(out) / sample_rate
+                stats["wall_seconds"] += dt
+            self._reply(200, wav_bytes(out, sample_rate), "audio/wav")
+
+    server_cls = ThreadingServer if workers > 1 else Server
+    server = server_cls((args.host, args.port), Handler)
+    server.enhance, server.stream_proto = enhance, stream_proto
+    print(f"[serve] listening on http://{args.host}:{server.server_address[1]} "
+          f"(device={args.device}, workers={workers}, /stream "
+          f"{'on' if stream_proto is not None else 'off: ' + stream_err})", flush=True)
+    return server
+
+
+def main(argv=None):
+    server = make_server(argv)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -184,8 +184,10 @@ def test_what_the_data_path_does_not_port(corpus, tmp_path):
         datasets.OnlineDataset(**_dataset_conf(corpus, pseudo_modes=[0, 1]))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         datasets.DATASET_REGISTRY["NoisyCleanDataset"](roots=[str(corpus)])
+    # FLAC input is ported: a truncated stream is a decode failure, not a
+    # missing feature
     (tmp_path / "a.flac").write_bytes(b"fLaC")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="FLAC decode failed"):
         audio_io.load_audio(str(tmp_path / "a.flac"))
 
 

@@ -403,7 +403,8 @@ enhance = build_enhancer(sys.argv[1], device="cpu")
 out = enhance(np.zeros(3000, np.float32) + 0.01)
 assert out.shape == (3000,) and np.isfinite(out).all()
 # the kernel modules' plain versions, the recurrence routes and the long-form entry
-for name in ("ops.cuda.stft_kernel", "ops.cuda.decode_kernel", "ops.streaming"):
+for name in ("ops.cuda.stft_kernel", "ops.cuda.decode_kernel", "ops.streaming",
+             "data.flac", "tools.serve_load", "tools.stream_client"):
     assert pkg.__name__ + "." + name in mods, name
 for route in ("blocked", "fused"):
     routed = build_enhancer(sys.argv[1], device="cpu", max_bucket_ms=2000)
