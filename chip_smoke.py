@@ -121,7 +121,23 @@ Phases, one line each:
      over HTTP beside the direct call, ``tools/serve_load.py`` at levels 1, 4
      and 16 (256 requests a level), and at 16 under ``--fixed_batch`` with
      its probes byte-identical, the stream's chunk, RTF and first audio, B1
-     at one chunk's shape with and without state.
+     at one chunk's shape with and without state;
+ 11. the active-learning sampler at full width: config/active.yaml (LSTM 3 x
+     256 bidirectional, corpus paths and step counts changed, every sampler
+     cadence cut to fire) through ``build_runner`` / ``Runner`` with two
+     seeded full-width S3PRL upstreams and scripts/run_active.sh's flags
+     (``--active_sampling --sync_sampler --eval_init --save_best``): the
+     launches of B1, B2 fwd, B2 bwd, B4 and B5 against the count the run's
+     calls make (9 B2 fwd and 9 B2 bwd a sync-sampled step); one sync scoring
+     call card against CPU at the run's shapes (32 query rows, 12
+     candidates, 10 s) under both engines (``vmap``, ``capture``) and
+     ``active_layerid`` None and 1, with the same ``match > 0`` set, and the
+     same call with TF32 on required to break the limits; the
+     async sampler (``--sampler_device 0``) collecting samples;
+     ``--test_gradient --n_iterate 2`` writing ``sim_box.png``; one step of
+     config/pseudo_noise.yaml; and times: the per-sample scoring call at 12
+     x 10 s under each engine, the 32-row ``mean=True`` call, the train step
+     with and without the sync sampler, under ``torch.profiler``.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -130,6 +146,7 @@ numbers, and last
 non-zero without that last line. It needs a CUDA card and the repository
 around it.
 """
+import contextlib
 import http.client
 import json
 import math
@@ -1966,28 +1983,30 @@ def wav_frames(path):
         return w.getnframes()
 
 
-def vcb_config(corpus, objective_steps):
-    """config/vcb.yaml with its corpus paths pointing at ``corpus`` (written
-    by ``write_corpus``) and its step counts replaced by ``objective_steps``.
+def shipped_config(corpus, name, steps, candidates):
+    """config/{name}.yaml with its corpus paths pointing at ``corpus``
+    (written by ``write_corpus``) and its step counts replaced by ``steps``.
     Its train split keeps the files after the first ``sample_num`` (1000) of
-    its list for training and draws the dev split from those 1000, so the
-    train split reads a list of the corpus's speech files repeated past
-    1000 lines; the test split reads the directory."""
+    its list for training and draws the dev split (and query_dev) from those
+    1000, so the train split reads a list of the corpus's speech files
+    repeated past 1000 + ``candidates`` lines; the test split reads the
+    directory."""
     import yaml
 
-    with open(os.path.join(ROOT, "config", "vcb.yaml")) as f:
+    with open(os.path.join(ROOT, "config", f"{name}.yaml")) as f:
         config = yaml.safe_load(f)
     speech, noise = os.path.join(corpus, "speech"), os.path.join(corpus, "noise")
     train = config["OnlineDataset_train"]["speech"]
     files = sorted(os.listdir(speech))
-    listed = os.path.join(corpus, "train_speech.txt")
+    listed = os.path.join(corpus, f"{name}_train_speech.txt")
     with open(listed, "w") as f:
-        f.writelines(files[k % len(files)] + "\n" for k in range(train["sample_num"] + len(files)))
+        f.writelines(files[k % len(files)] + "\n"
+                     for k in range(train["sample_num"] + candidates))
     train.update(filestrs=listed, fileroot=speech)
     config["OnlineDataset_test"]["speech"]["filestrs"] = speech
     for split in ("OnlineDataset_train", "OnlineDataset_test"):
         config[split]["noise"]["filestrs"] = noise
-    config["runner"].update(objective_steps)
+    config["runner"].update(steps)
     return config
 
 
@@ -2114,7 +2133,7 @@ def objectives_phase(torch, kernels, all_kernels, dsp_kernels, card, tmp):
         def runner_for(name, objective, steps):
             cfg_path = os.path.join(tmp, f"{name}.yaml")
             with open(cfg_path, "w") as f:
-                yaml.safe_dump(vcb_config(corpus, steps), f)
+                yaml.safe_dump(shipped_config(corpus, "vcb", steps, 12), f)
             args, config = get_downstream_args([
                 "--config", cfg_path, "--name", name, "--expdir", os.path.join(tmp, "exp"),
                 "--downstream", "Residual", "--objective", objective, "--from_rawfeature",
@@ -2716,6 +2735,392 @@ def front_end_phase(torch, L, all_kernels, dsp_kernels, card, tmp):
           f"{plain2:.4f} ms, with the carried state in and out {carried:.4f} ms, plain "
           f"version {ref_ms:.3f} ms | {card}", flush=True)
     return nums
+
+
+# the active path (phase 11): config/active.yaml cut to a few steps, every
+# cadence of the sampler firing; only the step counts and corpus paths change
+ACTIVE_STEPS = {"total_step": 4, "log_step": 2, "eval_step": 4, "save_step": 4,
+                "media_step": 2, "sampler_refresh_step": 2, "sampler_collect_step": 2,
+                "active_refresh_step": 2}
+ASYNC_STEPS = {**ACTIVE_STEPS, "total_step": 6, "eval_step": 100, "save_step": 100,
+               "media_step": 100, "sampler_refresh_step": 4}
+# a step of the sync sampler: the query's mean=True call, the candidates'
+# per-sample call and the train step, each one forward and one backward
+# through the three layers (B2 fwd / B2 bwd under LstmBidirTm) and one B4
+SYNC_STEP_B2 = 3 * 3
+# one sync scoring call, card vs CPU at the main path's shapes (32 query rows
+# under mean=True, 12 candidates per sample, the 10 s bucket): the
+# embeddings relative to their largest |value|, the match scores absolute.
+# Both sides sum the same f32 products in other orders: the recurrence's
+# backward over 1001 steps (B2 bwd's products in three TF32 passes) and the
+# per-sample sums over the steps. The phase also makes the same call with
+# TF32 on (the hazard: a contraction of the scoring or of `matching` outside
+# full_f32) and requires it to break a limit. Read on an NVIDIA H100 80GB
+# HBM3, 700.00 W, over both engines and layers None and 1: embeddings 4.5e-7
+# to 6.6e-7 sound, 3.6e-4 to 2.6e-3 with TF32 on, so the embedding limit
+# lies ~15x above the one and ~36x below the other; match scores 9.1e-6 to
+# 2.4e-5 sound, 2.5e-5 to 8.9e-5 with TF32 on, too close to separate every
+# call: the match limit is ~2x the sound reading, below TF32's on the whole
+# head, and the embedding limit is the one that sees TF32 on layer 1
+ACTIVE_EMB_TOL = 1e-5
+ACTIVE_MATCH_TOL = 5e-5
+ACTIVE_QUERY_ROWS, ACTIVE_SCORE_ROWS = 32, 12
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """TF32 on for the matmuls and convolutions inside, restored after."""
+    seen = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = seen
+
+
+def active_phase(torch, all_kernels, card, tmp):
+    """Phase 11, the active-learning sampler at full width on the card:
+
+    (a) config/active.yaml (LSTM 3 x 256 bidirectional over 120-d log-mel +
+        2 deltas; corpus paths and step counts changed, every sampler cadence
+        cut to fire) through ``build_runner`` / ``Runner`` with two seeded
+        full-width S3PRL upstreams and scripts/run_active.sh's flags
+        (``--active_sampling --sync_sampler --eval_init --save_best``): the
+        launches of B1, B2 fwd, B2 bwd, B4 and B5 in this single-threaded run
+        against the count the run's calls make, B3 none (the upstreams make
+        the pseudo wavs in eval mode), the media against the cadence;
+    (b) one sync scoring call card against CPU at the run's shapes under
+        both engines and ``active_layerid`` None and 1 (and
+        ``hist_scoring``), and the card's call with TF32 on, which must break
+        a limit;
+    (c) the async sampler (``--sampler_device 0``) for a few steps, a
+        ``collect`` returning samples;
+    (d) ``--test_gradient --n_iterate 2`` writing ``sim_box.png``, and one
+        step of config/pseudo_noise.yaml;
+    (e) times: the per-sample scoring call at 12 x 10 s under each engine,
+        the 32-row ``mean=True`` call, the train step with and without the
+        sync sampler, under ``torch.profiler`` for busy and idle share.
+    Returns the numbers for the ``kernels`` line and the closing line."""
+    import copy
+
+    import yaml
+
+    from speech_enhancement_by_s3prl_tpu_torch.active import sampler as S
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+    )
+
+    b1, b2f, b2b, b3f, b3b, stft_fused, decode_ola = all_kernels[:7]
+    out = {}
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED)
+    ckpts = [write_s3prl_checkpoint(torch, os.path.join(tmp, f"up{k}.ckpt"), SEED + k)
+             for k in (1, 2)]
+
+    def runner_for(name, config_name, steps, *flags):
+        cfg_path = os.path.join(tmp, f"{name}.yaml")
+        with open(cfg_path, "w") as f:
+            # 48 candidates: the query batch takes 32
+            yaml.safe_dump(shipped_config(corpus, config_name, steps, 48), f)
+        args, config = get_downstream_args([
+            "--config", cfg_path, "--name", name, "--expdir", os.path.join(tmp, "exp"),
+            "--ckpt", ckpts[0], "--ckpt2", ckpts[1], "--downstream", "LSTM",
+            "--objective", "L1", "--from_rawfeature", "--dev_num", "12", "--n_jobs", "4",
+            "--seed", str(SEED), "--device", "cuda", *flags])
+        random.seed(SEED)
+        np.random.seed(SEED)
+        runner = build_runner(args, config)
+        runner.set_model()
+        return runner, os.path.join(tmp, "exp", name)
+
+    # -- (a) config/active.yaml, the sync sampler ------------------------------
+    runner, run_dir = runner_for("active", "active", ACTIVE_STEPS, "--active_sampling",
+                                 "--sync_sampler", "--eval_init", "--save_best")
+    steps, evals, media_b4, scored = [], [], [], []
+    train_step, eval_step = runner.train_step, runner.builder.eval_step
+    media_logging = runner.media.media_logging
+
+    def step(state, wavs, lengths):
+        state, stats = train_step(state, wavs, lengths)
+        steps.append((tuple(wavs.shape), stats))
+        return state, stats
+
+    def eval_batch(wavs, lengths, **kw):
+        evals.append(tuple(wavs.shape))
+        return eval_step(wavs, lengths, **kw)
+
+    def media_recorded(step_, tag, data):
+        before = stft_fused.launches
+        media_logging(step_, tag, data)
+        media_b4.append((step_, tag, stft_fused.launches - before))
+
+    scoring_fn = runner._scoring_fn
+
+    def scoring_recorded():
+        inner = scoring_fn()
+
+        def scoring(model, wavs, lengths, **kw):
+            result = inner(model, wavs, lengths, **kw)
+            scored.append((tuple(wavs.shape), kw.get("mean", False), tuple(result.shape)))
+            return result
+        return scoring
+
+    runner.train_step, runner.builder.eval_step = step, eval_batch
+    runner.media.media_logging, runner._scoring_fn = media_recorded, scoring_recorded
+    t0 = time.perf_counter()
+    # -- the main path of the active sampler, between the reset and the reading --
+    reset_counts(all_kernels)
+    runner.train()
+    counts = [fn.launches for fn in all_kernels]
+    active_counts = [b1.launches, b2f.launches, b2b.launches, stft_fused.launches,
+                     decode_ola.launches]
+    # ---------------------------------------------------------------------------
+    run_s = time.perf_counter() - t0
+    check_b5_route(decode_ola, "the active run")
+    n_steps, n_evals, n_media = len(steps), len(evals), len(media_b4)
+    losses = [float(st["loss"]) for _, st in steps]
+    if n_steps != ACTIVE_STEPS["total_step"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"active run: {n_steps} steps, losses {losses}")
+    # the pseudo wavs: the record split's phase and each upstream's input
+    # features (B4 three times), each upstream's decode (B5 twice)
+    want = [3 * n_evals, SYNC_STEP_B2 * n_steps, SYNC_STEP_B2 * n_steps,
+            3 * n_steps + n_evals + n_media + 3, n_evals + 2]
+    if (active_counts != want or sum(counts) != sum(want) or b3f.launches or b3b.launches
+            or any(n != 1 for _, _, n in media_b4)):
+        raise AssertionError(f"active run launches (B1, B2 fwd, B2 bwd, B4, B5) "
+                             f"{active_counts}, want {want}; all kernels {counts}; B4 a "
+                             f"media clip {[n for _, _, n in media_b4]}")
+    means = [s for s in scored if s[1]]
+    per_sample = [s for s in scored if not s[1]]
+    if len(means) != n_steps or len(per_sample) != n_steps or any(
+            s[0][0] != 32 or s[2][0] != 1 for s in means) or any(
+            s[0][0] != 12 or s[2][0] != 12 for s in per_sample):
+        raise AssertionError(f"the sync sampler's scoring calls {scored}")
+    emb_dim = per_sample[0][2][1]
+    media_tags = [(s, t) for s, t, _ in media_b4]
+    record = [t for s, t in media_tags if t.startswith("record/")]
+    queried = {s for s, t in media_tags if t.startswith("active/query")}
+    if record != [f"record/{t}" for t in ("noisy", "clean", "noise", "pseudo_clean",
+                                          "pseudo_noise")] or queried != {2, 4}:
+        raise AssertionError(f"active run media {media_tags}")
+    scalars = [json.loads(ln) for ln in open(os.path.join(run_dir, "scalars.jsonl"))]
+    eval_losses = [s["value"] for s in scalars if s["tag"].endswith("_loss")]
+    if len(eval_losses) != 2 * len(runner.rconfig["eval_splits"]) or not all(
+            map(math.isfinite, [s["value"] for s in scalars])):
+        raise AssertionError(f"active run scalars {scalars}")
+    matched = sum(t == "active/match_noisy" for _, t in media_tags)
+    print(f"[active] config/active.yaml (LSTM 3 x 256 bidirectional, 120-d log-mel + 2 "
+          f"deltas; corpus paths and step counts {ACTIVE_STEPS} changed) through Runner on "
+          f"cuda with --active_sampling --sync_sampler --eval_init --save_best and two "
+          f"seeded full-width S3PRL upstreams: {n_steps} steps in {run_s:.2f} s, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, train batches "
+          f"{sorted({sh for sh, _ in steps})}, eval losses "
+          f"{', '.join(f'{x:.4f}' for x in eval_losses)}; scoring calls: {len(means)} "
+          f"mean=True on 32 rows, {len(per_sample)} per-sample on 12 rows, embedding "
+          f"{emb_dim} coordinates; launches (B1, B2 fwd, B2 bwd, B4, B5) {active_counts} = "
+          f"{SYNC_STEP_B2} B2 fwd + {SYNC_STEP_B2} B2 bwd + 3 B4 a sync step, 3 B1 + 1 B4 + "
+          f"1 B5 each of {n_evals} eval batches, 1 B4 each of {n_media} media clips, 3 B4 + "
+          f"2 B5 for the pseudo wavs; B3 none; match media at {matched} of the 2 media "
+          f"steps", flush=True)
+    out.update(counts=active_counts, steps=n_steps, emb_dim=emb_dim)
+
+    # -- (b) one sync scoring call, card vs CPU ---------------------------------
+    runner.train_step, runner.builder.eval_step = train_step, eval_step
+    runner.media.media_logging, runner._scoring_fn = media_logging, scoring_fn
+    q_lengths, q_wavs, _ = next(iter(runner.get_dataloader(runner.get_dataset("query"),
+                                                           bsz=ACTIVE_QUERY_ROWS)))
+    t_lengths, t_wavs, _ = next(iter(runner.get_dataloader(runner.get_dataset("train"),
+                                                           bsz=ACTIVE_SCORE_ROWS)))
+    cpu_model = copy.deepcopy(runner.downstream_model).cpu()
+    model = runner.downstream_model
+    sound_full_f32 = S.full_f32
+    errs, tf32_errs, cpu_s = {}, {}, 0.0
+    cpu_query = {}
+
+    def compared(a, b):
+        """(embedding err / max, match max abs err, same match > 0 set,
+        matches on the CPU, embedding shape) of (embeddings, match) pairs."""
+        return (float((a[0] - b[0]).abs().max() / b[0].abs().max()),
+                float((a[1] - b[1]).abs().max()), torch.equal(a[1] > 0, b[1] > 0),
+                int((b[1] > 0).sum()), tuple(b[0].shape))
+
+    for impl in ("vmap", "capture"):
+        for layerid in (None, 1):
+            fn = S.make_scoring_fn(runner.builder, layerid, impl=impl)
+            t1 = time.perf_counter()
+            if layerid not in cpu_query:  # mean=True runs no per-sample engine
+                cpu_query[layerid] = fn(cpu_model, q_wavs, q_lengths, mean=True)
+            t = fn(cpu_model, t_wavs, t_lengths)
+            cpu = (t.detach(), S.matching(cpu_query[layerid], t).detach())
+            cpu_s += time.perf_counter() - t1
+            got = {}
+            for name in ("sound", "tf32"):
+                # the same call with TF32 on in place of full_f32
+                S.full_f32 = sound_full_f32 if name == "sound" else (lambda: tf32_on(torch))
+                try:
+                    q = fn(model, q_wavs, q_lengths, mean=True)
+                    t = fn(model, t_wavs, t_lengths)
+                    got[name] = (t.detach().cpu(), S.matching(q, t).detach().cpu())
+                finally:
+                    S.full_f32 = sound_full_f32
+            errs[(impl, layerid)] = compared(got["sound"], cpu)
+            tf32_errs[(impl, layerid)] = compared(got["tf32"], cpu)
+    hist = [S.hist_scoring(runner.preprocessor, torch.from_numpy(t_wavs).to(dev)).cpu()
+            for dev in ("cuda", "cpu")]
+    hist_err = float((hist[0] - hist[1]).abs().max())
+    print(f"[active] one sync scoring call card vs CPU ({ACTIVE_SCORE_ROWS} candidates and "
+          f"{ACTIVE_QUERY_ROWS} query rows of the run's data, "
+          f"{t_wavs.shape[-1] / SR:.0f} / {q_wavs.shape[-1] / SR:.0f} s padded, the run's "
+          f"head; the CPU side {cpu_s:.1f} s): "
+          + "; ".join(f"{impl} layer {lid}: {shape[1]} coordinates, embedding err / max "
+                      f"{e:.2e} (limit {ACTIVE_EMB_TOL:.0e}; TF32 on "
+                      f"{tf32_errs[(impl, lid)][0]:.2e}), match max abs err {m:.2e} (limit "
+                      f"{ACTIVE_MATCH_TOL:.0e}; TF32 on {tf32_errs[(impl, lid)][1]:.2e}), "
+                      f"match > 0 for {n} of {shape[0]} on both (TF32 on: same set "
+                      f"{tf32_errs[(impl, lid)][2]})"
+                      for (impl, lid), (e, m, _, n, shape) in errs.items())
+          + f"; hist_scoring max abs err {hist_err:.2e}", flush=True)
+    for key, (emb, match, same, _, _) in errs.items():
+        if not (emb <= ACTIVE_EMB_TOL and match <= ACTIVE_MATCH_TOL and same):
+            raise AssertionError(f"scoring {key} card vs CPU: embedding {emb}, match "
+                                 f"{match}, same match>0 set {same}")
+    for key, (emb, match, same, _, _) in tf32_errs.items():
+        if emb <= ACTIVE_EMB_TOL and match <= ACTIVE_MATCH_TOL and same:
+            raise AssertionError(f"scoring {key} with TF32 on passed the limits (embedding "
+                                 f"{emb}, match {match}): they cannot see the hazard")
+    if not hist_err <= ACTIVE_MATCH_TOL:
+        raise AssertionError(f"hist_scoring card vs CPU {hist_err}")
+    out.update(errs=errs, tf32_errs=tf32_errs)
+    del cpu_model, cpu_query
+
+    # -- (c) the async sampler ----------------------------------------------
+    arun, _ = runner_for("async", "active", ASYNC_STEPS, "--active_sampling",
+                         "--sampler_device", "0")
+    collected, starts = [], []
+    a_train, a_start = arun.train_step, arun._start_sampler
+
+    def a_start_recorded():
+        a_start()
+        starts.append(arun.global_step)
+
+    def a_step(state, wavs, lengths):
+        # before a collect step, wait (at most 120 s) until the sampler's
+        # thread has kept a sample, so that the collect has one to return
+        nxt = arun.global_step + 1
+        if nxt % ASYNC_STEPS["sampler_collect_step"] == 0 and arun.sampler is not None:
+            t1 = time.perf_counter()
+            while (not any(arun.sampler._buffers.values()) and arun.sampler.alive
+                   and time.perf_counter() - t1 < 120):
+                time.sleep(0.05)
+        return a_train(state, wavs, lengths)
+
+    a_collect = S.AsyncSampler.collect
+
+    def collect_recorded(self):
+        got = a_collect(self)
+        collected.append(sum(len(v) for v in got.values()))
+        return got
+
+    arun.train_step, arun._start_sampler = a_step, a_start_recorded
+    S.AsyncSampler.collect = collect_recorded
+    t0 = time.perf_counter()
+    try:
+        arun.train()
+    finally:
+        S.AsyncSampler.collect = a_collect
+    async_s = time.perf_counter() - t0
+    print(f"[active] async sampler (--sampler_device 0, its own stream, a snapshot of the "
+          f"head each start): {ASYNC_STEPS['total_step']} steps in {async_s:.2f} s, started "
+          f"at steps {starts}, collects returned {collected} samples, stopped at the end: "
+          f"{arun.sampler is None}", flush=True)
+    if not (collected and max(collected) > 0 and arun.sampler is None and len(starts) >= 2):
+        raise AssertionError(f"async sampler: starts {starts}, collects {collected}")
+    out.update(async_collected=collected, async_starts=starts)
+    del arun
+
+    # -- (d) --test_gradient and config/pseudo_noise.yaml ----------------------
+    grun, gdir = runner_for("gradient", "active", ACTIVE_STEPS, "--test_gradient",
+                            "--n_iterate", "2")
+    sims = grun.test_gradient()
+    box = os.path.join(gdir, "sim_box.png")
+    n_sims = {k: len(v) for k, v in sorted(sims.items())}
+    if not (os.path.exists(box) and sum(n_sims.values()) > 0):
+        raise AssertionError(f"test_gradient: {box} {os.path.exists(box)}, {n_sims}")
+    del grun
+    prun, _ = runner_for("pseudo_noise", "pseudo_noise", {**ACTIVE_STEPS, "total_step": 1},
+                         "--active_sampling", "--sync_sampler")
+    p_steps = []
+    p_train = prun.train_step
+
+    def p_step(state, wavs, lengths):
+        state, stats = p_train(state, wavs, lengths)
+        p_steps.append(float(stats["loss"]))
+        return state, stats
+
+    prun.train_step = p_step
+    prun.train()
+    print(f"[active] --test_gradient --n_iterate 2: sim_box.png {png_size(box)} pixels, "
+          f"similarities a case {n_sims}; config/pseudo_noise.yaml (buffer weights [1, 0, 0, "
+          f"0]) one sync-sampled step, loss {p_steps}", flush=True)
+    if len(p_steps) != 1 or not math.isfinite(p_steps[0]):
+        raise AssertionError(f"pseudo_noise step {p_steps}")
+    del prun
+
+    # -- (e) times ---------------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for i in range(32):
+        c = speech_like(10 * SR, 70 + i)
+        n = 0.05 * rng.standard_normal(c.shape).astype(np.float32)
+        rows.append(np.stack([c + n, c, n]))
+    wavs = torch.from_numpy(np.stack(rows)).cuda()
+    lengths = torch.full((32,), wavs.shape[-1], dtype=torch.long, device="cuda")
+    model, state = runner.downstream_model, runner.state
+    fns = {impl: S.make_scoring_fn(runner.builder, impl=impl) for impl in ("vmap", "capture")}
+    score_runs = {"vmap": [], "capture": []}
+    for impl in ("vmap", "capture", "capture", "vmap"):
+        score_runs[impl] += synced_ms(torch, lambda f=fns[impl]: f(model, wavs[:12],
+                                                                   lengths[:12]), runs=5)
+    score_ms = {k: statistics.median(v) for k, v in score_runs.items()}
+    mean_ms = statistics.median(synced_ms(torch, lambda: fns["vmap"](
+        model, wavs, lengths, mean=True), runs=5))
+
+    def sync_step():
+        q = fns["vmap"](model, wavs, lengths, mean=True)
+        t = fns["vmap"](model, wavs[:12], lengths[:12])
+        keep = torch.nonzero(S.matching(q, t) > 0).cpu()
+        runner.train_step(state, wavs[:6], lengths[:6])
+        return keep
+
+    plain = {"plain": [], "sync": []}
+    for name in ("plain", "sync", "sync", "plain"):
+        plain[name] += synced_ms(torch, (lambda: runner.train_step(state, wavs[:6],
+                                                                    lengths[:6]))
+                                 if name == "plain" else sync_step, runs=5)
+    step_ms = {k: statistics.median(v) for k, v in plain.items()}
+    busy = {
+        "per-sample vmap 12 rows": device_busy(torch, lambda: fns["vmap"](
+            model, wavs[:12], lengths[:12]), calls=3),
+        "per-sample capture 12 rows": device_busy(torch, lambda: fns["capture"](
+            model, wavs[:12], lengths[:12]), calls=3),
+        "mean=True 32 rows": device_busy(torch, lambda: fns["vmap"](
+            model, wavs, lengths, mean=True), calls=3),
+        "train step B=6": device_busy(torch, lambda: runner.train_step(
+            state, wavs[:6], lengths[:6]), calls=3),
+        "sync-sampled step": device_busy(torch, sync_step, calls=3),
+    }
+    print(f"[time] active sampler at full width (LSTM 3 x 256 bidirectional, 10 s rows, "
+          f"{emb_dim} coordinates an embedding): per-sample scoring 12 rows, median of 10 "
+          f"(in turns vmap, capture, capture, vmap) vmap {score_ms['vmap']:.3f} ms, capture "
+          f"{score_ms['capture']:.3f} ms; mean=True 32 rows {mean_ms:.3f} ms; train step B=6 "
+          f"{step_ms['plain']:.3f} ms, with the sync sampler (both scoring calls, the match "
+          f"read back, the step) {step_ms['sync']:.3f} ms; under torch.profiler: "
+          + "; ".join(f"{k} wall {w:.3f} ms, device busy {b_:.3f} ms, idle share "
+                      f"{max(0.0, 1 - b_ / w):.3f}, {kn:.0f} kernels"
+                      for k, (b_, w, kn, _) in busy.items()) + f" | {card}", flush=True)
+    out.update(score_ms=score_ms, mean_ms=mean_ms, step_ms=step_ms, busy=busy)
+    return out
 
 
 def main():
@@ -3353,6 +3758,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         front = front_end_phase(torch, L, all_kernels, (stft_fused, decode_ola), card, tmp)
 
+    # 11. the active-learning sampler on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        active = active_phase(torch, all_kernels, card, tmp)
+    active_counts = active["counts"]
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -3391,7 +3801,7 @@ def main():
             times[1][0], times[1][1], "B=1 T=1001 H=256", lstm_bound(1, T, H), cudnn[1],
             launches_train_eval=train_counts[0], launches_long_form=long_counts[1],
             launches_metrics_eval=metric_nums["launches"][0],
-            launches_vcb_pmsqe_run=vcb_counts[0],
+            launches_vcb_pmsqe_run=vcb_counts[0], launches_active_run=active_counts[0],
             launches_one_direction=one_dir_launches, one_direction_enhance_ms=one_dir_ms,
             launches_stream=front["stream_launches"],
             launches_http_stream=front["http_stream_launches"],
@@ -3413,7 +3823,7 @@ def main():
             ms_b64=times[("fc", 64)][0], plain_ms_b64=times[("fc", 64)][1],
             bound_ms_b64=lstm_bound(64, T, H, extra_streams=1)[0],
             library_ms_b64=times[("cudnn_train", 64)][0], ms_b1=times[("fc_cluster", 1)],
-            launches_vcb_pmsqe_run=vcb_counts[1],
+            launches_vcb_pmsqe_run=vcb_counts[1], launches_active_run=active_counts[1],
             bound_ms_b1=lstm_bound(1, T, H, extra_streams=1)[0],
             max_rel_err_cs=fwd_routes["cluster"][1], **fwd_route_fields("fc_")),
         row("lstm_bidir_tm_bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", train_counts[2],
@@ -3421,7 +3831,7 @@ def main():
             "B=6 T=1001 H=256",
             lstm_bound(6, T, H, products=3, extra_streams=3, peak=PEAK_TF32),
             times[("cudnn_train", 6)][1], max_rel_err=b2_err["bwd"],
-            launches_vcb_pmsqe_run=vcb_counts[2],
+            launches_vcb_pmsqe_run=vcb_counts[2], launches_active_run=active_counts[2],
             ms_b64=times[("bwd", 64)][0], plain_ms_b64=times[("bwd", 64)][1],
             bound_ms_b64=lstm_bound(64, T, H, products=3, extra_streams=3,
                                     peak=PEAK_TF32)[0],
@@ -3463,6 +3873,7 @@ def main():
         launches_train_eval=train_dsp[0], launches_long_form=long_counts[0],
         launches_metrics_eval=metric_nums["launches"][1],
         launches_vcb_pmsqe_run=vcb_counts[3], launches_media_step=obj_nums["media_b4"],
+        launches_active_run=active_counts[3],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "stft_fused.cu", product_max_abs_err=dsp_err[2],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -3485,7 +3896,7 @@ def main():
         decode_bound(1, 1001, 400, 160), times[("torch_istft", 1)],
         launches_train_eval=train_dsp[1], launches_long_form=long_counts[4],
         launches_metrics_eval=metric_nums["launches"][2],
-        launches_vcb_pmsqe_run=vcb_counts[4],
+        launches_vcb_pmsqe_run=vcb_counts[4], launches_active_run=active_counts[4],
         kernel_route="fft (n_fft / 2 factors into 2, 3, 4, 5)",
         product_source=csrc + "decode_ola.cu", product_max_abs_err=dsp_err[3],
         product_route="an n_fft with no FFT plan; timed here at n_fft 400",
@@ -3574,6 +3985,20 @@ def main():
           f"--workers 4 {front['bi4_exact']} of {len(FRONT_SECONDS)}; B1 T=48 "
           f"{front['t48_ms']:.4f} ms, with state {front['t48_state_ms']:.4f} | {card}",
           flush=True)
+    busy = active["busy"]
+    print(f"[active] config/active.yaml run: launches (B1, B2 fwd, B2 bwd, B4, B5) "
+          f"{active_counts} in {active['steps']} sync-sampled steps; scoring card vs CPU "
+          + ", ".join(f"{impl} layer {lid} ({e:.1e}, {m:.1e})"
+                      for (impl, lid), (e, m, *_) in active["errs"].items())
+          + " (embedding rel, match abs; with TF32 on "
+          + ", ".join(f"({e:.1e}, {m:.1e})" for e, m, *_ in active["tf32_errs"].values())
+          + f"); async collects {active['async_collected']}; "
+          f"per-sample scoring 12 x 10 s vmap {active['score_ms']['vmap']:.3f} ms, capture "
+          f"{active['score_ms']['capture']:.3f} ms, mean=True 32 rows "
+          f"{active['mean_ms']:.3f} ms; train step B=6 {active['step_ms']['plain']:.3f} ms, "
+          f"sync-sampled {active['step_ms']['sync']:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy['sync-sampled step'][0] / busy['sync-sampled step'][1]):.3f}) "
+          f"| {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@
 the (time, 3) channel stack (noisy, clean, scaled noise). Determinism: file
 order, the noise file of each index and its SNR are frozen by seed 0 at
 construction; ``infinite=True`` draws noise and SNR afresh per access, from
-the per-item stream the loader installs. ``NoisyCleanDataset`` and the
-``pseudo_modes`` cases of the active sampler are not ported yet (ROADMAP A7,
-A9).
+the per-item stream the loader installs. ``pseudo_modes`` draws one of the
+active sampler's four cases per item from that stream and puts pseudo-clean
+speech or pseudo noise (waveforms the Runner makes with the two upstreams) in
+place of the real ones. ``NoisyCleanDataset`` reads paired clean and noisy
+corpora. Every draw is the JAX package's, in its order, so an item has the
+same bits in both packages.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import copy
 import glob as globlib
 import os
 import random
+import re
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -151,7 +155,12 @@ def pad_collate(samples, pad_to: Optional[int] = None):
 class OnlineDataset:
     """Clean speech + noise corpora mixed on the fly at a sampled SNR.
 
-    `half_noise` gives train/test disjoint noise halves ('front'/'end')."""
+    `half_noise` gives train/test disjoint noise halves ('front'/'end').
+    `pseudo_modes` makes an item ``(wavs, case)``, the case drawn from the
+    list: 0 = real speech + pseudo noise, 1 = real speech + real noise, 2 =
+    pseudo clean + real noise, 3 = pseudo clean + pseudo noise; a pseudo
+    source is a random pick of `pseudo_clean` / `pseudo_noise` (lists of 1-D
+    waveforms), the real one when that list is None."""
 
     def __init__(
         self, speech: dict, noise: dict, sample_rate: int = 16000,
@@ -161,17 +170,15 @@ class OnlineDataset:
         pseudo_clean=None, pseudo_noise=None, seed: int = 0, eps: float = 1e-8,
         **kwargs,
     ):
-        if pseudo_modes is not None or pseudo_clean is not None or pseudo_noise is not None:
-            raise NotImplementedError(
-                "OnlineDataset pseudo_modes / pseudo_clean / pseudo_noise (the "
-                "active sampler's pseudo-wav cases) are not ported yet (ROADMAP A9)"
-            )
         self.sample_rate = sample_rate
         self.max_time = max_time
         self.min_time = min_time
         self.target_level = target_level
         self.infinite = infinite
         self.half_noise = half_noise
+        self.pseudo_modes = list(pseudo_modes) if pseudo_modes is not None else None
+        self.pseudo_clean = pseudo_clean
+        self.pseudo_noise = pseudo_noise
         self.eps = eps
 
         self.filepths = filestrs2list(**speech)
@@ -208,13 +215,24 @@ class OnlineDataset:
     def __getitem__(self, idx):
         idx = self.id_mapping[idx]
         rng = item_random()
-        speech = self._normalize(self.load_data(self.filepths[idx]))
+        case = rng.choice(self.pseudo_modes) if self.pseudo_modes is not None else None
 
+        if case in (2, 3) and self.pseudo_clean is not None:
+            speech = np.asarray(rng.choice(self.pseudo_clean), dtype=np.float32)
+        else:
+            speech = self.load_data(self.filepths[idx])
+        speech = self._normalize(speech)
+
+        # the noise file is drawn even when pseudo noise replaces it, as the
+        # JAX package draws it, so the stream stays in step
         noise_pth = (
             rng.choice(self.all_noises) if self.infinite
             else self.fixed_noises[idx]
         )
-        noise = self.load_data(noise_pth)
+        if case in (0, 3) and self.pseudo_noise is not None:
+            noise = np.asarray(rng.choice(self.pseudo_noise), dtype=np.float32)
+        else:
+            noise = self.load_data(noise_pth)
         if self.half_noise:
             middle = len(noise) // 2
             noise = noise[:middle] if self.half_noise == "front" else noise[middle:]
@@ -222,7 +240,8 @@ class OnlineDataset:
 
         snr = rng.choice(self.all_snrs) if self.infinite else self.fixed_snrs[idx]
         noisy, scaled_noise = add_noise_np(speech, noise, snr, self.eps)
-        return np.stack([noisy, speech, scaled_noise], axis=-1)  # (time, 3)
+        wavs = np.stack([noisy, speech, scaled_noise], axis=-1)  # (time, 3)
+        return wavs if case is None else (wavs, case)
 
     def __len__(self):
         return len(self.id_mapping)
@@ -240,15 +259,101 @@ class OnlineDataset:
         return subset
 
 
-def _not_ported(name: str, item: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet ({item})")
+class NoisyCleanDataset:
+    """Paired clean / noisy corpora matched by a file-id regex. Each root
+    holds ``clean/`` and ``noisy/`` subdirectories; a pair shares a
+    ``fileid_\\d+`` token. The clean files are a seeded sample (``seed``
+    1227, ``sample_ratio``) or its complement; an utterance longer than
+    ``max_sec`` gets one random crop, the same for both files, from the
+    per-item stream. Items are (time, 2), channels (noisy, clean)."""
 
-    return build
+    def __init__(
+        self, roots: Sequence[str], noisy_channel: int = 0, clean_channel: int = 1,
+        seed: int = 1227, sample_ratio: float = 1.0, select_sampled: bool = True,
+        sample_num: Optional[int] = None, regex: str = r"fileid_\d+",
+        max_sec: float = 10.0, **kwargs,
+    ):
+        rng = random.Random(seed)
+        clean_pths: List[str] = []
+        for root in roots:
+            clean_pths.extend(find_audio_files(os.path.join(root, "clean")))
+        clean_pths = sorted(clean_pths)
+
+        sampled = rng.sample(clean_pths, round(len(clean_pths) * sample_ratio))
+        if select_sampled:
+            self.clean_pths = sampled
+        else:
+            chosen = set(sampled)
+            self.clean_pths = [p for p in clean_pths if p not in chosen]
+        if not self.clean_pths:
+            raise ValueError("no clean files resolved")
+
+        if sample_num is not None:
+            if len(self.clean_pths) >= sample_num:
+                self.clean_pths = self.clean_pths[:sample_num]
+            else:
+                times = sample_num // len(self.clean_pths) + 1
+                self.clean_pths = (self.clean_pths * times)[:sample_num]
+
+        self.noisy_channel = noisy_channel
+        self.clean_channel = clean_channel
+        self.regex_searcher = re.compile(regex)
+        self.max_sec = max_sec
+
+    def _find_noisy(self, clean_pth: str) -> str:
+        """The one file of the sibling ``noisy/`` directory with the clean
+        file's id followed by a non-digit."""
+        result = self.regex_searcher.search(clean_pth)
+        if result is None:
+            raise ValueError(f"no file-id in {clean_pth}")
+        fileid = result.group()
+        head, tail = os.path.split(os.path.dirname(clean_pth))
+        noisy_dir = os.path.join(head, tail.replace("clean", "noisy"))
+        exact = re.compile(re.escape(fileid) + r"\D")
+        candidates = [p for p in globlib.glob(f"{noisy_dir}/*{fileid}*")
+                      if exact.search(p) is not None]
+        if len(candidates) != 1:
+            raise ValueError(f"ambiguous noisy match for {clean_pth}: {candidates}")
+        return candidates[0]
+
+    def __getitem__(self, idx):
+        clean_pth = self.clean_pths[idx]
+        noisy_pth = self._find_noisy(clean_pth)
+        clean, sr1 = load_audio(clean_pth, sr=None)
+        noisy, sr2 = load_audio(noisy_pth, sr=None)
+        if sr1 != sr2:
+            raise ValueError(f"sample-rate mismatch: {clean_pth} vs {noisy_pth}")
+        if clean.shape[-1] != noisy.shape[-1]:
+            raise ValueError(f"length mismatch in pair {clean_pth}, {noisy_pth}")
+
+        max_length = round(self.max_sec * sr1)
+        if clean.shape[-1] > max_length:
+            start = item_random().randint(0, clean.shape[-1] - max_length - 1)
+            clean = clean[start : start + max_length]
+            noisy = noisy[start : start + max_length]
+        return np.stack([noisy, clean], axis=-1).astype(np.float32)  # (time, 2)
+
+    def __len__(self):
+        return len(self.clean_pths)
+
+    def collate_fn(self, samples, pad_to: Optional[int] = None):
+        return pad_collate(samples, pad_to=pad_to)
+
+    def get_subset(self, ratio: float = 0.2, sample_seed=None) -> "NoisyCleanDataset":
+        """The first ``ratio`` of the sorted files, or a seeded sample of
+        them."""
+        subset = copy.copy(self)
+        clean_pths = sorted(subset.clean_pths)
+        n = round(len(clean_pths) * ratio)
+        if sample_seed is None:
+            subset.clean_pths = clean_pths[:n]
+        else:
+            subset.clean_pths = random.Random(sample_seed).sample(clean_pths, n)
+        return subset
 
 
 DATASET_REGISTRY = {
     "OnlineDataset": OnlineDataset,
-    "NoisyCleanDataset": _not_ported("NoisyCleanDataset", "ROADMAP A7"),
+    "NoisyCleanDataset": NoisyCleanDataset,
     "PseudoDataset": PseudoDataset,
 }

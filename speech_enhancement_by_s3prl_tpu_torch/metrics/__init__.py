@@ -16,6 +16,7 @@ to 0.09 and ESTOI by more.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Dict, List, Sequence
 
 import numpy as np
@@ -113,17 +114,34 @@ def build_metrics(names: Sequence[str]) -> List[Callable]:
     return [METRIC_REGISTRY[n] for n in names]
 
 
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = None
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run the f32 products inside in full f32 (TF32 off), then restore the
-    settings the caller had."""
-    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    settings the caller had. The flags are process-wide, so the windows of
+    every thread share one count under a lock: the first entry saves the
+    flags and turns TF32 off, the last exit restores them, and TF32 stays off
+    while any thread is inside."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _f32_saved
 
 
 def batch_scores(

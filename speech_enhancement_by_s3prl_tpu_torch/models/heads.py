@@ -8,6 +8,15 @@ POWER spectrogram (B, T, 201). Parameter names follow the flax modules, so
 JAX package (torch-default Linear for ``Linear``/``LinearResidual``,
 xavier-uniform Dense with zero bias behind an LSTM) from a
 ``torch.Generator``.
+
+A ``capture`` (a ``models.lstm.Capture``: an LSTM layer index or ``"all"``)
+handed to a forward records streams for the per-sample gradient scorer
+(``active/sampler.py``): the selected LSTM layers' (``models/lstm.py``) and,
+under ``"all"``, the input and pre-activation output of the head's Dense
+(``scaling_xs`` / ``scaling_xw``, or ``linear_xs`` / ``linear_xw`` in
+``Linear`` and ``LinearResidual``, which record them for any ``capture``).
+``build_head`` takes the JAX modules' ``capture_layer`` and passes it to no
+module: the selection is per call.
 """
 from __future__ import annotations
 
@@ -19,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .lstm import LSTMStack
+from .lstm import LSTMStack, captured
 
 Aux = Dict[str, torch.Tensor]
 
@@ -80,8 +89,9 @@ class Linear(nn.Module):
         self.activation = activation
         self.linear = torch_linear(input_size, output_size, generator)
 
-    def forward(self, features, linears=None) -> Tuple[torch.Tensor, Aux]:
-        return activation(self.activation)(self.linear(features)), {}
+    def forward(self, features, linears=None, capture=None) -> Tuple[torch.Tensor, Aux]:
+        return activation(self.activation)(_dense(self.linear, features, capture,
+                                                  "linear")), {}
 
 
 class LinearResidual(nn.Module):
@@ -94,20 +104,30 @@ class LinearResidual(nn.Module):
         self.activation, self.cmvn, self.eps = activation, cmvn, eps
         self.linear = torch_linear(input_size, output_size, generator)
 
-    def forward(self, features, linears) -> Tuple[torch.Tensor, Aux]:
+    def forward(self, features, linears, capture=None) -> Tuple[torch.Tensor, Aux]:
         if self.cmvn:
             features = cmvn_t(features, self.eps)
-        offset = activation(self.activation)(self.linear(features))
+        offset = activation(self.activation)(_dense(self.linear, features, capture, "linear"))
         return linears * offset, {"offset": offset}
 
 
-def _run_stack(stack: LSTMStack, features, lstm_state):
+def _dense(layer: nn.Linear, x, capture, name: str):
+    """``layer(x)``, its input and output recorded into ``capture`` as
+    ``{name}_xs`` / ``{name}_xw`` when one is given."""
+    out = layer(x)
+    if capture is not None:
+        capture.update({f"{name}_xs": x, f"{name}_xw": out})
+    return out
+
+
+def _run_stack(stack: LSTMStack, features, lstm_state, capture):
     """The stack's output and, when ``lstm_state`` (one (h, c) per layer) is
     given, the aux entry of its final states: the streaming continuation of
     ``ops/streaming.StatefulStreamer``."""
     if lstm_state is None:
-        return stack(features), {}
-    out, state = stack(features, initial_state=lstm_state, return_state=True)
+        return stack(features, capture=capture), {}
+    out, state = stack(features, initial_state=lstm_state, return_state=True,
+                       capture=capture)
     return out, {"lstm_state": state}
 
 
@@ -127,9 +147,12 @@ class LSTM(nn.Module):
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
-    def forward(self, features, linears=None, lstm_state=None) -> Tuple[torch.Tensor, Aux]:
-        hs, aux = _run_stack(self.lstm, features, lstm_state)
-        log_predicted = activation(self.activation)(self.scaling_layer(hs))
+    def forward(self, features, linears=None, lstm_state=None,
+                capture=None) -> Tuple[torch.Tensor, Aux]:
+        hs, aux = _run_stack(self.lstm, features, lstm_state, capture)
+        dense_capture = capture if captured(capture, "scaling") else None
+        log_predicted = activation(self.activation)(
+            _dense(self.scaling_layer, hs, dense_capture, "scaling"))
         return torch.exp(log_predicted), {"log_predicted": log_predicted, **aux}
 
 
@@ -148,11 +171,14 @@ class Residual(nn.Module):
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
-    def forward(self, features, linears, lstm_state=None) -> Tuple[torch.Tensor, Aux]:
-        offset, aux = _run_stack(self.lstm, features, lstm_state)
+    def forward(self, features, linears, lstm_state=None,
+                capture=None) -> Tuple[torch.Tensor, Aux]:
+        offset, aux = _run_stack(self.lstm, features, lstm_state, capture)
         if self.cmvn:
             offset = cmvn_t(offset, self.eps)
-        offset = activation(self.activation)(self.scaling_layer(offset))
+        dense_capture = capture if captured(capture, "scaling") else None
+        offset = activation(self.activation)(
+            _dense(self.scaling_layer, offset, dense_capture, "scaling"))
         return linears * offset, {"offset": offset, **aux}
 
 
@@ -189,11 +215,6 @@ def build_head(model_name: str, input_size: int, output_size: int,
         raise TypeError("build_head takes no 'recurrence': every head runs the "
                         "default recurrence (it is an attribute of a built "
                         "model's LSTMStack)")
-    if cfg.get("capture_layer") is not None:
-        raise NotImplementedError(
-            "capture_layer instrumentation for the active sampler is not "
-            "ported yet (ROADMAP A9)"
-        )
     dtype = cfg.get("compute_dtype", "f32")
     if isinstance(dtype, str) and dtype.lower() not in F32_NAMES:
         raise NotImplementedError(

@@ -32,6 +32,16 @@
   ``l{k}_fwd`` / ``l{k}_bwd`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``.
 - Sequences run fully padded, as the JAX package runs them: the backward
   direction of a padded batch sees the padding.
+- A forward handed a :class:`Capture` records the streams of the layers it
+  selects (``layer``: a layer index or ``"all"``) for the per-sample
+  gradient scorer (``active/sampler.py``): ``l{k}_xs``, the layer's input on
+  a leading direction axis (2 or 1, B, T, D; direction 1 time-flipped),
+  ``l{k}_xw``, its input projection (2 or 1, B, T, 4H), the very tensor the
+  recurrence reads, so that its gradient under one batched backward is the
+  per-sample, per-step gate cotangent (B2 bwd's dxw on the card), and
+  ``l{k}_hs``, the recurrence's output (2 or 1, B, T, H). The JAX modules'
+  ``capture_layer`` is this per-call selection. With no ``capture`` nothing
+  is recorded.
 
 Initialization: xavier-uniform W_ih, orthogonal W_hh, zero biases.
 """
@@ -49,6 +59,22 @@ from ..ops.cuda.lstm_kernel import (
 )
 
 RECURRENCES = ("tm", "blocked", "fused")
+
+
+class Capture(dict):
+    """The streams a forward records for the per-sample gradient scorer, by
+    name. ``layer`` (an LSTM layer index or ``"all"``) selects what is
+    recorded."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.layer = layer
+
+
+def captured(capture: Optional[Capture], layer) -> bool:
+    """Whether a forward handed ``capture`` records ``layer`` (an index, or
+    a name such as ``"scaling"`` that only ``"all"`` selects)."""
+    return capture is not None and capture.layer in ("all", layer)
 
 
 class LstmDirParams(nn.Module):
@@ -103,16 +129,20 @@ class LSTMStack(nn.Module):
             raise ValueError(f"recurrence must be one of {RECURRENCES}, got {value!r}")
         self._recurrence = value
 
-    def forward(self, x: torch.Tensor, initial_state=None, return_state: bool = False):
+    def forward(self, x: torch.Tensor, initial_state=None, return_state: bool = False,
+                capture: Optional[Capture] = None):
         """(B, T, D) -> (B, T, H * directions); with ``return_state`` (a
         one-direction stack only) (output, final states), the final states one
         (h, c) per layer, each (B, H). ``initial_state`` is such a sequence to
-        start from (None: zeros)."""
+        start from (None: zeros). ``capture`` receives the streams of the
+        captured layers."""
         carry = initial_state is not None or return_state
         if carry and self.bidirectional:
             raise ValueError(
                 "recurrent-state carrying (streaming) needs a unidirectional stack: the "
                 "backward direction would need future audio")
+        if carry and capture is not None:
+            raise ValueError("capture records a stateless forward only")
         # B6 and B7 have no backward kernel: a gradient takes LstmBidirTm
         forward_only = not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
@@ -125,7 +155,12 @@ class LSTMStack(nn.Module):
                 xw = torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh)
                 w_hh_t = pf.w_hh.T[None].contiguous()
                 if not carry:
-                    x = lstm_bidir_tm(xw[None].contiguous(), w_hh_t)[0]
+                    xw = xw[None].contiguous()
+                    hs = lstm_bidir_tm(xw, w_hh_t)
+                    if captured(capture, k):
+                        capture.update({f"l{k}_xs": x[None], f"l{k}_xw": xw,
+                                        f"l{k}_hs": hs})
+                    x = hs[0]
                     continue
                 state = None if initial_state is None else tuple(
                     t[None] for t in initial_state[k])
@@ -139,7 +174,8 @@ class LSTMStack(nn.Module):
             w_ih = torch.stack([pf.w_ih, pb.w_ih], dim=0)  # (2, 4H, D)
             bias = torch.stack([pf.b_ih + pf.b_hh, pb.b_ih + pb.b_hh], dim=0)
             w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0).contiguous()  # (2, H, 4H)
-            if self.recurrence == "fused" and forward_only:
+            capture_k = captured(capture, k)
+            if self.recurrence == "fused" and forward_only and not capture_k:
                 hs = lstm_bidir_fused(xs, w_ih.transpose(1, 2).contiguous(), bias, w_hh_t)
             else:
                 xw = (torch.einsum("dbtn,dhn->dbth", xs, w_ih)
@@ -149,5 +185,7 @@ class LSTMStack(nn.Module):
                 else:
                     # LstmBidirTm when a gradient is needed, B1 when not
                     hs = lstm_bidir_tm(xw, w_hh_t)
+                if capture_k:
+                    capture.update({f"l{k}_xs": xs, f"l{k}_xw": xw, f"l{k}_hs": hs})
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)
         return (x, tuple(final_states)) if return_state else x

@@ -63,6 +63,9 @@ class DummyUpstream(nn.Module):
     def forward(self, features, salts=None):
         return features
 
+    def spec_head(self, hidden):
+        raise NotImplementedError("dummy upstream has no SpecHead")
+
 
 @dataclasses.dataclass
 class UpstreamOptions:

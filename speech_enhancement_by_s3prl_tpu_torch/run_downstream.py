@@ -14,6 +14,16 @@ with neither, the head reads the hidden states of the ``--upstream``
 drawn from ``--seed``; ``--dropout`` overrides its rates and puts it in train
 mode while the head trains; ``baseline``: the identity).
 
+The active sampler (``active/sampler.py``): ``--sync_sampler`` scores each
+candidate batch in the train loop, ``--sampler_device k`` scores on a thread
+on card k, ``--active_sampling`` trains on the matched samples,
+``--active_layerid`` embeds one LSTM layer's gradient, ``--test_gradient``
+runs the diagnostic (``--n_iterate`` batches). Their pseudo wavs come from
+the upstream and the second one (``--upstream2`` / ``--ckpt2`` /
+``--dropout2``) over ``--record_num`` record utterances; ``--pseudo_clean`` /
+``--pseudo_noise`` add the train batch's pseudo wavs to the media.
+``--trainset NoisyCleanDataset`` reads paired corpora.
+
 The flag names of the ported subset are the JAX CLI's. Settings take
 precedence as there: a ``--resume`` checkpoint's saved args and config win
 over the CLI, which wins over the YAML file (the ``--train_speech`` /
@@ -75,8 +85,7 @@ def get_parser() -> argparse.ArgumentParser:
                         default="transformer")
     parser.add_argument("--ckpt", default="", help="upstream pretraining ckpt")
     parser.add_argument("--dropout", type=float)
-    # the second upstream only makes the active sampler's pseudo wavs: its
-    # checkpoint and dropout are refused by the Runner (ROADMAP A9)
+    # the second upstream makes the pseudo wavs with the first
     parser.add_argument("--upstream2", choices=["transformer", "baseline"],
                         default="transformer")
     parser.add_argument("--ckpt2", default="")
@@ -89,6 +98,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--objective", default="L1")
     parser.add_argument("--from_waveform", action="store_true")
     parser.add_argument("--from_rawfeature", action="store_true")
+    parser.add_argument("--trainset", default="OnlineDataset",
+                        help="dataset class of the train and query splits")
     parser.add_argument("--optim", default="BertAdam", choices=["BertAdam", "Adam"])
 
     parser.add_argument("--config", default="config/vcb.yaml")
@@ -109,11 +120,14 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--test_noise")
     parser.add_argument("--test", action="store_true")
 
-    # flags of the JAX CLI whose features are not ported: the Runner refuses them
     parser.add_argument("--active_sampling", action="store_true")
-    parser.add_argument("--sync_sampler", action="store_true")
+    parser.add_argument("--record_num", default=5, type=int)
     parser.add_argument("--sampler_device", type=int)
+    parser.add_argument("--active_layerid", type=int)
+    parser.add_argument("--n_iterate", type=int)
+    parser.add_argument("--sync_sampler", action="store_true")
     parser.add_argument("--test_gradient", action="store_true")
+    # flags of the JAX CLI whose features are not ported: the Runner refuses them
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--mesh", default=None)
     return parser
@@ -213,29 +227,42 @@ def get_downstream_model(args, input_dim, output_dim, config, generator=None):
 
 def build_runner(args, config) -> Runner:
     """The Runner of a run on ``args.device``, its head's (and a random
-    upstream's) weights drawn from ``--seed``. The upstream is built only in
-    the upstream mode, the one mode that reads it."""
+    upstream's) weights drawn from ``--seed``. The upstream is built here only
+    in the upstream mode, the one mode whose head reads it; the two upstreams
+    of the pseudo wavs are built when the Runner first needs them."""
     use_full_fp32()
     expdir = os.path.join(args.expdir, args.name or "default")
     os.makedirs(expdir, exist_ok=True)
     preprocessor, upstream_dim, downstream_dim, tar_linear_dim = get_preprocessor(
         args, config)
+
+    def make_upstream(which: str, ckpt: str, dropout):
+        return build_upstream(
+            which, upstream_dim, ckpt, dropout, tar_linear_dim, seed=args.seed,
+            compute_dtype=getattr(args, "compute_dtype", "f32"))
+
     upstream = None
     if args.from_waveform:
         input_dim = upstream_dim
     elif args.from_rawfeature:
         input_dim = downstream_dim
     else:
-        upstream = build_upstream(
-            args.upstream, upstream_dim, args.ckpt, getattr(args, "dropout", None),
-            tar_linear_dim, seed=args.seed,
-            compute_dtype=getattr(args, "compute_dtype", "f32"))
+        upstream = make_upstream(args.upstream, args.ckpt, getattr(args, "dropout", None))
         input_dim = upstream.out_dim
+
+    def pseudo_upstreams():
+        first = upstream or make_upstream(args.upstream, args.ckpt,
+                                          getattr(args, "dropout", None))
+        return first, make_upstream(getattr(args, "upstream2", "transformer"),
+                                    getattr(args, "ckpt2", ""),
+                                    getattr(args, "dropout2", None))
+
     model = get_downstream_model(
         args, input_dim, tar_linear_dim, config,
         generator=torch.Generator().manual_seed(args.seed),
     )
-    return Runner(args, config, preprocessor, model, expdir, args.device, upstream)
+    return Runner(args, config, preprocessor, model, expdir, args.device, upstream,
+                  pseudo_upstreams=pseudo_upstreams)
 
 
 def main(argv=None):

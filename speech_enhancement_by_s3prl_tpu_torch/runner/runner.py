@@ -1,17 +1,32 @@
 """Training and evaluation lifecycle (counterpart of
-``speech_enhancement_by_s3prl_tpu/runner/runner.py``), for the subset that
-trains on ``OnlineDataset`` splits in the three modes of
+``speech_enhancement_by_s3prl_tpu/runner/runner.py``) in the three modes of
 ``runner/trainer.py``: ``from_rawfeature`` heads, ``from_waveform`` heads
 (``Mockingjay`` finetuning the whole encoder) and heads over a frozen
-upstream.
+upstream, on ``OnlineDataset`` or ``NoisyCleanDataset`` (``--trainset``)
+splits.
 
-- Dataset modes ``train``, ``subtrain``, ``dev`` and ``test``.
+- Dataset modes ``train``, ``subtrain``, ``dev``, ``test`` and the active
+  sampler's ``record``, ``query`` and ``query_dev``. A split whose config
+  holds a ``pseudo_modes`` list draws pseudo-clean speech and pseudo noise:
+  the waveforms the two upstreams (``--ckpt`` and ``--ckpt2``) predict from
+  the ``record`` split's noisy channel, decoded with its phase (kernel B5 on
+  the card).
 - ``train``: log, eval and save cadences, ``max_keep`` rotation, best-per-
   split saves under ``--save_best`` (the best starts at zero), a final save.
+  With ``--sync_sampler`` each step scores its candidate batch
+  (``active_batch_size`` rows) against a query batch (``active_query_num``
+  rows of pseudo case 3) by gradient embeddings (``active/sampler.py``) and
+  keeps the matches; with ``--sampler_device`` an ``AsyncSampler`` scores on
+  a thread and is drained at ``sampler_collect_step``, restarted at
+  ``sampler_refresh_step``; with ``--active_sampling`` the step trains on a
+  batch drawn from the kept samples of the last ``active_refresh_step`` steps,
+  weighted by case (``active_buffer_weights``).
 - ``evaluate``: reseeds the random modules and returns the per-batch mean of
   means. The eval step scores the metrics that have a batched version on
   the device (``metrics.device_batch_metrics``); PESQ moves to the host, one
   utterance at a time, only where the ITU ``pesq`` wheel imports.
+- ``test_gradient``: the cosine of candidate against query embeddings by
+  pseudo case, drawn as a box plot to ``expdir/sim_box.png``.
 - ``--dckpt``: the pretraining checkpoint for ``Mockingjay`` (its encoder
   and SpecHead weights, like ``--ckpt``'s SpecHead for ``SpecHead``, are
   overlaid onto the new head); a warm start of the whole head otherwise.
@@ -19,17 +34,17 @@ upstream.
   (``{"step", "tag", "value"}``), under the JAX package's TensorBoard tags.
 - Media (``runner/media.py``) go to files under ``expdir/media/``, listed in
   ``expdir/media.jsonl``, at the JAX package's cadence: at ``media_step``
-  the noisy, clean and noise channels of the train batch, each the whole
-  batch as one clip; at a step that ``eval_step`` and ``media_step`` both
-  divide, the noisy, clean and enhanced samples that ``evaluate`` returns;
-  at ``log_step``, the figure of an objective that has a logger (``WSD``).
+  the query batch and the matched candidates of the sync sampler
+  (``active/query_*``, ``active/match_*``), the noisy, clean and noise
+  channels of the train batch, each the whole batch as one clip, and under
+  ``--pseudo_clean`` / ``--pseudo_noise`` the train batch's pseudo wavs; at
+  a step that ``eval_step`` and ``media_step`` both divide, the noisy, clean
+  and enhanced samples that ``evaluate`` returns; at ``log_step``, the
+  figure of an objective that has a logger (``WSD``); at step 1, the record
+  split and its pseudo wavs (``record/*``) when they are made.
 
-Not ported yet, each refused with its ROADMAP item: the modes ``record``,
-``query`` and ``query_dev``, the active sampler and ``--sync_sampler`` /
-``--active_sampling``, the second upstream and the pseudo wavs it makes
-(``--ckpt2``, ``--dropout2``, ``--pseudo_clean``, ``--pseudo_noise``) (A9),
-``--mesh`` (A12), ``--profile`` (A11) and ``test_gradient`` (A9); the
-media of the active sampler and of the pseudo wavs come with them (A9).
+Not ported yet, each refused with its ROADMAP item: ``--mesh`` (A12) and
+``--profile`` (A11).
 """
 from __future__ import annotations
 
@@ -38,13 +53,15 @@ import json
 import os
 import random
 import time
-from typing import Optional
+from collections import defaultdict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..active.sampler import ACTIVE_BUFFER_NUM, AsyncSampler, make_scoring_fn, matching
 from ..data.datasets import DATASET_REGISTRY
-from ..data.loader import DataLoader, default_buckets, device_prefetch
+from ..data.loader import DataLoader, default_buckets, device_prefetch, infinite_iterator
 from ..metrics import METRIC_REGISTRY, check_metrics, device_batch_metrics, full_f32
 from ..models.convert import flax_to_state_dict
 from ..models.torch_import import (
@@ -53,10 +70,11 @@ from ..models.torch_import import (
     pretrained_head_params,
 )
 from ..objectives import build_objective
+from ..utils.plotting import boxplot_png
 from . import checkpoint as ckpt_lib
 from .media import MediaLog
 from .optim import build_optimizer
-from .trainer import StepBuilder, TrainState, make_context
+from .trainer import StepBuilder, TrainState, decode_wav, make_context
 
 LOG_WAV_NUM = 3
 
@@ -80,28 +98,33 @@ def _refuse(what: str, item: str):
 
 class Runner:
     """The training and evaluation lifecycle on ``device``. ``upstream``
-    (models/upstream.py) feeds the head in the upstream mode."""
+    (models/upstream.py) feeds the head in the upstream mode.
+    ``pseudo_upstreams()`` builds the two upstreams of the pseudo wavs (the
+    ``--upstream`` / ``--ckpt`` one and the ``--upstream2`` / ``--ckpt2``
+    one) when they are first needed; ``upstream_model`` / ``upstream_model2``
+    hold them after that, and may be set in its place."""
 
     def __init__(self, args, config, preprocessor, downstream, expdir, device,
-                 upstream=None):
+                 upstream=None, pseudo_upstreams=None):
         self.args = args
         self.config = config
         self.rconfig = config["runner"]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Runner on cuda, but there is no CUDA device")
-        for flag, item in (("sync_sampler", "A9"), ("active_sampling", "A9"),
-                           ("mesh", "A12"), ("profile", "A11"), ("ckpt2", "A9"),
-                           ("dropout2", "A9"), ("pseudo_clean", "A9"),
-                           ("pseudo_noise", "A9")):
+        for flag, item in (("mesh", "A12"), ("profile", "A11")):
             if getattr(args, flag, None):
                 _refuse(f"--{flag}", item)
-        if getattr(args, "sampler_device", None) is not None:
-            _refuse("the async active sampler (--sampler_device)", "A9")
 
         self.preprocessor = preprocessor
         self.downstream_model = downstream.to(self.device)
         self.upstream = None if upstream is None else upstream.to(self.device)
+        self.pseudo_upstreams = pseudo_upstreams
+        self.upstream_model = self.upstream_model2 = None
+        self.pseudo_clean = self.pseudo_noise = None
+        self.sampler: Optional[AsyncSampler] = None
+        # the dropout salts of the sampler's scoring, from --seed
+        self.score_generator = torch.Generator().manual_seed(int(args.seed))
         self.expdir = expdir
         self.global_step = 1
         self.log = ScalarLog(expdir)
@@ -246,8 +269,6 @@ class Runner:
     # -- datasets -------------------------------------------------------
     def get_dataset(self, mode: str = "train"):
         """The dataset of a split, with the JAX package's config surgery."""
-        if mode in ("record", "query", "query_dev"):
-            _refuse(f"dataset mode {mode!r} (the active sampler's splits)", "A9")
         ds_type = self._ds_type()
         if ds_type not in DATASET_REGISTRY:
             raise ValueError(f"unknown dataset type {ds_type}")
@@ -267,10 +288,29 @@ class Runner:
             ds_conf["half_noise"] = "front"
         elif mode == "test":
             ds_conf = test_conf
+        elif mode == "record":
+            ds_conf = test_conf
+            ds_conf["speech"]["sample_num"] = self.args.record_num
+            ds_conf["speech"]["select_sampled"] = True
+            ds_conf["half_noise"] = "front"
+        elif mode == "query":
+            ds_conf = train_conf
+            ds_conf["pseudo_modes"] = [3]
+        elif mode == "query_dev":
+            ds_conf = test_conf
+            ds_conf["pseudo_modes"] = [3]
+            ds_conf["speech"] = train_conf["speech"]
+            ds_conf["speech"]["sample_num"] = self.args.dev_num
+            ds_conf["speech"]["select_sampled"] = True
         else:
             raise ValueError(f"unknown dataset mode {mode}")
 
-        dataset = DATASET_REGISTRY[ds_type](**ds_conf)
+        if isinstance(ds_conf.get("pseudo_modes"), list):
+            if self.pseudo_clean is None or self.pseudo_noise is None:
+                self._build_pseudo_wavs()
+
+        dataset = DATASET_REGISTRY[ds_type](
+            **ds_conf, pseudo_clean=self.pseudo_clean, pseudo_noise=self.pseudo_noise)
         if mode == "subtrain":
             dataset = dataset.get_subset(n_file=100)
         print(f"[runner] {mode} dataset ready: {len(dataset)} utterances", flush=True)
@@ -288,6 +328,84 @@ class Runner:
             buckets=self.buckets,
             drop_last=train,
         )
+
+    # -- pseudo wavs ----------------------------------------------------
+    def _upstreams(self):
+        """The two upstreams of the pseudo wavs, built at first use, in eval
+        mode on the Runner's device."""
+        if self.upstream_model is None or self.upstream_model2 is None:
+            if self.pseudo_upstreams is None:
+                raise ValueError("the pseudo wavs need the two upstreams, and this Runner "
+                                 "was given none")
+            self.upstream_model, self.upstream_model2 = self.pseudo_upstreams()
+        for up in (self.upstream_model, self.upstream_model2):
+            up.to(self.device).eval()
+        return self.upstream_model, self.upstream_model2
+
+    @torch.no_grad()
+    def _pseudo_wav(self, upstream, wavs, phase_inp, lengths, max_len):
+        """The upstream's forward and spec head, decoded with the noisy phase
+        at -25 dB."""
+        hidden = upstream(self.preprocessor(wavs)[0])
+        return decode_wav(self.preprocessor, upstream.spec_head(hidden), phase_inp, lengths,
+                          max_len, -25)
+
+    def _build_pseudo_wavs(self):
+        """Pseudo-clean and pseudo-noise waveforms from the two upstreams over
+        the record split, logged at step 1."""
+        recordset = self.get_dataset("record")
+        loader = self.get_dataloader(recordset, train=False, bsz=len(recordset))
+        lengths, wavs = next(iter(loader))[:2]
+        for ch, tag in ((0, "noisy"), (1, "clean"), (2, "noise")):
+            self.media.media_logging(1, f"record/{tag}", wavs[:, ch, :])
+        up, up2 = self._upstreams()
+        wavs_t = torch.from_numpy(wavs).to(self.device)
+        lengths_t = torch.from_numpy(lengths).to(self.device)
+        with torch.no_grad():
+            phase_inp = self.preprocessor(wavs_t)[3]
+        for attr, upstream, tag in (("pseudo_clean", up, "record/pseudo_clean"),
+                                    ("pseudo_noise", up2, "record/pseudo_noise")):
+            pw = self._pseudo_wav(upstream, wavs_t, phase_inp, lengths_t,
+                                  wavs.shape[-1]).cpu().numpy()
+            self.media.media_logging(1, tag, pw)
+            setattr(self, attr, [w[:n] for w, n in zip(pw, lengths)])
+
+    # -- sampler lifecycle ---------------------------------------------
+    def _sampler_device(self) -> torch.device:
+        """``--sampler_device`` k: card k, or the last card when there are
+        fewer; the Runner's device when it is the CPU."""
+        if self.device.type != "cuda":
+            return self.device
+        return torch.device(
+            f"cuda:{min(int(self.args.sampler_device), torch.cuda.device_count() - 1)}")
+
+    def _scoring_fn(self):
+        return make_scoring_fn(self.builder, getattr(self.args, "active_layerid", None))
+
+    def _start_sampler(self):
+        queryset = self.get_dataset("query")
+        queryloader = self.get_dataloader(
+            queryset, train=True, bsz=int(self.rconfig["active_query_num"]))
+        query_batch = next(iter(queryloader))
+        candidates = self.get_dataset("train")
+        candidates.pseudo_modes = list(range(ACTIVE_BUFFER_NUM))
+        self.sampler = AsyncSampler(
+            scoring_fn=self._scoring_fn(),
+            model=self.downstream_model,
+            dataset=candidates,
+            loader_factory=lambda: self.get_dataloader(
+                candidates, train=True, bsz=self.config["dataloader"]["batch_size"]),
+            query_batch=query_batch,
+            sample_num=int(self.rconfig["sampler_sample_num"]),
+            device=self._sampler_device(),
+        )
+        self.sampler.start()
+
+    def _kill_sampler(self):
+        if self.sampler is not None:
+            self.sampler.stop()
+            sampler, self.sampler = self.sampler, None
+            sampler.check()
 
     # -- train ----------------------------------------------------------
     def train(self):
@@ -323,7 +441,23 @@ class Runner:
         if self.args.eval_init:
             eval_and_log()
 
-        trainloader = self.get_dataloader(self.get_dataset("train"))
+        trainset = self.get_dataset("train")
+        sync = bool(getattr(self.args, "sync_sampler", False))
+        if sync:
+            queryloader = self.get_dataloader(
+                self.get_dataset("query"), bsz=int(self.rconfig["active_query_num"]))
+            query_iter = iter(queryloader)
+            trainloader = self.get_dataloader(
+                trainset, bsz=self.config["dataloader"]["active_batch_size"])
+            scoring = self._scoring_fn()
+        else:
+            trainloader = self.get_dataloader(trainset)
+        active_sampling = bool(getattr(self.args, "active_sampling", False))
+        async_sampler = getattr(self.args, "sampler_device", None) is not None
+        pseudo_media = [(flag, i) for i, flag in enumerate(("pseudo_clean", "pseudo_noise"))
+                        if getattr(self.args, flag, False)]
+        active_samples: Dict[int, Dict[int, list]] = defaultdict(lambda: defaultdict(list))
+
         loss_sum, last_norm = 0.0, 0.0
         t_start = time.time()
         done = False
@@ -333,6 +467,58 @@ class Runner:
                     done = True
                     break
                 lengths, wavs = batch[0], batch[1]
+                cases = batch[2] if len(batch) == 3 else None
+                media_loggers = []
+
+                if async_sampler:
+                    if self.sampler is None or not self.sampler.alive:
+                        # a sampler that died raises its error, never restarts
+                        self._kill_sampler()
+                        self._start_sampler()
+                    if self.global_step % int(self.rconfig["sampler_collect_step"]) == 0:
+                        for key, samples in self.sampler.collect().items():
+                            active_samples[self.global_step][key] += samples
+
+                if sync:
+                    try:
+                        q_lengths, q_wavs, _ = next(query_iter)
+                    except StopIteration:
+                        query_iter = iter(queryloader)
+                        q_lengths, q_wavs, _ = next(query_iter)
+                    q_scores = scoring(self.downstream_model, q_wavs, q_lengths, mean=True,
+                                       generator=self.score_generator)
+                    t_scores = scoring(self.downstream_model, wavs, lengths,
+                                       generator=self.score_generator)
+                    match = matching(q_scores, t_scores).cpu().numpy()
+                    is_match = np.nonzero(match > 0)[0]
+                    matched = wavs[torch.from_numpy(is_match).to(wavs.device)].cpu().numpy()
+                    for w, n, case, score in zip(matched, lengths.cpu().numpy()[is_match],
+                                                 cases.cpu().numpy()[is_match],
+                                                 match[is_match]):
+                        active_samples[self.global_step][int(case)].append(
+                            {"wavs": w[:, : int(n)].T.copy(), "match_score": float(score)})
+                    # the query and the matches as this step scored them
+                    media_loggers.append((q_wavs, "active/query"))
+                    if len(is_match):
+                        media_loggers.append((matched, "active/match"))
+
+                if active_sampling:
+                    prev = self.global_step - int(self.rconfig["active_refresh_step"])
+                    if prev > 1:
+                        active_samples.pop(prev, None)
+                    merged: Dict[int, list] = defaultdict(list)
+                    for step_samples in active_samples.values():
+                        for key, value in step_samples.items():
+                            merged[key] += value
+                    pairs = [(i, w) for i, w in enumerate(self.rconfig["active_buffer_weights"])
+                             if len(merged[i]) > 0]
+                    if pairs:
+                        types = random.choices([p[0] for p in pairs], [p[1] for p in pairs],
+                                               k=self.config["dataloader"]["batch_size"])
+                        chosen = [random.choice(merged[t])["wavs"] for t in types]
+                        lengths, wavs = (torch.from_numpy(x).to(self.device)
+                                         for x in trainloader._collate(chosen)[:2])
+
                 self.state, stats = self.train_step(self.state, wavs, lengths)
                 loss_sum += float(stats["loss"])
                 last_norm = float(stats["grad_norm"])
@@ -356,9 +542,24 @@ class Runner:
 
                 media_now = media_step is not None and self.global_step % media_step == 0
                 if media_now:
+                    for data, prefix in media_loggers:
+                        for ch, tag in ((0, "noisy"), (1, "clean"), (2, "noise")):
+                            if data.shape[1] > ch:
+                                self.media.media_logging(self.global_step, f"{prefix}_{tag}",
+                                                         data[:, ch, :])
                     for ch, tag in ((0, "noisy"), (1, "clean"), (2, "noise")):
                         if wavs.shape[1] > ch:
                             self.media.media_logging(self.global_step, tag, wavs[:, ch, :])
+                    if pseudo_media:
+                        phase_inp = self.preprocessor(wavs)[3]
+                        upstreams = self._upstreams()
+                        for flag, i in pseudo_media:
+                            self.media.media_logging(self.global_step, flag, self._pseudo_wav(
+                                upstreams[i], wavs, phase_inp, lengths, wavs.shape[-1]))
+
+                if active_sampling and self.global_step % int(
+                        self.rconfig["sampler_refresh_step"]) == 0:
+                    self._kill_sampler()
 
                 if self.global_step % int(self.rconfig["eval_step"]) == 0:
                     eval_and_log(media_now)
@@ -370,6 +571,7 @@ class Runner:
 
                 self.global_step += 1
 
+        self._kill_sampler()
         self.save_model()
 
     # -- evaluate --------------------------------------------------------
@@ -423,5 +625,32 @@ class Runner:
         print(f"[runner] evaluate: loss {loss_avg:.5f} | {named}", flush=True)
         return loss_avg, scores_avg, noisy_wavs, clean_wavs, enhanced_wavs
 
+    # -- gradient diagnostic ---------------------------------------------
     def test_gradient(self):
-        _refuse("test_gradient (the active sampler's gradient diagnostic)", "A9")
+        """The cosine similarity of each candidate's gradient embedding with
+        the query batch's mean embedding, by pseudo case, over ``--n_iterate``
+        pairs of batches (10 when unset); drawn as a box plot to
+        ``expdir/sim_box.png`` and returned as {case: [similarity, ...]}."""
+        self._build_pseudo_wavs()
+        scoring = self._scoring_fn()
+        queryset = self.get_dataset("query")
+        trainset = self.get_dataset("train")
+        trainset.pseudo_modes = list(range(ACTIVE_BUFFER_NUM))
+        bsz = self.config["dataloader"]["batch_size"]
+        query_loader = infinite_iterator(self.get_dataloader(queryset, bsz=bsz))
+        train_loader = infinite_iterator(self.get_dataloader(trainset, bsz=bsz))
+
+        similarities = defaultdict(list)
+        for _ in range(int(getattr(self.args, "n_iterate", None) or 10)):
+            q_lengths, q_wavs, _ = next(query_loader)
+            t_lengths, t_wavs, cases = next(train_loader)
+            if q_wavs.shape == t_wavs.shape and np.allclose(q_wavs, t_wavs):
+                continue
+            q = scoring(self.downstream_model, q_wavs, q_lengths, mean=True)
+            t = scoring(self.downstream_model, t_wavs, t_lengths)
+            for sim, case in zip(matching(q, t).cpu().numpy(), cases):
+                similarities[int(case)].append(float(sim))
+
+        with open(os.path.join(self.expdir, "sim_box.png"), "wb") as f:
+            f.write(boxplot_png([similarities[i] or [0.0] for i in range(ACTIVE_BUFFER_NUM)]))
+        return similarities

@@ -246,7 +246,6 @@ def test_init_is_seeded_and_follows_the_reference_scheme():
     # the transformer heads are ported; their bf16 compute is not
     ("SpecHead", {"compute_dtype": "bf16"}),
     ("Mockingjay", {"compute_dtype": "bf16"}),
-    ("Residual", {"capture_layer": 0}),
     ("Residual", {"compute_dtype": "bf16"}),
 ])
 def test_build_head_names_what_is_not_ported(name, cfg):
