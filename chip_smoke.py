@@ -138,6 +138,23 @@ Phases, one line each:
      config/pseudo_noise.yaml; and times: the per-sample scoring call at 12
      x 10 s under each engine, the 32-row ``mean=True`` call, the train step
      with and without the sync sampler, under ``torch.profiler``.
+ 12. bf16 compute (``--compute_dtype bf16``): B3 fwd bf16 and B3 bwd bf16
+     against their plain versions on the card (B=6, T=1001, 12 heads of 64 at
+     rates 0.1 and 0, ragged T with a key bias, heads of 32 and 128; the
+     backward twice for identical bits; ``FlashAttention`` on a bf16
+     projection against the kernels called directly); the Mockingjay joint
+     finetune ``--from_waveform --compute_dtype bf16`` through ``Runner`` (4
+     steps with evals and saves, a 2-step resume that keeps bf16) with 6 B3 fwd
+     bf16 and 6 B3 bwd bf16 launches a step and no f32 B3, and one step on the
+     card against the CPU under the window criterion of
+     tests/test_torch_port_bf16.py; the flagship head trained 4 steps and the
+     upstream mode (``--upstream transformer``, ``--dropout 0.1``) 2 steps in
+     bf16, their checkpoints served on the card and the CPU beside the same
+     weights in f32, under the window criterion; and times: B3 bf16 beside the
+     f32 kernel, its plain version and SDPA bf16 (forward and backward) at B=6
+     and 64, the B=6 10 s Mockingjay and flagship train steps and the B=1 10 s
+     enhance in bf16 beside f32 with profiler breakdowns that split the GEMMs
+     by type.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -151,6 +168,7 @@ import http.client
 import json
 import math
 import os
+import pickle
 import random
 import re
 import statistics
@@ -246,10 +264,12 @@ B3_CASES = (  # B, T, N, D, dropout rate, key bias
 )
 MJ_LAYERS = 6
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
-# tensor cores, dense TF32 on them, and HBM3. A bound takes the cheapest
-# arithmetic the numerics allow: f32 results to f32 accuracy may come from
-# the tensor cores as three TF32 passes a product (B3), not from one
+# tensor cores, dense TF32 and dense bf16 on them, and HBM3. A bound takes the
+# cheapest arithmetic the numerics allow: f32 results to f32 accuracy may come
+# from the tensor cores as three TF32 passes a product (B3), not from one; a
+# bf16 product (B3 bf16) is one bf16 pass
 PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+PEAK_BF16 = 989e12
 MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
 
 
@@ -3123,6 +3143,549 @@ def active_phase(torch, all_kernels, card, tmp):
     return out
 
 
+# bf16 compute on the card (phase 12): B3 bf16 against its plain version, the
+# Mockingjay joint finetune, the flagship head and the upstream mode trained and
+# served with --compute_dtype bf16, and the bf16 times beside f32.
+# B3 bf16 vs its plain version, errors in bf16 ulps of the plain version's
+# largest |value|. The plain version rounds p to bf16 against the row's final
+# maximum, the kernel's online softmax against the running one, so out moves by
+# a rounding of p here and there: at most 1.00 ulp measured (B=2 T=37), limit 2.
+# lse is f32 from the same f32 logits summed in other orders (~1.5e-7 measured).
+# dq, dk and dv come from the same bf16 operands rounded at the same points and
+# f32 sums in other orders: at most 0.5 ulp measured in the first card run of
+# these shapes, so 1 ulp leaves a factor of two; and at least 99.8% of their
+# elements came out bit-identical (limit 99%): a mask or operand fault moves
+# whole rows.
+B3_BF16_OUT_ULPS, B3_BF16_LSE_TOL, B3_BF16_GRAD_ULPS, B3_BF16_GRAD_SAME = 2.0, 1e-5, 1.0, 0.99
+B3_BF16_CASES = (  # B, T, N, D, rate, kbias
+    (6, 1001, 12, 64, 0.1, False),
+    (6, 1001, 12, 64, 0.0, False),
+    (3, 130, 12, 64, 0.1, True),
+    (2, 37, 12, 64, 0.1, True),
+    (2, 70, 4, 32, 0.2, True),
+    (2, 70, 2, 128, 0.2, False),
+)
+# the window criterion of tests/test_torch_port_bf16.py, the card against the
+# CPU: with d(a, b) = RMS(a - b) / RMS(CPU f32), d(card bf16, CPU bf16) <= 1.5
+# d(CPU bf16, CPU f32) and 0.5 <= d(card bf16, card f32) / d(CPU bf16, CPU f32)
+# <= 2 (the card rounds where the CPU rounds; a card run in f32 fails)
+WINDOW_NEAR, WINDOW_LOW, WINDOW_HIGH = 1.5, 0.5, 2.0
+BF16_STEPS, BF16_RESUME_STEPS, BF16_HEAD_STEPS = 4, 2, 4
+
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp at the largest |value| of x."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
+
+
+def window(torch, card_bf16, card_f32, cpu_bf16, cpu_f32, what):
+    """The window criterion on four tensors (or arrays); raises outside it and
+    returns (near, ratio)."""
+    a = [torch.as_tensor(np.asarray(x.detach().cpu() if hasattr(x, "detach") else x,
+                                    dtype=np.float64)) for x in (card_bf16, card_f32,
+                                                                 cpu_bf16, cpu_f32)]
+    rms = lambda x: float(x.pow(2).mean().sqrt())  # noqa: E731
+    scale = rms(a[3])
+    base = rms(a[2] - a[3]) / scale
+    near, ratio = rms(a[0] - a[2]) / scale / base, rms(a[0] - a[1]) / scale / base
+    if not (base > 0 and near <= WINDOW_NEAR and WINDOW_LOW <= ratio <= WINDOW_HIGH):
+        raise AssertionError(f"{what}: d(card bf16, CPU bf16) {near:.3f} x d(CPU bf16, CPU "
+                             f"f32) (limit {WINDOW_NEAR}), d(card bf16, card f32) {ratio:.3f} "
+                             f"x (limits {WINDOW_LOW}, {WINDOW_HIGH}); d(CPU bf16, f32) {base}")
+    return near, ratio
+
+
+def flash_bf16_checks(torch, A):
+    """Phase 12 (a): B3 fwd bf16 and B3 bwd bf16 against their plain versions
+    on the card, q, k and v the thirds of one bf16 projection. Returns the
+    largest absolute errors (fwd, bwd) and the worst readings in ulps."""
+    worst = {"fwd": 0.0, "bwd": 0.0, "out_ulps": 0.0, "grad_ulps": 0.0, "lse": 0.0,
+             "grad_same": 1.0}
+    salt, batch0 = (0x9E3779B9, 0xDEADBEEF), 3
+    for B, T, N, D, rate, bias in B3_BF16_CASES:
+        g = torch.Generator().manual_seed(SEED + T)
+        qkv = torch.randn(B, T, 3 * N * D, generator=g).cuda().to(torch.bfloat16)
+        q, k, v = qkv.split(N * D, dim=-1)
+        kbias = (2.0 * torch.randn(B, T, generator=g)).cuda() if bias else None
+        dout = torch.randn(B, T, N * D, generator=g).cuda().to(torch.bfloat16)
+        args = (D ** -0.5, rate, salt, kbias, batch0)
+        out, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        ref_out, ref_lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+        grads = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
+        again = A.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, *args, n_heads=N)
+        ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, dout, *args,
+                                              n_heads=N)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError("flash_attention_bwd_bf16 gave other bits on the same inputs")
+        if out.dtype != torch.bfloat16 or any(x.dtype != torch.bfloat16 for x in grads):
+            raise AssertionError(f"B3 bf16 returned {out.dtype}, {[x.dtype for x in grads]}")
+        out_ulps = float((out.float() - ref_out.float()).abs().max()) / bf16_ulp(ref_out)
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1e-30)).max())
+        grad_ulps = {n: float((a.float() - b.float()).abs().max()) / bf16_ulp(b)
+                     for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+        grad_same = {n: float((a == b).float().mean())
+                     for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+        print(f"[bf16] flash_attention bf16 B={B} T={T} N={N} D={D} rate={rate} "
+              f"kbias={bias}: out {out_ulps:.2f} ulp of max|out| (limit "
+              f"{B3_BF16_OUT_ULPS:.0f}), lse rel {lse_err:.2e} (limit {B3_BF16_LSE_TOL:.0e}), "
+              + ", ".join(f"{n} {grad_ulps[n]:.2f} ulp ({grad_same[n]:.4f} identical)"
+                          for n in grad_ulps)
+              + f" (limits {B3_BF16_GRAD_ULPS:.0f} ulp, {B3_BF16_GRAD_SAME} identical); bwd "
+              f"twice: identical bits", flush=True)
+        if not (out_ulps <= B3_BF16_OUT_ULPS and lse_err <= B3_BF16_LSE_TOL
+                and all(e <= B3_BF16_GRAD_ULPS for e in grad_ulps.values())
+                and all(s >= B3_BF16_GRAD_SAME for s in grad_same.values())):
+            raise AssertionError(f"B3 bf16 disagrees with its plain version: out {out_ulps}, "
+                                 f"lse {lse_err}, grads {grad_ulps}, identical {grad_same}")
+        worst["fwd"] = max(worst["fwd"], float((out.float() - ref_out.float()).abs().max()),
+                           float((lse - ref_lse).abs().max()))
+        worst["bwd"] = max([worst["bwd"]] + [float((a.float() - b.float()).abs().max())
+                                             for a, b in zip(grads, ref_grads)])
+        worst["out_ulps"] = max(worst["out_ulps"], out_ulps)
+        worst["lse"] = max(worst["lse"], lse_err)
+        worst["grad_ulps"] = max([worst["grad_ulps"]] + list(grad_ulps.values()))
+        worst["grad_same"] = min([worst["grad_same"]] + list(grad_same.values()))
+
+    # FlashAttention under autograd on a bf16 projection: bf16 out and
+    # gradients, the bits of the two wrappers called directly
+    g = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(2, 130, 3 * 768, generator=g).cuda().to(torch.bfloat16)
+    dout = torch.randn(2, 130, 768, generator=g).cuda().to(torch.bfloat16)
+    x = qkv.clone().requires_grad_()
+    out = A.flash_attention(*x.split(768, dim=-1), 0.125, 0.1, salt, n_heads=12)
+    grad = torch.autograd.grad(out, x, dout)[0]
+    q, k, v = qkv.split(768, dim=-1)
+    o, lse = A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.1, salt, n_heads=12)
+    direct = torch.cat(A.flash_attention_bwd_bf16(q, k, v, o, lse, dout, 0.125, 0.1, salt,
+                                                  n_heads=12), dim=-1)
+    torch.cuda.synchronize()
+    if not (grad.dtype == out.dtype == torch.bfloat16 and torch.equal(out, o)
+            and torch.equal(grad, direct)):
+        raise AssertionError("FlashAttention in bf16 disagrees with its kernels")
+    print("[bf16] FlashAttention on a bf16 (2, 130, 3 x 768) projection: bf16 out and "
+          "gradient, bit for bit the kernels called directly", flush=True)
+    return worst
+
+
+def attention_bound_bf16(B, T, N, D, products):
+    """B3 bf16: ``products`` tile products of 2 * T * T * D operations a head,
+    one bf16 pass each on the tensor cores; q, k, v, out (and dout, dq, dk, dv)
+    moved once in bf16, lse (and the backward's Di) in f32."""
+    H = N * D
+    nbytes = 2 * (4 if products == 2 else 8) * B * T * H + 4 * B * N * T * (
+        1 if products == 2 else 2)
+    return bound(products * 2 * B * N * T * T * D, nbytes, PEAK_BF16)
+
+
+def mockingjay_bf16_run(torch, corpus, tmp, counted):
+    """Phase 12 (b): the Mockingjay joint finetune --from_waveform --compute_dtype
+    bf16 through build_runner / Runner, 4 steps with evals and saves and a
+    2-step resume; the launches of ``counted`` (B1, B2 fwd, B2 bwd, B3 fwd, B3
+    bwd, B3 fwd bf16, B3 bwd bf16). Returns (launches of the run, run dir)."""
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+        get_parser,
+    )
+
+    expdir = os.path.join(tmp, "exp")
+    config = train_config(corpus)
+    config["model"] = {"Mockingjay": {}}
+    config["runner"].update(total_step=BF16_STEPS, log_step=2, eval_step=2, save_step=2)
+    args = get_parser().parse_args([
+        "--name", "mockingjay_bf16", "--expdir", expdir, "--downstream", "Mockingjay",
+        "--objective", "SISDR", "--optim", "BertAdam", "--from_waveform",
+        "--compute_dtype", "bf16", "--dev_num", "3", "--n_jobs", "4", "--seed", str(SEED),
+        "--device", "cuda",
+    ])
+    run_dir = os.path.join(expdir, "mockingjay_bf16")
+
+    def run(runner, n_steps, what):
+        losses, evals = [], []
+        train_step, eval_step = runner.train_step, runner.builder.eval_step
+
+        def step(state, wavs, lengths):
+            state, stats = train_step(state, wavs, lengths)
+            losses.append(float(stats["loss"]))
+            return state, stats
+
+        def evaluate(wavs, lengths, **kw):
+            before = sum(fn.launches for fn in counted)
+            out = eval_step(wavs, lengths, **kw)
+            evals.append(sum(fn.launches for fn in counted) - before)
+            return out
+
+        runner.train_step, runner.builder.eval_step = step, evaluate
+        # -- the main path of B3 bf16, between the counter reset and its reading --
+        reset_counts(counted)
+        runner.train()
+        counts = [fn.launches for fn in counted]
+        # -----------------------------------------------------------------------
+        want = [0] * 5 + [MJ_LAYERS * n_steps] * 2
+        if (counts != want or any(evals) or len(losses) != n_steps
+                or not all(map(math.isfinite, losses))):
+            raise AssertionError(f"{what}: launches (B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, B3 "
+                                 f"fwd bf16, B3 bwd bf16) {counts}, want {want}; launches in "
+                                 f"the eval batches {evals}; losses {losses}")
+        return counts, losses, evals
+
+    random.seed(SEED)
+    np.random.seed(SEED)
+    runner = build_runner(args, config)
+    runner.set_model()
+    if runner.downstream_model.compute_dtype != torch.bfloat16:
+        raise AssertionError("--compute_dtype bf16 built an f32 Mockingjay")
+    t0 = time.perf_counter()
+    counts, losses, evals = run(runner, BF16_STEPS, "Mockingjay bf16")
+    train_s = time.perf_counter() - t0
+    ckpts = ckpt_files(run_dir)
+    print(f"[bf16] Mockingjay --compute_dtype bf16 (TERA 6 x 768 x 12, FFN 3072, dropout "
+          f"0.1) from_waveform through Runner on cuda: {BF16_STEPS} steps in {train_s:.2f} s "
+          f"(2 evals, loader and saves included), losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches (B1, B2 fwd, B2 bwd, B3 fwd, "
+          f"B3 bwd, B3 fwd bf16, B3 bwd bf16) {counts} ({MJ_LAYERS} + {MJ_LAYERS} bf16 a "
+          f"step, no f32 B3, 0 in {len(evals)} eval batches); checkpoints {ckpts}", flush=True)
+
+    args2, config2 = get_downstream_args(["--resume", run_dir, "--device", "cuda"])
+    config2["runner"]["total_step"] = BF16_STEPS + BF16_RESUME_STEPS
+    runner2 = build_runner(args2, config2)
+    runner2.set_model()
+    restored = (args2.compute_dtype, runner2.global_step, int(runner2.state.opt_state["count"]))
+    if restored != ("bf16", BF16_STEPS + 1, BF16_STEPS) or (
+            runner2.downstream_model.compute_dtype != torch.bfloat16):
+        raise AssertionError(f"Mockingjay bf16 resume restored {restored}")
+    counts2, losses2, _ = run(runner2, BF16_RESUME_STEPS, "Mockingjay bf16 resume")
+    print(f"[bf16] Mockingjay bf16 resume: restored compute_dtype {restored[0]}, global step "
+          f"{restored[1]}, optimizer count {restored[2]}; {BF16_RESUME_STEPS} more steps, "
+          f"losses {', '.join(f'{x:.4f}' for x in losses2)}, launches {counts2}", flush=True)
+    return counts, run_dir
+
+
+def mockingjay_window(torch, corpus, run_dir):
+    """Phase 12 (b): one Mockingjay train step (loss and gradient) on the card
+    against the same step on the CPU, bf16 and f32, the same salts and
+    weights (the bf16 run's last checkpoint), under the window criterion."""
+    from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import SaltStream
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import (
+        find_resume_ckpt,
+        load_checkpoint,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    payload = load_checkpoint(find_resume_ckpt(run_dir))
+    fixed_set = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
+                              noise={"filestrs": os.path.join(corpus, "noise")},
+                              max_time=2000, snrs=[0])
+    lengths_np, wavs_np = fixed_set.collate_fn([fixed_set[i] for i in range(3)],
+                                               pad_to=2 * SR)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        for dtype in ("bf16", "f32"):
+            builder = build_mockingjay_train(device=device, compute_dtype=dtype)
+            builder.model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
+            builder.model.train()
+            wavs = torch.from_numpy(wavs_np).to(device)
+            lengths = torch.from_numpy(lengths_np).to(device)
+            loss, _ = builder.loss_fn(make_context(builder.preprocessor, wavs, lengths, 0, 1),
+                                      SaltStream(SEED, 1000))
+            g = torch.autograd.grad(loss, list(builder.model.parameters()))
+            sides[(device, dtype)] = (loss.detach().reshape(1).double().cpu(),
+                                      torch.cat([x.reshape(-1) for x in g]).double().cpu())
+    order = (("cuda", "bf16"), ("cuda", "f32"), ("cpu", "bf16"), ("cpu", "f32"))
+    loss_w = window(torch, *(sides[k][0] for k in order), "Mockingjay bf16 step loss")
+    grad_w = window(torch, *(sides[k][1] for k in order), "Mockingjay bf16 step gradient")
+    print(f"[bf16] Mockingjay one train step (B=3, 2 s bucket, dropout live, same salts) card "
+          f"against CPU, bf16 and f32: loss {float(sides[order[0]][0]):.6f} (card bf16) / "
+          f"{float(sides[order[2]][0]):.6f} (CPU bf16) / {float(sides[order[3]][0]):.6f} (CPU "
+          f"f32); window (d(card bf16, CPU bf16), d(card bf16, card f32)) / d(CPU bf16, CPU "
+          f"f32): loss ({loss_w[0]:.3f}, {loss_w[1]:.3f}), gradient ({grad_w[0]:.3f}, "
+          f"{grad_w[1]:.3f}) (limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH})", flush=True)
+    return {"loss": loss_w, "grad": grad_w}
+
+
+def served_window(torch, run_dir, tmp, what, requests, counted, want):
+    """Phase 12 (c): the latest checkpoint of ``run_dir`` (Paras bf16) served
+    through ``serve.build_enhancer`` on the card and on the CPU, and the same
+    weights with Paras f32, under the window criterion on the waveforms; the
+    card's bf16 launches of ``counted`` must be ``want``."""
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import (
+        find_resume_ckpt,
+        load_checkpoint,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer
+
+    payload = load_checkpoint(find_resume_ckpt(run_dir))
+    if payload["Settings"]["Paras"]["compute_dtype"] != "bf16":
+        raise AssertionError(f"{what}: Paras record {payload['Settings']['Paras']['compute_dtype']}")
+    f32_dir = os.path.join(tmp, os.path.basename(run_dir) + "_as_f32")
+    os.makedirs(f32_dir, exist_ok=True)
+    payload["Settings"]["Paras"]["compute_dtype"] = "f32"
+    with open(os.path.join(f32_dir, "states-1.ckpt"), "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    outs = {}
+    for dtype, path in (("bf16", run_dir), ("f32", f32_dir)):
+        for device in ("cuda", "cpu"):
+            enhancer = build_enhancer(path, device=device)
+            if device == "cuda" and dtype == "bf16":
+                reset_counts(counted)
+                outs[(device, dtype)] = enhancer.run_batch(requests)
+                counts = [fn.launches for fn in counted]
+                if counts != want:
+                    raise AssertionError(f"{what}: launches {counts}, want {want}")
+            else:
+                outs[(device, dtype)] = enhancer.run_batch(requests)
+    for out, wav in zip(outs[("cuda", "bf16")], requests):
+        if out.shape != wav.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{what}: served shape {out.shape}")
+    order = (("cuda", "bf16"), ("cuda", "f32"), ("cpu", "bf16"), ("cpu", "f32"))
+    w = window(torch, *(np.concatenate(outs[k]) for k in order), f"{what} served waveforms")
+    print(f"[bf16] {what}: checkpoint with Paras compute_dtype bf16 served on cuda "
+          f"({len(requests)} requests, one device batch, launches {counts}) and on the CPU, "
+          f"beside the same weights served in f32: window ({w[0]:.3f}, {w[1]:.3f}) (limits "
+          f"{WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH})", flush=True)
+    return w
+
+
+def flagship_bf16_runs(torch, corpus, tmp, counted):
+    """Phase 12 (c): the flagship Residual head trained 4 steps with
+    --compute_dtype bf16 through Runner and served; the upstream mode
+    (--upstream transformer on a seeded full-width S3PRL checkpoint, --dropout
+    0.1) trained 2 steps in bf16 and served."""
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import build_runner, get_parser
+
+    expdir = os.path.join(tmp, "exp")
+    requests = [request_audio(s, 40 + i) for i, s in enumerate((2.0, 3.7))]
+    out = {}
+    up_ckpt = write_s3prl_checkpoint(torch, os.path.join(tmp, "tera-seeded.ckpt"), SEED)
+    for name, steps, flags, want_train, want_serve in (
+            ("flagship_bf16", BF16_HEAD_STEPS, ["--from_rawfeature"],
+             lambda e: [3 * e, 3 * BF16_HEAD_STEPS, 3 * BF16_HEAD_STEPS, 0, 0, 0, 0],
+             [3, 0, 0, 0, 0, 0, 0]),
+            ("upstream_bf16", UPSTREAM_STEPS, ["--upstream", "transformer", "--ckpt", up_ckpt,
+                                               "--dropout", "0.1"],
+             lambda e: [3 * e, 3 * UPSTREAM_STEPS, 3 * UPSTREAM_STEPS, 0, 0,
+                        MJ_LAYERS * UPSTREAM_STEPS, 0],
+             [3, 0, 0, 0, 0, 0, 0])):
+        config = train_config(corpus)
+        config["runner"].update(total_step=steps, eval_step=steps, save_step=steps)
+        args = get_parser().parse_args([
+            "--name", name, "--expdir", expdir, "--downstream", "Residual", "--objective",
+            "SISDR", "--optim", "BertAdam", "--compute_dtype", "bf16", "--dev_num", "3",
+            "--n_jobs", "4", "--seed", str(SEED), "--device", "cuda", *flags])
+        runner = build_runner(args, config)
+        runner.set_model()
+        losses, evals = [], []
+        train_step, eval_step = runner.train_step, runner.builder.eval_step
+
+        def step(state, wavs, lengths, train_step=train_step, losses=losses):
+            state, stats = train_step(state, wavs, lengths)
+            losses.append(float(stats["loss"]))
+            return state, stats
+
+        def evaluate(wavs, lengths, eval_step=eval_step, evals=evals, **kw):
+            evals.append(tuple(wavs.shape))
+            return eval_step(wavs, lengths, **kw)
+
+        runner.train_step, runner.builder.eval_step = step, evaluate
+        reset_counts(counted)
+        runner.train()
+        counts = [fn.launches for fn in counted]
+        if (counts != want_train(len(evals)) or len(losses) != steps
+                or not all(map(math.isfinite, losses))
+                or runner.downstream_model.compute_dtype != torch.bfloat16):
+            raise AssertionError(f"{name}: launches {counts}, want {want_train(len(evals))}; "
+                                 f"losses {losses}")
+        print(f"[bf16] {name} (Residual 3 x 256 BLSTM, --compute_dtype bf16"
+              + (", on the frozen seeded TERA in bf16, --dropout 0.1" if "upstream" in name
+                 else "") + f") through Runner on cuda: {steps} steps, losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; launches (B1, B2 fwd, B2 bwd, B3 fwd, "
+              f"B3 bwd, B3 fwd bf16, B3 bwd bf16) {counts}", flush=True)
+        out[name] = served_window(torch, os.path.join(expdir, name), tmp, name, requests,
+                                  counted, want_serve)
+    return out
+
+
+def step_breakdown(torch, fn, card, what):
+    """Five calls of ``fn`` under torch.profiler after one to warm it: wall and
+    device busy ms a call, idle share, and device time by kind, GEMMs split by
+    operand type (bf16 or f32) with the f32 ones named."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    shares = {"B3 fwd bf16": 0.0, "B3 bwd bf16": 0.0, "B3 f32": 0.0, "B2": 0.0,
+              "GEMM bf16": 0.0, "GEMM f32": 0.0, "other": 0.0}
+    gemms, other = {"GEMM bf16": {}, "GEMM f32": {}}, {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name, low = evt.name, evt.name.lower()
+        ms = evt.time_range.elapsed_us() / 1e3 / 5
+        if "flash_fwd_bf16" in name:
+            key = "B3 fwd bf16"
+        elif "flash_bwd" in name and "bf16" in name:
+            key = "B3 bwd bf16"
+        elif "flash_" in name:
+            key = "B3 f32"
+        elif "lstm" in name:
+            key = "B2"
+        elif any(tag in low for tag in ("gemm", "cublas", "xmma", "cutlass", "nvjet")):
+            # f32 products (TF32 off) run cuBLAS's f32f32 or SIMT sgemm kernels;
+            # the step's other products are bf16 (cuBLAS's nvjet kernels on Hopper)
+            key = "GEMM f32" if ("f32f32" in low or "sgemm" in low) else "GEMM bf16"
+            label = re.sub(r"^void |\(.*$", "", name)[:70]
+            gemms[key][label] = gemms[key].get(label, 0.0) + ms
+        else:
+            key = "other"
+            label = kernel_op(name)
+            other[label] = other.get(label, 0.0) + ms
+        shares[key] += ms
+    busy = sum(shares.values())
+    print(f"[time] {what} under torch.profiler (5 calls): wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items()
+                      if v)
+          + f"), idle share {max(0.0, 1 - busy / wall):.3f} | {card}", flush=True)
+
+    def top(d, n):
+        return "; ".join(f"{k} {v:.3f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n])
+
+    print(f"[time] {what}: f32 GEMMs (ms) {top(gemms['GEMM f32'], 6) or 'none'} | bf16 GEMMs "
+          f"(ms) {top(gemms['GEMM bf16'], 4) or 'none'} | largest other kernels (ms) "
+          f"{top(other, 6)} | {card}", flush=True)
+    return {"wall": wall, "busy": busy, **shares}
+
+
+def bf16_times(torch, A, card):
+    """Phase 12 (d): B3 bf16 beside the f32 kernel, its plain version and SDPA
+    bf16 (rate 0, forward and backward) at B=6 and 64; the B=6 10 s Mockingjay
+    and flagship train steps and the B=1 10 s enhance, bf16 beside f32."""
+    import torch.nn.functional as F
+
+    from speech_enhancement_by_s3prl_tpu_torch.entry import (
+        build,
+        build_mockingjay_train,
+        build_train,
+        make_enhance,
+    )
+
+    times = {}
+    N, D, T, salt = 12, 64, 1001, (1, 2)
+    for B in (6, 64):
+        g = torch.Generator().manual_seed(SEED)
+        qkv32 = torch.randn(B, T, 3 * N * D, generator=g).cuda()
+        q32, k32, v32 = qkv32.split(N * D, dim=-1)
+        q, k, v = qkv32.to(torch.bfloat16).split(N * D, dim=-1)
+        dout32 = torch.randn(B, T, N * D, generator=g).cuda()
+        dout = dout32.to(torch.bfloat16)
+        out, lse = A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.1, salt, n_heads=N)
+        out32, lse32 = A.flash_attention_fwd(q32, k32, v32, 0.125, 0.1, salt, n_heads=N)
+        fns = {
+            "fwd": (lambda: A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.1, salt, n_heads=N),
+                    lambda: A.flash_attention_fwd(q32, k32, v32, 0.125, 0.1, salt, n_heads=N),
+                    lambda: A.flash_attention_ref(q, k, v, 0.125, 0.1, salt, n_heads=N)),
+            "bwd": (lambda: A.flash_attention_bwd_bf16(q, k, v, out, lse, dout, 0.125, 0.1,
+                                                       salt, n_heads=N),
+                    lambda: A.flash_attention_bwd(q32, k32, v32, out32, lse32, dout32, 0.125,
+                                                  0.1, salt, n_heads=N),
+                    lambda: A.flash_attention_bwd_ref(q, k, v, out, lse, dout, 0.125, 0.1,
+                                                      salt, n_heads=N)),
+        }
+        for name, (kern, f32, plain) in fns.items():
+            # in turns: kernel, f32 kernel, plain, plain, f32 kernel, kernel
+            a, b, c = cuda_ms(torch, kern, 10), cuda_ms(torch, f32, 10), cuda_ms(torch, plain, 2)
+            c2, b2, a2 = cuda_ms(torch, plain, 2), cuda_ms(torch, f32, 10), cuda_ms(torch, kern, 10)
+            times[(name, B)] = (min(a, a2), min(b, b2), min(c, c2))
+            print(f"[time] flash_attention_{name}_bf16 B={B} T={T} N={N} D={D} rate 0.1: "
+                  f"kernel {a:.3f} / {a2:.3f} ms, f32 kernel {b:.3f} / {b2:.3f} ms, plain "
+                  f"{c:.3f} / {c2:.3f} ms | {card}", flush=True)
+        heads = [x.reshape(B, T, N, D).transpose(1, 2) for x in (q, k, v)]
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*heads, scale=0.125), 10)
+        leaves = [x.detach().requires_grad_() for x in heads]
+        dout_h = dout.reshape(B, T, N, D).transpose(1, 2)
+
+        def sdpa_train():
+            return F.scaled_dot_product_attention(*leaves, scale=0.125)
+
+        def sdpa_both():
+            return torch.autograd.grad(sdpa_train(), leaves, dout_h)
+
+        both = cuda_ms(torch, sdpa_both, iters=10, warmup=2)
+        fwd_t = cuda_ms(torch, sdpa_train, iters=10, warmup=2)
+        times[("sdpa", B)] = (sdpa, both - fwd_t)
+        print(f"[time] scaled_dot_product_attention bf16 rate 0 (a yardstick, not a route) "
+              f"B={B} T={T}: forward {sdpa:.3f} ms, backward {both - fwd_t:.3f} ms (forward + "
+              f"backward {both:.3f}) | {card}", flush=True)
+        del q, k, v, q32, k32, v32, qkv32, dout, dout32, out, lse, out32, lse32, heads, leaves
+
+    rng = np.random.default_rng(SEED)
+    clean = np.stack([request_audio(10.0, s) for s in range(6)])
+    noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+    wavs = torch.from_numpy(np.stack([clean + noise, clean, noise], axis=1)).cuda()
+    lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long).cuda()
+    for model, make in (("Mockingjay", build_mockingjay_train), ("flagship", build_train)):
+        for dtype in ("f32", "bf16", "bf16", "f32"):
+            builder = make(device="cuda", compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(SEED))
+            box = [builder.init_state()]
+
+            def step(builder=builder, box=box):
+                box[0], stats = builder.train_step(box[0], wavs, lengths)
+                return stats
+
+            ms = synced_ms(torch, step, runs=10)
+            if not math.isfinite(float(step()["loss"])):
+                raise AssertionError(f"{model} {dtype} timing steps: loss not finite")
+            key = (model, dtype)
+            times[key] = min(times.get(key, math.inf), statistics.median(ms))
+            print(f"[time] {model} train step B=6 10 s, compute_dtype {dtype}: median "
+                  f"{statistics.median(ms):.3f} ms of 10 synchronized steps (min {min(ms):.3f}, "
+                  f"max {max(ms):.3f}) | {card}", flush=True)
+            if (model, dtype, "profile") not in times:
+                times[(model, dtype, "profile")] = step_breakdown(
+                    torch, step, card, f"{model} train step B=6 10 s, compute_dtype {dtype}")
+            del builder, box
+    wav = torch.from_numpy(np.stack([request_audio(10.0, s) for s in range(3)]))[None].cuda()
+    one = torch.tensor([wav.shape[-1]]).cuda()
+    for dtype in ("f32", "bf16", "bf16", "f32"):
+        pre, model = build(device="cuda", compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(SEED))
+        enhance = make_enhance(pre, model)
+        ms = synced_ms(torch, lambda: enhance(wav, one), runs=20)
+        key = ("enhance", dtype)
+        times[key] = min(times.get(key, math.inf), statistics.median(ms))
+        print(f"[time] enhance B=1 10 s, compute_dtype {dtype}: median "
+              f"{statistics.median(ms):.3f} ms of 20 (min {min(ms):.3f}, max {max(ms):.3f}) | "
+              f"{card}", flush=True)
+    return times
+
+
+def bf16_phase(torch, A, counted, card, tmp):
+    """Phase 12: bf16 compute on the card. ``counted`` are the kernels whose
+    launches the bf16 runs read: B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, B3 fwd
+    bf16, B3 bwd bf16."""
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED)
+    checks = flash_bf16_checks(torch, A)
+    counts, run_dir = mockingjay_bf16_run(torch, corpus, tmp, counted)
+    mj_window = mockingjay_window(torch, corpus, run_dir)
+    served = flagship_bf16_runs(torch, corpus, tmp, counted)
+    times = bf16_times(torch, A, card)
+    return {"checks": checks, "launches": counts[5:], "mj_window": mj_window,
+            "served": served, "times": times}
+
+
 def main():
     import torch
 
@@ -3763,6 +4326,12 @@ def main():
         active = active_phase(torch, all_kernels, card, tmp)
     active_counts = active["counts"]
 
+    # 12. bf16 compute on the card
+    bf16_kernels = (A.flash_attention_fwd_bf16, A.flash_attention_bwd_bf16)
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16 = bf16_phase(torch, A, kernels + flash_kernels + bf16_kernels, card, tmp)
+    bf16_times_ = bf16["times"]
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -3863,6 +4432,25 @@ def main():
             library_ms_b64=times[("b3sdpa_bwd", 64)][1],
             rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0]),
     ]
+    # B3 bf16 (phase 12): one bf16 tensor-core pass a product; beside it the
+    # f32 kernel's time at the same shape, and SDPA bf16 at rate 0 (forward, or
+    # its backward) as the library call
+    for name, source, replaces, products, err, launches in (
+            ("flash_attention_fwd_bf16", "flash_attn.cu", "attention_kernel.py:277", 2,
+             bf16["checks"]["fwd"], bf16["launches"][0]),
+            ("flash_attention_bwd_bf16", "flash_attn_bwd.cu", "attention_kernel.py:314", 5,
+             bf16["checks"]["bwd"], bf16["launches"][1])):
+        key, lib = ("fwd", 0) if products == 2 else ("bwd", 1)
+        rows.append(row(
+            name, source, replaces, launches, err, bf16_times_[(key, 6)][0],
+            bf16_times_[(key, 6)][2], "B=6 T=1001 N=12 D=64 rate 0.1 bf16",
+            attention_bound_bf16(6, T, 12, 64, products), bf16_times_[("sdpa", 6)][lib],
+            f32_kernel_ms=bf16_times_[(key, 6)][1], ms_b64=bf16_times_[(key, 64)][0],
+            f32_kernel_ms_b64=bf16_times_[(key, 64)][1],
+            plain_ms_b64=bf16_times_[(key, 64)][2],
+            bound_ms_b64=attention_bound_bf16(64, T, 12, 64, products)[0],
+            library_ms_b64=bf16_times_[("sdpa", 64)][lib],
+            max_ulps=bf16["checks"]["out_ulps" if products == 2 else "grad_ulps"]))
     # B4 at 1 / 12 / 64 rows of 10 s: the FFT kernel (its route at n_fft 400),
     # with the product kernel's times at the same shapes beside it
     dsp_shape = "1 row of 10 s (1001 frames), n_fft 400, hop 160"
@@ -3999,6 +4587,17 @@ def main():
           f"sync-sampled {active['step_ms']['sync']:.3f} ms (idle share "
           f"{max(0.0, 1 - busy['sync-sampled step'][0] / busy['sync-sampled step'][1]):.3f}) "
           f"| {card}", flush=True)
+    bt = bf16_times_
+    print(f"[bf16] B3 bf16 out <= {bf16['checks']['out_ulps']:.2f} ulp, dq/dk/dv <= "
+          f"{bf16['checks']['grad_ulps']:.2f} ulp of their largest values; Mockingjay bf16 run "
+          f"launches (B3 fwd bf16, B3 bwd bf16) {bf16['launches']}; windows Mockingjay step "
+          f"loss {bf16['mj_window']['loss'][0]:.3f}/{bf16['mj_window']['loss'][1]:.3f}, gradient "
+          f"{bf16['mj_window']['grad'][0]:.3f}/{bf16['mj_window']['grad'][1]:.3f}, served "
+          + ", ".join(f"{k} {a:.3f}/{b:.3f}" for k, (a, b) in bf16["served"].items())
+          + f"; B=6 10 s train step ms bf16 / f32: Mockingjay {bt[('Mockingjay', 'bf16')]:.3f} / "
+          f"{bt[('Mockingjay', 'f32')]:.3f}, flagship {bt[('flagship', 'bf16')]:.3f} / "
+          f"{bt[('flagship', 'f32')]:.3f}; enhance B=1 10 s {bt[('enhance', 'bf16')]:.3f} / "
+          f"{bt[('enhance', 'f32')]:.3f} | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

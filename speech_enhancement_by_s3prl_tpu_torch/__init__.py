@@ -11,12 +11,16 @@ __version__ = "0.1.0"
 
 
 def use_full_fp32():
-    """Run f32 matmuls and convolutions in full f32 on the card.
+    """Run f32 matmuls and convolutions in full f32 on the card, and sum bf16
+    products in f32.
 
     PyTorch lets cuDNN convolutions use TF32 by default, which keeps about
-    three decimal digits; the reference computes these products in f32.
-    The entry points of the port call this before they run anything."""
+    three decimal digits; the reference computes these products in f32. It
+    also lets cuBLAS reduce a bf16 product in reduced precision, where the
+    JAX package's bf16 dots accumulate in f32. The entry points of the port
+    call this before they run anything."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

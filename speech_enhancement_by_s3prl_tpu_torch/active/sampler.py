@@ -149,8 +149,12 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
     The loss runs in train mode, as the trainer's: a dropout-bearing head
     (Mockingjay) is scored with its dropout live, the salts drawn from
     ``generator`` (omitted: a fixed seed, so that a head with no dropout is
-    deterministic anyway). A bad ``active_layerid`` raises at the call."""
+    deterministic anyway). A bad ``active_layerid`` raises at the call; a
+    head built with ``compute_dtype`` bf16 raises here (ROADMAP A14b)."""
     sb = step_builder
+    if getattr(sb.model, "compute_dtype", torch.float32) == torch.bfloat16:
+        raise NotImplementedError(
+            "per-sample gradient scoring of a bf16 head is not ported yet (ROADMAP A14b)")
     if impl not in ("vmap", "capture"):
         raise ValueError(f"unknown scoring impl {impl!r}")
     if impl == "capture" and not _capture_supported(sb.model, active_layerid):

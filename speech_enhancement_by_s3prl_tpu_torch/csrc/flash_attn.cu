@@ -1,5 +1,6 @@
 // Flash attention forward with in-kernel hash dropout (kernel B3 fwd), f32 in
-// and out, on Hopper's tensor cores.
+// and out, on Hopper's tensor cores; and its bf16 form (B3 fwd bf16, below,
+// for compute_dtype bf16).
 //
 // Replaces, in speech_enhancement_by_s3prl_tpu/ops/pallas/attention_kernel.py,
 // _fwd_impl / _fwd_kernel (the pallas_call at :277): the attention of every
@@ -58,6 +59,7 @@
 #include <math.h>
 
 #include "flash_attn_common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -257,6 +259,209 @@ int launch(const float* q, const float* k, const float* v, const float* kbias, f
   return (int)cudaGetLastError();
 }
 
+// ---- B3 fwd in bf16 (compute_dtype bf16) ----------------------------------
+//
+// The same function at the JAX kernel's bf16 roundings (attention_kernel.py
+// :116-164 with bf16 q, k, v): q times the scale rounded to bf16 (the caller
+// rounds the scale itself to bf16, as jnp.asarray(scale, dt) does), logits as
+// f32 sums of exact bf16 products, the key bias, softmax and hash in f32, the
+// dropped probabilities rounded to bf16 into the P V product, out rounded to
+// bf16 from its f32 accumulator, lse f32. One difference stays: the online
+// softmax rounds p = exp(s - m) against the running row maximum of the keys
+// walked so far, the JAX kernel against the row's final one, so the bf16
+// roundings of p (and through them out) differ by an ulp here and there.
+//
+// Bound on this card: operations, at one bf16 tensor-core pass a product
+// (18.5 GFLOP at B=6, T=1001, 12 x 64 over 989 TFLOP/s) against 0.04 GB moved.
+// The design is the f32 kernel's (a block of 4 warps per 64 queries, head and
+// batch; K and V walked 32 keys at a time through a cp.async double buffer,
+// which carries half the f32 kernel's bytes; the probabilities go from the
+// accumulators straight into the P V product as A fragments), with each
+// product one mma.m16n8k16 pass (mma_bf16.cuh) in place of three TF32 ones.
+
+namespace bm = bf16mma;
+using bm::bf16;
+
+// Dynamic shared memory, in bytes: the resident [64][D + 8] bf16 query tile
+// (scale q), and two stages of the walked [32][D + 8] bf16 key and value
+// tiles and the 32-entry f32 key bias.
+template <int D>
+__host__ __device__ constexpr int fwd_bf16_stage_bytes() {
+  return 2 * 2 * kWalk * (D + 8) + 4 * kWalk;
+}
+
+template <int D>
+__host__ __device__ constexpr int fwd_bf16_smem_bytes() {
+  return 2 * 64 * (D + 8) + 2 * fwd_bf16_stage_bytes<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ kbias,
+                      bf16* __restrict__ out, float* __restrict__ lse, int T, int N,
+                      long long sb, long long st, float scale, float keep, uint32_t thresh,
+                      uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
+  constexpr int LD = D + 8;
+  constexpr int DN = D / 8;      // 8-column tiles of out
+  constexpr int CN = kWalk / 8;  // 8-key tiles of s
+  constexpr int kStage = fwd_bf16_stage_bytes<D>();
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);                  // bf16(scale q)
+  char* walk_s = reinterpret_cast<char*>(q_s + 64 * LD);       // per stage: k, v, bias
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
+  const long long head = (long long)b * sb + (long long)n * D;
+  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+
+  auto start = [&](int i) {
+    char* w = walk_s + (i & 1) * kStage;
+    bf16* const dst[2] = {reinterpret_cast<bf16*>(w), reinterpret_cast<bf16*>(w) + kWalk * LD};
+    const bf16* const src[2] = {k + head, v + head};
+    const long long stride[2] = {st, st};
+    bm::start_walk<D, 2>(dst, src, stride, i * kWalk, T, kWalk, vec, kTileThreads);
+    if (threadIdx.x < kWalk) {
+      const int t = i * kWalk + threadIdx.x;
+      reinterpret_cast<float*>(w + 4 * kWalk * LD)[threadIdx.x] =
+          t < T ? kbias[(long long)b * T + t] : -INFINITY;  // keys >= T: bias -inf
+    }
+    cp_async_commit();
+  };
+  start(0);
+  bm::load_tile<D>(q_s, q + head, st, q0, T, 64, scale, vec, kTileThreads);
+  // this thread's accumulator rows: queries q_a and q_a + 8
+  const int q_a = q0 + warp * 16 + g;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float acc[DN][4];
+#pragma unroll
+  for (int c = 0; c < DN; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  const bf16* qa_s = q_s + warp * 16 * LD;
+  const int n_walk = (T + kWalk - 1) / kWalk;
+
+  for (int i = 0; i < n_walk; ++i) {
+    cp_async_wait_all();  // as in the f32 kernel
+    __syncthreads();
+    if (i + 1 < n_walk) start(i + 1);
+    const char* w = walk_s + (i & 1) * kStage;
+    const bf16* k_s = reinterpret_cast<const bf16*>(w);
+    const bf16* v_s = k_s + kWalk * LD;
+    const float* kb_s = reinterpret_cast<const float*>(w + 4 * kWalk * LD);
+    const int k0 = i * kWalk;
+
+    // s = bf16(scale q) k^T: 16 queries x 32 keys, one pass a 16-deep slice
+    float s_acc[CN][4];
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t qa[4];
+      bm::load_a(qa, qa_s + d0, LD, lane);
+#pragma unroll
+      for (int j = 0; j < CN; j += 2) {
+        uint32_t b0[2], b1[2];
+        bm::load_b_nk_x2(b0, b1, k_s + 8 * j * LD + d0, LD, lane);
+        bm::mma(s_acc[j], qa, b0);
+        bm::mma(s_acc[j + 1], qa, b1);
+      }
+    }
+
+    // the key bias and the online softmax, in f32 as in the f32 kernel
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const float2 kb = *reinterpret_cast<const float2*>(kb_s + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s_acc[j][e] += (e & 1) ? kb.y : kb.x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[j][e]);
+      }
+    }
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      shift[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = expf(m[h] - shift[h]);
+      m[h] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s_acc[j][e] - shift[e >> 1]);
+        rs[e >> 1] += p;
+        const bool kept =
+            !dropout || keep_bit(bn, (uint32_t)(q_a + 8 * (e >> 1)),
+                                 (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s0, s1, thresh);
+        s_acc[j][e] = kept ? p : 0.f;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int c = 0; c < DN; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha[e >> 1];
+
+    // out += bf16(p) v: contraction over the tile's keys, 16 at a time, two s
+    // tiles rounded to bf16 as the A operand
+#pragma unroll
+    for (int j = 0; j < CN; j += 2) {
+      uint32_t pa[4];
+      bm::frag_a_from_acc(pa, s_acc[j], s_acc[j + 1]);
+#pragma unroll
+      for (int c = 0; c < DN; c += 2) {
+        uint32_t b0[2], b1[2];
+        bm::load_b_kn_x2(b0, b1, v_s + 8 * j * LD + 8 * c, LD, lane);
+        bm::mma(acc[c], pa, b0);
+        bm::mma(acc[c + 1], pa, b1);
+      }
+    }
+  }
+
+  const int H = N * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = q_a + 8 * h;
+    const float sum = quad_sum(l[h]);  // every lane of the warp shuffles
+    if (t >= T) continue;
+    const float r = 1.f / (sum * keep);
+    bf16* o = out + ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < DN; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * c) =
+          __floats2bfloat162_rn(acc[c][2 * h] * r, acc[c][2 * h + 1] * r);
+    if (t4 == 0) lse[((long long)b * N + n) * T + t] = m[h] + logf(sum);
+  }
+}
+
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias, bf16* out,
+                float* lse, int B, int T, int N, long long sb, long long st, float scale,
+                float keep, uint32_t thresh, uint32_t s0, uint32_t s1, int batch0,
+                int dropout, cudaStream_t stream) {
+  const size_t smem = fwd_bf16_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte tile copies (8 bf16) where every row start is 16-byte aligned
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && sb % 8 == 0 && st % 8 == 0;
+  dim3 grid((T + kBQ - 1) / kBQ, N, B);
+  flash_fwd_bf16_kernel<D><<<grid, kTileThreads, smem, stream>>>(
+      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, batch0, dropout,
+      vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -290,6 +495,38 @@ int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* 
     case 128:
       return launch<128>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
                          s1, batch0, dropout, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel B3 fwd in bf16: q, k, v and out bf16, kbias and lse f32, the
+// arguments otherwise as for flash_attn_fwd_f32; `scale` is the softmax scale
+// already rounded to bf16. out must be 4-byte aligned (a whole allocation).
+int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* kbias,
+                        void* out, void* lse, int B, int T, int N, int D, long long sb,
+                        long long st, float scale, float keep, unsigned thresh, unsigned s0,
+                        unsigned s1, int batch0, int dropout, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  auto* qb = static_cast<const bf16*>(q);
+  auto* kb = static_cast<const bf16*>(k);
+  auto* vb = static_cast<const bf16*>(v);
+  auto* bf = static_cast<const float*>(kbias);
+  auto* ob = static_cast<bf16*>(out);
+  auto* lf = static_cast<float*>(lse);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh, s0,
+                             s1, batch0, dropout, s);
+    case 64:
+      return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh, s0,
+                             s1, batch0, dropout, s);
+    case 128:
+      return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh,
+                              s0, s1, batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

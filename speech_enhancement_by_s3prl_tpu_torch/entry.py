@@ -7,6 +7,11 @@ head of 3 bidirectional LSTM layers of 256, a Dense 512 -> 201 and a
 sigmoid mask on the noisy power spectrum; iSTFT with the noisy phase;
 renorm to -25 dB. It trains with the SISDR objective, BertAdam(4e-5, 0.07,
 20000), a global clip at 1.0 and SI-SDR as the eval metric.
+
+Every builder takes ``compute_dtype`` ('f32' | 'bf16', as the JAX
+``_build``): bf16 runs the bidirectional head's projections and W_hh^T, or
+the Mockingjay encoder's products, in bf16 (``models/lstm.py``,
+``models/transformer.py``); parameters and optimizer state stay f32.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from .runner.trainer import StepBuilder, decode_wav, make_context
 TARGET_LEVEL = -25.0
 
 
-def flagship_settings(hidden_size=256, num_layers=3, bidirectional=True, delta=2):
+def flagship_settings(hidden_size=256, num_layers=3, bidirectional=True, delta=2,
+                      compute_dtype="f32"):
     """(config, paras) a checkpoint of the flagship records, in the keys
     ``serve.build_raw_enhancer`` reads to rebuild it."""
     config = {
@@ -41,7 +47,8 @@ def flagship_settings(hidden_size=256, num_layers=3, bidirectional=True, delta=2
             }
         },
     }
-    paras = {"downstream": "Residual", "from_rawfeature": True}
+    paras = {"downstream": "Residual", "from_rawfeature": True,
+             "compute_dtype": compute_dtype}
     return config, paras
 
 
@@ -60,7 +67,7 @@ def _preprocessor(n_mels=40, delta=2) -> OnlinePreprocessor:
 
 
 def build(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40, delta=2,
-          *, device, generator=None):
+          compute_dtype="f32", *, device, generator=None):
     """(preprocessor, model) of the flagship, the model on ``device`` with
     weights drawn from ``generator``."""
     use_full_fp32()
@@ -69,15 +76,16 @@ def build(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40, delta=2,
         "Residual", input_size=pre.feat_dims()[1], output_size=201,
         generator=generator, hidden_size=hidden_size, num_layers=num_layers,
         bidirectional=bidirectional, activation="Sigmoid", cmvn=False,
+        compute_dtype=compute_dtype,
     )
     return pre, model.eval().to(device)
 
 
 def build_train(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40,
-                delta=2, *, device, generator=None) -> StepBuilder:
+                delta=2, compute_dtype="f32", *, device, generator=None) -> StepBuilder:
     """The flagship's ``StepBuilder`` for training, the model on ``device``
     with weights drawn from ``generator``."""
-    pre, model = build(hidden_size, num_layers, bidirectional, n_mels, delta,
+    pre, model = build(hidden_size, num_layers, bidirectional, n_mels, delta, compute_dtype,
                        device=device, generator=generator)
     return StepBuilder(
         preprocessor=pre,
@@ -90,8 +98,9 @@ def build_train(hidden_size=256, num_layers=3, bidirectional=True, n_mels=40,
     )
 
 
-def build_mockingjay_train(config: Optional[TransformerConfig] = None, *, device,
-                          generator=None, seed: int = 0) -> StepBuilder:
+def build_mockingjay_train(config: Optional[TransformerConfig] = None,
+                          compute_dtype="f32", *, device, generator=None,
+                          seed: int = 0) -> StepBuilder:
     """The Mockingjay joint finetune's ``StepBuilder``: the whole TERA
     encoder (``config``, by default the full 6 x 768 x 12, FFN 3072, dropout
     0.1) and its spec head, trained from the upstream-input features (80-d
@@ -102,7 +111,7 @@ def build_mockingjay_train(config: Optional[TransformerConfig] = None, *, device
     pre = _preprocessor(delta=1)
     config = config or TransformerConfig(input_dim=pre.feat_dims()[0])
     model = Mockingjay(input_size=pre.feat_dims()[0], output_size=201, config=config,
-                       generator=generator)
+                       compute_dtype=compute_dtype, generator=generator)
     return StepBuilder(
         preprocessor=pre,
         model=model.to(device),

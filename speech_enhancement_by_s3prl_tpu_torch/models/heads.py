@@ -17,6 +17,15 @@ under ``"all"``, the input and pre-activation output of the head's Dense
 ``Linear`` and ``LinearResidual``, which record them for any ``capture``).
 ``build_head`` takes the JAX modules' ``capture_layer`` and passes it to no
 module: the selection is per call.
+
+``compute_dtype`` ('f32' | 'bf16', the CLI's ``--compute_dtype`` and a
+checkpoint's ``Settings.Paras``; ``normalize_compute_dtype`` reads it) is
+taken by ``LSTM`` / ``Residual`` (the bidirectional stack's projection and
+W_hh^T in bf16, ``models/lstm.py``; the ``scaling_layer`` stays f32, as its
+flax Dense has no dtype), ``Mockingjay`` (the encoder's bf16 products,
+``models/transformer.py``; the spec head stays f32) and ``SpecHead``, which
+computes in f32 under either, as the JAX module has no dtype. A
+one-direction ``LSTM`` / ``Residual`` in bf16 raises (ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -44,7 +53,27 @@ ACTIVATIONS: Dict[str, Callable] = {
     "Softplus": F.softplus,
 }
 
-F32_NAMES = ("f32", "float32", "fp32")
+DTYPE_ALIASES = {
+    "f32": torch.float32, "float32": torch.float32, "fp32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+}
+
+
+def normalize_compute_dtype(value) -> torch.dtype:
+    """The CLI's / a checkpoint's dtype word ('f32' | 'bf16', any case) ->
+    torch dtype; None is f32 and a torch dtype of the two passes through (the
+    port's copy of the JAX package's ``normalize_compute_dtype``)."""
+    if value is None:
+        return torch.float32
+    if isinstance(value, str):
+        try:
+            return DTYPE_ALIASES[value.lower()]
+        except KeyError:
+            raise ValueError(f"unknown compute_dtype {value!r}; use one of "
+                             f"{sorted(DTYPE_ALIASES)}") from None
+    if value not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be f32 or bf16, got {value!r}")
+    return value
 
 
 def activation(name: str) -> Callable:
@@ -139,11 +168,12 @@ class LSTM(nn.Module):
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
                  bidirectional: bool = False, activation: str = "Identity",
-                 generator=None):
+                 compute_dtype="f32", generator=None):
         super().__init__()
         self.activation = activation
+        self.compute_dtype = normalize_compute_dtype(compute_dtype)
         self.lstm = LSTMStack(input_size, hidden_size, num_layers, bidirectional,
-                              generator)
+                              generator, compute_dtype=self.compute_dtype)
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
@@ -163,11 +193,13 @@ class Residual(nn.Module):
     def __init__(self, input_size: int = 201, output_size: int = 201,
                  hidden_size: int = 201, num_layers: int = 3,
                  bidirectional: bool = False, activation: str = "Sigmoid",
-                 cmvn: bool = False, eps: float = 1e-6, generator=None):
+                 cmvn: bool = False, eps: float = 1e-6, compute_dtype="f32",
+                 generator=None):
         super().__init__()
         self.activation, self.cmvn, self.eps = activation, cmvn, eps
+        self.compute_dtype = normalize_compute_dtype(compute_dtype)
         self.lstm = LSTMStack(input_size, hidden_size, num_layers, bidirectional,
-                              generator)
+                              generator, compute_dtype=self.compute_dtype)
         out_in = (2 if bidirectional else 1) * hidden_size
         self.scaling_layer = xavier_linear(out_in, output_size, generator)
 
@@ -215,12 +247,6 @@ def build_head(model_name: str, input_size: int, output_size: int,
         raise TypeError("build_head takes no 'recurrence': every head runs the "
                         "default recurrence (it is an attribute of a built "
                         "model's LSTMStack)")
-    dtype = cfg.get("compute_dtype", "f32")
-    if isinstance(dtype, str) and dtype.lower() not in F32_NAMES:
-        raise NotImplementedError(
-            f"compute_dtype {dtype!r}: the port computes in f32 only; bf16 "
-            "compute is not ported yet (ROADMAP A14)"
-        )
     cfg = dict(cfg)
     ckpt_path = cfg.get("dckpt" if model_name == "Mockingjay" else "ckpt", "")
     if model_name in ("SpecHead", "Mockingjay") and ckpt_path:

@@ -43,6 +43,20 @@
   ``capture_layer`` is this per-call selection. With no ``capture`` nothing
   is recorded.
 
+- ``compute_dtype`` bf16 (``--compute_dtype bf16``) is the JAX package's
+  bidirectional layer on its Pallas path (``models/lstm.py:272-338``, the
+  path the port's kernels are the counterpart of): the projection takes the
+  input and W_ih rounded to bf16 and returns their f32 product (exact
+  products summed in f32, ``einsum(..., preferred_element_type=f32)``) plus
+  the f32 bias; W_hh^T is rounded to bf16 and handed to the recurrence as
+  f32; h and c stay f32, so B1 / B2 fwd / B2 bwd run unchanged. On the card
+  the projection is one bf16 GEMM with an f32 output. A gradient reaching an
+  f32 parameter through a bf16 rounding comes back rounded to bf16, as the
+  transpose of JAX's ``convert_element_type`` gives it. JAX's default scan
+  path (no ``SE_PALLAS_LSTM``) rounds h to bf16 every step instead; it is
+  not the reference here. A one-direction stack in bf16 raises: its only
+  JAX form is that scan cell (ROADMAP A14b).
+
 Initialization: xavier-uniform W_ih, orthogonal W_hh, zero biases.
 """
 from __future__ import annotations
@@ -59,6 +73,48 @@ from ..ops.cuda.lstm_kernel import (
 )
 
 RECURRENCES = ("tm", "blocked", "fused")
+ONE_DIRECTION_BF16 = (
+    "a one-direction LSTM in bf16 is not ported yet (ROADMAP A14b): its JAX form is the "
+    "lax.scan cell, which rounds h to bf16 every step, a bf16 variant of B1 / B2")
+
+
+class Bf16Product(torch.autograd.Function):
+    """``a @ b`` for bf16 (n, i, k) and (n, k, j) with an f32 result: exact
+    products summed in f32, as JAX's ``einsum`` of bf16 operands with
+    ``preferred_element_type=f32``. On the card one bf16 GEMM with an f32
+    output (``torch.bmm``'s ``out_dtype``); on the CPU, which lacks that
+    overload, the same function as the f32 product of the operands' values.
+    The gradients are the f32 products of the f32 cotangent with the other
+    operand, rounded to bf16 (the transpose of JAX's ``dot_general``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda":
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.float().transpose(1, 2)).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.float().transpose(1, 2), g).to(torch.bfloat16)
+        return da, db
+
+
+def project(xs: torch.Tensor, w_ih: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The input projection of a bidirectional layer without its bias: (2, B,
+    T, D) x (2, 4H, D) -> (2, B, T, 4H) f32. In f32 the plain einsum; in
+    bf16 both operands rounded to bf16 and their f32 product
+    (``Bf16Product``)."""
+    if dtype == torch.float32:
+        return torch.einsum("dbtn,dhn->dbth", xs, w_ih)
+    d, B, T, D = xs.shape
+    a = xs.to(dtype).reshape(d, B * T, D)
+    return Bf16Product.apply(a, w_ih.to(dtype).transpose(1, 2)).reshape(d, B, T, -1)
 
 
 class Capture(dict):
@@ -98,13 +154,19 @@ class LSTMStack(nn.Module):
     bidirectional else 1). ``recurrence`` ("tm", "blocked" or "fused")
     names the forward-only kernel of the bidirectional layers, a switch for
     the tests and the card script; a one-direction layer always runs
-    ``lstm_bidir_tm``."""
+    ``lstm_bidir_tm``. ``compute_dtype`` (f32 or bf16, bidirectional only)
+    is the precision of the input projection and of W_hh^T's values."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bidirectional: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 recurrence: str = "tm"):
+                 recurrence: str = "tm", compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
+        if compute_dtype == torch.bfloat16 and not bidirectional:
+            raise NotImplementedError(ONE_DIRECTION_BF16)
+        self.compute_dtype = compute_dtype
         self.recurrence = recurrence
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -147,6 +209,7 @@ class LSTMStack(nn.Module):
         forward_only = not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
         final_states = []
+        bf16 = self.compute_dtype == torch.bfloat16
         for k in range(self.num_layers):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
@@ -173,12 +236,18 @@ class LSTMStack(nn.Module):
             xs = torch.stack([x, torch.flip(x, dims=[1])], dim=0)  # (2, B, T, D)
             w_ih = torch.stack([pf.w_ih, pb.w_ih], dim=0)  # (2, 4H, D)
             bias = torch.stack([pf.b_ih + pf.b_hh, pb.b_ih + pb.b_hh], dim=0)
-            w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0).contiguous()  # (2, H, 4H)
+            w_hh_t = torch.stack([pf.w_hh.T, pb.w_hh.T], dim=0)  # (2, H, 4H)
+            if bf16:
+                w_hh_t = w_hh_t.to(torch.bfloat16).float()  # bf16 values, f32 recurrence
+            w_hh_t = w_hh_t.contiguous()
             capture_k = captured(capture, k)
             if self.recurrence == "fused" and forward_only and not capture_k:
+                if bf16:
+                    raise NotImplementedError("B7 (recurrence='fused') projects in f32 "
+                                              "inside the kernel: it has no bf16 form")
                 hs = lstm_bidir_fused(xs, w_ih.transpose(1, 2).contiguous(), bias, w_hh_t)
             else:
-                xw = (torch.einsum("dbtn,dhn->dbth", xs, w_ih)
+                xw = (project(xs, w_ih, self.compute_dtype)
                       + bias[:, None, None, :]).contiguous()
                 if self.recurrence == "blocked" and forward_only:
                     hs = lstm_bidir_bb(xw, w_hh_t)

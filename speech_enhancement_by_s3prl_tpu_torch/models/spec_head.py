@@ -10,6 +10,10 @@ log-spectrum (predicted = exp(raw)); else predicted is raw and
 log_predicted is log(raw + eps). The activation (ReLU by default) comes
 after. Pretrained weights come from ``models/torch_import.py``; random
 initialization otherwise.
+
+``compute_dtype`` bf16 runs ``Mockingjay``'s encoder layers in bf16
+(``models/transformer.py``); the spectrogram prediction head, of both
+models, computes in f32, as the JAX package's has no dtype.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .heads import Aux, activation
+from .heads import Aux, activation, normalize_compute_dtype
 from .transformer import (
     SaltStream,
     TransformerConfig,
@@ -40,8 +44,10 @@ class SpecHead(nn.Module):
 
     def __init__(self, input_size: int = 768, output_size: int = 201,
                  config: Optional[TransformerConfig] = None, log_domain: bool = True,
-                 activation: str = "ReLU", eps: float = 1e-6, generator=None):
+                 activation: str = "ReLU", eps: float = 1e-6, compute_dtype="f32",
+                 generator=None):
         super().__init__()
+        normalize_compute_dtype(compute_dtype)  # f32 under either (the module docstring)
         self.config = config or TransformerConfig()
         self.log_domain, self.activation, self.eps = log_domain, activation, eps
         self.spechead = TransformerSpecPredictionHead(self.config, output_size, input_size,
@@ -62,12 +68,15 @@ class Mockingjay(nn.Module):
 
     def __init__(self, input_size: int = 160, output_size: int = 201,
                  config: Optional[TransformerConfig] = None, log_domain: bool = True,
-                 activation: str = "ReLU", eps: float = 1e-6, generator=None):
+                 activation: str = "ReLU", eps: float = 1e-6, compute_dtype="f32",
+                 generator=None):
         super().__init__()
         self.config = config or TransformerConfig()
         self.log_domain, self.activation, self.eps = log_domain, activation, eps
+        self.compute_dtype = normalize_compute_dtype(compute_dtype)
         self.mockingjay = TransformerEncoder(self.config, input_dim=input_size,
-                                             generator=generator)
+                                             generator=generator,
+                                             compute_dtype=self.compute_dtype)
         self.spechead = TransformerSpecPredictionHead(self.config, output_size,
                                                       generator=generator)
 

@@ -30,6 +30,17 @@ dropout stream equals the JAX package's under ``SE_ATTN_IMPL=flash
 SE_HIDDEN_DROPOUT_IMPL=hash`` given the same salts. It differs from the JAX
 default (flax ``nn.Dropout`` masks), which is another, equally valid
 Bernoulli(1 - rate) sample.
+
+Compute dtype. Under ``compute_dtype`` bf16 the layers run the JAX
+encoder's ``nn.Dense(dtype=bf16)`` products: ``qkv``, the attention
+``output``, ``intermediate`` and the layer ``output`` take bf16 inputs and
+weights and give bf16 results, the bias added to the rounded product in bf16
+(two roundings, as flax adds it); q, k and v are then bf16, so attention is
+B3 fwd / bwd bf16 (dropout live) or ``F.scaled_dot_product_attention`` on
+bf16 (rate 0); the exact-erf gelu and the hidden dropouts act on those bf16
+tensors (the same salts, drawn in the same order). The residual sums, every
+LayerNorm, ``spec_transform``, the position encoding, ``input_ln`` and the
+spectrogram prediction head stay f32. Parameters are f32 in either dtype.
 """
 from __future__ import annotations
 
@@ -183,10 +194,22 @@ def hidden_dropout(x: torch.Tensor, rate: float, live: bool,
     return hash_dropout(x, rate, salts())
 
 
-def dense(fan_in: int, out: int, stddev: float, generator=None) -> nn.Linear:
-    """nn.Linear with weight normal(0, stddev) and a zero bias (the JAX
+class Dense(nn.Linear):
+    """nn.Linear computing in its input's dtype: an f32 input as ``F.linear``;
+    a bf16 input with the weight rounded to bf16 and the bias, rounded to
+    bf16, added to the rounded bf16 product (flax's ``nn.Dense(dtype=bf16)``).
+    Weight and bias stay f32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def dense(fan_in: int, out: int, stddev: float, generator=None) -> Dense:
+    """``Dense`` with weight normal(0, stddev) and a zero bias (the JAX
     encoder's ``normal_init`` Dense)."""
-    layer = nn.Linear(fan_in, out)
+    layer = Dense(fan_in, out)
     with torch.no_grad():
         layer.weight.normal_(0.0, stddev, generator=generator)
         layer.bias.zero_()
@@ -194,9 +217,11 @@ def dense(fan_in: int, out: int, stddev: float, generator=None) -> nn.Linear:
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, config: TransformerConfig, generator=None):
+    def __init__(self, config: TransformerConfig, generator=None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         H, r = config.hidden_size, config.initializer_range
         self.qkv = dense(H, 3 * H, r, generator)  # fused q, k, v, in that order
         self.output = dense(H, H, r, generator)
@@ -206,7 +231,7 @@ class SelfAttention(nn.Module):
         H, N = c.hidden_size, c.num_attention_heads
         D = H // N
         scale = 1.0 / math.sqrt(D)
-        q, k, v = self.qkv(hidden).split(H, dim=-1)
+        q, k, v = self.qkv(hidden.to(self.compute_dtype)).split(H, dim=-1)
         rate = c.attention_probs_dropout_prob
         if self.training and rate > 0.0:
             if salts is None:
@@ -226,13 +251,16 @@ class SelfAttention(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Post-LN layer: attention + residual + LayerNorm, FFN + residual +
-    LayerNorm, the residual sums in f32."""
+    LayerNorm, the residual sums in f32 (an f32 hidden plus a bf16 output
+    promotes to f32)."""
 
-    def __init__(self, config: TransformerConfig, generator=None):
+    def __init__(self, config: TransformerConfig, generator=None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         H, r, eps = config.hidden_size, config.initializer_range, config.layer_norm_eps
-        self.attention = SelfAttention(config, generator)
+        self.attention = SelfAttention(config, generator, compute_dtype)
         self.attention_ln = nn.LayerNorm(H, eps=eps)
         self.intermediate = dense(H, config.intermediate_size, r, generator)
         self.output = dense(config.intermediate_size, H, r, generator)
@@ -241,7 +269,8 @@ class TransformerLayer(nn.Module):
     def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None):
         c = self.config
         hidden = self.attention_ln(hidden + self.attention(hidden, salts))
-        out = self.output(ACT2FN[c.hidden_act](self.intermediate(hidden)))
+        out = self.output(ACT2FN[c.hidden_act](self.intermediate(
+            hidden.to(self.compute_dtype))))
         out = hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
         return self.output_ln(hidden + out)
 
@@ -252,12 +281,16 @@ class TransformerEncoder(nn.Module):
     ``forward(spec (B, T, input_dim))`` -> (B, T // dr, hidden), or every
     layer's output stacked (L, B, T // dr, hidden) when
     ``output_all_layers``. ``input_dim`` defaults to the config's; the flax
-    module takes it from the data."""
+    module takes it from the data. ``compute_dtype`` (f32 or bf16) is the
+    layers' (the module docstring)."""
 
     def __init__(self, config: TransformerConfig, input_dim: Optional[int] = None,
-                 generator=None):
+                 generator=None, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
         self.config = config
+        self.compute_dtype = compute_dtype
         H, r = config.hidden_size, config.initializer_range
         dr = max(1, config.downsample_rate)
         self.spec_transform = dense((input_dim or config.input_dim) * dr, H, r, generator)
@@ -266,10 +299,11 @@ class TransformerEncoder(nn.Module):
             persistent=False)
         self.input_ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
         if config.share_layer:
-            self.layer_shared = TransformerLayer(config, generator)
+            self.layer_shared = TransformerLayer(config, generator, compute_dtype)
         else:
             for i in range(config.num_hidden_layers):
-                self.add_module(f"layer_{i}", TransformerLayer(config, generator))
+                self.add_module(f"layer_{i}",
+                                TransformerLayer(config, generator, compute_dtype))
 
     def layers(self):
         c = self.config

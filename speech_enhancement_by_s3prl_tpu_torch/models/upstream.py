@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .heads import F32_NAMES
+from .heads import normalize_compute_dtype
 from .transformer import (
     SaltStream,
     TransformerConfig,
@@ -83,12 +83,14 @@ class UpstreamTransformer(nn.Module):
     features to hidden states; ``spec_head`` maps hidden states to the
     predicted linear power spectrum. ``state`` is a dict with 'encoder' and,
     optionally, 'spechead' state dicts (``torch_import.LoadedCheckpoint.
-    params``); random weights from ``generator`` otherwise."""
+    params``); random weights from ``generator`` otherwise. ``compute_dtype``
+    (f32 or bf16) is the encoder's; its output and the spec head are f32."""
 
     def __init__(self, config: TransformerConfig, input_dim: int,
                  options: Optional[UpstreamOptions] = None, output_size: int = 201,
                  state=None, log_domain: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.options = options or UpstreamOptions()
         if self.options.dropout is not None:
@@ -96,7 +98,8 @@ class UpstreamTransformer(nn.Module):
             config = dataclasses.replace(config, hidden_dropout_prob=rate,
                                          attention_probs_dropout_prob=rate)
         self.config = config
-        self.encoder = TransformerEncoder(config, input_dim=input_dim, generator=generator)
+        self.encoder = TransformerEncoder(config, input_dim=input_dim, generator=generator,
+                                          compute_dtype=compute_dtype)
         self.spechead = TransformerSpecPredictionHead(config, output_size,
                                                       generator=generator)
         if self.options.weighted_sum:
@@ -139,11 +142,9 @@ def build_upstream(upstream: str, input_dim: int, ckpt: str = "",
                    payload=None, compute_dtype=None):
     """'transformer' loads the encoder (and SpecHead) of the S3PRL checkpoint
     ``ckpt``, or draws a full-size one from ``seed``; 'baseline' is the
-    identity. ``payload`` is ``ckpt`` already loaded. Built on the CPU."""
-    if compute_dtype is not None and str(compute_dtype).lower() not in F32_NAMES:
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r}: the port computes in f32 only; bf16 "
-            "compute is not ported yet (ROADMAP A14)")
+    identity. ``payload`` is ``ckpt`` already loaded. ``compute_dtype`` ('f32' |
+    'bf16' or a torch dtype; None is f32) is the encoder's. Built on the CPU."""
+    dt = normalize_compute_dtype(compute_dtype)
     if upstream == "baseline":
         return DummyUpstream(input_dim)
     if upstream != "transformer":
@@ -154,7 +155,8 @@ def build_upstream(upstream: str, input_dim: int, ckpt: str = "",
 
         lc = load_s3prl_checkpoint(ckpt, payload=payload)
         return UpstreamTransformer(lc.config, lc.input_dim, opts, lc.output_size,
-                                   state=lc.params, log_domain=lc.log_domain)
+                                   state=lc.params, log_domain=lc.log_domain,
+                                   compute_dtype=dt)
     return UpstreamTransformer(TransformerConfig(input_dim=input_dim), input_dim, opts,
-                               output_size,
-                               generator=torch.Generator().manual_seed(seed))
+                               output_size, generator=torch.Generator().manual_seed(seed),
+                               compute_dtype=dt)

@@ -19,6 +19,20 @@ into two TF32 parts and three passes a product (``mma_tf32x3.cuh``): f32-level
 accuracy, which one TF32 pass does not give. ``split_tf32`` and
 ``matmul_tf32x3`` model that arithmetic for the CPU tests.
 
+Under ``compute_dtype`` bf16 (q, k, v bf16, as the encoder's bf16 QKV
+projection gives them) the same two functions run as their bf16 kernels, B3
+fwd bf16 ``flash_attention_fwd_bf16`` and B3 bwd bf16
+``flash_attention_bwd_bf16`` (the same sources, the C entries
+``flash_attn_fwd_bf16`` / ``flash_attn_bwd_bf16``, one bf16 tensor-core pass a
+product, ``mma_bf16.cuh``), counted apart from the f32 ones; ``flash_attention_fwd``
+/ ``flash_attention_bwd`` hand bf16 tensors to them. They round at the JAX
+kernel's points with bf16 inputs (``_fwd_kernel`` / ``_bwd_kernel``): the
+softmax scale and scale * q (and, for dq, scale * k) rounded to bf16, logits
+and every product summed in f32 from exact bf16 products, the softmax, hash
+and lse in f32, p rounded to bf16 into P V, the cotangent do / keep, the
+dropped p and ds rounded to bf16 into their products, and out, dq, dk, dv
+rounded to bf16 from f32 sums. kbias and lse stay f32.
+
 ``FlashAttention`` ties them into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
 and the 8-byte salt, never a mask. ``flash_attention`` routes to it when a
@@ -106,6 +120,18 @@ def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
     return dropout_keep_mask(bn, ar(T)[:, None], ar(T)[None, :], salt, rate)
 
 
+def _bf16_scalar(x: float) -> float:
+    """A Python float rounded to bf16 (to nearest, ties to even), as
+    ``jnp.asarray(x, jnp.bfloat16)`` rounds the JAX kernel's scale."""
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and held as f32: an operand the JAX kernel takes in
+    bf16, whose products are exact in f32."""
+    return x.to(torch.bfloat16).float()
+
+
 def _logits(q, k, scale, kbias, n_heads, matmul=torch.matmul):
     # the scale is folded into q, as the JAX kernel folds it into its block
     logits = matmul(_heads(q * scale, n_heads), _heads(k, n_heads).transpose(-1, -2))
@@ -118,7 +144,10 @@ def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
                         batch0: int = 0, *, n_heads: int):
     """B3 fwd's plain version, step for step ``_fwd_kernel`` without the
     tiling: it materializes the (B, N, T, T) logits. Returns (out (B, T,
-    N * D), lse (B, N, T) f32)."""
+    N * D) in the input dtype, lse (B, N, T) f32). Under bf16 inputs it
+    rounds where the JAX kernel rounds (the module docstring)."""
+    if q.dtype == torch.bfloat16:
+        return _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads)
     logits = _logits(q, k, scale, kbias, n_heads)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -129,6 +158,22 @@ def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
         p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
     ctx = torch.matmul(p, _heads(v, n_heads)) * (1.0 / (s * (1.0 - rate)))
     return _merge(ctx), lse
+
+
+def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
+    qs = _bf16(q.float() * _bf16_scalar(scale))
+    logits = torch.matmul(_heads(qs, n_heads), _heads(k.float(), n_heads).transpose(-1, -2))
+    if kbias is not None:
+        logits = logits + kbias[:, None, None, :]
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    s = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(s))[..., 0]
+    if rate > 0.0:
+        B, N, T, _ = p.shape
+        p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
+    ctx = torch.matmul(_bf16(p), _heads(v.float(), n_heads)) * (1.0 / (s * (1.0 - rate)))
+    return _merge(ctx).to(torch.bfloat16), lse
 
 
 def split_tf32(x: torch.Tensor):
@@ -162,8 +207,12 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, 
                             matmul=torch.matmul):
     """B3 bwd's plain version, step for step ``_bwd_kernel``: p from the
     saved lse, the same mask, do / keep. Returns (dq, dk, dv), each
-    (B, T, N * D). ``matmul`` computes its five products (the tests pass
-    ``matmul_tf32x3`` to model the kernel's arithmetic)."""
+    (B, T, N * D) in the input dtype. ``matmul`` computes the f32 version's
+    five products (the tests pass ``matmul_tf32x3`` to model the kernel's
+    arithmetic). Under bf16 inputs it rounds where the JAX kernel rounds."""
+    if q.dtype == torch.bfloat16:
+        return _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, batch0,
+                                   n_heads)
     keep = 1.0 - rate
     qs = _heads(q * scale, n_heads)
     kh, vh = _heads(k, n_heads), _heads(v, n_heads)
@@ -184,6 +233,32 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, 
     return _merge(dq), _merge(dk), _merge(dv)
 
 
+def _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, batch0, n_heads):
+    keep, sc = 1.0 - rate, _bf16_scalar(scale)
+    qs = _heads(_bf16(q.float() * sc), n_heads)
+    ks = _heads(_bf16(k.float() * sc), n_heads)
+    kh, vh = _heads(k.float(), n_heads), _heads(v.float(), n_heads)
+    do = _heads(dout.float() / keep, n_heads)
+    do_b = _bf16(do)
+    logits = torch.matmul(qs, kh.transpose(-1, -2))
+    if kbias is not None:
+        logits = logits + kbias[:, None, None, :]
+    p = torch.exp(logits - lse[..., None])
+    dp = torch.matmul(do_b, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        B, N, T, _ = p.shape
+        mask = _full_mask(B, N, T, salt, rate, batch0, q.device)
+        pd = torch.where(mask, p, 0.0)
+        dp = torch.where(mask, dp, 0.0)
+    drow = keep * (do * _heads(out.float(), n_heads)).sum(dim=-1, keepdim=True)
+    ds = _bf16(p * (dp - drow))
+    dq = torch.matmul(ds, ks)
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dv = torch.matmul(_bf16(pd).transpose(-1, -2), do_b)
+    return tuple(_merge(x).to(torch.bfloat16) for x in (dq, dk, dv))
+
+
 def _check(q, k, v, kbias, n_heads):
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
@@ -193,8 +268,9 @@ def _check(q, k, v, kbias, n_heads):
     B, T, H = q.shape
     if n_heads <= 0 or H % n_heads:
         raise ValueError(f"width {H} does not split into {n_heads} heads")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError(f"flash attention takes f32 tensors, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"flash attention takes f32 or bf16 q, k, v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if kbias is not None and (tuple(kbias.shape) != (B, T) or kbias.dtype != torch.float32):
         raise ValueError(f"kbias must be f32 (B, T) = ({B}, {T}), got "
                          f"{kbias.dtype} {tuple(kbias.shape)}")
@@ -230,6 +306,8 @@ def _fwd_library():
     lib.flash_attn_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, ll, f, f, u, u, u,
                                        i, i, i, p]
     lib.flash_attn_fwd_f32.restype = i
+    lib.flash_attn_fwd_bf16.argtypes = lib.flash_attn_fwd_f32.argtypes
+    lib.flash_attn_fwd_bf16.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -242,6 +320,9 @@ def _bwd_library():
     lib.flash_attn_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
                                                   i, p]
     lib.flash_attn_bwd_f32.restype = i
+    lib.flash_attn_bwd_bf16.argtypes = [p] * 14 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
+                                                   i, p]
+    lib.flash_attn_bwd_bf16.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -254,49 +335,80 @@ def _salt_args(rate, salt):
 
 def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                         batch0: int = 0, *, n_heads: int):
-    """B3 fwd: (out (B, T, N * D), lse (B, N, T)), f32. Kernel on a CUDA
-    tensor (counted in ``flash_attention_fwd.launches``; tensor-core products
-    in three TF32 passes), plain version on a CPU tensor."""
+    """B3 fwd: (out (B, T, N * D) in the input dtype, lse (B, N, T) f32).
+    Kernel on a CUDA tensor (counted in ``flash_attention_fwd.launches``;
+    tensor-core products in three TF32 passes), plain version on a CPU
+    tensor. bf16 inputs go to ``flash_attention_fwd_bf16``."""
     _check(q, k, v, kbias, n_heads)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_fwd_bf16(q, k, v, scale, rate, salt, kbias, batch0,
+                                        n_heads=n_heads)
+    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, "flash_attn_fwd_f32",
+                scale, flash_attention_fwd)
+
+
+def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
+                             batch0: int = 0, *, n_heads: int):
+    """B3 fwd bf16: bf16 q, k, v -> (out (B, T, N * D) bf16, lse (B, N, T)
+    f32), rounded where the JAX kernel rounds with bf16 inputs. Kernel on a
+    CUDA tensor (counted in ``flash_attention_fwd_bf16.launches``; one bf16
+    tensor-core pass a product), plain version on a CPU tensor."""
+    _check(q, k, v, kbias, n_heads)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_fwd_bf16 takes bf16 q, k, v, got {q.dtype}")
+    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, "flash_attn_fwd_bf16",
+                _bf16_scalar(scale), flash_attention_fwd_bf16)
+
+
+def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, entry, kernel_scale, wrapper):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
-    out = torch.empty((B, T, N * D), device=q.device, dtype=torch.float32)
+    out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out, lse
     thresh, s0, s1, dropout = _salt_args(rate, salt)
     lib = _fwd_library()
-    err = lib.flash_attn_fwd_f32(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 - rate, thresh, s0, s1,
+        lse.data_ptr(), B, T, N, D, sb, st, float(kernel_scale), 1.0 - rate, thresh, s0, s1,
         int(batch0), dropout, *launch_args(q))
-    raise_on(err, "flash_attention_fwd", lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
-    flash_attention_fwd.launches += 1
+    raise_on(err, wrapper.__name__, lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
+    wrapper.launches += 1
     return out, lse
+
+
+def _check_bwd(q, k, v, out, lse, dout, kbias, n_heads):
+    _check(q, k, v, kbias, n_heads)
+    B, T, H = q.shape
+    for name, t, want, dtype in (("out", out, (B, T, H), q.dtype),
+                                 ("dout", dout, (B, T, H), q.dtype),
+                                 ("lse", lse, (B, n_heads, T), torch.float32)):
+        if tuple(t.shape) != want or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {dtype} {want} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                         kbias=None, batch0: int = 0, *, n_heads: int):
     """B3 bwd: the forward's inputs, out, lse and the cotangent ``dout`` ->
-    (dq, dk, dv), each (B, T, N * D) f32. Kernel on a CUDA tensor (one count
-    in ``flash_attention_bwd.launches`` for its three launches; tensor-core
-    products in three TF32 passes, deterministic: the same inputs give the
-    same bits), plain version on a CPU tensor."""
-    _check(q, k, v, kbias, n_heads)
-    B, T, H = q.shape
-    for name, t, want in (("out", out, (B, T, H)), ("dout", dout, (B, T, H)),
-                          ("lse", lse, (B, n_heads, T))):
-        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{name} must be f32 {want} on {q.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    (dq, dk, dv), each (B, T, N * D) in the input dtype. Kernel on a CUDA
+    tensor (one count in ``flash_attention_bwd.launches`` for its three
+    launches; tensor-core products in three TF32 passes, deterministic: the
+    same inputs give the same bits), plain version on a CPU tensor. bf16
+    inputs go to ``flash_attention_bwd_bf16``."""
+    _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias,
+                                        batch0, n_heads=n_heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
                                        batch0, n_heads=n_heads)
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs contiguous out, dout and lse")
-    dq, dk, dv = (torch.empty((B, T, H), device=q.device, dtype=torch.float32)
+    dq, dk, dv = (torch.empty((B, T, N * D), device=q.device, dtype=torch.float32)
                   for _ in range(3))
     if B == 0 or T == 0:
         return dq, dk, dv
@@ -313,11 +425,49 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     return dq, dk, dv
 
 
+def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
+                             kbias=None, batch0: int = 0, *, n_heads: int):
+    """B3 bwd bf16: bf16 q, k, v, out and ``dout``, f32 lse -> (dq, dk, dv),
+    each (B, T, N * D) bf16, rounded where the JAX kernel rounds with bf16
+    inputs. Kernel on a CUDA tensor (one count in
+    ``flash_attention_bwd_bf16.launches`` for its four launches: a pre-pass
+    writing Di and the rounded do / keep, scale * q, scale * k, then the dk/dv
+    and dq kernels; deterministic), plain version on a CPU tensor."""
+    _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd_bf16 takes bf16 q, k, v, got {q.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
+                                       batch0, n_heads=n_heads)
+    B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
+    if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd_bf16 needs contiguous out, dout and lse")
+    # dq, dk, dv, then the pre-pass's scratch: scale * q, scale * k, do / keep
+    dq, dk, dv, qs, ks, dos = (torch.empty((B, T, N * D), device=q.device,
+                                           dtype=torch.bfloat16) for _ in range(6))
+    if B == 0 or T == 0:
+        return dq, dk, dv
+    di = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
+    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    lib = _bwd_library()
+    err = lib.flash_attn_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        dos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, N, D, sb, st,
+        _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1, int(batch0), dropout,
+        *launch_args(q))
+    raise_on(err, "flash_attention_bwd_bf16", lib.flash_attn_bwd_error_string, B=B, T=T, N=N,
+             D=D)
+    flash_attention_bwd_bf16.launches += 1
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the JAX custom VJP ``_flash_vjp``):
     forward B3 fwd, saving q, k, v, out, lse (and kbias) with the salt kept
-    by value; backward B3 bwd on the contiguous cotangent. Kernels on CUDA
-    tensors, plain versions on CPU tensors. Reach it through
+    by value; backward B3 bwd on the contiguous cotangent. out, dq, dk and dv
+    come in the input dtype (f32, or bf16 through B3 fwd / bwd bf16).
+    Kernels on CUDA tensors, plain versions on CPU tensors. Reach it through
     ``flash_attention``."""
 
     @staticmethod
@@ -352,3 +502,5 @@ def flash_attention(q, k, v, scale: float, rate: float = 0.0, salt: Salt = (0, 0
 # the main path went through the kernels)
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_fwd_bf16.launches = 0
+flash_attention_bwd_bf16.launches = 0

@@ -103,7 +103,8 @@ class StatefulStreamer:
     utterance, so the stream is not renormalized (renorm the concatenation
     to compare with the offline contract).
 
-    Needs a one-direction ``LSTM`` / ``Residual`` head, mel downstream
+    Needs a one-direction f32 ``LSTM`` / ``Residual`` head (bf16: ROADMAP
+    A14b), mel downstream
     features (``feat_cfg``, by default the preprocessor's slot 1) with
     ``cmvn`` False (CMVN is a whole-utterance statistic), and the model's
     weights on the device the steps run on.
@@ -115,6 +116,10 @@ class StatefulStreamer:
         from .mel import mel_filterbank
         from .stft import _dft_tensors
 
+        if getattr(model, "compute_dtype", torch.float32) == torch.bfloat16:
+            raise NotImplementedError(
+                "stateful streaming of a bf16 head is not ported yet (ROADMAP A14b): a "
+                "one-direction LSTM in bf16 is the lax.scan cell's bf16 variant of B1")
         stack = getattr(model, "lstm", None)
         if not isinstance(stack, LSTMStack) or stack.bidirectional:
             raise ValueError(
