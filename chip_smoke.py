@@ -151,8 +151,10 @@ Phases, one line each:
      upstream mode (``--upstream transformer``, ``--dropout 0.1``) 2 steps in
      bf16, their checkpoints served on the card and the CPU beside the same
      weights in f32, under the window criterion; and times: B3 bf16 beside the
-     f32 kernel, its plain version and SDPA bf16 (forward and backward) at B=6
-     and 64, the B=6 10 s Mockingjay and flagship train steps and the B=1 10 s
+     f32 kernel and its plain version at rate 0.1, and at rate 0 beside SDPA
+     bf16 (forward and backward), at B=6 and 64, with the tensor-core bound
+     and the CUDA-core floor (an exponential and the hash a logit), the B=6
+     10 s Mockingjay and flagship train steps and the B=1 10 s
      enhance in bf16 beside f32 with profiler breakdowns that split the GEMMs
      by type.
 
@@ -642,7 +644,7 @@ def device_busy(torch, fn, calls=5):
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template arguments out of its mangled name."""
-    m = re.search(r"\d+((?:lstm|flash|stft|decode)[a-z_]*kernel(?:I.*?E)?)E", mangled)
+    m = re.search(r"\d+((?:lstm|flash|stft|decode)[a-z0-9_]*kernel(?:I.*?E)?)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -3247,6 +3249,26 @@ def flash_bf16_checks(torch, A):
         worst["grad_ulps"] = max([worst["grad_ulps"]] + list(grad_ulps.values()))
         worst["grad_same"] = min([worst["grad_same"]] + list(grad_same.values()))
 
+    # views TMA cannot read in place (a projection one column wider, its first
+    # column dropped: rows 2 bytes off a 16-byte boundary): the wrappers hand
+    # the kernels contiguous copies, so the bits are those of contiguous inputs
+    g = torch.Generator().manual_seed(SEED + 1)
+    wide = torch.randn(2, 130, 3 * 768 + 1, generator=g).cuda().to(torch.bfloat16)
+    views = wide[..., 1:].split(768, dim=-1)
+    dout = torch.randn(2, 130, 768, generator=g).cuda().to(torch.bfloat16)
+    if any(A.tma_ready(x.data_ptr(), x.stride(), x.element_size()) for x in views):
+        raise AssertionError("the unaligned views passed tma_ready")
+    copies = [x.contiguous() for x in views]
+    got = A.flash_attention_fwd_bf16(*views, 0.125, 0.1, salt, n_heads=12)
+    want = A.flash_attention_fwd_bf16(*copies, 0.125, 0.1, salt, n_heads=12)
+    got_g = A.flash_attention_bwd_bf16(*views, *want, dout, 0.125, 0.1, salt, n_heads=12)
+    want_g = A.flash_attention_bwd_bf16(*copies, *want, dout, 0.125, 0.1, salt, n_heads=12)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got + got_g, want + want_g)):
+        raise AssertionError("B3 bf16 on unaligned views differs from contiguous copies")
+    print("[bf16] B3 bf16 on views 2 bytes off a 16-byte boundary (copied for TMA): bit for "
+          "bit the kernels on contiguous inputs", flush=True)
+
     # FlashAttention under autograd on a bf16 projection: bf16 out and
     # gradients, the bits of the two wrappers called directly
     g = torch.Generator().manual_seed(SEED)
@@ -3276,6 +3298,26 @@ def attention_bound_bf16(B, T, N, D, products):
     nbytes = 2 * (4 if products == 2 else 8) * B * T * H + 4 * B * N * T * (
         1 if products == 2 else 2)
     return bound(products * 2 * B * N * T * T * D, nbytes, PEAK_BF16)
+
+
+# B3 bf16's CUDA-core floor: per logit one exponential (one MUFU.EX2 result;
+# an H100 SM gives 16 a clock) and the dropout hash (HASH_INT_OPS 32-bit
+# integer operations; 64 a clock), on 132 SMs at the card's top SM clock of
+# 1980 MHz (the H100 SXM's clocks.max.sm as nvidia-smi reports it)
+SMS, SM_CLOCK, MUFU_PER_CLOCK, INT32_PER_CLOCK, HASH_INT_OPS = 132, 1.98e9, 16, 64, 10
+
+
+def attention_core_floor_bf16(B, T, N, passes):
+    """The least time in ms the CUDA cores need for B3 bf16's per-logit work
+    over ``passes`` passes of the B * N * T * T logits (1 forward; 2 backward,
+    whose dk/dv and dq kernels both recompute p and the keep bits): the
+    exponentials on the special-function units and the hash on the integer
+    units run on separate pipes, so the slower of the two (the hash) binds.
+    Returns (floor, exponential ms, hash ms)."""
+    logits = B * N * T * T * passes
+    exp_ms = logits / (SMS * MUFU_PER_CLOCK * SM_CLOCK) * 1e3
+    hash_ms = logits * HASH_INT_OPS / (SMS * INT32_PER_CLOCK * SM_CLOCK) * 1e3
+    return max(exp_ms, hash_ms), exp_ms, hash_ms
 
 
 def mockingjay_bf16_run(torch, corpus, tmp, counted):
@@ -3568,9 +3610,11 @@ def step_breakdown(torch, fn, card, what):
 
 
 def bf16_times(torch, A, card):
-    """Phase 12 (d): B3 bf16 beside the f32 kernel, its plain version and SDPA
-    bf16 (rate 0, forward and backward) at B=6 and 64; the B=6 10 s Mockingjay
-    and flagship train steps and the B=1 10 s enhance, bf16 beside f32."""
+    """Phase 12 (d): B3 bf16 at rate 0.1 beside the f32 kernel and its plain
+    version, and at rate 0 beside SDPA bf16 (forward and backward) at B=6 and
+    64, with the tensor-core bound and the CUDA-core floor; the B=6 10 s
+    Mockingjay and flagship train steps and the B=1 10 s enhance, bf16 beside
+    f32."""
     import torch.nn.functional as F
 
     from speech_enhancement_by_s3prl_tpu_torch.entry import (
@@ -3590,26 +3634,36 @@ def bf16_times(torch, A, card):
         dout32 = torch.randn(B, T, N * D, generator=g).cuda()
         dout = dout32.to(torch.bfloat16)
         out, lse = A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.1, salt, n_heads=N)
+        out0, lse0 = A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.0, salt, n_heads=N)
         out32, lse32 = A.flash_attention_fwd(q32, k32, v32, 0.125, 0.1, salt, n_heads=N)
         fns = {
             "fwd": (lambda: A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.1, salt, n_heads=N),
+                    lambda: A.flash_attention_fwd_bf16(q, k, v, 0.125, 0.0, salt, n_heads=N),
                     lambda: A.flash_attention_fwd(q32, k32, v32, 0.125, 0.1, salt, n_heads=N),
                     lambda: A.flash_attention_ref(q, k, v, 0.125, 0.1, salt, n_heads=N)),
             "bwd": (lambda: A.flash_attention_bwd_bf16(q, k, v, out, lse, dout, 0.125, 0.1,
+                                                       salt, n_heads=N),
+                    lambda: A.flash_attention_bwd_bf16(q, k, v, out0, lse0, dout, 0.125, 0.0,
                                                        salt, n_heads=N),
                     lambda: A.flash_attention_bwd(q32, k32, v32, out32, lse32, dout32, 0.125,
                                                   0.1, salt, n_heads=N),
                     lambda: A.flash_attention_bwd_ref(q, k, v, out, lse, dout, 0.125, 0.1,
                                                       salt, n_heads=N)),
         }
-        for name, (kern, f32, plain) in fns.items():
-            # in turns: kernel, f32 kernel, plain, plain, f32 kernel, kernel
-            a, b, c = cuda_ms(torch, kern, 10), cuda_ms(torch, f32, 10), cuda_ms(torch, plain, 2)
-            c2, b2, a2 = cuda_ms(torch, plain, 2), cuda_ms(torch, f32, 10), cuda_ms(torch, kern, 10)
-            times[(name, B)] = (min(a, a2), min(b, b2), min(c, c2))
+        for name, (kern, kern0, f32, plain) in fns.items():
+            # in turns: kernel, kernel at rate 0, f32 kernel, plain, and back
+            a, a0, b = (cuda_ms(torch, fn, 10) for fn in (kern, kern0, f32))
+            c, c2 = cuda_ms(torch, plain, 2), cuda_ms(torch, plain, 2)
+            b2, a02, a2 = (cuda_ms(torch, fn, 10) for fn in (f32, kern0, kern))
+            times[(name, B)] = (min(a, a2), min(b, b2), min(c, c2), min(a0, a02))
+            products, passes = (2, 1) if name == "fwd" else (5, 2)
+            floor, exp_ms, hash_ms = attention_core_floor_bf16(B, T, N, passes)
             print(f"[time] flash_attention_{name}_bf16 B={B} T={T} N={N} D={D} rate 0.1: "
-                  f"kernel {a:.3f} / {a2:.3f} ms, f32 kernel {b:.3f} / {b2:.3f} ms, plain "
-                  f"{c:.3f} / {c2:.3f} ms | {card}", flush=True)
+                  f"kernel {a:.3f} / {a2:.3f} ms, rate 0 {a0:.3f} / {a02:.3f} ms, f32 kernel "
+                  f"{b:.3f} / {b2:.3f} ms, plain {c:.3f} / {c2:.3f} ms; bound "
+                  f"{attention_bound_bf16(B, T, N, D, products)[0]:.4f} ms (tensor cores), "
+                  f"CUDA-core floor {floor:.4f} ms (hash {hash_ms:.4f}, exponential "
+                  f"{exp_ms:.4f}) | {card}", flush=True)
         heads = [x.reshape(B, T, N, D).transpose(1, 2) for x in (q, k, v)]
         sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*heads, scale=0.125), 10)
         leaves = [x.detach().requires_grad_() for x in heads]
@@ -3626,8 +3680,11 @@ def bf16_times(torch, A, card):
         times[("sdpa", B)] = (sdpa, both - fwd_t)
         print(f"[time] scaled_dot_product_attention bf16 rate 0 (a yardstick, not a route) "
               f"B={B} T={T}: forward {sdpa:.3f} ms, backward {both - fwd_t:.3f} ms (forward + "
-              f"backward {both:.3f}) | {card}", flush=True)
-        del q, k, v, q32, k32, v32, qkv32, dout, dout32, out, lse, out32, lse32, heads, leaves
+              f"backward {both:.3f}); B3 bf16 at rate 0: forward {times[('fwd', B)][3]:.3f} "
+              f"ms ({times[('fwd', B)][3] / sdpa:.2f}x), backward {times[('bwd', B)][3]:.3f} "
+              f"ms ({times[('bwd', B)][3] / (both - fwd_t):.2f}x) | {card}", flush=True)
+        del q, k, v, q32, k32, v32, qkv32, dout, dout32, out, lse, out0, lse0, out32, lse32
+        del heads, leaves
 
     rng = np.random.default_rng(SEED)
     clean = np.stack([request_audio(10.0, s) for s in range(6)])
@@ -4433,8 +4490,9 @@ def main():
             rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0]),
     ]
     # B3 bf16 (phase 12): one bf16 tensor-core pass a product; beside it the
-    # f32 kernel's time at the same shape, and SDPA bf16 at rate 0 (forward, or
-    # its backward) as the library call
+    # f32 kernel's time at the same shape, SDPA bf16 at rate 0 (forward, or
+    # its backward) as the library call, the kernel's own time at rate 0, and
+    # the CUDA-core floor of its exponentials and hash
     for name, source, replaces, products, err, launches in (
             ("flash_attention_fwd_bf16", "flash_attn.cu", "attention_kernel.py:277", 2,
              bf16["checks"]["fwd"], bf16["launches"][0]),
@@ -4450,6 +4508,9 @@ def main():
             plain_ms_b64=bf16_times_[(key, 64)][2],
             bound_ms_b64=attention_bound_bf16(64, T, 12, 64, products)[0],
             library_ms_b64=bf16_times_[("sdpa", 64)][lib],
+            rate0_ms=bf16_times_[(key, 6)][3], rate0_ms_b64=bf16_times_[(key, 64)][3],
+            core_floor_ms=attention_core_floor_bf16(6, T, 12, lib + 1)[0],
+            core_floor_ms_b64=attention_core_floor_bf16(64, T, 12, lib + 1)[0],
             max_ulps=bf16["checks"]["out_ulps" if products == 2 else "grad_ulps"]))
     # B4 at 1 / 12 / 64 rows of 10 s: the FFT kernel (its route at n_fft 400),
     # with the product kernel's times at the same shapes beside it

@@ -58,8 +58,8 @@
 
 #include <math.h>
 
+#include "flash_attn_bf16.cuh"
 #include "flash_attn_common.cuh"
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -268,203 +268,279 @@ int launch(const float* q, const float* k, const float* v, const float* kbias, f
 // dropped probabilities rounded to bf16 into the P V product, out rounded to
 // bf16 from its f32 accumulator, lse f32. One difference stays: the online
 // softmax rounds p = exp(s - m) against the running row maximum of the keys
-// walked so far, the JAX kernel against the row's final one, so the bf16
-// roundings of p (and through them out) differ by an ulp here and there.
+// walked so far (64 a tile), the JAX kernel against the row's final one, so
+// the bf16 roundings of p (and through them out) differ by an ulp here and
+// there.
 //
-// Bound on this card: operations, at one bf16 tensor-core pass a product
-// (18.5 GFLOP at B=6, T=1001, 12 x 64 over 989 TFLOP/s) against 0.04 GB moved.
-// The design is the f32 kernel's (a block of 4 warps per 64 queries, head and
-// batch; K and V walked 32 keys at a time through a cp.async double buffer,
-// which carries half the f32 kernel's bytes; the probabilities go from the
-// accumulators straight into the P V product as A fragments), with each
-// product one mma.m16n8k16 pass (mma_bf16.cuh) in place of three TF32 ones.
+// Bound on this card. The two products are 18.5 GFLOP at B=6, T=1001,
+// 12 x 64: 0.0187 ms at 989 TFLOP/s, against 0.04 GB moved. But each of the
+// 72.1 M logits also takes one exponential and the hash's ten integer
+// operations on the CUDA cores, more issue slots than the products take
+// tensor-core time at D = 64: the CUDA cores bind it, and the design overlaps
+// the products with that work rather than the other way round.
+//
+// Design (Hopper). One CTA of 288 threads per (128-query tile, head, batch):
+// two consumer warpgroups of 64 queries each and one producer warp. The
+// producer brings the query tile in once by TMA and then walks K and V, 64
+// keys a tile, through a ring of five stages of shared memory, each guarded
+// by a full and an empty mbarrier; lane 0 issues a stage's TMA loads first,
+// then every lane writes its share of the stage's key bias (-inf at keys >=
+// T) beside the tiles and arrives. TMA reads the strided (B, T, N * D) views as
+// 4-D tensors and fills rows t >= T with zeros. Each consumer warpgroup first
+// rounds its 64 query rows to bf16(scale q) in place (elementwise, so the
+// swizzle does not matter), fences the async proxy and syncs on a named
+// barrier; then per key tile:
+//   - S = bf16(scale q) K^T: D / 16 SS wgmma m64n64k16, both operands K-major
+//     from shared memory;
+//   - on S's accumulator registers: the bias, the online softmax (row maxima
+//     across the four lanes of a row by shuffles, each lane's share of the
+//     row sum; p = exp(s - m) by __expf, ex2.approx: two instructions where
+//     expf takes nine, within the card's limits), the keep bits from each
+//     element's absolute (head, query, key) in the wgmma register layout, p
+//     rounded to bf16 and packed into the A registers of the next product;
+//   - O = alpha O + P V: 4 RS wgmma m64nDk16 with V's [key][d] tile read
+//     MN-major; then the warpgroup frees the stage.
+// The two warpgroups run unsynchronised, so one's softmax and hash run while
+// the other's products are in the tensor cores. Registers bind the shape:
+// two CTAs of 9 warps an SM put 5 on one of the SM's four schedulers, whose
+// 16 K registers leave 96 a thread (D <= 64), which the 64-key tile fits (32
+// S, 32 O and 16 P registers at D = 64); D = 128 runs one CTA an SM (168). The kernel is compiled with and without the hash (a runtime
+// flag inside the loop split it into short branches).
 
-namespace bm = bf16mma;
-using bm::bf16;
+namespace hp = hopper;
+namespace fb = flash_bf16;
+using bf16 = __nv_bfloat16;
 
-// Dynamic shared memory, in bytes: the resident [64][D + 8] bf16 query tile
-// (scale q), and two stages of the walked [32][D + 8] bf16 key and value
-// tiles and the 32-entry f32 key bias.
+constexpr int kFwdQ = 128;        // queries a CTA: two consumer warpgroups of 64
+constexpr int kFwdK = 64;         // keys a walked tile
+constexpr int kFwdStages = 5;     // the ring of K, V and key-bias stages
+constexpr int kFwdThreads = 288;  // the consumer warpgroups, then the producer warp
+
+// Byte offsets from the 1024-aligned base of dynamic shared memory: the query
+// tile (raw q, then bf16(scale q)), the K and V stages, the key-bias stages
+// and the mbarriers (the query tile's, full[stage], empty[stage]).
 template <int D>
-__host__ __device__ constexpr int fwd_bf16_stage_bytes() {
-  return 2 * 2 * kWalk * (D + 8) + 4 * kWalk;
-}
+struct FwdSmem {
+  static constexpr int kTile = kFwdK * D * 2;  // one K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kFwdQ * D * 2;
+  static constexpr int kV = kK + kFwdStages * kTile;
+  static constexpr int kBias = kV + kFwdStages * kTile;
+  static constexpr int kBars = kBias + kFwdStages * kFwdK * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kFwdStages);
+};
 
-template <int D>
-__host__ __device__ constexpr int fwd_bf16_smem_bytes() {
-  return 2 * 64 * (D + 8) + 2 * fwd_bf16_stage_bytes<D>();
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const float* __restrict__ kbias,
+// DROPOUT: rate > 0, the hash compiled in (a flag tested inside the loop
+// would split it into short branches the scheduler cannot interleave)
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 2 : 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const float* __restrict__ kbias,
                       bf16* __restrict__ out, float* __restrict__ lse, int T, int N,
-                      long long sb, long long st, float scale, float keep, uint32_t thresh,
-                      uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
-  constexpr int LD = D + 8;
-  constexpr int DN = D / 8;      // 8-column tiles of out
-  constexpr int CN = kWalk / 8;  // 8-key tiles of s
-  constexpr int kStage = fwd_bf16_stage_bytes<D>();
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);                  // bf16(scale q)
-  char* walk_s = reinterpret_cast<char*>(q_s + 64 * LD);       // per stage: k, v, bias
+                      float scale, float keep, uint32_t thresh, uint32_t s0, uint32_t s1,
+                      int batch0) {
+  using P = hp::Panels<D>;
+  using S = FwdSmem<D>;
+  constexpr uint32_t kQPanel = kFwdQ * P::kRowBytes, kKPanel = kFwdK * P::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const fb::AlignedSmem sm = fb::align_smem(smem_raw);
+  const uint32_t bar_q = sm.addr + S::kBars;
+  auto full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + kFwdStages + s); };
+  float* bias_s = reinterpret_cast<float*>(sm.ptr + S::kBias);
 
+  const int q0 = blockIdx.x * kFwdQ, n = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T + kFwdK - 1) / kFwdK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
-  const long long head = (long long)b * sb + (long long)n * D;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  auto start = [&](int i) {
-    char* w = walk_s + (i & 1) * kStage;
-    bf16* const dst[2] = {reinterpret_cast<bf16*>(w), reinterpret_cast<bf16*>(w) + kWalk * LD};
-    const bf16* const src[2] = {k + head, v + head};
-    const long long stride[2] = {st, st};
-    bm::start_walk<D, 2>(dst, src, stride, i * kWalk, T, kWalk, vec, kTileThreads);
-    if (threadIdx.x < kWalk) {
-      const int t = i * kWalk + threadIdx.x;
-      reinterpret_cast<float*>(w + 4 * kWalk * LD)[threadIdx.x] =
-          t < T ? kbias[(long long)b * T + t] : -INFINITY;  // keys >= T: bias -inf
+  if (threadIdx.x == 0) {
+    hp::mbar_init(bar_q, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      hp::mbar_init(full(s), 32);    // the producer's lanes (and lane 0's TMA bytes)
+      hp::mbar_init(empty(s), 256);  // every consumer thread
     }
-    cp_async_commit();
-  };
-  start(0);
-  bm::load_tile<D>(q_s, q + head, st, q0, T, 64, scale, vec, kTileThreads);
-  // this thread's accumulator rows: queries q_a and q_a + 8
-  const int q_a = q0 + warp * 16 + g;
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
 
+  if (warp == 8) {  // the producer warp
+    if (lane == 0) {
+      hp::mbar_arrive_expect_tx(bar_q, kFwdQ * D * 2);
+      for (int p = 0; p < P::kCount; ++p)
+        hp::tma_load_4d(sm.addr + S::kQ + p * kQPanel, &tq, bar_q, p * P::kCols, n, q0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kFwdStages, k0 = i * kFwdK;
+      if (i >= kFwdStages) hp::mbar_wait(empty(s), (i / kFwdStages - 1) & 1);
+      if (lane == 0) {
+        hp::mbar_expect_tx(full(s), 2 * S::kTile);
+        for (int p = 0; p < P::kCount; ++p) {
+          const int at = s * S::kTile + p * kKPanel;
+          hp::tma_load_4d(sm.addr + S::kK + at, &tk, full(s), p * P::kCols, n, k0, b);
+          hp::tma_load_4d(sm.addr + S::kV + at, &tv, full(s), p * P::kCols, n, k0, b);
+        }
+      }
+      for (int c = lane; c < kFwdK; c += 32) {
+        const int t = k0 + c;
+        bias_s[s * kFwdK + c] = fb::key_bias(kbias, b, t, T);
+      }
+      hp::mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  // a consumer warpgroup: queries q0 + 64 wg ..; this thread's accumulator
+  // rows are queries qa and qa + 8
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int qa = q0 + wg * 64 + (warp & 3) * 16 + g;
+  const uint32_t q_tile = sm.addr + S::kQ + wg * 64 * P::kRowBytes;
+
+  hp::mbar_wait(bar_q, 0);
+  for (int p = 0; p < P::kCount; ++p) {
+    uint4* rows = reinterpret_cast<uint4*>(sm.ptr + S::kQ + p * kQPanel + wg * 64 * P::kRowBytes);
+    for (int c = threadIdx.x & 127; c < 64 * P::kRowBytes / 16; c += 128) {
+      uint4 x = rows[c];
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      rows[c] = x;
+    }
+  }
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, 128);
+
+  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
+                            fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-  float acc[DN][4];
+  float o[D / 2];
 #pragma unroll
-  for (int c = 0; c < DN; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  for (int r = 0; r < D / 2; ++r) o[r] = 0.f;
 
-  const bf16* qa_s = q_s + warp * 16 * LD;
-  const int n_walk = (T + kWalk - 1) / kWalk;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kFwdStages, k0 = i * kFwdK;
+    const uint32_t k_tile = sm.addr + S::kK + s * S::kTile;
+    const uint32_t v_tile = sm.addr + S::kV + s * S::kTile;
+    hp::mbar_wait(full(s), (i / kFwdStages) & 1);
 
-  for (int i = 0; i < n_walk; ++i) {
-    cp_async_wait_all();  // as in the f32 kernel
-    __syncthreads();
-    if (i + 1 < n_walk) start(i + 1);
-    const char* w = walk_s + (i & 1) * kStage;
-    const bf16* k_s = reinterpret_cast<const bf16*>(w);
-    const bf16* v_s = k_s + kWalk * LD;
-    const float* kb_s = reinterpret_cast<const float*>(w + 4 * kWalk * LD);
-    const int k0 = i * kWalk;
+    // S = bf16(scale q) k^T: 64 queries x 64 keys
+    float sc[kFwdK / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_ss<kFwdK, 0>(sc, P::kmajor(q_tile, kQPanel, kk),
+                             P::kmajor(k_tile, kKPanel, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
 
-    // s = bf16(scale q) k^T: 16 queries x 32 keys, one pass a 16-deep slice
-    float s_acc[CN][4];
-#pragma unroll
-    for (int j = 0; j < CN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t qa[4];
-      bm::load_a(qa, qa_s + d0, LD, lane);
-#pragma unroll
-      for (int j = 0; j < CN; j += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_nk_x2(b0, b1, k_s + 8 * j * LD + d0, LD, lane);
-        bm::mma(s_acc[j], qa, b0);
-        bm::mma(s_acc[j + 1], qa, b1);
-      }
-    }
-
-    // the key bias and the online softmax, in f32 as in the f32 kernel
+    // the key bias and the online softmax in f32; element 4 j + e is query
+    // qa + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2
+    const float* kb = bias_s + s * kFwdK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const float2 kb = *reinterpret_cast<const float2*>(kb_s + 8 * j + 2 * t4);
+    for (int j = 0; j < kFwdK / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t4);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s_acc[j][e] += (e & 1) ? kb.y : kb.x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[j][e]);
+        sc[4 * j + e] += (e & 1) ? bb.y : bb.x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
       }
     }
     float shift[2], alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      // all keys so far at -inf (a -inf key bias): keep exp() finite
       shift[h] = m_new == -INFINITY ? 0.f : m_new;
       alpha[h] = expf(m[h] - shift[h]);
       m[h] = m_new;
     }
+    // l sums the undropped p; the dropped p, rounded to bf16, are the A
+    // registers of P V (columns 16 kk .. 16 kk + 15 in pa[kk])
     float rs[2] = {0.f, 0.f};
+    uint32_t pa[kFwdK / 16][4];
 #pragma unroll
-    for (int j = 0; j < CN; ++j)
+    for (int j = 0; j < kFwdK / 8; ++j) {
+      float pk[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s_acc[j][e] - shift[e >> 1]);
+        const float p = __expf(sc[4 * j + e] - shift[e >> 1]);
         rs[e >> 1] += p;
         const bool kept =
-            !dropout || keep_bit(bn, (uint32_t)(q_a + 8 * (e >> 1)),
-                                 (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s0, s1, thresh);
-        s_acc[j][e] = kept ? p : 0.f;
+            !DROPOUT ||
+            fb::keep_at(hrow[e >> 1], (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s1, thresh);
+        pk[e] = kept ? p : 0.f;
       }
+      pa[j >> 1][2 * (j & 1)] = hp::pack_bf16(pk[0], pk[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = hp::pack_bf16(pk[2], pk[3]);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
 #pragma unroll
-    for (int c = 0; c < DN; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha[e >> 1];
+    for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r >> 1) & 1];
 
-    // out += bf16(p) v: contraction over the tile's keys, 16 at a time, two s
-    // tiles rounded to bf16 as the A operand
+    // O += bf16(p) v over the tile's 64 keys
+    hp::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < CN; j += 2) {
-      uint32_t pa[4];
-      bm::frag_a_from_acc(pa, s_acc[j], s_acc[j + 1]);
-#pragma unroll
-      for (int c = 0; c < DN; c += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_kn_x2(b0, b1, v_s + 8 * j * LD + 8 * c, LD, lane);
-        bm::mma(acc[c], pa, b0);
-        bm::mma(acc[c + 1], pa, b1);
-      }
-    }
+    for (int kk = 0; kk < kFwdK / 16; ++kk)
+      hp::wgmma_rs<D, 1>(o, pa[kk], P::mnmajor(v_tile, kKPanel, kk), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+    hp::mbar_arrive(empty(s));
   }
 
   const int H = N * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int t = q_a + 8 * h;
+    const int t = qa + 8 * h;
     const float sum = quad_sum(l[h]);  // every lane of the warp shuffles
     if (t >= T) continue;
     const float r = 1.f / (sum * keep);
-    bf16* o = out + ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
+    bf16* dst = out + ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DN; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * c) =
-          __floats2bfloat162_rn(acc[c][2 * h] * r, acc[c][2 * h + 1] * r);
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
+          __floats2bfloat162_rn(o[4 * c + 2 * h] * r, o[4 * c + 2 * h + 1] * r);
     if (t4 == 0) lse[((long long)b * N + n) * T + t] = m[h] + logf(sum);
   }
 }
 
+// strides: (batch, time) of q, k and v in elements
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias, bf16* out,
-                float* lse, int B, int T, int N, long long sb, long long st, float scale,
+                float* lse, int B, int T, int N, const long long* strides, float scale,
                 float keep, uint32_t thresh, uint32_t s0, uint32_t s1, int batch0,
                 int dropout, cudaStream_t stream) {
-  const size_t smem = fwd_bf16_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap maps[3];
+  const void* ops[3] = {q, k, v};
+  const int rows[3] = {kFwdQ, kFwdK, kFwdK};
+  for (int o = 0; o < 3; ++o) {
+    const int err = fb::encode_heads<D>(&maps[o], ops[o], B, T, N, strides[2 * o],
+                                        strides[2 * o + 1], rows[o]);
+    if (err) return err;
+  }
+  const int smem = FwdSmem<D>::kBytes + 1024;  // + the alignment of the base
+  auto kernel = dropout ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // 16-byte tile copies (8 bf16) where every row start is 16-byte aligned
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && sb % 8 == 0 && st % 8 == 0;
-  dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_fwd_bf16_kernel<D><<<grid, kTileThreads, smem, stream>>>(
-      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, batch0, dropout,
-      vec);
+  dim3 grid((T + kFwdQ - 1) / kFwdQ, N, B);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], kbias, out, lse, T, N,
+                                              scale, keep, thresh, s0, s1, batch0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
 
 // Kernel B3 fwd. Launches on `stream` of `device` and returns
 // cudaGetLastError() (0 on success); does not synchronise. D is 32, 64 or
@@ -500,12 +576,16 @@ int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* 
   }
 }
 
-// Kernel B3 fwd in bf16: q, k, v and out bf16, kbias and lse f32, the
-// arguments otherwise as for flash_attn_fwd_f32; `scale` is the softmax scale
-// already rounded to bf16. out must be 4-byte aligned (a whole allocation).
+// Kernel B3 fwd in bf16: q, k, v and out bf16, kbias (null: no bias) and lse
+// f32, the arguments otherwise as for flash_attn_fwd_f32 but for the strides:
+// (batch, time) of q, k and v each, in elements, every one a multiple of 8,
+// and q, k, v 16-byte aligned (TMA's terms: the wrapper's tma_ready). `scale`
+// is the softmax scale already rounded to bf16. out must be 4-byte aligned (a
+// whole allocation).
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* kbias,
-                        void* out, void* lse, int B, int T, int N, int D, long long sb,
-                        long long st, float scale, float keep, unsigned thresh, unsigned s0,
+                        void* out, void* lse, int B, int T, int N, int D, long long sbq,
+                        long long stq, long long sbk, long long stk, long long sbv,
+                        long long stv, float scale, float keep, unsigned thresh, unsigned s0,
                         unsigned s1, int batch0, int dropout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -517,15 +597,16 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
   auto* ob = static_cast<bf16*>(out);
   auto* lf = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
+  const long long strides[6] = {sbq, stq, sbk, stk, sbv, stv};
   switch (D) {
     case 32:
-      return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh, s0,
+      return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
                              s1, batch0, dropout, s);
     case 64:
-      return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh, s0,
+      return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
                              s1, batch0, dropout, s);
     case 128:
-      return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, sb, st, scale, keep, thresh,
+      return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
                               s0, s1, batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -533,6 +614,7 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
 }
 
 const char* flash_attn_error_string(int code) {
+  if (code >= flash_bf16::kMapError) return "cuTensorMapEncodeTiled refused a TMA tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

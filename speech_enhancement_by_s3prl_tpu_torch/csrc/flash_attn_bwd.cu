@@ -64,8 +64,8 @@
 
 #include <math.h>
 
+#include "flash_attn_bf16.cuh"
 #include "flash_attn_common.cuh"
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -450,389 +450,516 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
 //   dp = keep_bits ? bf16(do') v^T : 0,  Di = keep * rowsum(do' * out)
 //   ds = bf16( p (dp - Di) )
 //   dq = bf16( ds ks ),  dk = bf16( sum ds^T qs )
-// every product one bf16 tensor-core pass (mma_bf16.cuh) with f32 sums, each
+// every product bf16 operands on the tensor cores (wgmma) with f32 sums, each
 // result rounded to bf16 once, from its f32 accumulator.
 //
-// Bound on this card: operations (the five products, 46 GFLOP at B=6,
-// T=1001, 12 x 64, over 989 TFLOP/s) against 0.1 GB moved. Four launches,
-// deterministic, without atomics: a pre-pass writes Di and the rounded
-// operands do', qs and ks (contiguous (B, T, N * D) bf16 scratch, so that the
-// tile kernels copy their walked tiles as they are and round nothing on the
-// way), then the dk/dv and dq kernels of the f32 design, with the products
-// as one mma.m16n8k16 pass each and the walked tiles in bf16 (half the f32
-// kernels' bytes). dk and dv sum over the walk in their accumulators.
+// Bound on this card. The five products are 46 GFLOP at B=6, T=1001, 12 x 64
+// (0.047 ms at 989 TFLOP/s) against 0.1 GB moved; as in the forward, the
+// CUDA-core work of each logit (an exponential and the hash, in both tile
+// kernels, which recompute p and the keep bits) outweighs it at D = 64.
+//
+// Design (Hopper). Three launches, deterministic, without atomics. A
+// pre-pass writes Di and the rounded operands do', qs and ks as contiguous
+// (B, T, N * D) bf16 scratch (16 bytes a thread), so the tile kernels take
+// their tiles as TMA brings them. Then two tile kernels of the forward's
+// shape, a CTA of three consumer warpgroups of 64 resident rows each (two at
+// D = 128) and a producer warp that brings the CTA's resident rows in once
+// by TMA and walks the other operand through a ring of four stages of shared
+// memory on mbarriers (three for dq at D = 128):
+//   - dk/dv: a CTA owns 192 keys (K and V from the strided views) and walks
+//     qs and do', 32 queries a tile, the producer's lanes writing each
+//     stage's lse and Di (queries >= T: +inf and 0, so p = 0 there). Per tile
+//     S^T = K qs^T and dP^T = V do'^T (SS wgmma m64n32k16, K-major), then p,
+//     the keep bits and ds on the accumulator registers, rounded and packed as
+//     A registers of dV += bf16(p_drop)^T do' and dK += bf16(ds)^T qs (RS
+//     wgmma m64nDk16, the walked tiles read MN-major): the keys are the
+//     accumulator rows, so no tile passes through shared memory;
+//   - dq: a CTA owns 192 queries (qs and do' resident) and walks K, V and ks,
+//     64 keys a tile, with the key bias (-inf at keys >= T) beside each
+//     stage: S = qs K^T and dP = do' V^T (SS), p and ds, dQ += bf16(ds) ks
+//     (RS, ks MN-major).
+// Both sum over the walk in their wgmma accumulators. p is exp(s + kbias -
+// lse) by __expf (ex2.approx: two instructions where expf takes nine, within
+// the card's limits), and the kernels are compiled with and without the hash
+// (a runtime flag inside the loop split it into short branches).
 
-namespace bm = bf16mma;
-using bm::bf16;
+namespace hp = hopper;
+namespace fb = flash_bf16;
+using bf16 = __nv_bfloat16;
 
+// The pre-pass: one thread per 8 values (16 bytes) of a (b, t, n) row, D / 8
+// threads a row (all in one warp). q and k rows are 16-byte aligned (the
+// wrapper's tma_ready), dout and out are contiguous.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ dout, const bf16* __restrict__ out,
                            float* __restrict__ di, bf16* __restrict__ qs,
                            bf16* __restrict__ ks, bf16* __restrict__ dos, int B, int T,
-                           int N, int D, long long sb, long long st, float scale,
-                           float keep) {
-  const int warps = kThreads / 32;
-  const long long row = (long long)blockIdx.x * warps + threadIdx.x / 32;  // (b, t, n)
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * T * N) return;
+                           int N, int D, long long sbq, long long stq, long long sbk,
+                           long long stk, float scale, float keep) {
+  const int per = D / 8;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long row = i / per;  // (b, t, n)
+  const int c = (int)(i % per) * 8;
+  const bool ok = row < (long long)B * T * N;
   const long long n = row % N, bt = row / N, t = bt % T, b = bt / T;
-  const long long src = b * sb + t * st + n * D;  // q and k are strided views
-  const long long dst = row * D;                  // the contiguous tensors
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float x = __bfloat162float(dout[dst + d]) / keep;
-    acc = fmaf(x, __bfloat162float(out[dst + d]), acc);
-    dos[dst + d] = __float2bfloat16_rn(x);
-    qs[dst + d] = __float2bfloat16_rn(__bfloat162float(q[src + d]) * scale);
-    ks[dst + d] = __float2bfloat16_rn(__bfloat162float(k[src + d]) * scale);
-  }
+  if (ok) {
+    const long long at = row * D + c;  // the contiguous tensors
+    uint4 vd = *reinterpret_cast<const uint4*>(dout + at);
+    const uint4 vo = *reinterpret_cast<const uint4*>(out + at);
+    uint4 vq = *reinterpret_cast<const uint4*>(q + b * sbq + t * stq + n * D + c);
+    uint4 vk = *reinterpret_cast<const uint4*>(k + b * sbk + t * stk + n * D + c);
+    __nv_bfloat162* hd = reinterpret_cast<__nv_bfloat162*>(&vd);
+    const __nv_bfloat162* ho = reinterpret_cast<const __nv_bfloat162*>(&vo);
+    __nv_bfloat162* hq = reinterpret_cast<__nv_bfloat162*>(&vq);
+    __nv_bfloat162* hk = reinterpret_cast<__nv_bfloat162*>(&vk);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) di[(b * N + n) * T + t] = keep * acc;
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(hd[j]), o = __bfloat1622float2(ho[j]);
+      const float x0 = x.x / keep, x1 = x.y / keep;
+      acc = fmaf(x1, o.y, fmaf(x0, o.x, acc));
+      hd[j] = __floats2bfloat162_rn(x0, x1);
+      const float2 fq = __bfloat1622float2(hq[j]), fk = __bfloat1622float2(hk[j]);
+      hq[j] = __floats2bfloat162_rn(fq.x * scale, fq.y * scale);
+      hk[j] = __floats2bfloat162_rn(fk.x * scale, fk.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dos + at) = vd;
+    *reinterpret_cast<uint4*>(qs + at) = vq;
+    *reinterpret_cast<uint4*>(ks + at) = vk;
+  }
+  for (int off = per / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (ok && c == 0) di[(b * N + n) * T + t] = keep * acc;
 }
 
-// Dynamic shared memory in bytes: two resident [64][D + 8] bf16 tiles, and two
-// stages of the walked tiles: the dk/dv kernel's qs and do' ([32][D + 8] bf16)
-// with lse and Di (32 f32 each), the dq kernel's k, v and ks with the key bias.
+// The CTA of both tile kernels: kConsumers warpgroups of 64 resident rows
+// each, then the producer warp. Registers bind the shape: a CTA of 13 warps
+// puts 4 on one of the SM's four schedulers, whose 16 K registers leave 128 a
+// thread; 9 warps leave 168. So three consumers at D <= 64 (dk/dv's four
+// accumulators fit 128 registers with a walk of 32 queries a tile), two at
+// D = 128.
 template <int D>
-__host__ __device__ constexpr int dkdv_bf16_stage_bytes() {
-  return 2 * 2 * kWalk * (D + 8) + 2 * 4 * kWalk;
+struct BwdCta {
+  static constexpr int kConsumers = D == 128 ? 2 : 3;
+  static constexpr int kRows = 64 * kConsumers;  // resident rows
+  static constexpr int kThreads = 128 * kConsumers + 32;
+};
+
+// queries a tile of the dk/dv kernel's walk, keys a tile of the dq kernel's
+constexpr int kDkdvWalk = 32;
+constexpr int kDqWalk = 64;
+
+// Byte offsets from the 1024-aligned base: the resident K and V tiles, the
+// stages of qs and do', the stages of lse and Di ([stage][W] each), the
+// mbarriers (the resident tiles', full[stage], empty[stage]).
+template <int D>
+struct DkdvSmem {
+  static constexpr int kStages = 4;
+  static constexpr int W = kDkdvWalk;
+  static constexpr int kTile = W * D * 2;  // one walked stage of qs or do'
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + BwdCta<D>::kRows * D * 2;
+  static constexpr int kQ = kV + BwdCta<D>::kRows * D * 2;
+  static constexpr int kDo = kQ + kStages * kTile;
+  static constexpr int kRows = kDo + kStages * kTile;
+  static constexpr int kBars = kRows + kStages * 2 * W * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+};
+
+// The resident qs and do' tiles, the stages of K, V and ks, the stages of the
+// key bias, the mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kTile = kDqWalk * D * 2;  // one walked stage of K, V or ks
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + BwdCta<D>::kRows * D * 2;
+  static constexpr int kK = kDo + BwdCta<D>::kRows * D * 2;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kKs = kV + kStages * kTile;
+  static constexpr int kBias = kKs + kStages * kTile;
+  static constexpr int kBars = kBias + kStages * kDqWalk * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+};
+
+// The mbarriers of a tile kernel at `bars`: the resident tiles' (one arrival,
+// with the bytes), then full[stage] (the producer's 32 lanes and lane 0's TMA
+// bytes) and empty[stage] (every consumer thread).
+template <int STAGES, int CONSUMERS>
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    hp::mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(bars + 8u * (1 + s), 32);
+      hp::mbar_init(bars + 8u * (1 + STAGES + s), 128 * CONSUMERS);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
 }
 
-template <int D>
-__host__ __device__ constexpr int dq_bf16_stage_bytes() {
-  return 3 * 2 * kWalk * (D + 8) + 4 * kWalk;
+// The resident tiles of the CTA: ROWS rows from `rows0` of the operands of
+// `maps` into dst[o] (panels of ROWS rows), on one mbarrier.
+template <int D, int ROWS, int NOPS>
+__device__ __forceinline__ void load_resident(const CUtensorMap* const (&maps)[NOPS],
+                                              const uint32_t (&dst)[NOPS], uint32_t bar,
+                                              int n, int rows0, int b) {
+  using P = hp::Panels<D>;
+  constexpr int kRows = ROWS;
+  hp::mbar_arrive_expect_tx(bar, NOPS * kRows * D * 2);
+#pragma unroll
+  for (int o = 0; o < NOPS; ++o)
+#pragma unroll
+    for (int p = 0; p < P::kCount; ++p)
+      hp::tma_load_4d(dst[o] + p * kRows * P::kRowBytes, maps[o], bar, p * P::kCols, n, rows0,
+                      b);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 2 : 1)
-flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                           const float* __restrict__ kbias, const bf16* __restrict__ qs,
-                           const bf16* __restrict__ dos, const float* __restrict__ lse,
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(BwdCta<D>::kThreads, 1)
+flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tqs,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ kbias, const float* __restrict__ lse,
                            const float* __restrict__ di, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int T, int N, long long sb, long long st,
-                           uint32_t thresh, uint32_t s0, uint32_t s1, int batch0, int dropout,
-                           int vec) {
-  constexpr int LD = D + 8;
-  constexpr int DN = D / 8;      // 8-column tiles of dk / dv
-  constexpr int CN = kWalk / 8;  // 8-query tiles of s^T / dp^T
-  constexpr int kStage = dkdv_bf16_stage_bytes<D>();
-  extern __shared__ float4 smem4[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem4);
-  bf16* v_s = k_s + 64 * LD;
-  char* walk_s = reinterpret_cast<char*>(v_s + 64 * LD);  // per stage: qs, do', lse, Di
+                           bf16* __restrict__ dv, int T, int N, uint32_t thresh, uint32_t s0,
+                           uint32_t s1, int batch0) {
+  using P = hp::Panels<D>;
+  using S = DkdvSmem<D>;
+  using C = BwdCta<D>;
+  constexpr int W = S::W;
+  constexpr uint32_t kResPanel = C::kRows * P::kRowBytes, kWalkPanel = W * P::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const fb::AlignedSmem sm = fb::align_smem(smem_raw);
+  const uint32_t bars = sm.addr + S::kBars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + S::kStages + s); };
+  float* rows_s = reinterpret_cast<float*>(sm.ptr + S::kRows);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * kBK, n = blockIdx.y, b = blockIdx.z;
-  const int H = N * D;
-  const long long head = (long long)b * sb + (long long)n * D;
-  const long long ohead = (long long)b * T * H + (long long)n * D;  // contiguous tensors
+  const int k0 = blockIdx.x * C::kRows, n = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T + W - 1) / W;
   const long long bn_row = ((long long)b * N + n) * T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  init_bars<S::kStages, C::kConsumers>(bars);
+
+  if (warp == 4 * C::kConsumers) {  // the producer warp
+    if (lane == 0) {
+      const CUtensorMap* maps[2] = {&tk, &tv};
+      const uint32_t dst[2] = {sm.addr + S::kK, sm.addr + S::kV};
+      load_resident<D, C::kRows, 2>(maps, dst, bars, n, k0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % S::kStages, q0 = i * W;
+      if (i >= S::kStages) hp::mbar_wait(empty(s), (i / S::kStages - 1) & 1);
+      if (lane == 0) {
+        hp::mbar_expect_tx(full(s), 2 * S::kTile);
+        for (int p = 0; p < P::kCount; ++p) {
+          const int at = s * S::kTile + p * kWalkPanel;
+          hp::tma_load_4d(sm.addr + S::kQ + at, &tqs, full(s), p * P::kCols, n, q0, b);
+          hp::tma_load_4d(sm.addr + S::kDo + at, &tdo, full(s), p * P::kCols, n, q0, b);
+        }
+      }
+      for (int c = lane; c < W; c += 32) {
+        const int t = q0 + c;
+        rows_s[s * 2 * W + c] = t < T ? lse[bn_row + t] : INFINITY;  // queries >= T: p = 0
+        rows_s[s * 2 * W + W + c] = t < T ? di[bn_row + t] : 0.f;
+      }
+      hp::mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys k0 + 64 wg ..; this thread's accumulator rows
+  // are keys ka and ka + 8
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int ka = k0 + wg * 64 + (warp & 3) * 16 + g;
+  const float kb[2] = {fb::key_bias(kbias, b, ka, T), fb::key_bias(kbias, b, ka + 8, T)};
+  const uint32_t k_tile = sm.addr + S::kK + wg * 64 * P::kRowBytes;
+  const uint32_t v_tile = sm.addr + S::kV + wg * 64 * P::kRowBytes;
   const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  auto start = [&](int i) {
-    char* w = walk_s + (i & 1) * kStage;
-    bf16* const dst[2] = {reinterpret_cast<bf16*>(w), reinterpret_cast<bf16*>(w) + kWalk * LD};
-    const bf16* const src[2] = {qs + ohead, dos + ohead};
-    const long long stride[2] = {H, H};
-    bm::start_walk<D, 2>(dst, src, stride, i * kWalk, T, kWalk, vec, kTileThreads);
-    float* rows = reinterpret_cast<float*>(w + 4 * kWalk * LD);
-    if (threadIdx.x < kWalk) {
-      const int t = i * kWalk + threadIdx.x;
-      const int at = t < T ? t : T - 1, bytes = t < T ? 4 : 0;
-      cp_async4(rows + threadIdx.x, lse + bn_row + at, bytes);
-      cp_async4(rows + kWalk + threadIdx.x, di + bn_row + at, bytes);
-    }
-    cp_async_commit();
-  };
-  start(0);
-  bm::load_tile<D>(k_s, k + head, st, k0, T, 64, 1.f, vec, kTileThreads);
-  bm::load_tile<D>(v_s, v + head, st, k0, T, 64, 1.f, vec, kTileThreads);
-  // this thread's accumulator rows: keys key_a and key_a + 8
-  const int key_a = k0 + warp * 16 + g;
-  const float kb_a = key_a < T ? kbias[(long long)b * T + key_a] : -INFINITY;
-  const float kb_b = key_a + 8 < T ? kbias[(long long)b * T + key_a + 8] : -INFINITY;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+  hp::mbar_wait(bars, 0);
 
-  float dk_acc[DN][4], dv_acc[DN][4];
-#pragma unroll
-  for (int c = 0; c < DN; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % S::kStages, q0 = i * W;
+    const uint32_t q_tile = sm.addr + S::kQ + s * S::kTile;
+    const uint32_t do_tile = sm.addr + S::kDo + s * S::kTile;
+    hp::mbar_wait(full(s), (i / S::kStages) & 1);
 
-  const bf16* ka_s = k_s + warp * 16 * LD;
-  const bf16* va_s = v_s + warp * 16 * LD;
-  const int n_walk = (T + kWalk - 1) / kWalk;
+    // s^T = k qs^T and dp^T = v do'^T: 64 keys x W queries
+    float st[W / 2], dpt[W / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_ss<W, 0>(st, P::kmajor(k_tile, kResPanel, kk), P::kmajor(q_tile, kWalkPanel, kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_ss<W, 0>(dpt, P::kmajor(v_tile, kResPanel, kk),
+                         P::kmajor(do_tile, kWalkPanel, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(st);
+    hp::fence_regs(dpt);
 
-  for (int i = 0; i < n_walk; ++i) {
-    cp_async_wait_all();  // as in the f32 kernels
-    __syncthreads();
-    if (i + 1 < n_walk) start(i + 1);
-    const char* w = walk_s + (i & 1) * kStage;
-    const bf16* q_s = reinterpret_cast<const bf16*>(w);
-    const bf16* do_s = q_s + kWalk * LD;
-    const float* lse_s = reinterpret_cast<const float*>(w + 4 * kWalk * LD);
-    const float* di_s = lse_s + kWalk;
-    const int q0 = i * kWalk;
-
-    // s^T = k qs^T and dp^T = v do'^T: 16 keys x 32 queries
-    float st_acc[CN][4], dpt_acc[CN][4];
+    // element 4 j + e: key ka + 8 (e / 2), query q0 + 8 j + 2 t4 + e % 2; the
+    // dropped p and ds, rounded to bf16, are the A registers of the products
+    const float* ls = rows_s + s * 2 * W;
+    const float* dd = ls + W;
+    uint32_t pa[W / 16][4], dsa[W / 16][4];
 #pragma unroll
-    for (int j = 0; j < CN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st_acc[j][e] = dpt_acc[j][e] = 0.f;
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t ka[4], va[4];
-      bm::load_a(ka, ka_s + d0, LD, lane);
-      bm::load_a(va, va_s + d0, LD, lane);
-#pragma unroll
-      for (int j = 0; j < CN; j += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_nk_x2(b0, b1, q_s + 8 * j * LD + d0, LD, lane);
-        bm::mma(st_acc[j], ka, b0);
-        bm::mma(st_acc[j + 1], ka, b1);
-        bm::load_b_nk_x2(b0, b1, do_s + 8 * j * LD + d0, LD, lane);
-        bm::mma(dpt_acc[j], va, b0);
-        bm::mma(dpt_acc[j + 1], va, b1);
-      }
-    }
-    // entry e of tile j: key key_a (+ 8 for e >= 2), query ql (+ 1 for odd e);
-    // the dropped p and ds replace s^T and dp^T
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const int ql = 8 * j + 2 * t4;
-      float2 ls = *reinterpret_cast<const float2*>(lse_s + ql);
-      const float2 dd = *reinterpret_cast<const float2*>(di_s + ql);
-      ls.x = q0 + ql < T ? ls.x : INFINITY;  // queries >= T: p = 0
-      ls.y = q0 + ql + 1 < T ? ls.y : INFINITY;
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + ql);
+      const float2 d2 = *reinterpret_cast<const float2*>(dd + ql);
+      float pd[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float pd, ds;
-        p_and_ds(st_acc[j][e], dpt_acc[j][e], (e & 2) ? kb_b : kb_a, (e & 1) ? ls.y : ls.x,
-                 (e & 1) ? dd.y : dd.x, bn, q0 + ql + (e & 1), key_a + ((e & 2) ? 8 : 0), s0,
-                 s1, thresh, dropout, pd, ds);
-        st_acc[j][e] = pd;
-        dpt_acc[j][e] = ds;
+        const float p = __expf(st[4 * j + e] + kb[e >> 1] - ((e & 1) ? l2.y : l2.x));
+        const uint32_t qi = (uint32_t)(q0 + ql + (e & 1));
+        const bool kept =
+            !DROPOUT ||
+            fb::keep_at(fb::hash_row(bn, qi, s0), (uint32_t)(ka + 8 * (e >> 1)), s1, thresh);
+        pd[e] = kept ? p : 0.f;
+        ds[e] = p * ((kept ? dpt[4 * j + e] : 0.f) - ((e & 1) ? d2.y : d2.x));
       }
+      pa[j >> 1][2 * (j & 1)] = hp::pack_bf16(pd[0], pd[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = hp::pack_bf16(pd[2], pd[3]);
+      dsa[j >> 1][2 * (j & 1)] = hp::pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][2 * (j & 1) + 1] = hp::pack_bf16(ds[2], ds[3]);
     }
-    // dv += bf16(pd)^T do' and dk += bf16(ds)^T qs: contraction over the
-    // tile's queries, 16 at a time, the tiles above rounded to bf16 as the A
-    // operands
+
+    // dv += bf16(pd)^T do' and dk += bf16(ds)^T qs over the tile's W queries
+    hp::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < CN; j += 2) {
-      uint32_t pa[4], dsa[4];
-      bm::frag_a_from_acc(pa, st_acc[j], st_acc[j + 1]);
-      bm::frag_a_from_acc(dsa, dpt_acc[j], dpt_acc[j + 1]);
+    for (int kk = 0; kk < W / 16; ++kk)
+      hp::wgmma_rs<D, 1>(dv_acc, pa[kk], P::mnmajor(do_tile, kWalkPanel, kk), 1);
 #pragma unroll
-      for (int c = 0; c < DN; c += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_kn_x2(b0, b1, do_s + 8 * j * LD + 8 * c, LD, lane);
-        bm::mma(dv_acc[c], pa, b0);
-        bm::mma(dv_acc[c + 1], pa, b1);
-        bm::load_b_kn_x2(b0, b1, q_s + 8 * j * LD + 8 * c, LD, lane);
-        bm::mma(dk_acc[c], dsa, b0);
-        bm::mma(dk_acc[c + 1], dsa, b1);
-      }
-    }
+    for (int kk = 0; kk < W / 16; ++kk)
+      hp::wgmma_rs<D, 1>(dk_acc, dsa[kk], P::mnmajor(q_tile, kWalkPanel, kk), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+    hp::mbar_arrive(empty(s));
   }
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = key_a + 8 * half;
-    if (t >= T) continue;
-    const long long o = ohead + (long long)t * H + 2 * t4;
-#pragma unroll
-    for (int c = 0; c < DN; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * c) =
-          __floats2bfloat162_rn(dk_acc[c][2 * half], dk_acc[c][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * c) =
-          __floats2bfloat162_rn(dv_acc[c][2 * half], dv_acc[c][2 * half + 1]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTileThreads, D <= 64 ? 2 : 1)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         const float* __restrict__ kbias, const bf16* __restrict__ qs,
-                         const bf16* __restrict__ ks, const bf16* __restrict__ dos,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         bf16* __restrict__ dq, int T, int N, long long sb, long long st,
-                         uint32_t thresh, uint32_t s0, uint32_t s1, int batch0, int dropout,
-                         int vec) {
-  constexpr int LD = D + 8;
-  constexpr int DN = D / 8;
-  constexpr int CN = kWalk / 8;  // 8-key tiles of s / dp
-  constexpr int kStage = dq_bf16_stage_bytes<D>();
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);             // qs
-  bf16* do_s = q_s + 64 * LD;                             // do'
-  char* walk_s = reinterpret_cast<char*>(do_s + 64 * LD);  // per stage: k, v, ks, bias
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
   const int H = N * D;
-  const long long head = (long long)b * sb + (long long)n * D;
-  const long long ohead = (long long)b * T * H + (long long)n * D;
-  const long long bn_row = ((long long)b * N + n) * T;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
-
-  auto start = [&](int i) {
-    char* w = walk_s + (i & 1) * kStage;
-    bf16* wb = reinterpret_cast<bf16*>(w);
-    bf16* const dst[3] = {wb, wb + kWalk * LD, wb + 2 * kWalk * LD};
-    const bf16* const src[3] = {k + head, v + head, ks + ohead};
-    const long long stride[3] = {st, st, H};
-    bm::start_walk<D, 3>(dst, src, stride, i * kWalk, T, kWalk, vec, kTileThreads);
-    if (threadIdx.x < kWalk) {
-      const int t = i * kWalk + threadIdx.x;
-      reinterpret_cast<float*>(w + 6 * kWalk * LD)[threadIdx.x] =
-          t < T ? kbias[(long long)b * T + t] : -INFINITY;  // keys >= T: bias -inf
-    }
-    cp_async_commit();
-  };
-  start(0);
-  bm::load_tile<D>(q_s, qs + ohead, H, q0, T, 64, 1.f, vec, kTileThreads);
-  bm::load_tile<D>(do_s, dos + ohead, H, q0, T, 64, 1.f, vec, kTileThreads);
-  // this thread's accumulator rows: queries q_a and q_a + 8
-  const int q_a = q0 + warp * 16 + g;
-  const bool ok_a = q_a < T, ok_b = q_a + 8 < T;
-  const float lse_a = ok_a ? lse[bn_row + q_a] : INFINITY;  // queries >= T: p = 0
-  const float lse_b = ok_b ? lse[bn_row + q_a + 8] : INFINITY;
-  const float di_a = ok_a ? di[bn_row + q_a] : 0.f;
-  const float di_b = ok_b ? di[bn_row + q_a + 8] : 0.f;
-
-  float dq_acc[DN][4];
 #pragma unroll
-  for (int c = 0; c < DN; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.f;
-
-  const bf16* qa_s = q_s + warp * 16 * LD;
-  const bf16* oa_s = do_s + warp * 16 * LD;
-  const int n_walk = (T + kWalk - 1) / kWalk;
-
-  for (int i = 0; i < n_walk; ++i) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < n_walk) start(i + 1);
-    const char* w = walk_s + (i & 1) * kStage;
-    const bf16* k_s = reinterpret_cast<const bf16*>(w);
-    const bf16* v_s = k_s + kWalk * LD;
-    const bf16* ks_s = v_s + kWalk * LD;
-    const float* kb_s = reinterpret_cast<const float*>(w + 6 * kWalk * LD);
-    const int k0 = i * kWalk;
-
-    // s = qs k^T and dp = do' v^T: 16 queries x 32 keys
-    float s_acc[CN][4], dp_acc[CN][4];
-#pragma unroll
-    for (int j = 0; j < CN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[j][e] = dp_acc[j][e] = 0.f;
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t qa[4], oa[4];
-      bm::load_a(qa, qa_s + d0, LD, lane);
-      bm::load_a(oa, oa_s + d0, LD, lane);
-#pragma unroll
-      for (int j = 0; j < CN; j += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_nk_x2(b0, b1, k_s + 8 * j * LD + d0, LD, lane);
-        bm::mma(s_acc[j], qa, b0);
-        bm::mma(s_acc[j + 1], qa, b1);
-        bm::load_b_nk_x2(b0, b1, v_s + 8 * j * LD + d0, LD, lane);
-        bm::mma(dp_acc[j], oa, b0);
-        bm::mma(dp_acc[j + 1], oa, b1);
-      }
-    }
-    // entry e of tile j: query q_a (+ 8 for e >= 2), key kl (+ 1 for odd e);
-    // ds replaces dp
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int kl = 8 * j + 2 * t4;
-      const float2 kb = *reinterpret_cast<const float2*>(kb_s + kl);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pd, ds;
-        p_and_ds(s_acc[j][e], dp_acc[j][e], (e & 1) ? kb.y : kb.x, (e & 2) ? lse_b : lse_a,
-                 (e & 2) ? di_b : di_a, bn, q_a + ((e & 2) ? 8 : 0), k0 + kl + (e & 1), s0,
-                 s1, thresh, dropout, pd, ds);
-        dp_acc[j][e] = ds;
-      }
-    }
-    // dq += bf16(ds) ks: contraction over the tile's keys, 16 at a time
-#pragma unroll
-    for (int j = 0; j < CN; j += 2) {
-      uint32_t dsa[4];
-      bm::frag_a_from_acc(dsa, dp_acc[j], dp_acc[j + 1]);
-#pragma unroll
-      for (int c = 0; c < DN; c += 2) {
-        uint32_t b0[2], b1[2];
-        bm::load_b_kn_x2(b0, b1, ks_s + 8 * j * LD + 8 * c, LD, lane);
-        bm::mma(dq_acc[c], dsa, b0);
-        bm::mma(dq_acc[c + 1], dsa, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = q_a + 8 * half;
+  for (int h = 0; h < 2; ++h) {
+    const int t = ka + 8 * h;
     if (t >= T) continue;
-    const long long o = ohead + (long long)t * H + 2 * t4;
+    const long long o = ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DN; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(dq + o + 8 * c) =
-          __floats2bfloat162_rn(dq_acc[c][2 * half], dq_acc[c][2 * half + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * c) =
+          __floats2bfloat162_rn(dk_acc[4 * c + 2 * h], dk_acc[4 * c + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * c) =
+          __floats2bfloat162_rn(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+    }
   }
 }
 
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(BwdCta<D>::kThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tks,
+                         const float* __restrict__ kbias, const float* __restrict__ lse,
+                         const float* __restrict__ di, bf16* __restrict__ dq, int T, int N,
+                         uint32_t thresh, uint32_t s0, uint32_t s1, int batch0) {
+  using P = hp::Panels<D>;
+  using S = DqSmem<D>;
+  using C = BwdCta<D>;
+  constexpr int W = kDqWalk;
+  constexpr uint32_t kResPanel = C::kRows * P::kRowBytes, kWalkPanel = W * P::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const fb::AlignedSmem sm = fb::align_smem(smem_raw);
+  const uint32_t bars = sm.addr + S::kBars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + S::kStages + s); };
+  float* bias_s = reinterpret_cast<float*>(sm.ptr + S::kBias);
+
+  const int q0 = blockIdx.x * C::kRows, n = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T + W - 1) / W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  init_bars<S::kStages, C::kConsumers>(bars);
+
+  if (warp == 4 * C::kConsumers) {  // the producer warp
+    if (lane == 0) {
+      const CUtensorMap* maps[2] = {&tqs, &tdo};
+      const uint32_t dst[2] = {sm.addr + S::kQ, sm.addr + S::kDo};
+      load_resident<D, C::kRows, 2>(maps, dst, bars, n, q0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % S::kStages, k0 = i * W;
+      if (i >= S::kStages) hp::mbar_wait(empty(s), (i / S::kStages - 1) & 1);
+      if (lane == 0) {
+        hp::mbar_expect_tx(full(s), 3 * S::kTile);
+        for (int p = 0; p < P::kCount; ++p) {
+          const int at = s * S::kTile + p * kWalkPanel;
+          hp::tma_load_4d(sm.addr + S::kK + at, &tk, full(s), p * P::kCols, n, k0, b);
+          hp::tma_load_4d(sm.addr + S::kV + at, &tv, full(s), p * P::kCols, n, k0, b);
+          hp::tma_load_4d(sm.addr + S::kKs + at, &tks, full(s), p * P::kCols, n, k0, b);
+        }
+      }
+      for (int c = lane; c < W; c += 32) {
+        const int t = k0 + c;
+        bias_s[s * W + c] = fb::key_bias(kbias, b, t, T);
+      }
+      hp::mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  // a consumer warpgroup: queries q0 + 64 wg ..; this thread's accumulator
+  // rows are queries qa and qa + 8
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int qa = q0 + wg * 64 + (warp & 3) * 16 + g;
+  const long long bn_row = ((long long)b * N + n) * T;
+  const float lse_r[2] = {qa < T ? lse[bn_row + qa] : INFINITY,  // queries >= T: p = 0
+                          qa + 8 < T ? lse[bn_row + qa + 8] : INFINITY};
+  const float di_r[2] = {qa < T ? di[bn_row + qa] : 0.f, qa + 8 < T ? di[bn_row + qa + 8] : 0.f};
+  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
+                            fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
+  const uint32_t q_tile = sm.addr + S::kQ + wg * 64 * P::kRowBytes;
+  const uint32_t do_tile = sm.addr + S::kDo + wg * 64 * P::kRowBytes;
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dq_acc[r] = 0.f;
+  hp::mbar_wait(bars, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % S::kStages, k0 = i * W;
+    const uint32_t k_tile = sm.addr + S::kK + s * S::kTile;
+    const uint32_t v_tile = sm.addr + S::kV + s * S::kTile;
+    const uint32_t ks_tile = sm.addr + S::kKs + s * S::kTile;
+    hp::mbar_wait(full(s), (i / S::kStages) & 1);
+
+    // s = qs k^T and dp = do' v^T: 64 queries x 64 keys
+    float sc[W / 2], dp[W / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_ss<W, 0>(sc, P::kmajor(q_tile, kResPanel, kk), P::kmajor(k_tile, kWalkPanel, kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_ss<W, 0>(dp, P::kmajor(do_tile, kResPanel, kk),
+                         P::kmajor(v_tile, kWalkPanel, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    hp::fence_regs(dp);
+
+    // element 4 j + e: query qa + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2
+    const float* kb = bias_s + s * W;
+    uint32_t dsa[W / 16][4];
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int kl = 8 * j + 2 * t4;
+      const float2 b2 = *reinterpret_cast<const float2*>(kb + kl);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sc[4 * j + e] + ((e & 1) ? b2.y : b2.x) - lse_r[e >> 1]);
+        const bool kept =
+            !DROPOUT || fb::keep_at(hrow[e >> 1], (uint32_t)(k0 + kl + (e & 1)), s1, thresh);
+        ds[e] = p * ((kept ? dp[4 * j + e] : 0.f) - di_r[e >> 1]);
+      }
+      dsa[j >> 1][2 * (j & 1)] = hp::pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][2 * (j & 1) + 1] = hp::pack_bf16(ds[2], ds[3]);
+    }
+
+    // dq += bf16(ds) ks over the tile's 64 keys
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)
+      hp::wgmma_rs<D, 1>(dq_acc, dsa[kk], P::mnmajor(ks_tile, kWalkPanel, kk), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq_acc);
+    hp::mbar_arrive(empty(s));
+  }
+
+  const int H = N * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = qa + 8 * h;
+    if (t >= T) continue;
+    const long long o = ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dq + o + 8 * c) =
+          __floats2bfloat162_rn(dq_acc[4 * c + 2 * h], dq_acc[4 * c + 2 * h + 1]);
+  }
+}
+
+// strides: (batch, time) of q, k and v in elements
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
                 const bf16* out, const bf16* dout, const float* lse, float* di, bf16* qs,
                 bf16* ks, bf16* dos, bf16* dq, bf16* dk, bf16* dv, int B, int T, int N,
-                long long sb, long long st, float scale, float keep, uint32_t thresh,
+                const long long* strides, float scale, float keep, uint32_t thresh,
                 uint32_t s0, uint32_t s1, int batch0, int dropout, cudaStream_t stream) {
   cudaError_t err;
-  const long long rows = (long long)B * T * N;
-  const int warps = kThreads / 32;
-  flash_bwd_prep_bf16_kernel<<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
-                               stream>>>(q, k, dout, out, di, qs, ks, dos, B, T, N, D, sb, st,
+  const long long threads = (long long)B * T * N * (D / 8);
+  flash_bwd_prep_bf16_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                               stream>>>(q, k, dout, out, di, qs, ks, dos, B, T, N, D,
+                                         strides[0], strides[1], strides[2], strides[3],
                                          scale, keep);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // 16-byte tile copies (8 bf16) where every row start is 16-byte aligned;
-  // the scratch tensors are whole allocations with rows of N * D values
-  const int vec = aligned16(k) && aligned16(v) && sb % 8 == 0 && st % 8 == 0;
-  const int resident = 2 * 2 * 64 * (D + 8);
-  const size_t smem_dkdv = resident + 2 * dkdv_bf16_stage_bytes<D>();
-  const size_t smem_dq = resident + 2 * dq_bf16_stage_bytes<D>();
-  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_dkdv)) != cudaSuccess)
+  // the scratch tensors are contiguous (B, T, N * D)
+  const long long sb = (long long)T * N * D, st = (long long)N * D;
+  CUtensorMap m_k, m_v, m_qs, m_do, m_qs_res, m_do_res, m_k_walk, m_v_walk, m_ks;
+  int e = 0;
+  constexpr int R = BwdCta<D>::kRows;
+  if ((e = fb::encode_heads<D>(&m_k, k, B, T, N, strides[2], strides[3], R)) ||
+      (e = fb::encode_heads<D>(&m_v, v, B, T, N, strides[4], strides[5], R)) ||
+      (e = fb::encode_heads<D>(&m_qs, qs, B, T, N, sb, st, kDkdvWalk)) ||
+      (e = fb::encode_heads<D>(&m_do, dos, B, T, N, sb, st, kDkdvWalk)) ||
+      (e = fb::encode_heads<D>(&m_qs_res, qs, B, T, N, sb, st, R)) ||
+      (e = fb::encode_heads<D>(&m_do_res, dos, B, T, N, sb, st, R)) ||
+      (e = fb::encode_heads<D>(&m_k_walk, k, B, T, N, strides[2], strides[3], kDqWalk)) ||
+      (e = fb::encode_heads<D>(&m_v_walk, v, B, T, N, strides[4], strides[5], kDqWalk)) ||
+      (e = fb::encode_heads<D>(&m_ks, ks, B, T, N, sb, st, kDqWalk)))
+    return e;
+
+  const int smem_dkdv = DkdvSmem<D>::kBytes + 1024;  // + the alignment of the base
+  const int smem_dq = DqSmem<D>::kBytes + 1024;
+  auto dkdv =
+      dropout ? flash_bwd_dkdv_bf16_kernel<D, true> : flash_bwd_dkdv_bf16_kernel<D, false>;
+  if ((err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem_dkdv)) != cudaSuccess)
     return (int)err;
-  dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_bwd_dkdv_bf16_kernel<D><<<grid, kTileThreads, smem_dkdv, stream>>>(
-      k, v, kbias, qs, dos, lse, di, dk, dv, T, N, sb, st, thresh, s0, s1, batch0, dropout,
-      vec);
+  dkdv<<<dim3((T + R - 1) / R, N, B), BwdCta<D>::kThreads, smem_dkdv, stream>>>(
+      m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, thresh, s0, s1, batch0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  if ((err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_dq)) != cudaSuccess)
+  auto dq_kernel =
+      dropout ? flash_bwd_dq_bf16_kernel<D, true> : flash_bwd_dq_bf16_kernel<D, false>;
+  if ((err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem_dq)) != cudaSuccess)
     return (int)err;
-  flash_bwd_dq_bf16_kernel<D><<<grid, kTileThreads, smem_dq, stream>>>(
-      k, v, kbias, qs, ks, dos, lse, di, dq, T, N, sb, st, thresh, s0, s1, batch0, dropout,
-      vec);
+  dq_kernel<<<dim3((T + R - 1) / R, N, B), BwdCta<D>::kThreads, smem_dq, stream>>>(
+      m_qs_res, m_do_res, m_k_walk, m_v_walk, m_ks, kbias, lse, di, dq, T, N, thresh, s0, s1,
+      batch0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
 
 // Kernel B3 bwd: three launches on `stream` of `device`; returns the first
 // launch error (0 on success); does not synchronise. di is (B, N, T) f32
@@ -869,18 +996,22 @@ int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* 
   }
 }
 
-// Kernel B3 bwd in bf16: four launches on `stream` of `device`; returns the
-// first launch error (0 on success); does not synchronise. q, k, v, out,
-// dout, dq, dk and dv are bf16, kbias and lse f32; di (B, N, T) f32 and qs, ks,
-// dos (B, T, N * D) bf16 are scratch the caller allocates. `scale` is the
-// softmax scale already rounded to bf16 and keep = 1 - rate; the other
-// arguments as for flash_attn_bwd_f32.
+// Kernel B3 bwd in bf16: three launches on `stream` of `device`; returns
+// the first launch error (0 on success); does not synchronise. q, k, v, out,
+// dout, dq, dk and dv are bf16, kbias (null: no bias) and lse f32; di (B, N,
+// T) f32 and qs, ks, dos (B, T, N * D) bf16 are scratch the caller
+// allocates. The strides are (batch, time) of q, k and v each, in elements,
+// every one a multiple of 8, and q, k, v are 16-byte aligned (TMA's terms:
+// the wrapper's tma_ready).
+// `scale` is the softmax scale already rounded to bf16 and keep = 1 - rate;
+// the other arguments as for flash_attn_bwd_f32.
 int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* kbias,
                         const void* out, const void* dout, const void* lse, void* di,
                         void* qs, void* ks, void* dos, void* dq, void* dk, void* dv, int B,
-                        int T, int N, int D, long long sb, long long st, float scale,
-                        float keep, unsigned thresh, unsigned s0, unsigned s1, int batch0,
-                        int dropout, int device, void* stream) {
+                        int T, int N, int D, long long sbq, long long stq, long long sbk,
+                        long long stk, long long sbv, long long stv, float scale, float keep,
+                        unsigned thresh, unsigned s0, unsigned s1, int batch0, int dropout,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -890,18 +1021,19 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
   auto lf = static_cast<const float*>(lse);
   auto df = static_cast<float*>(di);
   auto s = static_cast<cudaStream_t>(stream);
+  const long long strides[6] = {sbq, stq, sbk, stk, sbv, stv};
   switch (D) {
     case 32:
       return launch_bf16<32>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
-                             m(dos), m(dq), m(dk), m(dv), B, T, N, sb, st, scale, keep,
+                             m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
                              thresh, s0, s1, batch0, dropout, s);
     case 64:
       return launch_bf16<64>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
-                             m(dos), m(dq), m(dk), m(dv), B, T, N, sb, st, scale, keep,
+                             m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
                              thresh, s0, s1, batch0, dropout, s);
     case 128:
       return launch_bf16<128>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
-                              m(dos), m(dq), m(dk), m(dv), B, T, N, sb, st, scale, keep,
+                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
                               thresh, s0, s1, batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -909,6 +1041,7 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
 }
 
 const char* flash_attn_bwd_error_string(int code) {
+  if (code >= flash_bf16::kMapError) return "cuTensorMapEncodeTiled refused a TMA tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -23,15 +23,35 @@ Under ``compute_dtype`` bf16 (q, k, v bf16, as the encoder's bf16 QKV
 projection gives them) the same two functions run as their bf16 kernels, B3
 fwd bf16 ``flash_attention_fwd_bf16`` and B3 bwd bf16
 ``flash_attention_bwd_bf16`` (the same sources, the C entries
-``flash_attn_fwd_bf16`` / ``flash_attn_bwd_bf16``, one bf16 tensor-core pass a
-product, ``mma_bf16.cuh``), counted apart from the f32 ones; ``flash_attention_fwd``
-/ ``flash_attention_bwd`` hand bf16 tensors to them. They round at the JAX
-kernel's points with bf16 inputs (``_fwd_kernel`` / ``_bwd_kernel``): the
-softmax scale and scale * q (and, for dq, scale * k) rounded to bf16, logits
-and every product summed in f32 from exact bf16 products, the softmax, hash
-and lse in f32, p rounded to bf16 into P V, the cotangent do / keep, the
-dropped p and ds rounded to bf16 into their products, and out, dq, dk, dv
-rounded to bf16 from f32 sums. kbias and lse stay f32.
+``flash_attn_fwd_bf16`` / ``flash_attn_bwd_bf16``), counted apart from the f32
+ones; ``flash_attention_fwd`` / ``flash_attention_bwd`` hand bf16 tensors to
+them. They round at the JAX kernel's points with bf16 inputs (``_fwd_kernel``
+/ ``_bwd_kernel``): the softmax scale and scale * q (and, for dq, scale * k)
+rounded to bf16, logits and every product summed in f32 from exact bf16
+products, the softmax, hash and lse in f32, p rounded to bf16 into P V, the
+cotangent do / keep, the dropped p and ds rounded to bf16 into their
+products, and out, dq, dk, dv rounded to bf16 from f32 sums. kbias and lse
+stay f32.
+
+The bf16 kernels are built for Hopper (``csrc/hopper.cuh``): a CTA of
+consumer warpgroups (64 rows each) and a producer warp that brings tiles in
+by TMA through a ring of shared-memory stages on mbarriers, the products as
+``wgmma`` with f32 accumulators in registers, the softmax, hash and ds on
+those registers, and the rounded probabilities (or ds) packed in registers
+as the A operand of the next product. B3 fwd bf16 walks keys 64 a tile for
+128 queries a CTA; B3 bwd bf16 is a pre-pass (Di and the rounded qs, ks, do'
+as contiguous scratch), a dk/dv kernel over 192 keys a CTA and a dq kernel
+over 192 queries a CTA (128 at a head width of 128). What bounds them on the
+card is the CUDA-core work of each logit (one exponential and the hash's ten
+integer operations, twice in the backward), not the products: at B=6,
+T=1001, 12 x 64 the products take 0.019 / 0.047 ms of tensor-core time. The
+exponential is ``__expf`` (ex2.approx), within the card's limits. TMA reads q, k and v in place as
+4-D tensors (D, N, T, B) and fills rows t >= T with zeros, which needs
+16-byte aligned operands whose batch and time strides are multiples of 16
+bytes: ``tma_ready`` decides that from an operand's address and strides, and
+the wrapper hands the kernel a contiguous copy of an operand that fails it
+(the same kernel either way). ``flash_fwd_bf16_model`` models the forward's
+rounding schedule (the online softmax over 64-key tiles) for the CPU tests.
 
 ``FlashAttention`` ties them into a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
@@ -56,6 +76,9 @@ raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -69,6 +92,8 @@ PHI4 = 40503
 _MASK32 = 0xFFFFFFFF
 # head widths the CUDA kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+# keys a tile of B3 fwd bf16's online softmax (csrc/flash_attn.cu, kFwdK)
+FWD_BF16_KEYS = 64
 
 Salt = Tuple[int, int]
 
@@ -121,9 +146,12 @@ def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
 
 
 def _bf16_scalar(x: float) -> float:
-    """A Python float rounded to bf16 (to nearest, ties to even), as
-    ``jnp.asarray(x, jnp.bfloat16)`` rounds the JAX kernel's scale."""
-    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+    """A Python float rounded to f32, then to bf16 (to nearest, ties to
+    even), as ``jnp.asarray(x, jnp.bfloat16)`` rounds the JAX kernel's scale:
+    on the bits, without a tensor (a launch's host time)."""
+    bits = struct.unpack("<I", struct.pack("<f", x))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -174,6 +202,42 @@ def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
         p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
     ctx = torch.matmul(_bf16(p), _heads(v.float(), n_heads)) * (1.0 / (s * (1.0 - rate)))
     return _merge(ctx).to(torch.bfloat16), lse
+
+
+def flash_fwd_bf16_model(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
+                         batch0: int = 0, *, n_heads: int, keys: int = FWD_BF16_KEYS):
+    """B3 fwd bf16's rounding schedule in plain PyTorch: ``_flash_ref_bf16``'s
+    roundings with the kernel's online softmax over tiles of ``keys`` keys.
+    Per tile the running row maximum m takes the tile's logits, the row sum
+    l = l * exp(m_old - m) + sum exp(s - m) takes the undropped p, and the
+    dropped p = exp(s - m) is rounded to bf16 against that running maximum
+    into acc = acc * exp(m_old - m) + bf16(p) v; out = bf16(acc * (1 / (l *
+    (1 - rate)))), lse = m + log l. Returns what ``flash_attention_ref``
+    returns."""
+    N, keep = n_heads, 1.0 - rate
+    B, T, _ = q.shape
+    qs = _heads(_bf16(q.float() * _bf16_scalar(scale)), N)
+    kh, vh = _heads(k.float(), N), _heads(v.float(), N)
+    mask = _full_mask(B, N, T, salt, rate, batch0, q.device) if rate > 0.0 else None
+    m = torch.full((B, N, T, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, N, T, 1), device=q.device)
+    acc = torch.zeros(qs.shape, device=q.device)
+    for k0 in range(0, T, keys):
+        s = torch.matmul(qs, kh[:, :, k0:k0 + keys].transpose(-1, -2))
+        if kbias is not None:
+            s = s + kbias[:, None, None, k0:k0 + keys]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        # all keys so far at -inf (a -inf key bias): keep exp() finite
+        shift = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - shift)
+        p = torch.exp(s - shift)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if mask is not None:
+            p = torch.where(mask[..., k0:k0 + keys], p, 0.0)
+        acc = acc * alpha + torch.matmul(_bf16(p), vh[:, :, k0:k0 + keys])
+        m = m_new
+    out = acc * (1.0 / (l * keep))
+    return _merge(out).to(torch.bfloat16), (m + torch.log(l))[..., 0]
 
 
 def split_tf32(x: torch.Tensor):
@@ -299,6 +363,33 @@ def _kernel_layout(q, k, v, kbias, n_heads):
     return B, T, n_heads, D, q.stride(0), q.stride(1), kbias.contiguous()
 
 
+def tma_ready(address: int, stride: Tuple[int, ...], itemsize: int) -> bool:
+    """Whether TMA can read a (B, T, N * D) operand in place, as the bf16
+    kernels' tensor maps describe it: its first element 16-byte aligned
+    (``address``, from ``data_ptr()``), unit stride in a row, and batch and
+    time strides (in elements of ``itemsize`` bytes) multiples of 16 bytes."""
+    sb, st, sh = stride
+    return (address % 16 == 0 and sh == 1 and (sb * itemsize) % 16 == 0
+            and (st * itemsize) % 16 == 0)
+
+
+def _bf16_layout(q, k, v, kbias, n_heads):
+    """(B, T, N, D, (q, k, v), their (batch, time) strides flattened, the
+    contiguous key bias or None) for a bf16 launch: an operand that
+    ``tma_ready`` refuses becomes a contiguous copy, so the kernel takes
+    every operand by TMA; no bias goes to the kernel as a null pointer."""
+    B, T, H = q.shape
+    D = H // n_heads
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels take head width {HEAD_DIMS}, got {D}")
+    ops = tuple(x if tma_ready(x.data_ptr(), x.stride(), x.element_size())
+                else x.clone(memory_format=torch.contiguous_format) for x in (q, k, v))
+    strides = [s for x in ops for s in x.stride()[:2]]
+    kb = None if kbias is None else kbias.contiguous()
+    return B, T, n_heads, D, ops, strides, kb
+
+
+@functools.cache
 def _fwd_library():
     lib = load("flash_attn")
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
@@ -306,13 +397,15 @@ def _fwd_library():
     lib.flash_attn_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, ll, f, f, u, u, u,
                                        i, i, i, p]
     lib.flash_attn_fwd_f32.restype = i
-    lib.flash_attn_fwd_bf16.argtypes = lib.flash_attn_fwd_f32.argtypes
+    lib.flash_attn_fwd_bf16.argtypes = [p] * 6 + [i] * 4 + [ll] * 6 + [f, f, u, u, u, i, i, i,
+                                                                       p]
     lib.flash_attn_fwd_bf16.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
 def _bwd_library():
     lib = load("flash_attn_bwd")
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
@@ -320,8 +413,8 @@ def _bwd_library():
     lib.flash_attn_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
                                                   i, p]
     lib.flash_attn_bwd_f32.restype = i
-    lib.flash_attn_bwd_bf16.argtypes = [p] * 14 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
-                                                   i, p]
+    lib.flash_attn_bwd_bf16.argtypes = [p] * 14 + [i] * 4 + [ll] * 6 + [f, f, u, u, u, i, i,
+                                                                        i, p]
     lib.flash_attn_bwd_bf16.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
@@ -343,24 +436,38 @@ def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
     if q.dtype == torch.bfloat16:
         return flash_attention_fwd_bf16(q, k, v, scale, rate, salt, kbias, batch0,
                                         n_heads=n_heads)
-    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, "flash_attn_fwd_f32",
-                scale, flash_attention_fwd)
+    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads)
 
 
 def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                              batch0: int = 0, *, n_heads: int):
     """B3 fwd bf16: bf16 q, k, v -> (out (B, T, N * D) bf16, lse (B, N, T)
     f32), rounded where the JAX kernel rounds with bf16 inputs. Kernel on a
-    CUDA tensor (counted in ``flash_attention_fwd_bf16.launches``; one bf16
-    tensor-core pass a product), plain version on a CPU tensor."""
+    CUDA tensor (counted in ``flash_attention_fwd_bf16.launches``; TMA and
+    ``wgmma``, the module docstring), plain version on a CPU tensor."""
     _check(q, k, v, kbias, n_heads)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_fwd_bf16 takes bf16 q, k, v, got {q.dtype}")
-    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, "flash_attn_fwd_bf16",
-                _bf16_scalar(scale), flash_attention_fwd_bf16)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+    B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
+    out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return out, lse
+    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    lib = _fwd_library()
+    err = lib.flash_attn_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, T, N, D, *strides, _bf16_scalar(scale), 1.0 - rate,
+        thresh, s0, s1, int(batch0), dropout, *launch_args(q))
+    raise_on(err, "flash_attention_fwd_bf16", lib.flash_attn_error_string, B=B, T=T, N=N,
+             D=D)
+    flash_attention_fwd_bf16.launches += 1
+    return out, lse
 
 
-def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, entry, kernel_scale, wrapper):
+def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
@@ -370,12 +477,12 @@ def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads, entry, kernel_scale
         return out, lse
     thresh, s0, s1, dropout = _salt_args(rate, salt)
     lib = _fwd_library()
-    err = getattr(lib, entry)(
+    err = lib.flash_attn_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, T, N, D, sb, st, float(kernel_scale), 1.0 - rate, thresh, s0, s1,
+        lse.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 - rate, thresh, s0, s1,
         int(batch0), dropout, *launch_args(q))
-    raise_on(err, wrapper.__name__, lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
-    wrapper.launches += 1
+    raise_on(err, "flash_attention_fwd", lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
+    flash_attention_fwd.launches += 1
     return out, lse
 
 
@@ -430,16 +537,17 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
     """B3 bwd bf16: bf16 q, k, v, out and ``dout``, f32 lse -> (dq, dk, dv),
     each (B, T, N * D) bf16, rounded where the JAX kernel rounds with bf16
     inputs. Kernel on a CUDA tensor (one count in
-    ``flash_attention_bwd_bf16.launches`` for its four launches: a pre-pass
+    ``flash_attention_bwd_bf16.launches`` for its three launches: a pre-pass
     writing Di and the rounded do / keep, scale * q, scale * k, then the dk/dv
-    and dq kernels; deterministic), plain version on a CPU tensor."""
+    and dq kernels on TMA and ``wgmma``; deterministic), plain version on a
+    CPU tensor."""
     _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd_bf16 takes bf16 q, k, v, got {q.dtype}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
                                        batch0, n_heads=n_heads)
-    B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
+    B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_bf16 needs contiguous out, dout and lse")
     # dq, dk, dv, then the pre-pass's scratch: scale * q, scale * k, do / keep
@@ -451,10 +559,10 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
     thresh, s0, s1, dropout = _salt_args(rate, salt)
     lib = _bwd_library()
     err = lib.flash_attn_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        dos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, N, D, sb, st,
-        _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1, int(batch0), dropout,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(), qs.data_ptr(),
+        ks.data_ptr(), dos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, N, D,
+        *strides, _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1, int(batch0), dropout,
         *launch_args(q))
     raise_on(err, "flash_attention_bwd_bf16", lib.flash_attn_bwd_error_string, B=B, T=T, N=N,
              D=D)

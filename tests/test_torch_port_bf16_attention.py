@@ -17,6 +17,13 @@ elements bit-identical, lse to 1e-6 relative, and dq, dk, dv through
 identical bits). ``FlashAttention`` in bf16 returns bf16 out and gradients;
 ``_check`` refuses mixed dtypes. The CUDA kernels are held against
 these plain versions on the card by chip_smoke.py (phase 12).
+
+Two pieces of the Hopper kernels are pinned here as well: ``flash_fwd_bf16_model``,
+the forward kernel's rounding schedule (an online softmax over 64-key tiles,
+p rounded to bf16 against the running maximum), held against the plain
+version on chip_smoke.py's small shapes to the card's limits (out within 2
+bf16 ulps of its largest element, lse 1e-5 relative); and ``tma_ready``, which
+decides whether TMA reads an operand in place or the wrapper copies it.
 """
 import math
 
@@ -170,3 +177,111 @@ def test_bf16_wrappers_refuse_f32_and_an_f32_cotangent():
     with pytest.raises(ValueError, match="kbias"):
         A.flash_attention_fwd(b, b, b, 0.25, 0.0, (0, 0), torch.zeros(1, 4, dtype=BF16),
                               n_heads=2)
+
+
+# chip_smoke.py's B3_BF16_CASES below T = 1001, and one at rate 0: B, T, N, D,
+# rate, kbias
+MODEL_CASES = [
+    (3, 130, 12, 64, 0.1, True),
+    (2, 37, 12, 64, 0.1, True),
+    (2, 70, 4, 32, 0.2, True),
+    (2, 70, 2, 128, 0.2, False),
+    (2, 130, 2, 64, 0.0, False),
+]
+# chip_smoke.py's limits on the kernel against the plain version
+MODEL_OUT_ULPS, MODEL_LSE_RTOL = 2.0, 1e-5
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_online_softmax_model_meets_the_cards_limits(case):
+    """The forward kernel's rounding schedule differs from the plain
+    version's only where p is rounded against a running maximum: within 2
+    bf16 ulps of out's largest element and 1e-5 of lse."""
+    B, T, N, D, rate, bias = case
+    (q, k, v, _), kb = _inputs(T + D, B, T, N, D, bias)
+    kbias = None if kb is None else torch.from_numpy(kb)
+    args = (D ** -0.5, rate, (0x9E3779B9, 0xDEADBEEF), kbias, 3)
+    tq, tk, tv = _torch(q), _torch(k), _torch(v)
+    out, lse = A.flash_fwd_bf16_model(tq, tk, tv, *args, n_heads=N)
+    ref, ref_lse = A.flash_attention_ref(tq, tk, tv, *args, n_heads=N)
+    assert out.dtype == BF16 and out.shape == ref.shape and lse.shape == ref_lse.shape
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= MODEL_OUT_ULPS * _ulp_of_max(ref.float().numpy())
+    rel = float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1e-30)).max())
+    assert rel <= MODEL_LSE_RTOL
+
+
+def test_online_softmax_model_is_the_plain_version_within_one_tile():
+    """At T <= 64 the running maximum is the final one: the same bits."""
+    B, T, N, D = 2, 64, 2, 32
+    (q, k, v, _), _ = _inputs(3, B, T, N, D, False)
+    args = (D ** -0.5, 0.2, (5, 6))
+    out, lse = A.flash_fwd_bf16_model(_torch(q), _torch(k), _torch(v), *args, n_heads=N)
+    ref, ref_lse = A.flash_attention_ref(_torch(q), _torch(k), _torch(v), *args, n_heads=N)
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=0)
+
+
+def _fused_thirds(B, T, H, extra=0, offset=0):
+    """q, k, v as the thirds of one fused bf16 projection (B, T, 3 H +
+    extra), each starting ``offset`` columns into its third."""
+    qkv = torch.zeros(B, T, 3 * H + extra, dtype=BF16)[..., offset:offset + 3 * H]
+    return qkv.split(H, dim=-1)
+
+
+def _ready(x):
+    return A.tma_ready(x.data_ptr(), x.stride(), x.element_size())
+
+
+def test_tma_ready_takes_aligned_views_of_a_fused_projection():
+    for H in (768, 64, 128):
+        q, k, v = _fused_thirds(2, 37, H)
+        assert all(_ready(x) for x in (q, k, v))
+    assert _ready(torch.zeros(3, 5, 96, dtype=BF16))
+
+
+def test_tma_ready_refuses_unaligned_views_and_odd_row_strides():
+    # a projection one column wider with its first column dropped: every row
+    # starts 2 bytes off a 16-byte boundary
+    q, k, v = _fused_thirds(2, 37, 768, extra=1, offset=1)
+    assert not any(_ready(x) for x in (q, k, v))
+    # row strides of 3 H + 4 bf16 (8 bytes) and 3 H + 1: the base of q is
+    # aligned, the time stride is not a multiple of 16 bytes
+    for extra in (4, 1):
+        q, _, _ = _fused_thirds(2, 37, 768, extra=extra)
+        assert q.data_ptr() % 16 == 0 and not _ready(q)
+    # a batch stride off 16 bytes with aligned rows, a column stride of 2
+    x = torch.zeros(3 * 40 * 64 + 8, dtype=BF16)[:3 * 40 * 64].view(3, 40, 64)
+    assert _ready(x)
+    y = torch.zeros(3, 41, 64, dtype=BF16)[:, :40]
+    assert _ready(y)
+    z = torch.zeros(3, 40 * 64 + 4, dtype=BF16)[:, :40 * 64].view(3, 40, 64)
+    assert not _ready(z)
+    assert not _ready(torch.zeros(3, 40, 128, dtype=BF16)[..., ::2])
+    # the pure function of address, strides and item size
+    assert A.tma_ready(1024, (3 * 40 * 64, 64, 1), 2)
+    assert not A.tma_ready(1026, (3 * 40 * 64, 64, 1), 2)
+    assert not A.tma_ready(1024, (3 * 40 * 64, 60, 1), 2)
+    assert not A.tma_ready(1024, (40 * 64 + 4, 64, 1), 2)
+
+
+def test_bf16_layout_copies_only_what_tma_cannot_read():
+    q, k, _ = _fused_thirds(2, 37, 64)
+    _, _, v = _fused_thirds(2, 37, 64, extra=1, offset=1)
+    B, T, N, D, ops, strides, kb = A._bf16_layout(q, k, v, None, 2)
+    assert (B, T, N, D) == (2, 37, 2, 32)
+    assert ops[0] is q and ops[1] is k and ops[2] is not v
+    assert ops[2].is_contiguous() and torch.equal(ops[2], v) and _ready(ops[2])
+    assert strides == [37 * 192, 192, 37 * 192, 192, 37 * 64, 64]
+    assert kb is None  # no bias goes to the kernels as a null pointer
+    bias = torch.zeros(37, 2).t()
+    assert A._bf16_layout(q, k, v, bias, 2)[-1].is_contiguous()
+
+
+def test_bf16_scalar_rounds_as_torch_does():
+    """The kernels' scale: f32, then bf16 to nearest with ties to even, on
+    the bits (ties included) as torch's conversion rounds it."""
+    ties = [float(torch.tensor([(i << 16) | 0x8000], dtype=torch.int32).view(torch.float32))
+            for i in range(0x3E00, 0x3E40)]
+    for x in [0.125, 64 ** -0.5, 32 ** -0.5, 128 ** -0.5, 1 / 3, 0.1, 1e-3, 7.77] + ties:
+        assert A._bf16_scalar(x) == float(torch.tensor(x, dtype=torch.float32).to(BF16))
