@@ -157,6 +157,26 @@ Phases, one line each:
      10 s Mockingjay and flagship train steps and the B=1 10 s
      enhance in bf16 beside f32 with profiler breakdowns that split the GEMMs
      by type.
+ 13. the one-direction LSTM in bf16 (the JAX package's lax.scan cell in bf16):
+     the bf16-h forms of B1 (also from a carried state), B2 fwd and B2 bwd and
+     the step-by-step bf16 dW_hh^T kernel against their plain versions (one
+     direction, T = 1001, H = 256 at B = 1 and 6, and H = 36 on the grid
+     route; hs by maximum, RMS and share within 1e-4, dW_hh^T by its share
+     within one bf16 unit, each beside the f32 form or an f32 sum rounded
+     once that the limits must tell apart; the backward twice for identical
+     bits); config/vcb.yaml with --compute_dtype bf16 through ``Runner`` (2
+     steps and an eval; 3 B2 fwd, 3 B2 bwd and 3 dW_hh^T launches a step, all
+     in the bf16-h form); one B=6 10 s train step of its head card against
+     CPU under the window, each of its w_hh gradients too; a
+     one-direction bf16 checkpoint served at B=1, streamed (3 B1 launches a
+     48-frame chunk) and served over HTTP (``/enhance``, ``/stream`` bit for
+     bit the card's streamer), card against CPU under the window; the
+     scoring of config/active.yaml's head in bf16 under both engines and of
+     the vcb head (a backward a row), card against CPU under the window with
+     the same ``match > 0`` set; and times: each form beside its f32 form,
+     its plain version and its bound, B2 bwd less its dW_hh^T kernel, the
+     vcb train step, the B=1 enhance and the stream chunk in bf16 beside
+     f32.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -578,8 +598,9 @@ def ckpt_files(directory):
 def reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
-        if hasattr(fn, "carried"):
-            fn.carried = 0
+        for count in ("carried", "h_bf16"):
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
         for route in getattr(fn, "by_route", {}):
             fn.by_route[route] = 0
 
@@ -3743,6 +3764,602 @@ def bf16_phase(torch, A, counted, card, tmp):
             "served": served, "times": times}
 
 
+# the one-direction LSTM in bf16 (phase 13): the bf16-h forms of B1, B2 fwd
+# and B2 bwd (``h_bf16=True``: h rounded to bf16 for the step product, the
+# JAX package's lax.scan cell in bf16) and the bf16 dW_hh^T kernel against
+# their plain versions; config/vcb.yaml's one-direction Residual trained,
+# served, streamed and scored in bf16, card against CPU; and times.
+# The forms against their plain versions on the same inputs. A rounding of h
+# to bf16 (2^-9 of |h|) flips wherever the kernel's f32 sum and the plain
+# version's fall on the two sides of a rounding boundary, and each flip
+# carries into the later steps, so a maximum alone is the wrong statistic:
+# two summation orders of the plain version on the CPU (B=6, T=1001, H=256)
+# differ by 1.2e-4 at most in hs and 1.2e-6 RMS, with 99.999% of the
+# elements within 1e-4, while the f32 form (h not rounded) lies 3.9e-5 RMS
+# and 97.3% within 1e-4 from the bf16-h form. hs (cs relative to its largest
+# |value|) is held to RMS, share within 1e-4 and maximum:
+BF16H_RMS, BF16H_SHARE, BF16H_MAX = 1e-5, 0.999, 1e-3
+# dxw relative to its largest |value|: orders differ by 6.9e-7 RMS and 2.9e-4
+# at most on the CPU; the f32 backward on the same residuals is 9.8e-6 RMS away
+BF16H_DXW_RMS, BF16H_DXW_MAX = 3e-6, 1e-3
+# dW_hh^T in bf16 units in the last place: the backward against the plain one
+# on the same residuals within one unit on this share (the CPU's two orders
+# 99.6%; an f32 sum rounded once 15.7%), the dW_hh^T kernel alone on the same
+# (hs, dxw) on the second (the CPU 99.989%)
+BF16H_DW_SHARE, BF16H_DW_KERNEL_SHARE = 0.99, 0.999
+# the vcb head's w_hh gradients, card against CPU through a whole train step,
+# are each held to the window (its ratio bound is what tells a bf16 sum taken
+# step by step from an f32 sum rounded once: on the CPU at (B, T, H) = (2,
+# 400, 64) JAX's reverse scan lies 10x further from f32 than the once-rounded
+# sum), not to a share within one bf16 unit: upstream of dW_hh^T the two
+# devices differ by f32 summation orders in every da (cuFFT against
+# pocketfft, the products, three layers), which flip step roundings of most
+# elements at some step, and a step-by-step bf16 sum keeps each flip; read
+# 0.25-0.47 within one unit on an NVIDIA H100 80GB HBM3 at 700 W, against 1.0
+# for the kernel alone on the same inputs (phase 13 (a)). The share is
+# printed beside the window.
+# (B, T, H) of the one-direction checks: the served and streamed B=1 and the
+# train step's B=6 at the vcb width, and a hidden size of the grid route
+BF16H_SHAPES = ((1, 1001, 256), (6, 1001, 256), (3, 57, 36))
+# config/vcb.yaml cut to a few steps for phase 13's bf16 run: only the step
+# counts and the corpus paths change
+VCB_BF16_STEPS = {"total_step": 2, "log_step": 1, "eval_step": 2, "save_step": 2,
+                  "media_step": 100}
+# the scoring of phase 13 (c): rows of 10 s (the active.yaml head) and 4 s
+# (the vcb head, one backward a row)
+BF16H_SCORE_ROWS, BF16H_LOOP_ROWS = 6, 3
+
+
+def ulp_share(torch, a, b):
+    """(share within one bf16 unit in the last place, share identical) of two
+    tensors of bf16 values held in f32; raises if either holds another
+    value."""
+    def ordered(x):
+        if not torch.equal(x.to(torch.bfloat16).float(), x):
+            raise AssertionError("a dW_hh^T holds a value that is not a bf16 number")
+        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    u = (ordered(a) - ordered(b)).abs()
+    return float((u <= 1).double().mean()), float((u == 0).double().mean())
+
+
+def spread(torch, out, ref, scale=1.0):
+    """(max, RMS, share within 1e-4) of |out - ref| / scale."""
+    d = ((out - ref).abs() / scale).double()
+    return float(d.max()), float(d.pow(2).mean().sqrt()), float((d <= 1e-4).double().mean())
+
+
+def worse(a, b):
+    """The worse of two ``spread`` readings, statistic by statistic."""
+    return max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2])
+
+
+def bf16_h_bound(B, T, H, form):
+    """The bf16-h forms of one direction. ``form`` "b1" / "fc": a bf16 h times
+    a bf16 W_hh^T a step (one bf16 tensor-core pass) with xw in and hs (and
+    cs) out; "bwd": the gates recomputed from bf16(h) (bf16 pass) and the
+    carried dh product of an f32 da and the bf16 W_hh (three TF32 passes),
+    with xw, hs, cs, dhs and W_hh^T in and dxw out; "dw": 2 B (T - 1) H 4H
+    operations of f32 sums rounded every step, on the CUDA cores, with hs and
+    da in and dW_hh^T out."""
+    product = 2 * B * T * H * 4 * H
+    if form == "dw":
+        return bound(2 * B * (T - 1) * H * 4 * H, 4 * (B * T * 5 * H + 4 * H * H))
+    if form == "bwd":
+        ops_ms = (product / PEAK_BF16 + 3 * product / PEAK_TF32) * 1e3
+        nbytes = 4 * (B * T * (4 * H + 3 * H) + 4 * H * H + B * T * 4 * H)
+        by_bytes = nbytes / PEAK_BYTES * 1e3
+        return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes, "bytes")
+    nbytes = 4 * (B * T * 4 * H + 4 * H * H + B * T * H * (2 if form == "fc" else 1))
+    return bound(product, nbytes, PEAK_BF16)
+
+
+def bf16_h_checks(torch, L):
+    """Phase 13 (a): the bf16-h forms of B1 (also from a carried state), B2
+    fwd and B2 bwd, and the dW_hh^T kernel, against their plain versions at
+    ``BF16H_SHAPES`` (one direction, W_hh^T holding bf16 values as
+    ``LSTMStack`` hands it), B2 bwd and the dW_hh^T kernel twice for identical
+    bits; the f32 form beside them, which the limits must tell apart at T =
+    1001, and an f32 sum of dW_hh^T rounded once, which must fail its share.
+    Returns the worst readings."""
+    worst = {"b1": 0.0, "fc": 0.0, "bwd": 0.0, "dw": 1.0, "dw_kernel": 1.0}
+    for B, T, H in BF16H_SHAPES:
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 13 + B, ndir=1)
+        w_hh_t = w_hh_t.to(torch.bfloat16).float()
+        g = torch.Generator().manual_seed(SEED + 13)
+        h0 = (2 * torch.rand(1, B, H, generator=g) - 1).cuda()
+        c0 = torch.randn(1, B, H, generator=g).cuda()
+        hs1 = L.lstm_bidir_tm(xw, w_hh_t, h_bf16=True)
+        hs_s, (hT, cT) = L.lstm_bidir_tm(xw, w_hh_t, state=(h0, c0), return_state=True,
+                                         h_bf16=True)
+        hs2, cs2 = L.lstm_bidir_tm_fc(xw, w_hh_t, h_bf16=True)
+        ref_hs, ref_cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16=True)
+        ref_s, (_, ref_cT) = L.lstm_bidir_tm_ref(xw, w_hh_t, state=(h0, c0), return_state=True,
+                                                 h_bf16=True)
+        f32_hs = L.lstm_bidir_tm_ref(xw, w_hh_t)
+        dxw, dw = L.lstm_bidir_tm_bwd(xw, w_hh_t, ref_hs, ref_cs, dhs, h_bf16=True)
+        again = L.lstm_bidir_tm_bwd(xw, w_hh_t, ref_hs, ref_cs, dhs, h_bf16=True)
+        ref_dxw, ref_dw = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, ref_hs, ref_cs, dhs, h_bf16=True)
+        f32_dxw, f32_dw = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, ref_hs, ref_cs, dhs)
+        kdw = L.lstm_bidir_tm_dw_bf16(ref_hs, ref_dxw)
+        kdw2 = L.lstm_bidir_tm_dw_bf16(ref_hs, ref_dxw)
+        torch.cuda.synchronize()
+        twice = (torch.equal(dxw, again[0]) and torch.equal(dw, again[1])
+                 and torch.equal(kdw, kdw2))
+        b1 = spread(torch, hs1, ref_hs)
+        st = worse(spread(torch, hs_s, ref_s),
+                   spread(torch, cT, ref_cT, float(ref_cT.abs().max())))
+        fc = spread(torch, hs2, ref_hs)
+        cs = spread(torch, cs2, ref_cs, float(ref_cs.abs().max()))
+        f32 = spread(torch, f32_hs, ref_hs)
+        dx = spread(torch, dxw, ref_dxw, float(ref_dxw.abs().max()))
+        f32_dx = spread(torch, f32_dxw, ref_dxw, float(ref_dxw.abs().max()))
+        dw_share = ulp_share(torch, dw, ref_dw)
+        kernel_share = ulp_share(torch, kdw, ref_dw)
+        once_share = ulp_share(torch, f32_dw.to(torch.bfloat16).float(), ref_dw)
+        route = f"routes ({L.fwd_route(H)!r}, {L.bwd_route(H)!r})"
+        print(f"[bf16h] ndir=1 B={B} T={T} H={H} {route}, (max, RMS, share within 1e-4) "
+              f"against the plain bf16-h versions: B1 hs {b1[0]:.2e} / {b1[1]:.2e} / "
+              f"{b1[2]:.5f}, B1 from a carried state (hs, cT) {st[0]:.2e} / {st[1]:.2e} / "
+              f"{st[2]:.5f}, B2 fwd hs {fc[0]:.2e} / {fc[1]:.2e} / {fc[2]:.5f}, cs / max "
+              f"{cs[0]:.2e} / {cs[1]:.2e} / {cs[2]:.5f} (limits {BF16H_MAX:.0e} / "
+              f"{BF16H_RMS:.0e} / {BF16H_SHARE}; the f32 form's hs {f32[0]:.2e} / {f32[1]:.2e} / "
+              f"{f32[2]:.5f}); B2 bwd dxw / max {dx[0]:.2e} / {dx[1]:.2e} (limits "
+              f"{BF16H_DXW_MAX:.0e} / {BF16H_DXW_RMS:.0e}; the f32 backward {f32_dx[0]:.2e} / "
+              f"{f32_dx[1]:.2e}), dW_hh^T within one bf16 unit {dw_share[0]:.5f} (identical "
+              f"{dw_share[1]:.5f}, limit {BF16H_DW_SHARE}); the dW_hh^T kernel alone "
+              f"{kernel_share[0]:.5f} (identical {kernel_share[1]:.5f}, limit "
+              f"{BF16H_DW_KERNEL_SHARE}); an f32 sum rounded once {once_share[0]:.5f}; twice: "
+              f"identical bits {twice}", flush=True)
+        for name, (mx, rms, share) in (("B1", b1), ("B1 carried", st), ("B2 fwd hs", fc),
+                                       ("B2 fwd cs", cs)):
+            if not (mx <= BF16H_MAX and rms <= BF16H_RMS and share >= BF16H_SHARE):
+                raise AssertionError(f"{name} bf16-h B={B} H={H}: {mx}, {rms}, {share}")
+        if T == 1001 and not (f32[1] > BF16H_RMS or f32[2] < BF16H_SHARE):
+            raise AssertionError(f"the limits do not tell the f32 form apart at B={B} H={H}: "
+                                 f"{f32}")
+        if not (dx[0] <= BF16H_DXW_MAX and dx[1] <= BF16H_DXW_RMS):
+            raise AssertionError(f"B2 bwd bf16-h B={B} H={H}: dxw {dx}")
+        if not (dw_share[0] >= BF16H_DW_SHARE and kernel_share[0] >= BF16H_DW_KERNEL_SHARE
+                and once_share[0] < BF16H_DW_SHARE and twice):
+            raise AssertionError(f"dW_hh^T bf16 B={B} H={H}: {dw_share}, kernel "
+                                 f"{kernel_share}, once-rounded {once_share}, twice {twice}")
+        worst["b1"] = max(worst["b1"], b1[0], st[0])
+        worst["fc"] = max(worst["fc"], fc[0])
+        worst["bwd"] = max(worst["bwd"], float((dxw - ref_dxw).abs().max()))
+        worst["dw"] = min(worst["dw"], dw_share[0])
+        worst["dw_kernel"] = min(worst["dw_kernel"], kernel_share[0])
+        worst["dw_kernel_abs"] = max(worst.get("dw_kernel_abs", 0.0),
+                                     float((kdw - ref_dw).abs().max()))
+    return worst
+
+
+def bf16_h_times(torch, L, card):
+    """Phase 13 (e): each bf16-h form beside its f32 form and its plain
+    version, one direction at T=1001, H=256: B1 at B=1, B2 fwd, B2 bwd and the
+    dW_hh^T kernel at B=6 (and B=1), kernel and f32 form in turns; B2 bwd's
+    first two phases as its time less the dW_hh^T kernel's."""
+    T, H, times = 1001, 256, {}
+    for B in (1, 6):
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 31 + B, ndir=1)
+        w_hh_t = w_hh_t.to(torch.bfloat16).float()
+        hs, cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16=True)
+        dxw, _ = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16=True)
+        fns = {
+            "b1": (lambda: L.lstm_bidir_tm(xw, w_hh_t, h_bf16=True),
+                   lambda: L.lstm_bidir_tm(xw, w_hh_t),
+                   lambda: L.lstm_bidir_tm_ref(xw, w_hh_t, h_bf16=True)),
+            "fc": (lambda: L.lstm_bidir_tm_fc(xw, w_hh_t, h_bf16=True),
+                   lambda: L.lstm_bidir_tm_fc(xw, w_hh_t),
+                   lambda: L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16=True)),
+            "bwd": (lambda: L.lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs, h_bf16=True),
+                    lambda: L.lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs),
+                    lambda: L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16=True)),
+            "dw": (lambda: L.lstm_bidir_tm_dw_bf16(hs, dxw), None,
+                   lambda: L.lstm_bidir_tm_dw_bf16_ref(hs, dxw)),
+        }
+        for name, (kern, f32, plain) in fns.items():
+            a = cuda_ms(torch, kern, 10)
+            b = cuda_ms(torch, f32, 10) if f32 else None
+            c = cuda_ms(torch, plain, 1)
+            b2 = cuda_ms(torch, f32, 10) if f32 else None
+            a2 = cuda_ms(torch, kern, 10)
+            times[(name, B)] = (min(a, a2), None if f32 is None else min(b, b2), c)
+            print(f"[time] {name} bf16-h ndir=1 B={B} T={T} H={H}: kernel {a:.4f} / {a2:.4f} "
+                  f"ms" + ("" if f32 is None else f", f32 form {b:.4f} / {b2:.4f} ms")
+                  + f", plain {c:.3f} ms; bound {bf16_h_bound(B, T, H, name)[0]:.4f} ms by "
+                  f"{bf16_h_bound(B, T, H, name)[1]} | {card}", flush=True)
+        bwd, dw = times[("bwd", B)][0], times[("dw", B)][0]
+        print(f"[time] B2 bwd bf16-h ndir=1 B={B} T={T} H={H}: its first two phases "
+              f"(gates, the dh chain) {bwd - dw:.4f} ms, the wrapper's time less the dW_hh^T "
+              f"kernel's ({dw / bwd:.1%} of the call); the f32 form {times[('bwd', B)][1]:.4f} "
+              f"ms with its dW_hh^T product | {card}", flush=True)
+        del xw, w_hh_t, dhs, hs, cs, dxw
+    return times
+
+
+def vcb_bf16_run(torch, corpus, tmp, counted):
+    """Phase 13 (b): config/vcb.yaml (Residual 3 x 256, one direction) with
+    --compute_dtype bf16 through ``build_runner`` / ``Runner``, its corpus
+    paths and step counts changed: the launches of B1, B2 fwd, B2 bwd, the
+    dW_hh^T kernel, B4 and B5 and of the bf16-h forms among them. Returns the
+    runner and its run directory."""
+    import yaml
+
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+    )
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    cfg_path = os.path.join(tmp, "vcb_bf16.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(shipped_config(corpus, "vcb", VCB_BF16_STEPS, 12), f)
+    args, config = get_downstream_args([
+        "--config", cfg_path, "--name", "vcb_bf16", "--expdir", os.path.join(tmp, "exp"),
+        "--downstream", "Residual", "--objective", "SISDR", "--from_rawfeature",
+        "--compute_dtype", "bf16", "--dev_num", str(VCB_EVAL_BATCH), "--n_jobs", "4",
+        "--seed", str(SEED), "--device", "cuda"])
+    random.seed(SEED)
+    np.random.seed(SEED)
+    runner = build_runner(args, config)
+    runner.set_model()
+    steps, evals = [], []
+    train_step, eval_step = runner.train_step, runner.builder.eval_step
+
+    def step(state, wavs, lengths):
+        state, stats = train_step(state, wavs, lengths)
+        steps.append((tuple(wavs.shape), float(stats["loss"])))
+        return state, stats
+
+    def eval_batch(wavs, lengths, **kw):
+        evals.append(tuple(wavs.shape))
+        return eval_step(wavs, lengths, **kw)
+
+    runner.train_step, runner.builder.eval_step = step, eval_batch
+    # -- the main path of the vcb head in bf16 through the Runner --
+    reset_counts(counted)
+    runner.train()
+    counts = [fn.launches for fn in counted]
+    forms = [L.lstm_bidir_tm.h_bf16, L.lstm_bidir_tm_fc.h_bf16, L.lstm_bidir_tm_bwd.h_bf16]
+    # ---------------------------------------------------------------
+    runner.train_step, runner.builder.eval_step = train_step, eval_step
+    n_steps, n_evals = len(steps), len(evals)
+    want = [3 * n_evals, 3 * n_steps, 3 * n_steps, 3 * n_steps, n_steps + n_evals, n_evals]
+    model = runner.downstream_model
+    print(f"[bf16h] config/vcb.yaml (Residual 3 x 256, one direction, linear 201-d; corpus "
+          f"paths and step counts {VCB_BF16_STEPS} changed) with --compute_dtype bf16 through "
+          f"Runner on cuda: {n_steps} steps of {sorted({sh for sh, _ in steps})}, losses "
+          f"{', '.join(f'{x:.4f}' for _, x in steps)}, {n_evals} eval batches; launches (B1, "
+          f"B2 fwd, B2 bwd, dW_hh^T bf16, B4, B5) {counts} (want {want}), of them in the bf16-h "
+          f"form (B1, B2 fwd, B2 bwd) {forms}", flush=True)
+    if (counts != want or forms != want[:3] or n_steps != VCB_BF16_STEPS["total_step"]
+            or not all(math.isfinite(x) for _, x in steps)
+            or model.compute_dtype != torch.bfloat16 or model.lstm.bidirectional):
+        raise AssertionError(f"vcb bf16 run: launches {counts}, forms {forms}, want {want}; "
+                             f"steps {steps}")
+    return runner, os.path.join(tmp, "exp", "vcb_bf16"), counts
+
+
+def with_dtype(model, dtype):
+    """``model`` (a head with an LSTMStack) computing in ``dtype``, in place."""
+    model.compute_dtype = model.lstm.compute_dtype = dtype
+    return model
+
+
+def vcb_step_window(torch, runner, card):
+    """Phase 13 (b): one train step of the vcb head (B=6 rows of 10 s) on the
+    card against the CPU, bf16 and f32 from the same weights: the window on
+    the loss and the whole gradient, every w_hh gradient within one bf16 unit
+    the window too (the share within one bf16 unit of the CPU's printed
+    beside it), and the launches of one train step; then the step's time in
+    bf16 beside f32."""
+    import copy
+    import dataclasses
+
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    rng = np.random.default_rng(SEED + 13)
+    clean = np.stack([request_audio(10.0, 90 + s) for s in range(6)])
+    noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+    wavs_np = np.stack([clean + noise, clean, noise], axis=1)
+    base = copy.deepcopy(runner.downstream_model).cpu()
+    sides, builders = {}, {}
+    for device in ("cuda", "cpu"):
+        for dtype in (torch.bfloat16, torch.float32):
+            model = with_dtype(copy.deepcopy(base), dtype).to(device)
+            builder = dataclasses.replace(runner.builder, model=model)
+            builders[(device, dtype)] = builder
+            wavs = torch.from_numpy(wavs_np).to(device)
+            lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long, device=device)
+            ctx = make_context(builder.preprocessor, wavs, lengths, builder.channel_inp,
+                               builder.channel_tar)
+            loss, _ = builder.loss_fn(ctx)
+            names = [n for n, _ in model.named_parameters()]
+            g = torch.autograd.grad(loss, list(model.parameters()))
+            sides[(device, dtype)] = (loss.detach().reshape(1).double().cpu(),
+                                      {n: x.detach().cpu() for n, x in zip(names, g)})
+    order = [(d, t) for t in (torch.bfloat16, torch.float32) for d in ("cuda", "cpu")]
+    order = [order[0], order[2], order[1], order[3]]  # card bf16, card f32, CPU bf16, CPU f32
+    loss_w = window(torch, *(sides[k][0] for k in order), "vcb bf16 step loss")
+    grad_w = window(torch, *(torch.cat([x.reshape(-1) for x in sides[k][1].values()])
+                             for k in order), "vcb bf16 step gradient")
+    w_hh = [n for n in sides[order[0]][1] if n.endswith(".w_hh")]
+    windows = {n: window(torch, *(sides[k][1][n] for k in order), f"vcb bf16 step d{n}")
+               for n in w_hh}
+    shares = {n: ulp_share(torch, sides[order[0]][1][n], sides[order[2]][1][n])[0]
+              for n in w_hh}
+    # the launches of one train step of the bf16 head on the card
+    builder = builders[("cuda", torch.bfloat16)]
+    state = builder.init_state()
+    wavs = torch.from_numpy(wavs_np).cuda()
+    lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long).cuda()
+    counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, L.lstm_bidir_tm_dw_bf16)
+    # -- the main path: one train step of the one-direction bf16 head --
+    reset_counts(counted)
+    state, stats = builder.train_step(state, wavs, lengths)
+    counts = [fn.launches for fn in counted]
+    forms = [L.lstm_bidir_tm_fc.h_bf16, L.lstm_bidir_tm_bwd.h_bf16]
+    # -------------------------------------------------------------------
+    print(f"[bf16h] vcb head one train step (B=6, 10 s) card against CPU, bf16 and f32: loss "
+          f"{float(sides[order[0]][0]):.6f} (card bf16) / {float(sides[order[2]][0]):.6f} "
+          f"(CPU bf16) / {float(sides[order[3]][0]):.6f} (CPU f32); window (d(card bf16, CPU "
+          f"bf16), d(card bf16, card f32)) / d(CPU bf16, CPU f32): loss ({loss_w[0]:.3f}, "
+          f"{loss_w[1]:.3f}), gradient ({grad_w[0]:.3f}, {grad_w[1]:.3f}) (limits "
+          f"{WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}); each w_hh gradient's window (and "
+          f"share within one bf16 unit of the CPU's) "
+          + ", ".join(f"{n} ({windows[n][0]:.3f}, {windows[n][1]:.3f}; {shares[n]:.4f})"
+                      for n in w_hh)
+          + f"; launches of a train step (B1, B2 fwd, B2 bwd, dW_hh^T bf16) {counts}, bf16-h "
+          f"forms (B2 fwd, B2 bwd) {forms}", flush=True)
+    if counts != [0, 3, 3, 3] or forms != [3, 3] or not math.isfinite(float(stats["loss"])):
+        raise AssertionError(f"vcb bf16 train step: launches {counts}, forms {forms}")
+    # the step's time, bf16 beside f32, in turns
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+        b = builders[("cuda", dtype)]
+        box = [b.init_state()]
+
+        def one(b=b, box=box):
+            box[0], _ = b.train_step(box[0], wavs, lengths)
+
+        ms = synced_ms(torch, one, runs=10)
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        times[key] = min(times.get(key, math.inf), statistics.median(ms))
+        print(f"[time] vcb head (one-direction Residual 3 x 256) train step B=6 10 s, "
+              f"compute_dtype {key}: median {statistics.median(ms):.3f} ms of 10 synchronized "
+              f"steps (min {min(ms):.3f}, max {max(ms):.3f}) | {card}", flush=True)
+    return {"loss": loss_w, "grad": grad_w, "w_hh_share": min(shares.values()),
+            "w_hh_window": (max(w[0] for w in windows.values()),
+                            min(w[1] for w in windows.values()),
+                            max(w[1] for w in windows.values())),
+            "step_ms": times, "step_launches": counts}
+
+
+def one_dir_bf16_serving(torch, counted, dsp_kernels, card, tmp):
+    """Phase 13 (b): a one-direction bf16 checkpoint (the flagship's 120-d
+    log-mel features into vcb's Residual 3 x 256, Paras compute_dtype bf16)
+    served at B=1 on the card and the CPU under the window; its
+    ``StatefulStreamer`` (48-frame chunks, 10 s in ragged pushes) on the card
+    against the CPU under the window, with 3 B1 launches in the bf16-h form a
+    chunk; ``/enhance`` and ``/stream`` of ``serve.make_server`` on it, the
+    stream bit for bit the card's streamer; and times: the B=1 10 s enhance
+    and the chunk, bf16 beside f32."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import (
+        build,
+        flagship_settings,
+        make_enhance,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.ops.streaming import StatefulStreamer
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer, make_server
+    from speech_enhancement_by_s3prl_tpu_torch.tools import stream_client
+    from speech_enhancement_by_s3prl_tpu_torch.tools.serve_load import wav_body
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    b1 = L.lstm_bidir_tm
+    stft_fused, decode_ola = dsp_kernels
+    out = {}
+    _, model = build(bidirectional=False, compute_dtype="bf16", device="cpu",
+                     generator=torch.Generator().manual_seed(SEED + 13))
+    config, paras = flagship_settings(bidirectional=False, compute_dtype="bf16")
+    ckpt_dir = os.path.join(tmp, "one_dir_bf16")
+    save_checkpoint(ckpt_dir, 0, model, None, config, paras)
+    out["served"] = served_window(torch, ckpt_dir, tmp, "one-direction bf16 head (B=1 10 s)",
+                                  [request_audio(10.0, 77)], counted, [3, 0, 0, 0, 1, 1])
+    out["served_forms"] = b1.h_bf16
+    if b1.h_bf16 != 3:
+        raise AssertionError(f"served one-direction bf16 head: {b1.h_bf16} bf16-h B1 launches")
+
+    # the streamer, card against CPU, bf16 and f32
+    f32_dir = ckpt_dir + "_as_f32"  # served_window's copy with Paras f32
+    n = int(STREAM_SECONDS * SR)
+    wav = speech_like(n, 51)
+    sizes = np.random.default_rng(SEED + 13).integers(700, 9000, size=400)
+    streams, chunk_ms = {}, {}
+    for dtype, path in (("bf16", ckpt_dir), ("f32", f32_dir)):
+        for device in ("cuda", "cpu"):
+            ctx = build_enhancer(path, device=device).stream_ctx
+            streamer = StatefulStreamer(ctx["model"], ctx["preprocessor"],
+                                        frames_per_chunk=STREAM_FRAMES)
+            if device == "cuda":
+                drive_stream(streamer.clone(), wav, sizes)  # warm
+                streamer = streamer.clone()
+                step_ms, model_step = [], streamer._model_step
+
+                def timed(*a, model_step=model_step, step_ms=step_ms):
+                    t0 = time.perf_counter()
+                    res = model_step(*a)  # ends in a copy to the host: synchronous
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    return res
+
+                streamer._model_step = timed
+                # -- the main path of the bf16 streamer (f32 beside it) --
+                reset_counts(counted)
+                streams[(device, dtype)] = drive_stream(streamer, wav, sizes)
+                counts = [b1.launches, b1.carried, b1.h_bf16, stft_fused.launches,
+                          decode_ola.launches]
+                # --------------------------------------------------------
+                chunk_ms[dtype] = statistics.median(step_ms)
+                chunks = len(step_ms)
+                bf16_forms = 3 * chunks if dtype == "bf16" else 0
+                if counts != [3 * chunks, 3 * chunks, bf16_forms, 0, 0]:
+                    raise AssertionError(f"{dtype} streamer: launches {counts}, {chunks} chunks")
+                if dtype == "bf16":
+                    out["stream_counts"], out["stream_chunks"] = counts, chunks
+            else:
+                streams[(device, dtype)] = drive_stream(streamer, wav, sizes)
+    order = (("cuda", "bf16"), ("cuda", "f32"), ("cpu", "bf16"), ("cpu", "f32"))
+    out["stream"] = window(torch, *(streams[k] for k in order), "bf16 streamer")
+    gpu = streams[("cuda", "bf16")]
+    vs_cpu = float(np.abs(gpu - streams[("cpu", "bf16")]).max()
+                   / np.sqrt(np.mean(streams[("cpu", "bf16")] ** 2)))
+    out["chunk_ms"] = chunk_ms
+    print(f"[bf16h] StatefulStreamer on the one-direction bf16 head (cuda, {STREAM_FRAMES}-frame "
+          f"chunks, {STREAM_SECONDS:.0f} s in ragged pushes): {len(gpu)} samples in "
+          f"{out['stream_chunks']} chunks, launches (B1, B1 with state, B1 bf16-h, B4, B5) "
+          f"{out['stream_counts']}; window against the CPU ({out['stream'][0]:.3f}, "
+          f"{out['stream'][1]:.3f}) (limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}), max "
+          f"|card - CPU| / RMS {vs_cpu:.2e}; model step median {chunk_ms['bf16']:.3f} ms a chunk "
+          f"in bf16, {chunk_ms['f32']:.3f} in f32 | {card}", flush=True)
+    if len(gpu) != (n // 160) * 160 or not np.isfinite(gpu).all():
+        raise AssertionError(f"bf16 streamer: {len(gpu)} samples")
+
+    # the HTTP server on the bf16 checkpoint: /enhance and /stream
+    server = make_server(["--ckpt", ckpt_dir, "--port", "0"])
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        port = server.server_address[1]
+        status, reply = http_request(port, "POST", "/enhance", wav_body(speech_like(4 * SR, 52)))
+        url = f"http://127.0.0.1:{port}/stream"
+        # -- the main path of /stream on the bf16 checkpoint --
+        reset_counts(counted)
+        st, streamed, _ = stream_client.stream(url, wav, SR, chunk_ms=100.0)
+        counts = [b1.launches, b1.h_bf16]
+        # -----------------------------------------------------
+        same = st == 200 and np.array_equal(streamed, gpu)
+        print(f"[bf16h] serve.make_server on the one-direction bf16 checkpoint: /enhance 4 s "
+              f"{status} ({len(reply)} bytes), /stream {st}: {len(streamed)} samples, identical "
+              f"bits to the card streamer {same}; launches (B1, B1 bf16-h) {counts}", flush=True)
+        if status != 200 or not same or counts != [3 * out["stream_chunks"]] * 2:
+            raise AssertionError(f"bf16 server: /enhance {status}, /stream {st} same {same}, "
+                                 f"launches {counts}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # the B=1 10 s enhance, bf16 beside f32, in turns
+    wav3 = torch.from_numpy(np.stack([request_audio(10.0, s) for s in range(3)]))[None].cuda()
+    one = torch.tensor([wav3.shape[-1]]).cuda()
+    enh_ms = {}
+    for dtype in ("f32", "bf16", "bf16", "f32"):
+        pre, model = build(bidirectional=False, compute_dtype=dtype, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED + 13))
+        enhance = make_enhance(pre, model)
+        ms = synced_ms(torch, lambda: enhance(wav3, one), runs=20)
+        enh_ms[dtype] = min(enh_ms.get(dtype, math.inf), statistics.median(ms))
+        print(f"[time] enhance B=1 10 s, one-direction 3 x 256 head, compute_dtype {dtype}: "
+              f"median {statistics.median(ms):.3f} ms of 20 (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}) | {card}", flush=True)
+    out["enhance_ms"] = enh_ms
+    return out
+
+
+def bf16_scoring(torch, runner, card):
+    """Phase 13 (c): per-sample scoring of bf16 heads card against CPU under
+    the window (bf16 and f32 from the same weights) and with the same ``match
+    > 0`` set: config/active.yaml's head (LSTM 3 x 256, bidirectional, L1, the
+    flagship's 120-d log-mel) at ``BF16H_SCORE_ROWS`` rows of 10 s under both
+    engines, and the vcb head (one direction, one backward a row through the
+    bf16-h forms) at ``BF16H_LOOP_ROWS`` rows of 4 s."""
+    import copy
+    import dataclasses
+
+    from speech_enhancement_by_s3prl_tpu_torch.active import sampler as S
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build
+    from speech_enhancement_by_s3prl_tpu_torch.models.heads import build_head
+    from speech_enhancement_by_s3prl_tpu_torch.objectives import build_objective
+    from speech_enhancement_by_s3prl_tpu_torch.runner.optim import build_optimizer
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import StepBuilder
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    pre, _ = build(device="cpu")
+    head = build_head("LSTM", input_size=pre.feat_dims()[1], output_size=201, hidden_size=256,
+                      num_layers=3, bidirectional=True, compute_dtype="bf16",
+                      generator=torch.Generator().manual_seed(SEED + 14))
+    active = StepBuilder(preprocessor=pre, model=head, objective=build_objective("L1"),
+                         optimizer=build_optimizer("Adam", 1e-4, 0.07, 100), from_rawfeature=True)
+    out = {}
+    for name, builder, rows, seconds, impls in (
+            ("active.yaml head", active, BF16H_SCORE_ROWS, 10.0, ("vmap", "capture")),
+            ("vcb head", runner.builder, BF16H_LOOP_ROWS, 4.0, ("vmap",))):
+        rng = np.random.default_rng(SEED + rows)
+        clean = np.stack([request_audio(seconds, 120 + s) for s in range(rows)])
+        noise = 0.05 * rng.standard_normal(clean.shape).astype(np.float32)
+        wavs = np.stack([clean + noise, clean, noise], axis=1)
+        lengths = np.array([int(seconds * SR) - 1600 * (k % 3) for k in range(rows)])
+        base = copy.deepcopy(builder.model).cpu()
+        for impl in impls:
+            fn = S.make_scoring_fn(builder, None, impl=impl)
+            sides = {}
+            for device in ("cuda", "cpu"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    model = with_dtype(copy.deepcopy(base), dtype).to(device)
+                    b = dataclasses.replace(builder, model=model)
+                    f = S.make_scoring_fn(b, None, impl=impl)
+                    if device == "cuda" and dtype == torch.bfloat16:
+                        # -- the main path: the scoring call on the card in bf16 --
+                        reset_counts((L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd,
+                                      L.lstm_bidir_tm_dw_bf16))
+                        t0 = time.perf_counter()
+                        emb = f(model, wavs, lengths).detach().cpu()
+                        torch.cuda.synchronize()
+                        ms = (time.perf_counter() - t0) * 1e3
+                        counts = [L.lstm_bidir_tm_fc.launches, L.lstm_bidir_tm_fc.h_bf16,
+                                  L.lstm_bidir_tm_bwd.launches, L.lstm_bidir_tm_bwd.h_bf16,
+                                  L.lstm_bidir_tm_dw_bf16.launches]
+                        # ---------------------------------------------------------
+                    else:
+                        emb = f(model, wavs, lengths).detach().cpu()
+                    query = f(model, wavs, lengths, mean=True).detach().cpu()
+                    sides[(device, dtype)] = (emb, S.matching(query, emb))
+            order = ((("cuda", torch.bfloat16)), ("cuda", torch.float32),
+                     ("cpu", torch.bfloat16), ("cpu", torch.float32))
+            w = window(torch, *(sides[k][0] for k in order), f"{name} {impl} bf16 scoring")
+            same = torch.equal(sides[order[0]][1] > 0, sides[order[2]][1] > 0)
+            match_err = float((sides[order[0]][1] - sides[order[2]][1]).abs().max())
+            one_dir = not builder.model.lstm.bidirectional
+            want = ([3 * rows, 3 * rows, 3 * rows, 3 * rows, 3 * rows] if one_dir
+                    else [3, 0, 3, 0, 0])
+            print(f"[bf16h] scoring the {name} in bf16 ({fn.impl} engine, {rows} rows of "
+                  f"{seconds:.0f} s, card {ms:.1f} ms): window against the CPU ({w[0]:.3f}, "
+                  f"{w[1]:.3f}) (limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}); match "
+                  f"> 0 set the same {same}, max |match card - CPU| {match_err:.2e}; launches "
+                  f"(B2 fwd, of it bf16-h, B2 bwd, of it bf16-h, dW_hh^T bf16) {counts} (want "
+                  f"{want}) | {card}", flush=True)
+            if not same or counts != want:
+                raise AssertionError(f"{name} {impl} bf16 scoring: same {same}, launches "
+                                     f"{counts}, want {want}")
+            out[(name, impl)] = (w, ms, counts)
+    return out
+
+
+def one_direction_bf16_phase(torch, L, counted, dsp_kernels, card, tmp):
+    """Phase 13: the one-direction LSTM in bf16 on the card. ``counted``: B1,
+    B2 fwd, B2 bwd, the dW_hh^T kernel, B4, B5."""
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED)
+    checks = bf16_h_checks(torch, L)
+    runner, _, run_counts = vcb_bf16_run(torch, corpus, tmp, counted)
+    step = vcb_step_window(torch, runner, card)
+    serving = one_dir_bf16_serving(torch, counted, dsp_kernels, card, tmp)
+    scoring = bf16_scoring(torch, runner, card)
+    times = bf16_h_times(torch, L, card)
+    return {"checks": checks, "run_counts": run_counts, "step": step, "serving": serving,
+            "scoring": scoring, "times": times}
+
+
 def main():
     import torch
 
@@ -4389,6 +5006,13 @@ def main():
         bf16 = bf16_phase(torch, A, kernels + flash_kernels + bf16_kernels, card, tmp)
     bf16_times_ = bf16["times"]
 
+    # 13. the one-direction LSTM in bf16 on the card
+    counted13 = (lstm_bidir_tm, lstm_bidir_tm_fc, lstm_bidir_tm_bwd, L.lstm_bidir_tm_dw_bf16,
+                 stft_fused, decode_ola)
+    with tempfile.TemporaryDirectory() as tmp:
+        one_dir = one_direction_bf16_phase(torch, L, counted13, (stft_fused, decode_ola), card,
+                                           tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -4592,6 +5216,38 @@ def main():
                             ("bound_ms_f32_fma", lstm_bound(B, T, H, D=D)[0]),
                             ("library_ms", times[("cudnn_fwd", B)][0] if D == 512
                              else times[("cudnn_fwd120", B)]))}))
+    # the bf16-h forms and the bf16 dW_hh^T kernel (phase 13), one direction
+    # at T=1001, H=256, bound as bf16_h_bound counts them; no PyTorch call
+    # computes this function (cuDNN's bf16 LSTM rounds the gates, c and the
+    # output too, and sums dW_hh in f32), so library_ms is null
+    ht, hc = one_dir["times"], one_dir["checks"]
+    step_counts, serving = one_dir["step"]["step_launches"], one_dir["serving"]
+    for name, key, source, replaces, B, launches, err, more in (
+            ("lstm_bidir_tm[h_bf16]", "b1", "lstm_tm_cluster.cu", "lstm_kernel.py:208", 1,
+             serving["served_forms"], hc["b1"],
+             {"launches_stream": serving["stream_counts"][2],
+              "launches_vcb_bf16_run": one_dir["run_counts"][0]}),
+            ("lstm_bidir_tm_fc[h_bf16]", "fc", "lstm_tm_cluster.cu", "lstm_kernel.py:391", 6,
+             step_counts[1], hc["fc"], {"launches_vcb_bf16_run": one_dir["run_counts"][1]}),
+            ("lstm_bidir_tm_bwd[h_bf16]", "bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", 6,
+             step_counts[2], hc["bwd"], {"launches_vcb_bf16_run": one_dir["run_counts"][2],
+                                         "dw_within_one_ulp_share": hc["dw"]}),
+            ("lstm_bidir_tm_dw_bf16", "dw", "lstm_tm_bwd.cu", "lstm_kernel.py:422", 6,
+             step_counts[3], hc["dw_kernel_abs"],
+             {"launches_vcb_bf16_run": one_dir["run_counts"][3],
+              "within_one_ulp_share": hc["dw_kernel"],
+              "replaces_note": "no Pallas kernel of its own: the dW_hh^T of B2 bwd's bf16-h "
+                               "form, which JAX sums in its reverse lax.scan"})):
+        one_b = ht.get((key, 1))
+        rows.append(row(
+            name, source, replaces, launches, err, ht[(key, B)][0], ht[(key, B)][2],
+            f"ndir=1 B={B} T=1001 H=256, W_hh^T bf16 values", bf16_h_bound(B, T, H, key), None,
+            f32_form_ms=ht[(key, B)][1],
+            kernel_route=("cluster / phases (H a multiple of 8, at most 256); grid for any "
+                          "other H" if key != "dw" else "one design, any H"),
+            **({} if one_b is None or B == 1 else {
+                "ms_b1": one_b[0], "f32_form_ms_b1": one_b[1], "plain_ms_b1": one_b[2],
+                "bound_ms_b1": bf16_h_bound(1, T, H, key)[0]}), **more))
     # once more, for a reader who is shown only the end of a long output
     print_build_report(libs, build_s)
     for r in rows:
@@ -4659,6 +5315,23 @@ def main():
           f"{bt[('Mockingjay', 'f32')]:.3f}, flagship {bt[('flagship', 'bf16')]:.3f} / "
           f"{bt[('flagship', 'f32')]:.3f}; enhance B=1 10 s {bt[('enhance', 'bf16')]:.3f} / "
           f"{bt[('enhance', 'f32')]:.3f} | {card}", flush=True)
+    st, sv = one_dir["step"], one_dir["serving"]
+    print(f"[bf16h] the one-direction LSTM in bf16: forms against their plain versions hs <= "
+          f"{hc['b1']:.2e}, dW_hh^T within one bf16 unit on >= {hc['dw']:.4f} (the kernel alone "
+          f"{hc['dw_kernel']:.5f}); vcb.yaml bf16 run launches (B1, B2 fwd, B2 bwd, dW_hh^T, "
+          f"B4, B5) {one_dir['run_counts']}; train step card vs CPU window loss "
+          f"{st['loss'][0]:.3f}/{st['loss'][1]:.3f}, gradient {st['grad'][0]:.3f}/"
+          f"{st['grad'][1]:.3f}, each w_hh's near <= {st['w_hh_window'][0]:.3f} and ratio "
+          f"{st['w_hh_window'][1]:.3f}-{st['w_hh_window'][2]:.3f} (within one unit >= "
+          f"{st['w_hh_share']:.4f}); served "
+          f"{sv['served'][0]:.3f}/{sv['served'][1]:.3f}, stream {sv['stream'][0]:.3f}/"
+          f"{sv['stream'][1]:.3f}; scoring "
+          + ", ".join(f"{n} {i} {w[0]:.3f}/{w[1]:.3f}"
+                      for (n, i), (w, *_) in one_dir["scoring"].items())
+          + f"; ms bf16 / f32: vcb train step B=6 10 s {st['step_ms']['bf16']:.3f} / "
+          f"{st['step_ms']['f32']:.3f}, enhance B=1 10 s {sv['enhance_ms']['bf16']:.3f} / "
+          f"{sv['enhance_ms']['f32']:.3f}, stream chunk {sv['chunk_ms']['bf16']:.3f} / "
+          f"{sv['chunk_ms']['f32']:.3f} | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -23,14 +23,21 @@ Per-sample engines (``impl``):
   on the card) gives every row's gate cotangents: rows do not interact before
   the objective's batch reduction, so row i's cotangent is exactly the
   gradient of loss i. The per-sample gradients are then outer-product sums
-  over time of the captured streams. Any other head takes one backward per
-  utterance through the same kernels.
+  over time of the captured streams; in a bf16 head those of W_ih (from the
+  input rounded to bf16) and W_hh are rounded to bf16, as JAX's per-sample
+  gradients come back through its bf16 casts. Any other head takes one
+  backward per utterance through the same kernels, and so does a
+  one-direction ``LSTM`` / ``Residual`` head in bf16: its per-row dW_hh is a
+  sum rounded to bf16 step by step (the JAX scan cell's), which no outer
+  product of the streams gives.
 - ``"capture"``: the gradient of the BATCH loss, one batched backward,
   assembled per sample the same way: the JAX package's capture engine, equal
   to ``"vmap"`` up to a positive per-sample scale (the objective's batch
   reduction weight), which the cosine matching cancels. It takes a
   bidirectional ``LSTM`` / ``Residual`` head; for any other it warns and
-  runs ``"vmap"``, as the JAX package does.
+  runs ``"vmap"``, as the JAX package does. In bf16 it rounds nothing, as
+  JAX's capture engine builds its f32 sums from the unrounded captured
+  input.
 
 The scoring runs with TF32 off (``metrics.full_f32``): the match scores are
 cosines of million-coordinate embeddings, and which candidates pass ``> 0``
@@ -98,26 +105,37 @@ def _capture_supported(model, layerid: Optional[int]) -> bool:
 
 
 def _captures(model) -> bool:
-    """Whether the head records the streams of all its parameters."""
+    """Whether the per-row gradients of all the head's parameters are
+    outer-product sums of the streams it records: not those of a
+    one-direction LSTM stack in bf16, whose dW_hh is rounded step by step."""
     from ..models.heads import LSTM, Linear, LinearResidual, Residual
 
-    return isinstance(model, (LSTM, Residual, Linear, LinearResidual))
+    if isinstance(model, (LSTM, Residual)):
+        return bool(model.lstm.bidirectional) or model.compute_dtype == torch.float32
+    return isinstance(model, (Linear, LinearResidual))
 
 
-def _lstm_layer_grads(streams, cots, layer: int) -> Dict[str, torch.Tensor]:
+def _lstm_layer_grads(streams, cots, layer: int, bf16: bool = False) -> Dict[str, torch.Tensor]:
     """Per-sample gradients of one LSTM layer from its captured streams, by
     parameter name, each with a leading batch axis. torch layout: w_ih (4H,
     D), w_hh (4H, H); the gradients are sum_t d_t (x) x_t and sum_t d_t (x)
     h_{t-1}, and both biases sum_t d_t (the gates are xw + b_ih + b_hh + h
     W_hh^T, all additive). Direction 1 runs time-flipped, so h_{t-1} is the
-    previous step of its own stream."""
+    previous step of its own stream. ``bf16``: each row's gradient as it
+    comes back through a bidirectional bf16 layer's casts: x_t rounded to
+    bf16 in W_ih's sum, W_ih's and W_hh's sums rounded to bf16, the biases
+    f32."""
     xs = streams[f"l{layer}_xs"].detach()          # (dirs, B, T, D)
     hs = streams[f"l{layer}_hs"].detach()          # (dirs, B, T, H)
     d = cots[f"l{layer}_xw"]                       # (dirs, B, T, 4H)
     h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
+    if bf16:
+        xs = xs.to(torch.bfloat16).float()
     # batched products over (direction, row): no per-step outer product
     g_wih = torch.einsum("dbtg,dbtn->dbgn", d, xs)
     g_whh = torch.einsum("dbtg,dbtk->dbgk", d, h_prev)
+    if bf16:
+        g_wih, g_whh = (g.to(torch.bfloat16).float() for g in (g_wih, g_whh))
     g_b = d.sum(dim=2)
     out = {}
     for i, direction in enumerate(("fwd", "bwd")[: d.shape[0]]):
@@ -149,12 +167,8 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
     The loss runs in train mode, as the trainer's: a dropout-bearing head
     (Mockingjay) is scored with its dropout live, the salts drawn from
     ``generator`` (omitted: a fixed seed, so that a head with no dropout is
-    deterministic anyway). A bad ``active_layerid`` raises at the call; a
-    head built with ``compute_dtype`` bf16 raises here (ROADMAP A14b)."""
+    deterministic anyway). A bad ``active_layerid`` raises at the call."""
     sb = step_builder
-    if getattr(sb.model, "compute_dtype", torch.float32) == torch.bfloat16:
-        raise NotImplementedError(
-            "per-sample gradient scoring of a bf16 head is not ported yet (ROADMAP A14b)")
     if impl not in ("vmap", "capture"):
         raise ValueError(f"unknown scoring impl {impl!r}")
     if impl == "capture" and not _capture_supported(sb.model, active_layerid):
@@ -198,8 +212,9 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
     def scoring_captured(model, wavs, lengths, seed, per_row: bool):
         """The capture machinery: the batch loss (``per_row`` False) or the
         sum of the rows' own losses, one backward, the per-sample gradients
-        from the captured streams."""
+        from the captured streams (per row through a bf16 head's casts)."""
         names = selected(model)
+        bf16_rows = per_row and getattr(model, "compute_dtype", None) == torch.bfloat16
         ctx = context(wavs, lengths)
         streams = Capture("all" if active_layerid is None else active_layerid)
         predicted, aux = forward(model, ctx, SaltStream(seed, 0), streams)
@@ -219,7 +234,7 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
             if w in DENSE_OF:
                 grads.update(_dense_grads(streams, cots, w))
             else:
-                grads.update(_lstm_layer_grads(streams, cots, int(w[1:])))
+                grads.update(_lstm_layer_grads(streams, cots, int(w[1:]), bf16_rows))
         if set(grads) != set(names):
             raise ValueError(
                 f"the capture assembled {sorted(grads)} but the selected parameters are "

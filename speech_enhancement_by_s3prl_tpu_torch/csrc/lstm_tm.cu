@@ -43,9 +43,15 @@
 // barrier and the latency of the short dot products, which later work can cut
 // (tensor cores, clusters with distributed shared memory in place of the grid
 // barrier, bf16 xw streams).
+//
+// The bf16-h form (kBf16H, entries' `h_bf16`): h_{t-1} (h0 included) rounded
+// to bf16 where a block stages it for the step product, as the JAX package's
+// one-direction lax.scan cell in bf16 rounds it; hs, cs, c and cT keep f32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "bf16_round.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -69,8 +75,8 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //   c_s [B][K]      float  this block's slice of the cell state
 // R: batch rows per thread (1 for small batches, 4 from B = 4 up).
 // kCell: also write c_t into cs (2, B, T, H), laid out like hs.
-// h0, c0 and c_out are (ndir, B, H) or null.
-template <int R, bool kCell>
+// h0, c0 and c_out are (ndir, B, H) or null. kBf16H: the bf16-h form.
+template <int R, bool kCell, bool kBf16H>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                      float* hs, float* __restrict__ cs, const float* __restrict__ h0,
@@ -115,7 +121,8 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
       if (t == 0) {
         const float* h0_d = h0 != nullptr ? h0 + ((size_t)d * B + b0) * H : nullptr;
         for (int idx = threadIdx.x; idx < bt * H; idx += blockDim.x)
-          h_s[(idx / H) * HP + idx % H] = h0_d != nullptr ? h0_d[idx] : 0.0f;
+          h_s[(idx / H) * HP + idx % H] =
+              h0_d != nullptr ? (kBf16H ? bf16_round(h0_d[idx]) : h0_d[idx]) : 0.0f;
       } else {
         // h_{t-1} rows were written by other blocks at t - 1: __ldcg reads
         // them from L2, never from a stale L1 line. 16-byte loads where the
@@ -142,11 +149,11 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
             const int k = base + q * blockDim.x;
             if (k < n) {
               float* dst = h_s + (k / per_row) * HP + (k % per_row) * vec;
-              dst[0] = v[q].x;
+              dst[0] = kBf16H ? bf16_round(v[q].x) : v[q].x;
               if (vec == 4) {
-                dst[1] = v[q].y;
-                dst[2] = v[q].z;
-                dst[3] = v[q].w;
+                dst[1] = kBf16H ? bf16_round(v[q].y) : v[q].y;
+                dst[2] = kBf16H ? bf16_round(v[q].z) : v[q].z;
+                dst[3] = kBf16H ? bf16_round(v[q].w) : v[q].w;
               }
             }
           }
@@ -243,7 +250,7 @@ size_t smem_bytes(int B, int H, int K, int BT) {
 // first non-zero CUDA status among the set-up calls, the cooperative launch's
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
-template <bool kCell>
+template <bool kCell, bool kBf16H>
 int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
            const void* c0, void* c_out, int ndir, int B, int T, int H, int device,
            void* stream) {
@@ -267,8 +274,8 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
   int K = 8;
   while (K > 1 && H % K) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
-  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4, kCell>
-                          : (const void*)lstm_bidir_tm_kernel<1, kCell>;
+  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4, kCell, kBf16H>
+                          : (const void*)lstm_bidir_tm_kernel<1, kCell, kBf16H>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
     const int grid = ndir * (H / K);
@@ -307,19 +314,27 @@ extern "C" {
 // Kernel B1. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H) and hs (ndir, B, T, H)
 // are contiguous f32 device pointers on `device`. h0 and c0 (ndir, B, H) are
 // the initial state and c_out (ndir, B, H) receives the final cell state;
-// each may be null (zeros; not written).
+// each may be null (zeros; not written). `h_bf16` non-zero runs the bf16-h
+// form.
 int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
-                      const void* c0, void* c_out, int ndir, int B, int T, int H, int device,
-                      void* stream) {
-  return launch<false>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device, stream);
+                      const void* c0, void* c_out, int ndir, int B, int T, int H, int h_bf16,
+                      int device, void* stream) {
+  if (h_bf16)
+    return launch<false, true>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device,
+                               stream);
+  return launch<false, false>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device,
+                              stream);
 }
 
 // Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (ndir, B, T, H) f32 receives
-// the cell state of every step.
+// the cell state of every step; `h_bf16` as there.
 int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
-                         int B, int T, int H, int device, void* stream) {
-  return launch<true>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H, device,
-                      stream);
+                         int B, int T, int H, int h_bf16, int device, void* stream) {
+  if (h_bf16)
+    return launch<true, true>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
+                              device, stream);
+  return launch<true, false>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
+                             device, stream);
 }
 
 const char* lstm_tm_error_string(int code) {

@@ -77,12 +77,33 @@
 // line). A step is latency-bound at small B, so each chunk of BT batch rows
 // starts all its loads in one round, and one pass over the (row, unit) tiles
 // computes both dot products before the cell's backward.
+//
+// The bf16-h form (kBf16H; the entries' `h_bf16`): the VJP of the JAX
+// package's one-direction lax.scan cell in bf16, whose forward rounds h_{t-1}
+// to bf16 for the step product (lstm_tm_cluster.cu's kBf16H). Read from the
+// jaxpr of its gradient, per step tt = T-1 .. 0:
+//   gates   recomputed from bf16(h_{tt-1});
+//   dh      = dhs_tt + bf16(da_{tt+1} @ W_hh): the carried product, summed in
+//             f32, is rounded once (the cotangent of the bf16 cast of h);
+//   dW_hh^T is a bf16 carry of the reverse scan: acc = bf16(acc + bf16(
+//             bf16(h_{tt-1})^T da_tt)), from zero.
+// Phase 1 rounds its staged tile of h_{t-1} in shared memory before the
+// product. With W_hh^T holding bf16 values both operands are exact in TF32,
+// so the low terms of the three split passes are zero; the passes are kept,
+// so that one kernel serves both forms. Phase 2 rounds the owner's sum of the
+// 8 partials of dh_carry before adding dhs. Phase 3 does not run: no product
+// over all rows gives a sum rounded step by step, and lstm_bwd_dw_bf16_kernel
+// (below; its own entry, launched by the wrapper after this one) computes
+// dW_hh^T. The earlier single kernel takes the same flag (rounding h where it
+// stages it and the carried product before the cell's backward) and leaves
+// dW_hh^T to that kernel as well.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_round.cuh"
 #include "cp_async.cuh"
 #include "mma_tf32x3.cuh"
 
@@ -108,7 +129,7 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //             xw_tt, c_tt, c_{tt-1} and dhs_tt.
 // Regions 1 and 2 are read-only for the whole launch (__ldg). A region that
 // the step does not need (da at tt = T-1, h at tt = 0) is given zero rows,
-// and its buffer is not read.
+// and its buffer is not read. kRoundH: region 1 is stored rounded to bf16.
 struct ChunkLoads {
   const float* da;   // dxw row of (b0, tt + 1), or nullptr
   const float* h;    // hs row of (b0, tt - 1), or nullptr
@@ -118,6 +139,7 @@ struct ChunkLoads {
   bool has_prev;     // tt > 0: c_{tt-1} exists
 };
 
+template <bool kRoundH>
 __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, float* hst_s,
                                             float* ep_s, int bt, int T, int H, int K,
                                             int j0) {
@@ -170,6 +192,14 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
         out = st_s + (k / pr0) * H4P + (k % pr0) * vec;
       } else if ((k -= n0) < n1) {
         out = hst_s + (k / pr1) * HP + (k % pr1) * vec;
+        if (kRoundH) {
+          v[q].x = bf16_round(v[q].x);
+          if (vec == 4) {
+            v[q].y = bf16_round(v[q].y);
+            v[q].z = bf16_round(v[q].z);
+            v[q].w = bf16_round(v[q].w);
+          }
+        }
       } else if ((k -= n1) < n2) {
         out = ep_s + (k / 7) * 8 + k % 7;
         m = 1;
@@ -199,7 +229,8 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
 //   dc_s  [B][K]       float   dc_carry of this block's units
 // R: batch rows per thread in the dot products (1 for small batches, 4 from
 // B = 4 up). G lanes share one tile of outputs and split its dot products.
-template <int R>
+// kBf16H: the bf16-h form (dwhh is not written; dw_s stays unused).
+template <int R, bool kBf16H>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                          const float* __restrict__ hs, const float* __restrict__ cs,
@@ -257,7 +288,7 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
       ld.cs = cs_d + ((size_t)b0 * T + tt) * H;
       ld.dhs = dhs_d + ((size_t)b0 * T + tt) * H;
       ld.has_prev = tt > 0;
-      stage_chunk(ld, st_s, hst_s, ep_s, bt, T, H, K, j0);
+      stage_chunk<kBf16H>(ld, st_s, hst_s, ep_s, bt, T, H, K, j0);
       __syncthreads();
 
       // per (row, unit): the gates recomputed from h_{tt-1} (zero at tt = 0,
@@ -326,7 +357,7 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
               const float og = sigmoid_f32(ep[3] + a[q][3]);
               const float tc = tanhf(ep[4]);
               const float c_prev = ep[5];
-              const float dh = ep[6] + e[q];
+              const float dh = ep[6] + (kBf16H ? bf16_round(e[q]) : e[q]);
               const float dout = dh * tc;
               const float dct = dh * og * (1.0f - tc * tc) + dc_s[b * K + u];
               dc_s[b * K + u] = dct * fg;
@@ -354,7 +385,7 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
       // Each thread owns 4 x 4 tiles of (input i, column c): no two threads
       // write one entry, so no atomics; it sums its tile over the chunk's
       // rows in registers and adds it to shared memory once.
-      if (tt > 0) {
+      if (!kBf16H && tt > 0) {
         const int nq_c = C / 4;
         const int nq = ((H + 3) / 4) * nq_c;
         for (int qd = threadIdx.x; qd < nq; qd += blockDim.x) {
@@ -390,6 +421,7 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
     grid.sync();  // da_tt of every block is in dxw before anyone reads it
   }
 
+  if (kBf16H) return;
   __syncthreads();
   float* dw_d = dwhh + (size_t)d * H * H4;
   for (int idx = threadIdx.x; idx < H * C; idx += blockDim.x) {
@@ -420,9 +452,11 @@ constexpr int kSeqRows = 8;  // batch rows a cluster takes
 
 // Phase 1. One stage: a_s [kTile][kLdA], rows of h_{t-1}; w_s [kDepth][kLdB],
 // rows of W_hh^T. Row r = b * T + t of one direction's h_{t-1} is row r - 1
-// of hs, and zeros at t = 0. Writes act(xw + h_{t-1} @ W_hh^T) into `gates`.
+// of hs, and zeros at t = 0. Writes act(xw + h_{t-1} @ W_hh^T) into `gates`;
+// kBf16H: h_{t-1} rounded to bf16 in the staged tile first.
 constexpr int kGateStage = kTile * kLdA + kDepth * kLdB;
 
+template <bool kBf16H>
 __global__ void __launch_bounds__(kTileThreads)
 lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                       const float* __restrict__ hs, float* __restrict__ gates, int M, int T,
@@ -468,6 +502,14 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
     // the copy of slice kc + 1 may now overwrite
     cp_async_wait_all();
     __syncthreads();
+    if (kBf16H) {
+      float* h_tile = smem + (kc & 1) * kGateStage;
+      for (int idx = threadIdx.x; idx < kTile * kDepth; idx += kTileThreads) {
+        float* p = h_tile + (idx / kDepth) * kLdA + idx % kDepth;
+        *p = bf16_round(*p);
+      }
+      __syncthreads();
+    }
     if (kc + 1 < nk) start(kc + 1);
     const float* a_s = smem + (kc & 1) * kGateStage + warp * 16 * kLdA;
     const float* w_s = smem + (kc & 1) * kGateStage + kTile * kLdA;
@@ -522,7 +564,9 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
 //                                              units from each block, per step parity
 // Thread j computes the partial dh_carry of unit j for every row; thread
 // row * U + u runs the cell's backward of its (row, unit) and carries dc in a
-// register.
+// register. kBf16H: the owner's sum of the 8 partials is rounded to bf16
+// before dhs is added.
+template <bool kBf16H>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kSeqThreads, 1)
 lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ cs,
                     const float* __restrict__ dhs, float* dxw, int B, int T, int H) {
@@ -611,8 +655,15 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
     if (has_p) {
       if (carry) {
         const float* in = recv_s + (buf * kCluster * kSeqRows + row) * U + u;
+        if (kBf16H) {
+          float carried = 0.f;
 #pragma unroll
-        for (int s = 0; s < kCluster; ++s) dh += in[s * kSeqRows * U];
+          for (int s = 0; s < kCluster; ++s) carried += in[s * kSeqRows * U];
+          dh += bf16_round(carried);
+        } else {
+#pragma unroll
+          for (int s = 0; s < kCluster; ++s) dh += in[s * kSeqRows * U];
+        }
       }
       const float tc = tanhf(c);
       const float dout = dh * tc;
@@ -729,6 +780,112 @@ lstm_bwd_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dwhh,
   dwhh[idx] = sum;
 }
 
+// The bf16-h form's dW_hh^T (ops/cuda/lstm_kernel.lstm_bidir_tm_dw_bf16).
+// It replaces no Pallas kernel of its own: it is the dW_hh^T of the JAX
+// package's one-direction lax.scan cell in bf16, whose reverse scan carries
+// the cotangent of the bf16 W_hh^T as a bf16 value and rounds after every
+// step:
+//   acc = 0;  for t = T-1 .. 1:  acc = bf16(acc + bf16(sum_b bf16(h_{t-1,b})^T da_{t,b}))
+// (h_{-1} = 0 adds nothing at t = 0). A sum rounded step by step is not a
+// product over all rows, so phase 3's tensor-core product does not compute
+// it; a once-rounded f32 sum lies as far from JAX's result as bf16 does from
+// f32 (tests/test_torch_port_bf16_one_direction.py).
+// What bounds it: 2 * B * (T - 1) * H * 4H operations (3.1 GFLOP at B = 6, T =
+// 1001, H = 256: 0.047 ms at the f32 rate of the CUDA cores) and, per element
+// and step, two roundings and an addition, about as many instructions again
+// at B = 6; its bytes (hs and da read once, ~31 MB) take ~0.009 ms. It
+// takes 0.64 ms there on an H100: rounding each h at every read instead of
+// once where it is staged, one rounding a sum instead of two to a conversion,
+// and register tiles of 2 to 16 elements a thread on 64 to 512 threads a
+// block all read 0.54-0.82 ms with the same bits, so neither the conversions,
+// the FMAs nor the shared-memory traffic bind it; what does is not known yet.
+// Design: a block owns a tile of kSdI inputs x kSdC gate columns of one
+// direction, a thread one input and 4 consecutive columns, its 4 sums held in
+// registers as f32 values of bf16 numbers and walked down t. Runs of S steps
+// of the tile's h_{t-1} (kSdI floats a row) and da_t (kSdC floats a row) for
+// every batch row are staged in shared memory by cp.async, two runs in
+// flight; each thread rounds the h it copied once it has landed; a step's
+// sum over the rows is a chain of FMAs in row order. No atomics, no
+// reduction across blocks: the same bits on every run.
+constexpr int kSdI = 16;
+constexpr int kSdC = 64;
+constexpr int kSdThreads = kSdI * kSdC / 4;  // 256
+constexpr int kSdMaxSteps = 32;
+constexpr int kSdBudget = 48 * 1024;  // bytes of the two staged runs, when B allows
+
+__global__ void __launch_bounds__(kSdThreads)
+lstm_bwd_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
+                        float* __restrict__ dwhh, int B, int T, int H, int S) {
+  extern __shared__ __align__(16) float sd_smem[];
+  const int H4 = 4 * H;
+  const int i0 = blockIdx.x * kSdI, c0 = blockIdx.y * kSdC, d = blockIdx.z;
+  const int ti = threadIdx.x / (kSdC / 4), tc = threadIdx.x % (kSdC / 4);
+  const size_t run = (size_t)S * B * (kSdI + kSdC);  // floats of one staged run
+  const float* hs_d = hs + (size_t)d * B * T * H;
+  const float* da_d = da + (size_t)d * B * T * H4;
+
+  // the run of steps t_hi, t_hi - 1, ..., down to max(1, t_hi - S + 1) into
+  // buffer `buf`: h [S][B][kSdI] (row t - 1 of hs), then da [S][B][kSdC];
+  // zeros past H and past 4H
+  auto start = [&](int t_hi, int buf) {
+    float* h_s = sd_smem + buf * run;
+    float* a_s = h_s + (size_t)S * B * kSdI;
+    const int n = min(S, t_hi);
+    for (int idx = threadIdx.x; idx < n * B * kSdI; idx += kSdThreads) {
+      const int s = idx / (B * kSdI), b = (idx / kSdI) % B, k = idx % kSdI;
+      const bool ok = i0 + k < H;
+      cp_async4(h_s + idx, ok ? hs_d + ((size_t)b * T + t_hi - s - 1) * H + i0 + k : hs_d,
+                ok ? 4 : 0);
+    }
+    for (int idx = threadIdx.x; idx < n * B * (kSdC / 4); idx += kSdThreads) {
+      const int s = idx / (B * (kSdC / 4)), b = (idx / (kSdC / 4)) % B, q = idx % (kSdC / 4);
+      const bool ok = c0 + 4 * q < H4;
+      cp_async16(a_s + (size_t)idx * 4,
+                 ok ? da_d + ((size_t)b * T + t_hi - s) * H4 + c0 + 4 * q : da_d, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (T > 1) start(T - 1, 0);
+  int buf = 0;
+  for (int t_hi = T - 1; t_hi >= 1; t_hi -= S, buf ^= 1) {
+    const int n = min(S, t_hi);
+    float* h_s = sd_smem + buf * run;
+    // this run has landed: each thread rounds the h it copied (start's own
+    // index walk); then every thread is done with the other buffer
+    cp_async_wait_all();
+    for (int idx = threadIdx.x; idx < n * B * kSdI; idx += kSdThreads)
+      h_s[idx] = bf16_round(h_s[idx]);
+    __syncthreads();
+    if (t_hi - S >= 1) start(t_hi - S, buf ^ 1);
+    const float* a_s = h_s + (size_t)S * B * kSdI;
+    for (int s = 0; s < n; ++s) {
+      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+      for (int b = 0; b < B; ++b) {
+        const int r = s * B + b;
+        const float hv = h_s[r * kSdI + ti];
+        const float4 dv = *reinterpret_cast<const float4*>(a_s + r * kSdC + 4 * tc);
+        p0 = fmaf(hv, dv.x, p0);
+        p1 = fmaf(hv, dv.y, p1);
+        p2 = fmaf(hv, dv.z, p2);
+        p3 = fmaf(hv, dv.w, p3);
+      }
+      const float2 r01 = bf16_round2(p0, p1), r23 = bf16_round2(p2, p3);
+      const float2 s01 = bf16_round2(acc[0] + r01.x, acc[1] + r01.y);
+      const float2 s23 = bf16_round2(acc[2] + r23.x, acc[3] + r23.y);
+      acc[0] = s01.x;
+      acc[1] = s01.y;
+      acc[2] = s23.x;
+      acc[3] = s23.y;
+    }
+  }
+  const int i = i0 + ti, c = c0 + 4 * tc;
+  if (i < H && c < H4)
+    *reinterpret_cast<float4*>(dwhh + ((size_t)d * H + i) * H4 + c) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
 size_t seq_smem_bytes(int H) {
   const size_t U = H / kCluster;
   return sizeof(float4) * (U * H + kSeqRows * U) +
@@ -744,12 +901,15 @@ extern "C" {
 // The earlier design, for any H. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H),
 // hs, cs, dhs (ndir, B, T, H), dxw (ndir, B, T, 4H) and dwhh (ndir, H, 4H)
 // are contiguous f32 device pointers on `device`; dxw and dwhh are written in
-// full. Returns the first non-zero CUDA status among the set-up calls, the
+// full. `h_bf16` non-zero runs the bf16-h form, which writes dxw only (dwhh
+// may be null; lstm_bwd_dw_bf16_f32 gives dW_hh^T). Returns the first non-zero
+// CUDA status among the set-up calls, the
 // cooperative launch's own status (which reports a grid too large to be
 // co-resident) and cudaGetLastError(); 0 on success. Does not synchronise.
 int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* hs,
                                const void* cs, const void* dhs, void* dxw, void* dwhh,
-                               int ndir, int B, int T, int H, int device, void* stream) {
+                               int ndir, int B, int T, int H, int h_bf16, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
@@ -774,8 +934,10 @@ int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* h
   while (K > 1 && H % K) K >>= 1;
   while (K > 1 && ndir * (H / (K / 2)) <= sms) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
-  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4>
-                          : (const void*)lstm_bidir_tm_bwd_kernel<1>;
+  const void* fn = h_bf16 ? (R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4, true>
+                                    : (const void*)lstm_bidir_tm_bwd_kernel<1, true>)
+                          : (R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4, false>
+                                    : (const void*)lstm_bidir_tm_bwd_kernel<1, false>);
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
     const int grid = ndir * (H / K);
@@ -810,19 +972,21 @@ int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* h
 // every pointer 16-byte aligned. `splits` >= 1 ways to split dW_hh^T's
 // contraction over the B * T rows; `scratch` holds splits * ndir * H * 4H
 // floats when splits > 1 (unused otherwise). Four or five launches on
-// `stream`; returns the first non-zero status, 0 on success. Does not
+// `stream`. `h_bf16` non-zero runs phases 1 and 2 of the bf16-h form and not
+// phase 3: dxw only (dwhh and scratch may be null; lstm_bwd_dw_bf16_f32 gives
+// dW_hh^T). Returns the first non-zero status, 0 on success. Does not
 // synchronise.
 int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void* hs,
                                  const void* cs, const void* dhs, void* dxw, void* dwhh,
                                  void* scratch, int ndir, int B, int T, int H, int splits,
-                                 int device, void* stream) {
+                                 int h_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0 || splits <= 0 || H % kCluster ||
       H / kCluster > 32 || (long long)B * T > 0x7fffffffLL / 4)
     return (int)cudaErrorInvalidValue;
   if (!(aligned16(xw) && aligned16(w_hh_t) && aligned16(hs) && aligned16(dxw) &&
-        aligned16(dwhh) && (splits == 1 || aligned16(scratch))))
+        (h_bf16 || (aligned16(dwhh) && (splits == 1 || aligned16(scratch))))))
     return (int)cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
   auto c = [](const void* p) { return static_cast<const float*>(p); };
@@ -830,8 +994,14 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
   const int M = B * T, H4 = 4 * H;
   const unsigned tiles_n = (H4 + kTile - 1) / kTile;
 
-  lstm_bwd_gates_kernel<<<dim3((M + kTile - 1) / kTile, tiles_n, ndir), kTileThreads, 0, s>>>(
-      c(xw), c(w_hh_t), c(hs), m(dxw), M, T, H);
+  const dim3 gates_grid((M + kTile - 1) / kTile, tiles_n, ndir);
+  if (h_bf16) {
+    lstm_bwd_gates_kernel<true><<<gates_grid, kTileThreads, 0, s>>>(c(xw), c(w_hh_t), c(hs),
+                                                                     m(dxw), M, T, H);
+  } else {
+    lstm_bwd_gates_kernel<false><<<gates_grid, kTileThreads, 0, s>>>(c(xw), c(w_hh_t), c(hs),
+                                                                      m(dxw), M, T, H);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem = seq_smem_bytes(H);
@@ -840,13 +1010,21 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
                                     device)))
     return (int)err;
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(lstm_bwd_seq_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return (int)err;
+  err = h_bf16 ? cudaFuncSetAttribute(lstm_bwd_seq_kernel<true>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+               : cudaFuncSetAttribute(lstm_bwd_seq_kernel<false>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int nbb = (B + kSeqRows - 1) / kSeqRows;
-  lstm_bwd_seq_kernel<<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
-      c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
+  if (h_bf16) {
+    lstm_bwd_seq_kernel<true><<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
+        c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
+  } else {
+    lstm_bwd_seq_kernel<false><<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
+        c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (h_bf16) return 0;
 
   const int chunk = ((M + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
   float* part = splits == 1 ? m(dwhh) : m(scratch);
@@ -860,6 +1038,38 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H), the
+// dxw of the bf16-h backward, contiguous f32 device pointers on `device`, da
+// 16-byte aligned; dwhh (ndir, H, 4H) f32, 16-byte aligned, is written in
+// full with bf16 values. Any H; B up to what two runs of one step take of the
+// card's shared memory (640 bytes a row: B <= 363 on an H100). One launch on
+// `stream`; returns the first non-zero status, 0 on success. Does not
+// synchronise.
+int lstm_bwd_dw_bf16_f32(const void* hs, const void* da, void* dwhh, int ndir, int B, int T,
+                         int H, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(da) && aligned16(dwhh))) return (int)cudaErrorMisalignedAddress;
+  const size_t row = 2 * sizeof(float) * (kSdI + kSdC);  // a batch row of a step, two runs
+  int S = (int)(kSdBudget / (row * B));
+  S = S < 1 ? 1 : (S > kSdMaxSteps ? kSdMaxSteps : S);
+  const size_t smem = row * B * S;
+  int smem_optin = 0;
+  if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    device)))
+    return (int)err;
+  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(lstm_bwd_dw_bf16_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return (int)err;
+  const dim3 grid((H + kSdI - 1) / kSdI, (4 * H + kSdC - 1) / kSdC, ndir);
+  lstm_bwd_dw_bf16_kernel<<<grid, kSdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hs), static_cast<const float*>(da), static_cast<float*>(dwhh),
+      B, T, H, S);
+  return (int)cudaGetLastError();
 }
 
 const char* lstm_tm_bwd_error_string(int code) {

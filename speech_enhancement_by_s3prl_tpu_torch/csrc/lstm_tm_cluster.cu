@@ -64,10 +64,19 @@
 // read from shared memory every step, xw loaded inside its step, 16-byte
 // remote stores, a whole cluster.sync() after the stores), so that each
 // element's worth is measured on the card.
+//
+// The bf16-h form (flag kBf16H, entries' `h_bf16`): the one-direction layer
+// of the JAX package in bf16, its lax.scan cell, which rounds h_{t-1} to bf16
+// for the step product only. Each block rounds the h_t it pushes to the
+// cluster (and h0 where it loads it), which feeds nothing but the next step's
+// product; hs, cs, c and cT keep the f32 values. With W_hh^T holding bf16
+// values, each product h * w is exact in f32, so the FMAs sum exact products
+// and only the order of the sum differs from the plain version's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bf16_round.cuh"
 #include "cp_async.cuh"
 
 namespace cg = cooperative_groups;
@@ -88,6 +97,8 @@ constexpr int kSmemWeights = 1;  // (c) off: W_hh^T slice in shared memory
 constexpr int kLoadInStep = 2;   // (d) off: xw loaded at the start of its step
 constexpr int kVectorPush = 4;   // (e) 16-byte remote stores gathered by shuffles
 constexpr int kFullSync = 8;     // (e) off: cluster.sync() right after the stores
+// the bf16-h form: h rounded to bf16 for the step product (variant 0 only)
+constexpr int kBf16H = 16;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -122,6 +133,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
                        float* __restrict__ c_out, int B, int T, int H, int bb) {
   constexpr bool kWs = kFlags & kSmemWeights;
   constexpr bool kRingOn = !(kFlags & kLoadInStep);
+  constexpr bool kRoundH = kFlags & kBf16H;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -166,8 +178,9 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   // block loads its rows of h0 there (zeros past H, and without h0)
   for (int idx = tid; idx < 2 * bb * kHPad; idx += kThreads) {
     const int r = idx / kHPad, i = idx % kHPad;
-    h_s[idx] = (h0 != nullptr && r < rows && i < H)
-                   ? h0[((size_t)d * B + b0 + r) * H + i] : 0.0f;
+    const float v = (h0 != nullptr && r < rows && i < H)
+                        ? h0[((size_t)d * B + b0 + r) * H + i] : 0.0f;
+    h_s[idx] = kRoundH ? bf16_round(v) : v;
   }
 
   // the cell's side: warp `row` is batch row b0 + row, lane the unit
@@ -257,7 +270,8 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
         c = fmaf(fg, c, ig * gg);
         h = og * tanhf(c);
       }
-      // (e) h_t of this row to all 8 blocks
+      // (e) h_t of this row to all 8 blocks, rounded in the bf16-h form
+      const float h_push = kRoundH ? bf16_round(h) : h;
       float* dst_row = h_nxt + row * kHPad + j0;
       if ((kFlags & kVectorPush) && U % 4 == 0) {
         const int nq = U / 4;  // 16-byte pieces of the row's U units
@@ -265,16 +279,16 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
           const int idx = base + lane;
           const int q = idx % nq;
           float4 v;
-          v.x = __shfl_sync(0xffffffffu, h, 4 * q);
-          v.y = __shfl_sync(0xffffffffu, h, 4 * q + 1);
-          v.z = __shfl_sync(0xffffffffu, h, 4 * q + 2);
-          v.w = __shfl_sync(0xffffffffu, h, 4 * q + 3);
+          v.x = __shfl_sync(0xffffffffu, h_push, 4 * q);
+          v.y = __shfl_sync(0xffffffffu, h_push, 4 * q + 1);
+          v.z = __shfl_sync(0xffffffffu, h_push, 4 * q + 2);
+          v.w = __shfl_sync(0xffffffffu, h_push, 4 * q + 3);
           if (idx < nq * kCluster)
             reinterpret_cast<float4*>(cluster.map_shared_rank(dst_row, idx / nq))[q] = v;
         }
       } else if (live) {
 #pragma unroll
-        for (int k = 0; k < kCluster; ++k) cluster.map_shared_rank(dst_row, k)[lane] = h;
+        for (int k = 0; k < kCluster; ++k) cluster.map_shared_rank(dst_row, k)[lane] = h_push;
       }
     }
     if (kFlags & kFullSync) {
@@ -350,23 +364,29 @@ extern "C" {
 // be null (zeros; not written). `variant` 0 is the design; for
 // measurement, 1 reads the weights from shared memory every step (batch_block
 // <= 8), 2 loads xw inside its step, 4 makes the remote stores 16 bytes a
-// lane, 8 puts a whole cluster barrier after them. Returns the first non-zero
+// lane, 8 puts a whole cluster barrier after them. `h_bf16` non-zero runs the
+// bf16-h form (variant 0 only). Returns the first non-zero
 // CUDA status among the set-up calls and cudaGetLastError() after the launch
 // (which reports a cluster that cannot be placed); 0 on success. Does not
 // synchronise.
 int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
                         const void* c0, void* c_out, int ndir, int B, int T, int H,
-                        int batch_block, int variant, int device, void* stream) {
+                        int batch_block, int variant, int h_bf16, int device, void* stream) {
 #define LSTM_TM_CLUSTER_VARIANT(flags)                                                 \
   case flags:                                                                        \
     return launch<false, flags>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, \
                                 batch_block, device, stream);
+  if (h_bf16) {
+    if (variant != 0) return (int)cudaErrorInvalidValue;
+    variant = kBf16H;
+  }
   switch (variant) {
     LSTM_TM_CLUSTER_VARIANT(0)
     LSTM_TM_CLUSTER_VARIANT(kSmemWeights)
     LSTM_TM_CLUSTER_VARIANT(kLoadInStep)
     LSTM_TM_CLUSTER_VARIANT(kVectorPush)
     LSTM_TM_CLUSTER_VARIANT(kFullSync)
+    LSTM_TM_CLUSTER_VARIANT(kBf16H)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -374,9 +394,13 @@ int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void
 }
 
 // Kernel B2 fwd: as lstm_tm_cluster_f32 with variant 0, and cs (ndir, B, T,
-// H) f32 receives the cell state of every step.
+// H) f32 receives the cell state of every step; `h_bf16` as there.
 int lstm_tm_cluster_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
-                           int B, int T, int H, int batch_block, int device, void* stream) {
+                           int B, int T, int H, int batch_block, int h_bf16, int device,
+                           void* stream) {
+  if (h_bf16)
+    return launch<true, kBf16H>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
+                                batch_block, device, stream);
   return launch<true, 0>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
                          batch_block, device, stream);
 }

@@ -9,8 +9,9 @@ renorm to -25 dB. It trains with the SISDR objective, BertAdam(4e-5, 0.07,
 20000), a global clip at 1.0 and SI-SDR as the eval metric.
 
 Every builder takes ``compute_dtype`` ('f32' | 'bf16', as the JAX
-``_build``): bf16 runs the bidirectional head's projections and W_hh^T, or
-the Mockingjay encoder's products, in bf16 (``models/lstm.py``,
+``_build``): bf16 runs the head's projections and W_hh^T (and, for a
+one-direction head, h in the step product: the JAX scan cell), or the
+Mockingjay encoder's products, in bf16 (``models/lstm.py``,
 ``models/transformer.py``); parameters and optimizer state stay f32.
 """
 from __future__ import annotations

@@ -20,12 +20,12 @@ module: the selection is per call.
 
 ``compute_dtype`` ('f32' | 'bf16', the CLI's ``--compute_dtype`` and a
 checkpoint's ``Settings.Paras``; ``normalize_compute_dtype`` reads it) is
-taken by ``LSTM`` / ``Residual`` (the bidirectional stack's projection and
-W_hh^T in bf16, ``models/lstm.py``; the ``scaling_layer`` stays f32, as its
+taken by ``LSTM`` / ``Residual`` (the stack's projection and W_hh^T in
+bf16, and in a one-direction stack h in the step product, the JAX scan
+cell's bf16 form: ``models/lstm.py``; the ``scaling_layer`` stays f32, as its
 flax Dense has no dtype), ``Mockingjay`` (the encoder's bf16 products,
 ``models/transformer.py``; the spec head stays f32) and ``SpecHead``, which
-computes in f32 under either, as the JAX module has no dtype. A
-one-direction ``LSTM`` / ``Residual`` in bf16 raises (ROADMAP A14b).
+computes in f32 under either, as the JAX module has no dtype.
 """
 from __future__ import annotations
 

@@ -43,10 +43,10 @@
   ``capture_layer`` is this per-call selection. With no ``capture`` nothing
   is recorded.
 
-- ``compute_dtype`` bf16 (``--compute_dtype bf16``) is the JAX package's
-  bidirectional layer on its Pallas path (``models/lstm.py:272-338``, the
-  path the port's kernels are the counterpart of): the projection takes the
-  input and W_ih rounded to bf16 and returns their f32 product (exact
+- ``compute_dtype`` bf16 (``--compute_dtype bf16``) is, for a bidirectional
+  layer, the JAX package's layer on its Pallas path (``models/lstm.py:272-338``,
+  the path the port's kernels are the counterpart of): the projection takes
+  the input and W_ih rounded to bf16 and returns their f32 product (exact
   products summed in f32, ``einsum(..., preferred_element_type=f32)``) plus
   the f32 bias; W_hh^T is rounded to bf16 and handed to the recurrence as
   f32; h and c stay f32, so B1 / B2 fwd / B2 bwd run unchanged. On the card
@@ -54,8 +54,12 @@
   f32 parameter through a bf16 rounding comes back rounded to bf16, as the
   transpose of JAX's ``convert_element_type`` gives it. JAX's default scan
   path (no ``SE_PALLAS_LSTM``) rounds h to bf16 every step instead; it is
-  not the reference here. A one-direction stack in bf16 raises: its only
-  JAX form is that scan cell (ROADMAP A14b).
+  not the reference for a bidirectional layer. A one-direction layer has no
+  other JAX form than that scan cell (``LstmCellScan``), so there it is the
+  reference: the same projection and bf16 W_hh^T, and the recurrence in its
+  bf16-h form (``lstm_bidir_tm(..., h_bf16=True)``: h rounded to bf16 for
+  the step product, B1 / B2 fwd / B2 bwd with their flag and dW_hh^T summed
+  step by step in bf16), stateless or from a carried state.
 
 Initialization: xavier-uniform W_ih, orthogonal W_hh, zero biases.
 """
@@ -73,9 +77,6 @@ from ..ops.cuda.lstm_kernel import (
 )
 
 RECURRENCES = ("tm", "blocked", "fused")
-ONE_DIRECTION_BF16 = (
-    "a one-direction LSTM in bf16 is not ported yet (ROADMAP A14b): its JAX form is the "
-    "lax.scan cell, which rounds h to bf16 every step, a bf16 variant of B1 / B2")
 
 
 class Bf16Product(torch.autograd.Function):
@@ -106,9 +107,9 @@ class Bf16Product(torch.autograd.Function):
 
 
 def project(xs: torch.Tensor, w_ih: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The input projection of a bidirectional layer without its bias: (2, B,
-    T, D) x (2, 4H, D) -> (2, B, T, 4H) f32. In f32 the plain einsum; in
-    bf16 both operands rounded to bf16 and their f32 product
+    """The input projection of a layer without its bias: (2, B, T, D) x (2,
+    4H, D) -> (2, B, T, 4H) f32, or a leading 1 for one direction. In f32 the
+    plain einsum; in bf16 both operands rounded to bf16 and their f32 product
     (``Bf16Product``)."""
     if dtype == torch.float32:
         return torch.einsum("dbtn,dhn->dbth", xs, w_ih)
@@ -154,8 +155,9 @@ class LSTMStack(nn.Module):
     bidirectional else 1). ``recurrence`` ("tm", "blocked" or "fused")
     names the forward-only kernel of the bidirectional layers, a switch for
     the tests and the card script; a one-direction layer always runs
-    ``lstm_bidir_tm``. ``compute_dtype`` (f32 or bf16, bidirectional only)
-    is the precision of the input projection and of W_hh^T's values."""
+    ``lstm_bidir_tm``. ``compute_dtype`` (f32 or bf16) is the precision of
+    the input projection and of W_hh^T's values, and for a one-direction
+    layer also of h in the step product."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bidirectional: bool = False,
@@ -164,8 +166,6 @@ class LSTMStack(nn.Module):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
-        if compute_dtype == torch.bfloat16 and not bidirectional:
-            raise NotImplementedError(ONE_DIRECTION_BF16)
         self.compute_dtype = compute_dtype
         self.recurrence = recurrence
         self.hidden_size = hidden_size
@@ -214,12 +214,18 @@ class LSTMStack(nn.Module):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
                 # one direction on the leading axis: LstmBidirTm when a
-                # gradient is needed, B1 when not
-                xw = torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh)
-                w_hh_t = pf.w_hh.T[None].contiguous()
+                # gradient is needed, B1 when not. In bf16 the JAX scan cell:
+                # its projection, bias added as it adds it, bf16 W_hh^T and
+                # the bf16-h form of the recurrence
+                if bf16:
+                    xw = project(x[None], pf.w_ih[None], self.compute_dtype) + pf.b_ih + pf.b_hh
+                    w_hh_t = pf.w_hh.T[None].to(torch.bfloat16).float()
+                else:
+                    xw = (torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh))[None]
+                    w_hh_t = pf.w_hh.T[None]
+                xw, w_hh_t = xw.contiguous(), w_hh_t.contiguous()
                 if not carry:
-                    xw = xw[None].contiguous()
-                    hs = lstm_bidir_tm(xw, w_hh_t)
+                    hs = lstm_bidir_tm(xw, w_hh_t, h_bf16=bf16)
                     if captured(capture, k):
                         capture.update({f"l{k}_xs": x[None], f"l{k}_xw": xw,
                                         f"l{k}_hs": hs})
@@ -227,8 +233,8 @@ class LSTMStack(nn.Module):
                     continue
                 state = None if initial_state is None else tuple(
                     t[None] for t in initial_state[k])
-                hs, (h, c) = lstm_bidir_tm(xw[None].contiguous(), w_hh_t, state=state,
-                                           return_state=True)
+                hs, (h, c) = lstm_bidir_tm(xw, w_hh_t, state=state, return_state=True,
+                                           h_bf16=bf16)
                 x = hs[0]
                 final_states.append((h[0], c[0]))
                 continue

@@ -57,6 +57,17 @@ what a stream carried chunk by chunk runs (``ops/streaming.StatefulStreamer``).
 It is inference only: with a gradient needed it raises (gradient through a
 carried state, ``ROADMAP.md`` A3).
 
+B1, B2 fwd and B2 bwd have a bf16-h form (``h_bf16=True``): the
+one-direction layer of the JAX package in bf16, its ``lax.scan`` cell
+(``LstmCellScan`` running ``_lstm_scan``), which rounds h_{t-1} (h0
+included) to bf16 for the step product only; h, c, hs and the carried (hT,
+cT) stay f32. Its backward, as the jaxpr of JAX's gradient has it: the gates
+recomputed from bf16(h_{t-1}), dh_t = dhs_t + bf16(da_{t+1} @ W_hh) (the
+carried product rounded once), dxw = da in f32, and dW_hh^T a bf16 sum taken
+one step at a time in reverse, which no product over all rows gives: that
+sum is a kernel of its own, ``lstm_bidir_tm_dw_bf16`` (``lstm_tm_bwd.cu``),
+launched by B2 bwd's wrapper in the form.
+
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
 raises; nothing falls back.
 """
@@ -71,7 +82,13 @@ import torch
 from ._build import launch_args, load, raise_on
 
 
-def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=None):
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest, ties to even), held in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=None,
+                h_bf16: bool = False):
     H = w_hh_t.shape[-2]
     lead = xw.shape[:-2]  # (..., B)
     if state is None:
@@ -81,7 +98,7 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=N
         h, c = state
     hs, cs = [h[..., None, :][..., :0, :]], [c[..., None, :][..., :0, :]]  # T = 0
     for t in range(xw.shape[-2]):
-        gates = xw[..., t, :].float() + torch.matmul(h, w_hh_t)
+        gates = xw[..., t, :].float() + torch.matmul(_bf16(h) if h_bf16 else h, w_hh_t)
         i, f, g, o = gates.split(H, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -92,16 +109,18 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=N
 
 
 def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
-                      return_state: bool = False):
+                      return_state: bool = False, h_bf16: bool = False):
     """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
 
     Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
     gives (..., B, T, H). ``state`` (h0, c0), each (..., B, H), is the
     initial state (None: zeros); with ``return_state`` the result is (hs,
-    (hT, cT))."""
+    (hT, cT)). ``h_bf16``: the bf16-h form, which rounds h_{t-1} (h0
+    included) to bf16 for the step product only; h, c, hs and (hT, cT) stay
+    f32 and unrounded."""
     if not return_state:
-        return _recurrence(xw, w_hh_t, with_cell=False, state=state)
-    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state)
+        return _recurrence(xw, w_hh_t, with_cell=False, state=state, h_bf16=h_bf16)
+    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state, h_bf16=h_bf16)
     return hs, _final_state(hs, cs, state)
 
 
@@ -116,15 +135,37 @@ def _final_state(hs, cs, state):
     return state
 
 
-def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor):
-    """B2 fwd's plain version: (hs, cs), each (2, B, T, H) f32."""
-    return _recurrence(xw, w_hh_t, with_cell=True)
+def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False):
+    """B2 fwd's plain version: (hs, cs), each (2, B, T, H) f32; ``h_bf16`` as
+    for ``lstm_bidir_tm_ref``."""
+    return _recurrence(xw, w_hh_t, with_cell=True, h_bf16=h_bf16)
 
 
-def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs):
+def lstm_bidir_tm_dw_bf16_ref(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """The plain version of the bf16-h form's dW_hh^T kernel: the cotangent
+    of a bf16 W_hh^T as the JAX package's reverse ``lax.scan`` sums it, one
+    step at a time in bf16. With acc = 0 in bf16, for t = T-1 .. 1:
+        acc = bf16(acc + bf16(sum_b bf16(h_{t-1, b})^T da_{t, b}))
+    (the step's product summed in f32, h_{-1} = 0 adding nothing at t = 0).
+    hs (ndir, B, T, H), da (ndir, B, T, 4H) f32 -> dw_hh_t (ndir, H, 4H) f32
+    holding bf16 values."""
+    acc = torch.zeros(hs.shape[:-3] + (hs.shape[-1], da.shape[-1]), dtype=torch.float32,
+                      device=hs.device)
+    for tt in range(hs.shape[-2] - 1, 0, -1):
+        step = torch.matmul(_bf16(hs[..., tt - 1, :]).transpose(-1, -2), da[..., tt, :])
+        acc = _bf16(acc + _bf16(step))
+    return acc
+
+
+def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """B2 bwd's plain version, step for step the Pallas ``_kernel_tm_bwd``:
     reverse time, gates recomputed from (xw_t, h_{t-1}), h_{-1} = c_{-1} = 0,
-    dh and dc carried. Returns (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32."""
+    dh and dc carried. Returns (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32.
+
+    ``h_bf16``: the VJP of the bf16-h form (the JAX ``lax.scan`` cell in
+    bf16): the gates recomputed from bf16(h_{t-1}), the carried dh_t =
+    dhs_t + bf16(da_{t+1} @ W_hh) (the whole product rounded once), and
+    dW_hh^T summed in bf16 step by step (``lstm_bidir_tm_dw_bf16_ref``)."""
     H = w_hh_t.shape[-2]
     T = xw.shape[-2]
     dh_c = hs.new_zeros(hs.shape[:-2] + (H,))
@@ -134,7 +175,8 @@ def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs):
     for tt in range(T - 1, -1, -1):
         h_prev = hs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
         c_prev = cs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
-        gates = xw[..., tt, :].float() + torch.matmul(h_prev, w_hh_t)
+        gates = xw[..., tt, :].float() + torch.matmul(_bf16(h_prev) if h_bf16 else h_prev,
+                                                      w_hh_t)
         i, f, g, o = gates.split(H, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         tc = torch.tanh(cs[..., tt, :])
@@ -150,8 +192,12 @@ def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs):
         ], dim=-1)
         dxw[tt + 1] = da[..., None, :]
         dh_c = torch.matmul(da, w_hh_t.transpose(-1, -2))
-        dw = dw + torch.matmul(h_prev.transpose(-1, -2), da)
-    return torch.cat(dxw, dim=-2), dw
+        if h_bf16:
+            dh_c = _bf16(dh_c)
+        else:
+            dw = dw + torch.matmul(h_prev.transpose(-1, -2), da)
+    dxw = torch.cat(dxw, dim=-2)
+    return dxw, (lstm_bidir_tm_dw_bf16_ref(hs, dxw) if h_bf16 else dw)
 
 
 def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
@@ -201,9 +247,9 @@ def _check_residuals(xw, hs, cs, dhs):
 def _library():
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.lstm_bidir_tm_f32.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.lstm_bidir_tm_f32.restype = i
-    lib.lstm_bidir_tm_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.lstm_bidir_tm_fc_f32.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.lstm_bidir_tm_fc_f32.restype = i
     lib.lstm_tm_error_string.argtypes = [i]
     lib.lstm_tm_error_string.restype = ctypes.c_char_p
@@ -213,9 +259,9 @@ def _library():
 def _cluster_library():
     lib = load("lstm_tm_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_tm_cluster_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.lstm_tm_cluster_f32.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.lstm_tm_cluster_f32.restype = i
-    lib.lstm_tm_cluster_fc_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_tm_cluster_fc_f32.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.lstm_tm_cluster_fc_f32.restype = i
     lib.lstm_tm_cluster_max_clusters.argtypes = [i, ctypes.POINTER(i)]
     lib.lstm_tm_cluster_max_clusters.restype = i
@@ -227,10 +273,12 @@ def _cluster_library():
 def _bwd_library():
     lib = load("lstm_tm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_bwd_grid_f32.argtypes = [p] * 7 + [i, i, i, i, i, p]
+    lib.lstm_bidir_tm_bwd_grid_f32.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.lstm_bidir_tm_bwd_grid_f32.restype = i
-    lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+    lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.lstm_bidir_tm_bwd_phases_f32.restype = i
+    lib.lstm_bwd_dw_bf16_f32.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.lstm_bwd_dw_bf16_f32.restype = i
     lib.lstm_tm_bwd_error_string.argtypes = [i]
     lib.lstm_tm_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -284,7 +332,8 @@ def _fwd_clusters(device_index: int) -> int:
 
 
 def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 1,
-                            slices: int = FWD_SLICES, with_cell: bool = False, state=None):
+                            slices: int = FWD_SLICES, with_cell: bool = False, state=None,
+                            h_bf16: bool = False):
     """The ``cluster`` route of B1 / B2 fwd in PyTorch, as
     ``lstm_tm_cluster.cu`` runs it (the function of ``lstm_bidir_tm_ref``):
     each block of ``batch_block`` rows is its own recurrence; h is padded with
@@ -295,8 +344,10 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
     nothing), and the cell runs row by row. Every operation acts on one row
     at a time or elementwise, so a row's bits do not depend on the other rows
     of its block. ``state`` (h0, c0), each (ndir, B, H), starts the
-    recurrence where the kernel loads it (None: zeros). Returns hs, or (hs,
-    cs) with ``with_cell``, each (ndir, B, T, H) f32."""
+    recurrence where the kernel loads it (None: zeros). ``h_bf16``: the
+    bf16-h form, the h each block pushes (and h0) rounded to bf16 for the
+    step product. Returns hs, or (hs, cs) with ``with_cell``, each (ndir, B,
+    T, H) f32."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = xw.new_zeros((ndir, B, T, H), dtype=torch.float32)
@@ -311,10 +362,11 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
             h, c = (s[:, b0:rows.stop].float() for s in state)
         for t in range(T):
             gates = xw[:, b0:rows.stop, t].float()
+            h_in = _bf16(h) if h_bf16 else h
             for s in range(-(-H // span)):
                 part = torch.zeros_like(gates)
                 for i in range(s * span, min(H, (s + 1) * span)):
-                    part = part + h[:, :, i:i + 1] * w_hh_t[:, None, i, :]
+                    part = part + h_in[:, :, i:i + 1] * w_hh_t[:, None, i, :]
                 gates = gates + part
             h, c = h.clone(), c.clone()
             for d in range(ndir):
@@ -329,7 +381,7 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
 
 def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
                 batch_block: Optional[int] = None, variant: int = 0, state=None,
-                return_state: bool = False):
+                return_state: bool = False, h_bf16: bool = False):
     """Launch B1 (or B2 fwd with ``with_cell``) on ``route`` ("cluster" or
     "grid") on checked, contiguous CUDA tensors with B, T > 0; returns hs or
     (hs, cs). B1 also takes ``state`` (h0, c0), contiguous (ndir, B, H)
@@ -338,7 +390,7 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
     ``fwd_route`` and the batch block by ``fwd_batch_block``; the card script
     also runs the other route, other batch blocks and, through ``variant``
     (B1 on the cluster route only), the design with one element changed
-    (``FWD_VARIANTS``)."""
+    (``FWD_VARIANTS``). ``h_bf16`` launches the bf16-h form (variant 0)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
@@ -357,40 +409,44 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             batch_block = fwd_batch_block(B, ndir, _fwd_clusters(launch_args(xw)[0]))
         if with_cell:
             err = lib.lstm_tm_cluster_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, batch_block,
-                                             *launch_args(xw))
+                                             int(h_bf16), *launch_args(xw))
         else:
             err = lib.lstm_tm_cluster_f32(*ptrs, *carried, ndir, B, T, H, batch_block,
-                                          variant, *launch_args(xw))
+                                          variant, int(h_bf16), *launch_args(xw))
         errstr = lib.lstm_tm_cluster_error_string
     else:
         lib = _library()
         if with_cell:
-            err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H,
+            err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, int(h_bf16),
                                            *launch_args(xw))
         else:
-            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, ndir, B, T, H, *launch_args(xw))
+            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, ndir, B, T, H, int(h_bf16),
+                                        *launch_args(xw))
         errstr = lib.lstm_tm_error_string
     raise_on(err, "lstm_bidir_tm_fc" if with_cell else "lstm_bidir_tm", errstr, route=route,
-             ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant)
+             ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant,
+             h_bf16=h_bf16)
     if return_state:
         return hs, (hs[:, :, -1], c_out)
     return (hs, cs) if with_cell else hs
 
 
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
-                  return_state: bool = False):
+                  return_state: bool = False, h_bf16: bool = False):
     """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32; a leading 1
     in place of the 2 is a one-direction layer. ``state`` (h0, c0), each
     (2, B, H) f32, starts the recurrence there (None: zeros); with
-    ``return_state`` the result is (hs, (hT, cT)).
+    ``return_state`` the result is (hs, (hT, cT)). ``h_bf16`` runs the
+    bf16-h form (``lstm_bidir_tm_ref``), the one-direction layer in bf16.
 
     When a gradient is needed (grad mode on and an input that requires it)
     this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass; a
     carried state raises there. Otherwise it is B1 (the primal of the JAX
     custom VJP): on a CUDA tensor the kernel of route ``fwd_route(H)``,
-    counted in ``lstm_bidir_tm.launches`` and ``lstm_bidir_tm.by_route``, and
-    a launch with a state in or out also in ``lstm_bidir_tm.carried``; on a
-    CPU tensor the plain version."""
+    counted in ``lstm_bidir_tm.launches`` and ``lstm_bidir_tm.by_route``, a
+    launch with a state in or out also in ``lstm_bidir_tm.carried`` and one
+    of the bf16-h form in ``lstm_bidir_tm.h_bf16``; on a CPU tensor the plain
+    version."""
     _check(xw, w_hh_t)
     if state is not None:
         _check_state(xw, state)
@@ -402,9 +458,9 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
             raise RuntimeError(
                 "lstm_bidir_tm: a carried state (state= / return_state=) is inference "
                 "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
-        return LstmBidirTm.apply(xw, w_hh_t)
+        return LstmBidirTm.apply(xw, w_hh_t, h_bf16)
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state)
+        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16)
     if state is not None:
         state = tuple(t.contiguous() for t in state)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
@@ -414,21 +470,23 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
         hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
         return (hs, _final_state(hs, hs, state)) if return_state else hs
     route = fwd_route(h4 // 4)
-    out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state)
+    out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state,
+                      h_bf16=h_bf16)
     lstm_bidir_tm.launches += 1
     lstm_bidir_tm.by_route[route] += 1
     lstm_bidir_tm.carried += state is not None or return_state
+    lstm_bidir_tm.h_bf16 += h_bf16
     return out
 
 
-def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
-    """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) f32.
-    Kernel of route ``fwd_route(H)`` on a CUDA tensor (counted in
-    ``lstm_bidir_tm_fc.launches`` and ``.by_route``), plain version on a CPU
-    tensor."""
+def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False):
+    """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) f32;
+    ``h_bf16`` runs the bf16-h form. Kernel of route ``fwd_route(H)`` on a
+    CUDA tensor (counted in ``lstm_bidir_tm_fc.launches`` and ``.by_route``,
+    the bf16-h form also in ``.h_bf16``), plain version on a CPU tensor."""
     _check(xw, w_hh_t)
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_fc_ref(xw, w_hh_t)
+        return lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm_fc needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
@@ -436,9 +494,10 @@ def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor):
         hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
         return hs, torch.empty_like(hs)
     route = fwd_route(h4 // 4)
-    out = _launch_fwd(route, xw, w_hh_t, with_cell=True)
+    out = _launch_fwd(route, xw, w_hh_t, with_cell=True, h_bf16=h_bf16)
     lstm_bidir_tm_fc.launches += 1
     lstm_bidir_tm_fc.by_route[route] += 1
+    lstm_bidir_tm_fc.h_bf16 += h_bf16
     return out
 
 
@@ -469,7 +528,7 @@ def _cell_activations(gates, H):
 
 
 def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATCH_BLOCK,
-                            splits: Optional[int] = None):
+                            splits: Optional[int] = None, h_bf16: bool = False):
     """The ``phases`` route of B2 bwd in PyTorch, phase for phase as
     ``lstm_tm_bwd.cu`` runs it (same function as ``lstm_bidir_tm_bwd_ref``):
 
@@ -481,13 +540,18 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
        dh_carry = da @ W_hh is its one product;
     3. dW_hh^T = sum over rows with t >= 1 of hs_{t-1}^T da, the rows cut into
        ``splits`` chunks whose partial sums are added in chunk order.
+
+    ``h_bf16``, the bf16-h form: phase 1 takes h_{t-1} rounded to bf16, phase
+    2 rounds dh_carry to bf16, and dW_hh^T is the step-by-step bf16 sum of
+    ``lstm_bidir_tm_dw_bf16`` (its plain version) in place of phase 3.
     """
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     if B == 0 or T == 0:
         return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
     h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
-    dxw = _cell_activations(xw + torch.matmul(h_prev, w_hh_t[:, None]), H)
+    h_in = _bf16(h_prev) if h_bf16 else h_prev
+    dxw = _cell_activations(xw + torch.matmul(h_in, w_hh_t[:, None]), H)
     c_prev = torch.cat([torch.zeros_like(cs[:, :, :1]), cs[:, :, :-1]], dim=2)
     w_hh = w_hh_t.transpose(-1, -2)
     for b0 in range(0, B, batch_block):
@@ -508,6 +572,10 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
             ], dim=-1)
             dxw[:, rows, tt] = da
             dh_c = torch.matmul(da, w_hh)
+            if h_bf16:
+                dh_c = _bf16(dh_c)
+    if h_bf16:
+        return dxw, lstm_bidir_tm_dw_bf16_ref(hs, dxw)
     M = B * T
     if splits is None:
         splits = bwd_splits(M)
@@ -519,43 +587,91 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
     return dxw, dw
 
 
-def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs):
+def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """Launch B2 bwd's ``route`` ("phases" or "grid") on checked, contiguous
     CUDA tensors; returns (dxw, dw_hh_t). ``lstm_bidir_tm_bwd`` picks the
-    route by ``bwd_route``; the card script also times the other one."""
+    route by ``bwd_route``; the card script also times the other one.
+    ``h_bf16``: the bf16-h form's dxw, then its dW_hh^T from the kernel of
+    ``lstm_bidir_tm_dw_bf16`` (which counts its launch)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     dxw = torch.empty_like(xw)
-    dw = torch.empty_like(w_hh_t)
+    # the bf16-h form writes dxw only: null dW_hh^T pointers
+    dw = None if h_bf16 else torch.empty_like(w_hh_t)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     lib = _bwd_library()
     inputs = [t.data_ptr() for t in (xw, w_hh_t, hs, cs, dhs)]
     if route == "phases":
         splits = bwd_splits(B * T)
-        scratch = dw if splits == 1 else torch.empty(
+        scratch = dw if splits == 1 or h_bf16 else torch.empty(
             (splits,) + tuple(dw.shape), device=xw.device, dtype=torch.float32)
         err = lib.lstm_bidir_tm_bwd_phases_f32(
-            *inputs, dxw.data_ptr(), dw.data_ptr(), scratch.data_ptr(), ndir, B, T, H,
-            splits, *launch_args(xw))
+            *inputs, dxw.data_ptr(), ptr(dw), ptr(scratch), ndir, B, T, H, splits,
+            int(h_bf16), *launch_args(xw))
     else:
-        err = lib.lstm_bidir_tm_bwd_grid_f32(*inputs, dxw.data_ptr(), dw.data_ptr(), ndir,
-                                             B, T, H, *launch_args(xw))
+        err = lib.lstm_bidir_tm_bwd_grid_f32(*inputs, dxw.data_ptr(), ptr(dw), ndir, B, T, H,
+                                             int(h_bf16), *launch_args(xw))
     raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, route=route,
-             ndir=ndir, B=B, T=T, H=H)
+             ndir=ndir, B=B, T=T, H=H, h_bf16=h_bf16)
+    if h_bf16:
+        dw = lstm_bidir_tm_dw_bf16(hs, dxw)
     return dxw, dw
 
 
-def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
+# shared memory of lstm_bwd_dw_bf16_f32: two staged runs of one step, 2 * (16 +
+# 64) floats a batch row, within the 232,448 bytes a block of an H100 may use
+DW_BF16_MAX_BATCH = 232448 // (2 * 4 * (16 + 64))
+
+
+def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H)
+    (the bf16-h backward's dxw), f32 -> dw_hh_t (ndir, H, 4H) f32 holding
+    bf16 values, summed step by step in bf16 as the JAX package's reverse
+    scan sums it (``lstm_bidir_tm_dw_bf16_ref``). On a CUDA tensor the kernel
+    ``lstm_bwd_dw_bf16_kernel`` of ``lstm_tm_bwd.cu`` (any H, B up to
+    ``DW_BF16_MAX_BATCH``; deterministic), counted in
+    ``lstm_bidir_tm_dw_bf16.launches``; on a CPU tensor the plain version."""
+    if hs.dim() != 4 or da.dim() != 4 or da.shape[:3] != hs.shape[:3] or \
+            da.shape[-1] != 4 * hs.shape[-1]:
+        raise ValueError(f"hs must be (ndir, B, T, H) and da (ndir, B, T, 4H), got "
+                         f"{tuple(hs.shape)} / {tuple(da.shape)}")
+    if hs.dtype != torch.float32 or da.dtype != torch.float32 or hs.device != da.device:
+        raise ValueError("lstm_bidir_tm_dw_bf16 takes f32 tensors on one device")
+    if hs.device.type == "cpu":
+        return lstm_bidir_tm_dw_bf16_ref(hs, da)
+    if not (hs.is_contiguous() and da.is_contiguous()):
+        raise ValueError("lstm_bidir_tm_dw_bf16 needs contiguous inputs")
+    ndir, B, T, H = hs.shape
+    if B > DW_BF16_MAX_BATCH:
+        raise ValueError(f"lstm_bidir_tm_dw_bf16 takes at most {DW_BF16_MAX_BATCH} rows on a "
+                         f"CUDA tensor, got {B}")
+    dw = torch.empty((ndir, H, 4 * H), device=hs.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return dw.zero_()
+    lib = _bwd_library()
+    err = lib.lstm_bwd_dw_bf16_f32(hs.data_ptr(), da.data_ptr(), dw.data_ptr(), ndir, B, T, H,
+                                   *launch_args(hs))
+    raise_on(err, "lstm_bidir_tm_dw_bf16", lib.lstm_tm_bwd_error_string, ndir=ndir, B=B,
+             T=T, H=H)
+    lstm_bidir_tm_dw_bf16.launches += 1
+    return dw
+
+
+def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """B2 bwd: the forward's inputs and residuals plus the cotangent ``dhs``
     -> (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32 (or a leading 1
     throughout). Kernel on a CUDA tensor, on the route ``bwd_route(H)`` names
     (one call is one count in ``lstm_bidir_tm_bwd.launches`` and in
     ``lstm_bidir_tm_bwd.by_route``, whatever the number of launches inside;
     deterministic: the same inputs give the same bits), plain version on a
-    CPU tensor. B = 0 or T = 0 gives zeros without a launch."""
+    CPU tensor. B = 0 or T = 0 gives zeros without a launch. ``h_bf16``: the
+    VJP of the bf16-h form (``lstm_bidir_tm_bwd_ref``), also counted in
+    ``lstm_bidir_tm_bwd.h_bf16``; its dW_hh^T is ``lstm_bidir_tm_dw_bf16``'s
+    kernel, a launch of its own."""
     _check(xw, w_hh_t)
     _check_residuals(xw, hs, cs, dhs)
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs)
+        return lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16)
     tensors = (xw, w_hh_t, hs, cs, dhs)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_bidir_tm_bwd needs contiguous inputs")
@@ -563,31 +679,33 @@ def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs):
     if B == 0 or T == 0:
         return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
     route = bwd_route(h4 // 4)
-    out = _launch_bwd(route, *tensors)
+    out = _launch_bwd(route, *tensors, h_bf16=h_bf16)
     lstm_bidir_tm_bwd.launches += 1
     lstm_bidir_tm_bwd.by_route[route] += 1
+    lstm_bidir_tm_bwd.h_bf16 += h_bf16
     return out
 
 
 class LstmBidirTm(torch.autograd.Function):
     """The differentiable recurrence (the JAX custom VJP ``lstm_bidir_tm``):
     forward B2 fwd, saving (xw, w_hh_t, hs, cs); backward B2 bwd on the
-    contiguous cotangent. Kernels on CUDA tensors, plain versions on CPU
-    tensors. Reach it through ``lstm_bidir_tm``, which runs B1 instead when
-    no gradient is needed."""
+    contiguous cotangent; ``h_bf16`` runs both in their bf16-h form. Kernels
+    on CUDA tensors, plain versions on CPU tensors. Reach it through
+    ``lstm_bidir_tm``, which runs B1 instead when no gradient is needed."""
 
     @staticmethod
-    def forward(ctx, xw, w_hh_t):
-        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t)
+    def forward(ctx, xw, w_hh_t, h_bf16=False):
+        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t, h_bf16)
         ctx.save_for_backward(xw, w_hh_t, hs, cs)
+        ctx.h_bf16 = h_bf16
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
         xw, w_hh_t, hs, cs = ctx.saved_tensors
-        dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous())
+        dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous(), ctx.h_bf16)
         return (dxw if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None)
+                dw if ctx.needs_input_grad[1] else None, None)
 
 
 def lstm_bidir_bb_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
@@ -832,10 +950,14 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 lstm_bidir_tm.launches = 0
 lstm_bidir_tm.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm.carried = 0
+lstm_bidir_tm.h_bf16 = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
+lstm_bidir_tm_fc.h_bf16 = 0
 lstm_bidir_tm_bwd.launches = 0
 lstm_bidir_tm_bwd.by_route = {"phases": 0, "grid": 0}
+lstm_bidir_tm_bwd.h_bf16 = 0
+lstm_bidir_tm_dw_bf16.launches = 0
 lstm_bidir_bb.launches = 0
 lstm_bidir_bb.by_route = {"cluster": 0}
 lstm_bidir_fused.launches = 0

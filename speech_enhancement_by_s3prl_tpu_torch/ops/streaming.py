@@ -13,7 +13,8 @@
   mel bank) and the model step (deltas, the head continuing from the
   carried per-layer (h, c), the carrier rescaled to the masked magnitude, a
   product with the inverse DFT matrix, the window). On a CUDA model the
-  recurrence is kernel B1 with its state in and out; the (h, c) stay on the
+  recurrence is kernel B1 with its state in and out (a bf16 head: B1's
+  bf16-h form, the JAX scan cell in bf16); the (h, c) stay on the
   device between chunks. The fused STFT (B4) and decode (B5) kernels do not
   fit here: B4 reflect-pads each call's edges itself, and the streamer
   overlap-adds on the host across chunks, where B5 overlap-adds on the
@@ -103,8 +104,8 @@ class StatefulStreamer:
     utterance, so the stream is not renormalized (renorm the concatenation
     to compare with the offline contract).
 
-    Needs a one-direction f32 ``LSTM`` / ``Residual`` head (bf16: ROADMAP
-    A14b), mel downstream
+    Needs a one-direction ``LSTM`` / ``Residual`` head (f32, or bf16: the
+    bf16-h form of B1 from the carried state), mel downstream
     features (``feat_cfg``, by default the preprocessor's slot 1) with
     ``cmvn`` False (CMVN is a whole-utterance statistic), and the model's
     weights on the device the steps run on.
@@ -116,10 +117,6 @@ class StatefulStreamer:
         from .mel import mel_filterbank
         from .stft import _dft_tensors
 
-        if getattr(model, "compute_dtype", torch.float32) == torch.bfloat16:
-            raise NotImplementedError(
-                "stateful streaming of a bf16 head is not ported yet (ROADMAP A14b): a "
-                "one-direction LSTM in bf16 is the lax.scan cell's bf16 variant of B1")
         stack = getattr(model, "lstm", None)
         if not isinstance(stack, LSTMStack) or stack.bidirectional:
             raise ValueError(

@@ -106,7 +106,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--expdir", default="result")
     parser.add_argument("--seed", default=1337, type=int)
     parser.add_argument("--compute_dtype", default="f32", choices=["f32", "bf16"],
-                        help="bf16: the bidirectional LSTM heads' projections and the "
+                        help="bf16: the LSTM heads' projections and W_hh^T (and, in a "
+                        "one-direction head, h in the step product) and the "
                         "transformer's products in bf16 (parameters and optimizer "
                         "state stay f32); recorded in the checkpoint's Paras")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -38,7 +38,9 @@ waveforms. Where bf16 is placed is checked exactly (forward hooks; the
 projection's operands and W_hh^T's values), and the projection alone against
 JAX's ``einsum(..., preferred_element_type=f32)`` within 1e-6. Then the
 entry points: ``run_downstream --compute_dtype bf16`` trains 2 steps and a
-resume keeps bf16, and what is still refused names ROADMAP A14b.
+resume keeps bf16, and what still refuses bf16 (B7, other dtypes). The
+one-direction layer in bf16 has its own file,
+``tests/test_torch_port_bf16_one_direction.py``.
 """
 import dataclasses
 import os
@@ -406,25 +408,34 @@ def test_run_downstream_trains_in_bf16_and_a_resume_keeps_it(corpus, tmp_path): 
 
 
 def test_what_bf16_still_refuses_names_roadmap_a14b(tmp_path):
-    for name in ("LSTM", "Residual"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-            t_heads.build_head(name, 12, 10, compute_dtype="bf16", bidirectional=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        t_lstm.LSTMStack(12, 8, 2, bidirectional=False, compute_dtype=BF16)
-    pre, model = entry.build(device="cpu", compute_dtype="bf16", **FLAGSHIP)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        StatefulStreamer(model, pre)
-    builder = entry.build_train(device="cpu", compute_dtype="bf16", **FLAGSHIP)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        make_scoring_fn(builder)
-    # a one-direction checkpoint in bf16 is refused by name, and /stream with it
-    config, paras = entry.flagship_settings(bidirectional=False, compute_dtype="bf16",
-                                            **FLAGSHIP)
-    _, f32_model = entry.build(device="cpu", bidirectional=False, **FLAGSHIP)
-    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
-
-    save_checkpoint(str(tmp_path), 1, f32_model, None, config, paras)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        serve.build_enhancer(str(tmp_path), device="cpu")
+    """ROADMAP A14b's items 1 and 3 are ported: a one-direction head, its
+    checkpoint, the streamer and the scorer take bf16 (held against the JAX
+    package in tests/test_torch_port_bf16_one_direction.py). What still
+    refuses bf16: B7 (``recurrence='fused'``), which projects in f32 inside
+    its kernel, and any dtype but f32 and bf16."""
+    head = t_heads.build_head("Residual", 12, 10, compute_dtype="bf16", **HEAD)
+    head.lstm.recurrence = "fused"
+    feats, linears, _ = _head_inputs(3)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="no bf16 form"):
+        head(torch.from_numpy(feats), torch.from_numpy(linears))
+    # under autograd every route is LstmBidirTm, so the head still trains
+    out, _ = head(torch.from_numpy(feats), torch.from_numpy(linears))
+    assert out.requires_grad and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="unknown compute_dtype"):
         t_heads.build_head("Residual", 12, 10, compute_dtype="fp16", **HEAD)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        t_lstm.LSTMStack(12, 8, 2, bidirectional=False, compute_dtype=torch.float16)
+    # what A14b refused builds now
+    for name in ("LSTM", "Residual"):
+        one_dir = t_heads.build_head(name, 12, 10, compute_dtype="bf16", bidirectional=False)
+        assert one_dir.compute_dtype == BF16 and one_dir.lstm.compute_dtype == BF16
+    pre, model = entry.build(device="cpu", bidirectional=False, compute_dtype="bf16",
+                             **FLAGSHIP)
+    StatefulStreamer(model, pre)
+    make_scoring_fn(entry.build_train(device="cpu", compute_dtype="bf16", **FLAGSHIP))
+    config, paras = entry.flagship_settings(bidirectional=False, compute_dtype="bf16",
+                                            **FLAGSHIP)
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+
+    save_checkpoint(str(tmp_path), 1, model, None, config, paras)
+    assert serve.build_enhancer(str(tmp_path), device="cpu").model.compute_dtype == BF16

@@ -107,10 +107,10 @@ def test_one_direction_stack_runs_the_kernel_wrapper_with_one_direction(monkeypa
 
     seen = []
 
-    def recording(xw, w_hh_t):
+    def recording(xw, w_hh_t, **kw):  # kw: the f32 form's h_bf16=False
         seen.append((tuple(xw.shape), tuple(w_hh_t.shape), xw.is_contiguous()
                      and w_hh_t.is_contiguous()))
-        return lstm_bidir_tm(xw, w_hh_t)
+        return lstm_bidir_tm(xw, w_hh_t, **kw)
 
     monkeypatch.setattr(t_lstm, "lstm_bidir_tm", recording)
     B, T, D, H = 2, 9, 6, 8
@@ -243,12 +243,15 @@ def test_init_is_seeded_and_follows_the_reference_scheme():
 
 
 @pytest.mark.parametrize("name,cfg", [
-    # bf16 compute is ported for the bidirectional heads and the transformer;
-    # a one-direction LSTM in bf16 (JAX's lax.scan cell) is not
+    # one-direction heads in bf16 (JAX's lax.scan cell) build; what they do
+    # not take is a gradient through a carried state, as in f32
     ("LSTM", {"compute_dtype": "bf16"}),
     ("Residual", {"compute_dtype": "bf16"}),
     ("Residual", {"compute_dtype": "bfloat16", "num_layers": 1, "bidirectional": False}),
 ])
 def test_build_head_names_what_is_not_ported(name, cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        t_heads.build_head(name, input_size=12, output_size=10, **cfg)
+    head = t_heads.build_head(name, input_size=12, output_size=10, hidden_size=8, **cfg)
+    assert head.compute_dtype == torch.bfloat16 and not head.lstm.bidirectional
+    state = tuple((torch.zeros(2, 8), torch.zeros(2, 8)) for _ in range(head.lstm.num_layers))
+    with pytest.raises(RuntimeError, match="ROADMAP.md A3"):
+        head(torch.zeros(2, 5, 12), torch.ones(2, 5, 10), lstm_state=state)

@@ -317,9 +317,6 @@ def test_config_helpers_match_jax():
 
 @pytest.mark.parametrize("case,item", [
     (("--mesh=2x1",), "A12"), (("--profile",), "A11"),
-    # bf16 trains the bidirectional heads; a one-direction LSTM head in bf16 is
-    # not ported
-    (("--compute_dtype=bf16", "--downstream=LSTM"), "A14b"),
 ])
 def test_runner_refuses_what_is_not_ported(corpus, tmp_path, case, item):
     config = _config(corpus)

@@ -349,13 +349,6 @@ def test_serving_refuses_what_is_not_ported(ckpts, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="recurrence"):
         enhancer.model.lstm.recurrence = "scan"
     payload = load_checkpoint(ckpts["port"])
-    # a bf16 checkpoint of a one-direction head (JAX's lax.scan cell in bf16)
-    config, paras = entry.flagship_settings(bidirectional=False, compute_dtype="bf16",
-                                            **SMALL)
-    _, one_dir = entry.build(device="cpu", bidirectional=False, **SMALL)
-    save_checkpoint(str(tmp_path), 1, one_dir, None, config, paras)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        serve.build_enhancer(str(tmp_path), device="cpu")
     _, model = entry.build(device="cpu", **SMALL)
     # an upstream-mode checkpoint must record the upstream's S3PRL checkpoint
     payload["Settings"]["Paras"].update(compute_dtype="f32", from_rawfeature=False)
