@@ -177,6 +177,24 @@ Phases, one line each:
      its plain version and its bound, B2 bwd less its dW_hh^T kernel, the
      vcb train step, the B=1 enhance and the stream chunk in bf16 beside
      f32.
+ 14. the bf16 stream forms of B1, B2 fwd and B2 bwd, which the JAX package's
+     variables select (SE_LSTM_XW_BF16: xw in bf16, dxw written in it;
+     SE_PALLAS_HS_BF16: B1's hs in bf16; SE_PALLAS_VJP_BF16: B2's residuals
+     in bf16, its backward rounding W_hh^T and the dh product's da): each
+     form against its plain version at the flagship shape, with one
+     direction, at B = 16 and T = 1 on the cluster / phases routes and at H
+     = 36 and 260 on the grid routes, every call twice for identical bits,
+     B1 from a carried state and the bf16-h form with a bf16 xw, beside the
+     f32 form, which the limits must tell apart; the flagship served at B=1
+     10 s under the JAX enhance mode's variables and one B=6 10 s train step
+     under its train mode's, card against CPU under the window, with the
+     stream-form launches; config/active.yaml's head in bf16 scored under
+     its score mode's variables with the CPU's ``match > 0`` set; vcb's
+     one-direction head under SE_LSTM_XW_BF16 alone in f32 and bf16, served,
+     streamed and one train step, card against CPU under the window; and
+     times: each form beside the f32 form and its plain version, with the
+     bound of the bytes it moves, the enhance and the train step under their
+     modes beside f32.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -598,7 +616,7 @@ def ckpt_files(directory):
 def reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
-        for count in ("carried", "h_bf16"):
+        for count in ("carried", "h_bf16", "xw_bf16", "hs_bf16", "res_bf16"):
             if hasattr(fn, count):
                 setattr(fn, count, 0)
         for route in getattr(fn, "by_route", {}):
@@ -4360,6 +4378,667 @@ def one_direction_bf16_phase(torch, L, counted, dsp_kernels, card, tmp):
             "scoring": scoring, "times": times}
 
 
+# the bf16 stream forms of B1 / B2 fwd / B2 bwd (phase 14): the JAX package's
+# SE_LSTM_XW_BF16 (xw stored in bf16, dxw written in it), SE_PALLAS_HS_BF16
+# (B1 stores hs in bf16) and SE_PALLAS_VJP_BF16 (B2 fwd stores hs and cs in
+# bf16; B2 bwd reads them, rounds W_hh^T and the dh product's da), against
+# their plain versions on the same inputs, then the models that read those
+# variables, card against CPU, and times.
+# (ndir, B, T, H) of the checks: the cluster route at the flagship shape, with
+# one direction, at B = 16 and at T = 1; the grid route at H = 36 and 260
+STREAM_SHAPES = ((2, 6, 1001, 256), (1, 6, 1001, 256), (2, 16, 1001, 256), (2, 3, 1, 256),
+                 (2, 3, 57, 36), (2, 2, 57, 260))
+# A stored bf16 stream (hs, cs; dxw in the bf16 xw form) against its plain
+# version: the kernel's f32 value and the plain version's differ by f32
+# summation orders (~1e-7), so their roundings to bf16 agree but where a value
+# lies within that of a rounding boundary, and then differ by one bf16 unit;
+# the recurrence itself stays f32, so a flip of a stored value moves nothing
+# later (a flip of the dh product's rounded da does, by a fraction of a unit).
+# Held: within one bf16 unit on this share, identical on the second (read
+# on an NVIDIA H100 80GB HBM3 at 700 W: >= 0.99998 / 0.9999 at T = 1001; the
+# f32 form's values are no bf16 numbers, identical on ~0). The bf16 dxw of the
+# residual backward also carries the flips of its rounded da (below) into the
+# earlier steps: the second pair (read >= 0.99904 / 0.99187; the f32 form
+# 0.858 / 0).
+STREAM_ULP_SHARE, STREAM_SAME_SHARE = 0.999, 0.99
+STREAM_CHAIN_ULP_SHARE, STREAM_CHAIN_SAME_SHARE = 0.995, 0.98
+# an f32 stream of a form computed from the same rounded inputs in other
+# orders (hs and cs of B1 / B2 fwd reading a bf16 xw; dW_hh^T and dxw of B2
+# bwd reading a bf16 xw): the f32 limits of phase 3, KERNEL_TOL absolute for
+# h and B2_TOL of the largest value else. The residual form's backward rounds
+# da to bf16 for its dh product, and where that rounding flips (f32-level
+# differences near a boundary) the carried dh moves by a fraction of a bf16
+# unit into the earlier steps, so its dxw is held to the limits of the
+# bf16-h backward (phase 13: RMS and maximum of the largest value; read 9.8e-7
+# / 1.2e-4 at B = 6, T = 1001), and its dW_hh^T, a sum of those da over every
+# step, to an RMS of this share of its largest value (read 3.0e-6; the f32
+# backward on the unrounded residuals 2.7e-4) and the same maximum (read
+# 3.0e-5). At T = 1 dW_hh^T is zero in every form.
+STREAM_DW_RMS = 1e-5
+
+
+def bf16_shares(torch, out, ref):
+    """(share within one bf16 unit, share identical) of two tensors of bf16
+    values (bf16, or f32 holding them); an f32 tensor of other values is
+    compared as its rounding, identical only where it is a bf16 number equal
+    to ``ref``."""
+    def ordered(x):
+        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    u = (ordered(out) - ordered(ref)).abs()
+    same = out.float() == ref.float()
+    return float((u <= 1).double().mean()), float(same.double().mean())
+
+
+def stream_form_checks(torch, L):
+    """Phase 14 (a): each stream form of B1, B2 fwd and B2 bwd against its
+    plain version on the card at ``STREAM_SHAPES`` (the route each hidden size
+    names), every kernel call twice for identical bits, B1 with one direction
+    also from a carried state, and the bf16-h form with a bf16 xw (the
+    one-direction layer in bf16 under SE_LSTM_XW_BF16). Beside each form the
+    f32 form (f32 xw and streams) on the same inputs, which its limits must
+    fail. Returns the worst readings."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {"h_abs": 0.0, "ulp": 1.0, "same": 1.0, "rel": 0.0,
+             "abs": {"b1": 0.0, "fc": 0.0, "bwd": 0.0}}
+    cur = {"k": "b1"}  # the kernel whose outputs the held_* calls check
+    def flat(x):
+        return [y for z in x for y in flat(z)] if isinstance(x, (tuple, list)) else [x]
+
+    def twice(fn):
+        a, b = fn(), fn()
+        same = all(torch.equal(p, q) for p, q in zip(flat(a), flat(b)))
+        if not same:
+            raise AssertionError("a stream-form kernel gave other bits on the same inputs")
+        return a
+
+    failed = []
+
+    def held_f32(name, out, ref, form_f32, kind, apart=True):
+        """``kind`` "h" (KERNEL_TOL absolute), "rel" (B2_TOL of the largest
+        value), "chain" / "chain_dw" (RMS and maximum of the largest value);
+        ``apart``: the f32 form must fail the limit."""
+        scale = 1.0 if kind == "h" else (float(ref.abs().max()) or 1.0)
+        mx, rms, _ = spread(torch, out.float(), ref.float(), scale)
+        f_mx, f_rms, _ = spread(torch, form_f32.float(), ref.float(), scale)
+        if kind.startswith("chain"):
+            rms_tol = STREAM_DW_RMS if kind == "chain_dw" else BF16H_DXW_RMS
+            ok = mx <= BF16H_DXW_MAX and rms <= rms_tol and (f_rms > rms_tol or not apart)
+        else:
+            tol = KERNEL_TOL if kind == "h" else B2_TOL
+            ok = mx <= tol and (tol < f_mx or not apart)
+        if not ok:
+            failed.append(name)
+        worst["abs"][cur["k"]] = max(worst["abs"][cur["k"]],
+                                     float((out.float() - ref.float()).abs().max()))
+        key = {"h": "h_abs", "rel": "rel", "chain": "chain_rms", "chain_dw": "dw_rms"}[kind]
+        worst[key] = max(worst.get(key, 0.0), rms if kind.startswith("chain") else mx)
+        return f"{name} {mx:.2e} / {rms:.2e} RMS (f32 form {f_mx:.2e} / {f_rms:.2e})"
+
+    def held_bf16(name, out, ref, form_f32, chain=False):
+        ulp, same = bf16_shares(torch, out, ref)
+        f_ulp, f_same = bf16_shares(torch, form_f32, ref)
+        is_bf16 = torch.equal(out.to(bf16).float(), out.float())
+        lim = ((STREAM_CHAIN_ULP_SHARE, STREAM_CHAIN_SAME_SHARE) if chain
+               else (STREAM_ULP_SHARE, STREAM_SAME_SHARE))
+        if not (is_bf16 and ulp >= lim[0] and same >= lim[1]) or (
+                f_ulp >= lim[0] and f_same >= lim[1]):
+            failed.append(name)
+        worst["abs"][cur["k"]] = max(worst["abs"][cur["k"]],
+                                     float((out.float() - ref.float()).abs().max()))
+        worst["ulp"], worst["same"] = min(worst["ulp"], ulp), min(worst["same"], same)
+        return f"{name} {ulp:.5f} / {same:.5f} (f32 form {f_ulp:.3f} / {f_same:.3f})"
+
+    for ndir, B, T, H in STREAM_SHAPES:
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 140 + B + T, ndir=ndir)
+        xw_b = xw.to(bf16)
+        # the plain versions: the recurrence from the bf16 xw and from the f32
+        # one (the f32 form), whose roundings give every stored stream
+        hs_b, cs_b = L.lstm_bidir_tm_fc_ref(xw_b, w_hh_t)
+        hs_f, cs_f = L.lstm_bidir_tm_fc_ref(xw, w_hh_t)
+        lines = []
+        # B1: bf16 xw; bf16 hs; both
+        cur["k"] = "b1"
+        out = twice(lambda: L.lstm_bidir_tm(xw_b, w_hh_t))
+        lines.append(held_f32("B1 xw", out, hs_b, hs_f, "h"))
+        # (B1 hands hs back widened to f32, as the JAX kernel does)
+        out = twice(lambda: L.lstm_bidir_tm(xw, w_hh_t, hs_dtype=bf16))
+        lines.append(held_bf16("B1 hs", out, hs_f.to(bf16), hs_f))
+        out = twice(lambda: L.lstm_bidir_tm(xw_b, w_hh_t, hs_dtype=bf16))
+        lines.append(held_bf16("B1 xw+hs", out, hs_b.to(bf16), hs_f))
+        # B2 fwd: bf16 xw (f32 residuals); bf16 residuals; both
+        cur["k"] = "fc"
+        hs, cs = twice(lambda: L.lstm_bidir_tm_fc(xw_b, w_hh_t))
+        lines.append(held_f32("B2 fwd xw hs", hs, hs_b, hs_f, "h"))
+        lines.append(held_f32("cs", cs, cs_b, cs_f, "rel"))
+        for name, x, ref_h, ref_c in (("res", xw, hs_f, cs_f), ("xw+res", xw_b, hs_b, cs_b)):
+            hs, cs = twice(lambda x=x: L.lstm_bidir_tm_fc(x, w_hh_t, res_dtype=bf16))
+            lines.append(held_bf16(f"B2 fwd {name} hs", hs, ref_h.to(bf16), hs_f))
+            lines.append(held_bf16("cs", cs, ref_c.to(bf16), cs_f))
+        # B2 bwd on the plain forward's residuals: bf16 xw (f32 residuals,
+        # bf16 dxw); bf16 residuals; both. The f32 form: the f32 backward on
+        # the f32 xw and residuals
+        cur["k"] = "bwd"
+        f32_dxw, f32_dw = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs_f, cs_f, dhs)
+        res = (hs_b.to(bf16), cs_b.to(bf16), dhs.to(bf16))
+        res_f = (hs_f.to(bf16), cs_f.to(bf16), dhs.to(bf16))
+        for name, x, r in (("xw", xw_b, (hs_b, cs_b, dhs)), ("res", xw, res_f),
+                           ("xw+res", xw_b, res)):
+            dxw, dw = twice(lambda x=x, r=r: L.lstm_bidir_tm_bwd(x, w_hh_t, *r))
+            ref_dxw, ref_dw = L.lstm_bidir_tm_bwd_ref(x, w_hh_t, *r)
+            chain = r[0].dtype == bf16
+            if x.dtype == bf16:
+                lines.append(held_bf16(f"B2 bwd {name} dxw", dxw, ref_dxw, f32_dxw, chain))
+            else:
+                lines.append(held_f32(f"B2 bwd {name} dxw", dxw, ref_dxw, f32_dxw,
+                                      "chain" if chain else "rel"))
+            lines.append(held_f32("dW_hh^T", dw, ref_dw, f32_dw, "chain_dw" if chain else "rel",
+                                  apart=T > 1))
+        if ndir == 1:
+            # the one-direction layer in bf16 under SE_LSTM_XW_BF16: the bf16-h
+            # form with a bf16 xw, W_hh^T holding bf16 values; and B1 with a
+            # bf16 xw from a carried state
+            wb = w_hh_t.to(bf16).float()
+            hh, ch = L.lstm_bidir_tm_fc_ref(xw_b, wb, h_bf16=True)
+            hh_f = L.lstm_bidir_tm_ref(xw, wb, h_bf16=True)
+            out = twice(lambda: L.lstm_bidir_tm(xw_b, wb, h_bf16=True))
+            spread_ = spread(torch, out, hh)
+            far = spread(torch, hh_f, hh)
+            if not (spread_[0] <= BF16H_MAX and spread_[1] <= BF16H_RMS
+                    and spread_[2] >= BF16H_SHARE) or far[1] <= BF16H_RMS:
+                failed.append("B1 bf16-h xw")
+            lines.append(f"B1 bf16-h xw (max, RMS, within 1e-4) {spread_[0]:.2e} / "
+                         f"{spread_[1]:.2e} / {spread_[2]:.5f} (xw f32 {far[1]:.2e} RMS)")
+            dxw, dw = twice(lambda: L.lstm_bidir_tm_bwd(xw_b, wb, hh, ch, dhs, h_bf16=True))
+            ref_dxw, ref_dw = L.lstm_bidir_tm_bwd_ref(xw_b, wb, hh, ch, dhs, h_bf16=True)
+            h_dxw = L.lstm_bidir_tm_bwd_ref(xw, wb, hh, ch, dhs, h_bf16=True)[0]
+            lines.append(held_bf16("B2 bwd bf16-h xw dxw", dxw, ref_dxw, h_dxw))
+            dw_share = ulp_share(torch, dw, ref_dw)[0]
+            if dw_share < BF16H_DW_SHARE:
+                failed.append("B2 bwd bf16-h xw dW_hh^T")
+            lines.append(f"dW_hh^T within one bf16 unit {dw_share:.5f}")
+            g = torch.Generator().manual_seed(SEED + 14)
+            h0 = (2 * torch.rand(1, B, H, generator=g) - 1).cuda()
+            c0 = torch.randn(1, B, H, generator=g).cuda()
+            cur["k"] = "b1"
+            hs_s, (_, cT) = twice(lambda: L.lstm_bidir_tm(xw_b, w_hh_t, state=(h0, c0),
+                                                          return_state=True))
+            ref_s, (_, ref_cT) = L.lstm_bidir_tm_ref(xw_b, w_hh_t, state=(h0, c0),
+                                                     return_state=True)
+            f32_s, (_, f32_cT) = L.lstm_bidir_tm_ref(xw, w_hh_t, state=(h0, c0),
+                                                     return_state=True)
+            lines.append(held_f32("B1 xw carried hs", hs_s, ref_s, f32_s, "h"))
+            lines.append(held_f32("cT", cT, ref_cT, f32_cT, "rel"))
+        torch.cuda.synchronize()
+        print(f"[streams] ndir={ndir} B={B} T={T} H={H} routes ({L.fwd_route(H)!r}, "
+              f"{L.bwd_route(H)!r}), each call twice with identical bits; f32 streams max err "
+              f"(limits {KERNEL_TOL:.0e} absolute for h, {B2_TOL:.0e} of the largest value "
+              f"else), bf16 streams within one bf16 unit / identical (limits "
+              f"{STREAM_ULP_SHARE} / {STREAM_SAME_SHARE}, a bf16 dxw of the residual form "
+              f"{STREAM_CHAIN_ULP_SHARE} / {STREAM_CHAIN_SAME_SHARE}; the residual backward's "
+              f"(max, RMS) {BF16H_DXW_MAX:.0e} / {BF16H_DXW_RMS:.0e}, dW_hh^T RMS "
+              f"{STREAM_DW_RMS:.0e}): " + "; ".join(lines), flush=True)
+        if failed:
+            raise AssertionError(f"stream forms at ndir={ndir} B={B} T={T} H={H}: {failed}")
+        del xw, xw_b, w_hh_t, dhs
+    return worst
+
+
+# the JAX package's bench modes the phase runs (bench.py:48-102, :634): enhance
+# / latency (xw and hs in bf16), train (xw and the VJP's residuals), score
+# (the VJP's residuals and hs, with --compute_dtype bf16)
+ENHANCE_MODE = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16")
+TRAIN_MODE = ("SE_LSTM_XW_BF16", "SE_PALLAS_VJP_BF16")
+SCORE_MODE = ("SE_PALLAS_VJP_BF16", "SE_PALLAS_HS_BF16")
+# phase 14 (e): vcb's one-direction head streamed and trained on rows of this
+# many seconds (served at 10 s)
+STREAM_FORM_SECONDS = 4.0
+
+
+@contextlib.contextmanager
+def stream_env(names):
+    """The JAX package's stream-form variables ``names`` set to 1 (the
+    others of the three unset) for the block; the environment restored
+    after."""
+    every = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16", "SE_PALLAS_VJP_BF16")
+    saved = {k: os.environ.get(k) for k in every}
+    try:
+        for k in every:
+            if k in names:
+                os.environ[k] = "1"
+            else:
+                os.environ.pop(k, None)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def form_window(torch, run, names, what):
+    """The window criterion of a result under the variables ``names`` (the
+    form) against the same with none set (the f32 form), card against CPU:
+    ``run(device)`` returns the result; returns (near, ratio)."""
+    sides = {}
+    for device in ("cuda", "cpu"):
+        for form in (True, False):
+            with stream_env(names if form else ()):
+                sides[(device, form)] = run(device)
+    order = (("cuda", True), ("cuda", False), ("cpu", True), ("cpu", False))
+    return window(torch, *(sides[k] for k in order), what)
+
+
+def flagship_stream_serving(torch, counted, card):
+    """Phase 14 (b): the flagship (3 BLSTM x 256) served at B=1, 10 s, under
+    the JAX enhance mode's variables, card against CPU under the window, with
+    the launches of the stream-form B1."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, make_enhance
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    wav3 = np.stack([request_audio(10.0, 140 + s) for s in range(3)])[None]
+    enhancers = {}
+    for device in ("cuda", "cpu"):
+        pre, model = build(device=device, generator=torch.Generator().manual_seed(SEED + 14))
+        enhancers[device] = (make_enhance(pre, model), torch.from_numpy(wav3).to(device),
+                             torch.tensor([wav3.shape[-1]]).to(device))
+    counts = {}
+
+    def run(device):
+        enhance, w, n = enhancers[device]
+        if device == "cuda" and os.environ.get("SE_PALLAS_HS_BF16") == "1":
+            # -- the main path: the flagship served in the JAX enhance mode --
+            reset_counts(counted)
+            out = enhance(w, n)
+            b1 = L.lstm_bidir_tm
+            counts["enhance"] = [b1.launches, b1.xw_bf16, b1.hs_bf16, counted[3].launches,
+                                 counted[4].launches]
+            # -------------------------------------------------------------
+            return out
+        return enhance(w, n)
+
+    w = form_window(torch, run, ENHANCE_MODE, "flagship served under the enhance mode")
+    print(f"[streams] the flagship (3 BLSTM x 256) served at B=1 10 s under "
+          f"{'=1 '.join(ENHANCE_MODE)}=1 on cuda: launches (B1, of it bf16 xw, bf16 hs, B4, B5) "
+          f"{counts['enhance']} (want [3, 3, 3, 1, 1]); window against the CPU ({w[0]:.3f}, "
+          f"{w[1]:.3f}) (limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}) | {card}", flush=True)
+    if counts["enhance"] != [3, 3, 3, 1, 1]:
+        raise AssertionError(f"flagship enhance mode: launches {counts['enhance']}")
+    # the B=1 10 s call under the mode beside f32, in turns
+    enhance, wv, n = enhancers["cuda"]
+    ms = {}
+    for form in (False, True, True, False):
+        with stream_env(ENHANCE_MODE if form else ()):
+            t = synced_ms(torch, lambda: enhance(wv, n), runs=20)
+        key = "streams" if form else "f32"
+        ms[key] = min(ms.get(key, math.inf), statistics.median(t))
+    print(f"[time] flagship enhance B=1 10 s: median {ms['streams']:.3f} ms under the enhance "
+          f"mode, {ms['f32']:.3f} ms in f32 (medians of 20, better of two turns) | {card}",
+          flush=True)
+    return {"window": w, "launches": counts["enhance"], "ms": ms}
+
+
+def step_sides(torch, builders, wavs_np, names, what, counted=None):
+    """One loss and gradient of ``builders[device]`` (StepBuilders over the
+    same weights) on the card and the CPU, under ``names`` and with none set:
+    the window on the loss and the whole gradient. With ``counted`` (the
+    kernels, then the form counters' owners) the card's launches under the
+    form are returned, from one ``train_step`` of the card's builder."""
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    def run(device):
+        b = builders[device]
+        wavs = torch.from_numpy(wavs_np).to(device)
+        lengths = torch.full((wavs.shape[0],), wavs.shape[-1], dtype=torch.long, device=device)
+        ctx = make_context(b.preprocessor, wavs, lengths, b.channel_inp, b.channel_tar)
+        loss, _ = b.loss_fn(ctx)
+        g = torch.autograd.grad(loss, list(b.model.parameters()))
+        return torch.cat([loss.detach().reshape(1).double().cpu()]
+                         + [x.detach().reshape(-1).double().cpu() for x in g])
+
+    sides = {}
+    for device in ("cuda", "cpu"):
+        for form in (True, False):
+            with stream_env(names if form else ()):
+                sides[(device, form)] = run(device)
+    order = (("cuda", True), ("cuda", False), ("cpu", True), ("cpu", False))
+    losses = [float(sides[k][0]) for k in order]
+    if abs(losses[2] - losses[3]) > TRAIN_LOSS_TOL * abs(losses[3]):
+        loss_w = window(torch, *(sides[k][:1] for k in order), f"{what} loss")
+    else:
+        # the form moves the loss by no more than f32 summation orders do
+        # (the flagship at 10 s: not at all; vcb's head: one f32 unit), so a
+        # window has nothing to measure: the card's loss is held to the CPU's
+        # as phase 3 holds the f32 step, and reported as (rel, 0)
+        loss_w = (abs(losses[0] - losses[2]) / abs(losses[2]), 0.0)
+        if not loss_w[0] <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"{what} loss: card {losses[0]}, CPU {losses[2]}")
+    grad_w = window(torch, *(sides[k][1:] for k in order), f"{what} gradient")
+    counts = None
+    if counted is not None:
+        b = builders["cuda"]
+        wavs = torch.from_numpy(wavs_np).cuda()
+        lengths = torch.full((wavs.shape[0],), wavs.shape[-1], dtype=torch.long).cuda()
+        state = b.init_state()
+        with stream_env(names):
+            # -- the main path: one train step under the form --
+            reset_counts(counted)
+            state, stats = b.train_step(state, wavs, lengths)
+            counts = form_counts(counted)
+            # ---------------------------------------------------
+        if not math.isfinite(float(stats["loss"])):
+            raise AssertionError(f"{what}: train step loss {stats['loss']}")
+    return loss_w, grad_w, counts, sides
+
+
+def form_counts(counted):
+    """Launches of each kernel in ``counted`` and, for B1 / B2 fwd / B2 bwd,
+    of their stream forms: [B1, xw, hs, B2 fwd, xw, res, B2 bwd, xw, res,
+    then the others' launches]."""
+    out = []
+    for fn in counted:
+        out.append(fn.launches)
+        if hasattr(fn, "hs_bf16"):
+            out += [fn.xw_bf16, fn.hs_bf16]
+        elif hasattr(fn, "res_bf16"):
+            out += [fn.xw_bf16, fn.res_bf16]
+    return out
+
+
+def train_batch(seconds, rows, seed):
+    clean = np.stack([request_audio(seconds, seed + s) for s in range(rows)])
+    noise = 0.05 * np.random.default_rng(seed).standard_normal(clean.shape).astype(np.float32)
+    return np.stack([clean + noise, clean, noise], axis=1)
+
+
+def flagship_stream_step(torch, counted, card):
+    """Phase 14 (c): one flagship train step (B=6, 10 s) under the JAX train
+    mode's variables, card against CPU under the window, the launches of the
+    stream-form B2 fwd / B2 bwd, and the step's time beside f32."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_train
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    builders = {d: build_train(device=d, generator=torch.Generator().manual_seed(SEED + 14))
+                for d in ("cuda", "cpu")}
+    wavs_np = train_batch(10.0, 6, 150)
+    loss_w, grad_w, counts, _ = step_sides(torch, builders, wavs_np, TRAIN_MODE,
+                                           "flagship step under the train mode", counted)
+    want = [0, 0, 0, 3, 3, 3, 3, 3, 3, 1, 0, 0]
+    print(f"[streams] flagship train step B=6 10 s under {'=1 '.join(TRAIN_MODE)}=1: window "
+          f"card against CPU loss ({loss_w[0]:.3g}, {loss_w[1]:.3f}; a ratio 0 when the form "
+          f"leaves the f32 loss as it is, then the first is card against CPU relative, limit "
+          f"{TRAIN_LOSS_TOL:.0e}), gradient "
+          f"({grad_w[0]:.3f}, {grad_w[1]:.3f}); launches (B1, xw, hs, B2 fwd, xw, res, B2 bwd, "
+          f"xw, res, B4, B5, dW_hh^T bf16) {counts} (want {want}) | {card}", flush=True)
+    if counts != want:
+        raise AssertionError(f"flagship train mode: launches {counts}")
+    b = builders["cuda"]
+    wavs = torch.from_numpy(wavs_np).cuda()
+    lengths = torch.full((6,), wavs.shape[-1], dtype=torch.long).cuda()
+    ms = {}
+    for form in (False, True, True, False):
+        box = [b.init_state()]
+
+        def one(box=box):
+            box[0], _ = b.train_step(box[0], wavs, lengths)
+
+        with stream_env(TRAIN_MODE if form else ()):
+            t = synced_ms(torch, one, runs=10)
+        key = "streams" if form else "f32"
+        ms[key] = min(ms.get(key, math.inf), statistics.median(t))
+    del box, one
+    # the memory the loss and its gradient take beyond what is allocated
+    # before (the model, the batch): what the forward keeps for the backward,
+    # and the peak of each pass
+    mib = {}
+    params = list(b.model.parameters())
+    for form in (False, True):
+        with stream_env(TRAIN_MODE if form else ()):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ctx = make_context(b.preprocessor, wavs, lengths, b.channel_inp, b.channel_tar)
+            loss, _ = b.loss_fn(ctx)
+            torch.cuda.synchronize()
+            kept, fwd_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            bwd_peak = torch.cuda.max_memory_allocated()
+            del ctx, loss
+        mib["streams" if form else "f32"] = tuple(
+            (x - base) / 2**20 for x in (kept, fwd_peak, bwd_peak))
+    print(f"[time] flagship train step B=6 10 s: median {ms['streams']:.3f} ms under the train "
+          f"mode, {ms['f32']:.3f} ms in f32 (medians of 10 synchronized steps, better of two "
+          f"turns); its loss and gradient (MiB beyond what was allocated before: kept by the "
+          f"forward, forward peak, backward peak) {' / '.join(f'{x:.1f}' for x in mib['streams'])}"
+          f" under the mode, {' / '.join(f'{x:.1f}' for x in mib['f32'])} in f32 | {card}",
+          flush=True)
+    return {"loss": loss_w, "grad": grad_w, "launches": counts, "ms": ms, "mib": mib}
+
+
+def active_score_mode(torch, card):
+    """Phase 14 (d): config/active.yaml's head (LSTM 3 x 256, bidirectional,
+    L1, the flagship's 120-d log-mel) in bf16 scored under the JAX score
+    mode's variables, ``BF16H_SCORE_ROWS`` rows of 10 s, under both engines:
+    the card's ``match > 0`` set the CPU's, every B2 launch in the residual
+    form."""
+    import copy
+    import dataclasses
+
+    from speech_enhancement_by_s3prl_tpu_torch.active import sampler as S
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build
+    from speech_enhancement_by_s3prl_tpu_torch.models.heads import build_head
+    from speech_enhancement_by_s3prl_tpu_torch.objectives import build_objective
+    from speech_enhancement_by_s3prl_tpu_torch.runner.optim import build_optimizer
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import StepBuilder
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    pre, _ = build(device="cpu")
+    head = build_head("LSTM", input_size=pre.feat_dims()[1], output_size=201, hidden_size=256,
+                      num_layers=3, bidirectional=True, compute_dtype="bf16",
+                      generator=torch.Generator().manual_seed(SEED + 14))
+    builder = StepBuilder(preprocessor=pre, model=head, objective=build_objective("L1"),
+                          optimizer=build_optimizer("Adam", 1e-4, 0.07, 100),
+                          from_rawfeature=True)
+    rows = BF16H_SCORE_ROWS
+    wavs = train_batch(10.0, rows, 160)
+    lengths = np.array([int(10.0 * SR) - 1600 * (k % 3) for k in range(rows)])
+    out = {}
+    counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd)
+    for impl in ("vmap", "capture"):
+        sides = {}
+        for device in ("cuda", "cpu"):
+            model = copy.deepcopy(head).to(device)
+            f = S.make_scoring_fn(dataclasses.replace(builder, model=model), None, impl=impl)
+            with stream_env(SCORE_MODE):
+                if device == "cuda":
+                    # -- the main path: scoring in the JAX score mode --
+                    reset_counts(counted)
+                    emb = f(model, wavs, lengths).detach().cpu()
+                    counts = form_counts(counted)
+                    # ----------------------------------------------------
+                else:
+                    emb = f(model, wavs, lengths).detach().cpu()
+                query = f(model, wavs, lengths, mean=True).detach().cpu()
+            sides[device] = (emb, S.matching(query, emb))
+        same = torch.equal(sides["cuda"][1] > 0, sides["cpu"][1] > 0)
+        rel = float((sides["cuda"][0] - sides["cpu"][0]).pow(2).mean().sqrt()
+                    / sides["cpu"][0].pow(2).mean().sqrt())
+        forms_ok = counts[3] == counts[5] > 0 and counts[6] == counts[8] == counts[3]
+        print(f"[streams] config/active.yaml head in bf16 scored under "
+              f"{'=1 '.join(SCORE_MODE)}=1 ({impl} engine, {rows} rows of 10 s): match > 0 set "
+              f"the CPU's {same}, embeddings card against CPU {rel:.2e} of their RMS; launches "
+              f"(B1, xw, hs, B2 fwd, xw, res, B2 bwd, xw, res) {counts} | {card}", flush=True)
+        if not (same and forms_ok):
+            raise AssertionError(f"active score mode {impl}: same {same}, launches {counts}")
+        out[impl] = (same, rel, counts)
+    return out
+
+
+def vcb_xw_form(torch, counted, card):
+    """Phase 14 (e): vcb's one-direction head (Residual 3 x 256 on the
+    flagship features) under SE_LSTM_XW_BF16=1 alone, in f32 and in bf16:
+    served at B=1 10 s, streamed in 48-frame chunks and one train step (B=6),
+    card against CPU under the window, with the launches of the xw form."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, build_train, make_enhance
+    from speech_enhancement_by_s3prl_tpu_torch.ops.streaming import StatefulStreamer
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    names = ("SE_LSTM_XW_BF16",)
+    wav3 = np.stack([request_audio(10.0, 170 + s) for s in range(3)])[None]
+    n_stream = int(STREAM_FORM_SECONDS * SR)
+    wav = speech_like(n_stream, 53)
+    sizes = np.random.default_rng(SEED + 14).integers(700, 9000, size=200)
+    out = {}
+    for dt in ("f32", "bf16"):
+        gen = lambda: torch.Generator().manual_seed(SEED + 15)  # noqa: E731
+        built = {d: build(bidirectional=False, compute_dtype=dt, device=d, generator=gen())
+                 for d in ("cuda", "cpu")}
+        counts = {}
+
+        def served(device):
+            pre, model = built[device]
+            w = torch.from_numpy(wav3).to(device)
+            n = torch.tensor([wav3.shape[-1]]).to(device)
+            if device == "cuda" and os.environ.get("SE_LSTM_XW_BF16") == "1":
+                # -- the main path: the one-direction head served, xw form --
+                reset_counts(counted)
+                res = make_enhance(pre, model)(w, n)
+                counts["served"] = form_counts(counted[:1]) + [L.lstm_bidir_tm.h_bf16]
+                # ----------------------------------------------------------
+                return res
+            return make_enhance(pre, model)(w, n)
+
+        def streamed(device):
+            pre, model = built[device]
+            streamer = StatefulStreamer(model, pre, frames_per_chunk=STREAM_FRAMES)
+            if device == "cuda" and os.environ.get("SE_LSTM_XW_BF16") == "1":
+                # -- the main path: the one-direction head streamed, xw form --
+                reset_counts(counted)
+                res = drive_stream(streamer, wav, sizes)
+                counts["stream"] = [L.lstm_bidir_tm.launches, L.lstm_bidir_tm.carried,
+                                    L.lstm_bidir_tm.xw_bf16]
+                # ------------------------------------------------------------
+                return res
+            return drive_stream(streamer, wav, sizes)
+
+        w_served = form_window(torch, served, names, f"vcb head {dt} served, xw form")
+        w_stream = form_window(torch, streamed, names, f"vcb head {dt} streamed, xw form")
+        builders = {d: build_train(bidirectional=False, compute_dtype=dt, device=d,
+                                   generator=gen()) for d in ("cuda", "cpu")}
+        loss_w, grad_w, step_counts, _ = step_sides(
+            torch, builders, train_batch(STREAM_FORM_SECONDS, 6, 180), names,
+            f"vcb head {dt} train step, xw form", counted)
+        chunks = counts["stream"][0] // 3
+        h = 3 if dt == "bf16" else 0
+        want = {"served": [3, 3, 0, h], "stream": [3 * chunks] * 3,
+                "step": [0, 0, 0, 3, 3, 0, 3, 3, 0, 1, 0, h]}
+        got = {"served": counts["served"], "stream": counts["stream"], "step": step_counts}
+        print(f"[streams] vcb's one-direction head (Residual 3 x 256) in {dt} under "
+              f"SE_LSTM_XW_BF16=1, card against CPU: served B=1 10 s window ({w_served[0]:.3f}, "
+              f"{w_served[1]:.3f}), launches (B1, xw, hs, bf16-h) {got['served']}; streamed "
+              f"{STREAM_FORM_SECONDS:.0f} s in {chunks} chunks of {STREAM_FRAMES} frames window "
+              f"({w_stream[0]:.3f}, {w_stream[1]:.3f}), launches (B1, with state, xw) "
+              f"{got['stream']}; train step B=6 {STREAM_FORM_SECONDS:.0f} s window loss "
+              f"({loss_w[0]:.3g}, {loss_w[1]:.3f}; ratio 0: card against CPU relative, the form "
+              f"within f32 noise), gradient ({grad_w[0]:.3f}, {grad_w[1]:.3f}), "
+              f"launches (B1, xw, hs, B2 fwd, xw, res, B2 bwd, xw, res, B4, B5, dW_hh^T bf16) "
+              f"{got['step']} (limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}) | {card}",
+              flush=True)
+        if got != want or chunks < 1:
+            raise AssertionError(f"vcb head {dt} xw form: launches {got}, want {want}")
+        out[dt] = {"served": w_served, "stream": w_stream, "loss": loss_w, "grad": grad_w,
+                   "launches": got}
+    return out
+
+
+def stream_bound(B, T, H, kind, xw_bf16, out_bf16, ndir=2):
+    """The least time of a stream form at (ndir, B, T, H): ``kind`` "b1" /
+    "fc": one h @ W_hh^T a step and direction as f32 FMAs, xw (2 or 4 bytes
+    an element) and W_hh^T in, hs (and cs) out (2 or 4 bytes); "bwd": the
+    gate and dh products, and dW_hh^T, as three TF32 passes each (f32
+    residuals), or (bf16 residuals) the two products of bf16 numbers as one
+    bf16 pass each and dW_hh^T of bf16 h against the f32 da as two TF32
+    passes; xw, W_hh^T, hs, cs, dhs in, dxw (xw's bytes) and dW_hh^T out."""
+    n, w = ndir * B * T, ndir * H * 4 * H
+    product = 2 * n * H * 4 * H
+    xb, ob = (2 if xw_bf16 else 4), (2 if out_bf16 else 4)
+    if kind in ("b1", "fc"):
+        nbytes = n * 4 * H * xb + 4 * w + n * H * ob * (2 if kind == "fc" else 1)
+        return bound(product, nbytes)
+    nbytes = 2 * n * 4 * H * xb + 8 * w + 3 * n * H * ob
+    ops_ms = ((2 * product / PEAK_BF16 + 2 * product / PEAK_TF32) if out_bf16
+              else 9 * product / PEAK_TF32) * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes, "bytes")
+
+
+# the forms timed in phase 14 (f), as (xw bf16, out bf16): B1's hs, B2's
+# residuals
+STREAM_TIMED = {"xw": (True, False), "out": (False, True), "xw+out": (True, True),
+                "f32": (False, False)}
+
+
+def stream_times(torch, L, card):
+    """Phase 14 (f): each form of B1 (B=1), B2 fwd and B2 bwd (B=6) at the
+    flagship shape (2, B, 1001, 256) beside the f32 form and the plain
+    version, kernels in turns (f32 form, forms, forms, f32 form), with the
+    bound of each."""
+    T, H, bf16 = 1001, 256, torch.bfloat16
+    times = {}
+    for kind, B in (("b1", 1), ("fc", 6), ("bwd", 6)):
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 190 + B)
+        xw_b = xw.to(bf16)
+        hs, cs = L.lstm_bidir_tm_fc(xw, w_hh_t)
+        res = (hs.to(bf16), cs.to(bf16), dhs.to(bf16))
+
+        def call(form, plain=False):
+            xb, ob = STREAM_TIMED[form]
+            x, out_dt = (xw_b if xb else xw), (bf16 if ob else torch.float32)
+            if kind == "b1":  # the kernel launched directly: no widening of hs after it
+                if plain:
+                    return lambda: L.lstm_bidir_tm_ref(x, w_hh_t, hs_dtype=out_dt)
+                return lambda: L._launch_fwd(L.fwd_route(H), x, w_hh_t, out_dtype=out_dt)
+            if kind == "fc":
+                fn = L.lstm_bidir_tm_fc_ref if plain else L.lstm_bidir_tm_fc
+                return lambda: fn(x, w_hh_t, res_dtype=out_dt)
+            fn = L.lstm_bidir_tm_bwd_ref if plain else L.lstm_bidir_tm_bwd
+            r = res if ob else (hs, cs, dhs)
+            return lambda: fn(x, w_hh_t, *r)
+
+        ms = {}
+        for form in ("f32", "xw", "out", "xw+out", "xw+out", "out", "xw", "f32"):
+            ms[form] = min(ms.get(form, math.inf), cuda_ms(torch, call(form), 10))
+        plain = cuda_ms(torch, call("xw+out", plain=True), 1)
+        for form, t in ms.items():
+            b = stream_bound(B, T, H, kind, *STREAM_TIMED[form])
+            times[(kind, form)] = (t, b)
+        times[(kind, "plain")] = plain
+        print(f"[time] {kind} stream forms B={B} T={T} H={H} (kernel ms, better of two turns; "
+              f"bound ms): " + ", ".join(f"{f} {ms[f]:.4f} ({times[(kind, f)][1][0]:.4f} by "
+                                         f"{times[(kind, f)][1][1]})" for f in STREAM_TIMED)
+              + f"; plain (xw+out) {plain:.3f} | {card}", flush=True)
+        del xw, xw_b, w_hh_t, dhs, hs, cs, res
+    return times
+
+
+def stream_forms_phase(torch, L, dsp_kernels, card):
+    """Phase 14: the bf16 stream forms of the LSTM kernels on the card."""
+    counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, *dsp_kernels,
+               L.lstm_bidir_tm_dw_bf16)
+    t0 = time.perf_counter()
+    out = {"checks": stream_form_checks(torch, L)}
+    out["serve"] = flagship_stream_serving(torch, counted, card)
+    out["step"] = flagship_stream_step(torch, counted, card)
+    out["score"] = active_score_mode(torch, card)
+    out["vcb"] = vcb_xw_form(torch, counted, card)
+    out["times"] = stream_times(torch, L, card)
+    print(f"[streams] phase 14 in {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -5013,6 +5692,9 @@ def main():
         one_dir = one_direction_bf16_phase(torch, L, counted13, (stft_fused, decode_ola), card,
                                            tmp)
 
+    # 14. the bf16 stream forms of B1 / B2 fwd / B2 bwd on the card
+    streams = stream_forms_phase(torch, L, (stft_fused, decode_ola), card)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -5248,6 +5930,40 @@ def main():
             **({} if one_b is None or B == 1 else {
                 "ms_b1": one_b[0], "f32_form_ms_b1": one_b[1], "plain_ms_b1": one_b[2],
                 "bound_ms_b1": bf16_h_bound(1, T, H, key)[0]}), **more))
+    # the bf16 stream forms (phase 14) at the flagship shape (2, B, 1001, 256):
+    # each row times the JAX bench mode's form (B1: bf16 xw and hs, the
+    # enhance mode; B2 fwd / bwd: bf16 xw and residuals, the train mode), the
+    # other forms and the f32 form beside it, bound as stream_bound counts the
+    # bytes the form moves; no PyTorch call computes these functions (cuDNN's
+    # bf16 LSTM rounds the gates, c and h), so library_ms is null
+    st_t, st_c = streams["times"], streams["checks"]
+    for name, key, source, replaces, B, launches, more in (
+            ("lstm_bidir_tm[streams]", "b1", "lstm_tm_cluster.cu", "lstm_kernel.py:208", 1,
+             streams["serve"]["launches"][1],
+             {"launches_vcb_xw_served": streams["vcb"]["f32"]["launches"]["served"][1],
+              "launches_vcb_xw_stream": streams["vcb"]["f32"]["launches"]["stream"][2],
+              "enhance_ms": streams["serve"]["ms"]["streams"],
+              "enhance_ms_f32": streams["serve"]["ms"]["f32"]}),
+            ("lstm_bidir_tm_fc[streams]", "fc", "lstm_tm_cluster.cu", "lstm_kernel.py:391", 6,
+             streams["step"]["launches"][5],
+             {"train_step_ms": streams["step"]["ms"]["streams"],
+              "train_step_ms_f32": streams["step"]["ms"]["f32"],
+              "loss_grad_mib_kept_fwd_peak_bwd_peak": streams["step"]["mib"]["streams"],
+              "loss_grad_mib_kept_fwd_peak_bwd_peak_f32": streams["step"]["mib"]["f32"]}),
+            ("lstm_bidir_tm_bwd[streams]", "bwd", "lstm_tm_bwd.cu", "lstm_kernel.py:422", 6,
+             streams["step"]["launches"][8],
+             {"max_rms_dxw_residual_form": st_c["chain_rms"],
+              "max_rms_dw_residual_form": st_c["dw_rms"]})):
+        rows.append(row(
+            name, source, replaces, launches, st_c["abs"][key], st_t[(key, "xw+out")][0],
+            st_t[(key, "plain")], f"ndir=2 B={B} T=1001 H=256, xw and "
+            + ("hs" if key == "b1" else "residuals") + " bf16", st_t[(key, "xw+out")][1], None,
+            kernel_route=("cluster / phases (H a multiple of 8, at most 256); grid for any "
+                          "other H"),
+            **{f"{form.replace('+', '_').replace('out', 'hs' if key == 'b1' else 'res')}"
+               f"_form_{field}": val for form in ("xw", "out", "f32")
+               for field, val in (("ms", st_t[(key, form)][0]),
+                                  ("bound_ms", st_t[(key, form)][1][0]))}, **more))
     # once more, for a reader who is shown only the end of a long output
     print_build_report(libs, build_s)
     for r in rows:
@@ -5332,6 +6048,21 @@ def main():
           f"{st['step_ms']['f32']:.3f}, enhance B=1 10 s {sv['enhance_ms']['bf16']:.3f} / "
           f"{sv['enhance_ms']['f32']:.3f}, stream chunk {sv['chunk_ms']['bf16']:.3f} / "
           f"{sv['chunk_ms']['f32']:.3f} | {card}", flush=True)
+    sv, ss, vx = streams["serve"], streams["step"], streams["vcb"]
+    print(f"[streams] the bf16 stream forms: against their plain versions f32 streams <= "
+          f"{st_c['h_abs']:.2e} (h) / {st_c['rel']:.2e} (of the largest), bf16 streams within one "
+          f"bf16 unit on >= {st_c['ulp']:.5f}, identical >= {st_c['same']:.5f}, the residual "
+          f"backward dxw RMS <= {st_c['chain_rms']:.2e}, dW_hh^T {st_c['dw_rms']:.2e}; flagship "
+          f"enhance mode window {sv['window'][0]:.3f}/{sv['window'][1]:.3f}, train mode step "
+          f"loss {ss['loss'][0]:.3f}/{ss['loss'][1]:.3f}, gradient {ss['grad'][0]:.3f}/"
+          f"{ss['grad'][1]:.3f}; score mode match > 0 sets the CPU's "
+          + ", ".join(f"{k} {v[0]}" for k, v in streams["score"].items())
+          + "; vcb head xw form windows "
+          + ", ".join(f"{dt} served {v['served'][0]:.3f}, stream {v['stream'][0]:.3f}, step "
+                      f"{v['grad'][0]:.3f}" for dt, v in vx.items())
+          + f"; ms form / f32: enhance B=1 {sv['ms']['streams']:.3f} / {sv['ms']['f32']:.3f}, "
+          f"train step B=6 {ss['ms']['streams']:.3f} / {ss['ms']['f32']:.3f} | {card}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

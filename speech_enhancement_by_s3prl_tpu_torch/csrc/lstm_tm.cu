@@ -47,9 +47,21 @@
 // The bf16-h form (kBf16H, entries' `h_bf16`): h_{t-1} (h0 included) rounded
 // to bf16 where a block stages it for the step product, as the JAX package's
 // one-direction lax.scan cell in bf16 rounds it; hs, cs, c and cT keep f32.
+//
+// The bf16 stream forms (entries' `form` bits 2 and 4, as in
+// lstm_tm_cluster.cu): kXw reads xw as bf16, widened where a tile reads it;
+// kOut stores hs (and cs under kCell) rounded to bf16. Since the steps read
+// h_{t-1} back from hs, kOut would feed the recurrence a rounded h: there
+// each block also writes h_t in f32 into `hf` (2, ndir, B, H), by step
+// parity (h_{t-1} is read from one half while h_t goes to the other; the grid
+// barrier orders a step's writes before the next step's reads), and the
+// steps read h from it. The flags are template parameters, so the f32
+// instances keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "bf16_round.cuh"
 
@@ -63,6 +75,9 @@ constexpr int kStageFloats = 16384;
 // Loads of h_{t-1} each thread keeps in flight while staging: the staging
 // is a run of L2 round trips, so batching them hides their latency.
 constexpr int kInFlight = 8;
+// bits of kForm (and of the entries' `form`): the bf16-h form, a bf16 xw,
+// bf16 hs (and cs)
+constexpr int kFormH = 1, kFormXw = 2, kFormOut = 4;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -75,13 +90,18 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //   c_s [B][K]      float  this block's slice of the cell state
 // R: batch rows per thread (1 for small batches, 4 from B = 4 up).
 // kCell: also write c_t into cs (2, B, T, H), laid out like hs.
-// h0, c0 and c_out are (ndir, B, H) or null. kBf16H: the bf16-h form.
-template <int R, bool kCell, bool kBf16H>
+// h0, c0 and c_out are (ndir, B, H) or null. kForm: the bf16-h form (kFormH),
+// the stream forms (kFormXw, kFormOut; hf is used under kFormOut only).
+template <int R, bool kCell, int kForm>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                      float* hs, float* __restrict__ cs, const float* __restrict__ h0,
-                     const float* __restrict__ c0, float* __restrict__ c_out, int B, int T,
-                     int H, int K, int BT, int G) {
+                     const float* __restrict__ c0, float* __restrict__ c_out,
+                     float* __restrict__ hf, int B, int T, int H, int K, int BT, int G) {
+  constexpr bool kBf16H = kForm & kFormH;
+  constexpr bool kOut = kForm & kFormOut;
+  using XwT = std::conditional_t<(kForm & kFormXw) != 0, __nv_bfloat16, float>;
+  using OutT = std::conditional_t<kOut, __nv_bfloat16, float>;
   extern __shared__ float4 smem4[];
   float4* w_s = smem4;
   const int HP = H + 1;
@@ -105,9 +125,12 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
   for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x)
     c_s[idx] = c0 != nullptr ? c0[state_d + (size_t)(idx / K) * H + idx % K] : 0.0f;
 
-  const float* xw_d = xw + (size_t)d * B * T * H4;
-  float* hs_d = hs + (size_t)d * B * T * H;
-  float* cs_d = kCell ? cs + (size_t)d * B * T * H : nullptr;
+  const XwT* xw_d = reinterpret_cast<const XwT*>(xw) + (size_t)d * B * T * H4;
+  OutT* hs_d = reinterpret_cast<OutT*>(hs) + (size_t)d * B * T * H;
+  OutT* cs_d = kCell ? reinterpret_cast<OutT*>(cs) + (size_t)d * B * T * H : nullptr;
+  // kOut: h of this direction in f32 by step parity, (B, H) each
+  const size_t hf_half = (size_t)(gridDim.x / blocks_per_dir) * B * H;
+  float* hf_d = kOut ? hf + (size_t)d * B * H : nullptr;
   // G lanes share one tile of outputs and split its dot products over H; G is a power of two <= 32, so a group never straddles
   // a warp and the shuffles below stay inside it.
   const int per_pass = blockDim.x / G;
@@ -136,7 +159,12 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
           for (int q = 0; q < kInFlight; ++q) {
             const int k = base + q * blockDim.x;
             if (k < n) {
-              const float* row = hs_d + ((size_t)(b0 + k / per_row) * T + (t - 1)) * H;
+              const float* row;
+              if constexpr (kOut) {
+                row = hf_d + ((t - 1) & 1) * hf_half + (size_t)(b0 + k / per_row) * H;
+              } else {
+                row = hs_d + ((size_t)(b0 + k / per_row) * T + (t - 1)) * H;
+              }
               if (vec == 4) {
                 v[q] = __ldcg(reinterpret_cast<const float4*>(row) + k % per_row);
               } else {
@@ -179,11 +207,11 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
           hrow[q] = h_s + r * HP;
           x[q][0] = x[q][1] = x[q][2] = x[q][3] = 0.0f;
           if (owner) {
-            const float* xp = xw_d + ((size_t)(b0 + r) * T + t) * H4 + j0 + u;
-            x[q][0] = xp[0];
-            x[q][1] = xp[H];
-            x[q][2] = xp[2 * H];
-            x[q][3] = xp[3 * H];
+            const XwT* xp = xw_d + ((size_t)(b0 + r) * T + t) * H4 + j0 + u;
+            x[q][0] = widen(xp[0]);
+            x[q][1] = widen(xp[H]);
+            x[q][2] = widen(xp[2 * H]);
+            x[q][3] = widen(xp[3 * H]);
           }
         }
         float a[R][4];
@@ -226,8 +254,10 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
               const float og = sigmoid_f32(x[q][3] + a[q][3]);
               const float c = fg * c_s[b * K + u] + ig * gg;
               c_s[b * K + u] = c;
-              hs_d[((size_t)b * T + t) * H + j] = og * tanhf(c);
-              if (kCell) cs_d[((size_t)b * T + t) * H + j] = c;
+              const float h = og * tanhf(c);
+              hs_d[((size_t)b * T + t) * H + j] = narrow<OutT>(h);
+              if (kCell) cs_d[((size_t)b * T + t) * H + j] = narrow<OutT>(c);
+              if (kOut) hf_d[(t & 1) * hf_half + (size_t)b * H + j] = h;
             }
           }
         }
@@ -246,17 +276,19 @@ size_t smem_bytes(int B, int H, int K, int BT) {
 }
 
 // Launches the recurrence on `stream`; cs is nullptr for B1, and h0, c0 and
-// c_out are nullptr but for B1 with a carried state. Returns the
+// c_out are nullptr but for B1 with a carried state; hf (2, ndir, B, H) f32
+// is used only when kForm has kFormOut. Returns the
 // first non-zero CUDA status among the set-up calls, the cooperative launch's
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
-template <bool kCell, bool kBf16H>
+template <bool kCell, int kForm>
 int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
-           const void* c0, void* c_out, int ndir, int B, int T, int H, int device,
+           const void* c0, void* c_out, void* hf, int ndir, int B, int T, int H, int device,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if ((kForm & kFormOut) && hf == nullptr) return (int)cudaErrorInvalidValue;
 
   int sms = 0, coop = 0, smem_optin = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
@@ -274,8 +306,8 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
   int K = 8;
   while (K > 1 && H % K) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
-  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4, kCell, kBf16H>
-                          : (const void*)lstm_bidir_tm_kernel<1, kCell, kBf16H>;
+  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_kernel<4, kCell, kForm>
+                          : (const void*)lstm_bidir_tm_kernel<1, kCell, kForm>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
     const int grid = ndir * (H / K);
@@ -292,7 +324,7 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
         int G = 32;
         while (G > 1 && (kThreads / G) < tiles) G >>= 1;
         void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&cs,
-                        (void*)&h0, (void*)&c0,     (void*)&c_out,
+                        (void*)&h0, (void*)&c0,     (void*)&c_out, (void*)&hf,
                         (void*)&B,  (void*)&T,      (void*)&H,  (void*)&K,
                         (void*)&BT, (void*)&G};
         err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
@@ -309,32 +341,52 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
 
 }  // namespace
 
+#define LSTM_TM_FORM(cell, form)                                                        \
+  case form:                                                                          \
+    return launch<cell, form>(xw, w_hh_t, hs, cs, h0, c0, c_out, hf, ndir, B, T, H, device, \
+                              stream);
+
 extern "C" {
 
 // Kernel B1. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H) and hs (ndir, B, T, H)
-// are contiguous f32 device pointers on `device`. h0 and c0 (ndir, B, H) are
-// the initial state and c_out (ndir, B, H) receives the final cell state;
-// each may be null (zeros; not written). `h_bf16` non-zero runs the bf16-h
-// form.
+// are contiguous device pointers on `device`, f32 but for the forms. h0 and
+// c0 (ndir, B, H) are the initial state and c_out (ndir, B, H) receives the
+// final cell state; each may be null (zeros; not written). `form`: bit 1 the
+// bf16-h form, bit 2 xw bf16, bit 4 hs bf16, which also needs hf, an f32
+// buffer of 2 * ndir * B * H (else null); the bf16-h form takes no bf16 hs.
 int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
-                      const void* c0, void* c_out, int ndir, int B, int T, int H, int h_bf16,
-                      int device, void* stream) {
-  if (h_bf16)
-    return launch<false, true>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device,
-                               stream);
-  return launch<false, false>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, device,
-                              stream);
+                      const void* c0, void* c_out, void* hf, int ndir, int B, int T, int H,
+                      int form, int device, void* stream) {
+  void* cs = nullptr;
+  switch (form) {
+    LSTM_TM_FORM(false, 0)
+    LSTM_TM_FORM(false, kFormH)
+    LSTM_TM_FORM(false, kFormH | kFormXw)
+    LSTM_TM_FORM(false, kFormXw)
+    LSTM_TM_FORM(false, kFormOut)
+    LSTM_TM_FORM(false, kFormXw | kFormOut)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (ndir, B, T, H) f32 receives
-// the cell state of every step; `h_bf16` as there.
-int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
-                         int B, int T, int H, int h_bf16, int device, void* stream) {
-  if (h_bf16)
-    return launch<true, true>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
-                              device, stream);
-  return launch<true, false>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
-                             device, stream);
+// Kernel B2 fwd: as lstm_bidir_tm_f32, and cs (ndir, B, T, H) receives the
+// cell state of every step; `form` and hf as there, bit 4 storing hs and cs
+// in bf16 (the bf16 residuals).
+int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, void* hf,
+                         int ndir, int B, int T, int H, int form, int device, void* stream) {
+  const void *h0 = nullptr, *c0 = nullptr;
+  void* c_out = nullptr;
+  switch (form) {
+    LSTM_TM_FORM(true, 0)
+    LSTM_TM_FORM(true, kFormH)
+    LSTM_TM_FORM(true, kFormH | kFormXw)
+    LSTM_TM_FORM(true, kFormXw)
+    LSTM_TM_FORM(true, kFormOut)
+    LSTM_TM_FORM(true, kFormXw | kFormOut)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* lstm_tm_error_string(int code) {

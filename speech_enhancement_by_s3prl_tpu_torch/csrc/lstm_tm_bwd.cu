@@ -97,11 +97,30 @@
 // dW_hh^T. The earlier single kernel takes the same flag (rounding h where it
 // stages it and the carried product before the cell's backward) and leaves
 // dW_hh^T to that kernel as well.
+//
+// The bf16 stream forms of the Pallas _tm_bwd (entries' `form` bits 2 and 4;
+// kForm below), taken by either route:
+//   - kFormXw (a bf16 xw; SE_LSTM_XW_BF16 there): xw widened where read, and
+//     dxw written in bf16, xw's dtype. da is kept in f32 all the same (the
+//     `da` buffer: phase 1's activations, phase 2's exchange, phase 3's and
+//     the bf16-h dW_hh^T's operand), and the bf16 dxw is written beside it
+//     (`dxw_b`); without the flag the two are one f32 buffer.
+//   - kFormRes (the bf16 residuals; SE_PALLAS_VJP_BF16): hs, cs and dhs are
+//     bf16, widened where read; W_hh^T is rounded to bf16 where a kernel
+//     stages it (both products take it so), and da is rounded to bf16 for the
+//     dh product only (phase 2's da_s, the single kernel's staged rows of
+//     da_{tt+1}); dW_hh^T sums the bf16 h against the f32 da. Phases 1 and 3
+//     copy their tiles of bf16 h by cp.async into a bf16 stage (16-byte
+//     pieces of 8 elements, H % 8 == 0) and widen them into the f32 tile in
+//     the pass where the bf16-h form rounds; phase 1 rounds its W_hh^T tile
+//     in the same pass.
+// The flags are template parameters, so the f32 instances keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "bf16_round.cuh"
 #include "cp_async.cuh"
@@ -116,6 +135,13 @@ constexpr int kThreads = 256;
 constexpr int kStageFloats = 16384;
 // Loads each thread keeps in flight while staging (one round at B = 6).
 constexpr int kInFlight = 12;
+// bits of kForm (and of the entries' `form`): the bf16-h form, a bf16 xw
+// (bf16 dxw), the bf16 residuals (hs, cs, dhs)
+constexpr int kFormH = 1, kFormXw = 2, kFormRes = 4;
+template <int kForm>
+using XwOf = std::conditional_t<(kForm & kFormXw) != 0, __nv_bfloat16, float>;
+template <int kForm>
+using ResOf = std::conditional_t<(kForm & kFormRes) != 0, __nv_bfloat16, float>;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -129,20 +155,25 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 //             xw_tt, c_tt, c_{tt-1} and dhs_tt.
 // Regions 1 and 2 are read-only for the whole launch (__ldg). A region that
 // the step does not need (da at tt = T-1, h at tt = 0) is given zero rows,
-// and its buffer is not read. kRoundH: region 1 is stored rounded to bf16.
+// and its buffer is not read. kForm: under kFormH region 1 is stored rounded
+// to bf16, under kFormRes region 0 is (it feeds only the dh product) and the
+// bf16 h, cs and dhs are widened; under kFormXw the bf16 xw is.
+template <int kForm>
 struct ChunkLoads {
-  const float* da;   // dxw row of (b0, tt + 1), or nullptr
-  const float* h;    // hs row of (b0, tt - 1), or nullptr
-  const float* xw;   // xw row of (b0, tt)
-  const float* cs;   // cs row of (b0, tt)
-  const float* dhs;  // dhs row of (b0, tt)
-  bool has_prev;     // tt > 0: c_{tt-1} exists
+  const float* da;           // da row of (b0, tt + 1), or nullptr
+  const ResOf<kForm>* h;     // hs row of (b0, tt - 1), or nullptr
+  const XwOf<kForm>* xw;     // xw row of (b0, tt)
+  const ResOf<kForm>* cs;    // cs row of (b0, tt)
+  const ResOf<kForm>* dhs;   // dhs row of (b0, tt)
+  bool has_prev;             // tt > 0: c_{tt-1} exists
 };
 
-template <bool kRoundH>
-__device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, float* hst_s,
-                                            float* ep_s, int bt, int T, int H, int K,
-                                            int j0) {
+template <int kForm>
+__device__ __forceinline__ void stage_chunk(const ChunkLoads<kForm>& ld, float* st_s,
+                                            float* hst_s, float* ep_s, int bt, int T, int H,
+                                            int K, int j0) {
+  constexpr bool kRoundH = kForm & kFormH;
+  constexpr bool kRes = kForm & kFormRes;
   const int H4 = 4 * H, HP = H + 1, H4P = H4 + 1;
   const int vec = (H % 4 == 0) ? 4 : 1;
   const int pr0 = H4 / vec, pr1 = H / vec;
@@ -163,8 +194,14 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
           v[q].x = __ldcg(row + k % pr0);
         }
       } else if ((k -= n0) < n1) {
-        const float* row = ld.h + (size_t)(k / pr1) * T * H;
-        if (vec == 4) {
+        const auto* row = ld.h + (size_t)(k / pr1) * T * H;
+        if constexpr (kRes) {
+          if (vec == 4) {
+            v[q] = widen4(__ldg(reinterpret_cast<const uint2*>(row) + k % pr1));
+          } else {
+            v[q].x = widen(__ldg(row + k % pr1));
+          }
+        } else if (vec == 4) {
           v[q] = __ldg(reinterpret_cast<const float4*>(row) + k % pr1);
         } else {
           v[q].x = __ldg(row + k % pr1);
@@ -173,13 +210,13 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
         const int r = k / (K * 7), u = (k / 7) % K, w = k % 7;
         const size_t hrow = (size_t)r * T * H + j0 + u;
         if (w < 4) {
-          v[q].x = __ldg(ld.xw + (size_t)r * T * H4 + w * H + j0 + u);
+          v[q].x = widen(__ldg(ld.xw + (size_t)r * T * H4 + w * H + j0 + u));
         } else if (w == 4) {
-          v[q].x = __ldg(ld.cs + hrow);
+          v[q].x = widen(__ldg(ld.cs + hrow));
         } else if (w == 5) {
-          v[q].x = ld.has_prev ? __ldg(ld.cs + hrow - H) : 0.0f;
+          v[q].x = ld.has_prev ? widen(__ldg(ld.cs + hrow - H)) : 0.0f;
         } else {
-          v[q].x = __ldg(ld.dhs + hrow);
+          v[q].x = widen(__ldg(ld.dhs + hrow));
         }
       }
     }
@@ -190,6 +227,14 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
       int m = vec;
       if (k < n0) {
         out = st_s + (k / pr0) * H4P + (k % pr0) * vec;
+        if (kRes) {
+          v[q].x = bf16_round(v[q].x);
+          if (vec == 4) {
+            v[q].y = bf16_round(v[q].y);
+            v[q].z = bf16_round(v[q].z);
+            v[q].w = bf16_round(v[q].w);
+          }
+        }
       } else if ((k -= n0) < n1) {
         out = hst_s + (k / pr1) * HP + (k % pr1) * vec;
         if (kRoundH) {
@@ -229,14 +274,21 @@ __device__ __forceinline__ void stage_chunk(const ChunkLoads& ld, float* st_s, f
 //   dc_s  [B][K]       float   dc_carry of this block's units
 // R: batch rows per thread in the dot products (1 for small batches, 4 from
 // B = 4 up). G lanes share one tile of outputs and split its dot products.
-// kBf16H: the bf16-h form (dwhh is not written; dw_s stays unused).
-template <int R, bool kBf16H>
+// kForm: kFormH the bf16-h form (dwhh is not written; dw_s stays unused);
+// kFormXw, kFormRes the stream forms. dxw is the f32 da (the exchange), dxw_b
+// the bf16 dxw under kFormXw.
+template <int R, int kForm>
 __global__ void __launch_bounds__(kThreads)
 lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                          const float* __restrict__ hs, const float* __restrict__ cs,
                          const float* __restrict__ dhs, float* dxw,
-                         float* __restrict__ dwhh, int B, int T, int H, int K, int BT,
-                         int G) {
+                         __nv_bfloat16* __restrict__ dxw_b, float* __restrict__ dwhh, int B,
+                         int T, int H, int K, int BT, int G) {
+  constexpr bool kBf16H = kForm & kFormH;
+  constexpr bool kXw = kForm & kFormXw;
+  constexpr bool kRes = kForm & kFormRes;
+  using XwT = XwOf<kForm>;
+  using ResT = ResOf<kForm>;
   extern __shared__ float4 smem4[];
   const int HP = H + 1, H4 = 4 * H, H4P = H4 + 1, C = 4 * K;
   float4* w_s = smem4;
@@ -257,19 +309,27 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
   for (int idx = threadIdx.x; idx < K * H; idx += blockDim.x) {
     const int u = idx / H, i = idx % H;
     const float* row = whh + (size_t)i * H4 + j0 + u;
-    w_s[u * HP + i] = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
+    if (kRes) {
+      w_s[u * HP + i] = make_float4(bf16_round(row[0]), bf16_round(row[H]),
+                                    bf16_round(row[2 * H]), bf16_round(row[3 * H]));
+    } else {
+      w_s[u * HP + i] = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
+    }
   }
-  for (int idx = threadIdx.x; idx < K * H4; idx += blockDim.x)
-    wr_s[(idx / H4) * H4P + idx % H4] = whh[(size_t)(j0 + idx / H4) * H4 + idx % H4];
+  for (int idx = threadIdx.x; idx < K * H4; idx += blockDim.x) {
+    const float w = whh[(size_t)(j0 + idx / H4) * H4 + idx % H4];
+    wr_s[(idx / H4) * H4P + idx % H4] = kRes ? bf16_round(w) : w;
+  }
   for (int idx = threadIdx.x; idx < H * C; idx += blockDim.x) dw_s[idx] = 0.0f;
   for (int idx = threadIdx.x; idx < B * K; idx += blockDim.x) dc_s[idx] = 0.0f;
 
   const size_t dir_h = (size_t)B * T * H;
-  const float* xw_d = xw + (size_t)d * B * T * H4;
-  const float* hs_d = hs + d * dir_h;
-  const float* cs_d = cs + d * dir_h;
-  const float* dhs_d = dhs + d * dir_h;
+  const XwT* xw_d = reinterpret_cast<const XwT*>(xw) + (size_t)d * B * T * H4;
+  const ResT* hs_d = reinterpret_cast<const ResT*>(hs) + d * dir_h;
+  const ResT* cs_d = reinterpret_cast<const ResT*>(cs) + d * dir_h;
+  const ResT* dhs_d = reinterpret_cast<const ResT*>(dhs) + d * dir_h;
   float* dxw_d = dxw + (size_t)d * B * T * H4;
+  __nv_bfloat16* dxb_d = kXw ? dxw_b + (size_t)d * B * T * H4 : nullptr;
   const int per_pass = blockDim.x / G;
   const int group = threadIdx.x / G;
   const int lane = threadIdx.x % G;
@@ -281,14 +341,14 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
       // a tile is R batch rows x one hidden unit
       const int tiles = ((bt + R - 1) / R) * K;
       __syncthreads();  // earlier readers of the staging buffers are done
-      ChunkLoads ld;
+      ChunkLoads<kForm> ld;
       ld.da = carry ? dxw_d + ((size_t)b0 * T + tt + 1) * H4 : nullptr;
       ld.h = tt > 0 ? hs_d + ((size_t)b0 * T + tt - 1) * H : nullptr;
       ld.xw = xw_d + ((size_t)b0 * T + tt) * H4;
       ld.cs = cs_d + ((size_t)b0 * T + tt) * H;
       ld.dhs = dhs_d + ((size_t)b0 * T + tt) * H;
       ld.has_prev = tt > 0;
-      stage_chunk<kBf16H>(ld, st_s, hst_s, ep_s, bt, T, H, K, j0);
+      stage_chunk<kForm>(ld, st_s, hst_s, ep_s, bt, T, H, K, j0);
       __syncthreads();
 
       // per (row, unit): the gates recomputed from h_{tt-1} (zero at tt = 0,
@@ -370,6 +430,13 @@ lstm_bidir_tm_bwd_kernel(const float* __restrict__ xw, const float* __restrict__
               dp[H] = da_f;
               dp[2 * H] = da_g;
               dp[3 * H] = da_o;
+              if (kXw) {
+                __nv_bfloat16* db = dxb_d + ((size_t)b * T + tt) * H4 + j;
+                db[0] = narrow<__nv_bfloat16>(da_i);
+                db[H] = narrow<__nv_bfloat16>(da_f);
+                db[2 * H] = narrow<__nv_bfloat16>(da_g);
+                db[3 * H] = narrow<__nv_bfloat16>(da_o);
+              }
               float* ds = da_s + r * C + u;
               ds[0] = da_i;
               ds[K] = da_f;
@@ -453,18 +520,24 @@ constexpr int kSeqRows = 8;  // batch rows a cluster takes
 // Phase 1. One stage: a_s [kTile][kLdA], rows of h_{t-1}; w_s [kDepth][kLdB],
 // rows of W_hh^T. Row r = b * T + t of one direction's h_{t-1} is row r - 1
 // of hs, and zeros at t = 0. Writes act(xw + h_{t-1} @ W_hh^T) into `gates`;
-// kBf16H: h_{t-1} rounded to bf16 in the staged tile first.
+// kFormH: h_{t-1} rounded to bf16 in the staged tile first. kFormRes: the
+// bf16 h copied into hb_s [kTile][kDepth] and widened into a_s, the W_hh^T
+// tile rounded to bf16, in that same pass; kFormXw: xw read as bf16.
 constexpr int kGateStage = kTile * kLdA + kDepth * kLdB;
 
-template <bool kBf16H>
+template <int kForm>
 __global__ void __launch_bounds__(kTileThreads)
 lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
                       const float* __restrict__ hs, float* __restrict__ gates, int M, int T,
                       int H) {
+  constexpr bool kBf16H = kForm & kFormH;
+  constexpr bool kRes = kForm & kFormRes;
   __shared__ __align__(16) float smem[2 * kGateStage];
+  __shared__ __align__(16) __nv_bfloat16 hb_s[kRes ? 2 * kTile * kDepth : 8];
   const int H4 = 4 * H;
   const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile, d = blockIdx.z;
   const float* hs_d = hs + (size_t)d * M * H;
+  const __nv_bfloat16* hsb_d = reinterpret_cast<const __nv_bfloat16*>(hs) + (size_t)d * M * H;
   const float* w_d = w_hh_t + (size_t)d * H * H4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -473,12 +546,25 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
     float* a_s = smem + (kc & 1) * kGateStage;
     float* w_s = a_s + kTile * kLdA;
     const int i0 = kc * kDepth;
-    for (int idx = threadIdx.x; idx < kTile * (kDepth / 4); idx += kTileThreads) {
-      const int r = idx / (kDepth / 4), c = (idx % (kDepth / 4)) * 4;
-      const int row = m0 + r;
-      const bool ok = row < M && row % T != 0 && i0 + c < H;
-      cp_async16(a_s + r * kLdA + c, ok ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
-                 ok ? 16 : 0);
+    if (kRes) {
+      __nv_bfloat16* hb = hb_s + (kc & 1) * kTile * kDepth;
+      for (int idx = threadIdx.x; idx < kTile * (kDepth / 8); idx += kTileThreads) {
+        const int r = idx / (kDepth / 8), c = (idx % (kDepth / 8)) * 8;
+        const int row = m0 + r;
+        const bool ok = row < M && row % T != 0 && i0 + c < H;
+        cp_async16(reinterpret_cast<float*>(hb + r * kDepth + c),
+                   reinterpret_cast<const float*>(ok ? hsb_d + (size_t)(row - 1) * H + i0 + c
+                                                     : hsb_d),
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kTile * (kDepth / 4); idx += kTileThreads) {
+        const int r = idx / (kDepth / 4), c = (idx % (kDepth / 4)) * 4;
+        const int row = m0 + r;
+        const bool ok = row < M && row % T != 0 && i0 + c < H;
+        cp_async16(a_s + r * kLdA + c, ok ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
+                   ok ? 16 : 0);
+      }
     }
     for (int idx = threadIdx.x; idx < kDepth * (kTile / 4); idx += kTileThreads) {
       const int k = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
@@ -510,6 +596,17 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
       }
       __syncthreads();
     }
+    if (kRes) {
+      float* h_tile = smem + (kc & 1) * kGateStage;
+      float* w_tile = h_tile + kTile * kLdA;
+      const __nv_bfloat16* hb = hb_s + (kc & 1) * kTile * kDepth;
+      for (int idx = threadIdx.x; idx < kTile * kDepth; idx += kTileThreads) {
+        h_tile[(idx / kDepth) * kLdA + idx % kDepth] = widen(hb[idx]);
+        float* p = w_tile + (idx / kTile) * kLdB + idx % kTile;  // kDepth x kTile
+        *p = bf16_round(*p);
+      }
+      __syncthreads();
+    }
     if (kc + 1 < nk) start(kc + 1);
     const float* a_s = smem + (kc & 1) * kGateStage + warp * 16 * kLdA;
     const float* w_s = smem + (kc & 1) * kGateStage + kTile * kLdA;
@@ -536,6 +633,7 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
   }
 
   const float* xw_d = xw + (size_t)d * M * H4;
+  const __nv_bfloat16* xwb_d = reinterpret_cast<const __nv_bfloat16*>(xw) + (size_t)d * M * H4;
   float* out_d = gates + (size_t)d * M * H4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -545,7 +643,10 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
     for (int n = 0; n < kTile / 8; ++n) {
       const int col = n0 + 8 * n + 2 * t4;  // col and col + 1 lie in one gate
       if (col >= H4) continue;
-      const float2 x = *reinterpret_cast<const float2*>(xw_d + (size_t)row * H4 + col);
+      const float2 x = (kForm & kFormXw)
+          ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                xwb_d + (size_t)row * H4 + col))
+          : *reinterpret_cast<const float2*>(xw_d + (size_t)row * H4 + col);
       const float v0 = acc[n][2 * half] + x.x, v1 = acc[n][2 * half + 1] + x.y;
       const bool is_g = col / H == 2;
       *reinterpret_cast<float2*>(out_d + (size_t)row * H4 + col) =
@@ -564,12 +665,17 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_
 //                                              units from each block, per step parity
 // Thread j computes the partial dh_carry of unit j for every row; thread
 // row * U + u runs the cell's backward of its (row, unit) and carries dc in a
-// register. kBf16H: the owner's sum of the 8 partials is rounded to bf16
-// before dhs is added.
-template <bool kBf16H>
+// register. kFormH: the owner's sum of the 8 partials is rounded to bf16
+// before dhs is added. kFormRes: bf16 cs and dhs widened, the weights and
+// da_s rounded to bf16; kFormXw: da also stored in bf16 into dxw_b.
+template <int kForm>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kSeqThreads, 1)
 lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ cs,
-                    const float* __restrict__ dhs, float* dxw, int B, int T, int H) {
+                    const float* __restrict__ dhs, float* dxw,
+                    __nv_bfloat16* __restrict__ dxw_b, int B, int T, int H) {
+  constexpr bool kBf16H = kForm & kFormH;
+  constexpr bool kRes = kForm & kFormRes;
+  using ResT = ResOf<kForm>;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -591,7 +697,12 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
   for (int idx = tid; idx < H * U; idx += kSeqThreads) {
     const int j = idx / U, u = idx % U;
     const float* col = whh + (size_t)j * H4 + j0 + u;
-    wt_s[u * H + j] = make_float4(col[0], col[H], col[2 * H], col[3 * H]);
+    if (kRes) {
+      wt_s[u * H + j] = make_float4(bf16_round(col[0]), bf16_round(col[H]),
+                                    bf16_round(col[2 * H]), bf16_round(col[3 * H]));
+    } else {
+      wt_s[u * H + j] = make_float4(col[0], col[H], col[2 * H], col[3 * H]);
+    }
   }
 
   // the product's side of this thread: unit j, whose owner is block j / U
@@ -605,8 +716,11 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
   const int row = tid / U, u = tid % U;
   const size_t at_h = ((size_t)d * B + b0 + (has_p ? row : 0)) * T * H + j0 + u;
   float* dxw_p = dxw + ((size_t)d * B + b0 + (has_p ? row : 0)) * T * H4 + j0 + u;
-  const float* cs_p = cs + at_h;
-  const float* dhs_p = dhs + at_h;
+  __nv_bfloat16* dxb_p =
+      (kForm & kFormXw) ? dxw_b + ((size_t)d * B + b0 + (has_p ? row : 0)) * T * H4 + j0 + u
+                        : nullptr;
+  const ResT* cs_p = reinterpret_cast<const ResT*>(cs) + at_h;
+  const ResT* dhs_p = reinterpret_cast<const ResT*>(dhs) + at_h;
   float dc = 0.f;
 
   cluster.sync();  // every block of the cluster runs before a remote store lands
@@ -614,17 +728,27 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
   for (int tt = T - 1; tt >= 0; --tt) {
     const bool carry = tt < T - 1;  // dh_carry from step tt + 1 exists
     const int buf = tt & 1;
-    // the cell's operands of this step, in flight during the product
+    // the cell's operands of this step, in flight during the product (the
+    // bf16 residuals kept as loaded and widened only where the cell's
+    // backward reads them, so that no wait for the load lands before the
+    // product)
     float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c = 0.f, c_prev = 0.f, dh = 0.f;
+    ResT c_r = ResT(), cp_r = ResT(), dh_r = ResT();
     if (has_p) {
       const float* gp = dxw_p + (size_t)tt * H4;
       ig = gp[0];
       fg = gp[H];
       gg = gp[2 * H];
       og = gp[3 * H];
-      c = cs_p[(size_t)tt * H];
-      c_prev = tt > 0 ? cs_p[(size_t)(tt - 1) * H] : 0.f;
-      dh = dhs_p[(size_t)tt * H];
+      if constexpr (kRes) {
+        c_r = cs_p[(size_t)tt * H];
+        if (tt > 0) cp_r = cs_p[(size_t)(tt - 1) * H];
+        dh_r = dhs_p[(size_t)tt * H];
+      } else {
+        c = cs_p[(size_t)tt * H];
+        c_prev = tt > 0 ? cs_p[(size_t)(tt - 1) * H] : 0.f;
+        dh = dhs_p[(size_t)tt * H];
+      }
     }
     if (carry) {
       if (has_j) {
@@ -653,6 +777,11 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
       cluster.sync();  // the 8 partials of this step are in every owner's buffer
     }
     if (has_p) {
+      if constexpr (kRes) {
+        c = widen(c_r);
+        c_prev = tt > 0 ? widen(cp_r) : 0.f;
+        dh = widen(dh_r);
+      }
       if (carry) {
         const float* in = recv_s + (buf * kCluster * kSeqRows + row) * U + u;
         if (kBf16H) {
@@ -676,7 +805,17 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
       dp[H] = da.y;
       dp[2 * H] = da.z;
       dp[3 * H] = da.w;
-      da_s[row * U + u] = da;
+      if (kForm & kFormXw) {
+        __nv_bfloat16* db = dxb_p + (size_t)tt * H4;
+        db[0] = narrow<__nv_bfloat16>(da.x);
+        db[H] = narrow<__nv_bfloat16>(da.y);
+        db[2 * H] = narrow<__nv_bfloat16>(da.z);
+        db[3 * H] = narrow<__nv_bfloat16>(da.w);
+      }
+      // the dh product's operand: bf16 da under kFormRes
+      da_s[row * U + u] = kRes ? make_float4(bf16_round(da.x), bf16_round(da.y),
+                                             bf16_round(da.z), bf16_round(da.w))
+                               : da;
     }
     __syncthreads();  // da_tt is in da_s before the next step's product
   }
@@ -685,19 +824,23 @@ lstm_bwd_seq_kernel(const float* __restrict__ w_hh_t, const float* __restrict__ 
 // Phase 3. One stage: hp_s [kDepth][kLdB], rows of h_{t-1} (zeros at t = 0);
 // da_s [kDepth][kLdB], the same rows of da. Block (i tile, n tile, direction
 // and split) sums hs_{t-1}^T da over its `chunk` rows into `out`, laid out
-// (splits, ndir, H, 4H).
+// (splits, ndir, H, 4H). kRes: the bf16 h copied into hb_s [kDepth][kTile]
+// and widened into hp_s once landed.
 constexpr int kDwStage = 2 * kDepth * kLdB;
 
+template <bool kRes>
 __global__ void __launch_bounds__(kTileThreads)
 lstm_bwd_dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
                    float* __restrict__ out, int M, int T, int H, int splits, int chunk) {
   __shared__ __align__(16) float smem[2 * kDwStage];
+  __shared__ __align__(16) __nv_bfloat16 hb_s[kRes ? 2 * kDepth * kTile : 8];
   const int H4 = 4 * H;
   const int i0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
   const int ndir = gridDim.z / splits;
   const int d = blockIdx.z / splits, sp = blockIdx.z % splits;
   const int r_begin = sp * chunk, r_end = min(M, r_begin + chunk);
   const float* hs_d = hs + (size_t)d * M * H;
+  const __nv_bfloat16* hsb_d = reinterpret_cast<const __nv_bfloat16*>(hs) + (size_t)d * M * H;
   const float* da_d = da + (size_t)d * M * H4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -711,10 +854,23 @@ lstm_bwd_dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
       const int row = r0 + k;
       const bool ok_h = row < r_end && row % T != 0 && i0 + c < H;
       const bool ok_a = row < r_end && n0 + c < H4;
-      cp_async16(hp_s + k * kLdB + c, ok_h ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
-                 ok_h ? 16 : 0);
+      if (!kRes)
+        cp_async16(hp_s + k * kLdB + c, ok_h ? hs_d + (size_t)(row - 1) * H + i0 + c : hs_d,
+                   ok_h ? 16 : 0);
       cp_async16(da_s + k * kLdB + c, ok_a ? da_d + (size_t)row * H4 + n0 + c : da_d,
                  ok_a ? 16 : 0);
+    }
+    if (kRes) {
+      __nv_bfloat16* hb = hb_s + (kc & 1) * kDepth * kTile;
+      for (int idx = threadIdx.x; idx < kDepth * (kTile / 8); idx += kTileThreads) {
+        const int k = idx / (kTile / 8), c = (idx % (kTile / 8)) * 8;
+        const int row = r0 + k;
+        const bool ok = row < r_end && row % T != 0 && i0 + c < H;
+        cp_async16(reinterpret_cast<float*>(hb + k * kTile + c),
+                   reinterpret_cast<const float*>(ok ? hsb_d + (size_t)(row - 1) * H + i0 + c
+                                                     : hsb_d),
+                   ok ? 16 : 0);
+      }
     }
     cp_async_commit();
   };
@@ -730,6 +886,13 @@ lstm_bwd_dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
   for (int kc = 0; kc < nk; ++kc) {
     cp_async_wait_all();  // as in the gates kernel
     __syncthreads();
+    if (kRes) {
+      float* hp = smem + (kc & 1) * kDwStage;
+      const __nv_bfloat16* hb = hb_s + (kc & 1) * kDepth * kTile;
+      for (int idx = threadIdx.x; idx < kDepth * kTile; idx += kTileThreads)
+        hp[(idx / kTile) * kLdB + idx % kTile] = widen(hb[idx]);
+      __syncthreads();
+    }
     if (kc + 1 < nk) start(kc + 1);
     const float* hp_s = smem + (kc & 1) * kDwStage + warp * 16;
     const float* da_s = smem + (kc & 1) * kDwStage + kDepth * kLdB;
@@ -894,22 +1057,15 @@ size_t seq_smem_bytes(int H) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
+// The kernels of each `form` the entries take: 0; the bf16-h form, alone and
+// with a bf16 xw; a bf16 xw; the bf16 residuals, alone and with a bf16 xw.
+#define LSTM_BWD_FORMS(X) X(0) X(kFormH) X(kFormH | kFormXw) X(kFormXw) X(kFormRes) \
+  X(kFormXw | kFormRes)
 
-extern "C" {
-
-// The earlier design, for any H. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H),
-// hs, cs, dhs (ndir, B, T, H), dxw (ndir, B, T, 4H) and dwhh (ndir, H, 4H)
-// are contiguous f32 device pointers on `device`; dxw and dwhh are written in
-// full. `h_bf16` non-zero runs the bf16-h form, which writes dxw only (dwhh
-// may be null; lstm_bwd_dw_bf16_f32 gives dW_hh^T). Returns the first non-zero
-// CUDA status among the set-up calls, the
-// cooperative launch's own status (which reports a grid too large to be
-// co-resident) and cudaGetLastError(); 0 on success. Does not synchronise.
-int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* hs,
-                               const void* cs, const void* dhs, void* dxw, void* dwhh,
-                               int ndir, int B, int T, int H, int h_bf16, int device,
-                               void* stream) {
+template <int kForm>
+int launch_grid(const void* xw, const void* w_hh_t, const void* hs, const void* cs,
+                const void* dhs, void* da, void* dxw_b, void* dwhh, int ndir, int B, int T,
+                int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
@@ -934,10 +1090,8 @@ int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* h
   while (K > 1 && H % K) K >>= 1;
   while (K > 1 && ndir * (H / (K / 2)) <= sms) K >>= 1;
   const int R = B >= 4 ? 4 : 1;
-  const void* fn = h_bf16 ? (R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4, true>
-                                    : (const void*)lstm_bidir_tm_bwd_kernel<1, true>)
-                          : (R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4, false>
-                                    : (const void*)lstm_bidir_tm_bwd_kernel<1, false>);
+  const void* fn = R == 4 ? (const void*)lstm_bidir_tm_bwd_kernel<4, kForm>
+                          : (const void*)lstm_bidir_tm_bwd_kernel<1, kForm>;
   for (;;) {
     const size_t smem = smem_bytes(B, H, K, BT);
     const int grid = ndir * (H / K);
@@ -954,7 +1108,7 @@ int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* h
         int G = 32;
         while (G > 1 && (kThreads / G) < tiles) G >>= 1;
         void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&cs,
-                        (void*)&dhs, (void*)&dxw, (void*)&dwhh, (void*)&B,
+                        (void*)&dhs, (void*)&da, (void*)&dxw_b, (void*)&dwhh, (void*)&B,
                         (void*)&T,  (void*)&H,  (void*)&K,   (void*)&BT, (void*)&G};
         err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
                                           (cudaStream_t)stream);
@@ -968,25 +1122,18 @@ int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* h
   return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-// The three-phase route: the same tensors, H a multiple of 8 and at most 256,
-// every pointer 16-byte aligned. `splits` >= 1 ways to split dW_hh^T's
-// contraction over the B * T rows; `scratch` holds splits * ndir * H * 4H
-// floats when splits > 1 (unused otherwise). Four or five launches on
-// `stream`. `h_bf16` non-zero runs phases 1 and 2 of the bf16-h form and not
-// phase 3: dxw only (dwhh and scratch may be null; lstm_bwd_dw_bf16_f32 gives
-// dW_hh^T). Returns the first non-zero status, 0 on success. Does not
-// synchronise.
-int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void* hs,
-                                 const void* cs, const void* dhs, void* dxw, void* dwhh,
-                                 void* scratch, int ndir, int B, int T, int H, int splits,
-                                 int h_bf16, int device, void* stream) {
+template <int kForm>
+int launch_phases(const void* xw, const void* w_hh_t, const void* hs, const void* cs,
+                  const void* dhs, void* da, void* dxw_b, void* dwhh, void* scratch, int ndir,
+                  int B, int T, int H, int splits, int device, void* stream) {
+  constexpr bool kBf16H = kForm & kFormH;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0 || splits <= 0 || H % kCluster ||
       H / kCluster > 32 || (long long)B * T > 0x7fffffffLL / 4)
     return (int)cudaErrorInvalidValue;
-  if (!(aligned16(xw) && aligned16(w_hh_t) && aligned16(hs) && aligned16(dxw) &&
-        (h_bf16 || (aligned16(dwhh) && (splits == 1 || aligned16(scratch))))))
+  if (!(aligned16(xw) && aligned16(w_hh_t) && aligned16(hs) && aligned16(da) &&
+        (kBf16H || (aligned16(dwhh) && (splits == 1 || aligned16(scratch))))))
     return (int)cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
   auto c = [](const void* p) { return static_cast<const float*>(p); };
@@ -995,13 +1142,8 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
   const unsigned tiles_n = (H4 + kTile - 1) / kTile;
 
   const dim3 gates_grid((M + kTile - 1) / kTile, tiles_n, ndir);
-  if (h_bf16) {
-    lstm_bwd_gates_kernel<true><<<gates_grid, kTileThreads, 0, s>>>(c(xw), c(w_hh_t), c(hs),
-                                                                     m(dxw), M, T, H);
-  } else {
-    lstm_bwd_gates_kernel<false><<<gates_grid, kTileThreads, 0, s>>>(c(xw), c(w_hh_t), c(hs),
-                                                                      m(dxw), M, T, H);
-  }
+  lstm_bwd_gates_kernel<kForm><<<gates_grid, kTileThreads, 0, s>>>(c(xw), c(w_hh_t), c(hs),
+                                                                   m(da), M, T, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem = seq_smem_bytes(H);
@@ -1010,26 +1152,20 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
                                     device)))
     return (int)err;
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  err = h_bf16 ? cudaFuncSetAttribute(lstm_bwd_seq_kernel<true>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-               : cudaFuncSetAttribute(lstm_bwd_seq_kernel<false>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaFuncSetAttribute(lstm_bwd_seq_kernel<kForm>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return (int)err;
   const int nbb = (B + kSeqRows - 1) / kSeqRows;
-  if (h_bf16) {
-    lstm_bwd_seq_kernel<true><<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
-        c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
-  } else {
-    lstm_bwd_seq_kernel<false><<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
-        c(w_hh_t), c(cs), c(dhs), m(dxw), B, T, H);
-  }
+  lstm_bwd_seq_kernel<kForm><<<ndir * nbb * kCluster, kSeqThreads, smem, s>>>(
+      c(w_hh_t), c(cs), c(dhs), m(da), static_cast<__nv_bfloat16*>(dxw_b), B, T, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (h_bf16) return 0;
+  if (kBf16H) return 0;
 
   const int chunk = ((M + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
   float* part = splits == 1 ? m(dwhh) : m(scratch);
-  lstm_bwd_dw_kernel<<<dim3((H + kTile - 1) / kTile, tiles_n, ndir * splits), kTileThreads, 0,
-                       s>>>(c(hs), c(dxw), part, M, T, H, splits, chunk);
+  lstm_bwd_dw_kernel<(kForm & kFormRes) != 0>
+      <<<dim3((H + kTile - 1) / kTile, tiles_n, ndir * splits), kTileThreads, 0, s>>>(
+          c(hs), c(da), part, M, T, H, splits, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (splits > 1) {
     const int n = ndir * H * H4;
@@ -1038,6 +1174,61 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The earlier design, for any H. xw (ndir, B, T, 4H), w_hh_t (ndir, H, 4H),
+// hs, cs, dhs (ndir, B, T, H), da (ndir, B, T, 4H) and dwhh (ndir, H, 4H) are
+// contiguous device pointers on `device`; da (f32) and dwhh are written in
+// full. `form`: bit 1 the bf16-h form, which writes da only (dwhh may be
+// null; lstm_bwd_dw_bf16_f32 gives dW_hh^T from da); bit 2 xw bf16, and then
+// dxw_b (ndir, B, T, 4H) bf16 also receives da rounded, else dxw_b is null
+// and da is dxw; bit 4 hs, cs and dhs bf16 (not with bit 1). Returns the
+// first non-zero CUDA status among the set-up calls, the cooperative
+// launch's own status (which reports a grid too large to be co-resident)
+// and cudaGetLastError(); 0 on success. Does not synchronise.
+int lstm_bidir_tm_bwd_grid_f32(const void* xw, const void* w_hh_t, const void* hs,
+                               const void* cs, const void* dhs, void* da, void* dxw_b,
+                               void* dwhh, int ndir, int B, int T, int H, int form, int device,
+                               void* stream) {
+  if (((form & kFormXw) != 0) != (dxw_b != nullptr)) return (int)cudaErrorInvalidValue;
+  switch (form) {
+#define LSTM_BWD_GRID(f)                                                                   \
+  case f:                                                                                \
+    return launch_grid<f>(xw, w_hh_t, hs, cs, dhs, da, dxw_b, dwhh, ndir, B, T, H, device, \
+                          stream);
+    LSTM_BWD_FORMS(LSTM_BWD_GRID)
+#undef LSTM_BWD_GRID
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The three-phase route: the same tensors, H a multiple of 8 and at most 256,
+// xw, w_hh_t, hs, da, dwhh and scratch 16-byte aligned. `splits` >= 1 ways to
+// split dW_hh^T's contraction over the B * T rows; `scratch` holds splits *
+// ndir * H * 4H floats when splits > 1 (unused otherwise). Four or five
+// launches on `stream`. `form` as for the earlier design; the bf16-h form
+// runs phases 1 and 2 and not phase 3 (dwhh and scratch may be null). Returns
+// the first non-zero status, 0 on success. Does not synchronise.
+int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void* hs,
+                                 const void* cs, const void* dhs, void* da, void* dxw_b,
+                                 void* dwhh, void* scratch, int ndir, int B, int T, int H,
+                                 int splits, int form, int device, void* stream) {
+  if (((form & kFormXw) != 0) != (dxw_b != nullptr)) return (int)cudaErrorInvalidValue;
+  switch (form) {
+#define LSTM_BWD_PHASES(f)                                                                \
+  case f:                                                                               \
+    return launch_phases<f>(xw, w_hh_t, hs, cs, dhs, da, dxw_b, dwhh, scratch, ndir, B, T, \
+                            H, splits, device, stream);
+    LSTM_BWD_FORMS(LSTM_BWD_PHASES)
+#undef LSTM_BWD_PHASES
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H), the

@@ -72,9 +72,31 @@
 // product; hs, cs, c and cT keep the f32 values. With W_hh^T holding bf16
 // values, each product h * w is exact in f32, so the FMAs sum exact products
 // and only the order of the sum differs from the plain version's.
+//
+// The bf16 stream forms of the JAX package's Pallas kernels (entries' `form`
+// bits 2 and 4; flags kXwBf16, kOutBf16), which change what is read and
+// stored, not the f32 recurrence:
+//   - kXwBf16 (SE_LSTM_XW_BF16 there): xw is bf16, widened where the cell
+//     reads it. cp.async moves 4, 8 or 16 bytes, not a 2-byte element, so
+//     each thread of (d) copies the 4-byte word that holds its unit's bf16
+//     element (aligned down: the other half is the neighbouring unit's, and
+//     H % 8 == 0 keeps the word inside the gate's row) into its own slot of
+//     the ring, and takes its half. A thread reads only what it copied, as
+//     in f32, so nothing waits on the other lanes; two lanes fetch each word,
+//     from one 32-byte sector, so the bytes read from memory halve. Copying
+//     16-byte pieces of the row across the warp instead makes every lane
+//     wait for the others (__syncwarp() before the read and the refill): that
+//     measured 0.07 ms more a launch than f32 at B=1 on an H100.
+//   - kOutBf16 (SE_PALLAS_HS_BF16 for B1, SE_PALLAS_VJP_BF16's residuals for
+//     B2 fwd): hs (and cs under kCell) stored rounded to bf16; h, c, the
+//     exchange and cT stay f32.
+// The flags are template parameters, so the f32 instances keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "bf16_round.cuh"
 #include "cp_async.cuh"
@@ -99,6 +121,9 @@ constexpr int kVectorPush = 4;   // (e) 16-byte remote stores gathered by shuffl
 constexpr int kFullSync = 8;     // (e) off: cluster.sync() right after the stores
 // the bf16-h form: h rounded to bf16 for the step product (variant 0 only)
 constexpr int kBf16H = 16;
+// the stream forms (variant 0 only): xw read as bf16; hs (and cs) stored as bf16
+constexpr int kXwBf16 = 32;
+constexpr int kOutBf16 = 64;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -122,7 +147,8 @@ __device__ __forceinline__ void cluster_wait_acquire() {
 // Dynamic shared memory, bb rows allocated:
 //   part_s [bb][kSlices][kUnits]      float4  partial gates of (row, slice, unit)
 //   h_s    [2][bb][kHPad]             float   h_{t-1} / h_t of the batch block
-//   xw_s   [kRing][4][bb][kUnits]     float   xw of the ring's steps
+//   xw_s   [kRing][4][bb][kUnits]     float   xw of the ring's steps (under
+//                                             kXwBf16 the word holding it)
 //   w_s    [kHPad][kUnits]            float4  the weights (kSmemWeights only)
 // h0, c0 and c_out are (ndir, B, H) or null.
 template <bool kCell, int kFlags>
@@ -134,6 +160,8 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   constexpr bool kWs = kFlags & kSmemWeights;
   constexpr bool kRingOn = !(kFlags & kLoadInStep);
   constexpr bool kRoundH = kFlags & kBf16H;
+  constexpr bool kXwB = kFlags & kXwBf16;
+  using OutT = std::conditional_t<(kFlags & kOutBf16) != 0, __nv_bfloat16, float>;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -188,9 +216,15 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   const bool cell = row < rows && live;
   const size_t at = ((size_t)d * B + b0 + (cell ? row : 0)) * T;
   const float* xw_p = xw + at * H4 + j0 + (cell ? lane : 0);
-  float* hs_p = hs + at * H + j0 + (cell ? lane : 0);
-  float* cs_p = kCell ? cs + at * H + j0 + (cell ? lane : 0) : nullptr;
+  OutT* hs_p = reinterpret_cast<OutT*>(hs) + at * H + j0 + (cell ? lane : 0);
+  OutT* cs_p = kCell ? reinterpret_cast<OutT*>(cs) + at * H + j0 + (cell ? lane : 0) : nullptr;
   float* ring_p = xw_s + row * kUnits + lane;
+  // kXwBf16: the 4-byte word of the bf16 xw holding this thread's element
+  // (at * H4 and g * H are even, so the half is the same at every step and
+  // gate), and which half it is
+  const uint32_t* xww_p =
+      reinterpret_cast<const uint32_t*>(xw) + ((at * H4 + j0 + (cell ? lane : 0)) >> 1);
+  const bool xw_hi = (j0 + lane) & 1;
   const size_t state_at = ((size_t)d * B + b0 + (cell ? row : 0)) * H + j0 + (cell ? lane : 0);
   float c = (c0 != nullptr && cell) ? c0[state_at] : 0.0f;
 
@@ -199,8 +233,15 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
     if (t < T) {
       float* dst = ring_p + (t % kRing) * 4 * ring_gate;
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        cp_async4(dst + g * ring_gate, xw_p + (size_t)t * H4 + g * H, 4);
+      for (int g = 0; g < 4; ++g) {
+        if (kXwB) {
+          cp_async4(dst + g * ring_gate,
+                    reinterpret_cast<const float*>(xww_p + (size_t)t * (H4 / 2) + g * (H / 2)),
+                    4);
+        } else {
+          cp_async4(dst + g * ring_gate, xw_p + (size_t)t * H4 + g * H, 4);
+        }
+      }
     }
     cp_async_commit();
   };
@@ -251,7 +292,13 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
         if (kRingOn) {
           cp_async_wait<kRing - 1>();  // this thread's copy of step t has landed
           const float* xs = ring_p + (t % kRing) * 4 * ring_gate;
-          x = make_float4(xs[0], xs[ring_gate], xs[2 * ring_gate], xs[3 * ring_gate]);
+          if (kXwB) {
+            x = make_float4(bf16_half(xs[0], xw_hi), bf16_half(xs[ring_gate], xw_hi),
+                            bf16_half(xs[2 * ring_gate], xw_hi),
+                            bf16_half(xs[3 * ring_gate], xw_hi));
+          } else {
+            x = make_float4(xs[0], xs[ring_gate], xs[2 * ring_gate], xs[3 * ring_gate]);
+          }
         }
         // xw, then the 16 slices in order
         const float4* ps = part_s + row * kSlices * kUnits + lane;
@@ -297,8 +344,8 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
       cluster_arrive_release();
     }
     if (cell) {
-      hs_p[(size_t)t * H] = h;
-      if (kCell) cs_p[(size_t)t * H] = c;
+      hs_p[(size_t)t * H] = narrow<OutT>(h);
+      if (kCell) cs_p[(size_t)t * H] = narrow<OutT>(c);
       if (kRingOn) prefetch(t + kRing);
     }
   }
@@ -328,6 +375,8 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
                                     device)))
     return (int)err;
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  if ((kFlags & kXwBf16) && reinterpret_cast<uintptr_t>(xw) % 4)
+    return (int)cudaErrorMisalignedAddress;  // the 4-byte words of the bf16 fetch
   auto fn = lstm_tm_cluster_kernel<kCell, kFlags>;
   if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return (int)err;
@@ -353,6 +402,12 @@ int max_clusters(int device, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, (const void*)fn, &config);
 }
 
+// The flags of an entry's `form`: bit 1 the bf16-h form, bit 2 a bf16 xw,
+// bit 4 bf16 hs (and cs).
+int form_flags(int form) {
+  return ((form & 1) ? kBf16H : 0) | ((form & 2) ? kXwBf16 : 0) | ((form & 4) ? kOutBf16 : 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,21 +419,22 @@ extern "C" {
 // be null (zeros; not written). `variant` 0 is the design; for
 // measurement, 1 reads the weights from shared memory every step (batch_block
 // <= 8), 2 loads xw inside its step, 4 makes the remote stores 16 bytes a
-// lane, 8 puts a whole cluster barrier after them. `h_bf16` non-zero runs the
-// bf16-h form (variant 0 only). Returns the first non-zero
+// lane, 8 puts a whole cluster barrier after them. `form` (variant 0 only):
+// bit 1 the bf16-h form, bit 2 xw bf16 (4-byte aligned), bit 4 hs bf16;
+// the bf16-h form takes no bf16 hs. Returns the first non-zero
 // CUDA status among the set-up calls and cudaGetLastError() after the launch
 // (which reports a cluster that cannot be placed); 0 on success. Does not
 // synchronise.
 int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
                         const void* c0, void* c_out, int ndir, int B, int T, int H,
-                        int batch_block, int variant, int h_bf16, int device, void* stream) {
+                        int batch_block, int variant, int form, int device, void* stream) {
 #define LSTM_TM_CLUSTER_VARIANT(flags)                                                 \
   case flags:                                                                        \
     return launch<false, flags>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, \
                                 batch_block, device, stream);
-  if (h_bf16) {
+  if (form) {
     if (variant != 0) return (int)cudaErrorInvalidValue;
-    variant = kBf16H;
+    variant = form_flags(form);
   }
   switch (variant) {
     LSTM_TM_CLUSTER_VARIANT(0)
@@ -387,6 +443,10 @@ int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void
     LSTM_TM_CLUSTER_VARIANT(kVectorPush)
     LSTM_TM_CLUSTER_VARIANT(kFullSync)
     LSTM_TM_CLUSTER_VARIANT(kBf16H)
+    LSTM_TM_CLUSTER_VARIANT(kBf16H | kXwBf16)
+    LSTM_TM_CLUSTER_VARIANT(kXwBf16)
+    LSTM_TM_CLUSTER_VARIANT(kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kXwBf16 | kOutBf16)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -394,15 +454,26 @@ int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void
 }
 
 // Kernel B2 fwd: as lstm_tm_cluster_f32 with variant 0, and cs (ndir, B, T,
-// H) f32 receives the cell state of every step; `h_bf16` as there.
+// H) receives the cell state of every step; `form` as there, bit 4 storing
+// hs and cs in bf16 (the bf16 residuals).
 int lstm_tm_cluster_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, int ndir,
-                           int B, int T, int H, int batch_block, int h_bf16, int device,
+                           int B, int T, int H, int batch_block, int form, int device,
                            void* stream) {
-  if (h_bf16)
-    return launch<true, kBf16H>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
-                                batch_block, device, stream);
-  return launch<true, 0>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, H,
-                         batch_block, device, stream);
+#define LSTM_TM_CLUSTER_FORM(flags)                                                    \
+  case flags:                                                                        \
+    return launch<true, flags>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, \
+                               H, batch_block, device, stream);
+  switch (form_flags(form)) {
+    LSTM_TM_CLUSTER_FORM(0)
+    LSTM_TM_CLUSTER_FORM(kBf16H)
+    LSTM_TM_CLUSTER_FORM(kBf16H | kXwBf16)
+    LSTM_TM_CLUSTER_FORM(kXwBf16)
+    LSTM_TM_CLUSTER_FORM(kOutBf16)
+    LSTM_TM_CLUSTER_FORM(kXwBf16 | kOutBf16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LSTM_TM_CLUSTER_FORM
 }
 
 // The number of 8-block clusters of this kernel that the card holds at once

@@ -60,11 +60,29 @@
   bf16-h form (``lstm_bidir_tm(..., h_bf16=True)``: h rounded to bf16 for
   the step product, B1 / B2 fwd / B2 bwd with their flag and dW_hh^T summed
   step by step in bf16), stateless or from a carried state.
+- The JAX package's stream forms of its LSTM kernels, read from the same
+  environment variables at forward time (JAX reads them at trace time,
+  ``models/lstm.py:40-52`` and ``ops/pallas/lstm_kernel.py``), as
+  ``stream_forms`` returns them. ``SE_LSTM_XW_BF16=1``: the input projection
+  (plus bias) is rounded to bf16 once, here, and the recurrence reads it so;
+  its gradient comes back rounded to bf16. ``SE_PALLAS_HS_BF16=1``: B1 stores
+  hs in bf16 and the next layer reads it widened. ``SE_PALLAS_VJP_BF16=1``:
+  under autograd B2 fwd stores hs and cs in bf16 (the next layer reads that
+  hs), and B2 bwd reads them, rounds the dh cotangent, W_hh^T and the da of
+  its dh product to bf16. A bidirectional layer honours all three, as JAX's
+  Pallas path does; a one-direction layer (JAX's ``lax.scan`` cell) only the
+  first. ``Capture`` records ``l{k}_xw`` before the rounding, where JAX
+  perturbs it, so its gradient is the bf16 dxw widened. ``SE_LSTM_XW_INT8``,
+  ``SE_PALLAS_MXU_BF16`` and ``SE_PALLAS_GATES_BF16`` change the function in
+  those same JAX kernels and are not ported: set to 1, the forward raises
+  (``ROADMAP.md`` A13). B7 (``recurrence="fused"``) has no xw stream, as in
+  the JAX package, and reads none of them.
 
 Initialization: xavier-uniform W_ih, orthogonal W_hh, zero biases.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -77,6 +95,23 @@ from ..ops.cuda.lstm_kernel import (
 )
 
 RECURRENCES = ("tm", "blocked", "fused")
+# the JAX package's variables of its LSTM kernels' bf16 streams (xw, B1's hs,
+# the VJP's residuals), honoured, and those of its other forms, refused
+STREAM_FORM_VARIABLES = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16", "SE_PALLAS_VJP_BF16")
+UNPORTED_FORM_VARIABLES = ("SE_LSTM_XW_INT8", "SE_PALLAS_MXU_BF16", "SE_PALLAS_GATES_BF16")
+
+
+def stream_forms():
+    """(xw_bf16, hs_bf16, vjp_bf16): which of the JAX package's stream forms
+    of its LSTM kernels the environment turns on, each variable set to "1"
+    as the JAX package reads it. Raises if a variable of a form that is not
+    ported is "1"."""
+    for name in UNPORTED_FORM_VARIABLES:
+        if os.environ.get(name, "0") == "1":
+            raise NotImplementedError(
+                f"{name}=1 changes the JAX package's LSTM kernels in a way the port does not "
+                "compute (ROADMAP.md A13); unset it")
+    return tuple(os.environ.get(name, "0") == "1" for name in STREAM_FORM_VARIABLES)
 
 
 class Bf16Product(torch.autograd.Function):
@@ -210,6 +245,9 @@ class LSTMStack(nn.Module):
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
         final_states = []
         bf16 = self.compute_dtype == torch.bfloat16
+        xw_bf16, hs_bf16, vjp_bf16 = stream_forms()
+        stream = lambda xw: xw.to(torch.bfloat16) if xw_bf16 else xw  # noqa: E731
+        below = capture.layer if capture is not None and isinstance(capture.layer, int) else 0
         for k in range(self.num_layers):
             pf = getattr(self, f"l{k}_fwd")
             if not self.bidirectional:
@@ -225,7 +263,7 @@ class LSTMStack(nn.Module):
                     w_hh_t = pf.w_hh.T[None]
                 xw, w_hh_t = xw.contiguous(), w_hh_t.contiguous()
                 if not carry:
-                    hs = lstm_bidir_tm(xw, w_hh_t, h_bf16=bf16)
+                    hs = lstm_bidir_tm(stream(xw), w_hh_t, h_bf16=bf16)
                     if captured(capture, k):
                         capture.update({f"l{k}_xs": x[None], f"l{k}_xw": xw,
                                         f"l{k}_hs": hs})
@@ -233,8 +271,8 @@ class LSTMStack(nn.Module):
                     continue
                 state = None if initial_state is None else tuple(
                     t[None] for t in initial_state[k])
-                hs, (h, c) = lstm_bidir_tm(xw, w_hh_t, state=state, return_state=True,
-                                           h_bf16=bf16)
+                hs, (h, c) = lstm_bidir_tm(stream(xw), w_hh_t, state=state,
+                                           return_state=True, h_bf16=bf16)
                 x = hs[0]
                 final_states.append((h[0], c[0]))
                 continue
@@ -256,10 +294,19 @@ class LSTMStack(nn.Module):
                 xw = (project(xs, w_ih, self.compute_dtype)
                       + bias[:, None, None, :]).contiguous()
                 if self.recurrence == "blocked" and forward_only:
-                    hs = lstm_bidir_bb(xw, w_hh_t)
+                    hs = lstm_bidir_bb(stream(xw), w_hh_t)
                 else:
-                    # LstmBidirTm when a gradient is needed, B1 when not
-                    hs = lstm_bidir_tm(xw, w_hh_t)
+                    # LstmBidirTm when a gradient is needed, B1 when not. A
+                    # layer below a captured one needs none: the scorer
+                    # differentiates at the captured streams only, as JAX's
+                    # capture engine at its perturbation, whose custom VJP runs
+                    # its forward on the layers the perturbed stream reaches
+                    # and its primal below (they differ under VJP bf16)
+                    with torch.set_grad_enabled(torch.is_grad_enabled() and k >= below):
+                        hs = lstm_bidir_tm(
+                            stream(xw), w_hh_t,
+                            hs_dtype=torch.bfloat16 if hs_bf16 else torch.float32,
+                            res_dtype=torch.bfloat16 if vjp_bf16 else torch.float32)
                 if capture_k:
                     capture.update({f"l{k}_xs": xs, f"l{k}_xw": xw, f"l{k}_hs": hs})
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)

@@ -68,6 +68,26 @@ one step at a time in reverse, which no product over all rows gives: that
 sum is a kernel of its own, ``lstm_bidir_tm_dw_bf16`` (``lstm_tm_bwd.cu``),
 launched by B2 bwd's wrapper in the form.
 
+B1, B2 fwd and B2 bwd also have the JAX package's bf16 stream forms, which
+change what the kernels read and write, never the f32 recurrence:
+
+- bf16 xw (``SE_LSTM_XW_BF16`` there): ``xw`` handed in as bf16, widened to
+  f32 where a step reads it; B2 bwd then writes dxw in bf16 (JAX's dxw in
+  xw's dtype, ``_tm_bwd``). B6 takes it too.
+- bf16 hs (``SE_PALLAS_HS_BF16``): B1 stores hs in bf16
+  (``hs_dtype=torch.bfloat16``); h and c stay f32 inside the recurrence.
+- bf16 residuals (``SE_PALLAS_VJP_BF16``): B2 fwd stores hs and cs in bf16
+  (``res_dtype``), and B2 bwd, handed bf16 hs / cs / dhs, recomputes the gates
+  from them against W_hh^T rounded to bf16, rounds da to bf16 for the carried
+  dh product, and sums dW_hh^T in f32 from the bf16 h and the f32 da
+  (``_kernel_tm_bwd`` with a bf16 ``whh``).
+
+``lstm_bidir_tm`` returns hs widened to f32 whatever it stored, as
+``lstm_bidir_pallas_tm`` and the custom VJP's forward return it; under
+autograd that widening is where the dh cotangent is rounded to bf16 on its way
+back (``_lstm_bidir_tm_bwd``'s ``dout.astype(hs_tm.dtype)``). The forms are
+arguments here; ``models/lstm.py`` reads the JAX package's variables.
+
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
 raises; nothing falls back.
 """
@@ -81,6 +101,18 @@ import torch
 
 from ._build import launch_args, load, raise_on
 
+# the dtypes of the streams the kernels read and write: f32, or bf16 in a
+# stream form
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
+# bits of the C entries' `form`: the bf16-h form, a bf16 xw, bf16 hs (B1) or
+# residuals (B2 fwd stores them, B2 bwd reads them)
+FORM_H, FORM_XW, FORM_OUT = 1, 2, 4
+
+
+def _form(h_bf16: bool, xw: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> int:
+    return ((FORM_H if h_bf16 else 0) | (FORM_XW if xw.dtype == torch.bfloat16 else 0)
+            | (FORM_OUT if out_dtype == torch.bfloat16 else 0))
+
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (nearest, ties to even), held in f32."""
@@ -89,6 +121,8 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=None,
                 h_bf16: bool = False):
+    """hs (and cs with ``with_cell``) in f32; xw of either dtype is widened
+    where a step reads it."""
     H = w_hh_t.shape[-2]
     lead = xw.shape[:-2]  # (..., B)
     if state is None:
@@ -109,7 +143,8 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=N
 
 
 def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
-                      return_state: bool = False, h_bf16: bool = False):
+                      return_state: bool = False, h_bf16: bool = False,
+                      hs_dtype: torch.dtype = torch.float32):
     """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
 
     Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
@@ -117,11 +152,13 @@ def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
     initial state (None: zeros); with ``return_state`` the result is (hs,
     (hT, cT)). ``h_bf16``: the bf16-h form, which rounds h_{t-1} (h0
     included) to bf16 for the step product only; h, c, hs and (hT, cT) stay
-    f32 and unrounded."""
+    f32 and unrounded. xw may be bf16 (the bf16 xw form); ``hs_dtype`` bf16
+    stores hs rounded (the bf16 hs form; (hT, cT) stay f32)."""
     if not return_state:
-        return _recurrence(xw, w_hh_t, with_cell=False, state=state, h_bf16=h_bf16)
+        hs = _recurrence(xw, w_hh_t, with_cell=False, state=state, h_bf16=h_bf16)
+        return hs.to(hs_dtype)
     hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state, h_bf16=h_bf16)
-    return hs, _final_state(hs, cs, state)
+    return hs.to(hs_dtype), _final_state(hs, cs, state)
 
 
 def _final_state(hs, cs, state):
@@ -135,10 +172,13 @@ def _final_state(hs, cs, state):
     return state
 
 
-def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False):
-    """B2 fwd's plain version: (hs, cs), each (2, B, T, H) f32; ``h_bf16`` as
-    for ``lstm_bidir_tm_ref``."""
-    return _recurrence(xw, w_hh_t, with_cell=True, h_bf16=h_bf16)
+def lstm_bidir_tm_fc_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False,
+                         res_dtype: torch.dtype = torch.float32):
+    """B2 fwd's plain version: (hs, cs), each (2, B, T, H) in ``res_dtype``
+    (bf16: the bf16 residual form, both stored rounded); ``h_bf16`` and a
+    bf16 xw as for ``lstm_bidir_tm_ref``."""
+    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, h_bf16=h_bf16)
+    return hs.to(res_dtype), cs.to(res_dtype)
 
 
 def lstm_bidir_tm_dw_bf16_ref(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
@@ -160,23 +200,33 @@ def lstm_bidir_tm_dw_bf16_ref(hs: torch.Tensor, da: torch.Tensor) -> torch.Tenso
 def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """B2 bwd's plain version, step for step the Pallas ``_kernel_tm_bwd``:
     reverse time, gates recomputed from (xw_t, h_{t-1}), h_{-1} = c_{-1} = 0,
-    dh and dc carried. Returns (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32.
+    dh and dc carried. Returns (dxw (2, B, T, 4H) in xw's dtype, dw_hh_t (2,
+    H, 4H) f32).
 
     ``h_bf16``: the VJP of the bf16-h form (the JAX ``lax.scan`` cell in
     bf16): the gates recomputed from bf16(h_{t-1}), the carried dh_t =
     dhs_t + bf16(da_{t+1} @ W_hh) (the whole product rounded once), and
-    dW_hh^T summed in bf16 step by step (``lstm_bidir_tm_dw_bf16_ref``)."""
+    dW_hh^T summed in bf16 step by step (``lstm_bidir_tm_dw_bf16_ref``).
+
+    The bf16 residual form, taken when hs, cs and dhs are bf16: W_hh^T rounded
+    to bf16 for both products, the gates recomputed from the bf16 h_{t-1},
+    c_{t-1} and c_t, the carried dh_t = dhs_t + bf16(da_{t+1}) @ bf16(W_hh),
+    and dW_hh^T = sum h_{t-1}^T da in f32 from the unrounded da. A bf16 xw
+    is widened where read, and dxw is da rounded to bf16 (dW_hh^T still
+    takes the f32 da)."""
     H = w_hh_t.shape[-2]
     T = xw.shape[-2]
+    res_bf16 = hs.dtype == torch.bfloat16
+    w = _bf16(w_hh_t) if res_bf16 else w_hh_t
+    hs, cs, dhs = hs.float(), cs.float(), dhs.float()
     dh_c = hs.new_zeros(hs.shape[:-2] + (H,))
     dc_c = torch.zeros_like(dh_c)
     dw = torch.zeros(w_hh_t.shape, dtype=torch.float32, device=xw.device)
-    dxw = [xw.new_zeros(xw.shape[:-2] + (0, 4 * H), dtype=torch.float32)] + [None] * T
+    das = [xw.new_zeros(xw.shape[:-2] + (0, 4 * H), dtype=torch.float32)] + [None] * T
     for tt in range(T - 1, -1, -1):
         h_prev = hs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
         c_prev = cs[..., tt - 1, :] if tt > 0 else torch.zeros_like(dh_c)
-        gates = xw[..., tt, :].float() + torch.matmul(_bf16(h_prev) if h_bf16 else h_prev,
-                                                      w_hh_t)
+        gates = xw[..., tt, :].float() + torch.matmul(_bf16(h_prev) if h_bf16 else h_prev, w)
         i, f, g, o = gates.split(H, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         tc = torch.tanh(cs[..., tt, :])
@@ -190,18 +240,19 @@ def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
             dct * i * (1.0 - g * g),
             do * o * (1.0 - o),
         ], dim=-1)
-        dxw[tt + 1] = da[..., None, :]
-        dh_c = torch.matmul(da, w_hh_t.transpose(-1, -2))
+        das[tt + 1] = da[..., None, :]
+        dh_c = torch.matmul(_bf16(da) if res_bf16 else da, w.transpose(-1, -2))
         if h_bf16:
             dh_c = _bf16(dh_c)
         else:
             dw = dw + torch.matmul(h_prev.transpose(-1, -2), da)
-    dxw = torch.cat(dxw, dim=-2)
-    return dxw, (lstm_bidir_tm_dw_bf16_ref(hs, dxw) if h_bf16 else dw)
+    da = torch.cat(das, dim=-2)
+    return da.to(xw.dtype), (lstm_bidir_tm_dw_bf16_ref(hs, da) if h_bf16 else dw)
 
 
 def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
-    """``dirs``: the direction counts (leading axis) the caller's kernel takes."""
+    """``dirs``: the direction counts (leading axis) the caller's kernel takes.
+    xw is f32 or bf16 (the bf16 xw form), w_hh_t f32."""
     if xw.dim() != 4 or xw.shape[0] not in dirs or xw.shape[-1] % 4:
         raise ValueError(f"xw must be ({' or '.join(map(str, dirs))}, B, T, 4H), "
                          f"got {tuple(xw.shape)}")
@@ -211,14 +262,24 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
             f"w_hh_t must be ({ndir}, {H}, {4 * H}) for xw {tuple(xw.shape)}, "
             f"got {tuple(w_hh_t.shape)}"
         )
-    if xw.dtype != torch.float32 or w_hh_t.dtype != torch.float32:
+    if xw.dtype not in STREAM_DTYPES or w_hh_t.dtype != torch.float32:
         raise ValueError(
-            f"lstm_bidir_tm takes f32 tensors, got {xw.dtype} / {w_hh_t.dtype}"
+            f"lstm_bidir_tm takes an f32 or bf16 xw and an f32 w_hh_t, got {xw.dtype} / "
+            f"{w_hh_t.dtype}"
         )
     if xw.device != w_hh_t.device:
         raise ValueError(f"xw on {xw.device} but w_hh_t on {w_hh_t.device}")
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_bidir_tm runs on cpu or cuda, not {xw.device}")
+
+
+def _check_form(h_bf16: bool, out_dtype: torch.dtype, name: str):
+    """``out_dtype``: what B1 (hs) or B2 fwd (hs, cs) stores. The bf16-h form
+    (the one-direction scan cell) has no bf16 hs or residual form."""
+    if out_dtype not in STREAM_DTYPES:
+        raise ValueError(f"{name} stores f32 or bf16, got {out_dtype}")
+    if h_bf16 and out_dtype != torch.float32:
+        raise ValueError(f"{name}: the bf16-h form stores f32 hs and cs")
 
 
 def _check_state(xw: torch.Tensor, state):
@@ -233,23 +294,26 @@ def _check_state(xw: torch.Tensor, state):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_residuals(xw, hs, cs, dhs):
+def _check_residuals(xw, hs, cs, dhs, h_bf16: bool = False):
+    """hs, cs and dhs (ndir, B, T, H) on xw's device, all f32 or all bf16
+    (the bf16 residual form, which the bf16-h form does not take)."""
     ndir, B, T, h4 = xw.shape
     want = (ndir, B, T, h4 // 4)
+    dtype = torch.float32 if h_bf16 or hs.dtype != torch.bfloat16 else torch.bfloat16
     for name, t in (("hs", hs), ("cs", cs), ("dhs", dhs)):
-        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != xw.device:
+        if tuple(t.shape) != want or t.dtype != dtype or t.device != xw.device:
             raise ValueError(
-                f"{name} must be f32 {want} on {xw.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{name} must be {dtype} {want} on {xw.device} (hs, cs and dhs all f32 or all "
+                f"bf16; f32 in the bf16-h form), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
 
 
 def _library():
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.lstm_bidir_tm_f32.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.lstm_bidir_tm_f32.restype = i
-    lib.lstm_bidir_tm_fc_f32.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.lstm_bidir_tm_fc_f32.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.lstm_bidir_tm_fc_f32.restype = i
     lib.lstm_tm_error_string.argtypes = [i]
     lib.lstm_tm_error_string.restype = ctypes.c_char_p
@@ -273,9 +337,9 @@ def _cluster_library():
 def _bwd_library():
     lib = load("lstm_tm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_bwd_grid_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.lstm_bidir_tm_bwd_grid_f32.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.lstm_bidir_tm_bwd_grid_f32.restype = i
-    lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.lstm_bidir_tm_bwd_phases_f32.restype = i
     lib.lstm_bwd_dw_bf16_f32.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.lstm_bwd_dw_bf16_f32.restype = i
@@ -333,7 +397,7 @@ def _fwd_clusters(device_index: int) -> int:
 
 def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 1,
                             slices: int = FWD_SLICES, with_cell: bool = False, state=None,
-                            h_bf16: bool = False):
+                            h_bf16: bool = False, out_dtype: torch.dtype = torch.float32):
     """The ``cluster`` route of B1 / B2 fwd in PyTorch, as
     ``lstm_tm_cluster.cu`` runs it (the function of ``lstm_bidir_tm_ref``):
     each block of ``batch_block`` rows is its own recurrence; h is padded with
@@ -346,8 +410,9 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
     of its block. ``state`` (h0, c0), each (ndir, B, H), starts the
     recurrence where the kernel loads it (None: zeros). ``h_bf16``: the
     bf16-h form, the h each block pushes (and h0) rounded to bf16 for the
-    step product. Returns hs, or (hs, cs) with ``with_cell``, each (ndir, B,
-    T, H) f32."""
+    step product. A bf16 xw is widened where a step reads it (the bf16 xw
+    form). Returns hs, or (hs, cs) with ``with_cell``, each (ndir, B, T, H)
+    in ``out_dtype`` (bf16: the kernel's bf16 store of hs, and of cs)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = xw.new_zeros((ndir, B, T, H), dtype=torch.float32)
@@ -376,27 +441,33 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
                     h[d, r] = torch.sigmoid(o) * torch.tanh(c[d, r])
             hs[:, b0:rows.stop, t] = h
             cs[:, b0:rows.stop, t] = c
+    hs, cs = hs.to(out_dtype), cs.to(out_dtype)
     return (hs, cs) if with_cell else hs
 
 
 def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
                 batch_block: Optional[int] = None, variant: int = 0, state=None,
-                return_state: bool = False, h_bf16: bool = False):
+                return_state: bool = False, h_bf16: bool = False,
+                out_dtype: torch.dtype = torch.float32):
     """Launch B1 (or B2 fwd with ``with_cell``) on ``route`` ("cluster" or
     "grid") on checked, contiguous CUDA tensors with B, T > 0; returns hs or
-    (hs, cs). B1 also takes ``state`` (h0, c0), contiguous (ndir, B, H)
-    (None: zeros), and with ``return_state`` returns (hs, (hT, cT)), the
-    kernel writing cT. ``lstm_bidir_tm`` / ``lstm_bidir_tm_fc`` pick the route by
-    ``fwd_route`` and the batch block by ``fwd_batch_block``; the card script
-    also runs the other route, other batch blocks and, through ``variant``
-    (B1 on the cluster route only), the design with one element changed
-    (``FWD_VARIANTS``). ``h_bf16`` launches the bf16-h form (variant 0)."""
+    (hs, cs) in ``out_dtype``. B1 also takes ``state`` (h0, c0), contiguous
+    (ndir, B, H) (None: zeros), and with ``return_state`` returns (hs, (hT,
+    cT)), the kernel writing cT. ``lstm_bidir_tm`` / ``lstm_bidir_tm_fc`` pick
+    the route by ``fwd_route`` and the batch block by ``fwd_batch_block``; the
+    card script also runs the other route, other batch blocks and, through
+    ``variant`` (B1 on the cluster route only), the design with one element
+    changed (``FWD_VARIANTS``). ``h_bf16``, a bf16 xw and ``out_dtype`` bf16
+    launch the forms (variant 0)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
-    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=torch.float32)
+    hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=out_dtype)
     cs = torch.empty_like(hs) if with_cell else None
     if with_cell and (state is not None or return_state):
         raise ValueError("B2 fwd takes no carried state")
+    if out_dtype != torch.float32 and (state is not None or return_state):
+        raise ValueError("a carried state runs with f32 hs (hT is hs's last step)")
+    form = _form(h_bf16, xw, out_dtype)
     c_out = torch.empty((ndir, B, H), device=xw.device, dtype=torch.float32) \
         if return_state else None
     ptrs = (xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr())
@@ -409,45 +480,57 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             batch_block = fwd_batch_block(B, ndir, _fwd_clusters(launch_args(xw)[0]))
         if with_cell:
             err = lib.lstm_tm_cluster_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, batch_block,
-                                             int(h_bf16), *launch_args(xw))
+                                             form, *launch_args(xw))
         else:
             err = lib.lstm_tm_cluster_f32(*ptrs, *carried, ndir, B, T, H, batch_block,
-                                          variant, int(h_bf16), *launch_args(xw))
+                                          variant, form, *launch_args(xw))
         errstr = lib.lstm_tm_cluster_error_string
     else:
         lib = _library()
+        # with hs stored in bf16 the steps exchange the f32 h through this
+        # buffer, one (ndir, B, H) a step parity, in place of hs
+        hf = (torch.empty((2, ndir, B, H), device=xw.device, dtype=torch.float32)
+              if out_dtype != torch.float32 else None)
+        hf_ptr = 0 if hf is None else hf.data_ptr()
         if with_cell:
-            err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, int(h_bf16),
+            err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), hf_ptr, ndir, B, T, H, form,
                                            *launch_args(xw))
         else:
-            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, ndir, B, T, H, int(h_bf16),
+            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, hf_ptr, ndir, B, T, H, form,
                                         *launch_args(xw))
         errstr = lib.lstm_tm_error_string
     raise_on(err, "lstm_bidir_tm_fc" if with_cell else "lstm_bidir_tm", errstr, route=route,
-             ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant,
-             h_bf16=h_bf16)
+             ndir=ndir, B=B, T=T, H=H, batch_block=batch_block, variant=variant, form=form)
     if return_state:
         return hs, (hs[:, :, -1], c_out)
     return (hs, cs) if with_cell else hs
 
 
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
-                  return_state: bool = False, h_bf16: bool = False):
-    """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32; a leading 1
-    in place of the 2 is a one-direction layer. ``state`` (h0, c0), each
-    (2, B, H) f32, starts the recurrence there (None: zeros); with
-    ``return_state`` the result is (hs, (hT, cT)). ``h_bf16`` runs the
-    bf16-h form (``lstm_bidir_tm_ref``), the one-direction layer in bf16.
+                  return_state: bool = False, h_bf16: bool = False,
+                  hs_dtype: torch.dtype = torch.float32,
+                  res_dtype: torch.dtype = torch.float32):
+    """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H) f32; a leading 1 in place
+    of the 2 is a one-direction layer. ``state`` (h0, c0), each (2, B, H)
+    f32, starts the recurrence there (None: zeros); with ``return_state``
+    the result is (hs, (hT, cT)). ``h_bf16`` runs the bf16-h form
+    (``lstm_bidir_tm_ref``), the one-direction layer in bf16. A bf16 xw runs
+    the bf16 xw form; ``hs_dtype`` bf16 stores B1's hs in bf16 and
+    ``res_dtype`` bf16 B2 fwd's hs and cs (the bf16 residual form, B2 bwd
+    reading them so); either way hs comes back widened to f32.
 
     When a gradient is needed (grad mode on and an input that requires it)
     this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass; a
     carried state raises there. Otherwise it is B1 (the primal of the JAX
     custom VJP): on a CUDA tensor the kernel of route ``fwd_route(H)``,
     counted in ``lstm_bidir_tm.launches`` and ``lstm_bidir_tm.by_route``, a
-    launch with a state in or out also in ``lstm_bidir_tm.carried`` and one
-    of the bf16-h form in ``lstm_bidir_tm.h_bf16``; on a CPU tensor the plain
+    launch with a state in or out also in ``lstm_bidir_tm.carried``, one of
+    the bf16-h form in ``lstm_bidir_tm.h_bf16``, of a bf16 xw in
+    ``.xw_bf16`` and of bf16 hs in ``.hs_bf16``; on a CPU tensor the plain
     version."""
     _check(xw, w_hh_t)
+    _check_form(h_bf16, hs_dtype, "lstm_bidir_tm")
+    _check_form(h_bf16, res_dtype, "lstm_bidir_tm")
     if state is not None:
         _check_state(xw, state)
     grad = torch.is_grad_enabled() and (
@@ -458,9 +541,13 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
             raise RuntimeError(
                 "lstm_bidir_tm: a carried state (state= / return_state=) is inference "
                 "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
-        return LstmBidirTm.apply(xw, w_hh_t, h_bf16)
+        # the widening's backward rounds the dh cotangent to the residuals' dtype
+        return LstmBidirTm.apply(xw, w_hh_t, h_bf16, res_dtype).float()
+    if hs_dtype != torch.float32 and (state is not None or return_state):
+        raise ValueError("lstm_bidir_tm: a carried state runs with f32 hs")
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16)
+        out = lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+        return out if return_state else out.float()
     if state is not None:
         state = tuple(t.contiguous() for t in state)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
@@ -471,33 +558,41 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
         return (hs, _final_state(hs, hs, state)) if return_state else hs
     route = fwd_route(h4 // 4)
     out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state,
-                      h_bf16=h_bf16)
+                      h_bf16=h_bf16, out_dtype=hs_dtype)
     lstm_bidir_tm.launches += 1
     lstm_bidir_tm.by_route[route] += 1
     lstm_bidir_tm.carried += state is not None or return_state
     lstm_bidir_tm.h_bf16 += h_bf16
-    return out
+    lstm_bidir_tm.xw_bf16 += xw.dtype == torch.bfloat16
+    lstm_bidir_tm.hs_bf16 += hs_dtype == torch.bfloat16
+    return out if return_state else out.float()
 
 
-def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False):
-    """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) f32;
-    ``h_bf16`` runs the bf16-h form. Kernel of route ``fwd_route(H)`` on a
+def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False,
+                     res_dtype: torch.dtype = torch.float32):
+    """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) in
+    ``res_dtype`` (bf16: the bf16 residual form); ``h_bf16`` runs the bf16-h
+    form, a bf16 xw the bf16 xw form. Kernel of route ``fwd_route(H)`` on a
     CUDA tensor (counted in ``lstm_bidir_tm_fc.launches`` and ``.by_route``,
-    the bf16-h form also in ``.h_bf16``), plain version on a CPU tensor."""
+    the forms also in ``.h_bf16``, ``.xw_bf16`` and ``.res_bf16``), plain
+    version on a CPU tensor."""
     _check(xw, w_hh_t)
+    _check_form(h_bf16, res_dtype, "lstm_bidir_tm_fc")
     if xw.device.type == "cpu":
-        return lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16)
+        return lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16, res_dtype)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm_fc needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
     if B == 0 or T == 0:
-        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=res_dtype)
         return hs, torch.empty_like(hs)
     route = fwd_route(h4 // 4)
-    out = _launch_fwd(route, xw, w_hh_t, with_cell=True, h_bf16=h_bf16)
+    out = _launch_fwd(route, xw, w_hh_t, with_cell=True, h_bf16=h_bf16, out_dtype=res_dtype)
     lstm_bidir_tm_fc.launches += 1
     lstm_bidir_tm_fc.by_route[route] += 1
     lstm_bidir_tm_fc.h_bf16 += h_bf16
+    lstm_bidir_tm_fc.xw_bf16 += xw.dtype == torch.bfloat16
+    lstm_bidir_tm_fc.res_bf16 += res_dtype == torch.bfloat16
     return out
 
 
@@ -544,16 +639,25 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
     ``h_bf16``, the bf16-h form: phase 1 takes h_{t-1} rounded to bf16, phase
     2 rounds dh_carry to bf16, and dW_hh^T is the step-by-step bf16 sum of
     ``lstm_bidir_tm_dw_bf16`` (its plain version) in place of phase 3.
+
+    The bf16 residual form (bf16 hs, cs, dhs): phases 1 and 2 read them
+    widened and W_hh^T rounded to bf16, phase 2 rounds da to bf16 for its
+    product (not where it stores it), phase 3 is unchanged. A bf16 xw is
+    widened where phase 1 reads it; the da buffer stays f32 for phase 3 (or
+    the bf16 dW_hh^T), and dxw is it rounded to bf16, as phase 2 stores it.
     """
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     if B == 0 or T == 0:
         return torch.zeros_like(xw), torch.zeros_like(w_hh_t)
+    res_bf16 = hs.dtype == torch.bfloat16
+    w = _bf16(w_hh_t) if res_bf16 else w_hh_t
+    hs, cs, dhs = hs.float(), cs.float(), dhs.float()
     h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
     h_in = _bf16(h_prev) if h_bf16 else h_prev
-    dxw = _cell_activations(xw + torch.matmul(h_in, w_hh_t[:, None]), H)
+    dxw = _cell_activations(xw.float() + torch.matmul(h_in, w[:, None]), H)
     c_prev = torch.cat([torch.zeros_like(cs[:, :, :1]), cs[:, :, :-1]], dim=2)
-    w_hh = w_hh_t.transpose(-1, -2)
+    w_hh = w.transpose(-1, -2)
     for b0 in range(0, B, batch_block):
         rows = slice(b0, min(B, b0 + batch_block))
         dh_c = dc_c = hs.new_zeros((ndir, rows.stop - b0, H))
@@ -571,11 +675,11 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
                 do * o * (1.0 - o),
             ], dim=-1)
             dxw[:, rows, tt] = da
-            dh_c = torch.matmul(da, w_hh)
+            dh_c = torch.matmul(_bf16(da) if res_bf16 else da, w_hh)
             if h_bf16:
                 dh_c = _bf16(dh_c)
     if h_bf16:
-        return dxw, lstm_bidir_tm_dw_bf16_ref(hs, dxw)
+        return dxw.to(xw.dtype), lstm_bidir_tm_dw_bf16_ref(hs, dxw)
     M = B * T
     if splits is None:
         splits = bwd_splits(M)
@@ -584,37 +688,43 @@ def lstm_bidir_tm_bwd_model(xw, w_hh_t, hs, cs, dhs, batch_block: int = BWD_BATC
     dw = torch.zeros_like(w_hh_t)
     for r0 in range(0, M, chunk):
         dw = dw + torch.matmul(hp[:, r0:r0 + chunk].transpose(-1, -2), da[:, r0:r0 + chunk])
-    return dxw, dw
+    return dxw.to(xw.dtype), dw
 
 
 def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """Launch B2 bwd's ``route`` ("phases" or "grid") on checked, contiguous
-    CUDA tensors; returns (dxw, dw_hh_t). ``lstm_bidir_tm_bwd`` picks the
-    route by ``bwd_route``; the card script also times the other one.
+    CUDA tensors; returns (dxw in xw's dtype, dw_hh_t). ``lstm_bidir_tm_bwd``
+    picks the route by ``bwd_route``; the card script also times the other
+    one. The form follows the dtypes (a bf16 xw; bf16 hs, cs, dhs) and
     ``h_bf16``: the bf16-h form's dxw, then its dW_hh^T from the kernel of
     ``lstm_bidir_tm_dw_bf16`` (which counts its launch)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     dxw = torch.empty_like(xw)
+    # da in f32, which dW_hh^T sums: dxw itself, or beside a bf16 dxw
+    da = dxw if xw.dtype == torch.float32 else torch.empty(xw.shape, device=xw.device,
+                                                           dtype=torch.float32)
+    dxw_b = None if da is dxw else dxw
     # the bf16-h form writes dxw only: null dW_hh^T pointers
     dw = None if h_bf16 else torch.empty_like(w_hh_t)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     lib = _bwd_library()
+    form = _form(h_bf16, xw, hs.dtype)
     inputs = [t.data_ptr() for t in (xw, w_hh_t, hs, cs, dhs)]
+    outputs = (da.data_ptr(), ptr(dxw_b), ptr(dw))
     if route == "phases":
         splits = bwd_splits(B * T)
         scratch = dw if splits == 1 or h_bf16 else torch.empty(
             (splits,) + tuple(dw.shape), device=xw.device, dtype=torch.float32)
-        err = lib.lstm_bidir_tm_bwd_phases_f32(
-            *inputs, dxw.data_ptr(), ptr(dw), ptr(scratch), ndir, B, T, H, splits,
-            int(h_bf16), *launch_args(xw))
+        err = lib.lstm_bidir_tm_bwd_phases_f32(*inputs, *outputs, ptr(scratch), ndir, B, T, H,
+                                               splits, form, *launch_args(xw))
     else:
-        err = lib.lstm_bidir_tm_bwd_grid_f32(*inputs, dxw.data_ptr(), ptr(dw), ndir, B, T, H,
-                                             int(h_bf16), *launch_args(xw))
+        err = lib.lstm_bidir_tm_bwd_grid_f32(*inputs, *outputs, ndir, B, T, H, form,
+                                             *launch_args(xw))
     raise_on(err, "lstm_bidir_tm_bwd", lib.lstm_tm_bwd_error_string, route=route,
-             ndir=ndir, B=B, T=T, H=H, h_bf16=h_bf16)
+             ndir=ndir, B=B, T=T, H=H, form=form)
     if h_bf16:
-        dw = lstm_bidir_tm_dw_bf16(hs, dxw)
+        dw = lstm_bidir_tm_dw_bf16(hs, da)
     return dxw, dw
 
 
@@ -659,17 +769,19 @@ def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
 
 def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """B2 bwd: the forward's inputs and residuals plus the cotangent ``dhs``
-    -> (dxw (2, B, T, 4H), dw_hh_t (2, H, 4H)), f32 (or a leading 1
-    throughout). Kernel on a CUDA tensor, on the route ``bwd_route(H)`` names
-    (one call is one count in ``lstm_bidir_tm_bwd.launches`` and in
-    ``lstm_bidir_tm_bwd.by_route``, whatever the number of launches inside;
-    deterministic: the same inputs give the same bits), plain version on a
-    CPU tensor. B = 0 or T = 0 gives zeros without a launch. ``h_bf16``: the
-    VJP of the bf16-h form (``lstm_bidir_tm_bwd_ref``), also counted in
-    ``lstm_bidir_tm_bwd.h_bf16``; its dW_hh^T is ``lstm_bidir_tm_dw_bf16``'s
-    kernel, a launch of its own."""
+    -> (dxw (2, B, T, 4H) in xw's dtype, dw_hh_t (2, H, 4H) f32) (or a
+    leading 1 throughout). Kernel on a CUDA tensor, on the route
+    ``bwd_route(H)`` names (one call is one count in
+    ``lstm_bidir_tm_bwd.launches`` and in ``lstm_bidir_tm_bwd.by_route``,
+    whatever the number of launches inside; deterministic: the same inputs
+    give the same bits), plain version on a CPU tensor. B = 0 or T = 0 gives
+    zeros without a launch. ``h_bf16``: the VJP of the bf16-h form
+    (``lstm_bidir_tm_bwd_ref``), also counted in ``lstm_bidir_tm_bwd.h_bf16``;
+    its dW_hh^T is ``lstm_bidir_tm_dw_bf16``'s kernel, a launch of its own. A
+    bf16 xw (counted in ``.xw_bf16``) gives a bf16 dxw; bf16 hs, cs and dhs
+    run the bf16 residual form (``.res_bf16``)."""
     _check(xw, w_hh_t)
-    _check_residuals(xw, hs, cs, dhs)
+    _check_residuals(xw, hs, cs, dhs, h_bf16)
     if xw.device.type == "cpu":
         return lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16)
     tensors = (xw, w_hh_t, hs, cs, dhs)
@@ -683,19 +795,23 @@ def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     lstm_bidir_tm_bwd.launches += 1
     lstm_bidir_tm_bwd.by_route[route] += 1
     lstm_bidir_tm_bwd.h_bf16 += h_bf16
+    lstm_bidir_tm_bwd.xw_bf16 += xw.dtype == torch.bfloat16
+    lstm_bidir_tm_bwd.res_bf16 += hs.dtype == torch.bfloat16
     return out
 
 
 class LstmBidirTm(torch.autograd.Function):
     """The differentiable recurrence (the JAX custom VJP ``lstm_bidir_tm``):
-    forward B2 fwd, saving (xw, w_hh_t, hs, cs); backward B2 bwd on the
-    contiguous cotangent; ``h_bf16`` runs both in their bf16-h form. Kernels
-    on CUDA tensors, plain versions on CPU tensors. Reach it through
-    ``lstm_bidir_tm``, which runs B1 instead when no gradient is needed."""
+    forward B2 fwd, saving (xw, w_hh_t, hs, cs) and returning hs in
+    ``res_dtype``; backward B2 bwd on the contiguous cotangent, which arrives
+    in hs's dtype; ``h_bf16`` runs both in their bf16-h form, a bf16 xw in
+    the bf16 xw form (dxw in bf16). Kernels on CUDA tensors, plain versions
+    on CPU tensors. Reach it through ``lstm_bidir_tm``, which runs B1 instead
+    when no gradient is needed."""
 
     @staticmethod
-    def forward(ctx, xw, w_hh_t, h_bf16=False):
-        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t, h_bf16)
+    def forward(ctx, xw, w_hh_t, h_bf16=False, res_dtype=torch.float32):
+        hs, cs = lstm_bidir_tm_fc(xw, w_hh_t, h_bf16, res_dtype)
         ctx.save_for_backward(xw, w_hh_t, hs, cs)
         ctx.h_bf16 = h_bf16
         return hs
@@ -705,12 +821,13 @@ class LstmBidirTm(torch.autograd.Function):
         xw, w_hh_t, hs, cs = ctx.saved_tensors
         dxw, dw = lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous(), ctx.h_bf16)
         return (dxw if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None, None)
+                dw if ctx.needs_input_grad[1] else None, None, None)
 
 
 def lstm_bidir_bb_ref(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
-    """B6's plain version: the plain recurrence. Batch rows are independent,
-    so how the kernel partitions them into batch blocks does not enter."""
+    """B6's plain version: the plain recurrence (an xw of either dtype, hs
+    f32). Batch rows are independent, so how the kernel partitions them into
+    batch blocks does not enter."""
     return _recurrence(xw, w_hh_t, with_cell=False)
 
 
@@ -880,11 +997,14 @@ def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32)
     within it the rows spread so that every cluster runs at once
     (``bb_batch_block``). Rows are independent and a row's sums do not depend
     on the others, so the result does not depend on ``batch_block`` (it is
-    B1's, bit for bit); no caller in the package sets it.
+    B1's, bit for bit); no caller in the package sets it. A bf16 xw runs the
+    bf16 xw form, as the JAX package's ``lstm_bidir_pallas`` reads it; hs is
+    f32.
 
     Forward-only: raises when a gradient is needed. On a CUDA tensor the
     kernel of route ``bb_route(H)``, counted in ``lstm_bidir_bb.launches``
-    and ``.by_route``; on a CPU tensor the plain version."""
+    and ``.by_route`` (a bf16 xw also in ``.xw_bf16``); on a CPU tensor the
+    plain version."""
     _check(xw, w_hh_t, dirs=(2,))
     _, B, T, h4 = xw.shape
     H = h4 // 4
@@ -897,6 +1017,7 @@ def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32)
     hs = _launch_fwd("cluster", xw, w_hh_t, batch_block=rows)
     lstm_bidir_bb.launches += 1
     lstm_bidir_bb.by_route["cluster"] += 1
+    lstm_bidir_bb.xw_bf16 += xw.dtype == torch.bfloat16
     return hs
 
 
@@ -950,15 +1071,16 @@ def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 lstm_bidir_tm.launches = 0
 lstm_bidir_tm.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm.carried = 0
-lstm_bidir_tm.h_bf16 = 0
+lstm_bidir_tm.h_bf16 = lstm_bidir_tm.xw_bf16 = lstm_bidir_tm.hs_bf16 = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
-lstm_bidir_tm_fc.h_bf16 = 0
+lstm_bidir_tm_fc.h_bf16 = lstm_bidir_tm_fc.xw_bf16 = lstm_bidir_tm_fc.res_bf16 = 0
 lstm_bidir_tm_bwd.launches = 0
 lstm_bidir_tm_bwd.by_route = {"phases": 0, "grid": 0}
-lstm_bidir_tm_bwd.h_bf16 = 0
+lstm_bidir_tm_bwd.h_bf16 = lstm_bidir_tm_bwd.xw_bf16 = lstm_bidir_tm_bwd.res_bf16 = 0
 lstm_bidir_tm_dw_bf16.launches = 0
 lstm_bidir_bb.launches = 0
 lstm_bidir_bb.by_route = {"cluster": 0}
+lstm_bidir_bb.xw_bf16 = 0
 lstm_bidir_fused.launches = 0
 lstm_bidir_fused.by_route = {"cluster": 0}
