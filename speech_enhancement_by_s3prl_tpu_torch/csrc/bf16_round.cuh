@@ -1,5 +1,5 @@
 // Rounding to bf16 for the bf16-h forms of the LSTM kernels (B1, B2 fwd, B2
-// bwd, and the bf16 dW_hh^T of lstm_tm_bwd.cu): the one-direction layer of
+// bwd): the one-direction layer of
 // the JAX package in bf16 is a lax.scan cell that rounds h to bf16 for its
 // step product and keeps h and c in f32.
 #pragma once

@@ -92,9 +92,9 @@
 // so the low terms of the three split passes are zero; the passes are kept,
 // so that one kernel serves both forms. Phase 2 rounds the owner's sum of the
 // 8 partials of dh_carry before adding dhs. Phase 3 does not run: no product
-// over all rows gives a sum rounded step by step, and lstm_bwd_dw_bf16_kernel
-// (below; its own entry, launched by the wrapper after this one) computes
-// dW_hh^T. The earlier single kernel takes the same flag (rounding h where it
+// over all rows gives a sum rounded step by step, and the kernel of
+// lstm_dw_bf16.cu (its own entry, launched by the wrapper after this one)
+// computes dW_hh^T. The earlier single kernel takes the same flag (rounding h where it
 // stages it and the carried product before the cell's backward) and leaves
 // dW_hh^T to that kernel as well.
 //
@@ -943,112 +943,6 @@ lstm_bwd_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dwhh,
   dwhh[idx] = sum;
 }
 
-// The bf16-h form's dW_hh^T (ops/cuda/lstm_kernel.lstm_bidir_tm_dw_bf16).
-// It replaces no Pallas kernel of its own: it is the dW_hh^T of the JAX
-// package's one-direction lax.scan cell in bf16, whose reverse scan carries
-// the cotangent of the bf16 W_hh^T as a bf16 value and rounds after every
-// step:
-//   acc = 0;  for t = T-1 .. 1:  acc = bf16(acc + bf16(sum_b bf16(h_{t-1,b})^T da_{t,b}))
-// (h_{-1} = 0 adds nothing at t = 0). A sum rounded step by step is not a
-// product over all rows, so phase 3's tensor-core product does not compute
-// it; a once-rounded f32 sum lies as far from JAX's result as bf16 does from
-// f32 (tests/test_torch_port_bf16_one_direction.py).
-// What bounds it: 2 * B * (T - 1) * H * 4H operations (3.1 GFLOP at B = 6, T =
-// 1001, H = 256: 0.047 ms at the f32 rate of the CUDA cores) and, per element
-// and step, two roundings and an addition, about as many instructions again
-// at B = 6; its bytes (hs and da read once, ~31 MB) take ~0.009 ms. It
-// takes 0.64 ms there on an H100: rounding each h at every read instead of
-// once where it is staged, one rounding a sum instead of two to a conversion,
-// and register tiles of 2 to 16 elements a thread on 64 to 512 threads a
-// block all read 0.54-0.82 ms with the same bits, so neither the conversions,
-// the FMAs nor the shared-memory traffic bind it; what does is not known yet.
-// Design: a block owns a tile of kSdI inputs x kSdC gate columns of one
-// direction, a thread one input and 4 consecutive columns, its 4 sums held in
-// registers as f32 values of bf16 numbers and walked down t. Runs of S steps
-// of the tile's h_{t-1} (kSdI floats a row) and da_t (kSdC floats a row) for
-// every batch row are staged in shared memory by cp.async, two runs in
-// flight; each thread rounds the h it copied once it has landed; a step's
-// sum over the rows is a chain of FMAs in row order. No atomics, no
-// reduction across blocks: the same bits on every run.
-constexpr int kSdI = 16;
-constexpr int kSdC = 64;
-constexpr int kSdThreads = kSdI * kSdC / 4;  // 256
-constexpr int kSdMaxSteps = 32;
-constexpr int kSdBudget = 48 * 1024;  // bytes of the two staged runs, when B allows
-
-__global__ void __launch_bounds__(kSdThreads)
-lstm_bwd_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
-                        float* __restrict__ dwhh, int B, int T, int H, int S) {
-  extern __shared__ __align__(16) float sd_smem[];
-  const int H4 = 4 * H;
-  const int i0 = blockIdx.x * kSdI, c0 = blockIdx.y * kSdC, d = blockIdx.z;
-  const int ti = threadIdx.x / (kSdC / 4), tc = threadIdx.x % (kSdC / 4);
-  const size_t run = (size_t)S * B * (kSdI + kSdC);  // floats of one staged run
-  const float* hs_d = hs + (size_t)d * B * T * H;
-  const float* da_d = da + (size_t)d * B * T * H4;
-
-  // the run of steps t_hi, t_hi - 1, ..., down to max(1, t_hi - S + 1) into
-  // buffer `buf`: h [S][B][kSdI] (row t - 1 of hs), then da [S][B][kSdC];
-  // zeros past H and past 4H
-  auto start = [&](int t_hi, int buf) {
-    float* h_s = sd_smem + buf * run;
-    float* a_s = h_s + (size_t)S * B * kSdI;
-    const int n = min(S, t_hi);
-    for (int idx = threadIdx.x; idx < n * B * kSdI; idx += kSdThreads) {
-      const int s = idx / (B * kSdI), b = (idx / kSdI) % B, k = idx % kSdI;
-      const bool ok = i0 + k < H;
-      cp_async4(h_s + idx, ok ? hs_d + ((size_t)b * T + t_hi - s - 1) * H + i0 + k : hs_d,
-                ok ? 4 : 0);
-    }
-    for (int idx = threadIdx.x; idx < n * B * (kSdC / 4); idx += kSdThreads) {
-      const int s = idx / (B * (kSdC / 4)), b = (idx / (kSdC / 4)) % B, q = idx % (kSdC / 4);
-      const bool ok = c0 + 4 * q < H4;
-      cp_async16(a_s + (size_t)idx * 4,
-                 ok ? da_d + ((size_t)b * T + t_hi - s) * H4 + c0 + 4 * q : da_d, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (T > 1) start(T - 1, 0);
-  int buf = 0;
-  for (int t_hi = T - 1; t_hi >= 1; t_hi -= S, buf ^= 1) {
-    const int n = min(S, t_hi);
-    float* h_s = sd_smem + buf * run;
-    // this run has landed: each thread rounds the h it copied (start's own
-    // index walk); then every thread is done with the other buffer
-    cp_async_wait_all();
-    for (int idx = threadIdx.x; idx < n * B * kSdI; idx += kSdThreads)
-      h_s[idx] = bf16_round(h_s[idx]);
-    __syncthreads();
-    if (t_hi - S >= 1) start(t_hi - S, buf ^ 1);
-    const float* a_s = h_s + (size_t)S * B * kSdI;
-    for (int s = 0; s < n; ++s) {
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-      for (int b = 0; b < B; ++b) {
-        const int r = s * B + b;
-        const float hv = h_s[r * kSdI + ti];
-        const float4 dv = *reinterpret_cast<const float4*>(a_s + r * kSdC + 4 * tc);
-        p0 = fmaf(hv, dv.x, p0);
-        p1 = fmaf(hv, dv.y, p1);
-        p2 = fmaf(hv, dv.z, p2);
-        p3 = fmaf(hv, dv.w, p3);
-      }
-      const float2 r01 = bf16_round2(p0, p1), r23 = bf16_round2(p2, p3);
-      const float2 s01 = bf16_round2(acc[0] + r01.x, acc[1] + r01.y);
-      const float2 s23 = bf16_round2(acc[2] + r23.x, acc[3] + r23.y);
-      acc[0] = s01.x;
-      acc[1] = s01.y;
-      acc[2] = s23.x;
-      acc[3] = s23.y;
-    }
-  }
-  const int i = i0 + ti, c = c0 + 4 * tc;
-  if (i < H && c < H4)
-    *reinterpret_cast<float4*>(dwhh + ((size_t)d * H + i) * H4 + c) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-}
-
 size_t seq_smem_bytes(int H) {
   const size_t U = H / kCluster;
   return sizeof(float4) * (U * H + kSeqRows * U) +
@@ -1184,7 +1078,7 @@ extern "C" {
 // hs, cs, dhs (ndir, B, T, H), da (ndir, B, T, 4H) and dwhh (ndir, H, 4H) are
 // contiguous device pointers on `device`; da (f32) and dwhh are written in
 // full. `form`: bit 1 the bf16-h form, which writes da only (dwhh may be
-// null; lstm_bwd_dw_bf16_f32 gives dW_hh^T from da); bit 2 xw bf16, and then
+// null; lstm_dw_bf16_f32 gives dW_hh^T from da); bit 2 xw bf16, and then
 // dxw_b (ndir, B, T, 4H) bf16 also receives da rounded, else dxw_b is null
 // and da is dxw; bit 4 hs, cs and dhs bf16 (not with bit 1). Returns the
 // first non-zero CUDA status among the set-up calls, the cooperative
@@ -1229,38 +1123,6 @@ int lstm_bidir_tm_bwd_phases_f32(const void* xw, const void* w_hh_t, const void*
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H), the
-// dxw of the bf16-h backward, contiguous f32 device pointers on `device`, da
-// 16-byte aligned; dwhh (ndir, H, 4H) f32, 16-byte aligned, is written in
-// full with bf16 values. Any H; B up to what two runs of one step take of the
-// card's shared memory (640 bytes a row: B <= 363 on an H100). One launch on
-// `stream`; returns the first non-zero status, 0 on success. Does not
-// synchronise.
-int lstm_bwd_dw_bf16_f32(const void* hs, const void* da, void* dwhh, int ndir, int B, int T,
-                         int H, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (!(aligned16(da) && aligned16(dwhh))) return (int)cudaErrorMisalignedAddress;
-  const size_t row = 2 * sizeof(float) * (kSdI + kSdC);  // a batch row of a step, two runs
-  int S = (int)(kSdBudget / (row * B));
-  S = S < 1 ? 1 : (S > kSdMaxSteps ? kSdMaxSteps : S);
-  const size_t smem = row * B * S;
-  int smem_optin = 0;
-  if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                    device)))
-    return (int)err;
-  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(lstm_bwd_dw_bf16_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return (int)err;
-  const dim3 grid((H + kSdI - 1) / kSdI, (4 * H + kSdC - 1) / kSdC, ndir);
-  lstm_bwd_dw_bf16_kernel<<<grid, kSdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hs), static_cast<const float*>(da), static_cast<float*>(dwhh),
-      B, T, H, S);
-  return (int)cudaGetLastError();
 }
 
 const char* lstm_tm_bwd_error_string(int code) {

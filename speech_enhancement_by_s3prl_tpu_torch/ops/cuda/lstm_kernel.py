@@ -65,8 +65,10 @@ cT) stay f32. Its backward, as the jaxpr of JAX's gradient has it: the gates
 recomputed from bf16(h_{t-1}), dh_t = dhs_t + bf16(da_{t+1} @ W_hh) (the
 carried product rounded once), dxw = da in f32, and dW_hh^T a bf16 sum taken
 one step at a time in reverse, which no product over all rows gives: that
-sum is a kernel of its own, ``lstm_bidir_tm_dw_bf16`` (``lstm_tm_bwd.cu``),
-launched by B2 bwd's wrapper in the form.
+sum is a kernel of its own, ``lstm_bidir_tm_dw_bf16`` (``lstm_dw_bf16.cu``:
+the step products on the tensor cores, the bf16 carry in packed pairs),
+launched by B2 bwd's wrapper in the form; ``lstm_bidir_tm_dw_bf16_model`` is
+its algorithm in PyTorch, for the CPU tests.
 
 B1, B2 fwd and B2 bwd also have the JAX package's bf16 stream forms, which
 change what the kernels read and write, never the f32 recurrence:
@@ -194,6 +196,43 @@ def lstm_bidir_tm_dw_bf16_ref(hs: torch.Tensor, da: torch.Tensor) -> torch.Tenso
     for tt in range(hs.shape[-2] - 1, 0, -1):
         step = torch.matmul(_bf16(hs[..., tt - 1, :]).transpose(-1, -2), da[..., tt, :])
         acc = _bf16(acc + _bf16(step))
+    return acc
+
+
+def split_bf16x3(x: torch.Tensor):
+    """(hi, mid, lo): three tensors of bf16 values held in f32, hi =
+    bf16(x), mid = bf16(x - hi), lo = x - hi - mid, whose sum is x exactly
+    for a normal f32 x above 2^-100 (the three terms hold its 24 bits)."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, (x - hi) - mid
+
+
+def lstm_bidir_tm_dw_bf16_model(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """The algorithm of ``lstm_dw_bf16.cu`` in PyTorch, for the CPU tests:
+    what ``lstm_bidir_tm_dw_bf16_ref`` computes, with the step product taken
+    as the kernel's tensor cores take it. da is split into three bf16 terms
+    (``split_bf16x3``) against bf16(h), so every product is exact; the batch
+    rows go in K slices of 4 (zero rows pad the last), each slice's exact sum
+    is added to the step's f32 sum with one rounding (the kernel's wgmma chain,
+    a slice at a time), and the carry adds bf16 pairs with one rounding,
+    acc = bf16(acc + bf16(p)). hs (ndir, B, T, H), da (ndir, B, T, 4H) f32 ->
+    (ndir, H, 4H) f32 holding bf16 values."""
+    B, T = hs.shape[-3], hs.shape[-2]
+    acc = torch.zeros(hs.shape[:-3] + (hs.shape[-1], da.shape[-1]), dtype=torch.float32,
+                      device=hs.device)
+    if T < 2:
+        return acc
+    h = _bf16(hs[..., :-1, :]).double()
+    terms = torch.stack(split_bf16x3(da[..., 1:, :]), dim=-2).double()  # (.., B, T-1, 3, 4H)
+    step = torch.zeros(acc.shape[:-2] + (T - 1,) + acc.shape[-2:], dtype=torch.float32,
+                       device=hs.device)
+    for b0 in range(0, B, 4):
+        rows = slice(b0, min(b0 + 4, B))
+        part = torch.einsum("...btk,...btjn->...tkn", h[..., rows, :, :], terms[..., rows, :, :, :])
+        step = (step.double() + part).float()
+    for tt in range(T - 2, -1, -1):
+        acc = _bf16(acc + _bf16(step[..., tt, :, :]))
     return acc
 
 
@@ -341,10 +380,18 @@ def _bwd_library():
     lib.lstm_bidir_tm_bwd_grid_f32.restype = i
     lib.lstm_bidir_tm_bwd_phases_f32.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.lstm_bidir_tm_bwd_phases_f32.restype = i
-    lib.lstm_bwd_dw_bf16_f32.argtypes = [p] * 3 + [i] * 5 + [p]
-    lib.lstm_bwd_dw_bf16_f32.restype = i
     lib.lstm_tm_bwd_error_string.argtypes = [i]
     lib.lstm_tm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dw_bf16_library():
+    lib = load("lstm_dw_bf16")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_dw_bf16_f32.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.lstm_dw_bf16_f32.restype = i
+    lib.lstm_dw_bf16_error_string.argtypes = [i]
+    lib.lstm_dw_bf16_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -728,9 +775,11 @@ def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     return dxw, dw
 
 
-# shared memory of lstm_bwd_dw_bf16_f32: two staged runs of one step, 2 * (16 +
-# 64) floats a batch row, within the 232,448 bytes a block of an H100 may use
-DW_BF16_MAX_BATCH = 232448 // (2 * 4 * (16 + 64))
+# rows lstm_dw_bf16_f32 takes: runs of one step in shared memory, per batch
+# row two staged runs of h and da (2 * 4 * (72 + 40) bytes, padded rows) and
+# two buffers of its fragments (2 * 384 bytes), within the 232,448 bytes a
+# block of an H100 may use, in groups of 8 rows (kMaxBatch in lstm_dw_bf16.cu)
+DW_BF16_MAX_BATCH = 232448 // (2 * 4 * (72 + 40) + 2 * 384) // 8 * 8
 
 
 def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
@@ -738,8 +787,9 @@ def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     (the bf16-h backward's dxw), f32 -> dw_hh_t (ndir, H, 4H) f32 holding
     bf16 values, summed step by step in bf16 as the JAX package's reverse
     scan sums it (``lstm_bidir_tm_dw_bf16_ref``). On a CUDA tensor the kernel
-    ``lstm_bwd_dw_bf16_kernel`` of ``lstm_tm_bwd.cu`` (any H, B up to
-    ``DW_BF16_MAX_BATCH``; deterministic), counted in
+    ``lstm_dw_bf16_kernel`` of ``lstm_dw_bf16.cu`` (any H, B up to
+    ``DW_BF16_MAX_BATCH``; deterministic; its step sums in the tensor cores'
+    order, ``lstm_bidir_tm_dw_bf16_model``), counted in
     ``lstm_bidir_tm_dw_bf16.launches``; on a CPU tensor the plain version."""
     if hs.dim() != 4 or da.dim() != 4 or da.shape[:3] != hs.shape[:3] or \
             da.shape[-1] != 4 * hs.shape[-1]:
@@ -758,10 +808,10 @@ def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     dw = torch.empty((ndir, H, 4 * H), device=hs.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return dw.zero_()
-    lib = _bwd_library()
-    err = lib.lstm_bwd_dw_bf16_f32(hs.data_ptr(), da.data_ptr(), dw.data_ptr(), ndir, B, T, H,
-                                   *launch_args(hs))
-    raise_on(err, "lstm_bidir_tm_dw_bf16", lib.lstm_tm_bwd_error_string, ndir=ndir, B=B,
+    lib = _dw_bf16_library()
+    err = lib.lstm_dw_bf16_f32(hs.data_ptr(), da.data_ptr(), dw.data_ptr(), ndir, B, T, H,
+                               *launch_args(hs))
+    raise_on(err, "lstm_bidir_tm_dw_bf16", lib.lstm_dw_bf16_error_string, ndir=ndir, B=B,
              T=T, H=H)
     lstm_bidir_tm_dw_bf16.launches += 1
     return dw
