@@ -195,6 +195,23 @@ Phases, one line each:
      times: each form beside the f32 form and its plain version, with the
      bound of the bytes it moves, the enhance and the train step under their
      modes beside f32.
+ 15. upstream pretraining, its S3PRL export and the experiment tools:
+     ``tools/pretrain_upstream.py`` at config/pretrain_sample.yaml's full
+     width (6 x 768 x 12 heads, FFN 3072, dropout 0.1; 80-d log-mel + delta
+     in, 201-bin log-linear target) on a corpus of 10 s rows, batch 8, 3
+     steps for target channels 1 and 2, with the launches of B3 fwd, B3 bwd
+     and B4 a step (no LSTM kernel, no B5); one step of it on the card
+     against the CPU (the seed checkpoint, 8 rows of 4 s, the same salts);
+     its B=8 10 s step, the median of 10 synchronized steps and the device
+     busy time and idle share under the profiler; the export read back bit
+     for bit against the trained Mockingjay's encoder and SpecHead, and
+     served as ``--ckpt`` (the upstream mode): its features on a seeded 10 s
+     batch bit for bit the trained encoder's; then
+     ``tools/experiment_active_adaptation.py`` at the script's widths and
+     20 / 20 / 10 steps, with the launches of each stage (both upstreams,
+     the source warm start, active and uniform adaptation, the enrichment
+     scoring), ``results.json`` checked, and ``tools/extract_results.py``
+     over the adaptation runs.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -557,13 +574,14 @@ def fwd_times(torch, L, card):
     return out
 
 
-def write_corpus(root, seed):
-    """12 speech files of 3-10 s (tone sweeps with a syllable envelope) and
-    4 noise files of 4-8 s, 16 kHz WAV, from ``seed``."""
+def write_corpus(root, seed, speech=(12, 3.0, 10.0), noise=(4, 4.0, 8.0)):
+    """``speech`` (count, shortest, longest seconds: 12 files of 3-10 s by
+    default) speech files (tone sweeps with a syllable envelope) and
+    ``noise`` (4 of 4-8 s) noise files, 16 kHz WAV, from ``seed``."""
     from speech_enhancement_by_s3prl_tpu_torch.data.audio_io import write_wav
 
     rng = np.random.default_rng(seed)
-    for sub, n, lo, hi in (("speech", 12, 3.0, 10.0), ("noise", 4, 4.0, 8.0)):
+    for sub, (n, lo, hi) in (("speech", speech), ("noise", noise)):
         os.makedirs(os.path.join(root, sub))
         for k in range(n):
             L = int(rng.uniform(lo, hi) * SR)
@@ -5106,6 +5124,309 @@ def stream_forms_phase(torch, L, dsp_kernels, card):
     return out
 
 
+# upstream pretraining, its export and the active-vs-uniform experiment
+# (phase 15). Pretraining runs tools/pretrain_upstream.py at
+# config/pretrain_sample.yaml's full width (6 x 768 x 12 heads, FFN 3072,
+# dropout 0.1; 80-d log-mel + delta in, 201-bin log-linear target) on 10 s
+# rows, batch 8, PRETRAIN_STEPS steps for each target channel
+PRETRAIN_STEPS, PRETRAIN_BATCH = 3, 8
+# the experiment at the JAX script's default widths (LSTM 2 x 64
+# bidirectional, upstreams 2 x 64, 2 s rows, batch 4, 8 candidates, 8 query
+# rows, 3 enrichment batches a domain); only the steps are cut: upstreams,
+# source warm start, adaptation
+EXPERIMENT_STEPS = (20, 20, 10)
+
+
+def pretrain_step_sides(torch, corpus, run_dir, channel, card):
+    """One pretraining step's loss and gradient on the card against the CPU
+    (the same seed checkpoint, 8 rows of a 4 s bucket, the same salts), then
+    the card's step at B=8 10 s: the median of 10 synchronized steps on the
+    host clock and the device busy time under the profiler."""
+    from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import SaltStream
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import (
+        build_runner,
+        get_downstream_args,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    config = os.path.join(run_dir, "run_config.yaml")
+    runners = {}
+    for device in ("cuda", "cpu"):
+        args, cfg = get_downstream_args([
+            "--name", f"sides-{device}", "--config", config,
+            "--expdir", os.path.join(run_dir, "sides"), "--upstream", "baseline",
+            "--upstream2", "baseline", "--from_rawfeature", "--downstream", "Mockingjay",
+            "--dckpt", os.path.join(run_dir, "seed.ckpt"), "--objective", "L1", "--seed",
+            str(SEED), "--dev_num", "0",
+            "--device", device])
+        runners[device] = build_runner(args, cfg)
+        runners[device].set_model()
+
+    def batch(seconds):
+        ds = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
+                           noise={"filestrs": os.path.join(corpus, "noise")},
+                           max_time=seconds * 1000, snrs=[0])
+        return ds.collate_fn([ds[i] for i in range(PRETRAIN_BATCH)], pad_to=seconds * SR)
+
+    lengths_np, wavs_np = batch(4)
+    sides = {}
+    for device, runner in runners.items():
+        b = runner.builder
+        b.model.train()
+        wavs = torch.from_numpy(wavs_np).to(device)
+        lengths = torch.from_numpy(lengths_np).to(device)
+        params = list(b.model.parameters())
+        loss, _ = b.loss_fn(make_context(b.preprocessor, wavs, lengths, b.channel_inp,
+                                         b.channel_tar), SaltStream(SEED, 1000))
+        g = torch.autograd.grad(loss, params)
+        sides[device] = (float(loss.detach()), torch.cat([x.reshape(-1) for x in g])
+                         .double().cpu())
+    (gl, gg), (cl, cg) = sides["cuda"], sides["cpu"]
+    loss_rel = abs(gl - cl) / abs(cl)
+    grad_max = float((gg - cg).abs().max() / cg.abs().max())
+    grad_rel = float((gg - cg).norm() / cg.norm())
+    print(f"[pretrain] channel {channel}: GPU vs CPU one step (B={PRETRAIN_BATCH}, 4 s bucket, "
+          f"dropout 0.1 live, same salts, the seed checkpoint): loss {gl:.6f} vs {cl:.6f} rel "
+          f"{loss_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}); max |g_gpu - g_cpu| / max |g_cpu| "
+          f"{grad_max:.3e}, |g_gpu - g_cpu| / |g_cpu| {grad_rel:.3e} (limit "
+          f"{TRAIN_GRAD_TOL:.0e}) | {card}", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_TOL and grad_max <= TRAIN_GRAD_TOL
+            and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"channel {channel}: the pretraining step on the card disagrees "
+                             f"with the CPU: loss {loss_rel}, gradient {grad_max} / {grad_rel}")
+    del runners["cpu"], sides
+
+    runner = runners["cuda"]
+    lengths_np, wavs_np = batch(10)
+    wavs = torch.from_numpy(wavs_np).cuda()
+    lengths = torch.from_numpy(lengths_np).cuda()
+    holder = [runner.state]
+
+    def step():
+        holder[0], _ = runner.builder.train_step(holder[0], wavs, lengths)
+
+    ms = synced_ms(torch, step, runs=10)
+    busy, wall, n_kernels, _ = device_busy(torch, step)
+    out = {"ms": statistics.median(ms), "busy": busy, "wall": wall,
+           "idle": max(0.0, 1 - busy / wall), "loss_rel": loss_rel, "grad_max": grad_max}
+    print(f"[time] pretraining step channel {channel} B={PRETRAIN_BATCH} 10 s (T=1001 frames, "
+          f"6 x 768 x 12 heads, dropout 0.1): median {out['ms']:.3f} ms of 10 synchronized "
+          f"steps (min {min(ms):.3f}, max {max(ms):.3f}); under torch.profiler (5 steps) wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, {n_kernels:.0f} kernels a step, idle "
+          f"share {out['idle']:.3f} | {card}", flush=True)
+    return out
+
+
+def pretrain_phase(torch, counted, card, tmp):
+    """Phase 15: upstream pretraining at full width through
+    tools/pretrain_upstream.py, its export read back and served as --ckpt,
+    and tools/experiment_active_adaptation.py with tools/extract_results.py
+    at reduced steps, each on the card. ``counted`` is (B1, B2 fwd, B2 bwd,
+    B3 fwd, B3 bwd, B4, B5).
+
+    Cuts of the experiment's run, against the JAX script's defaults: the
+    upstreams 20 steps (300), the source warm start 20 (300), each
+    adaptation 10 (200); every width, batch, row length and the corpus are
+    the script's own."""
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.models.torch_import import (
+        load_s3prl_checkpoint,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import TransformerEncoder
+    from speech_enhancement_by_s3prl_tpu_torch.run_downstream import build_runner, get_parser
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import (
+        find_resume_ckpt,
+        load_checkpoint,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.tools import (
+        experiment_active_adaptation as ex,
+        extract_results,
+        pretrain_upstream,
+    )
+
+    t_phase = time.perf_counter()
+    b1, fc, bwd, b3f, b3b, b4, b5 = counted
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED, speech=(12, 10.5, 12.0), noise=(4, 10.5, 12.0))
+    expdir = os.path.join(tmp, "up")
+    out = {"pretrain": {}, "sides": {}}
+    for channel in (1, 2):
+        name = f"channel{channel}"
+        # -- the main path of pretraining, between the reset and the reading --
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        export = pretrain_upstream.main([
+            "--name", name, "--expdir", expdir,
+            "--config", os.path.join(ROOT, "config", "pretrain_sample.yaml"),
+            "--speech", os.path.join(corpus, "speech"), "--noise", os.path.join(corpus, "noise"),
+            "--target_channel", str(channel), "--total_step", str(PRETRAIN_STEPS),
+            "--batch_size", str(PRETRAIN_BATCH), "--seed", str(SEED), "--device", "cuda"])
+        run_s = time.perf_counter() - t0
+        counts = [fn.launches for fn in counted]
+        # ---------------------------------------------------------------------
+        run_dir = os.path.join(expdir, name)
+        with open(os.path.join(run_dir, "train", "scalars.jsonl")) as f:
+            losses = [json.loads(ln)["value"] for ln in f if '"tag": "loss"' in ln]
+        if (len(losses) != PRETRAIN_STEPS or not all(map(math.isfinite, losses))
+                or counts[:3] != [0, 0, 0] or counts[6] != 0
+                or counts[3:5] != [MJ_LAYERS * PRETRAIN_STEPS] * 2
+                or counts[5] < PRETRAIN_STEPS):
+            raise AssertionError(
+                f"pretraining channel {channel}: losses {losses}, launches (B1, B2 fwd, B2 bwd, "
+                f"B3 fwd, B3 bwd, B4, B5) {counts}; want B3 {MJ_LAYERS} + {MJ_LAYERS} and B4 >= 1 "
+                f"a step, no LSTM or B5")
+        print(f"[pretrain] tools/pretrain_upstream.py --config config/pretrain_sample.yaml "
+              f"--target_channel {channel} on cuda: {PRETRAIN_STEPS} steps of batch "
+              f"{PRETRAIN_BATCH} x 10 s in {run_s:.2f} s (seed checkpoint, loader, save and "
+              f"export included); losses {', '.join(f'{x:.4f}' for x in losses)}; launches "
+              f"(B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, B4, B5) {counts}: a step B3 fwd "
+              f"{counts[3] / PRETRAIN_STEPS:g}, B3 bwd {counts[4] / PRETRAIN_STEPS:g}, B4 "
+              f"{counts[5] / PRETRAIN_STEPS:g}; exported {os.path.relpath(export, tmp)} | {card}",
+              flush=True)
+
+        # the export read back bit for bit: the trained Mockingjay's encoder
+        # and SpecHead
+        trained = load_checkpoint(find_resume_ckpt(os.path.join(run_dir, "train")))
+        tree = trained["Downstream"]["params"]
+        lc = load_s3prl_checkpoint(export)
+        same = {}
+        for blob, sub in (("encoder", "mockingjay"), ("spechead", "spechead")):
+            want = flax_to_state_dict(tree[sub])
+            got = lc.params[blob]
+            same[blob] = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                                       for k in want)
+        if not all(same.values()) or lc.pretrain_config["online"]["target"]["channel"] != channel:
+            raise AssertionError(f"channel {channel}: the export read back {same}")
+        out["pretrain"][channel] = {"counts": counts, "losses": losses, "run_s": run_s,
+                                    "export": export}
+        out["sides"][channel] = pretrain_step_sides(torch, corpus, run_dir, channel, card)
+
+        # the export serving as --ckpt: a head over the upstream; its features
+        # on a seeded 10 s batch against the trained encoder's, both without
+        # dropout
+        args = get_parser().parse_args([
+            "--name", f"served{channel}", "--expdir", os.path.join(tmp, "served"),
+            "--downstream", "Residual", "--objective", "SISDR", "--upstream", "transformer",
+            "--ckpt", export, "--dev_num", "2", "--seed", str(SEED), "--device", "cuda"])
+        runner = build_runner(args, train_config(corpus))
+        runner.upstream.eval()
+        encoder = TransformerEncoder(lc.config, input_dim=lc.input_dim).cuda().eval()
+        encoder.load_state_dict(flax_to_state_dict(tree["mockingjay"]))
+        clean = np.stack([request_audio(10.0, 40 + s) for s in range(2)])
+        noise = 0.05 * np.random.default_rng(SEED).standard_normal(clean.shape)
+        wavs = torch.from_numpy(np.stack([clean + noise, clean, noise], axis=1)
+                                .astype(np.float32)).cuda()
+        with torch.no_grad():
+            feats = runner.preprocessor(wavs)[0]
+            served, direct = runner.upstream(feats), encoder(feats)
+        identical = torch.equal(served, direct)
+        err = float((served - direct).abs().max() / direct.abs().max())
+        print(f"[pretrain] channel {channel}: the export as --ckpt (upstream mode, Residual head) "
+              f"on cuda: features {tuple(served.shape)} of a seeded 2 x 10 s batch against the "
+              f"trained Mockingjay encoder's, both without dropout: "
+              + ("identical bits" if identical else f"max |diff| / max {err:.3e}")
+              + f"; the export read back bit for bit (encoder, SpecHead) | {card}", flush=True)
+        if not identical:
+            raise AssertionError(f"channel {channel}: served features differ from the trained "
+                                 f"encoder's by {err} of the largest")
+        out["pretrain"][channel]["features_identical"] = identical
+        del runner, encoder
+
+    # the experiment at reduced steps, stage by stage
+    stages, depth = [], [0]
+
+    def staged(fn, name_of):
+        def wrapper(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            before = [f.launches for f in counted]
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                stages.append((name_of(*a), [f.launches - n for f, n in zip(counted, before)]))
+        return wrapper
+
+    def flag(argv, name="--name"):
+        return argv[argv.index(name) + 1]
+
+    patched = [(pretrain_upstream, "main", staged(pretrain_upstream.main, flag)),
+               (ex.run_downstream, "main", staged(ex.run_downstream.main, flag)),
+               (ex, "measure_enrichment", staged(ex.measure_enrichment,
+                                                 lambda *a: "enrichment"))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+    wd = os.path.join(tmp, "experiment")
+    up_steps, down_steps, adapt_steps = EXPERIMENT_STEPS
+    try:
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
+        # -- the main path of the experiment, between the reset and the reading --
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        results = ex.main(["--workdir", wd, "--device", "cuda", "--seed", str(SEED),
+                           "--up_steps", str(up_steps), "--down_steps", str(down_steps),
+                           "--adapt_steps", str(adapt_steps)])
+        ex_s = time.perf_counter() - t0
+        ex_counts = [fn.launches for fn in counted]
+        # ---------------------------------------------------------------------
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    names = [n for n, _ in stages]
+    if names != ["noisy2clean", "noisy2noise", "source", "active", "uniform", "enrichment"]:
+        raise AssertionError(f"experiment stages {names}")
+    # (B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, B4, B5) that each stage must launch
+    wanted = {"noisy2clean": (5,), "noisy2noise": (5,), "source": (0, 1, 2, 5, 6),
+              "active": (0, 1, 2, 5, 6), "uniform": (0, 1, 2, 5, 6), "enrichment": (1, 2, 5)}
+    for name, counts in stages:
+        if not all(counts[i] > 0 for i in wanted[name]):
+            raise AssertionError(f"experiment stage {name}: launches {counts}")
+    if not all(ex_counts[i] > 0 for i in (0, 1, 2, 5, 6)):
+        raise AssertionError(f"experiment launches {ex_counts}")
+    with open(os.path.join(wd, "results.json")) as f:
+        saved_results = json.load(f)
+    enrichment = saved_results["enrichment"]
+    if (set(saved_results) != {"config", "active", "uniform", "enrichment"}
+            or set(enrichment) != {"white", "pink", "tonal_train", "tonal_target"}
+            or not all(math.isfinite(v) for r in enrichment.values() for v in r.values())
+            or not all(math.isfinite(v[k]) for mode in ("active", "uniform")
+                       for v in saved_results[mode].values() for k in ("init", "final"))):
+        raise AssertionError(f"results.json: {saved_results}")
+    print(f"[pretrain] tools/experiment_active_adaptation.py on cuda ({up_steps} / {down_steps} "
+          f"/ {adapt_steps} steps, the script's widths) in {ex_s:.2f} s; launches (B1, B2 fwd, "
+          f"B2 bwd, B3 fwd, B3 bwd, B4, B5) by stage "
+          + ", ".join(f"{n} {c}" for n, c in stages)
+          + f"; adaptation (init -> final) "
+          + "; ".join(f"{mode} " + ", ".join(
+              f"{t[5:]} {v['init']:.3f} -> {v['final']:.3f}"
+              for t, v in sorted(results[mode].items()) if t != "test_loss")
+              for mode in ("active", "uniform"))
+          + "; enrichment match rate (histogram) "
+          + ", ".join(f"{d} {r['match_rate']:.3f} ({r['hist_match_rate']:.3f})"
+                      for d, r in enrichment.items()) + f" | {card}", flush=True)
+
+    tags = ["test_stoi", "test_pesq_nb", "test_sisdr"]
+    csv_path = extract_results.main([os.path.join(wd, "adapt"), "--pattern",
+                                     r"^(active|uniform)$", "--tags", *tags, "--which", "last",
+                                     "--out", os.path.join(tmp, "adapt.csv")])
+    with open(csv_path) as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()]
+    want_rows = [["noise_type", *tags]] + [
+        [mode, *(repr(saved_results[mode][t]["final"]) for t in tags)]
+        for mode in ("active", "uniform")]
+    if rows != want_rows:
+        raise AssertionError(f"the adaptation CSV {rows}, want {want_rows}")
+    out["experiment"] = {"counts": ex_counts, "stages": stages, "seconds": ex_s,
+                         "enrichment": enrichment}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[pretrain] tools/extract_results.py over the adaptation runs: {len(rows) - 1} rows "
+          f"x {len(rows[0])} columns {rows[0]}, each the run's last value; phase 15 in "
+          f"{out['seconds']:.1f} s | {card}", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -5762,6 +6083,11 @@ def main():
     # 14. the bf16 stream forms of B1 / B2 fwd / B2 bwd on the card
     streams = stream_forms_phase(torch, L, (stft_fused, decode_ola), card)
 
+    # 15. upstream pretraining, its export and the experiment on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain = pretrain_phase(torch, kernels + flash_kernels + (stft_fused, decode_ola),
+                                  card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -6035,6 +6361,15 @@ def main():
                f"_form_{field}": val for form in ("xw", "out", "f32")
                for field, val in (("ms", st_t[(key, form)][0]),
                                   ("bound_ms", st_t[(key, form)][1][0]))}, **more))
+    # phase 15's launches: pretraining (both channels) and the experiment
+    pre_counts = [sum(c) for c in zip(*(p["counts"] for p in pretrain["pretrain"].values()))]
+    for r in rows:
+        k = {"lstm_bidir_tm": 0, "lstm_bidir_tm_fc": 1, "lstm_bidir_tm_bwd": 2,
+             "flash_attention_fwd": 3, "flash_attention_bwd": 4, "stft_fused": 5,
+             "decode_ola": 6}.get(r["name"])
+        if k is not None:
+            r["launches_pretrain_upstream"] = pre_counts[k]
+            r["launches_experiment"] = pretrain["experiment"]["counts"][k]
     # once more, for a reader who is shown only the end of a long output
     print_build_report(libs, build_s)
     for r in rows:
@@ -6134,6 +6469,19 @@ def main():
                       f"{v['grad'][0]:.3f}" for dt, v in vx.items())
           + f"; ms form / f32: enhance B=1 {sv['ms']['streams']:.3f} / {sv['ms']['f32']:.3f}, "
           f"train step B=6 {ss['ms']['streams']:.3f} / {ss['ms']['f32']:.3f} | {card}",
+          flush=True)
+    ps = pretrain["sides"]
+    print(f"[pretrain] pretraining at config/pretrain_sample.yaml's width: launches (B1, B2 fwd, "
+          f"B2 bwd, B3 fwd, B3 bwd, B4, B5) "
+          + ", ".join(f"channel {c} {p['counts']}" for c, p in pretrain["pretrain"].items())
+          + "; step card vs CPU (loss rel, gradient of its largest) "
+          + ", ".join(f"channel {c} ({v['loss_rel']:.2e}, {v['grad_max']:.2e})"
+                      for c, v in ps.items())
+          + "; B=8 10 s step median / busy / idle "
+          + ", ".join(f"channel {c} {v['ms']:.3f} / {v['busy']:.3f} ms / {v['idle']:.3f}"
+                      for c, v in ps.items())
+          + f"; experiment launches {pretrain['experiment']['counts']} in "
+          f"{pretrain['experiment']['seconds']:.1f} s; phase {pretrain['seconds']:.1f} s | {card}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -53,7 +53,9 @@ def main(argv=None):
                     help="torch device to run on: cuda (the default; raises "
                          "when there is no CUDA device) or cpu")
     ap.add_argument("--artifact", default="",
-                    help="export artifacts are not ported yet (ROADMAP A15)")
+                    help="the exported serving program is not ported yet: the part of "
+                         "ROADMAP A15 left (pretraining, the S3PRL export and the "
+                         "experiment tools are ported, under tools/)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="multi-device serving is not ported yet (ROADMAP A12)")
     args = ap.parse_args(argv)

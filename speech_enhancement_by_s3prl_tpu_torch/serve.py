@@ -17,7 +17,9 @@ the served totals. The server runs on the card unless ``--device cpu`` (or
 requests of one duration bucket into one device batch (``MicroBatcher``);
 ``--fixed_batch`` pads every group to ``--max_batch`` rows, so a response
 does not depend on its co-riders by a bit. ``--mesh`` (ROADMAP A12) and
-``--artifact`` (A15) are not ported and are refused.
+``--artifact`` are not ported and are refused; the exported serving program
+is the part of A15 left (its pretraining, S3PRL export and experiment tools
+are ported, under ``tools/``).
 
 ``build_enhancer(ckpt, device=...)`` returns ``enhance(wav) -> wav`` with
 ``.run_batch(list_of_wavs)``: requests are padded to a duration bucket and
@@ -358,7 +360,9 @@ def get_parser() -> argparse.ArgumentParser:
                     help="relocated checkpoint holding the downstream feature and model "
                          "config (default: the path the checkpoint records)")
     ap.add_argument("--artifact", default="",
-                    help="export artifacts are not ported yet (ROADMAP A15)")
+                    help="the exported serving program is not ported yet: the part of "
+                         "ROADMAP A15 left (pretraining, the S3PRL export and the "
+                         "experiment tools are ported, under tools/)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--sample_rate", type=int, default=16000)
