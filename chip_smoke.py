@@ -156,7 +156,11 @@ Phases, one line each:
      and the CUDA-core floor (an exponential and the hash a logit), the B=6
      10 s Mockingjay and flagship train steps and the B=1 10 s
      enhance in bf16 beside f32 with profiler breakdowns that split the GEMMs
-     by type.
+     by type. Head widths between B3's instances (16 and 48, which the
+     wrappers zero-pad to 32 and 64): f32 and bf16 forward and backward at rate
+     0.1 against the plain versions under the limits above, their times
+     beside the bound of the true and of the padded work, and one Mockingjay
+     step at 8 heads of 16 with dropout live, card against CPU.
  13. the one-direction LSTM in bf16 (the JAX package's lax.scan cell in bf16):
      the bf16-h forms of B1 (also from a carried state), B2 fwd and B2 bwd and
      the step-by-step bf16 dW_hh^T kernel against their plain versions (one
@@ -176,7 +180,9 @@ Phases, one line each:
      the same ``match > 0`` set; and times: each form beside its f32 form,
      its plain version and its bound, B2 bwd less its dW_hh^T kernel, the
      vcb train step, the B=1 enhance and the stream chunk in bf16 beside
-     f32.
+     f32. The dW_hh^T kernel also at 137 and 352 rows (a step's rows staged in
+     two and three chunks) under the same limits and timed, and one backward
+     of the vcb head in bf16 at 137 rows.
  14. the bf16 stream forms of B1, B2 fwd and B2 bwd, which the JAX package's
      variables select (SE_LSTM_XW_BF16: xw in bf16, dxw written in it;
      SE_PALLAS_HS_BF16: B1's hs in bf16; SE_PALLAS_VJP_BF16: B2's residuals
@@ -212,6 +218,16 @@ Phases, one line each:
      the source warm start, active and uniform adaptation, the enrichment
      scoring), ``results.json`` checked, and ``tools/extract_results.py``
      over the adaptation runs.
+ 16. the exported serving program: a seeded flagship checkpoint exported by
+     ``tools/export_model.py`` on the card (buckets up to 4 s) and served from
+     the artifact (``serve.build_artifact_enhancer``) at 1, 3 and 6 rows of
+     the 4 s bucket from one program: B1 3, B4 1 and B5 1 launches a device
+     batch through the op library and no other kernel, the output against
+     the live ``--ckpt`` enhancer (``ARTIFACT_TOL``); an artifact exported on
+     the CPU served on the card (moved by ``move_to_device_pass``); ``serve
+     --artifact`` (``/enhance``, ``/healthz``, ``/stream`` 400) and ``enhance
+     --artifact`` against ``--ckpt``; and times: the B=1 4 s call live and
+     from the artifact, and the live B=1 10 s call.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -3223,7 +3239,18 @@ B3_BF16_CASES = (  # B, T, N, D, rate, kbias
     (2, 37, 12, 64, 0.1, True),
     (2, 70, 4, 32, 0.2, True),
     (2, 70, 2, 128, 0.2, False),
-)
+) + tuple((B, T, N, D, 0.1, bias) for B, T, N, D, bias in (
+    (3, 130, 8, 16, True), (2, 201, 16, 48, False)))
+# head widths between the kernels' instances (ROADMAP C7: the wrappers run
+# them zero-padded to 32 and 64), f32 at rate 0.1 against phase 3's limit
+# B3_TOL, bf16 in B3_BF16_CASES above, and timed at the Mockingjay length
+B3_PADDED_CASES = ((3, 130, 8, 16, True), (2, 201, 16, 48, False))
+B3_PADDED_TIMES = ((6, 1001, 8, 16), (6, 1001, 16, 48))
+# the encoder of phase 12's heads-of-16 step: hidden 128 in 8 heads of 16,
+# FFN 512, 3 layers, dropout 0.1 (B3 on zero-padded heads in every layer)
+HEADS16 = dict(hidden_size=128, num_hidden_layers=3, num_attention_heads=8,
+               intermediate_size=512, hidden_dropout_prob=0.1,
+               attention_probs_dropout_prob=0.1)
 # the window criterion of tests/test_torch_port_bf16.py, the card against the
 # CPU: with d(a, b) = RMS(a - b) / RMS(CPU f32), d(card bf16, CPU bf16) <= 1.5
 # d(CPU bf16, CPU f32) and 0.5 <= d(card bf16, card f32) / d(CPU bf16, CPU f32)
@@ -3252,6 +3279,122 @@ def window(torch, card_bf16, card_f32, cpu_bf16, cpu_f32, what):
                              f"f32) (limit {WINDOW_NEAR}), d(card bf16, card f32) {ratio:.3f} "
                              f"x (limits {WINDOW_LOW}, {WINDOW_HIGH}); d(CPU bf16, f32) {base}")
     return near, ratio
+
+
+def padded_head_checks(torch, A, corpus, card):
+    """Phase 12 (a): B3 at head widths between its instances (16, 48: zero-
+    padded to 32, 64 by the wrappers), f32 fwd and bwd at rate 0.1 against
+    the plain version under phase 3's B3_TOL (bwd twice for identical bits;
+    bf16 in B3_BF16_CASES); their times at the Mockingjay length beside the
+    plain version and the bound of the true and of the padded work; and one
+    Mockingjay joint-finetune step at ``HEADS16`` (8 heads of 16) with dropout
+    live, card against CPU with the same salts under phase 6's limits, with 3
+    B3 fwd and 3 B3 bwd launches."""
+    from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import (
+        SaltStream,
+        TransformerConfig,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    out = {"err": 0.0, "times": {}}
+    salt, batch0 = (0x9E3779B9, 0xDEADBEEF), 3
+    for B, T, N, D, bias in B3_PADDED_CASES:
+        g = torch.Generator().manual_seed(SEED + T + D)
+        q, k, v = torch.randn(B, T, 3 * N * D, generator=g).cuda().split(N * D, dim=-1)
+        kbias = (2.0 * torch.randn(B, T, generator=g)).cuda() if bias else None
+        dout = torch.randn(B, T, N * D, generator=g).cuda()
+        args = (D ** -0.5, 0.1, salt, kbias, batch0)
+        reset_counts((A.flash_attention_fwd, A.flash_attention_bwd))
+        o, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        ref_o, ref_lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+        grads = A.flash_attention_bwd(q, k, v, ref_o, ref_lse, dout, *args, n_heads=N)
+        again = A.flash_attention_bwd(q, k, v, ref_o, ref_lse, dout, *args, n_heads=N)
+        ref_grads = A.flash_attention_bwd_ref(q, k, v, ref_o, ref_lse, dout, *args, n_heads=N)
+        torch.cuda.synchronize()
+        counts = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
+        errs = {"out": rel_err(o, ref_o), "lse": rel_err(lse, ref_lse)}
+        errs.update({n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)})
+        twice = all(torch.equal(a, b) for a, b in zip(grads, again))
+        print(f"[bf16] flash_attention f32 at a padded head width B={B} T={T} N={N} D={D} "
+              f"(instance {A.instance_width(D)}) rate=0.1 kbias={bias}: err / max|value| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (limit {B3_TOL:.0e}); launches (fwd, bwd) {counts}; bwd twice: identical "
+              f"bits {twice}", flush=True)
+        if not (all(e <= B3_TOL for e in errs.values()) and twice and counts == (1, 2)):
+            raise AssertionError(f"B3 at D={D}: {errs}, twice {twice}, launches {counts}")
+        out["err"] = max([out["err"], float((o - ref_o).abs().max())]
+                         + [float((a - b).abs().max()) for a, b in zip(grads, ref_grads)])
+    for B, T, N, D in B3_PADDED_TIMES:
+        g = torch.Generator().manual_seed(SEED + D)
+        q, k, v = torch.randn(B, T, 3 * N * D, generator=g).cuda().split(N * D, dim=-1)
+        dout = torch.randn(B, T, N * D, generator=g).cuda()
+        args = (D ** -0.5, 0.1, salt, None, 0)
+        o, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        qb, kb, vb, ob, db = (x.to(torch.bfloat16) for x in (q, k, v, o, dout))
+        ob, lb = A.flash_attention_fwd(qb, kb, vb, *args, n_heads=N)
+        fns = {"fwd": (lambda: A.flash_attention_fwd(q, k, v, *args, n_heads=N),
+                       lambda: A.flash_attention_ref(q, k, v, *args, n_heads=N)),
+               "bwd": (lambda: A.flash_attention_bwd(q, k, v, o, lse, dout, *args, n_heads=N),
+                       lambda: A.flash_attention_bwd_ref(q, k, v, o, lse, dout, *args,
+                                                         n_heads=N)),
+               "fwd_bf16": (lambda: A.flash_attention_fwd(qb, kb, vb, *args, n_heads=N),
+                            lambda: A.flash_attention_ref(qb, kb, vb, *args, n_heads=N)),
+               "bwd_bf16": (lambda: A.flash_attention_bwd(qb, kb, vb, ob, lb, db, *args,
+                                                          n_heads=N),
+                            lambda: A.flash_attention_bwd_ref(qb, kb, vb, ob, lb, db, *args,
+                                                              n_heads=N))}
+        W = A.instance_width(D)
+        for name, (kern, plain) in fns.items():
+            a, c, a2 = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2), cuda_ms(torch, kern, 10)
+            products = 2 if name.startswith("fwd") else 5
+            fn = attention_bound_bf16 if name.endswith("bf16") else attention_bound
+            true_b, pad_b = fn(B, T, N, D, products), fn(B, T, N, W, products)
+            out["times"][(name, D)] = (min(a, a2), c, true_b, pad_b)
+            print(f"[time] B3 {name} B={B} T={T} N={N} D={D} (padded to {W}), rate 0.1: kernel "
+                  f"{a:.4f} / {a2:.4f} ms, plain {c:.3f} ms; bound of the true work "
+                  f"{true_b[0]:.4f} ms by {true_b[1]}, of the padded work {pad_b[0]:.4f} ms "
+                  f"({W / D:.2f}x the products) | {card}", flush=True)
+
+    # one joint-finetune step at 8 heads of 16, card against CPU
+    fixed_set = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
+                              noise={"filestrs": os.path.join(corpus, "noise")},
+                              max_time=4000, snrs=[0])
+    lengths_np, wavs_np = fixed_set.collate_fn([fixed_set[i] for i in range(6)], pad_to=4 * SR)
+    cfg = TransformerConfig(input_dim=80, **HEADS16)
+    weights = build_mockingjay_train(cfg, device="cpu", generator=torch.Generator().manual_seed(
+        SEED + 16)).model.state_dict()
+    sides = {}
+    for device in ("cuda", "cpu"):
+        builder = build_mockingjay_train(cfg, device=device)
+        builder.model.load_state_dict(weights)
+        builder.model.train()
+        wavs = torch.from_numpy(wavs_np).to(device)
+        lengths = torch.from_numpy(lengths_np).to(device)
+        params = list(builder.model.parameters())
+        reset_counts((A.flash_attention_fwd, A.flash_attention_bwd))
+        loss, _ = builder.loss_fn(make_context(builder.preprocessor, wavs, lengths, 0, 1),
+                                  SaltStream(SEED, 16))
+        g = torch.autograd.grad(loss, params)
+        counts = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
+        flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+        sides[device] = (float(loss.detach()), float(flat.norm()), flat, counts)
+    (gl, gn, gg, gc), (cl, cn, cg, _) = sides["cuda"], sides["cpu"]
+    loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+    grad_rel = float((gg - cg).norm() / cg.norm())
+    layers = HEADS16["num_hidden_layers"]
+    print(f"[bf16] Mockingjay step at 8 heads of 16 (hidden 128, {layers} layers, dropout "
+          f"0.1, B=6, 4 s) card vs CPU, same salts: loss rel {loss_rel:.3e}, grad norm rel "
+          f"{norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}), |g_card - g_cpu| / |g_cpu| "
+          f"{grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); launches (B3 fwd, B3 bwd) {gc} (want "
+          f"{(layers, layers)}) | {card}", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+            and grad_rel <= TRAIN_GRAD_TOL and gc == (layers, layers)):
+        raise AssertionError(f"the heads-of-16 step: loss {loss_rel}, norm {norm_rel}, grad "
+                             f"{grad_rel}, launches {gc}")
+    out["step"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "launches": gc}
+    return out
 
 
 def flash_bf16_checks(torch, A):
@@ -3792,6 +3935,7 @@ def bf16_phase(torch, A, counted, card, tmp):
     corpus = os.path.join(tmp, "corpus")
     write_corpus(corpus, SEED)
     checks = flash_bf16_checks(torch, A)
+    checks["padded"] = padded_head_checks(torch, A, corpus, card)
     counts, run_dir = mockingjay_bf16_run(torch, corpus, tmp, counted)
     mj_window = mockingjay_window(torch, corpus, run_dir)
     served = flagship_bf16_runs(torch, corpus, tmp, counted)
@@ -3827,9 +3971,21 @@ BF16H_DXW_RMS, BF16H_DXW_MAX = 3e-6, 1e-3
 BF16H_DW_SHARE, BF16H_DW_KERNEL_SHARE = 0.99, 0.999
 # (B, T, H) where the dW_hh^T kernel alone reaches the edges of its design: B
 # above one K slice of 4 rows and one group of 8 with H = 36 (ragged tiles),
-# H not a multiple of 4 (4-byte staging) with a half-empty second slice, and
-# B at the wrapper's DW_BF16_MAX_BATCH ("max": one step a run)
-BF16H_DW_EDGE_SHAPES = ((10, 57, 36), (5, 300, 37), ("max", 20, 64))
+# H not a multiple of 4 (4-byte staging) with a half-empty second slice, B at
+# the wrapper's DW_BF16_CHUNK_ROWS ("max": one step a run, all rows in one
+# chunk), one row past it (two chunks of a step, 72 + 65 rows), two full
+# chunks (272), the JAX bench's train batch of 352 (three chunks, 120 + 120 +
+# 112) and 1024 (eight of 128) at the vcb width, all under the same limits.
+# Past one chunk a step's rows go in wgmma chains of 32 rows
+# (``dw_bf16_chains``); the share against the exact step sums
+# (``dw_bf16_exact_steps``) and the identical share against the kernel's
+# model are printed beside: the model does not reproduce how the tensor cores
+# accumulate in f32 (their sums drop low bits as a chain grows), so it is not
+# a bit for bit reference.
+BF16H_DW_EDGE_SHAPES = ((10, 57, 36), (5, 300, 37), ("max", 20, 64), (137, 201, 256),
+                        (272, 201, 256), (352, 201, 256), (1024, 201, 256))
+# rows of the vcb head's bf16 backward past one chunk of the dW_hh^T kernel
+BF16H_CHUNKED_ROWS = 137
 # instructions a dW_hh^T element takes on the CUDA cores each step: its carry,
 # cvt.rn.bf16x2.f32 and add.rn.bf16x2 for two elements (the kernel's SASS: 8
 # F2FP and 8 HADD2 a thread and step for 16 elements)
@@ -3996,10 +4152,10 @@ def bf16_h_checks(torch, L):
         worst["dw_kernel_identical"] = min(worst.get("dw_kernel_identical", 1.0),
                                            kernel_share[1])
     # the dW_hh^T kernel alone at the edges of its design, on the bf16-h
-    # backward's own (hs, dxw), under the same limits; one row past
-    # DW_BF16_MAX_BATCH is refused
+    # backward's own (hs, dxw), under the same limits, past one chunk of a
+    # step's rows too
     for B, T, H in BF16H_DW_EDGE_SHAPES:
-        B = L.DW_BF16_MAX_BATCH if B == "max" else B
+        B = L.DW_BF16_CHUNK_ROWS if B == "max" else B
         xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 17 + B, ndir=1)
         w_hh_t = w_hh_t.to(torch.bfloat16).float()
         hs, cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16=True)
@@ -4008,13 +4164,30 @@ def bf16_h_checks(torch, L):
         ref_dw = L.lstm_bidir_tm_dw_bf16_ref(hs, dxw)
         once = torch.einsum("dbti,dbtj->dij", hs[:, :, :-1].to(torch.bfloat16).float(),
                             dxw[:, :, 1:])
+        chunked = B > L.DW_BF16_CHUNK_ROWS
+        if chunked:
+            # beside the plain version: the exact step sum and the kernel's
+            # model, each read against the kernel (printed, not held)
+            exact = dw_bf16_exact_steps(torch, L, hs, dxw)
+            model = L.lstm_bidir_tm_dw_bf16_model(hs, dxw)
         torch.cuda.synchronize()
         share = ulp_share(torch, kdw, ref_dw)
         once_share = ulp_share(torch, once.to(torch.bfloat16).float(), ref_dw)
         twice = torch.equal(kdw, kdw2)
-        print(f"[bf16h] the dW_hh^T kernel alone at ndir=1 B={B} T={T} H={H}: within one bf16 "
-              f"unit {share[0]:.5f} (identical {share[1]:.5f}, limit {BF16H_DW_KERNEL_SHARE}); "
-              f"an f32 sum rounded once {once_share[0]:.5f}; twice: identical bits {twice}",
+        extra = ""
+        if chunked:
+            exact_share = ulp_share(torch, kdw, exact)
+            exact_plain = ulp_share(torch, exact, ref_dw)
+            model_share = ulp_share(torch, kdw, model)
+            extra = (f"; against the exact step sums {exact_share[0]:.5f} (identical "
+                     f"{exact_share[1]:.5f}; the plain version against them "
+                     f"{exact_plain[0]:.5f}), against its model lstm_bidir_tm_dw_bf16_model "
+                     f"identical {model_share[1]:.5f}")
+            worst[f"dw_kernel_b{B}"] = share + exact_share + exact_plain + model_share
+        print(f"[bf16h] the dW_hh^T kernel alone at ndir=1 B={B} T={T} H={H} (row chunks "
+              f"{L.dw_bf16_chunks(B)}, {len(L.dw_bf16_chains(B))} chains): within one bf16 unit of the plain version "
+              f"{share[0]:.5f} (identical {share[1]:.5f}, limit {BF16H_DW_KERNEL_SHARE}); an "
+              f"f32 sum rounded once {once_share[0]:.5f}; twice: identical bits {twice}{extra}",
               flush=True)
         if not (share[0] >= BF16H_DW_KERNEL_SHARE and once_share[0] < BF16H_DW_SHARE
                 and twice):
@@ -4023,15 +4196,61 @@ def bf16_h_checks(torch, L):
         worst["dw_kernel"] = min(worst["dw_kernel"], share[0])
         worst["dw_kernel_identical"] = min(worst["dw_kernel_identical"], share[1])
         del xw, w_hh_t, dhs, hs, cs, dxw
-    over = torch.zeros(1, L.DW_BF16_MAX_BATCH + 1, 2, 8, device="cuda")
-    try:
-        L.lstm_bidir_tm_dw_bf16(over, torch.zeros(1, L.DW_BF16_MAX_BATCH + 1, 2, 32,
-                                                  device="cuda"))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("lstm_bidir_tm_dw_bf16 took more rows than DW_BF16_MAX_BATCH")
+    worst["chunked_head"] = chunked_head_backward(torch, L)
     return worst
+
+
+def dw_bf16_exact_steps(torch, L, hs, da):
+    """The plain version's function (``lstm_bidir_tm_dw_bf16_ref``) with each
+    step's product summed exactly: in float64 (products of a bf16 h and an
+    f32 da are exact there, and a few hundred of them sum far below an f32
+    unit), rounded to f32 once, then the same bf16 carry."""
+    acc = torch.zeros(hs.shape[:-3] + (hs.shape[-1], da.shape[-1]), dtype=torch.float32,
+                      device=hs.device)
+    for tt in range(hs.shape[-2] - 1, 0, -1):
+        step = torch.matmul(L._bf16(hs[..., tt - 1, :]).double().transpose(-1, -2),
+                            da[..., tt, :].double()).float()
+        acc = L._bf16(acc + L._bf16(step))
+    return acc
+
+
+def chunked_head_backward(torch, L):
+    """Phase 13 (a): one backward of the vcb head in bf16 (LSTM 3 x 256, one
+    direction, 120-d input) at ``BF16H_CHUNKED_ROWS`` rows of 1 s, past one
+    chunk of the dW_hh^T kernel: 3 launches of B2 fwd, B2 bwd and the dW_hh^T
+    kernel, all in the bf16-h form, and every w_hh gradient finite and of
+    bf16 values (the kernel's own limits are the edge shapes' above).
+    Returns the launches."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build
+    from speech_enhancement_by_s3prl_tpu_torch.models.heads import build_head
+
+    pre, _ = build(device="cpu")
+    head = build_head("LSTM", input_size=pre.feat_dims()[1], output_size=201, hidden_size=256,
+                      num_layers=3, bidirectional=False, compute_dtype="bf16",
+                      generator=torch.Generator().manual_seed(SEED + 15)).cuda()
+    g = torch.Generator().manual_seed(SEED + 16)
+    x, lin, dout = (torch.randn(BF16H_CHUNKED_ROWS, 101, n, generator=g).cuda()
+                    for n in (pre.feat_dims()[1], 201, 201))
+    kernels = (L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, L.lstm_bidir_tm_dw_bf16)
+    reset_counts(kernels)
+    out, _ = head(x, lin.abs())
+    (out * dout).sum().backward()
+    torch.cuda.synchronize()
+    counts = [L.lstm_bidir_tm_fc.launches, L.lstm_bidir_tm_fc.h_bf16,
+              L.lstm_bidir_tm_bwd.launches, L.lstm_bidir_tm_bwd.h_bf16,
+              L.lstm_bidir_tm_dw_bf16.launches]
+    grads = [p.grad.float() for k, p in head.named_parameters() if k.endswith("w_hh")]
+    ok = len(grads) == 3 and all(bool(torch.isfinite(v).all())
+                                 and torch.equal(v.to(torch.bfloat16).float(), v)
+                                 for v in grads)
+    print(f"[bf16h] the vcb head's bf16 backward at B={BF16H_CHUNKED_ROWS} (1 s, row chunks "
+          f"{L.dw_bf16_chunks(BF16H_CHUNKED_ROWS)} of the dW_hh^T kernel): launches (B2 fwd, "
+          f"of it bf16-h, B2 bwd, of it bf16-h, dW_hh^T bf16) {counts} (want "
+          f"[3, 3, 3, 3, 3]); w_hh gradients finite, bf16 values {ok}", flush=True)
+    if counts != [3, 3, 3, 3, 3] or not ok:
+        raise AssertionError(f"the vcb head's backward at B={BF16H_CHUNKED_ROWS}: launches "
+                             f"{counts}, gradients finite and bf16 {ok}")
+    return {"launches": counts}
 
 
 def bf16_h_times(torch, L, card):
@@ -4078,6 +4297,22 @@ def bf16_h_times(torch, L, card):
               f"kernel's ({dw / bwd:.1%} of the call); the f32 form {times[('bwd', B)][1]:.4f} "
               f"ms with its dW_hh^T product | {card}", flush=True)
         del xw, w_hh_t, dhs, hs, cs, dxw
+    # the dW_hh^T kernel past one chunk of a step's rows
+    for B in (BF16H_CHUNKED_ROWS, 352):
+        xw, w_hh_t, dhs = kernel_grad_inputs(torch, B, T, H, SEED + 31 + B, ndir=1)
+        w_hh_t = w_hh_t.to(torch.bfloat16).float()
+        hs, cs = L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16=True)
+        dxw, _ = L.lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16=True)
+        del xw, w_hh_t, dhs, cs
+        kern = lambda: L.lstm_bidir_tm_dw_bf16(hs, dxw)  # noqa: E731
+        plain = lambda: L.lstm_bidir_tm_dw_bf16_ref(hs, dxw)  # noqa: E731
+        a, c, a2 = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 1), cuda_ms(torch, kern, 10)
+        times[("dw", B)] = (min(a, a2), None, c)
+        bnd = bf16_h_bound(B, T, H, "dw")
+        print(f"[time] dw bf16-h ndir=1 B={B} T={T} H={H} (row chunks {L.dw_bf16_chunks(B)}): "
+              f"kernel {a:.4f} / {a2:.4f} ms, plain {c:.3f} ms; bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]} | {card}", flush=True)
+        del hs, dxw
     return times
 
 
@@ -5427,6 +5662,230 @@ def pretrain_phase(torch, counted, card, tmp):
     return out
 
 
+# the exported serving program (phase 16): the flagship checkpoint exported by
+# tools/export_model.py on the card (buckets up to 4 s) and served from the
+# artifact; its output against the live --ckpt enhancer on the same card. Both
+# run the same operations on the same inputs (the program replays the eager
+# path, B1 / B4 / B5 through the op library's CUDA kernels), so bit for bit is
+# expected; the limit, of the output RMS, admits a last-bit difference of a
+# library product whose algorithm the replay might pick otherwise.
+ARTIFACT_TOL = 1e-6
+ARTIFACT_MAX_SEC = 4
+# rows of one 4 s device batch (the symbolic batch: three row counts, one
+# program), each a request of 2.5-4 s
+ARTIFACT_ROWS = (1, 3, 6)
+
+
+def artifact_phase(torch, counted, card, tmp):
+    """Phase 16: the exported serving program at full width. ``counted``:
+    every kernel wrapper with a launch count, B1, B4 and B5 among them."""
+    from speech_enhancement_by_s3prl_tpu_torch.data.audio_io import read_wav, write_wav
+    from speech_enhancement_by_s3prl_tpu_torch.enhance import main as enhance_cli
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, flagship_settings
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.serve import (
+        build_artifact_enhancer,
+        build_enhancer,
+        make_server,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.tools import export_model
+    from speech_enhancement_by_s3prl_tpu_torch.tools.serve_load import pcm_of, wav_body
+    from speech_enhancement_by_s3prl_tpu_torch.utils.export_artifact import read_manifest
+
+    t_phase = time.perf_counter()
+    _, model = build(device="cpu", generator=torch.Generator().manual_seed(SEED))
+    config, paras = flagship_settings()
+    ckpt = save_checkpoint(os.path.join(tmp, "ckpt"), 0, model, None, config, paras)
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    paths = export_model.main(["--ckpt", ckpt, "--out", art, "--max_sec",
+                               str(ARTIFACT_MAX_SEC)])
+    export_s = time.perf_counter() - t0
+    manifest = read_manifest(art)
+    T = ARTIFACT_MAX_SEC * SR
+    if manifest["device"] != "cuda" or T not in manifest["buckets"] or SR not in paths:
+        raise AssertionError(f"the artifact's manifest {manifest}")
+    sizes = {t: os.path.getsize(p) for t, p in paths.items()}
+    print(f"[artifact] tools/export_model.py on the card: buckets {sorted(paths)} in "
+          f"{export_s:.1f} s, files {sizes} bytes; manifest {manifest}", flush=True)
+
+    live = build_enhancer(ckpt, device="cuda", round_pow2=False)
+    served = build_artifact_enhancer(art, SR, device="cuda", round_pow2=False)
+    requests = [request_audio(2.5 + 0.25 * k, 200 + k) for k in range(max(ARTIFACT_ROWS))]
+    served.run_batch(requests[:2])  # warm both
+    live.run_batch(requests[:2])
+    torch.cuda.synchronize()
+    worst, identical, counts = 0.0, True, {}
+    for rows in ARTIFACT_ROWS:
+        # -- the main path: one device batch of the artifact --
+        reset_counts(counted)
+        outs = served.run_batch(requests[:rows])
+        torch.cuda.synchronize()
+        counts[rows] = [fn.launches for fn in counted]
+        # ------------------------------------------------------
+        b1 = L.lstm_bidir_tm.launches
+        b4, b5 = stft_kernel.stft_fused.launches, decode_kernel.decode_ola.launches
+        if (b1, b4, b5) != (3, 1, 1) or sum(counts[rows]) != 5:
+            raise AssertionError(f"the artifact's device batch of {rows} rows launched "
+                                 f"{dict(zip((fn.__name__ for fn in counted), counts[rows]))}")
+        for wav, out, ref in zip(requests, outs, live.run_batch(requests[:rows])):
+            if out.shape != wav.shape or not np.isfinite(out).all():
+                raise AssertionError(f"artifact output shape {out.shape}")
+            worst = max(worst, float(np.abs(out - ref).max() / np.sqrt(np.mean(ref ** 2))))
+            identical = identical and np.array_equal(out, ref)
+    print(f"[artifact] served from the artifact on the card, one 4 s device batch each of "
+          f"{list(ARTIFACT_ROWS)} rows (one program, symbolic batch): launches a batch B1 3, "
+          f"B4 1, B5 1, no other kernel; against the live --ckpt enhancer max |diff| / output "
+          f"RMS {worst:.3e} (limit {ARTIFACT_TOL:.0e}), bit for bit {identical}", flush=True)
+    if not worst <= ARTIFACT_TOL:
+        raise AssertionError(f"the artifact disagrees with the live enhancer: {worst}")
+
+    # exported on the CPU, served on the card (moved by move_to_device_pass
+    # where this torch has it; refused otherwise)
+    art_cpu = os.path.join(tmp, "artifact_cpu")
+    export_model.main(["--ckpt", ckpt, "--out", art_cpu, "--max_sec", "1", "--device", "cpu"])
+    try:
+        from torch.export.passes import move_to_device_pass  # noqa: F401
+        can_move = True
+    except ImportError:
+        can_move = False
+    if can_move:
+        moved = build_artifact_enhancer(art_cpu, SR, device="cuda", round_pow2=False)
+        one = [request_audio(0.9, 230)]
+        reset_counts(counted)
+        got = moved.run_batch(one)[0]
+        moved_counts = [fn.launches for fn in counted]
+        moved_b1 = L.lstm_bidir_tm.launches
+        ref = live.run_batch(one)[0]
+        moved_err = float(np.abs(got - ref).max() / np.sqrt(np.mean(ref ** 2)))
+        print(f"[artifact] exported on the CPU, moved to the card by move_to_device_pass: "
+              f"launches {sum(moved_counts)} (B1 {moved_b1}); against the live enhancer "
+              f"{moved_err:.3e} (limit {ARTIFACT_TOL:.0e})", flush=True)
+        if moved_b1 != 3 or sum(moved_counts) != 5 or not moved_err <= ARTIFACT_TOL:
+            raise AssertionError(f"the moved artifact: launches {moved_counts}, {moved_err}")
+    else:
+        try:
+            build_artifact_enhancer(art_cpu, SR, device="cuda")
+        except RuntimeError as e:
+            print(f"[artifact] exported on the CPU: this torch cannot move it ({e})", flush=True)
+        else:
+            raise AssertionError("a CPU artifact loaded on the card without a move")
+        moved_err = None
+
+    # the server and the CLI with --artifact
+    server = make_server(["--artifact", art, "--port", "0", "--workers", "2"])
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        port = server.server_address[1]
+        wav = request_audio(3.3, 240)
+        status, body = http_request(port, "POST", "/enhance", wav_body(wav))
+        want = pcm_of(wav_body(live(wav)))
+        pcm_steps = float(np.abs(pcm_of(body) - want).max()) if status == 200 else None
+        s_status, s_body = http_request(port, "POST", "/stream", b"\x00" * 64)
+        h_status, h_body = http_request(port, "GET", "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"[artifact] serve --artifact: /enhance {status} (3.3 s, PCM against the live "
+          f"enhancer within {pcm_steps} steps), /stream {s_status} ({s_body.decode()!r}), "
+          f"/healthz {h_status} {json.loads(h_body)}", flush=True)
+    if (status, s_status, h_status) != (200, 400, 200) or pcm_steps > 1 or \
+            b"artifact serving bakes full-utterance programs" not in s_body:
+        raise AssertionError(f"serve --artifact: {status}, {pcm_steps}, {s_status} {s_body}, "
+                             f"{h_status}")
+    cli_in, outs = os.path.join(tmp, "cli_in"), {}
+    os.makedirs(cli_in)
+    for i, sec in enumerate((1.5, 3.0, 3.9)):
+        write_wav(os.path.join(cli_in, f"clip{i}.wav"), request_audio(sec, 250 + i), SR)
+    for flag, src in (("--artifact", art), ("--ckpt", ckpt)):
+        out_dir = os.path.join(tmp, "cli_" + flag[2:])
+        enhance_cli([flag, src, "--inputs", cli_in, "--outdir", out_dir])
+        outs[flag] = [read_wav(os.path.join(out_dir, f"clip{i}.wav"))[0][0] for i in range(3)]
+    cli_steps = max(float(np.abs(a - b).max()) * 32768 for a, b in zip(*outs.values()))
+    print(f"[artifact] enhance --artifact wrote the files enhance --ckpt writes: 3 files, "
+          f"largest difference {cli_steps:.1f} PCM steps", flush=True)
+    if cli_steps > 1.0:
+        raise AssertionError(f"enhance --artifact differs from --ckpt by {cli_steps} steps")
+
+    # times: the B=1, 4 s call live and from the artifact, in turns; the B=1
+    # 10 s call of the live enhancer in a 10 s bucket (eager, B1 / B4 / B5
+    # through the ops; phase 7 times the same model call without the host's
+    # padding and copies)
+    one4 = [request_audio(4.0, 260)]
+    ms = {"live": [], "artifact": []}
+    for _ in range(2):
+        for name, fn in (("live", live), ("artifact", served), ("artifact", served),
+                         ("live", live)):
+            ms[name] += synced_ms(torch, lambda: fn.run_batch(one4), runs=10)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    ten = [request_audio(10.0, 261)]
+    live10 = build_enhancer(ckpt, device="cuda", max_bucket_ms=10000)
+    for _ in range(3):  # its 10 s bucket's first calls (caches, allocator)
+        live10.run_batch(ten)
+    series = [synced_ms(torch, lambda: live10.run_batch(ten), 20) for _ in range(2)]
+    med["live_10s"] = statistics.median(series[0] + series[1])
+    med["live_10s_series"] = [(min(v), statistics.median(v), max(v)) for v in series]
+    print(f"[time] B=1 4 s enhance (host clock, synchronized, median of 40): live --ckpt "
+          f"{med['live']:.3f} ms, artifact {med['artifact']:.3f} ms; live B=1 10 s after 3 "
+          f"warm calls {med['live_10s']:.3f} ms (median of 2 x 20; each series min / median "
+          f"/ max " + ", ".join("%.3f / %.3f / %.3f" % m for m in med["live_10s_series"])
+          + f") | {card}", flush=True)
+    dispatch = dispatch_times(torch, card)
+    return {"counts": counts, "worst": worst, "identical": identical, "moved_err": moved_err,
+            "can_move": can_move, "ms": med, "dispatch": dispatch, "export_s": export_s,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def dispatch_times(torch, card):
+    """Phase 16: what the op library costs a call on the serving path. Each
+    of B1, B4 and B5 at 1 and 12 rows of 10 s (T=1001, H=256 for B1) three
+    ways on the same card tensors: the wrapper (``lstm_bidir_tm``,
+    ``stft_fused``, ``decode_ola``: its checks, then the op), the op's
+    overload alone (``ops/cuda/library.py``) and its CUDA implementation
+    called directly (``_b1_cuda``, ``_stft_cuda``, ``_decode_cuda``: the
+    launch, no dispatcher). 50 back-to-back calls on CUDA events, as phase 7
+    times B4 / B5 (20 there): where a call's host work outlasts its kernel,
+    that host work is what they measure. Five turns of the three; the least
+    and the median of each (a shared host's noise is of the size of the
+    difference at one row)."""
+    from speech_enhancement_by_s3prl_tpu_torch.ops import stft as S
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, library, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+
+    geom, out = (400, 400, 160), {}
+    for rows in (1, 12):
+        wav = stft_inputs(torch, (rows, 10 * SR), SEED + 40)
+        pred, uph = decode_inputs(torch, S, rows, 1001, SEED + 41)
+        xw, w_hh_t = kernel_inputs(torch, rows, 1001, 256, SEED + 42)
+        ways = {
+            "B1": (lambda: L.lstm_bidir_tm(xw, w_hh_t),
+                   lambda: library.lstm_recurrence(xw, w_hh_t, False, False),
+                   lambda: L._b1_cuda(xw, w_hh_t)),
+            "B4": (lambda: stft_kernel.stft_fused(wav, *geom),
+                   lambda: library.stft(wav, *geom),
+                   lambda: stft_kernel._stft_cuda(wav, *geom)),
+            "B5": (lambda: decode_kernel.decode_ola(pred, uph, *geom),
+                   lambda: library.decode(pred, uph, *geom, 2.0),
+                   lambda: decode_kernel._decode_cuda(pred, uph, *geom, 2.0)),
+        }
+        for name, fns in ways.items():
+            ms = [[], [], []]
+            for _ in range(5):
+                for k, fn in enumerate(fns):
+                    ms[k].append(cuda_ms(torch, fn, iters=50, warmup=2))
+            out[(name, rows)] = [min(v) for v in ms]
+            print(f"[time] dispatcher: {name} {rows} rows of 10 s, 50 back-to-back calls, "
+                  f"least / median of 5 turns: the wrapper {min(ms[0]):.4f} / "
+                  f"{statistics.median(ms[0]):.4f} ms, the op {min(ms[1]):.4f} / "
+                  f"{statistics.median(ms[1]):.4f}, its CUDA implementation called directly "
+                  f"{min(ms[2]):.4f} / {statistics.median(ms[2]):.4f} | {card}", flush=True)
+        del wav, pred, uph, xw, w_hh_t
+    return out
+
+
+
 def main():
     import torch
 
@@ -6088,6 +6547,11 @@ def main():
         pretrain = pretrain_phase(torch, kernels + flash_kernels + (stft_fused, decode_ola),
                                   card, tmp)
 
+    # 16. the exported serving program on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = artifact_phase(torch, all_kernels + bf16_kernels + (L.lstm_bidir_tm_dw_bf16,),
+                                  card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -6105,6 +6569,17 @@ def main():
             fields[f"b6_ms{sfx}"] = times[("b6", B)]
             fields[f"step_us{sfx}"] = times[(prefix + "cluster", B)] * 1e3 / T
         return fields
+
+    padded = bf16["checks"]["padded"]["times"]
+
+    def padded_fields(key):
+        """B3 at head widths 16 and 48 (B=6, T=1001, rate 0.1; zero-padded
+        to 32 and 64): time, plain time, the bound of the true work and of
+        the padded work."""
+        return {f"{field}_d{D}": val for D in (16, 48) for field, val in zip(
+            ("ms", "plain_ms", "bound_ms", "bound_ms_padded_work"),
+            (padded[(key, D)][0], padded[(key, D)][1], padded[(key, D)][2][0],
+             padded[(key, D)][3][0]))}
 
     def row(name, source, replaces, launches, err, ms, plain_ms, shape, bound_, library_ms,
             **more):
@@ -6178,7 +6653,8 @@ def main():
             bound_ms_f32_fma=attention_bound(6, T, 12, 64, 2, PEAK_F32)[0],
             bound_ms_f32_fma_b64=attention_bound(64, T, 12, 64, 2, PEAK_F32)[0],
             library_ms_b64=times[("b3sdpa", 64)][1],
-            rate0_ms=times[("b3sdpa", 6)][0], rate0_ms_b64=times[("b3sdpa", 64)][0]),
+            rate0_ms=times[("b3sdpa", 6)][0], rate0_ms_b64=times[("b3sdpa", 64)][0],
+            **padded_fields("fwd")),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "attention_kernel.py:314",
             mj_launches[1], b3_err[1], times[("b3bwd", 6)][0], times[("b3bwd", 6)][1],
             "B=6 T=1001 N=12 D=64 rate 0.1", attention_bound(6, T, 12, 64, 5),
@@ -6186,7 +6662,8 @@ def main():
             plain_ms_b64=times[("b3bwd", 64)][1],
             bound_ms_b64=attention_bound(64, T, 12, 64, 5)[0],
             library_ms_b64=times[("b3sdpa_bwd", 64)][1],
-            rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0]),
+            rate0_ms=times[("b3sdpa_bwd", 6)][0], rate0_ms_b64=times[("b3sdpa_bwd", 64)][0],
+            **padded_fields("bwd")),
     ]
     # B3 bf16 (phase 12): one bf16 tensor-core pass a product; beside it the
     # f32 kernel's time at the same shape, SDPA bf16 at rate 0 (forward, or
@@ -6210,7 +6687,8 @@ def main():
             rate0_ms=bf16_times_[(key, 6)][3], rate0_ms_b64=bf16_times_[(key, 64)][3],
             core_floor_ms=attention_core_floor_bf16(6, T, 12, lib + 1)[0],
             core_floor_ms_b64=attention_core_floor_bf16(64, T, 12, lib + 1)[0],
-            max_ulps=bf16["checks"]["out_ulps" if products == 2 else "grad_ulps"]))
+            max_ulps=bf16["checks"]["out_ulps" if products == 2 else "grad_ulps"],
+            **padded_fields(f"{key}_bf16")))
     # B4 at 1 / 12 / 64 rows of 10 s: the FFT kernel (its route at n_fft 400),
     # with the product kernel's times at the same shapes beside it
     dsp_shape = "1 row of 10 s (1001 frames), n_fft 400, hop 160"
@@ -6314,6 +6792,18 @@ def main():
               "identical_share": hc["dw_kernel_identical"],
               "bound_ms_first_design": dw_first_bound(6, T, H)[0],
               "bound_ms_first_design_b1": dw_first_bound(1, T, H)[0],
+              **{f"{key}_b{Bc}": val for Bc in (BF16H_CHUNKED_ROWS, 352)
+                 for key, val in (("ms", ht[("dw", Bc)][0]), ("plain_ms", ht[("dw", Bc)][2]),
+                                  ("bound_ms", bf16_h_bound(Bc, T, H, "dw")[0]),
+                                  ("row_chunks", L.dw_bf16_chunks(Bc)),
+                                  ("within_one_ulp_share", hc[f"dw_kernel_b{Bc}"][0]),
+                                  ("within_one_ulp_share_exact_steps",
+                                   hc[f"dw_kernel_b{Bc}"][2]),
+                                  ("exact_steps_within_one_ulp_share_plain",
+                                   hc[f"dw_kernel_b{Bc}"][4]),
+                                  ("identical_share_model", hc[f"dw_kernel_b{Bc}"][7]))},
+              **{f"within_one_ulp_share_b{Bc}": hc[f"dw_kernel_b{Bc}"][0] for Bc in (272, 1024)},
+              "launches_head_b137": hc["chunked_head"]["launches"][4],
               "replaces_note": "no Pallas kernel of its own: the dW_hh^T of B2 bwd's bf16-h "
                                "form, which JAX sums in its reverse lax.scan"})):
         one_b = ht.get((key, 1))
@@ -6483,6 +6973,24 @@ def main():
           + f"; experiment launches {pretrain['experiment']['counts']} in "
           f"{pretrain['experiment']['seconds']:.1f} s; phase {pretrain['seconds']:.1f} s | {card}",
           flush=True)
+    # the artifact's device batches (phase 16): B1 3, B4 1, B5 1 a batch
+    art_names = [fn.__name__ for fn in all_kernels + bf16_kernels + (L.lstm_bidir_tm_dw_bf16,)]
+    for r in rows:
+        if r["name"] in ("lstm_bidir_tm", "stft_fused", "decode_ola"):
+            idx = art_names.index(r["name"])
+            r["launches_artifact"] = sum(c[idx] for c in artifact["counts"].values())
+            op = {"lstm_bidir_tm": "B1", "stft_fused": "B4", "decode_ola": "B5"}[r["name"]]
+            for n in (1, 12):
+                # the wrapper, the op alone, its CUDA implementation called directly
+                r[f"ms_wrapper_op_direct_{n}_rows"] = artifact["dispatch"][(op, n)]
+    am = artifact["ms"]
+    print(f"[artifact] the exported flagship ({len(ARTIFACT_ROWS)} device batches of "
+          f"{list(ARTIFACT_ROWS)} rows from one program) against the live enhancer "
+          f"{artifact['worst']:.3e} of the RMS (bit for bit {artifact['identical']}), exported "
+          f"on the CPU and moved {artifact['moved_err']} (move pass {artifact['can_move']}); "
+          f"export {artifact['export_s']:.1f} s; B=1 4 s ms live {am['live']:.3f} / artifact "
+          f"{am['artifact']:.3f}, live B=1 10 s {am['live_10s']:.3f}; phase "
+          f"{artifact['seconds']:.1f} s | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -71,8 +71,24 @@
 //   - No division in the loops: a thread's staging piece is its step and
 //     place in the row; the rows of a group are a template constant (4: B <=
 //     4, one k16 slice; 8: two slices), and B > 8 takes groups of 8 rows in a
-//     loop with fewer steps a run (B <= kMaxBatch, where one step's run fits
-//     the shared memory).
+//     loop with fewer steps a run, down to one step a run where one step's
+//     rows just fit the shared memory (kChunkRows, 136 on an H100).
+//   - Any B: past kChunkRows a step's rows are staged in C chunks of equal
+//     groups (G = ceil(B / 8) groups in chunks of ceil(G / C)), one chunk a
+//     run of one step. A chunk's slices go in wgmma chains of kChainGroups
+//     groups (32 rows), each from zero in a second set of accumulators and
+//     added to the step's sum in f32 (to nearest) once its wgmma are done;
+//     the step's first chain is its sum. The warpgroup waits for a chunk's
+//     products before it frees the chunk's fragment buffer and carries after
+//     the last chunk only, so the step's one bf16 rounding comes after its
+//     last chunk. Short chains, not one over all rows: the tensor cores' f32
+//     accumulation loses low bits of the products as the running sum grows,
+//     so that one chain over 352 rows fails phase 13's share within one bf16
+//     unit of the plain version, and one chain a chunk of 136 rows comes
+//     within 2e-4 of it at B = 352 (an H100, PERF.md). Rows past B in the
+//     last chunk get zero fragments, since its buffer held an earlier chunk.
+//     At B <= kChunkRows (C = 1) nothing of this runs: those B keep their
+//     bits.
 //   - No atomics, no reduction across blocks: the same bits on every run.
 //     Any H: inputs past H and columns past 4H are staged as zeros and not
 //     stored.
@@ -109,7 +125,12 @@ constexpr int kARow = kC + 8;      // floats a staged da row
 // fragments (a uint32 of A per input pair, a uint2 of B per column)
 constexpr int kRowBytes = kStages * 4 * (kHRow + kARow) + kFrags * 384;
 constexpr int kSmemOptin = 232448;  // an H100 block's shared memory
-constexpr int kMaxBatch = kSmemOptin / kRowBytes / 8 * 8;  // 136
+// the most rows a run of one step stages at once (the wrapper's
+// DW_BF16_CHUNK_ROWS); a larger B takes chunks of at most this many
+constexpr int kChunkRows = kSmemOptin / kRowBytes / 8 * 8;  // 136
+// groups of 8 rows a wgmma chain of a step's sum takes past one chunk (the
+// wrapper's DW_BF16_CHAIN_ROWS / 8)
+constexpr int kChainGroups = 4;
 // named barriers: fragment buffer k full (1 + k) and free (3 + k), among all
 // threads; the converters' own (5)
 constexpr int kBarFull = 1, kBarFree = 1 + kFrags, kBarConv = 1 + 2 * kFrags;
@@ -150,23 +171,25 @@ __device__ __forceinline__ uint4 a_frag(uint32_t u) {
 }
 
 // kSl k16 slices (4 batch rows each) a group; kMulti: G groups of 8 rows
-// (B > 8), else one group. S steps a run (kSteps unless kMulti), vec: h rows
-// 16-byte aligned (H % 4 == 0).
+// (B > 8) a run, in C chunks a step (C > 1: one step a run), else one group.
+// S steps a run (kSteps unless kMulti), vec: h rows 16-byte aligned (H % 4 ==
+// 0).
 template <int kSl, bool kMulti>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
                     float* __restrict__ dwhh, int B, int T, int H, int G_arg, int S_arg,
-                    bool vec) {
+                    int C_arg, bool vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = 4 * kSl;  // rows of a group
   constexpr int kSteps = kSl == 1 ? 2 * kS : kS;
   const int G = kMulti ? G_arg : 1;
   const int S = kMulti ? S_arg : kSteps;
-  const int Bp = R * G;  // staged rows, B padded with zeros
+  const int C = kMulti ? C_arg : 1;
+  const int Bp = R * G;  // staged rows of a run (a chunk), padded with zeros
   const int H4 = 4 * H;
   const int i0 = blockIdx.x * kI, c0 = blockIdx.y * kC, d = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int runs = T > 1 ? (T - 1 + S - 1) / S : 0;
+  const int runs = T > 1 ? (T - 1 + S - 1) / S * C : 0;
   const int slabs = S * G * kSl;  // (step, group, slice) a run
 
   // [kStages staged runs: h (S, Bp, kHRow), da (S, Bp, kARow)] [kFrags
@@ -188,10 +211,17 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
     // converters: stage run r + 1 by cp.async while run r is turned into
     // fragments, a run ahead of the multiplying warps
     const int tc = tid - 32 * kMmaWarps, cw = tc >> 5;
+    // run -> (its steps, its chunk's rows lo .. hi - 1)
+    auto rows_of = [&](int run, int& lo, int& hi) {
+      lo = (run % C) * Bp;
+      hi = min(B, lo + Bp);
+    };
     auto start = [&](int run) {
       float* const h_s = smem + (run % kStages) * stage;
       float* const a_s = h_s + S * Bp * kHRow;
-      const int t_hi = T - 1 - run * S;
+      const int t_hi = T - 1 - run / C * S;
+      int lo, hi;
+      rows_of(run, lo, hi);
       // a run's rows of h (16 pieces of 4 floats) and da (8 pieces) for every
       // batch row: a thread's piece is its step and place in the row, its
       // rows every kRows-th
@@ -204,14 +234,15 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
           const int k = idx & 15, s = idx >> 4, t = t_hi - s, i = i0 + 4 * k;
           if (s >= S) continue;
           float* dst = h_s + (s * Bp + b0) * kHRow + 4 * k;
-          const float* src = hs + ((size_t)d * B + b0) * T * H + (ptrdiff_t)(t - 1) * H + i;
+          const float* src =
+              hs + ((size_t)d * B + lo + b0) * T * H + (ptrdiff_t)(t - 1) * H + i;
           const size_t step_b = (size_t)kRows * T * H;
           if (vec) {
             const bool ok = t >= 1 && i < H;
-            for (int b = b0; b < B; b += kRows, dst += kRows * kHRow, src += step_b)
+            for (int b = lo + b0; b < hi; b += kRows, dst += kRows * kHRow, src += step_b)
               cp_async16(dst, ok ? src : hs, ok ? 16 : 0);
           } else {
-            for (int b = b0; b < B; b += kRows, dst += kRows * kHRow, src += step_b) {
+            for (int b = lo + b0; b < hi; b += kRows, dst += kRows * kHRow, src += step_b) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
                 const bool ok = t >= 1 && i + e < H;
@@ -231,9 +262,9 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
           if (s >= S) continue;
           const bool ok = t >= 1 && c < H4;
           float* dst = a_s + (s * Bp + b0) * kARow + 4 * k;
-          const float* src = da + ((size_t)d * B + b0) * T * H4 + (ptrdiff_t)t * H4 + c;
+          const float* src = da + ((size_t)d * B + lo + b0) * T * H4 + (ptrdiff_t)t * H4 + c;
           const size_t step_b = (size_t)kRows * T * H4;
-          for (int b = b0; b < B; b += kRows, dst += kRows * kARow, src += step_b)
+          for (int b = lo + b0; b < hi; b += kRows, dst += kRows * kARow, src += step_b)
             cp_async16(dst, ok ? src : da, ok ? 16 : 0);
         }
       }
@@ -298,13 +329,27 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
           }
         }
       } else {
+        int lo, hi;
+        rows_of(run, lo, hi);
         int sb = 0;
         for (int s = 0; s < S; ++s)
           for (int grp = 0; grp < G; ++grp)
 #pragma unroll
             for (int sl = 0; sl < kSl; ++sl, ++sb) {
               const int r = grp * R + sl * 4;
-              if (r + q >= B) continue;
+              if (lo + r + q >= hi) {
+                // past B: zeros stand in a buffer that no chunk wrote
+                // before; in one an earlier chunk wrote, zeros are written
+                if (C > 1) {
+                  if (kind == 0) {
+                    fa[sb * 128] = 0u;
+                  } else {
+                    fb[sb * 256] = 0u;
+                    fb[sb * 256 + 32] = 0u;
+                  }
+                }
+                continue;
+              }
               if (kind == 0) {
                 const float* src = ha + (s * Bp + r) * kHRow;
                 fa[sb * 128] = bits(__floats2bfloat162_rn(src[0], src[8]));
@@ -335,9 +380,10 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
   constexpr int kAhead = 3;  // steps in flight beyond the one carried
   float sum[kAhead + 1][16];
   uint32_t a_regs[kAhead + 1][kSl][4];
+  // groups g0 .. g1 - 1 of step s chained into dst from zero
   auto issue = [&](const uint32_t* fa, uint32_t fb, int s, float (&dst)[16],
-                   uint32_t (&a)[kSl][4]) {
-    for (int grp = 0; grp < G; ++grp) {
+                   uint32_t (&a)[kSl][4], int g0, int g1) {
+    for (int grp = g0; grp < g1; ++grp) {
       // the step's A registers are written before wgmma.fence, and the
       // slices issued back to back
 #pragma unroll
@@ -352,7 +398,7 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
         // B: K-major, no swizzle; 128 bytes from slots 0-7 to 8-15 (LBO),
         // 256 from one n tile to the next (SBO)
         const uint64_t b = hopper::smem_desc(fb + slab * 1024, 128, 256, 0);
-        hopper::wgmma_rs<32, 0>(dst, a[sl], b, grp + sl > 0);
+        hopper::wgmma_rs<32, 0>(dst, a[sl], b, grp > g0 || sl > 0);
       }
     }
     hopper::wgmma_commit();
@@ -378,13 +424,13 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
     const uint32_t fb = frag_addr + 4 * (k * frag + slabs * 128);
     if (!kMulti) {
 #pragma unroll
-      for (int s = 0; s < kAhead; ++s) issue(fa, fb, s, sum[s], a_regs[s]);
+      for (int s = 0; s < kAhead; ++s) issue(fa, fb, s, sum[s], a_regs[s], 0, G);
 #pragma unroll
       for (int s = 0; s < kSteps; ++s) {
         constexpr int kSets = kAhead + 1;
         if (s + kAhead < kSteps) {
           const int next = (s + kAhead) % kSets;
-          issue(fa, fb, s + kAhead, sum[next], a_regs[next]);
+          issue(fa, fb, s + kAhead, sum[next], a_regs[next], 0, G);
           hopper::wgmma_wait<kAhead>();
         } else if (s + 2 < kSteps) {
           hopper::wgmma_wait<2>();
@@ -396,13 +442,34 @@ lstm_dw_bf16_kernel(const float* __restrict__ hs, const float* __restrict__ da,
         retire(a_regs[s % kSets]);
         carry(sum[s % kSets]);
       }
-    } else {
+    } else if (C == 1) {
       for (int s = 0; s < S; ++s) {
-        issue(fa, fb, s, sum[0], a_regs[0]);
+        issue(fa, fb, s, sum[0], a_regs[0], 0, G);
         hopper::wgmma_wait<0>();
         retire(a_regs[0]);
         carry(sum[0]);
       }
+    } else {
+      // one step a run, one chunk of its rows: the step's first chain sums
+      // into sum[0], each later one into sum[1] from zero, then added to
+      // sum[0] (f32, to nearest); the carry follows the last chunk
+      const int chunk = run % C;
+      for (int g0 = 0; g0 < G; g0 += kChainGroups) {
+        const int g1 = min(G, g0 + kChainGroups);
+        if (chunk == 0 && g0 == 0) {
+          issue(fa, fb, 0, sum[0], a_regs[0], g0, g1);
+          hopper::wgmma_wait<0>();
+          retire(a_regs[0]);
+        } else {
+          issue(fa, fb, 0, sum[1], a_regs[0], g0, g1);
+          hopper::wgmma_wait<0>();
+          retire(a_regs[0]);
+          hopper::fence_regs(sum[1]);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) sum[0][e] += sum[1][e];
+        }
+      }
+      if (chunk == C - 1) carry(sum[0]);
     }
     if (run + kFrags < runs) bar_arrive(kBarFree + k, kThreads);
   }
@@ -425,14 +492,14 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <int kSl, bool kMulti>
 int launch(const float* hs, const float* da, float* dwhh, int ndir, int B, int T, int H, int G,
-           int S, size_t smem, cudaStream_t stream) {
+           int S, int C, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(lstm_dw_bf16_kernel<kSl, kMulti>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + kI - 1) / kI, (4 * H + kC - 1) / kC, ndir);
   lstm_dw_bf16_kernel<kSl, kMulti><<<grid, kThreads, smem, stream>>>(
-      hs, da, dwhh, B, T, H, G, S, H % 4 == 0 && aligned16(hs));
+      hs, da, dwhh, B, T, H, G, S, C, H % 4 == 0 && aligned16(hs));
   return (int)cudaGetLastError();
 }
 
@@ -442,25 +509,30 @@ extern "C" {
 
 // hs (ndir, B, T, H) and da (ndir, B, T, 4H): contiguous f32 device pointers
 // on `device`, da 16-byte aligned; dwhh (ndir, H, 4H) f32, 16-byte aligned, is
-// written in full with bf16 values. Any H; B up to kMaxBatch (136, the
-// wrapper's DW_BF16_MAX_BATCH).
+// written in full with bf16 values. Any H, any B (past kChunkRows, 136 on an
+// H100, a step's rows in chunks).
 // One launch on `stream`; returns the first non-zero status, 0 on success.
 // Does not synchronise.
 int lstm_dw_bf16_f32(const void* hs, const void* da, void* dwhh, int ndir, int B, int T, int H,
                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0 || B > kMaxBatch)
-    return (int)cudaErrorInvalidValue;
+  if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (!(aligned16(da) && aligned16(dwhh))) return (int)cudaErrorMisalignedAddress;
   int smem_optin = 0;
   if ((err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                     device)))
     return (int)err;
+  // groups of 8 rows: all in one run, or in C chunks of Gc groups each when
+  // one step's rows do not fit (then one step a run)
   const int G = B <= 8 ? 1 : (B + 7) / 8;
-  const int Bp = B <= 4 ? 4 : 8 * G;
+  const int fit = smem_optin / kRowBytes / 8;
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  const int C = G > fit ? (G + fit - 1) / fit : 1;
+  const int Gc = (G + C - 1) / C;
+  const int Bp = B <= 4 ? 4 : 8 * Gc;
   const int steps = B <= 4 ? 2 * kS : kS;  // kSteps of the instance
-  int S = steps;
+  int S = C > 1 ? 1 : steps;
   while (S > 1 && (size_t)S * Bp * kRowBytes > (size_t)smem_optin) S >>= 1;
   const size_t smem = (size_t)S * Bp * kRowBytes;
   if (smem > (size_t)smem_optin || (B <= 8 && S != steps)) return (int)cudaErrorInvalidValue;
@@ -468,9 +540,9 @@ int lstm_dw_bf16_f32(const void* hs, const void* da, void* dwhh, int ndir, int B
   auto a = static_cast<const float*>(da);
   auto w = static_cast<float*>(dwhh);
   auto s = static_cast<cudaStream_t>(stream);
-  if (B <= 4) return launch<1, false>(h, a, w, ndir, B, T, H, G, S, smem, s);
-  if (B <= 8) return launch<2, false>(h, a, w, ndir, B, T, H, G, S, smem, s);
-  return launch<2, true>(h, a, w, ndir, B, T, H, G, S, smem, s);
+  if (B <= 4) return launch<1, false>(h, a, w, ndir, B, T, H, Gc, S, C, smem, s);
+  if (B <= 8) return launch<2, false>(h, a, w, ndir, B, T, H, Gc, S, C, smem, s);
+  return launch<2, true>(h, a, w, ndir, B, T, H, Gc, S, C, smem, s);
 }
 
 const char* lstm_dw_bf16_error_string(int code) {

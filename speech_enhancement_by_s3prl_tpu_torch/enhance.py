@@ -1,11 +1,17 @@
 """Batch enhancement CLI (counterpart of the repository's ``enhance.py``).
 
-Loads a trained ``from_rawfeature`` downstream checkpoint and enhances WAV
-and FLAC files: decode -> bucketed batches on the device (STFT, model, iSTFT with
-the noisy phase, level renorm) -> 16-bit WAV out. A file longer than the 30 s
-bucket ceiling is enhanced in crossfaded windows of that length.
+Loads a trained downstream checkpoint (``--ckpt``) or an exported artifact
+(``--artifact``, ``tools/export_model.py``) and enhances WAV and FLAC files:
+decode -> bucketed batches on the device (STFT, model, iSTFT with the noisy
+phase, level renorm) -> 16-bit WAV out. A file longer than the largest bucket
+(the 30 s ceiling of ``--ckpt``; an artifact's largest) is enhanced in
+crossfaded windows of that length. An artifact bakes its export-time level and
+pretraining checkpoints in: ``--target_level``, ``--upstream_ckpt`` and
+``--dckpt`` are refused with it.
 
   python -m speech_enhancement_by_s3prl_tpu_torch.enhance --ckpt result/exp1 \\
+      --inputs 'noisy/*.wav' --outdir enhanced/
+  python -m speech_enhancement_by_s3prl_tpu_torch.enhance --artifact result/art \\
       --inputs 'noisy/*.wav' --outdir enhanced/
 
 It runs on the card unless ``--device cpu`` asks for the CPU, as
@@ -36,7 +42,7 @@ def find_audio_files(root: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", required=True, help="checkpoint file or dir")
+    ap.add_argument("--ckpt", default="", help="checkpoint file or dir (or --artifact)")
     ap.add_argument("--upstream_ckpt", default="",
                     help="relocated S3PRL pretraining checkpoint that records "
                          "the STFT geometry")
@@ -47,32 +53,44 @@ def main(argv=None):
     ap.add_argument("--outdir", default="enhanced")
     ap.add_argument("--batch_size", type=int, default=16)
     ap.add_argument("--sample_rate", type=int, default=16000)
-    ap.add_argument("--target_level", type=float, default=-25.0,
-                    help="output level in dB")
+    ap.add_argument("--target_level", type=float, default=None,
+                    help="output level in dB (default -25; an artifact bakes its "
+                         "export-time level in, so the flag is refused with --artifact)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on: cuda (the default; raises "
                          "when there is no CUDA device) or cpu")
     ap.add_argument("--artifact", default="",
-                    help="the exported serving program is not ported yet: the part of "
-                         "ROADMAP A15 left (pretraining, the S3PRL export and the "
-                         "experiment tools are ported, under tools/)")
+                    help="exported artifact directory (tools/export_model.py) in place "
+                         "of a checkpoint")
     ap.add_argument("--mesh", type=int, default=0,
                     help="multi-device serving is not ported yet (ROADMAP A12)")
     args = ap.parse_args(argv)
-    if args.artifact:
-        ap.error("--artifact is not ported yet (ROADMAP A15)")
+    if bool(args.ckpt) == bool(args.artifact):
+        ap.error("pass exactly one of --ckpt / --artifact")
+    if args.artifact and args.target_level is not None:
+        ap.error("--target_level is baked into the artifact at export time (re-export "
+                 "with tools/export_model.py to change it)")
+    if args.artifact and (args.upstream_ckpt or args.dckpt):
+        ap.error("--upstream_ckpt/--dckpt are resolved at export time (pass them to "
+                 "tools/export_model.py instead)")
     if args.mesh:
         ap.error("--mesh is not ported yet (ROADMAP A12)")
 
-    from .serve import build_enhancer
+    from .serve import build_artifact_enhancer, build_enhancer
 
     # offline CLI: fixed --batch_size chunks, no power-of-two row rounding,
-    # and a 30 s bucket ceiling (longer files stream in crossfaded windows)
-    enhancer = build_enhancer(
-        args.ckpt, args.sample_rate, args.target_level, device=args.device,
-        max_bucket_ms=30000, round_pow2=False,
-        upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
-    )
+    # and (for a checkpoint) a 30 s bucket ceiling; longer files stream in
+    # crossfaded windows
+    if args.artifact:
+        enhancer = build_artifact_enhancer(args.artifact, args.sample_rate,
+                                           device=args.device, round_pow2=False)
+    else:
+        enhancer = build_enhancer(
+            args.ckpt, args.sample_rate,
+            -25.0 if args.target_level is None else args.target_level, device=args.device,
+            max_bucket_ms=30000, round_pow2=False,
+            upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
+        )
 
     if os.path.isdir(args.inputs):
         files = find_audio_files(args.inputs)

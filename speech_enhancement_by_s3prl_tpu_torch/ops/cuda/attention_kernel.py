@@ -58,6 +58,18 @@ counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
 and the 8-byte salt, never a mask. ``flash_attention`` routes to it when a
 gradient is needed and to B3 fwd alone otherwise.
 
+The kernels are instantiated for head widths 32, 64 and 128 (``HEAD_DIMS``).
+A narrower head, or one between two of them, runs the next instance up: the
+wrapper zero-pads each head of q, k and v to that width (``instance_width``,
+``pad_heads``; 16 -> 32, 48 -> 64, 96 -> 128), keeps the caller's ``scale``
+(1 / sqrt(D) of the true D), and cuts the padded columns off out and off dq,
+dk and dv (``unpad_heads``). That is exact: the added products are zeros, and
+the dropout hash depends on (batch, head, query, key), never on D. A head
+wider than 128 raises: the f32 backward's tiles at 256 (two resident 64 x 260
+and two stages of two walked 32 x 260 f32 tiles, 266,752 bytes) exceed the
+232,448 bytes of shared memory a block may use, so such a width needs another
+tiling, not another instance (``ROADMAP.md`` C7).
+
 Layout is the JAX kernel's: q, k, v are (B, T, N * D), straight from the fused
 QKV projection (views with a shared row stride are taken as they are), head n
 in columns n * D .. n * D + D - 1; ``kbias`` is (B, T) f32; ``salt`` is two
@@ -90,7 +102,8 @@ PHI2 = 2246822519
 PHI3 = 3266489917
 PHI4 = 40503
 _MASK32 = 0xFFFFFFFF
-# head widths the CUDA kernels are instantiated for
+# head widths the CUDA kernels are instantiated for; a narrower head runs the
+# next one up on zero-padded heads (``instance_width``)
 HEAD_DIMS = (32, 64, 128)
 # keys a tile of B3 fwd bf16's online softmax (csrc/flash_attn.cu, kFwdK)
 FWD_BF16_KEYS = 64
@@ -137,6 +150,39 @@ def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _merge(x: torch.Tensor) -> torch.Tensor:
     B, N, T, D = x.shape
     return x.transpose(1, 2).reshape(B, T, N * D)
+
+
+def instance_width(d: int) -> int:
+    """The head width of the kernel instance a head of width ``d`` runs on a
+    CUDA tensor: the narrowest of ``HEAD_DIMS`` at least ``d``. Raises above
+    the widest (the module docstring says why)."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"the CUDA flash kernels take head widths up to {HEAD_DIMS[-1]}, "
+                     f"got {d}")
+
+
+def pad_heads(x: torch.Tensor, n_heads: int, width: int) -> torch.Tensor:
+    """(B, T, N * D) -> (B, T, N * width), contiguous: each head's D columns
+    followed by ``width - D`` zeros."""
+    B, T, H = x.shape
+    heads = x.reshape(B, T, n_heads, H // n_heads)
+    return torch.nn.functional.pad(heads, (0, width - H // n_heads)).reshape(
+        B, T, n_heads * width)
+
+
+def unpad_heads(x: torch.Tensor, n_heads: int, d: int) -> torch.Tensor:
+    """(B, T, N * width) -> (B, T, N * d), contiguous: each head's first
+    ``d`` columns (``pad_heads`` undone)."""
+    B, T, _ = x.shape
+    return x.reshape(B, T, n_heads, -1)[..., :d].reshape(B, T, n_heads * d)
+
+
+def _padded_width(q, n_heads):
+    """(D, the instance width) of a CUDA launch on q (B, T, N * D)."""
+    D = q.shape[-1] // n_heads
+    return D, instance_width(D)
 
 
 def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
@@ -351,7 +397,8 @@ def _kernel_layout(q, k, v, kbias, n_heads):
     B, T, H = q.shape
     D = H // n_heads
     if D not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels take head width {HEAD_DIMS}, got {D}")
+        raise ValueError(f"the CUDA flash kernels are instantiated for head widths "
+                         f"{HEAD_DIMS}, got {D}")
     strides = {t.stride() for t in (q, k, v)}
     if len(strides) != 1 or q.stride(2) != 1:
         raise ValueError(
@@ -381,7 +428,8 @@ def _bf16_layout(q, k, v, kbias, n_heads):
     B, T, H = q.shape
     D = H // n_heads
     if D not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels take head width {HEAD_DIMS}, got {D}")
+        raise ValueError(f"the CUDA flash kernels are instantiated for head widths "
+                         f"{HEAD_DIMS}, got {D}")
     ops = tuple(x if tma_ready(x.data_ptr(), x.stride(), x.element_size())
                 else x.clone(memory_format=torch.contiguous_format) for x in (q, k, v))
     strides = [s for x in ops for s in x.stride()[:2]]
@@ -450,6 +498,11 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
         raise ValueError(f"flash_attention_fwd_bf16 takes bf16 q, k, v, got {q.dtype}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+    D, width = _padded_width(q, n_heads)
+    if width != D:
+        out, lse = flash_attention_fwd_bf16(*(pad_heads(x, n_heads, width) for x in (q, k, v)),
+                                            scale, rate, salt, kbias, batch0, n_heads=n_heads)
+        return unpad_heads(out, n_heads, D), lse
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
@@ -470,6 +523,11 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
 def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+    D, width = _padded_width(q, n_heads)
+    if width != D:
+        out, lse = _fwd(*(pad_heads(x, n_heads, width) for x in (q, k, v)), scale, rate, salt,
+                        kbias, batch0, n_heads)
+        return unpad_heads(out, n_heads, D), lse
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
@@ -512,6 +570,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
                                        batch0, n_heads=n_heads)
+    D, width = _padded_width(q, n_heads)
+    if width != D:
+        return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd(
+            *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
+            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
+            n_heads=n_heads))
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs contiguous out, dout and lse")
@@ -547,6 +611,12 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
                                        batch0, n_heads=n_heads)
+    D, width = _padded_width(q, n_heads)
+    if width != D:
+        return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd_bf16(
+            *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
+            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
+            n_heads=n_heads))
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_bf16 needs contiguous out, dout and lse")

@@ -31,7 +31,9 @@ against the plain version and the JAX package; the kernel is a transcription
 of it.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
-raises; nothing falls back.
+raises; nothing falls back. The choice is the dispatcher's: ``decode_ola``
+calls the op ``se_torch::decode`` (``ops/cuda/library.py``), whose CPU kernel
+is the plain version and whose CUDA kernel is ``_decode_cuda``.
 """
 from __future__ import annotations
 
@@ -215,8 +217,16 @@ def decode_ola(pred: torch.Tensor, uph: torch.Tensor, n_fft: int, win_length: in
         raise RuntimeError(
             "decode_ola is forward-only: take istft(..., fused=False) where the "
             "decode sits in a gradient")
-    if pred.device.type == "cpu":
-        return decode_ola_ref(pred, uph, n_fft, win_length, hop, linear_power)
+    from .library import decode
+
+    return decode(pred, uph, n_fft, win_length, hop, float(linear_power))
+
+
+def _decode_cuda(pred: torch.Tensor, uph: torch.Tensor, n_fft: int, win_length: int,
+                 hop: int, linear_power: float) -> torch.Tensor:
+    """B5 on CUDA tensors: the kernel ``decode_route(n_fft)`` names, one
+    launch and its counts (zeros and none for B = 0 or T' = 0). The CUDA
+    kernel of the op ``se_torch::decode``."""
     B, T, _ = pred.shape
     K = -(-n_fft // hop)
     out = torch.empty((B, (T + K - 1) * hop), device=pred.device, dtype=torch.float32)

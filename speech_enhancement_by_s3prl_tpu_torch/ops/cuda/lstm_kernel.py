@@ -91,7 +91,11 @@ back (``_lstm_bidir_tm_bwd``'s ``dout.astype(hs_tm.dtype)``). The forms are
 arguments here; ``models/lstm.py`` reads the JAX package's variables.
 
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
-raises; nothing falls back.
+raises; nothing falls back. For B1's stateless call the choice is the
+dispatcher's: ``lstm_bidir_tm`` calls the op ``se_torch::lstm_recurrence``
+(``ops/cuda/library.py``), whose CPU kernel is the plain version and whose
+CUDA kernel is ``_b1_cuda``; a carried state stays outside the op (the
+streamer's chunks are not exported).
 """
 from __future__ import annotations
 
@@ -208,6 +212,43 @@ def split_bf16x3(x: torch.Tensor):
     return hi, mid, (x - hi) - mid
 
 
+# the most batch rows lstm_dw_bf16_f32 stages for one step at once: per row two
+# staged runs of h and da (2 * 4 * (72 + 40) bytes, padded rows) and two
+# buffers of its fragments (2 * 384 bytes), within the 232,448 bytes a block of
+# an H100 may use, in groups of 8 rows (kChunkRows in lstm_dw_bf16.cu); a
+# larger batch takes its rows in chunks (``dw_bf16_chunks``)
+DW_BF16_CHUNK_ROWS = 232448 // (2 * 4 * (72 + 40) + 2 * 384) // 8 * 8
+# past one chunk, the most rows a wgmma chain of a step's sum takes
+# (kChainGroups groups of 8 in lstm_dw_bf16.cu)
+DW_BF16_CHAIN_ROWS = 32
+
+
+def dw_bf16_chunks(batch: int):
+    """The row ranges ``lstm_dw_bf16.cu`` stages a step's rows in, as
+    ``lstm_dw_bf16_f32`` cuts them: all rows in one chunk up to
+    ``DW_BF16_CHUNK_ROWS``, else the ceil(B / 8) groups of 8 rows in the
+    fewest chunks of at most that many rows, each of ceil(groups / chunks)
+    groups (the last one ragged). Every chunk starts on a group of 8 rows, so
+    on a K slice of 4."""
+    groups = -(-batch // 8)
+    fit = DW_BF16_CHUNK_ROWS // 8
+    chunks = -(-groups // fit) if groups > fit else 1
+    rows = 8 * -(-groups // chunks)
+    return [(lo, min(batch, lo + rows)) for lo in range(0, batch, rows)] if chunks > 1 \
+        else [(0, batch)]
+
+
+def dw_bf16_chains(batch: int):
+    """The row ranges of the kernel's wgmma chains of a step's sum: one chain
+    over all rows within one chunk, else each chunk of ``dw_bf16_chunks`` in
+    chains of ``DW_BF16_CHAIN_ROWS`` rows (a chunk's last one shorter)."""
+    chunks = dw_bf16_chunks(batch)
+    if len(chunks) == 1:
+        return chunks
+    return [(a, min(hi, a + DW_BF16_CHAIN_ROWS)) for lo, hi in chunks
+            for a in range(lo, hi, DW_BF16_CHAIN_ROWS)]
+
+
 def lstm_bidir_tm_dw_bf16_model(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     """The algorithm of ``lstm_dw_bf16.cu`` in PyTorch, for the CPU tests:
     what ``lstm_bidir_tm_dw_bf16_ref`` computes, with the step product taken
@@ -216,8 +257,14 @@ def lstm_bidir_tm_dw_bf16_model(hs: torch.Tensor, da: torch.Tensor) -> torch.Ten
     rows go in K slices of 4 (zero rows pad the last), each slice's exact sum
     is added to the step's f32 sum with one rounding (the kernel's wgmma chain,
     a slice at a time), and the carry adds bf16 pairs with one rounding,
-    acc = bf16(acc + bf16(p)). hs (ndir, B, T, H), da (ndir, B, T, 4H) f32 ->
-    (ndir, H, 4H) f32 holding bf16 values."""
+    acc = bf16(acc + bf16(p)). Past ``DW_BF16_CHUNK_ROWS`` rows the step's
+    rows go in the chains of ``dw_bf16_chains``: the first chain is the
+    step's sum, each later one starts from zero and is added to it with one
+    rounding. (The tensor cores' f32 accumulation itself is not
+    round-to-nearest, so the kernel's bits are this model's only where no
+    sum lost a bit there: past one chunk this is the kernel's order, not a
+    bit-for-bit reference.) hs (ndir, B, T, H), da (ndir, B,
+    T, 4H) f32 -> (ndir, H, 4H) f32 holding bf16 values."""
     B, T = hs.shape[-3], hs.shape[-2]
     acc = torch.zeros(hs.shape[:-3] + (hs.shape[-1], da.shape[-1]), dtype=torch.float32,
                       device=hs.device)
@@ -227,10 +274,14 @@ def lstm_bidir_tm_dw_bf16_model(hs: torch.Tensor, da: torch.Tensor) -> torch.Ten
     terms = torch.stack(split_bf16x3(da[..., 1:, :]), dim=-2).double()  # (.., B, T-1, 3, 4H)
     step = torch.zeros(acc.shape[:-2] + (T - 1,) + acc.shape[-2:], dtype=torch.float32,
                        device=hs.device)
-    for b0 in range(0, B, 4):
-        rows = slice(b0, min(b0 + 4, B))
-        part = torch.einsum("...btk,...btjn->...tkn", h[..., rows, :, :], terms[..., rows, :, :, :])
-        step = (step.double() + part).float()
+    for c, (lo, hi) in enumerate(dw_bf16_chains(B)):
+        chain = torch.zeros_like(step)
+        for b0 in range(lo, hi, 4):
+            rows = slice(b0, min(b0 + 4, hi))
+            part = torch.einsum("...btk,...btjn->...tkn", h[..., rows, :, :],
+                                terms[..., rows, :, :, :])
+            chain = (chain.double() + part).float()
+        step = chain if c == 0 else step + chain
     for tt in range(T - 2, -1, -1):
         acc = _bf16(acc + _bf16(step[..., tt, :, :]))
     return acc
@@ -590,18 +641,30 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
                 "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
         # the widening's backward rounds the dh cotangent to the residuals' dtype
         return LstmBidirTm.apply(xw, w_hh_t, h_bf16, res_dtype).float()
-    if hs_dtype != torch.float32 and (state is not None or return_state):
+    if state is None and not return_state:
+        from .library import lstm_recurrence
+
+        return lstm_recurrence(xw, w_hh_t, h_bf16, hs_dtype == torch.bfloat16).float()
+    if hs_dtype != torch.float32:
         raise ValueError("lstm_bidir_tm: a carried state runs with f32 hs")
     if xw.device.type == "cpu":
-        out = lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
-        return out if return_state else out.float()
+        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+    return _b1_cuda(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+
+
+def _b1_cuda(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None, return_state: bool = False,
+             h_bf16: bool = False, hs_dtype: torch.dtype = torch.float32):
+    """B1 on checked CUDA tensors: the kernel of route ``fwd_route(H)``, one
+    launch and its counts (none for B = 0 or T = 0); hs in ``hs_dtype``, or
+    (hs, (hT, cT)) with ``return_state``. Stateless, it is the CUDA kernel of
+    the op ``se_torch::lstm_recurrence``."""
     if state is not None:
         state = tuple(t.contiguous() for t in state)
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
     if B == 0 or T == 0:
-        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=torch.float32)
+        hs = torch.empty((ndir, B, T, h4 // 4), device=xw.device, dtype=hs_dtype)
         return (hs, _final_state(hs, hs, state)) if return_state else hs
     route = fwd_route(h4 // 4)
     out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state,
@@ -612,7 +675,7 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
     lstm_bidir_tm.h_bf16 += h_bf16
     lstm_bidir_tm.xw_bf16 += xw.dtype == torch.bfloat16
     lstm_bidir_tm.hs_bf16 += hs_dtype == torch.bfloat16
-    return out if return_state else out.float()
+    return out
 
 
 def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False,
@@ -775,21 +838,15 @@ def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     return dxw, dw
 
 
-# rows lstm_dw_bf16_f32 takes: runs of one step in shared memory, per batch
-# row two staged runs of h and da (2 * 4 * (72 + 40) bytes, padded rows) and
-# two buffers of its fragments (2 * 384 bytes), within the 232,448 bytes a
-# block of an H100 may use, in groups of 8 rows (kMaxBatch in lstm_dw_bf16.cu)
-DW_BF16_MAX_BATCH = 232448 // (2 * 4 * (72 + 40) + 2 * 384) // 8 * 8
-
-
 def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     """The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H)
     (the bf16-h backward's dxw), f32 -> dw_hh_t (ndir, H, 4H) f32 holding
     bf16 values, summed step by step in bf16 as the JAX package's reverse
     scan sums it (``lstm_bidir_tm_dw_bf16_ref``). On a CUDA tensor the kernel
-    ``lstm_dw_bf16_kernel`` of ``lstm_dw_bf16.cu`` (any H, B up to
-    ``DW_BF16_MAX_BATCH``; deterministic; its step sums in the tensor cores'
-    order, ``lstm_bidir_tm_dw_bf16_model``), counted in
+    ``lstm_dw_bf16_kernel`` of ``lstm_dw_bf16.cu`` (any H and B, past
+    ``DW_BF16_CHUNK_ROWS`` rows a step's rows in chunks; deterministic; its
+    step sums in the tensor cores' order, ``lstm_bidir_tm_dw_bf16_model``),
+    counted in
     ``lstm_bidir_tm_dw_bf16.launches``; on a CPU tensor the plain version."""
     if hs.dim() != 4 or da.dim() != 4 or da.shape[:3] != hs.shape[:3] or \
             da.shape[-1] != 4 * hs.shape[-1]:
@@ -802,9 +859,6 @@ def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     if not (hs.is_contiguous() and da.is_contiguous()):
         raise ValueError("lstm_bidir_tm_dw_bf16 needs contiguous inputs")
     ndir, B, T, H = hs.shape
-    if B > DW_BF16_MAX_BATCH:
-        raise ValueError(f"lstm_bidir_tm_dw_bf16 takes at most {DW_BF16_MAX_BATCH} rows on a "
-                         f"CUDA tensor, got {B}")
     dw = torch.empty((ndir, H, 4 * H), device=hs.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return dw.zero_()

@@ -27,7 +27,9 @@ The CPU tests hold the model against the plain version and the JAX package;
 the kernel is a transcription of it.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
-raises; nothing falls back.
+raises; nothing falls back. The choice is the dispatcher's: ``stft_fused``
+calls the op ``se_torch::stft`` (``ops/cuda/library.py``), whose CPU kernel is
+the plain version and whose CUDA kernel is ``_stft_cuda``.
 """
 from __future__ import annotations
 
@@ -258,18 +260,27 @@ def stft_fused(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) -> tor
         raise ValueError(
             f"the reflect padding of {n_fft // 2} samples needs more than that "
             f"many input samples, got {time}")
-    if wavs.device.type == "cpu":
-        return stft_fused_ref(wavs, n_fft, win_length, hop)
-    lead = wavs.shape[:-1]
-    x = wavs.reshape(-1, time).contiguous()
-    n_frames, n_out = 1 + time // hop, 2 * (n_fft // 2 + 1)
+    from .library import stft
+
+    if wavs.dim() == 2:
+        return stft(wavs, n_fft, win_length, hop)
+    out = stft(wavs.reshape(-1, time), n_fft, win_length, hop)
+    return out.reshape(wavs.shape[:-1] + out.shape[1:])
+
+
+def _stft_cuda(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) -> torch.Tensor:
+    """B4 on CUDA rows (N, time): the kernel ``stft_route(n_fft)`` names, one
+    launch and its counts (none for N = 0). The CUDA kernel of the op
+    ``se_torch::stft``."""
+    x = wavs.contiguous()
+    n_frames, n_out = 1 + x.shape[1] // hop, 2 * (n_fft // 2 + 1)
     out = torch.empty((x.shape[0], n_frames, n_out), device=x.device, dtype=torch.float32)
     if x.shape[0]:
         route = stft_route(n_fft)
         _launch(route, x, out, n_fft, win_length, hop)
         stft_fused.launches += 1
         stft_fused.by_route[route] += 1
-    return out.reshape(lead + (n_frames, n_out))
+    return out
 
 
 # kernel launches since the last reset, and the same by kernel

@@ -283,15 +283,27 @@ def _ola_envelope_np(n_fft: int, win_length: int, hop: int, n_frames: int):
     return out.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
 def _ola_divisor(n_fft: int, win_length: int, hop: int, n_frames: int,
                  device: torch.device) -> torch.Tensor:
     """What ``istft`` divides the trimmed overlap-add by: the window-square
     envelope over samples ``n_fft // 2`` .. ``n_fft // 2 + (n_frames - 1) *
     hop``, 1 where it is below 1e-11. Built once per geometry, length and
     device (not copied to the card on every call), outside inference mode,
-    so that autograd may save it later."""
+    so that autograd may save it later. While a graph is traced
+    (``torch.export``) it is built afresh, a constant of that graph: a cache
+    entry made then would hold the tracer's tensor, not one an eager call
+    can read."""
+    if torch.compiler.is_compiling():
+        return _ola_divisor_tensor(n_fft, win_length, hop, n_frames, device)
+    return _ola_divisor_cached(n_fft, win_length, hop, n_frames, device)
+
+
+def _ola_divisor_tensor(n_fft: int, win_length: int, hop: int, n_frames: int,
+                        device: torch.device) -> torch.Tensor:
     start = n_fft // 2
     env = _ola_envelope_np(n_fft, win_length, hop, n_frames)[start : start + (n_frames - 1) * hop]
     with torch.inference_mode(False):
         return torch.from_numpy(np.where(env > 1e-11, env, np.float32(1.0))).to(device)
+
+
+_ola_divisor_cached = functools.lru_cache(maxsize=64)(_ola_divisor_tensor)

@@ -16,12 +16,19 @@ the served totals. The server runs on the card unless ``--device cpu`` (or
 > 1 handles requests concurrently and coalesces concurrent ``/enhance``
 requests of one duration bucket into one device batch (``MicroBatcher``);
 ``--fixed_batch`` pads every group to ``--max_batch`` rows, so a response
-does not depend on its co-riders by a bit. ``--mesh`` (ROADMAP A12) and
-``--artifact`` are not ported and are refused; the exported serving program
-is the part of A15 left (its pretraining, S3PRL export and experiment tools
-are ported, under ``tools/``).
+does not depend on its co-riders by a bit. ``--artifact <dir>`` serves an
+exported program (``tools/export_model.py``, ``utils/export_artifact.py``) in
+place of ``--ckpt``: one ``torch.export`` program per duration bucket, the
+weights and the export-time ``--target_level`` baked in, a symbolic batch; it
+needs no checkpoint and no model code, only torch, the port's op library
+(``ops/cuda/library.py``) and, on the card, its kernels built from ``csrc/``
+(``build_artifact_enhancer``). With ``--artifact``, ``--target_level``,
+``--upstream_ckpt`` / ``--dckpt`` and ``--fixed_batch`` are refused (they are
+export-time choices or need the checkpoint) and ``/stream`` answers 400.
+``--mesh`` (ROADMAP A12) is not ported and is refused.
 
-``build_enhancer(ckpt, device=...)`` returns ``enhance(wav) -> wav`` with
+``build_enhancer(ckpt, device=...)`` (or ``build_artifact_enhancer(dir,
+sample_rate, device=...)``) returns ``enhance(wav) -> wav`` with
 ``.run_batch(list_of_wavs)``: requests are padded to a duration bucket and
 run as one batch (STFT -> [upstream ->] head -> iSTFT with the noisy phase ->
 level renorm). It serves the checkpoints of all three training modes:
@@ -56,6 +63,7 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import use_full_fp32
 from .data.loader import bucket_length, default_buckets
@@ -137,12 +145,60 @@ class MicroBatcher:
                         ev.set()
 
 
+class RawEnhancer(nn.Module):
+    """``forward(wavs (B, T) f32, lengths (B,) int)`` -> the enhanced (B, T)
+    f32: features of the noisy waveform (``preprocessor``), [the frozen
+    ``upstream`` ->] the head's predicted power spectrum, iSTFT with the noisy
+    phase brought to T samples, renorm to ``target_level`` dB over each row's
+    length (``runner/trainer.decode_wav``). ``mode`` is
+    "rawfeature", "waveform" (the head reads the upstream-input feature) or
+    "upstream". The preprocessor is a plain object: its filterbanks and DFT
+    tables are numpy constants, which ``torch.export`` takes into the
+    program as constants of its own.
+
+    ``forward`` is what ``utils/export_artifact.export_enhance`` exports,
+    under ``no_grad``; ``enhance_raw`` is the eager call, under inference
+    mode, so that the recurrence, the STFT and the decode run their kernels
+    (B1, B4, B5) and no autograd graph is recorded. ``stream_ctx`` is what a
+    ``StatefulStreamer`` is built from."""
+
+    def __init__(self, preprocessor, model: nn.Module, upstream, mode: str,
+                 target_level: float):
+        super().__init__()
+        self.preprocessor = preprocessor
+        self.model = model
+        self.upstream = upstream
+        self.mode = mode
+        self.target_level = float(target_level)
+
+    def forward(self, wavs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        up_feat, down_feat, linear_inp, phase_inp, *_ = self.preprocessor(wavs[:, None, :])
+        if self.upstream is not None:
+            features = self.upstream(up_feat)
+        else:
+            features = up_feat if self.mode == "waveform" else down_feat
+        predicted, _ = self.model(features, linear_inp)
+        return decode_wav(self.preprocessor, predicted, phase_inp, lengths, wavs.shape[-1],
+                          self.target_level)
+
+    @torch.inference_mode()
+    def enhance_raw(self, wavs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        return self(wavs, lengths)
+
+    @property
+    def stream_ctx(self) -> dict:
+        return {"model": self.model, "preprocessor": self.preprocessor, "mode": self.mode,
+                "device": next(self.model.parameters()).device}
+
+
 def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
                        device, max_bucket_ms: int = 60000,
                        upstream_ckpt: str = "", dckpt: str = ""):
-    """Checkpoint -> (model, enhance_raw(wavs (B, T), lengths (B,)),
-    buckets), with the model on ``device``. ``upstream_ckpt`` / ``dckpt``
-    relocate the pretraining checkpoints recorded in the settings."""
+    """Checkpoint -> (model, ``RawEnhancer``, buckets), both modules on
+    ``device`` in eval mode: the head, the enhancer around it (its
+    ``enhance_raw(wavs (B, T), lengths (B,))``) and the duration buckets.
+    ``upstream_ckpt`` / ``dckpt`` relocate the pretraining checkpoints
+    recorded in the settings."""
     payload = load_checkpoint(ckpt)
     paras = dict(payload["Settings"]["Paras"])
     config = payload["Settings"]["Config"]
@@ -224,23 +280,8 @@ def build_raw_enhancer(ckpt: str, sample_rate: int, target_level: float,
                        **{**paras, **model_cfg})
     model.load_state_dict(flax_to_state_dict(payload["Downstream"]))
     model.eval().to(device)
-    buckets = default_buckets(sample_rate, max_bucket_ms)
-
-    @torch.inference_mode()
-    def enhance_raw(wavs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        up_feat, down_feat, linear_inp, phase_inp, *_ = pre(wavs[:, None, :])
-        if upstream is not None:
-            features = upstream(up_feat)
-        else:
-            features = up_feat if mode == "waveform" else down_feat
-        predicted, _ = model(features, linear_inp)
-        return decode_wav(pre, predicted, phase_inp, lengths, wavs.shape[-1],
-                          target_level)
-
-    # what the live /stream endpoint builds its StatefulStreamer from
-    enhance_raw.stream_ctx = {"model": model, "preprocessor": pre, "mode": mode,
-                              "device": device}
-    return model, enhance_raw, buckets
+    raw = RawEnhancer(pre, model, upstream, mode, target_level).eval()
+    return model, raw, default_buckets(sample_rate, max_bucket_ms)
 
 
 def _pad_group(wavs, buckets, batch_round: int = 1, round_pow2: bool = True):
@@ -304,11 +345,8 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
     the products of other row counts may sum in another order (at most one
     16-bit step after quantization); the price of ``fixed_rows`` is the full
     batch's compute for every group."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_enhancer(device='cuda'): no CUDA device here")
-    use_full_fp32()
-    model, enhance_raw, buckets = build_raw_enhancer(
+    device = _serving_device(device, "build_enhancer")
+    model, raw, buckets = build_raw_enhancer(
         ckpt, sample_rate, target_level, device, max_bucket_ms,
         upstream_ckpt=upstream_ckpt, dckpt=dckpt,
     )
@@ -319,23 +357,73 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
     round_pow2 = round_pow2 and not fixed_rows
 
     def run_batch(wavs) -> list:
-        for w in wavs:
-            if len(w) > buckets[-1]:
-                raise ValueError(
-                    f"a row of {len(w)} samples is longer than the largest "
-                    f"bucket ({buckets[-1]}): run_batch serves bucket-sized "
-                    "groups; enhance(wav) streams a longer request"
-                )
+        _check_rows(wavs, buckets)
         batch, lens = _pad_group(wavs, buckets, batch_round, round_pow2)
-        out = enhance_raw(
+        out = raw.enhance_raw(
             torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device)
         ).cpu().numpy()
         return [out[k, : len(w)] for k, w in enumerate(wavs)]
 
     enhance = _finish_enhancer(run_batch, buckets, sample_rate)
     enhance.model = model
-    enhance.stream_ctx = enhance_raw.stream_ctx
+    enhance.stream_ctx = raw.stream_ctx
     return enhance
+
+
+def _serving_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device, with f32 products in full f32 on the
+    card; ``"cuda"`` with no card raises (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): no CUDA device here")
+    use_full_fp32()
+    return device
+
+
+def _check_rows(wavs, buckets):
+    for w in wavs:
+        if len(w) > buckets[-1]:
+            raise ValueError(
+                f"a row of {len(w)} samples is longer than the largest "
+                f"bucket ({buckets[-1]}): run_batch serves bucket-sized "
+                "groups; enhance(wav) streams a longer request"
+            )
+
+
+def build_artifact_enhancer(artifact_dir: str, sample_rate: int = 16000, *, device,
+                            round_pow2: bool = True):
+    """``enhance(wav)`` served from an exported artifact
+    (``tools/export_model.py``) on ``device``: the interface of
+    ``build_enhancer``, with no checkpoint and no model code behind it. The
+    programs (``utils/export_artifact.load_enhance``) are moved to ``device``
+    when they were exported on another, where the card's torch can; else a
+    mismatch is refused. Requests pad into the manifest's buckets
+    (``_pad_group``; the batch is symbolic, so one program serves every row
+    count), a longer one streams in crossfaded windows of the largest
+    (``_finish_enhancer``). Refuses a manifest of another sample rate: the
+    programs' STFT geometry and buckets are the rate's. There is no
+    ``/stream`` context: the programs are whole-utterance ones."""
+    device = _serving_device(device, "build_artifact_enhancer")
+    from .utils.export_artifact import load_enhance, read_manifest
+
+    manifest = read_manifest(artifact_dir)
+    if int(manifest["sample_rate"]) != sample_rate:
+        raise ValueError(
+            f"the artifact was exported at {manifest['sample_rate']} Hz but {sample_rate} Hz "
+            "is asked for: its programs' STFT geometry and bucket durations are the "
+            "rate's (re-export it with tools/export_model.py --sample_rate)")
+    fns = load_enhance(artifact_dir, device)
+    buckets = sorted(fns)
+
+    def run_batch(wavs) -> list:
+        _check_rows(wavs, buckets)
+        batch, lens = _pad_group(wavs, buckets, round_pow2=round_pow2)
+        with torch.inference_mode():
+            out = fns[batch.shape[1]](torch.from_numpy(batch).to(device),
+                                      torch.from_numpy(lens).to(device)).cpu().numpy()
+        return [out[k, : len(w)] for k, w in enumerate(wavs)]
+
+    return _finish_enhancer(run_batch, buckets, sample_rate)
 
 
 class Server(HTTPServer):
@@ -352,7 +440,7 @@ class ThreadingServer(socketserver.ThreadingMixIn, Server):
 
 def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="enhancement HTTP server (the port)")
-    ap.add_argument("--ckpt", default="", help="training checkpoint to serve")
+    ap.add_argument("--ckpt", default="", help="training checkpoint to serve (or --artifact)")
     ap.add_argument("--upstream_ckpt", default="",
                     help="relocated S3PRL pretraining checkpoint for upstream-backed "
                          "checkpoints (default: the path the checkpoint records)")
@@ -360,14 +448,14 @@ def get_parser() -> argparse.ArgumentParser:
                     help="relocated checkpoint holding the downstream feature and model "
                          "config (default: the path the checkpoint records)")
     ap.add_argument("--artifact", default="",
-                    help="the exported serving program is not ported yet: the part of "
-                         "ROADMAP A15 left (pretraining, the S3PRL export and the "
-                         "experiment tools are ported, under tools/)")
+                    help="serve an exported artifact directory (tools/export_model.py) "
+                         "in place of a checkpoint")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--sample_rate", type=int, default=16000)
     ap.add_argument("--target_level", type=float, default=None,
-                    help="output level in dB (default -25)")
+                    help="output level in dB (default -25; an artifact bakes its "
+                         "export-time level in, so the flag is refused with --artifact)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (the default; raises when there is no CUDA device) or cpu")
     ap.add_argument("--cpu", dest="device", action="store_const", const="cpu",
@@ -414,25 +502,40 @@ def make_server(argv=None) -> HTTPServer:
     args = ap.parse_args(argv)
     if args.mesh:
         ap.error("--mesh is not ported yet (ROADMAP A12)")
+    if bool(args.ckpt) == bool(args.artifact):
+        ap.error("pass exactly one of --ckpt / --artifact")
     if args.artifact:
-        ap.error("--artifact is not ported yet (ROADMAP A15)")
-    if not args.ckpt:
-        ap.error("--ckpt is required")
+        if args.target_level is not None:
+            ap.error("--target_level is baked into the artifact at export time (re-export "
+                     "with tools/export_model.py to change it)")
+        if args.upstream_ckpt or args.dckpt:
+            ap.error("--upstream_ckpt/--dckpt are resolved at export time (pass them to "
+                     "tools/export_model.py instead)")
+        if args.fixed_batch:
+            ap.error("--fixed_batch needs --ckpt serving (an artifact serves the row counts "
+                     "its symbolic batch takes, grouped as the batcher groups them)")
     workers = args.workers
-    enhance = build_enhancer(
-        args.ckpt, args.sample_rate, -25.0 if args.target_level is None else args.target_level,
-        device=args.device, upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
-        fixed_rows=args.max_batch if args.fixed_batch else 0,
-    )
+    if args.artifact:
+        enhance = build_artifact_enhancer(args.artifact, args.sample_rate, device=args.device)
+    else:
+        enhance = build_enhancer(
+            args.ckpt, args.sample_rate,
+            -25.0 if args.target_level is None else args.target_level,
+            device=args.device, upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
+            fixed_rows=args.max_batch if args.fixed_batch else 0,
+        )
     # warm up, so that the first request does not pay the kernels' builds
     enhance(np.zeros(args.sample_rate, np.float32))
 
     # live streaming: the constant-latency StatefulStreamer for one-direction
     # raw-feature heads; other checkpoints keep serving /enhance and say why
     # on /stream
-    stream_proto, stream_err = None, ""
-    ctx = enhance.stream_ctx
+    stream_proto = None
+    stream_err = "artifact serving bakes full-utterance programs (serve a --ckpt)"
+    ctx = getattr(enhance, "stream_ctx", None)
     try:
+        if ctx is None:
+            raise ValueError(stream_err)
         if ctx["mode"] != "rawfeature":
             raise ValueError(
                 "stateful streaming serves from_rawfeature heads; this checkpoint runs in "

@@ -136,6 +136,54 @@ def test_function_saves_no_mask_and_counts_no_launch_on_cpu():
     assert A.flash_attention_fwd.launches == A.flash_attention_bwd.launches == 0
 
 
+def test_instance_width_pads_to_the_next_kernel_instance():
+    assert [A.instance_width(d) for d in (8, 16, 32, 33, 48, 64, 96, 128)] == \
+        [32, 32, 32, 64, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        A.instance_width(256)
+    x = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(2, 3, 20)
+    padded = A.pad_heads(x, 4, 8)
+    assert padded.shape == (2, 3, 32) and padded.is_contiguous()
+    heads = padded.reshape(2, 3, 4, 8)
+    assert torch.equal(heads[..., :5], x.reshape(2, 3, 4, 5)) and not heads[..., 5:].any()
+    assert torch.equal(A.unpad_heads(padded, 4, 5), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 48])
+def test_padded_heads_give_the_unpadded_attention(D, dtype):
+    """What the CUDA wrappers do at a head width between the kernels'
+    instances: each head zero-padded to the next instance (16 -> 32, 48 ->
+    64), the true D's scale, the padded columns cut off out and off dq, dk,
+    dv. On the plain versions the padded call gives the unpadded one (the
+    same products plus zeros, the same mask: the hash never reads D), forward
+    and gradient, f32 and bf16, with dropout live and a key bias."""
+    B, T, N = 2, 45, 3
+    W = A.instance_width(D)
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _qkv(2100 + D, B, T, N, D))
+    kbias = torch.from_numpy(np.random.default_rng(D).standard_normal((B, T)).astype(
+        np.float32))
+    args = (D ** -0.5, 0.2, (0x12345678, 0x9ABCDEF0), kbias, 3)
+    pad = lambda x: A.pad_heads(x, N, W)  # noqa: E731
+    unpad = lambda x: A.unpad_heads(x, N, D)  # noqa: E731
+    out, lse = A.flash_attention_ref(q, k, v, *args, n_heads=N)
+    p_out, p_lse = A.flash_attention_ref(pad(q), pad(k), pad(v), *args, n_heads=N)
+    grads = A.flash_attention_bwd_ref(q, k, v, out, lse, do, *args, n_heads=N)
+    p_grads = A.flash_attention_bwd_ref(pad(q), pad(k), pad(v), pad(out), lse, pad(do), *args,
+                                        n_heads=N)
+    # f32: sums of the same products in other orders; bf16: the same, then
+    # one rounding of the result, which a last-bit difference may flip
+    for got, want in [(unpad(p_out), out)] + [(unpad(g), r) for g, r in zip(p_grads, grads)]:
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        tol = 1e-6 * scale if dtype == torch.float32 else 2.0 ** (
+            np.floor(np.log2(scale)) - 7)
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    torch.testing.assert_close(p_lse, lse, atol=1e-6 * float(lse.abs().max()), rtol=0)
+    for g in (p_out,) + tuple(p_grads):
+        assert not g.reshape(B, T, N, W)[..., D:].any()
+
+
 def _np_hash(bn, qi, ki, salt, rate):
     """The attention hash in numpy uint32 (wrapping) arithmetic."""
     u = np.uint32

@@ -90,6 +90,39 @@ def test_split_terms_are_bf16_and_sum_back_exactly():
 def test_max_batch_follows_the_kernels_shared_memory():
     # a batch row of one step: two staged runs of 72 + 40 floats (padded
     # rows) and two buffers of 384 bytes of fragments, in groups of 8 rows
-    # within 232,448 bytes
-    assert L.DW_BF16_MAX_BATCH == 136
-    assert L.DW_BF16_MAX_BATCH * (2 * 4 * (72 + 40) + 2 * 384) <= 232448
+    # within 232,448 bytes; that is the chunk a step's rows are staged in,
+    # no longer a limit on B
+    assert L.DW_BF16_CHUNK_ROWS == 136
+    assert L.DW_BF16_CHUNK_ROWS * (2 * 4 * (72 + 40) + 2 * 384) <= 232448
+    assert (L.DW_BF16_CHUNK_ROWS + 8) * (2 * 4 * (72 + 40) + 2 * 384) > 232448
+    # lstm_dw_bf16_f32's cut: ceil(B / 8) groups in the fewest chunks of at
+    # most 17 groups, each of equal groups but the ragged last
+    assert L.dw_bf16_chunks(136) == [(0, 136)]
+    assert L.dw_bf16_chunks(137) == [(0, 72), (72, 137)]
+    assert L.dw_bf16_chunks(352) == [(0, 120), (120, 240), (240, 352)]
+    for B in (1, 5, 8, 9, 136, 137, 140, 272, 273, 352, 1000):
+        chunks = L.dw_bf16_chunks(B)
+        assert chunks[0][0] == 0 and chunks[-1][1] == B
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(lo % 8 == 0 and hi - lo <= L.DW_BF16_CHUNK_ROWS for lo, hi in chunks)
+
+
+@pytest.mark.parametrize("B,T,H", [(140, 12, 8), (272, 6, 4)])
+def test_kernel_model_past_one_chunk(B, T, H):
+    """Past one chunk of a step's rows (B = 140: 72 + 68 rows; 272: two of
+    136) the kernel sums a step in chains of 32 rows, each from zero, added
+    to the step's sum: the model in that order agrees with the plain version
+    under the card's share limit, while a once-rounded sum does not. Up to
+    one chunk the step is one chain over all rows."""
+    hs, da = _inputs(B, T, H, 1931 + B)
+    assert L.dw_bf16_chains(136) == [(0, 136)]
+    chains = L.dw_bf16_chains(B)
+    assert chains[0][0] == 0 and chains[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(chains, chains[1:]))
+    assert all(hi - lo <= L.DW_BF16_CHAIN_ROWS for lo, hi in chains)
+    assert all(any(lo <= a < hi for a, _ in chains) for lo, hi in L.dw_bf16_chunks(B))
+    ref = L.lstm_bidir_tm_dw_bf16_ref(hs, da)
+    model = L.lstm_bidir_tm_dw_bf16_model(hs, da)
+    assert _within_one_unit(model, ref) >= KERNEL_SHARE
+    once = L._bf16(torch.einsum("dbti,dbtj->dij", L._bf16(hs[:, :, :-1]), da[:, :, 1:]))
+    assert _within_one_unit(once, ref) < ONCE_ROUNDED_BELOW

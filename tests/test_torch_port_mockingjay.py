@@ -53,6 +53,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 16000
 SMALL = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
              intermediate_size=64)
+# heads of 16, a width between the card's flash kernel instances (it runs them
+# zero-padded to 32)
+HEADS_OF_16 = dict(SMALL, hidden_size=128, num_attention_heads=8, num_hidden_layers=1)
 LR, TOTAL = 1e-3, 10  # a short schedule, so that the updates are not tiny
 # Loss and gradient norm: the same f32 pipeline (STFT, log-mel + delta,
 # CMVN, 2 transformer layers, spec head, SISDR) with sums in other orders.
@@ -75,8 +78,8 @@ def _batch(seed, n=SR):
     return wavs, np.array([n, n * 3 // 4])
 
 
-def _configs(rate):
-    cfg = dict(SMALL, input_dim=80, hidden_dropout_prob=rate,
+def _configs(rate, width=SMALL):
+    cfg = dict(width, input_dim=80, hidden_dropout_prob=rate,
                attention_probs_dropout_prob=rate)
     return j_tf.TransformerConfig(**cfg), t_tf.TransformerConfig(**cfg)
 
@@ -141,13 +144,15 @@ def test_mockingjay_trajectory_at_rate_0_matches_jax():
     assert attention_kernel.flash_attention_fwd.launches == 0
 
 
-def test_mockingjay_steps_with_live_dropout_match_jax(monkeypatch):
+@pytest.mark.parametrize("width", [SMALL, HEADS_OF_16], ids=["heads_of_8", "heads_of_16"])
+def test_mockingjay_steps_with_live_dropout_match_jax(monkeypatch, width):
     """Two steps with both dropout rates at 0.1. The un-jitted JAX step
     draws 1 + 3 L salts a step (input, then per layer attention probs,
-    attention output, FFN output); the port replays them."""
+    attention output, FFN output); the port replays them. Also at 8 heads of
+    16, the width the card runs on zero-padded heads."""
     monkeypatch.setenv("SE_ATTN_IMPL", "flash")
     monkeypatch.setenv("SE_HIDDEN_DROPOUT_IMPL", "hash")
-    jcfg, tcfg = _configs(0.1)
+    jcfg, tcfg = _configs(0.1, width)
     builder, state = _jax_mockingjay(jcfg)
     step = builder.train_step_raw()
     port = _port_mockingjay(tcfg, state.params)
@@ -158,7 +163,7 @@ def test_mockingjay_steps_with_live_dropout_match_jax(monkeypatch):
         rec.salts.clear()
         state, jstats = step(state, jnp.asarray(wavs), jnp.asarray(lengths),
                              jax.random.PRNGKey(5), None)
-        assert len(rec.salts) == 1 + 3 * SMALL["num_hidden_layers"]
+        assert len(rec.salts) == 1 + 3 * width["num_hidden_layers"]
         salts = t_tf.SaltStream(salts=list(rec.salts))
         pstate, stats = port.train_step(pstate, torch.from_numpy(wavs),
                                         torch.from_numpy(lengths), salts=salts)

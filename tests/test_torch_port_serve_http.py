@@ -8,7 +8,8 @@ byte-identical under ``--fixed_batch``, also with a ``--max_batch`` of 6);
 ``_pad_group`` against JAX's;
 ``/stream`` with chunked and Content-Length bodies against the port's
 streamer bit for bit, its first bytes before the body ends, and its 400 on a
-bidirectional checkpoint; the refused flags and the card default."""
+bidirectional checkpoint; the refused flags (JAX's rules for --ckpt /
+--artifact) and the card default."""
 import argparse
 import http.client
 import io
@@ -422,10 +423,20 @@ def test_stream_on_a_bidirectional_checkpoint_answers_400(ckpts):
 
 
 def test_refused_flags_and_the_card_default(ckpts, capsys):
-    for flag, item in ((["--mesh", "2"], "A12"), (["--artifact", "x"], "A15"), ([], "--ckpt")):
-        argv = (["--ckpt", ckpts[False]] if flag else []) + flag + ["--device", "cpu"]
+    """--mesh is not ported (A12); --ckpt / --artifact follow the JAX
+    server's rules: exactly one of them, and with --artifact no
+    --target_level, --upstream_ckpt / --dckpt or --fixed_batch (export-time
+    choices, or the checkpoint's)."""
+    ckpt = ["--ckpt", ckpts[False]]
+    art = ["--artifact", "no-artifact-dir"]
+    for argv, item in ((ckpt + ["--mesh", "2"], "A12"), (ckpt + art, "exactly one"),
+                       ([], "exactly one of --ckpt"),
+                       (art + ["--target_level", "-20"], "--target_level is baked"),
+                       (art + ["--upstream_ckpt", "x"], "export time"),
+                       (art + ["--dckpt", "x"], "export time"),
+                       (art + ["--fixed_batch"], "--fixed_batch needs --ckpt")):
         with pytest.raises(SystemExit):
-            serve.make_server(argv)
+            serve.make_server(argv + ["--device", "cpu"])
         assert item in capsys.readouterr().err
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
