@@ -156,11 +156,13 @@ Phases, one line each:
      and the CUDA-core floor (an exponential and the hash a logit), the B=6
      10 s Mockingjay and flagship train steps and the B=1 10 s
      enhance in bf16 beside f32 with profiler breakdowns that split the GEMMs
-     by type. Head widths between B3's instances (16 and 48, which the
-     wrappers zero-pad to 32 and 64): f32 and bf16 forward and backward at rate
-     0.1 against the plain versions under the limits above, their times
-     beside the bound of the true and of the padded work, and one Mockingjay
-     step at 8 heads of 16 with dropout live, card against CPU.
+     by type. Head widths between B3's instances (16, 48 and 192, which the
+     wrappers zero-pad to 32, 64 and 256) and the widest instance, 256: f32
+     and bf16 forward and backward at rate 0.1 (bf16 at 256 also at rate 0)
+     against the plain versions under the limits above, their times beside
+     the bound of the true and of the padded work (SDPA at rate 0 beside 192
+     and 256), and one Mockingjay step at 8 heads of 16 and one at hidden 768
+     in 3 heads of 256, dropout live, card against CPU.
  13. the one-direction LSTM in bf16 (the JAX package's lax.scan cell in bf16):
      the bf16-h forms of B1 (also from a carried state), B2 fwd and B2 bwd and
      the step-by-step bf16 dW_hh^T kernel against their plain versions (one
@@ -228,6 +230,27 @@ Phases, one line each:
      --artifact`` (``/enhance``, ``/healthz``, ``/stream`` 400) and ``enhance
      --artifact`` against ``--ckpt``; and times: the B=1 4 s call live and
      from the artifact, and the live B=1 10 s call.
+ 17. data parallelism (``parallel/``): (a) the flagship trained 3 B=6 steps
+     on 10 s rows of ragged lengths through the CLI, ``run_downstream.main``,
+     with ``--mesh 1x1`` (the CLI's own rendezvous, card pick and NCCL group)
+     and without, losses, gradient norms and parameters bit for bit, with the
+     launches of B1, B2 fwd, B2 bwd, B4 and B5;
+     (b) two gloo ranks on this one card (NCCL refuses two ranks on one
+     device), each on its 3 rows of the same global batches, against one
+     process on all 6: the flagship head 3 steps under SISDR and the LSTM
+     head at the flagship's width under L1 (the head that predicts the log
+     spectrum L1 reads), loss and gradient norm within 1e-5, the update
+     within 1e-3 of the single process's, the ranks' parameters bit for bit;
+     the full Mockingjay joint finetune (6 x 768 x 12, dropout 0.1), every
+     hidden-dropout mask bit for bit the single process's rows, B3 at batch0
+     0 and 3, the loss within 1e-5 and the global gradient within 1e-3; B3
+     fwd and bwd (f32 and bf16) on each rank's rows at its batch0 bit for bit
+     the single launch's rows; (c) a 12 x 10 s eval batch split over the two
+     ranks, scores and loss within 1e-5 of the single process; (d)
+     ``build_enhancer(mesh_n=2)`` with both replicas on this card, 8 rows of
+     4-10 s, within one 16-bit step of the single-device enhancer; and (e)
+     times, not judged: the mesh-1 step beside the step without a mesh and
+     its all-reduce, the two-rank step (gloo stages through the host).
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -237,6 +260,7 @@ non-zero without that last line. It needs a CUDA card and the repository
 around it.
 """
 import contextlib
+import gc
 import http.client
 import json
 import math
@@ -3239,18 +3263,27 @@ B3_BF16_CASES = (  # B, T, N, D, rate, kbias
     (2, 37, 12, 64, 0.1, True),
     (2, 70, 4, 32, 0.2, True),
     (2, 70, 2, 128, 0.2, False),
+    (2, 77, 3, 256, 0.0, False),
 ) + tuple((B, T, N, D, 0.1, bias) for B, T, N, D, bias in (
-    (3, 130, 8, 16, True), (2, 201, 16, 48, False)))
+    (3, 130, 8, 16, True), (2, 201, 16, 48, False), (2, 130, 3, 256, True),
+    (2, 130, 4, 192, False)))
 # head widths between the kernels' instances (ROADMAP C7: the wrappers run
-# them zero-padded to 32 and 64), f32 at rate 0.1 against phase 3's limit
-# B3_TOL, bf16 in B3_BF16_CASES above, and timed at the Mockingjay length
-B3_PADDED_CASES = ((3, 130, 8, 16, True), (2, 201, 16, 48, False))
-B3_PADDED_TIMES = ((6, 1001, 8, 16), (6, 1001, 16, 48))
-# the encoder of phase 12's heads-of-16 step: hidden 128 in 8 heads of 16,
-# FFN 512, 3 layers, dropout 0.1 (B3 on zero-padded heads in every layer)
+# them zero-padded to 32, 64 and 256) and the widest instance, 256, f32 at
+# rate 0.1 against phase 3's limit B3_TOL, bf16 in B3_BF16_CASES above, and
+# timed at the Mockingjay length (192 and 256 beside SDPA at rate 0)
+B3_PADDED_CASES = ((3, 130, 8, 16, True), (2, 201, 16, 48, False), (2, 130, 3, 256, True),
+                   (2, 130, 4, 192, False))
+B3_PADDED_TIMES = ((6, 1001, 8, 16), (6, 1001, 16, 48), (6, 1001, 4, 192), (6, 1001, 3, 256))
+B3_WIDE = (192, 256)
+# the encoders of phase 12's steps card against CPU, dropout 0.1 (B3 in every
+# layer): hidden 128 in 8 heads of 16 (zero-padded to 32), FFN 512, 3 layers;
+# hidden 768 in 3 heads of 256 (the D = 256 instances), FFN 3072, 2 layers
 HEADS16 = dict(hidden_size=128, num_hidden_layers=3, num_attention_heads=8,
                intermediate_size=512, hidden_dropout_prob=0.1,
                attention_probs_dropout_prob=0.1)
+HEADS256 = dict(hidden_size=768, num_hidden_layers=2, num_attention_heads=3,
+                intermediate_size=3072, hidden_dropout_prob=0.1,
+                attention_probs_dropout_prob=0.1)
 # the window criterion of tests/test_torch_port_bf16.py, the card against the
 # CPU: with d(a, b) = RMS(a - b) / RMS(CPU f32), d(card bf16, CPU bf16) <= 1.5
 # d(CPU bf16, CPU f32) and 0.5 <= d(card bf16, card f32) / d(CPU bf16, CPU f32)
@@ -3282,14 +3315,16 @@ def window(torch, card_bf16, card_f32, cpu_bf16, cpu_f32, what):
 
 
 def padded_head_checks(torch, A, corpus, card):
-    """Phase 12 (a): B3 at head widths between its instances (16, 48: zero-
-    padded to 32, 64 by the wrappers), f32 fwd and bwd at rate 0.1 against
-    the plain version under phase 3's B3_TOL (bwd twice for identical bits;
-    bf16 in B3_BF16_CASES); their times at the Mockingjay length beside the
-    plain version and the bound of the true and of the padded work; and one
-    Mockingjay joint-finetune step at ``HEADS16`` (8 heads of 16) with dropout
-    live, card against CPU with the same salts under phase 6's limits, with 3
-    B3 fwd and 3 B3 bwd launches."""
+    """Phase 12 (a): B3 at head widths between its instances (16, 48, 192:
+    zero-padded to 32, 64, 256 by the wrappers) and at 256, f32 fwd and bwd
+    at rate 0.1 against the plain version under phase 3's B3_TOL (bwd twice
+    for identical bits; bf16 in B3_BF16_CASES); their times at the Mockingjay
+    length beside the plain version and the bound of the true and of the
+    padded work, and SDPA at rate 0 beside those of 192 and 256; and one
+    Mockingjay joint-finetune step at ``HEADS16`` (8 heads of 16) and one at
+    ``HEADS256`` (3 heads of 256) with dropout live, card against CPU with the
+    same salts under phase 6's limits, with a B3 fwd and a B3 bwd launch a
+    layer."""
     from speech_enhancement_by_s3prl_tpu_torch.data.datasets import OnlineDataset
     from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
     from speech_enhancement_by_s3prl_tpu_torch.models.transformer import (
@@ -3346,6 +3381,12 @@ def padded_head_checks(torch, A, corpus, card):
                             lambda: A.flash_attention_bwd_ref(qb, kb, vb, ob, lb, db, *args,
                                                               n_heads=N))}
         W = A.instance_width(D)
+        if D in B3_WIDE:
+            out["times"][("sdpa", D)] = sdpa_times(torch, q, k, v, dout, N, D)
+            print(f"[time] scaled_dot_product_attention rate 0 (a yardstick, not a route) "
+                  f"B={B} T={T} N={N} D={D}: (f32 fwd, f32 bwd, bf16 fwd, bf16 bwd) "
+                  + ", ".join(f"{x:.4f}" for x in out["times"][("sdpa", D)]) + f" ms | {card}",
+                  flush=True)
         for name, (kern, plain) in fns.items():
             a, c, a2 = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2), cuda_ms(torch, kern, 10)
             products = 2 if name.startswith("fwd") else 5
@@ -3357,44 +3398,73 @@ def padded_head_checks(torch, A, corpus, card):
                   f"{true_b[0]:.4f} ms by {true_b[1]}, of the padded work {pad_b[0]:.4f} ms "
                   f"({W / D:.2f}x the products) | {card}", flush=True)
 
-    # one joint-finetune step at 8 heads of 16, card against CPU
+    # one joint-finetune step at 8 heads of 16 and one at 3 heads of 256, card
+    # against CPU
     fixed_set = OnlineDataset(speech={"filestrs": os.path.join(corpus, "speech")},
                               noise={"filestrs": os.path.join(corpus, "noise")},
                               max_time=4000, snrs=[0])
     lengths_np, wavs_np = fixed_set.collate_fn([fixed_set[i] for i in range(6)], pad_to=4 * SR)
-    cfg = TransformerConfig(input_dim=80, **HEADS16)
-    weights = build_mockingjay_train(cfg, device="cpu", generator=torch.Generator().manual_seed(
-        SEED + 16)).model.state_dict()
-    sides = {}
-    for device in ("cuda", "cpu"):
-        builder = build_mockingjay_train(cfg, device=device)
-        builder.model.load_state_dict(weights)
-        builder.model.train()
-        wavs = torch.from_numpy(wavs_np).to(device)
-        lengths = torch.from_numpy(lengths_np).to(device)
-        params = list(builder.model.parameters())
-        reset_counts((A.flash_attention_fwd, A.flash_attention_bwd))
-        loss, _ = builder.loss_fn(make_context(builder.preprocessor, wavs, lengths, 0, 1),
-                                  SaltStream(SEED, 16))
-        g = torch.autograd.grad(loss, params)
-        counts = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
-        flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
-        sides[device] = (float(loss.detach()), float(flat.norm()), flat, counts)
-    (gl, gn, gg, gc), (cl, cn, cg, _) = sides["cuda"], sides["cpu"]
-    loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
-    grad_rel = float((gg - cg).norm() / cg.norm())
-    layers = HEADS16["num_hidden_layers"]
-    print(f"[bf16] Mockingjay step at 8 heads of 16 (hidden 128, {layers} layers, dropout "
-          f"0.1, B=6, 4 s) card vs CPU, same salts: loss rel {loss_rel:.3e}, grad norm rel "
-          f"{norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}), |g_card - g_cpu| / |g_cpu| "
-          f"{grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); launches (B3 fwd, B3 bwd) {gc} (want "
-          f"{(layers, layers)}) | {card}", flush=True)
-    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
-            and grad_rel <= TRAIN_GRAD_TOL and gc == (layers, layers)):
-        raise AssertionError(f"the heads-of-16 step: loss {loss_rel}, norm {norm_rel}, grad "
-                             f"{grad_rel}, launches {gc}")
-    out["step"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "launches": gc}
+    for key, width, seed in (("step", HEADS16, 16), ("step256", HEADS256, 256)):
+        cfg = TransformerConfig(input_dim=80, **width)
+        weights = build_mockingjay_train(cfg, device="cpu", generator=torch.Generator(
+        ).manual_seed(SEED + seed)).model.state_dict()
+        sides = {}
+        for device in ("cuda", "cpu"):
+            builder = build_mockingjay_train(cfg, device=device)
+            builder.model.load_state_dict(weights)
+            builder.model.train()
+            wavs = torch.from_numpy(wavs_np).to(device)
+            lengths = torch.from_numpy(lengths_np).to(device)
+            params = list(builder.model.parameters())
+            reset_counts((A.flash_attention_fwd, A.flash_attention_bwd))
+            loss, _ = builder.loss_fn(make_context(builder.preprocessor, wavs, lengths, 0, 1),
+                                      SaltStream(SEED, seed))
+            g = torch.autograd.grad(loss, params)
+            counts = (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches)
+            flat = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+            sides[device] = (float(loss.detach()), float(flat.norm()), flat, counts)
+        (gl, gn, gg, gc), (cl, cn, cg, _) = sides["cuda"], sides["cpu"]
+        loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+        grad_rel = float((gg - cg).norm() / cg.norm())
+        layers, heads = width["num_hidden_layers"], width["num_attention_heads"]
+        hidden = width["hidden_size"]
+        print(f"[bf16] Mockingjay step at {heads} heads of {hidden // heads} (hidden {hidden}, "
+              f"{layers} layers, dropout 0.1, B=6, 4 s) card vs CPU, same salts: loss rel "
+              f"{loss_rel:.3e}, grad norm rel {norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}), "
+              f"|g_card - g_cpu| / |g_cpu| {grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); launches "
+              f"(B3 fwd, B3 bwd) {gc} (want {(layers, layers)}) | {card}", flush=True)
+        if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+                and grad_rel <= TRAIN_GRAD_TOL and gc == (layers, layers)):
+            raise AssertionError(f"the {key} Mockingjay step: loss {loss_rel}, norm "
+                                 f"{norm_rel}, grad {grad_rel}, launches {gc}")
+        out[key] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "launches": gc}
     return out
+
+
+def sdpa_times(torch, q, k, v, dout, N, D):
+    """``scaled_dot_product_attention`` at rate 0 on the (B, T, N * D) q, k,
+    v of B3: (f32 forward, f32 backward, bf16 forward, bf16 backward) ms, the
+    backward as forward + backward minus forward under autograd (phase 7's
+    yardstick, at a wide head)."""
+    import torch.nn.functional as F
+
+    B, T, _ = q.shape
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        heads = [x.to(dtype).reshape(B, T, N, D).transpose(1, 2).detach().requires_grad_()
+                 for x in (q, k, v)]
+        dout_h = dout.to(dtype).reshape(B, T, N, D).transpose(1, 2)
+
+        def forward():
+            return F.scaled_dot_product_attention(*heads, scale=D ** -0.5)
+
+        def both():
+            return torch.autograd.grad(forward(), heads, dout_h)
+
+        with torch.no_grad():
+            fwd = cuda_ms(torch, forward, 10, warmup=2)
+        out += [fwd, cuda_ms(torch, both, 10, warmup=2) - cuda_ms(torch, forward, 10, warmup=2)]
+    return tuple(out)
 
 
 def flash_bf16_checks(torch, A):
@@ -5886,6 +5956,500 @@ def dispatch_times(torch, card):
 
 
 
+# data parallelism on the card (phase 17): the Runner's --mesh 1x1 over NCCL
+# against the run without a mesh (bit for bit), then two gloo ranks on this one
+# card (NCCL refuses two ranks on one device) against one process on the global
+# batch, and --mesh 2 serving with both replicas on this card
+DP_STEPS, DP_ROWS, DP_EVAL_ROWS, DP_WORLD = 3, 6, 12, 2
+# a rank's own limit: a hung rendezvous fails the phase, not the run
+DP_RANK_TIMEOUT = 400
+# the global batches' row lengths in seconds (10 s rows, ragged)
+DP_SECONDS = (10.0, 8.3, 9.1, 6.4, 7.7, 5.2)
+DP_EVAL_SECONDS = (10.0, 9.4, 8.8, 8.1, 7.3, 6.6, 5.9, 5.1, 4.4, 9.7, 7.0, 6.1)
+MESH_SERVE_SECONDS = (4.0, 5.1, 6.3, 7.0, 7.9, 8.6, 9.2, 10.0)
+# B3 on a rank's rows against the single launch's: bit for bit (a row's
+# tiles, sums and mask never read another row); the probe shape
+DP_PROBE = (DP_ROWS, 301, 12, 64)
+
+
+def dp_batch(seconds, seed):
+    """(wavs (B, 3, 10 s) f32 zero past each length, lengths (B,) int64)."""
+    wavs = train_batch(10.0, len(seconds), seed)
+    lengths = np.array([int(s * SR) for s in seconds], np.int64)
+    for i, n in enumerate(lengths):
+        wavs[i, :, n:] = 0.0
+    return wavs, lengths
+
+
+def dp_builder(torch, kind):
+    """The builders of phase 17 (b)-(c) on the card, weights from ``SEED``:
+    the flagship (``Residual``, SISDR), the ``LSTM`` head at the flagship's
+    width under L1 (it predicts the log spectrum, which L1 reads), and the
+    Mockingjay joint finetune at full width (dropout 0.1)."""
+    import dataclasses
+
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train, build_train
+    from speech_enhancement_by_s3prl_tpu_torch.models.heads import build_head
+    from speech_enhancement_by_s3prl_tpu_torch.objectives import build_objective
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    if kind == "mockingjay":
+        return build_mockingjay_train(device="cuda", generator=gen, seed=SEED)
+    builder = build_train(device="cuda", generator=gen)
+    if kind == "lstm":
+        builder = dataclasses.replace(builder, objective=build_objective("L1"))
+        builder.model = build_head(
+            "LSTM", input_size=builder.preprocessor.feat_dims()[1], output_size=201,
+            hidden_size=256, num_layers=3, bidirectional=True, generator=gen).to("cuda")
+    return builder
+
+
+@contextlib.contextmanager
+def dp_recording():
+    """The hidden-dropout masks (forward and backward, as bool tensors on
+    the host) and B3's (salt, batch0, rows) calls of the transformer, in
+    order."""
+    import torch
+
+    from speech_enhancement_by_s3prl_tpu_torch.models import transformer as t_tf
+
+    masks, calls = [], []
+    hidden, flash = t_tf._hash_mask_apply, t_tf.flash_attention
+
+    def hidden_rec(x, salt, rate, batch0=0):
+        masks.append((hidden(torch.ones_like(x), salt, rate, batch0) != 0).cpu())
+        return hidden(x, salt, rate, batch0)
+
+    def flash_rec(q, k, v, scale, rate=0.0, salt=(0, 0), kbias=None, batch0=0, *, n_heads):
+        calls.append((tuple(int(s) for s in salt), int(batch0), q.shape[0]))
+        return flash(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+
+    t_tf._hash_mask_apply, t_tf.flash_attention = hidden_rec, flash_rec
+    try:
+        yield masks, calls
+    finally:
+        t_tf._hash_mask_apply, t_tf.flash_attention = hidden, flash
+
+
+def dp_side(torch, mesh):
+    """Phase 17 (b)-(c) on one side: one process on the global batches
+    (``mesh`` None) or one of the ranks of ``mesh`` on its rows. Returns
+    what the parent compares, on the host."""
+    import torch.distributed as dist
+
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import SaltStream
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.mesh import (
+        StepReduce,
+        make_parallel_eval_step,
+        make_parallel_train_step,
+        rank_span,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+
+    counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, A.flash_attention_fwd,
+               A.flash_attention_bwd, A.flash_attention_fwd_bf16, A.flash_attention_bwd_bf16,
+               stft_kernel.stft_fused, decode_kernel.decode_ola)
+    start, rows = (0, DP_ROWS) if mesh is None else rank_span(DP_ROWS, mesh)
+    mine = slice(start, start + rows)
+    res = {"counts": {}}
+
+    # B3 at this side's batch0 on its rows of one input, f32 and bf16
+    g = torch.Generator().manual_seed(SEED + 170)
+    B, T, N, D = DP_PROBE
+    probe = [torch.randn(B, T, N * D, generator=g).cuda() for _ in range(4)]
+    res["probe"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (x.to(dtype)[mine] for x in probe)
+        args = (D ** -0.5, 0.1, (0x9E3779B9, 0x7F4A7C15), None, start)
+        out, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        grads = A.flash_attention_bwd(q, k, v, out, lse, dout, *args, n_heads=N)
+        res["probe"][str(dtype)] = [x.cpu() for x in (out, lse) + grads]
+
+    batches = [dp_batch(DP_SECONDS, SEED + 1700 + i) for i in range(DP_STEPS)]
+    for name, kind in (("SISDR", "residual"), ("L1", "lstm")):
+        builder = dp_builder(torch, kind)
+        state = builder.init_state()
+        first = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        step = builder.train_step
+        if mesh is not None:
+            step, state = make_parallel_train_step(builder, mesh, state)
+        stats, ms = [], []
+        reset_counts(counted)
+        for wavs, lengths in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, st = step(state, torch.from_numpy(wavs).cuda(),
+                             torch.from_numpy(lengths).cuda())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            stats.append((float(st["loss"]), float(st["grad_norm"])))
+        res["counts"][name] = [fn.launches for fn in counted]
+        res[name] = {"stats": stats, "ms": ms, "first": first,
+                     "params": {k: v.detach().cpu().clone() for k, v in state.params.items()}}
+        del builder, state, step
+
+    # the Mockingjay joint finetune: one global gradient
+    builder = dp_builder(torch, "mockingjay")
+    builder.model.train()
+    wavs, lengths = (torch.from_numpy(x).cuda()[mine] for x in batches[0])
+    params = list(builder.model.parameters())
+    reset_counts(counted)
+    ctx = make_context(builder.preprocessor, wavs, lengths, 0, 1)
+    with dp_recording() as (masks, calls):
+        loss, _ = builder.loss_fn(ctx, SaltStream(SEED, 0, batch0=start, global_batch=DP_ROWS))
+        grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        loss, grads = StepReduce(mesh).combine(loss, builder.objective.weight(**ctx), grads)
+    flat = torch.cat([x.reshape(-1) for x in grads])
+    res["counts"]["mockingjay"] = [fn.launches for fn in counted]
+    res["mockingjay"] = {"loss": float(loss.detach()), "masks": masks, "calls": calls}
+    if mesh is None or mesh.is_main:
+        res["mockingjay"]["grad"] = flat.cpu()
+    if mesh is not None:  # the ranks' global gradients, bit for bit
+        theirs = flat.clone()
+        dist.broadcast(theirs, 0)
+        res["mockingjay"]["same_as_rank0"] = bool(torch.equal(theirs, flat))
+    del builder, params, grads, flat, ctx
+
+    # the eval batch of 12 rows of 10 s through the flagship
+    builder = dp_builder(torch, "residual")
+    eval_wavs, eval_lengths = (torch.from_numpy(x).cuda()
+                               for x in dp_batch(DP_EVAL_SECONDS, SEED + 1799))
+    reset_counts(counted)
+    if mesh is None:
+        out = builder.eval_step(eval_wavs, eval_lengths)
+    else:
+        out = make_parallel_eval_step(builder, mesh)(eval_wavs, eval_lengths)
+    res["counts"]["eval"] = [fn.launches for fn in counted]
+    res["eval"] = {"loss": float(out["loss"]),
+                   "scores": {k: v.cpu() for k, v in out["scores"].items()}}
+    return res
+
+
+def dp_rank(rank, out, init):
+    """Phase 17 (b)-(c): one of two gloo ranks on card 0 (a process of its
+    own, started with ``spawn``); writes ``dp_side``'s results to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from speech_enhancement_by_s3prl_tpu_torch import use_full_fp32
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        topology_summary,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.mesh import make_mesh
+
+    use_full_fp32()
+    initialize_distributed(init, DP_WORLD, rank, device="cuda:0", backend="gloo")
+    try:
+        res = dp_side(torch, make_mesh(DP_WORLD))
+        res["topology"] = topology_summary()
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def mesh_one_run(torch, corpus, tmp, counted, card):
+    """Phase 17 (a): the flagship through the CLI, ``run_downstream.main``,
+    without a mesh and with ``--mesh 1x1`` (a group of one that the CLI sets
+    up in this process: its rendezvous file, its pick of the card, NCCL, its
+    teardown), 3 B=6 steps each; bit for bit. Returns the launches, the step
+    times and the all-reduce time of the gradient bucket."""
+    import torch.distributed as dist
+
+    from speech_enhancement_by_s3prl_tpu_torch import run_downstream as rd
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.distributed import topology_summary
+
+    config = train_config(corpus)
+    config["runner"].update(total_step=DP_STEPS, log_step=1, eval_step=100, save_step=100,
+                            max_keep=1)
+    config_path = os.path.join(tmp, "mesh_config.yaml")
+    with open(config_path, "w") as f:
+        json.dump(config, f)  # JSON is YAML
+    real_build, real_run = rd.build_runner, rd._run
+    sides = {}
+    for tag, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+        steps, ms, seen = [], [], {}
+
+        def build(args, config):
+            # the CLI's runner, the train step that set_model picks timed
+            runner = real_build(args, config)
+            set_model = runner.set_model
+
+            def timed_set_model():
+                set_model()
+                del runner.set_model  # no cycle keeps the runner alive after its run
+                inner = runner.train_step
+
+                def timed(state, wavs, lengths):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, stats = inner(state, wavs, lengths)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    steps.append((float(stats["loss"]), float(stats["grad_norm"]),
+                                  tuple(lengths.tolist())))
+                    return state, stats
+
+                runner.train_step = timed
+
+            runner.set_model = timed_set_model
+            seen["runner"] = runner
+            return runner
+
+        def run(args, config):
+            real_run(args, config)
+            if dist.is_initialized():  # the CLI's group, before its teardown
+                seen["group"] = (topology_summary(), dist.get_backend())
+                flat = torch.cat([v.reshape(-1) for v in
+                                  seen["runner"].state.params.values()]).clone()
+                seen["allreduce_ms"] = cuda_ms(torch, lambda: dist.all_reduce(flat), 20,
+                                               warmup=3)
+
+        rd.build_runner, rd._run = build, run
+        try:
+            # -- the main path of --mesh 1x1, between the reset and the reading --
+            reset_counts(counted)
+            rd.main([
+                "--config", config_path, "--name", tag, "--expdir",
+                os.path.join(tmp, "mesh_exp"), "--downstream", "Residual", "--objective",
+                "SISDR", "--optim", "BertAdam", "--from_rawfeature", "--dev_num", "3",
+                "--n_jobs", "4", "--seed", str(SEED), "--device", "cuda", *extra])
+            counts = [fn.launches for fn in counted]
+            # ---------------------------------------------------------------
+        finally:
+            rd.build_runner, rd._run = real_build, real_run
+        if extra:
+            group = seen.get("group")
+            print(f"[mesh] (a) the CLI's group: {group} | {card}", flush=True)
+            if group is None or group[1] != "nccl" or dist.is_initialized():
+                raise AssertionError(f"--mesh 1x1 did not run in an NCCL group of its own "
+                                     f"that the CLI tore down: {group}")
+        elif "group" in seen:
+            raise AssertionError("the run without --mesh joined a process group")
+        if len(steps) != DP_STEPS:
+            raise AssertionError(f"{tag}: the CLI took {len(steps)} timed steps, not {DP_STEPS}")
+        params = {k: v.detach().cpu().clone() for k, v in seen["runner"].state.params.items()}
+        sides[tag] = {"steps": steps, "ms": ms, "params": params, "counts": counts,
+                      "allreduce_ms": seen.get("allreduce_ms")}
+        del seen
+        gc.collect()
+    plain, mesh = sides["plain"], sides["mesh"]
+    same = (plain["steps"] == mesh["steps"] and set(plain["params"]) == set(mesh["params"])
+            and all(torch.equal(plain["params"][k], mesh["params"][k]) for k in plain["params"]))
+    print(f"[mesh] (a) flagship through run_downstream.main, {DP_STEPS} B={DP_ROWS} steps "
+          f"of ragged 10 s rows (lengths {plain['steps'][0][2]}): --mesh 1x1 over NCCL vs no mesh, losses "
+          f"{[x[0] for x in mesh['steps']]} vs {[x[0] for x in plain['steps']]}, bit for bit "
+          f"(losses, gradient norms, every parameter) {same}; launches (B1, B2 fwd, B2 bwd, "
+          f"B4, B5) {mesh['counts']} vs {plain['counts']} | {card}", flush=True)
+    want = [0, 3 * DP_STEPS, 3 * DP_STEPS, DP_STEPS, 0]
+    if not same or mesh["counts"] != plain["counts"] or mesh["counts"] != want:
+        raise AssertionError(f"--mesh 1x1 differs from the run without a mesh: same {same}, "
+                             f"launches {mesh['counts']} / {plain['counts']} (want {want})")
+    step_ms = {tag: statistics.median(side["ms"][1:]) for tag, side in sides.items()}
+    print(f"[time] (e) flagship train step B={DP_ROWS} 10 s through the CLI, median of steps "
+          f"2-{DP_STEPS}: --mesh 1x1 {step_ms['mesh']:.3f} ms, no mesh {step_ms['plain']:.3f} ms; "
+          f"NCCL all-reduce of the {sum(v.numel() for v in plain['params'].values())}-float "
+          f"gradient bucket {mesh['allreduce_ms']:.4f} ms "
+          f"({mesh['allreduce_ms'] / step_ms['mesh']:.2%} of the step); every step "
+          f"{[round(x, 3) for x in mesh['ms']]} / {[round(x, 3) for x in plain['ms']]} ms | "
+          f"{card}", flush=True)
+    return {"counts": mesh["counts"], "step_ms": step_ms, "allreduce_ms": mesh["allreduce_ms"]}
+
+
+def mesh_serving(torch, counted, card, tmp):
+    """Phase 17 (d): ``build_enhancer(mesh_n=2)`` with both replicas on this
+    card against the single-device enhancer, 8 rows of 4-10 s in one group."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, flagship_settings
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import save_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.serve import build_enhancer
+
+    _, model = build(device="cpu", generator=torch.Generator().manual_seed(SEED + 171))
+    config, paras = flagship_settings()
+    ckpt = save_checkpoint(os.path.join(tmp, "mesh_ckpt"), 0, model, None, config, paras)
+    wavs = [request_audio(s, 170 + i) for i, s in enumerate(MESH_SERVE_SECONDS)]
+    one = build_enhancer(ckpt, device="cuda")
+    two = build_enhancer(ckpt, device="cuda", mesh_n=2, devices=["cuda:0", "cuda:0"])
+    ref = one.run_batch(wavs)
+    # -- the main path of --mesh 2 serving, between the reset and the reading --
+    reset_counts(counted)
+    got = two.run_batch(wavs)
+    counts = [fn.launches for fn in counted]
+    # -----------------------------------------------------------------------
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    shapes = all(a.shape == w.shape and np.isfinite(a).all() for a, w in zip(got, wavs))
+    ms = statistics.median(synced_ms(torch, lambda: two.run_batch(wavs), 5))
+    ms_one = statistics.median(synced_ms(torch, lambda: one.run_batch(wavs), 5))
+    print(f"[mesh] (d) build_enhancer(mesh_n=2), both replicas on cuda:0, {len(wavs)} rows of "
+          f"{MESH_SERVE_SECONDS[0]:.0f}-{MESH_SERVE_SECONDS[-1]:.0f} s in one group: max |diff| "
+          f"vs one device {worst:.3e} (limit one 16-bit step {1 / 32767:.3e}); launches (B1, B4, "
+          f"B5) {counts} (want 3 B1, 1 B4, 1 B5 a replica); the group "
+          f"{ms:.3f} ms on two replicas, {ms_one:.3f} on one | {card}", flush=True)
+    if not (shapes and worst <= 1.0 / 32767 and counts == [6, 2, 2]):
+        raise AssertionError(f"mesh serving: max diff {worst}, shapes {shapes}, launches "
+                             f"{counts}")
+    return {"counts": counts, "ms": ms, "ms_one": ms_one, "err": worst}
+
+
+def data_parallel_phase(torch, card, tmp):
+    """Phase 17: data parallelism on the card, (a)-(e) of the module
+    docstring. Returns the launches and the times for the summary."""
+    import torch.multiprocessing as mp
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+
+    t_phase = time.perf_counter()
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED)
+    one = mesh_one_run(torch, corpus, tmp, (L.lstm_bidir_tm, L.lstm_bidir_tm_fc,
+                                           L.lstm_bidir_tm_bwd, stft_kernel.stft_fused,
+                                           decode_kernel.decode_ola), card)
+
+    # (b)-(c): two gloo ranks on this card, then one process on the global batch
+    init = "file://" + os.path.join(tmp, "rendezvous2")
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=dp_rank, args=(r, outs[r], init)) for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DP_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join()
+        raise AssertionError(f"a gloo rank did not finish within {DP_RANK_TIMEOUT} s")
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a gloo rank failed: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    single = dp_side(torch, None)
+    print(f"[mesh] (b) ranks: {ranks[0]['topology']}; {ranks[1]['topology']}", flush=True)
+
+    # B3 on each rank's rows at its batch0: bit for bit the single launch's rows
+    rows = DP_ROWS // DP_WORLD
+    probe_same = all(
+        torch.equal(got, want[r * rows:(r + 1) * rows])
+        for r, res in enumerate(ranks) for dt in single["probe"]
+        for got, want in zip(res["probe"][dt], single["probe"][dt]))
+    print(f"[mesh] (b) B3 fwd / bwd, f32 and bf16, on each rank's {rows} rows at batch0 0 and "
+          f"{rows} (B={DP_PROBE[0]} T={DP_PROBE[1]} {DP_PROBE[2]} x {DP_PROBE[3]}, rate 0.1): "
+          f"out, lse, dq, dk, dv bit for bit the single launch's rows {probe_same}", flush=True)
+    if not probe_same:
+        raise AssertionError("B3 at a rank's batch0 differs from the single launch's rows")
+
+    # the flagship head under SISDR and the LSTM head under L1, 3 steps
+    worst = {}
+    for name in ("SISDR", "L1"):
+        want, a, b = single[name], ranks[0][name], ranks[1][name]
+        loss_rel = max(rel(x[0], y[0]) for x, y in zip(a["stats"], want["stats"]))
+        norm_rel = max(rel(x[1], y[1]) for x, y in zip(a["stats"], want["stats"]))
+        upd = {k: (a["params"][k] - a["first"][k]).double() for k in a["params"]}
+        ref = {k: (want["params"][k] - want["first"][k]).double() for k in want["params"]}
+        num = math.sqrt(sum(float((upd[k] - ref[k]).pow(2).sum()) for k in ref))
+        den = math.sqrt(sum(float(ref[k].pow(2).sum()) for k in ref))
+        upd_rel = num / den
+        same = a["stats"] == b["stats"] and all(torch.equal(a["params"][k], b["params"][k])
+                                                  for k in a["params"])
+        worst[name] = (loss_rel, norm_rel, upd_rel)
+        print(f"[mesh] (b) {name} ({'flagship Residual' if name == 'SISDR' else 'LSTM head'} "
+              f"3 x 256, {DP_STEPS} steps of {DP_ROWS} ragged 10 s rows) two gloo ranks vs one "
+              f"process: loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e} (limit "
+              f"{TRAIN_LOSS_TOL:.0e}), |update - update_single| / |update_single| "
+              f"{upd_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}), max |param diff| "
+              f"{max(float((a['params'][k] - want['params'][k]).abs().max()) for k in a['params']):.3e}; "
+              f"ranks bit for bit {same}; launches a rank (B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, "
+              f"B3 fwd bf16, B3 bwd bf16, B4, B5) {ranks[0]['counts'][name]} / "
+              f"{ranks[1]['counts'][name]} | {card}", flush=True)
+        want_counts = [0, 3 * DP_STEPS, 3 * DP_STEPS, 0, 0, 0, 0, DP_STEPS, 0]
+        if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+                and upd_rel <= TRAIN_GRAD_TOL and same
+                and all(r["counts"][name] == want_counts for r in ranks)):
+            raise AssertionError(f"the two-rank {name} steps: {worst[name]}, ranks same "
+                                 f"{same}, launches {[r['counts'][name] for r in ranks]}")
+
+    # the Mockingjay joint finetune's global gradient and its masks
+    mj, a = single["mockingjay"], ranks[0]["mockingjay"]
+    loss_rel = rel(a["loss"], mj["loss"])
+    grad_rel = float((a["grad"].double() - mj["grad"].double()).norm()
+                     / mj["grad"].double().norm())
+    masks_same = all(
+        len(r["mockingjay"]["masks"]) == len(mj["masks"]) > 0 and all(
+            torch.equal(got, want[i * rows:(i + 1) * rows])
+            for got, want in zip(r["mockingjay"]["masks"], mj["masks"]))
+        for i, r in enumerate(ranks))
+    calls_ok = all(
+        [(salt, b0) for salt, b0, _ in r["mockingjay"]["calls"]]
+        == [(salt, i * rows) for salt, _, _ in mj["calls"]] and len(mj["calls"]) == MJ_LAYERS
+        for i, r in enumerate(ranks))
+    ranks_same = ranks[1]["mockingjay"]["same_as_rank0"]
+    mj_counts = [r["counts"]["mockingjay"] for r in ranks]
+    print(f"[mesh] (b) Mockingjay joint finetune (6 x 768 x 12, dropout 0.1, {DP_ROWS} ragged "
+          f"10 s rows) two gloo ranks vs one process: loss rel {loss_rel:.3e} (limit "
+          f"{TRAIN_LOSS_TOL:.0e}), |g - g_single| / |g_single| {grad_rel:.3e} (limit "
+          f"{TRAIN_GRAD_TOL:.0e}); {len(mj['masks'])} hidden-dropout masks each the single "
+          f"process's rows bit for bit {masks_same}; B3 calls at batch0 0 and {rows} with the "
+          f"single process's salts {calls_ok}; the ranks' global gradients bit for bit "
+          f"{ranks_same}; launches a rank {mj_counts} | {card}", flush=True)
+    want_counts = [0, 0, 0, MJ_LAYERS, MJ_LAYERS, 0, 0, 1, 0]
+    if not (loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL and masks_same
+            and calls_ok and ranks_same and all(c == want_counts for c in mj_counts)):
+        raise AssertionError(f"the two-rank Mockingjay step: loss {loss_rel}, grad {grad_rel}, "
+                             f"masks {masks_same}, calls {calls_ok}, ranks {ranks_same}, "
+                             f"launches {mj_counts}")
+    worst["mockingjay"] = (loss_rel, grad_rel)
+
+    # (c) the eval batch over the two ranks
+    ev = single["eval"]
+    eval_rel = max(rel(r["eval"]["loss"], ev["loss"]) for r in ranks)
+    score_rel = max(float(((r["eval"]["scores"][k] - v).abs() / v.abs()).max())
+                    for r in ranks for k, v in ev["scores"].items())
+    eval_counts = [r["counts"]["eval"] for r in ranks]
+    print(f"[mesh] (c) eval batch {DP_EVAL_ROWS} x 10 s (ragged) over two gloo ranks vs one "
+          f"process: loss rel {eval_rel:.3e}, per-row scores rel {score_rel:.3e} (limit 1e-5); "
+          f"launches a rank {eval_counts} | {card}", flush=True)
+    want_counts = [3, 0, 0, 0, 0, 0, 0, 1, 1]
+    if not (eval_rel <= 1e-5 and score_rel <= 1e-5
+            and all(c == want_counts for c in eval_counts)):
+        raise AssertionError(f"the mesh eval: loss {eval_rel}, scores {score_rel}, launches "
+                             f"{eval_counts}")
+
+    # (d) serving on two replicas; (e) the times
+    serving = mesh_serving(torch, (L.lstm_bidir_tm, stft_kernel.stft_fused,
+                                   decode_kernel.decode_ola), card, tmp)
+    two_ms = {name: statistics.median(ranks[0][name]["ms"][1:]) for name in ("SISDR", "L1")}
+    one_ms = {name: statistics.median(single[name]["ms"][1:]) for name in ("SISDR", "L1")}
+    print(f"[time] (e) two gloo ranks on one card (gloo stages each collective through the "
+          f"host; not a measure of a two-card run): flagship step B={DP_ROWS} (3 rows a rank) "
+          f"SISDR {two_ms['SISDR']:.3f} ms, L1 {two_ms['L1']:.3f} ms; one process on all 6 "
+          f"SISDR {one_ms['SISDR']:.3f} ms, L1 {one_ms['L1']:.3f} ms | {card}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[mesh] phase 17 in {seconds:.1f} s | {card}", flush=True)
+    # launches of each kernel of phase 17 by name, over both ranks
+    names = ("lstm_bidir_tm", "lstm_bidir_tm_fc", "lstm_bidir_tm_bwd", "flash_attention_fwd",
+             "flash_attention_bwd", "flash_attention_fwd_bf16", "flash_attention_bwd_bf16",
+             "stft_fused", "decode_ola")
+    launches = {n: sum(r["counts"][k][i] for r in ranks for k in r["counts"])
+                for i, n in enumerate(names)}
+    for n, c in zip(("lstm_bidir_tm", "lstm_bidir_tm_fc", "lstm_bidir_tm_bwd", "stft_fused",
+                     "decode_ola"), one["counts"]):
+        launches[n] += c
+    for n, c in zip(("lstm_bidir_tm", "stft_fused", "decode_ola"), serving["counts"]):
+        launches[n] += c
+    return {"launches": launches, "one": one, "serving": serving, "worst": worst,
+            "two_ms": two_ms, "one_ms": one_ms, "eval": (eval_rel, score_rel),
+            "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -6552,6 +7116,10 @@ def main():
         artifact = artifact_phase(torch, all_kernels + bf16_kernels + (L.lstm_bidir_tm_dw_bf16,),
                                   card, tmp)
 
+    # 17. data parallelism on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_phase(torch, card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -6573,13 +7141,18 @@ def main():
     padded = bf16["checks"]["padded"]["times"]
 
     def padded_fields(key):
-        """B3 at head widths 16 and 48 (B=6, T=1001, rate 0.1; zero-padded
-        to 32 and 64): time, plain time, the bound of the true work and of
-        the padded work."""
-        return {f"{field}_d{D}": val for D in (16, 48) for field, val in zip(
+        """B3 at head widths 16, 48, 192 and 256 (B=6, T=1001, rate 0.1;
+        zero-padded to 32, 64, 256 and 256): time, plain time, the bound of
+        the true work and of the padded work; at 192 and 256 SDPA's time at
+        rate 0 (forward, or its backward) as the library call."""
+        sdpa = {(f"{'fwd' if f == 0 else 'bwd'}{'_bf16' if b else ''}"): 2 * b + f
+                for b in (0, 1) for f in (0, 1)}
+        fields = {f"{field}_d{D}": val for D in (16, 48) + B3_WIDE for field, val in zip(
             ("ms", "plain_ms", "bound_ms", "bound_ms_padded_work"),
             (padded[(key, D)][0], padded[(key, D)][1], padded[(key, D)][2][0],
              padded[(key, D)][3][0]))}
+        fields.update({f"library_ms_d{D}": padded[("sdpa", D)][sdpa[key]] for D in B3_WIDE})
+        return fields
 
     def row(name, source, replaces, launches, err, ms, plain_ms, shape, bound_, library_ms,
             **more):
@@ -6983,6 +7556,10 @@ def main():
             for n in (1, 12):
                 # the wrapper, the op alone, its CUDA implementation called directly
                 r[f"ms_wrapper_op_direct_{n}_rows"] = artifact["dispatch"][(op, n)]
+    # phase 17's launches: the mesh-1 run, both gloo ranks, mesh serving
+    for r in rows:
+        if r["name"] in dp["launches"]:
+            r["launches_data_parallel"] = dp["launches"][r["name"]]
     am = artifact["ms"]
     print(f"[artifact] the exported flagship ({len(ARTIFACT_ROWS)} device batches of "
           f"{list(ARTIFACT_ROWS)} rows from one program) against the live enhancer "
@@ -6991,6 +7568,18 @@ def main():
           f"export {artifact['export_s']:.1f} s; B=1 4 s ms live {am['live']:.3f} / artifact "
           f"{am['artifact']:.3f}, live B=1 10 s {am['live_10s']:.3f}; phase "
           f"{artifact['seconds']:.1f} s | {card}", flush=True)
+    one, sv = dp["one"], dp["serving"]
+    print(f"[mesh] data parallelism: --mesh 1x1 over NCCL bit for bit the run without a mesh; "
+          f"two gloo ranks vs one process (loss rel, grad norm rel, update rel) "
+          + ", ".join(f"{k} ({v[0]:.2e}, {v[1]:.2e}, {v[2]:.2e})" for k, v in dp["worst"].items()
+                      if k != "mockingjay")
+          + f", Mockingjay (loss rel, gradient rel) ({dp['worst']['mockingjay'][0]:.2e}, "
+          f"{dp['worst']['mockingjay'][1]:.2e}); eval (loss, scores) rel ({dp['eval'][0]:.2e}, "
+          f"{dp['eval'][1]:.2e}); mesh serving max |diff| {sv['err']:.2e}; ms: flagship step "
+          f"mesh 1x1 {one['step_ms']['mesh']:.3f} / no mesh {one['step_ms']['plain']:.3f}, "
+          f"all-reduce {one['allreduce_ms']:.4f}, two gloo ranks (host-staged) "
+          f"{dp['two_ms']['SISDR']:.3f}, 8-row group on two replicas {sv['ms']:.3f} / one "
+          f"{sv['ms_one']:.3f}; phase {dp['seconds']:.1f} s | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -312,22 +312,32 @@ namespace fb = flash_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int kFwdQ = 128;        // queries a CTA: two consumer warpgroups of 64
-constexpr int kFwdK = 64;         // keys a walked tile
-constexpr int kFwdStages = 5;     // the ring of K, V and key-bias stages
 constexpr int kFwdThreads = 288;  // the consumer warpgroups, then the producer warp
+
+// Keys a walked tile and the ring of K, V and key-bias stages. At D = 256 the
+// O accumulator alone is 128 registers a thread (of the 224 that 9 warps an
+// SM leave), so the tile is 32 keys (16 S and 8 P registers, not 32 and 16),
+// and four stages of it fit beside the 64 KB query tile.
+template <int D>
+struct FwdCfg {
+  static constexpr int kKeys = D == 256 ? 32 : 64;
+  static constexpr int kStages = D == 256 ? 4 : 5;
+};
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory: the query
 // tile (raw q, then bf16(scale q)), the K and V stages, the key-bias stages
 // and the mbarriers (the query tile's, full[stage], empty[stage]).
 template <int D>
 struct FwdSmem {
-  static constexpr int kTile = kFwdK * D * 2;  // one K or V stage
+  static constexpr int kKeys = FwdCfg<D>::kKeys;
+  static constexpr int kStages = FwdCfg<D>::kStages;
+  static constexpr int kTile = kKeys * D * 2;  // one K or V stage
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kFwdQ * D * 2;
-  static constexpr int kV = kK + kFwdStages * kTile;
-  static constexpr int kBias = kV + kFwdStages * kTile;
-  static constexpr int kBars = kBias + kFwdStages * kFwdK * 4;
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kFwdStages);
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBias = kV + kStages * kTile;
+  static constexpr int kBars = kBias + kStages * kKeys * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
 };
 
 // DROPOUT: rate > 0, the hash compiled in (a flag tested inside the loop
@@ -342,6 +352,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       int batch0) {
   using P = hp::Panels<D>;
   using S = FwdSmem<D>;
+  constexpr int kFwdK = S::kKeys, kFwdStages = S::kStages;
   constexpr uint32_t kQPanel = kFwdQ * P::kRowBytes, kKPanel = kFwdK * P::kRowBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const fb::AlignedSmem sm = fb::align_smem(smem_raw);
@@ -520,7 +531,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
                 int dropout, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ops[3] = {q, k, v};
-  const int rows[3] = {kFwdQ, kFwdK, kFwdK};
+  const int rows[3] = {kFwdQ, FwdCfg<D>::kKeys, FwdCfg<D>::kKeys};
   for (int o = 0; o < 3; ++o) {
     const int err = fb::encode_heads<D>(&maps[o], ops[o], B, T, N, strides[2 * o],
                                         strides[2 * o + 1], rows[o]);
@@ -543,8 +554,8 @@ extern "C" {
 
 
 // Kernel B3 fwd. Launches on `stream` of `device` and returns
-// cudaGetLastError() (0 on success); does not synchronise. D is 32, 64 or
-// 128; thresh is min(int((1 - rate) * 2^32), 2^32 - 1) and keep = 1 - rate,
+// cudaGetLastError() (0 on success); does not synchronise. D is 32, 64,
+// 128 or 256; thresh is min(int((1 - rate) * 2^32), 2^32 - 1) and keep = 1 - rate,
 // both computed by the caller; dropout = 0 skips the hash (rate 0). out must
 // be 8-byte aligned (it is a whole allocation).
 int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* kbias,
@@ -570,6 +581,9 @@ int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* 
                         batch0, dropout, s);
     case 128:
       return launch<128>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
+                         s1, batch0, dropout, s);
+    case 256:
+      return launch<256>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
                          s1, batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -607,6 +621,9 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
                              s1, batch0, dropout, s);
     case 128:
       return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
+                              s0, s1, batch0, dropout, s);
+    case 256:
+      return launch_bf16<256>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
                               s0, s1, batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;

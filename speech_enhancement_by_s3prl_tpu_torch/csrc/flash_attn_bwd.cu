@@ -105,12 +105,27 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float kb, float lse,
   ds = p * ((kept ? dp : 0.f) - di);
 }
 
+// The walk and the output columns of the tile kernels by head width. Up to
+// D = 128 the walked tiles are kWalk rows and a dk/dv block computes every
+// column. At D = 256 the two resident 64 x 260 f32 tiles (133 KB) leave room
+// for two stages of 16-row walked tiles only; and dk and dv of 16 rows x 256
+// columns a warp would be 256 accumulator registers a thread, so a dk/dv
+// block computes one half of their columns (kOut = 128), recomputing s^T and
+// dp^T, which need all of D, for each half. The dq kernel keeps all 256
+// columns of dq (128 registers a thread).
+template <int D>
+struct BwdTiles {
+  static constexpr int kRows = D == 256 ? 16 : kWalk;  // walked rows a stage
+  static constexpr int kOut = D == 256 ? 128 : D;      // dk / dv columns a block
+};
+
 // Dynamic shared memory of both tile kernels, in floats: the two resident
-// [64][D + 4] tiles, two stages of two walked [32][D + 4] tiles, and two
-// stages of two 32-entry rows (lse and Di, or the key bias).
+// [64][D + 4] tiles, two stages of two walked [W][D + 4] tiles, and two
+// stages of two W-entry rows (lse and Di, or the key bias).
 template <int D>
 constexpr int tile_smem_floats() {
-  return 2 * 64 * (D + 4) + 2 * 2 * kWalk * (D + 4) + 2 * 2 * kWalk;
+  constexpr int W = BwdTiles<D>::kRows;
+  return 2 * 64 * (D + 4) + 2 * 2 * W * (D + 4) + 2 * 2 * W;
 }
 
 template <int D>
@@ -123,9 +138,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float scale, float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1,
                       int batch0, int dropout, int vec) {
   constexpr int LD = D + 4;
-  constexpr int DN = D / 8;      // 8-column tiles of dk / dv
-  constexpr int CN = kWalk / 8;  // 8-query tiles of s^T / dp^T
-  constexpr int kStage = 2 * kWalk * LD + 2 * kWalk;  // floats of one walked stage
+  constexpr int W = BwdTiles<D>::kRows;      // walked queries a stage
+  constexpr int DO = BwdTiles<D>::kOut;      // dk / dv columns of this block
+  constexpr int DN = DO / 8;                 // 8-column tiles of dk / dv
+  constexpr int CN = W / 8;                  // 8-query tiles of s^T / dp^T
+  constexpr int kStage = 2 * W * LD + 2 * W;  // floats of one walked stage
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);  // scale k
   float* v_s = k_s + 64 * LD;                    // v / keep
@@ -133,7 +150,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * kBK, n = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: head n and, where DO < D, which DO columns of dk and dv
+  const int k0 = blockIdx.x * kBK, n = blockIdx.y / (D / DO), b = blockIdx.z;
+  const int col0 = (blockIdx.y % (D / DO)) * DO;
   const int H = N * D;
   const long long head = (long long)b * sb + (long long)n * D;
   const long long ohead = (long long)b * T * H + (long long)n * D;  // contiguous tensors
@@ -142,9 +161,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
-    start_walk_tile<D>(w, q + head, st, w + kWalk * LD, dout + ohead, H, w + 2 * kWalk * LD,
-                       lse + bn_row, w + 2 * kWalk * LD + kWalk, di + bn_row, i * kWalk, T,
-                       vec);
+    start_walk_tile<D, W>(w, q + head, st, w + W * LD, dout + ohead, H, w + 2 * W * LD,
+                          lse + bn_row, w + 2 * W * LD + W, di + bn_row, i * W, T, vec);
   };
   start(0);
   // the scale and 1 / keep ride on the resident tiles: s^T = (scale k) q^T and
@@ -164,7 +182,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* ka_s = k_s + warp * 16 * LD;
   const float* va_s = v_s + warp * 16 * LD;
-  const int n_walk = (T + kWalk - 1) / kWalk;
+  const int n_walk = (T + W - 1) / W;
 
   for (int i = 0; i < n_walk; ++i) {
     // tile i has landed; every warp is done with tile i - 1, whose stage the
@@ -173,12 +191,12 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (i + 1 < n_walk) start(i + 1);
     const float* q_s = walk_s + (i & 1) * kStage;
-    const float* do_s = q_s + kWalk * LD;
-    const float* lse_s = do_s + kWalk * LD;
-    const float* di_s = lse_s + kWalk;
-    const int q0 = i * kWalk;
+    const float* do_s = q_s + W * LD;
+    const float* lse_s = do_s + W * LD;
+    const float* di_s = lse_s + W;
+    const int q0 = i * W;
 
-    // s^T = (scale k) q^T and dp^T = (v / keep) do^T: 16 keys x 32 queries
+    // s^T = (scale k) q^T and dp^T = (v / keep) do^T: 16 keys x W queries
     float st_acc[CN][4], dpt_acc[CN][4];
 #pragma unroll
     for (int j = 0; j < CN; ++j)
@@ -238,8 +256,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         FragB ob[4], qb[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          load_b_kn(ob[u], do_s + 8 * j * LD + 8 * (c + u), LD, lane);
-          load_b_kn(qb[u], q_s + 8 * j * LD + 8 * (c + u), LD, lane);
+          load_b_kn(ob[u], do_s + 8 * j * LD + col0 + 8 * (c + u), LD, lane);
+          load_b_kn(qb[u], q_s + 8 * j * LD + col0 + 8 * (c + u), LD, lane);
         }
         mma3<4>(dv_t, pa, ob);
         mma3<4>(dk_t, dsa, qb);
@@ -258,7 +276,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int t = key_a + 8 * half;
     if (t >= T) continue;
-    const long long o = ohead + (long long)t * H + 2 * t4;
+    const long long o = ohead + (long long)t * H + col0 + 2 * t4;
 #pragma unroll
     for (int c = 0; c < DN; ++c) {
       *reinterpret_cast<float2*>(dk + o + 8 * c) =
@@ -278,9 +296,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     long long sb, long long st, float scale, float inv_keep, uint32_t thresh,
                     uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
   constexpr int LD = D + 4;
+  constexpr int W = BwdTiles<D>::kRows;  // walked keys a stage
   constexpr int DN = D / 8;
-  constexpr int CN = kWalk / 8;  // 8-key tiles of s / dp
-  constexpr int kStage = 2 * kWalk * LD + 2 * kWalk;
+  constexpr int CN = W / 8;  // 8-key tiles of s / dp
+  constexpr int kStage = 2 * W * LD + 2 * W;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // scale q
   float* do_s = q_s + 64 * LD;                   // do / keep
@@ -297,8 +316,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
-    start_walk_tile<D>(w, k + head, st, w + kWalk * LD, v + head, st, w + 2 * kWalk * LD,
-                       kbias + (long long)b * T, nullptr, nullptr, i * kWalk, T, vec);
+    start_walk_tile<D, W>(w, k + head, st, w + W * LD, v + head, st, w + 2 * W * LD,
+                          kbias + (long long)b * T, nullptr, nullptr, i * W, T, vec);
   };
   start(0);
   load_tile<D>(q_s, q + head, st, q0, T, scale, vec);
@@ -319,18 +338,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* qa_s = q_s + warp * 16 * LD;
   const float* oa_s = do_s + warp * 16 * LD;
-  const int n_walk = (T + kWalk - 1) / kWalk;
+  const int n_walk = (T + W - 1) / W;
 
   for (int i = 0; i < n_walk; ++i) {
     cp_async_wait_all();  // as in the dk/dv kernel
     __syncthreads();
     if (i + 1 < n_walk) start(i + 1);
     const float* k_s = walk_s + (i & 1) * kStage;
-    const float* v_s = k_s + kWalk * LD;
-    const float* kb_s = v_s + kWalk * LD;
-    const int k0 = i * kWalk;
+    const float* v_s = k_s + W * LD;
+    const float* kb_s = v_s + W * LD;
+    const int k0 = i * W;
 
-    // s = (scale q) k^T and dp = do' v^T: 16 queries x 32 keys
+    // s = (scale q) k^T and dp = do' v^T: 16 queries x W keys
     float s_acc[CN][4], dp_acc[CN][4];
 #pragma unroll
     for (int j = 0; j < CN; ++j)
@@ -423,8 +442,9 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return (int)err;
-  dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_bwd_dkdv_kernel<D><<<grid, kTileThreads, smem, stream>>>(
+  // the dk/dv kernel's blockIdx.y also picks its columns (BwdTiles)
+  dim3 grid_dkdv((T + kBK - 1) / kBK, N * (D / BwdTiles<D>::kOut), B);
+  flash_bwd_dkdv_kernel<D><<<grid_dkdv, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dk, dv, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
       batch0, dropout, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -433,6 +453,7 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return (int)err;
+  dim3 grid((T + kBQ - 1) / kBQ, N, B);
   flash_bwd_dq_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dq, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
       batch0, dropout, vec);
@@ -537,17 +558,25 @@ flash_bwd_prep_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 // puts 4 on one of the SM's four schedulers, whose 16 K registers leave 128 a
 // thread; 9 warps leave 168. So three consumers at D <= 64 (dk/dv's four
 // accumulators fit 128 registers with a walk of 32 queries a tile), two at
-// D = 128.
+// D = 128, one at D = 256 (5 warps: up to 255 a thread). At D = 256 dk and dv
+// of 64 x 256 f32 would be 256 registers a thread, so a dk/dv CTA computes
+// one half of their columns (kOut = 128: 64 + 64 registers), and recomputes
+// S^T and dP^T, which contract over all of D, for each half; the dq kernel
+// keeps all 256 columns (128 registers) and walks 32 keys a tile.
 template <int D>
 struct BwdCta {
-  static constexpr int kConsumers = D == 128 ? 2 : 3;
+  static constexpr int kConsumers = D == 256 ? 1 : D == 128 ? 2 : 3;
   static constexpr int kRows = 64 * kConsumers;  // resident rows
   static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kOut = D == 256 ? 128 : D;  // dk / dv columns a CTA
 };
 
 // queries a tile of the dk/dv kernel's walk, keys a tile of the dq kernel's
 constexpr int kDkdvWalk = 32;
-constexpr int kDqWalk = 64;
+template <int D>
+constexpr int dq_walk() {
+  return D == 256 ? 32 : 64;
+}
 
 // Byte offsets from the 1024-aligned base: the resident K and V tiles, the
 // stages of qs and do', the stages of lse and Di ([stage][W] each), the
@@ -570,7 +599,8 @@ struct DkdvSmem {
 // key bias, the mbarriers.
 template <int D>
 struct DqSmem {
-  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kStages = D >= 128 ? 3 : 4;
+  static constexpr int kDqWalk = dq_walk<D>();
   static constexpr int kTile = kDqWalk * D * 2;  // one walked stage of K, V or ks
   static constexpr int kQ = 0;
   static constexpr int kDo = kQ + BwdCta<D>::kRows * D * 2;
@@ -629,6 +659,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   using S = DkdvSmem<D>;
   using C = BwdCta<D>;
   constexpr int W = S::W;
+  constexpr int DO = C::kOut;  // dk / dv columns of this CTA
   constexpr uint32_t kResPanel = C::kRows * P::kRowBytes, kWalkPanel = W * P::kRowBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const fb::AlignedSmem sm = fb::align_smem(smem_raw);
@@ -637,7 +668,11 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   auto empty = [&](int s) { return bars + 8u * (1 + S::kStages + s); };
   float* rows_s = reinterpret_cast<float*>(sm.ptr + S::kRows);
 
-  const int k0 = blockIdx.x * C::kRows, n = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: head n and, where DO < D, which DO columns of dk and dv
+  const int k0 = blockIdx.x * C::kRows, n = blockIdx.y / (D / DO), b = blockIdx.z;
+  const int col0 = (blockIdx.y % (D / DO)) * DO;
+  // the walked tiles' panel of column col0 (panels of P::kCols columns)
+  const uint32_t col_at = (col0 / P::kCols) * kWalkPanel;
   const int n_tiles = (T + W - 1) / W;
   const long long bn_row = ((long long)b * N + n) * T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -679,9 +714,9 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   const uint32_t v_tile = sm.addr + S::kV + wg * 64 * P::kRowBytes;
   const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DO / 2], dv_acc[DO / 2];
 #pragma unroll
-  for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+  for (int r = 0; r < DO / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
   hp::mbar_wait(bars, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -737,10 +772,10 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
     hp::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk)
-      hp::wgmma_rs<D, 1>(dv_acc, pa[kk], P::mnmajor(do_tile, kWalkPanel, kk), 1);
+      hp::wgmma_rs<DO, 1>(dv_acc, pa[kk], P::mnmajor(do_tile + col_at, kWalkPanel, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk)
-      hp::wgmma_rs<D, 1>(dk_acc, dsa[kk], P::mnmajor(q_tile, kWalkPanel, kk), 1);
+      hp::wgmma_rs<DO, 1>(dk_acc, dsa[kk], P::mnmajor(q_tile + col_at, kWalkPanel, kk), 1);
     hp::wgmma_commit();
     hp::wgmma_wait<0>();
     hp::fence_regs(dv_acc);
@@ -753,9 +788,9 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   for (int h = 0; h < 2; ++h) {
     const int t = ka + 8 * h;
     if (t >= T) continue;
-    const long long o = ((long long)b * T + t) * H + (long long)n * D + 2 * t4;
+    const long long o = ((long long)b * T + t) * H + (long long)n * D + col0 + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DO / 8; ++c) {
       *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * c) =
           __floats2bfloat162_rn(dk_acc[4 * c + 2 * h], dk_acc[4 * c + 2 * h + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * c) =
@@ -777,7 +812,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
   using P = hp::Panels<D>;
   using S = DqSmem<D>;
   using C = BwdCta<D>;
-  constexpr int W = kDqWalk;
+  constexpr int W = S::kDqWalk;
   constexpr uint32_t kResPanel = C::kRows * P::kRowBytes, kWalkPanel = W * P::kRowBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const fb::AlignedSmem sm = fb::align_smem(smem_raw);
@@ -929,9 +964,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
       (e = fb::encode_heads<D>(&m_do, dos, B, T, N, sb, st, kDkdvWalk)) ||
       (e = fb::encode_heads<D>(&m_qs_res, qs, B, T, N, sb, st, R)) ||
       (e = fb::encode_heads<D>(&m_do_res, dos, B, T, N, sb, st, R)) ||
-      (e = fb::encode_heads<D>(&m_k_walk, k, B, T, N, strides[2], strides[3], kDqWalk)) ||
-      (e = fb::encode_heads<D>(&m_v_walk, v, B, T, N, strides[4], strides[5], kDqWalk)) ||
-      (e = fb::encode_heads<D>(&m_ks, ks, B, T, N, sb, st, kDqWalk)))
+      (e = fb::encode_heads<D>(&m_k_walk, k, B, T, N, strides[2], strides[3], dq_walk<D>())) ||
+      (e = fb::encode_heads<D>(&m_v_walk, v, B, T, N, strides[4], strides[5], dq_walk<D>())) ||
+      (e = fb::encode_heads<D>(&m_ks, ks, B, T, N, sb, st, dq_walk<D>())))
     return e;
 
   const int smem_dkdv = DkdvSmem<D>::kBytes + 1024;  // + the alignment of the base
@@ -941,7 +976,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
   if ((err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem_dkdv)) != cudaSuccess)
     return (int)err;
-  dkdv<<<dim3((T + R - 1) / R, N, B), BwdCta<D>::kThreads, smem_dkdv, stream>>>(
+  // the dk/dv kernel's blockIdx.y also picks its columns (BwdCta::kOut)
+  dkdv<<<dim3((T + R - 1) / R, N * (D / BwdCta<D>::kOut), B), BwdCta<D>::kThreads, smem_dkdv,
+         stream>>>(
       m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, thresh, s0, s1, batch0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -991,6 +1028,10 @@ int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* 
       return launch<128>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
                          m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
                          batch0, dropout, s);
+    case 256:
+      return launch<256>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
+                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
+                         batch0, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1033,6 +1074,10 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
                              thresh, s0, s1, batch0, dropout, s);
     case 128:
       return launch_bf16<128>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
+                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
+                              thresh, s0, s1, batch0, dropout, s);
+    case 256:
+      return launch_bf16<256>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                               m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
                               thresh, s0, s1, batch0, dropout, s);
     default:

@@ -65,13 +65,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
   }
 }
 
-// Start the copy of a walked tile: time rows t0 .. t0 + 31 of two (., T, .)
-// operands into a[32][D + 4] and b[32][D + 4] and of two per-row vectors into
-// ra[32] and rb[32] (rows >= T: zeros; where rb is null, ra is the key bias
+// Start the copy of a walked tile: time rows t0 .. t0 + W - 1 (W = kWalk, or
+// 16 where D = 256 leaves shared memory for no more) of two (., T, .)
+// operands into a[W][D + 4] and b[W][D + 4] and of two per-row vectors into
+// ra[W] and rb[W] (rows >= T: zeros; where rb is null, ra is the key bias
 // and its rows >= T are -inf). The copies are asynchronous where 16-byte
 // loads are possible and land before the next cp_async_wait_all; otherwise
 // plain loads and stores.
-template <int D>
+template <int D, int W = kWalk>
 __device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, long long a_stride,
                                                 float* b, const float* b_src, long long b_stride,
                                                 float* ra, const float* ra_src, float* rb,
@@ -79,7 +80,7 @@ __device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, lo
   constexpr int LD = D + 4;
   if (vec) {
     constexpr int C4 = D / 4;
-    for (int i = threadIdx.x; i < kWalk * C4; i += kTileThreads) {
+    for (int i = threadIdx.x; i < W * C4; i += kTileThreads) {
       const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
       const int bytes = t < T ? 16 : 0;
       const long long row = t < T ? t : T - 1;  // a valid address either way
@@ -87,13 +88,13 @@ __device__ __forceinline__ void start_walk_tile(float* a, const float* a_src, lo
       cp_async16(b + r * LD + c, b_src + row * b_stride + c, bytes);
     }
   } else {
-    for (int i = threadIdx.x; i < kWalk * D; i += kTileThreads) {
+    for (int i = threadIdx.x; i < W * D; i += kTileThreads) {
       const int r = i / D, c = i % D, t = t0 + r;
       a[r * LD + c] = t < T ? a_src[(long long)t * a_stride + c] : 0.f;
       b[r * LD + c] = t < T ? b_src[(long long)t * b_stride + c] : 0.f;
     }
   }
-  if (threadIdx.x < kWalk) {
+  if (threadIdx.x < W) {
     const int t = t0 + threadIdx.x;
     if (rb != nullptr) {
       cp_async4(ra + threadIdx.x, ra_src + (t < T ? t : T - 1), t < T ? 4 : 0);

@@ -392,8 +392,9 @@ template <bool kCell>
 int max_clusters(int device, int* out) {
   auto fn = lstm_tm_cluster_kernel<kCell, 0>;
   const size_t smem = smem_bytes(kMaxRows, 0);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = cudaSetDevice(device);  // the query is of the device asked about
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kCluster);

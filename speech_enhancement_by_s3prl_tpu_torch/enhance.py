@@ -15,7 +15,9 @@ pretraining checkpoints in: ``--target_level``, ``--upstream_ckpt`` and
       --inputs 'noisy/*.wav' --outdir enhanced/
 
 It runs on the card unless ``--device cpu`` asks for the CPU, as
-``run_downstream`` does; with no CUDA device the default raises.
+``run_downstream`` does; with no CUDA device the default raises. ``--mesh N``
+enhances each batch on N devices, one replica a device (``serve.build_enhancer``;
+N replicas on the CPU under ``--device cpu``); it is refused with ``--artifact``.
 """
 from __future__ import annotations
 
@@ -63,18 +65,19 @@ def main(argv=None):
                     help="exported artifact directory (tools/export_model.py) in place "
                          "of a checkpoint")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="multi-device serving is not ported yet (ROADMAP A12)")
+                    help="enhance each batch on N devices, one replica a device; "
+                         "0 = one device")
     args = ap.parse_args(argv)
     if bool(args.ckpt) == bool(args.artifact):
         ap.error("pass exactly one of --ckpt / --artifact")
+    if args.artifact and args.mesh:
+        ap.error("--artifact serving is single-device (no --mesh)")
     if args.artifact and args.target_level is not None:
         ap.error("--target_level is baked into the artifact at export time (re-export "
                  "with tools/export_model.py to change it)")
     if args.artifact and (args.upstream_ckpt or args.dckpt):
         ap.error("--upstream_ckpt/--dckpt are resolved at export time (pass them to "
                  "tools/export_model.py instead)")
-    if args.mesh:
-        ap.error("--mesh is not ported yet (ROADMAP A12)")
 
     from .serve import build_artifact_enhancer, build_enhancer
 
@@ -88,7 +91,7 @@ def main(argv=None):
         enhancer = build_enhancer(
             args.ckpt, args.sample_rate,
             -25.0 if args.target_level is None else args.target_level, device=args.device,
-            max_bucket_ms=30000, round_pow2=False,
+            mesh_n=args.mesh, max_bucket_ms=30000, round_pow2=False,
             upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
         )
 

@@ -122,16 +122,27 @@ class SaltStream:
     ``salts`` (pairs of uint32), as a test replays the salts the JAX package
     drew. ``generator`` also feeds the upstream's spec_aug positions.
 
+    ``batch0`` and ``global_batch`` place the forward's rows in a larger
+    batch: a data-parallel rank's rows are rows ``batch0`` .. of the
+    ``global_batch`` rows of the step (``parallel/mesh.py``). Every mask keys
+    on the global row (the hash dropouts add ``batch0`` to their batch index,
+    spec_aug draws for ``global_batch`` rows and keeps the rank's), so the
+    ranks together draw the masks of the single-process step on the global
+    batch, as the JAX package's GSPMD step does.
+
     The CPU generator keeps only the low 32 bits of its seed, so (seed,
     step) are first mixed into 32 bits by numpy's ``SeedSequence``."""
 
     def __init__(self, seed: int = 0, step: int = 0,
-                 salts: Optional[Iterable[Tuple[int, int]]] = None):
+                 salts: Optional[Iterable[Tuple[int, int]]] = None, batch0: int = 0,
+                 global_batch: Optional[int] = None):
         mixed = np.random.SeedSequence([int(seed) & _MASK32, int(step) & _MASK32])
         self.generator = torch.Generator().manual_seed(int(mixed.generate_state(1)[0]))
         self._replay = None if salts is None else iter(
             [tuple(int(s) & _MASK32 for s in pair) for pair in salts])
         self.drawn = 0
+        self.batch0 = int(batch0)
+        self.global_batch = global_batch
 
     def __call__(self) -> Tuple[int, int]:
         self.drawn += 1
@@ -144,16 +155,17 @@ class SaltStream:
             raise ValueError(f"the replayed salts ran out at site {self.drawn}") from None
 
 
-def _hash_mask_apply(x: torch.Tensor, salt, rate: float) -> torch.Tensor:
+def _hash_mask_apply(x: torch.Tensor, salt, rate: float, batch0: int = 0) -> torch.Tensor:
     """Hidden-state dropout by the salted hash of (flat index within x[0],
-    leading index): bit for bit the JAX package's ``_hash_mask_apply``."""
+    leading index ``batch0`` + b): bit for bit the JAX package's
+    ``_hash_mask_apply`` on a batch whose row b is row ``batch0`` + b."""
     keep = 1.0 - rate
     s0, s1 = (int(s) & _MASK32 for s in salt)
     inner_n = math.prod(x.shape[1:])
     inner = torch.arange(inner_n, dtype=torch.int64, device=x.device).reshape(
         (1,) + tuple(x.shape[1:]))
-    lead = torch.arange(x.shape[0], dtype=torch.int64, device=x.device).reshape(
-        (-1,) + (1,) * (x.dim() - 1))
+    lead = torch.arange(batch0, batch0 + x.shape[0], dtype=torch.int64,
+                        device=x.device).reshape((-1,) + (1,) * (x.dim() - 1))
     h = mul32(inner, 2654435761) ^ mul32(lead, 40503) ^ s0
     h = h ^ (h >> 16)
     h = mul32(h, 2246822519)
@@ -169,19 +181,19 @@ class HashDropout(torch.autograd.Function):
     8-byte salt (the JAX custom VJP ``_hash_dropout_vjp``): no mask is kept."""
 
     @staticmethod
-    def forward(ctx, x, salt, rate):
-        ctx.salt, ctx.rate = salt, rate
-        return _hash_mask_apply(x, salt, rate)
+    def forward(ctx, x, salt, rate, batch0):
+        ctx.salt, ctx.rate, ctx.batch0 = salt, rate, batch0
+        return _hash_mask_apply(x, salt, rate, batch0)
 
     @staticmethod
     def backward(ctx, g):
-        return _hash_mask_apply(g, ctx.salt, ctx.rate), None, None
+        return _hash_mask_apply(g, ctx.salt, ctx.rate, ctx.batch0), None, None, None
 
 
-def hash_dropout(x: torch.Tensor, rate: float, salt) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, salt, batch0: int = 0) -> torch.Tensor:
     if rate <= 0.0:
         return x
-    return HashDropout.apply(x, tuple(salt), rate)
+    return HashDropout.apply(x, tuple(salt), rate, int(batch0))
 
 
 def hidden_dropout(x: torch.Tensor, rate: float, live: bool,
@@ -191,7 +203,7 @@ def hidden_dropout(x: torch.Tensor, rate: float, live: bool,
         return x
     if salts is None:
         raise ValueError("dropout is live (training, rate > 0) but no SaltStream was given")
-    return hash_dropout(x, rate, salts())
+    return hash_dropout(x, rate, salts(), salts.batch0)
 
 
 class Dense(nn.Linear):
@@ -236,7 +248,8 @@ class SelfAttention(nn.Module):
         if self.training and rate > 0.0:
             if salts is None:
                 raise ValueError("attention dropout is live but no SaltStream was given")
-            ctx = flash_attention(q, k, v, scale, rate, salts(), n_heads=N)
+            ctx = flash_attention(q, k, v, scale, rate, salts(), batch0=salts.batch0,
+                                  n_heads=N)
         else:
             B, T, _ = q.shape
 

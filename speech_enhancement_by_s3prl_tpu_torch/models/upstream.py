@@ -32,15 +32,20 @@ from .transformer import (
 
 def apply_spec_aug(feat: torch.Tensor, generator: torch.Generator, time_masks: int = 2,
                    time_width: int = 30, freq_masks: int = 2,
-                   freq_width: int = 12) -> torch.Tensor:
+                   freq_width: int = 12, batch0: int = 0,
+                   global_batch: Optional[int] = None) -> torch.Tensor:
     """SpecAugment-style time and frequency band masking of (B, T, D)
     features, the band starts drawn per utterance from ``generator`` (a CPU
     generator: the stream differs from the JAX package's, the band shapes do
-    not)."""
+    not). Rows b of ``feat`` are rows ``batch0`` + b of a batch of
+    ``global_batch`` (a data-parallel rank's, ``SaltStream``): the starts are
+    drawn for the whole batch and the rank keeps its rows."""
     B, T, D = feat.shape
+    rows = B if global_batch is None else int(global_batch)
 
     def band(n, width, size):
-        starts = torch.randint(0, max(size - width, 1), (B, n), generator=generator)
+        starts = torch.randint(0, max(size - width, 1), (rows, n),
+                               generator=generator)[batch0:batch0 + B]
         pos = torch.arange(size)[None, None, :]
         s = starts[..., None]
         return ((pos >= s) & (pos < s + width)).any(dim=1)  # (B, size)
@@ -116,7 +121,8 @@ class UpstreamTransformer(nn.Module):
     def forward(self, features: torch.Tensor, salts: Optional[SaltStream] = None):
         opts = self.options
         if opts.spec_aug and self.training and salts is not None:
-            features = apply_spec_aug(features, salts.generator)
+            features = apply_spec_aug(features, salts.generator, batch0=salts.batch0,
+                                      global_batch=salts.global_batch)
         use_all = opts.weighted_sum or opts.select_layer != -1
         out = self.encoder(features, salts if self.training else None,
                            output_all_layers=use_all)

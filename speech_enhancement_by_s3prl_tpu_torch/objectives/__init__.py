@@ -8,6 +8,16 @@ The perceptual losses are ``stoi`` / ``estoi`` (the negative scores of
 ``metrics/stoi.py`` on the masked waveforms of the eval step) and ``pmsqe``
 (``objectives/pmsqe.py``); the trainer calls every objective with TF32 off.
 ``WSD``'s aux carries a figure logger that the Runner calls at ``log_step``.
+
+Each objective also names the count its loss averages over,
+``weight(**step_context)`` (a 0-d f32 tensor on the batch's device): ``L1``
+the valid frames times the bins, every other objective the rows. A
+data-parallel step (``parallel/mesh.py``) combines the ranks' losses as
+sum_r w_r L_r / sum_r w_r, and their gradients the same way, which is the
+loss of the single-process step on the global batch: with ragged lengths the
+plain mean of the ranks' ``L1`` losses is not. ``WSD``'s voice threshold reads
+the largest frame energy of the batch; a data-parallel step hands it
+``reduce_max`` (the maximum across the ranks) in the step context.
 """
 from __future__ import annotations
 
@@ -23,12 +33,24 @@ from .pmsqe import PMSQE
 Aux = Dict[str, Any]
 
 
+class _RowMean:
+    """An objective whose loss is a mean over the batch's rows."""
+
+    def weight(self, stft_length_masks, **kwargs):
+        # filled on the device: a tensor copied from the host would make the
+        # host wait for the step's queued work
+        return stft_length_masks.new_full((), float(stft_length_masks.shape[0]))
+
+
 class L1:
     """Log-spectral L1: mean |log_pred - log(tar + eps)| over valid frames
     (the sum divided by the mask mass times the bin count)."""
 
     def __init__(self, eps: float = 1e-10, **kwargs):
         self.eps = eps
+
+    def weight(self, stft_length_masks, linear_tar, **kwargs):
+        return stft_length_masks.sum() * linear_tar.shape[-1]
 
     def __call__(self, log_predicted, linear_tar, stft_length_masks, **kwargs):
         mask = stft_length_masks[..., None]
@@ -37,7 +59,7 @@ class L1:
         return loss, {}
 
 
-class SISDR:
+class SISDR(_RowMean):
     """Scale-invariant SDR on sqrt-magnitude spectra."""
 
     def __init__(self, eps: float = 1e-10, **kwargs):
@@ -69,7 +91,7 @@ def _si_sdr_core(est, tar, zero_mean: bool, eps: float = 1e-8):
     return 10.0 * torch.log10(ratio + eps)
 
 
-class sisdr:
+class sisdr(_RowMean):
     """Negative SI-SDR (no zero mean) over the flattened masked
     (frames x bins) spectrum of each utterance."""
 
@@ -83,7 +105,7 @@ class sisdr:
         return -_si_sdr_core(src, tar, zero_mean=False).mean(), {}
 
 
-class _StoiLoss:
+class _StoiLoss(_RowMean):
     """Negative (E)STOI on the masked waveforms, without silent-frame
     removal. The waveforms exist only in the eval step's context, as in the
     JAX package: a train step with this objective fails on the missing
@@ -112,7 +134,7 @@ class estoi(_StoiLoss):
     extended = True
 
 
-class pmsqe:
+class pmsqe(_RowMean):
     """PMSQE perceptual loss on masked power spectra (``objectives/pmsqe.py``)."""
 
     def __init__(self, **kwargs):
@@ -123,7 +145,7 @@ class pmsqe:
         return self._fn(predicted * mask, linear_tar * mask, stft_length_masks), {}
 
 
-class WSD:
+class WSD(_RowMean):
     """Weighted speech distortion on the mask ``offset``: a voice-activity
     mask from an energy-dB threshold gates the speech-distortion term; the
     noise-leakage term penalizes mask response on the noise excess. Its aux
@@ -140,12 +162,16 @@ class WSD:
         self.db_interval = db_interval
         self.eps = eps
 
-    def __call__(self, linear_inp, offset, linear_tar, stft_length_masks, **kwargs):
+    def __call__(self, linear_inp, offset, linear_tar, stft_length_masks, reduce_max=None,
+                 **kwargs):
         S, G = linear_tar, offset
         N = torch.relu(linear_inp - linear_tar)
 
         energy = S.sum(dim=-1, keepdim=True)
-        db_thres = 10.0 * torch.log10(energy.max() + self.eps) - self.db_interval
+        # the batch's largest frame energy (across the ranks of a data-parallel
+        # step); it only sets a threshold, so no gradient passes through it
+        peak = energy.max() if reduce_max is None else reduce_max(energy.max().detach())
+        db_thres = 10.0 * torch.log10(peak + self.eps) - self.db_interval
         voice_mask = (10.0 * torch.log10(energy + self.eps) > db_thres).to(S.dtype)
 
         mask = stft_length_masks[..., None]

@@ -41,11 +41,14 @@ those registers, and the rounded probabilities (or ds) packed in registers
 as the A operand of the next product. B3 fwd bf16 walks keys 64 a tile for
 128 queries a CTA; B3 bwd bf16 is a pre-pass (Di and the rounded qs, ks, do'
 as contiguous scratch), a dk/dv kernel over 192 keys a CTA and a dq kernel
-over 192 queries a CTA (128 at a head width of 128). What bounds them on the
+over 192 queries a CTA (128 at a head width of 128; 64 at 256, where a dk/dv
+CTA computes half of dk's and dv's columns). What bounds them on the
 card is the CUDA-core work of each logit (one exponential and the hash's ten
 integer operations, twice in the backward), not the products: at B=6,
 T=1001, 12 x 64 the products take 0.019 / 0.047 ms of tensor-core time. The
-exponential is ``__expf`` (ex2.approx), within the card's limits. TMA reads q, k and v in place as
+exponential is ``__expf`` (ex2.approx), within the card's limits. B3 fwd bf16
+walks ``fwd_bf16_keys(D)`` keys a tile (32 at D = 256, where the output
+accumulator takes 128 registers a thread). TMA reads q, k and v in place as
 4-D tensors (D, N, T, B) and fills rows t >= T with zeros, which needs
 16-byte aligned operands whose batch and time strides are multiples of 16
 bytes: ``tma_ready`` decides that from an operand's address and strides, and
@@ -58,17 +61,20 @@ counterpart of the JAX custom VJP ``_flash_vjp``: it saves q, k, v, out, lse
 and the 8-byte salt, never a mask. ``flash_attention`` routes to it when a
 gradient is needed and to B3 fwd alone otherwise.
 
-The kernels are instantiated for head widths 32, 64 and 128 (``HEAD_DIMS``).
-A narrower head, or one between two of them, runs the next instance up: the
+The kernels are instantiated for head widths 32, 64, 128 and 256
+(``HEAD_DIMS``), as the JAX kernel takes any D with P * D % 128 == 0. A
+narrower head, or one between two of them, runs the next instance up: the
 wrapper zero-pads each head of q, k and v to that width (``instance_width``,
-``pad_heads``; 16 -> 32, 48 -> 64, 96 -> 128), keeps the caller's ``scale``
-(1 / sqrt(D) of the true D), and cuts the padded columns off out and off dq,
-dk and dv (``unpad_heads``). That is exact: the added products are zeros, and
-the dropout hash depends on (batch, head, query, key), never on D. A head
-wider than 128 raises: the f32 backward's tiles at 256 (two resident 64 x 260
-and two stages of two walked 32 x 260 f32 tiles, 266,752 bytes) exceed the
-232,448 bytes of shared memory a block may use, so such a width needs another
-tiling, not another instance (``ROADMAP.md`` C7).
+``pad_heads``; 16 -> 32, 48 -> 64, 96 -> 128, 192 -> 256), keeps the caller's
+``scale`` (1 / sqrt(D) of the true D), and cuts the padded columns off out and
+off dq, dk and dv (``unpad_heads``). That is exact: the added products are
+zeros, and the dropout hash depends on (batch, head, query, key), never on D.
+A head wider than 256 raises. The D = 256 instances are tiled for their size:
+the f32 backward walks 16 rows a stage (two resident 64 x 260 f32 tiles and two
+stages of 32-row walked ones would be 266,752 bytes of shared memory, past the
+232,448 a block may use), and both backwards compute dk and dv in two halves
+of their columns, because 16 rows x 256 columns of each a warp (f32), or 64 x
+256 a warpgroup (bf16), would take 256 accumulator registers a thread.
 
 Layout is the JAX kernel's: q, k, v are (B, T, N * D), straight from the fused
 QKV projection (views with a shared row stride are taken as they are), head n
@@ -104,9 +110,15 @@ PHI4 = 40503
 _MASK32 = 0xFFFFFFFF
 # head widths the CUDA kernels are instantiated for; a narrower head runs the
 # next one up on zero-padded heads (``instance_width``)
-HEAD_DIMS = (32, 64, 128)
-# keys a tile of B3 fwd bf16's online softmax (csrc/flash_attn.cu, kFwdK)
+HEAD_DIMS = (32, 64, 128, 256)
+# keys a tile of B3 fwd bf16's online softmax (csrc/flash_attn.cu, FwdCfg)
 FWD_BF16_KEYS = 64
+
+
+def fwd_bf16_keys(d: int) -> int:
+    """Keys a tile of B3 fwd bf16's online softmax at instance width ``d``:
+    32 at 256, ``FWD_BF16_KEYS`` below (``csrc/flash_attn.cu``, ``FwdCfg``)."""
+    return 32 if d == 256 else FWD_BF16_KEYS
 
 Salt = Tuple[int, int]
 

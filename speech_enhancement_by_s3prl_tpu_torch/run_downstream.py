@@ -24,6 +24,16 @@ the upstream and the second one (``--upstream2`` / ``--ckpt2`` /
 ``--pseudo_noise`` add the train batch's pseudo wavs to the media.
 ``--trainset NoisyCleanDataset`` reads paired corpora.
 
+``--mesh D`` (or ``Dx1``) trains on D data-parallel ranks (``parallel/``),
+``batch_size`` the global batch. Under ``torchrun`` (``RANK`` set) each
+process joins the process group as its rank; otherwise the CLI starts its D
+ranks itself, with the ``spawn`` start method and a rendezvous file of its
+own, so the JAX command line runs as it is (``--mesh 1x1`` joins a group of
+one in this process). A rank on ``cuda`` computes on card ``LOCAL_RANK``
+over NCCL, so a node needs a card for each of its ranks (torchrun's
+``LOCAL_WORLD_SIZE``, or D); one on ``cpu`` (``--device cpu``) runs gloo.
+``--mesh DxM`` with M > 1 (tensor parallelism) is refused (ROADMAP A12b).
+
 The flag names of the ported subset are the JAX CLI's. Settings take
 precedence as there: a ``--resume`` checkpoint's saved args and config win
 over the CLI, which wins over the YAML file (the ``--train_speech`` /
@@ -49,6 +59,8 @@ from . import use_full_fp32
 from .models.heads import build_head
 from .ops.features import OnlinePreprocessor, get_feat_config
 from .models.upstream import build_upstream
+from .parallel.distributed import initialize_distributed, topology_summary
+from .parallel.mesh import make_mesh, parse_mesh
 from .runner.checkpoint import find_resume_ckpt, load_checkpoint, load_settings
 from .runner.runner import Runner
 from .utils.config import update_args
@@ -130,9 +142,11 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_iterate", type=int)
     parser.add_argument("--sync_sampler", action="store_true")
     parser.add_argument("--test_gradient", action="store_true")
-    # flags of the JAX CLI whose features are not ported: the Runner refuses them
+    parser.add_argument("--mesh", default=None,
+                        help="D or Dx1: data-parallel training over D ranks (DxM with M > 1 "
+                        "is not ported yet, ROADMAP A12b)")
+    # a flag of the JAX CLI whose feature is not ported: the Runner refuses it
     parser.add_argument("--profile", action="store_true")
-    parser.add_argument("--mesh", default=None)
     return parser
 
 
@@ -264,12 +278,65 @@ def build_runner(args, config) -> Runner:
         args, input_dim, tar_linear_dim, config,
         generator=torch.Generator().manual_seed(args.seed),
     )
-    return Runner(args, config, preprocessor, model, expdir, args.device, upstream,
+    device = args.device
+    if device == "cuda" and torch.distributed.is_initialized():
+        device = f"cuda:{torch.cuda.current_device()}"  # the rank's card
+    return Runner(args, config, preprocessor, model, expdir, device, upstream,
                   pseudo_upstreams=pseudo_upstreams)
 
 
-def main(argv=None):
+def _rank_main(rank: int, argv, init_method: str, world: int):
+    """A rank that the CLI started itself (``--mesh D`` outside torchrun)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    main(argv, init_method=init_method, world=world, rank=rank)
+
+
+def _spawn_ranks(argv, world: int):
+    """Run ``main(argv)`` on ``world`` ranks, each a process started with
+    ``spawn`` (CUDA cannot be forked), meeting through a file in a fresh
+    temporary directory."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        mp.start_processes(_rank_main, args=(list(argv), init, world), nprocs=world,
+                           start_method="spawn")
+
+
+def main(argv=None, init_method=None, world=None, rank=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, config = get_downstream_args(argv)
+    if args.mesh:
+        data, model = parse_mesh(args.mesh)
+        if model != 1:
+            make_mesh(data, model)  # refuses the model axis (ROADMAP A12b)
+        if init_method is None and "RANK" not in os.environ:
+            if data > 1:
+                return _spawn_ranks(argv, data)
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                return main(argv, "file://" + os.path.join(tmp, "rendezvous"), 1, 0)
+        # the ranks of this node each need a card of their own: under torchrun
+        # LOCAL_WORLD_SIZE of them, else the D that the CLI spawned here
+        env = os.environ
+        local = (int(env.get("LOCAL_WORLD_SIZE", env.get("WORLD_SIZE", data)))
+                 if "RANK" in env else data)
+        if args.device == "cuda" and torch.cuda.device_count() < local:
+            raise ValueError(f"mesh {args.mesh}: {local} ranks on this node need {local} "
+                             f"cards, have {torch.cuda.device_count()}")
+        initialize_distributed(init_method, world, rank, device=args.device)
+        try:
+            print(f"[distributed] {topology_summary()}", flush=True)
+            return _run(args, config)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _run(args, config)
+
+
+def _run(args, config):
     random.seed(args.seed)
     np.random.seed(args.seed)
     runner = build_runner(args, config)
@@ -277,7 +344,8 @@ def main(argv=None):
     if args.test:
         runner.evaluate()
     elif args.test_gradient:
-        runner.test_gradient()
+        if runner.is_main:
+            runner.test_gradient()
     else:
         runner.train()
 

@@ -43,8 +43,18 @@ splits.
   figure of an objective that has a logger (``WSD``); at step 1, the record
   split and its pseudo wavs (``record/*``) when they are made.
 
-Not ported yet, each refused with its ROADMAP item: ``--mesh`` (A12) and
-``--profile`` (A11).
+``--mesh D`` (or ``Dx1``): data parallelism over the D ranks of the process
+group (``parallel/``): ``batch_size`` is the global batch, which D must
+divide; every rank iterates the same loader and trains on its rows of each
+batch (``make_parallel_train_step``); an eval batch that D divides is scored
+a rank's rows each (``make_parallel_eval_step``), any other batch by the
+single-device step on every rank. Rank 0 alone writes ``scalars.jsonl``,
+media and checkpoints, and runs the active sampler, whose batch it hands
+the other ranks (``broadcast_batch``); every rank reads ``--resume``,
+``--dckpt`` and ``--ckpt``.
+
+Not ported yet, each refused with its ROADMAP item: ``--mesh DxM`` with M > 1
+(A12b) and ``--profile`` (A11).
 """
 from __future__ import annotations
 
@@ -70,6 +80,13 @@ from ..models.torch_import import (
     pretrained_head_params,
 )
 from ..objectives import build_objective
+from ..parallel.mesh import (
+    broadcast_batch,
+    make_mesh,
+    make_parallel_eval_step,
+    make_parallel_train_step,
+    parse_mesh,
+)
 from ..utils.plotting import boxplot_png
 from . import checkpoint as ckpt_lib
 from .media import MediaLog
@@ -96,6 +113,13 @@ def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+class _Silent:
+    """The scalar and media logs of a rank other than 0: they write nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class Runner:
     """The training and evaluation lifecycle on ``device``. ``upstream``
     (models/upstream.py) feeds the head in the upstream mode.
@@ -112,9 +136,17 @@ class Runner:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Runner on cuda, but there is no CUDA device")
-        for flag, item in (("mesh", "A12"), ("profile", "A11")):
-            if getattr(args, flag, None):
-                _refuse(f"--{flag}", item)
+        if getattr(args, "profile", None):
+            _refuse("--profile", "A11")
+        # --mesh D / Dx1: this process is one of the D data-parallel ranks
+        self.mesh = None
+        if getattr(args, "mesh", None):
+            data, model = parse_mesh(args.mesh)
+            self.mesh = make_mesh(data, model)
+            if config["dataloader"]["batch_size"] % data:
+                raise ValueError("batch_size must divide the data axis")
+        self.is_main = self.mesh is None or self.mesh.is_main
+        self.eval_step_parallel = None
 
         self.preprocessor = preprocessor
         self.downstream_model = downstream.to(self.device)
@@ -127,8 +159,8 @@ class Runner:
         self.score_generator = torch.Generator().manual_seed(int(args.seed))
         self.expdir = expdir
         self.global_step = 1
-        self.log = ScalarLog(expdir)
-        self.media = MediaLog(expdir, preprocessor, self.device)
+        self.log = ScalarLog(expdir) if self.is_main else _Silent()
+        self.media = MediaLog(expdir, preprocessor, self.device) if self.is_main else _Silent()
 
         self.metric_names = list(self.rconfig["eval_metrics"])
         check_metrics(self.metric_names)
@@ -190,6 +222,10 @@ class Runner:
             self._warm_start_downstream(dckpt)
         if getattr(self.args, "resume", None):
             self.load_model(self.args.resume)
+        if self.mesh is not None:
+            self.train_step, self.state = make_parallel_train_step(
+                self.builder, self.mesh, self.state)
+            self.eval_step_parallel = make_parallel_eval_step(self.builder, self.mesh)
 
     def _load_pretrained_head_weights(self):
         """SpecHead / Mockingjay: overlay the converted S3PRL blobs onto the
@@ -253,6 +289,8 @@ class Runner:
         self.global_step = step
 
     def save_model(self, save_type: Optional[str] = None):
+        if not self.is_main:
+            return
         save_dir = (
             self.expdir if save_type is None else os.path.join(self.expdir, save_type)
         )
@@ -454,6 +492,10 @@ class Runner:
             trainloader = self.get_dataloader(trainset)
         active_sampling = bool(getattr(self.args, "active_sampling", False))
         async_sampler = getattr(self.args, "sampler_device", None) is not None
+        # under a mesh of several ranks the sampler runs on rank 0, which
+        # hands its batch to the others each step
+        shared = self.mesh is not None and self.mesh.data > 1 and (
+            sync or async_sampler or active_sampling)
         pseudo_media = [(flag, i) for i, flag in enumerate(("pseudo_clean", "pseudo_noise"))
                         if getattr(self.args, flag, False)]
         active_samples: Dict[int, Dict[int, list]] = defaultdict(lambda: defaultdict(list))
@@ -470,7 +512,7 @@ class Runner:
                 cases = batch[2] if len(batch) == 3 else None
                 media_loggers = []
 
-                if async_sampler:
+                if async_sampler and self.is_main:
                     if self.sampler is None or not self.sampler.alive:
                         # a sampler that died raises its error, never restarts
                         self._kill_sampler()
@@ -479,7 +521,7 @@ class Runner:
                         for key, samples in self.sampler.collect().items():
                             active_samples[self.global_step][key] += samples
 
-                if sync:
+                if sync and self.is_main:
                     try:
                         q_lengths, q_wavs, _ = next(query_iter)
                     except StopIteration:
@@ -502,7 +544,7 @@ class Runner:
                     if len(is_match):
                         media_loggers.append((matched, "active/match"))
 
-                if active_sampling:
+                if active_sampling and self.is_main:
                     prev = self.global_step - int(self.rconfig["active_refresh_step"])
                     if prev > 1:
                         active_samples.pop(prev, None)
@@ -518,6 +560,8 @@ class Runner:
                         chosen = [random.choice(merged[t])["wavs"] for t in types]
                         lengths, wavs = (torch.from_numpy(x).to(self.device)
                                          for x in trainloader._collate(chosen)[:2])
+                if shared:
+                    lengths, wavs = broadcast_batch((lengths, wavs), self.mesh, self.device)
 
                 self.state, stats = self.train_step(self.state, wavs, lengths)
                 loss_sum += float(stats["loss"])
@@ -529,19 +573,20 @@ class Runner:
                     self.log.add_scalar("loss", loss_avg, self.global_step)
                     self.log.add_scalar("gradient norm", last_norm, self.global_step)
                     self.log.add_scalar("steps_per_sec", steps_s, self.global_step)
-                    print(
-                        f"[runner] step {self.global_step}/{total_steps} | "
-                        f"loss {loss_avg:.5f} | grad_norm {last_norm:.4f} | "
-                        f"{steps_s:.2f} steps/s",
-                        flush=True,
-                    )
+                    if self.is_main:
+                        print(
+                            f"[runner] step {self.global_step}/{total_steps} | "
+                            f"loss {loss_avg:.5f} | grad_norm {last_norm:.4f} | "
+                            f"{steps_s:.2f} steps/s",
+                            flush=True,
+                        )
                     t_start = time.time()
                     loss_sum = 0.0
-                    if getattr(self.objective, "has_logger", False):
+                    if self.is_main and getattr(self.objective, "has_logger", False):
                         self._dispatch_objective_logger(wavs, lengths)
 
                 media_now = media_step is not None and self.global_step % media_step == 0
-                if media_now:
+                if media_now and self.is_main:
                     for data, prefix in media_loggers:
                         for ch, tag in ((0, "noisy"), (1, "clean"), (2, "noise")):
                             if data.shape[1] > ch:
@@ -597,7 +642,11 @@ class Runner:
         wav_out = "full" if self.host_metric_names else "first"
         for indice, batch in enumerate(device_prefetch(dataloader, self.device)):
             lengths, wavs = batch[0], batch[1]
-            out = self.builder.eval_step(wavs, lengths, wav_out=wav_out)
+            # under a mesh a batch the ranks divide is scored a rank's rows each
+            if self.eval_step_parallel is not None and len(lengths) % self.mesh.data == 0:
+                out = self.eval_step_parallel(wavs, lengths, wav_out=wav_out)
+            else:
+                out = self.builder.eval_step(wavs, lengths, wav_out=wav_out)
             loss_sum += float(out["loss"])
             batch_scores = {
                 name: float(vals.mean()) for name, vals in out["scores"].items()
@@ -622,7 +671,8 @@ class Runner:
         loss_avg = loss_sum / n_batches
         scores_avg = scores_sum / n_batches
         named = ", ".join(f"{m} {v:.4f}" for m, v in zip(self.metric_names, scores_avg))
-        print(f"[runner] evaluate: loss {loss_avg:.5f} | {named}", flush=True)
+        if self.is_main:
+            print(f"[runner] evaluate: loss {loss_avg:.5f} | {named}", flush=True)
         return loss_avg, scores_avg, noisy_wavs, clean_wavs, enhanced_wavs
 
     # -- gradient diagnostic ---------------------------------------------

@@ -23,6 +23,12 @@ gradient norm, so a skipped step leaves both (the optimizer's count
 included) as they were, and the global step still advances. Parameters are
 updated in place in the model: the port's state is the model's own tensors.
 
+A data-parallel rank (``parallel/mesh.py``) runs the same train step on its
+rows of the global batch with ``reduce``: after the backward, the rank's loss
+and gradients become the global ones (``reduce.combine``, weighted by the
+objective's ``weight``), and the clip, the guard and the optimizer follow
+unchanged. The eval step's ``eval_step_weighted`` also returns that weight.
+
 The eval step decodes with the noisy phase, renormalizes to the target
 channel's level, and scores the objective and the metrics that have a
 batched version (``eval_metrics``: sisdr, stoi, estoi, pesq_nb, pesq_wb) on
@@ -169,19 +175,25 @@ class StepBuilder:
 
     # -- train ----------------------------------------------------------
     def train_step(self, state: TrainState, wavs: torch.Tensor, lengths: torch.Tensor,
-                   salts: Optional[SaltStream] = None):
+                   salts: Optional[SaltStream] = None, reduce=None):
         """One update. Returns (state, {'loss', 'grad_norm', 'skipped'}),
         the stats as device tensors (the caller reads them). ``salts``
-        replaces the step's own ``SaltStream(seed, state.host_step)``."""
+        replaces the step's own ``SaltStream(seed, state.host_step)``.
+        ``reduce`` (``parallel/mesh.StepReduce``): the batch is a rank's rows,
+        and the update is the global batch's (the module docstring)."""
         ctx = make_context(
             self.preprocessor, wavs, lengths, self.channel_inp, self.channel_tar
         )
         if salts is None:
             salts = SaltStream(self.seed, state.host_step)
+        if reduce is not None:
+            ctx["reduce_max"] = reduce.max
         names = list(state.params)
         with torch.enable_grad():
             loss, _ = self.loss_fn(ctx, salts)
             grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        if reduce is not None:
+            loss, grads = reduce.combine(loss, self.objective.weight(**ctx), grads)
         with torch.no_grad():
             grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
             # the reference's global clip before the optimizer step
@@ -203,13 +215,27 @@ class StepBuilder:
         return decode_wav(self.preprocessor, predicted, phase_inp, lengths, max_len,
                           target_level)
 
-    @torch.inference_mode()
     def eval_step(self, wavs: torch.Tensor, lengths: torch.Tensor, wav_out: str = "full"):
         """Loss, scores and waveforms of one batch. wav_out='first' returns
         only utterance 0 of the noisy / clean / enhanced waveforms."""
+        return self._eval(wavs, lengths, wav_out)[0]
+
+    @torch.inference_mode()
+    def eval_step_weighted(self, wavs: torch.Tensor, lengths: torch.Tensor,
+                           wav_out: str = "full", reduce_max=None):
+        """(``eval_step``'s dict, the objective's weight of the batch): a
+        data-parallel rank's eval (``parallel/mesh.make_parallel_eval_step``),
+        ``reduce_max`` the maximum across the ranks."""
+        out, ctx = self._eval(wavs, lengths, wav_out, reduce_max)
+        return out, self.objective.weight(**ctx)
+
+    @torch.inference_mode()
+    def _eval(self, wavs, lengths, wav_out, reduce_max=None):
         ctx = make_context(
             self.preprocessor, wavs, lengths, self.channel_inp, self.channel_tar
         )
+        if reduce_max is not None:
+            ctx["reduce_max"] = reduce_max
         predicted, aux = self._forward(ctx, train=False)
         max_len = wavs.shape[-1]
         wav_predicted = self.decode_wav(
@@ -235,7 +261,7 @@ class StepBuilder:
             "wav_predicted": keep(wav_predicted),
             "wav_inp": keep(ctx["wav_inp"]),
             "wav_tar": keep(ctx["wav_tar"]),
-        }
+        }, ctx
 
     # -- state ----------------------------------------------------------
     def init_state(self) -> TrainState:

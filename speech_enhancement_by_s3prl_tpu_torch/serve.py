@@ -25,7 +25,9 @@ needs no checkpoint and no model code, only torch, the port's op library
 (``build_artifact_enhancer``). With ``--artifact``, ``--target_level``,
 ``--upstream_ckpt`` / ``--dckpt`` and ``--fixed_batch`` are refused (they are
 export-time choices or need the checkpoint) and ``/stream`` answers 400.
-``--mesh`` (ROADMAP A12) is not ported and is refused.
+``--mesh N`` serves every group on N devices, one replica of the enhancer a
+device (``build_enhancer(mesh_n=)``); with ``--artifact`` it is refused, as
+the JAX server refuses it.
 
 ``build_enhancer(ckpt, device=...)`` (or ``build_artifact_enhancer(dir,
 sample_rate, device=...)``) returns ``enhance(wav) -> wav`` with
@@ -329,8 +331,9 @@ def _finish_enhancer(run_batch, buckets, sample_rate: int):
 
 
 def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -25.0,
-                   *, device, max_bucket_ms: int = 60000, round_pow2: bool = True,
-                   upstream_ckpt: str = "", dckpt: str = "", fixed_rows: int = 0):
+                   *, device, mesh_n: int = 0, devices=None, max_bucket_ms: int = 60000,
+                   round_pow2: bool = True, upstream_ckpt: str = "", dckpt: str = "",
+                   fixed_rows: int = 0):
     """``enhance(wav)`` on ``device``. ``device="cuda"`` with no card raises;
     nothing falls back to the CPU. ``enhance`` takes a request of any length
     (longer than the largest bucket: crossfaded windows); ``enhance.run_batch``
@@ -344,29 +347,60 @@ def build_enhancer(ckpt: str, sample_rate: int = 16000, target_level: float = -2
     co-riders by a bit. By default a group is padded to a power of two, and
     the products of other row counts may sum in another order (at most one
     16-bit step after quantization); the price of ``fixed_rows`` is the full
-    batch's compute for every group."""
-    device = _serving_device(device, "build_enhancer")
-    model, raw, buckets = build_raw_enhancer(
-        ckpt, sample_rate, target_level, device, max_bucket_ms,
-        upstream_ckpt=upstream_ckpt, dckpt=dckpt,
-    )
+    batch's compute for every group.
 
+    ``mesh_n`` > 0 serves on ``mesh_n`` devices (the JAX server's data-parallel
+    mesh): one replica of the enhancer a device, every group padded to a
+    multiple of ``mesh_n`` rows (and ``fixed_rows`` must be one) and cut into
+    ``mesh_n`` equal shards, each launched on its replica before any is waited
+    on, then joined on the host. Rows do not mix, so the output is the
+    single-device enhancer's up to the rounding of another batch shape (as
+    above). The devices are the first
+    ``mesh_n`` cards, or ``mesh_n`` replicas on the CPU for ``device="cpu"``;
+    ``devices`` names them (two replicas may share a card)."""
+    device = _serving_device(device, "build_enhancer")
+    if mesh_n:
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if device.type == "cuda" else [device] * mesh_n)
+        devices = [torch.device(d) for d in devices][:mesh_n]
+        if len(devices) != mesh_n:
+            raise ValueError(f"--mesh {mesh_n} but only {len(devices)} devices visible")
+    else:
+        devices = [device]
+    replicas = [build_raw_enhancer(ckpt, sample_rate, target_level, d, max_bucket_ms,
+                                   upstream_ckpt=upstream_ckpt, dckpt=dckpt)
+                for d in devices]
+    model, raw, buckets = replicas[0]
+
+    batch_round = mesh_n or 1
+    if fixed_rows:
+        # every group rounds up to a multiple of fixed_rows, which keeps the
+        # mesh's divisibility
+        if fixed_rows % batch_round:
+            raise ValueError(f"fixed_rows {fixed_rows} must divide evenly over the "
+                             f"{batch_round}-way mesh")
+        batch_round = fixed_rows
     # --fixed_batch: exactly fixed_rows rows (rounding to a power of two first
     # would give a max_batch of 6 two shapes, 6 and 8 -> 12 rows)
-    batch_round = fixed_rows or 1
     round_pow2 = round_pow2 and not fixed_rows
 
     def run_batch(wavs) -> list:
         _check_rows(wavs, buckets)
         batch, lens = _pad_group(wavs, buckets, batch_round, round_pow2)
-        out = raw.enhance_raw(
-            torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device)
-        ).cpu().numpy()
+        # every shard launched before any is waited on, then joined on the host
+        per = len(batch) // len(devices)
+        outs = [rep_raw.enhance_raw(torch.from_numpy(batch[i * per:(i + 1) * per]).to(d),
+                                    torch.from_numpy(lens[i * per:(i + 1) * per]).to(d))
+                for i, (d, (_, rep_raw, _)) in enumerate(zip(devices, replicas))]
+        outs = [o.cpu().numpy() for o in outs]
+        out = outs[0] if len(outs) == 1 else np.concatenate(outs)
         return [out[k, : len(w)] for k, w in enumerate(wavs)]
 
     enhance = _finish_enhancer(run_batch, buckets, sample_rate)
     enhance.model = model
     enhance.stream_ctx = raw.stream_ctx
+    enhance.devices = devices
     return enhance
 
 
@@ -464,7 +498,8 @@ def get_parser() -> argparse.ArgumentParser:
                     help=">1 serves requests concurrently and coalesces concurrent "
                          "/enhance requests into micro-batched device batches")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="multi-device serving is not ported yet (ROADMAP A12)")
+                    help="serve each batch on N devices, one replica a device "
+                         "(data-parallel; pairs with --workers)")
     ap.add_argument("--max_batch", type=int, default=16,
                     help="micro-batch size cap (workers mode)")
     ap.add_argument("--batch_window_ms", type=float, default=3.0,
@@ -500,11 +535,11 @@ def make_server(argv=None) -> HTTPServer:
     ``enhance`` and ``stream_proto`` (None when /stream is unavailable)."""
     ap = get_parser()
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh is not ported yet (ROADMAP A12)")
     if bool(args.ckpt) == bool(args.artifact):
         ap.error("pass exactly one of --ckpt / --artifact")
     if args.artifact:
+        if args.mesh:
+            ap.error("--artifact serving is single-device (no --mesh)")
         if args.target_level is not None:
             ap.error("--target_level is baked into the artifact at export time (re-export "
                      "with tools/export_model.py to change it)")
@@ -521,8 +556,8 @@ def make_server(argv=None) -> HTTPServer:
         enhance = build_enhancer(
             args.ckpt, args.sample_rate,
             -25.0 if args.target_level is None else args.target_level,
-            device=args.device, upstream_ckpt=args.upstream_ckpt, dckpt=args.dckpt,
-            fixed_rows=args.max_batch if args.fixed_batch else 0,
+            device=args.device, mesh_n=args.mesh, upstream_ckpt=args.upstream_ckpt,
+            dckpt=args.dckpt, fixed_rows=args.max_batch if args.fixed_batch else 0,
         )
     # warm up, so that the first request does not pay the kernels' builds
     enhance(np.zeros(args.sample_rate, np.float32))

@@ -58,6 +58,12 @@ CASES = [  # B, T, N, D, rate, kbias, batch0
     (2, 67, 4, 8, 0.1, True, 0),
     (3, 33, 2, 16, 0.3, True, 5),
     (1, 101, 4, 8, 0.5, False, 2),
+    # the card's widest instance (3 heads of 256: a 768 encoder), and 192,
+    # which it runs zero-padded to 256 (4 heads)
+    (2, 24, 3, 256, 0.0, True, 0),
+    (2, 24, 3, 256, 0.1, True, 3),
+    (2, 20, 4, 192, 0.0, True, 0),
+    (2, 20, 4, 192, 0.1, True, 1),
 ]
 
 
@@ -137,10 +143,11 @@ def test_function_saves_no_mask_and_counts_no_launch_on_cpu():
 
 
 def test_instance_width_pads_to_the_next_kernel_instance():
-    assert [A.instance_width(d) for d in (8, 16, 32, 33, 48, 64, 96, 128)] == \
-        [32, 32, 32, 64, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        A.instance_width(256)
+    assert [A.instance_width(d) for d in (8, 16, 32, 33, 48, 64, 96, 128, 129, 192, 256)] == \
+        [32, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256]
+    with pytest.raises(ValueError, match="up to 256"):
+        A.instance_width(257)
+    assert [A.fwd_bf16_keys(d) for d in (32, 64, 128, 256)] == [64, 64, 64, 32]
     x = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(2, 3, 20)
     padded = A.pad_heads(x, 4, 8)
     assert padded.shape == (2, 3, 32) and padded.is_contiguous()
@@ -150,11 +157,11 @@ def test_instance_width_pads_to_the_next_kernel_instance():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 48])
+@pytest.mark.parametrize("D", [16, 48, 192])
 def test_padded_heads_give_the_unpadded_attention(D, dtype):
     """What the CUDA wrappers do at a head width between the kernels'
     instances: each head zero-padded to the next instance (16 -> 32, 48 ->
-    64), the true D's scale, the padded columns cut off out and off dq, dk,
+    64, 192 -> 256), the true D's scale, the padded columns cut off out and off dq, dk,
     dv. On the plain versions the padded call gives the unpadded one (the
     same products plus zeros, the same mask: the hash never reads D), forward
     and gradient, f32 and bf16, with dropout live and a key bias."""

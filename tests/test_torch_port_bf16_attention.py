@@ -42,6 +42,10 @@ CASES = [  # B, T, N, D, rate, kbias, batch0
     (2, 40, 2, 16, 0.0, False, 0),
     (2, 40, 2, 16, 0.25, False, 0),
     (2, 37, 2, 16, 0.25, True, 1),
+    # the card's widest instance (3 heads of 256), and 192 (4 heads), which
+    # it runs zero-padded to 256
+    (2, 24, 3, 256, 0.0, True, 0),
+    (2, 20, 4, 192, 0.1, True, 1),
 ]
 # lse: the same f32 softmax of the same f32 logits, summed in other orders
 LSE_RTOL = 1e-6
@@ -187,6 +191,7 @@ MODEL_CASES = [
     (2, 70, 4, 32, 0.2, True),
     (2, 70, 2, 128, 0.2, False),
     (2, 130, 2, 64, 0.0, False),
+    (2, 130, 3, 256, 0.1, True),
 ]
 # chip_smoke.py's limits on the kernel against the plain version
 MODEL_OUT_ULPS, MODEL_LSE_RTOL = 2.0, 1e-5
@@ -202,7 +207,7 @@ def test_online_softmax_model_meets_the_cards_limits(case):
     kbias = None if kb is None else torch.from_numpy(kb)
     args = (D ** -0.5, rate, (0x9E3779B9, 0xDEADBEEF), kbias, 3)
     tq, tk, tv = _torch(q), _torch(k), _torch(v)
-    out, lse = A.flash_fwd_bf16_model(tq, tk, tv, *args, n_heads=N)
+    out, lse = A.flash_fwd_bf16_model(tq, tk, tv, *args, n_heads=N, keys=A.fwd_bf16_keys(D))
     ref, ref_lse = A.flash_attention_ref(tq, tk, tv, *args, n_heads=N)
     assert out.dtype == BF16 and out.shape == ref.shape and lse.shape == ref_lse.shape
     err = float((out.float() - ref.float()).abs().max())

@@ -316,7 +316,7 @@ def test_config_helpers_match_jax():
 
 
 @pytest.mark.parametrize("case,item", [
-    (("--mesh=2x1",), "A12"), (("--profile",), "A11"),
+    (("--mesh=2x2",), "A12b"), (("--profile",), "A11"),
 ])
 def test_runner_refuses_what_is_not_ported(corpus, tmp_path, case, item):
     config = _config(corpus)

@@ -423,13 +423,14 @@ def test_stream_on_a_bidirectional_checkpoint_answers_400(ckpts):
 
 
 def test_refused_flags_and_the_card_default(ckpts, capsys):
-    """--mesh is not ported (A12); --ckpt / --artifact follow the JAX
-    server's rules: exactly one of them, and with --artifact no
+    """--ckpt / --artifact follow the JAX server's rules: exactly one of
+    them, and with --artifact no --mesh (artifact serving is single-device),
     --target_level, --upstream_ckpt / --dckpt or --fixed_batch (export-time
     choices, or the checkpoint's)."""
     ckpt = ["--ckpt", ckpts[False]]
     art = ["--artifact", "no-artifact-dir"]
-    for argv, item in ((ckpt + ["--mesh", "2"], "A12"), (ckpt + art, "exactly one"),
+    for argv, item in ((art + ["--mesh", "2"], "--artifact serving is single-device"),
+                       (ckpt + art, "exactly one"),
                        ([], "exactly one of --ckpt"),
                        (art + ["--target_level", "-20"], "--target_level is baked"),
                        (art + ["--upstream_ckpt", "x"], "export time"),
