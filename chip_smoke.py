@@ -251,6 +251,29 @@ Phases, one line each:
      4-10 s, within one 16-bit step of the single-device enhancer; and (e)
      times, not judged: the mesh-1 step beside the step without a mesh and
      its all-reduce, the two-rank step (gloo stages through the host).
+ 18. tensor, pipeline and sequence parallelism (``parallel/``): (a) B3's
+     four kernels (f32 and bf16, fwd and bwd) on heads [6, 12) of 12 at
+     ``head0`` 6 (B=6, T=1001, D=64, rate 0.1) bit for bit those heads of the
+     full launch (out, lse, dq, dk, dv), and the same heads launched as heads
+     0-5 of their own giving other outputs; (b) ``--mesh 1x2`` and ``2x2``
+     as two and four gloo ranks on this card (spawned, each group with its
+     own limit), against one process on the global batches: B3 at each
+     rank's rows and heads (batch0, head0) bit for bit the single launch's;
+     the flagship 3 B=6 steps of ragged 10 s rows and the full Mockingjay
+     finetune (dropout 0.1) 2 steps through the tensor-parallel train step,
+     loss and gradient norm within 1e-5, the update of the gathered
+     parameters within 1e-3 of the single process's, every hidden-dropout
+     mask the single process's rows bit for bit and B3 called at its salts,
+     batch0 and head0, the replicated parameters bit for bit in each model
+     group, B2 fwd / bwd and B3 fwd / bwd launched on every rank; (c) the
+     12 x 10 s eval batch over the four ranks of 2x2, loss and scores within
+     1e-5; (d) ``pipeline_lstm`` on three ranks of 2x2 (H = 256, B = 6,
+     T = 1001, 7 chunks) within 2e-5 of the one-direction ``LSTMStack``, B1
+     launched 7 times a rank with the carried state; (e)
+     ``sequence_parallel_encoder`` at full width (B = 4, T = 1000) at (data,
+     seq) = (1, 2) and (2, 2) within 1e-4 of the single-process encoder; and
+     (f) times, not judged: the mesh steps beside one process (gloo stages
+     through the host, and the ranks share the card).
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -6450,6 +6473,458 @@ def data_parallel_phase(torch, card, tmp):
             "seconds": seconds}
 
 
+# model parallelism on the card (phase 18): B3 keyed on a head offset, then
+# --mesh 1x2 and 2x2 (gloo ranks on this one card: NCCL refuses two ranks on
+# one device) against one process on the global batches, the eval over the
+# four ranks of 2x2, the wavefront pipeline and the sequence-parallel encoder
+# at full width
+MP_MESHES = (("1x2", 1, 2), ("2x2", 2, 2))
+MP_FLAGSHIP_STEPS, MP_MJ_STEPS, MP_TIMED_STEPS = 3, 2, 2
+# B3's four kernels on heads [6, 12) of 12 at head0 6, against the same heads
+# of the full launch: bit for bit (a head's tiles, sums and mask never read
+# another head)
+HEAD0_PROBE, HEAD0_FIRST = (6, 1001, 12, 64), 6
+# B3 at a rank's rows and heads against the single launch's: bit for bit
+MP_PROBE = (6, 301, 12, 64)
+# the pipeline: a layer a rank on the first PIPE_LAYERS ranks of 2x2, (B, T,
+# H), chunks, and its limit against the one-direction stack on the card (both
+# f32; B1's sums in other orders across the chunks' state hand-offs)
+PIPE_LAYERS, PIPE_SHAPE, PIPE_CHUNKS, PIPE_TOL = 3, (6, 1001, 256), 7, 2e-5
+# the sequence-parallel encoder (6 x 768 x 12, FFN 3072) on (B, T) frames of
+# the 80-d Mockingjay input, (data, seq) (1, 2) in the 1x2 world and (2, 2) in
+# 2x2, against the single-process encoder (the gathered keys change only the
+# order of the attention's sums)
+SEQ_SHAPE, SEQ_TOL = (4, 1000), 1e-4
+# a kernel's launches in each main-path run, a rank: (B1, B2 fwd, B2 bwd, B3
+# fwd, B3 bwd, B4, B5)
+MP_NAMES = ("lstm_bidir_tm", "lstm_bidir_tm_fc", "lstm_bidir_tm_bwd", "flash_attention_fwd",
+            "flash_attention_bwd", "stft_fused", "decode_ola")
+MP_WANT = {"flagship": [0, 3 * MP_FLAGSHIP_STEPS, 3 * MP_FLAGSHIP_STEPS, 0, 0,
+                        MP_FLAGSHIP_STEPS, 0],
+           "mockingjay": [0, 0, 0, MJ_LAYERS * MP_MJ_STEPS, MJ_LAYERS * MP_MJ_STEPS,
+                          MP_MJ_STEPS, 0],
+           "eval": [3, 0, 0, 0, 0, 1, 1], "pipeline": [PIPE_CHUNKS, 0, 0, 0, 0, 0, 0]}
+
+
+def head_offset_checks(torch, A, card):
+    """Phase 18 (a): each of B3's four kernels (f32 and bf16, fwd and bwd)
+    launched on heads [6, 12) of 12 at ``head0`` 6 against the same heads of
+    the full launch, and the same heads launched as heads 0-5 of their own
+    (other masks, so other outputs)."""
+    g = torch.Generator().manual_seed(SEED + 180)
+    B, T, N, D = HEAD0_PROBE
+    h0, n = HEAD0_FIRST, HEAD0_PROBE[2] - HEAD0_FIRST
+    cut = slice(h0 * D, N * D)
+    base = [torch.randn(B, T, N * D, generator=g).cuda() for _ in range(4)]
+    args = (D ** -0.5, 0.1, (0x2545F491, 0x9E3779B9), None, 0)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (x.to(dtype) for x in base)
+        out, lse = A.flash_attention_fwd(q, k, v, *args, n_heads=N)
+        grads = A.flash_attention_bwd(q, k, v, out, lse, dout, *args, n_heads=N)
+        part = [x[..., cut].contiguous() for x in (q, k, v, out, dout)]
+        heads = dict(n_heads=n, head0=h0, n_heads_total=N)
+        out2, lse2 = A.flash_attention_fwd(*part[:3], *args, **heads)
+        grads2 = A.flash_attention_bwd(*part[:3], part[3], lse[:, h0:].contiguous(), part[4],
+                                       *args, **heads)
+        out0, _ = A.flash_attention_fwd(*part[:3], *args, n_heads=n)
+        torch.cuda.synchronize()
+        pairs = [("out", out2, out[..., cut]), ("lse", lse2, lse[:, h0:])] + [
+            (name, a, b[..., cut]) for name, a, b in zip(("dq", "dk", "dv"), grads2, grads)]
+        same = {name: bool(torch.equal(a, b)) for name, a, b in pairs}
+        moved = not torch.equal(out0, out[..., cut])
+        res[str(dtype)] = same
+        print(f"[model] (a) B3 fwd / bwd {str(dtype)[6:]} on heads [{h0}, {N}) of {N} at head0 "
+              f"{h0} (B={B} T={T} D={D}, rate 0.1) against those heads of the full launch, "
+              f"bit for bit: {same}; the same heads as heads 0-{n - 1} of their own differ "
+              f"{moved} | {card}", flush=True)
+        if not (all(same.values()) and moved):
+            raise AssertionError(f"B3 at a head offset, {dtype}: {same}, moved {moved}")
+    return res
+
+
+def digest(arr) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def mp_recording():
+    """The hidden-dropout masks (forward and backward) as a digest a row, and
+    B3's calls as (salt, batch0, head0, heads in all, heads, rows), in order."""
+    import torch
+
+    from speech_enhancement_by_s3prl_tpu_torch.models import transformer as t_tf
+
+    rec = {"hidden": [], "b3": []}
+    hidden, flash = t_tf._hash_mask_apply, t_tf.flash_attention
+
+    def hidden_rec(x, salt, rate, batch0=0):
+        mask = (hidden(torch.ones_like(x), salt, rate, batch0) != 0).cpu().numpy()
+        rec["hidden"].append([digest(row) for row in mask])
+        return hidden(x, salt, rate, batch0)
+
+    def flash_rec(q, k, v, scale, rate=0.0, salt=(0, 0), kbias=None, batch0=0, *, n_heads,
+                  head0=0, n_heads_total=None):
+        rec["b3"].append((tuple(int(s) for s in salt), int(batch0), int(head0),
+                          n_heads_total or n_heads, n_heads, q.shape[0]))
+        return flash(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads, head0=head0,
+                     n_heads_total=n_heads_total)
+
+    t_tf._hash_mask_apply, t_tf.flash_attention = hidden_rec, flash_rec
+    try:
+        yield rec
+    finally:
+        t_tf._hash_mask_apply, t_tf.flash_attention = hidden, flash
+
+
+def mp_side(torch, mesh):
+    """Phase 18 (b)-(e) on one side: one process on the global batches
+    (``mesh`` None) or a rank of a (data, model) mesh on its rows and shards.
+    Returns what the parent compares, on the host."""
+    import torch.distributed as dist
+
+    from speech_enhancement_by_s3prl_tpu_torch.models.lstm import LSTMStack
+    from speech_enhancement_by_s3prl_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerEncoder,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.mesh import (
+        make_parallel_eval_step,
+        make_parallel_train_step,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.pipeline import (
+        make_pipe_mesh,
+        pipeline_lstm,
+        stack_lstm_params,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.sequence import (
+        make_seq_mesh,
+        sequence_parallel_encoder,
+    )
+
+    counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, A.flash_attention_fwd,
+               A.flash_attention_bwd, stft_kernel.stft_fused, decode_kernel.decode_ola)
+    data, model = (1, 1) if mesh is None else (mesh.data, mesh.model)
+    d, m = (0, 0) if mesh is None else (mesh.d, mesh.m)
+    world = data * model
+    res = {"counts": {}, "d": d, "m": m}
+
+    # B3 at this side's rows (batch0) and heads (head0), f32 and bf16
+    g = torch.Generator().manual_seed(SEED + 181)
+    B, T, N, D = MP_PROBE
+    rows, heads = B // data, N // model
+    mine, cols = slice(d * rows, (d + 1) * rows), slice(m * heads * D, (m + 1) * heads * D)
+    probe = [torch.randn(B, T, N * D, generator=g).cuda() for _ in range(4)]
+    res["probe"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (x.to(dtype)[mine][..., cols].contiguous() for x in probe)
+        args = (D ** -0.5, 0.1, (0x9E3779B9, 0x7F4A7C15), None, d * rows)
+        key = dict(n_heads=heads, head0=m * heads, n_heads_total=N)
+        out, lse = A.flash_attention_fwd(q, k, v, *args, **key)
+        grads = A.flash_attention_bwd(q, k, v, out, lse, dout, *args, **key)
+        res["probe"][str(dtype)] = [x.cpu() for x in (out, lse) + grads]
+
+    # (b) the flagship 3 steps and the Mockingjay joint finetune 2 steps, then
+    # timed steps
+    batches = [dp_batch(DP_SECONDS, SEED + 1800 + i)
+               for i in range(MP_FLAGSHIP_STEPS + MP_TIMED_STEPS)]
+    for name, kind, steps in (("flagship", "residual", MP_FLAGSHIP_STEPS),
+                              ("mockingjay", "mockingjay", MP_MJ_STEPS)):
+        builder = dp_builder(torch, kind)
+        state = builder.init_state()
+        first = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        step = builder.train_step
+        if mesh is not None:
+            step, state = make_parallel_train_step(builder, mesh, state)
+        stats = []
+        with mp_recording() as rec:
+            # -- the main path of the mesh step, between the reset and the reading --
+            reset_counts(counted)
+            for wavs, lengths in batches[:steps]:
+                state, st = step(state, torch.from_numpy(wavs).cuda(),
+                                 torch.from_numpy(lengths).cuda())
+                stats.append((float(st["loss"]), float(st["grad_norm"])))
+            res["counts"][name] = [fn.launches for fn in counted]
+            # -------------------------------------------------------------------
+        tp = getattr(step, "tp", None)
+        params = {k: v.detach().cpu().clone() for k, v in (
+            state.params if tp is None else tp.gather(state.params)).items()}
+        replicated = [v.detach().cpu().numpy() for k, v in sorted(state.params.items())
+                      if tp is None or k not in tp.sharded]
+        ms = []
+        for wavs, lengths in batches[steps:steps + MP_TIMED_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, torch.from_numpy(wavs).cuda(),
+                            torch.from_numpy(lengths).cuda())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[name] = {"stats": stats, "ms": ms, "rec": rec,
+                     "sharded": [] if tp is None else sorted(tp.sharded),
+                     "replicated": digest(np.concatenate([x.reshape(-1) for x in replicated]))}
+        if mesh is None or mesh.is_main:
+            res[name]["first"] = first
+            res[name]["params"] = params
+        del builder, state, step, params, tp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the 12 x 10 s eval batch over every rank of 2x2 (and the single process)
+    if mesh is None or world == 4:
+        builder = dp_builder(torch, "residual")
+        wavs, lengths = (torch.from_numpy(x).cuda()
+                         for x in dp_batch(DP_EVAL_SECONDS, SEED + 1899))
+        reset_counts(counted)
+        if mesh is None:
+            out = builder.eval_step(wavs, lengths)
+        else:
+            out = make_parallel_eval_step(builder, mesh)(wavs, lengths)
+        res["counts"]["eval"] = [fn.launches for fn in counted]
+        res["eval"] = {"loss": float(out["loss"]),
+                       "scores": {k: v.cpu() for k, v in out["scores"].items()}}
+        del builder
+
+    # (d) the wavefront pipeline on the first PIPE_LAYERS ranks of 2x2 (the
+    # single process: the one-direction stack)
+    if mesh is None or world == 4:
+        B, T, H = PIPE_SHAPE
+        gp = torch.Generator().manual_seed(SEED + 182)
+        stack = LSTMStack(H, H, PIPE_LAYERS, bidirectional=False, generator=gp).cuda()
+        x = torch.randn(B, T, H, generator=gp).cuda()
+        pipe = None if mesh is None else make_pipe_mesh(PIPE_LAYERS)
+        with torch.no_grad():
+            reset_counts(counted)
+            if mesh is None:
+                out = stack(x)
+            elif pipe is not None:
+                out = pipeline_lstm(x, stack_lstm_params(stack, PIPE_LAYERS), pipe,
+                                    n_chunks=PIPE_CHUNKS)
+            torch.cuda.synchronize()
+            res["counts"]["pipeline"] = [fn.launches for fn in counted]
+            res["carried"] = L.lstm_bidir_tm.carried
+        if mesh is None or pipe is not None:
+            res["pipeline"] = out.cpu()
+        del stack
+
+    # (e) the sequence-parallel encoder at full width, (data, seq) = (data, 2)
+    ge = torch.Generator().manual_seed(SEED + 183)
+    encoder = TransformerEncoder(TransformerConfig(input_dim=80), generator=ge).cuda().eval()
+    spec = torch.randn(*SEQ_SHAPE, 80, generator=ge).cuda()
+    if mesh is None:
+        with torch.no_grad():
+            res["sequence"] = encoder(spec).cpu()
+    else:
+        fn = sequence_parallel_encoder(encoder, make_seq_mesh(world, 2))
+        res["sequence"] = fn(spec).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(spec)
+        torch.cuda.synchronize()
+        res["sequence_ms"] = (time.perf_counter() - t0) * 1e3
+        dist.barrier()
+    return res
+
+
+def mp_rank(rank, world, model, out, init):
+    """Phase 18 (b)-(e): one of the gloo ranks of a (world // model, model)
+    mesh on card 0 (a process of its own, started with ``spawn``); writes
+    ``mp_side``'s results to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from speech_enhancement_by_s3prl_tpu_torch import use_full_fp32
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        topology_summary,
+    )
+    from speech_enhancement_by_s3prl_tpu_torch.parallel.mesh import make_mesh
+
+    use_full_fp32()
+    initialize_distributed(init, world, rank, device="cuda:0", backend="gloo")
+    try:
+        res = mp_side(torch, make_mesh(world // model, model))
+        res["topology"] = topology_summary()
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, world, args_of, timeout, what):
+    """Start ``world`` processes of ``target`` (``spawn``), wait for all of
+    them within ``timeout`` seconds, kill them past it; raise on a failure."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join()
+        raise AssertionError(f"{what}: a rank did not finish within {timeout} s")
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{what}: a rank failed: exit codes {[p.exitcode for p in procs]}")
+
+
+def model_parallel_phase(torch, card, tmp):
+    """Phase 18: tensor, pipeline and sequence parallelism on the card,
+    (a)-(f) of the module docstring. Returns the launches and the readings
+    for the summary."""
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+
+    t_phase = time.perf_counter()
+    head0 = head_offset_checks(torch, A, card)
+    single = mp_side(torch, None)
+    groups = {}
+    for tag, data, model in MP_MESHES:
+        world = data * model
+        outs = [os.path.join(tmp, f"mp{tag}_{r}.pt") for r in range(world)]
+        init = "file://" + os.path.join(tmp, f"rendezvous_{tag}")
+        spawn_ranks(mp_rank, world, lambda r: (r, world, model, outs[r], init),
+                    DP_RANK_TIMEOUT, f"--mesh {tag}")
+        groups[tag] = [torch.load(o, weights_only=False) for o in outs]
+        print(f"[model] (b) --mesh {tag} ranks: "
+              + "; ".join(r["topology"] for r in groups[tag]), flush=True)
+
+    worst, launches = {}, dict.fromkeys(MP_NAMES, 0)
+    for tag, data, model in MP_MESHES:
+        ranks = groups[tag]
+        rows, heads = DP_ROWS // data, MP_PROBE[2] // model
+        # B3 at each rank's rows and heads: bit for bit the single launch's
+        probe_same = all(
+            torch.equal(got, want[r["d"] * rows:(r["d"] + 1) * rows]
+                        [..., r["m"] * heads * MP_PROBE[3]:(r["m"] + 1) * heads * MP_PROBE[3]]
+                        if i != 1 else want[r["d"] * rows:(r["d"] + 1) * rows,
+                                            r["m"] * heads:(r["m"] + 1) * heads])
+            for r in ranks for dt in single["probe"]
+            for i, (got, want) in enumerate(zip(r["probe"][dt], single["probe"][dt])))
+        print(f"[model] (b) --mesh {tag}: B3 fwd / bwd, f32 and bf16, on each rank's {rows} "
+              f"rows and {heads} heads at its batch0 and head0 (B={MP_PROBE[0]} "
+              f"T={MP_PROBE[1]} {MP_PROBE[2]} x {MP_PROBE[3]}, rate 0.1): out, lse, dq, dk, "
+              f"dv bit for bit the single launch's rows and heads {probe_same} | {card}",
+              flush=True)
+        if not probe_same:
+            raise AssertionError(f"--mesh {tag}: B3 at a rank's batch0 / head0 differs")
+        for name in ("flagship", "mockingjay"):
+            want, a = single[name], ranks[0][name]
+            loss_rel = max(rel(x[0], y[0]) for x, y in zip(a["stats"], want["stats"]))
+            norm_rel = max(rel(x[1], y[1]) for x, y in zip(a["stats"], want["stats"]))
+            upd = {k: (a["params"][k] - a["first"][k]).double() for k in a["params"]}
+            ref = {k: (want["params"][k] - want["first"][k]).double() for k in want["params"]}
+            upd_rel = math.sqrt(sum(float((upd[k] - ref[k]).pow(2).sum()) for k in ref)
+                                / sum(float(ref[k].pow(2).sum()) for k in ref))
+            stats_same = all(r[name]["stats"] == a["stats"] for r in ranks)
+            repl_same = all(r[name]["replicated"] == s[name]["replicated"]
+                            for r in ranks for s in ranks if r["d"] == s["d"])
+            counts = [r["counts"][name] for r in ranks]
+            masks_ok, calls_ok = True, True
+            if name == "mockingjay":
+                n_all = MP_PROBE[2]
+                for r in ranks:
+                    got, ref_rec = r[name]["rec"], want["rec"]
+                    masks_ok &= len(got["hidden"]) == len(ref_rec["hidden"]) > 0 and all(
+                        g == w[r["d"] * rows:(r["d"] + 1) * rows]
+                        for g, w in zip(got["hidden"], ref_rec["hidden"]))
+                    calls_ok &= len(got["b3"]) == len(ref_rec["b3"]) == MJ_LAYERS * MP_MJ_STEPS
+                    calls_ok &= all(
+                        g == (w[0], r["d"] * rows, r["m"] * (n_all // model), n_all,
+                              n_all // model, rows)
+                        for g, w in zip(got["b3"], ref_rec["b3"]))
+            worst[(tag, name)] = (loss_rel, norm_rel, upd_rel)
+            shape = "3 x BLSTM 256, SISDR" if name == "flagship" else "6 x 768 x 12, dropout 0.1"
+            print(f"[model] (b) --mesh {tag} {name} ({shape}, "
+                  f"{len(a['stats'])} steps of {DP_ROWS} ragged 10 s rows) against one process: "
+                  f"loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e} (limit "
+                  f"{TRAIN_LOSS_TOL:.0e}), |update - update_single| / |update_single| of the "
+                  f"gathered parameters {upd_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); "
+                  f"{len(a['sharded'])} parameters sharded; every rank's stats the same "
+                  f"{stats_same}, replicated parameters bit for bit in each model group "
+                  f"{repl_same}"
+                  + (f"; {len(want['rec']['hidden'])} hidden-dropout masks the single "
+                     f"process's rows bit for bit {masks_ok}, B3 calls at the single process's "
+                     f"salts, batch0 and head0 {calls_ok}" if name == "mockingjay" else "")
+                  + f"; launches a rank (B1, B2 fwd, B2 bwd, B3 fwd, B3 bwd, B4, B5) {counts} "
+                  f"| {card}", flush=True)
+            if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL
+                    and upd_rel <= TRAIN_GRAD_TOL and stats_same and repl_same and masks_ok
+                    and calls_ok and a["sharded"] and all(c == MP_WANT[name] for c in counts)):
+                raise AssertionError(f"--mesh {tag} {name}: {worst[(tag, name)]}, stats "
+                                     f"{stats_same}, replicated {repl_same}, masks {masks_ok}, "
+                                     f"calls {calls_ok}, launches {counts}")
+
+    # (c) the eval batch over the four ranks of 2x2
+    ranks, ev = groups["2x2"], single["eval"]
+    eval_rel = max(rel(r["eval"]["loss"], ev["loss"]) for r in ranks)
+    score_rel = max(float(((r["eval"]["scores"][k] - v).abs() / v.abs()).max())
+                    for r in ranks for k, v in ev["scores"].items())
+    eval_counts = [r["counts"]["eval"] for r in ranks]
+    print(f"[model] (c) eval batch {len(DP_EVAL_SECONDS)} x 10 s (ragged) over the four ranks "
+          f"of 2x2 vs one process: loss rel {eval_rel:.3e}, per-row scores rel "
+          f"{score_rel:.3e} (limit 1e-5); launches a rank {eval_counts} | {card}", flush=True)
+    if not (eval_rel <= 1e-5 and score_rel <= 1e-5
+            and all(c == MP_WANT["eval"] for c in eval_counts)):
+        raise AssertionError(f"the 2x2 eval: loss {eval_rel}, scores {score_rel}, launches "
+                             f"{eval_counts}")
+
+    # (d) the pipeline on ranks 0-2 of 2x2
+    pipe_ranks = [r for r in ranks if "pipeline" in r]
+    pipe_err = max(float((r["pipeline"] - single["pipeline"]).abs().max()) for r in pipe_ranks)
+    pipe_counts = [(r["counts"]["pipeline"], r["carried"]) for r in pipe_ranks]
+    print(f"[model] (d) pipeline_lstm, {PIPE_LAYERS} ranks a layer each (H={PIPE_SHAPE[2]}, "
+          f"B={PIPE_SHAPE[0]}, T={PIPE_SHAPE[1]}, {PIPE_CHUNKS} chunks) vs the one-direction "
+          f"LSTMStack on the card: max |diff| {pipe_err:.3e} (limit {PIPE_TOL:.0e}); launches a "
+          f"rank (B1, ..., B5), B1 with a state {pipe_counts} | {card}", flush=True)
+    if not (len(pipe_ranks) == PIPE_LAYERS and pipe_err <= PIPE_TOL
+            and all(c == MP_WANT["pipeline"] and k == PIPE_CHUNKS for c, k in pipe_counts)):
+        raise AssertionError(f"the pipeline: {len(pipe_ranks)} ranks, err {pipe_err}, launches "
+                             f"{pipe_counts}")
+
+    # (e) the sequence-parallel encoder
+    seq_err = {tag: max(float((r["sequence"] - single["sequence"]).abs().max())
+                        for r in groups[tag]) for tag, _, _ in MP_MESHES}
+    print(f"[model] (e) sequence_parallel_encoder (6 x 768 x 12, B={SEQ_SHAPE[0]}, "
+          f"T={SEQ_SHAPE[1]}) vs the single-process encoder: max |diff| at (data, seq) = (1, 2) "
+          f"{seq_err['1x2']:.3e}, (2, 2) {seq_err['2x2']:.3e} (limit {SEQ_TOL:.0e}) | {card}",
+          flush=True)
+    if not all(e <= SEQ_TOL for e in seq_err.values()):
+        raise AssertionError(f"the sequence-parallel encoder: {seq_err}")
+
+    # (f) times, not judged
+    times = {tag: {name: statistics.median(groups[tag][0][name]["ms"])
+                   for name in ("flagship", "mockingjay")} for tag, _, _ in MP_MESHES}
+    one = {name: statistics.median(single[name]["ms"]) for name in ("flagship", "mockingjay")}
+    print(f"[time] (f) gloo ranks on one card (gloo stages each collective through the host; "
+          f"not a measure of a run on several cards), median of {MP_TIMED_STEPS} steps of "
+          f"B={DP_ROWS} 10 s: flagship " + ", ".join(
+              f"--mesh {t} {times[t]['flagship']:.3f} ms" for t in times)
+          + f", one process {one['flagship']:.3f} ms; Mockingjay " + ", ".join(
+              f"--mesh {t} {times[t]['mockingjay']:.3f} ms" for t in times)
+          + f", one process {one['mockingjay']:.3f} ms; the sequence-parallel encoder "
+          + ", ".join(f"{t} {groups[t][0]['sequence_ms']:.3f} ms" for t in times) + f" | {card}",
+          flush=True)
+    # launches of each kernel of phase 18's main-path runs, over every rank
+    for tag, _, _ in MP_MESHES:
+        for r in groups[tag]:
+            for counts in r["counts"].values():
+                for n, c in zip(MP_NAMES, counts):
+                    launches[n] += c
+    seconds = time.perf_counter() - t_phase
+    print(f"[model] phase 18 in {seconds:.1f} s | {card}", flush=True)
+    return {"launches": launches, "worst": worst, "eval": (eval_rel, score_rel),
+            "pipe_err": pipe_err, "seq_err": seq_err, "times": times, "one": one,
+            "head0": head0, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -7120,6 +7595,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         dp = data_parallel_phase(torch, card, tmp)
 
+    # 18. tensor, pipeline and sequence parallelism on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        mp_phase = model_parallel_phase(torch, card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -7560,6 +8039,10 @@ def main():
     for r in rows:
         if r["name"] in dp["launches"]:
             r["launches_data_parallel"] = dp["launches"][r["name"]]
+    # phase 18's launches: the mesh steps, the eval and the pipeline, every rank
+    for r in rows:
+        if r["name"] in mp_phase["launches"]:
+            r["launches_model_parallel"] = mp_phase["launches"][r["name"]]
     am = artifact["ms"]
     print(f"[artifact] the exported flagship ({len(ARTIFACT_ROWS)} device batches of "
           f"{list(ARTIFACT_ROWS)} rows from one program) against the live enhancer "
@@ -7580,6 +8063,19 @@ def main():
           f"all-reduce {one['allreduce_ms']:.4f}, two gloo ranks (host-staged) "
           f"{dp['two_ms']['SISDR']:.3f}, 8-row group on two replicas {sv['ms']:.3f} / one "
           f"{sv['ms_one']:.3f}; phase {dp['seconds']:.1f} s | {card}", flush=True)
+    mw = mp_phase["worst"]
+    print(f"[model] model parallelism: B3 at head0 bit for bit the full launch's heads "
+          f"(f32, bf16); (loss rel, grad norm rel, update rel) against one process "
+          + ", ".join(f"{tag} {name} ({v[0]:.2e}, {v[1]:.2e}, {v[2]:.2e})"
+                      for (tag, name), v in mw.items())
+          + f"; 2x2 eval (loss, scores) rel ({mp_phase['eval'][0]:.2e}, "
+          f"{mp_phase['eval'][1]:.2e}); pipeline {mp_phase['pipe_err']:.2e}; sequence "
+          f"{mp_phase['seq_err']}; ms (gloo, host-staged): "
+          + ", ".join(f"{tag} {v['flagship']:.3f} / {v['mockingjay']:.3f}"
+                      for tag, v in mp_phase["times"].items())
+          + f", one process {mp_phase['one']['flagship']:.3f} / "
+          f"{mp_phase['one']['mockingjay']:.3f} (flagship / Mockingjay); phase "
+          f"{mp_phase['seconds']:.1f} s | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,9 @@
 //   out_t = sum_k keep(bn, t, k) exp(s_k - m) v_k / (l * (1 - rate))
 //   lse[b, n, t] = m + log l
 // where keep() is the salted hash of flash_attn_common.cuh and bn the
-// absolute head index (batch0 + b) * N + n, so the mask is the JAX kernel's
-// bit for bit whatever the tiling.
+// absolute head index (batch0 + b) * N_total + head0 + n (HeadKey), so the
+// mask is the JAX kernel's bit for bit whatever the tiling, and a launch on
+// heads [head0, head0 + N) of N_total draws those heads' masks.
 //
 // What bounds it on this card: operations. The two T x T x D products of a
 // head are 18.5 GFLOP at B=6, T=1001, 12 x 64 against 0.07 GB moved. As f32
@@ -93,7 +94,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ kbias,
                  float* __restrict__ out, float* __restrict__ lse, int T, int N,
                  long long sb, long long st, float scale, float keep, uint32_t thresh,
-                 uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
+                 uint32_t s0, uint32_t s1, HeadKey key, int dropout, int vec) {
   constexpr int LD = D + 4;
   constexpr int DN = D / 8;      // 8-column tiles of out
   constexpr int CN = kWalk / 8;  // 8-key tiles of s
@@ -106,7 +107,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
   const long long head = (long long)b * sb + (long long)n * D;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -244,7 +245,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias, float* out,
            float* lse, int B, int T, int N, long long sb, long long st, float scale,
-           float keep, uint32_t thresh, uint32_t s0, uint32_t s1, int batch0, int dropout,
+           float keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key, int dropout,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd_smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -254,7 +255,7 @@ int launch(const float* q, const float* k, const float* v, const float* kbias, f
   const int vec = aligned16(q) && aligned16(k) && aligned16(v) && sb % 4 == 0 && st % 4 == 0;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
   flash_fwd_kernel<D><<<grid, kTileThreads, smem, stream>>>(
-      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, batch0, dropout,
+      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, key, dropout,
       vec);
   return (int)cudaGetLastError();
 }
@@ -349,7 +350,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ kbias,
                       bf16* __restrict__ out, float* __restrict__ lse, int T, int N,
                       float scale, float keep, uint32_t thresh, uint32_t s0, uint32_t s1,
-                      int batch0) {
+                      HeadKey key) {
   using P = hp::Panels<D>;
   using S = FwdSmem<D>;
   constexpr int kFwdK = S::kKeys, kFwdStages = S::kStages;
@@ -424,7 +425,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   hp::fence_proxy_async();
   hp::named_sync(1 + wg, 128);
 
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
   const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
                             fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
   float m[2] = {-INFINITY, -INFINITY};
@@ -527,7 +528,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias, bf16* out,
                 float* lse, int B, int T, int N, const long long* strides, float scale,
-                float keep, uint32_t thresh, uint32_t s0, uint32_t s1, int batch0,
+                float keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key,
                 int dropout, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ops[3] = {q, k, v};
@@ -544,7 +545,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kFwdQ - 1) / kFwdQ, N, B);
   kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], kbias, out, lse, T, N,
-                                              scale, keep, thresh, s0, s1, batch0);
+                                              scale, keep, thresh, s0, s1, key);
   return (int)cudaGetLastError();
 }
 
@@ -556,12 +557,14 @@ extern "C" {
 // Kernel B3 fwd. Launches on `stream` of `device` and returns
 // cudaGetLastError() (0 on success); does not synchronise. D is 32, 64,
 // 128 or 256; thresh is min(int((1 - rate) * 2^32), 2^32 - 1) and keep = 1 - rate,
-// both computed by the caller; dropout = 0 skips the hash (rate 0). out must
-// be 8-byte aligned (it is a whole allocation).
+// both computed by the caller; dropout = 0 skips the hash (rate 0). The
+// mask keys on flash::HeadKey{batch0, head0, n_total} (a launch on its own: 0, 0, N).
+// out must be 8-byte aligned (it is a whole allocation).
 int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* kbias,
                        void* out, void* lse, int B, int T, int N, int D, long long sb,
                        long long st, float scale, float keep, unsigned thresh, unsigned s0,
-                       unsigned s1, int batch0, int dropout, int device, void* stream) {
+                       unsigned s1, int batch0, int head0, int n_total, int dropout, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -575,16 +578,16 @@ int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* 
   switch (D) {
     case 32:
       return launch<32>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0, s1,
-                        batch0, dropout, s);
+                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 64:
       return launch<64>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0, s1,
-                        batch0, dropout, s);
+                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 128:
       return launch<128>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
-                         s1, batch0, dropout, s);
+                         s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 256:
       return launch<256>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
-                         s1, batch0, dropout, s);
+                         s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -600,7 +603,8 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
                         void* out, void* lse, int B, int T, int N, int D, long long sbq,
                         long long stq, long long sbk, long long stk, long long sbv,
                         long long stv, float scale, float keep, unsigned thresh, unsigned s0,
-                        unsigned s1, int batch0, int dropout, int device, void* stream) {
+                        unsigned s1, int batch0, int head0, int n_total, int dropout, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -615,16 +619,16 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
   switch (D) {
     case 32:
       return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
-                             s1, batch0, dropout, s);
+                             s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 64:
       return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
-                             s1, batch0, dropout, s);
+                             s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 128:
       return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
-                              s0, s1, batch0, dropout, s);
+                              s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 256:
       return launch_bf16<256>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
-                              s0, s1, batch0, dropout, s);
+                              s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

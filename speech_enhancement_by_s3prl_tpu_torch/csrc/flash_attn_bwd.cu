@@ -136,7 +136,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ di, float* __restrict__ dk,
                       float* __restrict__ dv, int T, int N, long long sb, long long st,
                       float scale, float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1,
-                      int batch0, int dropout, int vec) {
+                      HeadKey key, int dropout, int vec) {
   constexpr int LD = D + 4;
   constexpr int W = BwdTiles<D>::kRows;      // walked queries a stage
   constexpr int DO = BwdTiles<D>::kOut;      // dk / dv columns of this block
@@ -157,7 +157,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * sb + (long long)n * D;
   const long long ohead = (long long)b * T * H + (long long)n * D;  // contiguous tensors
   const long long bn_row = ((long long)b * N + n) * T;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -294,7 +294,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq, int T, int N,
                     long long sb, long long st, float scale, float inv_keep, uint32_t thresh,
-                    uint32_t s0, uint32_t s1, int batch0, int dropout, int vec) {
+                    uint32_t s0, uint32_t s1, HeadKey key, int dropout, int vec) {
   constexpr int LD = D + 4;
   constexpr int W = BwdTiles<D>::kRows;  // walked keys a stage
   constexpr int DN = D / 8;
@@ -312,7 +312,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * sb + (long long)n * D;
   const long long ohead = (long long)b * T * H + (long long)n * D;
   const long long bn_row = ((long long)b * N + n) * T;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -425,7 +425,7 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias,
            const float* out, const float* dout, const float* lse, float* di, float* dq,
            float* dk, float* dv, int B, int T, int N, long long sb, long long st, float scale,
-           float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1, int batch0, int dropout,
+           float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key, int dropout,
            cudaStream_t stream) {
   cudaError_t err;
   const long long rows = (long long)B * T * N;
@@ -446,7 +446,7 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
   dim3 grid_dkdv((T + kBK - 1) / kBK, N * (D / BwdTiles<D>::kOut), B);
   flash_bwd_dkdv_kernel<D><<<grid_dkdv, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dk, dv, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      batch0, dropout, vec);
+      key, dropout, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
@@ -456,7 +456,7 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
   flash_bwd_dq_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       q, k, v, kbias, dout, lse, di, dq, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      batch0, dropout, vec);
+      key, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -654,7 +654,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
                            const float* __restrict__ kbias, const float* __restrict__ lse,
                            const float* __restrict__ di, bf16* __restrict__ dk,
                            bf16* __restrict__ dv, int T, int N, uint32_t thresh, uint32_t s0,
-                           uint32_t s1, int batch0) {
+                           uint32_t s1, HeadKey key) {
   using P = hp::Panels<D>;
   using S = DkdvSmem<D>;
   using C = BwdCta<D>;
@@ -712,7 +712,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   const float kb[2] = {fb::key_bias(kbias, b, ka, T), fb::key_bias(kbias, b, ka + 8, T)};
   const uint32_t k_tile = sm.addr + S::kK + wg * 64 * P::kRowBytes;
   const uint32_t v_tile = sm.addr + S::kV + wg * 64 * P::kRowBytes;
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
 
   float dk_acc[DO / 2], dv_acc[DO / 2];
 #pragma unroll
@@ -808,7 +808,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
                          const __grid_constant__ CUtensorMap tks,
                          const float* __restrict__ kbias, const float* __restrict__ lse,
                          const float* __restrict__ di, bf16* __restrict__ dq, int T, int N,
-                         uint32_t thresh, uint32_t s0, uint32_t s1, int batch0) {
+                         uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key) {
   using P = hp::Panels<D>;
   using S = DqSmem<D>;
   using C = BwdCta<D>;
@@ -861,7 +861,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
   const float lse_r[2] = {qa < T ? lse[bn_row + qa] : INFINITY,  // queries >= T: p = 0
                           qa + 8 < T ? lse[bn_row + qa + 8] : INFINITY};
   const float di_r[2] = {qa < T ? di[bn_row + qa] : 0.f, qa + 8 < T ? di[bn_row + qa + 8] : 0.f};
-  const uint32_t bn = (uint32_t)((batch0 + b) * N + n);
+  const uint32_t bn = key.bn(b, n);
   const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
                             fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
   const uint32_t q_tile = sm.addr + S::kQ + wg * 64 * P::kRowBytes;
@@ -944,7 +944,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
                 const bf16* out, const bf16* dout, const float* lse, float* di, bf16* qs,
                 bf16* ks, bf16* dos, bf16* dq, bf16* dk, bf16* dv, int B, int T, int N,
                 const long long* strides, float scale, float keep, uint32_t thresh,
-                uint32_t s0, uint32_t s1, int batch0, int dropout, cudaStream_t stream) {
+                uint32_t s0, uint32_t s1, HeadKey key, int dropout, cudaStream_t stream) {
   cudaError_t err;
   const long long threads = (long long)B * T * N * (D / 8);
   flash_bwd_prep_bf16_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
@@ -979,7 +979,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
   // the dk/dv kernel's blockIdx.y also picks its columns (BwdCta::kOut)
   dkdv<<<dim3((T + R - 1) / R, N * (D / BwdCta<D>::kOut), B), BwdCta<D>::kThreads, smem_dkdv,
          stream>>>(
-      m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, thresh, s0, s1, batch0);
+      m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, thresh, s0, s1, key);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   auto dq_kernel =
@@ -989,7 +989,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
     return (int)err;
   dq_kernel<<<dim3((T + R - 1) / R, N, B), BwdCta<D>::kThreads, smem_dq, stream>>>(
       m_qs_res, m_do_res, m_k_walk, m_v_walk, m_ks, kbias, lse, di, dq, T, N, thresh, s0, s1,
-      batch0);
+      key);
   return (int)cudaGetLastError();
 }
 
@@ -1007,8 +1007,8 @@ int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* 
                        const void* out, const void* dout, const void* lse, void* di, void* dq,
                        void* dk, void* dv, int B, int T, int N, int D, long long sb,
                        long long st, float scale, float inv_keep, unsigned thresh,
-                       unsigned s0, unsigned s1, int batch0, int dropout, int device,
-                       void* stream) {
+                       unsigned s0, unsigned s1, int batch0, int head0, int n_total, int dropout,
+                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -1019,19 +1019,19 @@ int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* 
     case 32:
       return launch<32>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                        batch0, dropout, s);
+                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 64:
       return launch<64>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                        batch0, dropout, s);
+                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 128:
       return launch<128>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
                          m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                         batch0, dropout, s);
+                         flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 256:
       return launch<256>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
                          m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                         batch0, dropout, s);
+                         flash::HeadKey{batch0, head0, n_total}, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1051,8 +1051,8 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
                         void* qs, void* ks, void* dos, void* dq, void* dk, void* dv, int B,
                         int T, int N, int D, long long sbq, long long stq, long long sbk,
                         long long stk, long long sbv, long long stv, float scale, float keep,
-                        unsigned thresh, unsigned s0, unsigned s1, int batch0, int dropout,
-                        int device, void* stream) {
+                        unsigned thresh, unsigned s0, unsigned s1, int batch0, int head0,
+                        int n_total, int dropout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
@@ -1067,19 +1067,19 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
     case 32:
       return launch_bf16<32>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                             thresh, s0, s1, batch0, dropout, s);
+                             thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 64:
       return launch_bf16<64>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                             thresh, s0, s1, batch0, dropout, s);
+                             thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 128:
       return launch_bf16<128>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                               m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                              thresh, s0, s1, batch0, dropout, s);
+                              thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     case 256:
       return launch_bf16<256>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                               m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                              thresh, s0, s1, batch0, dropout, s);
+                              thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

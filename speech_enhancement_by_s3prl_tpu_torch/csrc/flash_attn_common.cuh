@@ -25,8 +25,20 @@ constexpr uint32_t kPhi2 = 2246822519u;
 constexpr uint32_t kPhi3 = 3266489917u;
 constexpr uint32_t kPhi4 = 40503u;
 
+// Where a launch's heads lie in the whole batch of heads: its row b is row
+// batch0 + b of the global batch (a data-parallel rank's rows) and its head n
+// is head head0 + n of n_total (a tensor-parallel rank's heads). The mask of
+// (b, n) keys on the absolute head index bn = (batch0 + b) * n_total + head0
+// + n; batch0 = head0 = 0 and n_total = N is the launch on its own.
+struct HeadKey {
+  int batch0, head0, n_total;
+  __device__ __forceinline__ uint32_t bn(int b, int n) const {
+    return (uint32_t)((batch0 + b) * n_total + head0 + n);
+  }
+};
+
 // The keep bit of attention-probability dropout at (absolute head index
-// bn = (batch0 + b) * N + n, query qi, key ki): bit for bit the JAX
+// bn = HeadKey::bn(b, n), query qi, key ki): bit for bit the JAX
 // package's _dropout_mask (ops/pallas/attention_kernel.py:71-95). uint32_t
 // arithmetic wraps modulo 2^32 as jnp.uint32 does.
 __device__ __forceinline__ bool keep_bit(uint32_t bn, uint32_t qi, uint32_t ki,

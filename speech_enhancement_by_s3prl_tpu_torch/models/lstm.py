@@ -78,11 +78,25 @@
   (``ROADMAP.md`` A13). B7 (``recurrence="fused"``) has no xw stream, as in
   the JAX package, and reads none of them.
 
+- Under tensor parallelism (``--mesh DxM``, ``parallel/mesh.py``) a stack's
+  ``tp`` (a ``parallel.mesh.ShardGather``) is set: each rank stores its gate
+  rows of every ``w_ih``, ``w_hh``, ``b_ih`` and ``b_hh`` (and the optimizer
+  their moments), and each forward first gathers the full tensors over the
+  model group, in one all-reduce; B2 fwd / B2 bwd (or B1) then run on the
+  rank's rows of the batch as without a model axis, and the backward keeps
+  the rank's rows of each gradient. So the M ranks of a model group compute
+  the same LSTM on the same rows: M times the LSTM's work, and every rank
+  the same bits. JAX partitions the gate products instead (its scan under
+  GSPMD), which is a collective in every step of the recurrence: 1001 steps
+  x 3 layers x 2 directions of them at the flagship's 10 s rows, against one
+  gather here, and the recurrence would no longer be one kernel.
+
 Initialization: xavier-uniform W_ih, orthogonal W_hh, zero biases.
 """
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -215,6 +229,18 @@ class LSTMStack(nn.Module):
                     f"l{k}_{name}", LstmDirParams(hidden_size, d_in, generator)
                 )
             d_in = hidden_size * len(dirs)
+        self.tp = None
+
+    def direction(self, k: int, name: str, full=None):
+        """Layer ``k``'s parameters of direction ``name`` ("fwd" | "bwd"):
+        the module itself, or under a model axis the gathered full tensors
+        ``full`` (``tp``'s result) under the same attribute names."""
+        own = getattr(self, f"l{k}_{name}")
+        if full is None:
+            return own
+        pre = f"l{k}_{name}."
+        return SimpleNamespace(**{a: full.get(pre + a, getattr(own, a))
+                                  for a in ("w_ih", "w_hh", "b_ih", "b_hh")})
 
     @property
     def recurrence(self) -> str:
@@ -248,8 +274,9 @@ class LSTMStack(nn.Module):
         xw_bf16, hs_bf16, vjp_bf16 = stream_forms()
         stream = lambda xw: xw.to(torch.bfloat16) if xw_bf16 else xw  # noqa: E731
         below = capture.layer if capture is not None and isinstance(capture.layer, int) else 0
+        full = None if self.tp is None else self.tp(self)
         for k in range(self.num_layers):
-            pf = getattr(self, f"l{k}_fwd")
+            pf = self.direction(k, "fwd", full)
             if not self.bidirectional:
                 # one direction on the leading axis: LstmBidirTm when a
                 # gradient is needed, B1 when not. In bf16 the JAX scan cell:
@@ -276,7 +303,7 @@ class LSTMStack(nn.Module):
                 x = hs[0]
                 final_states.append((h[0], c[0]))
                 continue
-            pb = getattr(self, f"l{k}_bwd")
+            pb = self.direction(k, "bwd", full)
             xs = torch.stack([x, torch.flip(x, dims=[1])], dim=0)  # (2, B, T, D)
             w_ih = torch.stack([pf.w_ih, pb.w_ih], dim=0)  # (2, 4H, D)
             bias = torch.stack([pf.b_ih + pf.b_hh, pb.b_ih + pb.b_hh], dim=0)

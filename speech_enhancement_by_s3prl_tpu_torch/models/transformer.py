@@ -229,6 +229,18 @@ def dense(fan_in: int, out: int, stddev: float, generator=None) -> Dense:
 
 
 class SelfAttention(nn.Module):
+    """Multi-head self-attention over the fused QKV projection.
+
+    ``tp`` (a ``parallel.mesh.ModelAxis``, set by ``parallel.mesh.shard_model``;
+    None: the whole layer) makes this the rank's share of a tensor-parallel
+    layer: ``qkv`` holds the q, k and v rows of heads [m N / M, (m + 1) N / M)
+    and ``output`` those heads' input columns; the input's gradient is
+    all-reduced over the model group, the output's partial products are
+    all-reduced before the bias, and B3 draws the unsharded masks of these
+    heads (``head0``). ``seq`` (``parallel.sequence.SeqAxis``, inference
+    only) is the sequence-parallel forward: the rank's queries against the
+    keys and values of the whole sequence, gathered over the seq group."""
+
     def __init__(self, config: TransformerConfig, generator=None,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -237,35 +249,51 @@ class SelfAttention(nn.Module):
         H, r = config.hidden_size, config.initializer_range
         self.qkv = dense(H, 3 * H, r, generator)  # fused q, k, v, in that order
         self.output = dense(H, H, r, generator)
+        self.tp = None
 
-    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None):
+    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None, seq=None):
         c = self.config
         H, N = c.hidden_size, c.num_attention_heads
         D = H // N
         scale = 1.0 / math.sqrt(D)
-        q, k, v = self.qkv(hidden.to(self.compute_dtype)).split(H, dim=-1)
+        tp = self.tp
+        x = hidden.to(self.compute_dtype)
+        n_local = N if tp is None else N // tp.size
+        if tp is not None:
+            x = tp.copy_in(x)
+        q, k, v = self.qkv(x).split(n_local * D, dim=-1)
+        if seq is not None:
+            k, v = seq.gather_time(k), seq.gather_time(v)
         rate = c.attention_probs_dropout_prob
         if self.training and rate > 0.0:
             if salts is None:
                 raise ValueError("attention dropout is live but no SaltStream was given")
+            if seq is not None:
+                raise ValueError("the sequence-parallel forward is deterministic")
+            heads = {} if tp is None else {"head0": tp.index * n_local, "n_heads_total": N}
             ctx = flash_attention(q, k, v, scale, rate, salts(), batch0=salts.batch0,
-                                  n_heads=N)
+                                  n_heads=n_local, **heads)
         else:
-            B, T, _ = q.shape
+            B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
 
-            def heads(x):
-                return x.reshape(B, T, N, D).transpose(1, 2)
+            def split(x, T):
+                return x.reshape(B, T, n_local, D).transpose(1, 2)
 
-            ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=scale)
-            ctx = ctx.transpose(1, 2).reshape(B, T, H)
-        out = self.output(ctx)
+            ctx = F.scaled_dot_product_attention(split(q, Tq), split(k, Tk), split(v, Tk),
+                                                 scale=scale)
+            ctx = ctx.transpose(1, 2).reshape(B, Tq, n_local * D)
+        out = self.output(ctx) if tp is None else tp.row_parallel(self.output, ctx)
         return hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
 
 
 class TransformerLayer(nn.Module):
     """Post-LN layer: attention + residual + LayerNorm, FFN + residual +
     LayerNorm, the residual sums in f32 (an f32 hidden plus a bf16 output
-    promotes to f32)."""
+    promotes to f32). ``ffn_tp`` (a ``parallel.mesh.ModelAxis``; None: the
+    whole FFN) makes the FFN the rank's share of a tensor-parallel one, as
+    ``SelfAttention.tp`` does the attention: ``intermediate`` holds the rank's
+    columns and ``output`` their rows. The LayerNorms and the hidden dropout
+    act on the replicated activations, so they draw the unsharded masks."""
 
     def __init__(self, config: TransformerConfig, generator=None,
                  compute_dtype: torch.dtype = torch.float32):
@@ -278,12 +306,18 @@ class TransformerLayer(nn.Module):
         self.intermediate = dense(H, config.intermediate_size, r, generator)
         self.output = dense(config.intermediate_size, H, r, generator)
         self.output_ln = nn.LayerNorm(H, eps=eps)
+        self.ffn_tp = None
 
-    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None):
+    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None, seq=None):
         c = self.config
-        hidden = self.attention_ln(hidden + self.attention(hidden, salts))
-        out = self.output(ACT2FN[c.hidden_act](self.intermediate(
-            hidden.to(self.compute_dtype))))
+        hidden = self.attention_ln(hidden + self.attention(hidden, salts, seq))
+        tp = self.ffn_tp
+        x = hidden.to(self.compute_dtype)
+        if tp is None:
+            out = self.output(ACT2FN[c.hidden_act](self.intermediate(x)))
+        else:
+            out = tp.row_parallel(self.output,
+                                  ACT2FN[c.hidden_act](self.intermediate(tp.copy_in(x))))
         out = hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
         return self.output_ln(hidden + out)
 
@@ -295,7 +329,10 @@ class TransformerEncoder(nn.Module):
     layer's output stacked (L, B, T // dr, hidden) when
     ``output_all_layers``. ``input_dim`` defaults to the config's; the flax
     module takes it from the data. ``compute_dtype`` (f32 or bf16) is the
-    layers' (the module docstring)."""
+    layers' (the module docstring). ``forward(..., seq=)`` (a
+    ``parallel.sequence.SeqAxis``) takes the rank's time chunk of a
+    sequence-parallel forward: its position encodings start at the chunk's
+    offset, and each layer attends over the whole sequence."""
 
     def __init__(self, config: TransformerConfig, input_dim: Optional[int] = None,
                  generator=None, compute_dtype: torch.dtype = torch.float32):
@@ -325,7 +362,7 @@ class TransformerEncoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(c.num_hidden_layers)]
 
     def forward(self, spec: torch.Tensor, salts: Optional[SaltStream] = None,
-                output_all_layers: bool = False):
+                output_all_layers: bool = False, seq=None):
         c = self.config
         dr = max(1, c.downsample_rate)
         b, t, d = spec.shape
@@ -333,11 +370,13 @@ class TransformerEncoder(nn.Module):
             t2 = t // dr
             spec = spec[:, : t2 * dr].reshape(b, t2, d * dr)
         hidden = self.spec_transform(spec)
-        hidden = self.input_ln(hidden + self.pe[: hidden.shape[1]])
+        t_local = hidden.shape[1]
+        offset = 0 if seq is None else seq.index * t_local
+        hidden = self.input_ln(hidden + self.pe[offset:offset + t_local])
         hidden = hidden_dropout(hidden, c.hidden_dropout_prob, self.training, salts)
         all_layers = []
         for layer in self.layers():
-            hidden = layer(hidden, salts)
+            hidden = layer(hidden, salts, seq)
             all_layers.append(hidden)
         if output_all_layers:
             return torch.stack(all_layers, dim=0)

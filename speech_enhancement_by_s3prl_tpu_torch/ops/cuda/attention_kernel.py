@@ -83,10 +83,15 @@ uint32 as Python ints. The port's lse is (B, N, T) f32 (the JAX kernel's is
 (B, N / P, P, nj * bq), its head-grouped and block-padded form).
 
 Dropout keeps element (b, n, t_q, t_k) where the salted hash of (absolute head
-index (batch0 + b) * N + n, t_q, t_k) lies below ``keep_threshold(rate)``:
-bit for bit the JAX kernel's ``_dropout_mask``, so both packages draw the
-same mask from the same salt, whatever the tiling. ``batch0`` shifts the
-batch index so that a data-parallel shard keeps the unsharded mask stream.
+index (batch0 + b) * N_total + head0 + n, t_q, t_k) lies below
+``keep_threshold(rate)``: bit for bit the JAX kernel's ``_dropout_mask``, so
+both packages draw the same mask from the same salt, whatever the tiling.
+``batch0`` shifts the batch index so that a data-parallel shard keeps the
+unsharded mask stream; ``head0`` and ``n_heads_total`` (N_total, by default
+the launch's own N) place the launch's N heads at heads head0 .. head0 + N - 1
+of N_total, so that a tensor-parallel rank's heads draw the masks of those
+heads of the unsharded launch. ``head0`` counts true heads: the zero-padding
+of ``instance_width`` widens a head, it adds none.
 
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
 raises; nothing falls back.
@@ -197,9 +202,13 @@ def _padded_width(q, n_heads):
     return D, instance_width(D)
 
 
-def _full_mask(B, N, T, salt, rate, batch0, device) -> torch.Tensor:
+def _full_mask(B, N, T, salt, rate, batch0, device, head0: int = 0,
+               n_total: Optional[int] = None) -> torch.Tensor:
+    """The (B, N, T, T) keep mask of a launch on rows batch0 .. of heads
+    head0 .. head0 + N - 1 of ``n_total`` (None: N)."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    bn = ((batch0 + ar(B))[:, None] * N + ar(N)[None, :])[:, :, None, None]
+    n_total = N if n_total is None else n_total
+    bn = ((batch0 + ar(B))[:, None] * n_total + head0 + ar(N)[None, :])[:, :, None, None]
     return dropout_keep_mask(bn, ar(T)[:, None], ar(T)[None, :], salt, rate)
 
 
@@ -227,13 +236,17 @@ def _logits(q, k, scale, kbias, n_heads, matmul=torch.matmul):
 
 
 def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
-                        batch0: int = 0, *, n_heads: int):
+                        batch0: int = 0, *, n_heads: int,
+                        head0: int = 0, n_heads_total: Optional[int] = None):
     """B3 fwd's plain version, step for step ``_fwd_kernel`` without the
     tiling: it materializes the (B, N, T, T) logits. Returns (out (B, T,
     N * D) in the input dtype, lse (B, N, T) f32). Under bf16 inputs it
-    rounds where the JAX kernel rounds (the module docstring)."""
+    rounds where the JAX kernel rounds (the module docstring). ``head0`` and
+    ``n_heads_total`` place its heads in a larger launch (the module
+    docstring)."""
+    key = (batch0, head0, n_heads_total)
     if q.dtype == torch.bfloat16:
-        return _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads)
+        return _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, key, n_heads)
     logits = _logits(q, k, scale, kbias, n_heads)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -241,12 +254,18 @@ def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
     lse = (m + torch.log(s))[..., 0]
     if rate > 0.0:
         B, N, T, _ = p.shape
-        p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
+        p = torch.where(_mask(B, N, T, salt, rate, key, q.device), p, 0.0)
     ctx = torch.matmul(p, _heads(v, n_heads)) * (1.0 / (s * (1.0 - rate)))
     return _merge(ctx), lse
 
 
-def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
+def _mask(B, N, T, salt, rate, key, device):
+    """``_full_mask`` at ``key`` = (batch0, head0, n_heads_total)."""
+    batch0, head0, n_total = key
+    return _full_mask(B, N, T, salt, rate, batch0, device, head0, n_total)
+
+
+def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, key, n_heads):
     qs = _bf16(q.float() * _bf16_scalar(scale))
     logits = torch.matmul(_heads(qs, n_heads), _heads(k.float(), n_heads).transpose(-1, -2))
     if kbias is not None:
@@ -257,13 +276,15 @@ def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
     lse = (m + torch.log(s))[..., 0]
     if rate > 0.0:
         B, N, T, _ = p.shape
-        p = torch.where(_full_mask(B, N, T, salt, rate, batch0, q.device), p, 0.0)
+        p = torch.where(_mask(B, N, T, salt, rate, key, q.device), p, 0.0)
     ctx = torch.matmul(_bf16(p), _heads(v.float(), n_heads)) * (1.0 / (s * (1.0 - rate)))
     return _merge(ctx).to(torch.bfloat16), lse
 
 
 def flash_fwd_bf16_model(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
-                         batch0: int = 0, *, n_heads: int, keys: int = FWD_BF16_KEYS):
+                         batch0: int = 0, *, n_heads: int,
+                         head0: int = 0, n_heads_total: Optional[int] = None,
+                         keys: int = FWD_BF16_KEYS):
     """B3 fwd bf16's rounding schedule in plain PyTorch: ``_flash_ref_bf16``'s
     roundings with the kernel's online softmax over tiles of ``keys`` keys.
     Per tile the running row maximum m takes the tile's logits, the row sum
@@ -276,7 +297,8 @@ def flash_fwd_bf16_model(q, k, v, scale: float, rate: float, salt: Salt, kbias=N
     B, T, _ = q.shape
     qs = _heads(_bf16(q.float() * _bf16_scalar(scale)), N)
     kh, vh = _heads(k.float(), N), _heads(v.float(), N)
-    mask = _full_mask(B, N, T, salt, rate, batch0, q.device) if rate > 0.0 else None
+    mask = (_full_mask(B, N, T, salt, rate, batch0, q.device, head0, n_heads_total)
+            if rate > 0.0 else None)
     m = torch.full((B, N, T, 1), -math.inf, device=q.device)
     l = torch.zeros((B, N, T, 1), device=q.device)
     acc = torch.zeros(qs.shape, device=q.device)
@@ -325,15 +347,16 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Te
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
-                            kbias=None, batch0: int = 0, *, n_heads: int,
-                            matmul=torch.matmul):
+                            kbias=None, batch0: int = 0, *, n_heads: int, head0: int = 0,
+                            n_heads_total: Optional[int] = None, matmul=torch.matmul):
     """B3 bwd's plain version, step for step ``_bwd_kernel``: p from the
     saved lse, the same mask, do / keep. Returns (dq, dk, dv), each
     (B, T, N * D) in the input dtype. ``matmul`` computes the f32 version's
     five products (the tests pass ``matmul_tf32x3`` to model the kernel's
     arithmetic). Under bf16 inputs it rounds where the JAX kernel rounds."""
+    key = (batch0, head0, n_heads_total)
     if q.dtype == torch.bfloat16:
-        return _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, batch0,
+        return _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, key,
                                    n_heads)
     keep = 1.0 - rate
     qs = _heads(q * scale, n_heads)
@@ -344,7 +367,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, 
     pd = p
     if rate > 0.0:
         B, N, T, _ = p.shape
-        mask = _full_mask(B, N, T, salt, rate, batch0, q.device)
+        mask = _mask(B, N, T, salt, rate, key, q.device)
         pd = torch.where(mask, p, 0.0)
         dp = torch.where(mask, dp, 0.0)
     drow = keep * (do * _heads(out, n_heads)).sum(dim=-1, keepdim=True)
@@ -355,7 +378,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, 
     return _merge(dq), _merge(dk), _merge(dv)
 
 
-def _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, batch0, n_heads):
+def _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, key, n_heads):
     keep, sc = 1.0 - rate, _bf16_scalar(scale)
     qs = _heads(_bf16(q.float() * sc), n_heads)
     ks = _heads(_bf16(k.float() * sc), n_heads)
@@ -370,7 +393,7 @@ def _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, batch
     pd = p
     if rate > 0.0:
         B, N, T, _ = p.shape
-        mask = _full_mask(B, N, T, salt, rate, batch0, q.device)
+        mask = _mask(B, N, T, salt, rate, key, q.device)
         pd = torch.where(mask, p, 0.0)
         dp = torch.where(mask, dp, 0.0)
     drow = keep * (do * _heads(out.float(), n_heads)).sum(dim=-1, keepdim=True)
@@ -454,11 +477,11 @@ def _fwd_library():
     lib = load("flash_attn")
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                       ctypes.c_uint)
-    lib.flash_attn_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, ll, f, f, u, u, u,
-                                       i, i, i, p]
+    lib.flash_attn_fwd_f32.argtypes = ([p] * 6 + [i] * 4 + [ll] * 2 + [f, f, u, u, u]
+                                       + [i] * 5 + [p])
     lib.flash_attn_fwd_f32.restype = i
-    lib.flash_attn_fwd_bf16.argtypes = [p] * 6 + [i] * 4 + [ll] * 6 + [f, f, u, u, u, i, i, i,
-                                                                       p]
+    lib.flash_attn_fwd_bf16.argtypes = ([p] * 6 + [i] * 4 + [ll] * 6 + [f, f, u, u, u]
+                                       + [i] * 5 + [p])
     lib.flash_attn_fwd_bf16.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -470,15 +493,24 @@ def _bwd_library():
     lib = load("flash_attn_bwd")
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                       ctypes.c_uint)
-    lib.flash_attn_bwd_f32.argtypes = [p] * 11 + [i, i, i, i, ll, ll, f, f, u, u, u, i, i,
-                                                  i, p]
+    lib.flash_attn_bwd_f32.argtypes = ([p] * 11 + [i] * 4 + [ll] * 2 + [f, f, u, u, u]
+                                       + [i] * 5 + [p])
     lib.flash_attn_bwd_f32.restype = i
-    lib.flash_attn_bwd_bf16.argtypes = [p] * 14 + [i] * 4 + [ll] * 6 + [f, f, u, u, u, i, i,
-                                                                        i, p]
+    lib.flash_attn_bwd_bf16.argtypes = ([p] * 14 + [i] * 4 + [ll] * 6 + [f, f, u, u, u]
+                                       + [i] * 5 + [p])
     lib.flash_attn_bwd_bf16.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _key_args(batch0, head0, n_heads_total, n_heads):
+    """(batch0, head0, N_total) of a launch on ``n_heads`` heads: the C
+    entries' HeadKey."""
+    n_total = n_heads if n_heads_total is None else int(n_heads_total)
+    if not 0 <= head0 <= n_total - n_heads:
+        raise ValueError(f"heads {head0} .. {head0 + n_heads - 1} do not lie in {n_total}")
+    return int(batch0), int(head0), n_total
 
 
 def _salt_args(rate, salt):
@@ -487,20 +519,23 @@ def _salt_args(rate, salt):
 
 
 def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
-                        batch0: int = 0, *, n_heads: int):
+                        batch0: int = 0, *, n_heads: int,
+                        head0: int = 0, n_heads_total: Optional[int] = None):
     """B3 fwd: (out (B, T, N * D) in the input dtype, lse (B, N, T) f32).
     Kernel on a CUDA tensor (counted in ``flash_attention_fwd.launches``;
     tensor-core products in three TF32 passes), plain version on a CPU
-    tensor. bf16 inputs go to ``flash_attention_fwd_bf16``."""
+    tensor. bf16 inputs go to ``flash_attention_fwd_bf16``. ``head0`` and
+    ``n_heads_total`` key the mask (the module docstring)."""
     _check(q, k, v, kbias, n_heads)
     if q.dtype == torch.bfloat16:
         return flash_attention_fwd_bf16(q, k, v, scale, rate, salt, kbias, batch0,
-                                        n_heads=n_heads)
-    return _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads)
+                                        n_heads=n_heads, head0=head0, n_heads_total=n_heads_total)
+    return _fwd(q, k, v, scale, rate, salt, kbias, (batch0, head0, n_heads_total), n_heads)
 
 
 def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
-                             batch0: int = 0, *, n_heads: int):
+                             batch0: int = 0, *, n_heads: int,
+                             head0: int = 0, n_heads_total: Optional[int] = None):
     """B3 fwd bf16: bf16 q, k, v -> (out (B, T, N * D) bf16, lse (B, N, T)
     f32), rounded where the JAX kernel rounds with bf16 inputs. Kernel on a
     CUDA tensor (counted in ``flash_attention_fwd_bf16.launches``; TMA and
@@ -509,11 +544,13 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_fwd_bf16 takes bf16 q, k, v, got {q.dtype}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
+                                   head0=head0, n_heads_total=n_heads_total)
     D, width = _padded_width(q, n_heads)
     if width != D:
         out, lse = flash_attention_fwd_bf16(*(pad_heads(x, n_heads, width) for x in (q, k, v)),
-                                            scale, rate, salt, kbias, batch0, n_heads=n_heads)
+                                            scale, rate, salt, kbias, batch0, n_heads=n_heads,
+                                            head0=head0, n_heads_total=n_heads_total)
         return unpad_heads(out, n_heads, D), lse
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
@@ -525,20 +562,22 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
     err = lib.flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, T, N, D, *strides, _bf16_scalar(scale), 1.0 - rate,
-        thresh, s0, s1, int(batch0), dropout, *launch_args(q))
+        thresh, s0, s1, *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
     raise_on(err, "flash_attention_fwd_bf16", lib.flash_attn_error_string, B=B, T=T, N=N,
              D=D)
     flash_attention_fwd_bf16.launches += 1
     return out, lse
 
 
-def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
+def _fwd(q, k, v, scale, rate, salt, kbias, key, n_heads):
+    batch0, head0, n_heads_total = key
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)
+        return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
+                                   head0=head0, n_heads_total=n_heads_total)
     D, width = _padded_width(q, n_heads)
     if width != D:
         out, lse = _fwd(*(pad_heads(x, n_heads, width) for x in (q, k, v)), scale, rate, salt,
-                        kbias, batch0, n_heads)
+                        kbias, key, n_heads)
         return unpad_heads(out, n_heads, D), lse
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
@@ -550,7 +589,7 @@ def _fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads):
     err = lib.flash_attn_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 - rate, thresh, s0, s1,
-        int(batch0), dropout, *launch_args(q))
+        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
     raise_on(err, "flash_attention_fwd", lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
     flash_attention_fwd.launches += 1
     return out, lse
@@ -568,7 +607,8 @@ def _check_bwd(q, k, v, out, lse, dout, kbias, n_heads):
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
-                        kbias=None, batch0: int = 0, *, n_heads: int):
+                        kbias=None, batch0: int = 0, *, n_heads: int,
+                        head0: int = 0, n_heads_total: Optional[int] = None):
     """B3 bwd: the forward's inputs, out, lse and the cotangent ``dout`` ->
     (dq, dk, dv), each (B, T, N * D) in the input dtype. Kernel on a CUDA
     tensor (one count in ``flash_attention_bwd.launches`` for its three
@@ -578,16 +618,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
     if q.dtype == torch.bfloat16:
         return flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                        batch0, n_heads=n_heads)
+                                        batch0, n_heads=n_heads, head0=head0,
+                                        n_heads_total=n_heads_total)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                       batch0, n_heads=n_heads)
+                                       batch0, n_heads=n_heads, head0=head0,
+                                       n_heads_total=n_heads_total)
     D, width = _padded_width(q, n_heads)
     if width != D:
         return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd(
             *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
             pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
-            n_heads=n_heads))
+            n_heads=n_heads, head0=head0, n_heads_total=n_heads_total))
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs contiguous out, dout and lse")
@@ -602,14 +644,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 / (1.0 - rate), thresh, s0, s1,
-        int(batch0), dropout, *launch_args(q))
+        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
     raise_on(err, "flash_attention_bwd", lib.flash_attn_bwd_error_string, B=B, T=T, N=N, D=D)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
-                             kbias=None, batch0: int = 0, *, n_heads: int):
+                             kbias=None, batch0: int = 0, *, n_heads: int,
+                             head0: int = 0, n_heads_total: Optional[int] = None):
     """B3 bwd bf16: bf16 q, k, v, out and ``dout``, f32 lse -> (dq, dk, dv),
     each (B, T, N * D) bf16, rounded where the JAX kernel rounds with bf16
     inputs. Kernel on a CUDA tensor (one count in
@@ -622,13 +665,14 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
         raise ValueError(f"flash_attention_bwd_bf16 takes bf16 q, k, v, got {q.dtype}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                       batch0, n_heads=n_heads)
+                                       batch0, n_heads=n_heads, head0=head0,
+                                       n_heads_total=n_heads_total)
     D, width = _padded_width(q, n_heads)
     if width != D:
         return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd_bf16(
             *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
             pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
-            n_heads=n_heads))
+            n_heads=n_heads, head0=head0, n_heads_total=n_heads_total))
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_bf16 needs contiguous out, dout and lse")
@@ -644,8 +688,8 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(), qs.data_ptr(),
         ks.data_ptr(), dos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, N, D,
-        *strides, _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1, int(batch0), dropout,
-        *launch_args(q))
+        *strides, _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1,
+        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
     raise_on(err, "flash_attention_bwd_bf16", lib.flash_attn_bwd_error_string, B=B, T=T, N=N,
              D=D)
     flash_attention_bwd_bf16.launches += 1
@@ -661,31 +705,36 @@ class FlashAttention(torch.autograd.Function):
     ``flash_attention``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kbias, scale, rate, salt, batch0, n_heads):
-        out, lse = flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0,
-                                       n_heads=n_heads)
+    def forward(ctx, q, k, v, kbias, scale, rate, salt, batch0, n_heads, head0=0,
+                n_heads_total=None):
+        heads = dict(n_heads=n_heads, head0=head0, n_heads_total=n_heads_total)
+        out, lse = flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, **heads)
         ctx.save_for_backward(q, k, v, out, lse, kbias)
-        ctx.args = (scale, rate, tuple(int(s) for s in salt), batch0, n_heads)
+        ctx.args = (scale, rate, tuple(int(s) for s in salt), batch0, heads)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kbias = ctx.saved_tensors
-        scale, rate, salt, batch0, n_heads = ctx.args
+        scale, rate, salt, batch0, heads = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), scale, rate,
-                                         salt, kbias, batch0, n_heads=n_heads)
-        return dq, dk, dv, None, None, None, None, None, None
+                                         salt, kbias, batch0, **heads)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, scale: float, rate: float = 0.0, salt: Salt = (0, 0),
-                    kbias: Optional[torch.Tensor] = None, batch0: int = 0, *, n_heads: int):
+                    kbias: Optional[torch.Tensor] = None, batch0: int = 0, *, n_heads: int,
+                    head0: int = 0, n_heads_total: Optional[int] = None):
     """Attention over (B, T, N * D) q, k, v -> (B, T, N * D), with dropout
-    of the attention probabilities at ``rate`` from ``salt``. When a
+    of the attention probabilities at ``rate`` from ``salt``, the masks keyed
+    on rows ``batch0`` .. and heads ``head0`` .. of ``n_heads_total``. When a
     gradient is needed this is ``FlashAttention`` (B3 fwd now, B3 bwd in the
     backward pass); otherwise B3 fwd alone."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, kbias, scale, rate, salt, batch0, n_heads)
-    return flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads)[0]
+        return FlashAttention.apply(q, k, v, kbias, scale, rate, salt, batch0, n_heads, head0,
+                                    n_heads_total)
+    return flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
+                               head0=head0, n_heads_total=n_heads_total)[0]
 
 
 # kernel launches since the last reset (chip_smoke.py reads them to show that

@@ -25,14 +25,17 @@ the upstream and the second one (``--upstream2`` / ``--ckpt2`` /
 ``--trainset NoisyCleanDataset`` reads paired corpora.
 
 ``--mesh D`` (or ``Dx1``) trains on D data-parallel ranks (``parallel/``),
-``batch_size`` the global batch. Under ``torchrun`` (``RANK`` set) each
-process joins the process group as its rank; otherwise the CLI starts its D
-ranks itself, with the ``spawn`` start method and a rendezvous file of its
-own, so the JAX command line runs as it is (``--mesh 1x1`` joins a group of
-one in this process). A rank on ``cuda`` computes on card ``LOCAL_RANK``
-over NCCL, so a node needs a card for each of its ranks (torchrun's
-``LOCAL_WORLD_SIZE``, or D); one on ``cpu`` (``--device cpu``) runs gloo.
-``--mesh DxM`` with M > 1 (tensor parallelism) is refused (ROADMAP A12b).
+``batch_size`` the global batch, which D must divide (refused, with the JAX
+package's message, before any rank starts); ``--mesh DxM`` on D x M ranks,
+the head's wide parameters sharded over the M ranks of each model group
+(tensor parallelism, ``parallel/mesh.py``). Under ``torchrun`` (``RANK``
+set) each process joins the process group as its rank; otherwise the CLI
+starts its D x M ranks itself, with the ``spawn`` start method and a
+rendezvous file of its own, so the JAX command line runs as it is
+(``--mesh 1x1`` joins a group of one in this process). A rank on ``cuda``
+computes on card ``LOCAL_RANK`` over NCCL, so a node needs a card for each
+of its ranks (torchrun's ``LOCAL_WORLD_SIZE``, or D x M); one on ``cpu``
+(``--device cpu``) runs gloo.
 
 The flag names of the ported subset are the JAX CLI's. Settings take
 precedence as there: a ``--resume`` checkpoint's saved args and config win
@@ -60,7 +63,7 @@ from .models.heads import build_head
 from .ops.features import OnlinePreprocessor, get_feat_config
 from .models.upstream import build_upstream
 from .parallel.distributed import initialize_distributed, topology_summary
-from .parallel.mesh import make_mesh, parse_mesh
+from .parallel.mesh import parse_mesh
 from .runner.checkpoint import find_resume_ckpt, load_checkpoint, load_settings
 from .runner.runner import Runner
 from .utils.config import update_args
@@ -143,8 +146,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sync_sampler", action="store_true")
     parser.add_argument("--test_gradient", action="store_true")
     parser.add_argument("--mesh", default=None,
-                        help="D or Dx1: data-parallel training over D ranks (DxM with M > 1 "
-                        "is not ported yet, ROADMAP A12b)")
+                        help="D or DxM: training over D x M ranks, the batch split over D "
+                        "data ranks and the head's wide parameters over M model ranks")
     # a flag of the JAX CLI whose feature is not ported: the Runner refuses it
     parser.add_argument("--profile", action="store_true")
     return parser
@@ -286,7 +289,7 @@ def build_runner(args, config) -> Runner:
 
 
 def _rank_main(rank: int, argv, init_method: str, world: int):
-    """A rank that the CLI started itself (``--mesh D`` outside torchrun)."""
+    """A rank that the CLI started itself (``--mesh`` outside torchrun)."""
     os.environ["LOCAL_RANK"] = str(rank)
     main(argv, init_method=init_method, world=world, rank=rank)
 
@@ -310,20 +313,22 @@ def main(argv=None, init_method=None, world=None, rank=None):
     args, config = get_downstream_args(argv)
     if args.mesh:
         data, model = parse_mesh(args.mesh)
-        if model != 1:
-            make_mesh(data, model)  # refuses the model axis (ROADMAP A12b)
+        world_size = data * model
         if init_method is None and "RANK" not in os.environ:
-            if data > 1:
-                return _spawn_ranks(argv, data)
+            # refused before any rank starts (a joined rank's Runner refuses it)
+            if config["dataloader"]["batch_size"] % data:
+                raise ValueError("batch_size must divide the data axis")
+            if world_size > 1:
+                return _spawn_ranks(argv, world_size)
             import tempfile
 
             with tempfile.TemporaryDirectory() as tmp:
                 return main(argv, "file://" + os.path.join(tmp, "rendezvous"), 1, 0)
         # the ranks of this node each need a card of their own: under torchrun
-        # LOCAL_WORLD_SIZE of them, else the D that the CLI spawned here
+        # LOCAL_WORLD_SIZE of them, else the D x M that the CLI spawned here
         env = os.environ
-        local = (int(env.get("LOCAL_WORLD_SIZE", env.get("WORLD_SIZE", data)))
-                 if "RANK" in env else data)
+        local = (int(env.get("LOCAL_WORLD_SIZE", env.get("WORLD_SIZE", world_size)))
+                 if "RANK" in env else world_size)
         if args.device == "cuda" and torch.cuda.device_count() < local:
             raise ValueError(f"mesh {args.mesh}: {local} ranks on this node need {local} "
                              f"cards, have {torch.cuda.device_count()}")

@@ -46,15 +46,23 @@ splits.
 ``--mesh D`` (or ``Dx1``): data parallelism over the D ranks of the process
 group (``parallel/``): ``batch_size`` is the global batch, which D must
 divide; every rank iterates the same loader and trains on its rows of each
-batch (``make_parallel_train_step``); an eval batch that D divides is scored
-a rank's rows each (``make_parallel_eval_step``), any other batch by the
-single-device step on every rank. Rank 0 alone writes ``scalars.jsonl``,
+batch (``make_parallel_train_step``); an eval batch that the ranks divide is
+scored a rank's rows each (``make_parallel_eval_step``), any other batch by
+the single-device step on every rank. Rank 0 alone writes ``scalars.jsonl``,
 media and checkpoints, and runs the active sampler, whose batch it hands
 the other ranks (``broadcast_batch``); every rank reads ``--resume``,
 ``--dckpt`` and ``--ckpt``.
 
-Not ported yet, each refused with its ROADMAP item: ``--mesh DxM`` with M > 1
-(A12b) and ``--profile`` (A11).
+``--mesh DxM`` with M > 1 adds tensor parallelism over the M ranks of each
+model group: the train step trains a sharded copy of the head
+(``parallel/mesh.TensorParallel``), and ``downstream_model`` keeps the full
+weights, brought up to date from the step's slices (``_gather``, a
+collective that every rank reaches at the same point) before an eval, a
+save (rank 0 writes the full tree and the full optimizer moments, the format
+of a run without a mesh), the objective's figure and the active sampler's
+scoring. The eval runs over all D * M ranks.
+
+Not ported yet, refused with its ROADMAP item: ``--profile`` (A11).
 """
 from __future__ import annotations
 
@@ -138,8 +146,9 @@ class Runner:
             raise RuntimeError("Runner on cuda, but there is no CUDA device")
         if getattr(args, "profile", None):
             _refuse("--profile", "A11")
-        # --mesh D / Dx1: this process is one of the D data-parallel ranks
-        self.mesh = None
+        # --mesh DxM: this process is one of the D x M ranks
+        self.mesh = self.tp = None
+        self._stale = False
         if getattr(args, "mesh", None):
             data, model = parse_mesh(args.mesh)
             self.mesh = make_mesh(data, model)
@@ -225,7 +234,17 @@ class Runner:
         if self.mesh is not None:
             self.train_step, self.state = make_parallel_train_step(
                 self.builder, self.mesh, self.state)
+            self.tp = self.train_step.tp
             self.eval_step_parallel = make_parallel_eval_step(self.builder, self.mesh)
+
+    def _gather(self):
+        """Under a model axis: the train step's slices into the full
+        ``downstream_model`` when a step has run since the last gather (a
+        collective of the model group, which every rank calls at the same
+        point)."""
+        if self.tp is not None and self._stale:
+            self.tp.gather_into(self.downstream_model, self.state.params)
+            self._stale = False
 
     def _load_pretrained_head_weights(self):
         """SpecHead / Mockingjay: overlay the converted S3PRL blobs onto the
@@ -289,6 +308,10 @@ class Runner:
         self.global_step = step
 
     def save_model(self, save_type: Optional[str] = None):
+        opt_state = self.state.opt_state
+        if self.tp is not None:
+            self._gather()
+            opt_state = self.tp.gather_opt_state(opt_state)
         if not self.is_main:
             return
         save_dir = (
@@ -298,7 +321,7 @@ class Runner:
             save_dir,
             self.global_step,
             self.downstream_model,
-            ckpt_lib.optimizer_payload(self.state.opt_state),
+            ckpt_lib.optimizer_payload(opt_state),
             self.config,
             vars(self.args),
             max_keep=int(self.rconfig.get("max_keep", 2)),
@@ -494,7 +517,7 @@ class Runner:
         async_sampler = getattr(self.args, "sampler_device", None) is not None
         # under a mesh of several ranks the sampler runs on rank 0, which
         # hands its batch to the others each step
-        shared = self.mesh is not None and self.mesh.data > 1 and (
+        shared = self.mesh is not None and self.mesh.size > 1 and (
             sync or async_sampler or active_sampling)
         pseudo_media = [(flag, i) for i, flag in enumerate(("pseudo_clean", "pseudo_noise"))
                         if getattr(self.args, flag, False)]
@@ -511,6 +534,8 @@ class Runner:
                 lengths, wavs = batch[0], batch[1]
                 cases = batch[2] if len(batch) == 3 else None
                 media_loggers = []
+                if sync or async_sampler:
+                    self._gather()  # the sampler scores with the full model
 
                 if async_sampler and self.is_main:
                     if self.sampler is None or not self.sampler.alive:
@@ -564,6 +589,7 @@ class Runner:
                     lengths, wavs = broadcast_batch((lengths, wavs), self.mesh, self.device)
 
                 self.state, stats = self.train_step(self.state, wavs, lengths)
+                self._stale = self.tp is not None
                 loss_sum += float(stats["loss"])
                 last_norm = float(stats["grad_norm"])
 
@@ -582,8 +608,10 @@ class Runner:
                         )
                     t_start = time.time()
                     loss_sum = 0.0
-                    if self.is_main and getattr(self.objective, "has_logger", False):
-                        self._dispatch_objective_logger(wavs, lengths)
+                    if getattr(self.objective, "has_logger", False):
+                        self._gather()
+                        if self.is_main:
+                            self._dispatch_objective_logger(wavs, lengths)
 
                 media_now = media_step is not None and self.global_step % media_step == 0
                 if media_now and self.is_main:
@@ -625,6 +653,7 @@ class Runner:
         random modules with ``--seed``."""
         random.seed(self.args.seed)
         np.random.seed(self.args.seed)
+        self._gather()
 
         if dataloader is None:
             dataloader = self.get_dataloader(self.get_dataset("test"), train=False)
@@ -643,7 +672,7 @@ class Runner:
         for indice, batch in enumerate(device_prefetch(dataloader, self.device)):
             lengths, wavs = batch[0], batch[1]
             # under a mesh a batch the ranks divide is scored a rank's rows each
-            if self.eval_step_parallel is not None and len(lengths) % self.mesh.data == 0:
+            if self.eval_step_parallel is not None and len(lengths) % self.mesh.size == 0:
                 out = self.eval_step_parallel(wavs, lengths, wav_out=wav_out)
             else:
                 out = self.builder.eval_step(wavs, lengths, wav_out=wav_out)

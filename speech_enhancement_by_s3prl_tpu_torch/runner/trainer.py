@@ -27,7 +27,9 @@ A data-parallel rank (``parallel/mesh.py``) runs the same train step on its
 rows of the global batch with ``reduce``: after the backward, the rank's loss
 and gradients become the global ones (``reduce.combine``, weighted by the
 objective's ``weight``), and the clip, the guard and the optimizer follow
-unchanged. The eval step's ``eval_step_weighted`` also returns that weight.
+unchanged. Under a model axis the step's model holds the rank's slices of
+the sharded parameters, and the clip reads the global norm
+(``reduce.sq_norm``), which every rank of the mesh computes alike. The eval step's ``eval_step_weighted`` also returns that weight.
 
 The eval step decodes with the noisy phase, renormalizes to the target
 channel's level, and scores the objective and the metrics that have a
@@ -195,7 +197,10 @@ class StepBuilder:
         if reduce is not None:
             loss, grads = reduce.combine(loss, self.objective.weight(**ctx), grads)
         with torch.no_grad():
-            grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            # under a model axis the sharded parameters' terms are summed over
+            # the model group and the replicated ones counted once
+            grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads) if reduce is None
+                                   else reduce.sq_norm(names, grads))
             # the reference's global clip before the optimizer step
             scale = torch.clamp(self.grad_clip / (grad_norm + 1e-6), max=1.0)
             grads = {k: g * scale for k, g in zip(names, grads)}

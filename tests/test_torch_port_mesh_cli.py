@@ -3,7 +3,8 @@
 - ``run_downstream --mesh 2x1 --device cpu`` starts its two gloo ranks itself
   and trains 4 steps at hidden 8 (the pattern of tests/test_cli_mesh.py); its
   logged losses are the single-process run's, and rank 0 alone wrote the
-  scalars and the checkpoint. So does a sync-sampled run with
+  scalars and the checkpoint. ``--mesh 1x2`` does the same with the head's
+  gate rows sharded over the two ranks, and its checkpoint is the full tree. So does a sync-sampled run with
   ``--active_sampling`` (config/active.yaml at small width, two seeded
   upstreams): rank 0 scores and chooses, the other rank trains on its
   batches, and the losses and the media rank 0 wrote are the single
@@ -97,6 +98,48 @@ def test_run_downstream_mesh_trains_on_two_gloo_ranks(corpus, tmp_path):
     mesh, single = _losses(mesh_dir), _losses(tmp_path / "exp" / "single")
     assert [s for s, _ in mesh] == [s for s, _ in single] == [1, 2, 3, 4]
     np.testing.assert_allclose([v for _, v in mesh], [v for _, v in single], rtol=1e-5)
+
+
+def test_run_downstream_model_axis_trains_on_two_gloo_ranks(corpus, tmp_path):
+    """``--mesh 1x2 --device cpu``: the CLI starts two gloo ranks of one model
+    group, which train the LSTM head with its gate rows sharded (hidden 8: 4H =
+    32 rows, 16 a rank), evaluate over both ranks and save through rank 0.
+    The logged losses are the single process's, and the checkpoint holds the
+    full tree, weights and moments, within 2e-6 of the single process's."""
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import load_checkpoint
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(yaml.safe_dump(_config(corpus)))
+    flags = ["--config", str(cfg), "--upstream", "baseline", "--upstream2", "baseline",
+             "--from_rawfeature", "--downstream", "LSTM", "--objective", "L1",
+             "--dev_num", "2", "--n_jobs", "1", "--device", "cpu"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "speech_enhancement_by_s3prl_tpu_torch.run_downstream",
+         "--name", "tp", "--expdir", str(tmp_path / "exp"), *flags, "--mesh", "1x2"],
+        capture_output=True, text=True, timeout=CLI_TIMEOUT, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("step 4/4") == 1 and proc.stdout.count("evaluate:") == 1
+    assert "process 0/2 | gloo" in proc.stdout and "process 1/2 | gloo" in proc.stdout
+
+    torch.set_num_threads(1)
+    run_downstream.main(["--name", "single", "--expdir", str(tmp_path / "exp"), *flags])
+    tp_dir, single_dir = tmp_path / "exp" / "tp", tmp_path / "exp" / "single"
+    mesh, single = _losses(tp_dir), _losses(single_dir)
+    assert [s for s, _ in mesh] == [s for s, _ in single] == [1, 2, 3, 4]
+    np.testing.assert_allclose([v for _, v in mesh], [v for _, v in single], rtol=1e-5)
+    got, want = load_checkpoint(str(tp_dir)), load_checkpoint(str(single_dir))
+    assert got["Global_step"] == want["Global_step"]
+    for part, tree in (("Downstream", lambda p: p["Downstream"]),
+                       ("mu", lambda p: p["Optimizer"]["mu"]),
+                       ("nu", lambda p: p["Optimizer"]["nu"])):
+        a, b = flax_to_state_dict(tree(got)), flax_to_state_dict(tree(want))
+        assert sorted(a) == sorted(b), part
+        for k in b:
+            assert a[k].shape == b[k].shape, (part, k)
+            np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), atol=2e-6, rtol=0,
+                                       err_msg=f"{part} {k}")
 
 
 def _media_tags(expdir):

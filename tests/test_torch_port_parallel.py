@@ -314,9 +314,12 @@ def test_mesh_eval_of_wsd_matches_the_single_device_eval(runs):
 
 
 def test_mesh_refuses_a_model_axis_and_parses_the_jax_forms():
+    """A model axis is ported (ROADMAP A12b): ``make_mesh(2, 2)`` needs a
+    group of 4 ranks, and without one it is refused as any other mesh the
+    world does not fill."""
     assert t_mesh.parse_mesh("4") == (4, 1) and t_mesh.parse_mesh("2x1") == (2, 1)
     assert t_mesh.parse_mesh("2X2") == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         t_mesh.make_mesh(2, 2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         t_mesh.make_mesh(2)  # no process group: one rank

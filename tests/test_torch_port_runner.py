@@ -316,13 +316,18 @@ def test_config_helpers_match_jax():
 
 
 @pytest.mark.parametrize("case,item", [
-    (("--mesh=2x2",), "A12b"), (("--profile",), "A11"),
+    (("--mesh=3x2",), "A12b"), (("--profile",), "A11"),
 ])
 def test_runner_refuses_what_is_not_ported(corpus, tmp_path, case, item):
+    """``--profile`` is refused with its ROADMAP item. ``--mesh DxM`` (A12b)
+    is ported; with a ``batch_size`` (2) that D (3) does not divide it is
+    refused with the JAX package's message before any rank starts."""
     config = _config(corpus)
     flags = _flags(tmp_path) + list(case)
     cfg = _write_yaml(tmp_path / "cfg.yaml", config)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    error, match = ((ValueError, "batch_size must divide the data axis") if item == "A12b"
+                    else (NotImplementedError, f"ROADMAP {item}"))
+    with pytest.raises(error, match=match):
         run_downstream.main(["--config", cfg, *flags])
 
 

@@ -68,8 +68,8 @@ def recording_masks():
         masks.append(("hidden", hidden(torch.ones_like(x), salt, rate, batch0) != 0))
         return hidden(x, salt, rate, batch0)
 
-    def full_rec(B, N, T, salt, rate, batch0, device):
-        mask = full(B, N, T, salt, rate, batch0, device)
+    def full_rec(*args):
+        mask = full(*args)
         masks.append(("attention", mask))
         return mask
 
