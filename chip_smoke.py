@@ -275,6 +275,26 @@ Phases, one line each:
      (f) times, not judged: the mesh steps beside one process (gloo stages
      through the host, and the ranks share the card).
 
+ 19. the step tracer (``utils/profiling.py``): (a) the flagship trained 3 B=6
+     10 s steps through ``run_downstream.main`` with ``--profile``
+     (``profile_step`` 2) and without, scalars and saved parameters bit for
+     bit, the trace parsed, its device plane naming B2 fwd and each kernel of
+     B2 bwd 3 times and B4 once; (b) ``tools/profile_step``'s modes at the
+     JAX bench's batches and variables (enhance and eval at 768 rows under
+     SE_PALLAS_HS_BF16, eval with all five metrics, train at 352 under
+     SE_PALLAS_VJP_BF16, upstream at 512 in bf16, Mockingjay at 64 in bf16
+     with dropout 0.1, score at 256 in bf16 under both variables), each
+     traced over 3 calls: the device plane's ms a call and top rows, the
+     port's kernels' launches a call read from the table against the code's
+     count and the wrappers', the table's total against the profiler's own
+     device sum; enhance's rows against a 6-row call, the train step's loss
+     and gradient and the per-row scores against the plain versions on the
+     card; (c) a probe of 64 small kernels under a bare torch.profiler and
+     under ``utils/profiling.trace``, the records each keeps (the bare one
+     may lose a session's first records in a process minutes old; trace's
+     opening pads must keep them all); and B1 at 768 rows and B2 at 352
+     beside their bounds.
+
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
 numbers, and last
@@ -302,7 +322,10 @@ import wave
 
 import numpy as np
 
+from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import kernel_label, kernel_op
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 SEED = 0
 SR = 16000
 # |hs| <= 1. The kernel and the plain loop sum each step's 256-term dot
@@ -740,12 +763,19 @@ def synced_ms(torch, fn, runs=10):
     return ms
 
 
+def device_events(prof):
+    """The card's events of a ``torch.profiler`` run: kernels, copies and
+    memsets."""
+    from torch.autograd import DeviceType
+
+    return [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+
+
 def device_busy(torch, fn, calls=5):
     """A call of ``fn`` under ``torch.profiler``, after one call to warm it:
     (device busy ms, wall ms, device kernels, host-to-card copies). Each
     host-to-card copy made from pageable memory waits for the work queued
     before it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -756,29 +786,10 @@ def device_busy(torch, fn, calls=5):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    device = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    device = device_events(prof)
     htod = sum("HtoD" in evt.name for evt in device) / calls
     return (sum(evt.time_range.elapsed_us() for evt in device) / 1e3 / calls, wall,
             len(device) / calls - htod, htod)
-
-
-def kernel_label(mangled: str) -> str:
-    """A kernel's name and template arguments out of its mangled name."""
-    m = re.search(r"\d+((?:lstm|flash|stft|decode)[a-z0-9_]*kernel(?:I.*?E)?)E", mangled)
-    return m.group(1) if m else mangled
-
-
-def kernel_op(name: str) -> str:
-    """The op of a device kernel, out of its demangled name: the host
-    function of an elementwise lambda, else the innermost functor and its
-    type, else the kernel's name."""
-    m = re.search(r"(\w+)\((?:at::)?TensorIteratorBase&\)", name)
-    if m:
-        return m.group(1)
-    functors = re.findall(r"(\w+(?:Functor|Op))<([\w:]+)", name)
-    if functors:
-        return "{}<{}>".format(*functors[-1])
-    return re.sub(r"^void |<.*$", "", name)[:60]
 
 
 def write_s3prl_checkpoint(torch, path, seed):
@@ -3322,10 +3333,13 @@ def bf16_ulp(x) -> float:
 
 def window(torch, card_bf16, card_f32, cpu_bf16, cpu_f32, what):
     """The window criterion on four tensors (or arrays); raises outside it and
-    returns (near, ratio)."""
-    a = [torch.as_tensor(np.asarray(x.detach().cpu() if hasattr(x, "detach") else x,
-                                    dtype=np.float64)) for x in (card_bf16, card_f32,
-                                                                 cpu_bf16, cpu_f32)]
+    returns (near, ratio). Four CUDA tensors are compared on the card."""
+    xs = (card_bf16, card_f32, cpu_bf16, cpu_f32)
+    if all(getattr(x, "is_cuda", False) for x in xs):
+        a = [x.detach().double() for x in xs]
+    else:
+        a = [torch.as_tensor(np.asarray(x.detach().cpu() if hasattr(x, "detach") else x,
+                                        dtype=np.float64)) for x in xs]
     rms = lambda x: float(x.pow(2).mean().sqrt())  # noqa: E731
     scale = rms(a[3])
     base = rms(a[2] - a[3]) / scale
@@ -6925,6 +6939,397 @@ def model_parallel_phase(torch, card, tmp):
             "head0": head0, "seconds": seconds}
 
 
+# the step tracer (phase 19): (a) run_downstream --profile, 3 B=6 10 s steps of
+# the flagship, the second traced; (b) tools/profile_step in each mode at the
+# JAX bench's batch (bench.py's ALL_MODES, with its variables), 3 traced calls
+PROFILE_RUN_STEPS, PROFILE_RUN_AT = 3, 2
+PROFILE_CALLS = 3
+HS_FORM, VJP_FORM = ("SE_PALLAS_HS_BF16",), ("SE_PALLAS_VJP_BF16",)
+# (label, mode, batch, dtype, stream-form variables, options, launches a call
+# of each of the port's kernels, by the code: 3 LSTM layers, one B4 for the
+# batch's features, one B5 for its decode, 6 encoder layers)
+PROFILE_MODES = (
+    ("enhance", "enhance", 768, "", HS_FORM, {}, {"B1": 3, "B4": 1, "B5": 1}),
+    ("eval", "eval", 768, "", HS_FORM, {"eval_metrics": ("sisdr", "stoi")},
+     {"B1": 3, "B4": 1, "B5": 1}),
+    ("eval_full", "eval", 768, "", HS_FORM,
+     {"eval_metrics": ("sisdr", "stoi", "estoi", "pesq_nb", "pesq_wb")},
+     {"B1": 3, "B4": 1, "B5": 1}),
+    ("train", "train", 352, "", VJP_FORM, {}, {"B2 fwd": 3, "B2 bwd": 3, "B4": 1}),
+    ("upstream", "upstream", 512, "bf16", (), {}, {}),
+    ("mockingjay", "mockingjay", 64, "bf16", (), {"mj_dropout": 0.1},
+     {"B3 fwd bf16": 6, "B3 bwd bf16": 6, "B4": 1}),
+    ("score", "score", 256, "bf16", VJP_FORM + HS_FORM, {}, {"B2 fwd": 3, "B2 bwd": 3, "B4": 1}),
+)
+# the parser's device plane against the profiler's own sum of the same events
+PARSER_TOL = 0.05
+# enhance at 768 rows: rows 0, 383 and 767 against the same rows in a B=6 call
+# (the GEMMs may pick other algorithms at another batch), of the row's RMS
+PROFILE_ROWS = (0, 383, 767, 1, 384, 766)
+
+
+def profiled_kernels(L, A, S, D):
+    """The port's kernel wrappers by the id ``utils/profiling.kernel_id``
+    gives their kernels."""
+    return {"B1": L.lstm_bidir_tm, "B2 fwd": L.lstm_bidir_tm_fc, "B2 bwd": L.lstm_bidir_tm_bwd,
+            "B2 bwd dW_hh^T bf16": L.lstm_bidir_tm_dw_bf16, "B3 fwd": A.flash_attention_fwd,
+            "B3 bwd": A.flash_attention_bwd, "B3 fwd bf16": A.flash_attention_fwd_bf16,
+            "B3 bwd bf16": A.flash_attention_bwd_bf16, "B4": S.stft_fused, "B5": D.decode_ola,
+            "B6": L.lstm_bidir_bb, "B7": L.lstm_bidir_fused}
+
+
+@contextlib.contextmanager
+def plain_versions(torch):
+    """B1, B2 fwd, B2 bwd and B4 run their plain PyTorch versions on CUDA
+    tensors inside the block (the names the wrappers and the model call,
+    swapped and restored), so that a step's kernels can be held against
+    their plain versions on the card where the CPU would take minutes."""
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import library
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import stft_kernel
+
+    swaps = {
+        (L, "lstm_bidir_tm_fc"): lambda xw, w_hh_t, h_bf16=False, res_dtype=torch.float32: (
+            L.lstm_bidir_tm_fc_ref(xw, w_hh_t, h_bf16, res_dtype)),
+        (L, "lstm_bidir_tm_bwd"): L.lstm_bidir_tm_bwd_ref,
+        (library, "lstm_recurrence"): lambda xw, w_hh_t, h_bf16, hs_bf16: L.lstm_bidir_tm_ref(
+            xw, w_hh_t, h_bf16=h_bf16, hs_dtype=torch.bfloat16 if hs_bf16 else torch.float32),
+        (library, "stft"): stft_kernel.stft_fused_ref,
+    }
+    saved = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def table_launches(tables):
+    """(plane, ms, rows, {kernel id: launches}) of the one device plane of a
+    parsed trace."""
+    from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import hand_written_launches
+
+    planes = [p for p in tables if p.startswith("/device:")]
+    if len(planes) != 1:
+        raise AssertionError(f"want one device plane in the trace, got {list(tables)}")
+    total, rows = tables[planes[0]]
+    return planes[0], total, rows, hand_written_launches(rows)
+
+
+def profile_run(torch, counted, card, tmp):
+    """Phase 19 (a): the flagship through ``run_downstream.main`` with
+    ``--profile`` (``profile_step`` 2) and without, 3 B=6 10 s steps each:
+    scalars and the saved parameters bit for bit, one trace under the run's
+    ``profile/`` whose device plane names B2 fwd and each kernel of B2 bwd 3
+    times and B4 once (the traced step) and nothing else of the port."""
+    from speech_enhancement_by_s3prl_tpu_torch import run_downstream as rd
+    from speech_enhancement_by_s3prl_tpu_torch.models.convert import flax_to_state_dict
+    from speech_enhancement_by_s3prl_tpu_torch.runner.checkpoint import load_checkpoint
+    from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import kernel_id, parse_trace
+
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, SEED)
+    config = train_config(corpus)
+    config["runner"].update(total_step=PROFILE_RUN_STEPS, log_step=1, eval_step=100,
+                            save_step=100, max_keep=1, profile_step=PROFILE_RUN_AT)
+    config_path = os.path.join(tmp, "profile_config.yaml")
+    with open(config_path, "w") as f:
+        json.dump(config, f)  # JSON is YAML
+    sides = {}
+    for tag, extra in (("profiled", ["--profile"]), ("plain", [])):
+        t0 = time.perf_counter()
+        # -- the main path of --profile, between the reset and the reading --
+        reset_counts(counted)
+        rd.main(["--config", config_path, "--name", tag, "--expdir",
+                 os.path.join(tmp, "profile_exp"), "--downstream", "Residual", "--objective",
+                 "SISDR", "--from_rawfeature", "--dev_num", "3", "--n_jobs", "4", "--seed",
+                 str(SEED), "--device", "cuda", *extra])
+        counts = [fn.launches for fn in counted]
+        # -----------------------------------------------------------------
+        run_dir = os.path.join(tmp, "profile_exp", tag)
+        with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+            scalars = [(r["step"], r["tag"], r["value"]) for r in map(json.loads, f)
+                       if r["tag"] != "steps_per_sec"]
+        params = flax_to_state_dict(load_checkpoint(run_dir)["Downstream"])
+        sides[tag] = {"scalars": scalars, "params": params, "counts": counts, "run_dir": run_dir,
+                      "s": time.perf_counter() - t0}
+    on, off = sides["profiled"], sides["plain"]
+    same = (on["scalars"] == off["scalars"] and set(on["params"]) == set(off["params"])
+            and all(torch.equal(on["params"][k], off["params"][k]) for k in on["params"]))
+    trace_dir = os.path.join(on["run_dir"], "profile")
+    traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if len(traces) != 1 or not traces[0].startswith(f"train_step{PROFILE_RUN_AT}."):
+        raise AssertionError(f"--profile wrote {traces} under {trace_dir}")
+    plane, total, rows, launches = table_launches(parse_trace(os.path.join(trace_dir, traces[0]),
+                                                              None))
+    by_id = {}
+    for name, _, n in rows:
+        if kernel_id(name) is not None:
+            by_id.setdefault(kernel_id(name), {})[name] = n
+    bwd_kernels = {k.split("<")[0] for k in by_id.get("B2 bwd", {})}
+    want = [0, 3 * PROFILE_RUN_STEPS, 3 * PROFILE_RUN_STEPS, PROFILE_RUN_STEPS, 0]
+    print(f"[profile] (a) run_downstream.main --profile (profile_step {PROFILE_RUN_AT}), "
+          f"{PROFILE_RUN_STEPS} B=6 10 s flagship steps, against the run without it: losses "
+          f"{[v for _, t, v in on['scalars'] if t == 'loss']}, scalars and saved parameters "
+          f"bit for bit {same}; launches (B1, B2 fwd, B2 bwd, B4, B5) {on['counts']} / "
+          f"{off['counts']}; runs {on['s']:.1f} / {off['s']:.1f} s; trace {traces[0]}: plane "
+          f"{plane} {total:.3f} ms, the port's kernels {by_id} | {card}", flush=True)
+    if not same or on["counts"] != want or off["counts"] != want:
+        raise AssertionError(f"--profile changed the run (bit for bit {same}) or its launches "
+                             f"{on['counts']} / {off['counts']} (want {want})")
+    if (set(by_id) != {"B2 fwd", "B2 bwd", "B4"}
+            or any(n != 3 for n in by_id["B2 fwd"].values())
+            or any(n != 3 for n in by_id["B2 bwd"].values())
+            or not {"lstm_bwd_gates_kernel", "lstm_bwd_seq_kernel", "lstm_bwd_dw_kernel"}
+            <= bwd_kernels or list(by_id["B4"].values()) != [1]):
+        raise AssertionError(f"the traced step's device plane names the port's kernels {by_id}; "
+                             "want B2 fwd and each kernel of B2 bwd 3 times, B4 once")
+    return {"counts": on["counts"], "by_id": by_id}
+
+
+def profile_modes(torch, card, tmp):
+    """Phase 19 (b): ``tools/profile_step``'s modes at the JAX bench's batches
+    (``PROFILE_MODES``), each warmed by one call and traced over
+    ``PROFILE_CALLS``: the device plane's ms a call and top 10 rows, the
+    port's kernels' launches a call from the table against the code's count
+    and the wrappers' counters, the plane's total against the profiler's own
+    sum of its device events, and each mode's check at its row count."""
+    from speech_enhancement_by_s3prl_tpu_torch.active.sampler import matching
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
+    from speech_enhancement_by_s3prl_tpu_torch.tools.profile_step import build_mode, wait
+    from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import (
+        kernel_id,
+        newest_trace,
+        parse_trace,
+        trace,
+    )
+
+    wrappers = profiled_kernels(L, A, stft_kernel, decode_kernel)
+    out = {"launches": {}, "ms": {}, "kernel_ms": {}, "checks": {}}
+
+    def grad_of(builder, wavs, lengths):
+        ctx = make_context(builder.preprocessor, wavs, lengths, 0, 1)
+        params = [p for _, p in builder.model.named_parameters()]
+        with torch.enable_grad():
+            loss, _ = builder.loss_fn(ctx)
+            g = torch.autograd.grad(loss, params)
+        return float(loss.detach()), torch.cat([x.reshape(-1) for x in g]).double()
+
+    for label, mode, batch, dtype, forms, options, want in PROFILE_MODES:
+        t0 = time.perf_counter()
+        with stream_env(forms):
+            step = build_mode(mode, batch, dtype, 10, "cuda", SEED, **options)
+            wait(step())  # warm, outside the trace
+            torch.cuda.synchronize()
+            # -- the main path of the mode, between the reset and the reading --
+            reset_counts(wrappers.values())
+            with trace(os.path.join(tmp, "profile_step"), label) as prof:
+                t1 = time.perf_counter()
+                for _ in range(PROFILE_CALLS):
+                    last = step()
+                wait(last)
+                wall = (time.perf_counter() - t1) * 1e3 / PROFILE_CALLS
+            counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            # -------------------------------------------------------------
+            busy = sum(evt.time_range.elapsed_us() for evt in device_events(prof)) / 1e3
+            path = newest_trace(os.path.join(tmp, "profile_step"))
+            plane, total, rows, launches = table_launches(parse_trace(path, None))
+            per_call = {k: n / PROFILE_CALLS for k, n in launches.items()}
+            from_wrappers = {k: n / PROFILE_CALLS for k, n in counts.items()}
+            gap = abs(total - busy) / max(busy, 1e-9)
+            print(f"[profile] (b) {label} B={batch} 10 s ({mode}, {dtype or 'f32'}"
+                  + (f", {'+'.join(forms)}" if forms else "")
+                  + (f", {options}" if options else "") + f"): plane "
+                  f"{plane} {total / PROFILE_CALLS:.3f} ms/step (the profiler's device sum "
+                  f"{busy / PROFILE_CALLS:.3f}, {gap:.2%} apart, limit {PARSER_TOL:.0%}), wall "
+                  f"{wall:.3f} ms a call under the profiler; the port's kernels a step from the "
+                  f"table {per_call}, from the wrappers {from_wrappers}, want {want} | {card}",
+                  flush=True)
+            print(f"[profile] (b) {label} top 10 (ms/step  xcount  name): "
+                  + "; ".join(f"{ms / PROFILE_CALLS:.3f} x{n} {name[:70]}"
+                              for name, ms, n in rows[:10]) + f" | {card}", flush=True)
+            if per_call != want or from_wrappers != want or not gap <= PARSER_TOL:
+                raise AssertionError(f"{label}: launches a step {per_call} (table) / "
+                                     f"{from_wrappers} (wrappers), want {want}; parser "
+                                     f"{total} ms against the profiler's {busy} ms")
+            out["launches"][label] = counts
+            out["ms"][label] = (total / PROFILE_CALLS, wall)
+            out["kernel_ms"][label] = {
+                name: (ms / n, n) for name, ms, n in rows if kernel_id(name) is not None}
+
+            if mode == "enhance":
+                rows_ = torch.tensor(PROFILE_ROWS, device="cuda")
+                big = step.enhance(step.wavs, step.lengths)[rows_]
+                small = step.enhance(step.wavs[rows_], step.lengths[rows_])
+                rel = max(float((b - s).abs().max() / s.pow(2).mean().sqrt())
+                          for b, s in zip(big[:3], small[:3]))
+                finite = bool(torch.isfinite(big).all())
+                out["checks"][label] = rel
+                print(f"[profile] (b) enhance: rows {PROFILE_ROWS[:3]} of the {batch}-row call "
+                      f"against the same rows in a {len(PROFILE_ROWS)}-row call: max |diff| / "
+                      f"row RMS {rel:.3e} (limit {SLICE_TOL:.0e}); finite {finite} | {card}",
+                      flush=True)
+                if not (rel <= SLICE_TOL and finite):
+                    raise AssertionError(f"enhance at {batch} rows: {rel}, finite {finite}")
+            elif mode == "train":
+                got = grad_of(step.builder, step.wavs, step.lengths)
+                reset_counts(wrappers.values())
+                with plain_versions(torch):
+                    ref = grad_of(step.builder, step.wavs, step.lengths)
+                moved = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+                loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+                grad_rel = float((got[1] - ref[1]).norm() / ref[1].norm())
+                out["checks"][label] = (loss_rel, grad_rel)
+                print(f"[profile] (b) train: loss and gradient at {batch} rows against the same "
+                      f"step with the plain versions on the card: loss {got[0]:.6f} vs "
+                      f"{ref[0]:.6f} rel {loss_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}), "
+                      f"|g - g_plain| / |g_plain| {grad_rel:.3e} (limit {TRAIN_GRAD_TOL:.0e}); "
+                      f"launches under the plain versions {moved} | {card}", flush=True)
+                if moved or not (loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL):
+                    raise AssertionError(f"train at {batch} rows: loss {loss_rel}, gradient "
+                                         f"{grad_rel}, plain launches {moved}")
+            elif mode == "score":
+                # the mode's bf16 head under its forms, then the same weights
+                # in f32 with no form; each by the kernels and by the plain
+                # versions on the card
+                sides = {}
+                for dt, names in (("bf16", forms), ("f32", ())):
+                    with_dtype(step.model, getattr(torch, "bfloat16" if dt == "bf16"
+                                                   else "float32"))
+                    with stream_env(names):
+                        got = step.scoring(step.model, step.wavs, step.lengths)
+                        reset_counts(wrappers.values())
+                        with plain_versions(torch):
+                            ref = step.scoring(step.model, step.wavs, step.lengths)
+                    moved = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+                    query = slice(0, ACTIVE_QUERY_ROWS)
+                    m_got, m_ref = matching(got[query], got), matching(ref[query], ref)
+                    sides[dt] = (got, ref, float((got - ref).abs().max() / ref.abs().max()),
+                                 float((m_got - m_ref).abs().max()),
+                                 bool(torch.equal(m_got > 0, m_ref > 0)), moved)
+                (g16, r16, emb16, match16, same16, moved16), (g32, r32, emb, match, same,
+                                                              moved32) = sides.values()
+                near, ratio = window(torch, g16, g32, r16, r32, "score mode at 256 rows")
+                out["checks"][label] = (emb, match, same, emb16, match16, same16, near, ratio)
+                print(f"[profile] (b) score: per-row embeddings ({tuple(g32.shape)}) at {batch} "
+                      f"rows against the plain versions on the card: the f32 head max |diff| / "
+                      f"max|emb| {emb:.3e} (limit {ACTIVE_EMB_TOL:.0e}), match scores against "
+                      f"the first {ACTIVE_QUERY_ROWS} rows {match:.3e} (limit "
+                      f"{ACTIVE_MATCH_TOL:.0e}), the same match > 0 set {same}; the mode's bf16 "
+                      f"head under its forms {emb16:.3e} / {match16:.3e} (a flipped bf16 "
+                      f"residual carries), the same match > 0 set {same16}, window near "
+                      f"{near:.3f} (limit {WINDOW_NEAR}), ratio {ratio:.3f} (limits "
+                      f"{WINDOW_LOW}, {WINDOW_HIGH}); launches under the plain versions "
+                      f"{moved16 or moved32} | {card}", flush=True)
+                if moved16 or moved32 or not (emb <= ACTIVE_EMB_TOL and match <= ACTIVE_MATCH_TOL
+                                              and same and same16):
+                    raise AssertionError(f"score at {batch} rows: f32 embeddings {emb}, match "
+                                         f"{match}, same sets {same} / {same16}, plain "
+                                         f"{moved16} / {moved32}")
+                del sides, g16, r16, g32, r32
+            else:
+                vals = last.values() if isinstance(last, dict) else (last,)
+                if not all(bool(torch.isfinite(v).all()) for v in vals):
+                    raise AssertionError(f"{label}: a non-finite result {last}")
+        print(f"[profile] (b) {label}: mode {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+        del step, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 19 (c): kernels of a probe session, counted under a bare
+# torch.profiler and under utils/profiling.trace
+PROBE_KERNELS = 64
+
+
+def profiler_records(torch, card, tmp):
+    """Phase 19 (c): ``PROBE_KERNELS`` small kernels (an in-place add on the
+    card) traced by a bare ``torch.profiler`` session and by
+    ``utils/profiling.trace``: the records each keeps. In a process some
+    minutes old the first records of a session go missing; ``trace``'s
+    opening pads take their places, so it must keep every probe kernel.
+    Returns (probe records bare, probe records traced, pads kept)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import (
+        PAD_KERNEL,
+        PAD_LAUNCHES,
+        trace,
+    )
+
+    x = torch.zeros(1, device="cuda")
+
+    def probe():
+        for _ in range(PROBE_KERNELS):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+
+    probe()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as bare:
+        probe()
+    with trace(os.path.join(tmp, "probe"), "probe") as traced:
+        probe()
+    counts = []
+    for prof in (bare, traced):
+        names = [evt.name for evt in device_events(prof)]
+        counts.append((sum(PAD_KERNEL not in n for n in names),
+                       sum(PAD_KERNEL in n for n in names)))
+    (seen_bare, _), (seen, pads) = counts
+    print(f"[profile] (c) a probe of {PROBE_KERNELS} kernels at {time.perf_counter() - T_START:.0f} "
+          f"s into the run: a bare torch.profiler session recorded {seen_bare}, "
+          f"utils/profiling.trace {seen} (want all) and {pads} of its {PAD_LAUNCHES} opening pads "
+          f"| {card}", flush=True)
+    if seen != PROBE_KERNELS:
+        raise AssertionError(f"trace kept {seen} of {PROBE_KERNELS} probe kernels")
+    return seen_bare, seen, pads
+
+
+def profile_phase(torch, card, tmp):
+    """Phase 19: ``run_downstream --profile`` and ``tools/profile_step`` on
+    the card, and the kernels' times at the bench's row counts beside their
+    bounds."""
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel, stft_kernel
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+
+    t0 = time.perf_counter()
+    run = profile_run(torch, (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd,
+                              stft_kernel.stft_fused, decode_kernel.decode_ola), card, tmp)
+    modes = profile_modes(torch, card, tmp)
+    records = profiler_records(torch, card, tmp)
+    # B1 at 768 rows (hs in bf16), B2 fwd / bwd at 352 (bf16 residuals): each
+    # kernel's ms a launch from the trace beside the bound of its form
+    T, H = 1001, 256
+    bounds = {"enhance": ("B1", stream_bound(768, T, H, "b1", False, True)),
+              "train": ("B2", {"fc": stream_bound(352, T, H, "fc", False, True),
+                               "bwd": stream_bound(352, T, H, "bwd", False, True)})}
+    b1 = {k: v for k, v in modes["kernel_ms"]["enhance"].items() if k.startswith("lstm_")}
+    b2 = {k: v for k, v in modes["kernel_ms"]["train"].items() if k.startswith("lstm_")}
+    b2_bwd = sum(ms for k, (ms, _) in b2.items() if k.startswith("lstm_bwd"))
+    b2_fc = sum(ms for k, (ms, _) in b2.items() if k.startswith("lstm_tm_cluster"))
+    print(f"[bound] B1 at B=768 T=1001 H=256 (hs bf16) from the enhance trace: "
+          + ", ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in b1.items())
+          + f"; bound {bounds['enhance'][1][0]:.3f} ms by {bounds['enhance'][1][1]} | {card}",
+          flush=True)
+    print(f"[bound] B2 at B=352 T=1001 H=256 (bf16 residuals) from the train trace, ms a launch: "
+          + ", ".join(f"{k} {ms:.3f} x{n}" for k, (ms, n) in b2.items())
+          + f"; B2 fwd {b2_fc:.3f} ms (bound {bounds['train'][1]['fc'][0]:.3f} by "
+          f"{bounds['train'][1]['fc'][1]}), B2 bwd's phases together {b2_bwd:.3f} ms (bound "
+          f"{bounds['train'][1]['bwd'][0]:.3f} by {bounds['train'][1]['bwd'][1]}) | {card}",
+          flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[profile] phase 19: {seconds:.1f} s | {card}", flush=True)
+    return {"run": run, "modes": modes, "seconds": seconds, "records": records,
+            "b1_768": (b1, bounds["enhance"][1]),
+            "b2_352": (b2, bounds["train"][1]["fc"], bounds["train"][1]["bwd"])}
+
+
 def main():
     import torch
 
@@ -7599,6 +8004,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         mp_phase = model_parallel_phase(torch, card, tmp)
 
+    # 19. the step tracer on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        profile = profile_phase(torch, card, tmp)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -8043,6 +8452,35 @@ def main():
     for r in rows:
         if r["name"] in mp_phase["launches"]:
             r["launches_model_parallel"] = mp_phase["launches"][r["name"]]
+    # phase 19's launches: the --profile run, and each profiled mode's 3 calls
+    run_names = ["lstm_bidir_tm", "lstm_bidir_tm_fc", "lstm_bidir_tm_bwd", "stft_fused",
+                 "decode_ola"]
+    ids = {fn.__name__: kid for kid, fn in profiled_kernels(L, A, stft_kernel,
+                                                            decode_kernel).items()}
+    b1_768, b2_352 = profile["b1_768"], profile["b2_352"]
+    for r in rows:
+        if r["name"] in run_names:
+            r["launches_profile_run"] = profile["run"]["counts"][run_names.index(r["name"])]
+        kid = ids.get(r["name"])
+        if kid is not None:
+            r["launches_profile_step"] = {label: c[kid] for label, c in
+                                          profile["modes"]["launches"].items() if kid in c}
+        if r["name"] == "lstm_bidir_tm":
+            r["ms_b768_hs_bf16"] = sum(ms for ms, _ in b1_768[0].values())
+            r["bound_ms_b768_hs_bf16"] = b1_768[1][0]
+        elif r["name"] in ("lstm_bidir_tm_fc", "lstm_bidir_tm_bwd"):
+            prefix = "lstm_tm_cluster" if r["name"].endswith("fc") else "lstm_bwd"
+            r["ms_b352_res_bf16"] = sum(ms for k, (ms, _) in b2_352[0].items()
+                                        if k.startswith(prefix))
+            r["bound_ms_b352_res_bf16"] = (b2_352[1] if prefix == "lstm_tm_cluster"
+                                           else b2_352[2])[0]
+    pm = profile["modes"]["ms"]
+    print(f"[profile] the step tracer: --profile bit for bit, its trace's kernels "
+          f"{profile['run']['by_id']}; device ms/step (wall under the profiler) at the JAX bench's "
+          f"batches: " + ", ".join(f"{k} {d:.3f} ({w:.3f})" for k, (d, w) in pm.items())
+          + f"; checks {profile['modes']['checks']}; probe records (bare, traced, pads) "
+          f"{profile['records']}; phase {profile['seconds']:.1f} s | {card}",
+          flush=True)
     am = artifact["ms"]
     print(f"[artifact] the exported flagship ({len(ARTIFACT_ROWS)} device batches of "
           f"{list(ARTIFACT_ROWS)} rows from one program) against the live enhancer "

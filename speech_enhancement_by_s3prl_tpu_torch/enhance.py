@@ -14,10 +14,11 @@ pretraining checkpoints in: ``--target_level``, ``--upstream_ckpt`` and
   python -m speech_enhancement_by_s3prl_tpu_torch.enhance --artifact result/art \\
       --inputs 'noisy/*.wav' --outdir enhanced/
 
-It runs on the card unless ``--device cpu`` asks for the CPU, as
-``run_downstream`` does; with no CUDA device the default raises. ``--mesh N``
-enhances each batch on N devices, one replica a device (``serve.build_enhancer``;
-N replicas on the CPU under ``--device cpu``); it is refused with ``--artifact``.
+It runs on the card unless ``--device cpu`` (or its alias ``--cpu``, the JAX
+CLI's flag) asks for the CPU, as ``run_downstream`` does; with no CUDA device
+the default raises. ``--mesh N`` enhances each batch on N devices, one replica
+a device (``serve.build_enhancer``; N replicas on the CPU under ``--cpu``); it
+is refused with ``--artifact``.
 """
 from __future__ import annotations
 
@@ -61,6 +62,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on: cuda (the default; raises "
                          "when there is no CUDA device) or cpu")
+    ap.add_argument("--cpu", dest="device", action="store_const", const="cpu",
+                    help="alias of --device cpu")
     ap.add_argument("--artifact", default="",
                     help="exported artifact directory (tools/export_model.py) in place "
                          "of a checkpoint")

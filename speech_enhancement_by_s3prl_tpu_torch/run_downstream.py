@@ -45,12 +45,20 @@ flag is the exception: ``--device`` (``cuda``, the default, or ``cpu``;
 ``--cpu`` is its alias) names this machine's device, so the CLI's value
 holds on resume. Asking for ``cuda`` with no CUDA device raises.
 
+``--profile`` traces the train step at the config's ``runner.profile_step``
+(default 10) into ``<expdir>/<name>/profile`` (``utils/profiling.py``), the
+run otherwise bit for bit the same. ``--wandb`` starts (or, on a resume,
+continues by the saved ``wandbid``) a wandb run that receives the scalars
+of ``scalars.jsonl``, as the JAX CLI does; it needs the ``wandb`` package,
+imported only under the flag.
+
 PyYAML is imported only to read ``--config``: a run that resumes, or a
 program that passes a dict config to :func:`build_runner`, needs none.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import random
 import sys
@@ -148,8 +156,11 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh", default=None,
                         help="D or DxM: training over D x M ranks, the batch split over D "
                         "data ranks and the head's wide parameters over M model ranks")
-    # a flag of the JAX CLI whose feature is not ported: the Runner refuses it
-    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace the train step at runner.profile_step (default 10) "
+                        "to expdir/profile")
+    parser.add_argument("--wandb", action="store_true",
+                        help="also log the scalars to a wandb run (needs the wandb package)")
     return parser
 
 
@@ -182,7 +193,35 @@ def get_downstream_args(argv=None):
         config = payload["Settings"]["Config"]
         args.resume = resume_ckpt
         args.device = device
+    if args.wandb:
+        import_wandb()  # refused here, before any rank starts, without the package
     return args, config
+
+
+WANDB_MISSING = ("--wandb requires the wandb package (not installed in this environment); "
+                 "TensorBoard logging is always on")
+
+
+def import_wandb():
+    """The ``wandb`` module; without it ``SystemExit`` with the JAX CLI's
+    message."""
+    try:
+        return importlib.import_module("wandb")
+    except ModuleNotFoundError as e:
+        raise SystemExit(WANDB_MISSING) from e
+
+
+def start_wandb(args, config):
+    """The JAX CLI's wandb run: a new run named ``--name``, whose id is kept
+    in ``args.wandbid`` (saved with the checkpoint's settings) and whose
+    config records the args and the config; on a resume, that run again."""
+    wandb = import_wandb()
+    if getattr(args, "wandbid", None) is None:
+        wandb.init(name=args.name)
+        args.wandbid = wandb.run.id
+        wandb.config.update({"args": vars(args), "config": config})
+    else:
+        wandb.init(name=args.name, resume=args.wandbid)
 
 
 def _pretrain_config(args) -> dict:
@@ -344,6 +383,9 @@ def main(argv=None, init_method=None, world=None, rank=None):
 def _run(args, config):
     random.seed(args.seed)
     np.random.seed(args.seed)
+    if getattr(args, "wandb", False) and (not torch.distributed.is_initialized()
+                                          or torch.distributed.get_rank() == 0):
+        start_wandb(args, config)
     runner = build_runner(args, config)
     runner.set_model()
     if args.test:

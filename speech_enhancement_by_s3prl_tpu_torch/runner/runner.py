@@ -62,14 +62,20 @@ save (rank 0 writes the full tree and the full optimizer moments, the format
 of a run without a mesh), the objective's figure and the active sampler's
 scoring. The eval runs over all D * M ranks.
 
-Not ported yet, refused with its ROADMAP item: ``--profile`` (A11).
+``--profile`` traces the train step at ``profile_step`` (default 10) into
+``expdir/profile`` (``utils/profiling.trace``: one ``*.pt.trace.json``, which
+``tools/profile_step.py --parse_only`` reads), the step itself unchanged;
+under a mesh every rank traces its own step there, its rank in the file's
+name. Under ``--wandb`` rank 0's scalars also go to the active wandb run.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import random
+import sys
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -96,6 +102,7 @@ from ..parallel.mesh import (
     parse_mesh,
 )
 from ..utils.plotting import boxplot_png
+from ..utils.profiling import trace
 from . import checkpoint as ckpt_lib
 from .media import MediaLog
 from .optim import build_optimizer
@@ -105,7 +112,10 @@ LOG_WAV_NUM = 3
 
 
 class ScalarLog:
-    """Scalars appended to ``expdir/scalars.jsonl``, one JSON object a line."""
+    """Scalars appended to ``expdir/scalars.jsonl``, one JSON object a line,
+    and logged to the wandb run that ``run_downstream --wandb`` started, when
+    one is active (the JAX package syncs wandb with its TensorBoard
+    writer)."""
 
     def __init__(self, expdir: str):
         os.makedirs(expdir, exist_ok=True)
@@ -115,10 +125,9 @@ class ScalarLog:
         line = {"step": int(global_step), "tag": tag, "value": float(value)}
         with open(self.path, "a") as f:
             f.write(json.dumps(line) + "\n")
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+        wandb = sys.modules.get("wandb")  # imported only under --wandb
+        if wandb is not None and getattr(wandb, "run", None) is not None:
+            wandb.log({tag: line["value"]}, step=line["step"])
 
 
 class _Silent:
@@ -144,8 +153,6 @@ class Runner:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Runner on cuda, but there is no CUDA device")
-        if getattr(args, "profile", None):
-            _refuse("--profile", "A11")
         # --mesh DxM: this process is one of the D x M ranks
         self.mesh = self.tp = None
         self._stale = False
@@ -236,6 +243,17 @@ class Runner:
                 self.builder, self.mesh, self.state)
             self.tp = self.train_step.tp
             self.eval_step_parallel = make_parallel_eval_step(self.builder, self.mesh)
+
+    def _profiled(self):
+        """The train step's context: under ``--profile``, at ``profile_step``,
+        a trace into ``expdir/profile`` (the module docstring)."""
+        if not (getattr(self.args, "profile", False)
+                and self.global_step == int(self.rconfig.get("profile_step", 10))):
+            return contextlib.nullcontext()
+        name = f"train_step{self.global_step}"
+        if torch.distributed.is_initialized():
+            name += f"_rank{torch.distributed.get_rank()}"
+        return trace(os.path.join(self.expdir, "profile"), name)
 
     def _gather(self):
         """Under a model axis: the train step's slices into the full
@@ -588,7 +606,8 @@ class Runner:
                 if shared:
                     lengths, wavs = broadcast_batch((lengths, wavs), self.mesh, self.device)
 
-                self.state, stats = self.train_step(self.state, wavs, lengths)
+                with self._profiled():
+                    self.state, stats = self.train_step(self.state, wavs, lengths)
                 self._stale = self.tp is not None
                 loss_sum += float(stats["loss"])
                 last_norm = float(stats["grad_norm"])

@@ -316,18 +316,17 @@ def test_config_helpers_match_jax():
 
 
 @pytest.mark.parametrize("case,item", [
-    (("--mesh=3x2",), "A12b"), (("--profile",), "A11"),
+    (("--mesh=3x2",), "A12b"),
 ])
 def test_runner_refuses_what_is_not_ported(corpus, tmp_path, case, item):
-    """``--profile`` is refused with its ROADMAP item. ``--mesh DxM`` (A12b)
-    is ported; with a ``batch_size`` (2) that D (3) does not divide it is
-    refused with the JAX package's message before any rank starts."""
+    """``--mesh DxM`` (A12b) is ported; with a ``batch_size`` (2) that D (3)
+    does not divide it is refused with the JAX package's message before any
+    rank starts. (``--profile``, A11, is ported too:
+    tests/test_torch_port_profile.py.)"""
     config = _config(corpus)
     flags = _flags(tmp_path) + list(case)
     cfg = _write_yaml(tmp_path / "cfg.yaml", config)
-    error, match = ((ValueError, "batch_size must divide the data axis") if item == "A12b"
-                    else (NotImplementedError, f"ROADMAP {item}"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="batch_size must divide the data axis"):
         run_downstream.main(["--config", cfg, *flags])
 
 
