@@ -119,7 +119,7 @@ Phases, one line each:
      solo replies (byte-identical under ``--fixed_batch``), ``/stream``
      against the card's streamer bit for bit; and times: ``/enhance`` of 10 s
      over HTTP beside the direct call, ``tools/serve_load.py`` at levels 1, 4
-     and 16 (256 requests a level), and at 16 under ``--fixed_batch`` with
+     and 16 (128 requests a level), and at 16 under ``--fixed_batch`` with
      its probes byte-identical, the stream's chunk, RTF and first audio, B1
      at one chunk's shape with and without state;
  11. the active-learning sampler at full width: config/active.yaml (LSTM 3 x
@@ -284,7 +284,7 @@ Phases, one line each:
      SE_PALLAS_HS_BF16, eval with all five metrics, train at 352 under
      SE_PALLAS_VJP_BF16, upstream at 512 in bf16, Mockingjay at 64 in bf16
      with dropout 0.1, score at 256 in bf16 under both variables), each
-     traced over 3 calls: the device plane's ms a call and top rows, the
+     traced over 2 calls: the device plane's ms a call and top rows, the
      port's kernels' launches a call read from the table against the code's
      count and the wrappers', the table's total against the profiler's own
      device sum; enhance's rows against a 6-row call, the train step's loss
@@ -294,6 +294,19 @@ Phases, one line each:
      may lose a session's first records in a process minutes old; trace's
      opening pads must keep them all); and B1 at 768 rows and B2 at 352
      beside their bounds.
+ 20. the benchmark harness and its cost model: ``python -m
+     speech_enhancement_by_s3prl_tpu_torch.bench`` (``run_all``: each of its
+     ten modes in a subprocess at the JAX bench's batches and variables, 2
+     calls a mode, the latency mode 50, the pipeline over one epoch), every
+     line with a positive value and this card's name and power limit, each
+     device mode with 0 < mfu <= 1 and 0 < hbm_util_model <= 1 from the
+     classes' peaks, no opaque call, no roofline error and the launches a
+     call the code gives, the headline the enhance mode's; ``program_cost``
+     of the flagship's enhance and train step (2 rows of 1 s, in f32 and
+     under their bench modes' stream forms) the same on the card, where the
+     kernels run, as on the CPU, where their plain versions run; and the
+     bounds the phases above print, now read from ``utils/costs.py``,
+     against their values before the move.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -322,6 +335,21 @@ import wave
 
 import numpy as np
 
+from speech_enhancement_by_s3prl_tpu_torch.bench import kernel_wrappers
+from speech_enhancement_by_s3prl_tpu_torch.utils.costs import (  # the kernels' counts and bounds
+    PEAK_F32,
+    PEAK_TF32,
+    attention_bound,
+    attention_bound_bf16,
+    bf16_h_bound,
+    bound,
+    carried_bound,
+    decode_bound,
+    dw_first_bound,
+    lstm_bound,
+    stft_bound,
+    stream_bound,
+)
 from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import kernel_label, kernel_op
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -382,6 +410,10 @@ FUSED_SHAPES = ((1, 1001, 120, 256, 32), (1, 1001, 512, 256, 32), (6, 1001, 120,
 # sums run in an order its block does not enter, so the bits must not move
 BB_BLOCKS = (8, 1)
 TRAIN_STEPS, RESUME_STEPS = 8, 2
+# calls a profiler breakdown averages over (once 5): a session's set-up
+# and the events of a Mockingjay step's ~3500 launches cost seconds each, and
+# a device time a call agrees to ~1% whatever the count
+PROFILED_CALLS = 2
 # B3 vs its plain version, each error relative to the plain version's largest
 # |value|. The kernels fold key tiles into an online softmax and compute their
 # tile products on the tensor cores in three TF32 passes (measured ~3e-6 for
@@ -406,14 +438,12 @@ B3_CASES = (  # B, T, N, D, dropout rate, key bias
     (2, 70, 2, 128, 0.2, False),
 )
 MJ_LAYERS = 6
-# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
-# tensor cores, dense TF32 and dense bf16 on them, and HBM3. A bound takes the
-# cheapest arithmetic the numerics allow: f32 results to f32 accuracy may come
-# from the tensor cores as three TF32 passes a product (B3), not from one; a
-# bf16 product (B3 bf16) is one bf16 pass
-PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
-PEAK_BF16 = 989e12
 MJ_STEPS, MJ_RESUME_STEPS, UPSTREAM_STEPS = 4, 2, 2
+
+
+def phase_done(n: int) -> None:
+    """Marks the end of phase ``n`` with the seconds since the script began."""
+    print(f"[phase] {n} done at {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -771,7 +801,7 @@ def device_events(prof):
     return [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
 
 
-def device_busy(torch, fn, calls=5):
+def device_busy(torch, fn, calls=PROFILED_CALLS):
     """A call of ``fn`` under ``torch.profiler``, after one call to warm it:
     (device busy ms, wall ms, device kernels, host-to-card copies). Each
     host-to-card copy made from pageable memory waits for the work queued
@@ -1118,77 +1148,6 @@ def print_build_report(libs, build_s):
         print(f"[build] {name}.cu -> {os.path.relpath(lib_path, ROOT)} (all "
               f"{len(libs)} sources in {build_s:.2f} s) | ptxas: {' ; '.join(report)}",
               flush=True)
-
-
-def bound(flops, nbytes, peak=PEAK_F32):
-    """The least time the card could take, in ms: operations over their peak
-    rate (f32 outside the tensor cores unless ``peak`` says otherwise) against
-    bytes over the memory rate (each input read once, each output written
-    once); and which of the two binds."""
-    by_ops, by_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-
-
-def lstm_bound(B, T, H, products=1, extra_streams=0, D=0, peak=PEAK_F32):
-    """B1 / B6: one h @ W_hh^T a step and direction, xw in, hs out.
-    ``products`` 3 for the backward; ``extra_streams`` counts further
-    (2, B, T, H)-sized tensors moved (cs, dhs) and, for the backward, the
-    (2, B, T, 4H) dxw; ``D`` > 0 (B7) swaps the xw stream for xs and W_ih^T
-    and adds the projection. ``peak=PEAK_TF32`` counts each product as three
-    TF32 passes on the tensor cores (B2 bwd, whose gate and dW_hh^T products
-    run there) in place of f32 FMAs."""
-    flops = products * 2 * 2 * B * T * H * 4 * H + 2 * 2 * B * T * D * 4 * H
-    stream = 2 * B * T * (D if D else 4 * H)
-    weights = 2 * H * 4 * H + (2 * D * 4 * H + 2 * 4 * H if D else 0)
-    nbytes = 4 * (stream + weights + 2 * B * T * H * (1 + extra_streams))
-    if products == 3:
-        nbytes += 4 * (2 * B * T * 4 * H + 2 * H * 4 * H)  # dxw and dW_hh^T out
-    return bound(3 * flops if peak == PEAK_TF32 else flops, nbytes, peak)
-
-
-def carried_bound(B, T, H):
-    """B1 of one direction continuing from a carried state: one h @ W_hh^T a
-    step, xw and W_hh^T in, hs out, and h0, c0 in and cT out."""
-    nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T * H + 3 * B * H)
-    return bound(2 * B * T * H * 4 * H, nbytes)
-
-
-def attention_bound(B, T, N, D, products, peak=PEAK_TF32):
-    """B3: ``products`` tile products of 2 * T * T * D operations a head (2
-    forward, 5 backward); q, k, v, out (and dout, dq, dk, dv) moved once.
-    Each product is three TF32 passes on the tensor cores, the cheapest
-    arithmetic that keeps f32 accuracy: products * 3 * 2 * B * N * T * T * D
-    over the TF32 peak. ``peak=PEAK_F32`` gives the same products as f32 FMAs
-    on the CUDA cores instead (the figure the forward's first design was
-    held against)."""
-    flops = products * 2 * B * N * T * T * D
-    nbytes = 4 * ((4 if products == 2 else 9) * B * T * N * D + B * N * T)
-    if peak == PEAK_F32:
-        return bound(flops, nbytes)
-    return bound(3 * flops, nbytes, PEAK_TF32)
-
-
-def decode_bound(rows, n_frames, n_fft, hop):
-    """B5 by its cheapest algorithm, an inverse FFT of each frame: the rescale
-    (~8 operations a bin), the packing (~12 a point), the M-point transform
-    (5 M log2 M), the window and the overlap-add a frame on the CUDA cores
-    (~13 k operations at n_fft 400), against pred and the carrier in, the raw
-    overlap-add and the tables out and in. Bytes bind."""
-    m, k = n_fft // 2, -(-n_fft // hop)
-    flops = rows * n_frames * (8 * (m + 1) + 12 * m + 5 * m * math.log2(m) + n_fft + k * hop)
-    nbytes = 4 * (rows * (3 * n_frames * (m + 1) + (n_frames + k - 1) * hop) + 3 * n_fft + 2)
-    return bound(flops, nbytes)
-
-
-def stft_bound(rows, n_frames, n_fft, hop):
-    """B4 by its cheapest algorithm, an FFT of each frame: window (n_fft),
-    the n_fft / 2-point complex transform (5 M log2 M) and the split pass
-    (~6 n_fft) a frame on the CUDA cores, against the samples and the tables
-    in and n_fft + 2 values a frame out. Bytes bind."""
-    m = n_fft // 2
-    flops = rows * n_frames * (n_fft + 5 * m * math.log2(m) + 6 * n_fft)
-    nbytes = 4 * (rows * ((n_frames - 1) * hop + n_frames * (n_fft + 2)) + 3 * n_fft + 2)
-    return bound(flops, nbytes)
 
 
 def serving_times(torch, S, stft_kernel, decode_kernel, L, card):
@@ -1826,17 +1785,17 @@ def upstream_times(torch, A, card):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(PROFILED_CALLS):
             state, stats = builder.train_step(state, wavs, lengths)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 5
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_CALLS
     shares = {"B3 fwd": 0.0, "B3 bwd": 0.0, "cuBLAS": 0.0, "other": 0.0}
     other, launches = {}, 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         name = evt.name
-        ms = evt.time_range.elapsed_us() / 1e3 / 5
+        ms = evt.time_range.elapsed_us() / 1e3 / PROFILED_CALLS
         launches += 1
         if "flash_bwd" in name:
             key = "B3 bwd"
@@ -1850,10 +1809,11 @@ def upstream_times(torch, A, card):
             other[label] = other.get(label, 0.0) + ms
         shares[key] += ms
     busy = sum(shares.values())
-    print(f"[time] Mockingjay train step B=6 under torch.profiler (5 steps): wall "
+    print(f"[time] Mockingjay train step B=6 under torch.profiler ({PROFILED_CALLS} steps): wall "
           f"{wall:.3f} ms a step, device busy {busy:.3f} ms ("
           + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items())
-          + f"), idle share {max(0.0, 1 - busy / wall):.3f}, {launches / 5:.0f} device "
+          + f"), idle share {max(0.0, 1 - busy / wall):.3f}, "
+          f"{launches / PROFILED_CALLS:.0f} device "
           f"kernels a step | {card}", flush=True)
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
     print("[time] Mockingjay step, largest 'other' kernels (ms a step): "
@@ -2079,7 +2039,8 @@ def metrics_phase(torch, M, kernels, all_kernels, dsp_kernels, card):
               f"alone: median {step1[0]:.3f} ms (min {step1[1]:.3f}, max {step1[2]:.3f}); the "
               f"metrics alone on the step's outputs: median {alone[0]:.3f} ms | {card}",
               flush=True)
-        print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s under torch.profiler (5 calls each): "
+        print(f"[time] eval batch {VCB_EVAL_BATCH} x 10 s under torch.profiler "
+              f"({PROFILED_CALLS} calls each): "
               f"with {list(VCB_EVAL_METRICS)} wall {wall3:.3f} ms, device busy {busy3:.3f} ms, "
               f"idle share {max(0.0, 1 - busy3 / wall3):.3f}, {k3:.0f} device kernels and "
               f"{h3:.0f} host-to-card copies a call; SI-SDR alone wall {wall1:.3f}, busy "
@@ -2458,7 +2419,7 @@ def objectives_phase(torch, kernels, all_kernels, dsp_kernels, card, tmp):
               f"of 20 synchronized steps (in turns pmsqe, SISDR, SISDR, pmsqe) pmsqe "
               f"{train_t['pmsqe']:.3f} ms (min {min(runs['pmsqe']):.3f}), SISDR "
               f"{train_t['SISDR']:.3f} ms (min {min(runs['SISDR']):.3f}); under "
-              f"torch.profiler (5 steps): "
+              f"torch.profiler ({PROFILED_CALLS} steps): "
               + "; ".join(f"{k} wall {w:.3f} ms, device busy {b_:.3f} ms, idle share "
                           f"{max(0.0, 1 - b_ / w):.3f}, {kn:.0f} kernels and {hd:.0f} "
                           f"host-to-card copies a step"
@@ -2467,7 +2428,7 @@ def objectives_phase(torch, kernels, all_kernels, dsp_kernels, card, tmp):
         print(f"[time] vcb head eval batch 12 x 10 s with eval_metrics "
               f"{list(builder.eval_metrics)}: median of 20 (in turns stoi, SISDR, SISDR, stoi) "
               f"--objective stoi {eval_t['stoi']:.3f} ms, SISDR {eval_t['SISDR']:.3f} ms; under "
-              f"torch.profiler (5 calls): "
+              f"torch.profiler ({PROFILED_CALLS} calls): "
               + "; ".join(f"{k} wall {w:.3f} ms, device busy {b_:.3f} ms, {kn:.0f} kernels, "
                           f"{hd:.0f} host-to-card copies"
                           for k, (b_, w, kn, hd) in eval_busy.items()) + f" | {card}",
@@ -2536,9 +2497,9 @@ STREAM_SECONDS = 10.0
 FRONT_SECONDS = (2.0, 3.3, 4.7, 6.1, 7.5, 8.2, 9.0, 10.0)
 FLAC_FRAMES = 24
 # the load tool's levels, each with LOAD_TOTAL requests (LOAD_TOTAL / level a
-# client), so that a level's p99 is a percentile of a few hundred, not the
-# slowest of a handful
-LOAD_LEVELS, LOAD_TOTAL, LOAD_DURATIONS = (1, 4, 16), 256, (1.0, 4.0, 10.0)
+# client), so that a level's p99 is a percentile of over a hundred, not the
+# slowest of a handful (once 256; phase 20 needed the time)
+LOAD_LEVELS, LOAD_TOTAL, LOAD_DURATIONS = (1, 4, 16), 128, (1.0, 4.0, 10.0)
 
 
 def flac_body(pcm: np.ndarray) -> bytes:
@@ -3597,16 +3558,6 @@ def flash_bf16_checks(torch, A):
     return worst
 
 
-def attention_bound_bf16(B, T, N, D, products):
-    """B3 bf16: ``products`` tile products of 2 * T * T * D operations a head,
-    one bf16 pass each on the tensor cores; q, k, v, out (and dout, dq, dk, dv)
-    moved once in bf16, lse (and the backward's Di) in f32."""
-    H = N * D
-    nbytes = 2 * (4 if products == 2 else 8) * B * T * H + 4 * B * N * T * (
-        1 if products == 2 else 2)
-    return bound(products * 2 * B * N * T * T * D, nbytes, PEAK_BF16)
-
-
 # B3 bf16's CUDA-core floor: per logit one exponential (one MUFU.EX2 result;
 # an H100 SM gives 16 a clock) and the dropout hash (HASH_INT_OPS 32-bit
 # integer operations; 64 a clock), on 132 SMs at the card's top SM clock of
@@ -3859,7 +3810,7 @@ def flagship_bf16_runs(torch, corpus, tmp, counted):
 
 
 def step_breakdown(torch, fn, card, what):
-    """Five calls of ``fn`` under torch.profiler after one to warm it: wall and
+    """``PROFILED_CALLS`` calls of ``fn`` under torch.profiler after one to warm it: wall and
     device busy ms a call, idle share, and device time by kind, GEMMs split by
     operand type (bf16 or f32) with the f32 ones named."""
     from torch.autograd import DeviceType
@@ -3869,10 +3820,10 @@ def step_breakdown(torch, fn, card, what):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 5
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_CALLS
     shares = {"B3 fwd bf16": 0.0, "B3 bwd bf16": 0.0, "B3 f32": 0.0, "B2": 0.0,
               "GEMM bf16": 0.0, "GEMM f32": 0.0, "other": 0.0}
     gemms, other = {"GEMM bf16": {}, "GEMM f32": {}}, {}
@@ -3880,7 +3831,7 @@ def step_breakdown(torch, fn, card, what):
         if evt.device_type != DeviceType.CUDA:
             continue
         name, low = evt.name, evt.name.lower()
-        ms = evt.time_range.elapsed_us() / 1e3 / 5
+        ms = evt.time_range.elapsed_us() / 1e3 / PROFILED_CALLS
         if "flash_fwd_bf16" in name:
             key = "B3 fwd bf16"
         elif "flash_bwd" in name and "bf16" in name:
@@ -3901,8 +3852,8 @@ def step_breakdown(torch, fn, card, what):
             other[label] = other.get(label, 0.0) + ms
         shares[key] += ms
     busy = sum(shares.values())
-    print(f"[time] {what} under torch.profiler (5 calls): wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms ("
+    print(f"[time] {what} under torch.profiler ({PROFILED_CALLS} calls): wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms ("
           + ", ".join(f"{k} {v:.3f} ms {v / max(busy, 1e-9):.1%}" for k, v in shares.items()
                       if v)
           + f"), idle share {max(0.0, 1 - busy / wall):.3f} | {card}", flush=True)
@@ -4093,10 +4044,6 @@ BF16H_DW_EDGE_SHAPES = ((10, 57, 36), (5, 300, 37), ("max", 20, 64), (137, 201, 
                         (272, 201, 256), (352, 201, 256), (1024, 201, 256))
 # rows of the vcb head's bf16 backward past one chunk of the dW_hh^T kernel
 BF16H_CHUNKED_ROWS = 137
-# instructions a dW_hh^T element takes on the CUDA cores each step: its carry,
-# cvt.rn.bf16x2.f32 and add.rn.bf16x2 for two elements (the kernel's SASS: 8
-# F2FP and 8 HADD2 a thread and step for 16 elements)
-DW_CARRY_INSTRUCTIONS = 1
 # the vcb head's w_hh gradients, card against CPU through a whole train step,
 # are each held to the window (its ratio bound is what tells a bf16 sum taken
 # step by step from an f32 sum rounded once: on the CPU at (B, T, H) = (2,
@@ -4142,41 +4089,6 @@ def spread(torch, out, ref, scale=1.0):
 def worse(a, b):
     """The worse of two ``spread`` readings, statistic by statistic."""
     return max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2])
-
-
-def bf16_h_bound(B, T, H, form):
-    """The bf16-h forms of one direction. ``form`` "b1" / "fc": a bf16 h times
-    a bf16 W_hh^T a step (one bf16 tensor-core pass) with xw in and hs (and
-    cs) out; "bwd": the gates recomputed from bf16(h) (bf16 pass) and the
-    carried dh product of an f32 da and the bf16 W_hh (three TF32 passes),
-    with xw, hs, cs, dhs and W_hh^T in and dxw out; "dw": the bf16 carry of
-    every element and step on the CUDA cores against the step products as
-    three bf16 passes on the tensor cores, with hs and da in and dW_hh^T out
-    (``dw_first_bound``: the first design's count)."""
-    product = 2 * B * T * H * 4 * H
-    if form == "dw":
-        # the larger of the carry on the CUDA cores (DW_CARRY_INSTRUCTIONS an
-        # element and step at any B, at half the f32 operation rate: one
-        # instruction a lane and clock), the products as three bf16 passes
-        # (da split into three bf16 terms) and the bytes
-        carry_ms = (T - 1) * H * 4 * H * DW_CARRY_INSTRUCTIONS / (PEAK_F32 / 2) * 1e3
-        tensor_ms = 3 * 2 * B * (T - 1) * H * 4 * H / PEAK_BF16 * 1e3
-        by_bytes = 4 * (B * T * 5 * H + 4 * H * H) / PEAK_BYTES * 1e3
-        ops_ms = max(carry_ms, tensor_ms)
-        return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes, "bytes")
-    if form == "bwd":
-        ops_ms = (product / PEAK_BF16 + 3 * product / PEAK_TF32) * 1e3
-        nbytes = 4 * (B * T * (4 * H + 3 * H) + 4 * H * H + B * T * 4 * H)
-        by_bytes = nbytes / PEAK_BYTES * 1e3
-        return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes, "bytes")
-    nbytes = 4 * (B * T * 4 * H + 4 * H * H + B * T * H * (2 if form == "fc" else 1))
-    return bound(product, nbytes, PEAK_BF16)
-
-
-def dw_first_bound(B, T, H):
-    """The bound the first dW_hh^T design was held to: 2 B (T - 1) H 4H f32
-    FMA operations on the CUDA cores against the bytes."""
-    return bound(2 * B * (T - 1) * H * 4 * H, 4 * (B * T * 5 * H + 4 * H * H))
 
 
 def bf16_h_checks(torch, L):
@@ -5381,27 +5293,6 @@ def vcb_xw_form(torch, counted, card):
     return out
 
 
-def stream_bound(B, T, H, kind, xw_bf16, out_bf16, ndir=2):
-    """The least time of a stream form at (ndir, B, T, H): ``kind`` "b1" /
-    "fc": one h @ W_hh^T a step and direction as f32 FMAs, xw (2 or 4 bytes
-    an element) and W_hh^T in, hs (and cs) out (2 or 4 bytes); "bwd": the
-    gate and dh products, and dW_hh^T, as three TF32 passes each (f32
-    residuals), or (bf16 residuals) the two products of bf16 numbers as one
-    bf16 pass each and dW_hh^T of bf16 h against the f32 da as two TF32
-    passes; xw, W_hh^T, hs, cs, dhs in, dxw (xw's bytes) and dW_hh^T out."""
-    n, w = ndir * B * T, ndir * H * 4 * H
-    product = 2 * n * H * 4 * H
-    xb, ob = (2 if xw_bf16 else 4), (2 if out_bf16 else 4)
-    if kind in ("b1", "fc"):
-        nbytes = n * 4 * H * xb + 4 * w + n * H * ob * (2 if kind == "fc" else 1)
-        return bound(product, nbytes)
-    nbytes = 2 * n * 4 * H * xb + 8 * w + 3 * n * H * ob
-    ops_ms = ((2 * product / PEAK_BF16 + 2 * product / PEAK_TF32) if out_bf16
-              else 9 * product / PEAK_TF32) * 1e3
-    by_bytes = nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes, "bytes")
-
-
 # the forms timed in phase 14 (f), as (xw bf16, out bf16): B1's hs, B2's
 # residuals
 STREAM_TIMED = {"xw": (True, False), "out": (False, True), "xw+out": (True, True),
@@ -5554,7 +5445,8 @@ def pretrain_step_sides(torch, corpus, run_dir, channel, card):
            "idle": max(0.0, 1 - busy / wall), "loss_rel": loss_rel, "grad_max": grad_max}
     print(f"[time] pretraining step channel {channel} B={PRETRAIN_BATCH} 10 s (T=1001 frames, "
           f"6 x 768 x 12 heads, dropout 0.1): median {out['ms']:.3f} ms of 10 synchronized "
-          f"steps (min {min(ms):.3f}, max {max(ms):.3f}); under torch.profiler (5 steps) wall "
+          f"steps (min {min(ms):.3f}, max {max(ms):.3f}); under torch.profiler ({PROFILED_CALLS} "
+          f"steps) wall "
           f"{wall:.3f} ms, device busy {busy:.3f} ms, {n_kernels:.0f} kernels a step, idle "
           f"share {out['idle']:.3f} | {card}", flush=True)
     return out
@@ -6941,9 +6833,9 @@ def model_parallel_phase(torch, card, tmp):
 
 # the step tracer (phase 19): (a) run_downstream --profile, 3 B=6 10 s steps of
 # the flagship, the second traced; (b) tools/profile_step in each mode at the
-# JAX bench's batch (bench.py's ALL_MODES, with its variables), 3 traced calls
+# JAX bench's batch (bench.py's ALL_MODES, with its variables), 2 traced calls
 PROFILE_RUN_STEPS, PROFILE_RUN_AT = 3, 2
-PROFILE_CALLS = 3
+PROFILE_CALLS = 2  # once 3; phase 20 runs the same modes again
 HS_FORM, VJP_FORM = ("SE_PALLAS_HS_BF16",), ("SE_PALLAS_VJP_BF16",)
 # (label, mode, batch, dtype, stream-form variables, options, launches a call
 # of each of the port's kernels, by the code: 3 LSTM layers, one B4 for the
@@ -6966,16 +6858,6 @@ PARSER_TOL = 0.05
 # enhance at 768 rows: rows 0, 383 and 767 against the same rows in a B=6 call
 # (the GEMMs may pick other algorithms at another batch), of the row's RMS
 PROFILE_ROWS = (0, 383, 767, 1, 384, 766)
-
-
-def profiled_kernels(L, A, S, D):
-    """The port's kernel wrappers by the id ``utils/profiling.kernel_id``
-    gives their kernels."""
-    return {"B1": L.lstm_bidir_tm, "B2 fwd": L.lstm_bidir_tm_fc, "B2 bwd": L.lstm_bidir_tm_bwd,
-            "B2 bwd dW_hh^T bf16": L.lstm_bidir_tm_dw_bf16, "B3 fwd": A.flash_attention_fwd,
-            "B3 bwd": A.flash_attention_bwd, "B3 fwd bf16": A.flash_attention_fwd_bf16,
-            "B3 bwd bf16": A.flash_attention_bwd_bf16, "B4": S.stft_fused, "B5": D.decode_ola,
-            "B6": L.lstm_bidir_bb, "B7": L.lstm_bidir_fused}
 
 
 @contextlib.contextmanager
@@ -7097,10 +6979,6 @@ def profile_modes(torch, card, tmp):
     and the wrappers' counters, the plane's total against the profiler's own
     sum of its device events, and each mode's check at its row count."""
     from speech_enhancement_by_s3prl_tpu_torch.active.sampler import matching
-    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
-    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import decode_kernel
-    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
-    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import stft_kernel
     from speech_enhancement_by_s3prl_tpu_torch.runner.trainer import make_context
     from speech_enhancement_by_s3prl_tpu_torch.tools.profile_step import build_mode, wait
     from speech_enhancement_by_s3prl_tpu_torch.utils.profiling import (
@@ -7110,7 +6988,7 @@ def profile_modes(torch, card, tmp):
         trace,
     )
 
-    wrappers = profiled_kernels(L, A, stft_kernel, decode_kernel)
+    wrappers = kernel_wrappers()
     out = {"launches": {}, "ms": {}, "kernel_ms": {}, "checks": {}}
 
     def grad_of(builder, wavs, lengths):
@@ -7330,6 +7208,159 @@ def profile_phase(torch, card, tmp):
             "b2_352": (b2, bounds["train"][1]["fc"], bounds["train"][1]["bwd"])}
 
 
+# the benchmark harness (phase 20): bench.py's run_all, every mode of its
+# ALL_MODES at the JAX bench's batches and variables, BENCH_ITERS calls a
+# mode, the pipeline over one epoch; the latency mode at the JAX bench's 50
+# calls (0.3 s), which a stall of the host shifts less than 10
+BENCH_ENV = {"BENCH_ITERS": "2", "BENCH_LATENCY_ITERS": "50", "BENCH_PIPE_EPOCHS": "1",
+             "BENCH_MODE_TIMEOUT": "300", "BENCH_TOTAL_BUDGET": "600"}
+BENCH_TIMEOUT = 700
+BENCH_ALL = ("enhance", "train", "eval", "eval_full", "upstream", "mockingjay", "score",
+             "loader", "latency", "pipeline")
+# launches a call of each kernel in each device mode's window, by the code:
+# 3 LSTM layers, one B4 for the batch's features, one B5 for its decode, 6
+# encoder layers (phase 19's PROFILE_MODES)
+DSP_PATH = {"B1": 3, "B4": 1, "B5": 1}
+STEP_PATH = {"B2 fwd": 3, "B2 bwd": 3, "B4": 1}
+BENCH_LAUNCHES = {"enhance": DSP_PATH, "eval": DSP_PATH, "eval_full": DSP_PATH,
+                  "latency": DSP_PATH, "pipeline": DSP_PATH, "train": STEP_PATH,
+                  "score": STEP_PATH, "upstream": {},
+                  "mockingjay": {"B3 fwd bf16": 6, "B3 bwd bf16": 6, "B4": 1}}
+# program_cost of the flagship's enhance and train step held card against CPU
+# at this shape, in f32 and under each bench mode's stream forms: the kernels
+# count by formula, so the card's count must equal the plain versions'
+COST_ROWS, COST_SECONDS = 2, 1
+COST_CASES = (("enhance", ()), ("enhance", ENHANCE_MODE), ("train", ()),
+              ("train", TRAIN_MODE))
+# the bounds as this script printed them before their counts moved into
+# utils/costs.py: (function, arguments, keywords, ms, what binds)
+BOUND_PINS = (
+    ("lstm_bound", (1, 1001, 256), {}, 0.015666038447761196, "operations"),
+    ("lstm_bound", (64, 1001, 256), {}, 1.0026264606567166, "operations"),
+    ("lstm_bound", (6, 1001, 256), {"extra_streams": 1}, 0.09399623068656716, "operations"),
+    ("lstm_bound", (6, 1001, 256), {"products": 3, "extra_streams": 3, "peak": PEAK_TF32},
+     0.1145044992, "operations"),
+    ("lstm_bound", (64, 1001, 256), {"products": 3, "extra_streams": 3},
+     3.0078793819701493, "operations"),
+    ("lstm_bound", (256, 1001, 256), {"peak": PEAK_TF32}, 1.6285084330666666, "operations"),
+    ("lstm_bound", (1, 1001, 256), {"D": 512, "peak": PEAK_TF32}, 0.019084083199999997,
+     "operations"),
+    ("carried_bound", (1, 48, 256), {}, 0.00038728597014925375, "bytes"),
+    ("attention_bound", (6, 1001, 12, 64, 2), {}, 0.11193262080000001, "operations"),
+    ("attention_bound", (64, 1001, 12, 64, 5), {}, 2.984869888, "operations"),
+    ("attention_bound", (6, 1001, 12, 64, 5), {"peak": PEAK_F32}, 0.6891374041791045,
+     "operations"),
+    ("attention_bound_bf16", (64, 1001, 12, 64, 5), {}, 0.497981326107179, "operations"),
+    ("stft_bound", (64, 1001, 400, 160), {}, 0.04297902089552239, "bytes"),
+    ("decode_bound", (12, 1001, 400, 160), {}, 0.01094949014925373, "bytes"),
+    ("bf16_h_bound", (6, 1001, 256, "fc"), {}, 0.01132819104477612, "bytes"),
+    ("bf16_h_bound", (6, 1001, 256, "bwd"), {}, 0.02226797979049545, "operations"),
+    ("bf16_h_bound", (352, 201, 256, "dw"), {}, 0.11196119878665318, "operations"),
+    ("dw_first_bound", (6, 1001, 256), {}, 0.04695116417910448, "operations"),
+    ("stream_bound", (768, 1001, 256, "b1", False, True), {}, 12.031517527880597, "operations"),
+    ("stream_bound", (352, 1001, 256, "bwd", False, True), {}, 2.23995379688071, "operations"),
+)
+# a class's peak is now divided once (165e12 for three TF32 passes) where it
+# multiplied the count: the same number within an ulp or two
+BOUND_RTOL = 1e-12
+
+
+def bench_checks(line, name, card):
+    """The checks of one mode's line from ``run_all``; returns the line."""
+    if "value" not in line or not line["value"] > 0:
+        raise AssertionError(f"bench mode {name} gave no positive value: {str(line)[-1500:]}")
+    if line.get("card") != (card if name != "loader" else "host"):
+        raise AssertionError(f"bench mode {name} names the card {line.get('card')!r}, not {card!r}")
+    if name == "loader":
+        return line
+    if "roofline_error" in line:
+        raise AssertionError(f"bench mode {name}: {line['roofline_error']}")
+    for key in ("mfu", "hbm_util_model"):
+        if not 0 < line.get(key, 0) <= 1:
+            raise AssertionError(f"bench mode {name}: {key} {line.get(key)} outside (0, 1]")
+    if line["opaque_calls"]:
+        raise AssertionError(f"bench mode {name}: {line['opaque_calls']} opaque calls")
+    if line["launches_per_call"] != BENCH_LAUNCHES[name]:
+        raise AssertionError(f"bench mode {name} launched {line['launches_per_call']}, the code "
+                             f"gives {BENCH_LAUNCHES[name]}")
+    return line
+
+
+def bench_phase(torch, card):
+    """Phase 20: ``python -m speech_enhancement_by_s3prl_tpu_torch.bench`` (its
+    ``run_all``: a subprocess a mode) with every mode's line checked;
+    ``program_cost`` of the enhance call and the train step on the card
+    against the CPU; the bounds the earlier phases print against their values
+    before the move into ``utils/costs.py``."""
+    from speech_enhancement_by_s3prl_tpu_torch import bench
+    from speech_enhancement_by_s3prl_tpu_torch.tools.profile_step import build_mode
+    from speech_enhancement_by_s3prl_tpu_torch.utils import costs
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_") and k not in ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16",
+                                                       "SE_PALLAS_VJP_BF16")}
+    env.update(BENCH_ENV)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-m", "speech_enhancement_by_s3prl_tpu_torch.bench"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines:
+        raise AssertionError(f"bench.py exited {out.returncode}: {out.stderr[-3000:]}")
+    payload = json.loads(lines[-1])
+    modes = payload["modes"]
+    if tuple(modes) != BENCH_ALL:
+        raise AssertionError(f"bench.py ran {list(modes)}, not {list(BENCH_ALL)}: "
+                             f"{payload.get('skipped')}")
+    for name in BENCH_ALL:
+        line = bench_checks(modes[name], name, card)
+        print(f"[bench] {name}: {line['metric']} {line['value']} {line['unit']}"
+              + ("" if name == "loader" else
+                 f", mfu {line['mfu']:.4f}, hbm_util_model {line['hbm_util_model']:.4f}, "
+                 f"{line['flops_per_step'] / 1e12:.3f} TFLOP a step ("
+                 + ", ".join(f"{c} {f / 1e12:.3f}" for c, f in line["flops_by_class"].items()
+                             if f) + "), "
+                 f"{line['hbm_gbytes_per_step_model']:.3f} GB a step (model), launches a call "
+                 f"{line['launches_per_call']}") + f"; {line['wall_s']} s ({line.get('seconds')})"
+              + f" | {card}", flush=True)
+    if payload["metric"] != "enhance_rtf_per_chip" or payload["value"] != modes["enhance"]["value"]:
+        raise AssertionError(f"run_all's headline is not the enhance mode's: {payload['metric']}")
+    run_s = time.perf_counter() - t0
+    # program_cost on the card (kernels) against the CPU (plain versions)
+    same = {}
+    for mode, names in COST_CASES:
+        got = {}
+        with stream_env(names):
+            for device in ("cuda", "cpu"):
+                step = build_mode(mode, COST_ROWS, utt_sec=COST_SECONDS, device=device)
+                got[device] = costs.program_cost(*bench.cost_call(step))
+        keys = ("flops", "dot_flops", "hbm_bytes_model", "flops_by_class", "kernels",
+                "opaque_calls")
+        diff = {k: (got["cuda"][k], got["cpu"][k]) for k in keys if got["cuda"][k] != got["cpu"][k]}
+        if diff:
+            raise AssertionError(f"program_cost of {mode} under {names} differs, card against "
+                                 f"CPU: {diff}")
+        same[(mode, "+".join(n[3:] for n in names) or "f32")] = got["cuda"]
+        del step
+    print("[bench] program_cost card (kernels) = CPU (plain versions) at B="
+          f"{COST_ROWS}, {COST_SECONDS} s: " + ", ".join(
+              f"{m} {f}: {c['flops']:.6g} flops, {c['dot_flops']:.6g} products, "
+              f"{c['hbm_bytes_model']:.6g} bytes, {c['kernels']}" for (m, f), c in same.items())
+          + f" | {card}", flush=True)
+    for fn, args, kwargs, ms, by in BOUND_PINS:
+        got = getattr(costs, fn)(*args, **kwargs)
+        if got[1] != by or abs(got[0] - ms) > BOUND_RTOL * ms:
+            raise AssertionError(f"{fn}{args} {kwargs} is {got}, before the move {(ms, by)}")
+    seconds = time.perf_counter() - t0
+    print(f"[bench] the {len(BOUND_PINS)} pinned bounds unchanged by the move into "
+          f"utils/costs.py (rel {BOUND_RTOL:.0e}); run_all {run_s:.1f} s; phase 20 in "
+          f"{seconds:.1f} s | {card}", flush=True)
+    return {"modes": modes, "seconds": seconds, "run_s": run_s}
+
+
 def main():
     import torch
 
@@ -7403,6 +7434,8 @@ def main():
     build_s = time.perf_counter() - t0
     print_build_report(libs, build_s)
 
+    phase_done(2)
+
     # 3. kernel against its plain version on the card
     max_err = 0.0
     # the flagship shape, a ragged one, and one past a 64-row staging chunk
@@ -7473,6 +7506,8 @@ def main():
     b3_err = flash_checks(torch, A)
     dsp_err = dsp_checks(torch, S, stft_kernel, decode_kernel)
     bb_err = bb_checks(torch, L)
+
+    phase_done(3)
 
     # 4. the slice, on the card and (for comparison) on the CPU
     with tempfile.TemporaryDirectory() as tmp:
@@ -7646,6 +7681,8 @@ def main():
 
     one_dir_launches, one_dir_ms = one_direction_slice(
         torch, kernels, all_kernels, (stft_fused, decode_ola), card)
+
+    phase_done(4)
 
     # 5. the training slice at full width, through the Runner
     with tempfile.TemporaryDirectory() as tmp:
@@ -7829,14 +7866,17 @@ def main():
         del builder, state, sides, before
         mj_launches = upstream_slice(torch, corpus, tmp, kernels, flash_kernels)
 
+    phase_done(6)
+
     # 7. times on the card
     times = {}
     for B in (1, 64):
         xw, w_hh_t = kernel_inputs(torch, B, 1001, 256, SEED)
-        plain = cuda_ms(torch, lambda: lstm_bidir_tm_ref(xw, w_hh_t), iters=3)
+        # the plain versions (~0.2 s a call) once a turn (once 3)
+        plain = cuda_ms(torch, lambda: lstm_bidir_tm_ref(xw, w_hh_t), iters=1)
         kern = cuda_ms(torch, lambda: lstm_bidir_tm(xw, w_hh_t), iters=20)
         kern2 = cuda_ms(torch, lambda: lstm_bidir_tm(xw, w_hh_t), iters=20)
-        plain2 = cuda_ms(torch, lambda: lstm_bidir_tm_ref(xw, w_hh_t), iters=3)
+        plain2 = cuda_ms(torch, lambda: lstm_bidir_tm_ref(xw, w_hh_t), iters=1)
         times[B] = (min(kern, kern2), min(plain, plain2))
         print(f"[time] lstm_bidir_tm B={B} T=1001 H=256: kernel {kern:.3f} / "
               f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
@@ -7857,10 +7897,11 @@ def main():
                     lambda: lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs)),
         }
         for name, (kern_fn, plain_fn) in pairs.items():
-            plain = cuda_ms(torch, plain_fn, iters=2)
+            # the plain versions (0.2-0.6 s a call) once a turn (once 2)
+            plain = cuda_ms(torch, plain_fn, iters=1)
             kern = cuda_ms(torch, kern_fn, iters=10)
             kern2 = cuda_ms(torch, kern_fn, iters=10)
-            plain2 = cuda_ms(torch, plain_fn, iters=2)
+            plain2 = cuda_ms(torch, plain_fn, iters=1)
             times[(name, B)] = (min(kern, kern2), min(plain, plain2))
             print(f"[time] lstm_bidir_tm_{name} B={B} T=1001 H=256: kernel {kern:.3f} / "
                   f"{kern2:.3f} ms, plain {plain:.3f} / {plain2:.3f} ms | {card}",
@@ -7950,10 +7991,14 @@ def main():
     del builder, state
     times.update(upstream_times(torch, A, card))
 
+    phase_done(7)
+
     # 8. the scoreboard metrics on the card
     from speech_enhancement_by_s3prl_tpu_torch import metrics as M
 
     metric_nums = metrics_phase(torch, M, kernels, all_kernels, (stft_fused, decode_ola), card)
+
+    phase_done(8)
 
     # 9. the perceptual objectives and media logging on the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -7961,20 +8006,28 @@ def main():
                                     tmp)
     vcb_counts = obj_nums["vcb_counts"]
 
+    phase_done(9)
+
     # 10. the serving front end on the card
     with tempfile.TemporaryDirectory() as tmp:
         front = front_end_phase(torch, L, all_kernels, (stft_fused, decode_ola), card, tmp)
+
+    phase_done(10)
 
     # 11. the active-learning sampler on the card
     with tempfile.TemporaryDirectory() as tmp:
         active = active_phase(torch, all_kernels, card, tmp)
     active_counts = active["counts"]
 
+    phase_done(11)
+
     # 12. bf16 compute on the card
     bf16_kernels = (A.flash_attention_fwd_bf16, A.flash_attention_bwd_bf16)
     with tempfile.TemporaryDirectory() as tmp:
         bf16 = bf16_phase(torch, A, kernels + flash_kernels + bf16_kernels, card, tmp)
     bf16_times_ = bf16["times"]
+
+    phase_done(12)
 
     # 13. the one-direction LSTM in bf16 on the card
     counted13 = (lstm_bidir_tm, lstm_bidir_tm_fc, lstm_bidir_tm_bwd, L.lstm_bidir_tm_dw_bf16,
@@ -7983,30 +8036,47 @@ def main():
         one_dir = one_direction_bf16_phase(torch, L, counted13, (stft_fused, decode_ola), card,
                                            tmp)
 
+    phase_done(13)
+
     # 14. the bf16 stream forms of B1 / B2 fwd / B2 bwd on the card
     streams = stream_forms_phase(torch, L, (stft_fused, decode_ola), card)
+
+    phase_done(14)
 
     # 15. upstream pretraining, its export and the experiment on the card
     with tempfile.TemporaryDirectory() as tmp:
         pretrain = pretrain_phase(torch, kernels + flash_kernels + (stft_fused, decode_ola),
                                   card, tmp)
 
+    phase_done(15)
+
     # 16. the exported serving program on the card
     with tempfile.TemporaryDirectory() as tmp:
         artifact = artifact_phase(torch, all_kernels + bf16_kernels + (L.lstm_bidir_tm_dw_bf16,),
                                   card, tmp)
 
+    phase_done(16)
+
     # 17. data parallelism on the card
     with tempfile.TemporaryDirectory() as tmp:
         dp = data_parallel_phase(torch, card, tmp)
+
+    phase_done(17)
 
     # 18. tensor, pipeline and sequence parallelism on the card
     with tempfile.TemporaryDirectory() as tmp:
         mp_phase = model_parallel_phase(torch, card, tmp)
 
+    phase_done(18)
+
     # 19. the step tracer on the card
     with tempfile.TemporaryDirectory() as tmp:
         profile = profile_phase(torch, card, tmp)
+    phase_done(19)
+
+    # 20. the benchmark harness and its cost model on the card
+    bench_run = bench_phase(torch, card)
+    phase_done(20)
 
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
@@ -8455,8 +8525,7 @@ def main():
     # phase 19's launches: the --profile run, and each profiled mode's 3 calls
     run_names = ["lstm_bidir_tm", "lstm_bidir_tm_fc", "lstm_bidir_tm_bwd", "stft_fused",
                  "decode_ola"]
-    ids = {fn.__name__: kid for kid, fn in profiled_kernels(L, A, stft_kernel,
-                                                            decode_kernel).items()}
+    ids = {fn.__name__: kid for kid, fn in kernel_wrappers().items()}
     b1_768, b2_352 = profile["b1_768"], profile["b2_352"]
     for r in rows:
         if r["name"] in run_names:
@@ -8474,6 +8543,13 @@ def main():
                                         if k.startswith(prefix))
             r["bound_ms_b352_res_bf16"] = (b2_352[1] if prefix == "lstm_tm_cluster"
                                            else b2_352[2])[0]
+    # phase 20's launches a call in each bench mode's timed window
+    for r in rows:
+        kid = ids.get(r["name"])
+        got = {mode: line["launches_per_call"][kid] for mode, line in bench_run["modes"].items()
+               if kid in line.get("launches_per_call", {})}
+        if got:
+            r["launches_bench"] = got
     pm = profile["modes"]["ms"]
     print(f"[profile] the step tracer: --profile bit for bit, its trace's kernels "
           f"{profile['run']['by_id']}; device ms/step (wall under the profiler) at the JAX bench's "

@@ -4,7 +4,8 @@
 - ``read_wav``: pure-numpy RIFF parser (PCM 8/16/24/32-bit, float32/64).
 - ``read_audio``: WAV, or FLAC through the native decoder (``data/flac.py``),
   by the file's extension.
-- ``write_wav``: float32 [-1, 1] to 16-bit PCM.
+- ``write_wav``: float32 [-1, 1] to 16-bit PCM; ``write_wav_pcm16``: int16
+  PCM quantized elsewhere (the bench's pipeline mode) to the same bytes.
 - ``load_audio(path, sr)``: mono float32, resampled with scipy's polyphase
   resampler when the file's rate differs.
 """
@@ -103,6 +104,22 @@ def write_wav(path, wav: np.ndarray, sample_rate: int):
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.T.tobytes())
+
+
+def write_wav_pcm16(path, pcm: np.ndarray, sample_rate: int):
+    """Write int16 PCM, already quantized (on the card, as the bench's
+    pipeline mode does: half the bytes of f32 come back), as a 16-bit WAV:
+    the bytes ``write_wav`` writes for the floats it was quantized from."""
+    pcm = np.asarray(pcm)
+    if pcm.dtype != np.int16:
+        raise ValueError(f"write_wav_pcm16 takes int16 PCM, got {pcm.dtype}")
+    if pcm.ndim == 1:
+        pcm = pcm[None, :]
+    with wave.open(path, "wb") as w:
+        w.setnchannels(pcm.shape[0])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.T.astype("<i2").tobytes())
 
 
 def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:

@@ -107,6 +107,7 @@ from ..ops.cuda.lstm_kernel import (
     lstm_bidir_fused,
     lstm_bidir_tm,
 )
+from ..utils import costs
 
 RECURRENCES = ("tm", "blocked", "fused")
 # the JAX package's variables of its LSTM kernels' bf16 streams (xw, B1's hs,
@@ -140,9 +141,11 @@ class Bf16Product(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        if a.device.type == "cuda":
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a.float(), b.float())
+        # a product of bf16 numbers on either device (utils/costs)
+        with costs.kernel("bf16 product", costs.product_call_cost, a, b, "bf16"):
+            if a.device.type == "cuda":
+                return torch.bmm(a, b, out_dtype=torch.float32)
+            return torch.bmm(a.float(), b.float())
 
     @staticmethod
     def backward(ctx, g):

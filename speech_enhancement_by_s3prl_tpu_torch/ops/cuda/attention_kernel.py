@@ -106,6 +106,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils import costs
 from ._build import launch_args, load, raise_on
 
 PHI1 = 2654435761
@@ -518,6 +519,16 @@ def _salt_args(rate, salt):
     return keep_threshold(rate), s0, s1, int(rate > 0.0)
 
 
+def _b3_label(direction):
+    return lambda q, *args, **kwargs: f"B3 {direction}" + (
+        " bf16" if q.dtype == torch.bfloat16 else "")
+
+
+def _b3_cost(backward):
+    return lambda q, *args, n_heads, **kwargs: costs.attention_call_cost(q, n_heads, backward)
+
+
+@costs.counted(_b3_label("fwd"), _b3_cost(False))
 def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                         batch0: int = 0, *, n_heads: int,
                         head0: int = 0, n_heads_total: Optional[int] = None):
@@ -533,6 +544,7 @@ def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
     return _fwd(q, k, v, scale, rate, salt, kbias, (batch0, head0, n_heads_total), n_heads)
 
 
+@costs.counted(_b3_label("fwd"), _b3_cost(False))
 def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                              batch0: int = 0, *, n_heads: int,
                              head0: int = 0, n_heads_total: Optional[int] = None):
@@ -606,6 +618,7 @@ def _check_bwd(q, k, v, out, lse, dout, kbias, n_heads):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+@costs.counted(_b3_label("bwd"), _b3_cost(True))
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                         kbias=None, batch0: int = 0, *, n_heads: int,
                         head0: int = 0, n_heads_total: Optional[int] = None):
@@ -650,6 +663,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     return dq, dk, dv
 
 
+@costs.counted(_b3_label("bwd"), _b3_cost(True))
 def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                              kbias=None, batch0: int = 0, *, n_heads: int,
                              head0: int = 0, n_heads_total: Optional[int] = None):

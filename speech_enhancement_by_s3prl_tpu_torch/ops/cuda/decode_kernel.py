@@ -52,6 +52,7 @@ from ..stft import (
     _padded_window,
     _rescale_carrier,
 )
+from ...utils import costs
 from ._build import launch_args, load, raise_on
 from .stft_kernel import _fft_operands, _stockham, fft_plan
 
@@ -184,6 +185,8 @@ def _launch(route: str, pred: torch.Tensor, uph: torch.Tensor, out: torch.Tensor
              hop=hop)
 
 
+@costs.counted("B5", lambda pred, uph, n_fft, win_length, hop, linear_power=2.0:
+               costs.decode_call_cost(pred, n_fft, hop))
 def decode_ola(pred: torch.Tensor, uph: torch.Tensor, n_fft: int, win_length: int,
                hop: int, linear_power: float = 2.0) -> torch.Tensor:
     """pred (B, T', F) non-negative spectrum, uph (B, T', 2F) packed

@@ -105,6 +105,7 @@ from typing import Optional
 
 import torch
 
+from ...utils import costs
 from ._build import launch_args, load, raise_on
 
 # the dtypes of the streams the kernels read and write: f32, or bf16 in a
@@ -641,15 +642,18 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
                 "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
         # the widening's backward rounds the dh cotangent to the residuals' dtype
         return LstmBidirTm.apply(xw, w_hh_t, h_bf16, res_dtype).float()
+    hs_bf16 = hs_dtype == torch.bfloat16
     if state is None and not return_state:
         from .library import lstm_recurrence
 
-        return lstm_recurrence(xw, w_hh_t, h_bf16, hs_dtype == torch.bfloat16).float()
+        with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, hs_bf16):
+            return lstm_recurrence(xw, w_hh_t, h_bf16, hs_bf16).float()
     if hs_dtype != torch.float32:
         raise ValueError("lstm_bidir_tm: a carried state runs with f32 hs")
-    if xw.device.type == "cpu":
-        return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
-    return _b1_cuda(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+    with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, carried=True):
+        if xw.device.type == "cpu":
+            return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+        return _b1_cuda(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
 
 
 def _b1_cuda(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None, return_state: bool = False,
@@ -678,6 +682,8 @@ def _b1_cuda(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None, return_state: b
     return out
 
 
+@costs.counted("B2 fwd", lambda xw, w_hh_t, h_bf16=False, res_dtype=torch.float32:
+               costs.b1_call_cost(xw, w_hh_t, h_bf16, cell=True, res_dtype=res_dtype))
 def lstm_bidir_tm_fc(xw: torch.Tensor, w_hh_t: torch.Tensor, h_bf16: bool = False,
                      res_dtype: torch.dtype = torch.float32):
     """B2 fwd: (2, B, T, 4H), (2, H, 4H) -> (hs, cs), each (2, B, T, H) in
@@ -838,6 +844,7 @@ def _launch_bwd(route: str, xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     return dxw, dw
 
 
+@costs.counted("B2 bwd dW_hh^T bf16", lambda hs, da: costs.dw_bf16_call_cost(hs))
 def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     """The bf16-h form's dW_hh^T: hs (ndir, B, T, H) and da (ndir, B, T, 4H)
     (the bf16-h backward's dxw), f32 -> dw_hh_t (ndir, H, 4H) f32 holding
@@ -871,6 +878,8 @@ def lstm_bidir_tm_dw_bf16(hs: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
     return dw
 
 
+@costs.counted("B2 bwd", lambda xw, w_hh_t, hs, cs, dhs, h_bf16=False:
+               costs.b2_bwd_call_cost(xw, hs, h_bf16))
 def lstm_bidir_tm_bwd(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     """B2 bwd: the forward's inputs and residuals plus the cotangent ``dhs``
     -> (dxw (2, B, T, 4H) in xw's dtype, dw_hh_t (2, H, 4H) f32) (or a
@@ -1093,6 +1102,8 @@ def _check_bb(name: str, tensors, batch_block: int, H: int, D: int = 0):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
+@costs.counted("B6", lambda xw, w_hh_t, batch_block=32:
+               costs.b1_call_cost(xw, w_hh_t, cls="tf32x3"))
 def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32) -> torch.Tensor:
     """B6: (2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H), all f32: the function
     of ``lstm_bidir_tm``, each block of rows an independent recurrence, run
@@ -1125,6 +1136,8 @@ def lstm_bidir_bb(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 32)
     return hs
 
 
+@costs.counted("B7", lambda xs, w_ih_t, bias, w_hh_t, batch_block=32:
+               costs.fused_call_cost(xs, w_hh_t))
 def lstm_bidir_fused(xs: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
                      w_hh_t: torch.Tensor, batch_block: int = 32) -> torch.Tensor:
     """B7: xs (2, B, T, D) direction-stacked inputs (direction 1 already

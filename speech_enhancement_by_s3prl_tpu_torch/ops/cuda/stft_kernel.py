@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import costs
 from ..stft import _dft_tensors, _needs_grad, _padded_window, _stft_matmul
 from ._build import launch_args, load, raise_on
 
@@ -233,6 +234,7 @@ def _launch(route: str, x: torch.Tensor, out: torch.Tensor, n_fft: int, win_leng
              n_fft=n_fft, hop=hop)
 
 
+@costs.counted("B4", lambda wavs, n_fft, win_length, hop: costs.stft_call_cost(wavs, n_fft, hop))
 def stft_fused(wavs: torch.Tensor, n_fft: int, win_length: int, hop: int) -> torch.Tensor:
     """(..., time) f32 -> (..., 1 + time // hop, 2 * (n_fft // 2 + 1)) f32,
     packed [re | im], torch.stft's ``center=True`` reflect framing with a

@@ -63,9 +63,10 @@ DEFAULT_BATCH = 64
 class ModeStep:
     """One mode's step, built: calling it makes the call that is traced. The
     inputs and what the step was built from are kept for a caller that checks
-    them (``chip_smoke.py``): ``builder`` (train, eval, score, mockingjay),
-    ``model``, ``enhance`` (the enhance closure), ``scoring`` (the scoring
-    function)."""
+    or costs them (``chip_smoke.py``, ``bench.py``): ``builder`` (train, eval,
+    score, mockingjay), ``model``, ``enhance`` (the enhance closure),
+    ``scoring`` (the scoring function), ``feats`` (upstream's input) and
+    ``state`` (train, mockingjay: a list holding the carried train state)."""
 
     mode: str
     run_one: Callable[[], Any]
@@ -75,6 +76,8 @@ class ModeStep:
     model: Optional[torch.nn.Module] = None
     enhance: Optional[Callable] = None
     scoring: Optional[Callable] = None
+    feats: Optional[torch.Tensor] = None
+    state: Optional[list] = None
 
     def __call__(self):
         return self.run_one()
@@ -122,7 +125,7 @@ def build_mode(mode: str, batch: int = DEFAULT_BATCH, dtype: str = "", utt_sec: 
         def run_upstream():
             return up(feats).sum()
 
-        return ModeStep(mode, run_upstream, model=up)
+        return ModeStep(mode, run_upstream, model=up, feats=feats)
 
     T = SR * utt_sec
     wavs = 0.05 * torch.randn((batch, 3, T), generator=draws, device=device)
@@ -168,7 +171,7 @@ def build_mode(mode: str, batch: int = DEFAULT_BATCH, dtype: str = "", utt_sec: 
         state[0], stats = builder.train_step(state[0], wavs, lengths)
         return stats["loss"]
 
-    return ModeStep(mode, run_train, wavs, lengths, builder, builder.model)
+    return ModeStep(mode, run_train, wavs, lengths, builder, builder.model, state=state)
 
 
 def wait(out):
