@@ -202,7 +202,19 @@ Phases, one line each:
      streamed and one train step, card against CPU under the window; and
      times: each form beside the f32 form and its plain version, with the
      bound of the bytes it moves, the enhance and the train step under their
-     modes beside f32.
+     modes beside f32. Then B1's forms of other functions, which the JAX
+     package's SE_PALLAS_MXU_BF16, SE_PALLAS_GATES_BF16 (its Pallas B1) and
+     SE_LSTM_XW_INT8 (its scan) select: the MXU, gates and MXU + gates +
+     bf16 hs forms against their plain versions at (2, B, 1001, 256) for B =
+     1, 64 and 768 on the cluster route and at H = 60 on the grid route, the
+     int8 form at one direction (f32 and bf16-h, also from a carried state
+     at T = 48) on both routes, every call twice for identical bits, beside
+     the f32 form; the flagship served at B=1 10 s under each form, card
+     against CPU under the window, and its enhance mode's 768 rows under
+     each on the card, each row against the B=1 call; vcb's one-direction
+     head under SE_LSTM_XW_INT8 served, streamed and one B=6 10 s train
+     step, card against CPU; and each form's B1 time beside its f32 form and
+     its bound.
  15. upstream pretraining, its S3PRL export and the experiment tools:
      ``tools/pretrain_upstream.py`` at config/pretrain_sample.yaml's full
      width (6 x 768 x 12 heads, FFN 3072, dropout 0.1; 80-d log-mel + delta
@@ -341,6 +353,7 @@ from speech_enhancement_by_s3prl_tpu_torch.utils.costs import (  # the kernels' 
     PEAK_TF32,
     attention_bound,
     attention_bound_bf16,
+    b1_form_bound,
     bf16_h_bound,
     bound,
     carried_bound,
@@ -750,7 +763,8 @@ def ckpt_files(directory):
 def reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
-        for count in ("carried", "h_bf16", "xw_bf16", "hs_bf16", "res_bf16"):
+        for count in ("carried", "h_bf16", "xw_bf16", "hs_bf16", "res_bf16", "gates_bf16",
+                      "xw_int8"):
             if hasattr(fn, count):
                 setattr(fn, count, 0)
         for route in getattr(fn, "by_route", {}):
@@ -4936,10 +4950,9 @@ STREAM_FORM_SECONDS = 4.0
 
 @contextlib.contextmanager
 def stream_env(names):
-    """The JAX package's stream-form variables ``names`` set to 1 (the
-    others of the three unset) for the block; the environment restored
-    after."""
-    every = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16", "SE_PALLAS_VJP_BF16")
+    """The JAX package's LSTM form variables ``names`` set to 1 (the others of
+    the six unset) for the block; the environment restored after."""
+    every = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16", "SE_PALLAS_VJP_BF16", *FORM_NAMES)
     saved = {k: os.environ.get(k) for k in every}
     try:
         for k in every:
@@ -5342,8 +5355,372 @@ def stream_times(torch, L, card):
     return times
 
 
+# B1's forms of other functions (phase 14, since the MXU, gates and int8
+# forms): the JAX package's SE_PALLAS_MXU_BF16 and SE_PALLAS_GATES_BF16 (its
+# Pallas B1: W_hh^T and h_{t-1} rounded to bf16 for the step product; the
+# gate activations and i * g in bf16) and SE_LSTM_XW_INT8 (its scan: an int8
+# xw with an f32 scale a row and step), each against its plain version on the
+# same inputs, then the models that read them, card against CPU, and times.
+# (ndir, B, T, H) of the Pallas forms: the flagship shape at B = 1, 64 and the
+# enhance mode's 768 rows (cluster route), and H = 60 (grid route)
+FORM_SHAPES = ((2, 1, 1001, 256), (2, 64, 1001, 256), (2, 768, 1001, 256), (2, 6, 201, 60))
+# the int8 form, one direction: the flagship width at B = 6 and 16 (cluster)
+# and H = 60 (grid); from a carried state at T = 48 on both routes
+INT8_SHAPES = ((1, 6, 1001, 256), (1, 16, 401, 256), (1, 6, 201, 60))
+INT8_CARRIED_SHAPES = ((1, 6, 48, 256), (1, 6, 48, 60))
+# the forms of B1 checked: (name, mxu, gates, hs stored in bf16)
+B1_FORM_CASES = (("mxu", True, False, False), ("mxu+hs", True, False, True),
+                 ("gates", False, True, False), ("mxu+gates+hs", True, True, True))
+# The gates form against its plain version: the kernel and the plain version
+# round the gates to bf16 after f32 sums in other orders, and the CUDA tanhf
+# and torch's tanh differ by an f32 unit, so where a gate lies that close to
+# a bf16 rounding boundary the two round it apart, by one bf16 unit of the
+# gate, and the flip carries on through c (the recurrence is contractive).
+# Held: the RMS difference and the share within 1e-4, in the manner of the
+# bf16-h form's limits (phase 13), the maximum a few bf16 units of a gate;
+# the f32 form (no rounding of the gates) must fail the RMS. Read on an
+# NVIDIA H100 80GB HBM3 at 700 W at (2, B, 1001, 256), B = 1, 64, 768: max
+# 3.2e-3 to 6.5e-3, RMS 6.7e-5 to 7.3e-5, 0.984 to 0.987 within 1e-4; with
+# the MXU form and bf16 hs 3.9e-3 to 7.8e-3, 1.2e-4 to 1.65e-4, 0.965 to
+# 0.981; the grid route (H = 60) 5e-7 / 2.4e-3; the f32 form 7.1e-4 to 7.8e-4
+# RMS.
+GATES_MAX, GATES_RMS, GATES_SHARE = 2e-2, 3e-4, 0.9
+FORM_NAMES = ("SE_PALLAS_MXU_BF16", "SE_PALLAS_GATES_BF16", "SE_LSTM_XW_INT8")
+# the served flagship's forms: the variables of each
+SERVE_FORMS = {"mxu": ("SE_PALLAS_MXU_BF16",), "gates": ("SE_PALLAS_GATES_BF16",),
+               "mxu+gates+hs": ("SE_PALLAS_MXU_BF16", "SE_PALLAS_GATES_BF16",
+                                "SE_PALLAS_HS_BF16")}
+# rows of the enhance mode's batch (the JAX bench's), served under each form
+ENHANCE_MODE_ROWS = 768
+
+
+def b1_form_checks(torch, L):
+    """Phase 14 (a), the forms of other functions: B1's MXU, gates and
+    MXU + gates + bf16 hs forms at ``FORM_SHAPES`` and its int8 form at
+    ``INT8_SHAPES`` (also in the bf16-h form, and from a carried state at
+    ``INT8_CARRIED_SHAPES``), each against its plain version on the same
+    inputs, every kernel call twice for identical bits, beside the f32 form,
+    which its limits must fail. Returns the worst readings."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {"abs": 0.0, "mxu": (0.0, 0.0, 1.0), "gates": (0.0, 0.0, 1.0), "ulp": 1.0,
+             "same": 1.0, "int8_abs": 0.0, "int8_bf16h": (0.0, 0.0, 1.0)}
+    failed = []
+
+    def flat(x):
+        return [y for z in x for y in flat(z)] if isinstance(x, (tuple, list)) else [x]
+
+    def twice(fn):
+        a, b = fn(), fn()
+        if not all(torch.equal(p, q) for p, q in zip(flat(a), flat(b))):
+            raise AssertionError("a B1 form gave other bits on the same inputs")
+        return a
+
+    def held_spread(name, out, ref, f32_form, lim):
+        s, far = spread(torch, out.float(), ref.float()), spread(torch, f32_form, ref.float())
+        ok = s[0] <= lim[0] and s[1] <= lim[1] and s[2] >= lim[2] and far[1] > lim[1]
+        if not ok:
+            failed.append(name)
+        return s, (f"{name} (max, RMS, within 1e-4) {s[0]:.2e} / {s[1]:.2e} / {s[2]:.5f} "
+                   f"(f32 form RMS {far[1]:.2e})")
+
+    for ndir, B, T, H in FORM_SHAPES:
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + 260 + B + H, ndir=ndir)
+        wb = L._bf16(w_hh_t)
+        f32_form = L.lstm_bidir_tm_ref(xw, w_hh_t)
+        lines = []
+        plain = {}  # the plain f32 hs of (mxu, gates); bf16 hs is its rounding
+        for name, mxu, gates, hs_b in B1_FORM_CASES:
+            dt = bf16 if hs_b else f32
+            out = twice(lambda: L.lstm_bidir_tm(xw, w_hh_t, hs_dtype=dt, mxu_bf16=mxu,
+                                                gates_bf16=gates))
+            if (mxu, gates) not in plain:
+                plain[(mxu, gates)] = L.lstm_bidir_tm_ref(xw, wb if mxu else w_hh_t,
+                                                          h_bf16=mxu, gates_bf16=gates)
+            ref = plain[(mxu, gates)].to(dt)
+            worst["abs"] = max(worst["abs"], float((out - ref.float()).abs().max()))
+            if hs_b and not gates:
+                ulp, same = bf16_shares(torch, out, ref)
+                f_same = bf16_shares(torch, f32_form, ref)[1]
+                if not (ulp >= STREAM_ULP_SHARE and same >= STREAM_SAME_SHARE) or \
+                        f_same >= STREAM_SAME_SHARE:
+                    failed.append(name)
+                worst["ulp"], worst["same"] = min(worst["ulp"], ulp), min(worst["same"], same)
+                lines.append(f"{name} within one bf16 unit / identical {ulp:.5f} / {same:.5f} "
+                             f"(f32 form identical {f_same:.3f})")
+                continue
+            lim = ((GATES_MAX, GATES_RMS, GATES_SHARE) if gates
+                   else (BF16H_MAX, BF16H_RMS, BF16H_SHARE))
+            s, line = held_spread(name, out, ref, f32_form, lim)
+            key = "gates" if gates else "mxu"
+            worst[key] = worse(worst[key], s)
+            lines.append(line)
+        del plain
+        torch.cuda.synchronize()
+        print(f"[forms] B1 ndir={ndir} B={B} T={T} H={H} route {L.fwd_route(H)!r}, each call "
+              f"twice with identical bits, against its plain version (MXU limits {BF16H_MAX:.0e}"
+              f" / {BF16H_RMS:.0e} / {BF16H_SHARE}; gates {GATES_MAX:.0e} / {GATES_RMS:.0e} / "
+              f"{GATES_SHARE}; bf16 hs {STREAM_ULP_SHARE} / {STREAM_SAME_SHARE}): "
+              + "; ".join(lines), flush=True)
+        del xw, w_hh_t, wb, f32_form
+    for ndir, B, T, H in INT8_SHAPES + INT8_CARRIED_SHAPES:
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + 280 + B + T + H, ndir=ndir)
+        q, scale = L.quantize_xw_int8(xw)
+        carried = T == 48
+        state = None
+        if carried:
+            g = torch.Generator().manual_seed(SEED + 281)
+            state = ((2 * torch.rand(ndir, B, H, generator=g) - 1).cuda(),
+                     torch.randn(ndir, B, H, generator=g).cuda())
+        lines = []
+        for h_bf16 in (False, True):
+            w = L._bf16(w_hh_t) if h_bf16 else w_hh_t
+            kw = dict(state=state, return_state=carried, h_bf16=h_bf16)
+            out = twice(lambda: L.lstm_bidir_tm(q, w, xw_scale=scale, **kw))
+            ref = L.lstm_bidir_tm_ref(q, w, xw_scale=scale, **kw)
+            f32_form = L.lstm_bidir_tm_ref(xw, w, **kw)
+            hs, ref_hs, f_hs = ((o[0] if carried else o) for o in (out, ref, f32_form))
+            err, far = float((hs - ref_hs).abs().max()), float((f_hs - ref_hs).abs().max())
+            worst["int8_abs"] = max(worst["int8_abs"], err)
+            tag = "int8 bf16-h" if h_bf16 else "int8"
+            if h_bf16:
+                s, line = held_spread(tag, hs, ref_hs, f_hs, (BF16H_MAX, BF16H_RMS, BF16H_SHARE))
+                worst["int8_bf16h"] = worse(worst["int8_bf16h"], s)
+            else:
+                if not err <= KERNEL_TOL < far:
+                    failed.append(tag)
+                line = f"{tag} hs {err:.2e} (f32 xw {far:.2e})"
+            if carried:
+                c_err = rel_err(out[1][1], ref[1][1])
+                if not c_err <= B2_TOL:
+                    failed.append(f"{tag} cT")
+                line += f", cT {c_err:.2e} of its largest"
+            lines.append(line)
+        torch.cuda.synchronize()
+        print(f"[forms] B1 int8 xw ndir={ndir} B={B} T={T} H={H} route {L.fwd_route(H)!r}"
+              + (" from a carried state" if carried else "") + f", each call twice with "
+              f"identical bits, against its plain version (limits {KERNEL_TOL:.0e} absolute; "
+              f"bf16-h {BF16H_MAX:.0e} / {BF16H_RMS:.0e} / {BF16H_SHARE}; cT {B2_TOL:.0e}): "
+              + "; ".join(lines), flush=True)
+        del xw, w_hh_t, q, scale
+    if failed:
+        raise AssertionError(f"B1 forms: {failed}")
+    return worst
+
+
+def form_delta(a, b):
+    """The RMS of a - b over b's RMS (numpy arrays)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+
+def flagship_form_serving(torch, counted, card):
+    """Phase 14 (b), the forms of other functions: the flagship (3 BLSTM x
+    256) served at B=1, 10 s, under SE_PALLAS_MXU_BF16, SE_PALLAS_GATES_BF16
+    and both with SE_PALLAS_HS_BF16, card against CPU under the window (the
+    card's change of the waveform against f32 within the window of the CPU's,
+    whose plain versions the CPU tests hold to the JAX forms), with each
+    form's B1 launches; then the enhance mode's 768 rows under each form on
+    the card only, each row within SLICE_TOL of the B=1 call's."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, make_enhance
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    b1 = L.lstm_bidir_tm
+    wav3 = np.stack([request_audio(10.0, 200 + s) for s in range(3)])[None]
+    enhancers = {}
+    for device in ("cuda", "cpu"):
+        pre, model = build(device=device, generator=torch.Generator().manual_seed(SEED + 24))
+        enhancers[device] = (make_enhance(pre, model), torch.from_numpy(wav3).to(device),
+                             torch.tensor([wav3.shape[-1]]).to(device))
+
+    def run(device):
+        enhance, w, n = enhancers[device]
+        return enhance(w, n).detach().cpu().numpy()
+
+    with stream_env(()):
+        f32 = {d: run(d) for d in ("cuda", "cpu")}
+    out = {}
+    for form, names in SERVE_FORMS.items():
+        with stream_env(names):
+            # -- the main path: the flagship served under the form --
+            reset_counts(counted)
+            card_out = run("cuda")
+            counts = [b1.launches, b1.h_bf16, b1.gates_bf16, b1.hs_bf16, counted[3].launches,
+                      counted[4].launches]
+            # ---------------------------------------------------------
+            cpu_out = run("cpu")
+        w = window(torch, card_out, f32["cuda"], cpu_out, f32["cpu"],
+                   f"flagship served under {form}")
+        mxu, gates, hs = ("mxu" in form), ("gates" in form), form.endswith("hs")
+        want = [3, 3 * mxu, 3 * gates, 3 * hs, 1, 1]
+        deltas = (form_delta(card_out, f32["cuda"]), form_delta(cpu_out, f32["cpu"]))
+        print(f"[forms] the flagship (3 BLSTM x 256) served at B=1 10 s under "
+              f"{'=1 '.join(names)}=1: launches (B1, bf16-h (the MXU form), gates, bf16 hs, B4, "
+              f"B5) {counts} (want {want}); window against the CPU ({w[0]:.3f}, {w[1]:.3f}) "
+              f"(limits {WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}); the form's change of the "
+              f"waveform against f32 (RMS over the RMS) card {deltas[0]:.3e}, CPU {deltas[1]:.3e}"
+              f" | {card}", flush=True)
+        if counts != want:
+            raise AssertionError(f"flagship under {form}: launches {counts}, want {want}")
+        out[form] = {"window": w, "launches": counts, "delta": deltas, "b1": card_out}
+    # the enhance mode's batch under each form, on the card only
+    enhance, wv, _ = enhancers["cuda"]
+    rows = ENHANCE_MODE_ROWS
+    big = wv.expand(rows, -1, -1).contiguous()
+    n = torch.full((rows,), wv.shape[-1], dtype=torch.long, device="cuda")
+    for form, names in SERVE_FORMS.items():
+        with stream_env(names):
+            reset_counts(counted)
+            res = enhance(big, n)
+            torch.cuda.synchronize()
+            counts = [b1.launches, b1.h_bf16, b1.gates_bf16, b1.hs_bf16]
+            got = res.detach().cpu().numpy()
+            ms = statistics.median(synced_ms(torch, lambda: enhance(big, n), runs=3))
+        ref = out[form]["b1"][0]
+        rel = float(np.abs(got - ref[None]).max() / np.sqrt(np.mean(ref ** 2)))
+        ok = got.shape == (rows, ref.shape[-1]) and np.isfinite(got).all() and rel <= SLICE_TOL
+        print(f"[forms] the flagship's enhance mode batch ({rows} x 10 s) under "
+              f"{'=1 '.join(names)}=1 on the card: launches (B1, bf16-h, gates, bf16 hs) "
+              f"{counts}, every row within {rel:.2e} of the B=1 call's output (limit "
+              f"{SLICE_TOL:.0e} of its RMS), {ms:.2f} ms a call (median of 3) | {card}",
+              flush=True)
+        if not ok or counts[0] != 3:
+            raise AssertionError(f"enhance mode batch under {form}: {rel}, {counts}")
+        out[form]["rows768"] = {"rel": rel, "launches": counts, "ms": ms}
+        del res, got
+    del big
+    for v in out.values():
+        del v["b1"]
+    return out
+
+
+def vcb_int8_form(torch, counted, card):
+    """Phase 14 (e), the int8 form: vcb's one-direction head (Residual 3 x
+    256) under SE_LSTM_XW_INT8=1: served at B=1 10 s, streamed through the
+    ``StatefulStreamer`` that ``/stream`` runs (each chunk's xw quantized on
+    its own) and one train step at B=6 x 10 s (the quantize and dequantize as
+    torch ops into B2), card against CPU under the window, with the launches
+    of the int8 form."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build, build_train, make_enhance
+    from speech_enhancement_by_s3prl_tpu_torch.ops.streaming import StatefulStreamer
+
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
+    names = ("SE_LSTM_XW_INT8",)
+    b1 = L.lstm_bidir_tm
+    wav3 = np.stack([request_audio(10.0, 210 + s) for s in range(3)])[None]
+    wav = speech_like(int(STREAM_FORM_SECONDS * SR), 63)
+    sizes = np.random.default_rng(SEED + 26).integers(700, 9000, size=200)
+    gen = lambda: torch.Generator().manual_seed(SEED + 27)  # noqa: E731
+    built = {d: build(bidirectional=False, device=d, generator=gen()) for d in ("cuda", "cpu")}
+    counts = {}
+
+    def served(device):
+        pre, model = built[device]
+        w = torch.from_numpy(wav3).to(device)
+        n = torch.tensor([wav3.shape[-1]]).to(device)
+        if device == "cuda" and os.environ.get("SE_LSTM_XW_INT8") == "1":
+            # -- the main path: the one-direction head served, int8 form --
+            reset_counts(counted)
+            res = make_enhance(pre, model)(w, n)
+            counts["served"] = [b1.launches, b1.xw_int8, b1.xw_bf16]
+            # ------------------------------------------------------------
+            return res
+        return make_enhance(pre, model)(w, n)
+
+    def streamed(device):
+        pre, model = built[device]
+        streamer = StatefulStreamer(model, pre, frames_per_chunk=STREAM_FRAMES)
+        if device == "cuda" and os.environ.get("SE_LSTM_XW_INT8") == "1":
+            # -- the main path: the one-direction head streamed, int8 form --
+            reset_counts(counted)
+            res = drive_stream(streamer, wav, sizes)
+            counts["stream"] = [b1.launches, b1.carried, b1.xw_int8]
+            # --------------------------------------------------------------
+            return res
+        return drive_stream(streamer, wav, sizes)
+
+    w_served = form_window(torch, served, names, "vcb head served, int8 form")
+    w_stream = form_window(torch, streamed, names, "vcb head streamed, int8 form")
+    builders = {d: build_train(bidirectional=False, device=d, generator=gen())
+                for d in ("cuda", "cpu")}
+    loss_w, grad_w, step_counts, sides = step_sides(
+        torch, builders, train_batch(10.0, 6, 220), names, "vcb head train step, int8 form",
+        counted)
+    # the form's gradient reaches xw through the scale alone, far from the
+    # f32 gradient, so the window's ratio says little there: the card's
+    # gradient is also held to the CPU's as phase 3 holds the f32 step's
+    card_g, cpu_g = sides[("cuda", True)][1:], sides[("cpu", True)][1:]
+    grad_rel = float((card_g - cpu_g).abs().max() / cpu_g.abs().max())
+    chunks = counts["stream"][0] // 3
+    want = {"served": [3, 3, 0], "stream": [3 * chunks] * 3,
+            "step": [0, 0, 0, 3, 0, 0, 3, 0, 0, 1, 0, 0]}
+    got = {"served": counts["served"], "stream": counts["stream"], "step": step_counts}
+    print(f"[forms] vcb's one-direction head (Residual 3 x 256) under SE_LSTM_XW_INT8=1, card "
+          f"against CPU: served B=1 10 s window ({w_served[0]:.3f}, {w_served[1]:.3f}), launches "
+          f"(B1, int8, bf16 xw) {got['served']}; streamed {STREAM_FORM_SECONDS:.0f} s in {chunks}"
+          f" chunks of {STREAM_FRAMES} frames window ({w_stream[0]:.3f}, {w_stream[1]:.3f}), "
+          f"launches (B1, with state, int8) {got['stream']}; train step B=6 10 s window loss "
+          f"({loss_w[0]:.3g}, {loss_w[1]:.3f}; ratio 0: card against CPU relative, the form "
+          f"within f32 noise), gradient ({grad_w[0]:.3f}, {grad_w[1]:.3f}) and card against CPU "
+          f"{grad_rel:.2e} of its largest (limit {TRAIN_GRAD_TOL:.0e}), launches (B1, xw, hs, "
+          f"B2 fwd, xw, res, B2 bwd, xw, res, B4, B5, dW_hh^T bf16) {got['step']} (limits "
+          f"{WINDOW_NEAR}; {WINDOW_LOW}, {WINDOW_HIGH}) | {card}", flush=True)
+    if got != want or chunks < 1 or not grad_rel <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"vcb head int8 form: launches {got}, want {want}; gradient "
+                             f"{grad_rel}")
+    return {"served": w_served, "stream": w_stream, "loss": loss_w, "grad": grad_w,
+            "grad_rel": grad_rel, "launches": got}
+
+
+def b1_form_times(torch, L, card):
+    """Phase 14 (f), the forms of other functions: B1 launched directly in
+    each form beside its f32 form at the flagship shape, (2, B, 1001, 256) at
+    B = 1 and 64 for the MXU and gates forms, (1, 6, 1001, 256) for the int8
+    form, in turns (f32, forms, forms, f32), each with its bound from
+    ``utils/costs.py``."""
+    T, H, bf16 = 1001, 256, torch.bfloat16
+    times = {}
+    for ndir, B in ((2, 1), (2, 64), (1, 6)):
+        xw, w_hh_t = kernel_inputs(torch, B, T, H, SEED + 290 + B, ndir=ndir)
+        wb = L._bf16(w_hh_t)
+        q, scale = L.quantize_xw_int8(xw)
+        route = L.fwd_route(H)
+        calls = {"f32": lambda: L._launch_fwd(route, xw, w_hh_t)}
+        if ndir == 2:
+            calls.update({
+                "mxu": lambda: L._launch_fwd(route, xw, wb, h_bf16=True),
+                "gates": lambda: L._launch_fwd(route, xw, w_hh_t, gates_bf16=True),
+                "mxu+gates+hs": lambda: L._launch_fwd(route, xw, wb, h_bf16=True,
+                                                      gates_bf16=True, out_dtype=bf16)})
+        else:
+            calls["int8"] = lambda: L._launch_fwd(route, q, w_hh_t, xw_scale=scale)
+        ms = {}
+        order = list(calls) + list(calls)[::-1]
+        for form in order:
+            ms[form] = min(ms.get(form, math.inf), cuda_ms(torch, calls[form], 10))
+        # the plain version of the launch's form (one call; not at B = 64)
+        plain = None
+        if B != 64:
+            plain = cuda_ms(torch, (lambda: L.lstm_bidir_tm_ref(q, w_hh_t, xw_scale=scale))
+                            if ndir == 1 else (lambda: L.lstm_bidir_tm_ref(
+                                xw, wb, h_bf16=True, hs_dtype=bf16, gates_bf16=True)), 1)
+            times[(ndir, B, "plain")] = plain
+        for form, t in ms.items():
+            kind = "int8" if form == "int8" else ("mxu" if "mxu" in form else "f32")
+            times[(ndir, B, form)] = (t, b1_form_bound(B, T, H, kind, ndir,
+                                                       hs_bf16=form.endswith("hs")))
+        print(f"[time] B1 forms ndir={ndir} B={B} T={T} H={H} route {route!r} (kernel ms, better"
+              f" of two turns; bound ms): " + ", ".join(
+                  f"{f} {t:.4f} ({times[(ndir, B, f)][1][0]:.4f} by {times[(ndir, B, f)][1][1]})"
+                  for f, t in ms.items())
+              + ("" if plain is None else f"; plain ({list(calls)[-1]}) {plain:.3f}")
+              + f" | {card}", flush=True)
+        del xw, w_hh_t, wb, q, scale
+    return times
+
+
 def stream_forms_phase(torch, L, dsp_kernels, card):
-    """Phase 14: the bf16 stream forms of the LSTM kernels on the card."""
+    """Phase 14: the bf16 stream forms of the LSTM kernels on the card, then
+    B1's forms of other functions (MXU, gates, int8 xw)."""
     counted = (L.lstm_bidir_tm, L.lstm_bidir_tm_fc, L.lstm_bidir_tm_bwd, *dsp_kernels,
                L.lstm_bidir_tm_dw_bf16)
     t0 = time.perf_counter()
@@ -5353,6 +5730,10 @@ def stream_forms_phase(torch, L, dsp_kernels, card):
     out["score"] = active_score_mode(torch, card)
     out["vcb"] = vcb_xw_form(torch, counted, card)
     out["times"] = stream_times(torch, L, card)
+    out["forms"] = {"checks": b1_form_checks(torch, L),
+                    "serve": flagship_form_serving(torch, counted, card),
+                    "vcb": vcb_int8_form(torch, counted, card),
+                    "times": b1_form_times(torch, L, card)}
     print(f"[streams] phase 14 in {time.perf_counter() - t0:.1f} s | {card}", flush=True)
     return out
 
@@ -8382,6 +8763,37 @@ def main():
                f"_form_{field}": val for form in ("xw", "out", "f32")
                for field, val in (("ms", st_t[(key, form)][0]),
                                   ("bound_ms", st_t[(key, form)][1][0]))}, **more))
+    # B1's forms of other functions (phase 14): the MXU, gates and MXU + gates
+    # + bf16 hs forms at the flagship shape (B=1, and B=64) and the int8 form
+    # at one direction (B=6), each beside the f32 form of the same launch and
+    # its bound; the launches of each form on its main path (the served
+    # flagship, vcb's head served and streamed); no PyTorch call computes
+    # these functions either
+    fm = streams["forms"]
+    for r in rows:
+        if r["name"] != "lstm_bidir_tm[streams]":
+            continue
+        for (ndir, B, form), val in fm["times"].items():
+            if form == "plain":
+                r[f"forms_plain_ms_ndir{ndir}_b{B}"] = val
+                continue
+            t, b = val
+            tag = "forms_" + form.replace("+", "_") + ("" if (ndir, B) == (2, 1) else
+                                                       f"_ndir{ndir}_b{B}")
+            r[f"{tag}_ms"], r[f"{tag}_bound_ms"], r[f"{tag}_bound_by"] = t, b[0], b[1]
+        for form, v in fm["serve"].items():
+            key = form.replace("+", "_")
+            r[f"launches_{key}_form_served"] = v["launches"][0]
+            r[f"launches_{key}_form_enhance_mode_768"] = v["rows768"]["launches"][0]
+            r[f"enhance_mode_768_ms_{key}_form"] = v["rows768"]["ms"]
+            r[f"waveform_delta_{key}_form_card_cpu"] = list(v["delta"])
+        r["launches_int8_form_vcb_served"] = fm["vcb"]["launches"]["served"][1]
+        r["launches_int8_form_vcb_stream"] = fm["vcb"]["launches"]["stream"][2]
+        fc = fm["checks"]
+        r["max_abs_err_forms"] = fc["abs"]
+        r["max_abs_err_int8_form"] = fc["int8_abs"]
+        r["max_rms_share_mxu_form"] = list(fc["mxu"])
+        r["max_rms_share_gates_form"] = list(fc["gates"])
     # phase 15's launches: pretraining (both channels) and the experiment
     pre_counts = [sum(c) for c in zip(*(p["counts"] for p in pretrain["pretrain"].values()))]
     for r in rows:
@@ -8491,6 +8903,20 @@ def main():
           + f"; ms form / f32: enhance B=1 {sv['ms']['streams']:.3f} / {sv['ms']['f32']:.3f}, "
           f"train step B=6 {ss['ms']['streams']:.3f} / {ss['ms']['f32']:.3f} | {card}",
           flush=True)
+    fc, fv = fm["checks"], fm["vcb"]
+    print(f"[forms] B1's forms of other functions: against their plain versions the MXU form "
+          f"(max, RMS, within 1e-4) {' / '.join(f'{x:.3g}' for x in fc['mxu'])}, the gates form "
+          f"{' / '.join(f'{x:.3g}' for x in fc['gates'])}, bf16 hs within one unit / identical "
+          f">= {fc['ulp']:.5f} / {fc['same']:.5f}, int8 <= {fc['int8_abs']:.2e}; the served "
+          f"flagship's windows "
+          + ", ".join(f"{k} {v['window'][0]:.3f}/{v['window'][1]:.3f} (change against f32 card "
+                      f"{v['delta'][0]:.3e}, CPU {v['delta'][1]:.3e}; 768 rows "
+                      f"{v['rows768']['ms']:.2f} ms)" for k, v in fm["serve"].items())
+          + f"; vcb head int8 windows served {fv['served'][0]:.3f}, stream {fv['stream'][0]:.3f},"
+          f" step {fv['grad'][0]:.3f}; B1 ms (f32 form) at B=1 "
+          + ", ".join(f"{f} {v[0]:.4f}" for (nd, B, f), v in fm["times"].items()
+                      if B == 1 and f != "plain")
+          + f" | {card}", flush=True)
     ps = pretrain["sides"]
     print(f"[pretrain] pretraining at config/pretrain_sample.yaml's width: launches (B1, B2 fwd, "
           f"B2 bwd, B3 fwd, B3 bwd, B4, B5) "

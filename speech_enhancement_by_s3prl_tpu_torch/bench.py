@@ -49,9 +49,11 @@ rows, ``BENCH_UTT_SEC``) drawn from seed 0 on the device:
 
 ``BENCH_BATCH`` and ``BENCH_ITERS`` override a mode's batch and calls
 (``BENCH_LATENCY_ITERS`` the latency mode's before ``BENCH_ITERS``),
-``BENCH_DTYPE`` its compute dtype. The LSTM kernels' stream forms follow
+``BENCH_DTYPE`` its compute dtype. The LSTM kernels' forms follow
 ``SE_LSTM_XW_BF16`` (set to 1 unless given, as the JAX bench sets it),
-``SE_PALLAS_HS_BF16`` and ``SE_PALLAS_VJP_BF16`` (``models/lstm.stream_forms``).
+``SE_PALLAS_HS_BF16``, ``SE_PALLAS_VJP_BF16``, ``SE_PALLAS_MXU_BF16``,
+``SE_PALLAS_GATES_BF16`` and ``SE_LSTM_XW_INT8`` (``models/lstm.stream_forms``);
+each line names those set to 1 (``lstm_forms``).
 
 Timing: one call warms a mode up (kernel builds and loads fall outside the
 window; the latency mode, whose window lasts a few ms, warms with as many
@@ -248,7 +250,12 @@ def roofline_fields(seconds_per_step: float, device, fn, *args, **kwargs) -> dic
 
 
 def emit(payload: dict, stages: "Stages" = None) -> None:
+    from .models.lstm import FORM_VARIABLES
+
     payload.setdefault("card", card_line())
+    # the LSTM kernels' forms in effect, as the JAX bench keys its programs on
+    # the same variables
+    payload.setdefault("lstm_forms", [v for v in FORM_VARIABLES if os.environ.get(v) == "1"])
     if stages is not None:
         payload["seconds"] = stages.seconds
     print(json.dumps(payload), flush=True)

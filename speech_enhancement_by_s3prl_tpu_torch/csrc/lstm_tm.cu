@@ -55,12 +55,22 @@
 // each block also writes h_t in f32 into `hf` (2, ndir, B, H), by step
 // parity (h_{t-1} is read from one half while h_t goes to the other; the grid
 // barrier orders a step's writes before the next step's reads), and the
-// steps read h from it. The flags are template parameters, so the f32
-// instances keep their code.
+// steps read h from it.
+//
+// B1's forms of other functions (entries' `form` bits 8 and 16, as in
+// lstm_tm_cluster.cu): kFormGates runs the cell on the gate pre-activations
+// rounded to bf16, i, f, o = bf16(bf16(tanh(x / 2)) / 2 + 1/2), g =
+// bf16(tanh(x)) and i * g rounded to bf16 (JAX's SE_PALLAS_GATES_BF16);
+// kFormI8 reads an int8 xw and one f32 scale a (direction, row, step), and a
+// tile takes q * scale rounded once (the scan's SE_LSTM_XW_INT8). kFormH with
+// kFormOut is the MXU form under SE_PALLAS_HS_BF16: the steps read h from hf
+// and round it where they stage it. The flags are template parameters, so
+// the f32 instances keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "bf16_round.cuh"
@@ -77,10 +87,36 @@ constexpr int kStageFloats = 16384;
 constexpr int kInFlight = 8;
 // bits of kForm (and of the entries' `form`): the bf16-h form, a bf16 xw,
 // bf16 hs (and cs)
-constexpr int kFormH = 1, kFormXw = 2, kFormOut = 4;
+constexpr int kFormH = 1, kFormXw = 2, kFormOut = 4, kFormGates = 8, kFormI8 = 16;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The gates form's sigmoid of a bf16 value x: tanh(x / 2) / 2 + 1/2, each pass
+// rounded to bf16 (the halvings exact).
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return bf16_round(bf16_round(tanhf(x * 0.5f)) * 0.5f + 0.5f);
+}
+
+// One step's cell: the updated c and h from the gate pre-activations (i, f, g,
+// o) and c_{t-1}; kGates: the gates form.
+template <bool kGates>
+__device__ __forceinline__ float2 cell(float xi, float xf, float xg, float xo, float c) {
+  if (kGates) {
+    const float ig = sigmoid_bf16(bf16_round(xi));
+    const float fg = sigmoid_bf16(bf16_round(xf));
+    const float gg = bf16_round(tanhf(bf16_round(xg)));
+    const float og = sigmoid_bf16(bf16_round(xo));
+    c = fg * c + bf16_round(ig * gg);
+    return make_float2(c, og * tanhf(c));
+  }
+  const float ig = sigmoid_f32(xi);
+  const float fg = sigmoid_f32(xf);
+  const float gg = tanhf(xg);
+  const float og = sigmoid_f32(xo);
+  c = fg * c + ig * gg;
+  return make_float2(c, og * tanhf(c));
 }
 
 // Dynamic shared memory layout (rows padded to H + 1 entries, so that lanes
@@ -91,16 +127,21 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 // R: batch rows per thread (1 for small batches, 4 from B = 4 up).
 // kCell: also write c_t into cs (2, B, T, H), laid out like hs.
 // h0, c0 and c_out are (ndir, B, H) or null. kForm: the bf16-h form (kFormH),
-// the stream forms (kFormXw, kFormOut; hf is used under kFormOut only).
+// the stream forms (kFormXw, kFormOut; hf is used under kFormOut only), the
+// gates form (kFormGates) and an int8 xw (kFormI8, with xw_scale (ndir, B, T);
+// else null).
 template <int R, bool kCell, int kForm>
 __global__ void __launch_bounds__(kThreads)
-lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
-                     float* hs, float* __restrict__ cs, const float* __restrict__ h0,
-                     const float* __restrict__ c0, float* __restrict__ c_out,
-                     float* __restrict__ hf, int B, int T, int H, int K, int BT, int G) {
+lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ xw_scale,
+                     const float* __restrict__ w_hh_t, float* hs, float* __restrict__ cs,
+                     const float* __restrict__ h0, const float* __restrict__ c0,
+                     float* __restrict__ c_out, float* __restrict__ hf, int B, int T, int H,
+                     int K, int BT, int G) {
   constexpr bool kBf16H = kForm & kFormH;
   constexpr bool kOut = kForm & kFormOut;
-  using XwT = std::conditional_t<(kForm & kFormXw) != 0, __nv_bfloat16, float>;
+  constexpr bool kI8 = kForm & kFormI8;
+  using XwT = std::conditional_t<
+      kI8, int8_t, std::conditional_t<(kForm & kFormXw) != 0, __nv_bfloat16, float>>;
   using OutT = std::conditional_t<kOut, __nv_bfloat16, float>;
   extern __shared__ float4 smem4[];
   float4* w_s = smem4;
@@ -126,6 +167,7 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
     c_s[idx] = c0 != nullptr ? c0[state_d + (size_t)(idx / K) * H + idx % K] : 0.0f;
 
   const XwT* xw_d = reinterpret_cast<const XwT*>(xw) + (size_t)d * B * T * H4;
+  const float* scale_d = kI8 ? xw_scale + (size_t)d * B * T : nullptr;
   OutT* hs_d = reinterpret_cast<OutT*>(hs) + (size_t)d * B * T * H;
   OutT* cs_d = kCell ? reinterpret_cast<OutT*>(cs) + (size_t)d * B * T * H : nullptr;
   // kOut: h of this direction in f32 by step parity, (B, H) each
@@ -208,10 +250,19 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
           x[q][0] = x[q][1] = x[q][2] = x[q][3] = 0.0f;
           if (owner) {
             const XwT* xp = xw_d + ((size_t)(b0 + r) * T + t) * H4 + j0 + u;
-            x[q][0] = widen(xp[0]);
-            x[q][1] = widen(xp[H]);
-            x[q][2] = widen(xp[2 * H]);
-            x[q][3] = widen(xp[3 * H]);
+            if constexpr (kI8) {
+              // q * scale rounded once, as JAX's xw_t.astype(f32) * scale_t
+              const float sc = scale_d[(size_t)(b0 + r) * T + t];
+              x[q][0] = __fmul_rn((float)xp[0], sc);
+              x[q][1] = __fmul_rn((float)xp[H], sc);
+              x[q][2] = __fmul_rn((float)xp[2 * H], sc);
+              x[q][3] = __fmul_rn((float)xp[3 * H], sc);
+            } else {
+              x[q][0] = widen(xp[0]);
+              x[q][1] = widen(xp[H]);
+              x[q][2] = widen(xp[2 * H]);
+              x[q][3] = widen(xp[3 * H]);
+            }
           }
         }
         float a[R][4];
@@ -248,13 +299,13 @@ lstm_bidir_tm_kernel(const float* __restrict__ xw, const float* __restrict__ w_h
             const int r = rg * R + q;
             if (r < bt) {
               const int b = b0 + r;
-              const float ig = sigmoid_f32(x[q][0] + a[q][0]);
-              const float fg = sigmoid_f32(x[q][1] + a[q][1]);
-              const float gg = tanhf(x[q][2] + a[q][2]);
-              const float og = sigmoid_f32(x[q][3] + a[q][3]);
-              const float c = fg * c_s[b * K + u] + ig * gg;
+              const float2 ch =
+                  cell<(kForm & kFormGates) != 0>(x[q][0] + a[q][0], x[q][1] + a[q][1],
+                                                  x[q][2] + a[q][2], x[q][3] + a[q][3],
+                                                  c_s[b * K + u]);
+              const float c = ch.x;
               c_s[b * K + u] = c;
-              const float h = og * tanhf(c);
+              const float h = ch.y;
               hs_d[((size_t)b * T + t) * H + j] = narrow<OutT>(h);
               if (kCell) cs_d[((size_t)b * T + t) * H + j] = narrow<OutT>(c);
               if (kOut) hf_d[(t & 1) * hf_half + (size_t)b * H + j] = h;
@@ -282,13 +333,14 @@ size_t smem_bytes(int B, int H, int K, int BT) {
 // own status (which reports a grid too large to be co-resident) and
 // cudaGetLastError(); 0 on success. Does not synchronise.
 template <bool kCell, int kForm>
-int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
-           const void* c0, void* c_out, void* hf, int ndir, int B, int T, int H, int device,
-           void* stream) {
+int launch(const void* xw, const void* xw_scale, const void* w_hh_t, void* hs, void* cs,
+           const void* h0, const void* c0, void* c_out, void* hf, int ndir, int B, int T,
+           int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir <= 0 || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if ((kForm & kFormOut) && hf == nullptr) return (int)cudaErrorInvalidValue;
+  if ((kForm & kFormI8) && xw_scale == nullptr) return (int)cudaErrorInvalidValue;
 
   int sms = 0, coop = 0, smem_optin = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
@@ -323,10 +375,10 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
         const int tiles = ((B < BT ? B : BT) + R - 1) / R * K;
         int G = 32;
         while (G > 1 && (kThreads / G) < tiles) G >>= 1;
-        void* args[] = {(void*)&xw, (void*)&w_hh_t, (void*)&hs, (void*)&cs,
-                        (void*)&h0, (void*)&c0,     (void*)&c_out, (void*)&hf,
-                        (void*)&B,  (void*)&T,      (void*)&H,  (void*)&K,
-                        (void*)&BT, (void*)&G};
+        void* args[] = {(void*)&xw, (void*)&xw_scale, (void*)&w_hh_t, (void*)&hs,
+                        (void*)&cs, (void*)&h0,       (void*)&c0,     (void*)&c_out,
+                        (void*)&hf, (void*)&B,        (void*)&T,      (void*)&H,
+                        (void*)&K,  (void*)&BT,       (void*)&G};
         err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem,
                                           (cudaStream_t)stream);
         if (err != cudaSuccess) return (int)err;
@@ -341,10 +393,10 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
 
 }  // namespace
 
-#define LSTM_TM_FORM(cell, form)                                                        \
-  case form:                                                                          \
-    return launch<cell, form>(xw, w_hh_t, hs, cs, h0, c0, c_out, hf, ndir, B, T, H, device, \
-                              stream);
+#define LSTM_TM_FORM(with_cell, form)                                                     \
+  case form:                                                                             \
+    return launch<with_cell, form>(xw, xw_scale, w_hh_t, hs, cs, h0, c0, c_out, hf, ndir, B, \
+                                   T, H, device, stream);
 
 extern "C" {
 
@@ -353,10 +405,12 @@ extern "C" {
 // c0 (ndir, B, H) are the initial state and c_out (ndir, B, H) receives the
 // final cell state; each may be null (zeros; not written). `form`: bit 1 the
 // bf16-h form, bit 2 xw bf16, bit 4 hs bf16, which also needs hf, an f32
-// buffer of 2 * ndir * B * H (else null); the bf16-h form takes no bf16 hs.
-int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
-                      const void* c0, void* c_out, void* hf, int ndir, int B, int T, int H,
-                      int form, int device, void* stream) {
+// buffer of 2 * ndir * B * H (else null), bit 8 the gates form, bit 16 xw
+// int8 with xw_scale (ndir, B, T) f32 (else null), in the combinations of
+// lstm_tm_cluster_f32.
+int lstm_bidir_tm_f32(const void* xw, const void* xw_scale, const void* w_hh_t, void* hs,
+                      const void* h0, const void* c0, void* c_out, void* hf, int ndir, int B,
+                      int T, int H, int form, int device, void* stream) {
   void* cs = nullptr;
   switch (form) {
     LSTM_TM_FORM(false, 0)
@@ -365,6 +419,18 @@ int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* 
     LSTM_TM_FORM(false, kFormXw)
     LSTM_TM_FORM(false, kFormOut)
     LSTM_TM_FORM(false, kFormXw | kFormOut)
+    LSTM_TM_FORM(false, kFormH | kFormOut)
+    LSTM_TM_FORM(false, kFormH | kFormXw | kFormOut)
+    LSTM_TM_FORM(false, kFormGates)
+    LSTM_TM_FORM(false, kFormGates | kFormXw)
+    LSTM_TM_FORM(false, kFormGates | kFormOut)
+    LSTM_TM_FORM(false, kFormGates | kFormXw | kFormOut)
+    LSTM_TM_FORM(false, kFormGates | kFormH)
+    LSTM_TM_FORM(false, kFormGates | kFormH | kFormXw)
+    LSTM_TM_FORM(false, kFormGates | kFormH | kFormOut)
+    LSTM_TM_FORM(false, kFormGates | kFormH | kFormXw | kFormOut)
+    LSTM_TM_FORM(false, kFormI8)
+    LSTM_TM_FORM(false, kFormI8 | kFormH)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -375,7 +441,7 @@ int lstm_bidir_tm_f32(const void* xw, const void* w_hh_t, void* hs, const void* 
 // in bf16 (the bf16 residuals).
 int lstm_bidir_tm_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* cs, void* hf,
                          int ndir, int B, int T, int H, int form, int device, void* stream) {
-  const void *h0 = nullptr, *c0 = nullptr;
+  const void *xw_scale = nullptr, *h0 = nullptr, *c0 = nullptr;
   void* c_out = nullptr;
   switch (form) {
     LSTM_TM_FORM(true, 0)

@@ -90,6 +90,25 @@
 //   - kOutBf16 (SE_PALLAS_HS_BF16 for B1, SE_PALLAS_VJP_BF16's residuals for
 //     B2 fwd): hs (and cs under kCell) stored rounded to bf16; h, c, the
 //     exchange and cT stay f32.
+//
+// The forms that change B1's function (entries' `form` bits 8 and 16; flags
+// kGatesBf16, kXwInt8; B1 only, as the JAX package reads them only there):
+//   - kGatesBf16 (SE_PALLAS_GATES_BF16 on the Pallas B1): the cell takes the
+//     gate pre-activations rounded to bf16, i, f, o = bf16(bf16(tanh(x / 2))
+//     / 2 + 1/2) and g = bf16(tanh(x)) (each transcendental pass in f32 on a
+//     bf16 value, rounded), i * g rounded to bf16, then c and h in f32.
+//     Beside kBf16H (h rounded for the product) and W_hh^T holding bf16
+//     values it is JAX's SE_PALLAS_MXU_BF16 with SE_PALLAS_GATES_BF16;
+//     kBf16H also composes with kOutBf16 (the MXU form under
+//     SE_PALLAS_HS_BF16).
+//   - kXwInt8 (SE_LSTM_XW_INT8 on the scan, a one-direction layer): xw is
+//     int8 with one f32 scale a (direction, row, step), and a step reads
+//     q * scale in f32 (one rounded product, then the partials added as in
+//     f32). As under kXwBf16, each thread copies the aligned 4-byte word that
+//     holds its unit's int8 element into its slot of the ring (H % 8 == 0
+//     keeps the word inside the gate's row, whose 4H bytes keep every word
+//     aligned), and takes its byte; the scale of the step rides the ring as a
+//     fifth slot, copied by every lane of the row's warp.
 // The flags are template parameters, so the f32 instances keep their code.
 
 #include <cooperative_groups.h>
@@ -124,9 +143,25 @@ constexpr int kBf16H = 16;
 // the stream forms (variant 0 only): xw read as bf16; hs (and cs) stored as bf16
 constexpr int kXwBf16 = 32;
 constexpr int kOutBf16 = 64;
+// B1's forms of other functions (variant 0 only): the gates in bf16; an int8
+// xw with its scale
+constexpr int kGatesBf16 = 128;
+constexpr int kXwInt8 = 256;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The gates form's sigmoid of a bf16 value x (JAX spells it in bf16 as
+// tanh(x / 2) / 2 + 1/2): each pass rounded to bf16, the halvings exact.
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return bf16_round(bf16_round(tanhf(x * 0.5f)) * 0.5f + 0.5f);
+}
+
+// The int8 element at byte `byte` of a 4-byte word held in a float's bits,
+// widened to f32.
+__device__ __forceinline__ float int8_byte(float word, int byte) {
+  return (float)(int8_t)(__float_as_uint(word) >> (8 * byte));
 }
 
 __device__ __forceinline__ void fma4(float4& a, float s, const float4& w) {
@@ -147,20 +182,27 @@ __device__ __forceinline__ void cluster_wait_acquire() {
 // Dynamic shared memory, bb rows allocated:
 //   part_s [bb][kSlices][kUnits]      float4  partial gates of (row, slice, unit)
 //   h_s    [2][bb][kHPad]             float   h_{t-1} / h_t of the batch block
-//   xw_s   [kRing][4][bb][kUnits]     float   xw of the ring's steps (under
-//                                             kXwBf16 the word holding it)
+//   xw_s   [kRing][S][bb][kUnits]     float   xw of the ring's steps (under
+//                                             kXwBf16 / kXwInt8 the word
+//                                             holding it), S = 4 gates, and
+//                                             under kXwInt8 the step's scale
 //   w_s    [kHPad][kUnits]            float4  the weights (kSmemWeights only)
-// h0, c0 and c_out are (ndir, B, H) or null.
+// h0, c0 and c_out are (ndir, B, H) or null; xw_scale (ndir, B, T) under
+// kXwInt8, else null.
 template <bool kCell, int kFlags>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh_t,
-                       float* __restrict__ hs, float* __restrict__ cs,
-                       const float* __restrict__ h0, const float* __restrict__ c0,
-                       float* __restrict__ c_out, int B, int T, int H, int bb) {
+lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ xw_scale,
+                       const float* __restrict__ w_hh_t, float* __restrict__ hs,
+                       float* __restrict__ cs, const float* __restrict__ h0,
+                       const float* __restrict__ c0, float* __restrict__ c_out, int B, int T,
+                       int H, int bb) {
   constexpr bool kWs = kFlags & kSmemWeights;
   constexpr bool kRingOn = !(kFlags & kLoadInStep);
   constexpr bool kRoundH = kFlags & kBf16H;
   constexpr bool kXwB = kFlags & kXwBf16;
+  constexpr bool kXwI8 = kFlags & kXwInt8;
+  constexpr bool kGatesB = kFlags & kGatesBf16;
+  constexpr int kSlots = kXwI8 ? 5 : 4;  // the ring's slots a step
   using OutT = std::conditional_t<(kFlags & kOutBf16) != 0, __nv_bfloat16, float>;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -180,7 +222,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   float4* part_s = smem4;
   float* h_s = reinterpret_cast<float*>(part_s + bb * kSlices * kUnits);
   float* xw_s = h_s + 2 * bb * kHPad;
-  float4* w_s = reinterpret_cast<float4*>(xw_s + kRing * 4 * bb * kUnits);
+  float4* w_s = reinterpret_cast<float4*>(xw_s + kRing * kSlots * bb * kUnits);
   const int ring_gate = bb * kUnits;  // stride of a gate in the ring
 
   // (c) this thread's 16 inputs x 4 gates of unit j0 + lane
@@ -225,16 +267,26 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
   const uint32_t* xww_p =
       reinterpret_cast<const uint32_t*>(xw) + ((at * H4 + j0 + (cell ? lane : 0)) >> 1);
   const bool xw_hi = (j0 + lane) & 1;
+  // kXwInt8: the 4-byte word of the int8 xw holding this thread's element
+  // (at * H4 and g * H are multiples of 4, so the byte is the same at every
+  // step and gate), which byte it is, and the row's scales
+  const uint32_t* xwq_p =
+      reinterpret_cast<const uint32_t*>(xw) + ((at * H4 + j0 + (cell ? lane : 0)) >> 2);
+  const int xw_byte = (j0 + lane) & 3;
+  const float* scale_p = kXwI8 ? xw_scale + at : nullptr;
   const size_t state_at = ((size_t)d * B + b0 + (cell ? row : 0)) * H + j0 + (cell ? lane : 0);
   float c = (c0 != nullptr && cell) ? c0[state_at] : 0.0f;
 
   // (d) xw of step t into ring slot t % kRing: one group a step, empty past T
   auto prefetch = [&](int t) {
     if (t < T) {
-      float* dst = ring_p + (t % kRing) * 4 * ring_gate;
+      float* dst = ring_p + (t % kRing) * kSlots * ring_gate;
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        if (kXwB) {
+        if (kXwI8) {
+          cp_async4(dst + g * ring_gate,
+                    reinterpret_cast<const float*>(xwq_p + (size_t)t * H + g * (H / 4)), 4);
+        } else if (kXwB) {
           cp_async4(dst + g * ring_gate,
                     reinterpret_cast<const float*>(xww_p + (size_t)t * (H4 / 2) + g * (H / 2)),
                     4);
@@ -242,6 +294,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
           cp_async4(dst + g * ring_gate, xw_p + (size_t)t * H4 + g * H, 4);
         }
       }
+      if (kXwI8) cp_async4(dst + 4 * ring_gate, scale_p + t, 4);
     }
     cp_async_commit();
   };
@@ -256,7 +309,7 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
     float* h_nxt = h_s + ((t + 1) & 1) * bb * kHPad;
     if (t > 0 && !(kFlags & kFullSync)) cluster_wait_acquire();  // h_{t-1} has landed
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (!kRingOn && cell) {
+    if (!kRingOn && cell) {  // the f32 design's variant only
       const float* xp = xw_p + (size_t)t * H4;
       x = make_float4(xp[0], xp[H], xp[2 * H], xp[3 * H]);
     }
@@ -291,8 +344,15 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
       if (live) {
         if (kRingOn) {
           cp_async_wait<kRing - 1>();  // this thread's copy of step t has landed
-          const float* xs = ring_p + (t % kRing) * 4 * ring_gate;
-          if (kXwB) {
+          const float* xs = ring_p + (t % kRing) * kSlots * ring_gate;
+          if (kXwI8) {
+            // q * scale rounded once, as JAX's xw_t.astype(f32) * scale_t
+            const float sc = xs[4 * ring_gate];
+            x = make_float4(__fmul_rn(int8_byte(xs[0], xw_byte), sc),
+                            __fmul_rn(int8_byte(xs[ring_gate], xw_byte), sc),
+                            __fmul_rn(int8_byte(xs[2 * ring_gate], xw_byte), sc),
+                            __fmul_rn(int8_byte(xs[3 * ring_gate], xw_byte), sc));
+          } else if (kXwB) {
             x = make_float4(bf16_half(xs[0], xw_hi), bf16_half(xs[ring_gate], xw_hi),
                             bf16_half(xs[2 * ring_gate], xw_hi),
                             bf16_half(xs[3 * ring_gate], xw_hi));
@@ -310,12 +370,21 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
           x.z += p.z;
           x.w += p.w;
         }
-        const float ig = sigmoid_f32(x.x);
-        const float fg = sigmoid_f32(x.y);
-        const float gg = tanhf(x.z);
-        const float og = sigmoid_f32(x.w);
-        c = fmaf(fg, c, ig * gg);
-        h = og * tanhf(c);
+        if (kGatesB) {
+          const float ig = sigmoid_bf16(bf16_round(x.x));
+          const float fg = sigmoid_bf16(bf16_round(x.y));
+          const float gg = bf16_round(tanhf(bf16_round(x.z)));
+          const float og = sigmoid_bf16(bf16_round(x.w));
+          c = fmaf(fg, c, bf16_round(ig * gg));
+          h = og * tanhf(c);
+        } else {
+          const float ig = sigmoid_f32(x.x);
+          const float fg = sigmoid_f32(x.y);
+          const float gg = tanhf(x.z);
+          const float og = sigmoid_f32(x.w);
+          c = fmaf(fg, c, ig * gg);
+          h = og * tanhf(c);
+        }
       }
       // (e) h_t of this row to all 8 blocks, rounded in the bf16-h form
       const float h_push = kRoundH ? bf16_round(h) : h;
@@ -355,15 +424,16 @@ lstm_tm_cluster_kernel(const float* __restrict__ xw, const float* __restrict__ w
 }
 
 size_t smem_bytes(int bb, int flags) {
+  const size_t slots = (flags & kXwInt8) ? 5 : 4;
   return sizeof(float4) * (size_t)bb * kSlices * kUnits +
-         sizeof(float) * ((size_t)2 * bb * kHPad + (size_t)kRing * 4 * bb * kUnits) +
+         sizeof(float) * ((size_t)2 * bb * kHPad + (size_t)kRing * slots * bb * kUnits) +
          ((flags & kSmemWeights) ? sizeof(float4) * kHPad * kUnits : 0);
 }
 
 template <bool kCell, int kFlags>
-int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h0,
-           const void* c0, void* c_out, int ndir, int B, int T, int H, int bb, int device,
-           void* stream) {
+int launch(const void* xw, const void* xw_scale, const void* w_hh_t, void* hs, void* cs,
+           const void* h0, const void* c0, void* c_out, int ndir, int B, int T, int H, int bb,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndir < 1 || ndir > 2 || B <= 0 || T <= 0 || H <= 0 || H % kCluster ||
@@ -375,16 +445,18 @@ int launch(const void* xw, const void* w_hh_t, void* hs, void* cs, const void* h
                                     device)))
     return (int)err;
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  if ((kFlags & kXwBf16) && reinterpret_cast<uintptr_t>(xw) % 4)
-    return (int)cudaErrorMisalignedAddress;  // the 4-byte words of the bf16 fetch
+  if ((kFlags & (kXwBf16 | kXwInt8)) && reinterpret_cast<uintptr_t>(xw) % 4)
+    return (int)cudaErrorMisalignedAddress;  // the 4-byte words of the bf16 / int8 fetch
+  if ((kFlags & kXwInt8) && (xw_scale == nullptr || reinterpret_cast<uintptr_t>(xw_scale) % 4))
+    return (int)cudaErrorInvalidValue;
   auto fn = lstm_tm_cluster_kernel<kCell, kFlags>;
   if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return (int)err;
   const int nbb = (B + bb - 1) / bb;
   lstm_tm_cluster_kernel<kCell, kFlags><<<ndir * nbb * kCluster, kThreads, smem,
                                           (cudaStream_t)stream>>>(
-      (const float*)xw, (const float*)w_hh_t, (float*)hs, (float*)cs, (const float*)h0,
-      (const float*)c0, (float*)c_out, B, T, H, bb);
+      (const float*)xw, (const float*)xw_scale, (const float*)w_hh_t, (float*)hs, (float*)cs,
+      (const float*)h0, (const float*)c0, (float*)c_out, B, T, H, bb);
   return (int)cudaGetLastError();
 }
 
@@ -404,9 +476,10 @@ int max_clusters(int device, int* out) {
 }
 
 // The flags of an entry's `form`: bit 1 the bf16-h form, bit 2 a bf16 xw,
-// bit 4 bf16 hs (and cs).
+// bit 4 bf16 hs (and cs), bit 8 the gates form, bit 16 an int8 xw.
 int form_flags(int form) {
-  return ((form & 1) ? kBf16H : 0) | ((form & 2) ? kXwBf16 : 0) | ((form & 4) ? kOutBf16 : 0);
+  return ((form & 1) ? kBf16H : 0) | ((form & 2) ? kXwBf16 : 0) | ((form & 4) ? kOutBf16 : 0) |
+         ((form & 8) ? kGatesBf16 : 0) | ((form & 16) ? kXwInt8 : 0);
 }
 
 }  // namespace
@@ -421,18 +494,22 @@ extern "C" {
 // measurement, 1 reads the weights from shared memory every step (batch_block
 // <= 8), 2 loads xw inside its step, 4 makes the remote stores 16 bytes a
 // lane, 8 puts a whole cluster barrier after them. `form` (variant 0 only):
-// bit 1 the bf16-h form, bit 2 xw bf16 (4-byte aligned), bit 4 hs bf16;
-// the bf16-h form takes no bf16 hs. Returns the first non-zero
+// bit 1 the bf16-h form, bit 2 xw bf16 (4-byte aligned), bit 4 hs bf16, bit 8
+// the gates form, bit 16 xw int8 (4-byte aligned) with xw_scale (ndir, B, T)
+// f32 (else null), in the combinations the JAX package runs: the Pallas B1's
+// (bf16-h, xw f32 or bf16, hs f32 or bf16, gates or not) and the scan's
+// (bf16-h or not, xw f32, bf16 or int8). Returns the first non-zero
 // CUDA status among the set-up calls and cudaGetLastError() after the launch
 // (which reports a cluster that cannot be placed); 0 on success. Does not
 // synchronise.
-int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void* h0,
-                        const void* c0, void* c_out, int ndir, int B, int T, int H,
-                        int batch_block, int variant, int form, int device, void* stream) {
-#define LSTM_TM_CLUSTER_VARIANT(flags)                                                 \
-  case flags:                                                                        \
-    return launch<false, flags>(xw, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, T, H, \
-                                batch_block, device, stream);
+int lstm_tm_cluster_f32(const void* xw, const void* xw_scale, const void* w_hh_t, void* hs,
+                        const void* h0, const void* c0, void* c_out, int ndir, int B, int T,
+                        int H, int batch_block, int variant, int form, int device,
+                        void* stream) {
+#define LSTM_TM_CLUSTER_VARIANT(flags)                                                    \
+  case flags:                                                                           \
+    return launch<false, flags>(xw, xw_scale, w_hh_t, hs, nullptr, h0, c0, c_out, ndir, B, \
+                                T, H, batch_block, device, stream);
   if (form) {
     if (variant != 0) return (int)cudaErrorInvalidValue;
     variant = form_flags(form);
@@ -448,6 +525,18 @@ int lstm_tm_cluster_f32(const void* xw, const void* w_hh_t, void* hs, const void
     LSTM_TM_CLUSTER_VARIANT(kXwBf16)
     LSTM_TM_CLUSTER_VARIANT(kOutBf16)
     LSTM_TM_CLUSTER_VARIANT(kXwBf16 | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kBf16H | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kBf16H | kXwBf16 | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kXwBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kXwBf16 | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kBf16H)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kBf16H | kXwBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kBf16H | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kGatesBf16 | kBf16H | kXwBf16 | kOutBf16)
+    LSTM_TM_CLUSTER_VARIANT(kXwInt8)
+    LSTM_TM_CLUSTER_VARIANT(kXwInt8 | kBf16H)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -462,8 +551,8 @@ int lstm_tm_cluster_fc_f32(const void* xw, const void* w_hh_t, void* hs, void* c
                            void* stream) {
 #define LSTM_TM_CLUSTER_FORM(flags)                                                    \
   case flags:                                                                        \
-    return launch<true, flags>(xw, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, B, T, \
-                               H, batch_block, device, stream);
+    return launch<true, flags>(xw, nullptr, w_hh_t, hs, cs, nullptr, nullptr, nullptr, ndir, \
+                               B, T, H, batch_block, device, stream);
   switch (form_flags(form)) {
     LSTM_TM_CLUSTER_FORM(0)
     LSTM_TM_CLUSTER_FORM(kBf16H)

@@ -63,8 +63,9 @@
 - The JAX package's stream forms of its LSTM kernels, read from the same
   environment variables at forward time (JAX reads them at trace time,
   ``models/lstm.py:40-52`` and ``ops/pallas/lstm_kernel.py``), as
-  ``stream_forms`` returns them. ``SE_LSTM_XW_BF16=1``: the input projection
-  (plus bias) is rounded to bf16 once, here, and the recurrence reads it so;
+  ``stream_forms`` returns them (``LstmForms``). ``SE_LSTM_XW_BF16=1``: the
+  input projection (plus bias) is rounded to bf16 once, here, and the
+  recurrence reads it so;
   its gradient comes back rounded to bf16. ``SE_PALLAS_HS_BF16=1``: B1 stores
   hs in bf16 and the next layer reads it widened. ``SE_PALLAS_VJP_BF16=1``:
   under autograd B2 fwd stores hs and cs in bf16 (the next layer reads that
@@ -72,11 +73,24 @@
   its dh product to bf16. A bidirectional layer honours all three, as JAX's
   Pallas path does; a one-direction layer (JAX's ``lax.scan`` cell) only the
   first. ``Capture`` records ``l{k}_xw`` before the rounding, where JAX
-  perturbs it, so its gradient is the bf16 dxw widened. ``SE_LSTM_XW_INT8``,
-  ``SE_PALLAS_MXU_BF16`` and ``SE_PALLAS_GATES_BF16`` change the function in
-  those same JAX kernels and are not ported: set to 1, the forward raises
-  (``ROADMAP.md`` A13). B7 (``recurrence="fused"``) has no xw stream, as in
-  the JAX package, and reads none of them.
+  perturbs it, so its gradient is the bf16 dxw widened. Three more change
+  the function computed, each where the JAX package reads it:
+  ``SE_PALLAS_MXU_BF16=1`` and ``SE_PALLAS_GATES_BF16=1`` are forms of its
+  Pallas B1 (``_kernel_tm``), so a bidirectional layer without a gradient
+  runs B1's MXU form (W_hh^T and h_{t-1} rounded to bf16 for the step
+  product) and its gates form (the gate activations and i * g in bf16),
+  alone or together, with either hs; under a gradient neither changes
+  anything, as JAX's custom VJP reads neither, and a one-direction layer
+  (the scan) reads neither. ``SE_LSTM_XW_INT8=1`` is a form of the scan:
+  a one-direction layer quantizes its xw per (row, step) to int8 with a
+  scale (``ops/cuda/lstm_kernel.quantize_xw_int8``), which B1 reads (a
+  carried state too), and under a gradient runs the quantize and dequantize
+  as torch ops into B2 (JAX's gradient through it: the scale's alone). It
+  wins over ``SE_LSTM_XW_BF16`` there; a bidirectional layer keeps an f32
+  xw under it, even with ``SE_LSTM_XW_BF16=1``, as JAX's Pallas path casts
+  every xw but a bf16 one to f32. B6 and B7 (``recurrence="blocked"`` /
+  ``"fused"``) read neither bf16 form of B1, as in the JAX package; B7 has
+  no xw stream and reads no variable.
 
 - Under tensor parallelism (``--mesh DxM``, ``parallel/mesh.py``) a stack's
   ``tp`` (a ``parallel.mesh.ShardGather``) is set: each rank stores its gate
@@ -97,36 +111,61 @@ from __future__ import annotations
 
 import os
 from types import SimpleNamespace
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..ops.cuda.lstm_kernel import (
+    dequantize_xw_int8,
     lstm_bidir_bb,
     lstm_bidir_fused,
     lstm_bidir_tm,
+    quantize_xw_int8,
 )
 from ..utils import costs
 
 RECURRENCES = ("tm", "blocked", "fused")
-# the JAX package's variables of its LSTM kernels' bf16 streams (xw, B1's hs,
-# the VJP's residuals), honoured, and those of its other forms, refused
-STREAM_FORM_VARIABLES = ("SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16", "SE_PALLAS_VJP_BF16")
-UNPORTED_FORM_VARIABLES = ("SE_LSTM_XW_INT8", "SE_PALLAS_MXU_BF16", "SE_PALLAS_GATES_BF16")
+# the JAX package's variables of its LSTM kernels' forms, each read as "1"
+FORM_VARIABLES = ("SE_LSTM_XW_INT8", "SE_LSTM_XW_BF16", "SE_PALLAS_HS_BF16",
+                  "SE_PALLAS_VJP_BF16", "SE_PALLAS_MXU_BF16", "SE_PALLAS_GATES_BF16")
 
 
-def stream_forms():
-    """(xw_bf16, hs_bf16, vjp_bf16): which of the JAX package's stream forms
-    of its LSTM kernels the environment turns on, each variable set to "1"
-    as the JAX package reads it. Raises if a variable of a form that is not
-    ported is "1"."""
-    for name in UNPORTED_FORM_VARIABLES:
-        if os.environ.get(name, "0") == "1":
-            raise NotImplementedError(
-                f"{name}=1 changes the JAX package's LSTM kernels in a way the port does not "
-                "compute (ROADMAP.md A13); unset it")
-    return tuple(os.environ.get(name, "0") == "1" for name in STREAM_FORM_VARIABLES)
+class LstmForms(NamedTuple):
+    """The forms of the LSTM kernels the environment sets: ``xw`` "f32",
+    "bf16" or "int8" (JAX's ``_xw_mode``: int8 first), B1's bf16 hs, the
+    VJP's bf16 residuals, and B1's MXU and gates forms."""
+
+    xw: str
+    hs_bf16: bool
+    vjp_bf16: bool
+    mxu_bf16: bool
+    gates_bf16: bool
+
+
+def stream_forms() -> LstmForms:
+    """The forms the JAX package's variables (``FORM_VARIABLES``) turn on,
+    each set to "1" as the JAX package reads it; read at every forward, as
+    JAX reads them at every trace."""
+    on = {name: os.environ.get(name, "0") == "1" for name in FORM_VARIABLES}
+    xw = "int8" if on["SE_LSTM_XW_INT8"] else "bf16" if on["SE_LSTM_XW_BF16"] else "f32"
+    return LstmForms(xw, on["SE_PALLAS_HS_BF16"], on["SE_PALLAS_VJP_BF16"],
+                     on["SE_PALLAS_MXU_BF16"], on["SE_PALLAS_GATES_BF16"])
+
+
+def scan_stream(xw: torch.Tensor, w_hh_t: torch.Tensor, xw_form: str):
+    """What a one-direction layer (JAX's ``lax.scan`` cell) hands the
+    recurrence for its xw (1, B, T, 4H) f32 under ``xw_form`` (JAX's
+    ``_xw_mode``): (xw, None) in f32, (bf16 xw, None), or in the int8 form
+    (q, scale) without a gradient (B1 reads both) and under one the
+    dequantized f32 xw, as torch ops so that the gradient is JAX's."""
+    if xw_form == "bf16":
+        return xw.to(torch.bfloat16), None
+    if xw_form != "int8":
+        return xw, None
+    if torch.is_grad_enabled() and (xw.requires_grad or w_hh_t.requires_grad):
+        return dequantize_xw_int8(xw), None
+    return quantize_xw_int8(xw)
 
 
 class Bf16Product(torch.autograd.Function):
@@ -274,8 +313,9 @@ class LSTMStack(nn.Module):
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
         final_states = []
         bf16 = self.compute_dtype == torch.bfloat16
-        xw_bf16, hs_bf16, vjp_bf16 = stream_forms()
-        stream = lambda xw: xw.to(torch.bfloat16) if xw_bf16 else xw  # noqa: E731
+        forms = stream_forms()
+        # the xw a bidirectional layer hands B1 / B2 / B6: bf16, else f32 (int8 too)
+        stream = lambda xw: xw.to(torch.bfloat16) if forms.xw == "bf16" else xw  # noqa: E731
         below = capture.layer if capture is not None and isinstance(capture.layer, int) else 0
         full = None if self.tp is None else self.tp(self)
         for k in range(self.num_layers):
@@ -292,8 +332,9 @@ class LSTMStack(nn.Module):
                     xw = (torch.matmul(x, pf.w_ih.T) + (pf.b_ih + pf.b_hh))[None]
                     w_hh_t = pf.w_hh.T[None]
                 xw, w_hh_t = xw.contiguous(), w_hh_t.contiguous()
+                x_in, scale = scan_stream(xw, w_hh_t, forms.xw)
                 if not carry:
-                    hs = lstm_bidir_tm(stream(xw), w_hh_t, h_bf16=bf16)
+                    hs = lstm_bidir_tm(x_in, w_hh_t, h_bf16=bf16, xw_scale=scale)
                     if captured(capture, k):
                         capture.update({f"l{k}_xs": x[None], f"l{k}_xw": xw,
                                         f"l{k}_hs": hs})
@@ -301,8 +342,8 @@ class LSTMStack(nn.Module):
                     continue
                 state = None if initial_state is None else tuple(
                     t[None] for t in initial_state[k])
-                hs, (h, c) = lstm_bidir_tm(stream(xw), w_hh_t, state=state,
-                                           return_state=True, h_bf16=bf16)
+                hs, (h, c) = lstm_bidir_tm(x_in, w_hh_t, state=state, return_state=True,
+                                           h_bf16=bf16, xw_scale=scale)
                 x = hs[0]
                 final_states.append((h[0], c[0]))
                 continue
@@ -335,8 +376,9 @@ class LSTMStack(nn.Module):
                     with torch.set_grad_enabled(torch.is_grad_enabled() and k >= below):
                         hs = lstm_bidir_tm(
                             stream(xw), w_hh_t,
-                            hs_dtype=torch.bfloat16 if hs_bf16 else torch.float32,
-                            res_dtype=torch.bfloat16 if vjp_bf16 else torch.float32)
+                            hs_dtype=torch.bfloat16 if forms.hs_bf16 else torch.float32,
+                            res_dtype=torch.bfloat16 if forms.vjp_bf16 else torch.float32,
+                            mxu_bf16=forms.mxu_bf16, gates_bf16=forms.gates_bf16)
                 if capture_k:
                     capture.update({f"l{k}_xs": xs, f"l{k}_xw": xw, f"l{k}_hs": hs})
             x = torch.cat([hs[0], torch.flip(hs[1], dims=[1])], dim=-1)

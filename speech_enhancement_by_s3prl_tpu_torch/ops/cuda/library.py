@@ -3,9 +3,14 @@ namespace ``se_torch``, so that PyTorch's dispatcher, ``torch.export`` and any
 later graph capture see them (a ctypes call is opaque to all three):
 
 - ``se_torch::lstm_recurrence`` (B1, ``lstm_kernel.lstm_bidir_tm`` without a
-  carried state): xw (ndir, B, T, 4H) f32 or bf16, w_hh_t (ndir, H, 4H) f32,
-  ``h_bf16`` (the bf16-h form), ``hs_bf16`` (hs stored in bf16) -> hs
-  (ndir, B, T, H) in f32, or bf16 with ``hs_bf16``;
+  carried state): xw (ndir, B, T, 4H) f32, bf16 or int8, w_hh_t (ndir, H,
+  4H) f32, ``h_bf16`` (the bf16-h form; on bf16 W_hh^T values the MXU form),
+  ``hs_bf16`` (hs stored in bf16), ``gates_bf16`` (the gates form, default
+  off) and ``xw_scale`` (ndir, B, T, 1) f32 beside an int8 xw (default None)
+  -> hs (ndir, B, T, H) in f32, or bf16 with ``hs_bf16``. The last two
+  arguments came with the gates and int8 forms and have defaults, so a
+  program exported before them, whose calls pass four, loads and replays as
+  it did;
 - ``se_torch::stft`` (B4, ``stft_kernel.stft_fused``): rows (N, time) f32 ->
   (N, 1 + time // hop, 2 * (n_fft // 2 + 1)) f32;
 - ``se_torch::decode`` (B5, ``decode_kernel.decode_ola``): pred (B, T', F),
@@ -57,12 +62,15 @@ def _hs_dtype(hs_bf16: bool) -> torch.dtype:
 
 # B1, stateless: hs of the recurrence from zeros (the module docstring)
 lstm_recurrence = _define(
-    "lstm_recurrence(Tensor xw, Tensor w_hh_t, bool h_bf16, bool hs_bf16) -> Tensor",
-    lambda xw, w_hh_t, h_bf16, hs_bf16: lstm_kernel.lstm_bidir_tm_ref(
-        xw, w_hh_t, h_bf16=h_bf16, hs_dtype=_hs_dtype(hs_bf16)),
-    lambda xw, w_hh_t, h_bf16, hs_bf16: lstm_kernel._b1_cuda(
-        xw, w_hh_t, h_bf16=h_bf16, hs_dtype=_hs_dtype(hs_bf16)),
-    lambda xw, w_hh_t, h_bf16, hs_bf16: xw.new_empty(
+    "lstm_recurrence(Tensor xw, Tensor w_hh_t, bool h_bf16, bool hs_bf16, "
+    "bool gates_bf16=False, Tensor? xw_scale=None) -> Tensor",
+    lambda xw, w_hh_t, h_bf16, hs_bf16, gates_bf16=False, xw_scale=None:
+        lstm_kernel.lstm_bidir_tm_ref(xw, w_hh_t, h_bf16=h_bf16, hs_dtype=_hs_dtype(hs_bf16),
+                                      gates_bf16=gates_bf16, xw_scale=xw_scale),
+    lambda xw, w_hh_t, h_bf16, hs_bf16, gates_bf16=False, xw_scale=None:
+        lstm_kernel._b1_cuda(xw, w_hh_t, h_bf16=h_bf16, hs_dtype=_hs_dtype(hs_bf16),
+                             gates_bf16=gates_bf16, xw_scale=xw_scale),
+    lambda xw, w_hh_t, h_bf16, hs_bf16, gates_bf16=False, xw_scale=None: xw.new_empty(
         xw.shape[:-1] + (w_hh_t.shape[-2],), dtype=_hs_dtype(hs_bf16)))
 
 # B4 on rows (N, time)

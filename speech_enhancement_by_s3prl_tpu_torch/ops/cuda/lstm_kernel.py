@@ -84,6 +84,24 @@ change what the kernels read and write, never the f32 recurrence:
   dh product, and sums dW_hh^T in f32 from the bf16 h and the f32 da
   (``_kernel_tm_bwd`` with a bf16 ``whh``).
 
+B1 has three more forms of the JAX package, which change the function it
+computes (its ``_kernel_tm`` under ``SE_PALLAS_MXU_BF16`` /
+``SE_PALLAS_GATES_BF16``, and ``_lstm_scan`` under ``SE_LSTM_XW_INT8``):
+
+- the MXU form (``mxu_bf16=True``): W_hh^T rounded to bf16 and h_{t-1}
+  rounded to bf16 for the step product, which sums in f32: the bf16-h form
+  on bf16 W_hh^T values, stored hs of either dtype. Under a gradient it
+  changes nothing, as JAX's ``_tm_fwd_with_cell`` / ``_tm_bwd`` read no
+  variable.
+- the gates form (``gates_bf16=True``): the gate pre-activations rounded to
+  bf16; i, f, o = bf16(bf16(tanh(t / 2)) / 2 + 1/2) and g = bf16(tanh(t)),
+  each pass in f32 on a bf16 value and rounded; i * g rounded to bf16; then
+  c = f * c + i * g and h = o * tanh(c) in f32. B1 only, as the MXU form.
+- an int8 xw (the scan's ``SE_LSTM_XW_INT8``): ``quantize_xw_int8`` gives q
+  (int8) and a scale a (direction, row, step), and a step reads q * scale in
+  f32. B1 reads q and the scale (``xw_scale``); under a gradient the caller
+  hands the dequantized f32 xw to B2 (``dequantize_xw_int8``).
+
 ``lstm_bidir_tm`` returns hs widened to f32 whatever it stored, as
 ``lstm_bidir_pallas_tm`` and the custom VJP's forward return it; under
 autograd that widening is where the dh cotangent is rounded to bf16 on its way
@@ -112,13 +130,17 @@ from ._build import launch_args, load, raise_on
 # stream form
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 # bits of the C entries' `form`: the bf16-h form, a bf16 xw, bf16 hs (B1) or
-# residuals (B2 fwd stores them, B2 bwd reads them)
-FORM_H, FORM_XW, FORM_OUT = 1, 2, 4
+# residuals (B2 fwd stores them, B2 bwd reads them), the gates form and an
+# int8 xw with its scale (B1)
+FORM_H, FORM_XW, FORM_OUT, FORM_GATES, FORM_XW_INT8 = 1, 2, 4, 8, 16
 
 
-def _form(h_bf16: bool, xw: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> int:
+def _form(h_bf16: bool, xw: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+          gates_bf16: bool = False) -> int:
     return ((FORM_H if h_bf16 else 0) | (FORM_XW if xw.dtype == torch.bfloat16 else 0)
-            | (FORM_OUT if out_dtype == torch.bfloat16 else 0))
+            | (FORM_OUT if out_dtype == torch.bfloat16 else 0)
+            | (FORM_GATES if gates_bf16 else 0)
+            | (FORM_XW_INT8 if xw.dtype == torch.int8 else 0))
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -126,10 +148,63 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _int8_scale(xw: torch.Tensor) -> torch.Tensor:
+    """The scale of JAX's int8 xw a (..., row, step): max |xw| over the 4H
+    gate inputs / 127 + 1e-12, (..., B, T, 1) f32."""
+    return xw.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+
+
+def quantize_xw_int8(xw: torch.Tensor):
+    """xw (..., B, T, 4H) f32 -> (q, scale), as the JAX ``_lstm_scan`` stores
+    its int8 stream (``models/lstm.py:111-113`` there): scale (..., B, T, 1)
+    f32 from ``_int8_scale``, q = clip(round(xw / scale), -127, 127) as int8
+    (round half to even, as ``jnp.round``). A step reads q * scale in f32."""
+    scale = _int8_scale(xw)
+    return torch.clamp(torch.round(xw / scale), -127, 127).to(torch.int8), scale
+
+
+def dequantize_xw_int8(xw: torch.Tensor) -> torch.Tensor:
+    """The f32 xw a step of the int8 form reads, q * scale, as torch ops under
+    autograd: JAX's gradient of its int8 scan. ``round`` has a zero
+    derivative, so the gradient reaches xw through the scale alone (the max
+    splitting it evenly over ties, as both frameworks' max does)."""
+    scale = _int8_scale(xw)
+    return torch.clamp(torch.round(xw / scale), -127, 127) * scale
+
+
+def _step_xw(xw: torch.Tensor, xw_scale: Optional[torch.Tensor], t: int) -> torch.Tensor:
+    """Step t's xw in f32: widened from bf16, or dequantized from int8."""
+    x = xw[..., t, :].float()
+    return x if xw_scale is None else x * xw_scale[..., t, :]
+
+
+def _sigmoid_bf16(t: torch.Tensor) -> torch.Tensor:
+    """The gates form's sigmoid of bf16 values t, as the JAX kernel spells it
+    in bf16: tanh(t / 2) / 2 + 1/2, each pass rounded to bf16 (the halvings
+    are exact)."""
+    return _bf16(_bf16(torch.tanh(t * 0.5)) * 0.5 + 0.5)
+
+
+def _cell(gates: torch.Tensor, c: torch.Tensor, H: int, gates_bf16: bool = False):
+    """One step's cell from its f32 gate pre-activations: (c, h). In the
+    gates form the activations of the bf16-rounded gates and i * g are bf16
+    values; c and h are f32 either way."""
+    if gates_bf16:
+        i, f, g, o = _bf16(gates).split(H, dim=-1)
+        i, f, o = _sigmoid_bf16(i), _sigmoid_bf16(f), _sigmoid_bf16(o)
+        c = f * c + _bf16(i * _bf16(torch.tanh(g)))
+    else:
+        i, f, g, o = gates.split(H, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        o = torch.sigmoid(o)
+    return c, o * torch.tanh(c)
+
+
 def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=None,
-                h_bf16: bool = False):
-    """hs (and cs with ``with_cell``) in f32; xw of either dtype is widened
-    where a step reads it."""
+                h_bf16: bool = False, gates_bf16: bool = False,
+                xw_scale: Optional[torch.Tensor] = None):
+    """hs (and cs with ``with_cell``) in f32; xw of any stream dtype is
+    widened (or, int8, dequantized by ``xw_scale``) where a step reads it."""
     H = w_hh_t.shape[-2]
     lead = xw.shape[:-2]  # (..., B)
     if state is None:
@@ -139,10 +214,8 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=N
         h, c = state
     hs, cs = [h[..., None, :][..., :0, :]], [c[..., None, :][..., :0, :]]  # T = 0
     for t in range(xw.shape[-2]):
-        gates = xw[..., t, :].float() + torch.matmul(_bf16(h) if h_bf16 else h, w_hh_t)
-        i, f, g, o = gates.split(H, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        gates = _step_xw(xw, xw_scale, t) + torch.matmul(_bf16(h) if h_bf16 else h, w_hh_t)
+        c, h = _cell(gates, c, H, gates_bf16)
         hs.append(h[..., None, :])
         cs.append(c[..., None, :])
     hs = torch.cat(hs, dim=-2)
@@ -151,7 +224,8 @@ def _recurrence(xw: torch.Tensor, w_hh_t: torch.Tensor, with_cell: bool, state=N
 
 def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
                       return_state: bool = False, h_bf16: bool = False,
-                      hs_dtype: torch.dtype = torch.float32):
+                      hs_dtype: torch.dtype = torch.float32, gates_bf16: bool = False,
+                      xw_scale: Optional[torch.Tensor] = None):
     """Plain PyTorch recurrence (B1's plain version): a Python loop over time.
 
     Works for any leading axes: xw (..., B, T, 4H) with w_hh_t (..., H, 4H)
@@ -159,12 +233,16 @@ def lstm_bidir_tm_ref(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
     initial state (None: zeros); with ``return_state`` the result is (hs,
     (hT, cT)). ``h_bf16``: the bf16-h form, which rounds h_{t-1} (h0
     included) to bf16 for the step product only; h, c, hs and (hT, cT) stay
-    f32 and unrounded. xw may be bf16 (the bf16 xw form); ``hs_dtype`` bf16
-    stores hs rounded (the bf16 hs form; (hT, cT) stay f32)."""
+    f32 and unrounded (with W_hh^T holding bf16 values it is the MXU form).
+    xw may be bf16 (the bf16 xw form) or int8 with its ``xw_scale`` (..., B,
+    T, 1) (the int8 form); ``hs_dtype`` bf16 stores hs rounded (the bf16 hs
+    form; (hT, cT) stay f32); ``gates_bf16`` runs the gates form's cell
+    (``_cell``)."""
+    forms = dict(h_bf16=h_bf16, gates_bf16=gates_bf16, xw_scale=xw_scale)
     if not return_state:
-        hs = _recurrence(xw, w_hh_t, with_cell=False, state=state, h_bf16=h_bf16)
+        hs = _recurrence(xw, w_hh_t, with_cell=False, state=state, **forms)
         return hs.to(hs_dtype)
-    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state, h_bf16=h_bf16)
+    hs, cs = _recurrence(xw, w_hh_t, with_cell=True, state=state, **forms)
     return hs.to(hs_dtype), _final_state(hs, cs, state)
 
 
@@ -341,9 +419,10 @@ def lstm_bidir_tm_bwd_ref(xw, w_hh_t, hs, cs, dhs, h_bf16: bool = False):
     return da.to(xw.dtype), (lstm_bidir_tm_dw_bf16_ref(hs, da) if h_bf16 else dw)
 
 
-def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
+def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2), xw_scale=None):
     """``dirs``: the direction counts (leading axis) the caller's kernel takes.
-    xw is f32 or bf16 (the bf16 xw form), w_hh_t f32."""
+    xw is f32 or bf16 (the bf16 xw form), or int8 beside its ``xw_scale``
+    (ndir, B, T, 1) f32 (the int8 form, B1 only); w_hh_t f32."""
     if xw.dim() != 4 or xw.shape[0] not in dirs or xw.shape[-1] % 4:
         raise ValueError(f"xw must be ({' or '.join(map(str, dirs))}, B, T, 4H), "
                          f"got {tuple(xw.shape)}")
@@ -353,23 +432,32 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, dirs=(1, 2)):
             f"w_hh_t must be ({ndir}, {H}, {4 * H}) for xw {tuple(xw.shape)}, "
             f"got {tuple(w_hh_t.shape)}"
         )
-    if xw.dtype not in STREAM_DTYPES or w_hh_t.dtype != torch.float32:
+    if xw_scale is None:
+        if xw.dtype not in STREAM_DTYPES or w_hh_t.dtype != torch.float32:
+            raise ValueError(
+                f"lstm_bidir_tm takes an f32 or bf16 xw (int8 with its xw_scale) and an f32 "
+                f"w_hh_t, got {xw.dtype} / {w_hh_t.dtype}"
+            )
+    elif (xw.dtype != torch.int8 or w_hh_t.dtype != torch.float32
+          or xw_scale.dtype != torch.float32 or xw_scale.device != xw.device
+          or tuple(xw_scale.shape) != tuple(xw.shape[:-1]) + (1,)):
         raise ValueError(
-            f"lstm_bidir_tm takes an f32 or bf16 xw and an f32 w_hh_t, got {xw.dtype} / "
-            f"{w_hh_t.dtype}"
-        )
+            f"an xw_scale goes with an int8 xw: f32 {tuple(xw.shape[:-1]) + (1,)} beside int8 "
+            f"xw and f32 w_hh_t, got {xw_scale.dtype} {tuple(xw_scale.shape)} on "
+            f"{xw_scale.device} / {xw.dtype} / {w_hh_t.dtype}")
     if xw.device != w_hh_t.device:
         raise ValueError(f"xw on {xw.device} but w_hh_t on {w_hh_t.device}")
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_bidir_tm runs on cpu or cuda, not {xw.device}")
 
 
-def _check_form(h_bf16: bool, out_dtype: torch.dtype, name: str):
-    """``out_dtype``: what B1 (hs) or B2 fwd (hs, cs) stores. The bf16-h form
-    (the one-direction scan cell) has no bf16 hs or residual form."""
+def _check_form(h_bf16: bool, out_dtype: torch.dtype, name: str, b1: bool = False):
+    """``out_dtype``: what B1 (hs, ``b1``) or B2 fwd (hs, cs) stores. The
+    bf16-h form stores bf16 hs only in B1 (the MXU form under
+    ``SE_PALLAS_HS_BF16``): B2's residuals have no bf16-h form."""
     if out_dtype not in STREAM_DTYPES:
         raise ValueError(f"{name} stores f32 or bf16, got {out_dtype}")
-    if h_bf16 and out_dtype != torch.float32:
+    if h_bf16 and out_dtype != torch.float32 and not b1:
         raise ValueError(f"{name}: the bf16-h form stores f32 hs and cs")
 
 
@@ -402,7 +490,7 @@ def _check_residuals(xw, hs, cs, dhs, h_bf16: bool = False):
 def _library():
     lib = load("lstm_tm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir_tm_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.lstm_bidir_tm_f32.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.lstm_bidir_tm_f32.restype = i
     lib.lstm_bidir_tm_fc_f32.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.lstm_bidir_tm_fc_f32.restype = i
@@ -414,7 +502,7 @@ def _library():
 def _cluster_library():
     lib = load("lstm_tm_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_tm_cluster_f32.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.lstm_tm_cluster_f32.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.lstm_tm_cluster_f32.restype = i
     lib.lstm_tm_cluster_fc_f32.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.lstm_tm_cluster_fc_f32.restype = i
@@ -496,7 +584,8 @@ def _fwd_clusters(device_index: int) -> int:
 
 def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block: int = 1,
                             slices: int = FWD_SLICES, with_cell: bool = False, state=None,
-                            h_bf16: bool = False, out_dtype: torch.dtype = torch.float32):
+                            h_bf16: bool = False, out_dtype: torch.dtype = torch.float32,
+                            gates_bf16: bool = False, xw_scale: Optional[torch.Tensor] = None):
     """The ``cluster`` route of B1 / B2 fwd in PyTorch, as
     ``lstm_tm_cluster.cu`` runs it (the function of ``lstm_bidir_tm_ref``):
     each block of ``batch_block`` rows is its own recurrence; h is padded with
@@ -510,8 +599,11 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
     recurrence where the kernel loads it (None: zeros). ``h_bf16``: the
     bf16-h form, the h each block pushes (and h0) rounded to bf16 for the
     step product. A bf16 xw is widened where a step reads it (the bf16 xw
-    form). Returns hs, or (hs, cs) with ``with_cell``, each (ndir, B, T, H)
-    in ``out_dtype`` (bf16: the kernel's bf16 store of hs, and of cs)."""
+    form); an int8 xw is q * scale with its ``xw_scale`` (ndir, B, T, 1) (the
+    int8 form: one f32 product an element, then the partials added to it);
+    ``gates_bf16`` runs the gates form's cell. Returns hs, or (hs, cs) with
+    ``with_cell``, each (ndir, B, T, H) in ``out_dtype`` (bf16: the kernel's
+    bf16 store of hs, and of cs)."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = xw.new_zeros((ndir, B, T, H), dtype=torch.float32)
@@ -525,7 +617,8 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
         else:
             h, c = (s[:, b0:rows.stop].float() for s in state)
         for t in range(T):
-            gates = xw[:, b0:rows.stop, t].float()
+            gates = _step_xw(xw[:, b0:rows.stop],
+                             None if xw_scale is None else xw_scale[:, b0:rows.stop], t)
             h_in = _bf16(h) if h_bf16 else h
             for s in range(-(-H // span)):
                 part = torch.zeros_like(gates)
@@ -535,9 +628,7 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
             h, c = h.clone(), c.clone()
             for d in range(ndir):
                 for r in range(len(rows)):
-                    i, f, g, o = gates[d, r].split(H)
-                    c[d, r] = torch.sigmoid(f) * c[d, r] + torch.sigmoid(i) * torch.tanh(g)
-                    h[d, r] = torch.sigmoid(o) * torch.tanh(c[d, r])
+                    c[d, r], h[d, r] = _cell(gates[d, r], c[d, r], H, gates_bf16)
             hs[:, b0:rows.stop, t] = h
             cs[:, b0:rows.stop, t] = c
     hs, cs = hs.to(out_dtype), cs.to(out_dtype)
@@ -547,7 +638,8 @@ def lstm_bidir_tm_fwd_model(xw: torch.Tensor, w_hh_t: torch.Tensor, batch_block:
 def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
                 batch_block: Optional[int] = None, variant: int = 0, state=None,
                 return_state: bool = False, h_bf16: bool = False,
-                out_dtype: torch.dtype = torch.float32):
+                out_dtype: torch.dtype = torch.float32, gates_bf16: bool = False,
+                xw_scale: Optional[torch.Tensor] = None):
     """Launch B1 (or B2 fwd with ``with_cell``) on ``route`` ("cluster" or
     "grid") on checked, contiguous CUDA tensors with B, T > 0; returns hs or
     (hs, cs) in ``out_dtype``. B1 also takes ``state`` (h0, c0), contiguous
@@ -557,7 +649,8 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
     card script also runs the other route, other batch blocks and, through
     ``variant`` (B1 on the cluster route only), the design with one element
     changed (``FWD_VARIANTS``). ``h_bf16``, a bf16 xw and ``out_dtype`` bf16
-    launch the forms (variant 0)."""
+    launch the forms (variant 0); B1 also ``gates_bf16`` and an int8 xw with
+    its contiguous ``xw_scale``."""
     ndir, B, T, h4 = xw.shape
     H = h4 // 4
     hs = torch.empty((ndir, B, T, H), device=xw.device, dtype=out_dtype)
@@ -566,10 +659,13 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
         raise ValueError("B2 fwd takes no carried state")
     if out_dtype != torch.float32 and (state is not None or return_state):
         raise ValueError("a carried state runs with f32 hs (hT is hs's last step)")
-    form = _form(h_bf16, xw, out_dtype)
+    form = _form(h_bf16, xw, out_dtype, gates_bf16)
     c_out = torch.empty((ndir, B, H), device=xw.device, dtype=torch.float32) \
         if return_state else None
     ptrs = (xw.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr())
+    # B1's entries also take the int8 form's scale (null otherwise)
+    b1_ptrs = (xw.data_ptr(), 0 if xw_scale is None else xw_scale.data_ptr(),
+               w_hh_t.data_ptr(), hs.data_ptr())
     # null pointers: zeros in, no cT out
     carried = tuple(0 if t is None else t.data_ptr()
                     for t in (*(state or (None, None)), c_out))
@@ -581,7 +677,7 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             err = lib.lstm_tm_cluster_fc_f32(*ptrs, cs.data_ptr(), ndir, B, T, H, batch_block,
                                              form, *launch_args(xw))
         else:
-            err = lib.lstm_tm_cluster_f32(*ptrs, *carried, ndir, B, T, H, batch_block,
+            err = lib.lstm_tm_cluster_f32(*b1_ptrs, *carried, ndir, B, T, H, batch_block,
                                           variant, form, *launch_args(xw))
         errstr = lib.lstm_tm_cluster_error_string
     else:
@@ -595,7 +691,7 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
             err = lib.lstm_bidir_tm_fc_f32(*ptrs, cs.data_ptr(), hf_ptr, ndir, B, T, H, form,
                                            *launch_args(xw))
         else:
-            err = lib.lstm_bidir_tm_f32(*ptrs, *carried, hf_ptr, ndir, B, T, H, form,
+            err = lib.lstm_bidir_tm_f32(*b1_ptrs, *carried, hf_ptr, ndir, B, T, H, form,
                                         *launch_args(xw))
         errstr = lib.lstm_tm_error_string
     raise_on(err, "lstm_bidir_tm_fc" if with_cell else "lstm_bidir_tm", errstr, route=route,
@@ -608,7 +704,8 @@ def _launch_fwd(route: str, xw, w_hh_t, with_cell: bool = False,
 def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
                   return_state: bool = False, h_bf16: bool = False,
                   hs_dtype: torch.dtype = torch.float32,
-                  res_dtype: torch.dtype = torch.float32):
+                  res_dtype: torch.dtype = torch.float32, mxu_bf16: bool = False,
+                  gates_bf16: bool = False, xw_scale: Optional[torch.Tensor] = None):
     """(2, B, T, 4H), (2, H, 4H) -> hs (2, B, T, H) f32; a leading 1 in place
     of the 2 is a one-direction layer. ``state`` (h0, c0), each (2, B, H)
     f32, starts the recurrence there (None: zeros); with ``return_state``
@@ -616,7 +713,12 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
     (``lstm_bidir_tm_ref``), the one-direction layer in bf16. A bf16 xw runs
     the bf16 xw form; ``hs_dtype`` bf16 stores B1's hs in bf16 and
     ``res_dtype`` bf16 B2 fwd's hs and cs (the bf16 residual form, B2 bwd
-    reading them so); either way hs comes back widened to f32.
+    reading them so); either way hs comes back widened to f32. An int8 xw
+    with its ``xw_scale`` (``quantize_xw_int8``) runs the int8 form, without
+    a gradient only. ``mxu_bf16`` and ``gates_bf16`` are forms of B1 alone
+    (JAX's ``_kernel_tm``; its custom VJP's forward and backward read
+    neither): without a gradient the MXU form (the bf16-h form on W_hh^T
+    rounded to bf16) and the gates form, under a gradient nothing.
 
     When a gradient is needed (grad mode on and an input that requires it)
     this is ``LstmBidirTm``: B2 fwd now, B2 bwd in the backward pass; a
@@ -624,11 +726,12 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
     custom VJP): on a CUDA tensor the kernel of route ``fwd_route(H)``,
     counted in ``lstm_bidir_tm.launches`` and ``lstm_bidir_tm.by_route``, a
     launch with a state in or out also in ``lstm_bidir_tm.carried``, one of
-    the bf16-h form in ``lstm_bidir_tm.h_bf16``, of a bf16 xw in
-    ``.xw_bf16`` and of bf16 hs in ``.hs_bf16``; on a CPU tensor the plain
-    version."""
-    _check(xw, w_hh_t)
-    _check_form(h_bf16, hs_dtype, "lstm_bidir_tm")
+    the bf16-h form (the MXU form included) in ``lstm_bidir_tm.h_bf16``, of a
+    bf16 xw in ``.xw_bf16``, of bf16 hs in ``.hs_bf16``, of the gates form in
+    ``.gates_bf16`` and of an int8 xw in ``.xw_int8``; on a CPU tensor the
+    plain version."""
+    _check(xw, w_hh_t, xw_scale=xw_scale)
+    _check_form(h_bf16, hs_dtype, "lstm_bidir_tm", b1=True)
     _check_form(h_bf16, res_dtype, "lstm_bidir_tm")
     if state is not None:
         _check_state(xw, state)
@@ -640,30 +743,44 @@ def lstm_bidir_tm(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None,
             raise RuntimeError(
                 "lstm_bidir_tm: a carried state (state= / return_state=) is inference "
                 "only; the gradient through a carried state is not ported (ROADMAP.md A3)")
+        if xw_scale is not None:
+            raise RuntimeError(
+                "lstm_bidir_tm: an int8 xw is inference only; under a gradient hand in "
+                "its dequantized f32 xw (dequantize_xw_int8)")
         # the widening's backward rounds the dh cotangent to the residuals' dtype
         return LstmBidirTm.apply(xw, w_hh_t, h_bf16, res_dtype).float()
+    if mxu_bf16:
+        # JAX's _kernel_tm: W_hh^T and h_{t-1} in bf16 for the step product
+        w_hh_t, h_bf16 = _bf16(w_hh_t), True
     hs_bf16 = hs_dtype == torch.bfloat16
     if state is None and not return_state:
         from .library import lstm_recurrence
 
-        with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, hs_bf16):
-            return lstm_recurrence(xw, w_hh_t, h_bf16, hs_bf16).float()
+        with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, hs_bf16,
+                          xw_scale=xw_scale):
+            return lstm_recurrence(xw, w_hh_t, h_bf16, hs_bf16, gates_bf16, xw_scale).float()
     if hs_dtype != torch.float32:
         raise ValueError("lstm_bidir_tm: a carried state runs with f32 hs")
-    with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, carried=True):
+    with costs.kernel("B1", costs.b1_call_cost, xw, w_hh_t, h_bf16, carried=True,
+                      xw_scale=xw_scale):
         if xw.device.type == "cpu":
-            return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
-        return _b1_cuda(xw, w_hh_t, state, return_state, h_bf16, hs_dtype)
+            return lstm_bidir_tm_ref(xw, w_hh_t, state, return_state, h_bf16, hs_dtype,
+                                     gates_bf16, xw_scale)
+        return _b1_cuda(xw, w_hh_t, state, return_state, h_bf16, hs_dtype, gates_bf16,
+                        xw_scale)
 
 
 def _b1_cuda(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None, return_state: bool = False,
-             h_bf16: bool = False, hs_dtype: torch.dtype = torch.float32):
+             h_bf16: bool = False, hs_dtype: torch.dtype = torch.float32,
+             gates_bf16: bool = False, xw_scale: Optional[torch.Tensor] = None):
     """B1 on checked CUDA tensors: the kernel of route ``fwd_route(H)``, one
     launch and its counts (none for B = 0 or T = 0); hs in ``hs_dtype``, or
     (hs, (hT, cT)) with ``return_state``. Stateless, it is the CUDA kernel of
     the op ``se_torch::lstm_recurrence``."""
     if state is not None:
         state = tuple(t.contiguous() for t in state)
+    if xw_scale is not None:
+        xw_scale = xw_scale.contiguous()
     if not (xw.is_contiguous() and w_hh_t.is_contiguous()):
         raise ValueError("lstm_bidir_tm needs contiguous xw and w_hh_t")
     ndir, B, T, h4 = xw.shape
@@ -672,13 +789,16 @@ def _b1_cuda(xw: torch.Tensor, w_hh_t: torch.Tensor, state=None, return_state: b
         return (hs, _final_state(hs, hs, state)) if return_state else hs
     route = fwd_route(h4 // 4)
     out = _launch_fwd(route, xw, w_hh_t, state=state, return_state=return_state,
-                      h_bf16=h_bf16, out_dtype=hs_dtype)
+                      h_bf16=h_bf16, out_dtype=hs_dtype, gates_bf16=gates_bf16,
+                      xw_scale=xw_scale)
     lstm_bidir_tm.launches += 1
     lstm_bidir_tm.by_route[route] += 1
     lstm_bidir_tm.carried += state is not None or return_state
     lstm_bidir_tm.h_bf16 += h_bf16
     lstm_bidir_tm.xw_bf16 += xw.dtype == torch.bfloat16
     lstm_bidir_tm.hs_bf16 += hs_dtype == torch.bfloat16
+    lstm_bidir_tm.gates_bf16 += gates_bf16
+    lstm_bidir_tm.xw_int8 += xw.dtype == torch.int8
     return out
 
 
@@ -1189,6 +1309,7 @@ lstm_bidir_tm.launches = 0
 lstm_bidir_tm.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm.carried = 0
 lstm_bidir_tm.h_bf16 = lstm_bidir_tm.xw_bf16 = lstm_bidir_tm.hs_bf16 = 0
+lstm_bidir_tm.gates_bf16 = lstm_bidir_tm.xw_int8 = 0
 lstm_bidir_tm_fc.launches = 0
 lstm_bidir_tm_fc.by_route = {"cluster": 0, "grid": 0}
 lstm_bidir_tm_fc.h_bf16 = lstm_bidir_tm_fc.xw_bf16 = lstm_bidir_tm_fc.res_bf16 = 0

@@ -154,16 +154,19 @@ class OnlinePreprocessor:
             "uphase": complx,
         }
 
+        # not recursive: a closure that called itself would be a reference
+        # cycle holding these features (GiBs at hundreds of rows) until the
+        # garbage collector next ran
         def base_feat(feat_type: str) -> torch.Tensor:
             if feat_type in cache:
                 return cache[feat_type]
+            if feat_type in ("mel", "mfcc") and "mel" not in cache:
+                cache["mel"] = power_to_mel(power, cfg.n_mels, cfg.sample_rate)
             if feat_type == "phase":
                 cache["phase"] = torch.atan2(im, re)
-            elif feat_type == "mel":
-                cache["mel"] = power_to_mel(power, cfg.n_mels, cfg.sample_rate)
             elif feat_type == "mfcc":
-                cache["mfcc"] = mel_to_mfcc(base_feat("mel"), cfg.n_mfcc)
-            else:
+                cache["mfcc"] = mel_to_mfcc(cache["mel"], cfg.n_mfcc)
+            elif feat_type != "mel":
                 raise ValueError(f"unknown feat_type {feat_type}")
             return cache[feat_type]
 

@@ -15,6 +15,12 @@ or ``... .enhance --artifact <dir>``: the serving host needs torch, the port's
 ``ops/cuda`` and, on the card, its ``csrc/`` kernels, but neither the
 checkpoint nor the model code.
 
+The LSTM forms the JAX package's variables select (``SE_PALLAS_MXU_BF16``,
+``SE_PALLAS_GATES_BF16``, ``SE_PALLAS_HS_BF16``, ``SE_LSTM_XW_BF16``,
+``SE_LSTM_XW_INT8``) are read when the program is traced and recorded in its
+calls of B1's op, as the JAX export bakes them in at trace time: set them for
+the export, not for serving.
+
 The export runs on the card unless ``--device cpu`` asks for the CPU; with no
 card the default raises. A program exported on the CPU is moved to the card
 when it is loaded there, where the serving host's torch can move it.

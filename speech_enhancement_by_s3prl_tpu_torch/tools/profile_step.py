@@ -33,9 +33,9 @@ stream matches JAX's PRNG), the weights drawn from the same seed. The JAX
 script's ``BENCH_*`` variables are flags: ``--batch``, ``--dtype``,
 ``--utt_sec``, ``--mj_dropout`` (``BENCH_MJ_DROPOUT``: the encoder's dropout
 rates; unset, its 0.1) and ``--eval_metrics`` (``BENCH_EVAL_METRICS``). The
-LSTM kernels' stream forms follow ``SE_LSTM_XW_BF16``, ``SE_PALLAS_HS_BF16``
-and ``SE_PALLAS_VJP_BF16`` as everywhere in the port
-(``models/lstm.stream_forms``).
+LSTM kernels' forms follow ``SE_LSTM_XW_BF16``, ``SE_PALLAS_HS_BF16``,
+``SE_PALLAS_VJP_BF16``, ``SE_PALLAS_MXU_BF16``, ``SE_PALLAS_GATES_BF16`` and
+``SE_LSTM_XW_INT8`` as everywhere in the port (``models/lstm.stream_forms``).
 
 It runs on the card unless ``--cpu`` (``--device cpu``) asks for the CPU;
 with no CUDA device the default raises. Nothing falls back: on the card each

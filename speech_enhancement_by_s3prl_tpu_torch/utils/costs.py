@@ -144,12 +144,17 @@ def bound_of(cost: Cost, as_class: Optional[str] = None) -> Tuple[float, str]:
 def lstm_cost(ndir, B, T, H, cell=False, xw_bytes=4, out_bytes=4, h_bf16=False,
               carried=False, cls=None) -> Cost:
     """B1 (``cell``: B2 fwd, B6 with ``cls="tf32x3"``) at (ndir, B, T, H): one
-    h @ W_hh^T a step and direction, f32 FMAs (the bf16-h form: one bf16
-    pass); xw in (``xw_bytes`` an element), W_hh^T in, hs (and cs) out
-    (``out_bytes``), and with a ``carried`` state h0, c0 in and cT out."""
+    h @ W_hh^T a step and direction, f32 FMAs (the bf16-h form, and the MXU
+    form, which is it on bf16 W_hh^T values: one bf16 pass); xw in
+    (``xw_bytes`` an element; an int8 xw, 1, also reads its f32 scale a
+    direction, row and step), W_hh^T in, hs (and cs) out (``out_bytes``), and
+    with a ``carried`` state h0, c0 in and cT out. The gates form counts as
+    the f32 one: its rounding passes are not products."""
     product = 2 * ndir * B * T * H * 4 * H
     nbytes = (ndir * B * T * 4 * H * xw_bytes + 4 * ndir * H * 4 * H
               + ndir * B * T * H * out_bytes * (2 if cell else 1))
+    if xw_bytes == 1:
+        nbytes += 4 * ndir * B * T
     if carried:
         nbytes += 4 * 3 * ndir * B * H
     return Cost({cls or ("bf16" if h_bf16 else "f32"): product}, nbytes, product)
@@ -302,6 +307,14 @@ def stream_bound(B, T, H, kind, xw_bf16, out_bf16, ndir=2):
     return bound_of(lstm_cost(ndir, B, T, H, cell=kind == "fc", xw_bytes=xb, out_bytes=ob))
 
 
+def b1_form_bound(B, T, H, form, ndir=2, hs_bf16=False):
+    """B1 in one of the forms that change its function: ``form`` "mxu" (the
+    bf16-h form's count), "gates" (the f32 count), "int8" (1 byte an xw
+    element and its scale), or "f32"; ``hs_bf16``: hs stored in bf16."""
+    return bound_of(lstm_cost(ndir, B, T, H, xw_bytes=1 if form == "int8" else 4,
+                              out_bytes=2 if hs_bf16 else 4, h_bf16=form == "mxu"))
+
+
 # -- the count --------------------------------------------------------------
 
 # the count running, if any, and the kernel regions open inside it: the
@@ -390,9 +403,10 @@ def decode_call_cost(pred, n_fft, hop) -> Cost:
 
 
 def b1_call_cost(xw, w_hh_t, h_bf16=False, hs_bf16=False, carried=False, cell=False,
-                 res_dtype=None, cls=None) -> Cost:
+                 res_dtype=None, cls=None, xw_scale=None) -> Cost:
     """``lstm_cost`` of a recurrence call on xw (ndir, B, T, 4H): its stream
-    form from the dtypes (``hs_bf16`` or a bf16 ``res_dtype``: bf16 out)."""
+    form from the dtypes (``hs_bf16`` or a bf16 ``res_dtype``: bf16 out; an
+    int8 xw, read with its ``xw_scale``)."""
     ndir, B, T, h4 = xw.shape
     out_bf16 = hs_bf16 or res_dtype == torch.bfloat16
     return lstm_cost(ndir, B, T, h4 // 4, cell, xw.element_size(), 2 if out_bf16 else 4,

@@ -10,8 +10,11 @@ with torch and the port's op library (``ops/cuda/library.py``, whose ops the
 programs call: the kernels B1, B4 and B5) and needs neither the checkpoint
 nor the model code. What the model reads when it is built or traced is baked
 in as the JAX package's jitted program bakes it: ``compute_dtype`` and the
-stream forms of its LSTM (``SE_LSTM_XW_BF16``, ``SE_PALLAS_HS_BF16``, read by
-``models/lstm.stream_forms`` at trace time).
+forms of its LSTM (``SE_LSTM_XW_BF16``, ``SE_PALLAS_HS_BF16``,
+``SE_PALLAS_MXU_BF16``, ``SE_PALLAS_GATES_BF16``, ``SE_LSTM_XW_INT8``, read by
+``models/lstm.stream_forms`` at trace time), which the program records as
+B1's op arguments (``h_bf16``, ``hs_bf16``, ``gates_bf16``, and an int8 xw
+beside its ``xw_scale``).
 
 Layout: a directory of ``enhance_T<samples>.pt2`` files (``torch.export.save``)
 and a ``manifest.json`` (``sample_rate``, ``buckets``, ``format``, and the

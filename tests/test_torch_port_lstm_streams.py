@@ -20,8 +20,11 @@ both sides:
   cell from a carried state, and the HS / VJP variables changing nothing of a
   one-direction stack;
 - the per-row gate cotangent that the capture scorer reads under the VJP
-  form;
-- the variables of the forms that are not ported, which raise.
+  form.
+
+The forms that change the function computed (``SE_PALLAS_MXU_BF16``,
+``SE_PALLAS_GATES_BF16``, ``SE_LSTM_XW_INT8``) are held in
+``tests/test_torch_port_lstm_forms.py``.
 
 Every limit is set apart from the f32 form (no variable set), which fails it
 where the form changes the result. JAX reads the variables when it traces:
@@ -42,10 +45,9 @@ from speech_enhancement_by_s3prl_tpu_torch.models.convert import (
     state_dict_to_flax,
 )
 from speech_enhancement_by_s3prl_tpu_torch.models.lstm import (
-    UNPORTED_FORM_VARIABLES,
+    FORM_VARIABLES,
     Capture,
     LSTMStack,
-    stream_forms,
 )
 from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import lstm_kernel as L
 
@@ -89,7 +91,7 @@ def _one_torch_thread():
 
 
 def _setenv(mp, form):
-    for name in (XW, HS, VJP, *UNPORTED_FORM_VARIABLES):
+    for name in FORM_VARIABLES:
         mp.delenv(name, raising=False)
     for name in FORMS[form]:
         mp.setenv(name, "1")
@@ -528,28 +530,10 @@ def test_capture_gate_cotangent_under_vjp_matches_jax(form, monkeypatch):
         assert np.array_equal(_bf16_np(got), got)
 
 
-@pytest.mark.parametrize("name", UNPORTED_FORM_VARIABLES)
-def test_unported_form_variables_raise(name, monkeypatch):
-    """The JAX package's other kernel forms change the function computed; the
-    port refuses them rather than compute another one."""
-    _setenv(monkeypatch, "f32")
-    monkeypatch.setenv(name, "1")
-    with pytest.raises(NotImplementedError, match="A13"):
-        stream_forms()
-    stack = LSTMStack(D, 8, num_layers=1, bidirectional=False)
-    with pytest.raises(NotImplementedError, match=name):
-        with torch.no_grad():
-            stack(torch.from_numpy(_x_np(1)))
-    monkeypatch.setenv(name, "0")
-    assert stream_forms() == (False, False, False)
-
-
 def test_forms_the_kernels_do_not_take_are_refused():
-    """The bf16-h form stores f32 hs and residuals; a carried state keeps f32
-    hs; the residuals come all in one dtype."""
+    """The bf16-h form stores f32 residuals; a carried state keeps f32 hs; the
+    residuals come all in one dtype."""
     xw, w, dhs = (torch.from_numpy(t) for t in _inputs(2, 5, 8, seed=1, ndir=1))
-    with pytest.raises(ValueError):
-        L.lstm_bidir_tm(xw, w, h_bf16=True, hs_dtype=BF16)
     with pytest.raises(ValueError):
         L.lstm_bidir_tm_fc(xw, w, h_bf16=True, res_dtype=BF16)
     state = (torch.zeros(1, 2, 8), torch.zeros(1, 2, 8))
