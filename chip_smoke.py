@@ -319,6 +319,22 @@ Phases, one line each:
      kernels run, as on the CPU, where their plain versions run; and the
      bounds the phases above print, now read from ``utils/costs.py``,
      against their values before the move.
+ 21. JAX's random streams (phases 1-20 run under the flash + hash dropout
+     routes they were written for, ``SE_ATTN_IMPL=flash
+     SE_HIDDEN_DROPOUT_IMPL=hash``; this phase under the port's defaults,
+     JAX's): (a) D1, flax ``nn.Dropout``'s threefry mask, against its plain
+     version at the Mockingjay width (64, 1001, 768), f32 and bf16, forward
+     and backward, at batch0 0 and 5 and past the counter's high word: masks
+     and values identical; (b) B3's mask forms (the explicit path's flax and
+     hidden-hash masks, the chunked path's under both): each mask read out of
+     the kernels (q = k = 0, v or do one-hot; f32 and bf16, batch0 6000, heads
+     1-3 of 5) identical to the plain versions', and each form against its
+     plain version f32 at B=6 under phase 3's limit and bf16 at B=64 under
+     phase 12's, T=1001, 12 x 64, rate 0.1, with the hash form's time beside
+     it; (c) the default dropout-live Mockingjay step at full width, 3 steps
+     card against CPU from one seed and key chain within phase 6's step
+     limits, 26 D1 and 6 + 6 B3 launches a step; (d) its time beside the
+     flash + hash route's at B=6 f32 and B=64 bf16, 10 s, in turns.
 
 Then each kernel's time beside its bound (the least time the card could take
 for the same work), the card's line, one JSON line with every kernel's
@@ -6627,6 +6643,7 @@ def data_parallel_phase(torch, card, tmp):
     # (b)-(c): two gloo ranks on this card, then one process on the global batch
     init = "file://" + os.path.join(tmp, "rendezvous2")
     outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+    release_card(torch, "the two gloo ranks")
     spawn = mp.get_context("spawn")
     procs = [spawn.Process(target=dp_rank, args=(r, outs[r], init)) for r in range(DP_WORLD)]
     for p in procs:
@@ -7042,11 +7059,24 @@ def mp_rank(rank, world, model, out, init):
         dist.destroy_process_group()
 
 
+def release_card(torch, what):
+    """Hand this process's cached device memory back before ranks that share
+    the card start (each needs room for its own context), and say how much
+    this process still holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] before {what}: this process holds "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+
+
 def spawn_ranks(target, world, args_of, timeout, what):
     """Start ``world`` processes of ``target`` (``spawn``), wait for all of
     them within ``timeout`` seconds, kill them past it; raise on a failure."""
+    import torch
     import torch.multiprocessing as mp
 
+    release_card(torch, what)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=args_of(r)) for r in range(world)]
     for p in procs:
@@ -7742,12 +7772,332 @@ def bench_phase(torch, card):
     return {"modes": modes, "seconds": seconds, "run_s": run_s}
 
 
+# JAX's random streams (phase 21): kernel D1 (flax nn.Dropout's threefry
+# mask) at the Mockingjay width, B3's mask forms, and the default dropout-live
+# step. D1 and B3's forms are integer functions of the key: their masks must be
+# identical to the plain versions', and D1's values too (the same IEEE
+# division). The variables phases 1-20 run under (the flash + hash routes
+# they were written for) and the four the JAX package reads for dropout.
+HASH_ROUTES = {"SE_ATTN_IMPL": "flash", "SE_HIDDEN_DROPOUT_IMPL": "hash"}
+DROPOUT_VARIABLES = ("SE_ATTN_IMPL", "SE_HIDDEN_DROPOUT_IMPL", "SE_DROPOUT_IMPL",
+                     "SE_ATTN_DROPOUT_CHUNK")
+D1_SHAPE = (64, 1001, 768)  # a Mockingjay hidden state at B=64, 10 s
+D1_KEY, D1_RATE = (0x12345678, 0x9ABCDEF0), 0.1
+# a batch0 whose flat indices pass 2^32 (6000 * 1001 * 768 > 2^32): the
+# counter's high word
+D1_HIGH_BATCH0 = 6000
+# B3's forms besides the hash: the explicit path's flax and hidden-hash masks,
+# and the chunked path's (SE_ATTN_DROPOUT_CHUNK, per-chunk keys)
+B3_FORMS = (("flax", 0), ("hidden_hash", 0), ("flax", 256), ("hidden_hash", 256))
+B3_FORM_KEY = (0x9E3779B9, 0xDEADBEEF)
+B3_FORM_SHAPES = {"f32": (6, 1001, 12, 64), "bf16": (64, 1001, 12, 64)}
+# the mask probe: (B, N, T, D), batch0, head0, heads in all, chunk; batch0 6000
+# puts the flax counter's high word at 1 and above
+B3_PROBE = (2, 3, 1001, 64)
+B3_PROBE_BWD = (2, 3, 200, 256)
+B3_PROBE_KEY = (6000, 1, 5)
+B3_PROBE_CHUNK = 96
+# the default step card against CPU: full width, 3 steps of 4 rows of 2 s
+DEFAULT_STEPS, DEFAULT_ROWS, DEFAULT_SECONDS = 3, 4, 2.0
+# the step times: (rows, compute dtype) at 10 s
+ROUTE_TIMES = ((6, "f32"), (64, "bf16"))
+
+
+def dropout_env(routes):
+    """A context in which the four dropout variables are ``routes`` (unset
+    where it names none)."""
+    @contextlib.contextmanager
+    def ctx():
+        saved = {k: os.environ.get(k) for k in DROPOUT_VARIABLES}
+        for k in DROPOUT_VARIABLES:
+            os.environ.pop(k, None)
+        os.environ.update(routes)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return ctx()
+
+
+def d1_checks(torch, R, prng):
+    """Phase 21 (a): D1 against its plain version at the Mockingjay width, f32
+    and bf16, forward and (through ``ThreefryDropout``) backward, at batch0 0
+    and 5 and past the counter's high word: masks and values identical. Returns
+    {dtype: (ms, plain ms, bound)}, and the largest |difference| (0)."""
+    from speech_enhancement_by_s3prl_tpu_torch.utils.costs import dropout_bound
+
+    out, worst = {}, 0.0
+    inner = D1_SHAPE[1] * D1_SHAPE[2]
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn(D1_SHAPE, device="cuda", generator=g).to(dtype)
+        dy = torch.randn(D1_SHAPE, device="cuda", generator=g).to(dtype)
+        for batch0 in (0, 5):
+            y = R.threefry_dropout_kernel(x, D1_KEY, D1_RATE, batch0)
+            ref = R.threefry_dropout_ref(x, D1_KEY, D1_RATE, batch0)
+            xg = x.clone().requires_grad_()
+            dx = torch.autograd.grad(R.threefry_dropout(xg, D1_KEY, D1_RATE, batch0), xg, dy)[0]
+            dx_ref = R.threefry_dropout_ref(dy, D1_KEY, D1_RATE, batch0)
+            mask = R.threefry_dropout_kernel(torch.ones_like(x), D1_KEY, D1_RATE, batch0) != 0
+            want = prng.bernoulli(D1_KEY, 1.0 - D1_RATE, D1_SHAPE, batch0 * inner, "cuda")
+            torch.cuda.synchronize()
+            same = (torch.equal(y, ref), torch.equal(dx, dx_ref), torch.equal(mask, want))
+            keep = float(mask.float().mean())
+            print(f"[rng] D1 {str(dtype)[6:]} {D1_SHAPE} batch0={batch0}: forward, "
+                  f"backward and mask identical to the plain version {same}; kept "
+                  f"{keep:.5f} (rate {D1_RATE})", flush=True)
+            if not all(same) or abs(keep - (1.0 - D1_RATE)) > 1e-3:
+                raise AssertionError(f"D1 disagrees with its plain version: {same}, kept {keep}")
+            worst = max(worst, float((y.float() - ref.float()).abs().max()))
+        # a rank's rows: rows 5.. alone at batch0 5 are rows 5.. of the launch
+        rows = R.threefry_dropout_kernel(x[5:], D1_KEY, D1_RATE, 5)
+        high = R.threefry_dropout_kernel(x[:2], D1_KEY, D1_RATE, D1_HIGH_BATCH0)
+        high_ref = R.threefry_dropout_ref(x[:2], D1_KEY, D1_RATE, D1_HIGH_BATCH0)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows, R.threefry_dropout_kernel(x, D1_KEY, D1_RATE)[5:])
+                and torch.equal(high, high_ref)):
+            raise AssertionError("D1 at a batch offset disagrees")
+        ms = cuda_ms(torch, lambda: R.threefry_dropout_kernel(x, D1_KEY, D1_RATE), 20, warmup=2)
+        plain = cuda_ms(torch, lambda: R.threefry_dropout_ref(x, D1_KEY, D1_RATE), 3)
+        out[str(dtype)[6:]] = (ms, plain, dropout_bound(x.numel(), x.element_size()))
+    print(f"[rng] D1 rows 5.. at batch0 5 bit for bit those rows of the whole launch; "
+          f"batch0 {D1_HIGH_BATCH0} (counters past 2^32) identical to the plain version",
+          flush=True)
+    return out, worst
+
+
+def b3_mask_probe(torch, A):
+    """Phase 21 (b), the masks: each form's keep mask read out of B3 itself,
+    f32 and bf16, at a batch0 past the flax counter's high word and on heads
+    1-3 of 5. Forward: q = k = 0 (uniform p over the keys a -inf key bias
+    leaves: D of them a launch, walking the T keys), v one-hot by key, so out
+    is keep / (D keep_prob) or 0. Backward: dv = pd^T do / keep_prob with do
+    one-hot by query (T <= D). Both must equal the plain versions' mask."""
+    batch0, head0, n_total = B3_PROBE_KEY
+    checked = 0
+    for form, chunk in (("hash", 0),) + tuple(
+            (f, B3_PROBE_CHUNK if c else 0) for f, c in B3_FORMS):
+        kw = dict(n_heads=B3_PROBE[1], head0=head0, n_heads_total=n_total, form=form,
+                  chunk=chunk)
+        for dtype in (torch.float32, torch.bfloat16):
+            B, N, T, D = B3_PROBE
+            want = A._full_mask(B, N, T, B3_FORM_KEY, 0.1, batch0, "cuda", head0, n_total,
+                                form, chunk)
+            z = torch.zeros(B, T, N * D, device="cuda", dtype=dtype)
+            v = torch.zeros(B, T, N, D, device="cuda")
+            v[:, torch.arange(T), :, torch.arange(T) % D] = 1.0
+            v = v.reshape(B, T, N * D).to(dtype)
+            got = torch.zeros(B, N, T, T, dtype=torch.bool, device="cuda")
+            for w0 in range(0, T, D):
+                kb = torch.full((B, T), -math.inf, device="cuda")
+                kb[:, w0:w0 + D] = 0.0
+                out, _ = A.flash_attention_fwd(z, z, v, 1.0, 0.1, B3_FORM_KEY, kb, batch0, **kw)
+                w = min(D, T - w0)
+                got[..., w0:w0 + w] = (out.float().reshape(B, T, N, D).permute(0, 2, 1, 3)
+                                       > 0)[..., :w]
+            B, N, T, D = B3_PROBE_BWD
+            want_b = A._full_mask(B, N, T, B3_FORM_KEY, 0.1, batch0, "cuda", head0, n_total,
+                                  form, chunk)
+            z = torch.zeros(B, T, N * D, device="cuda", dtype=dtype)
+            do = torch.zeros(B, T, N, D, device="cuda")
+            do[:, torch.arange(T), :, torch.arange(T)] = 1.0
+            do = do.reshape(B, T, N * D).to(dtype)
+            o, lse = A.flash_attention_ref(z, z, z, 1.0, 0.1, B3_FORM_KEY, None, batch0, **kw)
+            _, _, dv = A.flash_attention_bwd(z, z, z, o, lse, do, 1.0, 0.1, B3_FORM_KEY, None,
+                                             batch0, **kw)
+            got_b = (dv.float().reshape(B, T, N, D).permute(0, 2, 3, 1)[:, :, :T] > 0)
+            torch.cuda.synchronize()
+            same = (torch.equal(got, want), torch.equal(got_b, want_b))
+            if not all(same):
+                raise AssertionError(f"B3's {form} mask (chunk {chunk}, {dtype}) differs from "
+                                     f"the plain version's: forward, backward {same}")
+            checked += 1
+    print(f"[rng] B3's masks read out of the kernels ({checked} form x dtype cases: hash, "
+          f"flax, hidden hash, flax and hidden hash in chunks of {B3_PROBE_CHUNK}; f32 and "
+          f"bf16; forward {B3_PROBE}, backward {B3_PROBE_BWD}; batch0 {batch0}, heads "
+          f"{head0}-{head0 + B3_PROBE[1] - 1} of {n_total}): identical to the plain versions'",
+          flush=True)
+
+
+def b3_form_checks(torch, A):
+    """Phase 21 (b), the values: each form against its plain version, f32 at B=6
+    under phase 3's B3_TOL and bf16 at B=64 under phase 12's limits, forward
+    and backward, with the hash form's time beside each. Returns ({(dtype,
+    form, chunk): (fwd ms, bwd ms, plain fwd ms, plain bwd ms)}, worst
+    absolute errors (fwd, bwd))."""
+    times, worst = {}, [0.0, 0.0]
+    for tag, (B, T, N, D) in B3_FORM_SHAPES.items():
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        g = torch.Generator().manual_seed(SEED + B)
+        qkv = torch.randn(B, T, 3 * N * D, generator=g).cuda().to(dtype)
+        q, k, v = qkv.split(N * D, dim=-1)
+        dout = torch.randn(B, T, N * D, generator=g).cuda().to(dtype)
+        for form, chunk in (("hash", 0),) + B3_FORMS:
+            kw = dict(n_heads=N, form=form, chunk=chunk)
+            args = (D ** -0.5, 0.1, B3_FORM_KEY, None, 3)
+            out, lse = A.flash_attention_fwd(q, k, v, *args, **kw)
+            grads = A.flash_attention_bwd(q, k, v, out, lse, dout, *args, **kw)
+            t_fwd = cuda_ms(torch, lambda: A.flash_attention_fwd(q, k, v, *args, **kw), 5)
+            t_bwd = cuda_ms(torch, lambda: A.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                                 *args, **kw), 5)
+            if form == "hash":
+                times[(tag, form, chunk)] = (t_fwd, t_bwd, None, None)
+                continue
+            t0 = time.perf_counter()
+            ref_out, ref_lse = A.flash_attention_ref(q, k, v, *args, **kw)
+            torch.cuda.synchronize()
+            p_fwd = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ref_grads = A.flash_attention_bwd_ref(q, k, v, out, lse, dout, *args, **kw)
+            torch.cuda.synchronize()
+            p_bwd = (time.perf_counter() - t0) * 1e3
+            if tag == "f32":
+                errs = {"out": rel_err(out, ref_out), "lse": rel_err(lse, ref_lse)}
+                errs.update({n: rel_err(a, b)
+                             for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)})
+                ok = all(e <= B3_TOL for e in errs.values())
+                reading = (", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                           + f" (limit {B3_TOL:.0e})")
+            else:
+                out_ulps = float((out.float() - ref_out.float()).abs().max()) / bf16_ulp(ref_out)
+                lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1e-30)).max())
+                ulps = [float((a.float() - b.float()).abs().max()) / bf16_ulp(b)
+                        for a, b in zip(grads, ref_grads)]
+                same = [float((a == b).float().mean()) for a, b in zip(grads, ref_grads)]
+                ok = (out_ulps <= B3_BF16_OUT_ULPS and lse_err <= B3_BF16_LSE_TOL
+                      and max(ulps) <= B3_BF16_GRAD_ULPS and min(same) >= B3_BF16_GRAD_SAME)
+                reading = (f"out {out_ulps:.2f} ulp, lse {lse_err:.2e}, dq/dk/dv "
+                           + "/".join(f"{u:.2f}" for u in ulps) + " ulp, identical "
+                           + "/".join(f"{s_:.4f}" for s_ in same)
+                           + f" (limits {B3_BF16_OUT_ULPS:.0f}, {B3_BF16_LSE_TOL:.0e}, "
+                           f"{B3_BF16_GRAD_ULPS:.0f}, {B3_BF16_GRAD_SAME})")
+            times[(tag, form, chunk)] = (t_fwd, t_bwd, p_fwd, p_bwd)
+            h_fwd, h_bwd = times[(tag, "hash", 0)][:2]
+            print(f"[rng] B3 {tag} {form} mask{f' in chunks of {chunk}' if chunk else ''} "
+                  f"B={B} T={T} N={N} D={D} rate 0.1 against its plain version: {reading}; ms "
+                  f"fwd {t_fwd:.3f} / bwd {t_bwd:.3f} (hash form {h_fwd:.3f} / {h_bwd:.3f})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"B3's {form} form (chunk {chunk}, {tag}) disagrees with "
+                                     f"its plain version: {reading}")
+            worst[0] = max(worst[0], float((out.float() - ref_out.float()).abs().max()))
+            worst[1] = max([worst[1]] + [float((a.float() - b.float()).abs().max())
+                                         for a, b in zip(grads, ref_grads)])
+            del ref_out, ref_lse, ref_grads
+        del qkv, q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    return times, tuple(worst)
+
+
+def default_step_checks(torch, R, A, prng, card):
+    """Phase 21 (c): the port's default dropout-live Mockingjay step (no
+    dropout variable set: flax masks by D1 at the 13 hidden sites, B3's flax
+    form on the explicit path's probabilities) at full width, 3 steps on the
+    card against the same 3 on the CPU from the same seed and key chain, with
+    the launches of D1 and B3 a step; (d) the step's time beside the flash +
+    hash route's at B=6 f32 and B=64 bf16. Returns the readings."""
+    from speech_enhancement_by_s3prl_tpu_torch.entry import build_mockingjay_train
+
+    counted = (R.threefry_dropout_kernel, A.flash_attention_fwd, A.flash_attention_bwd,
+               A.flash_attention_fwd_bf16, A.flash_attention_bwd_bf16)
+    weights = build_mockingjay_train(device="cpu", generator=torch.Generator().manual_seed(
+        SEED)).model.state_dict()
+    batches = [train_batch(DEFAULT_SECONDS, DEFAULT_ROWS, 40 + k) for k in range(DEFAULT_STEPS)]
+    lengths = np.full(DEFAULT_ROWS, int(DEFAULT_SECONDS * SR), dtype=np.int64)
+    sides = {}
+    with dropout_env({}):
+        for device in ("cuda", "cpu"):
+            builder = build_mockingjay_train(device=device, seed=SEED)
+            builder.model.load_state_dict(weights)
+            state, chain, stats, counts = builder.init_state(), prng.PRNGKey(SEED), [], []
+            for wavs in batches:
+                chain, key = prng.split(chain)
+                # -- the main path of D1 and B3's flax form, one step --
+                reset_counts(counted)
+                state, st = builder.train_step(state, torch.from_numpy(wavs).to(device),
+                                               torch.from_numpy(lengths).to(device), rng=key)
+                counts.append([fn.launches for fn in counted])
+                # -------------------------------------------------------
+                stats.append((float(st["loss"]), float(st["grad_norm"])))
+            flat = torch.cat([p.detach().reshape(-1).double().cpu()
+                              for p in state.params.values()])
+            sides[device] = (stats, flat, counts)
+    (g_stats, g_flat, g_counts), (c_stats, c_flat, _) = sides["cuda"], sides["cpu"]
+    L = MJ_LAYERS
+    want = [2 * (1 + 2 * L), L, L, 0, 0]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(g_stats, c_stats))
+    norm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g_stats, c_stats))
+    upd = float((g_flat - c_flat).norm() / (c_flat - torch.cat(
+        [w.reshape(-1).double() for w in weights.values()])).norm())
+    print(f"[rng] the default dropout-live Mockingjay step (no variable set: flax masks, "
+          f"B3's flax form on the explicit path) at full width, {DEFAULT_STEPS} steps of "
+          f"{DEFAULT_ROWS} x {DEFAULT_SECONDS:.0f} s from seed {SEED}, card against CPU: loss "
+          f"rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e} (limit {TRAIN_LOSS_TOL:.0e}), "
+          f"update rel {upd:.3e} (limit {TRAIN_GRAD_TOL:.0e}); launches a step (D1, B3 fwd, B3 "
+          f"bwd, B3 fwd bf16, B3 bwd bf16) {g_counts}", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_LOSS_TOL and upd <= TRAIN_GRAD_TOL
+            and all(c == want for c in g_counts)):
+        raise AssertionError(f"the default dropout step: loss {loss_rel}, norm {norm_rel}, "
+                             f"update {upd}, launches {g_counts} (want {want} a step)")
+
+    step_ms = {}
+    for rows, dt in ROUTE_TIMES:
+        wavs = torch.from_numpy(train_batch(10.0, rows, 60)).cuda()
+        lens = torch.full((rows,), 10 * SR, dtype=torch.int64, device="cuda")
+        builder = build_mockingjay_train(compute_dtype=dt, device="cuda", seed=SEED)
+        builder.model.load_state_dict(weights)
+        state = builder.init_state()
+        for name, routes in (("default", {}), ("flash+hash", HASH_ROUTES),
+                             ("default again", {}), ("flash+hash again", HASH_ROUTES)):
+            with dropout_env(routes):
+                step_ms[(rows, dt, name)] = statistics.median(synced_ms(
+                    torch, lambda: builder.train_step(state, wavs, lens)[1]["loss"].item(), 3))
+        del builder, state, wavs
+        torch.cuda.empty_cache()
+    print(f"[rng] Mockingjay train step ms at 10 s, default route against flash + hash "
+          f"(in turns): " + ", ".join(
+              f"B={r} {dt} {step_ms[(r, dt, 'default')]:.2f} / "
+              f"{step_ms[(r, dt, 'flash+hash')]:.2f} (again {step_ms[(r, dt, 'default again')]:.2f}"
+              f" / {step_ms[(r, dt, 'flash+hash again')]:.2f})" for r, dt in ROUTE_TIMES)
+          + f" | {card}", flush=True)
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "update_rel": upd,
+            "launches": g_counts, "step_ms": step_ms}
+
+
+def random_streams_phase(torch, card):
+    """Phase 21: JAX's random streams on the card (the module docstring)."""
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import attention_kernel as A
+    from speech_enhancement_by_s3prl_tpu_torch.ops.cuda import dropout_kernel as R
+    from speech_enhancement_by_s3prl_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    d1_times, d1_err = d1_checks(torch, R, prng)
+    b3_mask_probe(torch, A)
+    form_times, form_err = b3_form_checks(torch, A)
+    step = default_step_checks(torch, R, A, prng, card)
+    seconds = time.perf_counter() - t0
+    print(f"[rng] D1 ms / plain / bound "
+          + ", ".join(f"{dt} {v[0]:.4f} / {v[1]:.3f} / {v[2][0]:.4f} ({v[2][1]})"
+                      for dt, v in d1_times.items())
+          + f" at {D1_SHAPE}; phase {seconds:.1f} s | {card}", flush=True)
+    return {"d1": d1_times, "d1_err": d1_err, "forms": form_times, "form_err": form_err,
+            "step": step, "seconds": seconds}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, ROOT)
+    # phases 1-20 drive the flash + hash dropout routes they were written for
+    # (the JAX bench's; their subprocesses inherit them); phase 21 drives the
+    # port's default routes, JAX's own
+    os.environ.update(HASH_ROUTES)
     from speech_enhancement_by_s3prl_tpu_torch import use_full_fp32
     from speech_enhancement_by_s3prl_tpu_torch.data.audio_io import (
         read_wav,
@@ -8459,6 +8809,11 @@ def main():
     bench_run = bench_phase(torch, card)
     phase_done(20)
 
+    # 21. JAX's random streams on the card: D1, B3's mask forms, the default
+    # dropout-live step
+    jax_streams = random_streams_phase(torch, card)
+    phase_done(21)
+
     pallas = "speech_enhancement_by_s3prl_tpu/ops/pallas/"
     csrc = "speech_enhancement_by_s3prl_tpu_torch/csrc/"
     T, H = 1001, 256
@@ -8601,6 +8956,43 @@ def main():
             core_floor_ms_b64=attention_core_floor_bf16(64, T, 12, lib + 1)[0],
             max_ulps=bf16["checks"]["out_ulps" if products == 2 else "grad_ulps"],
             **padded_fields(f"{key}_bf16")))
+    # B3's mask forms (phase 21): each form's time at B=6 f32 and B=64 bf16,
+    # beside the hash form's in the same call, its plain version's time, and
+    # B3's launches in the default dropout-live step (the flax form)
+    step_launches = jax_streams["step"]["launches"]
+    for r in rows:
+        if r["name"].startswith("flash_attention_"):
+            tag = "bf16" if r["name"].endswith("_bf16") else "f32"
+            at = 0 if "_fwd" in r["name"] else 1
+            b = B3_FORM_SHAPES[tag][0]
+            for (t, form, chunk), v in jax_streams["forms"].items():
+                if t != tag:
+                    continue
+                name = form + (f"_chunk{chunk}" if chunk else "")
+                r[f"form_{name}_ms_b{b}"] = v[at]
+                if v[2] is not None:
+                    r[f"form_{name}_plain_ms_b{b}"] = v[2 + at]
+            r["forms_max_abs_err"] = jax_streams["form_err"][at]
+            if tag == "f32":
+                r["launches_default_dropout_step"] = sum(c[1 + at] for c in step_launches)
+    # D1 (phase 21): flax nn.Dropout's threefry mask; no Pallas kernel computes
+    # it (JAX leaves it to XLA), and no PyTorch call draws JAX's mask
+    d1 = jax_streams["d1"]
+    rows.append({
+        "name": "threefry_dropout_kernel", "route": "cuda",
+        "source": csrc + "threefry_dropout.cu",
+        "replaces": "none (no Pallas counterpart: XLA computes flax nn.Dropout, "
+                    "speech_enhancement_by_s3prl_tpu/models/transformer.py:176)",
+        "launches": sum(c[0] for c in step_launches), "max_abs_err": jax_streams["d1_err"],
+        "ms": d1["float32"][0], "plain_ms": d1["float32"][1], "bound_ms": d1["float32"][2][0],
+        "bound_by": d1["float32"][2][1], "library_ms": None,
+        "shape": f"{D1_SHAPE} f32, rate {D1_RATE}", "kernel_route": "one design",
+        "launches_per_default_step": step_launches[0][0], "ms_bf16": d1["bfloat16"][0],
+        "plain_ms_bf16": d1["bfloat16"][1], "bound_ms_bf16": d1["bfloat16"][2][0],
+        "bound_by_bf16": d1["bfloat16"][2][1],
+        "default_step_ms_vs_flash_hash": {f"B={r_} {dt} {name}": v for (r_, dt, name), v
+                                          in jax_streams["step"]["step_ms"].items()}})
+
     # B4 at 1 / 12 / 64 rows of 10 s: the FFT kernel (its route at n_fft 400),
     # with the product kernel's times at the same shapes beside it
     dsp_shape = "1 row of 10 s (1001 frames), n_fft 400, hop 160"

@@ -63,6 +63,7 @@ from ..models.lstm import Capture
 from ..models.transformer import SaltStream
 from ..ops.stft import magphase, stft
 from ..runner.trainer import make_context
+from ..utils import prng
 
 ACTIVE_BUFFER_NUM = 4
 # the Dense of each capturing head: its streams' prefix -> its parameters'
@@ -157,17 +158,19 @@ def _dense_grads(streams, cots, dense: str) -> Dict[str, torch.Tensor]:
 
 def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
                     impl: str = "vmap") -> Callable:
-    """``scoring(model, wavs, lengths, mean=False, generator=None) -> (B or
-    1, P)``: the embeddings of a batch under ``model`` (the step builder's
-    head, or a copy of it), on the model's device.
+    """``scoring(model, wavs, lengths, mean=False, rng=None) -> (B or 1,
+    P)``: the embeddings of a batch under ``model`` (the step builder's head,
+    or a copy of it), on the model's device.
 
     ``mean=False``: one embedding per utterance by the ``impl`` engine;
     ``mean=True``: one gradient of the batch loss (the query side).
 
     The loss runs in train mode, as the trainer's: a dropout-bearing head
-    (Mockingjay) is scored with its dropout live, the salts drawn from
-    ``generator`` (omitted: a fixed seed, so that a head with no dropout is
-    deterministic anyway). A bad ``active_layerid`` raises at the call."""
+    (Mockingjay) or a live upstream is scored with its dropout live, from the
+    key ``rng`` as the JAX sampler draws (omitted: ``PRNGKey(0)``, its
+    default): the batch's forward keyed on ``rng`` (``mean=True`` and the
+    capture engine), row i's on ``split(rng, B)[i]`` (the vmap engine). A bad
+    ``active_layerid`` raises at the call."""
     sb = step_builder
     if impl not in ("vmap", "capture"):
         raise ValueError(f"unknown scoring impl {impl!r}")
@@ -187,8 +190,17 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
                 f"'l{active_layerid}_': the configured downstream has no such LSTM layer")
         return _leaf_order(sel)
 
-    def forward(model, ctx, salts, capture=None):
-        features = sb._down_inp(ctx, True, salts)
+    def forward(model, ctx, salts, capture=None, row_keys=None):
+        """The head's outputs in train mode; with ``row_keys`` a live
+        upstream runs row by row, row i from its own key, as under JAX's
+        vmap."""
+        if row_keys is not None and sb.upstream is not None and sb.upstream.trainable:
+            feats = ctx["feats_for_upstream"]
+            features = torch.cat([
+                sb._down_inp({"feats_for_upstream": feats[i:i + 1]}, True, SaltStream(key=key))
+                for i, key in enumerate(row_keys)])
+        else:
+            features = sb._down_inp(ctx, True, salts)
         model.train(True)
         kwargs = {"salts": salts} if getattr(model, "takes_salts", False) else {}
         if capture is not None:
@@ -202,14 +214,14 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
     def context(wavs, lengths):
         return make_context(sb.preprocessor, wavs, lengths, sb.channel_inp, sb.channel_tar)
 
-    def scoring_mean(model, wavs, lengths, seed):
+    def scoring_mean(model, wavs, lengths, rng):
         names = selected(model)
         params = dict(model.named_parameters())
         ctx = context(wavs, lengths)
-        loss = objective(ctx, *forward(model, ctx, SaltStream(seed, 0)))
+        loss = objective(ctx, *forward(model, ctx, SaltStream(key=rng)))
         return _flat(names, torch.autograd.grad(loss, [params[n] for n in names]))[None]
 
-    def scoring_captured(model, wavs, lengths, seed, per_row: bool):
+    def scoring_captured(model, wavs, lengths, rng, per_row: bool):
         """The capture machinery: the batch loss (``per_row`` False) or the
         sum of the rows' own losses, one backward, the per-sample gradients
         from the captured streams (per row through a bf16 head's casts)."""
@@ -217,7 +229,8 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
         bf16_rows = per_row and getattr(model, "compute_dtype", None) == torch.bfloat16
         ctx = context(wavs, lengths)
         streams = Capture("all" if active_layerid is None else active_layerid)
-        predicted, aux = forward(model, ctx, SaltStream(seed, 0), streams)
+        row_keys = prng.split(rng, wavs.shape[0]) if per_row else None
+        predicted, aux = forward(model, ctx, SaltStream(key=rng), streams, row_keys)
         if per_row:
             # the objective of each row alone, as vmap over w[None] applies it
             n = predicted.shape[0]
@@ -242,32 +255,32 @@ def make_scoring_fn(step_builder, active_layerid: Optional[int] = None,
         # the assembled gradients are in flax layout already
         return torch.cat([grads[n].reshape(grads[n].shape[0], -1) for n in names], dim=1)
 
-    def scoring_loop(model, wavs, lengths, seed):
-        """One backward per utterance (the reference's own method)."""
+    def scoring_loop(model, wavs, lengths, rng):
+        """One backward per utterance (the reference's own method), row i
+        from ``split(rng, B)[i]``."""
         names = selected(model)
         params = dict(model.named_parameters())
         rows = []
-        for i in range(wavs.shape[0]):
+        for i, key in enumerate(prng.split(rng, wavs.shape[0])):
             ctx = context(wavs[i:i + 1], lengths[i:i + 1])
-            loss = objective(ctx, *forward(model, ctx, SaltStream(seed, i)))
+            loss = objective(ctx, *forward(model, ctx, SaltStream(key=key)))
             rows.append(_flat(names, torch.autograd.grad(loss, [params[n] for n in names])))
         return torch.stack(rows)
 
     def scoring(model, wavs, lengths, mean: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[prng.Key] = None) -> torch.Tensor:
         device = next(model.parameters()).device
         wavs = torch.as_tensor(wavs, device=device)
         lengths = torch.as_tensor(lengths, device=device)
-        seed = 0 if generator is None else int(
-            torch.randint(0, 2 ** 31, (1,), generator=generator))
+        rng = prng.PRNGKey(0) if rng is None else rng
         with full_f32(), torch.enable_grad():
             if mean:
-                return scoring_mean(model, wavs, lengths, seed)
+                return scoring_mean(model, wavs, lengths, rng)
             if impl == "capture":
-                return scoring_captured(model, wavs, lengths, seed, per_row=False)
+                return scoring_captured(model, wavs, lengths, rng, per_row=False)
             if _captures(model):
-                return scoring_captured(model, wavs, lengths, seed, per_row=True)
-            return scoring_loop(model, wavs, lengths, seed)
+                return scoring_captured(model, wavs, lengths, rng, per_row=True)
+            return scoring_loop(model, wavs, lengths, rng)
 
     scoring.impl = impl
     return scoring

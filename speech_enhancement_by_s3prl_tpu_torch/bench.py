@@ -33,8 +33,9 @@ rows, ``BENCH_UTT_SEC``) drawn from seed 0 on the device:
 - ``upstream`` (``upstream_audio_rtf_per_chip``): the TERA encoder's forward
   at dropout 0 on (512, 100 * seconds + 1, 80) features, bf16 by default;
 - ``mockingjay`` (``mockingjay_train_audio_rtf_per_chip``): the joint
-  finetune's train step, 32 rows (``ALL_MODES``: 64 in bf16), dropout
-  ``BENCH_MJ_DROPOUT`` (default 0.1);
+  finetune's train step, 32 rows (``ALL_MODES``: 64 in bf16, on the JAX
+  bench's dropout routes ``SE_ATTN_IMPL=flash SE_HIDDEN_DROPOUT_IMPL=hash``),
+  dropout ``BENCH_MJ_DROPOUT`` (default 0.1);
 - ``score`` (``sampler_scoring_utts_per_sec_per_chip``): the active sampler's
   per-row scores (``impl="capture"``) at 256 rows of the layer
   ``BENCH_SCORE_LAYERID`` (default 0; ``none``: every parameter);
@@ -87,7 +88,7 @@ import time
 import numpy as np
 
 # (name, variables) of every mode run_all runs: the JAX bench's batches and
-# stream forms (its ALL_MODES), the TPU-only variables left out
+# stream forms and dropout routes (its ALL_MODES), the TPU-only variables left out
 ALL_MODES = [
     ("enhance", {"BENCH_MODE": "enhance", "SE_PALLAS_HS_BF16": "1"}),
     ("train", {"BENCH_MODE": "train", "BENCH_BATCH": "352", "SE_PALLAS_VJP_BF16": "1"}),
@@ -95,7 +96,8 @@ ALL_MODES = [
     ("eval_full", {"BENCH_MODE": "eval", "SE_PALLAS_HS_BF16": "1",
                    "BENCH_EVAL_METRICS": "sisdr,stoi,estoi,pesq_nb,pesq_wb"}),
     ("upstream", {"BENCH_MODE": "upstream"}),
-    ("mockingjay", {"BENCH_MODE": "mockingjay", "BENCH_DTYPE": "bf16", "BENCH_BATCH": "64"}),
+    ("mockingjay", {"BENCH_MODE": "mockingjay", "BENCH_DTYPE": "bf16", "BENCH_BATCH": "64",
+                    "SE_ATTN_IMPL": "flash", "SE_HIDDEN_DROPOUT_IMPL": "hash"}),
     ("score", {"BENCH_MODE": "score", "SE_PALLAS_VJP_BF16": "1", "SE_PALLAS_HS_BF16": "1",
                "BENCH_DTYPE": "bf16"}),
     ("loader", {"BENCH_MODE": "loader"}),
@@ -182,6 +184,7 @@ def kernel_wrappers() -> dict:
     """The port's kernel wrappers by kernel id, each counting its launches."""
     from .ops.cuda import attention_kernel as A
     from .ops.cuda import decode_kernel as D
+    from .ops.cuda import dropout_kernel as R
     from .ops.cuda import lstm_kernel as L
     from .ops.cuda import stft_kernel as S
 
@@ -189,7 +192,7 @@ def kernel_wrappers() -> dict:
             "B2 bwd dW_hh^T bf16": L.lstm_bidir_tm_dw_bf16, "B3 fwd": A.flash_attention_fwd,
             "B3 bwd": A.flash_attention_bwd, "B3 fwd bf16": A.flash_attention_fwd_bf16,
             "B3 bwd bf16": A.flash_attention_bwd_bf16, "B4": S.stft_fused, "B5": D.decode_ola,
-            "B6": L.lstm_bidir_bb, "B7": L.lstm_bidir_fused}
+            "B6": L.lstm_bidir_bb, "B7": L.lstm_bidir_fused, "D1": R.threefry_dropout_kernel}
 
 
 def window(fn, iters: int, device, warmup: int = 1):

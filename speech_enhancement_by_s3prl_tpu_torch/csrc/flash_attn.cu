@@ -13,9 +13,11 @@
 //   m = max_k s_k, l = sum_k exp(s_k - m)            (the undropped sum)
 //   out_t = sum_k keep(bn, t, k) exp(s_k - m) v_k / (l * (1 - rate))
 //   lse[b, n, t] = m + log l
-// where keep() is the salted hash of flash_attn_common.cuh and bn the
-// absolute head index (batch0 + b) * N_total + head0 + n (HeadKey), so the
-// mask is the JAX kernel's bit for bit whatever the tiling, and a launch on
+// where keep() is the launch's mask form (flash_attn_common.cuh: the JAX
+// kernel's salted hash; flax nn.Dropout's threefry draw; the JAX hidden-state
+// hash; the last two also in the chunked path's per-chunk keys) at the
+// absolute head bn = (batch0 + b) * N_total + head0 + n (HeadKey), so the
+// mask is the JAX package's bit for bit whatever the tiling, and a launch on
 // heads [head0, head0 + N) of N_total draws those heads' masks.
 //
 // What bounds it on this card: operations. The two T x T x D products of a
@@ -88,13 +90,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+// FORM: the mask form (flash_attn_common.cuh), drawn where dropout != 0
+template <int D, int FORM>
 __global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ kbias,
                  float* __restrict__ out, float* __restrict__ lse, int T, int N,
-                 long long sb, long long st, float scale, float keep, uint32_t thresh,
-                 uint32_t s0, uint32_t s1, HeadKey key, int dropout, int vec) {
+                 long long sb, long long st, float scale, float keep, Mask mask, int dropout,
+                 int vec) {
   constexpr int LD = D + 4;
   constexpr int DN = D / 8;      // 8-column tiles of out
   constexpr int CN = kWalk / 8;  // 8-key tiles of s
@@ -107,7 +110,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
   const long long head = (long long)b * sb + (long long)n * D;
-  const uint32_t bn = key.bn(b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -119,6 +121,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // this thread's accumulator rows: queries q_a and q_a + 8 (entries e < 2
   // and e >= 2 of a fragment); its columns of tile j: 8 j + 2 t4 and the next
   const int q_a = q0 + warp * 16 + g;
+  MaskRows<FORM> mrows(mask, b, n);
+  const MaskRow<FORM> mrow[2] = {mrows.at(q_a), mrows.at(q_a + 8)};
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
@@ -187,9 +191,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s_acc[j][e] - shift[e >> 1]);
         rs[e >> 1] += p;
-        const bool kept =
-            !dropout || keep_bit(bn, (uint32_t)(q_a + 8 * (e >> 1)),
-                                 (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s0, s1, thresh);
+        const bool kept = !dropout || mrow[e >> 1].keep(k0 + 8 * j + 2 * t4 + (e & 1));
         s_acc[j][e] = kept ? p : 0.f;
       }
 #pragma unroll
@@ -245,18 +247,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias, float* out,
            float* lse, int B, int T, int N, long long sb, long long st, float scale,
-           float keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key, int dropout,
-           cudaStream_t stream) {
+           float keep, const Mask& mask, int dropout, int form, cudaStream_t stream) {
+  // without dropout the mask is not drawn: the hash instance serves
+  auto kernel = flash_fwd_kernel<D, kMaskHash>;
+  if (dropout && form == kMaskFlax) kernel = flash_fwd_kernel<D, kMaskFlax>;
+  if (dropout && form == kMaskHiddenHash) kernel = flash_fwd_kernel<D, kMaskHiddenHash>;
   const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // 16-byte tile loads where every row start is 16-byte aligned
   const int vec = aligned16(q) && aligned16(k) && aligned16(v) && sb % 4 == 0 && st % 4 == 0;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_fwd_kernel<D><<<grid, kTileThreads, smem, stream>>>(
-      q, k, v, kbias, out, lse, T, N, sb, st, scale, keep, thresh, s0, s1, key, dropout,
-      vec);
+  kernel<<<grid, kTileThreads, smem, stream>>>(q, k, v, kbias, out, lse, T, N, sb, st, scale,
+                                               keep, mask, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -341,16 +345,16 @@ struct FwdSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
 };
 
-// DROPOUT: rate > 0, the hash compiled in (a flag tested inside the loop
-// would split it into short branches the scheduler cannot interleave)
-template <int D, bool DROPOUT>
+// DROPOUT: rate > 0, the mask of form FORM compiled in (a flag tested inside
+// the loop would split it into short branches the scheduler cannot
+// interleave)
+template <int D, bool DROPOUT, int FORM>
 __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ kbias,
                       bf16* __restrict__ out, float* __restrict__ lse, int T, int N,
-                      float scale, float keep, uint32_t thresh, uint32_t s0, uint32_t s1,
-                      HeadKey key) {
+                      float scale, float keep, Mask mask) {
   using P = hp::Panels<D>;
   using S = FwdSmem<D>;
   constexpr int kFwdK = S::kKeys, kFwdStages = S::kStages;
@@ -425,9 +429,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   hp::fence_proxy_async();
   hp::named_sync(1 + wg, 128);
 
-  const uint32_t bn = key.bn(b, n);
-  const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
-                            fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
+  MaskRows<FORM> mrows(mask, b, n);
+  const MaskRow<FORM> mrow[2] = {mrows.at(qa), mrows.at(qa + 8)};
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
   float o[D / 2];
@@ -484,9 +487,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 4; ++e) {
         const float p = __expf(sc[4 * j + e] - shift[e >> 1]);
         rs[e >> 1] += p;
-        const bool kept =
-            !DROPOUT ||
-            fb::keep_at(hrow[e >> 1], (uint32_t)(k0 + 8 * j + 2 * t4 + (e & 1)), s1, thresh);
+        const bool kept = !DROPOUT || mrow[e >> 1].keep(k0 + 8 * j + 2 * t4 + (e & 1));
         pk[e] = kept ? p : 0.f;
       }
       pa[j >> 1][2 * (j & 1)] = hp::pack_bf16(pk[0], pk[1]);
@@ -528,8 +529,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias, bf16* out,
                 float* lse, int B, int T, int N, const long long* strides, float scale,
-                float keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key,
-                int dropout, cudaStream_t stream) {
+                float keep, const Mask& mask, int dropout, int form, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ops[3] = {q, k, v};
   const int rows[3] = {kFwdQ, FwdCfg<D>::kKeys, FwdCfg<D>::kKeys};
@@ -539,13 +539,18 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
     if (err) return err;
   }
   const int smem = FwdSmem<D>::kBytes + 1024;  // + the alignment of the base
-  auto kernel = dropout ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
+  auto kernel = flash_fwd_bf16_kernel<D, false, kMaskHash>;
+  if (dropout) {
+    kernel = form == kMaskFlax         ? flash_fwd_bf16_kernel<D, true, kMaskFlax>
+             : form == kMaskHiddenHash ? flash_fwd_bf16_kernel<D, true, kMaskHiddenHash>
+                                       : flash_fwd_bf16_kernel<D, true, kMaskHash>;
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kFwdQ - 1) / kFwdQ, N, B);
   kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], kbias, out, lse, T, N,
-                                              scale, keep, thresh, s0, s1, key);
+                                              scale, keep, mask);
   return (int)cudaGetLastError();
 }
 
@@ -556,18 +561,21 @@ extern "C" {
 
 // Kernel B3 fwd. Launches on `stream` of `device` and returns
 // cudaGetLastError() (0 on success); does not synchronise. D is 32, 64,
-// 128 or 256; thresh is min(int((1 - rate) * 2^32), 2^32 - 1) and keep = 1 - rate,
-// both computed by the caller; dropout = 0 skips the hash (rate 0). The
-// mask keys on flash::HeadKey{batch0, head0, n_total} (a launch on its own: 0, 0, N).
-// out must be 8-byte aligned (it is a whole allocation).
+// 128 or 256; keep = 1 - rate and thresh (the hashes: min(int((1 - rate) *
+// 2^32), 2^32 - 1); the flax form: ceil(float32(1 - rate) * 2^23)) computed by
+// the caller; dropout = 0 draws no mask (rate 0). The mask is of form `form`
+// (flash::MaskForm) from the words s0, s1, in chunks of `chunk` queries (0:
+// one draw), keyed on flash::HeadKey{batch0, head0, n_total} (a launch on its
+// own: 0, 0, N). out must be 8-byte aligned (it is a whole allocation).
 int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* kbias,
                        void* out, void* lse, int B, int T, int N, int D, long long sb,
                        long long st, float scale, float keep, unsigned thresh, unsigned s0,
-                       unsigned s1, int batch0, int head0, int n_total, int dropout, int device,
-                       void* stream) {
+                       unsigned s1, int batch0, int head0, int n_total, int dropout, int form,
+                       int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || N <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  const flash::Mask mask{s0, s1, thresh, chunk, T, flash::HeadKey{batch0, head0, n_total}};
   auto* qf = static_cast<const float*>(q);
   auto* kf = static_cast<const float*>(k);
   auto* vf = static_cast<const float*>(v);
@@ -577,17 +585,17 @@ int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* 
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0, s1,
-                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch<32>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, mask, dropout,
+                        form, s);
     case 64:
-      return launch<64>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0, s1,
-                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch<64>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, mask, dropout,
+                        form, s);
     case 128:
-      return launch<128>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
-                         s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch<128>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, mask, dropout,
+                         form, s);
     case 256:
-      return launch<256>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, thresh, s0,
-                         s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch<256>(qf, kf, vf, bf, of, lf, B, T, N, sb, st, scale, keep, mask, dropout,
+                         form, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -603,11 +611,12 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
                         void* out, void* lse, int B, int T, int N, int D, long long sbq,
                         long long stq, long long sbk, long long stk, long long sbv,
                         long long stv, float scale, float keep, unsigned thresh, unsigned s0,
-                        unsigned s1, int batch0, int head0, int n_total, int dropout, int device,
-                        void* stream) {
+                        unsigned s1, int batch0, int head0, int n_total, int dropout, int form,
+                        int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || N <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  const flash::Mask mask{s0, s1, thresh, chunk, T, flash::HeadKey{batch0, head0, n_total}};
   auto* qb = static_cast<const bf16*>(q);
   auto* kb = static_cast<const bf16*>(k);
   auto* vb = static_cast<const bf16*>(v);
@@ -618,17 +627,17 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
   const long long strides[6] = {sbq, stq, sbk, stk, sbv, stv};
   switch (D) {
     case 32:
-      return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
-                             s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch_bf16<32>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, mask,
+                             dropout, form, s);
     case 64:
-      return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh, s0,
-                             s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch_bf16<64>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, mask,
+                             dropout, form, s);
     case 128:
-      return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
-                              s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch_bf16<128>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, mask,
+                              dropout, form, s);
     case 256:
-      return launch_bf16<256>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, thresh,
-                              s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+      return launch_bf16<256>(qb, kb, vb, bf, ob, lf, B, T, N, strides, scale, keep, mask,
+                              dropout, form, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

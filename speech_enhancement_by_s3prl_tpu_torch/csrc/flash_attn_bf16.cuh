@@ -1,7 +1,7 @@
 // Shared by B3's bf16 kernels on Hopper (flash_attn.cu: B3 fwd bf16;
-// flash_attn_bwd.cu: B3 bwd bf16): the tensor maps of head tiles, the
-// attention-dropout hash split into its per-row and per-element parts, and
-// the error code of a tensor map cuTensorMapEncodeTiled refuses.
+// flash_attn_bwd.cu: B3 bwd bf16): the tensor maps of head tiles, the key
+// bias, the aligned shared window, and the error code of a tensor map
+// cuTensorMapEncodeTiled refuses.
 #pragma once
 
 #include "flash_attn_common.cuh"
@@ -28,24 +28,6 @@ int encode_heads(CUtensorMap* map, const void* base, int B, int T, int N, long l
   const cuuint32_t box[4] = {(cuuint32_t)P::kCols, 1u, (cuuint32_t)rows, 1u};
   const int err = hopper::encode_bf16_4d(map, base, dims, strides, box, P::kSwizzle);
   return err ? kMapError + err : 0;
-}
-
-// keep_bit (flash_attn_common.cuh) in two parts, bit for bit: the term of
-// (head bn, query qi, salt s0) once a row, then each key's.
-__device__ __forceinline__ uint32_t hash_row(uint32_t bn, uint32_t qi, uint32_t s0) {
-  return (qi * flash::kPhi1) ^ (bn * flash::kPhi4) ^ s0;
-}
-
-__device__ __forceinline__ bool keep_at(uint32_t row, uint32_t ki, uint32_t s1,
-                                        uint32_t thresh) {
-  uint32_t h = row ^ (ki * flash::kPhi2);
-  h ^= h >> 16;
-  h *= flash::kPhi3;
-  h ^= h >> 13;
-  h ^= s1;
-  h *= flash::kPhi1;
-  h ^= h >> 16;
-  return h < thresh;
 }
 
 // The key bias of key t in batch row b: kbias[b * T + t], 0 where kbias is

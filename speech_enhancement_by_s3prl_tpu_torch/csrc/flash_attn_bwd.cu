@@ -92,15 +92,12 @@ flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ o
   }
 }
 
-// p and ds of one accumulator entry, from s and dp: query qi, key ki. Keys
+// p and ds of one accumulator entry, from s and dp, and its keep bit. Keys
 // >= T come with kb = -inf and queries >= T with lse = +inf, so p = 0 there
 // without a branch.
 __device__ __forceinline__ void p_and_ds(float s, float dp, float kb, float lse, float di,
-                                         uint32_t bn, int qi, int ki, uint32_t s0,
-                                         uint32_t s1, uint32_t thresh, int dropout, float& pd,
-                                         float& ds) {
+                                         bool kept, float& pd, float& ds) {
   const float p = expf(s + kb - lse);
-  const bool kept = !dropout || keep_bit(bn, (uint32_t)qi, (uint32_t)ki, s0, s1, thresh);
   pd = kept ? p : 0.f;
   ds = p * ((kept ? dp : 0.f) - di);
 }
@@ -128,15 +125,15 @@ constexpr int tile_smem_floats() {
   return 2 * 64 * (D + 4) + 2 * 2 * W * (D + 4) + 2 * 2 * W;
 }
 
-template <int D>
+// FORM: the mask form (flash_attn_common.cuh), drawn where dropout != 0
+template <int D, int FORM>
 __global__ void __launch_bounds__(kTileThreads, D <= 64 ? 2 : 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ kbias,
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ di, float* __restrict__ dk,
                       float* __restrict__ dv, int T, int N, long long sb, long long st,
-                      float scale, float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1,
-                      HeadKey key, int dropout, int vec) {
+                      float scale, float inv_keep, Mask mask, int dropout, int vec) {
   constexpr int LD = D + 4;
   constexpr int W = BwdTiles<D>::kRows;      // walked queries a stage
   constexpr int DO = BwdTiles<D>::kOut;      // dk / dv columns of this block
@@ -157,7 +154,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * sb + (long long)n * D;
   const long long ohead = (long long)b * T * H + (long long)n * D;  // contiguous tensors
   const long long bn_row = ((long long)b * N + n) * T;
-  const uint32_t bn = key.bn(b, n);
+  MaskRows<FORM> mrows(mask, b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -230,9 +227,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int qi = q0 + ql + (e & 1);
         float pd, ds;
+        const bool kept = !dropout || mrows.at(qi).keep(key_a + ((e & 2) ? 8 : 0));
         p_and_ds(st_acc[j][e], dpt_acc[j][e], (e & 2) ? kb_b : kb_a, (e & 1) ? ls.y : ls.x,
-                 (e & 1) ? dd.y : dd.x, bn, qi, key_a + ((e & 2) ? 8 : 0), s0, s1, thresh,
-                 dropout, pd, ds);
+                 (e & 1) ? dd.y : dd.x, kept, pd, ds);
         st_acc[j][e] = pd * inv_keep;
         dpt_acc[j][e] = ds * scale;
       }
@@ -287,14 +284,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int FORM>
 __global__ void __launch_bounds__(kTileThreads, D <= 64 ? 3 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ kbias,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq, int T, int N,
-                    long long sb, long long st, float scale, float inv_keep, uint32_t thresh,
-                    uint32_t s0, uint32_t s1, HeadKey key, int dropout, int vec) {
+                    long long sb, long long st, float scale, float inv_keep, Mask mask,
+                    int dropout, int vec) {
   constexpr int LD = D + 4;
   constexpr int W = BwdTiles<D>::kRows;  // walked keys a stage
   constexpr int DN = D / 8;
@@ -312,7 +309,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * sb + (long long)n * D;
   const long long ohead = (long long)b * T * H + (long long)n * D;
   const long long bn_row = ((long long)b * N + n) * T;
-  const uint32_t bn = key.bn(b, n);
+  MaskRows<FORM> mrows(mask, b, n);
 
   auto start = [&](int i) {
     float* w = walk_s + (i & 1) * kStage;
@@ -324,6 +321,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile<D>(do_s, dout + ohead, H, q0, T, inv_keep, vec);
   // this thread's accumulator rows: queries q_a and q_a + 8
   const int q_a = q0 + warp * 16 + g;
+  const MaskRow<FORM> mrow[2] = {mrows.at(q_a), mrows.at(q_a + 8)};
   const bool ok_a = q_a < T, ok_b = q_a + 8 < T;
   const float lse_a = ok_a ? lse[bn_row + q_a] : INFINITY;  // queries >= T: p = 0
   const float lse_b = ok_b ? lse[bn_row + q_a + 8] : INFINITY;
@@ -378,9 +376,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float pd, ds;
+        const bool kept = !dropout || mrow[e >> 1].keep(k0 + kl + (e & 1));
         p_and_ds(s_acc[j][e], dp_acc[j][e], (e & 1) ? kb.y : kb.x, (e & 2) ? lse_b : lse_a,
-                 (e & 2) ? di_b : di_a, bn, q_a + ((e & 2) ? 8 : 0), k0 + kl + (e & 1), s0,
-                 s1, thresh, dropout, pd, ds);
+                 (e & 2) ? di_b : di_a, kept, pd, ds);
         dp_acc[j][e] = ds;
       }
     }
@@ -425,8 +423,7 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kbias,
            const float* out, const float* dout, const float* lse, float* di, float* dq,
            float* dk, float* dv, int B, int T, int N, long long sb, long long st, float scale,
-           float inv_keep, uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key, int dropout,
-           cudaStream_t stream) {
+           float inv_keep, const Mask& mask, int dropout, int form, cudaStream_t stream) {
   cudaError_t err;
   const long long rows = (long long)B * T * N;
   const int warps = kThreads / 32;
@@ -437,26 +434,33 @@ int launch(const float* q, const float* k, const float* v, const float* kbias,
   // 16-byte tile loads where every row start is 16-byte aligned
   const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
                   sb % 4 == 0 && st % 4 == 0;
+  // without dropout the mask is not drawn: the hash instances serve
+  auto dkdv = flash_bwd_dkdv_kernel<D, kMaskHash>;
+  auto dq_kernel = flash_bwd_dq_kernel<D, kMaskHash>;
+  if (dropout && form == kMaskFlax) {
+    dkdv = flash_bwd_dkdv_kernel<D, kMaskFlax>;
+    dq_kernel = flash_bwd_dq_kernel<D, kMaskFlax>;
+  }
+  if (dropout && form == kMaskHiddenHash) {
+    dkdv = flash_bwd_dkdv_kernel<D, kMaskHiddenHash>;
+    dq_kernel = flash_bwd_dq_kernel<D, kMaskHiddenHash>;
+  }
   const size_t smem = sizeof(float) * tile_smem_floats<D>();
-  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return (int)err;
   // the dk/dv kernel's blockIdx.y also picks its columns (BwdTiles)
   dim3 grid_dkdv((T + kBK - 1) / kBK, N * (D / BwdTiles<D>::kOut), B);
-  flash_bwd_dkdv_kernel<D><<<grid_dkdv, kTileThreads, smem, stream>>>(
-      q, k, v, kbias, dout, lse, di, dk, dv, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      key, dropout, vec);
+  dkdv<<<grid_dkdv, kTileThreads, smem, stream>>>(q, k, v, kbias, dout, lse, di, dk, dv, T, N,
+                                                  sb, st, scale, inv_keep, mask, dropout, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return (int)err;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
-  flash_bwd_dq_kernel<D><<<grid, kTileThreads, smem, stream>>>(
-      q, k, v, kbias, dout, lse, di, dq, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-      key, dropout, vec);
+  dq_kernel<<<grid, kTileThreads, smem, stream>>>(q, k, v, kbias, dout, lse, di, dq, T, N, sb,
+                                                  st, scale, inv_keep, mask, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -645,7 +649,7 @@ __device__ __forceinline__ void load_resident(const CUtensorMap* const (&maps)[N
                       b);
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, int FORM>
 __global__ void __launch_bounds__(BwdCta<D>::kThreads, 1)
 flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -653,8 +657,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tdo,
                            const float* __restrict__ kbias, const float* __restrict__ lse,
                            const float* __restrict__ di, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int T, int N, uint32_t thresh, uint32_t s0,
-                           uint32_t s1, HeadKey key) {
+                           bf16* __restrict__ dv, int T, int N, Mask mask) {
   using P = hp::Panels<D>;
   using S = DkdvSmem<D>;
   using C = BwdCta<D>;
@@ -712,7 +715,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   const float kb[2] = {fb::key_bias(kbias, b, ka, T), fb::key_bias(kbias, b, ka + 8, T)};
   const uint32_t k_tile = sm.addr + S::kK + wg * 64 * P::kRowBytes;
   const uint32_t v_tile = sm.addr + S::kV + wg * 64 * P::kRowBytes;
-  const uint32_t bn = key.bn(b, n);
+  MaskRows<FORM> mrows(mask, b, n);
 
   float dk_acc[DO / 2], dv_acc[DO / 2];
 #pragma unroll
@@ -755,10 +758,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = __expf(st[4 * j + e] + kb[e >> 1] - ((e & 1) ? l2.y : l2.x));
-        const uint32_t qi = (uint32_t)(q0 + ql + (e & 1));
-        const bool kept =
-            !DROPOUT ||
-            fb::keep_at(fb::hash_row(bn, qi, s0), (uint32_t)(ka + 8 * (e >> 1)), s1, thresh);
+        const bool kept = !DROPOUT || mrows.at(q0 + ql + (e & 1)).keep(ka + 8 * (e >> 1));
         pd[e] = kept ? p : 0.f;
         ds[e] = p * ((kept ? dpt[4 * j + e] : 0.f) - ((e & 1) ? d2.y : d2.x));
       }
@@ -799,7 +799,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   }
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, int FORM>
 __global__ void __launch_bounds__(BwdCta<D>::kThreads, 1)
 flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
                          const __grid_constant__ CUtensorMap tdo,
@@ -808,7 +808,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
                          const __grid_constant__ CUtensorMap tks,
                          const float* __restrict__ kbias, const float* __restrict__ lse,
                          const float* __restrict__ di, bf16* __restrict__ dq, int T, int N,
-                         uint32_t thresh, uint32_t s0, uint32_t s1, HeadKey key) {
+                         Mask mask) {
   using P = hp::Panels<D>;
   using S = DqSmem<D>;
   using C = BwdCta<D>;
@@ -861,9 +861,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
   const float lse_r[2] = {qa < T ? lse[bn_row + qa] : INFINITY,  // queries >= T: p = 0
                           qa + 8 < T ? lse[bn_row + qa + 8] : INFINITY};
   const float di_r[2] = {qa < T ? di[bn_row + qa] : 0.f, qa + 8 < T ? di[bn_row + qa + 8] : 0.f};
-  const uint32_t bn = key.bn(b, n);
-  const uint32_t hrow[2] = {fb::hash_row(bn, (uint32_t)qa, s0),
-                            fb::hash_row(bn, (uint32_t)(qa + 8), s0)};
+  MaskRows<FORM> mrows(mask, b, n);
+  const MaskRow<FORM> mrow[2] = {mrows.at(qa), mrows.at(qa + 8)};
   const uint32_t q_tile = sm.addr + S::kQ + wg * 64 * P::kRowBytes;
   const uint32_t do_tile = sm.addr + S::kDo + wg * 64 * P::kRowBytes;
 
@@ -907,7 +906,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tqs,
       for (int e = 0; e < 4; ++e) {
         const float p = __expf(sc[4 * j + e] + ((e & 1) ? b2.y : b2.x) - lse_r[e >> 1]);
         const bool kept =
-            !DROPOUT || fb::keep_at(hrow[e >> 1], (uint32_t)(k0 + kl + (e & 1)), s1, thresh);
+            !DROPOUT || mrow[e >> 1].keep(k0 + kl + (e & 1));
         ds[e] = p * ((kept ? dp[4 * j + e] : 0.f) - di_r[e >> 1]);
       }
       dsa[j >> 1][2 * (j & 1)] = hp::pack_bf16(ds[0], ds[1]);
@@ -943,8 +942,8 @@ template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
                 const bf16* out, const bf16* dout, const float* lse, float* di, bf16* qs,
                 bf16* ks, bf16* dos, bf16* dq, bf16* dk, bf16* dv, int B, int T, int N,
-                const long long* strides, float scale, float keep, uint32_t thresh,
-                uint32_t s0, uint32_t s1, HeadKey key, int dropout, cudaStream_t stream) {
+                const long long* strides, float scale, float keep, const Mask& mask,
+                int dropout, int form, cudaStream_t stream) {
   cudaError_t err;
   const long long threads = (long long)B * T * N * (D / 8);
   flash_bwd_prep_bf16_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
@@ -971,25 +970,32 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kbias,
 
   const int smem_dkdv = DkdvSmem<D>::kBytes + 1024;  // + the alignment of the base
   const int smem_dq = DqSmem<D>::kBytes + 1024;
-  auto dkdv =
-      dropout ? flash_bwd_dkdv_bf16_kernel<D, true> : flash_bwd_dkdv_bf16_kernel<D, false>;
+  auto dkdv = flash_bwd_dkdv_bf16_kernel<D, false, kMaskHash>;
+  auto dq_kernel = flash_bwd_dq_bf16_kernel<D, false, kMaskHash>;
+  if (dropout && form == kMaskFlax) {
+    dkdv = flash_bwd_dkdv_bf16_kernel<D, true, kMaskFlax>;
+    dq_kernel = flash_bwd_dq_bf16_kernel<D, true, kMaskFlax>;
+  } else if (dropout && form == kMaskHiddenHash) {
+    dkdv = flash_bwd_dkdv_bf16_kernel<D, true, kMaskHiddenHash>;
+    dq_kernel = flash_bwd_dq_bf16_kernel<D, true, kMaskHiddenHash>;
+  } else if (dropout) {
+    dkdv = flash_bwd_dkdv_bf16_kernel<D, true, kMaskHash>;
+    dq_kernel = flash_bwd_dq_bf16_kernel<D, true, kMaskHash>;
+  }
   if ((err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem_dkdv)) != cudaSuccess)
     return (int)err;
   // the dk/dv kernel's blockIdx.y also picks its columns (BwdCta::kOut)
   dkdv<<<dim3((T + R - 1) / R, N * (D / BwdCta<D>::kOut), B), BwdCta<D>::kThreads, smem_dkdv,
          stream>>>(
-      m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, thresh, s0, s1, key);
+      m_k, m_v, m_qs, m_do, kbias, lse, di, dk, dv, T, N, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  auto dq_kernel =
-      dropout ? flash_bwd_dq_bf16_kernel<D, true> : flash_bwd_dq_bf16_kernel<D, false>;
   if ((err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem_dq)) != cudaSuccess)
     return (int)err;
   dq_kernel<<<dim3((T + R - 1) / R, N, B), BwdCta<D>::kThreads, smem_dq, stream>>>(
-      m_qs_res, m_do_res, m_k_walk, m_v_walk, m_ks, kbias, lse, di, dq, T, N, thresh, s0, s1,
-      key);
+      m_qs_res, m_do_res, m_k_walk, m_v_walk, m_ks, kbias, lse, di, dq, T, N, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1000,38 +1006,39 @@ extern "C" {
 
 // Kernel B3 bwd: three launches on `stream` of `device`; returns the first
 // launch error (0 on success); does not synchronise. di is (B, N, T) f32
-// scratch the caller allocates. D, thresh and dropout as for
-// flash_attn_fwd_f32; inv_keep = 1 / (1 - rate). dq, dk and dv must be
+// scratch the caller allocates. D, thresh, dropout and the mask (form, s0,
+// s1, chunk, batch0, head0, n_total) as for flash_attn_fwd_f32; inv_keep = 1 / (1 - rate). dq, dk and dv must be
 // 8-byte aligned (they are whole allocations).
 int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* kbias,
                        const void* out, const void* dout, const void* lse, void* di, void* dq,
                        void* dk, void* dv, int B, int T, int N, int D, long long sb,
                        long long st, float scale, float inv_keep, unsigned thresh,
                        unsigned s0, unsigned s1, int batch0, int head0, int n_total, int dropout,
-                       int device, void* stream) {
+                       int form, int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || N <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  const flash::Mask mask{s0, s1, thresh, chunk, T, flash::HeadKey{batch0, head0, n_total}};
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
       return launch<32>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
-                        m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                        m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, mask, dropout,
+                        form, s);
     case 64:
       return launch<64>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
-                        m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                        flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                        m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, mask, dropout,
+                        form, s);
     case 128:
       return launch<128>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
-                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                         flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, mask, dropout,
+                         form, s);
     case 256:
       return launch<256>(c(q), c(k), c(v), c(kbias), c(out), c(dout), c(lse), m(di), m(dq),
-                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, thresh, s0, s1,
-                         flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                         m(dk), m(dv), B, T, N, sb, st, scale, inv_keep, mask, dropout,
+                         form, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1052,10 +1059,12 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
                         int T, int N, int D, long long sbq, long long stq, long long sbk,
                         long long stk, long long sbv, long long stv, float scale, float keep,
                         unsigned thresh, unsigned s0, unsigned s1, int batch0, int head0,
-                        int n_total, int dropout, int device, void* stream) {
+                        int n_total, int dropout, int form, int chunk, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || N <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  const flash::Mask mask{s0, s1, thresh, chunk, T, flash::HeadKey{batch0, head0, n_total}};
   auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto m = [](void* p) { return static_cast<bf16*>(p); };
   auto cf = static_cast<const float*>(kbias);
@@ -1067,19 +1076,19 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
     case 32:
       return launch_bf16<32>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                             thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                             mask, dropout, form, s);
     case 64:
       return launch_bf16<64>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                              m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                             thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                             mask, dropout, form, s);
     case 128:
       return launch_bf16<128>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                               m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                              thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                              mask, dropout, form, s);
     case 256:
       return launch_bf16<256>(c(q), c(k), c(v), cf, c(out), c(dout), lf, df, m(qs), m(ks),
                               m(dos), m(dq), m(dk), m(dv), B, T, N, strides, scale, keep,
-                              thresh, s0, s1, flash::HeadKey{batch0, head0, n_total}, dropout, s);
+                              mask, dropout, form, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

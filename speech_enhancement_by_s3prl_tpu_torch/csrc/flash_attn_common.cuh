@@ -1,5 +1,5 @@
 // Shared by flash_attn.cu (kernel B3 fwd) and flash_attn_bwd.cu (B3 bwd): the
-// tile geometry, the attention-dropout hash and the staging of tiles from
+// tile geometry, the attention-dropout masks and the staging of tiles from
 // device memory into shared memory.
 #pragma once
 
@@ -8,6 +8,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "threefry.cuh"
 
 namespace flash {
 
@@ -37,21 +38,114 @@ struct HeadKey {
   }
 };
 
-// The keep bit of attention-probability dropout at (absolute head index
-// bn = HeadKey::bn(b, n), query qi, key ki): bit for bit the JAX
-// package's _dropout_mask (ops/pallas/attention_kernel.py:71-95). uint32_t
-// arithmetic wraps modulo 2^32 as jnp.uint32 does.
-__device__ __forceinline__ bool keep_bit(uint32_t bn, uint32_t qi, uint32_t ki,
-                                         uint32_t s0, uint32_t s1, uint32_t thresh) {
-  uint32_t h = (qi * kPhi1) ^ (ki * kPhi2) ^ (bn * kPhi4) ^ s0;
-  h ^= h >> 16;
-  h *= kPhi3;
-  h ^= h >> 13;
-  h ^= s1;
-  h *= kPhi1;
-  h ^= h >> 16;
-  return h < thresh;
-}
+// B3's mask forms (ops/cuda/attention_kernel.py, MASK_FORMS): the JAX flash
+// kernel's hash of (head, query, key); flax nn.Dropout's threefry draw over
+// the global (B, N, Tq, T) probabilities; the JAX hidden-state hash
+// (_hash_mask_apply) of the same tensor.
+enum MaskForm { kMaskHash = 0, kMaskFlax = 1, kMaskHiddenHash = 2 };
+
+// A launch's mask: the two words w0, w1 (the hash's salt; the flax form's key;
+// the hidden hash's salt; with chunk > 0 the chunked path's key, from which
+// chunk c's key fold_in(key, c) and, for the hidden hash, its salt
+// bits(fold_in(key, c), (2,)) derive), the keep threshold (32 bits for the
+// hashes, 23 for the flax form), chunk (0: one draw over all T queries; else
+// the queries a chunk, Tq = chunk), T keys and where the heads lie (HeadKey).
+struct Mask {
+  uint32_t w0, w1, thresh;
+  int chunk, T;
+  HeadKey key;
+};
+
+// The mask of one query row qi of head (b, n) in form FORM: keep(ki) for key
+// ki. The row's part of each form is computed once (the hash's row term, the
+// flax counter's row base, the hidden hash's row term).
+template <int FORM>
+struct MaskRow;
+
+template <>
+struct MaskRow<kMaskHash> {
+  uint32_t row, s1, thresh;
+  __device__ __forceinline__ MaskRow(const Mask& m, uint2, int b, int n, int qi, int)
+      : row(((uint32_t)qi * kPhi1) ^ (m.key.bn(b, n) * kPhi4) ^ m.w0), s1(m.w1),
+        thresh(m.thresh) {}
+  // the JAX kernel's _dropout_mask (ops/pallas/attention_kernel.py:71-95),
+  // the row's term once; uint32_t arithmetic wraps as jnp.uint32 does
+  __device__ __forceinline__ bool keep(int ki) const {
+    uint32_t h = row ^ ((uint32_t)ki * kPhi2);
+    h ^= h >> 16;
+    h *= kPhi3;
+    h ^= h >> 13;
+    h ^= s1;
+    h *= kPhi1;
+    h ^= h >> 16;
+    return h < thresh;
+  }
+};
+
+template <>
+struct MaskRow<kMaskFlax> {
+  uint2 k;
+  unsigned long long base;
+  uint32_t thresh;
+  // words: the draw's key (the chunk's); ql: the query within its chunk
+  __device__ __forceinline__ MaskRow(const Mask& m, uint2 words, int b, int n, int qi, int ql)
+      : k(words), thresh(m.thresh) {
+    const unsigned long long tq = m.chunk ? m.chunk : m.T;
+    const unsigned long long bn =
+        (unsigned long long)(m.key.batch0 + b) * m.key.n_total + m.key.head0 + n;
+    base = (bn * tq + (unsigned long long)ql) * (unsigned long long)m.T;
+  }
+  __device__ __forceinline__ bool keep(int ki) const {
+    return threefry::keep(k, base + (unsigned long long)ki, thresh);
+  }
+};
+
+template <>
+struct MaskRow<kMaskHiddenHash> {
+  uint32_t rb, rx, s1, thresh;
+  // words: the salt (the chunk's); the flat index within x[0] of the
+  // (N, Tq, T) probabilities, (n Tq + ql) T + ki, wraps modulo 2^32 as the
+  // JAX hash's uint32 iota
+  __device__ __forceinline__ MaskRow(const Mask& m, uint2 words, int b, int n, int, int ql)
+      : s1(words.y), thresh(m.thresh) {
+    const uint32_t tq = m.chunk ? m.chunk : m.T;
+    rb = (((uint32_t)(m.key.head0 + n) * tq + (uint32_t)ql) * (uint32_t)m.T) * kPhi1;
+    rx = ((uint32_t)(m.key.batch0 + b) * kPhi4) ^ words.x;
+  }
+  __device__ __forceinline__ bool keep(int ki) const {
+    uint32_t h = (rb + (uint32_t)ki * kPhi1) ^ rx;
+    h ^= h >> 16;
+    h *= kPhi2;
+    h ^= h >> 13;
+    h ^= s1;
+    h *= kPhi3;
+    h ^= h >> 16;
+    return h < thresh;
+  }
+};
+
+// The rows of one head (b, n): at(qi) is query qi's MaskRow. A chunked form
+// derives its chunk's words once a chunk and keeps them while the queries
+// asked for stay in that chunk.
+template <int FORM>
+struct MaskRows {
+  const Mask m;
+  int b, n, chunk_at;
+  uint2 words;
+  __device__ __forceinline__ MaskRows(const Mask& mask, int b_, int n_)
+      : m(mask), b(b_), n(n_), chunk_at(-1), words(make_uint2(mask.w0, mask.w1)) {}
+  __device__ __forceinline__ MaskRow<FORM> at(int qi) {
+    if (FORM == kMaskHash || m.chunk == 0) return MaskRow<FORM>(m, words, b, n, qi, qi);
+    const int c = qi / m.chunk;
+    if (c != chunk_at) {
+      chunk_at = c;
+      const uint2 key = threefry::fold_in(make_uint2(m.w0, m.w1), (uint32_t)c);
+      words = FORM == kMaskFlax ? key
+                                : make_uint2(threefry::bits(key, 0ull), threefry::bits(key, 1ull));
+    }
+    return MaskRow<FORM>(m, words, b, n, qi, qi - c * m.chunk);
+  }
+};
 
 // The block's resident 64-row tile of a (., T, .) operand at time rows t0 ..
 // t0 + 63 into dst[64][D + 4], times mul, rows >= T as zeros. 16 bytes a load

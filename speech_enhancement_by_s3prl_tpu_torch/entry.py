@@ -108,8 +108,8 @@ def build_mockingjay_train(config: Optional[TransformerConfig] = None,
     encoder (``config``, by default the full 6 x 768 x 12, FFN 3072, dropout
     0.1) and its spec head, trained from the upstream-input features (80-d
     log-mel + delta) with SISDR and BertAdam(4e-5, 0.07, 20000); the model
-    on ``device`` with weights drawn from ``generator``, dropout salts from
-    ``seed``."""
+    on ``device`` with weights drawn from ``generator``, and ``PRNGKey(seed)``
+    the step key of a train step given none."""
     use_full_fp32()
     pre = _preprocessor(delta=1)
     config = config or TransformerConfig(input_dim=pre.feat_dims()[0])

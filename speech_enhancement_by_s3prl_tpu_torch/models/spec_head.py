@@ -28,6 +28,7 @@ from .transformer import (
     TransformerConfig,
     TransformerEncoder,
     TransformerSpecPredictionHead,
+    as_scope,
 )
 
 
@@ -82,5 +83,8 @@ class Mockingjay(nn.Module):
 
     def forward(self, features, linears=None,
                 salts: Optional[SaltStream] = None) -> Tuple[torch.Tensor, Aux]:
-        raw, _ = self.spechead(self.mockingjay(features, salts))
+        # the JAX model is the apply's root and its encoder the child
+        # "mockingjay", whose scope keys the encoder's sites
+        scope = None if salts is None else as_scope(salts).child("mockingjay")
+        raw, _ = self.spechead(self.mockingjay(features, scope))
         return _domain(raw, self.log_domain, self.eps, self.activation)

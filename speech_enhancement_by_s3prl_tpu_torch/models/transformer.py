@@ -12,24 +12,44 @@ bridge of ``models/convert.py`` only renames. Initialization follows the
 JAX package: Dense weights normal(0, ``initializer_range``) and zero biases,
 LayerNorms at one and zero, drawn from a ``torch.Generator``.
 
-Attention routes. With attention dropout live (training at a rate above 0)
-the attention is ``ops/cuda/attention_kernel.flash_attention``: kernels B3
-fwd and B3 bwd on a CUDA tensor, their plain versions on a CPU tensor. At
-rate 0 (eval, frozen-upstream inference) it is
-``F.scaled_dot_product_attention``, the counterpart of the JAX default
-``jax.nn.dot_product_attention``.
+Dropout. Every mask is the JAX package's, drawn from the same key: a
+forward takes a :class:`SaltStream` (``utils/flax_rng.KeyStream``), whose
+key is JAX's ``rngs["dropout"]`` (the train step's ``fold_in(step key,
+step)``, ``runner/trainer.py``), and each module hands its sites flax's keys
+(``Scope``: the module path under the apply's root, SHA-1 folded, a count a
+scope; ``nn.Dropout`` children auto-named ``Dropout_<k>``). The routes read
+the JAX package's variables at each forward, as it reads them at trace time:
 
-Dropout. Every dropout site draws its mask from a salted integer hash: the
-attention probabilities from the hash of ``_dropout_mask`` inside B3, the
-hidden states from the hash of ``_hash_mask_apply`` (``hash_dropout``
-below), whose backward re-derives the mask from the salt. Each forward draws
-one salt (two uint32) per live site from a :class:`SaltStream`, in the JAX
-package's order: the input hidden dropout, then per layer the attention
-probabilities, the attention output and the FFN output. So the port's
-dropout stream equals the JAX package's under ``SE_ATTN_IMPL=flash
-SE_HIDDEN_DROPOUT_IMPL=hash`` given the same salts. It differs from the JAX
-default (flax ``nn.Dropout`` masks), which is another, equally valid
-Bernoulli(1 - rate) sample.
+==========================  ==================================================
+hidden states (13 sites)    ``SE_HIDDEN_DROPOUT_IMPL`` unset / ``flax``: flax
+                            ``nn.Dropout``, kernel D1 (``ops/cuda/
+                            dropout_kernel``) from the key of the module's
+                            ``Dropout_<k>``; ``hash``: the salted hash
+                            ``_hash_mask_apply``, its salt ``bits(key, (2,))``
+                            of the module's next key
+attention probabilities     ``SE_ATTN_IMPL=flash``: B3's hash (the Pallas
+(rate > 0, training)        kernel's), salt from the module's next key;
+                            ``SE_ATTN_DROPOUT_CHUNK`` > 0 (not ``naive``): the
+                            chunked path's per-chunk keys ``fold_in(key, i)``,
+                            hash masks unless ``SE_DROPOUT_IMPL=flax``;
+                            otherwise (``fused``, the default, or ``naive``)
+                            the explicit path's mask of the (B, N, T, T)
+                            probabilities: flax ``nn.Dropout`` (key of
+                            ``Dropout_0``) unless ``SE_DROPOUT_IMPL=hash``
+                            (the hidden-state hash of them). Each is a mask
+                            form of B3 (``ops/cuda/attention_kernel``)
+attention at rate 0 / eval  ``F.scaled_dot_product_attention`` (the function
+                            of ``jax.nn.dot_product_attention``)
+==========================  ==================================================
+
+Sites draw in the JAX package's order: the input, then per layer the
+probabilities, the attention output and the FFN output. A data-parallel
+rank's forward keys every mask on the global rows (``batch0``). Under a
+model axis (``--mesh DxM``, M > 1) the JAX package's ``SE_ATTN_IMPL=flash``
+falls back to its explicit path (its Pallas kernel does not shard heads); the
+port keeps B3's hash there, on the rank's heads (ROADMAP V9). ``salts=`` of a
+:class:`SaltStream` replays salts on the hash routes (a flax site refuses a
+replay).
 
 Compute dtype. Under ``compute_dtype`` bf16 the layers run the JAX
 encoder's ``nn.Dense(dtype=bf16)`` products: ``qkv``, the attention
@@ -38,7 +58,7 @@ weights and give bf16 results, the bias added to the rounded product in bf16
 (two roundings, as flax adds it); q, k and v are then bf16, so attention is
 B3 fwd / bwd bf16 (dropout live) or ``F.scaled_dot_product_attention`` on
 bf16 (rate 0); the exact-erf gelu and the hidden dropouts act on those bf16
-tensors (the same salts, drawn in the same order). The residual sums, every
+tensors (the same keys, drawn in the same order). The residual sums, every
 LayerNorm, ``spec_transform``, the position encoding, ``input_ln`` and the
 spectrogram prediction head stay f32. Parameters are f32 in either dtype.
 """
@@ -46,17 +66,21 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterable, Optional, Tuple
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.attention_kernel import flash_attention, keep_threshold, mul32
+from ..ops.cuda.attention_kernel import flash_attention, hidden_hash_keep
+from ..ops.cuda.dropout_kernel import threefry_dropout
+from ..utils.flax_rng import KeyStream, Scope, as_scope
 
-_MASK32 = 0xFFFFFFFF
 MAX_POSITIONS = 5001  # rows of the position-encoding table
+# the dropout stream of a forward; the name the train steps and tests use
+SaltStream = KeyStream
 
 
 @dataclasses.dataclass
@@ -114,66 +138,17 @@ def sinusoidal_position_encoding(max_len: int, hidden: int) -> np.ndarray:
     return table
 
 
-class SaltStream:
-    """The dropout salts of a forward pass, handed out in the order the
-    sites run. Drawn on the host from a ``torch.Generator`` seeded with
-    (``seed``, ``step``), so a resumed run draws the same masks and no value
-    is read back from the device; or replayed from an explicit list
-    ``salts`` (pairs of uint32), as a test replays the salts the JAX package
-    drew. ``generator`` also feeds the upstream's spec_aug positions.
-
-    ``batch0`` and ``global_batch`` place the forward's rows in a larger
-    batch: a data-parallel rank's rows are rows ``batch0`` .. of the
-    ``global_batch`` rows of the step (``parallel/mesh.py``). Every mask keys
-    on the global row (the hash dropouts add ``batch0`` to their batch index,
-    spec_aug draws for ``global_batch`` rows and keeps the rank's), so the
-    ranks together draw the masks of the single-process step on the global
-    batch, as the JAX package's GSPMD step does.
-
-    The CPU generator keeps only the low 32 bits of its seed, so (seed,
-    step) are first mixed into 32 bits by numpy's ``SeedSequence``."""
-
-    def __init__(self, seed: int = 0, step: int = 0,
-                 salts: Optional[Iterable[Tuple[int, int]]] = None, batch0: int = 0,
-                 global_batch: Optional[int] = None):
-        mixed = np.random.SeedSequence([int(seed) & _MASK32, int(step) & _MASK32])
-        self.generator = torch.Generator().manual_seed(int(mixed.generate_state(1)[0]))
-        self._replay = None if salts is None else iter(
-            [tuple(int(s) & _MASK32 for s in pair) for pair in salts])
-        self.drawn = 0
-        self.batch0 = int(batch0)
-        self.global_batch = global_batch
-
-    def __call__(self) -> Tuple[int, int]:
-        self.drawn += 1
-        if self._replay is None:
-            return tuple(torch.randint(0, 2 ** 32, (2,), generator=self.generator,
-                                       dtype=torch.int64).tolist())
-        try:
-            return next(self._replay)
-        except StopIteration:
-            raise ValueError(f"the replayed salts ran out at site {self.drawn}") from None
-
-
 def _hash_mask_apply(x: torch.Tensor, salt, rate: float, batch0: int = 0) -> torch.Tensor:
     """Hidden-state dropout by the salted hash of (flat index within x[0],
     leading index ``batch0`` + b): bit for bit the JAX package's
     ``_hash_mask_apply`` on a batch whose row b is row ``batch0`` + b."""
     keep = 1.0 - rate
-    s0, s1 = (int(s) & _MASK32 for s in salt)
     inner_n = math.prod(x.shape[1:])
     inner = torch.arange(inner_n, dtype=torch.int64, device=x.device).reshape(
         (1,) + tuple(x.shape[1:]))
     lead = torch.arange(batch0, batch0 + x.shape[0], dtype=torch.int64,
                         device=x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-    h = mul32(inner, 2654435761) ^ mul32(lead, 40503) ^ s0
-    h = h ^ (h >> 16)
-    h = mul32(h, 2246822519)
-    h = h ^ (h >> 13)
-    h = h ^ s1
-    h = mul32(h, 3266489917)
-    h = h ^ (h >> 16)
-    return torch.where(h < keep_threshold(rate), x / keep, torch.zeros_like(x))
+    return torch.where(hidden_hash_keep(inner, lead, salt, rate), x / keep, torch.zeros_like(x))
 
 
 class HashDropout(torch.autograd.Function):
@@ -196,14 +171,56 @@ def hash_dropout(x: torch.Tensor, rate: float, salt, batch0: int = 0) -> torch.T
     return HashDropout.apply(x, tuple(salt), rate, int(batch0))
 
 
-def hidden_dropout(x: torch.Tensor, rate: float, live: bool,
-                   salts: Optional[SaltStream]) -> torch.Tensor:
-    """Hidden-state dropout of one site; draws a salt only when live."""
+def _need(scope: Optional[Scope]) -> Scope:
+    if scope is None:
+        raise ValueError("dropout is live (training, rate > 0) but no SaltStream was given")
+    return scope
+
+
+def hidden_dropout(x: torch.Tensor, rate: float, live: bool, scope: Optional[Scope],
+                   index: int = 0) -> torch.Tensor:
+    """Hidden-state dropout of one site of the module whose scope is
+    ``scope``, as the JAX package's ``hidden_dropout`` routes it: under
+    ``SE_HIDDEN_DROPOUT_IMPL=hash`` the salted hash from the module's next key,
+    else flax ``nn.Dropout`` (D1) from the key of its ``index``-th
+    ``Dropout`` child. Draws only when live."""
     if not live or rate <= 0.0:
         return x
-    if salts is None:
-        raise ValueError("dropout is live (training, rate > 0) but no SaltStream was given")
-    return hash_dropout(x, rate, salts(), salts.batch0)
+    scope = _need(scope)
+    if os.environ.get("SE_HIDDEN_DROPOUT_IMPL", "flax") == "hash":
+        return hash_dropout(x, rate, scope.salt(), scope.batch0)
+    if rate >= 1.0:
+        return torch.zeros_like(x)  # flax draws no key at rate 1
+    return threefry_dropout(x, scope.dropout_key(index), rate, scope.batch0)
+
+
+def attention_chunk() -> int:
+    """``SE_ATTN_DROPOUT_CHUNK`` (0: the chunked path off)."""
+    return int(os.environ.get("SE_ATTN_DROPOUT_CHUNK", "0"))
+
+
+def attention_route(live: bool) -> str:
+    """The route of the JAX package's ``SelfAttention`` under its variables,
+    as it reads them (``SE_ATTN_IMPL``: fused by default, ``naive``,
+    ``flash``; ``SE_ATTN_DROPOUT_CHUNK``; ``SE_DROPOUT_IMPL``, read as hash
+    by default on the chunked path and as flax on the explicit one), with
+    ``live`` attention dropout: ``flash`` (B3's hash), ``chunked_flax`` /
+    ``chunked_hash`` (per-chunk keys), ``flax`` (the explicit path's
+    ``nn.Dropout``) or ``hidden_hash`` (the explicit path's hash of the
+    probabilities); without: ``sdpa`` (the function of the fused path), or
+    ``plain_named`` (the explicit path, its ``nn.Dropout`` at rate 0 taking a
+    name)."""
+    impl = os.environ.get("SE_ATTN_IMPL", "fused")
+    if live and impl == "flash":
+        return "flash"
+    if not live and impl != "naive":
+        return "sdpa"
+    if live and impl != "naive" and attention_chunk() > 0:
+        flax = os.environ.get("SE_DROPOUT_IMPL", "hash") == "flax"
+        return "chunked_flax" if flax else "chunked_hash"
+    if live and os.environ.get("SE_DROPOUT_IMPL") == "hash":
+        return "hidden_hash"
+    return "flax" if live else "plain_named"
 
 
 class Dense(nn.Linear):
@@ -251,12 +268,13 @@ class SelfAttention(nn.Module):
         self.output = dense(H, H, r, generator)
         self.tp = None
 
-    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None, seq=None):
+    def forward(self, hidden: torch.Tensor, salts=None, seq=None):
         c = self.config
         H, N = c.hidden_size, c.num_attention_heads
         D = H // N
         scale = 1.0 / math.sqrt(D)
         tp = self.tp
+        scope = as_scope(salts)
         x = hidden.to(self.compute_dtype)
         n_local = N if tp is None else N // tp.size
         if tp is not None:
@@ -265,15 +283,14 @@ class SelfAttention(nn.Module):
         if seq is not None:
             k, v = seq.gather_time(k), seq.gather_time(v)
         rate = c.attention_probs_dropout_prob
-        if self.training and rate > 0.0:
-            if salts is None:
-                raise ValueError("attention dropout is live but no SaltStream was given")
-            if seq is not None:
-                raise ValueError("the sequence-parallel forward is deterministic")
-            heads = {} if tp is None else {"head0": tp.index * n_local, "n_heads_total": N}
-            ctx = flash_attention(q, k, v, scale, rate, salts(), batch0=salts.batch0,
-                                  n_heads=n_local, **heads)
-        else:
+        live = self.training and rate > 0.0
+        if live and seq is not None:
+            raise ValueError("the sequence-parallel forward is deterministic")
+        route = attention_route(live)
+        # the explicit path's nn.Dropout takes the name Dropout_0 (drawing or
+        # not), so the attention output's hidden dropout is then Dropout_1
+        hidden_index = int(route in ("flax", "plain_named"))
+        if route in ("sdpa", "plain_named"):
             B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
 
             def split(x, T):
@@ -282,8 +299,27 @@ class SelfAttention(nn.Module):
             ctx = F.scaled_dot_product_attention(split(q, Tq), split(k, Tk), split(v, Tk),
                                                  scale=scale)
             ctx = ctx.transpose(1, 2).reshape(B, Tq, n_local * D)
+        elif route == "flax" and rate >= 1.0:
+            ctx = torch.zeros_like(q)  # flax drops everything, drawing no key
+        else:
+            scope = _need(scope)
+            heads = {} if tp is None else {"head0": tp.index * n_local, "n_heads_total": N}
+            if route == "flash":
+                # exactly the call of the flash route as it always was
+                ctx = flash_attention(q, k, v, scale, rate, scope.salt(), batch0=scope.batch0,
+                                      n_heads=n_local, **heads)
+            else:
+                if route == "flax":
+                    words, form, chunk = scope.dropout_key(0), "flax", 0
+                elif route == "hidden_hash":
+                    words, form, chunk = scope.salt(), "hidden_hash", 0
+                else:  # the chunked path: each chunk's key folds from this one
+                    form = "flax" if route == "chunked_flax" else "hidden_hash"
+                    words, chunk = scope.key(), attention_chunk()
+                ctx = flash_attention(q, k, v, scale, rate, words, batch0=scope.batch0,
+                                      n_heads=n_local, form=form, chunk=chunk, **heads)
         out = self.output(ctx) if tp is None else tp.row_parallel(self.output, ctx)
-        return hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
+        return hidden_dropout(out, c.hidden_dropout_prob, self.training, scope, hidden_index)
 
 
 class TransformerLayer(nn.Module):
@@ -308,9 +344,11 @@ class TransformerLayer(nn.Module):
         self.output_ln = nn.LayerNorm(H, eps=eps)
         self.ffn_tp = None
 
-    def forward(self, hidden: torch.Tensor, salts: Optional[SaltStream] = None, seq=None):
+    def forward(self, hidden: torch.Tensor, salts=None, seq=None):
         c = self.config
-        hidden = self.attention_ln(hidden + self.attention(hidden, salts, seq))
+        scope = as_scope(salts)
+        hidden = self.attention_ln(hidden + self.attention(
+            hidden, None if scope is None else scope.child("attention"), seq))
         tp = self.ffn_tp
         x = hidden.to(self.compute_dtype)
         if tp is None:
@@ -318,7 +356,7 @@ class TransformerLayer(nn.Module):
         else:
             out = tp.row_parallel(self.output,
                                   ACT2FN[c.hidden_act](self.intermediate(tp.copy_in(x))))
-        out = hidden_dropout(out, c.hidden_dropout_prob, self.training, salts)
+        out = hidden_dropout(out, c.hidden_dropout_prob, self.training, scope)
         return self.output_ln(hidden + out)
 
 
@@ -355,13 +393,16 @@ class TransformerEncoder(nn.Module):
                 self.add_module(f"layer_{i}",
                                 TransformerLayer(config, generator, compute_dtype))
 
-    def layers(self):
+    def layer_names(self):
         c = self.config
         if c.share_layer:
-            return [self.layer_shared] * c.num_hidden_layers
-        return [getattr(self, f"layer_{i}") for i in range(c.num_hidden_layers)]
+            return ["layer_shared"] * c.num_hidden_layers
+        return [f"layer_{i}" for i in range(c.num_hidden_layers)]
 
-    def forward(self, spec: torch.Tensor, salts: Optional[SaltStream] = None,
+    def layers(self):
+        return [getattr(self, name) for name in self.layer_names()]
+
+    def forward(self, spec: torch.Tensor, salts=None,
                 output_all_layers: bool = False, seq=None):
         c = self.config
         dr = max(1, c.downsample_rate)
@@ -373,10 +414,12 @@ class TransformerEncoder(nn.Module):
         t_local = hidden.shape[1]
         offset = 0 if seq is None else seq.index * t_local
         hidden = self.input_ln(hidden + self.pe[offset:offset + t_local])
-        hidden = hidden_dropout(hidden, c.hidden_dropout_prob, self.training, salts)
+        scope = as_scope(salts)
+        hidden = hidden_dropout(hidden, c.hidden_dropout_prob, self.training, scope)
         all_layers = []
-        for layer in self.layers():
-            hidden = layer(hidden, salts, seq)
+        for name in self.layer_names():
+            hidden = getattr(self, name)(hidden, None if scope is None else scope.child(name),
+                                         seq)
             all_layers.append(hidden)
         if output_all_layers:
             return torch.stack(all_layers, dim=0)

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import prng
 from .heads import normalize_compute_dtype
 from .transformer import (
     SaltStream,
@@ -30,28 +31,29 @@ from .transformer import (
 )
 
 
-def apply_spec_aug(feat: torch.Tensor, generator: torch.Generator, time_masks: int = 2,
-                   time_width: int = 30, freq_masks: int = 2,
-                   freq_width: int = 12, batch0: int = 0,
+def apply_spec_aug(feat: torch.Tensor, key, time_masks: int = 2, time_width: int = 30,
+                   freq_masks: int = 2, freq_width: int = 12, batch0: int = 0,
                    global_batch: Optional[int] = None) -> torch.Tensor:
     """SpecAugment-style time and frequency band masking of (B, T, D)
-    features, the band starts drawn per utterance from ``generator`` (a CPU
-    generator: the stream differs from the JAX package's, the band shapes do
-    not). Rows b of ``feat`` are rows ``batch0`` + b of a batch of
-    ``global_batch`` (a data-parallel rank's, ``SaltStream``): the starts are
+    features, the JAX package's ``apply_spec_aug`` from the same ``key`` (its
+    ``rngs["dropout"]``): ``split(key, 4)``, the time starts
+    ``randint(keys[0], (rows, time_masks), 0, max(T - time_width, 1))`` and
+    the frequency starts from ``keys[1]`` alike (``utils/prng.py``), each
+    band [start, start + width). Rows b of ``feat`` are rows ``batch0`` + b of
+    a batch of ``global_batch`` (a data-parallel rank's): the starts are
     drawn for the whole batch and the rank keeps its rows."""
     B, T, D = feat.shape
     rows = B if global_batch is None else int(global_batch)
+    keys = prng.split(key, 4)
 
-    def band(n, width, size):
-        starts = torch.randint(0, max(size - width, 1), (rows, n),
-                               generator=generator)[batch0:batch0 + B]
+    def band(k, n, width, size):
+        starts = prng.randint(k, (rows, n), 0, max(size - width, 1))[batch0:batch0 + B]
         pos = torch.arange(size)[None, None, :]
         s = starts[..., None]
         return ((pos >= s) & (pos < s + width)).any(dim=1)  # (B, size)
 
-    t_mask = band(time_masks, time_width, T)
-    f_mask = band(freq_masks, freq_width, D)
+    t_mask = band(keys[0], time_masks, time_width, T)
+    f_mask = band(keys[1], freq_masks, freq_width, D)
     keep = (~t_mask[:, :, None]) & (~f_mask[:, None, :])
     return feat * keep.to(device=feat.device, dtype=feat.dtype)
 
@@ -121,7 +123,7 @@ class UpstreamTransformer(nn.Module):
     def forward(self, features: torch.Tensor, salts: Optional[SaltStream] = None):
         opts = self.options
         if opts.spec_aug and self.training and salts is not None:
-            features = apply_spec_aug(features, salts.generator, batch0=salts.batch0,
+            features = apply_spec_aug(features, salts.key, batch0=salts.batch0,
                                       global_batch=salts.global_batch)
         use_all = opts.weighted_sum or opts.select_layer != -1
         out = self.encoder(features, salts if self.training else None,

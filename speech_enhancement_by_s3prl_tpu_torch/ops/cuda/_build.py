@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every source under csrc/, by name
 SOURCES = ("lstm_tm", "lstm_tm_cluster", "lstm_tm_bwd", "lstm_dw_bf16", "flash_attn",
            "flash_attn_bwd", "stft_fused", "stft_fft", "decode_ola", "decode_fft",
-           "lstm_bb_cluster")
+           "lstm_bb_cluster", "threefry_dropout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

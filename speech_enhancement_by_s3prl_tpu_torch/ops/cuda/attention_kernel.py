@@ -79,19 +79,41 @@ of their columns, because 16 rows x 256 columns of each a warp (f32), or 64 x
 Layout is the JAX kernel's: q, k, v are (B, T, N * D), straight from the fused
 QKV projection (views with a shared row stride are taken as they are), head n
 in columns n * D .. n * D + D - 1; ``kbias`` is (B, T) f32; ``salt`` is two
-uint32 as Python ints. The port's lse is (B, N, T) f32 (the JAX kernel's is
+uint32 as Python ints (a salt or a key, as the form takes it). The port's lse is (B, N, T) f32 (the JAX kernel's is
 (B, N / P, P, nj * bq), its head-grouped and block-padded form).
 
-Dropout keeps element (b, n, t_q, t_k) where the salted hash of (absolute head
-index (batch0 + b) * N_total + head0 + n, t_q, t_k) lies below
-``keep_threshold(rate)``: bit for bit the JAX kernel's ``_dropout_mask``, so
-both packages draw the same mask from the same salt, whatever the tiling.
-``batch0`` shifts the batch index so that a data-parallel shard keeps the
-unsharded mask stream; ``head0`` and ``n_heads_total`` (N_total, by default
-the launch's own N) place the launch's N heads at heads head0 .. head0 + N - 1
-of N_total, so that a tensor-parallel rank's heads draw the masks of those
-heads of the unsharded launch. ``head0`` counts true heads: the zero-padding
-of ``instance_width`` widens a head, it adds none.
+Dropout draws its mask in one of three forms (``form``, ``MASK_FORMS``; the
+kernels take it as a template parameter, ``csrc/flash_attn_common.cuh``),
+each the mask one of the JAX package's attention paths draws, bit for bit
+whatever the tiling:
+
+- ``"hash"`` (``SE_ATTN_IMPL=flash``): element (b, n, t_q, t_k) is kept where
+  the salted hash of (absolute head index bn = (batch0 + b) * N_total + head0
+  + n, t_q, t_k) lies below ``keep_threshold(rate)``: the JAX kernel's
+  ``_dropout_mask``, ``salt`` its two words;
+- ``"flax"`` (the explicit path's flax ``nn.Dropout``, JAX's default): the
+  threefry draw ``jax.random.bernoulli(key, 1 - rate)`` over the global (B,
+  N_total, Tq, T) probabilities, ``salt`` the key: element (bn, q, t_k) keyed
+  on its flat index (bn Tq + q) T + t_k in 64 bits (``csrc/threefry.cuh``,
+  ``utils/prng.py``);
+- ``"hidden_hash"`` (the explicit path under ``SE_DROPOUT_IMPL=hash``): the
+  hidden-state hash ``_hash_mask_apply`` of the same tensor (``hidden_hash_keep``:
+  flat index within x[0], (head0 + n) Tq + q) T + t_k, and batch row batch0 +
+  b), ``salt`` its salt.
+
+``chunk`` > 0 is the chunked path (``SE_ATTN_DROPOUT_CHUNK``): queries in
+chunks of ``chunk`` (Tq = chunk, q the query within its chunk on the padded
+query axis), chunk i keyed on ``fold_in(salt, i)`` (the flax form) or salted
+by ``bits(fold_in(salt, i), (2,))`` (the hidden hash), the chunk's words
+derived in the kernel. ``batch0`` shifts the batch index so that a
+data-parallel shard keeps the unsharded mask stream; ``head0`` and
+``n_heads_total`` (N_total, by default the launch's own N) place the launch's N
+heads at heads head0 .. head0 + N - 1 of N_total, so that a tensor-parallel
+rank's heads draw the masks of those heads of the unsharded launch. ``head0``
+counts true heads: the zero-padding of ``instance_width`` widens a head, it
+adds none. Every form counts the same products (``utils/costs``); the flax
+form costs a 20-round threefry block a logit on the CUDA cores, twice in the
+backward.
 
 A CPU tensor takes the plain versions. A CUDA tensor launches the kernel or
 raises; nothing falls back.
@@ -106,7 +128,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...utils import costs
+from ...utils import costs, prng
 from ._build import launch_args, load, raise_on
 
 PHI1 = 2654435761
@@ -127,6 +149,10 @@ def fwd_bf16_keys(d: int) -> int:
     return 32 if d == 256 else FWD_BF16_KEYS
 
 Salt = Tuple[int, int]
+# B3's mask forms (the module docstring), by their code in the C entries
+MASK_FORMS = ("hash", "flax", "hidden_hash")
+# elements of (B, N, T, T) a block of the plain versions' threefry masks takes
+_MASK_BLOCK = 1 << 24
 
 
 def keep_threshold(rate: float) -> int:
@@ -156,6 +182,22 @@ def dropout_keep_mask(bn, qi, ki, salt: Salt, rate: float) -> torch.Tensor:
     h = h ^ (h >> 13)
     h = h ^ s1
     h = mul32(h, PHI1)
+    h = h ^ (h >> 16)
+    return h < keep_threshold(rate)
+
+
+def hidden_hash_keep(inner, lead, salt: Salt, rate: float) -> torch.Tensor:
+    """The keep mask of the JAX package's hidden-state hash dropout
+    (``models/transformer.py::_hash_mask_apply``) at flat index ``inner``
+    within x[0] and leading index ``lead`` (int64 tensors that broadcast,
+    uint32 values)."""
+    s0, s1 = (int(s) & _MASK32 for s in salt)
+    h = mul32(inner, PHI1) ^ mul32(lead, PHI4) ^ s0
+    h = h ^ (h >> 16)
+    h = mul32(h, PHI2)
+    h = h ^ (h >> 13)
+    h = h ^ s1
+    h = mul32(h, PHI3)
     h = h ^ (h >> 16)
     return h < keep_threshold(rate)
 
@@ -203,14 +245,43 @@ def _padded_width(q, n_heads):
     return D, instance_width(D)
 
 
+def check_form(form: str, chunk: int) -> None:
+    if form not in MASK_FORMS:
+        raise ValueError(f"unknown mask form {form!r}; B3 draws {MASK_FORMS}")
+    if chunk < 0 or (chunk and form == "hash"):
+        raise ValueError(f"chunk {chunk} with the {form!r} mask (chunks: flax or hidden_hash)")
+
+
 def _full_mask(B, N, T, salt, rate, batch0, device, head0: int = 0,
-               n_total: Optional[int] = None) -> torch.Tensor:
+               n_total: Optional[int] = None, form: str = "hash",
+               chunk: int = 0) -> torch.Tensor:
     """The (B, N, T, T) keep mask of a launch on rows batch0 .. of heads
-    head0 .. head0 + N - 1 of ``n_total`` (None: N)."""
+    head0 .. head0 + N - 1 of ``n_total`` (None: N) in mask form ``form``
+    (the module docstring), ``chunk`` queries a chunk (0: one draw)."""
+    check_form(form, chunk)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     n_total = N if n_total is None else n_total
-    bn = ((batch0 + ar(B))[:, None] * n_total + head0 + ar(N)[None, :])[:, :, None, None]
-    return dropout_keep_mask(bn, ar(T)[:, None], ar(T)[None, :], salt, rate)
+    b = (batch0 + ar(B))[:, None, None, None]
+    n = (head0 + ar(N))[None, :, None, None]
+    if form == "hash":
+        return dropout_keep_mask(b * n_total + n, ar(T)[:, None], ar(T)[None, :], salt, rate)
+    C = chunk or T
+    ki = ar(T)[None, None, None, :]
+    out = torch.empty((B, N, T, T), dtype=torch.bool, device=device)
+    rows = max(1, _MASK_BLOCK // max(1, N * T * T))
+    for c0 in range(0, T, C):
+        ql = ar(min(C, T - c0))[None, None, :, None]
+        words = prng.fold_in(salt, c0 // C) if chunk else salt
+        if form == "hidden_hash" and chunk:
+            words = prng.host_bits(words, 2)  # the chunk's salt
+        for r0 in range(0, B, rows):
+            br = b[r0:r0 + rows]
+            if form == "flax":
+                keep = prng.bernoulli_of(words, 1.0 - rate, ((br * n_total + n) * C + ql) * T + ki)
+            else:
+                keep = hidden_hash_keep(((n * C + ql) * T + ki) & _MASK32, br, words, rate)
+            out[r0:r0 + rows, :, c0:c0 + C] = keep
+    return out
 
 
 def _bf16_scalar(x: float) -> float:
@@ -238,14 +309,15 @@ def _logits(q, k, scale, kbias, n_heads, matmul=torch.matmul):
 
 def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                         batch0: int = 0, *, n_heads: int,
-                        head0: int = 0, n_heads_total: Optional[int] = None):
+                        head0: int = 0, n_heads_total: Optional[int] = None,
+                        form: str = "hash", chunk: int = 0):
     """B3 fwd's plain version, step for step ``_fwd_kernel`` without the
     tiling: it materializes the (B, N, T, T) logits. Returns (out (B, T,
     N * D) in the input dtype, lse (B, N, T) f32). Under bf16 inputs it
     rounds where the JAX kernel rounds (the module docstring). ``head0`` and
-    ``n_heads_total`` place its heads in a larger launch (the module
-    docstring)."""
-    key = (batch0, head0, n_heads_total)
+    ``n_heads_total`` place its heads in a larger launch, ``form`` and
+    ``chunk`` name its mask (the module docstring)."""
+    key = (batch0, head0, n_heads_total, form, chunk)
     if q.dtype == torch.bfloat16:
         return _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, key, n_heads)
     logits = _logits(q, k, scale, kbias, n_heads)
@@ -261,9 +333,11 @@ def flash_attention_ref(q, k, v, scale: float, rate: float, salt: Salt, kbias=No
 
 
 def _mask(B, N, T, salt, rate, key, device):
-    """``_full_mask`` at ``key`` = (batch0, head0, n_heads_total)."""
-    batch0, head0, n_total = key
-    return _full_mask(B, N, T, salt, rate, batch0, device, head0, n_total)
+    """``_full_mask`` at ``key`` = (batch0, head0, n_heads_total, form,
+    chunk)."""
+    batch0, head0, n_total, form, chunk = key
+    named = {} if (form, chunk) == ("hash", 0) else {"form": form, "chunk": chunk}
+    return _full_mask(B, N, T, salt, rate, batch0, device, head0, n_total, **named)
 
 
 def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, key, n_heads):
@@ -285,7 +359,7 @@ def _flash_ref_bf16(q, k, v, scale, rate, salt, kbias, key, n_heads):
 def flash_fwd_bf16_model(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                          batch0: int = 0, *, n_heads: int,
                          head0: int = 0, n_heads_total: Optional[int] = None,
-                         keys: int = FWD_BF16_KEYS):
+                         keys: int = FWD_BF16_KEYS, form: str = "hash", chunk: int = 0):
     """B3 fwd bf16's rounding schedule in plain PyTorch: ``_flash_ref_bf16``'s
     roundings with the kernel's online softmax over tiles of ``keys`` keys.
     Per tile the running row maximum m takes the tile's logits, the row sum
@@ -298,8 +372,8 @@ def flash_fwd_bf16_model(q, k, v, scale: float, rate: float, salt: Salt, kbias=N
     B, T, _ = q.shape
     qs = _heads(_bf16(q.float() * _bf16_scalar(scale)), N)
     kh, vh = _heads(k.float(), N), _heads(v.float(), N)
-    mask = (_full_mask(B, N, T, salt, rate, batch0, q.device, head0, n_heads_total)
-            if rate > 0.0 else None)
+    mask = (_full_mask(B, N, T, salt, rate, batch0, q.device, head0, n_heads_total, form,
+                       chunk) if rate > 0.0 else None)
     m = torch.full((B, N, T, 1), -math.inf, device=q.device)
     l = torch.zeros((B, N, T, 1), device=q.device)
     acc = torch.zeros(qs.shape, device=q.device)
@@ -349,13 +423,14 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Te
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                             kbias=None, batch0: int = 0, *, n_heads: int, head0: int = 0,
-                            n_heads_total: Optional[int] = None, matmul=torch.matmul):
+                            n_heads_total: Optional[int] = None, matmul=torch.matmul,
+                            form: str = "hash", chunk: int = 0):
     """B3 bwd's plain version, step for step ``_bwd_kernel``: p from the
     saved lse, the same mask, do / keep. Returns (dq, dk, dv), each
     (B, T, N * D) in the input dtype. ``matmul`` computes the f32 version's
     five products (the tests pass ``matmul_tf32x3`` to model the kernel's
     arithmetic). Under bf16 inputs it rounds where the JAX kernel rounds."""
-    key = (batch0, head0, n_heads_total)
+    key = (batch0, head0, n_heads_total, form, chunk)
     if q.dtype == torch.bfloat16:
         return _flash_bwd_ref_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias, key,
                                    n_heads)
@@ -479,10 +554,10 @@ def _fwd_library():
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                       ctypes.c_uint)
     lib.flash_attn_fwd_f32.argtypes = ([p] * 6 + [i] * 4 + [ll] * 2 + [f, f, u, u, u]
-                                       + [i] * 5 + [p])
+                                       + [i] * 7 + [p])
     lib.flash_attn_fwd_f32.restype = i
     lib.flash_attn_fwd_bf16.argtypes = ([p] * 6 + [i] * 4 + [ll] * 6 + [f, f, u, u, u]
-                                       + [i] * 5 + [p])
+                                       + [i] * 7 + [p])
     lib.flash_attn_fwd_bf16.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -495,10 +570,10 @@ def _bwd_library():
     p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                       ctypes.c_uint)
     lib.flash_attn_bwd_f32.argtypes = ([p] * 11 + [i] * 4 + [ll] * 2 + [f, f, u, u, u]
-                                       + [i] * 5 + [p])
+                                       + [i] * 7 + [p])
     lib.flash_attn_bwd_f32.restype = i
     lib.flash_attn_bwd_bf16.argtypes = ([p] * 14 + [i] * 4 + [ll] * 6 + [f, f, u, u, u]
-                                       + [i] * 5 + [p])
+                                       + [i] * 7 + [p])
     lib.flash_attn_bwd_bf16.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
@@ -514,9 +589,14 @@ def _key_args(batch0, head0, n_heads_total, n_heads):
     return int(batch0), int(head0), n_total
 
 
-def _salt_args(rate, salt):
+def _mask_args(rate, salt, form, chunk):
+    """(threshold, the two words, dropout, form code, chunk) of a launch: the
+    hash forms test 32 bits against ``keep_threshold``, the flax form the top
+    23 against ``prng.keep_threshold23``."""
+    check_form(form, chunk)
     s0, s1 = (int(s) & _MASK32 for s in salt)
-    return keep_threshold(rate), s0, s1, int(rate > 0.0)
+    thresh = prng.keep_threshold23(1.0 - rate) if form == "flax" else keep_threshold(rate)
+    return thresh, s0, s1, int(rate > 0.0), MASK_FORMS.index(form), int(chunk)
 
 
 def _b3_label(direction):
@@ -531,23 +611,28 @@ def _b3_cost(backward):
 @costs.counted(_b3_label("fwd"), _b3_cost(False))
 def flash_attention_fwd(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                         batch0: int = 0, *, n_heads: int,
-                        head0: int = 0, n_heads_total: Optional[int] = None):
+                        head0: int = 0, n_heads_total: Optional[int] = None,
+                        form: str = "hash", chunk: int = 0):
     """B3 fwd: (out (B, T, N * D) in the input dtype, lse (B, N, T) f32).
     Kernel on a CUDA tensor (counted in ``flash_attention_fwd.launches``;
     tensor-core products in three TF32 passes), plain version on a CPU
     tensor. bf16 inputs go to ``flash_attention_fwd_bf16``. ``head0`` and
-    ``n_heads_total`` key the mask (the module docstring)."""
+    ``n_heads_total`` key the mask, ``form`` and ``chunk`` name it (the module
+    docstring)."""
     _check(q, k, v, kbias, n_heads)
     if q.dtype == torch.bfloat16:
         return flash_attention_fwd_bf16(q, k, v, scale, rate, salt, kbias, batch0,
-                                        n_heads=n_heads, head0=head0, n_heads_total=n_heads_total)
-    return _fwd(q, k, v, scale, rate, salt, kbias, (batch0, head0, n_heads_total), n_heads)
+                                        n_heads=n_heads, head0=head0, n_heads_total=n_heads_total,
+                                        form=form, chunk=chunk)
+    return _fwd(q, k, v, scale, rate, salt, kbias, (batch0, head0, n_heads_total, form, chunk),
+                n_heads)
 
 
 @costs.counted(_b3_label("fwd"), _b3_cost(False))
 def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbias=None,
                              batch0: int = 0, *, n_heads: int,
-                             head0: int = 0, n_heads_total: Optional[int] = None):
+                             head0: int = 0, n_heads_total: Optional[int] = None,
+                             form: str = "hash", chunk: int = 0):
     """B3 fwd bf16: bf16 q, k, v -> (out (B, T, N * D) bf16, lse (B, N, T)
     f32), rounded where the JAX kernel rounds with bf16 inputs. Kernel on a
     CUDA tensor (counted in ``flash_attention_fwd_bf16.launches``; TMA and
@@ -557,24 +642,26 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
         raise ValueError(f"flash_attention_fwd_bf16 takes bf16 q, k, v, got {q.dtype}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
-                                   head0=head0, n_heads_total=n_heads_total)
+                                   head0=head0, n_heads_total=n_heads_total, form=form,
+                                   chunk=chunk)
     D, width = _padded_width(q, n_heads)
     if width != D:
         out, lse = flash_attention_fwd_bf16(*(pad_heads(x, n_heads, width) for x in (q, k, v)),
                                             scale, rate, salt, kbias, batch0, n_heads=n_heads,
-                                            head0=head0, n_heads_total=n_heads_total)
+                                            head0=head0, n_heads_total=n_heads_total, form=form,
+                                            chunk=chunk)
         return unpad_heads(out, n_heads, D), lse
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     out = torch.empty((B, T, N * D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out, lse
-    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    thresh, s0, s1, *mask = _mask_args(rate, salt, form, chunk)
     lib = _fwd_library()
     err = lib.flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, T, N, D, *strides, _bf16_scalar(scale), 1.0 - rate,
-        thresh, s0, s1, *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
+        thresh, s0, s1, *_key_args(batch0, head0, n_heads_total, N), *mask, *launch_args(q))
     raise_on(err, "flash_attention_fwd_bf16", lib.flash_attn_error_string, B=B, T=T, N=N,
              D=D)
     flash_attention_fwd_bf16.launches += 1
@@ -582,10 +669,11 @@ def flash_attention_fwd_bf16(q, k, v, scale: float, rate: float, salt: Salt, kbi
 
 
 def _fwd(q, k, v, scale, rate, salt, kbias, key, n_heads):
-    batch0, head0, n_heads_total = key
+    batch0, head0, n_heads_total, form, chunk = key
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
-                                   head0=head0, n_heads_total=n_heads_total)
+                                   head0=head0, n_heads_total=n_heads_total, form=form,
+                                   chunk=chunk)
     D, width = _padded_width(q, n_heads)
     if width != D:
         out, lse = _fwd(*(pad_heads(x, n_heads, width) for x in (q, k, v)), scale, rate, salt,
@@ -596,12 +684,12 @@ def _fwd(q, k, v, scale, rate, salt, kbias, key, n_heads):
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out, lse
-    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    thresh, s0, s1, *mask = _mask_args(rate, salt, form, chunk)
     lib = _fwd_library()
     err = lib.flash_attn_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 - rate, thresh, s0, s1,
-        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
+        *_key_args(batch0, head0, n_heads_total, N), *mask, *launch_args(q))
     raise_on(err, "flash_attention_fwd", lib.flash_attn_error_string, B=B, T=T, N=N, D=D)
     flash_attention_fwd.launches += 1
     return out, lse
@@ -621,7 +709,8 @@ def _check_bwd(q, k, v, out, lse, dout, kbias, n_heads):
 @costs.counted(_b3_label("bwd"), _b3_cost(True))
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                         kbias=None, batch0: int = 0, *, n_heads: int,
-                        head0: int = 0, n_heads_total: Optional[int] = None):
+                        head0: int = 0, n_heads_total: Optional[int] = None,
+                        form: str = "hash", chunk: int = 0):
     """B3 bwd: the forward's inputs, out, lse and the cotangent ``dout`` ->
     (dq, dk, dv), each (B, T, N * D) in the input dtype. Kernel on a CUDA
     tensor (one count in ``flash_attention_bwd.launches`` for its three
@@ -629,20 +718,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     same inputs give the same bits), plain version on a CPU tensor. bf16
     inputs go to ``flash_attention_bwd_bf16``."""
     _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
+    heads = dict(n_heads=n_heads, head0=head0, n_heads_total=n_heads_total, form=form,
+                 chunk=chunk)
     if q.dtype == torch.bfloat16:
         return flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                        batch0, n_heads=n_heads, head0=head0,
-                                        n_heads_total=n_heads_total)
+                                        batch0, **heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                       batch0, n_heads=n_heads, head0=head0,
-                                       n_heads_total=n_heads_total)
+                                       batch0, **heads)
     D, width = _padded_width(q, n_heads)
     if width != D:
         return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd(
             *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
-            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
-            n_heads=n_heads, head0=head0, n_heads_total=n_heads_total))
+            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0, **heads))
     B, T, N, D, sb, st, kb = _kernel_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs contiguous out, dout and lse")
@@ -651,13 +739,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
     if B == 0 or T == 0:
         return dq, dk, dv
     di = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
-    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    thresh, s0, s1, *mask = _mask_args(rate, salt, form, chunk)
     lib = _bwd_library()
     err = lib.flash_attn_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, T, N, D, sb, st, float(scale), 1.0 / (1.0 - rate), thresh, s0, s1,
-        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
+        *_key_args(batch0, head0, n_heads_total, N), *mask, *launch_args(q))
     raise_on(err, "flash_attention_bwd", lib.flash_attn_bwd_error_string, B=B, T=T, N=N, D=D)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -666,7 +754,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, rate: float, salt
 @costs.counted(_b3_label("bwd"), _b3_cost(True))
 def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float, salt: Salt,
                              kbias=None, batch0: int = 0, *, n_heads: int,
-                             head0: int = 0, n_heads_total: Optional[int] = None):
+                             head0: int = 0, n_heads_total: Optional[int] = None,
+                             form: str = "hash", chunk: int = 0):
     """B3 bwd bf16: bf16 q, k, v, out and ``dout``, f32 lse -> (dq, dk, dv),
     each (B, T, N * D) bf16, rounded where the JAX kernel rounds with bf16
     inputs. Kernel on a CUDA tensor (one count in
@@ -677,16 +766,16 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
     _check_bwd(q, k, v, out, lse, dout, kbias, n_heads)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd_bf16 takes bf16 q, k, v, got {q.dtype}")
+    heads = dict(n_heads=n_heads, head0=head0, n_heads_total=n_heads_total, form=form,
+                 chunk=chunk)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale, rate, salt, kbias,
-                                       batch0, n_heads=n_heads, head0=head0,
-                                       n_heads_total=n_heads_total)
+                                       batch0, **heads)
     D, width = _padded_width(q, n_heads)
     if width != D:
         return tuple(unpad_heads(g, n_heads, D) for g in flash_attention_bwd_bf16(
             *(pad_heads(x, n_heads, width) for x in (q, k, v, out)), lse,
-            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0,
-            n_heads=n_heads, head0=head0, n_heads_total=n_heads_total))
+            pad_heads(dout, n_heads, width), scale, rate, salt, kbias, batch0, **heads))
     B, T, N, D, (q, k, v), strides, kb = _bf16_layout(q, k, v, kbias, n_heads)
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_bf16 needs contiguous out, dout and lse")
@@ -696,14 +785,14 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dout, scale: float, rate: float,
     if B == 0 or T == 0:
         return dq, dk, dv
     di = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
-    thresh, s0, s1, dropout = _salt_args(rate, salt)
+    thresh, s0, s1, *mask = _mask_args(rate, salt, form, chunk)
     lib = _bwd_library()
     err = lib.flash_attn_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kb is None else kb.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(), qs.data_ptr(),
         ks.data_ptr(), dos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, N, D,
         *strides, _bf16_scalar(scale), 1.0 - rate, thresh, s0, s1,
-        *_key_args(batch0, head0, n_heads_total, N), dropout, *launch_args(q))
+        *_key_args(batch0, head0, n_heads_total, N), *mask, *launch_args(q))
     raise_on(err, "flash_attention_bwd_bf16", lib.flash_attn_bwd_error_string, B=B, T=T, N=N,
              D=D)
     flash_attention_bwd_bf16.launches += 1
@@ -720,8 +809,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, scale, rate, salt, batch0, n_heads, head0=0,
-                n_heads_total=None):
-        heads = dict(n_heads=n_heads, head0=head0, n_heads_total=n_heads_total)
+                n_heads_total=None, form="hash", chunk=0):
+        heads = dict(n_heads=n_heads, head0=head0, n_heads_total=n_heads_total, form=form,
+                     chunk=chunk)
         out, lse = flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, **heads)
         ctx.save_for_backward(q, k, v, out, lse, kbias)
         ctx.args = (scale, rate, tuple(int(s) for s in salt), batch0, heads)
@@ -733,22 +823,25 @@ class FlashAttention(torch.autograd.Function):
         scale, rate, salt, batch0, heads = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), scale, rate,
                                          salt, kbias, batch0, **heads)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, scale: float, rate: float = 0.0, salt: Salt = (0, 0),
                     kbias: Optional[torch.Tensor] = None, batch0: int = 0, *, n_heads: int,
-                    head0: int = 0, n_heads_total: Optional[int] = None):
+                    head0: int = 0, n_heads_total: Optional[int] = None,
+                    form: str = "hash", chunk: int = 0):
     """Attention over (B, T, N * D) q, k, v -> (B, T, N * D), with dropout
-    of the attention probabilities at ``rate`` from ``salt``, the masks keyed
-    on rows ``batch0`` .. and heads ``head0`` .. of ``n_heads_total``. When a
-    gradient is needed this is ``FlashAttention`` (B3 fwd now, B3 bwd in the
-    backward pass); otherwise B3 fwd alone."""
+    of the attention probabilities at ``rate`` from ``salt`` (a salt or a
+    key, as ``form`` takes it), the masks keyed on rows ``batch0`` .. and
+    heads ``head0`` .. of ``n_heads_total``. When a gradient is needed this
+    is ``FlashAttention`` (B3 fwd now, B3 bwd in the backward pass);
+    otherwise B3 fwd alone."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, kbias, scale, rate, salt, batch0, n_heads, head0,
-                                    n_heads_total)
+                                    n_heads_total, form, chunk)
     return flash_attention_fwd(q, k, v, scale, rate, salt, kbias, batch0, n_heads=n_heads,
-                               head0=head0, n_heads_total=n_heads_total)[0]
+                               head0=head0, n_heads_total=n_heads_total, form=form,
+                               chunk=chunk)[0]
 
 
 # kernel launches since the last reset (chip_smoke.py reads them to show that

@@ -535,12 +535,13 @@ def broadcast_params(params, mesh: Mesh):
 
 
 def make_parallel_train_step(builder, mesh: Mesh, state):
-    """(step, state): ``step(state, wavs, lengths)`` takes the global batch
-    on the rank's device and runs ``builder.train_step`` on this rank's
-    rows, with the step's salts keyed on the global rows and the ranks'
-    losses and gradients combined (``StepReduce``). The stats are the global
-    ones. ``step(..., salts=pairs)`` replays the step's salts from a list (as a
-    test replays those the JAX package drew) in place of (seed, step).
+    """(step, state): ``step(state, wavs, lengths, rng=None)`` takes the
+    global batch on the rank's device and runs ``builder.train_step`` on this
+    rank's rows, with the step's global key (``rng``, the JAX step's argument;
+    every rank the same) and the masks keyed on the global rows, and the
+    ranks' losses and gradients combined (``StepReduce``). The stats are the
+    global ones. ``step(..., salts=pairs)`` replays the step's salts from a
+    list (as a test replays those the JAX package drew) in place of the key.
 
     Under a model axis the step trains ``step.tp.model``, a sharded copy of
     ``builder.model`` (``TensorParallel``), and the returned state holds its
@@ -548,6 +549,7 @@ def make_parallel_train_step(builder, mesh: Mesh, state):
     ``step.tp.gather_into`` brings it the step's (``step.tp`` is None
     without a model axis)."""
     from ..models.transformer import SaltStream
+    from ..runner.trainer import step_key
 
     broadcast_params(state.params, mesh)
     tp, train_builder = None, builder
@@ -557,10 +559,10 @@ def make_parallel_train_step(builder, mesh: Mesh, state):
         train_builder = dataclasses.replace(builder, model=tp.model)
     reduce = StepReduce(mesh, () if tp is None else tp.sharded)
 
-    def step(st, wavs, lengths, salts=None):
+    def step(st, wavs, lengths, salts=None, rng=None):
         start, _ = rank_span(wavs.shape[0], mesh)
-        salts = SaltStream(builder.seed, st.host_step, salts=salts, batch0=start,
-                           global_batch=wavs.shape[0])
+        salts = SaltStream(salts=salts, batch0=start, global_batch=wavs.shape[0],
+                           key=step_key(builder.seed if rng is None else rng, st.host_step))
         return train_builder.train_step(st, rank_rows(wavs, mesh), rank_rows(lengths, mesh),
                                         salts=salts, reduce=reduce)
 

@@ -20,7 +20,11 @@ splits.
   a thread and is drained at ``sampler_collect_step``, restarted at
   ``sampler_refresh_step``; with ``--active_sampling`` the step trains on a
   batch drawn from the kept samples of the last ``active_refresh_step`` steps,
-  weighted by case (``active_buffer_weights``).
+  weighted by case (``active_buffer_weights``). The keys are the JAX
+  Runner's: ``PRNGKey(--seed)`` at the start (a resume starts there too, as
+  the JAX checkpoint stores no key), split in three for the sync sampler's
+  two scoring calls (query, candidates) and in two for the train step, in
+  that order each step, on every rank alike (``utils/prng.py``).
 - ``evaluate``: reseeds the random modules and returns the per-batch mean of
   means. The eval step scores the metrics that have a batched version on
   the device (``metrics.device_batch_metrics``); PESQ moves to the host, one
@@ -101,6 +105,7 @@ from ..parallel.mesh import (
     make_parallel_train_step,
     parse_mesh,
 )
+from ..utils import prng
 from ..utils.plotting import boxplot_png
 from ..utils.profiling import trace
 from . import checkpoint as ckpt_lib
@@ -171,8 +176,8 @@ class Runner:
         self.upstream_model = self.upstream_model2 = None
         self.pseudo_clean = self.pseudo_noise = None
         self.sampler: Optional[AsyncSampler] = None
-        # the dropout salts of the sampler's scoring, from --seed
-        self.score_generator = torch.Generator().manual_seed(int(args.seed))
+        # the JAX Runner's key chain (the module docstring)
+        self.rng = prng.PRNGKey(int(args.seed))
         self.expdir = expdir
         self.global_step = 1
         self.log = ScalarLog(expdir) if self.is_main else _Silent()
@@ -229,7 +234,7 @@ class Runner:
             seed=int(self.args.seed),
         )
         self.state = self.builder.init_state()
-        self.train_step = self.builder.train_step
+        self.train_step = self._keyed(self.builder.train_step)
         self._load_pretrained_head_weights()
         # --dckpt is Mockingjay's pretraining checkpoint, read above; for
         # every other head it is a warm start
@@ -242,7 +247,18 @@ class Runner:
             self.train_step, self.state = make_parallel_train_step(
                 self.builder, self.mesh, self.state)
             self.tp = self.train_step.tp
+            self.train_step = self._keyed(self.train_step)
             self.eval_step_parallel = make_parallel_eval_step(self.builder, self.mesh)
+
+    def _keyed(self, step):
+        """``step`` taking the next step key of the Runner's chain:
+        ``self.rng, key = split(self.rng)`` a call, as the JAX Runner splits
+        before each train step."""
+        def keyed(state, wavs, lengths):
+            self.rng, key = prng.split(self.rng)
+            return step(state, wavs, lengths, rng=key)
+
+        return keyed
 
     def _profiled(self):
         """The train step's context: under ``--profile``, at ``profile_step``,
@@ -564,6 +580,9 @@ class Runner:
                         for key, samples in self.sampler.collect().items():
                             active_samples[self.global_step][key] += samples
 
+                if sync:
+                    # every rank splits, so that the ranks' step keys agree
+                    self.rng, q_rng, t_rng = prng.split(self.rng, 3)
                 if sync and self.is_main:
                     try:
                         q_lengths, q_wavs, _ = next(query_iter)
@@ -571,9 +590,8 @@ class Runner:
                         query_iter = iter(queryloader)
                         q_lengths, q_wavs, _ = next(query_iter)
                     q_scores = scoring(self.downstream_model, q_wavs, q_lengths, mean=True,
-                                       generator=self.score_generator)
-                    t_scores = scoring(self.downstream_model, wavs, lengths,
-                                       generator=self.score_generator)
+                                       rng=q_rng)
+                    t_scores = scoring(self.downstream_model, wavs, lengths, rng=t_rng)
                     match = matching(q_scores, t_scores).cpu().numpy()
                     is_match = np.nonzero(match > 0)[0]
                     matched = wavs[torch.from_numpy(is_match).to(wavs.device)].cpu().numpy()

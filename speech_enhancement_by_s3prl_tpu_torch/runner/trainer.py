@@ -9,10 +9,13 @@ upstream's parameters are never in the gradient; it runs in train mode, its
 dropout live, only when it is ``trainable`` (a ``--dropout`` override) and
 the head is training.
 
-Dropout masks come from salts (``models/transformer.SaltStream``) drawn on
-the host from (``seed``, the step) for each train step, so a resumed run
-draws the masks the uninterrupted run would have drawn, and no value is read
-back from the device.
+Dropout masks and spec_aug bands come from JAX's key chain, on the host:
+the train step takes the step's key ``rng`` (the JAX step's argument; the
+Runner splits one from its ``PRNGKey(--seed)`` a step) and folds in the
+step count, ``fold_in(rng, step)``, which is the forward's ``rngs["dropout"]``
+(``models/transformer.SaltStream``, ``utils/prng.py``). So the port draws the
+JAX package's masks from the same seed, and no value is read back from the
+device.
 
 The train step runs the six-feature context, the upstream, the head, the
 objective and its backward, the global-norm clip, the optimizer update and
@@ -54,6 +57,15 @@ from torch import nn
 from ..metrics import batch_scores, check_metrics, full_f32
 from ..models.transformer import SaltStream
 from ..ops.audio import length_masks, masked_normalize_decibel
+from ..utils import prng
+
+
+def step_key(rng, step: int) -> prng.Key:
+    """The forward's dropout key of a train step: ``fold_in(rng, step)``, the
+    JAX step's ``rngs["dropout"]``; ``rng`` a key, or a seed for
+    ``PRNGKey(seed)``."""
+    key = prng.PRNGKey(rng) if isinstance(rng, int) else rng
+    return prng.fold_in(key, int(step))
 
 
 @dataclasses.dataclass
@@ -61,8 +73,8 @@ class TrainState:
     """``params``: the model's parameters by ``state_dict`` name (the
     module's own tensors, updated in place); ``opt_state``: the optimizer's
     state dict; ``step``: the global step, a 0-d int32 tensor;
-    ``host_step``: the same count on the host, which seeds the dropout
-    salts."""
+    ``host_step``: the same count on the host, which the dropout key folds
+    in."""
 
     params: Dict[str, torch.Tensor]
     opt_state: dict
@@ -142,7 +154,7 @@ class StepBuilder:
     grad_clip: float = 1.0
     eval_metrics: Tuple[str, ...] = ("sisdr",)  # scored on the device
     sample_rate: int = 16000
-    seed: int = 0                   # with the step, seeds the dropout salts
+    seed: int = 0                   # PRNGKey(seed): the step key when none is given
 
     def __post_init__(self):
         if not (self.from_rawfeature or self.from_waveform) and self.upstream is None:
@@ -177,17 +189,20 @@ class StepBuilder:
 
     # -- train ----------------------------------------------------------
     def train_step(self, state: TrainState, wavs: torch.Tensor, lengths: torch.Tensor,
-                   salts: Optional[SaltStream] = None, reduce=None):
+                   salts: Optional[SaltStream] = None, reduce=None,
+                   rng: Optional[prng.Key] = None):
         """One update. Returns (state, {'loss', 'grad_norm', 'skipped'}),
-        the stats as device tensors (the caller reads them). ``salts``
-        replaces the step's own ``SaltStream(seed, state.host_step)``.
+        the stats as device tensors (the caller reads them). ``rng``: the
+        step's key, JAX's ``train_step`` argument (None: ``PRNGKey(seed)``);
+        the forward's dropout key is ``fold_in(rng, state.host_step)``.
+        ``salts`` replaces that stream (a replay of salts, or another key).
         ``reduce`` (``parallel/mesh.StepReduce``): the batch is a rank's rows,
         and the update is the global batch's (the module docstring)."""
         ctx = make_context(
             self.preprocessor, wavs, lengths, self.channel_inp, self.channel_tar
         )
         if salts is None:
-            salts = SaltStream(self.seed, state.host_step)
+            salts = SaltStream(key=step_key(self.seed if rng is None else rng, state.host_step))
         if reduce is not None:
             ctx["reduce_max"] = reduce.max
         names = list(state.params)

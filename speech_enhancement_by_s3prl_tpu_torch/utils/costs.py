@@ -46,7 +46,7 @@ from a carried state launch through ctypes) or, as ``torch.library`` ops
 kernel's wrapper opens ``kernel(name, formula, ...)`` around its body: inside
 a count, the formula of the function the kernel computes (``lstm_cost``,
 ``lstm_bwd_cost``, ``dw_bf16_cost``, ``lstm_fused_cost``, ``attention_cost``,
-``stft_cost``, ``decode_cost``), keyed on shapes, dtypes and stream form, is
+``stft_cost``, ``decode_cost``, ``dropout_cost``), keyed on shapes, dtypes and stream form, is
 added once, and no op dispatched inside is counted. The count is the same
 whether the card runs the kernel or the CPU its plain version, and whichever
 route serves it.
@@ -241,6 +241,19 @@ def decode_cost(rows, n_frames, n_fft, hop) -> Cost:
     return Cost({"other": flops}, nbytes)
 
 
+# integer operations a threefry2x32 block takes (2 + 20 rounds of add, rotate,
+# xor + 5 key injections of 2 adds + 5 round constants), plus the fold of its
+# two words, the keep test and the select
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 3 + 4
+
+
+def dropout_cost(n, itemsize) -> Cost:
+    """D1 on ``n`` elements: x read and y written once; a threefry block, the
+    keep test and one division an element on the CUDA cores, counted at the
+    f32 rate (the card's integer rate is not in its data sheet's table)."""
+    return Cost({"other": n * (THREEFRY_OPS + 1)}, 2 * n * itemsize)
+
+
 # -- the bounds chip_smoke.py prints, read from the formulas ---------------
 
 def lstm_bound(B, T, H, products=1, extra_streams=0, D=0, peak=PEAK_F32):
@@ -421,6 +434,14 @@ def b2_bwd_call_cost(xw, hs, h_bf16=False) -> Cost:
 def dw_bf16_call_cost(hs) -> Cost:
     return dw_bf16_cost(*hs.shape)
 
+
+def dropout_call_cost(x) -> Cost:
+    return dropout_cost(x.numel(), x.element_size())
+
+
+def dropout_bound(n, itemsize):
+    """D1 on ``n`` elements of ``itemsize`` bytes."""
+    return bound_of(dropout_cost(n, itemsize))
 
 def attention_call_cost(q, n_heads, backward=False) -> Cost:
     B, T, HD = q.shape

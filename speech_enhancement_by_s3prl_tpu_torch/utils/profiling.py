@@ -26,7 +26,7 @@
   ops nested in it on its thread.
 - ``report(tables, steps)`` prints the tables as the JAX script does.
 - ``hand_written_launches(rows)`` counts the launches of each kernel of
-  this package (B1 ... B7) in a table's rows.
+  this package (B1 ... B7, D1) in a table's rows.
 """
 from __future__ import annotations
 
@@ -70,6 +70,7 @@ HAND_WRITTEN = {
     "decode_fft_kernel": "B5",
     "decode_ola_kernel": "B5",
     "lstm_bb_cluster_kernel": "B7",
+    "threefry_dropout_kernel": "D1",
 }
 
 
@@ -108,10 +109,10 @@ def kernel_label(name: str) -> str:
     """A kernel of this package's name and template arguments, out of its
     mangled name (ptxas's report) or its demangled one (a profiler's);
     other names unchanged."""
-    m = re.search(r"\d+((?:lstm|flash|stft|decode)[a-z0-9_]*kernel(?:I.*?E)?)E", name)
+    m = re.search(r"\d+((?:lstm|flash|stft|decode|threefry)[a-z0-9_]*kernel(?:I.*?E)?)E", name)
     if m:
         return m.group(1)
-    m = re.search(r"\b((?:lstm|flash|stft|decode)[a-z0-9_]*kernel(?:<[^()]*>)?)\(", name)
+    m = re.search(r"\b((?:lstm|flash|stft|decode|threefry)[a-z0-9_]*kernel(?:<[^()]*>)?)\(", name)
     return m.group(1) if m else name
 
 
@@ -134,7 +135,7 @@ def kernel_op(name: str) -> str:
 
 
 def kernel_id(label: str) -> Optional[str]:
-    """The id (B1 ... B7) of the wrapper that launches the kernel a table's
+    """The id (B1 ... B7, D1) of the wrapper that launches the kernel a table's
     row names, or None for a kernel of no wrapper of this package."""
     m = re.match(r"([a-z0-9_]*kernel)", label)
     ids = HAND_WRITTEN.get(m.group(1)) if m else None

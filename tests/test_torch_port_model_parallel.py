@@ -152,7 +152,15 @@ def _spawn(tmp, name, world, payload):
 def runs(tmp_path_factory):
     """Every side of every case: the JAX mesh steps, the port's single
     process, and each mesh shape's ranks (the worker's output, one dict a
-    rank)."""
+    rank). The port's sides (the ranks inherit the variables) draw on the
+    hash routes, whose masks the recorder reads."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SE_ATTN_IMPL", "flash")
+        mp.setenv("SE_HIDDEN_DROPOUT_IMPL", "hash")
+        return _runs(tmp_path_factory)
+
+
+def _runs(tmp_path_factory):
     torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("model_parallel")
     batches = [_batch(k) for k in range(STEPS)]

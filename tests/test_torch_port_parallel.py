@@ -190,7 +190,16 @@ def _single(kind, objective, weights, batches, salts):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every side of every case: the JAX mesh step, the port's single process
-    and the two ranks' results (the worker's output, one dict a rank)."""
+    and the two ranks' results (the worker's output, one dict a rank). The
+    port's sides (the ranks inherit the variables) replay the JAX step's salts
+    on the hash routes, which the variables name."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SE_ATTN_IMPL", "flash")
+        mp.setenv("SE_HIDDEN_DROPOUT_IMPL", "hash")
+        return _runs(tmp_path_factory)
+
+
+def _runs(tmp_path_factory):
     torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("parallel")
     jax_sides, singles, train = {}, {}, {}

@@ -305,14 +305,14 @@ def test_upstream_dropout_override_and_spec_aug_bands():
     assert up.trainable and up.config.hidden_dropout_prob == 0.3
     assert up.config.attention_probs_dropout_prob == 0.3
     feat = torch.ones(3, 80, 40)
-    out = t_up.apply_spec_aug(feat, torch.Generator().manual_seed(0))
+    out = t_up.apply_spec_aug(feat, (0, 0))
     masked_t = (out == 0).all(dim=2)  # whole frames zeroed
     masked_f = (out == 0).all(dim=1)  # whole bins zeroed
     for b in range(3):
         # two bands of width 30 frames and two of 12 bins, possibly overlapping
         assert 30 <= int(masked_t[b].sum()) <= 60
         assert 12 <= int(masked_f[b].sum()) <= 24
-    again = t_up.apply_spec_aug(feat, torch.Generator().manual_seed(0))
+    again = t_up.apply_spec_aug(feat, (0, 0))
     assert torch.equal(out, again)
     assert t_up.DummyUpstream(7)(feat) is feat
 
